@@ -1,0 +1,1 @@
+"""See the package docstring of sahs_tpu_torch."""
