@@ -24,7 +24,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("deform_pair", "nerf_level")
+KERNELS = ("deform_pair", "nerf_level", "level_train", "deform_pair_vjp",
+           "grid_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -115,11 +116,11 @@ def load(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, argtypes: str):
     """C function ``symbol`` of kernel library ``name``. ``argtypes`` spells
     the signature, one letter per argument: p pointer (and stream),
-    i int, l long long. The result is the launch's cudaError_t."""
+    i int, l long long, f float. The result is the launch's cudaError_t."""
     fn = getattr(load(name), symbol)
     if fn.argtypes is None:
         kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
-                 "l": ctypes.c_longlong}
+                 "l": ctypes.c_longlong, "f": ctypes.c_float}
         fn.argtypes = [kinds[c] for c in argtypes]
         fn.restype = ctypes.c_int
     return fn

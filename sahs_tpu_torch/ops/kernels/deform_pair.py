@@ -1,14 +1,19 @@
-"""K1: the warp + hyper-sheet deformation pair, forward.
+"""K1 and K3: the warp + hyper-sheet deformation pair, forward and backward.
 
-Replaces ``sahs_tpu/ops/pallas/field_mlp.py:deform_pair_forward`` (:868,
+K1 replaces ``sahs_tpu/ops/pallas/field_mlp.py:deform_pair_forward`` (:868,
 ``pallas_call`` at :1022), reached through ``deform_pair_apply_fused``.
 The CUDA kernel is ``csrc/deform_pair.cu``; its source note gives the
 bound on the H100 (operations: ~0.25 MFLOP per point) and the design.
 
-``deform_pair_forward`` launches the kernel for tensors on a CUDA device
-and counts the launch in ``deform_pair_forward.launches``; for tensors on
-the CPU it runs ``deform_pair_plain``, the same function in plain tensor
-math. There is no fallback from one to the other.
+K3 replaces ``field_mlp.py:deform_pair_vjp`` (:1098, ``pallas_call`` at
+:1233) with need_gx=False, the train path's form: the dW and db of both
+trunks and heads from the packed cotangent g (+ an addend g2). The CUDA
+kernel is ``csrc/deform_pair_vjp.cu``.
+
+Each wrapper launches its kernel for tensors on a CUDA device and counts
+the call in ``<wrapper>.launches``; for tensors on the CPU it runs the
+``*_plain`` version, the same function in plain tensor math. There is no
+fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -19,8 +24,9 @@ import torch
 
 from ..grid import _cell_geometry
 from . import _build
-from .field_mlp import (BlobBuilder, PEGroup, fold_trunk, kernel_pe, mm,
-                        linear_params, torch_dtype, trunk_forward,
+from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
+                        dact, dw_chunks, fold_trunk, kernel_pe, linear_params,
+                        mm, mm_t, torch_dtype, trunk_backward, trunk_forward,
                         trunk_into_blob, trunk_params)
 
 
@@ -134,4 +140,138 @@ def deform_pair_forward(points: torch.Tensor, weights: PairWeights,
 
 
 deform_pair_forward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the pair's backward
+# ---------------------------------------------------------------------------
+
+TP_BWD = 32   # points per tile of K3's per-point kernel and of its stash
+
+
+def pair_train_plan(weights: PairWeights, dtype: torch.dtype) -> TrainPlan:
+    """K3's plan: the forward blob of K1, a blob of transposed head and
+    trunk weights in backward order (per net: head, then layers L-1 .. 1,
+    the skip layer by its hidden rows), the activation slots [pe, warp h_0
+    .. h_{L-1}, hyper h_0 .. h_{L-1}] and the products of every layer."""
+    key = ("train", dtype)
+    if key not in weights._blobs:
+        fwd, bwd = BlobBuilder(), BlobBuilder()
+        trunk_into_blob(fwd, weights.warp_trunk, weights.warp_skip, "relu",
+                        weights.warp_out, "tanh")
+        trunk_into_blob(fwd, weights.hyper_trunk, weights.hyper_skip, "relu",
+                        weights.hyper_out, "linear")
+        pe_rows = weights.warp_trunk[0]["w"].shape[0]
+        act_rows, inputs = [pe_rows], []
+        for trunk, out, skip in ((weights.warp_trunk, weights.warp_out,
+                                  weights.warp_skip),
+                                 (weights.hyper_trunk, weights.hyper_out,
+                                  weights.hyper_skip)):
+            first = len(act_rows)        # act slot of this net's h_0
+            hid = trunk[0]["w"].shape[1]
+            for i in range(len(trunk)):
+                inputs.append((0 if i == 0 else first + i - 1,
+                               0 if (i == skip and i > 0) else -1))
+                act_rows.append(hid)
+            inputs.append((first + len(trunk) - 1, -1))
+            zeros = torch.zeros(hid, device=out["w"].device)
+            bwd.layer(out["w"].t(), zeros, "linear")
+            for i in range(len(trunk) - 1, 0, -1):
+                bwd.layer(trunk[i]["w"][:hid].t(), zeros, "linear")
+        weights._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs,
+                                               TP_BWD, dtype)
+    return weights._blobs[key]
+
+
+def _pair_grads(warp_layers, hyper_layers):
+    return {"warp": {"trunk": warp_layers[:-1], "out": warp_layers[-1]},
+            "hyper": {"trunk": hyper_layers[:-1], "out": hyper_layers[-1]}}
+
+
+def deform_pair_vjp_plain(points: torch.Tensor, weights: PairWeights,
+                          g: torch.Tensor, g2, compute_dtype: str):
+    """Backward of K1 (field_mlp.py:_pair_bwd_math :1038-1095, need_gx
+    False): both trunks recomputed from the shared PE of the raw points
+    (P, 3), the packed cotangent g (+ g2) (P, 3 + ambient) taken back
+    through the tanh warp head and the linear hyper head. Returns
+    {"warp"|"hyper": {"trunk": [{"w", "b"}] folded, "out": {"w", "b"}}}."""
+    dtype = torch_dtype(compute_dtype)
+    with torch.no_grad():
+        pe = kernel_pe(points, weights.pe_groups)
+        gval = g.to(torch.float32) if g2 is None else (
+            g.to(torch.float32) + g2.to(torch.float32))
+        nets = []
+        for trunk, out, skip, act, cols in (
+                (weights.warp_trunk, weights.warp_out, weights.warp_skip,
+                 "tanh", slice(0, 3)),
+                (weights.hyper_trunk, weights.hyper_out, weights.hyper_skip,
+                 "linear", slice(3, None))):
+            acts = []
+            h = trunk_forward(trunk, pe, skip, torch.relu, dtype, acts=acts)
+            y = mm(h, out["w"], dtype) + out["b"]
+            y = torch.tanh(y) if act == "tanh" else y
+            gz = gval[:, cols] * dact(act, y)
+            head = {"w": mm_t(h, gz, dtype), "b": torch.sum(gz, dim=0)}
+            ga = mm(gz, out["w"].t(), dtype)
+            _, tg = trunk_backward(trunk, pe, acts, ga, skip, "relu", dtype,
+                                   need_gx=False)
+            nets.append(tg + [head])
+    return _pair_grads(*nets)
+
+
+def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
+                    g: torch.Tensor, g2, compute_dtype: str):
+    """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as ``deform_pair_vjp_plain``.
+    One call is one count, whatever the number of launches inside."""
+    if points.device.type == "cpu":
+        return deform_pair_vjp_plain(points, weights, g, g2, compute_dtype)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    _check_kernel_shapes(points, weights)
+    dtype = torch_dtype(compute_dtype)
+    P = points.shape[0]
+    gw = 3 + weights.hyper_out["w"].shape[1]
+    if max(weights.warp_trunk[0]["w"].shape[1],
+           weights.hyper_trunk[0]["w"].shape[1]) > 128:
+        raise ValueError("the K3 kernel takes trunks at most 128 wide")
+    if tuple(g.shape) != (P, gw) or (g2 is not None and g2.shape != g.shape):
+        raise ValueError(f"K3 cotangents must be ({P}, {gw}), got g "
+                         f"{tuple(g.shape)}, g2 "
+                         f"{None if g2 is None else tuple(g2.shape)}")
+    plan = pair_train_plan(weights, dtype)
+    if plan.fwd[0].device != points.device:
+        raise ValueError(f"K3 weights are on {plan.fwd[0].device}, points on "
+                         f"{points.device}")
+    f32 = torch.float32
+    points = points.contiguous()
+    g = g.to(f32).contiguous()
+    g2 = g2.to(f32).contiguous() if g2 is not None else None
+    n_tiles = -(-P // TP_BWD)
+    dev = points.device
+    acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
+    gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)
+    chunks = dw_chunks(n_tiles)
+    part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
+    out = torch.empty(plan.out_len, dtype=f32, device=dev)
+    p = _build.ptr
+    fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp",
+                         "plpp" + "ppp" + "ppp" + "iiiiiii" + "p"
+                         + "pp" + "i" * 6 + "pppp" + "p")
+    rc = fn(p(points), P, p(g), p(g2), *[p(t) for t in plan.fwd],
+            *[p(t) for t in plan.bwd], len(weights.warp_trunk),
+            len(weights.hyper_trunk), weights.warp_skip, weights.hyper_skip,
+            weights.pe_groups[0][2], gw - 3, int(dtype == torch.bfloat16),
+            p(plan.slots), p(acts), p(gzs), plan.n_act, plan.act_stride,
+            plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
+            p(plan.prods), p(plan.work), p(part), p(out),
+            _build.stream_ptr(dev))
+    _build.check(rc, "deform_pair_vjp")
+    deform_pair_vjp.launches += 1
+    layers = plan.unpack(out)
+    nw = len(weights.warp_trunk) + 1
+    return _pair_grads(layers[:nw], layers[nw:])
+
+
+deform_pair_vjp.launches = 0
 

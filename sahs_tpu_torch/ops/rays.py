@@ -39,6 +39,24 @@ def get_ray_bundle(height: int, width: int, intrinsics: torch.Tensor,
     return ray_origins, ray_directions
 
 
+def get_rays_at(flat_idx: torch.Tensor, height: int, width: int,
+                intrinsics: torch.Tensor, tform_cam2world: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ray origins and directions, each (N, 3), at flat pixel indices
+    (row-major h * W + w): the math of get_ray_bundle at those pixels only."""
+    c2w = tform_cam2world
+    intrinsics = intrinsics.to(c2w.dtype)
+    ii = (flat_idx % width).to(c2w.dtype)
+    jj = torch.div(flat_idx, width, rounding_mode="floor").to(c2w.dtype)
+    dirs = torch.stack(
+        [(ii - width * intrinsics[2]) / intrinsics[0],
+         -(jj - height * intrinsics[3]) / intrinsics[1],
+         -torch.ones_like(ii)], dim=-1)
+    ray_directions = torch.sum(dirs[..., None, :] * c2w[:3, :3], dim=-1)
+    ray_origins = c2w[:3, -1].expand(ray_directions.shape)
+    return ray_origins, ray_directions
+
+
 def ndc_rays(height: int, width: int, focal, near: float,
              rays_o: torch.Tensor, rays_d: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:

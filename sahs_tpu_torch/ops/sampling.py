@@ -4,8 +4,9 @@ Parity targets in the reference:
   - coarse linspace + stratified perturb   nerf-pytorch/nerf/train_utils.py:93-113
   - sample_pdf_2 (inverse-CDF importance)  nerf-pytorch/nerf/nerf_helpers.py:454-497
 
-Every random draw is an optional tensor argument (``t_rand``, ``u``); when
-it is absent the function draws from the given ``torch.Generator``.
+Every random draw is an optional tensor argument (``t_rand``, ``u``,
+``gumbel``); when it is absent the function draws from the given
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -77,4 +78,68 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, num_samples: int,
 
 def merge_z_vals(z_vals: torch.Tensor, z_samples: torch.Tensor) -> torch.Tensor:
     """sort(cat(coarse, fine)) along the sample axis (train_utils.py:166)."""
-    return torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+    return torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1,
+                      stable=True).values
+
+
+# ---------------------------------------------------------------------------
+# Semantic-weighted ray selection (train_stage_rays_auto.py:390-422)
+# ---------------------------------------------------------------------------
+
+def semantic_ray_probs(sample_prob: torch.Tensor, mask: torch.Tensor
+                       ) -> torch.Tensor:
+    """probs[h, w] = sum_c sample_prob[c] * mask[h, w, c], normalised."""
+    probs = torch.sum(sample_prob[None, None, :] * mask, dim=-1)
+    return probs / torch.sum(probs)
+
+
+def bbox_ray_probs(bbox: torch.Tensor, H: int, W: int, p: float = 0.9
+                   ) -> torch.Tensor:
+    """Mass ``p`` inside the face bbox rows [b0, b1) x cols [b2, b3), 1 - p
+    outside, normalised (nerface_dataloader.py:63-87)."""
+    dev = bbox.device
+    rows = torch.arange(H, device=dev)
+    cols = torch.arange(W, device=dev)
+    in_r = (rows >= bbox[0]) & (rows < bbox[1])
+    in_c = (cols >= bbox[2]) & (cols < bbox[3])
+    inside = in_r[:, None] & in_c[None, :]
+    probs = torch.where(inside, torch.tensor(p, device=dev),
+                        torch.tensor(1.0 - p, device=dev))
+    return probs / torch.sum(probs)
+
+
+def weighted_ray_indices(probs_flat: torch.Tensor, num_rays: int,
+                         replace: bool = False,
+                         generator: Optional[torch.Generator] = None,
+                         gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``num_rays`` flat pixel indices drawn with probabilities ``probs``.
+    Without replacement (the reference's np.random.choice(replace=False)):
+    Gumbel top-k over log-probabilities, exact, equal scores taken lower
+    index first as ``lax.top_k`` takes them (float32 Gumbel noise ties
+    now and then at 512x512, and ``torch.topk`` breaks ties in an order
+    that differs between devices); ``gumbel`` (H*W,) standard Gumbel noise
+    may be passed in instead of drawn. With replacement: independent
+    categorical draws."""
+    if replace:
+        return torch.multinomial(probs_flat, num_rays, replacement=True,
+                                 generator=generator)
+    if gumbel is None:
+        u = torch.rand(probs_flat.shape, generator=generator,
+                       dtype=probs_flat.dtype, device=probs_flat.device)
+        tiny = torch.finfo(probs_flat.dtype).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    scores = torch.log(probs_flat + 1e-12) + gumbel
+    return torch.sort(scores, descending=True, stable=True).indices[:num_rays]
+
+
+def gather_rays(flat_idx: torch.Tensor, *arrays):
+    """Rows at flat pixel indices of (H*W, C) or (H, W, C) arrays."""
+    out = []
+    for a in arrays:
+        if a is None:
+            out.append(None)
+            continue
+        if a.dim() == 3:
+            a = a.reshape(-1, a.shape[-1])
+        out.append(a[flat_idx])
+    return tuple(out)

@@ -6,7 +6,9 @@ and loads it into a ``NeRFaceModel``. Two layout changes:
   - a linear layer's ``w`` is (in, out); ``nn.Linear.weight`` is (out, in);
   - AudioNet's conv ``w`` is (k, cin, cout) for NWC data (fields.py:338-351);
     ``nn.Conv1d.weight`` is (cout, cin, k) for NCW data.
-``params_to_jax`` goes back, for round-trip checks.
+``params_to_jax`` goes back, for round-trip checks, and ``grads_to_jax``
+maps the ``.grad`` fields onto the same tree, so that gradients compare
+leaf by leaf.
 """
 from __future__ import annotations
 
@@ -66,13 +68,15 @@ def params_from_jax(model: NeRFaceModel, tree: Dict[str, Any]) -> NeRFaceModel:
     return model
 
 
-def _lin(lin: nn.Linear) -> Dict[str, np.ndarray]:
-    return {"w": lin.weight.detach().cpu().t().numpy(),
-            "b": lin.bias.detach().cpu().numpy()}
+def params_to_jax(model: NeRFaceModel, get=lambda p: p) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: a tree of numpy arrays.
+    ``get`` maps each parameter to the tensor taken (default: itself)."""
+    def np_(p):
+        return get(p).detach().cpu().numpy()
 
+    def _lin(lin: nn.Linear) -> Dict[str, np.ndarray]:
+        return {"w": np_(lin.weight).T, "b": np_(lin.bias)}
 
-def params_to_jax(model: NeRFaceModel) -> Dict[str, Any]:
-    """The inverse of ``params_from_jax``: a tree of numpy arrays."""
     tree: Dict[str, Any] = {}
     for name in ("warp", "hyper"):
         net = getattr(model, name)
@@ -89,11 +93,18 @@ def params_to_jax(model: NeRFaceModel) -> Dict[str, Any]:
             "dir": [_lin(l) for l in net.dir], "fc_rgb": _lin(net.fc_rgb),
             "seg": [_lin(l) for l in net.seg], "fc_seg": _lin(net.fc_seg)}
     if model.spatial_embeddings is not None:
-        tree["spatial_embeddings"] = model.spatial_embeddings.detach().cpu().numpy()
+        tree["spatial_embeddings"] = np_(model.spatial_embeddings)
     if model.audnet is not None:
         a = model.audnet
         tree["audnet"] = {
-            "convs": [{"w": c.weight.detach().cpu().permute(2, 1, 0).numpy(),
-                       "b": c.bias.detach().cpu().numpy()} for c in a.convs],
+            "convs": [{"w": np_(c.weight).transpose(2, 1, 0),
+                       "b": np_(c.bias)} for c in a.convs],
             "fc1": _lin(a.fc1), "fc2": _lin(a.fc2)}
     return tree
+
+
+def grads_to_jax(model: NeRFaceModel) -> Dict[str, Any]:
+    """The model's ``.grad`` fields as the JAX parameter tree (zeros where
+    a parameter has no gradient)."""
+    return params_to_jax(
+        model, lambda p: p.grad if p.grad is not None else torch.zeros_like(p))
