@@ -53,7 +53,34 @@ Phases, in order (any failure exits non-zero and prints no result):
      and sample_prob finite, every param changed, sample_prob summing to 1;
      ms/step on the device and the host clock, rays/s; then per-kernel
      times at the step's shapes beside the plain versions, the library
-     yardsticks and the bounds.
+     yardsticks and the bounds;
+  7. fallback-kernel parity: K6 (both levels), K7, K8 and K9 against their
+     plain versions on the autograd fallback's own inputs and cotangents,
+     float32 at 256 rays (bg_sup 0 and 0.5) and bfloat16 at the main path's
+     2048 rays, with phase 5's gates; the ablation config's corner rows
+     from _cell_geometry on the card checked against the CPU's and against
+     K9's in-kernel cells, and its K5 and K6 (15 PE frequencies, 4x256)
+     against their plain versions in float32; K5 and K6 again on path 3's
+     own inputs (both levels, the loss cotangents with g_w) in float32 at
+     256 rays and bfloat16 at 2048, and K5 in bfloat16 at the ablation
+     frame's 32,768-ray chunk (64 and 128 samples), with the same gates;
+     faults planted in the kernels' bf16
+     results (K6's bias gradient dropped, K8's first split-K chunk
+     dropped, one corner left out of K9) must each miss them; whole float32
+     steps at 256 rays: the fallback with fuse_composite on and off through
+     the kernels against the same steps on the plain versions (STEP_GATES,
+     launch counts checked), and the fused step against the fallback step
+     (FUSED_VS_FALLBACK);
+  8. the fallback's paths on the card, each with its launch counters set to
+     0 just before and checked just after: (1) the flagship step with
+     fused_grads off (K1 = K3 = K5 = K6 = K9 = 2 a step), (2) the same
+     with fuse_composite off (K1 = K3 = K7 = K8 = K9 = 2) and its 512x512
+     eval render timed on one 32,768-ray chunk (K1 = K7 = 2), (3)
+     configs/expression/person_1_ablation.yml trained (K5 = K6 = K9 = 2,
+     no K1 or K3) and a 512x512 frame rendered through make_eval_renderer
+     (K5 only); 2 warm-up and 5 timed steps each; then K6-K9's times at
+     the paths' shapes beside their plain versions, library yardsticks and
+     bounds.
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -201,24 +228,65 @@ TRAIN_BF16_GATES = {"out_rel": BF16_GATE, "point_l2_rel": 1e-2,
 # ReLU input by ~1e-5 and flips the few that lie that close to 0: moving
 # the camera one ulp moves the plain step's leaves by up to 4.8e-3.
 STEP_GATES = {"loss_rel": 1e-5, "l2_rel": 2e-2, "cosine": 0.9999}
+# The fused step against the fallback step, both through the kernels,
+# float32, every leaf. The two scatter a coarse point's gradient
+# differently (one merged fine pass against a pass per level) but run the
+# same forward, so they differ only in the order of their sums: measured
+# 6.3e-7 on an H100, so 1e-4 (well inside ROADMAP's fused-vs-autograd
+# ceiling of 5e-2) still catches a leaf that is 1 % off.
+FUSED_VS_FALLBACK = {"l2_rel": 1e-4, "cosine": 0.9999}
+T_START = time.time()
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """The fused train path with the plain versions of K1-K4 in place of
-    the kernels, whatever the device. Raises if a kernel launched inside
-    (the swap did not take)."""
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter holder, by kernel."""
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    return {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
+            "K3": k1.deform_pair_vjp, "K4": k4.grid_dg,
+            "K5": k5.nerf_level_forward, "K6": k2.nerf_level_vjp,
+            "K7": k5.nerf_rayd_forward, "K8": k2.nerf_rayd_vjp,
+            "K9": k4.grid_dg_coords}
+
+
+def fused_swaps():
+    """(module, name, plain version) of each kernel of the fused path."""
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
     from sahs_tpu_torch.train import fused
-    swaps = [(fused, "deform_pair_forward", k1.deform_pair_plain),
-             (fused, "deform_pair_vjp", k1.deform_pair_vjp_plain),
-             (fused, "grid_dg", k4.grid_dg_plain),
-             (k2, "nerf_level_train", k2.nerf_level_train_plain)]
-    counters = (k1.deform_pair_forward, k1.deform_pair_vjp, k4.grid_dg,
-                k2.nerf_level_train)
-    before = [f.launches for f in counters]
+    return [(fused, "deform_pair_forward", k1.deform_pair_plain),
+            (fused, "deform_pair_vjp", k1.deform_pair_vjp_plain),
+            (fused, "grid_dg", k4.grid_dg_plain),
+            (k2, "nerf_level_train", k2.nerf_level_train_plain)]
+
+
+def fallback_swaps():
+    """(module, name, plain version) of each kernel of the autograd
+    fallback (the differentiable pair and the grid-coupled level ops)."""
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import field_grid
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    return [(k1, "deform_pair_forward", k1.deform_pair_plain),
+            (k1, "deform_pair_vjp", k1.deform_pair_vjp_plain),
+            (field_grid, "nerf_level_forward", k5.nerf_level_plain),
+            (field_grid, "nerf_level_vjp", k2.nerf_level_vjp_plain),
+            (field_grid, "nerf_rayd_forward", k5.nerf_raw_plain),
+            (field_grid, "nerf_rayd_vjp", k2.nerf_rayd_vjp_plain),
+            (field_grid, "grid_dg_coords", k4.grid_dg_coords_plain)]
+
+
+@contextlib.contextmanager
+def plain_versions(swaps):
+    """A train path with the plain versions in place of its kernels
+    (``swaps``: fused_swaps() or fallback_swaps()), whatever the device.
+    Raises if a kernel launched inside (the swap did not take)."""
+    held = list(kernel_counters().values())
+    before = [f.launches for f in held]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -227,7 +295,7 @@ def plain_versions():
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
-    if [f.launches for f in counters] != before:
+    if [f.launches for f in held] != before:
         raise RuntimeError("a kernel launched on the plain versions' path")
 
 
@@ -426,6 +494,471 @@ def planted_faults(inp, trees) -> dict:
         k4.grid_dg(packed, rows, gse, None, shape),
         k4.grid_dg_plain(packed, rows, gse, gse2, shape))
     return out
+
+
+def loss_cotangents(rgb, w, tgt, lw, bg, bg_sup):
+    """The cotangents of the per-ray Stage-I loss (level_train.py:26-32)
+    with respect to rgb (R, >=15) and the weights (R, S): what the
+    fallback's loss sends back into a level (bg_sup: the background
+    supervision's, on the last weight)."""
+    import torch
+    g_rgb = torch.cat([lw[:, 0:1] * 2.0 * (rgb[:, :3] - tgt[:, :3]),
+                       lw[:, 1:2] * (-tgt[:, 3:15] / (rgb[:, 3:15] + 1e-10)),
+                       torch.zeros_like(rgb[:, :1])], dim=-1)
+    g_w = torch.zeros_like(w)
+    if bg_sup > 0:
+        g_w[:, -1] = bg_sup * torch.sum(torch.square(bg[:, :3] - tgt[:, :3]), -1)
+    return g_rgb, g_w
+
+
+def fallback_level_inputs(model, ds, near, far, dev, R, compute_dtype, gen,
+                          bg_sup):
+    """The inputs the autograd fallback gives K6 (both levels), K7 and K8
+    (the fine level of the deformation-reuse path: coarse and importance
+    points concatenated, 128 a ray) and K9 (the fine level's sample-major
+    points), built with the plain versions from R random pixels of frame
+    0, with the cotangents the fallback's loss sends back."""
+    import torch
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels.field_grid import corner_table, sample_major
+    from sahs_tpu_torch.ops.rays import get_rays_at
+    from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
+    from sahs_tpu_torch.ops.sampling import coarse_z_vals, sample_pdf
+    from sahs_tpu_torch.train.fused import ray_loss_weights
+    spec = model.spec
+    item = ds[0]
+    H, W = ds.H, ds.W
+    idx = torch.randperm(H * W, generator=gen)[:R].to(dev)
+    ro, rd = get_rays_at(idx, H, W, torch.as_tensor(item["intrinsics"]).to(dev),
+                         torch.as_tensor(item["pose"]).to(dev))
+    mask = torch.as_tensor(item["mask"]).to(dev).reshape(-1, 12)[idx]
+    tgt = torch.cat([torch.as_tensor(item["image"]).to(dev).reshape(-1, 3)[idx],
+                     mask], dim=-1)
+    bg = torch.as_tensor(ds.background()).to(dev).reshape(-1, 15)[idx]
+    lw = ray_loss_weights(mask, 0.02, 0.005)
+    warp_g, pts_g, dir_g = nerface.build_pe_groups(spec)
+    with torch.no_grad():
+        driving = nerface.compute_driving(model, torch.as_tensor(item["driving"]).to(dev))
+        pose_enc = nerface.encode_pose(torch.as_tensor(item["pose"]).to(dev))
+    pair = k1.prepare_pair(model.warp, model.hyper, torch.cat([driving, pose_enc]),
+                           warp_g)
+    grid = model.spatial_embeddings.detach()
+    dims = tuple(grid.shape[1:])
+    table = corner_table(grid, compute_dtype)
+    rnd = lambda *shape: torch.rand(shape, generator=gen).to(dev)
+    nrm = lambda *shape: 0.1 * torch.randn(shape, generator=gen).to(dev)
+    pts = lambda z: (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+    z_c = coarse_z_vals(torch.full((R,), near, device=dev),
+                        torch.full((R,), far, device=dev), 64, perturb=True,
+                        t_rand=rnd(R, 64))
+    out = {"dims": dims, "R": R}
+    levels, w_c = {}, None
+    for name, sup in (("coarse", 0.0), ("fine", bg_sup)):
+        lvl = k5.prepare_level(getattr(model, name), pose_enc, pts_g, dir_g)
+        if name == "coarse":
+            z = z_c
+        else:
+            z_new = sample_pdf(0.5 * (z_c[:, 1:] + z_c[:, :-1]), w_c[:, 1:-1], 64,
+                               u=rnd(R, 64))
+            z = torch.sort(torch.cat([z_c, z_new], -1), dim=-1, stable=True).values
+        packed, rows = k1.deform_pair_plain(pts(z), pair, compute_dtype, z.shape[1],
+                                            dims)
+        noise = nrm(*z.shape)
+        rgb, w = k5.nerf_level_plain(packed, rd, table, rows, z, bg, noise, lvl,
+                                     compute_dtype, dims)
+        w_c = w if name == "coarse" else w_c
+        g_rgb, g_w = loss_cotangents(rgb, w, tgt, lw, bg, sup)
+        args = (packed, rd, table, rows, z, bg, noise, g_rgb, g_w, lvl,
+                compute_dtype, dims)
+        levels[name] = {"args": args, "plain": k2.nerf_level_vjp_plain(*args),
+                        "lvl": lvl, "noise": noise}
+    out["k6"] = levels
+    fine = levels["fine"]
+    S = 128
+    out["k9"] = (sample_major(fine["args"][0][:, :3], R, S),
+                 sample_major(fine["plain"][1], R, S), tuple(grid.shape))
+    # the reuse path's fine level: [coarse | importance] points, unsorted
+    packed_c, rows_c = k1.deform_pair_plain(pts(z_c), pair, compute_dtype, 64, dims)
+    packed_n, rows_n = k1.deform_pair_plain(pts(z_new), pair, compute_dtype, 64, dims)
+    cat = lambda a, b: torch.cat([a.reshape(R, 64, -1), b.reshape(R, 64, -1)],
+                                 1).reshape(R * S, -1)
+    packed_f, rows_f = cat(packed_c, packed_n), cat(rows_c, rows_n)
+    z_fine, perm = torch.sort(torch.cat([z_c, z_new], -1), dim=-1, stable=True)
+    lvl_f = fine["lvl"]
+    fwd = (packed_f, rd, table, rows_f, lvl_f, compute_dtype, dims)
+    raw_p = k5.nerf_raw_plain(*fwd)
+    raw = raw_p.detach().clone().requires_grad_()
+    r3 = torch.take_along_dim(raw.reshape(R, S, 16), perm[..., None], dim=1)
+    r3 = torch.cat([r3[:, :-1], torch.cat([bg, r3[:, -1:, -1]], -1)[:, None]], 1)
+    rend = volume_render_radiance_field(r3, z_fine, rd, radiance_field_noise_std=1.0,
+                                        background_prior=bg, noise=fine["noise"])
+    g_rgb, g_w = loss_cotangents(rend.rgb.detach(), rend.weights.detach(), tgt,
+                                 lw, bg, bg_sup)
+    (g_raw,) = torch.autograd.grad([rend.rgb, rend.weights], raw,
+                                   [g_rgb[:, :15], g_w])
+    out["k7"], out["k7_plain"] = fwd, raw_p
+    out["k8"] = fwd[:4] + (g_raw,) + fwd[4:]
+    out["k8_plain"] = k2.nerf_rayd_vjp_plain(*out["k8"])
+    out["k7_coarse"] = (packed_c, rd, table, rows_c, levels["coarse"]["lvl"],
+                        compute_dtype, dims)
+    out["k8_coarse"] = out["k7_coarse"][:4] + (
+        g_raw.reshape(R, S, 16)[:, :64].reshape(-1, 16),) + out["k7_coarse"][4:]
+    return out
+
+
+def fallback_kernel_parity(inp):
+    """K6 at both levels, K7, K8 and K9 against their plain versions on the
+    same inputs. Returns the measured errors and the kernels' results."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.utils.compare import leaves, point_errors, tree_errors
+    res, outs = {}, {}
+    tol = TRAIN_F32_GATES["point_tol"]
+    worst_abs = lambda a, b: max(abs_err(x, y) for (_, x), (_, y)
+                                 in zip(leaves(a), leaves(b)))
+    for name, lv in inp["k6"].items():
+        gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*lv["args"])
+        gx_p, gse_p, gbg_p, g_p = lv["plain"]
+        outs[f"k6_{name}"] = g_k
+        e = tree_errors(g_k, g_p)
+        res[f"k6_{name}"] = {
+            "gx": point_errors(gx_k, gx_p, tol), "gse": point_errors(gse_k, gse_p, tol),
+            "gbg": point_errors(gbg_k, gbg_p, tol), "dw_l2_rel": e["l2_rel"],
+            "dw_cosine": e["cosine"], "dw_worst_leaf": e["worst_leaf"],
+            "max_abs_err": worst_abs(g_k, g_p),
+            "finite": bool(all(torch.isfinite(t).all() for t in (gx_k, gse_k, gbg_k)))}
+    raw_k = k5.nerf_rayd_forward(*inp["k7"])
+    raw_p = inp["k7_plain"]
+    res["k7"] = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": scaled_err(raw_k, raw_p),
+                 "max_abs_err": abs_err(raw_k, raw_p),
+                 "finite": bool(torch.isfinite(raw_k).all())}
+    gx_k, gse_k, g_k = k2.nerf_rayd_vjp(*inp["k8"])
+    gx_p, gse_p, g_p = inp["k8_plain"]
+    outs["k8"] = g_k
+    e = tree_errors(g_k, g_p)
+    res["k8"] = {"gx": point_errors(gx_k, gx_p, tol), "gse": point_errors(gse_k, gse_p, tol),
+                 "dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
+                 "dw_worst_leaf": e["worst_leaf"], "max_abs_err": worst_abs(g_k, g_p),
+                 "finite": bool(torch.isfinite(gx_k).all() and torch.isfinite(gse_k).all())}
+    dg_k = k4.grid_dg_coords(*inp["k9"])
+    dg_p = k4.grid_dg_coords_plain(*inp["k9"])
+    outs["k9"] = dg_k
+    e = tree_errors(dg_k, dg_p)
+    res["k9"] = {"dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
+                 "max_abs_err": abs_err(dg_k, dg_p)}
+    torch.cuda.synchronize()
+    return res, outs
+
+
+def fallback_gates_missed(res, compute_dtype) -> list:
+    """The phase-7 gates (TRAIN_F32_GATES, TRAIN_BF16_GATES, as the train
+    kernels') that ``res`` misses, by kernel."""
+    missed = []
+    f32 = compute_dtype == "float32"
+    g = TRAIN_F32_GATES if f32 else TRAIN_BF16_GATES
+    for name, r in res.items():
+        if name == "k7":
+            ok = r["finite"] and (r["raw_abs"] <= g["out_abs"] if f32
+                                  else r["raw_scaled"] <= g["out_rel"])
+            if not ok:
+                missed.append(name)
+            continue
+        if name.startswith("k5"):
+            ok = r["finite"] and (max(r["rgb_abs"], r["w_abs"]) <= g["out_abs"] if f32
+                                  else max(r["rgb_rel"], r["w_rel"]) <= g["out_rel"])
+            if not ok:
+                missed.append(name)
+            continue
+        points = [q for q in ("gx", "gse", "gbg") if q in r]
+        points_ok = all(
+            r[q]["cosine"] >= g["cosine"]
+            and (r[q]["n_over"] <= g["point_flips"] if f32
+                 else r[q]["l2_rel"] <= g["point_l2_rel"])
+            for q in points)
+        if not (r.get("finite", True) and points_ok):
+            missed.append(name)
+        if not dw_ok({"l2_rel": r["dw_l2_rel"], "cosine": r["dw_cosine"]}, g):
+            missed.append(name + " dW")
+    return missed
+
+
+def dg_one_corner(coords, g, grid_shape, corner: int):
+    """The plain dGrid of one corner (bits dz, dy, dx) of every point's
+    cell: what K9 would leave out if it dropped that corner."""
+    import torch
+    from sahs_tpu_torch.ops.grid import _cell_geometry
+    C, D, H, W = grid_shape
+    _, (fx, fy, fz), ok = _cell_geometry(coords[:, :3].float(), (D, H, W))
+    dz, dy, dx = (corner >> 2) & 1, (corner >> 1) & 1, corner & 1
+    ix = [torch.floor((coords[:, a].float() + 1.0) * 0.5 * (n - 1)).long()
+          for a, n in ((0, W), (1, H), (2, D))]
+    x, y, z = ix[0] + dx, ix[1] + dy, ix[2] + dz
+    w = ((fz if dz else 1.0 - fz) * (fy if dy else 1.0 - fy)
+         * (fx if dx else 1.0 - fx) * ok.float())
+    inside = (z >= 0) & (z < D) & (y >= 0) & (y < H) & (x >= 0) & (x < W)
+    dg = torch.zeros((D * H * W, C), dtype=torch.float32, device=coords.device)
+    dg.index_add_(0, ((z * H + y) * W + x)[inside], w[inside, None] * g.float()[inside])
+    return dg.reshape(D, H, W, C).permute(3, 0, 1, 2)
+
+
+def ablation_parity(dev, gen) -> dict:
+    """configs/expression/person_1_ablation.yml (no deformation: corner
+    rows from _cell_geometry in PyTorch, 15 PE frequencies, a 4x256 trunk)
+    on the card, float32, 256 rays x 64 samples of random points, a quarter
+    of them on cell faces: the rows on the card equal the rows on the CPU;
+    K9, which forms each cell in the kernel, equals K4 fed those rows (the
+    in-kernel cell is the row's cell); K5 and K6 against their plain
+    versions."""
+    import torch
+    from sahs_tpu_torch.config import load_config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.utils.compare import point_errors, tree_errors
+    cfg = load_config(os.path.join(REPO, "configs", "expression",
+                                   "person_1_ablation.yml"))
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    with torch.no_grad():
+        model.coarse.fc_alpha.bias.fill_(0.5)
+    R, S = 256, 64
+    pts = torch.rand((R * S, 3), generator=gen) * 2.1 - 1.05
+    faces = torch.randint(0, 32, (R * S // 4, 3), generator=gen).float() * 2.0 / 31.0 - 1.0
+    pts[::4] = faces
+    dirs = torch.randn((R, 3), generator=gen) * 0.1 + torch.tensor([0.0, 0.0, -1.0])
+    z = torch.sort(torch.rand((R, S), generator=gen) * 0.6 + 0.2, dim=-1).values
+    bg = torch.rand((R, 15), generator=gen)
+    noise = torch.randn((R, S), generator=gen) * 0.1
+    g = torch.randn((R * S, 32), generator=gen)
+    pts, dirs, z, bg, noise, g = (t.to(dev) for t in (pts, dirs, z, bg, noise, g))
+    grid = model.spatial_embeddings.detach()
+    dims = tuple(grid.shape[1:])
+    rows = _cell_geometry(pts, dims)[0]
+    res = {"rows_card_vs_cpu": int((rows.cpu() != _cell_geometry(pts.cpu(), dims)[0]).sum())}
+    res["k9_vs_k4_rows"] = tree_errors(k4.grid_dg_coords(pts, g, tuple(grid.shape)),
+                                       k4.grid_dg(pts, rows, g, None, tuple(grid.shape)))
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    driving = torch.randn(76, generator=gen).to(dev) * 0.1
+    lvl = k5.prepare_level(model.coarse, driving, pts_g, dir_g)
+    table = pack_corner_table(grid)
+    args = (pts, dirs, table, rows, z, bg, noise, lvl, "float32", dims)
+    rgb_k, w_k = k5.nerf_level_forward(*args)
+    rgb_p, w_p = k5.nerf_level_plain(*args)
+    res["k5_abs"] = max(abs_err(rgb_k, rgb_p), abs_err(w_k, w_p))
+    g_rgb = torch.cat([2.0 * (rgb_p[:, :3] - 0.5) / R, -0.02 / (rgb_p[:, 3:15] + 1e-10) / R,
+                       torch.zeros_like(rgb_p[:, :1])], dim=-1)
+    vargs = args[:7] + (g_rgb, torch.zeros_like(w_p)) + args[7:]
+    gx_k, gse_k, _, dw_k = k2.nerf_level_vjp(*vargs)
+    gx_p, gse_p, _, dw_p = k2.nerf_level_vjp_plain(*vargs)
+    tol = TRAIN_F32_GATES["point_tol"]
+    res.update(gx=point_errors(gx_k, gx_p, tol), gse=point_errors(gse_k, gse_p, tol),
+               dw=tree_errors(dw_k, dw_p))
+    torch.cuda.synchronize()
+    return res
+
+
+def ablation_level_inputs(dev, gen, R, compute_dtype, bg_sup):
+    """Path 3's inputs to K5 and K6, formed as the fallback step forms them
+    for configs/expression/person_1_ablation.yml: R random pixels of a
+    512x512 synthetic expression frame, the points themselves (PW = 3) with
+    corner rows from _cell_geometry, the coarse level (64) and the fine
+    level (64 + 64, importance samples from the coarse weights), the loss
+    cotangents (g_w from the background supervision on the fine level).
+    Sigma is made live (fc_alpha's bias 0.5), as for the other checks."""
+    import torch
+    from sahs_tpu_torch.config import load_config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels.field_grid import corner_table
+    from sahs_tpu_torch.ops.rays import get_rays_at
+    from sahs_tpu_torch.ops.sampling import coarse_z_vals, sample_pdf
+    from sahs_tpu_torch.train.fused import ray_loss_weights
+    cfg = load_config(os.path.join(REPO, "configs", "expression",
+                                   "person_1_ablation.yml"))
+    spec = nerface.ModelSpec.from_config(cfg)
+    assert not nerface.pair_kernel_ok(spec)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    with torch.no_grad():
+        for lvl in (model.coarse, model.fine):
+            lvl.fc_alpha.bias.fill_(0.5)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    ds = SyntheticFaceDataset(kind="expression", num_frames=1, H=512, W=512,
+                              near=near, far=far)
+    item = ds[0]
+    idx = torch.randperm(ds.H * ds.W, generator=gen)[:R].to(dev)
+    ro, rd = get_rays_at(idx, ds.H, ds.W, torch.as_tensor(item["intrinsics"]).to(dev),
+                         torch.as_tensor(item["pose"]).to(dev))
+    mask = torch.as_tensor(item["mask"]).to(dev).reshape(-1, 12)[idx]
+    tgt = torch.cat([torch.as_tensor(item["image"]).to(dev).reshape(-1, 3)[idx],
+                     mask], dim=-1)
+    bg = torch.as_tensor(ds.background()).to(dev).reshape(-1, 15)[idx]
+    lw = ray_loss_weights(mask, 0.02, 0.005)
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    with torch.no_grad():
+        driving = nerface.compute_driving(model, torch.as_tensor(item["driving"]).to(dev))
+    grid = model.spatial_embeddings.detach()
+    dims = tuple(grid.shape[1:])
+    table = corner_table(grid, compute_dtype)
+    rnd = lambda *shape: torch.rand(shape, generator=gen).to(dev)
+    z_c = coarse_z_vals(torch.full((R,), near, device=dev),
+                        torch.full((R,), far, device=dev), 64, perturb=True,
+                        t_rand=rnd(R, 64))
+    levels, w_c = {}, None
+    for name, sup in (("coarse", 0.0), ("fine", bg_sup)):
+        lvl = k5.prepare_level(getattr(model, name), driving, pts_g, dir_g)
+        if name == "coarse":
+            z = z_c
+        else:
+            z_new = sample_pdf(0.5 * (z_c[:, 1:] + z_c[:, :-1]), w_c[:, 1:-1], 64,
+                               u=rnd(R, 64))
+            z = torch.sort(torch.cat([z_c, z_new], -1), dim=-1, stable=True).values
+        pts = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+        rows = _cell_geometry(pts, dims)[0].to(torch.int32).reshape(z.shape)
+        noise = 0.1 * torch.randn(z.shape, generator=gen).to(dev)
+        fwd = (pts, rd, table, rows, z, bg, noise, lvl, compute_dtype, dims)
+        rgb, w = k5.nerf_level_plain(*fwd)
+        w_c = w if name == "coarse" else w_c
+        g_rgb, g_w = loss_cotangents(rgb, w, tgt, lw, bg, sup)
+        args = fwd[:7] + (g_rgb, g_w) + fwd[7:]
+        levels[name] = {"fwd": fwd, "plain_fwd": (rgb, w), "args": args,
+                        "plain": k2.nerf_level_vjp_plain(*args)}
+    return levels
+
+
+def ablation_kernel_parity(levels) -> dict:
+    """K5 and K6 at both levels of path 3 against their plain versions, in
+    the schema of fallback_kernel_parity (gated by fallback_gates_missed)."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.utils.compare import point_errors, tree_errors
+    tol = TRAIN_F32_GATES["point_tol"]
+    res = {}
+    for name, lv in levels.items():
+        rgb_k, w_k = k5.nerf_level_forward(*lv["fwd"])
+        rgb_p, w_p = lv["plain_fwd"]
+        res[f"k5_{name}"] = {
+            "rgb_abs": abs_err(rgb_k, rgb_p), "w_abs": abs_err(w_k, w_p),
+            "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
+            "finite": bool(torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all())}
+        gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*lv["args"])
+        gx_p, gse_p, gbg_p, g_p = lv["plain"]
+        e = tree_errors(g_k, g_p)
+        res[f"k6_{name}"] = {
+            "gx": point_errors(gx_k, gx_p, tol), "gse": point_errors(gse_k, gse_p, tol),
+            "gbg": point_errors(gbg_k, gbg_p, tol), "dw_l2_rel": e["l2_rel"],
+            "dw_cosine": e["cosine"], "dw_worst_leaf": e["worst_leaf"],
+            "finite": bool(all(torch.isfinite(t).all() for t in (gx_k, gse_k, gbg_k)))}
+    torch.cuda.synchronize()
+    return res
+
+
+def ablation_frame_chunk_parity(dev, gen) -> dict:
+    """K5 in bfloat16 at the ablation frame's chunk shapes (32,768 rays x
+    64 and x 128 samples, no noise, the background prior) against its plain
+    version: max |a - b| / (|b| + 1e-3) over rgb_map and the weights."""
+    import torch
+    from sahs_tpu_torch.config import load_config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels.field_grid import corner_table
+    cfg = load_config(os.path.join(REPO, "configs", "expression",
+                                   "person_1_ablation.yml"))
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    ds = SyntheticFaceDataset(kind="expression", num_frames=1, H=512, W=512,
+                              near=near, far=far)
+    R = min(int(cfg.nerf.validation.chunksize), 32768)
+    ro, rd, bg, item = frame_rays(ds, 0, dev, n=R, offset=(ds.H * ds.W - R) // 2)
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    with torch.no_grad():
+        driving = nerface.compute_driving(model, torch.as_tensor(item["driving"]).to(dev))
+    grid = model.spatial_embeddings.detach()
+    dims = tuple(grid.shape[1:])
+    table = corner_table(grid, "bfloat16")
+    res = {}
+    for name, S in (("coarse", 64), ("fine", 128)):
+        lvl = k5.prepare_level(getattr(model, name), driving, pts_g, dir_g)
+        z, pts = level_inputs(ro, rd, near, far, S, gen, dev)
+        rows = _cell_geometry(pts, dims)[0].to(torch.int32).reshape(z.shape)
+        args = (pts, rd, table, rows, z, bg, None, lvl, "bfloat16", dims)
+        rgb_k, w_k = k5.nerf_level_forward(*args)
+        rgb_p, w_p = k5.nerf_level_plain(*args)
+        res[f"k5_{name} ({R} x {S})"] = {
+            "rgb_abs": abs_err(rgb_k, rgb_p), "w_abs": abs_err(w_k, w_p),
+            "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
+            "finite": bool(torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all())}
+        del rgb_k, w_k, rgb_p, w_p
+    torch.cuda.synchronize()
+    return res
+
+
+def ablation_gates_missed(res) -> list:
+    g = TRAIN_F32_GATES
+    missed = []
+    if res["rows_card_vs_cpu"]:
+        missed.append("ablation rows on the card differ from the CPU's")
+    if res["k9_vs_k4_rows"]["l2_rel"] > 1e-5:
+        missed.append("ablation: K9's in-kernel cells differ from the rows'")
+    if res["k5_abs"] > g["out_abs"]:
+        missed.append("ablation K5")
+    if not (all(res[q]["n_over"] <= g["point_flips"] and res[q]["cosine"] >= g["cosine"]
+                for q in ("gx", "gse")) and dw_ok(res["dw"], g)):
+        missed.append("ablation K6")
+    return missed
+
+
+def fallback_planted_faults(inp, outs) -> dict:
+    """What the dW gates see in the kernels' own results with a fault
+    planted: K6's bias gradient of a trunk layer dropped; the points of
+    K8's first split-K chunk dropped (the plain dW over them taken off);
+    one corner of every point left out of K9's dGrid. Each must miss."""
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    from sahs_tpu_torch.utils.compare import tree_errors
+    out = {}
+    g_p = inp["k6"]["fine"]["plain"][3]
+    out["k6_fine bias trunk[1]"] = tree_errors(_drop_bias(outs["k6_fine"], ["trunk", 1]), g_p)
+    args = inp["k8"]
+    P, S = args[0].shape[0], args[0].shape[0] // inp["R"]
+    n_tiles = -(-P // k2.TP)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP // S
+    sub = (args[0][:n * S], args[1][:n], args[2], args[3][:n * S], args[4][:n * S]) + args[5:]
+    g_c = k2.nerf_rayd_vjp_plain(*sub)[2]
+    out[f"k8 chunk 0 ({n} rays)"] = tree_errors(_tree_sub(outs["k8"], g_c),
+                                                inp["k8_plain"][2])
+    coords, g, shape = inp["k9"]
+    out["k9 without corner 0"] = tree_errors(
+        outs["k9"] - dg_one_corner(coords, g, shape, 0),
+        k4.grid_dg_coords_plain(coords, g, shape))
+    return out
+
+
+def grid_sample_library(model, coords, g):
+    """The backward of torch.nn.functional.grid_sample (3-D, align_corners,
+    zeros padding) with respect to the grid, at ``coords`` (P, >=3) with
+    the cotangent ``g`` (P, C): the library yardstick of K4 and K9."""
+    import torch
+    g5 = model.spatial_embeddings.detach().clone()[None].requires_grad_()
+    o = torch.nn.functional.grid_sample(g5, coords[:, :3].reshape(1, -1, 1, 1, 3),
+                                        mode="bilinear", padding_mode="zeros",
+                                        align_corners=True)
+    gout = g.t().reshape(o.shape)
+    return lambda: torch.autograd.grad(o, g5, gout, retain_graph=True)
 
 
 def level_train_macs(lw) -> int:
@@ -763,7 +1296,7 @@ def main(argv) -> int:
                 lvl.fc_alpha.bias.fill_(0.5)
         step32 = stage1.make_train_step(spec, ts32, device=on)
         d = TrainDraws(*[t.to(on) for t in draws])
-        with plain_versions() if plain else contextlib.nullcontext():
+        with plain_versions(fused_swaps()) if plain else contextlib.nullcontext():
             st, m = step32(st, b, draws=d)
         return float(m["loss"]), {n: p.grad.detach().cpu()
                                   for n, p in st.model.named_parameters()}
@@ -895,13 +1428,8 @@ def main(argv) -> int:
         return run
 
     def k4_library():
-        packed_l, _, gse_l, gse2_l, gshape = inp["k4"]
-        g5 = pmodel.spatial_embeddings.detach().clone()[None].requires_grad_()
-        coords = packed_l[:, :3].reshape(1, -1, 1, 1, 3)
-        o = torch.nn.functional.grid_sample(g5, coords, mode="bilinear",
-                                            padding_mode="zeros", align_corners=True)
-        gout = (gse_l + gse2_l).t().reshape(o.shape)
-        return lambda: torch.autograd.grad(o, g5, gout, retain_graph=True)
+        packed_l, _, gse_l, gse2_l, _ = inp["k4"]
+        return grid_sample_library(pmodel, packed_l, gse_l + gse2_l)
 
     P_c, P_f = R_s * 64, R_s * 128
     lw_f = lv_f["args"][9]
@@ -978,6 +1506,330 @@ def main(argv) -> int:
                                                 "bound_ms", "bound_by",
                                                 "library_ms")},
                         "coarse_ms": line.get("coarse_ms")})
+
+    del inp, step_inp, lv_c, lv_f
+    torch.cuda.empty_cache()
+
+    # 7. fallback-kernel parity ---------------------------------------------
+    fb_parity, missed = [], []
+    for compute_dtype, R_p, sup in (("float32", 256, 0.0), ("float32", 256, 0.5),
+                                    ("bfloat16", 2048, 0.0)):
+        finp = fallback_level_inputs(pmodel, ds, near, far, dev, R_p, compute_dtype,
+                                     gen, sup)
+        res, outs = fallback_kernel_parity(finp)
+        row = {"dtype": compute_dtype, "rays": R_p, "samples": "64+64",
+               "bg_sup": sup, **res}
+        fb_parity.append(row)
+        print("fallback parity " + json.dumps(row), flush=True)
+        missed += [f"{m} ({compute_dtype}, {R_p} rays, bg_sup {sup})"
+                   for m in fallback_gates_missed(res, compute_dtype)]
+        if compute_dtype == "bfloat16":
+            fb_inp, fb_res = finp, res
+            faults = fallback_planted_faults(finp, outs)
+            report["fallback_planted_faults"] = faults
+            print("fallback planted faults (bf16, main path's shapes; each must miss "
+                  "the gates) " + json.dumps(faults), flush=True)
+            missed += [f"the gates pass a planted fault: {k}"
+                       for k, e in faults.items() if dw_ok(e, TRAIN_BF16_GATES)]
+        del outs
+    report["fallback_parity"] = fb_parity
+    abl = ablation_parity(dev, gen)
+    report["ablation_parity"] = abl
+    print("ablation config parity (f32, rows from _cell_geometry on the card) "
+          + json.dumps(abl), flush=True)
+    missed += ablation_gates_missed(abl)
+    # path 3's own K5 / K6 inputs and loss cotangents (f32 at 256 rays, bf16
+    # at the step's 2048), and K5 in bf16 at the ablation frame's chunk
+    abl_path = []
+    for compute_dtype, R_p in (("float32", 256), ("bfloat16", 2048)):
+        res = ablation_kernel_parity(ablation_level_inputs(dev, gen, R_p, compute_dtype,
+                                                           0.5))
+        abl_path.append({"dtype": compute_dtype, "rays": R_p, "samples": "64+64",
+                         "bg_sup": 0.5, **res})
+        print("ablation path parity " + json.dumps(abl_path[-1]), flush=True)
+        missed += [f"ablation {m} ({compute_dtype}, {R_p} rays)"
+                   for m in fallback_gates_missed(res, compute_dtype)]
+    res = ablation_frame_chunk_parity(dev, gen)
+    abl_path.append({"dtype": "bfloat16", "frame chunk": True, **res})
+    print("ablation frame-chunk parity " + json.dumps(res), flush=True)
+    missed += [f"ablation {m} (bfloat16, frame chunk)"
+               for m in fallback_gates_missed(res, "bfloat16")]
+    report["ablation_path_parity"] = abl_path
+    torch.cuda.empty_cache()
+
+    # whole float32 steps (256 rays): the fallback on both of its paths
+    # through the kernels against the same step on the plain versions, and
+    # the fused step against the fallback step, both through the kernels
+    def fb_step(swaps, **runtime):
+        c32 = Config()
+        c32.nerf.train.num_random_rays = 256
+        c32.runtime.compute_dtype = "float32"
+        for k, v in runtime.items():
+            setattr(c32.runtime, k, v)
+        ts_s = stage1.TrainSettings.from_config(c32)
+        st = stage1.init_train_state(spec, ts_s, seed=0, device=dev)
+        with torch.no_grad():
+            for lvl in (st.model.coarse, st.model.fine):
+                lvl.fc_alpha.bias.fill_(0.5)
+        step_s = stage1.make_train_step(spec, ts_s, device=dev)
+        held = kernel_counters()
+        before = {k: f.launches for k, f in held.items()}
+        with plain_versions(swaps) if swaps else contextlib.nullcontext():
+            st, m = step_s(st, batch, draws=draws)
+        return (float(m["loss"]), {n: p.grad.detach().cpu()
+                                   for n, p in st.model.named_parameters()},
+                {k: f.launches - before[k] for k, f in held.items() if f.launches != before[k]})
+
+    fb_steps = {"fallback": fb_step(None, fused_grads=False),
+                "fallback, plain": fb_step(fallback_swaps(), fused_grads=False),
+                "reuse": fb_step(None, fused_grads=False, fuse_composite=False),
+                "reuse, plain": fb_step(fallback_swaps(), fused_grads=False,
+                                        fuse_composite=False),
+                "fused": fb_step(None)}
+    fb_check = {}
+    for name in ("fallback", "reuse"):
+        k_, p_ = fb_steps[name], fb_steps[name + ", plain"]
+        fb_check[name] = {"launches": k_[2], "loss_rel": abs(k_[0] - p_[0]) / abs(p_[0]),
+                          "kernels_vs_plain": tree_errors(k_[1], p_[1])}
+        if (fb_check[name]["loss_rel"] > STEP_GATES["loss_rel"]
+                or not dw_ok(fb_check[name]["kernels_vs_plain"], STEP_GATES)):
+            missed.append(f"f32 {name} step, kernels vs plain versions: {fb_check[name]}")
+    fb_check["fused_vs_fallback"] = {
+        "loss_rel": abs(fb_steps["fused"][0] - fb_steps["fallback"][0])
+        / abs(fb_steps["fallback"][0]),
+        "launches": fb_steps["fused"][2],
+        "grads": tree_errors(fb_steps["fused"][1], fb_steps["fallback"][1])}
+    if not dw_ok(fb_check["fused_vs_fallback"]["grads"], FUSED_VS_FALLBACK):
+        missed.append(f"f32 fused step vs fallback step: {fb_check['fused_vs_fallback']}")
+    want = {"fallback": {"K1": 2, "K3": 2, "K5": 2, "K6": 2, "K9": 2},
+            "reuse": {"K1": 2, "K3": 2, "K7": 2, "K8": 2, "K9": 2}}
+    for name, w in want.items():
+        if fb_check[name]["launches"] != w:
+            missed.append(f"f32 {name} step launched {fb_check[name]['launches']}, not {w}")
+    report["fallback_steps_f32"] = fb_check
+    print("fallback steps f32 (256 rays), every gradient leaf against the plain "
+          "step on the card, and the fused step against the fallback step "
+          + json.dumps(fb_check), flush=True)
+    if missed:
+        return fail(f"fallback-kernel gates missed: {missed}")
+    del fb_steps
+    torch.cuda.empty_cache()
+
+    # 8. the fallback's paths on the card ------------------------------------
+    from sahs_tpu_torch.config import load_config
+    from sahs_tpu_torch.render.pipeline import render_rays_chunked
+
+    def time_path(cfg_p, ds_p, expect, n_steps=5):
+        spec_p = nerface.ModelSpec.from_config(cfg_p)
+        ts_p = stage1.TrainSettings.from_config(cfg_p)
+        st = stage1.init_train_state(spec_p, ts_p, seed=0, device=dev)
+        step_p = stage1.make_train_step(spec_p, ts_p, device=dev)
+        b = {k: torch.as_tensor(v).to(dev)
+             for k, v in dict(ds_p[0], background=ds_p.background()).items()
+             if k != "fname"}
+        g_t = torch.Generator(device=dev).manual_seed(5)
+        for _ in range(2):                                # warm-up
+            st, _ = step_p(st, b, generator=g_t)
+        torch.cuda.synchronize()
+        held = kernel_counters()
+        for f in held.values():
+            f.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        losses = []
+        t_host = time.time()
+        ev[0].record()
+        for _ in range(n_steps):
+            st, m = step_p(st, b, generator=g_t)
+            losses.append(m["loss"])
+        ev[1].record()
+        torch.cuda.synchronize()
+        per_step = {k: f.launches / n_steps for k, f in held.items()}
+        ms = ev[0].elapsed_time(ev[1]) / n_steps
+        ok = {"launches": per_step == {k: expect.get(k, 0) for k in held},
+              "loss_finite": all(bool(torch.isfinite(l)) for l in losses),
+              "params_finite": all(bool(torch.isfinite(p).all())
+                                   for p in st.model.parameters())}
+        return {"rays": ts_p.num_random_rays, "samples":
+                f"{ts_p.render.num_coarse}+{ts_p.render.num_fine}",
+                "dtype": ts_p.render.compute_dtype, "steps": n_steps, "ms": ms,
+                "host_ms": (time.time() - t_host) * 1e3 / n_steps,
+                "rays_per_s": ts_p.num_random_rays / (ms / 1e3),
+                "launches_per_step": per_step, "loss": float(losses[-1]),
+                "checks": ok}
+
+    def time_frame(render_fn, expect):
+        render_fn()                                      # warm-up
+        torch.cuda.synchronize()
+        held = kernel_counters()
+        for f in held.values():
+            f.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t_host = time.time()
+        ev[0].record()
+        out = render_fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        rgb = out["rgb_fine"] if isinstance(out, dict) else out.rgb_fine
+        launches = {k: f.launches for k, f in held.items()}
+        return {"ms": ev[0].elapsed_time(ev[1]), "host_ms": (time.time() - t_host) * 1e3,
+                "launches": launches,
+                "checks": {"launches": launches == {k: expect.get(k, 0) for k in held},
+                           "finite": bool(torch.isfinite(rgb).all()),
+                           "range": bool(rgb.min() >= -1e-6 and rgb.max() <= 1 + 1e-5)}}
+
+    paths = {}
+    cfg1 = Config()
+    cfg1.runtime.fused_grads = False
+    paths["1 fallback step"] = time_path(cfg1, ds, {"K1": 2, "K3": 2, "K5": 2, "K6": 2,
+                                                    "K9": 2})
+    cfg2 = Config()
+    cfg2.runtime.fused_grads = False
+    cfg2.runtime.fuse_composite = False
+    paths["2 reuse step"] = time_path(cfg2, ds, {"K1": 2, "K3": 2, "K7": 2, "K8": 2,
+                                                 "K9": 2})
+    s2 = RenderSettings.from_config(cfg2, "validation")
+    ro_r, rd_r, bg_r, _ = frame_rays(ds, 0, dev, n=32768)
+    drv, pose = (torch.as_tensor(item[k]).to(dev) for k in ("driving", "pose"))
+    paths["2 reuse frame chunk"] = time_frame(
+        lambda: render_rays_chunked(model, s2, ro_r, rd_r, near, far, drv, pose,
+                                    background_prior=bg_r, chunksize=32768),
+        {"K1": 2, "K7": 2})
+    cfg3 = load_config(os.path.join(REPO, "configs", "expression",
+                                    "person_1_ablation.yml"))
+    spec3 = nerface.ModelSpec.from_config(cfg3)
+    near3, far3 = float(cfg3.dataset.near), float(cfg3.dataset.far)
+    ds3 = SyntheticFaceDataset(kind="expression", num_frames=1, H=H, W=W,
+                               near=near3, far=far3)
+    paths["3 ablation step"] = time_path(cfg3, ds3, {"K5": 2, "K6": 2, "K9": 2})
+    s3 = RenderSettings.from_config(cfg3, "validation")
+    model3 = nerface.NeRFaceModel.init(spec3, seed=0, device=dev)
+    render3 = make_eval_renderer(spec3, s3, H, W, near3, far3, device=dev)
+    item3 = ds3[0]
+    n3 = math.ceil(H * W / min(s3.chunksize, 32768))
+    paths["3 ablation frame"] = time_frame(
+        lambda: render3(model3, item3["intrinsics"], item3["pose"], item3["driving"],
+                        ds3.background()), {"K5": 2 * n3})
+    report["fallback_paths"] = paths
+    for name, r in paths.items():
+        print(f"path {name}: {r['ms']:.1f} ms on the card (CUDA events), "
+              f"{r['host_ms']:.1f} ms on the host clock, launches "
+              f"{r.get('launches_per_step', r.get('launches'))}"
+              + (" per step" if "launches_per_step" in r else ""), flush=True)
+    bad = {n: r["checks"] for n, r in paths.items() if not all(r["checks"].values())}
+    if bad:
+        return fail(f"fallback path checks failed: {bad}")
+
+    # per-kernel times of K6-K9 at the paths' shapes (2048 rays, bf16)
+    from sahs_tpu_torch.ops.grid import interp_corners
+    R_s = fb_inp["R"]
+
+    def fb_library(args, nerf_name, kind):
+        """One chain of PyTorch calls for the same function under bf16
+        autocast (a yardstick the port never calls): the plain forward
+        (K7), and autograd of it from the same cotangents (K8; K6 through
+        the plain compositing)."""
+        packed_l, rd_l, table_l, rows_l = args[:4]
+        wts = args[9] if kind == "k6" else args[-3]
+        S_l = packed_l.shape[0] // R_s
+        x = kernel_pe(packed_l, wts.pts_groups).requires_grad_()
+        dpe = kernel_pe(rd_l, wts.dir_groups).repeat_interleave(S_l, dim=0)
+        _, fs, ok = _cell_geometry(packed_l, fb_inp["dims"])
+        se = interp_corners(table_l[rows_l.reshape(-1).long()], fs, ok).requires_grad_()
+        nerf = getattr(pmodel, nerf_name)
+        params = [x, se] + list(nerf.parameters())
+
+        def run():
+            with torch.set_grad_enabled(kind != "k7"), torch.autocast("cuda", dtype=torch.bfloat16):
+                raw = nerf(x, dpe, driving=driving_s, pose=pose_s, spatial_embedding=se)
+            if kind == "k7":
+                return raw
+            if kind == "k8":
+                return torch.autograd.grad(raw.float(), params, args[4])
+            z_l, bg_l, noise_l, g_rgb, g_w = args[4], args[5], args[6], args[7], args[8]
+            rgb_l, w_l = composite_plain(raw.float().reshape(R_s, S_l, 16), z_l, rd_l,
+                                         bg_l, noise_l)
+            return torch.autograd.grad([rgb_l, w_l], params, [g_rgb, g_w])
+        return run
+
+    def fb_bytes(args, kind):
+        packed_l, rd_l, table_l = args[:3]
+        P_l, PW = packed_l.shape
+        S_l = P_l // R_s
+        b_in = P_l * (PW + 1) * 4 + R_s * 3 * 4 + table_l.numel() * table_l.element_size()
+        if kind == "k7":
+            return b_in + P_l * 16 * 4
+        plan = k2.level_train_plan(args[9] if kind == "k6" else args[-3], torch.bfloat16)
+        b_out = P_l * (PW + 32) * 4 + plan.out_len * 4
+        if kind == "k8":
+            return b_in + P_l * 16 * 4 + b_out
+        return b_in + R_s * (3 * S_l + 15 + 16) * 4 + b_out + R_s * 15 * 4
+
+    k6f, k6c = fb_inp["k6"]["fine"]["args"], fb_inp["k6"]["coarse"]["args"]
+    lw6 = k6f[9]
+    P_f, P_c = R_s * 128, R_s * 64
+    macs7 = lambda P_l: k5_macs(lw6) * P_l + lw6.dir0_dir.numel() * R_s
+    fb_kernels = {}
+    for name, fk, fp, fl, fc, flops, nbytes, err in (
+            ("nerf_level_vjp", lambda: k2.nerf_level_vjp(*k6f),
+             lambda: k2.nerf_level_vjp_plain(*k6f), fb_library(k6f, "fine", "k6"),
+             lambda: k2.nerf_level_vjp(*k6c), 2 * level_train_macs(lw6) * P_f,
+             fb_bytes(k6f, "k6"), fb_res["k6_fine"]["max_abs_err"]),
+            ("nerf_rayd_forward", lambda: k5.nerf_rayd_forward(*fb_inp["k7"]),
+             lambda: k5.nerf_raw_plain(*fb_inp["k7"]), fb_library(fb_inp["k7"], "fine", "k7"),
+             lambda: k5.nerf_rayd_forward(*fb_inp["k7_coarse"]), 2 * macs7(P_f),
+             fb_bytes(fb_inp["k7"], "k7"), fb_res["k7"]["max_abs_err"]),
+            ("nerf_rayd_vjp", lambda: k2.nerf_rayd_vjp(*fb_inp["k8"]),
+             lambda: k2.nerf_rayd_vjp_plain(*fb_inp["k8"]),
+             fb_library(fb_inp["k8"], "fine", "k8"),
+             lambda: k2.nerf_rayd_vjp(*fb_inp["k8_coarse"]),
+             2 * level_train_macs(lw6) * P_f, fb_bytes(fb_inp["k8"], "k8"),
+             fb_res["k8"]["max_abs_err"]),
+            ("grid_dg_coords", lambda: k4.grid_dg_coords(*fb_inp["k9"]),
+             lambda: k4.grid_dg_coords_plain(*fb_inp["k9"]),
+             grid_sample_library(pmodel, *fb_inp["k9"][:2]), None,
+             2 * 8 * 32 * P_f, P_f * (3 + 32) * 4 + 32 ** 4 * 4,
+             fb_res["k9"]["max_abs_err"])):
+        ms = cuda_time(fk, 3)
+        coarse = cuda_time(fc, 3) if fc is not None else None
+        plain = cuda_time(fp, 1)
+        lib = cuda_time(fl, 1)
+        b_ms, b_by = bound(flops, nbytes)
+        fb_kernels[name] = {"ms": ms, "coarse_ms": coarse, "plain_ms": plain,
+                            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                            "max_abs_err": err,
+                            "tflops_achieved": flops / (ms / 1e3) / 1e12}
+        print(f"{name}: {ms:.2f} ms at the fine level's {P_f} points"
+              + (f", {coarse:.2f} ms at the coarse level's {P_c}" if coarse else "")
+              + f" (bound {b_ms:.3f} ms by {b_by}, plain {plain:.2f} ms, "
+              f"library {lib:.2f} ms)", flush=True)
+    report["fallback_kernels"] = fb_kernels
+    path_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
+                                + r.get("launches", {}).get(k, 0)) for r in paths.values())
+                     for k in kernel_counters()}
+    for kk in kernels:
+        key = {"deform_pair": "K1", "nerf_level": "K5", "deform_pair_vjp": "K3"}.get(kk["name"])
+        if key:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["fallback paths"] = path_launches[key]
+            kk["launches"] += path_launches[key]
+    for name, key, src, replaces in (
+            ("nerf_level_vjp", "K6", "sahs_tpu_torch/csrc/level_train.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:2951"),
+            ("nerf_rayd_forward", "K7", "sahs_tpu_torch/csrc/nerf_level.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:1973"),
+            ("nerf_rayd_vjp", "K8", "sahs_tpu_torch/csrc/level_train.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:2059"),
+            ("grid_dg_coords", "K9", "sahs_tpu_torch/csrc/grid_bwd.cu",
+             "sahs_tpu/ops/pallas/grid_bwd.py:103")):
+        line = fb_kernels[name]
+        if not path_launches[key]:
+            return fail(f"{key} {name} was not launched on its paths")
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": path_launches[key],
+                        **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms")},
+                        "coarse_ms": line["coarse_ms"]})
+    print(f"smoke run: {time.time() - T_START:.0f} s", flush=True)
 
     if report_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(report_path)), exist_ok=True)

@@ -1,5 +1,5 @@
-// K4: dGrid, the gradient of the trilinear spatial-embedding sample with
-// respect to the (C, D, H, W) grid.
+// K4 and K9: dGrid, the gradient of the trilinear spatial-embedding sample
+// with respect to the (C, D, H, W) grid.
 //
 // Replaces sahs_tpu/ops/pallas/grid_bwd.py:grid_dg_slab_packed (:211,
 // pallas_call at :327), which the fused train path runs once a step over
@@ -21,6 +21,14 @@
 // Bound on the H100: bytes. It reads 4 + 2 C floats a point and writes the
 // 4 MB grid: ~72 MB at 262,144 points, ~0.02 ms at 3.35 TB/s; the 67 M
 // atomics, resolved in L2, are what it actually waits on.
+//
+// K9 replaces sahs_tpu/ops/pallas/grid_bwd.py:grid_dg_slab (:103,
+// pallas_call at :191), the autograd fallback's dGrid: the backward of the
+// grid-coupled level ops (field_grid.py:168, :249) over sample-major points.
+// It gets raw coordinates and one cotangent, no rows: each thread forms its
+// point's cell with the exact expression of ops/grid._cell_geometry
+// (sahs::cell_row, no FMA contraction), so the cell is the one the forward
+// interpolated in. The same kernel, the same bound.
 #include "mlp.cuh"
 
 namespace {
@@ -45,7 +53,7 @@ __global__ void grid_dg_kernel(const float* __restrict__ pts,
     ok = ok && (i0 >= -1.0f) && (i0 <= (float)(dims[ax] - 1));
   }
   if (!ok) return;
-  const int row = rows[p];
+  const int row = rows != nullptr ? rows[p] : sahs::cell_row(x, D, H, W);
   const int bx = row % (W + 1);
   const int by = (row / (W + 1)) % (H + 1);
   const int bz = row / ((W + 1) * (H + 1));
@@ -66,17 +74,33 @@ __global__ void grid_dg_kernel(const float* __restrict__ pts,
   }
 }
 
-}  // namespace
-
-extern "C" int sahs_grid_dg(const void* pts, const void* rows, const void* gse,
-                            const void* gse2, long long P, int PW, int C, int D,
-                            int H, int W, void* dg, void* stream) {
+int launch(const float* pts, const int* rows, const float* gse,
+           const float* gse2, long long P, int PW, int C, int D, int H, int W,
+           float* dg, void* stream) {
   if (P <= 0) return 0;
   const int threads = 256;
   const long long blocks = (P * 32 + threads - 1) / threads;
   grid_dg_kernel<<<(unsigned)blocks, threads, 0,
                    reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const float*)pts, (const int*)rows, (const float*)gse,
-      (const float*)gse2, P, PW, C, D, H, W, (float*)dg);
+      pts, rows, gse, gse2, P, PW, C, D, H, W, dg);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K4: rows from K1, with the coarse-in-fine addend gse2 (or null).
+extern "C" int sahs_grid_dg(const void* pts, const void* rows, const void* gse,
+                            const void* gse2, long long P, int PW, int C, int D,
+                            int H, int W, void* dg, void* stream) {
+  if (rows == nullptr) return (int)cudaErrorInvalidValue;
+  return launch((const float*)pts, (const int*)rows, (const float*)gse,
+                (const float*)gse2, P, PW, C, D, H, W, (float*)dg, stream);
+}
+
+// K9: the cell of each point from its coordinates, one cotangent.
+extern "C" int sahs_grid_dg_coords(const void* pts, const void* g, long long P,
+                                   int PW, int C, int D, int H, int W,
+                                   void* dg, void* stream) {
+  return launch((const float*)pts, nullptr, (const float*)g, nullptr, P, PW,
+                C, D, H, W, (float*)dg, stream);
 }

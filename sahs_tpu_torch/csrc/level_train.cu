@@ -1,29 +1,43 @@
-// K2: one NeRF level for training: forward, in-kernel loss cotangents and
-// the full backward, from one call.
+// K2, K6 and K8: one NeRF level's backward, as three modes of one kernel
+// set.
 //
-// Replaces sahs_tpu/ops/pallas/level_train.py:nerf_level_train (:55,
-// pallas_call at :306) in its corner_interp form. Inputs: K1's packed
-// points (P, 3 + ambient) and corner-table rows, the corner table, the raw
-// ray directions, z, the background prior and sigma noise (optional), the
-// target (R, 15) and the per-ray loss weights (R, 2). Outputs: rgb_map
-// (R, 16), weights (R, S), gx (P, 3 + ambient) (PE backward plus the
-// trilinear dCoords on xyz), gse (P, C) (the cotangent of the sampled
-// spatial embedding, for K4), g_bg (R, 16) and dW/db of every layer.
+// K2 replaces sahs_tpu/ops/pallas/level_train.py:nerf_level_train (:55,
+// pallas_call at :306) in its corner_interp form: the forward, the loss
+// cotangents formed in the kernel and the full backward, from one call.
+// Inputs: K1's packed points (P, 3 + ambient) and corner-table rows, the
+// corner table, the raw ray directions, z, the background prior and sigma
+// noise (optional), the target (R, 15) and the per-ray loss weights (R, 2).
+// Outputs: rgb_map (R, 16), weights (R, S), gx (P, 3 + ambient) (PE
+// backward plus the trilinear dCoords on xyz), gse (P, C) (the cotangent of
+// the sampled spatial embedding, for K4), g_bg (R, 16) and dW/db of every
+// layer.
+//
+// K6 (MODE_VJP) replaces sahs_tpu/ops/pallas/field_mlp.py:nerf_level_vjp
+// (:2951, pallas_call at :3091), the backward of K5 that the autograd
+// fallback runs: the same launches, with the per-ray cotangents g_rgb
+// (R, 16) and g_w (R, S) read in place of the loss cotangents. g_bg is the
+// last sample's channel cotangent, w_last * g_rgb.
+//
+// K8 (MODE_RAW) replaces field_mlp.py:nerf_rayd_vjp (:2059, pallas_call at
+// :2269), the backward of K7 (the raw field, no compositing): the cotangent
+// of raw (P, 16) is given, so the compositing launch is skipped and the
+// per-tile backward reads it directly.
 //
 // Why not one pass, as on the TPU: a backward needs all 8 trunk layers,
 // the heads and the PE of every point, 3.5 K values a point, while a block
 // has 227 KB of shared memory. And dW is a reduction over all points,
 // which Hopper's unordered blocks cannot carry from one grid step to the
-// next. So one call makes five launches:
+// next. So one call makes five launches (four for K8):
 //   1. per 32-point tile: PE (accurate sinf, no fast math), the trilinear
 //      sample with _cell_geometry's exact float expression from the 8
 //      corner rows gathered in the kernel, the MLP (mlp.cuh); every layer's
 //      input goes to a device-memory stash (train.cuh), raw (P, 16) out;
 //   2. per ray: compositing with the transmittance exp(-sigma dist) kept
-//      explicit and sigma[:, -1] += 1e-6, the loss cotangents of
-//      level_train.py:26-32 and :179-204, and the compositing backward
-//      with the reverse exclusive scan (field_mlp.py:2580-2623); the
-//      raw-background last sample gets no rgb/seg gradient;
+//      explicit and sigma[:, -1] += 1e-6, the cotangents of rgb_map and
+//      the weights (K2: the loss's, level_train.py:26-32 and :179-204; K6:
+//      the given g_rgb, g_w), and the compositing backward with the reverse
+//      exclusive scan (field_mlp.py:2580-2623); with a background the
+//      raw-background last sample gets no rgb/seg gradient (not_last);
 //   3. per tile: the head, branch and trunk backward with transposed
 //      weights, each layer's gz to a second stash, then per point the PE
 //      backward and the corner dCoords (field_mlp.py:1824-1843);
@@ -43,6 +57,7 @@ namespace {
 constexpr int TP = 32;
 constexpr int THREADS = 256;
 constexpr int CTHREADS = 128;
+enum { MODE_LOSS = 0, MODE_VJP = 1, MODE_RAW = 2 };
 
 struct Args {
   const float* pts;     // (P, PW)
@@ -52,8 +67,10 @@ struct Args {
   const float* z;       // (R, S)
   const float* bg;      // (R, 15) or null
   const float* noise;   // (R, S) or null
-  const float* tgt;     // (R, 15)
-  const float* lw;      // (R, 2)
+  const float* tgt;     // (R, 15), MODE_LOSS
+  const float* lw;      // (R, 2), MODE_LOSS
+  const float* g_rgb;   // (R, 16), MODE_VJP
+  const float* g_w;     // (R, S), MODE_VJP
   const void* w; const float* b; const int* meta;      // forward layers
   const void* wT; const float* bT; const int* metaT;   // transposed layers
   float* rgb_map;       // (R, 16)
@@ -61,12 +78,12 @@ struct Args {
   float* gx;            // (P, PW)
   float* gse;           // (P, C)
   float* g_bg;          // (R, 16)
-  float* raw;           // (P, 16) scratch
-  float* graw;          // (P, 16) scratch
+  float* raw;           // (P, 16) scratch, or null (MODE_RAW)
+  float* graw;          // (P, 16): launch 2's, or the given cotangent (MODE_RAW)
   void* acts; float* gzs; const int* slots;
   long long R, P, act_stride, gz_stride;
   int S, PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW;
-  int n_act;
+  int n_act, mode;
   float bg_sup;
 };
 
@@ -210,6 +227,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
   sahs::mlp_layer<T>(sahs::load_desc(a.meta, L + 11), wblob, a.b, b1, nullptr,
                      nullptr, nullptr, segY, TP);
   __syncthreads();
+  if (a.raw == nullptr) return;
   for (int i = tid; i < 16 * TP; i += blockDim.x) {
     const int t = i / 16, c = i % 16;
     const long long p = base + t;
@@ -299,12 +317,14 @@ __global__ void __launch_bounds__(CTHREADS) composite_kernel(Args a) {
     a.rgb_map[r * 16 + tid] = acc;
   }
   __syncthreads();
-  const float* tg = a.tgt + r * 15;
-  const bool sup = has_bg && a.bg_sup > 0.0f;
+  const bool given = a.mode == MODE_VJP;
+  const float* tg = given ? nullptr : a.tgt + r * 15;
+  const bool sup = !given && has_bg && a.bg_sup > 0.0f;
   if (tid < 16) {
     const int c = tid;
     float g = 0.0f;
-    if (c < 3) g = a.lw[r * 2] * 2.0f * (rm[c] - tg[c]);
+    if (given) g = a.g_rgb[r * 16 + c];
+    else if (c < 3) g = a.lw[r * 2] * 2.0f * (rm[c] - tg[c]);
     else if (c < 15) g = a.lw[r * 2 + 1] * (-tg[c] / (rm[c] + 1e-10f));
     grg[c] = g;
     if (has_bg && c < 15) {
@@ -328,7 +348,8 @@ __global__ void __launch_bounds__(CTHREADS) composite_kernel(Args a) {
   for (int s = tid; s < S; s += blockDim.x) {
     float cg = 0.0f;
     for (int c = 0; c < 16; ++c) cg += ch[s * 16 + c] * grg[c];
-    const float g = (s == S - 1 ? gw_last : 0.0f) + cg;
+    const float gw = given ? a.g_w[r * S + s] : (s == S - 1 ? gw_last : 0.0f);
+    const float g = gw + cg;
     gwt[s] = g;
     gcum[s] = cum[s] * (g * al[s]);
   }
@@ -543,8 +564,10 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
   if (err) return err;
   fwd_kernel<T><<<(unsigned)n_tiles, THREADS, sf, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
-  if ((err = (int)cudaGetLastError())) return err;
+  if (a.mode != MODE_RAW) {
+    composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
   bwd_kernel<T><<<(unsigned)n_tiles, THREADS, sb, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
   return sahs::launch_dw<T>(reinterpret_cast<const T*>(a.acts), a.gzs,
@@ -558,7 +581,8 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
 extern "C" int sahs_level_train(
     const void* pts, const void* rows, const void* table, const void* dirs,
     const void* z, const void* bg, const void* noise, const void* tgt,
-    const void* lw, const void* w, const void* b, const void* meta,
+    const void* lw, const void* g_rgb, const void* g_w, int mode,
+    const void* w, const void* b, const void* meta,
     const void* wT, const void* bT, const void* metaT, void* rgb_map,
     void* weights, void* gx, void* gse, void* g_bg, void* raw, void* graw,
     void* acts, void* gzs, const void* slots, long long R, int S, int PW,
@@ -567,11 +591,17 @@ extern "C" int sahs_level_train(
     int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
     const void* prods, const void* work, void* part, void* out, void* stream) {
   if (R <= 0) return 0;
+  if (mode < MODE_LOSS || mode > MODE_RAW) return (int)cudaErrorInvalidValue;
+  if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
+      (mode == MODE_VJP && (g_rgb == nullptr || g_w == nullptr || raw == nullptr)) ||
+      (mode == MODE_RAW && graw == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
   a.dirs = (const float*)dirs; a.z = (const float*)z;
   a.bg = (const float*)bg; a.noise = (const float*)noise;
   a.tgt = (const float*)tgt; a.lw = (const float*)lw;
+  a.g_rgb = (const float*)g_rgb; a.g_w = (const float*)g_w; a.mode = mode;
   a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
   a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
   a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;

@@ -1,5 +1,6 @@
 // K5: one NeRF level, forward, with the trilinear spatial embedding and
-// the volume compositing inside the kernel.
+// the volume compositing inside the kernel; and K7, the same field without
+// the compositing.
 //
 // Replaces sahs_tpu/ops/pallas/field_mlp.py:nerf_level_forward (:2681,
 // pallas_call at :2761), in its corner_interp form as
@@ -21,6 +22,12 @@
 //     prior the last sample's 15 channels replaced by the prior and the seg
 //     channels softmaxed; without one, sigmoid on every channel.
 // Outputs rgb_map (R, 16) and weights (R, S), as field_mlp.py:2688 returns.
+//
+// K7 replaces field_mlp.py:nerf_rayd_forward (:1973, pallas_call at :2040)
+// in its corner_interp form, the raw field of the deformation-reuse path
+// (fuse_composite off): the same kernel, instantiated with RAW, writes each
+// point's raw (P, 16) [rgb3 | seg12 | sigma1] to device memory and stops
+// before the compositing. Same design, same bound (operations).
 //
 // Design: one block per ray, its S samples processed in 64-point tiles
 // whose activations ping-pong through shared memory (2 x 256 x 64 values);
@@ -54,6 +61,7 @@ struct LevelArgs {
   const int* meta;      // layer descriptors
   float* rgb_map;       // (R, 16)
   float* weights;       // (R, S)
+  float* raw_out;       // (R*S, 16) for K7, else null
   long long R;
   int S, PW, n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir;
   int gD, gH, gW;
@@ -92,7 +100,9 @@ __device__ __host__ size_t carve(const LevelArgs& a, unsigned char* base,
   return off;
 }
 
-template <typename T>
+// RAW: K7, the raw field out and no compositing (a separate instantiation,
+// so that K5's code is what it was without the option).
+template <typename T, bool RAW>
 __global__ void __launch_bounds__(THREADS) nerf_level_kernel(LevelArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<T> sm;
@@ -229,13 +239,15 @@ __global__ void __launch_bounds__(THREADS) nerf_level_kernel(LevelArgs a) {
                        nullptr, nullptr, nullptr, segY, TP);
     __syncthreads();
     if (tid < TP && s0 + tid < S) {
-      float* o = sm.raw + (s0 + tid) * 16;
+      float* o = RAW ? a.raw_out + (r * S + s0 + tid) * 16
+                     : sm.raw + (s0 + tid) * 16;
       for (int c = 0; c < 3; ++c) o[c] = rgbY[c * TP + tid];
       for (int c = 0; c < 12; ++c) o[3 + c] = segY[c * TP + tid];
       o[15] = alphaY[tid];
     }
     __syncthreads();
   }
+  if (RAW) return;   // K7: the raw field only
 
   // compositing
   float* tt = sm.comp;
@@ -300,15 +312,30 @@ __global__ void __launch_bounds__(THREADS) nerf_level_kernel(LevelArgs a) {
   }
 }
 
-template <typename T>
+template <typename T, bool RAW>
 int launch(const LevelArgs& a, cudaStream_t stream) {
   const size_t smem = carve<T>(a, nullptr, nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      nerf_level_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      nerf_level_kernel<T, RAW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  nerf_level_kernel<T><<<(unsigned)a.R, THREADS, smem, stream>>>(a);
+  nerf_level_kernel<T, RAW><<<(unsigned)a.R, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+LevelArgs make_args(const void* pts, const void* rows, const void* table,
+                    const void* dirs, const void* w, const void* b,
+                    const void* meta, long long R, int S, int PW, int n_trunk,
+                    int hidden, int branch, int C, int amb, int nf_xyz,
+                    int nf_amb, int nf_dir, int gD, int gH, int gW) {
+  LevelArgs a = {};
+  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
+  a.dirs = (const float*)dirs;
+  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
+  a.R = R; a.S = S; a.PW = PW; a.n_trunk = n_trunk; a.hidden = hidden;
+  a.branch = branch; a.C = C; a.amb = amb; a.nf_xyz = nf_xyz;
+  a.nf_amb = nf_amb; a.nf_dir = nf_dir; a.gD = gD; a.gH = gH; a.gW = gW;
+  return a;
 }
 
 }  // namespace
@@ -321,15 +348,28 @@ extern "C" int sahs_nerf_level_forward(
     int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
     int bf16, void* stream) {
   if (R <= 0) return 0;
-  LevelArgs a;
-  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
-  a.dirs = (const float*)dirs; a.z = (const float*)z;
+  LevelArgs a = make_args(pts, rows, table, dirs, w, b, meta, R, S, PW,
+                          n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb,
+                          nf_dir, gD, gH, gW);
+  a.z = (const float*)z;
   a.bg = (const float*)bg; a.noise = (const float*)noise;
-  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
   a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
-  a.R = R; a.S = S; a.PW = PW; a.n_trunk = n_trunk; a.hidden = hidden;
-  a.branch = branch; a.C = C; a.amb = amb; a.nf_xyz = nf_xyz;
-  a.nf_amb = nf_amb; a.nf_dir = nf_dir; a.gD = gD; a.gH = gH; a.gW = gW;
   auto s = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+  return bf16 ? launch<__nv_bfloat16, false>(a, s) : launch<float, false>(a, s);
+}
+
+extern "C" int sahs_nerf_rayd_forward(
+    const void* pts, const void* rows, const void* table, const void* dirs,
+    const void* w, const void* b, const void* meta, void* raw, long long R,
+    int S, int PW, int n_trunk, int hidden, int branch, int C, int amb,
+    int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW, int bf16,
+    void* stream) {
+  if (R <= 0) return 0;
+  if (raw == nullptr) return (int)cudaErrorInvalidValue;
+  LevelArgs a = make_args(pts, rows, table, dirs, w, b, meta, R, S, PW,
+                          n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb,
+                          nf_dir, gD, gH, gW);
+  a.raw_out = (float*)raw;
+  auto s = reinterpret_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, true>(a, s) : launch<float, true>(a, s);
 }

@@ -216,42 +216,122 @@ class RenderFns(NamedTuple):
     """Field evaluators built by make_render_fns.
 
     field_fn(level, pts_flat (P,3), dirs_ray (R,3), samples) -> (P,16): the
-    plain path's raw field (None on the kernel path);
+    raw field (the plain path's, or on the kernel path front_fn then
+    nerf_fn);
     level_fn(level, pts_flat, dirs_ray, samples, z (R,S), bg (R,15)|None,
-    noise (R,S)|None) -> (rgb_map (R,16), weights (R,S)): K1 -> K5, the
-    kernel path (None on the plain path)."""
+    noise (R,S)|None) -> (rgb_map (R,16), weights (R,S)): the deformation
+    front half, then K5 (K6 in the backward), the kernel path's level with
+    compositing (None on the plain path);
+    front_fn(pts_flat, samples) -> (pts_raw (P, 3 [+ ambient]), rows
+    (P // samples, samples)): the level-independent front half, which the
+    pipeline reuses at the fine level (None on the plain path);
+    nerf_fn(level, (pts_raw, rows), dirs_ray, samples) -> (P, 16): the NeRF
+    back half on a front half, K7 (K8 in the backward) (None on the plain
+    path)."""
     field_fn: Optional[Callable]
     level_fn: Optional[Callable]
+    front_fn: Optional[Callable] = None
+    nerf_fn: Optional[Callable] = None
 
 
-def kernel_path_ok(spec: ModelSpec, latent_code=None) -> bool:
-    """The configurations the ported kernels cover: the deformation pair
-    (K1) and the grid-coupled fused level (K5). Others need kernels that
-    are still to be ported (ROADMAP Queue 2)."""
-    return (spec.use_viewdirs and pair_kernel_ok(spec)
-            and spec.use_spatial_embeddings and latent_code is None)
+# The sample counts the level kernels (K5-K8) take on the JAX package's
+# path: those whose rays tile its 1024-point tiles (nerface.py:194-198).
+LEVEL_TILE = 1024
+
+STILL_TO_PORT = ("K10 grid_bwd_fused, K11 nerf_mlp_forward_fused, K12 "
+                 "nerf_mlp_vjp, K13 skip_mlp_forward, K14 skip_mlp_vjp, K15 "
+                 "build_pts (ROADMAP Queue 2)")
+
+
+def level_kernel_compatible(samples: int) -> bool:
+    """True when the level kernels take this sample count."""
+    return bool(samples) and LEVEL_TILE % samples == 0
+
+
+def kernel_path_ok(spec: ModelSpec) -> bool:
+    """The configurations the ported kernels cover: view directions, the
+    spatial-embedding grid, and either the deformation pair (K1, K3) or no
+    deformation at all (the points go to the level kernels as they are).
+    Per-frame latent codes ride the conditioning, folded into biases."""
+    deform_ok = pair_kernel_ok(spec) or not (spec.use_warp or spec.use_ambient)
+    return spec.use_viewdirs and spec.use_spatial_embeddings and deform_ok
+
+
+def check_kernel_path(spec: ModelSpec) -> None:
+    """Raise NotImplementedError, naming the kernels it needs, for a
+    configuration outside ``kernel_path_ok``."""
+    if kernel_path_ok(spec):
+        return
+    if spec.use_warp or spec.use_ambient:
+        raise NotImplementedError(
+            "a warp-only or ambient-only model, or one whose warp and hyper "
+            "nets take different conditioning, runs each deformation MLP on "
+            "its own: it needs K13 skip_mlp_forward and K14 skip_mlp_vjp, "
+            "still to be ported (ROADMAP Queue 2)")
+    raise NotImplementedError(
+        "the kernel path takes models with view directions and the "
+        "spatial-embedding grid; this one needs forms of the level kernels "
+        "still to be ported: " + STILL_TO_PORT)
+
+
+def check_samples(samples: int) -> None:
+    """Raise NotImplementedError for a sample count the level kernels do
+    not take: JAX runs it on the per-point branch (nerface.py:442-460)."""
+    if not level_kernel_compatible(samples):
+        raise NotImplementedError(
+            f"{samples} samples a ray do not tile the level kernels' "
+            f"{LEVEL_TILE}-point tiles: the per-point branch needs K11 "
+            "nerf_mlp_forward_fused, K12 nerf_mlp_vjp and K10 grid_bwd_fused, "
+            "still to be ported (ROADMAP Queue 2)")
+
+
+class FoldedCache:
+    """Per-frame folded weights and tables, each rebuilt once one of its
+    source parameters has changed in place: an optimizer step bumps a
+    parameter's version counter, so a cached blob never outlives it."""
+
+    def __init__(self):
+        self._items = {}
+
+    def get(self, key, sources, build):
+        version = tuple(p._version for p in sources)
+        hit = self._items.get(key)
+        if hit is None or hit[0] != version:
+            with torch.no_grad():
+                hit = self._items[key] = (version, build())
+        return hit[1]
 
 
 def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
                     pose: torch.Tensor, latent_code=None,
                     use_pallas: bool = False,
                     compute_dtype: str = "bfloat16") -> RenderFns:
-    """Build the per-frame field evaluators (nerface.py:269-487).
+    """Build the per-frame field evaluators (nerface.py:269-487). Under
+    autograd (the train step's fallback) every evaluator is
+    differentiable with respect to the model's parameters, the driving
+    input (through AudioNet) and the latent code.
 
     use_pallas=False: the plain path, the reference math in tensor ops.
-    use_pallas=True: the kernel path. Per-frame conditioning is folded
-    into biases and the grid packed into its corner table once per frame;
-    each level runs K1 (warp + hyper, emitting corner-table rows) and then
-    K5 (corner gather + NeRF MLP + spatial embedding + compositing). A configuration outside ``kernel_path_ok`` raises rather
-    than fall back."""
-    from ..ops.kernels.deform_pair import deform_pair_forward, prepare_pair
-    from ..ops.kernels.field_grid import corner_table
-    from ..ops.kernels.nerf_level import nerf_level_forward, prepare_level
+    use_pallas=True: the kernel path. Per-frame conditioning ([latent |
+    driving | pose] as the level takes them) is folded into biases and the
+    grid packed into its corner table, once per frame and again after any
+    in-place change of their parameters. The front half is the deformation
+    pair (K1, K3 in the backward), emitting corner-table rows, or for a
+    model without deformation the points themselves with their rows from
+    ``_cell_geometry``; the back half is K5 (K6) with compositing, or K7
+    (K8) for the raw field; dGrid is K9. A configuration outside
+    ``kernel_path_ok`` raises rather than fall back."""
+    from ..ops.grid import _cell_geometry
+    from ..ops.kernels.deform_pair import (PairOp, deform_pair_apply_fused,
+                                           prepare_pair)
+    from ..ops.kernels.field_grid import (GridLevelOp, corner_table,
+                                          nerf_mlp_apply_rayd_grid,
+                                          nerf_render_level_grid)
+    from ..ops.kernels.nerf_level import prepare_level
 
     spec = model.spec
-    with torch.no_grad():
-        driving = compute_driving(model, driving_or_audio)
-        pose_enc = encode_pose(pose)
+    driving = compute_driving(model, driving_or_audio)
+    pose_enc = encode_pose(pose)
 
     if not use_pallas:
         def field_fn(level, pts_flat, dirs_ray, samples):
@@ -260,44 +340,70 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
                 dirs_flat = dirs_ray[:, None, :].expand(
                     dirs_ray.shape[0], samples, dirs_ray.shape[-1]
                 ).reshape(-1, dirs_ray.shape[-1])
-            with torch.no_grad():
-                mapped = map_points(model, pts_flat, driving, pose_enc)
-                se = None
-                if spec.use_spatial_embeddings:
-                    se = grid_sample_3d(model.spatial_embeddings, mapped[..., :3])
-                return query_template(model, level, mapped, dirs_flat, driving,
-                                      pose_enc, latent_code, se)
+            mapped = map_points(model, pts_flat, driving, pose_enc)
+            se = None
+            if spec.use_spatial_embeddings:
+                se = grid_sample_3d(model.spatial_embeddings, mapped[..., :3])
+            return query_template(model, level, mapped, dirs_flat, driving,
+                                  pose_enc, latent_code, se)
         return RenderFns(field_fn, None)
 
-    if not kernel_path_ok(spec, latent_code):
-        raise NotImplementedError(
-            "the kernel path covers the deformation pair + grid-coupled "
-            "level configuration only; this model needs kernels still to "
-            "be ported (see ROADMAP Queue 2)")
+    check_kernel_path(spec)
     warp_pe, pts_pe, dir_pe = build_pe_groups(spec)
-    cond = torch.cat([driving, pose_enc]) if spec.warp.include_driving else pose_enc
-    pair = prepare_pair(model.warp, model.hyper, cond, warp_pe)
-    levels = {}
-    grid = model.spatial_embeddings.detach()
+    grid = model.spatial_embeddings
     dims = tuple(grid.shape[1:])
-    table = corner_table(grid, compute_dtype)
+    folded = FoldedCache()
+    pair_ok = pair_kernel_ok(spec)
+
+    def front_half(pts_flat, samples):
+        if not pair_ok:
+            rows, _, _ = _cell_geometry(pts_flat, dims)
+            return pts_flat, rows.to(torch.int32).reshape(-1, samples)
+        nets = (model.warp, model.hyper)
+        params = [p for n in nets for p in n.parameters()]
+        cond = (torch.cat([driving, pose_enc]) if spec.warp.include_driving
+                else pose_enc)
+        pair = folded.get("pair", params,
+                          lambda: prepare_pair(*nets, cond, warp_pe))
+        return deform_pair_apply_fused(
+            PairOp(*nets, params, pair, pts_flat, samples, dims, compute_dtype),
+            cond)
 
     def nerf_cond(level):
         nspec: NeRFSpec = getattr(spec, level)
         parts = []
+        if latent_code is not None and nspec.latent_code_dim > 0:
+            parts.append(latent_code)
         if nspec.include_driving:
             parts.append(driving)
         if nspec.use_pose:
             parts.append(pose_enc)
         return torch.cat(parts) if parts else pose_enc[:0]
 
-    def level_fn(level, pts_flat, dirs_ray, samples, z, bg, noise):
-        if level not in levels:
-            levels[level] = prepare_level(getattr(model, level),
-                                          nerf_cond(level), pts_pe, dir_pe)
-        packed, rows = deform_pair_forward(pts_flat, pair, compute_dtype,
-                                           samples, dims)
-        return nerf_level_forward(packed, dirs_ray, table, rows, z, bg, noise,
-                                  levels[level], compute_dtype, dims)
+    def grid_op(level, rows, dirs_ray, samples, z=None, noise=None):
+        nerf = getattr(model, level)
+        params = list(nerf.parameters())
+        cond = nerf_cond(level)
+        weights = folded.get(level, params,
+                             lambda: prepare_level(nerf, cond, pts_pe, dir_pe))
+        table = folded.get("table", [grid],
+                           lambda: corner_table(grid, compute_dtype))
+        return GridLevelOp(nerf, params, weights, table, rows, dirs_ray,
+                           samples, compute_dtype, tuple(grid.shape), z,
+                           noise), cond
 
-    return RenderFns(None, level_fn)
+    def nerf_fn(level, fh, dirs_ray, samples):
+        check_samples(samples)
+        pts_raw, rows = fh
+        op, cond = grid_op(level, rows, dirs_ray, samples)
+        return nerf_mlp_apply_rayd_grid(op, grid, pts_raw, cond)
+
+    def level_fn(level, pts_flat, dirs_ray, samples, z, bg, noise):
+        pts_raw, rows = front_half(pts_flat, samples)
+        op, cond = grid_op(level, rows, dirs_ray, samples, z, noise)
+        return nerf_render_level_grid(op, grid, pts_raw, bg, cond)
+
+    def field_fn(level, pts_flat, dirs_ray, samples):
+        return nerf_fn(level, front_half(pts_flat, samples), dirs_ray, samples)
+
+    return RenderFns(field_fn, level_fn, front_half, nerf_fn)

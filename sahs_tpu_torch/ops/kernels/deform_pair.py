@@ -10,6 +10,11 @@ K3 replaces ``field_mlp.py:deform_pair_vjp`` (:1098, ``pallas_call`` at
 trunks and heads from the packed cotangent g (+ an addend g2). The CUDA
 kernel is ``csrc/deform_pair_vjp.cu``.
 
+``deform_pair_apply_fused`` is the differentiable pair (field_mlp.py:
+1284-1354, need_input_grad=False): a ``torch.autograd.Function`` whose
+forward is K1 and whose backward is K3, with the gradient going to the
+warp and hyper parameters and to the conditioning; the points get none.
+
 Each wrapper launches its kernel for tensors on a CUDA device and counts
 the call in ``<wrapper>.launches``; for tensors on the CPU it runs the
 ``*_plain`` version, the same function in plain tensor math. There is no
@@ -25,9 +30,10 @@ import torch
 from ..grid import _cell_geometry
 from . import _build
 from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
-                        dact, dw_chunks, fold_trunk, kernel_pe, linear_params,
-                        mm, mm_t, torch_dtype, trunk_backward, trunk_forward,
-                        trunk_into_blob, trunk_params)
+                        dact, dw_chunks, fold_trunk, kernel_pe, linear_grads,
+                        linear_params, mm, mm_t, torch_dtype, trunk_backward,
+                        trunk_forward, trunk_into_blob, trunk_params,
+                        unfold_cond_grads)
 
 
 @dataclasses.dataclass
@@ -274,4 +280,65 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
 
 
 deform_pair_vjp.launches = 0
+
+
+def pair_param_grads(warp, hyper, pair_g, cond: torch.Tensor):
+    """K3's folded gradient tree -> ({parameter: grad} of the ``WarpField``
+    and ``HyperSheet`` modules, d(cond)), through the conditioning unfold
+    (field_mlp.py:617-644)."""
+    out = {}
+    dcond = torch.zeros_like(cond)
+    for name, net in (("warp", warp), ("hyper", hyper)):
+        raw = [{"w": p["w"].detach(), "b": p["b"].detach()}
+               for p in trunk_params(net.trunk)]
+        tg, dc = unfold_cond_grads(raw, pair_g[name]["trunk"], cond,
+                                   net.spec.skip_connect_every,
+                                   net.spec.hidden_size, net.spec.pe_xyz_dim)
+        for lin, gl in zip(net.trunk.layers, tg):
+            linear_grads(out, lin, gl)
+        linear_grads(out, net.out, pair_g[name]["out"])
+        dcond = dcond + dc
+    return out, dcond
+
+
+@dataclasses.dataclass
+class PairOp:
+    """What the differentiable pair holds beside the conditioning: the two
+    modules and their parameters, the folded weights of this frame, the
+    points (P, 3), the sample count and the grid's (D, H, W)."""
+    warp: torch.nn.Module
+    hyper: torch.nn.Module
+    params: List[torch.Tensor]
+    weights: PairWeights
+    points: torch.Tensor
+    samples: int
+    grid_dims: Tuple[int, int, int]
+    compute_dtype: str
+
+
+class _DeformPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, cond, *params):
+        ctx.op = op
+        ctx.save_for_backward(cond)
+        packed, rows = deform_pair_forward(op.points, op.weights,
+                                           op.compute_dtype, op.samples,
+                                           op.grid_dims)
+        ctx.mark_non_differentiable(rows)
+        return packed, rows
+
+    @staticmethod
+    def backward(ctx, g_packed, _):
+        op = ctx.op
+        (cond,) = ctx.saved_tensors
+        pair_g = deform_pair_vjp(op.points, op.weights, g_packed, None,
+                                 op.compute_dtype)
+        by_param, dcond = pair_param_grads(op.warp, op.hyper, pair_g, cond)
+        return (None, dcond, *[by_param.get(p) for p in op.params])
+
+
+def deform_pair_apply_fused(op: PairOp, cond: torch.Tensor):
+    """The deformation pair, differentiable with respect to the modules'
+    parameters and ``cond``: (packed (P, 3 + ambient), rows (P // S, S))."""
+    return _DeformPair.apply(op, cond, *op.params)
 

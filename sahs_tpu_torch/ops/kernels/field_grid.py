@@ -1,18 +1,36 @@
-"""Grid-coupled NeRF level: the corner table (counterpart of
-``sahs_tpu/ops/pallas/field_grid.py``, forward only).
+"""Grid-coupled NeRF level ops (counterpart of
+``sahs_tpu/ops/pallas/field_grid.py``).
 
-The JAX op ``nerf_render_level_grid`` spans an XLA row gather of the corner
-table and the Pallas level kernel (field_grid.py:195-212). Here K5
-(``nerf_level.nerf_level_forward``) gathers the rows itself, so the op is
-``corner_table`` once per frame, next to the folded weights, and then one
-K5 launch per level and chunk.
+The JAX ops span an XLA row gather of the corner table and a Pallas level
+kernel, and differentiate as one custom VJP (field_grid.py:121-259). Here
+the level kernels gather the rows themselves, so the corner table is packed
+once per frame, next to the folded weights, and each op is a
+``torch.autograd.Function``:
+
+  nerf_render_level_grid   forward K5 (MLP + interp + compositing),
+                           backward K6, the conditioning unfold, K9
+  nerf_mlp_apply_rayd_grid forward K7 (the raw field),
+                           backward K8, the conditioning unfold, K9
+
+Both are differentiable with respect to the NeRF module's parameters, the
+grid, the packed points, the conditioning (and so AudioNet and the latent
+code behind it) and, for the level op, the background prior; z, the sigma
+noise and the corner-table rows get no gradient. The dGrid pass (K9) runs
+over sample-major points, as the JAX op orders them (field_grid.py:80-85).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
 
 import torch
 
 from ..grid import pack_corner_table
-from .field_mlp import torch_dtype
+from .field_mlp import torch_dtype, trunk_params, unfold_cond_grads
+from .grid_bwd import grid_dg_coords
+from .level_train import nerf_level_vjp, nerf_rayd_vjp
+from .nerf_level import (LevelWeights, level_param_grads, nerf_level_forward,
+                         nerf_rayd_forward)
 
 
 def corner_table(grid: torch.Tensor, compute_dtype: str) -> torch.Tensor:
@@ -28,3 +46,109 @@ def gather_corners_from_rows(grid: torch.Tensor, rows: torch.Tensor,
     """(C, D, H, W) grid + table rows (any shape) -> (P, 8C) corner rows, in
     bf16 when compute_dtype is bfloat16 (field_grid.py:67-77)."""
     return corner_table(grid, compute_dtype)[rows.reshape(-1).long()]
+
+
+def sample_major(x: torch.Tensor, R: int, S: int) -> torch.Tensor:
+    """(R*S, k) ray-major -> sample-major: all rays' sample s adjacent
+    (field_grid.py:80-85)."""
+    return x.reshape(R, S, x.shape[-1]).transpose(0, 1).reshape(R * S, x.shape[-1])
+
+
+@dataclasses.dataclass
+class GridLevelOp:
+    """What a grid-coupled op holds beside its differentiable inputs: the
+    NeRF module and its parameters, the folded weights (``prepare_level``
+    of this frame's conditioning), the corner table, the table rows of the
+    points, the ray directions (R, 3), the sample count, and for the level
+    op z (R, S) and the scaled sigma noise (R, S) | None."""
+    nerf: torch.nn.Module
+    params: List[torch.Tensor]
+    weights: LevelWeights
+    table: torch.Tensor
+    rows: torch.Tensor
+    dirs: torch.Tensor
+    samples: int
+    compute_dtype: str
+    grid_shape: Sequence[int]
+    z: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
+
+
+def _unfold(op: GridLevelOp, grads: dict, cond: torch.Tensor) -> torch.Tensor:
+    """Raw-trunk gradients from the folded ones, in place; returns d(cond)."""
+    spec = op.nerf.spec
+    raw = [{"w": p["w"].detach(), "b": p["b"].detach()}
+           for p in trunk_params(op.nerf.trunk)]
+    grads["trunk"], dcond = unfold_cond_grads(
+        raw, grads["trunk"], cond, spec.skip_connect_every, spec.hidden_size,
+        spec.pe_xyz_dim + spec.ambient_pe_dim)
+    return dcond
+
+
+def _backward_tail(op: GridLevelOp, pts_raw, gse, grads, cond):
+    """The conditioning unfold, the parameters' gradients in ``op.params``
+    order, and dGrid (K9) over the sample-major points."""
+    dcond = _unfold(op, grads, cond)
+    by_param = {}
+    level_param_grads(by_param, op.nerf, grads)
+    R = op.dirs.shape[0]
+    dG = grid_dg_coords(sample_major(pts_raw[:, :3], R, op.samples),
+                        sample_major(gse, R, op.samples), op.grid_shape)
+    return dcond, dG, [by_param.get(p) for p in op.params]
+
+
+class _LevelGrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, pts_raw, bg, cond, grid, *params):
+        ctx.op = op
+        ctx.save_for_backward(pts_raw, bg, cond)
+        return nerf_level_forward(pts_raw, op.dirs, op.table, op.rows, op.z, bg,
+                                  op.noise, op.weights, op.compute_dtype,
+                                  tuple(op.grid_shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_w):
+        op = ctx.op
+        pts_raw, bg, cond = ctx.saved_tensors
+        gx, gse, g_bg, grads = nerf_level_vjp(
+            pts_raw, op.dirs, op.table, op.rows, op.z, bg, op.noise, g_rgb, g_w,
+            op.weights, op.compute_dtype, tuple(op.grid_shape[1:]))
+        dcond, dG, dparams = _backward_tail(op, pts_raw, gse, grads, cond)
+        return (None, gx, g_bg, dcond, dG, *dparams)
+
+
+class _RaydGrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, pts_raw, cond, grid, *params):
+        ctx.op = op
+        ctx.save_for_backward(pts_raw, cond)
+        return nerf_rayd_forward(pts_raw, op.dirs, op.table, op.rows, op.weights,
+                                 op.compute_dtype, tuple(op.grid_shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        op = ctx.op
+        pts_raw, cond = ctx.saved_tensors
+        gx, gse, grads = nerf_rayd_vjp(pts_raw, op.dirs, op.table, op.rows, g,
+                                       op.weights, op.compute_dtype,
+                                       tuple(op.grid_shape[1:]))
+        dcond, dG, dparams = _backward_tail(op, pts_raw, gse, grads, cond)
+        return (None, gx, dcond, dG, *dparams)
+
+
+def nerf_render_level_grid(op: GridLevelOp, grid: torch.Tensor,
+                           pts_raw: torch.Tensor, bg: Optional[torch.Tensor],
+                           cond: torch.Tensor):
+    """The grid-coupled level (field_grid.py:262-277): pts_raw (P, 3 +
+    ambient) packed [warped | ambient], grid (C, D, H, W), bg (R, 15) |
+    None, cond the level's conditioning. Returns (rgb_map (R, 16), weights
+    (R, S))."""
+    return _LevelGrid.apply(op, pts_raw, bg, cond, grid, *op.params)
+
+
+def nerf_mlp_apply_rayd_grid(op: GridLevelOp, grid: torch.Tensor,
+                             pts_raw: torch.Tensor,
+                             cond: torch.Tensor) -> torch.Tensor:
+    """The grid-coupled raw field (field_grid.py:176-188): (P, 16)
+    [rgb3 | seg12 | sigma1]."""
+    return _RaydGrid.apply(op, pts_raw, cond, grid, *op.params)

@@ -89,6 +89,13 @@ def trunk_params(trunk) -> List[Dict[str, torch.Tensor]]:
     return [linear_params(lin) for lin in trunk.layers]
 
 
+def linear_grads(out: dict, lin: torch.nn.Linear, g: Dict[str, torch.Tensor]
+                 ) -> None:
+    """{"w": (in, out), "b"} gradients (the JAX layout) -> ``out[param]``."""
+    out[lin.weight] = g["w"].t()
+    out[lin.bias] = g["b"]
+
+
 def _cond_dot(cond: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     # elementwise multiply-sum: full float32 on every device (never TF32)
     return torch.sum(cond[:, None].to(w.dtype) * w, dim=0)

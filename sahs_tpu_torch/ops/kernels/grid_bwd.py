@@ -1,22 +1,27 @@
-"""K4: the gradient of the trilinear spatial-embedding sample with respect
-to the grid (dGrid).
+"""K4 and K9: the gradient of the trilinear spatial-embedding sample with
+respect to the grid (dGrid).
 
-Replaces ``sahs_tpu/ops/pallas/grid_bwd.py:grid_dg_slab_packed`` (:211,
+K4 replaces ``sahs_tpu/ops/pallas/grid_bwd.py:grid_dg_slab_packed`` (:211,
 ``pallas_call`` at :327), which the fused train path runs once per step
 over the sorted fine points with the coarse level's cotangents scattered
-in as a second input (train/fused.py:405-413). The CUDA kernel is
-``csrc/grid_bwd.cu``.
+in as a second input (train/fused.py:405-413). K9 replaces
+``grid_bwd.py:grid_dg_slab`` (:103, ``pallas_call`` at :191), the autograd
+fallback's dGrid: the backward of the grid-coupled level ops
+(``field_grid.py``) over their sample-major points. Both are the CUDA
+kernel of ``csrc/grid_bwd.cu``.
 
     dG[c, z, y, x] = sum_p w_corner(p) * (gse[p, c] + gse2[p, c])
 
 over the 8 corners of each point's cell, with zeros padding: a corner
 outside the grid contributes nothing. The weights are those of the
-forward sample (ops/grid._cell_geometry's exact expression), and each
-point's cell is its corner-table row, mapped back to grid voxels with the
-table's padding border dropped.
+forward sample (ops/grid._cell_geometry's exact expression). K4 takes each
+point's cell as its corner-table row, mapped back to grid voxels with the
+table's padding border dropped; K9 forms the cell from the coordinates
+itself, with the same expression, and has no addend.
 
-``grid_dg`` launches the kernel for CUDA tensors and counts the call in
-``grid_dg.launches``; for CPU tensors it runs ``grid_dg_plain``.
+``grid_dg`` and ``grid_dg_coords`` launch the kernel for CUDA tensors and
+count the call in ``<wrapper>.launches``; for CPU tensors they run
+``grid_dg_plain`` / ``grid_dg_coords_plain``.
 """
 from __future__ import annotations
 
@@ -106,3 +111,42 @@ def grid_dg(pts: torch.Tensor, rows: torch.Tensor, gse: torch.Tensor,
 
 
 grid_dg.launches = 0
+
+
+def grid_dg_coords_plain(coords: torch.Tensor, g: torch.Tensor,
+                         grid_shape: Sequence[int]) -> torch.Tensor:
+    """K9's plain version: coords (P, >=3) sample coordinates, g (P, C) the
+    cotangent of the sampled features -> dG (C, D, H, W) float32."""
+    rows, _, _ = _cell_geometry(coords[:, :3].to(torch.float32), grid_shape[1:])
+    return grid_dg_plain(coords, rows, g, None, grid_shape)
+
+
+def grid_dg_coords(coords: torch.Tensor, g: torch.Tensor,
+                   grid_shape: Sequence[int]) -> torch.Tensor:
+    """K9 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and result as ``grid_dg_coords_plain``."""
+    if coords.device.type == "cpu":
+        return grid_dg_coords_plain(coords, g, grid_shape)
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    C, D, H, W = grid_shape
+    P, PW = coords.shape
+    if g.dim() != 2 or g.shape != (P, C) or PW > 8 or PW < 3:
+        raise ValueError(f"K9 shapes not supported: coords {tuple(coords.shape)}, "
+                         f"g {tuple(g.shape)} for grid {tuple(grid_shape)}")
+    if g.device != coords.device:
+        raise ValueError("K9 inputs must all be on " + str(coords.device))
+    f32 = torch.float32
+    coords = coords.to(f32).contiguous()
+    g = g.to(f32).contiguous()
+    dg = torch.zeros((D, H, W, C), dtype=f32, device=coords.device)
+    fn = _build.function("grid_bwd", "sahs_grid_dg_coords", "pp" + "li" + "iiii" + "p" + "p")
+    p = _build.ptr
+    rc = fn(p(coords), p(g), P, PW, C, D, H, W, p(dg),
+            _build.stream_ptr(coords.device))
+    _build.check(rc, "grid_dg_coords")
+    grid_dg_coords.launches += 1
+    return dg.permute(3, 0, 1, 2)
+
+
+grid_dg_coords.launches = 0

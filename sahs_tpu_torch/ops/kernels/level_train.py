@@ -1,13 +1,12 @@
-"""K2: one NeRF level for training, forward, in-kernel loss cotangents and
-the full backward in one call.
+"""K2, K6 and K8: one NeRF level's backward, three uses of one CUDA kernel
+set (``csrc/level_train.cu``; its source note gives the bound on the H100
+and the design).
 
-Replaces ``sahs_tpu/ops/pallas/level_train.py:nerf_level_train`` (:55,
-``pallas_call`` at :306) in its ``corner_interp`` form. The CUDA kernel is
-``csrc/level_train.cu``; its source note gives the bound on the H100 and
-the design.
-
-The Stage-I loss is per-ray analytic, so its cotangents are formed where
-the composited outputs are (level_train.py:26-32):
+K2 replaces ``sahs_tpu/ops/pallas/level_train.py:nerf_level_train`` (:55,
+``pallas_call`` at :306) in its ``corner_interp`` form: the forward, the
+loss cotangents and the full backward in one call. The Stage-I loss is
+per-ray analytic, so its cotangents are formed where the composited
+outputs are (level_train.py:26-32):
   g_rgb[r, 0:3]  = w_l2(r) * 2 * (rgb[r] - target[r])
   g_rgb[r, 3:15] = w_ce(r) * (-mask[r, c] / (seg[r, c] + 1e-10))
   g_w[r, S-1]    = bg_sup * ||bg[r, :3] - target[r]||^2
@@ -16,10 +15,17 @@ and run back through the compositing (field_mlp.py:2580-2623), the heads,
 the trunk, the positional encoding and the trilinear sample
 (field_mlp.py:2788-2901, with the corner dCoords of :1824).
 
-``nerf_level_train`` launches the kernel for CUDA tensors and counts the
-call in ``nerf_level_train.launches``; for CPU tensors it runs
-``nerf_level_train_plain``. ``level_train_apply`` folds the conditioning,
-runs it and unfolds the trunk's gradients (level_train.py:358-405).
+K6 replaces ``field_mlp.py:nerf_level_vjp`` (:2951, ``pallas_call`` at
+:3091): the backward of K5 from given cotangents g_rgb (R, 16) and g_w
+(R, S) of its outputs, the autograd fallback's level backward. K8 replaces
+``field_mlp.py:nerf_rayd_vjp`` (:2059, ``pallas_call`` at :2269): the
+backward of K7 from the cotangent of the raw field (P, 16), no compositing.
+
+``nerf_level_train``, ``nerf_level_vjp`` and ``nerf_rayd_vjp`` launch the
+kernel for CUDA tensors and count the call in ``<wrapper>.launches``; for
+CPU tensors they run the ``*_plain`` version. ``level_train_apply`` folds
+the conditioning, runs K2 and unfolds the trunk's gradients
+(level_train.py:358-405).
 """
 from __future__ import annotations
 
@@ -28,12 +34,11 @@ from typing import Optional
 import torch
 
 from . import _build
-from ..grid import _cell_geometry, interp_corners
 from .field_mlp import (BlobBuilder, TrainPlan, build_train_plan, dact,
-                        dw_chunks, kernel_pe, mm, mm_t, pe_columns,
-                        torch_dtype, trunk_backward, trunk_forward,
-                        trunk_params, unfold_cond_grads)
-from .nerf_level import LevelWeights, _pe_freqs, leaky, prepare_level
+                        dw_chunks, mm, mm_t, pe_columns, torch_dtype,
+                        trunk_backward, trunk_params, unfold_cond_grads)
+from .nerf_level import (LevelWeights, check_device, level_kernel_args,
+                         nerf_raw_plain, prepare_level)
 
 TP = 32   # points per tile of K2's per-point kernels and of its stash
 
@@ -42,14 +47,10 @@ TP = 32   # points per tile of K2's per-point kernels and of its stash
 # Plain version
 # ---------------------------------------------------------------------------
 
-def composite_train_plain(raw: torch.Tensor, z: torch.Tensor,
-                          dirs: torch.Tensor, bg: Optional[torch.Tensor],
-                          noise: Optional[torch.Tensor], tgt: torch.Tensor,
-                          lw: torch.Tensor, bg_sup: float):
-    """Compositing (as nerf_level.composite_plain), the loss cotangents and
-    the compositing backward, float32. raw (R, S, 16) rgb3 | seg12 | sigma1.
-    Returns (rgb_map (R, 16), weights (R, S), graw (R, S, 16) the cotangent
-    of raw, g_bg (R, 15) | None)."""
+def _composite_stash(raw: torch.Tensor, z: torch.Tensor, dirs: torch.Tensor,
+                     bg: Optional[torch.Tensor], noise: Optional[torch.Tensor]):
+    """Compositing (as nerf_level.composite_plain), float32, keeping what
+    its backward needs. raw (R, S, 16) rgb3 | seg12 | sigma1."""
     R, S, _ = raw.shape
     f32 = torch.float32
     dz = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1)
@@ -77,8 +78,59 @@ def composite_train_plain(raw: torch.Tensor, z: torch.Tensor,
     else:
         seg_act = torch.sigmoid(raw[..., 3:15])
         ch = torch.cat([rgb_sig, seg_act, zero], dim=-1)
-    rgb_map = torch.sum(w[..., None] * ch, dim=1)
+    return {"rgb_map": torch.sum(w[..., None] * ch, dim=1), "w": w, "T": T,
+            "alpha": alpha, "t_term": t_term, "dists": dists, "sig": sig,
+            "ch": ch, "rgb_sig": rgb_sig, "seg_act": seg_act,
+            "is_last": is_last, "has_bg": bg is not None}
 
+
+def _composite_bwd(st: dict, g_rgb: torch.Tensor, g_w: torch.Tensor):
+    """The compositing backward (field_mlp.py:2580-2623) from the
+    cotangents of rgb_map (R, 16) and the weights (R, S). Returns (graw
+    (R, S, 16), g_bg (R, 15) | None): the last sample's channel cotangent,
+    and with a background no rgb/seg gradient into that raw sample."""
+    w, T, alpha, t_term = st["w"], st["T"], st["alpha"], st["t_term"]
+    ch, rgb_sig, seg_act = st["ch"], st["rgb_sig"], st["seg_act"]
+    g_ch = w[..., None] * g_rgb[:, None, :]
+    g_bg = g_ch[:, -1, :15].clone() if st["has_bg"] else None
+    g_w_tot = g_w + torch.sum(ch * g_rgb[:, None, :], dim=-1)
+    g_cum = T * (g_w_tot * alpha)
+    # the transpose of the exclusive scan: the sum over later samples
+    rev = torch.flip(torch.cumsum(torch.flip(g_cum, [-1]), dim=-1), [-1])
+    g_log = torch.cat([rev[:, 1:], torch.zeros_like(rev[:, :1])], dim=-1)
+    g_alpha = g_w_tot * T - g_log / (t_term + 1e-10)
+    g_sig = g_alpha * t_term * st["dists"] * (st["sig"] > 0).to(torch.float32)
+    not_last = (1.0 - st["is_last"])[..., None] if st["has_bg"] else 1.0
+    grgb3 = g_ch[..., :3] * rgb_sig * (1.0 - rgb_sig) * not_last
+    gs = g_ch[..., 3:15]
+    if st["has_bg"]:
+        gseg = seg_act * (gs - torch.sum(gs * seg_act, dim=-1, keepdim=True)) * not_last
+    else:
+        gseg = gs * seg_act * (1.0 - seg_act)
+    return torch.cat([grgb3, gseg, g_sig[..., None]], dim=-1), g_bg
+
+
+def composite_vjp_plain(raw: torch.Tensor, z: torch.Tensor, dirs: torch.Tensor,
+                        bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
+                        g_rgb: torch.Tensor, g_w: torch.Tensor):
+    """Compositing and its backward from given cotangents, float32.
+    Returns (rgb_map (R, 16), weights (R, S), graw (R, S, 16), g_bg (R, 15)
+    | None)."""
+    st = _composite_stash(raw, z, dirs, bg, noise)
+    graw, g_bg = _composite_bwd(st, g_rgb.to(torch.float32),
+                                g_w.to(torch.float32))
+    return st["rgb_map"], st["w"], graw, g_bg
+
+
+def composite_train_plain(raw: torch.Tensor, z: torch.Tensor,
+                          dirs: torch.Tensor, bg: Optional[torch.Tensor],
+                          noise: Optional[torch.Tensor], tgt: torch.Tensor,
+                          lw: torch.Tensor, bg_sup: float):
+    """Compositing, the loss cotangents and the compositing backward,
+    float32. Returns (rgb_map (R, 16), weights (R, S), graw (R, S, 16) the
+    cotangent of raw, g_bg (R, 15) | None)."""
+    st = _composite_stash(raw, z, dirs, bg, noise)
+    rgb_map, w = st["rgb_map"], st["w"]
     g_rgb = torch.cat([lw[:, 0:1] * 2.0 * (rgb_map[:, :3] - tgt[:, :3]),
                        lw[:, 1:2] * (-tgt[:, 3:15] / (rgb_map[:, 3:15] + 1e-10)),
                        torch.zeros_like(rgb_map[:, :1])], dim=-1)
@@ -86,27 +138,9 @@ def composite_train_plain(raw: torch.Tensor, z: torch.Tensor,
     sup = bg_sup > 0.0 and bg is not None
     if sup:
         g_w[:, -1] = bg_sup * torch.sum(torch.square(bg[:, :3] - tgt[:, :3]), dim=-1)
-    g_ch = w[..., None] * g_rgb[:, None, :]
-    g_bg = None
-    if bg is not None:
-        g_bg = g_ch[:, -1, :15].clone()
-        if sup:
-            g_bg[:, :3] += bg_sup * w[:, -1:] * 2.0 * (bg[:, :3] - tgt[:, :3])
-    g_w_tot = g_w + torch.sum(ch * g_rgb[:, None, :], dim=-1)
-    g_cum = T * (g_w_tot * alpha)
-    # the transpose of the exclusive scan: the sum over later samples
-    rev = torch.flip(torch.cumsum(torch.flip(g_cum, [-1]), dim=-1), [-1])
-    g_log = torch.cat([rev[:, 1:], zcol], dim=-1)
-    g_alpha = g_w_tot * T - g_log / (t_term + 1e-10)
-    g_sig = g_alpha * t_term * dists * (sig > 0).to(f32)
-    not_last = (1.0 - is_last)[..., None] if bg is not None else 1.0
-    grgb3 = g_ch[..., :3] * rgb_sig * (1.0 - rgb_sig) * not_last
-    gs = g_ch[..., 3:15]
-    if bg is not None:
-        gseg = seg_act * (gs - torch.sum(gs * seg_act, dim=-1, keepdim=True)) * not_last
-    else:
-        gseg = gs * seg_act * (1.0 - seg_act)
-    graw = torch.cat([grgb3, gseg, g_sig[..., None]], dim=-1)
+    graw, g_bg = _composite_bwd(st, g_rgb, g_w)
+    if sup:
+        g_bg[:, :3] += bg_sup * w[:, -1:] * 2.0 * (bg[:, :3] - tgt[:, :3])
     return rgb_map, w, graw, g_bg
 
 
@@ -151,88 +185,113 @@ def _lin_grad(a, gz, dtype):
     return {"w": mm_t(a, gz, dtype), "b": torch.sum(gz, dim=0)}
 
 
+def level_backward_plain(weights: LevelWeights, acts: dict, pts: torch.Tensor,
+                        graw: torch.Tensor, dtype: torch.dtype, grid_dims):
+    """The level's backward from the cotangent of raw (P, 16), given the
+    forward's ``acts`` (``nerf_raw_plain``): the heads, branches and trunk,
+    the PE and the trilinear dCoords. Returns (gx (P, 3 + ambient), gse
+    (P, C), grads), grads the folded level's {"trunk": [{"w", "b"}],
+    "fc_feat", "fc_alpha", "dir": [...], "fc_rgb", "seg": [...], "fc_seg"}
+    with dir[0]'s rows [feat | pe(dir) | se], the JAX package's layout."""
+    W = weights
+    feat, se, h = acts["feat"], acts["se"], acts["h"]
+    dacts, sacts = acts["dacts"], acts["sacts"]
+    grgb, gseg, galpha = graw[:, :3], graw[:, 3:15], graw[:, 15:16]
+    # seg branch
+    grads = {"fc_seg": _lin_grad(sacts[-1], gseg, dtype)}
+    ga = mm(gseg, W.seg_out["w"].t(), dtype)
+    seg_g = [None] * len(W.seg)
+    for k in range(len(W.seg) - 1, -1, -1):
+        gz = ga * dact("leaky", sacts[k])
+        seg_g[k] = _lin_grad(feat if k == 0 else sacts[k - 1], gz, dtype)
+        ga = mm(gz, W.seg[k]["w"].t(), dtype)
+    gfeat = ga
+    # direction branch
+    grads["fc_rgb"] = _lin_grad(dacts[-1], grgb, dtype)
+    ga = mm(grgb, W.rgb["w"].t(), dtype)
+    dir_g = [None] * len(dacts)
+    for k in range(len(dacts) - 1, 0, -1):
+        gz = ga * dact("leaky", dacts[k])
+        dir_g[k] = _lin_grad(dacts[k - 1], gz, dtype)
+        ga = mm(gz, W.dir_rest[k - 1]["w"].t(), dtype)
+    gzd0 = ga * dact("leaky", dacts[0])
+    dir_g[0] = {"w": torch.cat([mm_t(feat, gzd0, dtype),
+                                mm_t(acts["dir_pe"], gzd0, dtype),
+                                mm_t(se, gzd0, dtype)], dim=0),
+                "b": torch.sum(gzd0, dim=0)}
+    gse = mm(gzd0, W.dir0_se.t(), dtype)
+    gfeat = gfeat + mm(gzd0, W.dir0_feat.t(), dtype)
+    # alpha head, feat layer, trunk
+    grads["fc_alpha"] = _lin_grad(feat, galpha, dtype)
+    gfeat = gfeat + mm(galpha, W.alpha["w"].t(), dtype)
+    grads["fc_feat"] = _lin_grad(h, gfeat, dtype)
+    gh = mm(gfeat, W.feat["w"].t(), dtype)
+    gx_pe, trunk_g = trunk_backward(W.trunk, acts["x"], acts["trunk"], gh,
+                                    W.skip, "leaky", dtype, need_gx=True)
+    gx = pe_backward(pts, gx_pe, W.pts_groups)
+    gx[:, :3] += corner_dcoords(gse, acts["fs"], acts["ok"], acts["cf"], grid_dims)
+    grads.update(trunk=trunk_g, dir=dir_g, seg=seg_g)
+    return gx, gse, grads
+
+
 def nerf_level_train_plain(pts: torch.Tensor, dirs: torch.Tensor,
                            table: torch.Tensor, rows: torch.Tensor,
                            z: torch.Tensor, bg: Optional[torch.Tensor],
                            noise: Optional[torch.Tensor], tgt: torch.Tensor,
                            lw: torch.Tensor, weights: LevelWeights,
                            compute_dtype: str, grid_dims, bg_sup: float = 0.0):
-    """Arguments as ``nerf_level.nerf_level_plain`` plus tgt (R, 15)
-    [target rgb | seg mask], lw (R, 2) per-ray loss weights and bg_sup.
-    Returns (rgb_map (R, 16), weights (R, S), gx (P, 3 + ambient), gse
-    (P, C), g_bg (R, 15) | None, grads), grads the folded level's
-    {"trunk": [{"w", "b"}], "fc_feat", "fc_alpha", "dir": [...],
-    "fc_rgb", "seg": [...], "fc_seg"} with dir[0]'s rows [feat | pe(dir) |
-    se], the JAX package's layout."""
-    dtype = torch_dtype(compute_dtype)
+    """K2's plain version. Arguments as ``nerf_level.nerf_level_plain``
+    plus tgt (R, 15) [target rgb | seg mask], lw (R, 2) per-ray loss
+    weights and bg_sup. Returns (rgb_map (R, 16), weights (R, S), gx
+    (P, 3 + ambient), gse (P, C), g_bg (R, 15) | None, grads), grads as
+    ``level_backward_plain``'s."""
     R, S = z.shape
-    W = weights
-    f32 = torch.float32
+    acts = {}
+    raw = nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
+                         grid_dims, acts)
     with torch.no_grad():
-        x = kernel_pe(pts, W.pts_groups)
-        _, fs, ok = _cell_geometry(pts, grid_dims)
-        cf = table[rows.reshape(-1).long()].to(f32)
-        se = interp_corners(cf, fs, ok)
-        tacts = []
-        h = trunk_forward(W.trunk, x, W.skip, leaky, dtype, acts=tacts)
-        feat = mm(h, W.feat["w"], dtype) + W.feat["b"]
-        alpha = mm(feat, W.alpha["w"], dtype) + W.alpha["b"]
-        dir_pe = kernel_pe(dirs, W.dir_groups).repeat_interleave(S, dim=0)
-        dir_head = mm(kernel_pe(dirs, W.dir_groups), W.dir0_dir, dtype)
-        d = leaky(mm(feat, W.dir0_feat, dtype) + mm(se, W.dir0_se, dtype)
-                  + (dir_head + W.dir0_b).repeat_interleave(S, dim=0))
-        dacts = [d]
-        for p in W.dir_rest:
-            d = leaky(mm(d, p["w"], dtype) + p["b"])
-            dacts.append(d)
-        rgb = mm(d, W.rgb["w"], dtype) + W.rgb["b"]
-        s = feat
-        sacts = []
-        for p in W.seg:
-            s = leaky(mm(s, p["w"], dtype) + p["b"])
-            sacts.append(s)
-        seg = mm(s, W.seg_out["w"], dtype) + W.seg_out["b"]
-        raw = torch.cat([rgb, seg, alpha], dim=-1).reshape(R, S, 16)
         rgb_map, w_out, graw, g_bg = composite_train_plain(
-            raw, z, dirs, bg, noise, tgt, lw, bg_sup)
-
-        graw = graw.reshape(R * S, 16)
-        grgb, gseg, galpha = graw[:, :3], graw[:, 3:15], graw[:, 15:16]
-        # seg branch
-        grads = {"fc_seg": _lin_grad(sacts[-1], gseg, dtype)}
-        ga = mm(gseg, W.seg_out["w"].t(), dtype)
-        seg_g = [None] * len(W.seg)
-        for k in range(len(W.seg) - 1, -1, -1):
-            gz = ga * dact("leaky", sacts[k])
-            seg_g[k] = _lin_grad(feat if k == 0 else sacts[k - 1], gz, dtype)
-            ga = mm(gz, W.seg[k]["w"].t(), dtype)
-        gfeat = ga
-        # direction branch
-        grads["fc_rgb"] = _lin_grad(dacts[-1], grgb, dtype)
-        ga = mm(grgb, W.rgb["w"].t(), dtype)
-        dir_g = [None] * len(dacts)
-        for k in range(len(dacts) - 1, 0, -1):
-            gz = ga * dact("leaky", dacts[k])
-            dir_g[k] = _lin_grad(dacts[k - 1], gz, dtype)
-            ga = mm(gz, W.dir_rest[k - 1]["w"].t(), dtype)
-        gzd0 = ga * dact("leaky", dacts[0])
-        dir_g[0] = {"w": torch.cat([mm_t(feat, gzd0, dtype),
-                                    mm_t(dir_pe, gzd0, dtype),
-                                    mm_t(se, gzd0, dtype)], dim=0),
-                    "b": torch.sum(gzd0, dim=0)}
-        gse = mm(gzd0, W.dir0_se.t(), dtype)
-        gfeat = gfeat + mm(gzd0, W.dir0_feat.t(), dtype)
-        # alpha head, feat layer, trunk
-        grads["fc_alpha"] = _lin_grad(feat, galpha, dtype)
-        gfeat = gfeat + mm(galpha, W.alpha["w"].t(), dtype)
-        grads["fc_feat"] = _lin_grad(h, gfeat, dtype)
-        gh = mm(gfeat, W.feat["w"].t(), dtype)
-        gx_pe, trunk_g = trunk_backward(W.trunk, x, tacts, gh, W.skip, "leaky",
-                                        dtype, need_gx=True)
-        gx = pe_backward(pts, gx_pe, W.pts_groups)
-        gx[:, :3] += corner_dcoords(gse, fs, ok, cf, grid_dims)
-        grads.update(trunk=trunk_g, dir=dir_g, seg=seg_g)
+            raw.reshape(R, S, 16), z, dirs, bg, noise, tgt, lw, bg_sup)
+        gx, gse, grads = level_backward_plain(
+            weights, acts, pts, graw.reshape(R * S, 16),
+            torch_dtype(compute_dtype), grid_dims)
     return rgb_map, w_out, gx, gse, g_bg, grads
+
+
+def nerf_level_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
+                         table: torch.Tensor, rows: torch.Tensor,
+                         z: torch.Tensor, bg: Optional[torch.Tensor],
+                         noise: Optional[torch.Tensor], g_rgb: torch.Tensor,
+                         g_w: torch.Tensor, weights: LevelWeights,
+                         compute_dtype: str, grid_dims):
+    """K6's plain version: K5's arguments plus the cotangents g_rgb (R, 16)
+    and g_w (R, S) of its outputs. Returns (gx (P, 3 + ambient), gse (P, C),
+    g_bg (R, 15) | None, grads), grads as ``level_backward_plain``'s."""
+    R, S = z.shape
+    acts = {}
+    raw = nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
+                         grid_dims, acts)
+    with torch.no_grad():
+        _, _, graw, g_bg = composite_vjp_plain(raw.reshape(R, S, 16), z, dirs,
+                                               bg, noise, g_rgb, g_w)
+        gx, gse, grads = level_backward_plain(
+            weights, acts, pts, graw.reshape(R * S, 16),
+            torch_dtype(compute_dtype), grid_dims)
+    return gx, gse, g_bg, grads
+
+
+def nerf_rayd_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
+                        table: torch.Tensor, rows: torch.Tensor,
+                        g: torch.Tensor, weights: LevelWeights,
+                        compute_dtype: str, grid_dims):
+    """K8's plain version: K7's arguments plus the cotangent g (P, 16) of
+    its raw output. Returns (gx (P, 3 + ambient), gse (P, C), grads)."""
+    acts = {}
+    nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype, grid_dims,
+                   acts)
+    with torch.no_grad():
+        return level_backward_plain(weights, acts, pts, g.to(torch.float32),
+                                    torch_dtype(compute_dtype), grid_dims)
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +379,76 @@ def _grads_tree(weights: LevelWeights, layers):
     return tree
 
 
+_MODES = {"loss": 0, "vjp": 1, "raw": 2}
+
+
+def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
+            compute_dtype: str, grid_dims, z=None, bg=None, noise=None,
+            tgt=None, lw=None, g_rgb=None, g_w=None, graw=None,
+            bg_sup: float = 0.0):
+    """One call of the level-backward kernel set (csrc/level_train.cu) in
+    ``mode``: "loss" (K2), "vjp" (K6) or "raw" (K8). Returns (rgb_map,
+    weights, gx, gse, g_bg (R, 16), grads); rgb_map, weights and g_bg are
+    None in "raw" mode."""
+    check_device(what, pts.device)
+    R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
+                                          compute_dtype, grid_dims, what)
+    hidden, branch = ints[1], ints[2]
+    P = R * S
+    shapes = {"z": (z, (R, S)), "bg": (bg, (R, 15)), "noise": (noise, (R, S)),
+              "tgt": (tgt, (R, 15)), "lw": (lw, (R, 2)),
+              "g_rgb": (g_rgb, (R, 16)), "g_w": (g_w, (R, S)),
+              "graw": (graw, (P, 16))}
+    bad = [f"{k} {tuple(t.shape)} (want {want})" for k, (t, want)
+           in shapes.items() if t is not None and tuple(t.shape) != want]
+    if (bad or len(weights.dir_rest) != 3 or len(weights.seg) != 4
+            or branch % 8 or hidden % 8):
+        raise ValueError(f"{what} shapes not supported: {bad}, "
+                         f"{len(weights.dir_rest)} dir and {len(weights.seg)} "
+                         f"seg layers, hidden {hidden}, branch {branch}")
+    dtype = torch_dtype(compute_dtype)
+    plan = level_train_plan(weights, dtype)
+    check_device(what, pts.device, rows, table, dirs, z, bg, noise, tgt, lw,
+                 g_rgb, g_w, graw, plan.fwd[0])
+    f32 = torch.float32
+    dev = pts.device
+    c = lambda t: None if t is None else t.to(f32).contiguous()
+    pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw = map(
+        c, (pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw))
+    rows = rows.reshape(-1).to(torch.int32).contiguous()
+    n_tiles = -(-P // TP)
+    e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
+    composite = mode != "raw"
+    rgb_map, w_out, g_bg = (e(R, 16), e(R, S), e(R, 16)) if composite else (None,) * 3
+    gx, gse = e(P, PW), e(P, C)
+    raw = e(P, 16) if composite else None
+    if composite:
+        graw = e(P, 16)
+    acts = e(n_tiles * plan.act_stride, dt=dtype)
+    gzs = e(n_tiles * plan.gz_stride)
+    chunks = dw_chunks(n_tiles)
+    part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
+    out = e(plan.out_len)
+    p = _build.ptr
+    n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
+    fn = _build.function("level_train", "sahs_level_train",
+                         "p" * 9 + "ppi" + "ppp" + "ppp" + "p" * 5 + "pp" + "pp"
+                         + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
+    rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(z), p(bg),
+            p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), _MODES[mode],
+            *[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd], p(rgb_map),
+            p(w_out), p(gx), p(gse), p(g_bg), p(raw), p(graw), p(acts), p(gzs),
+            p(plan.slots), R, S, PW, n_trunk, weights.skip, hidden, branch, C,
+            amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW,
+            int(dtype == torch.bfloat16), plan.n_act, plan.act_stride,
+            plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
+            float(bg_sup if bg is not None else 0.0), p(plan.prods),
+            p(plan.work), p(part), p(out), _build.stream_ptr(dev))
+    _build.check(rc, what)
+    return (rgb_map, w_out, gx, gse, g_bg,
+            _grads_tree(weights, plan.unpack(out)))
+
+
 def nerf_level_train(pts: torch.Tensor, dirs: torch.Tensor,
                      table: torch.Tensor, rows: torch.Tensor, z: torch.Tensor,
                      bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
@@ -333,71 +462,62 @@ def nerf_level_train(pts: torch.Tensor, dirs: torch.Tensor,
         return nerf_level_train_plain(pts, dirs, table, rows, z, bg, noise, tgt,
                                       lw, weights, compute_dtype, grid_dims,
                                       bg_sup)
-    if pts.device.type != "cuda":
-        raise ValueError(f"unsupported device {pts.device}")
-    dtype = torch_dtype(compute_dtype)
-    R, S = z.shape
-    P, PW = pts.shape
-    C = table.shape[1] // 8
-    nf_xyz, nf_amb = (_pe_freqs(weights.pts_groups, 2, "point") if PW > 3
-                      else _pe_freqs(weights.pts_groups, 1, "point") + [0])
-    (nf_dir,) = _pe_freqs(weights.dir_groups, 1, "direction")
-    hidden = weights.trunk[0]["w"].shape[1]
-    branch = weights.dir0_b.shape[0]
-    gD, gH, gW = grid_dims
-    if (P != R * S or PW > 8 or nf_dir > 4 or table.dtype != dtype
-            or weights.dir0_se.shape[0] != C or len(weights.dir_rest) != 3
-            or len(weights.seg) != 4 or branch % 8 or hidden % 8
-            or table.shape[0] != (gD + 1) * (gH + 1) * (gW + 1)
-            or rows.numel() != P or tuple(dirs.shape) != (R, 3)
-            or tuple(tgt.shape) != (R, 15) or tuple(lw.shape) != (R, 2)
-            or (bg is not None and tuple(bg.shape) != (R, 15))
-            or (noise is not None and tuple(noise.shape) != (R, S))):
-        raise ValueError(
-            f"K2 shapes not supported: pts {tuple(pts.shape)}, z {tuple(z.shape)}, "
-            f"rows {tuple(rows.shape)}, dirs {tuple(dirs.shape)}, tgt "
-            f"{tuple(tgt.shape)}, lw {tuple(lw.shape)}, table "
-            f"{tuple(table.shape)} {table.dtype} for grid {tuple(grid_dims)}")
-    plan = level_train_plan(weights, dtype)
-    tensors = [pts, rows, table, dirs, z, bg, noise, tgt, lw, plan.fwd[0]]
-    if any(t is not None and t.device != pts.device for t in tensors):
-        raise ValueError("K2 inputs and weights must all be on " + str(pts.device))
-    f32 = torch.float32
-    dev = pts.device
-    c = lambda t: None if t is None else t.to(f32).contiguous()
-    pts, dirs, z, bg, noise, tgt, lw = map(c, (pts, dirs, z, bg, noise, tgt, lw))
-    rows = rows.reshape(-1).to(torch.int32).contiguous()
-    n_tiles = -(-P // TP)
-    e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
-    rgb_map, w_out, g_bg = e(R, 16), e(R, S), e(R, 16)
-    gx, gse = e(P, PW), e(P, C)
-    raw, graw = e(P, 16), e(P, 16)
-    acts = e(n_tiles * plan.act_stride, dt=dtype)
-    gzs = e(n_tiles * plan.gz_stride)
-    chunks = dw_chunks(n_tiles)
-    part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
-    out = e(plan.out_len)
-    p = _build.ptr
-    fn = _build.function("level_train", "sahs_level_train",
-                         "p" * 9 + "ppp" + "ppp" + "p" * 5 + "pp" + "pp"
-                         + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
-    rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(z), p(bg),
-            p(noise), p(tgt), p(lw), *[p(t) for t in plan.fwd],
-            *[p(t) for t in plan.bwd], p(rgb_map), p(w_out), p(gx), p(gse),
-            p(g_bg), p(raw), p(graw), p(acts), p(gzs), p(plan.slots),
-            R, S, PW, len(weights.trunk), weights.skip, hidden, branch, C,
-            PW - 3, nf_xyz, nf_amb, nf_dir, gD, gH, gW,
-            int(dtype == torch.bfloat16), plan.n_act, plan.act_stride,
-            plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
-            float(bg_sup if bg is not None else 0.0), p(plan.prods),
-            p(plan.work), p(part), p(out), _build.stream_ptr(dev))
-    _build.check(rc, "nerf_level_train")
+    if tgt is None or lw is None:
+        raise ValueError("K2 needs the target and the loss weights")
+    rgb_map, w_out, gx, gse, g_bg, grads = _launch(
+        "loss", "nerf_level_train", pts, dirs, table, rows, weights,
+        compute_dtype, grid_dims, z=z, bg=bg, noise=noise, tgt=tgt, lw=lw,
+        bg_sup=bg_sup)
     nerf_level_train.launches += 1
     return (rgb_map, w_out, gx, gse, g_bg[:, :15] if bg is not None else None,
-            _grads_tree(weights, plan.unpack(out)))
+            grads)
 
 
 nerf_level_train.launches = 0
+
+
+def nerf_level_vjp(pts: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
+                   rows: torch.Tensor, z: torch.Tensor,
+                   bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
+                   g_rgb: torch.Tensor, g_w: torch.Tensor,
+                   weights: LevelWeights, compute_dtype: str = "bfloat16",
+                   grid_dims=(32, 32, 32)):
+    """K6 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as ``nerf_level_vjp_plain``."""
+    if pts.device.type == "cpu":
+        return nerf_level_vjp_plain(pts, dirs, table, rows, z, bg, noise, g_rgb,
+                                    g_w, weights, compute_dtype, grid_dims)
+    if g_rgb is None or g_w is None:
+        raise ValueError("K6 needs both cotangents, g_rgb and g_w")
+    _, _, gx, gse, g_bg, grads = _launch(
+        "vjp", "nerf_level_vjp", pts, dirs, table, rows, weights,
+        compute_dtype, grid_dims, z=z, bg=bg, noise=noise, g_rgb=g_rgb,
+        g_w=g_w)
+    nerf_level_vjp.launches += 1
+    return gx, gse, g_bg[:, :15] if bg is not None else None, grads
+
+
+nerf_level_vjp.launches = 0
+
+
+def nerf_rayd_vjp(pts: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
+                  rows: torch.Tensor, g: torch.Tensor, weights: LevelWeights,
+                  compute_dtype: str = "bfloat16", grid_dims=(32, 32, 32)):
+    """K8 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as ``nerf_rayd_vjp_plain``."""
+    if pts.device.type == "cpu":
+        return nerf_rayd_vjp_plain(pts, dirs, table, rows, g, weights,
+                                   compute_dtype, grid_dims)
+    if g is None:
+        raise ValueError("K8 needs the cotangent of the raw field")
+    _, _, gx, gse, _, grads = _launch(
+        "raw", "nerf_rayd_vjp", pts, dirs, table, rows, weights,
+        compute_dtype, grid_dims, graw=g)
+    nerf_rayd_vjp.launches += 1
+    return gx, gse, grads
+
+
+nerf_rayd_vjp.launches = 0
 
 
 def level_train_apply(nerf, cond: torch.Tensor, pts, dirs, table, rows, z, bg,

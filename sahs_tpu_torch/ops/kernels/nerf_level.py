@@ -1,16 +1,22 @@
 """K5: one NeRF level (MLP + trilinear spatial embedding + compositing),
-forward.
+forward; and K7, the same field without the compositing.
 
-Replaces ``sahs_tpu/ops/pallas/field_mlp.py:nerf_level_forward`` (:2681,
+K5 replaces ``sahs_tpu/ops/pallas/field_mlp.py:nerf_level_forward`` (:2681,
 ``pallas_call`` at :2761) in its ``corner_interp`` form. The CUDA kernel is
 ``csrc/nerf_level.cu``; its source note gives the bound on the H100
 (operations: ~1.47 MFLOP per point) and the design. Unlike the TPU kernel
 it gathers the 8 corner rows itself, by row index, from the corner table
 in L2: a pre-gathered (P, 256) array at a fine chunk would be 2.1 GB.
 
-``nerf_level_forward`` launches the kernel for tensors on a CUDA device and
-counts the launch in ``nerf_level_forward.launches``; for tensors on the
-CPU it runs ``nerf_level_plain``, the same function in plain tensor math.
+K7 replaces ``field_mlp.py:nerf_rayd_forward`` (:1973, ``pallas_call`` at
+:2040) in its ``corner_interp`` form: the raw field (P, 16) of the
+deformation-reuse path, which composites outside the kernel. It is the same
+CUDA kernel, told to write each point's raw output and stop.
+
+``nerf_level_forward`` and ``nerf_rayd_forward`` launch the kernel for
+tensors on a CUDA device and count the launch in ``<wrapper>.launches``;
+for tensors on the CPU they run ``nerf_level_plain`` / ``nerf_raw_plain``,
+the same functions in plain tensor math.
 """
 from __future__ import annotations
 
@@ -22,8 +28,8 @@ import torch
 from . import _build
 from ..grid import _cell_geometry, interp_corners
 from .field_mlp import (BlobBuilder, PEGroup, fold_trunk, kernel_pe, mm,
-                        linear_params, torch_dtype, trunk_forward,
-                        trunk_params)
+                        linear_grads, linear_params, torch_dtype,
+                        trunk_forward, trunk_params)
 
 
 @dataclasses.dataclass
@@ -96,6 +102,19 @@ def prepare_level(nerf, cond: torch.Tensor, pts_groups: Sequence[PEGroup],
             pts_groups=tuple(pts_groups), dir_groups=tuple(dir_groups))
 
 
+def level_param_grads(out: dict, nerf, g) -> None:
+    """A level's gradient tree (the JAX layout, raw trunk) -> ``out[param]``
+    for the ``NeRFMLP`` module ``nerf``."""
+    for lin, gl in zip(nerf.trunk.layers, g["trunk"]):
+        linear_grads(out, lin, gl)
+    for name in ("fc_feat", "fc_alpha", "fc_rgb", "fc_seg"):
+        linear_grads(out, getattr(nerf, name), g[name])
+    for lin, gl in zip(nerf.dir, g["dir"]):
+        linear_grads(out, lin, gl)
+    for lin, gl in zip(nerf.seg, g["seg"]):
+        linear_grads(out, lin, gl)
+
+
 def leaky(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, 0.01 * x)
 
@@ -134,36 +153,63 @@ def composite_plain(raw: torch.Tensor, z: torch.Tensor, dirs: torch.Tensor,
     return rgb_map, w
 
 
-def nerf_level_plain(pts: torch.Tensor, dirs: torch.Tensor,
-                     table: torch.Tensor, rows: torch.Tensor, z: torch.Tensor,
-                     bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
-                     weights: LevelWeights, compute_dtype: str, grid_dims):
-    """pts (P, 3 + ambient) packed [warped | ambient], P = R*S ray-major;
-    dirs (R, 3) raw; table the corner table; rows (P,) its row per point;
-    z (R, S); bg (R, 15) | None; noise (R, S) | None (already scaled).
-    Returns (rgb_map (R, 16), weights (R, S))."""
+def nerf_raw_plain(pts: torch.Tensor, dirs: torch.Tensor,
+                   table: torch.Tensor, rows: torch.Tensor,
+                   weights: LevelWeights, compute_dtype: str, grid_dims,
+                   acts: Optional[dict] = None) -> torch.Tensor:
+    """K7's plain version. pts (P, 3 + ambient) packed [warped | ambient],
+    P = R*S ray-major; dirs (R, 3) raw; table the corner table; rows (P,)
+    its row per point. Returns raw (P, 16) [rgb3 | seg12 | sigma1].
+    ``acts``, when given, receives what a backward needs: the PE ``x``, the
+    cell geometry ``fs``/``ok``, the corner rows ``cf``, ``se``, the trunk
+    activations, ``h``, ``feat``, the per-point ``dir_pe`` and the branch
+    activations ``dacts``/``sacts``."""
     dtype = torch_dtype(compute_dtype)
-    R, S = z.shape
+    S = pts.shape[0] // dirs.shape[0]
     W = weights
     with torch.no_grad():
         x = kernel_pe(pts, W.pts_groups)
         _, fs, ok = _cell_geometry(pts, grid_dims)
-        se = interp_corners(table[rows.reshape(-1).long()], fs, ok)
-        h = trunk_forward(W.trunk, x, W.skip, leaky, dtype)
+        cf = table[rows.reshape(-1).long()].to(torch.float32)
+        se = interp_corners(cf, fs, ok)
+        tacts = [] if acts is not None else None
+        h = trunk_forward(W.trunk, x, W.skip, leaky, dtype, acts=tacts)
         feat = mm(h, W.feat["w"], dtype) + W.feat["b"]
         alpha = mm(feat, W.alpha["w"], dtype) + W.alpha["b"]
-        dir_head = mm(kernel_pe(dirs, W.dir_groups), W.dir0_dir, dtype)
+        dpe = kernel_pe(dirs, W.dir_groups)
+        dir_head = mm(dpe, W.dir0_dir, dtype)
         d = leaky(mm(feat, W.dir0_feat, dtype) + mm(se, W.dir0_se, dtype)
                   + (dir_head + W.dir0_b).repeat_interleave(S, dim=0))
+        dacts = [d]
         for p in W.dir_rest:
             d = leaky(mm(d, p["w"], dtype) + p["b"])
+            dacts.append(d)
         rgb = mm(d, W.rgb["w"], dtype) + W.rgb["b"]
         s = feat
+        sacts = []
         for p in W.seg:
             s = leaky(mm(s, p["w"], dtype) + p["b"])
+            sacts.append(s)
         seg = mm(s, W.seg_out["w"], dtype) + W.seg_out["b"]
-        raw = torch.cat([rgb, seg, alpha], dim=-1).reshape(R, S, 16)
-        return composite_plain(raw, z, dirs, bg, noise)
+        if acts is not None:
+            acts.update(x=x, fs=fs, ok=ok, cf=cf, se=se, trunk=tacts, h=h,
+                        feat=feat, dir_pe=dpe.repeat_interleave(S, dim=0),
+                        dacts=dacts, sacts=sacts)
+        return torch.cat([rgb, seg, alpha], dim=-1)
+
+
+def nerf_level_plain(pts: torch.Tensor, dirs: torch.Tensor,
+                     table: torch.Tensor, rows: torch.Tensor, z: torch.Tensor,
+                     bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
+                     weights: LevelWeights, compute_dtype: str, grid_dims):
+    """K5's plain version: ``nerf_raw_plain``'s arguments plus z (R, S),
+    bg (R, 15) | None and noise (R, S) | None (already scaled).
+    Returns (rgb_map (R, 16), weights (R, S))."""
+    R, S = z.shape
+    raw = nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
+                         grid_dims)
+    with torch.no_grad():
+        return composite_plain(raw.reshape(R, S, 16), z, dirs, bg, noise)
 
 
 def _pe_freqs(groups, want: int, what: str) -> List[int]:
@@ -171,6 +217,46 @@ def _pe_freqs(groups, want: int, what: str) -> List[int]:
         raise ValueError(f"the K5 kernel takes {want} {what} PE group(s) with "
                          f"include_input and log sampling, got {groups}")
     return [g[2] for g in groups]
+
+
+def level_kernel_args(pts: torch.Tensor, dirs: torch.Tensor,
+                      table: torch.Tensor, rows: torch.Tensor,
+                      weights: LevelWeights, compute_dtype: str, grid_dims,
+                      what: str):
+    """The shape checks and integer arguments shared by the NeRF-level
+    kernels (K5-K8): (R, S, PW, C, [n_trunk, hidden, branch, C, amb,
+    nf_xyz, nf_amb, nf_dir, gD, gH, gW])."""
+    R = dirs.shape[0]
+    P, PW = pts.shape
+    C = table.shape[1] // 8
+    nf_xyz, nf_amb = (_pe_freqs(weights.pts_groups, 2, "point") if PW > 3
+                      else _pe_freqs(weights.pts_groups, 1, "point") + [0])
+    (nf_dir,) = _pe_freqs(weights.dir_groups, 1, "direction")
+    hidden = weights.trunk[0]["w"].shape[1]
+    branch = weights.dir0_b.shape[0]
+    gD, gH, gW = grid_dims
+    if (R == 0 or P % R or PW > 8 or nf_dir > 4 or 2 * branch > hidden
+            or table.dtype != torch_dtype(compute_dtype)
+            or weights.dir0_se.shape[0] != C
+            or table.shape[0] != (gD + 1) * (gH + 1) * (gW + 1)
+            or rows.numel() != P or tuple(dirs.shape) != (R, 3)):
+        raise ValueError(
+            f"{what} shapes not supported: pts {tuple(pts.shape)}, rows "
+            f"{tuple(rows.shape)}, dirs {tuple(dirs.shape)}, table "
+            f"{tuple(table.shape)} {table.dtype} for grid {tuple(grid_dims)}, "
+            f"dir freqs {nf_dir}, hidden {hidden}, branch {branch}")
+    ints = [len(weights.trunk), hidden, branch, C, PW - 3, nf_xyz, nf_amb,
+            nf_dir, gD, gH, gW]
+    return R, P // R, PW, C, ints
+
+
+def check_device(what: str, dev, *tensors) -> None:
+    """A kernel's tensors (None skipped) must all lie on the CUDA device
+    ``dev``."""
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if any(t is not None and t.device != dev for t in tensors):
+        raise ValueError(f"{what} inputs and weights must all be on {dev}")
 
 
 def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
@@ -183,40 +269,20 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
     if pts.device.type == "cpu":
         return nerf_level_plain(pts, dirs, table, rows, z, bg, noise, weights,
                                 compute_dtype, grid_dims)
-    if pts.device.type != "cuda":
-        raise ValueError(f"unsupported device {pts.device}")
-    dtype = torch_dtype(compute_dtype)
-    R, S = z.shape
-    P, PW = pts.shape
-    C = table.shape[1] // 8
-    nf_xyz, nf_amb = (_pe_freqs(weights.pts_groups, 2, "point") if PW > 3
-                      else _pe_freqs(weights.pts_groups, 1, "point") + [0])
-    (nf_dir,) = _pe_freqs(weights.dir_groups, 1, "direction")
-    hidden = weights.trunk[0]["w"].shape[1]
-    branch = weights.dir0_b.shape[0]
-    gD, gH, gW = grid_dims
-    if (P != R * S or PW > 8 or nf_dir > 4 or 2 * branch > hidden
-            or table.dtype != dtype or weights.dir0_se.shape[0] != C
-            or table.shape[0] != (gD + 1) * (gH + 1) * (gW + 1)
-            or rows.numel() != P or tuple(dirs.shape) != (R, 3)
-            or (bg is not None and tuple(bg.shape) != (R, 15))
+    check_device("K5", pts.device)
+    R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
+                                          compute_dtype, grid_dims, "K5")
+    if (tuple(z.shape) != (R, S) or (bg is not None and tuple(bg.shape) != (R, 15))
             or (noise is not None and tuple(noise.shape) != (R, S))):
-        raise ValueError(
-            f"K5 shapes not supported: pts {tuple(pts.shape)}, z {tuple(z.shape)}, "
-            f"rows {tuple(rows.shape)}, dirs {tuple(dirs.shape)}, table "
-            f"{tuple(table.shape)} {table.dtype} for grid {tuple(grid_dims)}, "
-            f"dir freqs {nf_dir}, hidden {hidden}, branch {branch}")
+        raise ValueError(f"K5: z {tuple(z.shape)}, bg, noise must be ({R}, {S}), "
+                         f"(R, 15), (R, S)")
+    dtype = torch_dtype(compute_dtype)
     wblob, bblob, meta = weights.blob(dtype)
-    tensors = [pts, rows, table, dirs, z, bg, noise, wblob]
-    if any(t is not None and t.device != pts.device for t in tensors):
-        raise ValueError("K5 inputs and weights must all be on " + str(pts.device))
+    check_device("K5", pts.device, rows, table, dirs, z, bg, noise, wblob)
     f32 = torch.float32
-    pts = pts.to(f32).contiguous()
+    c = lambda t: None if t is None else t.to(f32).contiguous()
+    pts, dirs, z, bg, noise = map(c, (pts, dirs, z, bg, noise))
     rows = rows.reshape(-1).to(torch.int32).contiguous()
-    dirs = dirs.to(f32).contiguous()
-    z = z.to(f32).contiguous()
-    bg = bg.to(f32).contiguous() if bg is not None else None
-    noise = noise.to(f32).contiguous() if noise is not None else None
     rgb_map = torch.empty((R, 16), dtype=f32, device=pts.device)
     w_out = torch.empty((R, S), dtype=f32, device=pts.device)
     fn = _build.function("nerf_level", "sahs_nerf_level_forward",
@@ -224,8 +290,7 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
     p = _build.ptr
     rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(z), p(bg),
             p(noise), p(wblob), p(bblob), p(meta), p(rgb_map), p(w_out),
-            R, S, PW, len(weights.trunk), hidden, branch, C, PW - 3, nf_xyz,
-            nf_amb, nf_dir, gD, gH, gW, int(dtype == torch.bfloat16),
+            R, S, PW, *ints, int(dtype == torch.bfloat16),
             _build.stream_ptr(pts.device))
     _build.check(rc, "nerf_level_forward")
     nerf_level_forward.launches += 1
@@ -233,3 +298,37 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
 
 
 nerf_level_forward.launches = 0
+
+
+def nerf_rayd_forward(pts: torch.Tensor, dirs: torch.Tensor,
+                      table: torch.Tensor, rows: torch.Tensor,
+                      weights: LevelWeights, compute_dtype: str = "bfloat16",
+                      grid_dims=(32, 32, 32)) -> torch.Tensor:
+    """K7 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and result as ``nerf_raw_plain``."""
+    if pts.device.type == "cpu":
+        return nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
+                              grid_dims)
+    check_device("K7", pts.device)
+    R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
+                                          compute_dtype, grid_dims, "K7")
+    dtype = torch_dtype(compute_dtype)
+    wblob, bblob, meta = weights.blob(dtype)
+    check_device("K7", pts.device, rows, table, dirs, wblob)
+    f32 = torch.float32
+    pts = pts.to(f32).contiguous()
+    dirs = dirs.to(f32).contiguous()
+    rows = rows.reshape(-1).to(torch.int32).contiguous()
+    raw = torch.empty((R * S, 16), dtype=f32, device=pts.device)
+    fn = _build.function("nerf_level", "sahs_nerf_rayd_forward",
+                         "p" * 8 + "l" + "i" * 14 + "p")
+    p = _build.ptr
+    rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(wblob),
+            p(bblob), p(meta), p(raw), R, S, PW, *ints,
+            int(dtype == torch.bfloat16), _build.stream_ptr(pts.device))
+    _build.check(rc, "nerf_rayd_forward")
+    nerf_rayd_forward.launches += 1
+    return raw
+
+
+nerf_rayd_forward.launches = 0

@@ -11,9 +11,15 @@ Reference quirks preserved (nerf-pytorch/nerf/train_utils.py):
 
 Random draws (coarse jitter, importance uniforms, sigma noise) come from an
 explicit ``torch.Generator``; tests can inject them instead.
+
+``render_rays(differentiable=True)`` is the train step's autograd fallback:
+the fields and the compositing carry gradients into the model, the driving
+input, the latent code and the background prior, while z and the
+importance samples stay detached (the JAX package's stop_gradient).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -28,8 +34,10 @@ from ..ops.sampling import coarse_z_vals, merge_z_vals, sample_pdf
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
-    """Per-mode settings. ``use_pallas`` selects the kernel path (K1 + K5);
-    ``compute_dtype`` is the kernels' matmul operand type."""
+    """Per-mode settings. ``use_pallas`` selects the kernel path;
+    ``compute_dtype`` is the kernels' matmul operand type;
+    ``fuse_composite`` composites in the level kernel (K5), else the raw
+    field (K7) is composited in plain tensor math."""
     num_coarse: int = 64
     num_fine: int = 64
     perturb: bool = True
@@ -85,6 +93,25 @@ class Draws(NamedTuple):
     noise_fine: Optional[torch.Tensor] = None
 
 
+class _PermuteSamples(torch.autograd.Function):
+    """x (R, S, C) reordered along the sample axis by perm (R, S); the
+    backward gathers with the inverse permutation (pipeline.py:87-107)."""
+
+    @staticmethod
+    def forward(ctx, x, perm):
+        ctx.save_for_backward(torch.argsort(perm, dim=-1))
+        return torch.take_along_dim(x, perm[..., None], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return torch.take_along_dim(g, inv[..., None], dim=1), None
+
+
+def permute_samples(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    return _PermuteSamples.apply(x, perm)
+
+
 def render_rays(model: NeRFaceModel, settings: RenderSettings,
                 ray_origins: torch.Tensor, ray_directions: torch.Tensor,
                 near: float, far: float, driving_or_audio: torch.Tensor,
@@ -93,10 +120,28 @@ def render_rays(model: NeRFaceModel, settings: RenderSettings,
                 background_prior: Optional[torch.Tensor] = None,
                 latent_code: Optional[torch.Tensor] = None,
                 fns: Optional[nerface.RenderFns] = None,
-                draws: Draws = Draws()) -> RayRenderResult:
+                draws: Draws = Draws(),
+                differentiable: bool = False) -> RayRenderResult:
     """Render one batch of rays (R, 3) on their device. ``fns`` reuses
     per-frame evaluators across chunks (render_rays_chunked builds them
-    once per frame)."""
+    once per frame). ``differentiable`` keeps the autograd graph (training);
+    otherwise no gradient is recorded.
+
+    With ``settings.fuse_composite`` off on the kernel path, the fine level
+    reuses the coarse points' front half (pipeline.py:213-267): the front
+    half runs on the coarse and on the importance points, the fine raw
+    field on their concatenation, and the raw samples are put in ascending
+    z (a stable sort, as jnp.argsort) for the plain compositing."""
+    grad_ctx = contextlib.nullcontext() if differentiable else torch.no_grad()
+    with grad_ctx:
+        return _render_rays(model, settings, ray_origins, ray_directions, near,
+                            far, driving_or_audio, pose, generator,
+                            background_prior, latent_code, fns, draws)
+
+
+def _render_rays(model, settings, ray_origins, ray_directions, near, far,
+                 driving_or_audio, pose, generator, background_prior,
+                 latent_code, fns, draws) -> RayRenderResult:
     num_rays = ray_origins.shape[0]
     dtype = ray_origins.dtype
     dev = ray_origins.device
@@ -105,11 +150,9 @@ def render_rays(model: NeRFaceModel, settings: RenderSettings,
             model, driving_or_audio, pose, latent_code=latent_code,
             use_pallas=settings.use_pallas,
             compute_dtype=settings.compute_dtype)
-    level_fn = fns.level_fn
-    if level_fn is not None and not settings.fuse_composite:
-        raise NotImplementedError(
-            "fuse_composite=False on the kernel path needs the raw-field "
-            "kernel (K7), which is still to be ported")
+    level_fn = fns.level_fn if settings.fuse_composite else None
+    reuse = (fns.front_fn is not None and level_fn is None
+             and settings.num_fine > 0 and model.fine is not None)
 
     nearv = torch.full((num_rays,), near, dtype=dtype, device=dev)
     farv = torch.full((num_rays,), far, dtype=dtype, device=dev)
@@ -122,16 +165,21 @@ def render_rays(model: NeRFaceModel, settings: RenderSettings,
                                    device=dev)
         return injected * settings.radiance_field_noise_std
 
-    def run_level(level, z_vals, injected_noise):
+    def points(z_vals):
+        # one float32 expression for every level and every sample set
+        return (ray_origins[:, None, :]
+                + ray_directions[:, None, :] * z_vals[..., None]).reshape(-1, 3)
+
+    def run_level(level, z_vals, injected_noise, raw=None):
         S = z_vals.shape[-1]
-        pts = ray_origins[:, None, :] + ray_directions[:, None, :] * z_vals[..., None]
-        pts_flat = pts.reshape(-1, 3)
         noise = noise_for(z_vals.shape, injected_noise)
-        if level_fn is not None:
-            # K1 -> K5: MLP and compositing in the kernel, per-ray outputs;
-            # disp/acc/depth are the same (R, S) reductions as the oracle's
-            rgb_map, weights = level_fn(level, pts_flat, ray_directions, S,
-                                        z_vals, background_prior, noise)
+        if (raw is None and level_fn is not None
+                and nerface.level_kernel_compatible(S)):
+            # front half -> K5: MLP and compositing in the kernel, per-ray
+            # outputs; disp/acc/depth are the same (R, S) reductions as the
+            # oracle's
+            rgb_map, weights = level_fn(level, points(z_vals), ray_directions,
+                                        S, z_vals, background_prior, noise)
             rgb = rgb_map[:, :15]
             depth = torch.sum(weights * z_vals, dim=-1)
             acc = torch.sum(weights, dim=-1)
@@ -139,8 +187,9 @@ def render_rays(model: NeRFaceModel, settings: RenderSettings,
             if settings.white_background:
                 rgb = rgb + (1.0 - acc[..., None])
             return RenderOutputs(rgb, disp, acc, weights, depth)
-        raw = fns.field_fn(level, pts_flat, ray_directions, S)
-        raw = raw.reshape(num_rays, S, raw.shape[-1])
+        if raw is None:
+            raw = fns.field_fn(level, points(z_vals), ray_directions, S)
+            raw = raw.reshape(num_rays, S, raw.shape[-1])
         if background_prior is not None:
             raw = torch.cat([raw[:, :-1],
                              torch.cat([background_prior, raw[:, -1:, -1]],
@@ -156,16 +205,39 @@ def render_rays(model: NeRFaceModel, settings: RenderSettings,
                                  lindisp=settings.lindisp,
                                  perturb=settings.perturb,
                                  generator=generator, t_rand=draws.t_rand)
+    Sc = z_coarse.shape[-1]
+    fh_coarse = None
+    if reuse:
+        fh_coarse = fns.front_fn(points(z_coarse), Sc)
+        raw_c = fns.nerf_fn("coarse", fh_coarse, ray_directions, Sc)
+        coarse = run_level("coarse", z_coarse, draws.noise_coarse,
+                           raw=raw_c.reshape(num_rays, Sc, -1))
+    else:
         coarse = run_level("coarse", z_coarse, draws.noise_coarse)
-        if settings.num_fine <= 0 or model.fine is None:
-            return RayRenderResult(coarse.rgb, coarse.disp, coarse.acc,
-                                   None, None, None, coarse.weights, None)
+    if settings.num_fine <= 0 or model.fine is None:
+        return RayRenderResult(coarse.rgb, coarse.disp, coarse.acc,
+                               None, None, None, coarse.weights, None)
+    with torch.no_grad():
         z_mid = 0.5 * (z_coarse[..., 1:] + z_coarse[..., :-1])
-        z_samples = sample_pdf(z_mid, coarse.weights[..., 1:-1],
+        z_samples = sample_pdf(z_mid, coarse.weights[..., 1:-1].detach(),
                                settings.num_fine, det=(not settings.perturb),
                                generator=generator, u=draws.u)
-        z_fine = merge_z_vals(z_coarse, z_samples)
-        fine = run_level("fine", z_fine, draws.noise_fine)
+    if reuse:
+        Sn = z_samples.shape[-1]
+        S = Sc + Sn
+        fh_new = fns.front_fn(points(z_samples), Sn)
+        fh_fine = tuple(
+            torch.cat([c.reshape(num_rays, Sc, -1), n.reshape(num_rays, Sn, -1)],
+                      dim=1).reshape(num_rays * S, -1)
+            for c, n in zip(fh_coarse, fh_new))
+        raw_f = fns.nerf_fn("fine", fh_fine, ray_directions, S)
+        z_fine, perm = torch.sort(torch.cat([z_coarse, z_samples], dim=-1),
+                                  dim=-1, stable=True)
+        raw_sorted = permute_samples(raw_f.reshape(num_rays, S, -1), perm)
+        fine = run_level("fine", z_fine, draws.noise_fine, raw=raw_sorted)
+    else:
+        fine = run_level("fine", merge_z_vals(z_coarse, z_samples),
+                         draws.noise_fine)
     return RayRenderResult(coarse.rgb, coarse.disp, coarse.acc,
                            fine.rgb, fine.disp, fine.acc,
                            fine.weights, fine.depth)
@@ -184,18 +256,20 @@ def render_rays_chunked(model: NeRFaceModel, settings: RenderSettings,
     train_utils.py:274-295). The per-frame evaluators are built once."""
     chunksize = chunksize or settings.chunksize
     R = ray_origins.shape[0]
-    fns = nerface.make_render_fns(
-        model, driving_or_audio, pose, latent_code=latent_code,
-        use_pallas=settings.use_pallas, compute_dtype=settings.compute_dtype)
     outs = []
-    for start in range(0, R, chunksize):
-        sl = slice(start, min(start + chunksize, R))
-        bg = background_prior[sl] if background_prior is not None else None
-        outs.append(render_rays(model, settings, ray_origins[sl],
-                                ray_directions[sl], near, far,
-                                driving_or_audio, pose, generator=generator,
-                                background_prior=bg, latent_code=latent_code,
-                                fns=fns))
+    with torch.no_grad():
+        fns = nerface.make_render_fns(
+            model, driving_or_audio, pose, latent_code=latent_code,
+            use_pallas=settings.use_pallas,
+            compute_dtype=settings.compute_dtype)
+        for start in range(0, R, chunksize):
+            sl = slice(start, min(start + chunksize, R))
+            bg = background_prior[sl] if background_prior is not None else None
+            outs.append(render_rays(model, settings, ray_origins[sl],
+                                    ray_directions[sl], near, far,
+                                    driving_or_audio, pose, generator=generator,
+                                    background_prior=bg,
+                                    latent_code=latent_code, fns=fns))
     return RayRenderResult(*[
         None if parts[0] is None else torch.cat(parts, dim=0)
         for parts in zip(*outs)])

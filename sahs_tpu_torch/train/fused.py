@@ -26,12 +26,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.nerface import NeRFaceModel, build_pe_groups, kernel_path_ok
-from ..ops.kernels.deform_pair import deform_pair_forward, deform_pair_vjp, prepare_pair
+from ..models.nerface import (NeRFaceModel, build_pe_groups,
+                              level_kernel_compatible, pair_kernel_ok)
+from ..ops.kernels.deform_pair import (deform_pair_forward, deform_pair_vjp,
+                                       pair_param_grads, prepare_pair)
 from ..ops.kernels.field_grid import corner_table
-from ..ops.kernels.field_mlp import trunk_params, unfold_cond_grads
 from ..ops.kernels.grid_bwd import grid_dg
 from ..ops.kernels.level_train import level_train_apply
+from ..ops.kernels.nerf_level import level_param_grads
 from ..ops.sampling import coarse_z_vals, sample_pdf
 
 
@@ -61,19 +63,17 @@ class TrainDraws(NamedTuple):
     noise_fine: Optional[torch.Tensor] = None
 
 
-STILL_TO_PORT = ("this configuration needs the autograd fallback and its "
-                 "kernels, still to be ported: K6 nerf_level_vjp, K7 "
-                 "nerf_rayd_forward, K8 nerf_rayd_vjp, K9 grid_dg_slab, K10 "
-                 "grid_bwd_fused (ROADMAP Queue 2)")
-
-
 def stage1_fused_eligible(spec, render) -> bool:
     """The configurations the fused path's kernels cover (fused.py:83-100):
     the kernel path with the deformation pair and the grid-coupled level,
-    composited in the kernel, with a fine level."""
+    composited in the kernel, with a fine level, at sample counts the level
+    kernels take."""
     return (render.use_pallas and render.fuse_composite
-            and not render.white_background and kernel_path_ok(spec)
-            and spec.fine is not None and render.num_fine > 0)
+            and not render.white_background and spec.use_viewdirs
+            and spec.use_spatial_embeddings and pair_kernel_ok(spec)
+            and spec.fine is not None and render.num_fine > 0
+            and level_kernel_compatible(render.num_coarse)
+            and level_kernel_compatible(render.num_coarse + render.num_fine))
 
 
 def ray_loss_weights(mask_s: torch.Tensor, ce_weight: float,
@@ -97,28 +97,12 @@ def _level_loss(rgb_map, tgt, lw):
     return torch.sum(lw[:, 0] * diff + lw[:, 1] * ce)
 
 
-def _linear_grads(out: dict, lin, g) -> None:
-    out[lin.weight] = g["w"].t()
-    out[lin.bias] = g["b"]
-
-
-def _level_param_grads(out: dict, nerf, g) -> None:
-    for lin, gl in zip(nerf.trunk.layers, g["trunk"]):
-        _linear_grads(out, lin, gl)
-    for name in ("fc_feat", "fc_alpha", "fc_rgb", "fc_seg"):
-        _linear_grads(out, getattr(nerf, name), g[name])
-    for lin, gl in zip(nerf.dir, g["dir"]):
-        _linear_grads(out, lin, gl)
-    for lin, gl in zip(nerf.seg, g["seg"]):
-        _linear_grads(out, lin, gl)
-
-
-def _cond_parts(dcond, spec_parts, out):
-    """Route d(cond) slices back to d(driving); pose is data and its slice
-    is dropped."""
+def _cond_parts(dcond, spec_parts, out, name="driving"):
+    """Route the d(cond) slices of ``name`` (driving or latent) back to its
+    gradient; pose is data and its slice is dropped."""
     i = 0
-    for name, size in spec_parts:
-        if name == "driving":
+    for part, size in spec_parts:
+        if part == name:
             out = out + dcond[i:i + size]
         i += size
     return out
@@ -126,10 +110,10 @@ def _cond_parts(dcond, spec_parts, out):
 
 def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
                   ro, rd, tgt, lw, bg, generator=None,
-                  draws: TrainDraws = TrainDraws()):
+                  draws: TrainDraws = TrainDraws(), latent=None):
     """Both levels, the loss and its gradients (fused.py:186-516, default
     branch). Returns (loss, rgb_c (R, 15), rgb_f (R, 15), w_f (R, Nc + Nf),
-    {parameter: grad}, d_driving, d_bg | None)."""
+    {parameter: grad}, d_driving, d_bg | None, d_latent | None)."""
     spec = model.spec
     cdt = fcfg.compute_dtype
     R = ro.shape[0]
@@ -138,6 +122,7 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
     dev = ro.device
     warp_pe, pts_pe, dir_pe = build_pe_groups(spec)
     driving = driving.detach()
+    latent = None if latent is None else latent.detach()
     pair_parts = ([("driving", driving.shape[0])] if spec.warp.include_driving
                   else []) + [("pose", pose_enc.shape[0])]
     cond_pair = torch.cat([driving, pose_enc]) if spec.warp.include_driving \
@@ -145,6 +130,9 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
 
     def nerf_cond(nspec):
         parts, vals = [], []
+        if latent is not None and nspec.latent_code_dim > 0:
+            parts.append(("latent", latent.shape[0]))
+            vals.append(latent)
         if nspec.include_driving:
             parts.append(("driving", driving.shape[0]))
             vals.append(driving)
@@ -208,22 +196,16 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
     pair_g = deform_pair_vjp(pts_f, pair, gx_f, gx_add, cdt)
     dG = grid_dg(packed_f, rows_f, gse_f, gse_add, grid.shape)
 
-    d_driving = torch.zeros_like(driving)
-    grads = {}
-    for name, net in (("warp", model.warp), ("hyper", model.hyper)):
-        raw = [{"w": p["w"].detach(), "b": p["b"].detach()}
-               for p in trunk_params(net.trunk)]
-        tg, dcond = unfold_cond_grads(
-            raw, pair_g[name]["trunk"], cond_pair, net.spec.skip_connect_every,
-            net.spec.hidden_size, net.spec.pe_xyz_dim)
-        for lin, gl in zip(net.trunk.layers, tg):
-            _linear_grads(grads, lin, gl)
-        _linear_grads(grads, net.out, pair_g[name]["out"])
-        d_driving = _cond_parts(dcond, pair_parts, d_driving)
-    _level_param_grads(grads, model.coarse, grads_c)
-    _level_param_grads(grads, model.fine, grads_f)
+    grads, dcond = pair_param_grads(model.warp, model.hyper, pair_g, cond_pair)
+    d_driving = _cond_parts(dcond, pair_parts, torch.zeros_like(driving))
+    level_param_grads(grads, model.coarse, grads_c)
+    level_param_grads(grads, model.fine, grads_f)
     d_driving = _cond_parts(dcond_c, parts_c, d_driving)
     d_driving = _cond_parts(dcond_f, parts_f, d_driving)
+    d_latent = None
+    if latent is not None:
+        d_latent = _cond_parts(dcond_c, parts_c, torch.zeros_like(latent), "latent")
+        d_latent = _cond_parts(dcond_f, parts_f, d_latent, "latent")
     grads[model.spatial_embeddings] = dG
 
     loss = _level_loss(rgb_c, tgt, lw) + _level_loss(rgb_f, tgt, lw)
@@ -231,14 +213,15 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         bgerr = torch.sum(torch.square(bg[:, :3] - tgt[:, :3]), dim=-1)
         loss = loss + bg_sup * torch.sum(w_f[:, -1] * bgerr)
     d_bg = (gbg_c + gbg_f) if bg is not None else None
-    return (loss, rgb_c[:, :15], rgb_f[:, :15], w_f, grads, d_driving, d_bg)
+    return (loss, rgb_c[:, :15], rgb_f[:, :15], w_f, grads, d_driving, d_bg,
+            d_latent)
 
 
 class _Stage1Fused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, run, params, driving, bg, *param_tensors):
-        loss, rgb_c, rgb_f, w_f, grads, d_driving, d_bg = run()
-        ctx.grads = ([d_driving, d_bg]
+    def forward(ctx, run, params, driving, bg, latent, *param_tensors):
+        loss, rgb_c, rgb_f, w_f, grads, d_driving, d_bg, d_latent = run()
+        ctx.grads = ([d_driving, d_bg, d_latent]
                      + [grads.get(p) for p in params])
         ctx.mark_non_differentiable(rgb_c, rgb_f, w_f)
         return loss, rgb_c, rgb_f, w_f
@@ -251,7 +234,7 @@ class _Stage1Fused(torch.autograd.Function):
 
 def stage1_fused(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc, ro,
                  rd, tgt, lw, bg, generator=None,
-                 draws: TrainDraws = TrainDraws()):
+                 draws: TrainDraws = TrainDraws(), latent=None):
     """Both levels and the Stage-I loss, with every gradient computed in the
     forward. driving: AudioNet's output (or the expression vector), with
     its autograd history; pose_enc (36,); ro/rd (R, 3); tgt (R, 15)
@@ -260,14 +243,18 @@ def stage1_fused(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc, ro,
 
     Returns (loss, rgb_coarse (R, 15), rgb_fine (R, 15), weights_fine
     (R, Nc + Nf)); only the loss carries gradients, into the model's
-    deformation, NeRF and grid parameters, into driving and into bg."""
+    deformation, NeRF and grid parameters, into driving, into bg and into
+    the frame's latent code (L,) | None, which rides the levels'
+    conditioning (fused.py:204-205)."""
     params = [p for net in (model.warp, model.hyper, model.coarse, model.fine)
               for p in net.parameters()] + [model.spatial_embeddings]
 
     def run():
         return fused_forward(model, fcfg, driving, pose_enc, ro, rd, tgt, lw,
                              None if bg is None else bg.detach(), generator,
-                             draws)
+                             draws, latent)
 
-    bg_in = bg if bg is not None else torch.zeros((), device=ro.device)
-    return _Stage1Fused.apply(run, params, driving, bg_in, *params)
+    none = torch.zeros((), device=ro.device)
+    return _Stage1Fused.apply(run, params, driving,
+                              bg if bg is not None else none,
+                              latent if latent is not None else none, *params)

@@ -3,16 +3,21 @@
 One step (reference nerf-pytorch/train_stage_rays_auto.py:273-544):
   - semantic-weighted ray pick on the device (Gumbel top-k);
   - rays at the picked pixels, targets gathered;
-  - the fused gradient path (train/fused.py): K1, K2, K3 and K4;
+  - the gradients: the fused path (train/fused.py: K1, K2, K3 and K4) when
+    ``fused_grads`` is on and the configuration is ``stage1_fused_eligible``,
+    else the autograd fallback: ``render_rays(differentiable=True)`` and
+    ``loss.backward()`` (stage1.py:256-294), through the differentiable
+    kernel ops (K1/K3, K5/K6 or K7/K8, K9);
   - Adam with the reference's exponential decay, lr0 * factor^(step /
     (lr_decay * 1000)) at the pre-update count (stage1.py:110-126);
   - the dynamic ``sample_prob`` carry and the metrics.
 
 Loss stack (train_stage_rays_auto.py:455-492):
   L = [coarse_l2 + 0.02 coarse_ce + 0.005 sum(mouth_l2 + mouth_ce)] + fine(...)
-      (+ 10 * 0.0005 ||grid||) (+ background supervision * 0.001)
-A configuration the fused path does not cover, or one with active latent
-codes, raises NotImplementedError: it needs kernels still to be ported.
+      (+ 10 * 0.0005 ||grid||) (+ 10 * 0.0005 ||latent||)
+      (+ background supervision * 0.001)
+A configuration outside the ported kernels raises NotImplementedError,
+naming the kernels it needs.
 """
 from __future__ import annotations
 
@@ -23,30 +28,34 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..models.nerface import (ModelSpec, NeRFaceModel, compute_driving,
-                              encode_pose)
+from ..models.nerface import (ModelSpec, NeRFaceModel, check_kernel_path,
+                              check_samples, compute_driving, encode_pose)
 from ..ops import losses as L
 from ..ops.rays import get_rays_at, ndc_rays
 from ..ops.sampling import (bbox_ray_probs, gather_rays, semantic_ray_probs,
                             weighted_ray_indices)
-from ..render.pipeline import RenderSettings
+from ..render.pipeline import Draws, RenderSettings, render_rays
 from ..utils.device import resolve_device
 from ..utils.seg import NUM_CLASSES
-from .fused import (STILL_TO_PORT, FusedCfg, TrainDraws, ray_loss_weights,
-                    stage1_fused, stage1_fused_eligible)
+from .fused import (FusedCfg, TrainDraws, ray_loss_weights, stage1_fused,
+                    stage1_fused_eligible)
+
+LATENT_CODE_DIM = 32   # the width of the per-frame code table (stage1.py:136)
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model, the trained background (or None), the optimizer, its
     learning-rate schedule (step -> lr, or None to leave the rate as it
-    is), the step count and the (12,) dynamic sampling weights."""
+    is), the step count, the (12,) dynamic sampling weights and the
+    trained per-frame latent codes (frames, 32) (or None)."""
     model: NeRFaceModel
     background: Optional[torch.nn.Parameter]
     optimizer: torch.optim.Optimizer
     lr_fn: Optional[Callable[[int], float]]
     step: int
     sample_prob: torch.Tensor
+    latent_codes: Optional[torch.nn.Parameter] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,21 +129,26 @@ def make_optimizer(params, ts: TrainSettings) -> torch.optim.Adam:
 
 
 def _check_supported(spec: ModelSpec, ts: TrainSettings) -> None:
-    if ts.train_latent_codes and not ts.disable_latent_codes:
+    """Raise NotImplementedError for what needs kernels still to be ported.
+    Training runs on the kernel path only: use_pallas off raises."""
+    r = ts.render
+    if not r.use_pallas:
         raise NotImplementedError(
-            "latent codes on the kernel path: " + STILL_TO_PORT)
-    if not ts.fused_grads or not stage1_fused_eligible(spec, ts.render):
-        raise NotImplementedError(
-            "fused_grads=False or a configuration outside the fused path: "
-            + STILL_TO_PORT)
+            "use_pallas=False: a train step runs on the kernel path only")
+    check_kernel_path(spec)
+    check_samples(r.num_coarse)
+    if spec.fine is not None and r.num_fine > 0:
+        check_samples(r.num_coarse + r.num_fine)
 
 
 def init_train_state(spec: ModelSpec, ts: TrainSettings, seed: int = 0,
-                     background=None, device=None) -> TrainState:
+                     background=None, device=None,
+                     num_latent_frames: int = 0) -> TrainState:
     """Seeded model and Adam state on ``device`` (CUDA unless the caller
     names another; with no device given and no CUDA present this raises).
     ``background`` (H, W, 15) becomes a trained parameter when
-    ``ts.train_background``."""
+    ``ts.train_background``; with ``ts.train_latent_codes`` a zero table of
+    ``num_latent_frames`` codes does (stage1.py:133-136)."""
     _check_supported(spec, ts)
     dev = resolve_device(device)
     model = NeRFaceModel.init(spec, seed=seed, device=dev)
@@ -142,11 +156,17 @@ def init_train_state(spec: ModelSpec, ts: TrainSettings, seed: int = 0,
     if ts.train_background and background is not None:
         bg = torch.nn.Parameter(torch.as_tensor(
             np.asarray(background), dtype=torch.float32).to(dev))
-    params = list(model.parameters()) + ([bg] if bg is not None else [])
+    codes = None
+    if ts.train_latent_codes and num_latent_frames > 0:
+        codes = torch.nn.Parameter(torch.zeros(
+            (num_latent_frames, LATENT_CODE_DIM), device=dev))
+    params = (list(model.parameters()) + ([bg] if bg is not None else [])
+              + ([codes] if codes is not None else []))
     return TrainState(model=model, background=bg,
                       optimizer=make_optimizer(params, ts),
                       lr_fn=lr_schedule(ts), step=0,
-                      sample_prob=torch.ones((NUM_CLASSES,), device=dev))
+                      sample_prob=torch.ones((NUM_CLASSES,), device=dev),
+                      latent_codes=codes)
 
 
 def _stage1_losses(ts: TrainSettings, rgb, mask, target, cw):
@@ -171,12 +191,12 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
     """One training step in place on ``state``. batch keys: image (H, W, 3),
     mask (H, W, 12), pose (3, 4), intrinsics (4,), driving ((76,) or the
     (16, 29) audio window), background (H, W, 15) [fixed background], bbox
-    (4,) [optional]. Random draws come from ``generator`` unless given in
-    ``draws``. Returns (state, metrics); the model's ``.grad`` fields hold
+    (4,) [optional], frame_idx () [for latent codes]. Random draws come
+    from ``generator`` unless given in ``draws``. Returns (state, metrics); the model's ``.grad`` fields hold
     the step's gradients afterwards."""
     _check_supported(spec, ts)
     model = state.model
-    dev = model.spatial_embeddings.device
+    dev = next(model.parameters()).device
     b = _as_batch(batch, dev)
     H, W = b["image"].shape[:2]
     mask_img = b["mask"].to(torch.float32)
@@ -200,21 +220,42 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
     cw = class_weights(ts, dev)
 
     state.optimizer.zero_grad(set_to_none=True)
-    driving = compute_driving(model, b["driving"])
-    pose_enc = encode_pose(b["pose"])
-    tgt15 = torch.cat([target_s[..., :3], mask_s], dim=-1)
-    lw = ray_loss_weights(mask_s, ts.ce_weight, ts.mouth_loss_weight)
+    latent = None
+    if (ts.train_latent_codes and not ts.disable_latent_codes
+            and state.latent_codes is not None):
+        latent = state.latent_codes[b["frame_idx"].long()]
     sup = ts.supervised_train_background and bg_r is not None
-    fcfg = FusedCfg(num_coarse=ts.render.num_coarse,
-                    num_fine=ts.render.num_fine, near=ts.near, far=ts.far,
-                    perturb=ts.render.perturb,
-                    noise_std=ts.render.radiance_field_noise_std,
-                    lindisp=ts.render.lindisp,
-                    compute_dtype=ts.render.compute_dtype,
-                    bg_sup_weight=ts.background_loss_weight if sup else 0.0)
-    loss, rgb_c, rgb_f, w_f = stage1_fused(model, fcfg, driving, pose_enc,
-                                           ro, rd, tgt15, lw, bg_r,
-                                           generator, draws)
+    if ts.fused_grads and stage1_fused_eligible(spec, ts.render):
+        driving = compute_driving(model, b["driving"])
+        pose_enc = encode_pose(b["pose"])
+        tgt15 = torch.cat([target_s[..., :3], mask_s], dim=-1)
+        lw = ray_loss_weights(mask_s, ts.ce_weight, ts.mouth_loss_weight)
+        fcfg = FusedCfg(num_coarse=ts.render.num_coarse,
+                        num_fine=ts.render.num_fine, near=ts.near, far=ts.far,
+                        perturb=ts.render.perturb,
+                        noise_std=ts.render.radiance_field_noise_std,
+                        lindisp=ts.render.lindisp,
+                        compute_dtype=ts.render.compute_dtype,
+                        bg_sup_weight=ts.background_loss_weight if sup else 0.0)
+        loss, rgb_c, rgb_f, weights = stage1_fused(
+            model, fcfg, driving, pose_enc, ro, rd, tgt15, lw, bg_r, generator,
+            draws, latent)
+    else:
+        # the autograd fallback (stage1.py:256-294)
+        res = render_rays(model, ts.render, ro, rd, ts.near, ts.far,
+                          b["driving"], b["pose"], generator=generator,
+                          background_prior=bg_r, latent_code=latent,
+                          draws=Draws(draws.t_rand, draws.u, draws.noise_coarse,
+                                      draws.noise_fine),
+                          differentiable=True)
+        rgb_c, rgb_f, weights = res.rgb_coarse, res.rgb_fine, res.weights
+        loss = _stage1_losses(ts, rgb_c, mask_s, target_s, cw)[0]
+        if rgb_f is not None:
+            loss = loss + _stage1_losses(ts, rgb_f, mask_s, target_s, cw)[0]
+        if sup:
+            loss = loss + _bg_loss(ts, bg_r, target_s, weights)
+    if ts.regularize_latent_codes and latent is not None:
+        loss = loss + 10.0 * ts.latent_reg_weight * torch.linalg.norm(latent)
     if ts.regularize_spatial_embedding and ts.use_spatial_embeddings:
         loss = loss + 10.0 * ts.spatial_reg_weight * torch.linalg.norm(
             model.spatial_embeddings)
@@ -225,23 +266,29 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
     state.optimizer.step()
 
     with torch.no_grad():
-        _, c_l2, c_ce, c_ml2w, c_mcew = _stage1_losses(ts, rgb_c, mask_s,
-                                                       target_s, cw)
-        _, f_l2, f_ce, f_ml2w, f_mcew = _stage1_losses(ts, rgb_f, mask_s,
-                                                       target_s, cw)
-        bg_loss = torch.zeros((), device=dev)
-        if sup:
-            per_ray = torch.sum(torch.square(bg_r[..., :3] - target_s[..., :3]),
-                                dim=-1)
-            bg_loss = torch.mean(per_ray * w_f[:, -1]) * ts.background_loss_weight
+        _, c_l2, c_ce, c_ml2w, c_mcew = _stage1_losses(ts, rgb_c.detach(),
+                                                       mask_s, target_s, cw)
+        f_l2, f_ce, prob_num = c_l2, c_ce, c_ml2w + c_mcew
+        if rgb_f is not None:
+            _, f_l2, f_ce, f_ml2w, f_mcew = _stage1_losses(
+                ts, rgb_f.detach(), mask_s, target_s, cw)
+            prob_num = prob_num + f_ml2w + f_mcew
+        bg_loss = (_bg_loss(ts, bg_r.detach(), target_s, weights.detach())
+                   if sup else torch.zeros((), device=dev))
         if ts.dynamic_sampling:
-            prob_num = c_ml2w + c_mcew + f_ml2w + f_mcew
             state.sample_prob = prob_num / torch.sum(prob_num)
         metrics = {"loss": loss.detach(), "coarse_l2": c_l2, "fine_l2": f_l2,
                    "coarse_ce": c_ce, "fine_ce": f_ce, "bg_loss": bg_loss,
                    "psnr": -10.0 * torch.log10(torch.clamp(f_l2, min=1e-10))}
     state.step += 1
     return state, metrics
+
+
+def _bg_loss(ts: TrainSettings, bg_r, target_s, weights):
+    """The background supervision: the background sample's weight times
+    its colour error, averaged over the rays (stage1.py:284-294)."""
+    per_ray = torch.sum(torch.square(bg_r[..., :3] - target_s[..., :3]), dim=-1)
+    return torch.mean(per_ray * weights[:, -1]) * ts.background_loss_weight
 
 
 def make_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
@@ -254,10 +301,10 @@ def make_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
 
     def step(state: TrainState, batch, generator=None,
              draws: TrainDraws = TrainDraws()):
-        if state.model.spatial_embeddings.device.type != dev.type:
-            raise ValueError(f"the model is on "
-                             f"{state.model.spatial_embeddings.device}, the "
-                             f"step was made for {dev}")
+        on = next(state.model.parameters()).device
+        if on.type != dev.type:
+            raise ValueError(f"the model is on {on}, the step was made for "
+                             f"{dev}")
         return train_step(state, batch, spec, ts, generator, draws)
 
     return step

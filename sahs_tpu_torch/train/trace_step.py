@@ -1,6 +1,6 @@
 """Where a flagship Stage-I train step spends its device time.
 
-    python -m sahs_tpu_torch.train.trace_step [--steps 3]
+    python -m sahs_tpu_torch.train.trace_step [--steps 3] [--path fused]
 
 Builds the flagship ``Config()`` train step (seeded weights, a synthetic
 512x512 audio frame held on the device) on the CUDA device, runs 2 warm-up
@@ -8,9 +8,13 @@ steps, then traces ``--steps`` steps with ``torch.profiler`` and prints
 every CUDA kernel's device ms and launches per step and its share of the
 step (CUDA events), then the step's idle share: the part of the step in
 which no kernel ran.
-K2 and K3 show as the launches of their one call each (K2: fwd_kernel,
-composite_kernel, bwd_kernel, dw_kernel, dw_reduce; K3: pair_vjp_kernel,
-dw_kernel, dw_reduce).
+``--path`` picks the step: ``fused`` (the default, K1-K4), ``fallback``
+(fused_grads off: the autograd fallback, K1, K5, K6, K9, K3) or ``reuse``
+(the fallback with fuse_composite off: K1, K7, K8, K9, K3).
+K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6:
+fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce; K8 the
+same without composite_kernel; K3: pair_vjp_kernel, dw_kernel,
+dw_reduce); K5 and K7 both as nerf_level_kernel.
 """
 from __future__ import annotations
 
@@ -29,8 +33,13 @@ def short_name(kernel: str) -> str:
     return name[:60]
 
 
-def trace_train_step(steps: int = 3) -> Dict:
-    """Trace ``steps`` flagship train steps. Returns {"step_ms", "kernels":
+PATHS = {"fused": {}, "fallback": {"fused_grads": False},
+         "reuse": {"fused_grads": False, "fuse_composite": False}}
+
+
+def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
+    """Trace ``steps`` flagship train steps of ``path`` (PATHS). Returns
+    {"step_ms", "kernels":
     [{"name", "launches_per_step", "ms_per_step", "share"}], "kernel_ms",
     "idle_share"}, kernels in decreasing time."""
     import torch
@@ -43,6 +52,8 @@ def trace_train_step(steps: int = 3) -> Dict:
     from . import stage1
 
     cfg = Config()
+    for k, v in PATHS[path].items():
+        setattr(cfg.runtime, k, v)
     spec = ModelSpec.from_config(cfg)
     ts = stage1.TrainSettings.from_config(cfg)
     dev = torch.device("cuda")
@@ -84,13 +95,14 @@ def trace_train_step(steps: int = 3) -> Dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--path", choices=sorted(PATHS), default="fused")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    res = trace_train_step(args.steps)
-    print(f"step {res['step_ms']:.2f} ms (CUDA events), kernels "
+    res = trace_train_step(args.steps, args.path)
+    print(f"{args.path} step {res['step_ms']:.2f} ms (CUDA events), kernels "
           f"{res['kernel_ms']:.2f} ms, idle share {res['idle_share']:.3f}")
     for k in res["kernels"]:
         print(f"{k['ms_per_step']:10.3f} ms {k['launches_per_step']:6.1f} x "

@@ -8,11 +8,13 @@ and loads it into a ``NeRFaceModel``. Two layout changes:
     ``nn.Conv1d.weight`` is (cout, cin, k) for NCW data.
 ``params_to_jax`` goes back, for round-trip checks, and ``grads_to_jax``
 maps the ``.grad`` fields onto the same tree, so that gradients compare
-leaf by leaf.
+leaf by leaf. With a train state's per-frame ``latent_codes`` table given,
+``params_from_jax`` and ``grads_to_jax`` take and give the JAX train
+state's whole tree, {"model": ..., "latent_codes": (frames, 32)}.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -38,8 +40,15 @@ def _load_linears(mods, ps) -> None:
         _load_linear(m, p)
 
 
-def params_from_jax(model: NeRFaceModel, tree: Dict[str, Any]) -> NeRFaceModel:
-    """Load the JAX parameter tree (numpy leaves) into ``model`` in place."""
+def params_from_jax(model: NeRFaceModel, tree: Dict[str, Any],
+                    latent_codes: Optional[torch.Tensor] = None) -> NeRFaceModel:
+    """Load the JAX parameter tree (numpy leaves) into ``model`` in place;
+    with ``latent_codes``, ``tree`` is the train state's {"model",
+    "latent_codes"} and the codes are loaded into that tensor too."""
+    if latent_codes is not None:
+        with torch.no_grad():
+            latent_codes.copy_(_t(tree["latent_codes"]))
+        tree = tree["model"]
     for name in ("warp", "hyper"):
         net = getattr(model, name)
         if net is not None:
@@ -103,8 +112,14 @@ def params_to_jax(model: NeRFaceModel, get=lambda p: p) -> Dict[str, Any]:
     return tree
 
 
-def grads_to_jax(model: NeRFaceModel) -> Dict[str, Any]:
+def grads_to_jax(model: NeRFaceModel,
+                 latent_codes: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """The model's ``.grad`` fields as the JAX parameter tree (zeros where
-    a parameter has no gradient)."""
-    return params_to_jax(
-        model, lambda p: p.grad if p.grad is not None else torch.zeros_like(p))
+    a parameter has no gradient); with ``latent_codes``, the train state's
+    {"model", "latent_codes"} tree."""
+    grad = lambda p: p.grad if p.grad is not None else torch.zeros_like(p)
+    tree = params_to_jax(model, grad)
+    if latent_codes is None:
+        return tree
+    return {"model": tree,
+            "latent_codes": grad(latent_codes).detach().cpu().numpy()}

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: K1 (deform pair), K5 (NeRF level),
-K2 (level train), K3 (pair backward) and K4 (dGrid) against their plain
-versions, the kernel path of render_rays against the plain path, and a
-train step through the kernels against the same step on the plain versions.
+K2 (level train), K3 (pair backward), K4 (dGrid), K6 (level backward), K7
+(raw field), K8 (raw-field backward) and K9 (dGrid from coordinates)
+against their plain versions, the kernel path of render_rays against the
+plain path, train steps (fused, and the autograd fallback on both of its
+paths) through the kernels against the same steps on the plain versions,
+and the fused step against the fallback step.
 Marked ``cuda``; without a CUDA device they skip. This file imports no JAX,
 so it runs on a machine without it:
 
@@ -20,6 +23,7 @@ from sahs_tpu_torch.config import Config
 from sahs_tpu_torch.models import nerface
 from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
 from sahs_tpu_torch.ops.kernels import deform_pair as k1
+from sahs_tpu_torch.ops.kernels import field_grid
 from sahs_tpu_torch.ops.kernels import grid_bwd as k4
 from sahs_tpu_torch.ops.kernels import level_train as k2
 from sahs_tpu_torch.ops.kernels import nerf_level as k5
@@ -334,3 +338,258 @@ def test_train_step_kernel_path_matches_plain_path(card, monkeypatch):
     assert abs(float(m_k["loss"]) - float(m_p["loss"])) <= 1e-5 * abs(float(m_p["loss"]))
     _grads_ok(g_k, g_p, "step")
     assert float((sp_k - sp_p).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The autograd fallback's kernels: K6 (level backward), K7 (raw field), K8
+# (raw-field backward), K9 (dGrid from coordinates), and its steps. Gates
+# as the train kernels' above. Cotangents like the fallback's own: those
+# of a loss of the outputs (random cotangents at every point would make a
+# single kink flip move a whole dW leaf).
+# ---------------------------------------------------------------------------
+
+def _level_case(dev, model, rng, R, S, with_bg, with_noise, compute_dtype):
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (R * S, 3)),
+                                    rng.uniform(-1, 1, (R * S, 2))], 1))
+    dirs = _gpu(dev, rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    z = _gpu(dev, np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+    bg = _gpu(dev, rng.rand(R, 15)) if with_bg else None
+    noise = _gpu(dev, rng.randn(R, S) * 0.5) if with_noise else None
+    dtype = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=dtype)
+    rows, _, _ = _cell_geometry(pts, GRID)
+    return pts, dirs, table, rows, z, bg, noise
+
+
+def _loss_cotangents(dev, rng, rgb_map, w):
+    """Cotangents of an L2 + cross-entropy loss of rgb_map against a
+    random target, and of the background sample's weight."""
+    R = rgb_map.shape[0]
+    tgt = _gpu(dev, np.concatenate([rng.rand(R, 3),
+                                    np.eye(12)[rng.randint(0, 12, R)]], 1))
+    g_rgb = torch.cat([2.0 * (rgb_map[:, :3] - tgt[:, :3]) / R,
+                       -0.02 * tgt[:, 3:15] / (rgb_map[:, 3:15] + 1e-10) / R,
+                       torch.zeros_like(rgb_map[:, :1])], dim=-1)
+    g_w = torch.zeros_like(w)
+    g_w[:, -1] = _gpu(dev, rng.rand(R)) * 1e-3
+    return g_rgb, g_w
+
+
+def _points_ok(a, b, f32):
+    e = point_errors(a, b, 1e-4)
+    if f32:
+        assert e["n_over"] <= POINT_FLIPS and e["cosine"] >= 0.9999, e
+    else:
+        assert e["l2_rel"] <= 1e-2 and e["cosine"] >= 0.9999, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,with_bg,with_noise", [
+    (16, True, True), (64, True, False), (128, False, True)])
+def test_nerf_level_vjp_kernel_matches_plain(card, compute_dtype, S, with_bg,
+                                             with_noise):
+    dev, model, _, level, rng = card
+    R = 96
+    args = _level_case(dev, model, rng, R, S, with_bg, with_noise, compute_dtype)
+    rgb_p, w_p = k5.nerf_level_plain(*args, level, compute_dtype, GRID)
+    g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
+    vargs = args + (g_rgb, g_w, level, compute_dtype, GRID)
+    before = k2.nerf_level_vjp.launches
+    gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
+    gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*vargs)
+    torch.cuda.synchronize()
+    assert k2.nerf_level_vjp.launches == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in (gx_k, gse_k))
+    f32 = compute_dtype == "float32"
+    for a, b in ((gx_k, gx_p), (gse_k, gse_p)) + (((gbg_k, gbg_p),) if with_bg else ()):
+        _points_ok(a, b, f32)
+    assert (gbg_k is None) == (not with_bg)
+    _grads_ok(g_k, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [64, 128])
+def test_ablation_level_kernels_match_plain(card, compute_dtype, S):
+    """K5 and K6 at the widths of configs/expression/person_1_ablation.yml
+    (no deformation: the points themselves, PW = 3, rows from
+    _cell_geometry; 15 PE frequencies; a 4x256 trunk) against their plain
+    versions, with a background prior, sigma noise and loss cotangents."""
+    import os
+    from sahs_tpu_torch.config import load_config
+    dev, _, _, _, rng = card
+    cfg = load_config(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                   "expression", "person_1_ablation.yml"))
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    with torch.no_grad():
+        model.coarse.fc_alpha.bias.fill_(0.5)
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    level = k5.prepare_level(model.coarse, _gpu(dev, rng.randn(76) * 0.5), pts_g, dir_g)
+    R = 96
+    pts, dirs, table, _, z, bg, noise = _level_case(dev, model, rng, R, S, True, True,
+                                                    compute_dtype)
+    pts = pts[:, :3].contiguous()
+    rows = _cell_geometry(pts, GRID)[0].to(torch.int32).reshape(R, S)
+    args = (pts, dirs, table, rows, z, bg, noise, level, compute_dtype, GRID)
+    rgb_k, w_k = k5.nerf_level_forward(*args)
+    rgb_p, w_p = k5.nerf_level_plain(*args)
+    g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
+    vargs = args[:7] + (g_rgb, g_w) + args[7:]
+    gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
+    gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*vargs)
+    torch.cuda.synchronize()
+    f32 = compute_dtype == "float32"
+    for a, b in ((rgb_k, rgb_p), (w_k, w_p)):
+        assert torch.isfinite(a).all()
+        if f32:
+            assert float((a - b).abs().max()) <= 1e-4
+        else:
+            assert _rel(a, b) <= 2e-2
+    assert gx_k.shape == (R * S, 3)
+    for a, b in ((gx_k, gx_p), (gse_k, gse_p), (gbg_k, gbg_p)):
+        _points_ok(a, b, f32)
+    _grads_ok(g_k, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [16, 128])
+def test_nerf_rayd_kernels_match_plain(card, compute_dtype, S):
+    """K7 against its plain version, then K8 from the cotangent of a loss
+    composited from K7's plain output."""
+    from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
+    dev, model, _, level, rng = card
+    R = 96
+    pts, dirs, table, rows, z, bg, _ = _level_case(dev, model, rng, R, S, True,
+                                                   False, compute_dtype)
+    counts = (k5.nerf_rayd_forward.launches, k2.nerf_rayd_vjp.launches)
+    raw_k = k5.nerf_rayd_forward(pts, dirs, table, rows, level, compute_dtype, GRID)
+    raw_p = k5.nerf_raw_plain(pts, dirs, table, rows, level, compute_dtype, GRID)
+    torch.cuda.synchronize()
+    assert raw_k.shape == (R * S, 16) and torch.isfinite(raw_k).all()
+    if compute_dtype == "float32":
+        assert float((raw_k - raw_p).abs().max()) <= 1e-4
+    else:
+        assert _scaled(raw_k, raw_p) <= 2e-2
+    raw = raw_p.clone().requires_grad_()
+    r3 = raw.reshape(R, S, 16)
+    r3 = torch.cat([r3[:, :-1], torch.cat([bg, r3[:, -1:, -1]], -1)[:, None]], 1)
+    out = volume_render_radiance_field(r3, z, dirs, background_prior=bg)
+    g_rgb, _ = _loss_cotangents(dev, rng, out.rgb.detach(), out.weights.detach())
+    (g,) = torch.autograd.grad(out.rgb, raw, g_rgb[:, :15])
+    gx_k, gse_k, g_k = k2.nerf_rayd_vjp(pts, dirs, table, rows, g, level,
+                                        compute_dtype, GRID)
+    gx_p, gse_p, g_p = k2.nerf_rayd_vjp_plain(pts, dirs, table, rows, g, level,
+                                              compute_dtype, GRID)
+    torch.cuda.synchronize()
+    assert (k5.nerf_rayd_forward.launches, k2.nerf_rayd_vjp.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    f32 = compute_dtype == "float32"
+    _points_ok(gx_k, gx_p, f32)
+    _points_ok(gse_k, gse_p, f32)
+    _grads_ok(g_k, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+def test_grid_dg_coords_kernel_matches_plain(card):
+    """K9 on sample-major points inside the grid, on cell faces, on the
+    grid's faces and outside it."""
+    dev, _, _, _, rng = card
+    P = 50000
+    pts = rng.uniform(-1.1, 1.1, (P, 5))
+    pts[:500, :3] = 2.0 * rng.randint(0, 32, (500, 3)) / 31.0 - 1.0
+    pts[500:504, :3] = [[-1, -1, -1], [1, 1, 1], [1.2, 0, 0], [0, 0, 1.0000001]]
+    pts, g = _gpu(dev, pts), _gpu(dev, rng.randn(P, 32))
+    before = k4.grid_dg_coords.launches
+    dg_k = k4.grid_dg_coords(pts, g, (32,) + GRID)
+    dg_p = k4.grid_dg_coords_plain(pts, g, (32,) + GRID)
+    torch.cuda.synchronize()
+    assert k4.grid_dg_coords.launches == before + 1
+    _grads_ok(dg_k, dg_p, "float32")
+
+
+FALLBACK_KERNELS = {"deform_pair_forward": (k1, k1.deform_pair_plain),
+                    "deform_pair_vjp": (k1, k1.deform_pair_vjp_plain),
+                    "nerf_level_forward": (field_grid, k5.nerf_level_plain),
+                    "nerf_level_vjp": (field_grid, k2.nerf_level_vjp_plain),
+                    "nerf_rayd_forward": (field_grid, k5.nerf_raw_plain),
+                    "nerf_rayd_vjp": (field_grid, k2.nerf_rayd_vjp_plain),
+                    "grid_dg_coords": (field_grid, k4.grid_dg_coords_plain)}
+COUNTERS = {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
+            "K3": k1.deform_pair_vjp, "K4": k4.grid_dg,
+            "K5": k5.nerf_level_forward, "K6": k2.nerf_level_vjp,
+            "K7": k5.nerf_rayd_forward, "K8": k2.nerf_rayd_vjp,
+            "K9": k4.grid_dg_coords}
+
+
+def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True):
+    """One float32 flagship train step, 256 rays of a 64 x 64 frame, 64 +
+    64 samples, seeded draws; the fallback's kernels swapped for their
+    plain versions when ``plain``. Returns (loss, {name: grad}, {K: launches})."""
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.train import stage1
+    from sahs_tpu_torch.train.fused import TrainDraws
+    cfg = Config()
+    cfg.nerf.train.num_random_rays = 256
+    cfg.runtime.compute_dtype = "float32"
+    cfg.runtime.fused_grads = fused_grads
+    cfg.runtime.fuse_composite = fuse_composite
+    spec = nerface.ModelSpec.from_config(cfg)
+    ts = stage1.TrainSettings.from_config(cfg)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=64, W=64,
+                              near=cfg.dataset.near, far=cfg.dataset.far)
+    batch = dict(ds[0], background=ds.background())
+    gen = torch.Generator().manual_seed(3)
+    draws = TrainDraws(*[t.to(dev) for t in (
+        -torch.log(-torch.log(torch.rand(64 * 64, generator=gen).clamp_min(1e-20))),
+        torch.rand((256, 64), generator=gen), torch.rand((256, 64), generator=gen),
+        torch.randn((256, 64), generator=gen), torch.randn((256, 128), generator=gen))])
+    st = stage1.init_train_state(spec, ts, seed=0, device=dev)
+    with torch.no_grad():
+        for lvl in (st.model.coarse, st.model.fine):
+            lvl.fc_alpha.bias.fill_(0.5)
+    before = {k: f.launches for k, f in COUNTERS.items()}
+    with monkeypatch.context() as mp:
+        if plain:
+            for name, (mod, f) in FALLBACK_KERNELS.items():
+                mp.setattr(mod, name, f)
+        st, m = stage1.make_train_step(spec, ts, device=dev)(st, batch, draws=draws)
+    launches = {k: f.launches - before[k] for k, f in COUNTERS.items()}
+    return float(m["loss"]), {n: p.grad for n, p in st.model.named_parameters()}, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_composite", [True, False])
+def test_fallback_step_kernel_path_matches_plain_path(card, monkeypatch,
+                                                      fuse_composite):
+    """One float32 fallback step (fused_grads off) through the kernels
+    against the same step on their plain versions: fuse_composite on (K1,
+    K5, then K6, K9, K3) and off (K1, K7, then K8, K9, K3)."""
+    dev = card[0]
+    loss_k, g_k, l_k = _f32_step(dev, monkeypatch, False, False, fuse_composite)
+    loss_p, g_p, l_p = _f32_step(dev, monkeypatch, True, False, fuse_composite)
+    want = ({"K1": 2, "K3": 2, "K5": 2, "K6": 2, "K9": 2} if fuse_composite
+            else {"K1": 2, "K3": 2, "K7": 2, "K8": 2, "K9": 2})
+    assert l_k == {k: want.get(k, 0) for k in COUNTERS}
+    assert not any(l_p.values())
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    _grads_ok(g_k, g_p, "step")
+
+
+@pytest.mark.cuda
+def test_fused_step_matches_fallback_step(card, monkeypatch):
+    """The fused step (K1, K2, K3, K4) against the fallback step (K1, K5,
+    K6, K9, K3), both through the kernels, float32, the same draws: the
+    same forward, sums in another order, so every leaf within 1e-4
+    L2-relative and at 0.9999 cosine (chip_smoke.FUSED_VS_FALLBACK; far
+    inside ROADMAP's fused-vs-autograd ceiling of 5e-2)."""
+    dev = card[0]
+    loss_f, g_f, l_f = _f32_step(dev, monkeypatch, False, True)
+    loss_b, g_b, _ = _f32_step(dev, monkeypatch, False, False)
+    assert l_f["K2"] == 2 and l_f["K6"] == 0
+    assert abs(loss_f - loss_b) <= 1e-5 * abs(loss_b)
+    e = tree_errors(g_f, g_b)
+    assert e["l2_rel"] <= 1e-4 and e["cosine"] >= 0.9999, e
+
