@@ -80,7 +80,29 @@ Phases, in order (any failure exits non-zero and prints no result):
      no K1 or K3) and a 512x512 frame rendered through make_eval_renderer
      (K5 only); 2 warm-up and 5 timed steps each; then K6-K9's times at
      the paths' shapes beside their plain versions, library yardsticks and
-     bounds.
+     bounds;
+  9. per-point kernel parity: K10 (the grid sample's backward), K11 (the
+     per-point field) and K12 (its backward) against their plain versions
+     on the per-point branch's own inputs (the fine level of a 64 + 128
+     step: 192 samples a ray, which the level kernels do not tile) and
+     the cotangents its loss sends back, float32 at 256 rays and bfloat16
+     at 2048, with phase 7's gates and K10_GATES; faults planted in the
+     kernels' bf16 results (K11 without a bias, K12's bias gradient
+     dropped, K12's first split-K chunk dropped, one corner left out of
+     K10) must each miss them; whole float32 steps at 256 rays through the
+     kernels against the same steps on the plain versions (STEP_GATES,
+     launch counts checked): the per-point step (64 + 128) and the plain
+     path's step (use_pallas off);
+ 10. the new paths on the card, launch counters set to 0 just before each
+     and checked just after: (1) a 512x512 flagship frame at 64 + 128
+     through make_eval_renderer (K1 = 2, K5 = 1, K11 = 1 a chunk), (2) the
+     flagship step at 2048 rays, 64 + 128, bf16 (K1 = K3 = 2, K5 = K6 =
+     K9 = K10 = K11 = K12 = 1 a step), (3) the use_pallas=False step at
+     2048 rays, 64 + 64 (K10 = 2, nothing else); 2 warm-up and 5 timed
+     steps each; then K11's time at the frame's fine chunk (32,768 rays x
+     192, held against its plain version there too) and K12's and K10's at
+     the step's fine level, beside their plain versions, the library
+     yardsticks and the bounds.
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -235,6 +257,10 @@ STEP_GATES = {"loss_rel": 1e-5, "l2_rel": 2e-2, "cosine": 0.9999}
 # 6.3e-7 on an H100, so 1e-4 (well inside ROADMAP's fused-vs-autograd
 # ceiling of 5e-2) still catches a leaf that is 1 % off.
 FUSED_VS_FALLBACK = {"l2_rel": 1e-4, "cosine": 0.9999}
+# K10 (the grid sample's backward) against its plain version, dG and
+# dcoords each L2-relative: both sides round the same values the same way
+# and differ only in the order of their float32 sums (atomics).
+K10_GATES = {"float32": 1e-5, "bfloat16": 2e-3}
 T_START = time.time()
 
 
@@ -244,11 +270,13 @@ def kernel_counters() -> dict:
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
     from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
     return {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
             "K3": k1.deform_pair_vjp, "K4": k4.grid_dg,
             "K5": k5.nerf_level_forward, "K6": k2.nerf_level_vjp,
             "K7": k5.nerf_rayd_forward, "K8": k2.nerf_rayd_vjp,
-            "K9": k4.grid_dg_coords}
+            "K9": k4.grid_dg_coords, "K10": k4.grid_bwd_fused,
+            "K11": k11.nerf_mlp_forward_fused, "K12": k2.nerf_mlp_vjp}
 
 
 def fused_swaps():
@@ -265,19 +293,24 @@ def fused_swaps():
 
 def fallback_swaps():
     """(module, name, plain version) of each kernel of the autograd
-    fallback (the differentiable pair and the grid-coupled level ops)."""
+    fallback (the differentiable pair, the grid-coupled level ops, the
+    per-point op and the grid sample's backward)."""
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import field_grid
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
     from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
     return [(k1, "deform_pair_forward", k1.deform_pair_plain),
             (k1, "deform_pair_vjp", k1.deform_pair_vjp_plain),
             (field_grid, "nerf_level_forward", k5.nerf_level_plain),
             (field_grid, "nerf_level_vjp", k2.nerf_level_vjp_plain),
             (field_grid, "nerf_rayd_forward", k5.nerf_raw_plain),
             (field_grid, "nerf_rayd_vjp", k2.nerf_rayd_vjp_plain),
-            (field_grid, "grid_dg_coords", k4.grid_dg_coords_plain)]
+            (field_grid, "grid_dg_coords", k4.grid_dg_coords_plain),
+            (field_grid, "nerf_mlp_forward_fused", k11.nerf_mlp_plain),
+            (field_grid, "nerf_mlp_vjp", k2.nerf_mlp_vjp_plain),
+            (k4, "grid_bwd_fused", k4.grid_bwd_fused_plain)]
 
 
 @contextlib.contextmanager
@@ -662,10 +695,16 @@ def fallback_gates_missed(res, compute_dtype) -> list:
     f32 = compute_dtype == "float32"
     g = TRAIN_F32_GATES if f32 else TRAIN_BF16_GATES
     for name, r in res.items():
-        if name == "k7":
+        if name in ("k7", "k11"):
             ok = r["finite"] and (r["raw_abs"] <= g["out_abs"] if f32
                                   else r["raw_scaled"] <= g["out_rel"])
             if not ok:
+                missed.append(name)
+            continue
+        if name == "k10":
+            gate = K10_GATES["float32" if f32 else "bfloat16"]
+            if not all(r[q]["l2_rel"] <= gate and r[q]["cosine"] >= g["cosine"]
+                       for q in ("dg", "dcoords")):
                 missed.append(name)
             continue
         if name.startswith("k5"):
@@ -674,7 +713,7 @@ def fallback_gates_missed(res, compute_dtype) -> list:
             if not ok:
                 missed.append(name)
             continue
-        points = [q for q in ("gx", "gse", "gbg") if q in r]
+        points = [q for q in ("gx", "gse", "gbg", "gextra") if q in r]
         points_ok = all(
             r[q]["cosine"] >= g["cosine"]
             and (r[q]["n_over"] <= g["point_flips"] if f32
@@ -946,6 +985,159 @@ def fallback_planted_faults(inp, outs) -> dict:
         outs["k9"] - dg_one_corner(coords, g, shape, 0),
         k4.grid_dg_coords_plain(coords, g, shape))
     return out
+
+
+def pointwise_inputs(model, ds, near, far, dev, R, compute_dtype, gen):
+    """The per-point branch's inputs at the fine level of a 64 + 128 step
+    (192 samples a ray, which the level kernels do not tile), built with
+    the plain versions from R random pixels of frame 0, as the fallback
+    builds them: K1's packed points, the grid sample's corner rows and
+    features (in the compute dtype), the extra input [dir | se], the folded
+    fine level, the cotangent g (P, 16) that the loss sends back through
+    the plain compositing (background prior, sigma noise), and K12's plain
+    se cotangent for K10."""
+    import torch
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry, interp_corners
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels.field_grid import corner_table
+    from sahs_tpu_torch.ops.rays import get_rays_at
+    from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
+    from sahs_tpu_torch.ops.sampling import coarse_z_vals, sample_pdf
+    from sahs_tpu_torch.train.fused import ray_loss_weights
+    item = ds[0]
+    idx = torch.randperm(ds.H * ds.W, generator=gen)[:R].to(dev)
+    ro, rd = get_rays_at(idx, ds.H, ds.W, torch.as_tensor(item["intrinsics"]).to(dev),
+                         torch.as_tensor(item["pose"]).to(dev))
+    mask = torch.as_tensor(item["mask"]).to(dev).reshape(-1, 12)[idx]
+    tgt = torch.cat([torch.as_tensor(item["image"]).to(dev).reshape(-1, 3)[idx],
+                     mask], dim=-1)
+    bg = torch.as_tensor(ds.background()).to(dev).reshape(-1, 15)[idx]
+    lw = ray_loss_weights(mask, 0.02, 0.005)
+    warp_g, pts_g, dir_g = nerface.build_pe_groups(model.spec)
+    with torch.no_grad():
+        driving = nerface.compute_driving(model, torch.as_tensor(item["driving"]).to(dev))
+        pose_enc = nerface.encode_pose(torch.as_tensor(item["pose"]).to(dev))
+    pair = k1.prepare_pair(model.warp, model.hyper, torch.cat([driving, pose_enc]),
+                           warp_g)
+    grid = model.spatial_embeddings.detach()
+    dims = tuple(grid.shape[1:])
+    rnd = lambda *shape: torch.rand(shape, generator=gen).to(dev)
+    z_c = coarse_z_vals(torch.full((R,), near, device=dev),
+                        torch.full((R,), far, device=dev), 64, perturb=True,
+                        t_rand=rnd(R, 64))
+    z_new = sample_pdf(0.5 * (z_c[:, 1:] + z_c[:, :-1]), rnd(R, 62), 128,
+                       u=rnd(R, 128))
+    z = torch.sort(torch.cat([z_c, z_new], -1), dim=-1, stable=True).values
+    S = z.shape[1]
+    pts = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+    packed, _ = k1.deform_pair_plain(pts, pair, compute_dtype, S, dims)
+    rows, fs, ok = _cell_geometry(packed, dims)
+    vals = corner_table(grid, compute_dtype)[rows]
+    extra = torch.cat([rd.repeat_interleave(S, dim=0), interp_corners(vals, fs, ok)],
+                      dim=-1)
+    lvl = k5.prepare_level(model.fine, pose_enc, pts_g, dir_g)
+    raw_p = k11.nerf_mlp_plain(packed, extra, lvl, compute_dtype)
+    raw = raw_p.clone().requires_grad_()
+    r3 = raw.reshape(R, S, 16)
+    r3 = torch.cat([r3[:, :-1], torch.cat([bg, r3[:, -1:, -1]], -1)[:, None]], 1)
+    rend = volume_render_radiance_field(
+        r3, z, rd, radiance_field_noise_std=1.0, background_prior=bg,
+        noise=0.1 * torch.randn((R, S), generator=gen).to(dev))
+    g_rgb, g_w = loss_cotangents(rend.rgb.detach(), rend.weights.detach(), tgt,
+                                 lw, bg, 0.5)
+    (g,) = torch.autograd.grad([rend.rgb, rend.weights], raw, [g_rgb[:, :15], g_w])
+    k12 = (packed, extra, g, lvl, compute_dtype)
+    k12_plain = k2.nerf_mlp_vjp_plain(*k12)
+    return {"R": R, "S": S, "k11": (packed, extra, lvl, compute_dtype),
+            "k11_plain": raw_p, "k12": k12, "k12_plain": k12_plain,
+            "k10": ((grid.shape[0],) + dims, packed, k12_plain[1][:, 3:], vals,
+                    compute_dtype)}
+
+
+def pointwise_parity(inp):
+    """K11, K12 and K10 against their plain versions on the per-point
+    branch's inputs, in the schema of fallback_kernel_parity (gated by
+    fallback_gates_missed). Returns the errors and the kernels' results."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.utils.compare import leaves, point_errors, tree_errors
+    tol = TRAIN_F32_GATES["point_tol"]
+    raw_k = k11.nerf_mlp_forward_fused(*inp["k11"])
+    raw_p = inp["k11_plain"]
+    gx_k, ge_k, g_k = k2.nerf_mlp_vjp(*inp["k12"])
+    gx_p, ge_p, g_p = inp["k12_plain"]
+    dg_k, dc_k = k4.grid_bwd_fused(*inp["k10"])
+    dg_p, dc_p = k4.grid_bwd_fused_plain(*inp["k10"])
+    torch.cuda.synchronize()
+    e = tree_errors(g_k, g_p)
+    res = {"k11": {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": scaled_err(raw_k, raw_p),
+                   "max_abs_err": abs_err(raw_k, raw_p),
+                   "finite": bool(torch.isfinite(raw_k).all())},
+           "k12": {"gx": point_errors(gx_k, gx_p, tol),
+                   "gextra": point_errors(ge_k, ge_p, tol),
+                   "dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
+                   "dw_worst_leaf": e["worst_leaf"],
+                   "max_abs_err": max(abs_err(x, y) for (_, x), (_, y)
+                                      in zip(leaves(g_k), leaves(g_p))),
+                   "finite": bool(torch.isfinite(gx_k).all() and torch.isfinite(ge_k).all())},
+           "k10": {"dg": tree_errors(dg_k, dg_p), "dcoords": tree_errors(dc_k, dc_p),
+                   "max_abs_err": max(abs_err(dg_k, dg_p), abs_err(dc_k, dc_p))}}
+    return res, {"k11": raw_k, "k12": g_k, "k10": dg_k}
+
+
+def pointwise_planted_faults(inp, outs) -> dict:
+    """What the gates see with a fault planted in the kernels' own bf16
+    results: K11 run with the alpha head's bias dropped (its raw field
+    against the plain version's, max |a - b| / max |b|); K12's bias gradient
+    of a trunk layer dropped; the points of K12's first split-K chunk
+    dropped (the plain dW over them taken off); one corner of every point
+    left out of K10's dG. Each must miss."""
+    import dataclasses
+    import torch
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    from sahs_tpu_torch.utils.compare import tree_errors
+    out = {}
+    packed, extra, lvl, cdt = inp["k11"]
+    no_bias = dataclasses.replace(lvl, alpha={"w": lvl.alpha["w"],
+                                              "b": torch.zeros_like(lvl.alpha["b"])},
+                                  _blobs={})
+    out["k11 without the alpha bias"] = {"raw_scaled": scaled_err(
+        k11.nerf_mlp_forward_fused(packed, extra, no_bias, cdt), inp["k11_plain"])}
+    g_p = inp["k12_plain"][2]
+    out["k12 bias trunk[1]"] = tree_errors(_drop_bias(outs["k12"], ["trunk", 1]), g_p)
+    P = packed.shape[0]
+    n_tiles = -(-P // k2.TP)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP
+    g = inp["k12"][2]
+    g_c = k2.nerf_mlp_vjp_plain(packed[:n], extra[:n], g[:n], lvl, cdt)[2]
+    out[f"k12 chunk 0 ({n} points)"] = tree_errors(_tree_sub(outs["k12"], g_c), g_p)
+    shape, coords, g_se, _, _ = inp["k10"]
+    out["k10 without corner 0"] = tree_errors(
+        outs["k10"] - dg_one_corner(coords, g_se, shape, 0),
+        k4.grid_bwd_fused_plain(*inp["k10"])[0])
+    return out
+
+
+def fault_passes(e) -> bool:
+    """True when a planted fault's reading passes the bf16 gates."""
+    if "raw_scaled" in e:
+        return e["raw_scaled"] <= BF16_GATE
+    return dw_ok(e, TRAIN_BF16_GATES)
+
+
+def point_mlp_macs(lw) -> int:
+    """Multiply-adds a point of K11: K5's, with the direction term per
+    point."""
+    return k5_macs(lw) + lw.dir0_dir.numel()
 
 
 def grid_sample_library(model, coords, g):
@@ -1560,9 +1752,10 @@ def main(argv) -> int:
     # whole float32 steps (256 rays): the fallback on both of its paths
     # through the kernels against the same step on the plain versions, and
     # the fused step against the fallback step, both through the kernels
-    def fb_step(swaps, **runtime):
+    def fb_step(swaps, d=None, num_fine=64, **runtime):
         c32 = Config()
         c32.nerf.train.num_random_rays = 256
+        c32.nerf.train.num_fine = num_fine
         c32.runtime.compute_dtype = "float32"
         for k, v in runtime.items():
             setattr(c32.runtime, k, v)
@@ -1575,7 +1768,7 @@ def main(argv) -> int:
         held = kernel_counters()
         before = {k: f.launches for k, f in held.items()}
         with plain_versions(swaps) if swaps else contextlib.nullcontext():
-            st, m = step_s(st, batch, draws=draws)
+            st, m = step_s(st, batch, draws=draws if d is None else d)
         return (float(m["loss"]), {n: p.grad.detach().cpu()
                                    for n, p in st.model.named_parameters()},
                 {k: f.launches - before[k] for k, f in held.items() if f.launches != before[k]})
@@ -1651,7 +1844,8 @@ def main(argv) -> int:
                                    for p in st.model.parameters())}
         return {"rays": ts_p.num_random_rays, "samples":
                 f"{ts_p.render.num_coarse}+{ts_p.render.num_fine}",
-                "dtype": ts_p.render.compute_dtype, "steps": n_steps, "ms": ms,
+                "dtype": (ts_p.render.compute_dtype if ts_p.render.use_pallas
+                          else "float32 (plain path)"), "steps": n_steps, "ms": ms,
                 "host_ms": (time.time() - t_host) * 1e3 / n_steps,
                 "rays_per_s": ts_p.num_random_rays / (ms / 1e3),
                 "launches_per_step": per_step, "loss": float(losses[-1]),
@@ -1829,6 +2023,200 @@ def main(argv) -> int:
                         **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "bound_by", "library_ms")},
                         "coarse_ms": line["coarse_ms"]})
+    del fb_inp
+    torch.cuda.empty_cache()
+
+    # 9. per-point kernel parity ---------------------------------------------
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    pw_parity, missed = [], []
+    for compute_dtype, R_p in (("float32", 256), ("bfloat16", 2048)):
+        pinp = pointwise_inputs(pmodel, ds, near, far, dev, R_p, compute_dtype, gen)
+        res, outs = pointwise_parity(pinp)
+        row = {"dtype": compute_dtype, "rays": R_p, "samples": "64+128", **res}
+        pw_parity.append(row)
+        print("pointwise parity " + json.dumps(row), flush=True)
+        missed += [f"{m} ({compute_dtype}, {R_p} rays)"
+                   for m in fallback_gates_missed(res, compute_dtype)]
+        if compute_dtype == "bfloat16":
+            pw_inp, pw_res = pinp, res
+            faults = pointwise_planted_faults(pinp, outs)
+            report["pointwise_planted_faults"] = faults
+            print("pointwise planted faults (bf16, the per-point step's shapes; each "
+                  "must miss the gates) " + json.dumps(faults), flush=True)
+            missed += [f"the gates pass a planted fault: {k}"
+                       for k, e in faults.items() if fault_passes(e)]
+        del outs
+    report["pointwise_parity"] = pw_parity
+    # whole float32 steps (256 rays) through the kernels against the same
+    # steps on the plain versions: the per-point step (64 + 128: the coarse
+    # level on K5/K6, the fine level per point) and the plain path's
+    g9 = torch.Generator().manual_seed(4)
+    draws_pw = TrainDraws(*[t.to(dev) for t in (
+        -torch.log(-torch.log(torch.rand(H * W, generator=g9).clamp_min(1e-20))),
+        torch.rand((256, 64), generator=g9), torch.rand((256, 128), generator=g9),
+        torch.randn((256, 64), generator=g9), torch.randn((256, 192), generator=g9))])
+    pw_steps = {"pointwise": fb_step(None, d=draws_pw, num_fine=128),
+                "pointwise, plain": fb_step(fallback_swaps(), d=draws_pw, num_fine=128),
+                "plain path": fb_step(None, use_pallas=False),
+                "plain path, plain": fb_step(fallback_swaps(), use_pallas=False)}
+    pw_check = {}
+    want = {"pointwise": {"K1": 2, "K3": 2, "K5": 1, "K6": 1, "K9": 1, "K10": 1,
+                          "K11": 1, "K12": 1},
+            "plain path": {"K10": 2}}
+    for name, w in want.items():
+        k_, p_ = pw_steps[name], pw_steps[name + ", plain"]
+        pw_check[name] = {"launches": k_[2], "loss_rel": abs(k_[0] - p_[0]) / abs(p_[0]),
+                          "kernels_vs_plain": tree_errors(k_[1], p_[1])}
+        if (pw_check[name]["loss_rel"] > STEP_GATES["loss_rel"]
+                or not dw_ok(pw_check[name]["kernels_vs_plain"], STEP_GATES)):
+            missed.append(f"f32 {name} step, kernels vs plain versions: {pw_check[name]}")
+        if k_[2] != w:
+            missed.append(f"f32 {name} step launched {k_[2]}, not {w}")
+    report["pointwise_steps_f32"] = pw_check
+    print("per-point and plain-path steps f32 (256 rays), every gradient leaf "
+          "against the plain step on the card " + json.dumps(pw_check), flush=True)
+    if missed:
+        return fail(f"per-point kernel gates missed: {missed}")
+    del pw_steps
+    torch.cuda.empty_cache()
+
+    # 10. the per-point branch and the plain path on the card ----------------
+    cfg_pf = Config()
+    cfg_pf.nerf.validation.num_fine = 128
+    s_pf = RenderSettings.from_config(cfg_pf, "validation")
+    assert (s_pf.use_pallas and s_pf.compute_dtype == "bfloat16"
+            and (s_pf.num_coarse, s_pf.num_fine) == (64, 128))
+    render_pf = make_eval_renderer(spec, s_pf, H, W, near, far, device=dev)
+    n_pf = math.ceil(H * W / min(s_pf.chunksize, 32768))
+    pw_paths = {"1 per-point frame": time_frame(
+        lambda: render_pf(*args), {"K1": 2 * n_pf, "K5": n_pf, "K11": n_pf})}
+    cfg_ps = Config()
+    cfg_ps.nerf.train.num_fine = 128
+    pw_paths["2 per-point step"] = time_path(
+        cfg_ps, ds, {"K1": 2, "K3": 2, "K5": 1, "K6": 1, "K9": 1, "K10": 1,
+                     "K11": 1, "K12": 1})
+    cfg_pl = Config()
+    cfg_pl.runtime.use_pallas = False
+    pw_paths["3 plain-path step"] = time_path(cfg_pl, ds, {"K10": 2})
+    report["pointwise_paths"] = pw_paths
+    for name, r in pw_paths.items():
+        print(f"path {name}: {r['ms']:.1f} ms on the card (CUDA events), "
+              f"{r['host_ms']:.1f} ms on the host clock, launches "
+              f"{r.get('launches_per_step', r.get('launches'))}"
+              + (" per step" if "launches_per_step" in r else ""), flush=True)
+    bad = {n: r["checks"] for n, r in pw_paths.items() if not all(r["checks"].values())}
+    if bad:
+        return fail(f"per-point path checks failed: {bad}")
+
+    # per-kernel times: K11 at the frame's fine chunk (32,768 rays x 192),
+    # K12 and K10 at the per-point step's fine level (2048 rays x 192), bf16
+    from sahs_tpu_torch.ops.grid import grid_sample_3d
+    from sahs_tpu_torch.ops.sampling import coarse_z_vals, sample_pdf
+    R_f = min(s_pf.chunksize, 32768)
+    ro_f, rd_f, _, _ = frame_rays(ds, 0, dev, n=R_f)
+    z_fc = coarse_z_vals(torch.full((R_f,), near, device=dev),
+                         torch.full((R_f,), far, device=dev), 64, perturb=True,
+                         t_rand=torch.rand((R_f, 64), generator=gen).to(dev))
+    z_fn = sample_pdf(0.5 * (z_fc[:, 1:] + z_fc[:, :-1]),
+                      torch.rand((R_f, 62), generator=gen).to(dev), 128,
+                      u=torch.rand((R_f, 128), generator=gen).to(dev))
+    z_f = torch.sort(torch.cat([z_fc, z_fn], -1), dim=-1).values
+    S_f = z_f.shape[1]
+    P_fr = R_f * S_f
+    with torch.no_grad():
+        packed_f, _ = k1.deform_pair_forward(
+            (ro_f[:, None, :] + rd_f[:, None, :] * z_f[..., None]).reshape(-1, 3),
+            pair, "bfloat16", S_f, dims)
+        extra_f = torch.cat([rd_f.repeat_interleave(S_f, dim=0),
+                             grid_sample_3d(grid, packed_f, "bfloat16")], dim=-1)
+    del z_fc, z_fn
+    lw_f = k5.prepare_level(model.fine, pose_enc, pts_g, dir_g)
+    f_k11 = lambda: k11.nerf_mlp_forward_fused(packed_f, extra_f, lw_f, "bfloat16")
+    f_k11p = lambda: k11.nerf_mlp_plain(packed_f, extra_f, lw_f, "bfloat16")
+    out_k, out_p = f_k11(), f_k11p()
+    err_frame, abs_frame = scaled_err(out_k, out_p), abs_err(out_k, out_p)
+    del out_k, out_p
+    report["k11_frame_chunk_scaled_err"] = err_frame
+    print(f"K11 at the frame's fine chunk ({P_fr} points, bfloat16): max |a - b| / "
+          f"max |b| {err_frame:.2e}, max abs {abs_frame:.2e}", flush=True)
+    if err_frame > BF16_GATE:
+        return fail(f"K11 at the frame's fine chunk: {err_frame} of scale > {BF16_GATE}")
+
+    def point_library(nerf, x_raw, e_raw, wts, g=None):
+        """The plain forward of the NeRF module under bf16 autocast, and with
+        ``g`` autograd of it (a yardstick the port never calls)."""
+        x = kernel_pe(x_raw, wts.pts_groups)
+        dpe = kernel_pe(e_raw[:, :3], wts.dir_groups)
+        se = e_raw[:, 3:]
+        if g is not None:
+            x, se = x.requires_grad_(), se.clone().requires_grad_()
+        params = [x, se] + list(nerf.parameters())
+
+        def run():
+            with torch.set_grad_enabled(g is not None), \
+                    torch.autocast("cuda", dtype=torch.bfloat16):
+                raw = nerf(x, dpe, driving=driving_s, pose=pose_s, spatial_embedding=se)
+            return raw if g is None else torch.autograd.grad(raw.float(), params, g)
+        return run
+
+    packed_s, extra_s, g_s, lw_s, _ = pw_inp["k12"]
+    P_s = packed_s.shape[0]
+    k12_plan = k2.level_train_plan(lw_s, torch.bfloat16)
+    macs_p = point_mlp_macs(lw_s)
+    pw_kernels = {}
+    for name, fk, fp, fl, flops, nbytes, err, P_l in (
+            ("nerf_mlp_forward_fused", f_k11, f_k11p,
+             point_library(model.fine, packed_f, extra_f, lw_f),
+             2 * macs_p * P_fr, P_fr * (5 + 35 + 16) * 4, abs_frame, P_fr),
+            ("nerf_mlp_vjp", lambda: k2.nerf_mlp_vjp(*pw_inp["k12"]),
+             lambda: k2.nerf_mlp_vjp_plain(*pw_inp["k12"]),
+             point_library(pmodel.fine, packed_s, extra_s, lw_s, g_s),
+             2 * 3 * macs_p * P_s,
+             P_s * (5 + 35 + 16 + 5 + 35) * 4 + k12_plan.out_len * 4,
+             pw_res["k12"]["max_abs_err"], P_s),
+            ("grid_bwd_fused", lambda: k4.grid_bwd_fused(*pw_inp["k10"]),
+             lambda: k4.grid_bwd_fused_plain(*pw_inp["k10"]),
+             grid_sample_library(pmodel, packed_s, pw_inp["k10"][2]),
+             2 * 2 * 8 * 32 * P_s, P_s * (3 * 4 + 32 * 4 + 8 * 32 * 2 + 3 * 4) + 32 ** 4 * 4,
+             pw_res["k10"]["max_abs_err"], P_s)):
+        ms = cuda_time(fk, 3)
+        plain = cuda_time(fp, 1)
+        lib = cuda_time(fl, 1)
+        b_ms, b_by = bound(flops, nbytes)
+        pw_kernels[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                            "points": P_l, "tflops_achieved": flops / (ms / 1e3) / 1e12}
+        print(f"{name}: {ms:.2f} ms at {P_l} points (bound {b_ms:.3f} ms by {b_by}, "
+              f"plain {plain:.2f} ms, library {lib:.2f} ms)", flush=True)
+    report["pointwise_kernels"] = pw_kernels
+    del packed_f, extra_f
+    pw_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
+                              + r.get("launches", {}).get(k, 0)) for r in pw_paths.values())
+                   for k in kernel_counters()}
+    names = {"deform_pair": "K1", "deform_pair_vjp": "K3", "nerf_level": "K5",
+             "nerf_level_vjp": "K6", "grid_dg_coords": "K9"}
+    for kk in kernels:
+        key = names.get(kk["name"])
+        if key and pw_launches[key]:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["per-point and plain paths"] = pw_launches[key]
+            kk["launches"] += pw_launches[key]
+    for name, key, src, replaces in (
+            ("grid_bwd_fused", "K10", "sahs_tpu_torch/csrc/grid_bwd.cu",
+             "sahs_tpu/ops/pallas/grid_bwd.py:343"),
+            ("nerf_mlp_forward_fused", "K11", "sahs_tpu_torch/csrc/nerf_mlp.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:3204"),
+            ("nerf_mlp_vjp", "K12", "sahs_tpu_torch/csrc/level_train.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:1546")):
+        line = pw_kernels[name]
+        if not pw_launches[key]:
+            return fail(f"{key} {name} was not launched on its paths")
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": pw_launches[key],
+                        **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms")}})
+    if len(kernels) != 12:
+        return fail(f"the kernels line lists {len(kernels)} kernels, not 12")
     print(f"smoke run: {time.time() - T_START:.0f} s", flush=True)
 
     if report_path is not None:

@@ -217,26 +217,25 @@ class RuntimeConfig:
     latent_reg_weight: float = 0.0005
     spatial_reg_weight: float = 0.0005
     background_loss_weight: float = 0.001
-    # TPU execution knobs (new)
+    # Execution knobs. The names and defaults are the JAX package's, so a
+    # YAML selects the same path in both packages.
+    # use_pallas: the kernel path (the hand-written CUDA kernels of
+    # ops/kernels); off, the plain path: the reference math in tensor ops.
     use_pallas: bool = True
-    # with use_pallas: volume-composite inside the NeRF kernel (per-ray
-    # outputs). Measured on v5e (BENCH_NOTES r4): with the grid-coupled
-    # kernels the fused TRAIN step is 45.0 vs 49.9 ms unfused (r3's 0.4 ms
-    # loss flipped to a 4.9 ms win once the corner interp moved in-kernel
-    # and fine z-sorting made the slab-dG tiles depth-coherent), so the
-    # default is ON. The unfused path stays as the deformation-reuse /
-    # odd-sample-count fallback.
+    # with use_pallas: volume-composite inside the NeRF level kernel (K5,
+    # per-ray outputs). Off, the level kernel emits the raw field (K7) and
+    # the fine level reuses the coarse points' deformation front half.
+    # Sample counts the level kernels do not take run the per-point branch
+    # (K11) either way.
     fuse_composite: bool = True
-    # Training compute dtype. bf16 is the default so the shipped trainer IS
-    # the benchmarked configuration (PARITY_TPU.json certifies bf16 kernel
-    # parity: out 6.4e-3 / grad cosine 0.99996 vs the f32 oracle); switch to
-    # "float32" for parity/debug runs.
+    # The kernels' matmul operand type: "bfloat16" (products summed in
+    # float32) or "float32" for parity and debug runs.
     compute_dtype: str = "bfloat16"  # "float32" | "bfloat16"
-    # Fully-fused Stage-I gradient path (train/fused.py): loss cotangents
-    # computed IN the level kernels (one fwd+grad pass, no recompute) and
-    # the deformation pair + grid dGrid run once over the coarse∪fine
-    # union points. Falls back to jax.grad over render_rays whenever the
-    # configuration is outside stage1_fused_eligible.
+    # The fused Stage-I gradient path (train/fused.py): the loss cotangents
+    # formed in the level kernel (K2), the deformation pair's backward and
+    # dGrid run once over the coarse-and-fine union points. A configuration
+    # outside stage1_fused_eligible, or this knob off, trains through
+    # autograd over render_rays.
     fused_grads: bool = True
     donate_state: bool = True
     # Eval-time pose override: render every frame from the FIRST frame's

@@ -23,11 +23,19 @@
 // of raw (P, 16) is given, so the compositing launch is skipped and the
 // per-tile backward reads it directly.
 //
+// K12 (MODE_PTS) replaces field_mlp.py:nerf_mlp_vjp (:1546, pallas_call at
+// :1686), the backward of K11 (csrc/nerf_mlp.cu) on the per-point branch:
+// K8's launches, but each point brings its own extra input (P, 3 + C)
+// [raw dir | spatial embedding] instead of a ray's direction and a corner
+// gather, and the per-tile backward ends with gextra (P, 3 + C), the
+// cotangent of that input (the direction's through its PE backward, as the
+// JAX kernel computes it), in place of gse and the corner dCoords.
+//
 // Why not one pass, as on the TPU: a backward needs all 8 trunk layers,
 // the heads and the PE of every point, 3.5 K values a point, while a block
 // has 227 KB of shared memory. And dW is a reduction over all points,
 // which Hopper's unordered blocks cannot carry from one grid step to the
-// next. So one call makes five launches (four for K8):
+// next. So one call makes five launches (four for K8 and K12):
 //   1. per 32-point tile: PE (accurate sinf, no fast math), the trilinear
 //      sample with _cell_geometry's exact float expression from the 8
 //      corner rows gathered in the kernel, the MLP (mlp.cuh); every layer's
@@ -47,7 +55,8 @@
 // Bound on the H100: about 3 x 0.74 M multiply-adds a point (forward,
 // backward chain, dW) against ~60 bytes of input, so operations bound it:
 // 0.58 / 1.16 TFLOP at 131,072 / 262,144 points, 0.6 / 1.2 ms at the
-// 989 TFLOP/s bf16 peak. This first version runs the products on the CUDA
+// 989 TFLOP/s bf16 peak; K12 at a per-point step's 393,216 points (2048
+// rays x 192) 1.7 TFLOP, 1.8 ms. This first version runs the products on the CUDA
 // cores, and the stash costs ~20 KB of device traffic a point; moving the
 // products to wgmma and the stash into a recompute are the next steps.
 #include "train.cuh"
@@ -57,13 +66,15 @@ namespace {
 constexpr int TP = 32;
 constexpr int THREADS = 256;
 constexpr int CTHREADS = 128;
-enum { MODE_LOSS = 0, MODE_VJP = 1, MODE_RAW = 2 };
+enum { MODE_LOSS = 0, MODE_VJP = 1, MODE_RAW = 2, MODE_PTS = 3 };
 
 struct Args {
   const float* pts;     // (P, PW)
-  const int* rows;      // (P,)
-  const void* table;    // corner table, compute dtype
-  const float* dirs;    // (R, 3)
+  const int* rows;      // (P,), null in MODE_PTS
+  const void* table;    // corner table, compute dtype; null in MODE_PTS
+  const float* dirs;    // (R, 3); null in MODE_PTS
+  const float* extra;   // (P, 3 + C), MODE_PTS
+  float* gextra;        // (P, 3 + C), MODE_PTS
   const float* z;       // (R, S)
   const float* bg;      // (R, 15) or null
   const float* noise;   // (R, S) or null
@@ -107,6 +118,26 @@ __device__ __forceinline__ float cell_fracs(const float* x, const Args& a,
   return ok ? 1.0f : 0.0f;
 }
 
+// PE backward of one coordinate group of one point: the cotangents of its
+// encoding rows G[row0 ..] (pe_group's layout) added into gx[0 .. dim).
+__device__ __forceinline__ void pe_group_bwd(const float* x, int dim, int nfreq,
+                                             const float* G, int row0, int t,
+                                             int TP, float* gx) {
+  int row = row0;
+  for (int d = 0; d < dim; ++d) gx[d] += G[(row++) * TP + t];
+  for (int f = 0; f < nfreq; ++f) {
+    const float fr = ldexpf(1.0f, f);
+    for (int d = 0; d < dim; ++d) {
+      const float t_ = __fmul_rn(x[d], fr);
+      gx[d] += G[(row++) * TP + t] * cosf(t_) * fr;
+    }
+    for (int d = 0; d < dim; ++d) {
+      const float t_ = __fadd_rn(__fmul_rn(x[d], fr), SAHS_HALF_PI_F);
+      gx[d] += G[(row++) * TP + t] * cosf(t_) * fr;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // 1. forward per tile
 // ---------------------------------------------------------------------------
@@ -130,6 +161,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
   const int* act_off = a.slots;
   const int tid = threadIdx.x;
 
+  const bool per_point = a.mode == MODE_PTS;
   if (tid < TP) {
     const long long p = base + tid;
     const bool valid = p < a.P;
@@ -137,13 +169,28 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
     float d[3] = {0, 0, 0};
     if (valid) {
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
-      const long long r = p / a.S;
-      for (int c = 0; c < 3; ++c) d[c] = a.dirs[r * 3 + c];
+      const float* dsrc = per_point ? a.extra + p * (3 + C) : a.dirs + p / a.S * 3;
+      for (int c = 0; c < 3; ++c) d[c] = dsrc[c];
     }
     sahs::pe_group<T>(x, 3, a.nf_xyz, xin, 0, tid, TP);
     if (a.amb > 0)
       sahs::pe_group<T>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TP);
     sahs::pe_group<T>(d, 3, a.nf_dir, din, 0, tid, TP);
+  }
+  if (per_point) {
+    // K12: the spatial embedding is given, channel-fastest reads
+    for (int idx = tid; idx < C * TP; idx += blockDim.x) {
+      const int t = idx / C, c = idx % C;
+      const long long p = base + t;
+      din[(ndp + c) * TP + t] =
+          sahs::from_f<T>(p < a.P ? a.extra[p * (3 + C) + 3 + c] : 0.0f);
+    }
+  } else if (tid < TP) {
+    const long long p = base + tid;
+    const bool valid = p < a.P;
+    float x[3] = {0, 0, 0};
+    if (valid)
+      for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
     float fr[3];
     const float okf = cell_fracs(x, a, fr);
     for (int dz = 0; dz < 2; ++dz) {
@@ -160,17 +207,19 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
     rowv[tid] = valid ? a.rows[p] : 0;
   }
   __syncthreads();
-  for (int idx = tid; idx < C * TP; idx += blockDim.x) {
-    const int t = idx / C, c = idx % C;
-    const T* row = table + (size_t)rowv[t] * 8 * C;
-    float acc = 0.0f;
-    for (int s8 = 0; s8 < 8; ++s8) {
-      const float v = __fmul_rn(sahs::to_f(row[s8 * C + c]), cw[s8 * TP + t]);
-      acc = s8 == 0 ? v : __fadd_rn(acc, v);
+  if (!per_point) {
+    for (int idx = tid; idx < C * TP; idx += blockDim.x) {
+      const int t = idx / C, c = idx % C;
+      const T* row = table + (size_t)rowv[t] * 8 * C;
+      float acc = 0.0f;
+      for (int s8 = 0; s8 < 8; ++s8) {
+        const float v = __fmul_rn(sahs::to_f(row[s8 * C + c]), cw[s8 * TP + t]);
+        acc = s8 == 0 ? v : __fadd_rn(acc, v);
+      }
+      din[(ndp + c) * TP + t] = sahs::from_f<T>(acc);
     }
-    din[(ndp + c) * TP + t] = sahs::from_f<T>(acc);
+    __syncthreads();
   }
-  __syncthreads();
   sahs::store_rows<T>(xin, acts + act_off[0], kx, TP);
   sahs::store_rows<T>(din, acts + act_off[L + 2], ndp + C, TP);
 
@@ -486,29 +535,26 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
                      nullptr, gxpe, TP);
   __syncthreads();
 
-  // per point: PE backward, corner dCoords, outputs
+  // per point: PE backward, corner dCoords (or K12's gextra), outputs
   if (tid < TP) {
     const long long p = base + tid;
     if (p < a.P) {
       float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      const int groups[2][3] = {{0, 3, a.nf_xyz}, {3, a.amb, a.nf_amb}};
-      int row = 0;
-      for (int gi = 0; gi < 2; ++gi) {
-        const int c0 = groups[gi][0], dim = groups[gi][1], nf = groups[gi][2];
-        for (int d = 0; d < dim; ++d) gxo[c0 + d] += gxpe[(row++) * TP + tid];
-        for (int f = 0; f < nf; ++f) {
-          const float fr = ldexpf(1.0f, f);
-          for (int d = 0; d < dim; ++d) {
-            const float t = __fmul_rn(x[c0 + d], fr);
-            gxo[c0 + d] += gxpe[(row++) * TP + tid] * cosf(t) * fr;
-          }
-          for (int d = 0; d < dim; ++d) {
-            const float t = __fadd_rn(__fmul_rn(x[c0 + d], fr), SAHS_HALF_PI_F);
-            gxo[c0 + d] += gxpe[(row++) * TP + tid] * cosf(t) * fr;
-          }
-        }
+      pe_group_bwd(x, 3, a.nf_xyz, gxpe, 0, tid, TP, gxo);
+      pe_group_bwd(x + 3, a.amb, a.nf_amb, gxpe, 3 + 6 * a.nf_xyz, tid, TP,
+                   gxo + 3);
+      if (a.mode == MODE_PTS) {
+        // K12: gextra = [the direction's, through its PE | gse]
+        const float* e = a.extra + p * (3 + C);
+        float ge[3] = {0, 0, 0};
+        pe_group_bwd(e, 3, a.nf_dir, gdin, 0, tid, TP, ge);
+        float* go = a.gextra + p * (3 + C);
+        for (int c = 0; c < 3; ++c) go[c] = ge[c];
+        for (int c = 0; c < C; ++c) go[3 + c] = gdin[(ndp + c) * TP + tid];
+        for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+        return;
       }
       float fr[3];
       const float okf = cell_fracs(x, a, fr);
@@ -564,7 +610,7 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
   if (err) return err;
   fwd_kernel<T><<<(unsigned)n_tiles, THREADS, sf, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  if (a.mode != MODE_RAW) {
+  if (a.mode == MODE_LOSS || a.mode == MODE_VJP) {
     composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
   }
@@ -581,8 +627,8 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
 extern "C" int sahs_level_train(
     const void* pts, const void* rows, const void* table, const void* dirs,
     const void* z, const void* bg, const void* noise, const void* tgt,
-    const void* lw, const void* g_rgb, const void* g_w, int mode,
-    const void* w, const void* b, const void* meta,
+    const void* lw, const void* g_rgb, const void* g_w, const void* extra,
+    void* gextra, int mode, const void* w, const void* b, const void* meta,
     const void* wT, const void* bT, const void* metaT, void* rgb_map,
     void* weights, void* gx, void* gse, void* g_bg, void* raw, void* graw,
     void* acts, void* gzs, const void* slots, long long R, int S, int PW,
@@ -591,14 +637,18 @@ extern "C" int sahs_level_train(
     int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
     const void* prods, const void* work, void* part, void* out, void* stream) {
   if (R <= 0) return 0;
-  if (mode < MODE_LOSS || mode > MODE_RAW) return (int)cudaErrorInvalidValue;
+  if (mode < MODE_LOSS || mode > MODE_PTS) return (int)cudaErrorInvalidValue;
   if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
       (mode == MODE_VJP && (g_rgb == nullptr || g_w == nullptr || raw == nullptr)) ||
-      (mode == MODE_RAW && graw == nullptr))
+      (mode == MODE_RAW && graw == nullptr) ||
+      (mode == MODE_PTS && (graw == nullptr || extra == nullptr ||
+                            gextra == nullptr || S != 1)) ||
+      (mode != MODE_PTS && (rows == nullptr || table == nullptr || dirs == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
   a.dirs = (const float*)dirs; a.z = (const float*)z;
+  a.extra = (const float*)extra; a.gextra = (float*)gextra;
   a.bg = (const float*)bg; a.noise = (const float*)noise;
   a.tgt = (const float*)tgt; a.lw = (const float*)lw;
   a.g_rgb = (const float*)g_rgb; a.g_w = (const float*)g_w; a.mode = mode;

@@ -32,8 +32,8 @@ def make_eval_renderer(spec: ModelSpec, settings: RenderSettings, H: int,
 
     On CUDA with the kernel path, chunks are clamped to 32768 rays as the
     JAX package clamps them on the TPU: a fine chunk is then 4.19 M
-    points, and the plain versions used to check the kernels still fit in
-    device memory at that size."""
+    points at 64 + 64 samples (6.29 M at 64 + 128), and the plain versions
+    used to check the kernels still fit in device memory at that size."""
     dev = resolve_device(device)
     if chunksize is None and settings.use_pallas and dev.type == "cuda":
         chunksize = min(settings.chunksize, 32768)

@@ -226,7 +226,9 @@ class RenderFns(NamedTuple):
     (P // samples, samples)): the level-independent front half, which the
     pipeline reuses at the fine level (None on the plain path);
     nerf_fn(level, (pts_raw, rows), dirs_ray, samples) -> (P, 16): the NeRF
-    back half on a front half, K7 (K8 in the backward) (None on the plain
+    back half on a front half, K7 (K8 in the backward), or for a sample
+    count the level kernels do not take the per-point branch: the grid
+    sample, then K11 (K12 and K10 in the backward) (None on the plain
     path)."""
     field_fn: Optional[Callable]
     level_fn: Optional[Callable]
@@ -236,11 +238,9 @@ class RenderFns(NamedTuple):
 
 # The sample counts the level kernels (K5-K8) take on the JAX package's
 # path: those whose rays tile its 1024-point tiles (nerface.py:194-198).
+# Other counts take the per-point branch (K11, K12, K10), as in JAX, though
+# the CUDA level kernels would take any count.
 LEVEL_TILE = 1024
-
-STILL_TO_PORT = ("K10 grid_bwd_fused, K11 nerf_mlp_forward_fused, K12 "
-                 "nerf_mlp_vjp, K13 skip_mlp_forward, K14 skip_mlp_vjp, K15 "
-                 "build_pts (ROADMAP Queue 2)")
 
 
 def level_kernel_compatible(samples: int) -> bool:
@@ -270,19 +270,10 @@ def check_kernel_path(spec: ModelSpec) -> None:
             "still to be ported (ROADMAP Queue 2)")
     raise NotImplementedError(
         "the kernel path takes models with view directions and the "
-        "spatial-embedding grid; this one needs forms of the level kernels "
-        "still to be ported: " + STILL_TO_PORT)
-
-
-def check_samples(samples: int) -> None:
-    """Raise NotImplementedError for a sample count the level kernels do
-    not take: JAX runs it on the per-point branch (nerface.py:442-460)."""
-    if not level_kernel_compatible(samples):
-        raise NotImplementedError(
-            f"{samples} samples a ray do not tile the level kernels' "
-            f"{LEVEL_TILE}-point tiles: the per-point branch needs K11 "
-            "nerf_mlp_forward_fused, K12 nerf_mlp_vjp and K10 grid_bwd_fused, "
-            "still to be ported (ROADMAP Queue 2)")
+        "spatial-embedding grid; this one needs the level kernels' forms "
+        "without the grid (field_mlp.py:nerf_render_level and "
+        "nerf_mlp_apply_rayd), not ported; the plain path (use_pallas "
+        "off) takes it")
 
 
 class FoldedCache:
@@ -311,7 +302,8 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
     differentiable with respect to the model's parameters, the driving
     input (through AudioNet) and the latent code.
 
-    use_pallas=False: the plain path, the reference math in tensor ops.
+    use_pallas=False: the plain path, the reference math in tensor ops; its
+    grid sample's backward is K10 in float32.
     use_pallas=True: the kernel path. Per-frame conditioning ([latent |
     driving | pose] as the level takes them) is folded into biases and the
     grid packed into its corner table, once per frame and again after any
@@ -319,12 +311,15 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
     pair (K1, K3 in the backward), emitting corner-table rows, or for a
     model without deformation the points themselves with their rows from
     ``_cell_geometry``; the back half is K5 (K6) with compositing, or K7
-    (K8) for the raw field; dGrid is K9. A configuration outside
+    (K8) for the raw field; dGrid is K9. A sample count the level kernels
+    do not take runs the per-point branch instead: the grid sample (K10 in
+    the backward), then K11 (K12). A configuration outside
     ``kernel_path_ok`` raises rather than fall back."""
     from ..ops.grid import _cell_geometry
     from ..ops.kernels.deform_pair import (PairOp, deform_pair_apply_fused,
                                            prepare_pair)
-    from ..ops.kernels.field_grid import (GridLevelOp, corner_table,
+    from ..ops.kernels.field_grid import (GridLevelOp, PointOp, corner_table,
+                                          nerf_mlp_apply_fused,
                                           nerf_mlp_apply_rayd_grid,
                                           nerf_render_level_grid)
     from ..ops.kernels.nerf_level import prepare_level
@@ -380,12 +375,16 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
             parts.append(pose_enc)
         return torch.cat(parts) if parts else pose_enc[:0]
 
-    def grid_op(level, rows, dirs_ray, samples, z=None, noise=None):
+    def level_weights(level):
         nerf = getattr(model, level)
         params = list(nerf.parameters())
         cond = nerf_cond(level)
         weights = folded.get(level, params,
                              lambda: prepare_level(nerf, cond, pts_pe, dir_pe))
+        return nerf, params, weights, cond
+
+    def grid_op(level, rows, dirs_ray, samples, z=None, noise=None):
+        nerf, params, weights, cond = level_weights(level)
         table = folded.get("table", [grid],
                            lambda: corner_table(grid, compute_dtype))
         return GridLevelOp(nerf, params, weights, table, rows, dirs_ray,
@@ -393,10 +392,19 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
                            noise), cond
 
     def nerf_fn(level, fh, dirs_ray, samples):
-        check_samples(samples)
         pts_raw, rows = fh
-        op, cond = grid_op(level, rows, dirs_ray, samples)
-        return nerf_mlp_apply_rayd_grid(op, grid, pts_raw, cond)
+        if level_kernel_compatible(samples):
+            op, cond = grid_op(level, rows, dirs_ray, samples)
+            return nerf_mlp_apply_rayd_grid(op, grid, pts_raw, cond)
+        # the per-point branch (nerface.py:442-460): the grid sample (K10 in
+        # its backward), then K11 on [dir | se] per point (K12 backward)
+        nerf, params, weights, cond = level_weights(level)
+        se = grid_sample_3d(grid, pts_raw, compute_dtype)
+        dirs_flat = dirs_ray[:, None, :].expand(
+            dirs_ray.shape[0], samples, 3).reshape(-1, 3)
+        extra = torch.cat([dirs_flat, se], dim=-1)
+        return nerf_mlp_apply_fused(PointOp(nerf, params, weights, compute_dtype),
+                                    pts_raw, extra, cond)
 
     def level_fn(level, pts_flat, dirs_ray, samples, z, bg, noise):
         pts_raw, rows = front_half(pts_flat, samples)

@@ -1,22 +1,28 @@
-"""Grid-coupled NeRF level ops (counterpart of
-``sahs_tpu/ops/pallas/field_grid.py``).
+"""The NeRF ops with autograd: the grid-coupled level ops (counterpart of
+``sahs_tpu/ops/pallas/field_grid.py``) and the per-point field (of
+``field_mlp.py:nerf_mlp_apply_fused``).
 
-The JAX ops span an XLA row gather of the corner table and a Pallas level
-kernel, and differentiate as one custom VJP (field_grid.py:121-259). Here
-the level kernels gather the rows themselves, so the corner table is packed
-once per frame, next to the folded weights, and each op is a
-``torch.autograd.Function``:
+The JAX grid-coupled ops span an XLA row gather of the corner table and a
+Pallas level kernel, and differentiate as one custom VJP
+(field_grid.py:121-259). Here the level kernels gather the rows
+themselves, so the corner table is packed once per frame, next to the
+folded weights, and each op is a ``torch.autograd.Function``:
 
   nerf_render_level_grid   forward K5 (MLP + interp + compositing),
                            backward K6, the conditioning unfold, K9
   nerf_mlp_apply_rayd_grid forward K7 (the raw field),
                            backward K8, the conditioning unfold, K9
+  nerf_mlp_apply_fused     forward K11 (the raw field on per-point inputs),
+                           backward K12, the conditioning unfold
 
-Both are differentiable with respect to the NeRF module's parameters, the
-grid, the packed points, the conditioning (and so AudioNet and the latent
-code behind it) and, for the level op, the background prior; z, the sigma
-noise and the corner-table rows get no gradient. The dGrid pass (K9) runs
-over sample-major points, as the JAX op orders them (field_grid.py:80-85).
+All are differentiable with respect to the NeRF module's parameters, their
+point inputs, the conditioning (and so AudioNet and the latent code behind
+it); the grid-coupled ops also to the grid and, for the level op, the
+background prior; z, the sigma noise and the corner-table rows get no
+gradient. Their dGrid pass (K9) runs over sample-major points, as the JAX op
+orders them (field_grid.py:80-85). The per-point op takes the spatial
+embedding as an input, sampled before it by ``ops/grid.grid_sample_3d``,
+whose backward (K10) carries the gradient on to the grid.
 """
 from __future__ import annotations
 
@@ -28,9 +34,10 @@ import torch
 from ..grid import pack_corner_table
 from .field_mlp import torch_dtype, trunk_params, unfold_cond_grads
 from .grid_bwd import grid_dg_coords
-from .level_train import nerf_level_vjp, nerf_rayd_vjp
+from .level_train import nerf_level_vjp, nerf_mlp_vjp, nerf_rayd_vjp
 from .nerf_level import (LevelWeights, level_param_grads, nerf_level_forward,
                          nerf_rayd_forward)
+from .nerf_mlp import nerf_mlp_forward_fused
 
 
 def corner_table(grid: torch.Tensor, compute_dtype: str) -> torch.Tensor:
@@ -152,3 +159,44 @@ def nerf_mlp_apply_rayd_grid(op: GridLevelOp, grid: torch.Tensor,
     """The grid-coupled raw field (field_grid.py:176-188): (P, 16)
     [rgb3 | seg12 | sigma1]."""
     return _RaydGrid.apply(op, pts_raw, cond, grid, *op.params)
+
+
+@dataclasses.dataclass
+class PointOp:
+    """What the per-point op holds beside its differentiable inputs: the
+    NeRF module and its parameters and the folded weights
+    (``prepare_level`` of this frame's conditioning)."""
+    nerf: torch.nn.Module
+    params: List[torch.Tensor]
+    weights: LevelWeights
+    compute_dtype: str
+
+
+class _PointMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, pts_raw, extra, cond, *params):
+        ctx.op = op
+        ctx.save_for_backward(pts_raw, extra, cond)
+        return nerf_mlp_forward_fused(pts_raw, extra, op.weights, op.compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        op = ctx.op
+        pts_raw, extra, cond = ctx.saved_tensors
+        gx, gextra, grads = nerf_mlp_vjp(pts_raw, extra, g, op.weights,
+                                         op.compute_dtype)
+        dcond = _unfold(op, grads, cond)
+        by_param = {}
+        level_param_grads(by_param, op.nerf, grads)
+        return (None, gx, gextra, dcond, *[by_param.get(p) for p in op.params])
+
+
+def nerf_mlp_apply_fused(op: PointOp, pts_raw: torch.Tensor,
+                         extra: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    """The per-point NeRF field (field_mlp.py:1356-1428): pts_raw (P, 3 +
+    ambient) packed [warped | ambient], extra (P, 3 + C) [raw dir | spatial
+    embedding], cond the level's conditioning, folded into the weights.
+    Forward K11, backward K12 and the conditioning unfold; differentiable
+    with respect to the module's parameters, both inputs and ``cond``.
+    Returns (P, 16) [rgb3 | seg12 | sigma1]."""
+    return _PointMLP.apply(op, pts_raw, extra, cond, *op.params)

@@ -1,5 +1,5 @@
-"""K4 and K9: the gradient of the trilinear spatial-embedding sample with
-respect to the grid (dGrid).
+"""K4, K9 and K10: the gradient of the trilinear spatial-embedding sample
+with respect to the grid (dGrid), and for K10 also to the coordinates.
 
 K4 replaces ``sahs_tpu/ops/pallas/grid_bwd.py:grid_dg_slab_packed`` (:211,
 ``pallas_call`` at :327), which the fused train path runs once per step
@@ -19,9 +19,16 @@ point's cell as its corner-table row, mapped back to grid voxels with the
 table's padding border dropped; K9 forms the cell from the coordinates
 itself, with the same expression, and has no addend.
 
-``grid_dg`` and ``grid_dg_coords`` launch the kernel for CUDA tensors and
-count the call in ``<wrapper>.launches``; for CPU tensors they run
-``grid_dg_plain`` / ``grid_dg_coords_plain``.
+K10 replaces ``grid_bwd.py:grid_bwd_fused`` (:343, ``pallas_call`` at
+:415), the backward of ``ops/grid.grid_sample_3d`` on the per-point branch
+and the plain path: dG and the coordinates' cotangent from the corner rows
+the forward gathered, in one launch of ``csrc/grid_bwd.cu``, with the JAX
+kernel's bf16 roundings in bf16 mode. It takes every grid shape.
+
+``grid_dg``, ``grid_dg_coords`` and ``grid_bwd_fused`` launch the kernel
+for CUDA tensors and count the call in ``<wrapper>.launches``; for CPU
+tensors they run ``grid_dg_plain`` / ``grid_dg_coords_plain`` /
+``grid_bwd_fused_plain``.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from ..grid import _cell_geometry
+from ..grid import _cell_geometry, corner_dcoords
 
 
 def _check_addend(gse: torch.Tensor, gse2: Optional[torch.Tensor]) -> None:
@@ -150,3 +157,88 @@ def grid_dg_coords(coords: torch.Tensor, g: torch.Tensor,
 
 
 grid_dg_coords.launches = 0
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def grid_bwd_fused_plain(grid_shape: Sequence[int], coords: torch.Tensor,
+                         g: torch.Tensor, vals: torch.Tensor,
+                         compute_dtype: str = "float32"):
+    """K10's plain version: coords (P, >=3) sample coordinates, g (P, C) the
+    cotangent of the sampled features, vals (P, 8C) the corner rows the
+    forward gathered -> (dG (C, D, H, W) float32, dcoords (P, 3) float32).
+
+    dG[c, z, y, x] = sum_p (Az Ay)[p, z, y] (Ax g)[p, x, c] over each
+    point's corners inside the grid (grid_bwd.py:374-390); in bfloat16 the
+    axis weights and g are rounded to bf16 and so is each of the two
+    products, which then multiply and sum in float32 (grid_bwd.py:375-384).
+    dcoords is ``grid.corner_dcoords`` in float32, gated by the whole cell's
+    band (grid_bwd.py:392-413)."""
+    C, D, H, W = grid_shape
+    rnd = _bf16 if compute_dtype == "bfloat16" else (lambda x: x)
+    cf = coords[:, :3].to(torch.float32)
+    _, fs, ok = _cell_geometry(cf, (D, H, W))
+    i0 = [torch.floor((cf[:, a] + 1.0) * 0.5 * (n - 1)).long()
+          for a, n in ((0, W), (1, H), (2, D))]
+    gf = g.to(torch.float32)
+    gr = rnd(gf)
+    fx, fy, fz = fs
+    dg = torch.zeros((D * H * W, C), dtype=torch.float32, device=coords.device)
+    for dz in (0, 1):
+        wz = rnd(fz if dz else 1.0 - fz)
+        z = i0[2] + dz
+        for dy in (0, 1):
+            wzy = rnd(wz * rnd(fy if dy else 1.0 - fy))
+            y = i0[1] + dy
+            for dx in (0, 1):
+                wx = rnd(fx if dx else 1.0 - fx)
+                x = i0[0] + dx
+                inside = ((z >= 0) & (z < D) & (y >= 0) & (y < H)
+                          & (x >= 0) & (x < W))
+                contrib = wzy[:, None] * rnd(wx[:, None] * gr)
+                dg.index_add_(0, ((z * H + y) * W + x)[inside], contrib[inside])
+    dcoords = corner_dcoords(gf, fs, ok, vals, (D, H, W))
+    return dg.reshape(D, H, W, C).permute(3, 0, 1, 2), dcoords
+
+
+def grid_bwd_fused(grid_shape: Sequence[int], coords: torch.Tensor,
+                   g: torch.Tensor, vals: torch.Tensor,
+                   compute_dtype: str = "float32"):
+    """K10 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as ``grid_bwd_fused_plain``;
+    every grid shape is taken."""
+    if coords.device.type == "cpu":
+        return grid_bwd_fused_plain(grid_shape, coords, g, vals, compute_dtype)
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    C, D, H, W = grid_shape
+    P, PW = coords.shape
+    vdt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    if (g.shape != (P, C) or vals.shape != (P, 8 * C) or vals.dtype != vdt
+            or PW < 3):
+        raise ValueError(f"K10 shapes not supported: coords {tuple(coords.shape)}, "
+                         f"g {tuple(g.shape)}, vals {tuple(vals.shape)} "
+                         f"{vals.dtype} for grid {tuple(grid_shape)}, "
+                         f"{compute_dtype}")
+    if any(t.device != coords.device for t in (g, vals)):
+        raise ValueError("K10 inputs must all be on " + str(coords.device))
+    f32 = torch.float32
+    coords = coords.to(f32).contiguous()
+    g = g.to(f32).contiguous()
+    vals = vals.contiguous()
+    dg = torch.zeros((D, H, W, C), dtype=f32, device=coords.device)
+    dc = torch.empty((P, 3), dtype=f32, device=coords.device)
+    fn = _build.function("grid_bwd", "sahs_grid_bwd_fused",
+                         "ppp" + "li" + "iiii" + "i" + "pp" + "p")
+    p = _build.ptr
+    rc = fn(p(coords), p(g), p(vals), P, PW, C, D, H, W,
+            int(compute_dtype == "bfloat16"), p(dg), p(dc),
+            _build.stream_ptr(coords.device))
+    _build.check(rc, "grid_bwd_fused")
+    grid_bwd_fused.launches += 1
+    return dg.permute(3, 0, 1, 2), dc
+
+
+grid_bwd_fused.launches = 0

@@ -20,10 +20,14 @@ K6 replaces ``field_mlp.py:nerf_level_vjp`` (:2951, ``pallas_call`` at
 (R, S) of its outputs, the autograd fallback's level backward. K8 replaces
 ``field_mlp.py:nerf_rayd_vjp`` (:2059, ``pallas_call`` at :2269): the
 backward of K7 from the cotangent of the raw field (P, 16), no compositing.
+K12 replaces ``field_mlp.py:nerf_mlp_vjp`` (:1546, ``pallas_call`` at
+:1686): the backward of K11 (``nerf_mlp.py``), K8's launches on per-point
+inputs, returning the cotangent of the extra input [dir | se] in place of
+gse and the corner dCoords.
 
-``nerf_level_train``, ``nerf_level_vjp`` and ``nerf_rayd_vjp`` launch the
-kernel for CUDA tensors and count the call in ``<wrapper>.launches``; for
-CPU tensors they run the ``*_plain`` version. ``level_train_apply`` folds
+``nerf_level_train``, ``nerf_level_vjp``, ``nerf_rayd_vjp`` and
+``nerf_mlp_vjp`` launch the kernel for CUDA tensors and count the call in
+``<wrapper>.launches``; for CPU tensors they run the ``*_plain`` version. ``level_train_apply`` folds
 the conditioning, runs K2 and unfolds the trunk's gradients
 (level_train.py:358-405).
 """
@@ -37,8 +41,10 @@ from . import _build
 from .field_mlp import (BlobBuilder, TrainPlan, build_train_plan, dact,
                         dw_chunks, mm, mm_t, pe_columns, torch_dtype,
                         trunk_backward, trunk_params, unfold_cond_grads)
+from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, check_device, level_kernel_args,
-                         nerf_raw_plain, prepare_level)
+                         nerf_raw_plain, point_layers, prepare_level)
+from .nerf_mlp import nerf_mlp_plain, point_kernel_args
 
 TP = 32   # points per tile of K2's per-point kernels and of its stash
 
@@ -159,28 +165,6 @@ def pe_backward(x: torch.Tensor, g_pe: torch.Tensor, groups) -> torch.Tensor:
                        device=dev).index_add_(1, src_t, dt)
 
 
-def corner_dcoords(gse: torch.Tensor, fs, ok: torch.Tensor, cf: torch.Tensor,
-                   dims) -> torch.Tensor:
-    """Warped-coordinate cotangent of the trilinear sample (field_mlp.py:
-    1824-1843): each axis' weight replaced by +-1. gse (P, C) -> (P, 3)."""
-    C = gse.shape[1]
-    fx, fy, fz = fs
-    okf = ok.to(torch.float32)
-    dfx = dfy = dfz = 0.0
-    for s in range(8):
-        dz_, dy_, dx_ = (s >> 2) & 1, (s >> 1) & 1, s & 1
-        gv = torch.sum(gse * cf[:, s * C:(s + 1) * C], dim=-1)
-        wz = fz if dz_ else 1.0 - fz
-        wy = fy if dy_ else 1.0 - fy
-        wx = fx if dx_ else 1.0 - fx
-        dfx = dfx + (1.0 if dx_ else -1.0) * wz * wy * gv
-        dfy = dfy + (1.0 if dy_ else -1.0) * wz * wx * gv
-        dfz = dfz + (1.0 if dz_ else -1.0) * wy * wx * gv
-    D_, H_, W_ = dims
-    return torch.stack([dfx * okf * (0.5 * (W_ - 1)), dfy * okf * (0.5 * (H_ - 1)),
-                        dfz * okf * (0.5 * (D_ - 1))], dim=-1)
-
-
 def _lin_grad(a, gz, dtype):
     return {"w": mm_t(a, gz, dtype), "b": torch.sum(gz, dim=0)}
 
@@ -192,7 +176,10 @@ def level_backward_plain(weights: LevelWeights, acts: dict, pts: torch.Tensor,
     the PE and the trilinear dCoords. Returns (gx (P, 3 + ambient), gse
     (P, C), grads), grads the folded level's {"trunk": [{"w", "b"}],
     "fc_feat", "fc_alpha", "dir": [...], "fc_rgb", "seg": [...], "fc_seg"}
-    with dir[0]'s rows [feat | pe(dir) | se], the JAX package's layout."""
+    with dir[0]'s rows [feat | pe(dir) | se], the JAX package's layout.
+    With ``grid_dims`` None (K12, ``acts`` of ``nerf_mlp_plain``) there is
+    no trilinear sample in the pass: gx is the PE backward alone, and the
+    second result is gextra (P, 3 + C), the cotangent of [dir | se]."""
     W = weights
     feat, se, h = acts["feat"], acts["se"], acts["h"]
     dacts, sacts = acts["dacts"], acts["sacts"]
@@ -229,8 +216,12 @@ def level_backward_plain(weights: LevelWeights, acts: dict, pts: torch.Tensor,
     gx_pe, trunk_g = trunk_backward(W.trunk, acts["x"], acts["trunk"], gh,
                                     W.skip, "leaky", dtype, need_gx=True)
     gx = pe_backward(pts, gx_pe, W.pts_groups)
-    gx[:, :3] += corner_dcoords(gse, acts["fs"], acts["ok"], acts["cf"], grid_dims)
     grads.update(trunk=trunk_g, dir=dir_g, seg=seg_g)
+    if grid_dims is None:
+        gdir = pe_backward(acts["dirs"], mm(gzd0, W.dir0_dir.t(), dtype),
+                           W.dir_groups)
+        return gx, torch.cat([gdir, gse], dim=-1), grads
+    gx[:, :3] += corner_dcoords(gse, acts["fs"], acts["ok"], acts["cf"], grid_dims)
     return gx, gse, grads
 
 
@@ -294,6 +285,19 @@ def nerf_rayd_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
                                     torch_dtype(compute_dtype), grid_dims)
 
 
+def nerf_mlp_vjp_plain(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
+                       weights: LevelWeights, compute_dtype: str):
+    """K12's plain version: K11's arguments (``nerf_mlp.nerf_mlp_plain``)
+    plus the cotangent g (P, 16) of its raw output. Returns (gx (P, 3 +
+    ambient), gextra (P, 3 + C), grads), grads as
+    ``level_backward_plain``'s (field_mlp.py:1546-1749)."""
+    acts = {}
+    nerf_mlp_plain(pts, extra, weights, compute_dtype, acts)
+    with torch.no_grad():
+        return level_backward_plain(weights, acts, pts, g.to(torch.float32),
+                                    torch_dtype(compute_dtype), None)
+
+
 # ---------------------------------------------------------------------------
 # Kernel
 # ---------------------------------------------------------------------------
@@ -311,23 +315,8 @@ def level_train_plan(weights: LevelWeights, dtype: torch.dtype) -> TrainPlan:
     W = weights
     if key not in W._blobs:
         L, hid = len(W.trunk), W.trunk[0]["w"].shape[1]
-        fwd, bwd = BlobBuilder(), BlobBuilder()
-        for i, p in enumerate(W.trunk):
-            if i == W.skip and i > 0:
-                fwd.layer(p["w"][:hid], p["b"], "leaky", w2=p["w"][hid:])
-            else:
-                fwd.layer(p["w"], p["b"], "leaky")
+        fwd, bwd = point_layers(W), BlobBuilder()
         d0_in2 = torch.cat([W.dir0_dir, W.dir0_se], dim=0)
-        fwd.layer(W.feat["w"], W.feat["b"], "linear")
-        fwd.layer(W.alpha["w"], W.alpha["b"], "linear")
-        fwd.layer(W.dir0_feat, W.dir0_b, "leaky", w2=d0_in2)
-        for p in W.dir_rest:
-            fwd.layer(p["w"], p["b"], "leaky")
-        fwd.layer(W.rgb["w"], W.rgb["b"], "linear")
-        for p in W.seg:
-            fwd.layer(p["w"], p["b"], "leaky")
-        fwd.layer(W.seg_out["w"], W.seg_out["b"], "linear")
-
         zeros = lambda n: torch.zeros(n, device=W.dir0_b.device)
         t = lambda w: bwd.layer(w.t(), zeros(w.shape[0]), "linear")
         t(W.rgb["w"])
@@ -379,7 +368,19 @@ def _grads_tree(weights: LevelWeights, layers):
     return tree
 
 
-_MODES = {"loss": 0, "vjp": 1, "raw": 2}
+_MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
+_SIGNATURE = ("p" * 11 + "pp" + "i" + "ppp" + "ppp" + "p" * 5 + "pp" + "pp"
+              + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
+
+
+def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
+    """The stashes, the split-K partials and the dW output of one call."""
+    f32 = torch.float32
+    chunks = dw_chunks(n_tiles)
+    return (torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev),
+            torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev),
+            chunks, torch.zeros(chunks * plan.out_len, dtype=f32, device=dev),
+            torch.empty(plan.out_len, dtype=f32, device=dev))
 
 
 def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
@@ -424,18 +425,12 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     raw = e(P, 16) if composite else None
     if composite:
         graw = e(P, 16)
-    acts = e(n_tiles * plan.act_stride, dt=dtype)
-    gzs = e(n_tiles * plan.gz_stride)
-    chunks = dw_chunks(n_tiles)
-    part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
-    out = e(plan.out_len)
+    acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
     p = _build.ptr
     n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
-    fn = _build.function("level_train", "sahs_level_train",
-                         "p" * 9 + "ppi" + "ppp" + "ppp" + "p" * 5 + "pp" + "pp"
-                         + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
+    fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
     rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(z), p(bg),
-            p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), _MODES[mode],
+            p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, _MODES[mode],
             *[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd], p(rgb_map),
             p(w_out), p(gx), p(gse), p(g_bg), p(raw), p(graw), p(acts), p(gzs),
             p(plan.slots), R, S, PW, n_trunk, weights.skip, hidden, branch, C,
@@ -518,6 +513,50 @@ def nerf_rayd_vjp(pts: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
 
 
 nerf_rayd_vjp.launches = 0
+
+
+def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
+                 weights: LevelWeights, compute_dtype: str = "bfloat16"):
+    """K12 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as ``nerf_mlp_vjp_plain``."""
+    if pts.device.type == "cpu":
+        return nerf_mlp_vjp_plain(pts, extra, g, weights, compute_dtype)
+    check_device("K12", pts.device)
+    P, PW, ints = point_kernel_args(pts, extra, weights, "K12")
+    n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir = ints
+    if (tuple(g.shape) != (P, 16) or len(weights.dir_rest) != 3
+            or len(weights.seg) != 4):
+        raise ValueError(f"K12 shapes not supported: g {tuple(g.shape)} for "
+                         f"{P} points, {len(weights.dir_rest)} dir and "
+                         f"{len(weights.seg)} seg layers")
+    dtype = torch_dtype(compute_dtype)
+    plan = level_train_plan(weights, dtype)
+    check_device("K12", pts.device, extra, g, plan.fwd[0])
+    f32 = torch.float32
+    dev = pts.device
+    pts, extra, g = (t.to(f32).contiguous() for t in (pts, extra, g))
+    gx = torch.empty((P, PW), dtype=f32, device=dev)
+    gextra = torch.empty((P, 3 + C), dtype=f32, device=dev)
+    n_tiles = -(-P // TP)
+    acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
+    p = _build.ptr
+    fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
+    # no rays: P points of one sample each, no table, rows or directions
+    rc = fn(p(pts), None, None, None, None, None, None, None, None, None, None,
+            p(extra), p(gextra), _MODES["pts"],
+            *[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd], None, None,
+            p(gx), None, None, None, p(g), p(acts), p(gzs), p(plan.slots),
+            P, 1, PW, n_trunk, weights.skip, hidden, branch, C, amb, nf_xyz,
+            nf_amb, nf_dir, 0, 0, 0, int(dtype == torch.bfloat16), plan.n_act,
+            plan.act_stride, plan.gz_stride, plan.work.numel() // 3, chunks,
+            plan.out_len, 0.0, p(plan.prods), p(plan.work), p(part), p(out),
+            _build.stream_ptr(dev))
+    _build.check(rc, "nerf_mlp_vjp")
+    nerf_mlp_vjp.launches += 1
+    return gx, gextra, _grads_tree(weights, plan.unpack(out))
+
+
+nerf_mlp_vjp.launches = 0
 
 
 def level_train_apply(nerf, cond: torch.Tensor, pts, dirs, table, rows, z, bg,

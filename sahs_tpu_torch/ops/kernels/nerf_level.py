@@ -79,6 +79,31 @@ class LevelWeights:
         return self._blobs[dtype]
 
 
+def point_layers(W: LevelWeights) -> BlobBuilder:
+    """The layers of a per-point NeRF pass, in the order csrc/nerf_mlp.cu
+    (K11) and the per-tile kernels of csrc/level_train.cu read them: trunk,
+    feat, alpha, dir0 (inputs feat and [pe(dir) | se]), dir1-3, rgb,
+    seg0-3, seg head."""
+    fwd = BlobBuilder()
+    hid = W.trunk[0]["w"].shape[1]
+    for i, p in enumerate(W.trunk):
+        if i == W.skip and i > 0:
+            fwd.layer(p["w"][:hid], p["b"], "leaky", w2=p["w"][hid:])
+        else:
+            fwd.layer(p["w"], p["b"], "leaky")
+    fwd.layer(W.feat["w"], W.feat["b"], "linear")
+    fwd.layer(W.alpha["w"], W.alpha["b"], "linear")
+    fwd.layer(W.dir0_feat, W.dir0_b, "leaky",
+              w2=torch.cat([W.dir0_dir, W.dir0_se], dim=0))
+    for p in W.dir_rest:
+        fwd.layer(p["w"], p["b"], "leaky")
+    fwd.layer(W.rgb["w"], W.rgb["b"], "linear")
+    for p in W.seg:
+        fwd.layer(p["w"], p["b"], "leaky")
+    fwd.layer(W.seg_out["w"], W.seg_out["b"], "linear")
+    return fwd
+
+
 def prepare_level(nerf, cond: torch.Tensor, pts_groups: Sequence[PEGroup],
                   dir_groups: Sequence[PEGroup]) -> LevelWeights:
     """Fold ``cond`` into a ``NeRFMLP``'s trunk (field_grid.py:113-118)."""
@@ -172,30 +197,44 @@ def nerf_raw_plain(pts: torch.Tensor, dirs: torch.Tensor,
         _, fs, ok = _cell_geometry(pts, grid_dims)
         cf = table[rows.reshape(-1).long()].to(torch.float32)
         se = interp_corners(cf, fs, ok)
-        tacts = [] if acts is not None else None
-        h = trunk_forward(W.trunk, x, W.skip, leaky, dtype, acts=tacts)
-        feat = mm(h, W.feat["w"], dtype) + W.feat["b"]
-        alpha = mm(feat, W.alpha["w"], dtype) + W.alpha["b"]
         dpe = kernel_pe(dirs, W.dir_groups)
         dir_head = mm(dpe, W.dir0_dir, dtype)
-        d = leaky(mm(feat, W.dir0_feat, dtype) + mm(se, W.dir0_se, dtype)
-                  + (dir_head + W.dir0_b).repeat_interleave(S, dim=0))
-        dacts = [d]
-        for p in W.dir_rest:
-            d = leaky(mm(d, p["w"], dtype) + p["b"])
-            dacts.append(d)
-        rgb = mm(d, W.rgb["w"], dtype) + W.rgb["b"]
-        s = feat
-        sacts = []
-        for p in W.seg:
-            s = leaky(mm(s, p["w"], dtype) + p["b"])
-            sacts.append(s)
-        seg = mm(s, W.seg_out["w"], dtype) + W.seg_out["b"]
+        raw = field_plain(
+            W, x, lambda feat: (mm(feat, W.dir0_feat, dtype) + mm(se, W.dir0_se, dtype)
+                                + (dir_head + W.dir0_b).repeat_interleave(S, dim=0)),
+            dtype, acts)
         if acts is not None:
-            acts.update(x=x, fs=fs, ok=ok, cf=cf, se=se, trunk=tacts, h=h,
-                        feat=feat, dir_pe=dpe.repeat_interleave(S, dim=0),
-                        dacts=dacts, sacts=sacts)
-        return torch.cat([rgb, seg, alpha], dim=-1)
+            acts.update(fs=fs, ok=ok, cf=cf, se=se,
+                        dir_pe=dpe.repeat_interleave(S, dim=0))
+        return raw
+
+
+def field_plain(W: LevelWeights, x: torch.Tensor, dir0, dtype: torch.dtype,
+                acts: Optional[dict] = None) -> torch.Tensor:
+    """The NeRF MLP from the point PE ``x``: the trunk, feat and alpha, the
+    direction branch whose first layer's pre-activation is ``dir0(feat)``,
+    and the seg branch. Returns raw (P, 16) [rgb3 | seg12 | sigma1];
+    ``acts``, when given, receives ``x``, the trunk activations, ``h``,
+    ``feat`` and the branch activations ``dacts``/``sacts``."""
+    tacts = [] if acts is not None else None
+    h = trunk_forward(W.trunk, x, W.skip, leaky, dtype, acts=tacts)
+    feat = mm(h, W.feat["w"], dtype) + W.feat["b"]
+    alpha = mm(feat, W.alpha["w"], dtype) + W.alpha["b"]
+    d = leaky(dir0(feat))
+    dacts = [d]
+    for p in W.dir_rest:
+        d = leaky(mm(d, p["w"], dtype) + p["b"])
+        dacts.append(d)
+    rgb = mm(d, W.rgb["w"], dtype) + W.rgb["b"]
+    s = feat
+    sacts = []
+    for p in W.seg:
+        s = leaky(mm(s, p["w"], dtype) + p["b"])
+        sacts.append(s)
+    seg = mm(s, W.seg_out["w"], dtype) + W.seg_out["b"]
+    if acts is not None:
+        acts.update(x=x, trunk=tacts, h=h, feat=feat, dacts=dacts, sacts=sacts)
+    return torch.cat([rgb, seg, alpha], dim=-1)
 
 
 def nerf_level_plain(pts: torch.Tensor, dirs: torch.Tensor,

@@ -1,0 +1,115 @@
+"""K11: the NeRF MLP on per-point inputs, forward (the per-point branch).
+
+K11 replaces ``sahs_tpu/ops/pallas/field_mlp.py:nerf_mlp_forward_fused``
+(:3204, ``pallas_call`` at :3246), which the JAX package runs when a level's
+sample count does not tile its level kernels (nerface.py:442-460). Its
+inputs are per point: the packed raw point [warped xyz | ambient] and the
+extra input [raw dir | spatial embedding], whose encodings (10 and 4
+frequencies for xyz and ambient, 4 for the direction; the embedding passed
+through) it computes itself. The math is K7's but for the direction
+branch's first layer, which reads the point's own [feat | pe(dir) | se]
+(field_mlp.py:1525). The CUDA kernel is ``csrc/nerf_mlp.cu``; its source
+note gives the bound on the H100 and the design.
+
+``nerf_mlp_forward_fused`` launches the kernel for CUDA tensors and counts
+the launch in ``nerf_mlp_forward_fused.launches``; for CPU tensors it runs
+``nerf_mlp_plain``, the same function in plain tensor math.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .field_mlp import kernel_pe, mm, torch_dtype
+from .nerf_level import (LevelWeights, _pe_freqs, check_device, field_plain,
+                         point_layers)
+
+
+def nerf_mlp_plain(pts: torch.Tensor, extra: torch.Tensor,
+                   weights: LevelWeights, compute_dtype: str,
+                   acts: Optional[dict] = None) -> torch.Tensor:
+    """K11's plain version. pts (P, 3 + ambient) packed [warped xyz |
+    ambient], extra (P, 3 + C) [raw dir | spatial embedding], weights a
+    level folded by ``prepare_level``. Returns raw (P, 16) [rgb3 | seg12 |
+    sigma1]. ``acts``, when given, receives what a backward needs (as
+    ``nerf_level.nerf_raw_plain``'s, with the per-point ``dir_pe``, ``se``
+    and the raw directions ``dirs``)."""
+    dtype = torch_dtype(compute_dtype)
+    W = weights
+    C = W.dir0_se.shape[0]
+    with torch.no_grad():
+        x = kernel_pe(pts, W.pts_groups)
+        dirs = extra[:, :3].to(torch.float32)
+        dpe = kernel_pe(dirs, W.dir_groups)
+        se = extra[:, 3:3 + C].to(torch.float32)
+        ein = torch.cat([dpe, se], dim=-1)
+        d0e = torch.cat([W.dir0_dir, W.dir0_se], dim=0)
+        raw = field_plain(
+            W, x, lambda feat: (mm(feat, W.dir0_feat, dtype) + mm(ein, d0e, dtype)
+                                + W.dir0_b), dtype, acts)
+        if acts is not None:
+            acts.update(se=se, dir_pe=dpe, dirs=dirs)
+        return raw
+
+
+def point_kernel_args(pts: torch.Tensor, extra: torch.Tensor,
+                      weights: LevelWeights, what: str):
+    """The shape checks and integer arguments of the per-point kernels
+    (K11, K12): (P, PW, [n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb,
+    nf_dir])."""
+    P, PW = pts.shape
+    C = weights.dir0_se.shape[0]
+    nf_xyz, nf_amb = (_pe_freqs(weights.pts_groups, 2, "point") if PW > 3
+                      else _pe_freqs(weights.pts_groups, 1, "point") + [0])
+    (nf_dir,) = _pe_freqs(weights.dir_groups, 1, "direction")
+    hidden = weights.trunk[0]["w"].shape[1]
+    branch = weights.dir0_b.shape[0]
+    kx = 3 + 6 * nf_xyz + (PW - 3) * (1 + 2 * nf_amb)
+    if (PW < 3 or PW > 8 or tuple(extra.shape) != (P, 3 + C)
+            or 2 * branch > hidden or branch % 8 or hidden % 8
+            or -(-kx // 8) * 8 > hidden):
+        raise ValueError(f"{what} shapes not supported: pts {tuple(pts.shape)}, "
+                         f"extra {tuple(extra.shape)} for {C} channels, hidden "
+                         f"{hidden}, branch {branch}, point PE width {kx}")
+    return P, PW, [len(weights.trunk), hidden, branch, C, PW - 3, nf_xyz,
+                   nf_amb, nf_dir]
+
+
+def point_blob(weights: LevelWeights, dtype: torch.dtype):
+    """K11's (weight blob, bias blob, layer descriptors), built once per
+    folded level and dtype."""
+    key = ("point", dtype)
+    if key not in weights._blobs:
+        weights._blobs[key] = point_layers(weights).build(dtype)
+    return weights._blobs[key]
+
+
+def nerf_mlp_forward_fused(pts: torch.Tensor, extra: torch.Tensor,
+                           weights: LevelWeights,
+                           compute_dtype: str = "bfloat16") -> torch.Tensor:
+    """K11 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and result as ``nerf_mlp_plain``."""
+    if pts.device.type == "cpu":
+        return nerf_mlp_plain(pts, extra, weights, compute_dtype)
+    check_device("K11", pts.device)
+    P, PW, ints = point_kernel_args(pts, extra, weights, "K11")
+    dtype = torch_dtype(compute_dtype)
+    wblob, bblob, meta = point_blob(weights, dtype)
+    check_device("K11", pts.device, extra, wblob)
+    f32 = torch.float32
+    pts = pts.to(f32).contiguous()
+    extra = extra.to(f32).contiguous()
+    out = torch.empty((P, 16), dtype=f32, device=pts.device)
+    fn = _build.function("nerf_mlp", "sahs_nerf_mlp_forward",
+                         "p" * 6 + "l" + "i" * 9 + "i" + "p")
+    p = _build.ptr
+    rc = fn(p(pts), p(extra), p(wblob), p(bblob), p(meta), p(out), P, PW,
+            *ints, int(dtype == torch.bfloat16), _build.stream_ptr(pts.device))
+    _build.check(rc, "nerf_mlp_forward_fused")
+    nerf_mlp_forward_fused.launches += 1
+    return out
+
+
+nerf_mlp_forward_fused.launches = 0

@@ -7,7 +7,9 @@ One step (reference nerf-pytorch/train_stage_rays_auto.py:273-544):
     ``fused_grads`` is on and the configuration is ``stage1_fused_eligible``,
     else the autograd fallback: ``render_rays(differentiable=True)`` and
     ``loss.backward()`` (stage1.py:256-294), through the differentiable
-    kernel ops (K1/K3, K5/K6 or K7/K8, K9);
+    kernel ops (K1/K3, K5/K6 or K7/K8, K9; at a sample count the level
+    kernels do not take, the per-point branch's K11/K12 and K10), or with
+    ``use_pallas`` off through the plain modules (K10 for the grid sample);
   - Adam with the reference's exponential decay, lr0 * factor^(step /
     (lr_decay * 1000)) at the pre-update count (stage1.py:110-126);
   - the dynamic ``sample_prob`` carry and the metrics.
@@ -29,7 +31,7 @@ import torch
 
 from ..config import Config
 from ..models.nerface import (ModelSpec, NeRFaceModel, check_kernel_path,
-                              check_samples, compute_driving, encode_pose)
+                              compute_driving, encode_pose)
 from ..ops import losses as L
 from ..ops.rays import get_rays_at, ndc_rays
 from ..ops.sampling import (bbox_ray_probs, gather_rays, semantic_ray_probs,
@@ -129,16 +131,11 @@ def make_optimizer(params, ts: TrainSettings) -> torch.optim.Adam:
 
 
 def _check_supported(spec: ModelSpec, ts: TrainSettings) -> None:
-    """Raise NotImplementedError for what needs kernels still to be ported.
-    Training runs on the kernel path only: use_pallas off raises."""
-    r = ts.render
-    if not r.use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False: a train step runs on the kernel path only")
-    check_kernel_path(spec)
-    check_samples(r.num_coarse)
-    if spec.fine is not None and r.num_fine > 0:
-        check_samples(r.num_coarse + r.num_fine)
+    """Raise NotImplementedError for what needs kernels still to be ported:
+    on the kernel path, a model outside ``kernel_path_ok``. The plain path
+    (use_pallas off) trains through autograd of the plain modules."""
+    if ts.render.use_pallas:
+        check_kernel_path(spec)
 
 
 def init_train_state(spec: ModelSpec, ts: TrainSettings, seed: int = 0,

@@ -9,12 +9,17 @@ every CUDA kernel's device ms and launches per step and its share of the
 step (CUDA events), then the step's idle share: the part of the step in
 which no kernel ran.
 ``--path`` picks the step: ``fused`` (the default, K1-K4), ``fallback``
-(fused_grads off: the autograd fallback, K1, K5, K6, K9, K3) or ``reuse``
-(the fallback with fuse_composite off: K1, K7, K8, K9, K3).
+(fused_grads off: the autograd fallback, K1, K5, K6, K9, K3), ``reuse``
+(the fallback with fuse_composite off: K1, K7, K8, K9, K3), ``pointwise``
+(64 + 128 samples, which the fine level's kernels do not tile: the coarse
+level on K5/K6, the fine level on the per-point branch, K11, K12, K10, with
+K1, K3 and K9) or ``plain`` (use_pallas off: autograd of the plain modules,
+K10 the only kernel of the port).
 K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6:
 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce; K8 the
 same without composite_kernel; K3: pair_vjp_kernel, dw_kernel,
-dw_reduce); K5 and K7 both as nerf_level_kernel.
+dw_reduce; K12 as K8); K5 and K7 both as nerf_level_kernel; K10 as
+grid_bwd_fused_kernel, K11 as nerf_mlp_kernel.
 """
 from __future__ import annotations
 
@@ -33,8 +38,11 @@ def short_name(kernel: str) -> str:
     return name[:60]
 
 
-PATHS = {"fused": {}, "fallback": {"fused_grads": False},
-         "reuse": {"fused_grads": False, "fuse_composite": False}}
+# path -> (runtime settings, train settings) over the flagship Config()
+PATHS = {"fused": ({}, {}), "fallback": ({"fused_grads": False}, {}),
+         "reuse": ({"fused_grads": False, "fuse_composite": False}, {}),
+         "pointwise": ({}, {"num_fine": 128}),
+         "plain": ({"use_pallas": False}, {})}
 
 
 def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
@@ -52,8 +60,11 @@ def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
     from . import stage1
 
     cfg = Config()
-    for k, v in PATHS[path].items():
+    runtime, train = PATHS[path]
+    for k, v in runtime.items():
         setattr(cfg.runtime, k, v)
+    for k, v in train.items():
+        setattr(cfg.nerf.train, k, v)
     spec = ModelSpec.from_config(cfg)
     ts = stage1.TrainSettings.from_config(cfg)
     dev = torch.device("cuda")

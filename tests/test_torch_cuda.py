@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card: K1 (deform pair), K5 (NeRF level),
 K2 (level train), K3 (pair backward), K4 (dGrid), K6 (level backward), K7
-(raw field), K8 (raw-field backward) and K9 (dGrid from coordinates)
-against their plain versions, the kernel path of render_rays against the
-plain path, train steps (fused, and the autograd fallback on both of its
-paths) through the kernels against the same steps on the plain versions,
-and the fused step against the fallback step.
+(raw field), K8 (raw-field backward), K9 (dGrid from coordinates), K10
+(the grid sample's backward), K11 (the per-point field) and K12 (its
+backward) against their plain versions, the kernel path of render_rays
+against the plain path, train steps (fused, the autograd fallback on both
+of its paths, the per-point branch and the plain path) through the kernels
+against the same steps on the plain versions, and the fused step against
+the fallback step.
 Marked ``cuda``; without a CUDA device they skip. This file imports no JAX,
 so it runs on a machine without it:
 
@@ -27,6 +29,7 @@ from sahs_tpu_torch.ops.kernels import field_grid
 from sahs_tpu_torch.ops.kernels import grid_bwd as k4
 from sahs_tpu_torch.ops.kernels import level_train as k2
 from sahs_tpu_torch.ops.kernels import nerf_level as k5
+from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
 from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays
 from sahs_tpu_torch.train import fused
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
@@ -516,26 +519,34 @@ FALLBACK_KERNELS = {"deform_pair_forward": (k1, k1.deform_pair_plain),
                     "nerf_level_vjp": (field_grid, k2.nerf_level_vjp_plain),
                     "nerf_rayd_forward": (field_grid, k5.nerf_raw_plain),
                     "nerf_rayd_vjp": (field_grid, k2.nerf_rayd_vjp_plain),
-                    "grid_dg_coords": (field_grid, k4.grid_dg_coords_plain)}
+                    "grid_dg_coords": (field_grid, k4.grid_dg_coords_plain),
+                    "nerf_mlp_forward_fused": (field_grid, k11.nerf_mlp_plain),
+                    "nerf_mlp_vjp": (field_grid, k2.nerf_mlp_vjp_plain),
+                    "grid_bwd_fused": (k4, k4.grid_bwd_fused_plain)}
 COUNTERS = {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
             "K3": k1.deform_pair_vjp, "K4": k4.grid_dg,
             "K5": k5.nerf_level_forward, "K6": k2.nerf_level_vjp,
             "K7": k5.nerf_rayd_forward, "K8": k2.nerf_rayd_vjp,
-            "K9": k4.grid_dg_coords}
+            "K9": k4.grid_dg_coords, "K10": k4.grid_bwd_fused,
+            "K11": k11.nerf_mlp_forward_fused, "K12": k2.nerf_mlp_vjp}
 
 
-def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True):
-    """One float32 flagship train step, 256 rays of a 64 x 64 frame, 64 +
-    64 samples, seeded draws; the fallback's kernels swapped for their
+def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True,
+              samples=(64, 64), use_pallas=True):
+    """One float32 flagship train step, 256 rays of a 64 x 64 frame, Sc +
+    Sn ``samples``, seeded draws; the fallback's kernels swapped for their
     plain versions when ``plain``. Returns (loss, {name: grad}, {K: launches})."""
     from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
     from sahs_tpu_torch.train import stage1
     from sahs_tpu_torch.train.fused import TrainDraws
+    Sc, Sn = samples
     cfg = Config()
     cfg.nerf.train.num_random_rays = 256
+    cfg.nerf.train.num_coarse, cfg.nerf.train.num_fine = Sc, Sn
     cfg.runtime.compute_dtype = "float32"
     cfg.runtime.fused_grads = fused_grads
     cfg.runtime.fuse_composite = fuse_composite
+    cfg.runtime.use_pallas = use_pallas
     spec = nerface.ModelSpec.from_config(cfg)
     ts = stage1.TrainSettings.from_config(cfg)
     ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=64, W=64,
@@ -544,8 +555,8 @@ def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True):
     gen = torch.Generator().manual_seed(3)
     draws = TrainDraws(*[t.to(dev) for t in (
         -torch.log(-torch.log(torch.rand(64 * 64, generator=gen).clamp_min(1e-20))),
-        torch.rand((256, 64), generator=gen), torch.rand((256, 64), generator=gen),
-        torch.randn((256, 64), generator=gen), torch.randn((256, 128), generator=gen))])
+        torch.rand((256, Sc), generator=gen), torch.rand((256, Sn), generator=gen),
+        torch.randn((256, Sc), generator=gen), torch.randn((256, Sc + Sn), generator=gen))])
     st = stage1.init_train_state(spec, ts, seed=0, device=dev)
     with torch.no_grad():
         for lvl in (st.model.coarse, st.model.fine):
@@ -593,3 +604,93 @@ def test_fused_step_matches_fallback_step(card, monkeypatch):
     e = tree_errors(g_f, g_b)
     assert e["l2_rel"] <= 1e-4 and e["cosine"] >= 0.9999, e
 
+
+
+# ---------------------------------------------------------------------------
+# The per-point branch's kernels: K10 (the grid sample's backward), K11 (the
+# per-point field) and K12 (its backward), and the steps that run them.
+# Gates as the fallback's above; K10, linear in g with the same roundings
+# on both sides, within 1e-5 in float32 and 2e-3 in bfloat16.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_grid_bwd_fused_kernel_matches_plain(card, compute_dtype):
+    """K10 on packed (P, 5) points inside the grid, on cell faces, on the
+    grid's faces and outside it, from the corner rows the forward gathers:
+    dG and dcoords."""
+    dev, model, _, _, rng = card
+    P = 50000
+    pts = rng.uniform(-1.1, 1.1, (P, 5))
+    pts[:500, :3] = 2.0 * rng.randint(0, 32, (500, 3)) / 31.0 - 1.0
+    pts[500:504, :3] = [[-1, -1, -1], [1, 1, 1], [1.2, 0, 0], [0, 0, 1.0000001]]
+    pts, g = _gpu(dev, pts), _gpu(dev, rng.randn(P, 32))
+    dtype = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=dtype)
+    vals = table[_cell_geometry(pts, GRID)[0]]
+    shape = (32,) + GRID
+    before = k4.grid_bwd_fused.launches
+    dg_k, dc_k = k4.grid_bwd_fused(shape, pts, g, vals, compute_dtype)
+    dg_p, dc_p = k4.grid_bwd_fused_plain(shape, pts, g, vals, compute_dtype)
+    torch.cuda.synchronize()
+    assert k4.grid_bwd_fused.launches == before + 1
+    gate = 1e-5 if compute_dtype == "float32" else 2e-3
+    for a, b in ((dg_k, dg_p), (dc_k, dc_p)):
+        e = tree_errors(a, b)
+        assert e["l2_rel"] <= gate and e["cosine"] >= 0.9999, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [1000, 96 * 48])
+def test_nerf_mlp_kernels_match_plain(card, compute_dtype, P):
+    """K11 against its plain version on per-point inputs (P not a multiple
+    of the 64-point tile, and 96 rays of 48), then K12 from the cotangent
+    of a loss of K11's plain output."""
+    dev, _, _, level, rng = card
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                    rng.uniform(-1, 1, (P, 2))], 1))
+    extra = _gpu(dev, np.concatenate([rng.randn(P, 3) * 0.1 + [0, 0, -1],
+                                      rng.randn(P, 32) * 0.3], 1))
+    counts = (k11.nerf_mlp_forward_fused.launches, k2.nerf_mlp_vjp.launches)
+    raw_k = k11.nerf_mlp_forward_fused(pts, extra, level, compute_dtype)
+    raw_p = k11.nerf_mlp_plain(pts, extra, level, compute_dtype)
+    torch.cuda.synchronize()
+    assert raw_k.shape == (P, 16) and torch.isfinite(raw_k).all()
+    if compute_dtype == "float32":
+        assert float((raw_k - raw_p).abs().max()) <= 1e-4
+    else:
+        assert _scaled(raw_k, raw_p) <= 2e-2
+    tgt = _gpu(dev, rng.rand(P, 16))
+    g = 2.0 * (torch.sigmoid(raw_p) - tgt) * torch.sigmoid(raw_p) * (
+        1.0 - torch.sigmoid(raw_p)) / P
+    gx_k, ge_k, g_k = k2.nerf_mlp_vjp(pts, extra, g, level, compute_dtype)
+    gx_p, ge_p, g_p = k2.nerf_mlp_vjp_plain(pts, extra, g, level, compute_dtype)
+    torch.cuda.synchronize()
+    assert (k11.nerf_mlp_forward_fused.launches, k2.nerf_mlp_vjp.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert gx_k.shape == (P, 5) and ge_k.shape == (P, 35)
+    f32 = compute_dtype == "float32"
+    _points_ok(gx_k, gx_p, f32)
+    _points_ok(ge_k, ge_p, f32)
+    _grads_ok(g_k, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_pointwise_step_kernel_path_matches_plain_path(card, monkeypatch,
+                                                       use_pallas):
+    """One float32 step at 48 + 48 samples, which neither level's count
+    tiles, through the kernels against the same step on their plain
+    versions: the per-point branch at both levels (K1, K11, then K12, K10,
+    K3), and with use_pallas off the plain path (K10 only)."""
+    dev = card[0]
+    kw = dict(samples=(48, 48), use_pallas=use_pallas)
+    loss_k, g_k, l_k = _f32_step(dev, monkeypatch, False, False, **kw)
+    loss_p, g_p, l_p = _f32_step(dev, monkeypatch, True, False, **kw)
+    want = ({"K1": 2, "K3": 2, "K10": 2, "K11": 2, "K12": 2} if use_pallas
+            else {"K10": 2})
+    assert l_k == {k: want.get(k, 0) for k in COUNTERS}, l_k
+    assert not any(l_p.values())
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    _grads_ok(g_k, g_p, "step")

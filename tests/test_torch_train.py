@@ -535,27 +535,29 @@ def test_train_step_matches_jax(tiny_setup):
 
 def test_train_entry_points_refuse_what_is_not_ported(tiny_setup, monkeypatch):
     """What still needs kernels raises NotImplementedError naming them: a
-    warp-only model (K13 skip_mlp_forward), in training and in rendering,
-    and a sample count that does not tile the level kernels (K11
-    nerf_mlp_forward_fused); a train step with use_pallas off; without
-    CUDA and without a device the entry points raise."""
+    warp-only model (K13 skip_mlp_forward) on the kernel path, in training
+    and in rendering; without CUDA and without a device the entry points
+    raise. A sample count that does not tile the level kernels (the
+    per-point branch) and a train step with use_pallas off (the plain
+    path, where the warp-only model trains too) are taken."""
     _, _, _, _, _, _, tspec, tts = tiny_setup
     plain = dataclasses.replace(tts, render=dataclasses.replace(tts.render,
                                                                 use_pallas=False))
-    for entry in (tstage1.make_train_step, tstage1.init_train_state):
-        with pytest.raises(NotImplementedError, match="use_pallas=False"):
-            entry(tspec, plain, device="cpu")
+    odd = dataclasses.replace(tts, render=dataclasses.replace(tts.render,
+                                                              num_coarse=12))
     warp_cfg = tiny_cfg(TConfig)
     warp_cfg.models.hyper.use_ambient = False
     warp_spec = tn.ModelSpec.from_config(warp_cfg)
-    odd = dataclasses.replace(tts, render=dataclasses.replace(tts.render,
-                                                              num_coarse=12))
-    for spec, ts, kernel in ((warp_spec, tstage1.TrainSettings.from_config(warp_cfg),
-                              "K13"), (tspec, odd, "K11")):
-        with pytest.raises(NotImplementedError, match=kernel):
-            tstage1.make_train_step(spec, ts, device="cpu")
-        with pytest.raises(NotImplementedError, match=kernel):
-            tstage1.init_train_state(spec, ts, device="cpu")
+    warp_ts = tstage1.TrainSettings.from_config(warp_cfg)
+    warp_plain = dataclasses.replace(
+        warp_ts, render=dataclasses.replace(warp_ts.render, use_pallas=False))
+    for spec, ts in ((tspec, plain), (tspec, odd), (warp_spec, warp_plain)):
+        st = tstage1.init_train_state(spec, ts, device="cpu")
+        assert callable(tstage1.make_train_step(spec, ts, device="cpu"))
+        assert next(st.model.parameters()).device.type == "cpu"
+    for entry in (tstage1.make_train_step, tstage1.init_train_state):
+        with pytest.raises(NotImplementedError, match="K13"):
+            entry(warp_spec, warp_ts, device="cpu")
     warp_model = tn.NeRFaceModel.init(warp_spec, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="K13"):
         tn.make_render_fns(warp_model, torch.zeros(16, 29), torch.eye(4)[:3],
