@@ -49,8 +49,9 @@ Phases, in order (any failure exits non-zero and prints no result):
   6. the main path of training: the flagship Stage-I train step (2048
      rays, 64 + 64, bf16, Adam) through train/stage1.make_train_step, 2
      warm-up and 10 timed steps; the launch counters, set to 0 just before,
-     must show K1 = 2, K2 = 2, K3 = 1, K4 = 1, K5 = 0 a step; loss, params
-     and sample_prob finite, every param changed, sample_prob summing to 1;
+     must show K15 = 2, K1 = 2, K2 = 2, K3 = 1, K4 = 1, K5 = 0 a step;
+     loss, params and sample_prob finite, every param changed, sample_prob
+     summing to 1;
      ms/step on the device and the host clock, rays/s; then per-kernel
      times at the step's shapes beside the plain versions, the library
      yardsticks and the bounds;
@@ -102,7 +103,31 @@ Phases, in order (any failure exits non-zero and prints no result):
      steps each; then K11's time at the frame's fine chunk (32,768 rays x
      192, held against its plain version there too) and K12's and K10's at
      the step's fine level, beside their plain versions, the library
-     yardsticks and the bounds.
+     yardsticks and the bounds;
+ 11. one-net parity: K13 (one deformation MLP: the warp net of a warp-only
+     model, the hyper net of an ambient-only one) and K14 (its backward,
+     the raw points' cotangent asked for) against their plain versions on
+     those paths' own fine-level inputs and the cotangents their loss
+     sends back, float32 at 256 rays (K13 within 1e-4; K14's points'
+     cotangent off at no more than 4 points, where a ReLU flips, and with
+     those points' cotangent set to zero, its dW under TRAIN_F32_GATES
+     and the rest of the points' cotangent within K14_GX_F32) and
+     bfloat16 at 2048 (2e-2 of scale; TRAIN_BF16_GATES); K15 bit for bit
+     against the expression at both levels of the fused step; faults
+     planted (K13 without its head bias, K14's bias gradient dropped,
+     K14's first split-K chunk dropped, one of K15's coordinates one ulp
+     over) must each miss; whole float32 steps at 256 rays, kernels
+     against plain versions (STEP_GATES, launch counts checked): the
+     warp-only, ambient-only and split-conditioning models (phase 5 holds
+     the fused step, K15 in it, so);
+ 12. the one-net paths on the card, launch counters set to 0 just before
+     each and checked just after: 512x512 warp-only and ambient-only
+     frames (K13 = K5 = 2 a chunk), their steps at 2048 rays, 64 + 64,
+     bf16 (K13 = K14 = K5 = K6 = K9 = 2 a step), and the flagship fused
+     step (K1 = K2 = K15 = 2, K3 = K4 = 1); then
+     K13 at the frame's fine chunk (held against its plain version there),
+     K14 at a step's fine level and K15 at the fused step's, beside their
+     plain versions, the library yardsticks and the bounds.
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -119,8 +144,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
+# outside the tensor cores, and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -271,12 +298,16 @@ def kernel_counters() -> dict:
     from sahs_tpu_torch.ops.kernels import level_train as k2
     from sahs_tpu_torch.ops.kernels import nerf_level as k5
     from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels import points as k15
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
     return {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
             "K3": k1.deform_pair_vjp, "K4": k4.grid_dg,
             "K5": k5.nerf_level_forward, "K6": k2.nerf_level_vjp,
             "K7": k5.nerf_rayd_forward, "K8": k2.nerf_rayd_vjp,
             "K9": k4.grid_dg_coords, "K10": k4.grid_bwd_fused,
-            "K11": k11.nerf_mlp_forward_fused, "K12": k2.nerf_mlp_vjp}
+            "K11": k11.nerf_mlp_forward_fused, "K12": k2.nerf_mlp_vjp,
+            "K13": k13.skip_mlp_forward, "K14": k13.skip_mlp_vjp,
+            "K15": k15.build_pts}
 
 
 def fused_swaps():
@@ -284,8 +315,10 @@ def fused_swaps():
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import points as k15
     from sahs_tpu_torch.train import fused
-    return [(fused, "deform_pair_forward", k1.deform_pair_plain),
+    return [(fused, "build_pts", k15.build_pts_plain),
+            (fused, "deform_pair_forward", k1.deform_pair_plain),
             (fused, "deform_pair_vjp", k1.deform_pair_vjp_plain),
             (fused, "grid_dg", k4.grid_dg_plain),
             (k2, "nerf_level_train", k2.nerf_level_train_plain)]
@@ -293,16 +326,20 @@ def fused_swaps():
 
 def fallback_swaps():
     """(module, name, plain version) of each kernel of the autograd
-    fallback (the differentiable pair, the grid-coupled level ops, the
-    per-point op and the grid sample's backward)."""
+    fallback (the differentiable pair, the one-net deformation op, the
+    grid-coupled level ops, the per-point op and the grid sample's
+    backward)."""
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import field_grid
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
     from sahs_tpu_torch.ops.kernels import nerf_level as k5
     from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
     return [(k1, "deform_pair_forward", k1.deform_pair_plain),
             (k1, "deform_pair_vjp", k1.deform_pair_vjp_plain),
+            (k13, "skip_mlp_forward", k13.skip_mlp_plain),
+            (k13, "skip_mlp_vjp", k13.skip_mlp_vjp_plain),
             (field_grid, "nerf_level_forward", k5.nerf_level_plain),
             (field_grid, "nerf_level_vjp", k2.nerf_level_vjp_plain),
             (field_grid, "nerf_rayd_forward", k5.nerf_raw_plain),
@@ -1170,10 +1207,501 @@ def pair_vjp_macs(pair) -> int:
     return 3 * fwd - to_pe
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# Phases 11 and 12: the models whose deformation nets run one at a time
+# (K13 forward, K14 backward, a net each) and K15, the fused step's positions
+# ---------------------------------------------------------------------------
+
+# model -> the flagship Config()'s model fields set for it
+ONE_NET = {"warp_only": (("hyper", "use_ambient", False),),
+           "ambient_only": (("warp", "use_warp", False),),
+           "split": (("hyper", "include_driving", False),)}
+# K14's points' cotangent in float32 against its plain version, L2-relative
+# over the points whose ReLUs did not flip (phase 11's K14 gate beside
+# TRAIN_F32_GATES)
+K14_GX_F32 = 1e-5
+# phase 11's rays a step by compute dtype: float32 at 256, bfloat16 at the
+# main path's 2048
+SKIP_RAYS = {"float32": 256, "bfloat16": 2048}
+
+
+def path_cfg(kind, rays=None, compute_dtype=None, num_fine=None, **runtime):
+    """The flagship Config() with ``kind``'s model (ONE_NET; "flagship"
+    keeps the pair), ``rays`` and ``num_fine`` samples a step and
+    ``runtime`` settings."""
+    from sahs_tpu_torch.config import Config
+    cfg = Config()
+    for sub, field, value in ONE_NET.get(kind, ()):
+        setattr(getattr(cfg.models, sub), field, value)
+    if rays is not None:
+        cfg.nerf.train.num_random_rays = rays
+    if num_fine is not None:
+        cfg.nerf.train.num_fine = num_fine
+    if compute_dtype is not None:
+        cfg.runtime.compute_dtype = compute_dtype
+    for k, v in runtime.items():
+        setattr(cfg.runtime, k, v)
+    return cfg
+
+
+def make_draws(R, n_pix, seed, dev, Sc=64, Sn=64):
+    """A train step's draws for R rays of an n_pix frame, from ``seed``."""
+    import torch
+    from sahs_tpu_torch.train.fused import TrainDraws
+    g = torch.Generator().manual_seed(seed)
+    return TrainDraws(*[t.to(dev) for t in (
+        -torch.log(-torch.log(torch.rand(n_pix, generator=g).clamp_min(1e-20))),
+        torch.rand((R, Sc), generator=g), torch.rand((R, Sn), generator=g),
+        torch.randn((R, Sc), generator=g), torch.randn((R, Sc + Sn), generator=g))])
+
+
+def run_step(dev, batch, draws, cfg, swaps=None):
+    """One train step of ``cfg`` (seeded weights, live sigma) on the card,
+    its kernels swapped for ``swaps`` when given. Returns (loss, {name:
+    grad}, {K: launches})."""
+    import torch
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.train import stage1
+    spec = nerface.ModelSpec.from_config(cfg)
+    ts = stage1.TrainSettings.from_config(cfg)
+    st = stage1.init_train_state(spec, ts, seed=0, device=dev)
+    with torch.no_grad():
+        for lvl in (st.model.coarse, st.model.fine):
+            lvl.fc_alpha.bias.fill_(0.5)
+    step = stage1.make_train_step(spec, ts, device=dev)
+    held = kernel_counters()
+    before = {k: f.launches for k, f in held.items()}
+    with plain_versions(swaps) if swaps else contextlib.nullcontext():
+        st, m = step(st, batch, draws=draws)
+    return (float(m["loss"]), {n: p.grad.detach().cpu()
+                               for n, p in st.model.named_parameters()},
+            {k: f.launches - before[k] for k, f in held.items() if f.launches != before[k]})
+
+
+def snapshot(x):
+    """A copy of a kernel argument that outlives the step: tensors, and the
+    folded weights (views of parameters the optimizer changes in place),
+    cloned."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(snapshot(v) for v in x)
+    if isinstance(x, dict):
+        return {k: snapshot(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: snapshot(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)
+                                         if f.name != "_blobs"}, _blobs={})
+    return x
+
+
+def recorded(swaps, module, names):
+    """``swaps`` with the entries of ``module`` named in ``names`` wrapped to
+    keep a snapshot of the arguments of every call, in ``calls[name]``.
+    Returns (swaps, calls)."""
+    calls = {n: [] for n in names}
+
+    def keep(name, f):
+        def run(*a):
+            calls[name].append(snapshot(a))
+            return f(*a)
+        return run
+    return [(m, n, keep(n, f) if m is module and n in names else f)
+            for m, n, f in swaps], calls
+
+
+def skip_inputs(dev, batch, kind, R, compute_dtype, n_pix, seed):
+    """K13's and K14's arguments at the fine level of one step of ``kind``
+    (the largest of the step's calls: 128 samples a ray), as the fallback
+    gives them on the plain versions: the raw points, the net's folded
+    weights and the cotangent its loss sends back."""
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    swaps, calls = recorded(fallback_swaps(), k13,
+                            ("skip_mlp_forward", "skip_mlp_vjp"))
+    run_step(dev, batch, make_draws(R, n_pix, seed, dev),
+             path_cfg(kind, R, compute_dtype), swaps)
+    fine = lambda args: max(args, key=lambda a: a[0].shape[0])
+    return {"kind": kind, "dtype": compute_dtype,
+            "k13": fine(calls["skip_mlp_forward"]),
+            "k14": fine(calls["skip_mlp_vjp"])}
+
+
+def skip_parity(inp):
+    """K13 and K14 (dW, and the raw points' cotangent asked for) against
+    their plain versions on ``inp``. Returns the errors and the kernels'
+    dW tree."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.utils.compare import leaves, point_errors, tree_errors
+    pts, w, cdt = inp["k13"]
+    y_k, y_p = k13.skip_mlp_forward(pts, w, cdt), k13.skip_mlp_plain(pts, w, cdt)
+    pts, w, g, _, cdt = inp["k14"]
+    gx_k, g_k = k13.skip_mlp_vjp(pts, w, g, True, cdt)
+    gx_p, g_p = k13.skip_mlp_vjp_plain(pts, w, g, True, cdt)
+    torch.cuda.synchronize()
+    e = tree_errors(g_k, g_p)
+    tol = TRAIN_F32_GATES["point_tol"]
+    res = {"points": pts.shape[0], "net": w.out_act,
+           "k13": {"abs": abs_err(y_k, y_p), "scaled": scaled_err(y_k, y_p),
+                   "finite": bool(torch.isfinite(y_k).all())},
+           "k14": {"dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
+                   "dw_worst_leaf": e["worst_leaf"],
+                   "gx": point_errors(gx_k, gx_p, tol),
+                   "max_abs_err": max(abs_err(x, y) for (_, x), (_, y)
+                                      in zip(leaves(g_k), leaves(g_p))),
+                   "finite": bool(torch.isfinite(gx_k).all())}}
+    if cdt == "float32":
+        # a point whose pre-activation lies within rounding of a ReLU kink
+        # takes the other derivative on one side, and the PE's frequencies
+        # to 2^9 make its cotangent, and its share of a small bias's
+        # gradient, large: with the cotangent of such points (their
+        # cotangents' error over the point gate) set to zero on both sides,
+        # the rest must agree to the float32 gates
+        err = (gx_k - gx_p).double().norm(dim=1) / gx_p.double().norm(dim=1).max()
+        keep = err <= tol
+        g0 = g * keep[:, None]
+        gx_k0, g_k0 = k13.skip_mlp_vjp(pts, w, g0, True, cdt)
+        gx_p0, g_p0 = k13.skip_mlp_vjp_plain(pts, w, g0, True, cdt)
+        e0 = tree_errors(g_k0, g_p0)
+        res["k14"]["unflipped"] = {
+            "dw_l2_rel": e0["l2_rel"], "dw_cosine": e0["cosine"],
+            "dw_worst_leaf": e0["worst_leaf"],
+            "gx": point_errors(gx_k0[keep], gx_p0[keep], tol)}
+    return res, g_k
+
+
+def skip_gates_missed(res, compute_dtype) -> list:
+    """Phase 11's gates that ``res`` misses: K13 within 1e-4 absolute in
+    float32 and 2e-2 of its output's scale in bf16. K14 in float32: at
+    most TRAIN_F32_GATES' flips among the points' cotangents, and on the
+    points that did not flip the cotangent within K14_GX_F32 and dW under
+    TRAIN_F32_GATES; in bf16 the cotangent within the bf16 point gate and
+    dW under TRAIN_BF16_GATES; each at the gates' cosine."""
+    missed = []
+    f32 = compute_dtype == "float32"
+    g = TRAIN_F32_GATES if f32 else TRAIN_BF16_GATES
+    r13, r14 = res["k13"], res["k14"]
+    if not r13["finite"] or (r13["abs"] > g["out_abs"] if f32
+                             else r13["scaled"] > g["out_rel"]):
+        missed.append("k13")
+    gx, dw = r14["gx"], r14
+    if f32:
+        gx_ok = gx["n_over"] <= g["point_flips"]
+        gx, dw = r14["unflipped"]["gx"], r14["unflipped"]
+        gx_ok = gx_ok and gx["l2_rel"] <= K14_GX_F32
+    else:
+        gx_ok = gx["l2_rel"] <= g["point_l2_rel"]
+    if not (r14["finite"] and gx_ok and gx["cosine"] >= g["cosine"]):
+        missed.append("k14 gx")
+    if not dw_ok({"l2_rel": dw["dw_l2_rel"], "cosine": dw["dw_cosine"]}, g):
+        missed.append("k14 dW")
+    return missed
+
+
+def skip_planted_faults(inputs, trees, k15_args) -> dict:
+    """What the gates see with a fault planted in the kernels' own bf16
+    results: K13 run without its head bias (warp and hyper nets); K14's
+    bias gradient of trunk[1] dropped; the points of K14's first split-K
+    chunk dropped (the plain dW over them taken off); one coordinate of
+    K15's output moved one ulp. Each must miss."""
+    import dataclasses
+    import torch
+    from sahs_tpu_torch.ops.kernels import points as k15
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    from sahs_tpu_torch.utils.compare import tree_errors
+    out = {}
+    for inp, g_k in zip(inputs, trees):
+        pts, w, cdt = inp["k13"]
+        no_bias = dataclasses.replace(w, out={"w": w.out["w"],
+                                              "b": torch.zeros_like(w.out["b"])},
+                                      _blobs={})
+        out[f"k13 {inp['kind']} without the head bias"] = {"raw_scaled": scaled_err(
+            k13.skip_mlp_forward(pts, no_bias, cdt), k13.skip_mlp_plain(pts, w, cdt))}
+        pts, w, g, _, cdt = inp["k14"]
+        g_p = k13.skip_mlp_vjp_plain(pts, w, g, False, cdt)[1]
+        out[f"k14 {inp['kind']} bias trunk[1]"] = tree_errors(
+            _drop_bias(g_k, ["trunk", 1]), g_p)
+        n_tiles = -(-pts.shape[0] // k13.TP_BWD)
+        m = -(-n_tiles // dw_chunks(n_tiles)) * k13.TP_BWD
+        g_c = k13.skip_mlp_vjp_plain(pts[:m], w, g[:m], False, cdt)[1]
+        out[f"k14 {inp['kind']} chunk 0 ({m} points)"] = tree_errors(
+            _tree_sub(g_k, g_c), g_p)
+    moved = k15.build_pts(*k15_args).clone()
+    moved[0, 0] = torch.nextafter(moved[0, 0], torch.tensor(math.inf, device=moved.device))
+    out["k15 one coordinate one ulp over"] = {
+        "max_abs_err": abs_err(moved, k15.build_pts_plain(*k15_args))}
+    return out
+
+
+def skip_fault_passes(e) -> bool:
+    """True when a planted fault's reading passes phase 11's bf16 gates
+    (K15's: bit for bit)."""
+    if "max_abs_err" in e:
+        return e["max_abs_err"] == 0.0
+    return fault_passes(e)
+
+
+def fused_pts_args(dev, batch, R, compute_dtype, n_pix, seed):
+    """The arguments K15 gets at both levels of one fused step (flagship),
+    recorded around the kernel's wrapper."""
+    from sahs_tpu_torch.train import fused
+    held, calls = fused.build_pts, []
+    fused.build_pts = lambda *a: calls.append(a) or held(*a)
+    try:
+        run_step(dev, batch, make_draws(R, n_pix, seed, dev),
+                 path_cfg("flagship", R, compute_dtype))
+    finally:
+        fused.build_pts = held
+    return calls
+
+
+def phase11_skip_parity(dev, batch, n_pix, report) -> list:
+    """Phase 11. Returns the gates missed and keeps, in ``report``, what it
+    measured; the bf16 inputs stay in report["_skip_bf16"] for phase 12."""
+    from sahs_tpu_torch.ops.kernels import points as k15
+    from sahs_tpu_torch.utils.compare import tree_errors
+    missed, rows, bf16 = [], [], []
+    trees = []
+    for compute_dtype, R in SKIP_RAYS.items():
+        for kind in ("warp_only", "ambient_only"):
+            inp = skip_inputs(dev, batch, kind, R, compute_dtype, n_pix, 21)
+            res, g_k = skip_parity(inp)
+            rows.append({"model": kind, "dtype": compute_dtype, "rays": R,
+                         "samples": "64+64 (fine level, 128)", **res})
+            print("one-net parity " + json.dumps(rows[-1]), flush=True)
+            missed += [f"{m} ({kind}, {compute_dtype}, {R} rays)"
+                       for m in skip_gates_missed(res, compute_dtype)]
+            if compute_dtype == "bfloat16":
+                bf16.append(inp)
+                trees.append(g_k)
+                inp["max_abs_err"] = {"k13": res["k13"]["abs"],
+                                      "k14": res["k14"]["max_abs_err"]}
+    report["skip_parity"] = rows
+    # K15 at both levels of the fused step, bit for bit
+    k15_rows = []
+    for compute_dtype, R in SKIP_RAYS.items():
+        for a in fused_pts_args(dev, batch, R, compute_dtype, n_pix, 22):
+            err = abs_err(k15.build_pts(*a), k15.build_pts_plain(*a))
+            k15_rows.append({"dtype": compute_dtype, "rays": R,
+                             "samples": a[2].shape[1], "max_abs_err": err})
+    report["k15_parity"] = k15_rows
+    print("K15 parity (both levels of the fused step) " + json.dumps(k15_rows),
+          flush=True)
+    missed += [f"k15 {r}" for r in k15_rows if r["max_abs_err"] != 0.0]
+    k15_args = a
+    faults = skip_planted_faults(bf16, trees, k15_args)
+    report["skip_planted_faults"] = faults
+    print("one-net planted faults (bf16, the steps' shapes; each must miss the "
+          "gates) " + json.dumps(faults), flush=True)
+    missed += [f"the gates pass a planted fault: {k}"
+               for k, e in faults.items() if skip_fault_passes(e)]
+    # whole float32 steps (256 rays): each one-net model through the kernels
+    # against the same step on the plain versions (the fused step, K15
+    # included, is held so in phase 5)
+    steps = {}
+    R = SKIP_RAYS["float32"]
+    draws = make_draws(R, n_pix, 3, dev)
+    for kind in ONE_NET:
+        cfg = path_cfg(kind, R, "float32")
+        steps[kind] = (run_step(dev, batch, draws, cfg),
+                       run_step(dev, batch, draws, cfg, fallback_swaps()))
+    want = {"warp_only": {"K13": 2, "K14": 2, "K5": 2, "K6": 2, "K9": 2},
+            "ambient_only": {"K13": 2, "K14": 2, "K5": 2, "K6": 2, "K9": 2},
+            "split": {"K13": 4, "K14": 4, "K5": 2, "K6": 2, "K9": 2}}
+    check = {}
+    for name, (k_, p_) in steps.items():
+        check[name] = {"launches": k_[2], "loss_rel": abs(k_[0] - p_[0]) / abs(p_[0]),
+                       "kernels_vs_plain": tree_errors(k_[1], p_[1])}
+        e = check[name]["kernels_vs_plain"]
+        if check[name]["loss_rel"] > STEP_GATES["loss_rel"] or not dw_ok(e, STEP_GATES):
+            missed.append(f"f32 {name} step: {check[name]}")
+        if k_[2] != want[name]:
+            missed.append(f"f32 {name} step launched {k_[2]}, not {want[name]}")
+    report["skip_steps_f32"] = check
+    print("one-net steps f32 (256 rays), every gradient leaf against the "
+          "plain step on the card " + json.dumps(check), flush=True)
+    report["_skip_bf16"] = (bf16, k15_args)
+    return missed
+
+
+def skip_macs(w) -> int:
+    """Multiply-adds a point of K13 (the folded trunk, skip layer's pe rows
+    included, and the head)."""
+    return sum(p["w"].numel() for p in w.trunk) + w.out["w"].numel()
+
+
+def skip_vjp_macs(w) -> int:
+    """Multiply-adds a point of K14 without the points' cotangent: the
+    forward, the backward chain (no product back to the PE) and dW."""
+    hid = w.trunk[0]["w"].shape[1]
+    return 3 * skip_macs(w) - w.trunk[0]["w"].numel() - w.trunk[w.skip]["w"][hid:].numel()
+
+
+def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
+                       kernels) -> str:
+    """Phase 12. Times the one-net frames and steps and the fused step, K15
+    on it (launch counters zeroed before each run and checked after it),
+    then K13, K14 and K15 per call; appends their entries to ``kernels``
+    and adds the paths' launches of the earlier kernels to theirs. Returns
+    a failure message, or "" when every check passes."""
+    import torch
+    from sahs_tpu_torch.evaluation import make_eval_renderer
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.kernels import points as k15
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    from sahs_tpu_torch.render.pipeline import RenderSettings
+    H, W = ds.H, ds.W
+    item = ds[0]
+    paths, frame_models = {}, {}
+    for kind in ("warp_only", "ambient_only"):
+        cfg = path_cfg(kind)
+        spec = nerface.ModelSpec.from_config(cfg)
+        s = RenderSettings.from_config(cfg, "validation")
+        render = make_eval_renderer(spec, s, H, W, near, far, device=dev)
+        model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+        frame_models[kind] = model
+        n = math.ceil(H * W / min(s.chunksize, 32768))
+        paths[f"{kind} frame"] = time_frame(
+            lambda: render(model, item["intrinsics"], item["pose"], item["driving"],
+                           ds.background()), {"K13": 2 * n, "K5": 2 * n})
+        paths[f"{kind} step"] = time_path(cfg, ds, {"K13": 2, "K14": 2, "K5": 2,
+                                                    "K6": 2, "K9": 2})
+    paths["fused step"] = time_path(path_cfg("flagship"), ds,
+                                    {"K1": 2, "K2": 2, "K3": 1, "K4": 1, "K15": 2})
+    report["skip_paths"] = paths
+    for name, r in paths.items():
+        print(f"path {name}: {r['ms']:.1f} ms on the card (CUDA events), "
+              f"{r['host_ms']:.1f} ms on the host clock, launches "
+              f"{r.get('launches_per_step', r.get('launches'))}"
+              + (" per step" if "launches_per_step" in r else ""), flush=True)
+    bad = {n: r["checks"] for n, r in paths.items() if not all(r["checks"].values())}
+    if bad:
+        return f"one-net path checks failed: {bad}"
+
+    # K13 in bf16 at the frame's fine chunk (32,768 rays x 128), held
+    # against its plain version there, then timed beside it, the library
+    # yardstick and the bound; K14 at a step's fine level (2048 x 128) from
+    # phase 11's inputs; K15 at the fused step's fine level
+    bf16, k15_args = report.pop("_skip_bf16")
+    gen = torch.Generator().manual_seed(23)
+    R_f = 32768
+    ro_f, rd_f, _, _ = frame_rays(ds, 0, dev, n=R_f)
+    _, pts_f = level_inputs(ro_f, rd_f, near, far, 128, gen, dev)
+    P_f = pts_f.shape[0]
+    warp_g = nerface.build_pe_groups(frame_models["warp_only"].spec)[0]
+    with torch.no_grad():
+        driving = nerface.compute_driving(frame_models["warp_only"],
+                                          torch.as_tensor(item["driving"]).to(dev))
+        pose_enc = nerface.encode_pose(torch.as_tensor(item["pose"]).to(dev))
+
+    def module_library(net, pts, g=None):
+        """The net's own forward on the plain PE under bf16 autocast, and
+        with ``g`` autograd of it (a yardstick the port never calls)."""
+        pe = kernel_pe(pts, warp_g)
+        params = list(net.parameters())
+
+        def run():
+            with torch.set_grad_enabled(g is not None), \
+                    torch.autocast("cuda", dtype=torch.bfloat16):
+                o = net(pe, driving, pose_enc)
+            return o if g is None else torch.autograd.grad((o.float() * g).sum(), params)
+        return run
+
+    rows = {}
+    for kind, name in (("warp_only", "warp"), ("ambient_only", "hyper")):
+        net = getattr(frame_models[kind], name)
+        cond = (torch.cat([driving, pose_enc]) if net.spec.include_driving
+                else pose_enc)
+        w = k13.prepare_skip(net, cond, warp_g, "tanh" if name == "warp" else "linear")
+        y_k = k13.skip_mlp_forward(pts_f, w, "bfloat16")
+        y_p = k13.skip_mlp_plain(pts_f, w, "bfloat16")
+        chunk_err, chunk_abs = scaled_err(y_k, y_p), abs_err(y_k, y_p)
+        del y_k, y_p
+        if chunk_err > BF16_GATE:
+            return (f"K13 {name} at the frame's fine chunk: {chunk_err} of scale "
+                    f"> {BF16_GATE}")
+        out_dim = w.out["w"].shape[1]
+        b_ms, b_by = bound(2 * skip_macs(w) * P_f, P_f * (3 + out_dim) * 4)
+        ms = cuda_time(lambda: k13.skip_mlp_forward(pts_f, w, "bfloat16"), 3)
+        rows[f"k13 {name}"] = {
+            "ms": ms, "plain_ms": cuda_time(lambda: k13.skip_mlp_plain(pts_f, w, "bfloat16"), 1),
+            "library_ms": cuda_time(module_library(net, pts_f), 1),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": chunk_abs,
+            "scaled_err": chunk_err, "points": P_f,
+            "tflops_achieved": 2 * skip_macs(w) * P_f / (ms / 1e3) / 1e12}
+    del pts_f
+    for inp in bf16:
+        pts, w, g, _, cdt = inp["k14"]
+        name = "warp" if w.out_act == "tanh" else "hyper"
+        net = getattr(frame_models[inp["kind"]], name)
+        P_s = pts.shape[0]
+        plan = k13.skip_train_plan(w, torch.bfloat16)
+        flops = 2 * skip_vjp_macs(w) * P_s
+        b_ms, b_by = bound(flops, P_s * (3 + g.shape[1]) * 4 + plan.out_len * 4)
+        ms = cuda_time(lambda: k13.skip_mlp_vjp(pts, w, g, False, cdt), 3)
+        rows[f"k14 {name}"] = {
+            "ms": ms, "plain_ms": cuda_time(
+                lambda: k13.skip_mlp_vjp_plain(pts, w, g, False, cdt), 1),
+            "library_ms": cuda_time(module_library(net, pts, g), 1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": inp["max_abs_err"]["k14"], "points": P_s,
+            "tflops_achieved": flops / (ms / 1e3) / 1e12}
+    ro, rd, z = k15_args
+    P_z = z.numel()
+    b_ms, b_by = bound(2 * 3 * P_z, (P_z + 6 * ro.shape[0] + 3 * P_z) * 4,
+                       PEAK_F32_FLOPS)
+    # the library yardstick: one addcmul (its rounding may differ; it is timed)
+    rows["k15"] = {"ms": cuda_time(lambda: k15.build_pts(ro, rd, z), 20),
+                   "plain_ms": cuda_time(lambda: k15.build_pts_plain(ro, rd, z), 20),
+                   "library_ms": cuda_time(lambda: torch.addcmul(
+                       ro[:, None, :], rd[:, None, :], z[..., None]), 20),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "max_abs_err": max(r["max_abs_err"] for r in report["k15_parity"]),
+                   "points": P_z}
+    report["skip_kernels"] = rows
+    for name, r in rows.items():
+        print(f"{name}: {r['ms']:.3f} ms at {r['points']} points (bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.3f} ms, "
+              f"library {r['library_ms']:.3f} ms)", flush=True)
+
+    launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
+                           + r.get("launches", {}).get(k, 0)) for r in paths.values())
+                for k in kernel_counters()}
+    names = {"deform_pair": "K1", "level_train": "K2", "deform_pair_vjp": "K3",
+             "grid_dg": "K4", "nerf_level": "K5", "nerf_level_vjp": "K6",
+             "grid_dg_coords": "K9"}
+    for kk in kernels:
+        key = names.get(kk["name"])
+        if key and launches[key]:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["one-net paths and fused step"] = launches[key]
+            kk["launches"] += launches[key]
+    # K15 runs on the main train path too (phase 6)
+    launches["K15"] += report["train"]["launches"]["build_pts"]
+    for name, key, src, replaces, line in (
+            ("skip_mlp_forward", "K13", "sahs_tpu_torch/csrc/skip_mlp.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:345", rows["k13 warp"]),
+            ("skip_mlp_vjp", "K14", "sahs_tpu_torch/csrc/skip_mlp.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:516", rows["k14 warp"]),
+            ("build_pts", "K15", "sahs_tpu_torch/csrc/build_pts.cu",
+             "sahs_tpu/ops/pallas/field_mlp.py:814", rows["k15"])):
+        if not launches[key]:
+            return f"{key} {name} was not launched on its paths"
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[key],
+                        **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms")}})
+    return ""
 
 
 def main(argv) -> int:
@@ -1427,6 +1955,7 @@ def main(argv) -> int:
     # 5. train-kernel parity ------------------------------------------------
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import points as k15
     from sahs_tpu_torch.ops.kernels.nerf_level import composite_plain
     from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
     from sahs_tpu_torch.train import stage1
@@ -1469,11 +1998,7 @@ def main(argv) -> int:
     cfg32.nerf.train.num_random_rays = 256
     cfg32.runtime.compute_dtype = "float32"
     ts32 = stage1.TrainSettings.from_config(cfg32)
-    g32 = torch.Generator().manual_seed(3)
-    draws = TrainDraws(*[t.to(dev) for t in (
-        -torch.log(-torch.log(torch.rand(H * W, generator=g32).clamp_min(1e-20))),
-        torch.rand((256, 64), generator=g32), torch.rand((256, 64), generator=g32),
-        torch.randn((256, 64), generator=g32), torch.randn((256, 128), generator=g32))])
+    draws = make_draws(256, H * W, 3, dev)
     batch = {k: torch.as_tensor(v).to(dev) for k, v in ds[0].items() if k != "fname"}
     batch["background"] = torch.as_tensor(ds.background()).to(dev)
     shifted = dict(batch, pose=batch["pose"].clone())
@@ -1531,7 +2056,7 @@ def main(argv) -> int:
     before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     counters = {"deform_pair": k1.deform_pair_forward, "level_train": k2.nerf_level_train,
                 "deform_pair_vjp": k1.deform_pair_vjp, "grid_dg": k4.grid_dg,
-                "nerf_level": k5.nerf_level_forward}
+                "nerf_level": k5.nerf_level_forward, "build_pts": k15.build_pts}
     for f in counters.values():
         f.launches = 0
     n_steps = 10
@@ -1549,7 +2074,7 @@ def main(argv) -> int:
     step_ms = sum(step_ms_each) / n_steps
     train_launches = {k: f.launches for k, f in counters.items()}
     per_step = {"deform_pair": 2, "level_train": 2, "deform_pair_vjp": 1,
-                "grid_dg": 1, "nerf_level": 0}
+                "grid_dg": 1, "nerf_level": 0, "build_pts": 2}
     params_finite = all(bool(torch.isfinite(p).all())
                         for p in state.model.parameters())
     changed = sum(int(not torch.equal(before[n], p.detach()))
@@ -1753,25 +2278,9 @@ def main(argv) -> int:
     # through the kernels against the same step on the plain versions, and
     # the fused step against the fallback step, both through the kernels
     def fb_step(swaps, d=None, num_fine=64, **runtime):
-        c32 = Config()
-        c32.nerf.train.num_random_rays = 256
-        c32.nerf.train.num_fine = num_fine
-        c32.runtime.compute_dtype = "float32"
-        for k, v in runtime.items():
-            setattr(c32.runtime, k, v)
-        ts_s = stage1.TrainSettings.from_config(c32)
-        st = stage1.init_train_state(spec, ts_s, seed=0, device=dev)
-        with torch.no_grad():
-            for lvl in (st.model.coarse, st.model.fine):
-                lvl.fc_alpha.bias.fill_(0.5)
-        step_s = stage1.make_train_step(spec, ts_s, device=dev)
-        held = kernel_counters()
-        before = {k: f.launches for k, f in held.items()}
-        with plain_versions(swaps) if swaps else contextlib.nullcontext():
-            st, m = step_s(st, batch, draws=draws if d is None else d)
-        return (float(m["loss"]), {n: p.grad.detach().cpu()
-                                   for n, p in st.model.named_parameters()},
-                {k: f.launches - before[k] for k, f in held.items() if f.launches != before[k]})
+        return run_step(dev, batch, draws if d is None else d,
+                        path_cfg("flagship", 256, "float32", num_fine=num_fine,
+                                 **runtime), swaps)
 
     fb_steps = {"fallback": fb_step(None, fused_grads=False),
                 "fallback, plain": fb_step(fallback_swaps(), fused_grads=False),
@@ -2050,11 +2559,7 @@ def main(argv) -> int:
     # whole float32 steps (256 rays) through the kernels against the same
     # steps on the plain versions: the per-point step (64 + 128: the coarse
     # level on K5/K6, the fine level per point) and the plain path's
-    g9 = torch.Generator().manual_seed(4)
-    draws_pw = TrainDraws(*[t.to(dev) for t in (
-        -torch.log(-torch.log(torch.rand(H * W, generator=g9).clamp_min(1e-20))),
-        torch.rand((256, 64), generator=g9), torch.rand((256, 128), generator=g9),
-        torch.randn((256, 64), generator=g9), torch.randn((256, 192), generator=g9))])
+    draws_pw = make_draws(256, H * W, 4, dev, Sn=128)
     pw_steps = {"pointwise": fb_step(None, d=draws_pw, num_fine=128),
                 "pointwise, plain": fb_step(fallback_swaps(), d=draws_pw, num_fine=128),
                 "plain path": fb_step(None, use_pallas=False),
@@ -2215,8 +2720,22 @@ def main(argv) -> int:
                         "replaces": replaces, "launches": pw_launches[key],
                         **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "bound_by", "library_ms")}})
-    if len(kernels) != 12:
-        return fail(f"the kernels line lists {len(kernels)} kernels, not 12")
+    del pw_inp
+    torch.cuda.empty_cache()
+
+    # 11. one-net and K15 parity -------------------------------------------
+    missed = phase11_skip_parity(dev, batch, H * W, report)
+    if missed:
+        return fail(f"one-net and K15 gates missed: {missed}")
+    torch.cuda.empty_cache()
+
+    # 12. the one-net paths and the fused step on the card -----------------
+    msg = phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
+                             kernels)
+    if msg:
+        return fail(msg)
+    if len(kernels) != 15:
+        return fail(f"the kernels line lists {len(kernels)} kernels, not 15")
     print(f"smoke run: {time.time() - T_START:.0f} s", flush=True)
 
     if report_path is not None:

@@ -249,31 +249,27 @@ def level_kernel_compatible(samples: int) -> bool:
 
 
 def kernel_path_ok(spec: ModelSpec) -> bool:
-    """The configurations the ported kernels cover: view directions, the
-    spatial-embedding grid, and either the deformation pair (K1, K3) or no
-    deformation at all (the points go to the level kernels as they are).
-    Per-frame latent codes ride the conditioning, folded into biases."""
-    deform_ok = pair_kernel_ok(spec) or not (spec.use_warp or spec.use_ambient)
-    return spec.use_viewdirs and spec.use_spatial_embeddings and deform_ok
+    """The configurations ``make_render_fns(use_pallas=True)`` takes. With
+    view directions: the spatial-embedding grid, and any deformation (the
+    pair K1/K3, each net on its own K13/K14, or none). Without view
+    directions the kernel path is the plain one, as in the JAX package
+    (nerface.py:299-314). Per-frame latent codes ride the conditioning,
+    folded into biases."""
+    return not spec.use_viewdirs or spec.use_spatial_embeddings
 
 
 def check_kernel_path(spec: ModelSpec) -> None:
     """Raise NotImplementedError, naming the kernels it needs, for a
-    configuration outside ``kernel_path_ok``."""
+    configuration outside ``kernel_path_ok``: view directions without the
+    grid."""
     if kernel_path_ok(spec):
         return
-    if spec.use_warp or spec.use_ambient:
-        raise NotImplementedError(
-            "a warp-only or ambient-only model, or one whose warp and hyper "
-            "nets take different conditioning, runs each deformation MLP on "
-            "its own: it needs K13 skip_mlp_forward and K14 skip_mlp_vjp, "
-            "still to be ported (ROADMAP Queue 2)")
     raise NotImplementedError(
-        "the kernel path takes models with view directions and the "
-        "spatial-embedding grid; this one needs the level kernels' forms "
-        "without the grid (field_mlp.py:nerf_render_level and "
-        "nerf_mlp_apply_rayd), not ported; the plain path (use_pallas "
-        "off) takes it")
+        "a model with view directions and no spatial-embedding grid needs "
+        "the grid-free forms of K5, K7 and K11 (sahs_tpu/ops/pallas/"
+        "field_mlp.py: nerf_render_level :3187, nerf_mlp_apply_rayd :2399, "
+        "nerf_mlp_apply_fused with an extra of directions only), not "
+        "ported; the plain path (use_pallas off) takes it")
 
 
 class FoldedCache:
@@ -308,12 +304,16 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
     driving | pose] as the level takes them) is folded into biases and the
     grid packed into its corner table, once per frame and again after any
     in-place change of their parameters. The front half is the deformation
-    pair (K1, K3 in the backward), emitting corner-table rows, or for a
-    model without deformation the points themselves with their rows from
-    ``_cell_geometry``; the back half is K5 (K6) with compositing, or K7
-    (K8) for the raw field; dGrid is K9. A sample count the level kernels
-    do not take runs the per-point branch instead: the grid sample (K10 in
-    the backward), then K11 (K12). A configuration outside
+    pair (K1, K3 in the backward), emitting corner-table rows; or, for a
+    model whose two nets cannot share K1 (warp-only, ambient-only, or
+    conditioned apart), each net on its own (K13, K14 in the backward),
+    x + dx added in PyTorch, the rows from ``_cell_geometry`` of the warped
+    points; or, for a model without deformation, the points themselves
+    with their rows. The back half is K5 (K6) with compositing, or K7 (K8)
+    for the raw field; dGrid is K9. A sample count the level kernels do not
+    take runs the per-point branch instead: the grid sample (K10 in the
+    backward), then K11 (K12). A model without view directions takes the
+    plain path, as the JAX package does (nerface.py:299-314); one outside
     ``kernel_path_ok`` raises rather than fall back."""
     from ..ops.grid import _cell_geometry
     from ..ops.kernels.deform_pair import (PairOp, deform_pair_apply_fused,
@@ -323,12 +323,14 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
                                           nerf_mlp_apply_rayd_grid,
                                           nerf_render_level_grid)
     from ..ops.kernels.nerf_level import prepare_level
+    from ..ops.kernels.skip_mlp import (SkipOp, deform_mlp_apply_fused,
+                                        prepare_skip)
 
     spec = model.spec
     driving = compute_driving(model, driving_or_audio)
     pose_enc = encode_pose(pose)
 
-    if not use_pallas:
+    if not (use_pallas and spec.use_viewdirs):
         def field_fn(level, pts_flat, dirs_ray, samples):
             dirs_flat = None
             if dirs_ray is not None:
@@ -350,19 +352,39 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
     folded = FoldedCache()
     pair_ok = pair_kernel_ok(spec)
 
+    def deform_cond(sub):
+        return torch.cat([driving, pose_enc]) if sub.include_driving else pose_enc
+
+    def deform_net(name, act, pts_flat):
+        # one net on its own, its own conditioning and head activation
+        # (nerface.py:333-338, 380-398)
+        net = getattr(model, name)
+        params = list(net.parameters())
+        cond = deform_cond(net.spec)
+        weights = folded.get(name, params,
+                             lambda: prepare_skip(net, cond, warp_pe, act))
+        return deform_mlp_apply_fused(
+            SkipOp(net, params, weights, pts_flat, compute_dtype), cond)
+
     def front_half(pts_flat, samples):
-        if not pair_ok:
-            rows, _, _ = _cell_geometry(pts_flat, dims)
-            return pts_flat, rows.to(torch.int32).reshape(-1, samples)
-        nets = (model.warp, model.hyper)
-        params = [p for n in nets for p in n.parameters()]
-        cond = (torch.cat([driving, pose_enc]) if spec.warp.include_driving
-                else pose_enc)
-        pair = folded.get("pair", params,
-                          lambda: prepare_pair(*nets, cond, warp_pe))
-        return deform_pair_apply_fused(
-            PairOp(*nets, params, pair, pts_flat, samples, dims, compute_dtype),
-            cond)
+        if pair_ok:
+            nets = (model.warp, model.hyper)
+            params = [p for n in nets for p in n.parameters()]
+            cond = deform_cond(spec.warp)
+            pair = folded.get("pair", params,
+                              lambda: prepare_pair(*nets, cond, warp_pe))
+            return deform_pair_apply_fused(
+                PairOp(*nets, params, pair, pts_flat, samples, dims,
+                       compute_dtype), cond)
+        warped = pts_flat
+        if spec.use_warp:
+            warped = pts_flat + deform_net("warp", "tanh", pts_flat)
+        rows, _, _ = _cell_geometry(warped.detach(), dims)
+        pts_raw = warped
+        if spec.use_ambient:
+            amb = deform_net("hyper", "linear", pts_flat)
+            pts_raw = torch.cat([warped, amb], dim=-1)
+        return pts_raw, rows.to(torch.int32).reshape(-1, samples)
 
     def nerf_cond(level):
         nspec: NeRFSpec = getattr(spec, level)

@@ -30,10 +30,10 @@ import torch
 from ..grid import _cell_geometry
 from . import _build
 from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
-                        dact, dw_chunks, fold_trunk, kernel_pe, linear_grads,
-                        linear_params, mm, mm_t, torch_dtype, trunk_backward,
-                        trunk_forward, trunk_into_blob, trunk_params,
-                        unfold_cond_grads)
+                        dact, dw_chunks, fold_trunk, kernel_pe, linear_params,
+                        mm, mm_t, torch_dtype, trunk_backward, trunk_forward,
+                        trunk_into_blob, trunk_params)
+from .skip_mlp import skip_param_grads
 
 
 @dataclasses.dataclass
@@ -285,18 +285,12 @@ deform_pair_vjp.launches = 0
 def pair_param_grads(warp, hyper, pair_g, cond: torch.Tensor):
     """K3's folded gradient tree -> ({parameter: grad} of the ``WarpField``
     and ``HyperSheet`` modules, d(cond)), through the conditioning unfold
-    (field_mlp.py:617-644)."""
+    (field_mlp.py:617-644), one net at a time as K14's."""
     out = {}
     dcond = torch.zeros_like(cond)
     for name, net in (("warp", warp), ("hyper", hyper)):
-        raw = [{"w": p["w"].detach(), "b": p["b"].detach()}
-               for p in trunk_params(net.trunk)]
-        tg, dc = unfold_cond_grads(raw, pair_g[name]["trunk"], cond,
-                                   net.spec.skip_connect_every,
-                                   net.spec.hidden_size, net.spec.pe_xyz_dim)
-        for lin, gl in zip(net.trunk.layers, tg):
-            linear_grads(out, lin, gl)
-        linear_grads(out, net.out, pair_g[name]["out"])
+        grads, dc = skip_param_grads(net, pair_g[name], cond)
+        out.update(grads)
         dcond = dcond + dc
     return out, dcond
 

@@ -80,6 +80,21 @@ def kernel_pe(x: torch.Tensor, groups: Sequence[PEGroup]) -> torch.Tensor:
     return torch.where(torch.as_tensor(is_input, device=dev), xs, torch.sin(t))
 
 
+def pe_backward(x: torch.Tensor, g_pe: torch.Tensor, groups) -> torch.Tensor:
+    """Cotangent of the raw coordinates from that of ``kernel_pe``'s output:
+    g * cos(x f + phase) * f per sine slot, g per input slot."""
+    src, freq, phase, is_input = pe_columns(groups)
+    dev = x.device
+    src_t = torch.as_tensor(src, device=dev)
+    xs = x[:, src_t].to(torch.float32)
+    fr = torch.as_tensor(freq, device=dev)
+    t = xs * fr + torch.as_tensor(phase, device=dev)
+    dt = torch.where(torch.as_tensor(is_input, device=dev), g_pe,
+                     g_pe * torch.cos(t) * fr)
+    return torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32,
+                       device=dev).index_add_(1, src_t, dt)
+
+
 def linear_params(lin: torch.nn.Linear) -> Dict[str, torch.Tensor]:
     """nn.Linear -> {"w": (in, out), "b": (out,)} (the JAX layout)."""
     return {"w": lin.weight.t(), "b": lin.bias}

@@ -39,7 +39,7 @@ import torch
 
 from . import _build
 from .field_mlp import (BlobBuilder, TrainPlan, build_train_plan, dact,
-                        dw_chunks, mm, mm_t, pe_columns, torch_dtype,
+                        dw_chunks, mm, mm_t, pe_backward, torch_dtype,
                         trunk_backward, trunk_params, unfold_cond_grads)
 from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, check_device, level_kernel_args,
@@ -148,21 +148,6 @@ def composite_train_plain(raw: torch.Tensor, z: torch.Tensor,
     if sup:
         g_bg[:, :3] += bg_sup * w[:, -1:] * 2.0 * (bg[:, :3] - tgt[:, :3])
     return rgb_map, w, graw, g_bg
-
-
-def pe_backward(x: torch.Tensor, g_pe: torch.Tensor, groups) -> torch.Tensor:
-    """Cotangent of the raw coordinates from that of ``kernel_pe``'s output:
-    g * cos(x f + phase) * f per sine slot, g per input slot."""
-    src, freq, phase, is_input = pe_columns(groups)
-    dev = x.device
-    src_t = torch.as_tensor(src, device=dev)
-    xs = x[:, src_t].to(torch.float32)
-    fr = torch.as_tensor(freq, device=dev)
-    t = xs * fr + torch.as_tensor(phase, device=dev)
-    dt = torch.where(torch.as_tensor(is_input, device=dev), g_pe,
-                     g_pe * torch.cos(t) * fr)
-    return torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32,
-                       device=dev).index_add_(1, src_t, dt)
 
 
 def _lin_grad(a, gz, dtype):

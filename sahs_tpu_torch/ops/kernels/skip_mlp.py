@@ -1,0 +1,325 @@
+"""K13 and K14: one deformation MLP (the warp field or the hyper sheet) on
+its own, forward and backward.
+
+A model whose warp and hyper nets cannot share K1's one kernel (a
+warp-only model, an ambient-only model, or one whose two nets take
+different conditioning) runs each net through these
+(``sahs_tpu/models/nerface.py:380-398``).
+
+K13 replaces ``sahs_tpu/ops/pallas/field_mlp.py:skip_mlp_forward`` (:345,
+``pallas_call`` at :372) in its raw-coordinate form (``pe_spec`` given: the
+positional encoding is computed in the kernel), the only form the model
+uses. The precomputed-PE form, which only the JAX package's own tests
+reach, is not ported: its weights (``prepare_skip`` with ``pe_groups``
+None) run on the plain version on the CPU, and the wrapper refuses them
+for a CUDA tensor.
+
+K14 replaces ``field_mlp.py:skip_mlp_vjp`` (:516, ``pallas_call`` at :571):
+the folded dW and db of every trunk layer and of the head, and, when asked,
+the cotangent of the raw coordinates through the PE backward
+(``_pe_bwd``, field_mlp.py:245-259). The CUDA kernels are
+``csrc/skip_mlp.cu``; its source note gives the bound and the design.
+
+``deform_mlp_apply_fused`` is the differentiable net (field_mlp.py:
+647-703): a ``torch.autograd.Function`` whose forward is K13 and whose
+backward is K14, with the gradient going to the net's parameters, to the
+conditioning and, only when autograd asks for it, to the points.
+
+Each wrapper launches its kernel for tensors on a CUDA device and counts
+the call in ``<wrapper>.launches``; for tensors on the CPU it runs the
+``*_plain`` version. There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
+                        dact, dw_chunks, fold_trunk, kernel_pe, linear_grads,
+                        linear_params, mm, mm_t, pe_backward, torch_dtype,
+                        trunk_backward, trunk_forward, trunk_into_blob,
+                        trunk_params, unfold_cond_grads)
+
+TP_BWD = 32      # points per tile of K14's per-point kernel and of its stash
+MAX_HIDDEN = 128
+MAX_OUT = 8
+
+
+@dataclasses.dataclass
+class SkipWeights:
+    """One deformation MLP with the per-frame conditioning folded in: the
+    trunk as a list of {"w": (in, out), "b": (out,)} (the skip layer's rows
+    are [hidden ; pe]), the head and its activation ("tanh" for the warp
+    field, "linear" for the hyper sheet), and the PE groups of the raw
+    coordinates (None: the input is an encoding already)."""
+    trunk: List[dict]
+    out: dict
+    skip: int
+    out_act: str
+    pe_groups: Optional[Tuple[PEGroup, ...]]
+    _blobs: dict = dataclasses.field(default_factory=dict)
+
+    def blob(self, dtype: torch.dtype):
+        """(weight blob, bias blob, layer descriptors) for K13."""
+        if dtype not in self._blobs:
+            bb = BlobBuilder()
+            with torch.no_grad():
+                trunk_into_blob(bb, self.trunk, self.skip, "relu", self.out,
+                                self.out_act)
+                self._blobs[dtype] = bb.build(dtype)
+        return self._blobs[dtype]
+
+
+def prepare_skip(net, cond: torch.Tensor,
+                 pe_groups: Optional[Sequence[PEGroup]],
+                 out_act: str) -> SkipWeights:
+    """Fold ``cond`` (pose PE, after the driving vector when the net takes
+    it) into the input and skip biases of a ``WarpField`` or
+    ``HyperSheet`` (field_mlp.py:388-420, 650-652); ``out_act`` is the
+    head's activation, "tanh" (warp) or "linear" (hyper)."""
+    with torch.no_grad():
+        trunk = fold_trunk(trunk_params(net.trunk), cond, net.spec.pe_xyz_dim,
+                           net.spec.hidden_size, net.spec.skip_connect_every)
+    return SkipWeights(trunk, linear_params(net.out),
+                       net.spec.skip_connect_every,
+                       out_act,
+                       None if pe_groups is None else tuple(pe_groups))
+
+
+def _encode(x: torch.Tensor, weights: SkipWeights) -> torch.Tensor:
+    if weights.pe_groups is None:
+        return x.to(torch.float32)
+    return kernel_pe(x, weights.pe_groups)
+
+
+def skip_mlp_plain(points: torch.Tensor, weights: SkipWeights,
+                   compute_dtype: str) -> torch.Tensor:
+    """points (P, 3) float32 raw coordinates (or (P, pe_dim) an encoding,
+    for weights without PE groups) -> (P, out) float32: the trunk, the head
+    and its activation."""
+    dtype = torch_dtype(compute_dtype)
+    with torch.no_grad():
+        pe = _encode(points, weights)
+        h = trunk_forward(weights.trunk, pe, weights.skip, torch.relu, dtype)
+        y = mm(h, weights.out["w"], dtype) + weights.out["b"]
+        return torch.tanh(y) if weights.out_act == "tanh" else y
+
+
+def _check_kernel_shapes(points, weights: SkipWeights, what: str):
+    if weights.pe_groups is None:
+        raise ValueError(f"the {what} kernel takes the raw coordinates with "
+                         "the PE computed in the kernel; the precomputed-PE "
+                         "form is not ported")
+    nf = weights.pe_groups[0][2]
+    if weights.pe_groups != ((0, 3, nf, True, True),):
+        raise ValueError(f"the {what} kernel encodes xyz with include_input "
+                         f"and log sampling only, got {weights.pe_groups}")
+    if points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be (P, 3) float32, got "
+                         f"{tuple(points.shape)} {points.dtype}")
+    widths = [p["w"].shape[1] for p in weights.trunk]
+    if max(widths) > MAX_HIDDEN or any(w % 8 for w in widths):
+        raise ValueError(f"the {what} kernel takes trunks at most "
+                         f"{MAX_HIDDEN} wide, in multiples of 8, got {widths}")
+    if weights.out["w"].shape[1] > MAX_OUT:
+        raise ValueError(f"the {what} kernel takes a head of at most "
+                         f"{MAX_OUT} outputs, got {weights.out['w'].shape[1]}")
+
+
+def _on_device(points, tensor, what: str):
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    if tensor.device != points.device:
+        raise ValueError(f"{what} weights are on {tensor.device}, points on "
+                         f"{points.device}")
+
+
+def skip_mlp_forward(points: torch.Tensor, weights: SkipWeights,
+                     compute_dtype: str) -> torch.Tensor:
+    """K13 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and result as ``skip_mlp_plain``."""
+    if points.device.type == "cpu":
+        return skip_mlp_plain(points, weights, compute_dtype)
+    _check_kernel_shapes(points, weights, "K13")
+    dtype = torch_dtype(compute_dtype)
+    wblob, bblob, meta = weights.blob(dtype)
+    _on_device(points, wblob, "K13")
+    points = points.contiguous()
+    P = points.shape[0]
+    out_dim = weights.out["w"].shape[1]
+    out = torch.empty((P, out_dim), dtype=torch.float32, device=points.device)
+    fn = _build.function("skip_mlp", "sahs_skip_mlp_forward", "plppp" + "i" * 5
+                         + "pp")
+    rc = fn(_build.ptr(points), P, _build.ptr(wblob), _build.ptr(bblob),
+            _build.ptr(meta), len(weights.trunk), weights.trunk[0]["w"].shape[1],
+            out_dim, weights.pe_groups[0][2], int(dtype == torch.bfloat16),
+            _build.ptr(out), _build.stream_ptr(points.device))
+    _build.check(rc, "skip_mlp_forward")
+    skip_mlp_forward.launches += 1
+    return out
+
+
+skip_mlp_forward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K14: the backward
+# ---------------------------------------------------------------------------
+
+def skip_train_plan(weights: SkipWeights, dtype: torch.dtype) -> TrainPlan:
+    """K14's plan: K13's forward blob; a blob of transposed weights in
+    backward order (the head, layers L-1 .. 1 by their hidden rows, then
+    the layer back to the PE: layer 0's and the skip layer's pe rows as one
+    two-input layer); the activation slots [pe, h_0 .. h_{L-1}] and the
+    products of every layer."""
+    key = ("train", dtype)
+    if key in weights._blobs:
+        return weights._blobs[key]
+    trunk, skip = weights.trunk, weights.skip
+    hid = trunk[0]["w"].shape[1]
+    L = len(trunk)
+    act_rows, inputs = [trunk[0]["w"].shape[0]], []
+    for i in range(L):
+        inputs.append((i, 0 if (i == skip and i > 0) else -1))
+        act_rows.append(hid)
+    inputs.append((L, -1))
+    fwd, bwd = BlobBuilder(), BlobBuilder()
+    with torch.no_grad():
+        trunk_into_blob(fwd, trunk, skip, "relu", weights.out, weights.out_act)
+        zeros = torch.zeros(hid, device=weights.out["w"].device)
+        bwd.layer(weights.out["w"].t(), zeros, "linear")
+        for i in range(L - 1, 0, -1):
+            bwd.layer(trunk[i]["w"][:hid].t(), zeros, "linear")
+        fires = 0 < skip < L
+        bwd.layer(trunk[0]["w"].t(), torch.zeros(trunk[0]["w"].shape[0],
+                                                 device=zeros.device),
+                  "linear", w2=trunk[skip]["w"][hid:].t() if fires else None)
+        weights._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs,
+                                               TP_BWD, dtype)
+    return weights._blobs[key]
+
+
+def skip_mlp_vjp_plain(points: torch.Tensor, weights: SkipWeights,
+                       g: torch.Tensor, need_gx: bool, compute_dtype: str):
+    """Backward of K13 (field_mlp.py:534-563): the trunk recomputed from the
+    encoding of ``points``, the cotangent g (P, out) taken back through the
+    head's activation. Returns (gx (P, 3) | None, {"trunk": [{"w", "b"}]
+    folded, "out": {"w", "b"}}); gx is with respect to the raw coordinates
+    (the encoding, for weights without PE groups)."""
+    dtype = torch_dtype(compute_dtype)
+    with torch.no_grad():
+        pe = _encode(points, weights)
+        acts = []
+        h = trunk_forward(weights.trunk, pe, weights.skip, torch.relu, dtype,
+                          acts=acts)
+        y = mm(h, weights.out["w"], dtype) + weights.out["b"]
+        y = torch.tanh(y) if weights.out_act == "tanh" else y
+        gz = g.to(torch.float32) * dact(weights.out_act, y)
+        head = {"w": mm_t(h, gz, dtype), "b": torch.sum(gz, dim=0)}
+        ga = mm(gz, weights.out["w"].t(), dtype)
+        gpe, tg = trunk_backward(weights.trunk, pe, acts, ga, weights.skip,
+                                 "relu", dtype, need_gx=need_gx)
+        gx = None
+        if need_gx:
+            gx = (gpe if weights.pe_groups is None
+                  else pe_backward(points, gpe, weights.pe_groups))
+    return gx, {"trunk": tg, "out": head}
+
+
+def skip_mlp_vjp(points: torch.Tensor, weights: SkipWeights, g: torch.Tensor,
+                 need_gx: bool, compute_dtype: str):
+    """K14 wrapper: the CUDA kernels for CUDA tensors, the plain version for
+    CPU tensors. Same arguments and results as ``skip_mlp_vjp_plain``. One
+    call is one count, whatever the number of launches inside."""
+    if points.device.type == "cpu":
+        return skip_mlp_vjp_plain(points, weights, g, need_gx, compute_dtype)
+    _check_kernel_shapes(points, weights, "K14")
+    dtype = torch_dtype(compute_dtype)
+    P = points.shape[0]
+    out_dim = weights.out["w"].shape[1]
+    if tuple(g.shape) != (P, out_dim):
+        raise ValueError(f"K14's cotangent must be ({P}, {out_dim}), got "
+                         f"{tuple(g.shape)}")
+    plan = skip_train_plan(weights, dtype)
+    _on_device(points, plan.fwd[0], "K14")
+    f32 = torch.float32
+    points = points.contiguous()
+    g = g.to(f32).contiguous()
+    n_tiles = -(-P // TP_BWD)
+    dev = points.device
+    acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
+    gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)
+    gx = torch.empty((P, 3), dtype=f32, device=dev) if need_gx else None
+    chunks = dw_chunks(n_tiles)
+    part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
+    out = torch.empty(plan.out_len, dtype=f32, device=dev)
+    p = _build.ptr
+    fn = _build.function("skip_mlp", "sahs_skip_mlp_vjp",
+                         "plp" + "ppp" + "ppp" + "iiiii" + "pppp"
+                         + "i" * 6 + "pppp" + "p")
+    rc = fn(p(points), P, p(g), *[p(t) for t in plan.fwd],
+            *[p(t) for t in plan.bwd], len(weights.trunk), weights.skip,
+            weights.pe_groups[0][2], out_dim, int(dtype == torch.bfloat16),
+            p(plan.slots), p(acts), p(gzs), p(gx), plan.n_act, plan.act_stride,
+            plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
+            p(plan.prods), p(plan.work), p(part), p(out), _build.stream_ptr(dev))
+    _build.check(rc, "skip_mlp_vjp")
+    skip_mlp_vjp.launches += 1
+    layers = plan.unpack(out)
+    return gx, {"trunk": layers[:-1], "out": layers[-1]}
+
+
+skip_mlp_vjp.launches = 0
+
+
+def skip_param_grads(net, grads, cond: torch.Tensor):
+    """K14's folded gradient tree -> ({parameter: grad} of the module,
+    d(cond)), through the conditioning unfold (field_mlp.py:617-644)."""
+    raw = [{"w": p["w"].detach(), "b": p["b"].detach()}
+           for p in trunk_params(net.trunk)]
+    tg, dcond = unfold_cond_grads(raw, grads["trunk"], cond,
+                                  net.spec.skip_connect_every,
+                                  net.spec.hidden_size, net.spec.pe_xyz_dim)
+    out = {}
+    for lin, gl in zip(net.trunk.layers, tg):
+        linear_grads(out, lin, gl)
+    linear_grads(out, net.out, grads["out"])
+    return out, dcond
+
+
+@dataclasses.dataclass
+class SkipOp:
+    """What the differentiable net holds beside the conditioning: the
+    module and its parameters, the folded weights of this frame, the points
+    (P, 3) and the compute dtype."""
+    net: torch.nn.Module
+    params: List[torch.Tensor]
+    weights: SkipWeights
+    points: torch.Tensor
+    compute_dtype: str
+
+
+class _SkipMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, cond, points, *params):
+        ctx.op = op
+        ctx.save_for_backward(cond, points)
+        return skip_mlp_forward(points, op.weights, op.compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        op = ctx.op
+        cond, points = ctx.saved_tensors
+        gx, grads = skip_mlp_vjp(points, op.weights, g, ctx.needs_input_grad[2],
+                                 op.compute_dtype)
+        by_param, dcond = skip_param_grads(op.net, grads, cond)
+        return (None, dcond, gx, *[by_param.get(p) for p in op.params])
+
+
+def deform_mlp_apply_fused(op: SkipOp, cond: torch.Tensor) -> torch.Tensor:
+    """One deformation net on ``op.points``, differentiable with respect to
+    its parameters, ``cond`` and (when autograd asks) the points: (P, out)."""
+    return _SkipMLP.apply(op, cond, op.points, *op.params)

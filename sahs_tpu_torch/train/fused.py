@@ -8,16 +8,23 @@ z), so the coarse level's point cotangents can be scattered into their
 fine slots and the pair backward (K3) and dGrid (K4), both linear in their
 cotangents, run once over the fine points (fused.py:370-413).
 
-A step runs: coarse z; K1 on the coarse points; K2 on the coarse level;
-sample_pdf and the stable sort; K1 on the sorted fine points; K2 on the
-fine level; the coarse-in-fine scatter; one K3 and one K4 over the fine
-points; the conditioning-fold gradients unfolded.
+A step runs: coarse z; K15 for the coarse points; K1 on them; K2 on the
+coarse level; sample_pdf and the stable sort; K15 for the sorted fine
+points; K1 on them; K2 on the fine level; the coarse-in-fine scatter;
+one K3 and one K4 over the fine points; the conditioning-fold gradients
+unfolded.
 
 ``stage1_fused`` is a ``torch.autograd.Function``: its forward computes all
 gradients and its backward scales them by the scalar loss cotangent
 (fused.py:538-548). Only the loss is differentiable: rgb_c, rgb_f and w_f
 come back detached. The Function returns d(driving), so autograd carries
 it on into AudioNet, and d(bg) when the background is trained.
+
+Both levels' positions come from K15 (ops/kernels/points.py), which
+rounds as the PyTorch expression ro + rd z does, bit for bit. The JAX
+package keeps its kernel behind ``SAHS_PTS_KERNEL`` (fused.py:156-163)
+for a cost of its TPU layout (the 128-lane padded intermediate), which
+the port does not have, so the port takes the kernel on every step.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from ..ops.kernels.field_grid import corner_table
 from ..ops.kernels.grid_bwd import grid_dg
 from ..ops.kernels.level_train import level_train_apply
 from ..ops.kernels.nerf_level import level_param_grads
+from ..ops.kernels.points import build_pts
 from ..ops.sampling import coarse_z_vals, sample_pdf
 
 
@@ -147,9 +155,9 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
     table = corner_table(grid, cdt)
 
     def points(z):
-        # one float32 expression at both levels: every coarse point
+        # the same float32 roundings at both levels: every coarse point
         # reappears bit for bit among the sorted fine points
-        return (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3)
+        return build_pts(ro, rd, z)
 
     def noise_for(shape, injected):
         if fcfg.noise_std <= 0:

@@ -7,9 +7,11 @@ One step (reference nerf-pytorch/train_stage_rays_auto.py:273-544):
     ``fused_grads`` is on and the configuration is ``stage1_fused_eligible``,
     else the autograd fallback: ``render_rays(differentiable=True)`` and
     ``loss.backward()`` (stage1.py:256-294), through the differentiable
-    kernel ops (K1/K3, K5/K6 or K7/K8, K9; at a sample count the level
-    kernels do not take, the per-point branch's K11/K12 and K10), or with
-    ``use_pallas`` off through the plain modules (K10 for the grid sample);
+    kernel ops (K1/K3, or for a warp-only, ambient-only or
+    split-conditioning model K13/K14 a net; K5/K6 or K7/K8, K9; at a sample
+    count the level kernels do not take, the per-point branch's K11/K12
+    and K10), or with ``use_pallas`` off, or for a model without view
+    directions, through the plain modules (K10 for the grid sample);
   - Adam with the reference's exponential decay, lr0 * factor^(step /
     (lr_decay * 1000)) at the pre-update count (stage1.py:110-126);
   - the dynamic ``sample_prob`` carry and the metrics.
@@ -132,8 +134,10 @@ def make_optimizer(params, ts: TrainSettings) -> torch.optim.Adam:
 
 def _check_supported(spec: ModelSpec, ts: TrainSettings) -> None:
     """Raise NotImplementedError for what needs kernels still to be ported:
-    on the kernel path, a model outside ``kernel_path_ok``. The plain path
-    (use_pallas off) trains through autograd of the plain modules."""
+    on the kernel path, a model outside ``kernel_path_ok`` (view
+    directions without the grid). The plain path (use_pallas off, or a
+    model without view directions) trains through autograd of the plain
+    modules."""
     if ts.render.use_pallas:
         check_kernel_path(spec)
 

@@ -13,13 +13,17 @@ which no kernel ran.
 (the fallback with fuse_composite off: K1, K7, K8, K9, K3), ``pointwise``
 (64 + 128 samples, which the fine level's kernels do not tile: the coarse
 level on K5/K6, the fine level on the per-point branch, K11, K12, K10, with
-K1, K3 and K9) or ``plain`` (use_pallas off: autograd of the plain modules,
-K10 the only kernel of the port).
+K1, K3 and K9), ``plain`` (use_pallas off: autograd of the plain modules,
+K10 the only kernel of the port), ``warp_only`` (models.hyper.use_ambient
+off: the fallback with the warp net alone on K13 and K14, then K5, K6, K9)
+or ``ambient_only`` (models.warp.use_warp off: the hyper net alone on K13
+and K14).
 K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6:
 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce; K8 the
 same without composite_kernel; K3: pair_vjp_kernel, dw_kernel,
 dw_reduce; K12 as K8); K5 and K7 both as nerf_level_kernel; K10 as
-grid_bwd_fused_kernel, K11 as nerf_mlp_kernel.
+grid_bwd_fused_kernel, K11 as nerf_mlp_kernel; K13 as skip_mlp_kernel and
+K14 as skip_vjp_kernel, dw_kernel, dw_reduce.
 """
 from __future__ import annotations
 
@@ -38,11 +42,14 @@ def short_name(kernel: str) -> str:
     return name[:60]
 
 
-# path -> (runtime settings, train settings) over the flagship Config()
-PATHS = {"fused": ({}, {}), "fallback": ({"fused_grads": False}, {}),
-         "reuse": ({"fused_grads": False, "fuse_composite": False}, {}),
-         "pointwise": ({}, {"num_fine": 128}),
-         "plain": ({"use_pallas": False}, {})}
+# path -> (runtime settings, train settings, model settings) over the
+# flagship Config()
+PATHS = {"fused": ({}, {}, {}), "fallback": ({"fused_grads": False}, {}, {}),
+         "reuse": ({"fused_grads": False, "fuse_composite": False}, {}, {}),
+         "pointwise": ({}, {"num_fine": 128}, {}),
+         "plain": ({"use_pallas": False}, {}, {}),
+         "warp_only": ({}, {}, {("hyper", "use_ambient"): False}),
+         "ambient_only": ({}, {}, {("warp", "use_warp"): False})}
 
 
 def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
@@ -60,11 +67,13 @@ def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
     from . import stage1
 
     cfg = Config()
-    runtime, train = PATHS[path]
+    runtime, train, models = PATHS[path]
     for k, v in runtime.items():
         setattr(cfg.runtime, k, v)
     for k, v in train.items():
         setattr(cfg.nerf.train, k, v)
+    for (sub, k), v in models.items():
+        setattr(getattr(cfg.models, sub), k, v)
     spec = ModelSpec.from_config(cfg)
     ts = stage1.TrainSettings.from_config(cfg)
     dev = torch.device("cuda")

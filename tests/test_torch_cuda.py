@@ -1,12 +1,14 @@
 """The port's CUDA kernels on the card: K1 (deform pair), K5 (NeRF level),
 K2 (level train), K3 (pair backward), K4 (dGrid), K6 (level backward), K7
 (raw field), K8 (raw-field backward), K9 (dGrid from coordinates), K10
-(the grid sample's backward), K11 (the per-point field) and K12 (its
-backward) against their plain versions, the kernel path of render_rays
-against the plain path, train steps (fused, the autograd fallback on both
-of its paths, the per-point branch and the plain path) through the kernels
-against the same steps on the plain versions, and the fused step against
-the fallback step.
+(the grid sample's backward), K11 (the per-point field), K12 (its
+backward), K13 (one deformation MLP), K14 (its backward) and K15 (the
+sample positions) against their plain versions, the kernel path of
+render_rays against the plain path, train steps (fused, the autograd
+fallback on both of its paths, the per-point branch, the plain path, and
+the warp-only and ambient-only models) through the kernels against the
+same steps on the plain versions, and the fused step against the fallback
+step.
 Marked ``cuda``; without a CUDA device they skip. This file imports no JAX,
 so it runs on a machine without it:
 
@@ -30,6 +32,8 @@ from sahs_tpu_torch.ops.kernels import grid_bwd as k4
 from sahs_tpu_torch.ops.kernels import level_train as k2
 from sahs_tpu_torch.ops.kernels import nerf_level as k5
 from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+from sahs_tpu_torch.ops.kernels import points as k15
+from sahs_tpu_torch.ops.kernels import skip_mlp as k13
 from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays
 from sahs_tpu_torch.train import fused
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
@@ -293,10 +297,10 @@ def test_grid_dg_kernel_matches_plain(card, with_addend):
 
 @pytest.mark.cuda
 def test_train_step_kernel_path_matches_plain_path(card, monkeypatch):
-    """One float32 train step (256 rays, 64 + 64 samples) through K1-K4
-    against the same step with the plain versions put in the kernels'
-    place (no kernel launches then), same weights and draws: the loss
-    within 1e-5 relative, the gradients within the step's gates."""
+    """One float32 train step (256 rays, 64 + 64 samples) through K15 and
+    K1-K4 against the same step with the plain versions put in the
+    kernels' place (no kernel launches then), same weights and draws: the
+    loss within 1e-5 relative, the gradients within the step's gates."""
     from sahs_tpu_torch.train import stage1
     from sahs_tpu_torch.train.fused import TrainDraws
     from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
@@ -321,7 +325,8 @@ def test_train_step_kernel_path_matches_plain_path(card, monkeypatch):
             for lvl in (st.model.coarse, st.model.fine):
                 lvl.fc_alpha.bias.fill_(0.5)
         before = (k1.deform_pair_forward.launches, k2.nerf_level_train.launches,
-                  k1.deform_pair_vjp.launches, k4.grid_dg.launches)
+                  k1.deform_pair_vjp.launches, k4.grid_dg.launches,
+                  k15.build_pts.launches)
         step = stage1.make_train_step(spec, ts, device=dev)
         with monkeypatch.context() as mp:
             if not use_kernels:
@@ -329,15 +334,17 @@ def test_train_step_kernel_path_matches_plain_path(card, monkeypatch):
                 mp.setattr(fused, "deform_pair_vjp", k1.deform_pair_vjp_plain)
                 mp.setattr(fused, "grid_dg", k4.grid_dg_plain)
                 mp.setattr(k2, "nerf_level_train", k2.nerf_level_train_plain)
+                mp.setattr(fused, "build_pts", k15.build_pts_plain)
             st, m = step(st, batch, draws=draws)
         launches = (k1.deform_pair_forward.launches - before[0],
                     k2.nerf_level_train.launches - before[1],
                     k1.deform_pair_vjp.launches - before[2],
-                    k4.grid_dg.launches - before[3])
+                    k4.grid_dg.launches - before[3],
+                    k15.build_pts.launches - before[4])
         grads = {n: p.grad for n, p in st.model.named_parameters()}
         res[use_kernels] = (m, grads, launches, st.sample_prob)
     (m_k, g_k, l_k, sp_k), (m_p, g_p, l_p, sp_p) = res[True], res[False]
-    assert l_k == (2, 2, 1, 1) and l_p == (0, 0, 0, 0)
+    assert l_k == (2, 2, 1, 1, 2) and l_p == (0, 0, 0, 0, 0)
     assert abs(float(m_k["loss"]) - float(m_p["loss"])) <= 1e-5 * abs(float(m_p["loss"]))
     _grads_ok(g_k, g_p, "step")
     assert float((sp_k - sp_p).abs().max()) <= 1e-4
@@ -522,20 +529,25 @@ FALLBACK_KERNELS = {"deform_pair_forward": (k1, k1.deform_pair_plain),
                     "grid_dg_coords": (field_grid, k4.grid_dg_coords_plain),
                     "nerf_mlp_forward_fused": (field_grid, k11.nerf_mlp_plain),
                     "nerf_mlp_vjp": (field_grid, k2.nerf_mlp_vjp_plain),
-                    "grid_bwd_fused": (k4, k4.grid_bwd_fused_plain)}
+                    "grid_bwd_fused": (k4, k4.grid_bwd_fused_plain),
+                    "skip_mlp_forward": (k13, k13.skip_mlp_plain),
+                    "skip_mlp_vjp": (k13, k13.skip_mlp_vjp_plain)}
 COUNTERS = {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
             "K3": k1.deform_pair_vjp, "K4": k4.grid_dg,
             "K5": k5.nerf_level_forward, "K6": k2.nerf_level_vjp,
             "K7": k5.nerf_rayd_forward, "K8": k2.nerf_rayd_vjp,
             "K9": k4.grid_dg_coords, "K10": k4.grid_bwd_fused,
-            "K11": k11.nerf_mlp_forward_fused, "K12": k2.nerf_mlp_vjp}
+            "K11": k11.nerf_mlp_forward_fused, "K12": k2.nerf_mlp_vjp,
+            "K13": k13.skip_mlp_forward, "K14": k13.skip_mlp_vjp,
+            "K15": k15.build_pts}
 
 
 def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True,
-              samples=(64, 64), use_pallas=True):
+              samples=(64, 64), use_pallas=True, models=()):
     """One float32 flagship train step, 256 rays of a 64 x 64 frame, Sc +
-    Sn ``samples``, seeded draws; the fallback's kernels swapped for their
-    plain versions when ``plain``. Returns (loss, {name: grad}, {K: launches})."""
+    Sn ``samples``, seeded draws, ``models`` fields (sub, field, value) set
+    on the config; the fallback's kernels swapped for their plain versions
+    when ``plain``. Returns (loss, {name: grad}, {K: launches})."""
     from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
     from sahs_tpu_torch.train import stage1
     from sahs_tpu_torch.train.fused import TrainDraws
@@ -547,6 +559,8 @@ def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True,
     cfg.runtime.fused_grads = fused_grads
     cfg.runtime.fuse_composite = fuse_composite
     cfg.runtime.use_pallas = use_pallas
+    for sub, field, value in models:
+        setattr(getattr(cfg.models, sub), field, value)
     spec = nerface.ModelSpec.from_config(cfg)
     ts = stage1.TrainSettings.from_config(cfg)
     ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=64, W=64,
@@ -690,6 +704,96 @@ def test_pointwise_step_kernel_path_matches_plain_path(card, monkeypatch,
     loss_p, g_p, l_p = _f32_step(dev, monkeypatch, True, False, **kw)
     want = ({"K1": 2, "K3": 2, "K10": 2, "K11": 2, "K12": 2} if use_pallas
             else {"K10": 2})
+    assert l_k == {k: want.get(k, 0) for k in COUNTERS}, l_k
+    assert not any(l_p.values())
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    _grads_ok(g_k, g_p, "step")
+
+
+# ---------------------------------------------------------------------------
+# The one-net deformation kernels: K13 (one deformation MLP), K14 (its
+# backward, dW and the raw points' cotangent) and K15 (the sample
+# positions), and the warp-only and ambient-only steps that run K13/K14.
+# Gates as above; K15 bit for bit.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["warp", "hyper"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [1000, 96 * 48])
+def test_skip_mlp_kernels_match_plain(card, net, compute_dtype, P):
+    """K13 against its plain version on raw points (P not a multiple of
+    the 64-point tile, and 96 rays of 48), the warp net (6x128, tanh, 3)
+    and the hyper net (6x64, linear, 2); then K14's dW and the points'
+    cotangent from the cotangent of a loss of K13's plain output."""
+    dev, model, _, _, rng = card
+    cond = _gpu(dev, rng.randn(76 + 36) * 0.5)
+    weights = k13.prepare_skip(getattr(model, net), cond,
+                               nerface.build_pe_groups(model.spec)[0],
+                               "tanh" if net == "warp" else "linear")
+    pts = _gpu(dev, rng.uniform(-1.05, 1.05, (P, 3)))
+    counts = (k13.skip_mlp_forward.launches, k13.skip_mlp_vjp.launches)
+    y_k = k13.skip_mlp_forward(pts, weights, compute_dtype)
+    y_p = k13.skip_mlp_plain(pts, weights, compute_dtype)
+    torch.cuda.synchronize()
+    out = 3 if net == "warp" else 2
+    assert y_k.shape == (P, out) and torch.isfinite(y_k).all()
+    if compute_dtype == "float32":
+        assert float((y_k - y_p).abs().max()) <= 1e-4
+    else:
+        assert _scaled(y_k, y_p) <= 2e-2
+    g = 2.0 * (y_p - _gpu(dev, rng.randn(P, out) * 0.1)) / P
+    gx_k, g_k = k13.skip_mlp_vjp(pts, weights, g, True, compute_dtype)
+    gx_p, g_p = k13.skip_mlp_vjp_plain(pts, weights, g, True, compute_dtype)
+    none, g_n = k13.skip_mlp_vjp(pts, weights, g, False, compute_dtype)
+    torch.cuda.synchronize()
+    assert (k13.skip_mlp_forward.launches, k13.skip_mlp_vjp.launches) == (
+        counts[0] + 1, counts[1] + 2)
+    assert gx_k.shape == (P, 3) and none is None
+    # the points' cotangent: PE frequencies to 2^9 make it the sum of a
+    # few large terms, so a bf16 pre-activation that rounds across a ReLU
+    # kink moves its point's cotangent wholly, and at a thousand points one
+    # such point alone is ~1 % of the L2 norm: in bf16 the count of points
+    # off stands beside the L2 gate
+    e = point_errors(gx_k, gx_p, 1e-4)
+    assert e["cosine"] >= 0.9999 and (
+        e["n_over"] <= POINT_FLIPS if compute_dtype == "float32"
+        else e["l2_rel"] <= 1e-2 or e["n_over"] <= POINT_FLIPS), e
+    _grads_ok(g_k, g_p, compute_dtype)
+    _grads_ok(g_n, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(2048, 64), (2048, 128), (37, 63)])
+def test_build_pts_kernel_matches_points(card, R, S):
+    """K15 bit for bit against the fused step's PyTorch expression."""
+    dev, _, _, _, rng = card
+    ro = _gpu(dev, rng.randn(R, 3) * 0.3)
+    rd = _gpu(dev, rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    z = _gpu(dev, np.sort(rng.uniform(0.2, 0.8, (R, S)), axis=-1))
+    before = k15.build_pts.launches
+    out = k15.build_pts(ro, rd, z)
+    torch.cuda.synchronize()
+    assert k15.build_pts.launches == before + 1
+    assert torch.equal(out, k15.build_pts_plain(ro, rd, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["warp_only", "ambient_only"])
+def test_one_net_step_kernel_path_matches_plain_path(card, monkeypatch, kind):
+    """One float32 step of a one-net model through the kernels against the
+    same step on their plain versions: the warp-only model at 48 + 48 (the
+    per-point branch at both levels: K13, K11, then K12, K10, K14) and the
+    ambient-only model at 64 + 64 (K13, K5, then K6, K9, K14)."""
+    dev = card[0]
+    if kind == "warp_only":
+        kw = dict(samples=(48, 48), models=(("hyper", "use_ambient", False),))
+        want = {"K13": 2, "K14": 2, "K10": 2, "K11": 2, "K12": 2}
+    else:
+        kw = dict(models=(("warp", "use_warp", False),))
+        want = {"K13": 2, "K14": 2, "K5": 2, "K6": 2, "K9": 2}
+    loss_k, g_k, l_k = _f32_step(dev, monkeypatch, False, True, **kw)
+    loss_p, g_p, l_p = _f32_step(dev, monkeypatch, True, True, **kw)
     assert l_k == {k: want.get(k, 0) for k in COUNTERS}, l_k
     assert not any(l_p.values())
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)

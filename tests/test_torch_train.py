@@ -535,32 +535,40 @@ def test_train_step_matches_jax(tiny_setup):
 
 def test_train_entry_points_refuse_what_is_not_ported(tiny_setup, monkeypatch):
     """What still needs kernels raises NotImplementedError naming them: a
-    warp-only model (K13 skip_mlp_forward) on the kernel path, in training
-    and in rendering; without CUDA and without a device the entry points
+    model with view directions and no spatial-embedding grid (the
+    grid-free forms of K5, K7 and K11) on the kernel path, in training and
+    in rendering; without CUDA and without a device the entry points
     raise. A sample count that does not tile the level kernels (the
-    per-point branch) and a train step with use_pallas off (the plain
-    path, where the warp-only model trains too) are taken."""
+    per-point branch), a train step with use_pallas off (the plain path,
+    where the grid-free model trains too), and the warp-only and
+    ambient-only models on the kernel path (K13, K14) are taken."""
     _, _, _, _, _, _, tspec, tts = tiny_setup
     plain = dataclasses.replace(tts, render=dataclasses.replace(tts.render,
                                                                 use_pallas=False))
     odd = dataclasses.replace(tts, render=dataclasses.replace(tts.render,
                                                               num_coarse=12))
-    warp_cfg = tiny_cfg(TConfig)
-    warp_cfg.models.hyper.use_ambient = False
-    warp_spec = tn.ModelSpec.from_config(warp_cfg)
-    warp_ts = tstage1.TrainSettings.from_config(warp_cfg)
-    warp_plain = dataclasses.replace(
-        warp_ts, render=dataclasses.replace(warp_ts.render, use_pallas=False))
-    for spec, ts in ((tspec, plain), (tspec, odd), (warp_spec, warp_plain)):
+    taken = [(tspec, plain), (tspec, odd)]
+    for sub, field in (("hyper", "use_ambient"), ("warp", "use_warp"),
+                       ("coarse", "use_spatial_embeddings")):
+        c = tiny_cfg(TConfig)
+        setattr(getattr(c.models, sub), field, False)
+        spec, ts = tn.ModelSpec.from_config(c), tstage1.TrainSettings.from_config(c)
+        if sub != "coarse":
+            taken.append((spec, ts))
+    grid_free, grid_free_ts = spec, ts
+    taken.append((grid_free, dataclasses.replace(
+        grid_free_ts, render=dataclasses.replace(grid_free_ts.render,
+                                                 use_pallas=False))))
+    for spec, ts in taken:
         st = tstage1.init_train_state(spec, ts, device="cpu")
         assert callable(tstage1.make_train_step(spec, ts, device="cpu"))
         assert next(st.model.parameters()).device.type == "cpu"
     for entry in (tstage1.make_train_step, tstage1.init_train_state):
-        with pytest.raises(NotImplementedError, match="K13"):
-            entry(warp_spec, warp_ts, device="cpu")
-    warp_model = tn.NeRFaceModel.init(warp_spec, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="K13"):
-        tn.make_render_fns(warp_model, torch.zeros(16, 29), torch.eye(4)[:3],
+        with pytest.raises(NotImplementedError, match="grid-free forms of K5"):
+            entry(grid_free, grid_free_ts, device="cpu")
+    model = tn.NeRFaceModel.init(grid_free, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="grid-free forms of K5"):
+        tn.make_render_fns(model, torch.zeros(16, 29), torch.eye(4)[:3],
                            use_pallas=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
