@@ -127,7 +127,41 @@ Phases, in order (any failure exits non-zero and prints no result):
      step (K1 = K2 = K15 = 2, K3 = K4 = 1); then
      K13 at the frame's fine chunk (held against its plain version there),
      K14 at a step's fine level and K15 at the fused step's, beside their
-     plain versions, the library yardsticks and the bounds.
+     plain versions, the library yardsticks and the bounds;
+ 13. grid-free parity: the flagship with models.coarse.use_spatial_embeddings
+     off (view directions, no grid) on the kernel path: K1 without rows,
+     K2, K5, K6, K7, K8, K11 and K12 with C = 0, each held against its plain
+     version on the arguments its path gives it (recorded around the plain
+     versions on one step of the fused path, fallback path 1, the reuse
+     path and the per-point step at 64 + 128), float32 at 256 rays and
+     bfloat16 at 2048, with the gates of phases 2, 5, 7 and 9; a fault
+     planted in each kernel's bf16 result must miss them (K1 with its hyper
+     bias at 1; K5, K7, K11 without the alpha bias; K2, K6, K12's bias
+     gradient dropped; K8's first split-K chunk dropped); whole float32
+     steps at 256 rays through the kernels against the same steps on the
+     plain versions (STEP_GATES, launch counts checked) for the fused and
+     the per-point step, and the fused step against the fallback step
+     (FUSED_VS_FALLBACK);
+ 14. the grid-free paths on the card, launch counters set to 0 just before
+     each and checked just after, K4 = K9 = K10 = 0: a 512x512 frame at
+     64 + 64 (K1 = K5 = 2 a chunk), the fused step (2 warm-up + 10 timed;
+     K1 = K2 = K15 = 2, K3 = 1), fallback path 1 (K1 = K3 = K5 = K6 = 2),
+     the reuse path (K1 = K3 = K7 = K8 = 2) and the per-point step at
+     64 + 128 (K1 = K3 = 2, K5 = K6 = K11 = K12 = 1), 2 warm-up and 3 timed
+     steps each, each printed beside the flagship's reading of this run;
+     then each grid-free kernel per call at 2048 rays beside its plain
+     version;
+ 15. the tools' experiment kernels X1-X6: both tools' main()
+     (sahs_tpu_torch/tools/exp_gather.py and exp_pair2.py: every case at
+     262,144 rows), with the X counters set to 0 just before and read just
+     after; every case's kernel against its plain version on the card
+     (TOOL_GATES: X2 and X3 to float32 summation order, X1's row sums
+     within 1e-3 L2-relative and 1e-2 of the largest, X4-X6 within 1e-3
+     and 5e-2 absolute), a fault planted in each (one layer short, every
+     index moved by one, the last layer's weights transposed) missing
+     them, and every case's ms beside its bound, its plain version and a
+     library call (a cuBLAS bf16 chain, torch.gather on the tiled view,
+     indexing of the (N, L) table, tanh chains).
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -138,7 +172,6 @@ import contextlib
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -156,29 +189,11 @@ def fail(msg: str) -> int:
     return 1
 
 
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_time(fn, reps: int, warmup: int = 1) -> float:
-    """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def cuda_time(fn, reps: int) -> float:
+    """Mean ms per call over ``reps`` calls after one warm-up, CUDA events:
+    the port's timer, ``utils.device.cuda_ms``."""
+    from sahs_tpu_torch.utils.device import cuda_ms
+    return cuda_ms(fn, reps)
 
 
 def rel_err(a, b) -> float:
@@ -307,7 +322,15 @@ def kernel_counters() -> dict:
             "K9": k4.grid_dg_coords, "K10": k4.grid_bwd_fused,
             "K11": k11.nerf_mlp_forward_fused, "K12": k2.nerf_mlp_vjp,
             "K13": k13.skip_mlp_forward, "K14": k13.skip_mlp_vjp,
-            "K15": k15.build_pts}
+            "K15": k15.build_pts, **tool_counters()}
+
+
+def tool_counters() -> dict:
+    """The launch counter holders of the tools' experiment kernels."""
+    from sahs_tpu_torch.tools import exp_gather as xg
+    from sahs_tpu_torch.tools import exp_pair2 as xp
+    return {"X1": xg.chain_rows, "X2": xg.dg_rows, "X3": xg.chunk_rows,
+            "X4": xp.narrow_call, "X5": xp.paired_call, "X6": xp.reshape_call}
 
 
 def fused_swaps():
@@ -498,7 +521,7 @@ def train_gates_missed(res, compute_dtype) -> list:
                 r[q]["cosine"] >= g["cosine"]
                 and (r[q]["n_over"] <= g["point_flips"] if f32
                      else r[q]["l2_rel"] <= g["point_l2_rel"])
-                for q in ("gx", "gse", "gbg"))
+                for q in ("gx", "gse", "gbg") if q in r)
             if not (r["finite"] and out_ok and points_ok):
                 missed.append(name)
         if not dw_ok({"l2_rel": r["dw_l2_rel"], "cosine": r["dw_cosine"]}, g):
@@ -1222,6 +1245,8 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
 ONE_NET = {"warp_only": (("hyper", "use_ambient", False),),
            "ambient_only": (("warp", "use_warp", False),),
            "split": (("hyper", "include_driving", False),)}
+# the flagship without the spatial-embedding grid (phases 13 and 14)
+GRID_FREE = {"grid_free": (("coarse", "use_spatial_embeddings", False),)}
 # K14's points' cotangent in float32 against its plain version, L2-relative
 # over the points whose ReLUs did not flip (phase 11's K14 gate beside
 # TRAIN_F32_GATES)
@@ -1232,12 +1257,12 @@ SKIP_RAYS = {"float32": 256, "bfloat16": 2048}
 
 
 def path_cfg(kind, rays=None, compute_dtype=None, num_fine=None, **runtime):
-    """The flagship Config() with ``kind``'s model (ONE_NET; "flagship"
-    keeps the pair), ``rays`` and ``num_fine`` samples a step and
-    ``runtime`` settings."""
+    """The flagship Config() with ``kind``'s model (ONE_NET, GRID_FREE;
+    "flagship" keeps the pair and the grid), ``rays`` and ``num_fine``
+    samples a step and ``runtime`` settings."""
     from sahs_tpu_torch.config import Config
     cfg = Config()
-    for sub, field, value in ONE_NET.get(kind, ()):
+    for sub, field, value in {**ONE_NET, **GRID_FREE}.get(kind, ()):
         setattr(getattr(cfg.models, sub), field, value)
     if rays is not None:
         cfg.nerf.train.num_random_rays = rays
@@ -1704,6 +1729,550 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
     return ""
 
 
+# ---------------------------------------------------------------------------
+# Phases 13 and 14: the grid-free model (view directions, no spatial-
+# embedding grid) on the kernel path: K1 without rows, K2, K5-K8, K11 and
+# K12 with C = 0; no K4, K9 or K10
+# ---------------------------------------------------------------------------
+
+# phase 13's rays a step by compute dtype, as phases 5, 7 and 9
+GRID_FREE_RAYS = {"float32": 256, "bfloat16": 2048}
+# path -> (runtime settings, fine samples, the kernels it records and
+# (module name, wrapper names) of their lookups)
+GRID_FREE_RECORD = {
+    "fused": ({}, 64, (("fused", ("deform_pair_forward",)),
+                       ("level_train", ("nerf_level_train",)))),
+    "fallback": ({"fused_grads": False}, 64,
+                 (("field_grid", ("nerf_level_forward", "nerf_level_vjp")),)),
+    "reuse": ({"fused_grads": False, "fuse_composite": False}, 64,
+              (("field_grid", ("nerf_rayd_forward", "nerf_rayd_vjp")),)),
+    "per_point": ({}, 128, (("field_grid", ("nerf_mlp_forward_fused",
+                                            "nerf_mlp_vjp")),)),
+}
+# path -> the launches of one grid-free step (K4 = K9 = K10 = 0)
+GRID_FREE_LAUNCHES = {
+    "fused": {"K1": 2, "K2": 2, "K3": 1, "K15": 2},
+    "fallback": {"K1": 2, "K3": 2, "K5": 2, "K6": 2},
+    "reuse": {"K1": 2, "K3": 2, "K7": 2, "K8": 2},
+    "per_point": {"K1": 2, "K3": 2, "K5": 1, "K6": 1, "K11": 1, "K12": 1},
+}
+
+
+def grid_free_inputs(dev, batch, R, compute_dtype, n_pix, seed) -> dict:
+    """The arguments the grid-free model's paths give K1, K2, K5-K8, K11 and
+    K12 on one step each (their plain versions in the kernels' place),
+    recorded around the wrappers: {kernel name: [args of each call]}."""
+    from sahs_tpu_torch.ops.kernels import field_grid
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.train import fused
+    modules = {"fused": fused, "level_train": k2, "field_grid": field_grid}
+    out = {}
+    for path, (runtime, Sn, record) in GRID_FREE_RECORD.items():
+        swaps = fused_swaps() + fallback_swaps()
+        held = []
+        for mod, names in record:
+            swaps, calls = recorded(swaps, modules[mod], names)
+            held.append(calls)
+        cfg = path_cfg("grid_free", R, compute_dtype, num_fine=Sn, **runtime)
+        run_step(dev, batch, make_draws(R, n_pix, seed, dev, Sn=Sn), cfg, swaps)
+        for calls in held:
+            out.update(calls)
+    return out
+
+
+def _fine(calls):
+    """The call of a kernel with the most points (the fine level)."""
+    return max(calls, key=lambda a: a[0].shape[0])
+
+
+def grid_free_parity(inp):
+    """Each grid-free kernel against its plain version on the paths' own
+    inputs (``grid_free_inputs``), in the schemas that train_gates_missed
+    and fallback_gates_missed gate. Returns (errors, the kernels' dW trees)
+    and raises nothing."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.utils.compare import leaves, point_errors, tree_errors
+    tol = TRAIN_F32_GATES["point_tol"]
+    worst_abs = lambda a, b: max(abs_err(x, y) for (_, x), (_, y)
+                                 in zip(leaves(a), leaves(b)))
+    fin = lambda *ts: bool(all(torch.isfinite(t).all() for t in ts if t is not None))
+
+    def dw(g_k, g_p):
+        e = tree_errors(g_k, g_p)
+        return {"dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
+                "dw_worst_leaf": e["worst_leaf"], "max_abs_err": worst_abs(g_k, g_p)}
+
+    res, trees = {}, {}
+    for i, a in enumerate(sorted(inp["deform_pair_forward"], key=lambda a: a[0].shape[0])):
+        (out_k, rows_k), (out_p, rows_p) = k1.deform_pair_forward(*a), k1.deform_pair_plain(*a)
+        res[f"k1 {('coarse', 'fine')[i]}"] = {
+            "abs": abs_err(out_k, out_p), **k1_errors(out_k, out_p, a[0]),
+            "max_abs_err": abs_err(out_k, out_p),
+            "no_rows": rows_k is None and rows_p is None, "finite": fin(out_k)}
+    a = _fine(inp["nerf_level_train"])
+    rgb_k, w_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*a)
+    rgb_p, w_p, gx_p, gse_p, gbg_p, g_p = k2.nerf_level_train_plain(*a)
+    trees["k2"] = g_k
+    res["k2 fine"] = {"rgb_abs": abs_err(rgb_k, rgb_p), "w_abs": abs_err(w_k, w_p),
+                      "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
+                      "gx": point_errors(gx_k, gx_p, tol), **dw(g_k, g_p),
+                      "finite": fin(rgb_k, w_k, gx_k, gbg_k) and gse_k is None}
+    if gbg_k is not None:
+        res["k2 fine"]["gbg"] = point_errors(gbg_k, gbg_p, tol)
+    res["k2 fine"]["max_abs_err"] = max(abs_err(rgb_k, rgb_p), abs_err(w_k, w_p))
+    a = _fine(inp["nerf_level_forward"])
+    rgb_k, w_k = k5.nerf_level_forward(*a)
+    rgb_p, w_p = k5.nerf_level_plain(*a)
+    res["k5 fine"] = {"rgb_abs": abs_err(rgb_k, rgb_p), "w_abs": abs_err(w_k, w_p),
+                      "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
+                      "max_abs_err": max(abs_err(rgb_k, rgb_p), abs_err(w_k, w_p)),
+                      "finite": fin(rgb_k, w_k)}
+    a = _fine(inp["nerf_level_vjp"])
+    gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*a)
+    gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*a)
+    trees["k6"] = g_k
+    res["k6 fine"] = {"gx": point_errors(gx_k, gx_p, tol), **dw(g_k, g_p),
+                      "finite": fin(gx_k, gbg_k) and gse_k is None}
+    if gbg_k is not None:
+        res["k6 fine"]["gbg"] = point_errors(gbg_k, gbg_p, tol)
+    for name, fk, fp in (("k7", k5.nerf_rayd_forward, k5.nerf_raw_plain),
+                         ("k11", k11.nerf_mlp_forward_fused, k11.nerf_mlp_plain)):
+        key = {"k7": "nerf_rayd_forward", "k11": "nerf_mlp_forward_fused"}[name]
+        a = _fine(inp[key])
+        raw_k, raw_p = fk(*a), fp(*a)
+        res[name] = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": scaled_err(raw_k, raw_p),
+                     "max_abs_err": abs_err(raw_k, raw_p), "finite": fin(raw_k)}
+    a = _fine(inp["nerf_rayd_vjp"])
+    gx_k, gse_k, g_k = k2.nerf_rayd_vjp(*a)
+    gx_p, gse_p, g_p = k2.nerf_rayd_vjp_plain(*a)
+    trees["k8"] = g_k
+    res["k8"] = {"gx": point_errors(gx_k, gx_p, tol), **dw(g_k, g_p),
+                 "finite": fin(gx_k) and gse_k is None}
+    a = _fine(inp["nerf_mlp_vjp"])
+    gx_k, ge_k, g_k = k2.nerf_mlp_vjp(*a)
+    gx_p, ge_p, g_p = k2.nerf_mlp_vjp_plain(*a)
+    trees["k12"] = g_k
+    res["k12"] = {"gx": point_errors(gx_k, gx_p, tol),
+                  "gextra": point_errors(ge_k, ge_p, tol), **dw(g_k, g_p),
+                  "finite": fin(gx_k, ge_k) and tuple(ge_k.shape) == (gx_k.shape[0], 3)}
+    torch.cuda.synchronize()
+    return res, trees
+
+
+def grid_free_gates_missed(res, compute_dtype) -> list:
+    """Phases 5, 7 and 9's gates on the grid-free kernels: K1's packed
+    points as phase 2 holds them (1e-4 absolute in float32, 2e-2 of each
+    output group's scale in bf16) and no rows; K2 as train_gates_missed,
+    the rest as fallback_gates_missed."""
+    f32 = compute_dtype == "float32"
+    missed = []
+    for name, r in res.items():
+        if name.startswith("k1 "):
+            ok = r["finite"] and r["no_rows"] and (
+                r["abs"] <= 1e-4 if f32
+                else max(r["k1_scaled_warp"], r["k1_scaled_ambient"]) <= BF16_GATE)
+            if not ok:
+                missed.append(name)
+    missed += train_gates_missed({k: v for k, v in res.items() if k.startswith("k2 ")},
+                                 compute_dtype)
+    missed += fallback_gates_missed({k: v for k, v in res.items()
+                                     if not k.startswith(("k1 ", "k2 "))}, compute_dtype)
+    return missed
+
+
+def grid_free_planted_faults(inp, trees) -> dict:
+    """What the gates see with one fault planted in each grid-free kernel's
+    own bf16 results: K1 without the hyper head's bias (its ambient output
+    against the plain version's); K5, K7 and K11 without the alpha head's
+    bias (max |a - b| / max |b| of their outputs); K2, K6 and K12's bias
+    gradient of trunk[1] dropped; the points of K8's first split-K chunk
+    dropped (the plain dW over them taken off). Each must miss."""
+    import dataclasses
+    import torch
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    from sahs_tpu_torch.utils.compare import tree_errors
+
+    def no_alpha_bias(lvl):
+        return dataclasses.replace(lvl, alpha={"w": lvl.alpha["w"],
+                                               "b": torch.zeros_like(lvl.alpha["b"])},
+                                   _blobs={})
+
+    out = {}
+    a = _fine(inp["deform_pair_forward"])
+    pair = a[1]
+    bad = dataclasses.replace(pair, hyper_out={"w": pair.hyper_out["w"],
+                                               "b": torch.ones_like(pair.hyper_out["b"])},
+                              _blobs={})
+    out["k1 with the hyper head's bias set to 1"] = {"raw_scaled": k1_errors(
+        k1.deform_pair_forward(a[0], bad, *a[2:])[0], k1.deform_pair_plain(*a)[0],
+        a[0])["k1_scaled_ambient"]}
+    a = _fine(inp["nerf_level_forward"])
+    rgb_k, w_k = k5.nerf_level_forward(*a[:7], no_alpha_bias(a[7]), *a[8:])
+    rgb_p, w_p = k5.nerf_level_plain(*a)
+    out["k5 without the alpha bias"] = {"raw_scaled": max(scaled_err(rgb_k, rgb_p),
+                                                          scaled_err(w_k, w_p))}
+    for name, key, fk, fp, wi in (
+            ("k7", "nerf_rayd_forward", k5.nerf_rayd_forward, k5.nerf_raw_plain, 4),
+            ("k11", "nerf_mlp_forward_fused", k11.nerf_mlp_forward_fused,
+             k11.nerf_mlp_plain, 2)):
+        a = _fine(inp[key])
+        bad_args = a[:wi] + (no_alpha_bias(a[wi]),) + a[wi + 1:]
+        out[f"{name} without the alpha bias"] = {"raw_scaled": scaled_err(
+            fk(*bad_args), fp(*a))}
+    for name, key, plain, gi in (("k2", "nerf_level_train", k2.nerf_level_train_plain, 5),
+                                 ("k6", "nerf_level_vjp", k2.nerf_level_vjp_plain, 3),
+                                 ("k12", "nerf_mlp_vjp", k2.nerf_mlp_vjp_plain, 2)):
+        g_p = plain(*_fine(inp[key]))[gi]
+        out[f"{name} bias trunk[1]"] = tree_errors(_drop_bias(trees[name], ["trunk", 1]), g_p)
+    args = _fine(inp["nerf_rayd_vjp"])
+    R = args[1].shape[0]
+    P, S = args[0].shape[0], args[0].shape[0] // R
+    n_tiles = -(-P // k2.TP)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP // S
+    sub = (args[0][:n * S], args[1][:n], None, None, args[4][:n * S]) + args[5:]
+    g_c = k2.nerf_rayd_vjp_plain(*sub)[2]
+    out[f"k8 chunk 0 ({n} rays)"] = tree_errors(
+        _tree_sub(trees["k8"], g_c), k2.nerf_rayd_vjp_plain(*args)[2])
+    return out
+
+
+def phase13_grid_free_parity(dev, batch, n_pix, report) -> list:
+    """Phase 13. Returns the gates missed and keeps, in ``report``, what it
+    measured; the bf16 inputs stay in report["_grid_free_bf16"] for phase
+    14's per-kernel times."""
+    from sahs_tpu_torch.utils.compare import tree_errors
+    missed, rows = [], []
+    for compute_dtype, R in GRID_FREE_RAYS.items():
+        inp = grid_free_inputs(dev, batch, R, compute_dtype, n_pix, 31)
+        res, trees = grid_free_parity(inp)
+        rows.append({"dtype": compute_dtype, "rays": R, **res})
+        print("grid-free parity " + json.dumps(rows[-1]), flush=True)
+        missed += [f"{m} (grid-free, {compute_dtype}, {R} rays)"
+                   for m in grid_free_gates_missed(res, compute_dtype)]
+        if compute_dtype == "bfloat16":
+            faults = grid_free_planted_faults(inp, trees)
+            report["grid_free_bf16"] = (inp, res)
+    report["grid_free_parity"] = rows
+    report["grid_free_planted_faults"] = faults
+    print("grid-free planted faults (bf16, the paths' shapes; each must miss the "
+          "gates) " + json.dumps(faults), flush=True)
+    missed += [f"the gates pass a planted fault: {k}"
+               for k, e in faults.items() if fault_passes(e)]
+    # whole float32 steps (256 rays): the fused and the per-point step,
+    # kernels against plain versions, and the fused step against the
+    # fallback step
+    R = GRID_FREE_RAYS["float32"]
+    check = {}
+    for path, Sn, fused_grads in (("fused", 64, True), ("per_point", 128, True),
+                                  ("fallback", 64, False)):
+        draws = make_draws(R, n_pix, 3, dev, Sn=Sn)
+        cfg = path_cfg("grid_free", R, "float32", num_fine=Sn, fused_grads=fused_grads)
+        k_ = run_step(dev, batch, draws, cfg)
+        check[path] = {"launches": k_[2], "loss": k_[0], "grads": k_[1]}
+        if path == "fallback":
+            continue
+        p_ = run_step(dev, batch, draws, cfg, fused_swaps() + fallback_swaps())
+        check[path].update(loss_rel=abs(k_[0] - p_[0]) / abs(p_[0]),
+                           kernels_vs_plain=tree_errors(k_[1], p_[1]))
+        if (check[path]["loss_rel"] > STEP_GATES["loss_rel"]
+                or not dw_ok(check[path]["kernels_vs_plain"], STEP_GATES)):
+            missed.append(f"f32 grid-free {path} step: {check[path]}")
+    for path in check:
+        if check[path]["launches"] != GRID_FREE_LAUNCHES[path]:
+            missed.append(f"f32 grid-free {path} step launched "
+                          f"{check[path]['launches']}, not {GRID_FREE_LAUNCHES[path]}")
+    f, b = check["fused"], check["fallback"]
+    vs = {"loss_rel": abs(f["loss"] - b["loss"]) / abs(b["loss"]),
+          **tree_errors(f["grads"], b["grads"])}
+    if vs["loss_rel"] > STEP_GATES["loss_rel"] or not dw_ok(vs, FUSED_VS_FALLBACK):
+        missed.append(f"grid-free fused step against the fallback step: {vs}")
+    steps = {p: {k: v for k, v in c.items() if k != "grads"} for p, c in check.items()}
+    steps["fused_vs_fallback"] = vs
+    report["grid_free_steps_f32"] = steps
+    print("grid-free steps f32 (256 rays), every gradient leaf against the plain "
+          "step on the card, and the fused step against the fallback step "
+          + json.dumps(steps), flush=True)
+    return missed
+
+
+def phase14_grid_free_paths(dev, ds, near, far, time_path, time_frame, report,
+                            kernels) -> str:
+    """Phase 14. Times the grid-free frame and its steps on every path
+    (launch counters zeroed before each run and checked after it, K4, K9
+    and K10 at zero), prints them beside the flagship's readings of this
+    run, then the grid-free kernels per call; adds the paths' launches to
+    the kernels' entries. Returns a failure message, or ""."""
+    import torch
+    from sahs_tpu_torch.evaluation import make_eval_renderer
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.render.pipeline import RenderSettings
+    item = ds[0]
+    cfg = path_cfg("grid_free")
+    spec = nerface.ModelSpec.from_config(cfg)
+    s = RenderSettings.from_config(cfg, "validation")
+    render = make_eval_renderer(spec, s, ds.H, ds.W, near, far, device=dev)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    n = math.ceil(ds.H * ds.W / min(s.chunksize, 32768))
+    paths = {"frame": time_frame(
+        lambda: render(model, item["intrinsics"], item["pose"], item["driving"],
+                       ds.background()), {"K1": 2 * n, "K5": 2 * n})}
+    del model
+    for path, steps in (("fused", 10), ("fallback", 3), ("reuse", 3),
+                        ("per_point", 3)):
+        runtime, Sn, _ = GRID_FREE_RECORD[path]
+        paths[f"{path} step"] = time_path(path_cfg("grid_free", num_fine=Sn, **runtime),
+                                          ds, GRID_FREE_LAUNCHES[path], n_steps=steps)
+    report["grid_free_paths"] = paths
+    # the flagship's readings of the same paths in this run (phases 3, 6, 8, 10)
+    flagship = {"frame": report["frame"]["ms"], "fused step": report["train"]["ms"],
+                "fallback step": report["fallback_paths"]["1 fallback step"]["ms"],
+                "reuse step": report["fallback_paths"]["2 reuse step"]["ms"],
+                "per_point step": report["pointwise_paths"]["2 per-point step"]["ms"]}
+    report["grid_free_vs_flagship"] = {n_: {"grid_free_ms": paths[n_]["ms"],
+                                           "flagship_ms": flagship[n_]} for n_ in paths}
+    for name, r in paths.items():
+        print(f"grid-free {name}: {r['ms']:.1f} ms on the card (CUDA events), "
+              f"{r['host_ms']:.1f} ms on the host clock, launches "
+              f"{r.get('launches_per_step', r.get('launches'))}"
+              + (" per step" if "launches_per_step" in r else "")
+              + f"; the flagship's in this run {flagship[name]:.1f} ms", flush=True)
+    bad = {n_: r["checks"] for n_, r in paths.items() if not all(r["checks"].values())}
+    if bad:
+        return f"grid-free path checks failed: {bad}"
+
+    # per-call times of the grid-free kernels on phase 13's bf16 inputs
+    # (2048 rays, the fine level), beside their plain versions and bounds
+    inp, res = report.pop("grid_free_bf16")
+    rows = {}
+    for name, key, fk, fp, err in (
+            ("k1", "deform_pair_forward", k1.deform_pair_forward, k1.deform_pair_plain,
+             res["k1 fine"]["max_abs_err"]),
+            ("k2", "nerf_level_train", k2.nerf_level_train, k2.nerf_level_train_plain,
+             res["k2 fine"]["max_abs_err"]),
+            ("k5", "nerf_level_forward", k5.nerf_level_forward, k5.nerf_level_plain,
+             res["k5 fine"]["max_abs_err"]),
+            ("k6", "nerf_level_vjp", k2.nerf_level_vjp, k2.nerf_level_vjp_plain,
+             res["k6 fine"]["max_abs_err"]),
+            ("k7", "nerf_rayd_forward", k5.nerf_rayd_forward, k5.nerf_raw_plain,
+             res["k7"]["max_abs_err"]),
+            ("k8", "nerf_rayd_vjp", k2.nerf_rayd_vjp, k2.nerf_rayd_vjp_plain,
+             res["k8"]["max_abs_err"]),
+            ("k11", "nerf_mlp_forward_fused", k11.nerf_mlp_forward_fused,
+             k11.nerf_mlp_plain, res["k11"]["max_abs_err"]),
+            ("k12", "nerf_mlp_vjp", k2.nerf_mlp_vjp, k2.nerf_mlp_vjp_plain,
+             res["k12"]["max_abs_err"])):
+        a = _fine(inp[key])
+        rows[name] = {"ms": cuda_time(lambda: fk(*a), 3),
+                      "plain_ms": cuda_time(lambda: fp(*a), 1),
+                      "points": a[0].shape[0], "max_abs_err": err}
+    report["grid_free_kernels"] = rows
+    for name, r in rows.items():
+        print(f"grid-free {name}: {r['ms']:.2f} ms at {r['points']} points "
+              f"(plain {r['plain_ms']:.2f} ms)", flush=True)
+    launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
+                           + r.get("launches", {}).get(k, 0)) for r in paths.values())
+                for k in kernel_counters()}
+    if launches["K4"] or launches["K9"] or launches["K10"]:
+        return f"a grid-free path launched K4, K9 or K10: {launches}"
+    names = {"deform_pair": "K1", "level_train": "K2", "deform_pair_vjp": "K3",
+             "nerf_level": "K5", "nerf_level_vjp": "K6", "nerf_rayd_forward": "K7",
+             "nerf_rayd_vjp": "K8", "nerf_mlp_forward_fused": "K11",
+             "nerf_mlp_vjp": "K12", "build_pts": "K15"}
+    for kk in kernels:
+        key = names.get(kk["name"])
+        if key and launches[key]:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["grid-free paths"] = launches[key]
+            kk["launches"] += launches[key]
+    return ""
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the tools' experiment kernels X1-X6
+# ---------------------------------------------------------------------------
+
+# X1's gates against its plain version: the row sums' L2-relative error and
+# the worst row against the largest (bf16 rounds every layer's activation);
+# X4-X6: L2-relative and the worst entry, absolute; X2 and X3 sum the same
+# values in another order
+TOOL_GATES = {"X1": (1e-3, 1e-2), "X2": (1e-6, None), "X3": (1e-6, None),
+              "X4": (1e-3, 5e-2), "X5": (1e-3, 5e-2), "X6": (1e-3, 5e-2)}
+TOOLS = {"X1": ("chain_rows", "sahs_tpu_torch/csrc/exp_gather.cu", "tools/exp_gather.py:52"),
+         "X2": ("dg_rows", "sahs_tpu_torch/csrc/exp_gather.cu", "tools/exp_gather.py:78"),
+         "X3": ("chunk_rows", "sahs_tpu_torch/csrc/exp_gather.cu", "tools/exp_gather.py:106"),
+         "X4": ("narrow_call", "sahs_tpu_torch/csrc/exp_pair2.cu", "tools/exp_pair2.py:56"),
+         "X5": ("paired_call", "sahs_tpu_torch/csrc/exp_pair2.cu", "tools/exp_pair2.py:79"),
+         "X6": ("reshape_call", "sahs_tpu_torch/csrc/exp_pair2.cu", "tools/exp_pair2.py:102")}
+
+
+def tool_errors(k, a, b) -> dict:
+    """A tool kernel's output ``a`` against its plain version's ``b``."""
+    l2 = float((a.double() - b.double()).norm() / b.double().norm())
+    worst = scaled_err(a, b) if k == "X1" else abs_err(a, b)
+    return {"l2_rel": l2, "worst": worst, "max_abs_err": abs_err(a, b)}
+
+
+def tool_passes(k, e) -> bool:
+    l2, worst = TOOL_GATES[k]
+    return e["l2_rel"] <= l2 and (worst is None or e["worst"] <= worst)
+
+
+def dg_read(idx, n_gathers: int, tile: int) -> int:
+    """The entries of x (P, L) that X2's gathers read with these indices:
+    each tile's column c reads rows (idx + 7 k) mod tile, k < n_gathers."""
+    import torch
+    P, L = idx.shape
+    base = (torch.arange(P, device=idx.device) // tile * tile)[:, None]
+    col = torch.arange(L, device=idx.device)[None, :]
+    seen = torch.zeros(P * L, dtype=torch.bool, device=idx.device)
+    i = idx.long()
+    for _ in range(n_gathers):
+        seen[((base + i) * L + col).reshape(-1)] = True
+        i = (i + 7) % tile
+    return int(seen.sum())
+
+
+def tool_cases(dev):
+    """Every case of the two tools at their sizes: (kernel, case name,
+    kernel call, plain call, library call, faulty call, flops, the bytes it
+    must move: each input entry it reads once, its output once)."""
+    import torch
+    from sahs_tpu_torch.tools import exp_gather as xg
+    from sahs_tpu_torch.tools import exp_pair2 as xp
+    gen = torch.Generator(device=dev).manual_seed(0)
+    P, T = xg.P, xg.TILE
+    for n_layers, H in xg.CHAIN_CASES:
+        x, w = xg.chain_inputs(H, gen, dev)
+
+        def lib(x=x, w=w, n=n_layers):
+            h = x
+            for _ in range(n):
+                h = torch.relu(h @ w)          # cuBLAS bf16, float32 sums
+            return h.float().sum(dim=-1, keepdim=True)
+        yield ("X1", f"chain {n_layers}x{H}",
+               lambda x=x, w=w, n=n_layers: xg.chain_rows(x, w, n),
+               lambda x=x, w=w, n=n_layers: xg.chain_plain(x, w, n), lib,
+               lambda x=x, w=w, n=n_layers: xg.chain_rows(x, w, n - 1),
+               2 * P * H * H * n_layers, P * H * 2 + H * H * 2 + P * 4)
+    for L, dt, ng in xg.DG_CASES:
+        x, idx = xg.dg_inputs(L, dt, gen, dev)
+
+        def lib(x=x, idx=idx, ng=ng):
+            h = x.reshape(-1, T, L)
+            i = idx.reshape(-1, T, L).long()
+            acc = torch.zeros(h.shape, dtype=torch.float32, device=x.device)
+            for _ in range(ng):
+                acc += torch.gather(h, 1, i).float()
+                i = (i + 7) % T
+            return acc.sum(-1)
+        yield ("X2", f"dg L={L} x{ng} {dt}",
+               lambda x=x, idx=idx, ng=ng: xg.dg_rows(x, idx, ng),
+               lambda x=x, idx=idx, ng=ng: xg.dg_plain(x, idx, ng), lib,
+               lambda x=x, idx=idx, ng=ng: xg.dg_rows(x, (idx + 1) % T, ng),
+               0, dg_read(idx, ng, T) * x.element_size() + P * L * 4 + P * 4)
+    for N, L, dt in xg.CHUNK_CASES:
+        tab, idx = xg.chunk_inputs(N, L, dt, gen, dev)
+        flat = tab.reshape(N, L)
+        yield ("X3", f"chunk N={N} L={L} {dt}",
+               lambda tab=tab, idx=idx: xg.chunk_rows(tab, idx),
+               lambda tab=tab, idx=idx: xg.chunk_plain(tab, idx),
+               lambda flat=flat, idx=idx: torch.gather(flat, 0, idx.long()).float().sum(-1),
+               lambda tab=tab, idx=idx, N=N: xg.chunk_rows(tab, (idx + 1) % N),
+               0, P * L * 4 + N * L * tab.element_size() + P * 4)
+    x, x2, ws, ws2 = xp.inputs(gen, dev)
+    bad = lambda w: w[:-1] + [w[-1].t().contiguous()]
+
+    def chain_lib(h, w):
+        for wi in w:
+            h = torch.tanh(h @ wi)
+        return h
+    for k, name, call, plain, lib, fault, flops, nbytes in (
+            ("X4", "narrow", lambda: xp.narrow_call(x, ws), lambda: xp.narrow_plain(x, ws),
+             lambda: chain_lib(x[:, :64], ws), lambda: xp.narrow_call(x, bad(ws)),
+             2 * P * 64 * 64 * xp.L, P * 64 * 2 + P * 128 * 2),
+            ("X5", "paired", lambda: xp.paired_call(x2, ws2),
+             lambda: xp.paired_plain(x2, ws2), lambda: chain_lib(x2, ws2),
+             lambda: xp.paired_call(x2, bad(ws2)),
+             2 * (P // 2) * 128 * 128 * xp.L, (P // 2) * 128 * 2 * 2),
+            ("X6", "reshape", lambda: xp.reshape_call(x, ws2, "reshape"),
+             lambda: xp.reshape_plain(x, ws2, "reshape"),
+             lambda: chain_lib(xp.pair_rows(x), ws2),
+             lambda: xp.reshape_call(x, bad(ws2), "reshape"),
+             2 * (P // 2) * 128 * 128 * xp.L, P * 64 * 2 + (P // 2) * 128 * 2),
+            ("X6", "strided", lambda: xp.reshape_call(x, ws2, "strided"),
+             lambda: xp.reshape_plain(x, ws2, "strided"),
+             lambda: chain_lib(xp.pair_rows(x), ws2),
+             lambda: xp.reshape_call(x, bad(ws2), "strided"),
+             2 * (P // 2) * 128 * 128 * xp.L, P * 64 * 2 + (P // 2) * 128 * 2)):
+        yield k, name, call, plain, lib, fault, flops, nbytes
+
+
+def phase15_tools(dev, report, kernels) -> str:
+    """Phase 15. Runs both tools' main() (every case, at their sizes) with
+    the X counters zeroed just before and read just after; then holds each
+    case's kernel against its plain version (TOOL_GATES), plants a fault
+    in each (X1 one layer short, X2 and X3 with every index moved by one,
+    X4-X6 with the last layer's weights transposed) and times the kernel,
+    its plain version and a library call beside the bound. Appends X1-X6
+    to ``kernels``. Returns a failure message, or ""."""
+    import torch
+    from sahs_tpu_torch.tools import exp_gather as xg
+    from sahs_tpu_torch.tools import exp_pair2 as xp
+    held = tool_counters()
+    for f in held.values():
+        f.launches = 0
+    report["tools_main"] = {"exp_gather": xg.main(device=dev),
+                            "exp_pair2": xp.main(device=dev)}
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in held.items()}
+    report["tools_launches"] = launches
+    print(f"tools' main() launches {launches}", flush=True)
+    missing = [k for k, n in launches.items() if not n]
+    if missing:
+        return f"the tools' main() did not launch {missing}"
+    rows, missed = [], []
+    for k, name, call, plain, lib, fault, flops, nbytes in tool_cases(dev):
+        out_k, out_p = call(), plain()
+        e = tool_errors(k, out_k.float(), out_p.float())
+        f = tool_errors(k, fault().float(), out_p.float())
+        del out_k, out_p
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"kernel": k, "case": name, **e, "fault": f,
+               "ms": cuda_time(call, 10), "plain_ms": cuda_time(plain, 3),
+               "library_ms": cuda_time(lib, 3), "bound_ms": b_ms, "bound_by": b_by}
+        if flops:
+            row["tflops_achieved"] = flops / (row["ms"] / 1e3) / 1e12
+        rows.append(row)
+        print("tool " + json.dumps(row), flush=True)
+        if not tool_passes(k, e):
+            missed.append(f"{k} {name}: {e}")
+        if tool_passes(k, f):
+            missed.append(f"the gates pass a planted fault: {k} {name} {f}")
+    report["tools"] = rows
+    if missed:
+        return f"tool kernel gates missed: {missed}"
+    for k, (fname, src, replaces) in TOOLS.items():
+        first = next(r for r in rows if r["kernel"] == k)
+        kernels.append({"name": fname, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[k],
+                        "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == k),
+                        **{q: first[q] for q in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}})
+    return ""
+
+
 def main(argv) -> int:
     report_path = argv[argv.index("--report") + 1] if "--report" in argv else None
     try:
@@ -1723,6 +2292,7 @@ def main(argv) -> int:
         from sahs_tpu_torch.ops.kernels import deform_pair as k1
         from sahs_tpu_torch.ops.kernels import nerf_level as k5
         from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays
+        from sahs_tpu_torch.utils.device import card_line
     except ImportError as e:
         return fail(f"the sahs_tpu_torch package is not beside this script ({e})")
 
@@ -1730,7 +2300,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     report = {"device": torch.cuda.get_device_name(0),
-              "nvidia_smi": nvidia_smi_line()}
+              "nvidia_smi": card_line()}
     print(f"device: {report['device']} | {report['nvidia_smi']} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -2734,8 +3304,27 @@ def main(argv) -> int:
                              kernels)
     if msg:
         return fail(msg)
-    if len(kernels) != 15:
-        return fail(f"the kernels line lists {len(kernels)} kernels, not 15")
+    torch.cuda.empty_cache()
+
+    # 13. grid-free parity ------------------------------------------------
+    missed = phase13_grid_free_parity(dev, batch, H * W, report)
+    if missed:
+        return fail(f"grid-free gates missed: {missed}")
+    torch.cuda.empty_cache()
+
+    # 14. the grid-free paths on the card ----------------------------------
+    msg = phase14_grid_free_paths(dev, ds, near, far, time_path, time_frame,
+                                  report, kernels)
+    if msg:
+        return fail(msg)
+    torch.cuda.empty_cache()
+
+    # 15. the tools' experiment kernels X1-X6 -------------------------------
+    msg = phase15_tools(dev, report, kernels)
+    if msg:
+        return fail(msg)
+    if len(kernels) != 21:
+        return fail(f"the kernels line lists {len(kernels)} kernels, not 21")
     print(f"smoke run: {time.time() - T_START:.0f} s", flush=True)
 
     if report_path is not None:

@@ -8,7 +8,9 @@
 // input and skip biases. Output per point: [x + warp(x) | ambient], and
 // the corner-table row of the warped point, computed with the
 // exact float expression of ops/grid._cell_geometry so that it is
-// bit-identical to a row computed from the output coordinates.
+// bit-identical to a row computed from the output coordinates. A model
+// without the grid passes no rows buffer and gets no rows (JAX's
+// emit_rows=None).
 //
 // Bound on the H100: about 0.25 MFLOP per point against 20 bytes moved, so
 // the kernel is bound by operations (about 13 TFLOP per 512x512 frame:
@@ -86,7 +88,7 @@ deform_pair_kernel(const float* __restrict__ pts, long long P,
         out[p * od + c] = w[c];
       }
       for (int c = 0; c < ho_dim; ++c) out[p * od + wo_dim + c] = yh[c * TP + tid];
-      rows[p] = sahs::cell_row(w, gD, gH, gW);
+      if (rows != nullptr) rows[p] = sahs::cell_row(w, gD, gH, gW);
     }
   }
 }

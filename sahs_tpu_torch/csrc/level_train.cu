@@ -31,6 +31,12 @@
 // cotangent of that input (the direction's through its PE backward, as the
 // JAX kernel computes it), in place of gse and the corner dCoords.
 //
+// A model without the spatial-embedding grid runs the grid-free form of
+// the three ray modes (field_mlp.py:nerf_level_vjp / nerf_rayd_vjp and
+// level_train.py with se=None): C = 0, no table and no rows, so launch 1
+// gathers nothing, and launch 3 writes no gse and adds no trilinear
+// dCoords (gx is the PE backward alone).
+//
 // Why not one pass, as on the TPU: a backward needs all 8 trunk layers,
 // the heads and the PE of every point, 3.5 K values a point, while a block
 // has 227 KB of shared memory. And dW is a reduction over all points,
@@ -70,8 +76,8 @@ enum { MODE_LOSS = 0, MODE_VJP = 1, MODE_RAW = 2, MODE_PTS = 3 };
 
 struct Args {
   const float* pts;     // (P, PW)
-  const int* rows;      // (P,), null in MODE_PTS
-  const void* table;    // corner table, compute dtype; null in MODE_PTS
+  const int* rows;      // (P,), null in MODE_PTS and when C = 0
+  const void* table;    // corner table, compute dtype; null in MODE_PTS and when C = 0
   const float* dirs;    // (R, 3); null in MODE_PTS
   const float* extra;   // (P, 3 + C), MODE_PTS
   float* gextra;        // (P, 3 + C), MODE_PTS
@@ -185,7 +191,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
       din[(ndp + c) * TP + t] =
           sahs::from_f<T>(p < a.P ? a.extra[p * (3 + C) + 3 + c] : 0.0f);
     }
-  } else if (tid < TP) {
+  } else if (tid < TP && C > 0) {
     const long long p = base + tid;
     const bool valid = p < a.P;
     float x[3] = {0, 0, 0};
@@ -207,7 +213,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
     rowv[tid] = valid ? a.rows[p] : 0;
   }
   __syncthreads();
-  if (!per_point) {
+  if (!per_point && C > 0) {
     for (int idx = tid; idx < C * TP; idx += blockDim.x) {
       const int t = idx / C, c = idx % C;
       const T* row = table + (size_t)rowv[t] * 8 * C;
@@ -556,6 +562,10 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
         for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
         return;
       }
+      if (C == 0) {   // grid-free: no trilinear sample, no gse
+        for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+        return;
+      }
       float fr[3];
       const float okf = cell_fracs(x, a, fr);
       const T* crow = table + (size_t)a.rows[p] * 8 * C;
@@ -643,7 +653,9 @@ extern "C" int sahs_level_train(
       (mode == MODE_RAW && graw == nullptr) ||
       (mode == MODE_PTS && (graw == nullptr || extra == nullptr ||
                             gextra == nullptr || S != 1)) ||
-      (mode != MODE_PTS && (rows == nullptr || table == nullptr || dirs == nullptr)))
+      (mode != MODE_PTS &&
+       (dirs == nullptr ||
+        (C > 0 && (rows == nullptr || table == nullptr || gse == nullptr)))))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;

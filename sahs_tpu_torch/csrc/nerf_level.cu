@@ -23,6 +23,11 @@
 //     channels softmaxed; without one, sigmoid on every channel.
 // Outputs rgb_map (R, 16) and weights (R, S), as field_mlp.py:2688 returns.
 //
+// A model without the spatial-embedding grid runs the grid-free form
+// (field_mlp.py:nerf_render_level :3187, se=None): C = 0, no table and no
+// rows, so no cell geometry and no gather; the direction branch's first
+// layer reads [feat | pe(dir)] (its se block has no rows).
+//
 // K7 replaces field_mlp.py:nerf_rayd_forward (:1973, pallas_call at :2040)
 // in its corner_interp form, the raw field of the deformation-reuse path
 // (fuse_composite off): the same kernel, instantiated with RAW, writes each
@@ -50,8 +55,8 @@ constexpr int THREADS = 256;
 
 struct LevelArgs {
   const float* pts;     // (R*S, PW) packed [warped xyz | ambient]
-  const int* rows;      // (R*S,) corner-table rows
-  const void* table;    // (rows, 8*C) corner table, compute dtype
+  const int* rows;      // (R*S,) corner-table rows; null when C = 0
+  const void* table;    // (rows, 8*C) corner table, compute dtype; null when C = 0
   const float* dirs;    // (R, 3)
   const float* z;       // (R, S)
   const float* bg;      // (R, 15) or null
@@ -152,28 +157,30 @@ __global__ void __launch_bounds__(THREADS) nerf_level_kernel(LevelArgs a) {
         for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       sahs::pe_group<T>(x, 3, a.nf_xyz, sm.xin, 0, tid, TP);
       if (a.amb > 0) sahs::pe_group<T>(x + 3, a.amb, a.nf_amb, sm.xin, kx_xyz, tid, TP);
-      const int dims[3] = {a.gW, a.gH, a.gD};
-      float fr[3];
-      bool ok = true;
-      for (int ax = 0; ax < 3; ++ax) {
-        const float i = sahs::cell_index(x[ax], dims[ax]);
-        const float i0 = floorf(i);
-        fr[ax] = __fsub_rn(i, i0);
-        ok = ok && (i0 >= -1.0f) && (i0 <= (float)(dims[ax] - 1));
-      }
-      const float okf = ok ? 1.0f : 0.0f;
-      for (int dz = 0; dz < 2; ++dz) {
-        const float wz = dz ? fr[2] : __fsub_rn(1.0f, fr[2]);
-        for (int dy = 0; dy < 2; ++dy) {
-          const float wy = dy ? fr[1] : __fsub_rn(1.0f, fr[1]);
-          for (int dx = 0; dx < 2; ++dx) {
-            const float wx = dx ? fr[0] : __fsub_rn(1.0f, fr[0]);
-            sm.cw[(dz * 4 + dy * 2 + dx) * TP + tid] =
-                __fmul_rn(__fmul_rn(__fmul_rn(wz, wy), wx), okf);
+      if (C > 0) {   // the grid-free form has no cell geometry
+        const int dims[3] = {a.gW, a.gH, a.gD};
+        float fr[3];
+        bool ok = true;
+        for (int ax = 0; ax < 3; ++ax) {
+          const float i = sahs::cell_index(x[ax], dims[ax]);
+          const float i0 = floorf(i);
+          fr[ax] = __fsub_rn(i, i0);
+          ok = ok && (i0 >= -1.0f) && (i0 <= (float)(dims[ax] - 1));
+        }
+        const float okf = ok ? 1.0f : 0.0f;
+        for (int dz = 0; dz < 2; ++dz) {
+          const float wz = dz ? fr[2] : __fsub_rn(1.0f, fr[2]);
+          for (int dy = 0; dy < 2; ++dy) {
+            const float wy = dy ? fr[1] : __fsub_rn(1.0f, fr[1]);
+            for (int dx = 0; dx < 2; ++dx) {
+              const float wx = dx ? fr[0] : __fsub_rn(1.0f, fr[0]);
+              sm.cw[(dz * 4 + dy * 2 + dx) * TP + tid] =
+                  __fmul_rn(__fmul_rn(__fmul_rn(wz, wy), wx), okf);
+            }
           }
         }
+        sm.rowv[tid] = valid ? a.rows[p] : 0;
       }
-      sm.rowv[tid] = valid ? a.rows[p] : 0;
     }
     __syncthreads();
     // spatial embedding from the gathered corner rows

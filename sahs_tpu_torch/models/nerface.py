@@ -223,8 +223,9 @@ class RenderFns(NamedTuple):
     front half, then K5 (K6 in the backward), the kernel path's level with
     compositing (None on the plain path);
     front_fn(pts_flat, samples) -> (pts_raw (P, 3 [+ ambient]), rows
-    (P // samples, samples)): the level-independent front half, which the
-    pipeline reuses at the fine level (None on the plain path);
+    (P // samples, samples) | None without a grid): the level-independent
+    front half, which the pipeline reuses at the fine level (None on the
+    plain path);
     nerf_fn(level, (pts_raw, rows), dirs_ray, samples) -> (P, 16): the NeRF
     back half on a front half, K7 (K8 in the backward), or for a sample
     count the level kernels do not take the per-point branch: the grid
@@ -246,30 +247,6 @@ LEVEL_TILE = 1024
 def level_kernel_compatible(samples: int) -> bool:
     """True when the level kernels take this sample count."""
     return bool(samples) and LEVEL_TILE % samples == 0
-
-
-def kernel_path_ok(spec: ModelSpec) -> bool:
-    """The configurations ``make_render_fns(use_pallas=True)`` takes. With
-    view directions: the spatial-embedding grid, and any deformation (the
-    pair K1/K3, each net on its own K13/K14, or none). Without view
-    directions the kernel path is the plain one, as in the JAX package
-    (nerface.py:299-314). Per-frame latent codes ride the conditioning,
-    folded into biases."""
-    return not spec.use_viewdirs or spec.use_spatial_embeddings
-
-
-def check_kernel_path(spec: ModelSpec) -> None:
-    """Raise NotImplementedError, naming the kernels it needs, for a
-    configuration outside ``kernel_path_ok``: view directions without the
-    grid."""
-    if kernel_path_ok(spec):
-        return
-    raise NotImplementedError(
-        "a model with view directions and no spatial-embedding grid needs "
-        "the grid-free forms of K5, K7 and K11 (sahs_tpu/ops/pallas/"
-        "field_mlp.py: nerf_render_level :3187, nerf_mlp_apply_rayd :2399, "
-        "nerf_mlp_apply_fused with an extra of directions only), not "
-        "ported; the plain path (use_pallas off) takes it")
 
 
 class FoldedCache:
@@ -312,9 +289,11 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
     with their rows. The back half is K5 (K6) with compositing, or K7 (K8)
     for the raw field; dGrid is K9. A sample count the level kernels do not
     take runs the per-point branch instead: the grid sample (K10 in the
-    backward), then K11 (K12). A model without view directions takes the
-    plain path, as the JAX package does (nerface.py:299-314); one outside
-    ``kernel_path_ok`` raises rather than fall back."""
+    backward), then K11 (K12). A model without the grid takes the same
+    kernels in their grid-free form (nerface.py:413-485): no corner table,
+    no rows, no dGrid, and the per-point branch's extra input is the
+    direction alone. A model without view directions takes the plain path,
+    as the JAX package does (nerface.py:299-314)."""
     from ..ops.grid import _cell_geometry
     from ..ops.kernels.deform_pair import (PairOp, deform_pair_apply_fused,
                                            prepare_pair)
@@ -345,10 +324,9 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
                                   pose_enc, latent_code, se)
         return RenderFns(field_fn, None)
 
-    check_kernel_path(spec)
     warp_pe, pts_pe, dir_pe = build_pe_groups(spec)
-    grid = model.spatial_embeddings
-    dims = tuple(grid.shape[1:])
+    grid = model.spatial_embeddings            # None: the grid-free forms
+    dims = None if grid is None else tuple(grid.shape[1:])
     folded = FoldedCache()
     pair_ok = pair_kernel_ok(spec)
 
@@ -379,12 +357,15 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
         warped = pts_flat
         if spec.use_warp:
             warped = pts_flat + deform_net("warp", "tanh", pts_flat)
-        rows, _, _ = _cell_geometry(warped.detach(), dims)
+        rows = None
+        if grid is not None:
+            rows = _cell_geometry(warped.detach(), dims)[0]
+            rows = rows.to(torch.int32).reshape(-1, samples)
         pts_raw = warped
         if spec.use_ambient:
             amb = deform_net("hyper", "linear", pts_flat)
             pts_raw = torch.cat([warped, amb], dim=-1)
-        return pts_raw, rows.to(torch.int32).reshape(-1, samples)
+        return pts_raw, rows
 
     def nerf_cond(level):
         nspec: NeRFSpec = getattr(spec, level)
@@ -407,10 +388,13 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
 
     def grid_op(level, rows, dirs_ray, samples, z=None, noise=None):
         nerf, params, weights, cond = level_weights(level)
-        table = folded.get("table", [grid],
-                           lambda: corner_table(grid, compute_dtype))
+        table = None
+        if grid is not None:
+            table = folded.get("table", [grid],
+                               lambda: corner_table(grid, compute_dtype))
         return GridLevelOp(nerf, params, weights, table, rows, dirs_ray,
-                           samples, compute_dtype, tuple(grid.shape), z,
+                           samples, compute_dtype,
+                           None if grid is None else tuple(grid.shape), z,
                            noise), cond
 
     def nerf_fn(level, fh, dirs_ray, samples):
@@ -419,12 +403,14 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
             op, cond = grid_op(level, rows, dirs_ray, samples)
             return nerf_mlp_apply_rayd_grid(op, grid, pts_raw, cond)
         # the per-point branch (nerface.py:442-460): the grid sample (K10 in
-        # its backward), then K11 on [dir | se] per point (K12 backward)
+        # its backward), then K11 on [dir | se] per point (K12 backward);
+        # without a grid the extra input is the direction alone
         nerf, params, weights, cond = level_weights(level)
-        se = grid_sample_3d(grid, pts_raw, compute_dtype)
-        dirs_flat = dirs_ray[:, None, :].expand(
+        extra = dirs_ray[:, None, :].expand(
             dirs_ray.shape[0], samples, 3).reshape(-1, 3)
-        extra = torch.cat([dirs_flat, se], dim=-1)
+        if grid is not None:
+            extra = torch.cat([extra, grid_sample_3d(grid, pts_raw, compute_dtype)],
+                              dim=-1)
         return nerf_mlp_apply_fused(PointOp(nerf, params, weights, compute_dtype),
                                     pts_raw, extra, cond)
 

@@ -25,7 +25,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("deform_pair", "nerf_level", "level_train", "deform_pair_vjp",
-           "grid_bwd", "nerf_mlp", "skip_mlp", "build_pts")
+           "grid_bwd", "nerf_mlp", "skip_mlp", "build_pts", "exp_gather",
+           "exp_pair2")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

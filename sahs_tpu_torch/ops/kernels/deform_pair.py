@@ -23,7 +23,7 @@ fallback from one to the other.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,7 +81,8 @@ def deform_pair_plain(points: torch.Tensor, weights: PairWeights,
                       compute_dtype: str, samples: int, grid_dims):
     """points (P, 3) float32 -> (packed (P, 3 + ambient) [x + warp(x) |
     ambient], the corner-table rows of the warped points, int32 shaped
-    (P // samples, samples))."""
+    (P // samples, samples)). With ``grid_dims`` None (a model without the
+    grid, JAX's emit_rows=None) there are no rows: (packed, None)."""
     dtype = torch_dtype(compute_dtype)
     relu = torch.relu
     with torch.no_grad():
@@ -92,6 +93,8 @@ def deform_pair_plain(points: torch.Tensor, weights: PairWeights,
         yh = mm(hh, weights.hyper_out["w"], dtype) + weights.hyper_out["b"]
         warped = points[:, :3].to(torch.float32) + yw
         packed = torch.cat([warped, yh], dim=-1)
+    if grid_dims is None:
+        return packed, None
     rows, _, _ = _cell_geometry(warped, grid_dims)
     return packed, rows.to(torch.int32).reshape(-1, samples)
 
@@ -129,8 +132,9 @@ def deform_pair_forward(points: torch.Tensor, weights: PairWeights,
     if P % samples:
         raise ValueError(f"P={P} is not a multiple of samples={samples}")
     out = torch.empty((P, wo + ho), dtype=torch.float32, device=points.device)
-    rows = torch.empty((P,), dtype=torch.int32, device=points.device)
-    gD, gH, gW = grid_dims
+    rows = (None if grid_dims is None
+            else torch.empty((P,), dtype=torch.int32, device=points.device))
+    gD, gH, gW = grid_dims or (0, 0, 0)
     fn = _build.function("deform_pair", "sahs_deform_pair_forward",
                          "plppp" + "i" * 8 + "pp" + "iii" + "p")
     rc = fn(
@@ -142,7 +146,7 @@ def deform_pair_forward(points: torch.Tensor, weights: PairWeights,
         _build.stream_ptr(points.device))
     _build.check(rc, "deform_pair_forward")
     deform_pair_forward.launches += 1
-    return out, rows.reshape(-1, samples)
+    return out, None if rows is None else rows.reshape(-1, samples)
 
 
 deform_pair_forward.launches = 0
@@ -299,14 +303,15 @@ def pair_param_grads(warp, hyper, pair_g, cond: torch.Tensor):
 class PairOp:
     """What the differentiable pair holds beside the conditioning: the two
     modules and their parameters, the folded weights of this frame, the
-    points (P, 3), the sample count and the grid's (D, H, W)."""
+    points (P, 3), the sample count and the grid's (D, H, W), None for a
+    model without the grid (no rows)."""
     warp: torch.nn.Module
     hyper: torch.nn.Module
     params: List[torch.Tensor]
     weights: PairWeights
     points: torch.Tensor
     samples: int
-    grid_dims: Tuple[int, int, int]
+    grid_dims: Optional[Tuple[int, int, int]]
     compute_dtype: str
 
 
@@ -318,7 +323,8 @@ class _DeformPair(torch.autograd.Function):
         packed, rows = deform_pair_forward(op.points, op.weights,
                                            op.compute_dtype, op.samples,
                                            op.grid_dims)
-        ctx.mark_non_differentiable(rows)
+        if rows is not None:
+            ctx.mark_non_differentiable(rows)
         return packed, rows
 
     @staticmethod
@@ -333,6 +339,7 @@ class _DeformPair(torch.autograd.Function):
 
 def deform_pair_apply_fused(op: PairOp, cond: torch.Tensor):
     """The deformation pair, differentiable with respect to the modules'
-    parameters and ``cond``: (packed (P, 3 + ambient), rows (P // S, S))."""
+    parameters and ``cond``: (packed (P, 3 + ambient), rows (P // S, S) |
+    None)."""
     return _DeformPair.apply(op, cond, *op.params)
 

@@ -15,6 +15,12 @@ folded weights, and each op is a ``torch.autograd.Function``:
   nerf_mlp_apply_fused     forward K11 (the raw field on per-point inputs),
                            backward K12, the conditioning unfold
 
+A model without the spatial-embedding grid runs the two grid-coupled ops
+in their grid-free form (JAX: ``field_mlp.py:nerf_render_level`` :3187 and
+``nerf_mlp_apply_rayd`` :2399, se=None): grid None, and no corner table or
+rows in the op; K5/K6 and K7/K8 run with C = 0 and the backward has no
+dGrid (no K9).
+
 All are differentiable with respect to the NeRF module's parameters, their
 point inputs, the conditioning (and so AudioNet and the latent code behind
 it); the grid-coupled ops also to the grid and, for the level op, the
@@ -63,20 +69,21 @@ def sample_major(x: torch.Tensor, R: int, S: int) -> torch.Tensor:
 
 @dataclasses.dataclass
 class GridLevelOp:
-    """What a grid-coupled op holds beside its differentiable inputs: the
-    NeRF module and its parameters, the folded weights (``prepare_level``
-    of this frame's conditioning), the corner table, the table rows of the
-    points, the ray directions (R, 3), the sample count, and for the level
-    op z (R, S) and the scaled sigma noise (R, S) | None."""
+    """What a level op holds beside its differentiable inputs: the NeRF
+    module and its parameters, the folded weights (``prepare_level`` of
+    this frame's conditioning), the corner table and the table rows of the
+    points (both None for the grid-free form), the ray directions (R, 3),
+    the sample count, the grid's (C, D, H, W) (None without a grid), and
+    for the level op z (R, S) and the scaled sigma noise (R, S) | None."""
     nerf: torch.nn.Module
     params: List[torch.Tensor]
     weights: LevelWeights
-    table: torch.Tensor
-    rows: torch.Tensor
+    table: Optional[torch.Tensor]
+    rows: Optional[torch.Tensor]
     dirs: torch.Tensor
     samples: int
     compute_dtype: str
-    grid_shape: Sequence[int]
+    grid_shape: Optional[Sequence[int]]
     z: Optional[torch.Tensor] = None
     noise: Optional[torch.Tensor] = None
 
@@ -94,14 +101,21 @@ def _unfold(op: GridLevelOp, grads: dict, cond: torch.Tensor) -> torch.Tensor:
 
 def _backward_tail(op: GridLevelOp, pts_raw, gse, grads, cond):
     """The conditioning unfold, the parameters' gradients in ``op.params``
-    order, and dGrid (K9) over the sample-major points."""
+    order, and dGrid (K9) over the sample-major points (None for the
+    grid-free form)."""
     dcond = _unfold(op, grads, cond)
     by_param = {}
     level_param_grads(by_param, op.nerf, grads)
     R = op.dirs.shape[0]
-    dG = grid_dg_coords(sample_major(pts_raw[:, :3], R, op.samples),
-                        sample_major(gse, R, op.samples), op.grid_shape)
+    dG = None
+    if gse is not None:
+        dG = grid_dg_coords(sample_major(pts_raw[:, :3], R, op.samples),
+                            sample_major(gse, R, op.samples), op.grid_shape)
     return dcond, dG, [by_param.get(p) for p in op.params]
+
+
+def _dims(op: GridLevelOp):
+    return None if op.grid_shape is None else tuple(op.grid_shape[1:])
 
 
 class _LevelGrid(torch.autograd.Function):
@@ -111,7 +125,7 @@ class _LevelGrid(torch.autograd.Function):
         ctx.save_for_backward(pts_raw, bg, cond)
         return nerf_level_forward(pts_raw, op.dirs, op.table, op.rows, op.z, bg,
                                   op.noise, op.weights, op.compute_dtype,
-                                  tuple(op.grid_shape[1:]))
+                                  _dims(op))
 
     @staticmethod
     def backward(ctx, g_rgb, g_w):
@@ -119,7 +133,7 @@ class _LevelGrid(torch.autograd.Function):
         pts_raw, bg, cond = ctx.saved_tensors
         gx, gse, g_bg, grads = nerf_level_vjp(
             pts_raw, op.dirs, op.table, op.rows, op.z, bg, op.noise, g_rgb, g_w,
-            op.weights, op.compute_dtype, tuple(op.grid_shape[1:]))
+            op.weights, op.compute_dtype, _dims(op))
         dcond, dG, dparams = _backward_tail(op, pts_raw, gse, grads, cond)
         return (None, gx, g_bg, dcond, dG, *dparams)
 
@@ -130,34 +144,34 @@ class _RaydGrid(torch.autograd.Function):
         ctx.op = op
         ctx.save_for_backward(pts_raw, cond)
         return nerf_rayd_forward(pts_raw, op.dirs, op.table, op.rows, op.weights,
-                                 op.compute_dtype, tuple(op.grid_shape[1:]))
+                                 op.compute_dtype, _dims(op))
 
     @staticmethod
     def backward(ctx, g):
         op = ctx.op
         pts_raw, cond = ctx.saved_tensors
         gx, gse, grads = nerf_rayd_vjp(pts_raw, op.dirs, op.table, op.rows, g,
-                                       op.weights, op.compute_dtype,
-                                       tuple(op.grid_shape[1:]))
+                                       op.weights, op.compute_dtype, _dims(op))
         dcond, dG, dparams = _backward_tail(op, pts_raw, gse, grads, cond)
         return (None, gx, dcond, dG, *dparams)
 
 
-def nerf_render_level_grid(op: GridLevelOp, grid: torch.Tensor,
+def nerf_render_level_grid(op: GridLevelOp, grid: Optional[torch.Tensor],
                            pts_raw: torch.Tensor, bg: Optional[torch.Tensor],
                            cond: torch.Tensor):
     """The grid-coupled level (field_grid.py:262-277): pts_raw (P, 3 +
-    ambient) packed [warped | ambient], grid (C, D, H, W), bg (R, 15) |
-    None, cond the level's conditioning. Returns (rgb_map (R, 16), weights
-    (R, S))."""
+    ambient) packed [warped | ambient], grid (C, D, H, W) (None for the
+    grid-free level, field_mlp.py:3187-3201), bg (R, 15) | None, cond the
+    level's conditioning. Returns (rgb_map (R, 16), weights (R, S))."""
     return _LevelGrid.apply(op, pts_raw, bg, cond, grid, *op.params)
 
 
-def nerf_mlp_apply_rayd_grid(op: GridLevelOp, grid: torch.Tensor,
+def nerf_mlp_apply_rayd_grid(op: GridLevelOp, grid: Optional[torch.Tensor],
                              pts_raw: torch.Tensor,
                              cond: torch.Tensor) -> torch.Tensor:
-    """The grid-coupled raw field (field_grid.py:176-188): (P, 16)
-    [rgb3 | seg12 | sigma1]."""
+    """The grid-coupled raw field (field_grid.py:176-188; grid None for the
+    grid-free one, field_mlp.py:2399-2417): (P, 16) [rgb3 | seg12 |
+    sigma1]."""
     return _RaydGrid.apply(op, pts_raw, cond, grid, *op.params)
 
 
@@ -195,7 +209,8 @@ def nerf_mlp_apply_fused(op: PointOp, pts_raw: torch.Tensor,
                          extra: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
     """The per-point NeRF field (field_mlp.py:1356-1428): pts_raw (P, 3 +
     ambient) packed [warped | ambient], extra (P, 3 + C) [raw dir | spatial
-    embedding], cond the level's conditioning, folded into the weights.
+    embedding] (the direction alone, C = 0, without a grid), cond the
+    level's conditioning, folded into the weights.
     Forward K11, backward K12 and the conditioning unfold; differentiable
     with respect to the module's parameters, both inputs and ``cond``.
     Returns (P, 16) [rgb3 | seg12 | sigma1]."""

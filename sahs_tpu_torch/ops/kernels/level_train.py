@@ -25,6 +25,12 @@ K12 replaces ``field_mlp.py:nerf_mlp_vjp`` (:1546, ``pallas_call`` at
 inputs, returning the cotangent of the extra input [dir | se] in place of
 gse and the corner dCoords.
 
+A model without the spatial-embedding grid takes K2, K6 and K8 in their
+grid-free form (``table`` and ``rows`` None, the folded level's
+``dir0_se`` of zero rows): no gse (None in its place) and no trilinear
+dCoords, gx coming through the PE backward alone; K12's gextra is then the
+direction part alone (P, 3).
+
 ``nerf_level_train``, ``nerf_level_vjp``, ``nerf_rayd_vjp`` and
 ``nerf_mlp_vjp`` launch the kernel for CUDA tensors and count the call in
 ``<wrapper>.launches``; for CPU tensors they run the ``*_plain`` version. ``level_train_apply`` folds
@@ -42,8 +48,9 @@ from .field_mlp import (BlobBuilder, TrainPlan, build_train_plan, dact,
                         dw_chunks, mm, mm_t, pe_backward, torch_dtype,
                         trunk_backward, trunk_params, unfold_cond_grads)
 from ..grid import corner_dcoords
-from .nerf_level import (LevelWeights, check_device, level_kernel_args,
-                         nerf_raw_plain, point_layers, prepare_level)
+from .nerf_level import (LevelWeights, _grid_args, check_device,
+                         level_kernel_args, nerf_raw_plain, point_layers,
+                         prepare_level)
 from .nerf_mlp import nerf_mlp_plain, point_kernel_args
 
 TP = 32   # points per tile of K2's per-point kernels and of its stash
@@ -162,9 +169,11 @@ def level_backward_plain(weights: LevelWeights, acts: dict, pts: torch.Tensor,
     (P, C), grads), grads the folded level's {"trunk": [{"w", "b"}],
     "fc_feat", "fc_alpha", "dir": [...], "fc_rgb", "seg": [...], "fc_seg"}
     with dir[0]'s rows [feat | pe(dir) | se], the JAX package's layout.
-    With ``grid_dims`` None (K12, ``acts`` of ``nerf_mlp_plain``) there is
+    For K12 (``acts`` of ``nerf_mlp_plain``, ``grid_dims`` None) there is
     no trilinear sample in the pass: gx is the PE backward alone, and the
-    second result is gextra (P, 3 + C), the cotangent of [dir | se]."""
+    second result is gextra (P, 3 + C), the cotangent of [dir | se]. In
+    the grid-free form (no corner rows in ``acts``) gx is the PE backward
+    alone and gse is None."""
     W = weights
     feat, se, h = acts["feat"], acts["se"], acts["h"]
     dacts, sacts = acts["dacts"], acts["sacts"]
@@ -202,10 +211,12 @@ def level_backward_plain(weights: LevelWeights, acts: dict, pts: torch.Tensor,
                                     W.skip, "leaky", dtype, need_gx=True)
     gx = pe_backward(pts, gx_pe, W.pts_groups)
     grads.update(trunk=trunk_g, dir=dir_g, seg=seg_g)
-    if grid_dims is None:
+    if "dirs" in acts:
         gdir = pe_backward(acts["dirs"], mm(gzd0, W.dir0_dir.t(), dtype),
                            W.dir_groups)
         return gx, torch.cat([gdir, gse], dim=-1), grads
+    if acts["cf"] is None:
+        return gx, None, grads
     gx[:, :3] += corner_dcoords(gse, acts["fs"], acts["ok"], acts["cf"], grid_dims)
     return gx, gse, grads
 
@@ -219,7 +230,7 @@ def nerf_level_train_plain(pts: torch.Tensor, dirs: torch.Tensor,
     """K2's plain version. Arguments as ``nerf_level.nerf_level_plain``
     plus tgt (R, 15) [target rgb | seg mask], lw (R, 2) per-ray loss
     weights and bg_sup. Returns (rgb_map (R, 16), weights (R, S), gx
-    (P, 3 + ambient), gse (P, C), g_bg (R, 15) | None, grads), grads as
+    (P, 3 + ambient), gse (P, C) | None, g_bg (R, 15) | None, grads), grads as
     ``level_backward_plain``'s."""
     R, S = z.shape
     acts = {}
@@ -241,7 +252,7 @@ def nerf_level_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
                          g_w: torch.Tensor, weights: LevelWeights,
                          compute_dtype: str, grid_dims):
     """K6's plain version: K5's arguments plus the cotangents g_rgb (R, 16)
-    and g_w (R, S) of its outputs. Returns (gx (P, 3 + ambient), gse (P, C),
+    and g_w (R, S) of its outputs. Returns (gx (P, 3 + ambient), gse (P, C) | None,
     g_bg (R, 15) | None, grads), grads as ``level_backward_plain``'s."""
     R, S = z.shape
     acts = {}
@@ -261,7 +272,7 @@ def nerf_rayd_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
                         g: torch.Tensor, weights: LevelWeights,
                         compute_dtype: str, grid_dims):
     """K8's plain version: K7's arguments plus the cotangent g (P, 16) of
-    its raw output. Returns (gx (P, 3 + ambient), gse (P, C), grads)."""
+    its raw output. Returns (gx (P, 3 + ambient), gse (P, C) | None, grads)."""
     acts = {}
     nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype, grid_dims,
                    acts)
@@ -375,7 +386,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     """One call of the level-backward kernel set (csrc/level_train.cu) in
     ``mode``: "loss" (K2), "vjp" (K6) or "raw" (K8). Returns (rgb_map,
     weights, gx, gse, g_bg (R, 16), grads); rgb_map, weights and g_bg are
-    None in "raw" mode."""
+    None in "raw" mode, gse in the grid-free form."""
     check_device(what, pts.device)
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
                                           compute_dtype, grid_dims, what)
@@ -401,12 +412,12 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     c = lambda t: None if t is None else t.to(f32).contiguous()
     pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw = map(
         c, (pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw))
-    rows = rows.reshape(-1).to(torch.int32).contiguous()
+    rows, table = _grid_args(rows, table)
     n_tiles = -(-P // TP)
     e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
     composite = mode != "raw"
     rgb_map, w_out, g_bg = (e(R, 16), e(R, S), e(R, 16)) if composite else (None,) * 3
-    gx, gse = e(P, PW), e(P, C)
+    gx, gse = e(P, PW), (e(P, C) if C else None)
     raw = e(P, 16) if composite else None
     if composite:
         graw = e(P, 16)
@@ -414,7 +425,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     p = _build.ptr
     n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
     fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
-    rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(z), p(bg),
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
             p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, _MODES[mode],
             *[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd], p(rgb_map),
             p(w_out), p(gx), p(gse), p(g_bg), p(raw), p(graw), p(acts), p(gzs),

@@ -13,6 +13,12 @@ K7 replaces ``field_mlp.py:nerf_rayd_forward`` (:1973, ``pallas_call`` at
 deformation-reuse path, which composites outside the kernel. It is the same
 CUDA kernel, told to write each point's raw output and stop.
 
+A model without the spatial-embedding grid takes both in their grid-free
+form (JAX: ``field_mlp.py:nerf_render_level`` :3187 and
+``nerf_mlp_apply_rayd`` :2399, ``se=None``): no corner table and no rows
+(``table`` and ``rows`` None), the folded level's ``dir0_se`` of zero
+rows, so the direction branch's first layer reads [feat | pe(dir)].
+
 ``nerf_level_forward`` and ``nerf_rayd_forward`` launch the kernel for
 tensors on a CUDA device and count the launch in ``<wrapper>.launches``;
 for tensors on the CPU they run ``nerf_level_plain`` / ``nerf_raw_plain``,
@@ -184,19 +190,23 @@ def nerf_raw_plain(pts: torch.Tensor, dirs: torch.Tensor,
                    acts: Optional[dict] = None) -> torch.Tensor:
     """K7's plain version. pts (P, 3 + ambient) packed [warped | ambient],
     P = R*S ray-major; dirs (R, 3) raw; table the corner table; rows (P,)
-    its row per point. Returns raw (P, 16) [rgb3 | seg12 | sigma1].
+    its row per point (both None for the grid-free form, whose ``se`` has
+    no columns). Returns raw (P, 16) [rgb3 | seg12 | sigma1].
     ``acts``, when given, receives what a backward needs: the PE ``x``, the
-    cell geometry ``fs``/``ok``, the corner rows ``cf``, ``se``, the trunk
-    activations, ``h``, ``feat``, the per-point ``dir_pe`` and the branch
-    activations ``dacts``/``sacts``."""
+    cell geometry ``fs``/``ok``, the corner rows ``cf`` (with a grid),
+    ``se``, the trunk activations, ``h``, ``feat``, the per-point
+    ``dir_pe`` and the branch activations ``dacts``/``sacts``."""
     dtype = torch_dtype(compute_dtype)
     S = pts.shape[0] // dirs.shape[0]
     W = weights
     with torch.no_grad():
         x = kernel_pe(pts, W.pts_groups)
-        _, fs, ok = _cell_geometry(pts, grid_dims)
-        cf = table[rows.reshape(-1).long()].to(torch.float32)
-        se = interp_corners(cf, fs, ok)
+        fs = ok = cf = None
+        se = pts.new_zeros((pts.shape[0], 0), dtype=torch.float32)
+        if table is not None:
+            _, fs, ok = _cell_geometry(pts, grid_dims)
+            cf = table[rows.reshape(-1).long()].to(torch.float32)
+            se = interp_corners(cf, fs, ok)
         dpe = kernel_pe(dirs, W.dir_groups)
         dir_head = mm(dpe, W.dir0_dir, dtype)
         raw = field_plain(
@@ -264,29 +274,43 @@ def level_kernel_args(pts: torch.Tensor, dirs: torch.Tensor,
                       what: str):
     """The shape checks and integer arguments shared by the NeRF-level
     kernels (K5-K8): (R, S, PW, C, [n_trunk, hidden, branch, C, amb,
-    nf_xyz, nf_amb, nf_dir, gD, gH, gW])."""
+    nf_xyz, nf_amb, nf_dir, gD, gH, gW]). The grid-free form (``table``
+    and ``rows`` None) has C = 0 and no grid dimensions."""
     R = dirs.shape[0]
     P, PW = pts.shape
-    C = table.shape[1] // 8
     nf_xyz, nf_amb = (_pe_freqs(weights.pts_groups, 2, "point") if PW > 3
                       else _pe_freqs(weights.pts_groups, 1, "point") + [0])
     (nf_dir,) = _pe_freqs(weights.dir_groups, 1, "direction")
     hidden = weights.trunk[0]["w"].shape[1]
     branch = weights.dir0_b.shape[0]
-    gD, gH, gW = grid_dims
+    if table is None:
+        C, (gD, gH, gW) = 0, (0, 0, 0)
+        grid_ok = rows is None
+    else:
+        C, (gD, gH, gW) = table.shape[1] // 8, grid_dims
+        grid_ok = (rows is not None and rows.numel() == P
+                   and table.dtype == torch_dtype(compute_dtype)
+                   and table.shape[0] == (gD + 1) * (gH + 1) * (gW + 1))
     if (R == 0 or P % R or PW > 8 or nf_dir > 4 or 2 * branch > hidden
-            or table.dtype != torch_dtype(compute_dtype)
-            or weights.dir0_se.shape[0] != C
-            or table.shape[0] != (gD + 1) * (gH + 1) * (gW + 1)
-            or rows.numel() != P or tuple(dirs.shape) != (R, 3)):
+            or not grid_ok or weights.dir0_se.shape[0] != C
+            or tuple(dirs.shape) != (R, 3)):
+        shape = lambda t: None if t is None else tuple(t.shape)
         raise ValueError(
             f"{what} shapes not supported: pts {tuple(pts.shape)}, rows "
-            f"{tuple(rows.shape)}, dirs {tuple(dirs.shape)}, table "
-            f"{tuple(table.shape)} {table.dtype} for grid {tuple(grid_dims)}, "
-            f"dir freqs {nf_dir}, hidden {hidden}, branch {branch}")
+            f"{shape(rows)}, dirs {tuple(dirs.shape)}, table {shape(table)} "
+            f"for grid {grid_dims} and {weights.dir0_se.shape[0]} embedding "
+            f"channels, dir freqs {nf_dir}, hidden {hidden}, branch {branch}")
     ints = [len(weights.trunk), hidden, branch, C, PW - 3, nf_xyz, nf_amb,
             nf_dir, gD, gH, gW]
     return R, P // R, PW, C, ints
+
+
+def _grid_args(rows: Optional[torch.Tensor], table: Optional[torch.Tensor]):
+    """The rows as contiguous int32 and the table contiguous, None (the
+    grid-free form) passed through."""
+    if table is None:
+        return None, None
+    return rows.reshape(-1).to(torch.int32).contiguous(), table.contiguous()
 
 
 def check_device(what: str, dev, *tensors) -> None:
@@ -321,13 +345,13 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
     f32 = torch.float32
     c = lambda t: None if t is None else t.to(f32).contiguous()
     pts, dirs, z, bg, noise = map(c, (pts, dirs, z, bg, noise))
-    rows = rows.reshape(-1).to(torch.int32).contiguous()
+    rows, table = _grid_args(rows, table)
     rgb_map = torch.empty((R, 16), dtype=f32, device=pts.device)
     w_out = torch.empty((R, S), dtype=f32, device=pts.device)
     fn = _build.function("nerf_level", "sahs_nerf_level_forward",
                          "p" * 12 + "l" + "i" * 14 + "p")
     p = _build.ptr
-    rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(z), p(bg),
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
             p(noise), p(wblob), p(bblob), p(meta), p(rgb_map), p(w_out),
             R, S, PW, *ints, int(dtype == torch.bfloat16),
             _build.stream_ptr(pts.device))
@@ -357,12 +381,12 @@ def nerf_rayd_forward(pts: torch.Tensor, dirs: torch.Tensor,
     f32 = torch.float32
     pts = pts.to(f32).contiguous()
     dirs = dirs.to(f32).contiguous()
-    rows = rows.reshape(-1).to(torch.int32).contiguous()
+    rows, table = _grid_args(rows, table)
     raw = torch.empty((R * S, 16), dtype=f32, device=pts.device)
     fn = _build.function("nerf_level", "sahs_nerf_rayd_forward",
                          "p" * 8 + "l" + "i" * 14 + "p")
     p = _build.ptr
-    rc = fn(p(pts), p(rows), p(table.contiguous()), p(dirs), p(wblob),
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(wblob),
             p(bblob), p(meta), p(raw), R, S, PW, *ints,
             int(dtype == torch.bfloat16), _build.stream_ptr(pts.device))
     _build.check(rc, "nerf_rayd_forward")

@@ -227,6 +227,7 @@ def _render_rays(model, settings, ray_origins, ray_directions, near, far,
         S = Sc + Sn
         fh_new = fns.front_fn(points(z_samples), Sn)
         fh_fine = tuple(
+            None if c is None else   # no rows without a grid
             torch.cat([c.reshape(num_rays, Sc, -1), n.reshape(num_rays, Sn, -1)],
                       dim=1).reshape(num_rays * S, -1)
             for c, n in zip(fh_coarse, fh_new))

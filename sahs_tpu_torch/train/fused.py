@@ -11,14 +11,18 @@ cotangents, run once over the fine points (fused.py:370-413).
 A step runs: coarse z; K15 for the coarse points; K1 on them; K2 on the
 coarse level; sample_pdf and the stable sort; K15 for the sorted fine
 points; K1 on them; K2 on the fine level; the coarse-in-fine scatter;
-one K3 and one K4 over the fine points; the conditioning-fold gradients
-unfolded.
+one K3 and (with a grid) one K4 over the fine points; the
+conditioning-fold gradients unfolded.
 
 ``stage1_fused`` is a ``torch.autograd.Function``: its forward computes all
 gradients and its backward scales them by the scalar loss cotangent
 (fused.py:538-548). Only the loss is differentiable: rgb_c, rgb_f and w_f
 come back detached. The Function returns d(driving), so autograd carries
 it on into AudioNet, and d(bg) when the background is trained.
+
+A model without the spatial-embedding grid takes the same path with K2
+in its grid-free form: no corner table, no rows, no gse scatter and no K4
+(fused.py:193-474 with ``use_grid`` off).
 
 Both levels' positions come from K15 (ops/kernels/points.py), which
 rounds as the PyTorch expression ro + rd z does, bit for bit. The JAX
@@ -33,6 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..models import fields
 from ..models.nerface import (NeRFaceModel, build_pe_groups,
                               level_kernel_compatible, pair_kernel_ok)
 from ..ops.kernels.deform_pair import (deform_pair_forward, deform_pair_vjp,
@@ -72,13 +77,19 @@ class TrainDraws(NamedTuple):
 
 
 def stage1_fused_eligible(spec, render) -> bool:
-    """The configurations the fused path's kernels cover (fused.py:83-100):
-    the kernel path with the deformation pair and the grid-coupled level,
+    """The configurations the fused path's kernels cover, the JAX package's
+    predicate (fused.py:83-100): the kernel path with the deformation pair,
     composited in the kernel, with a fine level, at sample counts the level
-    kernels take."""
+    kernels take; with a grid, one of the shape the JAX kernels take; a
+    model without the grid qualifies too."""
+    # JAX's clause on the grid (fused.py:86-95) also holds its slab dGrid
+    # kernel's block to the TPU's VMEM; on this card K4 needs only the
+    # 32-channel layout of the packed gse
+    if spec.use_spatial_embeddings and fields.SPATIAL_EMBEDDING_DIM != 32:
+        return False
     return (render.use_pallas and render.fuse_composite
             and not render.white_background and spec.use_viewdirs
-            and spec.use_spatial_embeddings and pair_kernel_ok(spec)
+            and pair_kernel_ok(spec)
             and spec.fine is not None and render.num_fine > 0
             and level_kernel_compatible(render.num_coarse)
             and level_kernel_compatible(render.num_coarse + render.num_fine))
@@ -150,9 +161,11 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         return (torch.cat(vals) if vals else pose_enc[:0]), parts
 
     pair = prepare_pair(model.warp, model.hyper, cond_pair, warp_pe)
-    grid = model.spatial_embeddings.detach()
-    dims = tuple(grid.shape[1:])
-    table = corner_table(grid, cdt)
+    grid = dims = table = None          # the grid-free form without a grid
+    if model.spatial_embeddings is not None:
+        grid = model.spatial_embeddings.detach()
+        dims = tuple(grid.shape[1:])
+        table = corner_table(grid, cdt)
 
     def points(z):
         # the same float32 roundings at both levels: every coarse point
@@ -200,9 +213,7 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
              + torch.sum(z_new[:, None, :] < z_c[:, :, None], dim=-1))
     slot = (torch.arange(R, device=dev)[:, None] * Sf + pos_c).reshape(-1)
     gx_add = torch.zeros_like(gx_f).index_add_(0, slot, gx_c)
-    gse_add = torch.zeros_like(gse_f).index_add_(0, slot, gse_c)
     pair_g = deform_pair_vjp(pts_f, pair, gx_f, gx_add, cdt)
-    dG = grid_dg(packed_f, rows_f, gse_f, gse_add, grid.shape)
 
     grads, dcond = pair_param_grads(model.warp, model.hyper, pair_g, cond_pair)
     d_driving = _cond_parts(dcond, pair_parts, torch.zeros_like(driving))
@@ -214,7 +225,10 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
     if latent is not None:
         d_latent = _cond_parts(dcond_c, parts_c, torch.zeros_like(latent), "latent")
         d_latent = _cond_parts(dcond_f, parts_f, d_latent, "latent")
-    grads[model.spatial_embeddings] = dG
+    if grid is not None:
+        gse_add = torch.zeros_like(gse_f).index_add_(0, slot, gse_c)
+        grads[model.spatial_embeddings] = grid_dg(packed_f, rows_f, gse_f,
+                                                  gse_add, grid.shape)
 
     loss = _level_loss(rgb_c, tgt, lw) + _level_loss(rgb_f, tgt, lw)
     if bg_sup > 0.0:
@@ -253,9 +267,11 @@ def stage1_fused(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc, ro,
     (R, Nc + Nf)); only the loss carries gradients, into the model's
     deformation, NeRF and grid parameters, into driving, into bg and into
     the frame's latent code (L,) | None, which rides the levels'
-    conditioning (fused.py:204-205)."""
+    conditioning (fused.py:204-205). Without a grid there is no dGrid."""
     params = [p for net in (model.warp, model.hyper, model.coarse, model.fine)
-              for p in net.parameters()] + [model.spatial_embeddings]
+              for p in net.parameters()]
+    if model.spatial_embeddings is not None:
+        params.append(model.spatial_embeddings)
 
     def run():
         return fused_forward(model, fcfg, driving, pose_enc, ro, rd, tgt, lw,

@@ -10,8 +10,9 @@ One step (reference nerf-pytorch/train_stage_rays_auto.py:273-544):
     kernel ops (K1/K3, or for a warp-only, ambient-only or
     split-conditioning model K13/K14 a net; K5/K6 or K7/K8, K9; at a sample
     count the level kernels do not take, the per-point branch's K11/K12
-    and K10), or with ``use_pallas`` off, or for a model without view
-    directions, through the plain modules (K10 for the grid sample);
+    and K10; a model without the grid takes their grid-free forms, with
+    no K4, K9 or K10), or with ``use_pallas`` off, or for a model without
+    view directions, through the plain modules (K10 for the grid sample);
   - Adam with the reference's exponential decay, lr0 * factor^(step /
     (lr_decay * 1000)) at the pre-update count (stage1.py:110-126);
   - the dynamic ``sample_prob`` carry and the metrics.
@@ -20,8 +21,6 @@ Loss stack (train_stage_rays_auto.py:455-492):
   L = [coarse_l2 + 0.02 coarse_ce + 0.005 sum(mouth_l2 + mouth_ce)] + fine(...)
       (+ 10 * 0.0005 ||grid||) (+ 10 * 0.0005 ||latent||)
       (+ background supervision * 0.001)
-A configuration outside the ported kernels raises NotImplementedError,
-naming the kernels it needs.
 """
 from __future__ import annotations
 
@@ -32,8 +31,8 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..models.nerface import (ModelSpec, NeRFaceModel, check_kernel_path,
-                              compute_driving, encode_pose)
+from ..models.nerface import (ModelSpec, NeRFaceModel, compute_driving,
+                              encode_pose)
 from ..ops import losses as L
 from ..ops.rays import get_rays_at, ndc_rays
 from ..ops.sampling import (bbox_ray_probs, gather_rays, semantic_ray_probs,
@@ -132,16 +131,6 @@ def make_optimizer(params, ts: TrainSettings) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=ts.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _check_supported(spec: ModelSpec, ts: TrainSettings) -> None:
-    """Raise NotImplementedError for what needs kernels still to be ported:
-    on the kernel path, a model outside ``kernel_path_ok`` (view
-    directions without the grid). The plain path (use_pallas off, or a
-    model without view directions) trains through autograd of the plain
-    modules."""
-    if ts.render.use_pallas:
-        check_kernel_path(spec)
-
-
 def init_train_state(spec: ModelSpec, ts: TrainSettings, seed: int = 0,
                      background=None, device=None,
                      num_latent_frames: int = 0) -> TrainState:
@@ -150,7 +139,6 @@ def init_train_state(spec: ModelSpec, ts: TrainSettings, seed: int = 0,
     ``background`` (H, W, 15) becomes a trained parameter when
     ``ts.train_background``; with ``ts.train_latent_codes`` a zero table of
     ``num_latent_frames`` codes does (stage1.py:133-136)."""
-    _check_supported(spec, ts)
     dev = resolve_device(device)
     model = NeRFaceModel.init(spec, seed=seed, device=dev)
     bg = None
@@ -195,7 +183,6 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
     (4,) [optional], frame_idx () [for latent codes]. Random draws come
     from ``generator`` unless given in ``draws``. Returns (state, metrics); the model's ``.grad`` fields hold
     the step's gradients afterwards."""
-    _check_supported(spec, ts)
     model = state.model
     dev = next(model.parameters()).device
     b = _as_batch(batch, dev)
@@ -297,7 +284,6 @@ def make_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
     another; with no device given and no CUDA present this raises):
     step(state, batch, generator=None, draws=TrainDraws()) -> (state,
     metrics)."""
-    _check_supported(spec, ts)
     dev = resolve_device(device)
 
     def step(state: TrainState, batch, generator=None,

@@ -64,6 +64,7 @@ def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
     from ..config import Config
     from ..data.synthetic import SyntheticFaceDataset
     from ..models.nerface import ModelSpec
+    from ..utils.device import cuda_ms
     from . import stage1
 
     cfg = Config()
@@ -87,16 +88,12 @@ def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(2):
         state, _ = step(state, batch, generator=gen)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    held = [state]
+
+    def one_step():
+        held[0], _ = step(held[0], batch, generator=gen)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(steps):
-            state, _ = step(state, batch, generator=gen)
-        end.record()
-        torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / steps
+        step_ms = cuda_ms(one_step, steps, warmup=0)
     totals: Dict[str, List[float]] = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:

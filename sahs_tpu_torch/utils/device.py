@@ -1,7 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the one timer and
+card query that its scripts share."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import subprocess
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -17,3 +19,34 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def cuda_ms(fn: Callable[[], object], launches: int, runs: int = 1,
+            warmup: int = 1) -> float:
+    """Milliseconds per call of ``fn()`` on the card: ``warmup`` calls, then
+    the minimum over ``runs`` runs of ``launches`` calls between two CUDA
+    events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(launches):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        best = min(best, ev[0].elapsed_time(ev[1]) / launches)
+    return best
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them; raises if it fails."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]

@@ -2,11 +2,14 @@
 K2 (level train), K3 (pair backward), K4 (dGrid), K6 (level backward), K7
 (raw field), K8 (raw-field backward), K9 (dGrid from coordinates), K10
 (the grid sample's backward), K11 (the per-point field), K12 (its
-backward), K13 (one deformation MLP), K14 (its backward) and K15 (the
-sample positions) against their plain versions, the kernel path of
+backward), K13 (one deformation MLP), K14 (its backward), K15 (the
+sample positions), the grid-free forms of K1, K2, K5-K8, K11 and K12, and
+the tools' experiment kernels X1-X6 against their plain versions, the
+kernel path of
 render_rays against the plain path, train steps (fused, the autograd
-fallback on both of its paths, the per-point branch, the plain path, and
-the warp-only and ambient-only models) through the kernels against the
+fallback on both of its paths, the per-point branch, the plain path, the
+warp-only and ambient-only models, and the grid-free model on each of
+its paths) through the kernels against the
 same steps on the plain versions, and the fused step against the fallback
 step.
 Marked ``cuda``; without a CUDA device they skip. This file imports no JAX,
@@ -35,6 +38,7 @@ from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
 from sahs_tpu_torch.ops.kernels import points as k15
 from sahs_tpu_torch.ops.kernels import skip_mlp as k13
 from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays
+from sahs_tpu_torch.tools import sigma_head
 from sahs_tpu_torch.train import fused
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
 
@@ -532,6 +536,11 @@ FALLBACK_KERNELS = {"deform_pair_forward": (k1, k1.deform_pair_plain),
                     "grid_bwd_fused": (k4, k4.grid_bwd_fused_plain),
                     "skip_mlp_forward": (k13, k13.skip_mlp_plain),
                     "skip_mlp_vjp": (k13, k13.skip_mlp_vjp_plain)}
+FUSED_KERNELS = [(fused, "deform_pair_forward", k1.deform_pair_plain),
+                 (fused, "deform_pair_vjp", k1.deform_pair_vjp_plain),
+                 (fused, "grid_dg", k4.grid_dg_plain),
+                 (fused, "build_pts", k15.build_pts_plain),
+                 (k2, "nerf_level_train", k2.nerf_level_train_plain)]
 COUNTERS = {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
             "K3": k1.deform_pair_vjp, "K4": k4.grid_dg,
             "K5": k5.nerf_level_forward, "K6": k2.nerf_level_vjp,
@@ -547,7 +556,8 @@ def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True,
     """One float32 flagship train step, 256 rays of a 64 x 64 frame, Sc +
     Sn ``samples``, seeded draws, ``models`` fields (sub, field, value) set
     on the config; the fallback's kernels swapped for their plain versions
-    when ``plain``. Returns (loss, {name: grad}, {K: launches})."""
+    and the fused path's when ``plain``. Returns (loss, {name: grad}, {K:
+    launches})."""
     from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
     from sahs_tpu_torch.train import stage1
     from sahs_tpu_torch.train.fused import TrainDraws
@@ -579,6 +589,8 @@ def _f32_step(dev, monkeypatch, plain, fused_grads, fuse_composite=True,
     with monkeypatch.context() as mp:
         if plain:
             for name, (mod, f) in FALLBACK_KERNELS.items():
+                mp.setattr(mod, name, f)
+            for mod, name, f in FUSED_KERNELS:
                 mp.setattr(mod, name, f)
         st, m = stage1.make_train_step(spec, ts, device=dev)(st, batch, draws=draws)
     launches = {k: f.launches - before[k] for k, f in COUNTERS.items()}
@@ -798,3 +810,266 @@ def test_one_net_step_kernel_path_matches_plain_path(card, monkeypatch, kind):
     assert not any(l_p.values())
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     _grads_ok(g_k, g_p, "step")
+
+
+# ---------------------------------------------------------------------------
+# The grid-free forms: a model without the spatial-embedding grid runs K1
+# without rows and K2, K5-K8, K11 and K12 with C = 0 (no corner table, no
+# gse, the per-point extra input the direction alone), and its steps never
+# launch K4, K9 or K10. Gates as above.
+# ---------------------------------------------------------------------------
+
+GRID_FREE = (("coarse", "use_spatial_embeddings", False),)
+
+
+@pytest.fixture(scope="module")
+def grid_free(card):
+    """The grid-free flagship model on the card (sigma active, varied
+    colours, as ``card``'s), its folded pair and coarse level."""
+    dev, _, _, _, rng = card
+    cfg = Config()
+    cfg.models.coarse.use_spatial_embeddings = False
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    with torch.no_grad():
+        model.coarse.fc_alpha.bias.fill_(0.5)
+        model.coarse.fc_rgb.weight.mul_(100.0)
+    cond = torch.tensor(rng.randn(76 + 36).astype(np.float32) * 0.5, device=dev)
+    warp_g, pts_g, dir_g = nerface.build_pe_groups(spec)
+    pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
+    level = k5.prepare_level(model.coarse, cond[76:], pts_g, dir_g)
+    assert model.spatial_embeddings is None and level.dir0_se.shape[0] == 0
+    return dev, pair, level, rng
+
+
+@pytest.fixture(scope="module")
+def grid_free_varied(grid_free):
+    """The grid-free coarse level with colours that vary along a ray
+    (tools/sigma_head.py). At the seeded init the trunk's biases dominate
+    its deep activations and a ray's colour logits agree to 0.2 %; without
+    a background every ray's weights add up to 1, sigma's gradient is a
+    difference of a ray's colours, and it is rounding alone (in bfloat16
+    either side reads 0.3-0.9 from a float64 run)."""
+    return sigma_head.coarse_level("varied", False, torch.float32, grid_free[0])[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_grid_free_deform_pair_kernel_matches_plain(grid_free, compute_dtype):
+    """K1 without rows (grid_dims None): the packed points alone."""
+    dev, pair, _, rng = grid_free
+    pts = _gpu(dev, rng.uniform(-0.6, 0.6, (300 * 16, 3)))
+    before = k1.deform_pair_forward.launches
+    out_k, rows_k = k1.deform_pair_forward(pts, pair, compute_dtype, 16, None)
+    out_p, rows_p = k1.deform_pair_plain(pts, pair, compute_dtype, 16, None)
+    torch.cuda.synchronize()
+    assert k1.deform_pair_forward.launches == before + 1
+    assert rows_k is None and rows_p is None and torch.isfinite(out_k).all()
+    if compute_dtype == "float32":
+        assert float((out_k - out_p).abs().max()) <= 1e-4
+    else:
+        assert _scaled(out_k, out_p) <= 2e-2
+
+
+def _grid_free_case(dev, rng, R, S, with_bg, with_noise):
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (R * S, 3)),
+                                    rng.uniform(-1, 1, (R * S, 2))], 1))
+    dirs = _gpu(dev, rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    z = _gpu(dev, np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+    bg = _gpu(dev, rng.rand(R, 15)) if with_bg else None
+    noise = _gpu(dev, rng.randn(R, S) * 0.5) if with_noise else None
+    return pts, dirs, None, None, z, bg, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,with_bg,with_noise", [
+    (16, True, True), (64, True, False), (128, False, True)])
+def test_grid_free_level_kernels_match_plain(grid_free, grid_free_varied,
+                                             compute_dtype, S, with_bg,
+                                             with_noise):
+    """K5, K6 and K2 with C = 0 (no table, no rows): the composited
+    outputs, gx, g_bg and dW; gse is None. Without a background the level
+    is ``grid_free_varied``'s, whose sigma gradient is not a cancelled sum."""
+    dev, _, level, rng = grid_free
+    if not with_bg:
+        level = grid_free_varied
+    R = 96
+    args = _grid_free_case(dev, rng, R, S, with_bg, with_noise)
+    f32 = compute_dtype == "float32"
+    before = (k5.nerf_level_forward.launches, k2.nerf_level_vjp.launches,
+              k2.nerf_level_train.launches)
+    rgb_k, w_k = k5.nerf_level_forward(*args, level, compute_dtype, None)
+    rgb_p, w_p = k5.nerf_level_plain(*args, level, compute_dtype, None)
+    torch.cuda.synchronize()
+    if f32:
+        assert float((rgb_k - rgb_p).abs().max()) <= 1e-4
+        assert float((w_k - w_p).abs().max()) <= 1e-4
+    else:
+        assert _rel(rgb_k, rgb_p) <= 2e-2 and _rel(w_k, w_p) <= 2e-2
+    g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
+    vargs = args + (g_rgb, g_w, level, compute_dtype, None)
+    gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
+    gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*vargs)
+    torch.cuda.synchronize()
+    assert gse_k is None and gse_p is None and torch.isfinite(gx_k).all()
+    for a, b in ((gx_k, gx_p),) + (((gbg_k, gbg_p),) if with_bg else ()):
+        _points_ok(a, b, f32)
+    _grads_ok(g_k, g_p, compute_dtype)
+    tgt = _gpu(dev, np.concatenate([rng.rand(R, 3),
+                                    np.eye(12)[rng.randint(0, 12, R)]], 1))
+    lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+    targs = args + (tgt, lw, level, compute_dtype, None, 0.5 if with_bg else 0.0)
+    rgb_k, w_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*targs)
+    rgb_p, w_p, gx_p, gse_p, gbg_p, g_p = k2.nerf_level_train_plain(*targs)
+    torch.cuda.synchronize()
+    assert (k5.nerf_level_forward.launches, k2.nerf_level_vjp.launches,
+            k2.nerf_level_train.launches) == tuple(b + 1 for b in before)
+    assert gse_k is None and gse_p is None
+    if f32:
+        assert float((rgb_k - rgb_p).abs().max()) <= 1e-4
+    else:
+        assert _rel(rgb_k, rgb_p) <= 2e-2
+    for a, b in ((gx_k, gx_p),) + (((gbg_k, gbg_p),) if with_bg else ()):
+        _points_ok(a, b, f32)
+    _grads_ok(g_k, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_grid_free_rayd_and_point_kernels_match_plain(grid_free, compute_dtype):
+    """K7 and K8 with C = 0, and K11 and K12 on the direction alone (extra
+    (P, 3)), each backward from the cotangent of a loss of the plain
+    forward."""
+    dev, _, level, rng = grid_free
+    R, S = 96, 48
+    pts, dirs, _, _, _, _, _ = _grid_free_case(dev, rng, R, S, False, False)
+    f32 = compute_dtype == "float32"
+    counts = [f.launches for f in (k5.nerf_rayd_forward, k2.nerf_rayd_vjp,
+                                   k11.nerf_mlp_forward_fused, k2.nerf_mlp_vjp)]
+    extra = dirs.repeat_interleave(S, dim=0)
+    for fwd, fwd_p, vjp, vjp_p, args in (
+            (k5.nerf_rayd_forward, k5.nerf_raw_plain, k2.nerf_rayd_vjp,
+             k2.nerf_rayd_vjp_plain, (pts, dirs, None, None)),
+            (k11.nerf_mlp_forward_fused, k11.nerf_mlp_plain, k2.nerf_mlp_vjp,
+             k2.nerf_mlp_vjp_plain, (pts, extra))):
+        tail = (level, compute_dtype) + ((None,) if len(args) == 4 else ())
+        raw_k, raw_p = fwd(*args, *tail), fwd_p(*args, *tail)
+        torch.cuda.synchronize()
+        assert raw_k.shape == (R * S, 16) and torch.isfinite(raw_k).all()
+        if f32:
+            assert float((raw_k - raw_p).abs().max()) <= 1e-4
+        else:
+            assert _scaled(raw_k, raw_p) <= 2e-2
+        tgt = _gpu(dev, rng.rand(R * S, 16))
+        sig = torch.sigmoid(raw_p)
+        g = 2.0 * (sig - tgt) * sig * (1.0 - sig) / (R * S)
+        gx_k, g2_k, g_k = vjp(*args, g, *tail)
+        gx_p, g2_p, g_p = vjp_p(*args, g, *tail)
+        torch.cuda.synchronize()
+        _points_ok(gx_k, gx_p, f32)
+        if len(args) == 4:
+            assert g2_k is None and g2_p is None        # no gse
+        else:
+            assert g2_k.shape == (R * S, 3)             # gextra: the direction's
+            _points_ok(g2_k, g2_p, f32)
+        _grads_ok(g_k, g_p, compute_dtype)
+    assert [f.launches for f in (k5.nerf_rayd_forward, k2.nerf_rayd_vjp,
+                                 k11.nerf_mlp_forward_fused, k2.nerf_mlp_vjp)
+            ] == [c + 1 for c in counts]
+
+
+# path -> (_f32_step's arguments, the launches of one step)
+GRID_FREE_STEPS = {
+    "fused": (dict(fused_grads=True), {"K1": 2, "K2": 2, "K3": 1, "K15": 2}),
+    "fallback": (dict(fused_grads=False), {"K1": 2, "K3": 2, "K5": 2, "K6": 2}),
+    "reuse": (dict(fused_grads=False, fuse_composite=False),
+              {"K1": 2, "K3": 2, "K7": 2, "K8": 2}),
+    "per_point": (dict(fused_grads=True, samples=(64, 128)),
+                  {"K1": 2, "K3": 2, "K5": 1, "K6": 1, "K11": 1, "K12": 1}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(GRID_FREE_STEPS))
+def test_grid_free_step_kernel_path_matches_plain_path(card, monkeypatch, path):
+    """One float32 step of the grid-free model through the kernels against
+    the same step on their plain versions, on each of its paths; no K4,
+    K9 or K10."""
+    dev = card[0]
+    kw, want = GRID_FREE_STEPS[path]
+    kw = dict(kw, models=GRID_FREE)
+    fused_grads = kw.pop("fused_grads")
+    loss_k, g_k, l_k = _f32_step(dev, monkeypatch, False, fused_grads, **kw)
+    loss_p, g_p, l_p = _f32_step(dev, monkeypatch, True, fused_grads, **kw)
+    assert l_k == {k: want.get(k, 0) for k in COUNTERS}, l_k
+    assert not any(l_p.values())
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    _grads_ok(g_k, g_p, "step")
+
+
+@pytest.mark.cuda
+def test_grid_free_fused_step_matches_fallback_step(card, monkeypatch):
+    """The grid-free fused step (K2 with C = 0) against its fallback step
+    (K5/K6), both through the kernels: within FUSED_VS_FALLBACK."""
+    dev = card[0]
+    loss_f, g_f, l_f = _f32_step(dev, monkeypatch, False, True, models=GRID_FREE)
+    loss_b, g_b, _ = _f32_step(dev, monkeypatch, False, False, models=GRID_FREE)
+    assert l_f["K2"] == 2 and l_f["K4"] == 0
+    assert abs(loss_f - loss_b) <= 1e-5 * abs(loss_b)
+    e = tree_errors(g_f, g_b)
+    assert e["l2_rel"] <= 1e-4 and e["cosine"] >= 0.9999, e
+
+
+# ---------------------------------------------------------------------------
+# The tools' experiment kernels X1-X6 against their plain versions, at
+# 16,384 rows: X2 and X3 to float32 summation order (1e-6 L2-relative),
+# X1's row sums within 1e-3 L2-relative and the worst row within 1e-2 of
+# the largest, X4-X6 within 1e-3 L2-relative and 5e-2 on every entry.
+# ---------------------------------------------------------------------------
+
+def _l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.cuda
+def test_exp_gather_kernels_match_plain(card):
+    from sahs_tpu_torch.tools import exp_gather as xg
+    dev = card[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = 16384
+    counts = [f.launches for f in (xg.chain_rows, xg.dg_rows, xg.chunk_rows)]
+    for n_layers, H in xg.CHAIN_CASES:
+        x, w = xg.chain_inputs(H, gen, dev, rows)
+        a, b = xg.chain_rows(x, w, n_layers), xg.chain_plain(x, w, n_layers)
+        assert _l2(a, b) <= 1e-3 and _scaled(a, b) <= 1e-2
+    for L, dt, n in xg.DG_CASES:
+        x, idx = xg.dg_inputs(L, dt, gen, dev, rows)
+        assert _l2(xg.dg_rows(x, idx, n), xg.dg_plain(x, idx, n)) <= 1e-6
+    for N, L, dt in xg.CHUNK_CASES:
+        tab, idx = xg.chunk_inputs(N, L, dt, gen, dev, rows)
+        idx[::97] = N + 5
+        a, b = xg.chunk_rows(tab, idx), xg.chunk_plain(tab, idx)
+        assert not a[::97].any() and _l2(a, b) <= 1e-6
+    torch.cuda.synchronize()
+    assert [f.launches for f in (xg.chain_rows, xg.dg_rows, xg.chunk_rows)] == [
+        counts[0] + 3, counts[1] + 4, counts[2] + 3]
+
+
+@pytest.mark.cuda
+def test_exp_pair2_kernels_match_plain(card):
+    from sahs_tpu_torch.tools import exp_pair2 as xp
+    dev = card[0]
+    x, x2, ws, ws2 = xp.inputs(torch.Generator(device=dev).manual_seed(2), dev,
+                               16384)
+    counts = [f.launches for f in (xp.narrow_call, xp.paired_call, xp.reshape_call)]
+    for a, b in ((xp.narrow_call(x, ws), xp.narrow_plain(x, ws)),
+                 (xp.paired_call(x2, ws2), xp.paired_plain(x2, ws2)),
+                 (xp.reshape_call(x, ws2, "reshape"), xp.reshape_plain(x, ws2, "reshape")),
+                 (xp.reshape_call(x, ws2, "strided"), xp.reshape_plain(x, ws2, "strided"))):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _l2(a.float(), b.float()) <= 1e-3
+        assert float((a.float() - b.float()).abs().max()) <= 5e-2
+    torch.cuda.synchronize()
+    assert [f.launches for f in (xp.narrow_call, xp.paired_call, xp.reshape_call)] == [
+        counts[0] + 1, counts[1] + 1, counts[2] + 2]

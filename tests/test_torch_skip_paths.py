@@ -113,7 +113,7 @@ def test_no_viewdirs_render_takes_the_plain_path(setups, monkeypatch):
     _, item, state = setups["no_viewdirs"]
     monkeypatch.setattr(jfm, "_PE_SPLIT_DOT", False)
     spec = tn.ModelSpec.from_config(model_cfg("no_viewdirs", TConfig))
-    assert not spec.use_viewdirs and tn.kernel_path_ok(spec)
+    assert not spec.use_viewdirs
     model = tn.NeRFaceModel.init(spec, seed=0, device="cpu")
     fns = tn.make_render_fns(model, torch.zeros(16, 29), torch.eye(4)[:3],
                              use_pallas=True)

@@ -534,14 +534,13 @@ def test_train_step_matches_jax(tiny_setup):
 
 
 def test_train_entry_points_refuse_what_is_not_ported(tiny_setup, monkeypatch):
-    """What still needs kernels raises NotImplementedError naming them: a
-    model with view directions and no spatial-embedding grid (the
-    grid-free forms of K5, K7 and K11) on the kernel path, in training and
-    in rendering; without CUDA and without a device the entry points
-    raise. A sample count that does not tile the level kernels (the
-    per-point branch), a train step with use_pallas off (the plain path,
-    where the grid-free model trains too), and the warp-only and
-    ambient-only models on the kernel path (K13, K14) are taken."""
+    """Every configuration is taken on the kernel path now: the grid-free
+    model (view directions, no spatial-embedding grid: the grid-free forms
+    of K1, K2, K5-K8, K11, K12) in training and in rendering, a sample
+    count that does not tile the level kernels (the per-point branch), a
+    train step with use_pallas off (the plain path), and the warp-only and
+    ambient-only models (K13, K14). Without CUDA and without a device the
+    entry points raise."""
     _, _, _, _, _, _, tspec, tts = tiny_setup
     plain = dataclasses.replace(tts, render=dataclasses.replace(tts.render,
                                                                 use_pallas=False))
@@ -553,9 +552,10 @@ def test_train_entry_points_refuse_what_is_not_ported(tiny_setup, monkeypatch):
         c = tiny_cfg(TConfig)
         setattr(getattr(c.models, sub), field, False)
         spec, ts = tn.ModelSpec.from_config(c), tstage1.TrainSettings.from_config(c)
-        if sub != "coarse":
-            taken.append((spec, ts))
+        taken.append((spec, ts))
     grid_free, grid_free_ts = spec, ts
+    assert grid_free_ts.render.use_pallas and not grid_free.use_spatial_embeddings
+    assert tfused.stage1_fused_eligible(grid_free, grid_free_ts.render)
     taken.append((grid_free, dataclasses.replace(
         grid_free_ts, render=dataclasses.replace(grid_free_ts.render,
                                                  use_pallas=False))))
@@ -563,13 +563,10 @@ def test_train_entry_points_refuse_what_is_not_ported(tiny_setup, monkeypatch):
         st = tstage1.init_train_state(spec, ts, device="cpu")
         assert callable(tstage1.make_train_step(spec, ts, device="cpu"))
         assert next(st.model.parameters()).device.type == "cpu"
-    for entry in (tstage1.make_train_step, tstage1.init_train_state):
-        with pytest.raises(NotImplementedError, match="grid-free forms of K5"):
-            entry(grid_free, grid_free_ts, device="cpu")
     model = tn.NeRFaceModel.init(grid_free, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="grid-free forms of K5"):
-        tn.make_render_fns(model, torch.zeros(16, 29), torch.eye(4)[:3],
-                           use_pallas=True)
+    fns = tn.make_render_fns(model, torch.zeros(16, 29), torch.eye(4)[:3],
+                             use_pallas=True)
+    assert fns.level_fn is not None and fns.nerf_fn is not None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tstage1.make_train_step(tspec, tts)

@@ -1,6 +1,7 @@
-"""Shared pieces of tests/test_torch_skip_{paths,steps}.py: the three
-models whose warp and hyper nets cannot share K1's kernel, and the
-model without view directions, at the tiny size of
+"""Shared pieces of tests/test_torch_skip_{paths,steps}.py and
+tests/test_torch_gridfree.py: the three models whose warp and hyper nets
+cannot share K1's kernel, the model without view directions and the
+models without the spatial-embedding grid, at the tiny size of
 tests/torch_fallback_util.py (48 rays of a 32 x 32 audio frame, 8 + 8
 samples, float32), with JAX's seeded weights and live sigma."""
 import numpy as np
@@ -28,6 +29,12 @@ MODELS = {
     "no_viewdirs": (("coarse", "use_viewdirs", False),
                     ("fine", "use_viewdirs", False)),
 }
+# the models without the spatial-embedding grid (tests/test_torch_gridfree.py)
+GRID_FREE = {
+    "grid_free": (("coarse", "use_spatial_embeddings", False),),
+    "grid_free_warp_only": (("coarse", "use_spatial_embeddings", False),
+                            ("hyper", "use_ambient", False)),
+}
 
 
 class SkipCalls:
@@ -51,7 +58,7 @@ def model_cfg(kind, cls=Config, num_fine=8, **runtime):
     and ``num_fine`` fine samples."""
     cfg = tiny_cfg(cls, **runtime)
     cfg.nerf.train.num_fine = num_fine
-    for sub, field, value in MODELS[kind]:
+    for sub, field, value in {**MODELS, **GRID_FREE}[kind]:
         setattr(getattr(cfg.models, sub), field, value)
     return cfg
 
