@@ -54,7 +54,11 @@ Phases, in order (any failure exits non-zero and prints no result):
      summing to 1;
      ms/step on the device and the host clock, rays/s; then per-kernel
      times at the step's shapes beside the plain versions, the library
-     yardsticks and the bounds;
+     yardsticks and the bounds, with the TFLOP/s reached and the share of
+     the bound (as in phases 8 and 10). In bf16 K2, K6, K8 and K12 run
+     their products and dW on the tensor cores (csrc/mma.cuh, 64-point
+     tiles); the planted split-K faults drop the first chunk of that
+     reduction (level_train.TP_BF16-point tiles);
   7. fallback-kernel parity: K6 (both levels), K7, K8 and K9 against their
      plain versions on the autograd fallback's own inputs and cotangents,
      float32 at 256 rays (bg_sup 0 and 0.5) and bfloat16 at the main path's
@@ -569,7 +573,7 @@ def planted_faults(inp, trees) -> dict:
     g_k = trees["k2_fine"]
     out["k2_fine bias trunk[1]"] = tree_errors(_drop_bias(g_k, ["trunk", 1]), g_p)
     S = args[4].shape[1]
-    n = chunk_points(args[0].shape[0], k2.TP) // S
+    n = chunk_points(args[0].shape[0], k2.TP_BF16) // S
     cut = lambda t: None if t is None else t[:n]
     sub = (args[0][:n * S], args[1][:n], args[2], args[3][:n], args[4][:n],
            cut(args[5]), cut(args[6]), args[7][:n], args[8][:n]) + tuple(args[9:])
@@ -1034,8 +1038,8 @@ def fallback_planted_faults(inp, outs) -> dict:
     out["k6_fine bias trunk[1]"] = tree_errors(_drop_bias(outs["k6_fine"], ["trunk", 1]), g_p)
     args = inp["k8"]
     P, S = args[0].shape[0], args[0].shape[0] // inp["R"]
-    n_tiles = -(-P // k2.TP)
-    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP // S
+    n_tiles = -(-P // k2.TP_BF16)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP_BF16 // S
     sub = (args[0][:n * S], args[1][:n], args[2], args[3][:n * S], args[4][:n * S]) + args[5:]
     g_c = k2.nerf_rayd_vjp_plain(*sub)[2]
     out[f"k8 chunk 0 ({n} rays)"] = tree_errors(_tree_sub(outs["k8"], g_c),
@@ -1175,8 +1179,8 @@ def pointwise_planted_faults(inp, outs) -> dict:
     g_p = inp["k12_plain"][2]
     out["k12 bias trunk[1]"] = tree_errors(_drop_bias(outs["k12"], ["trunk", 1]), g_p)
     P = packed.shape[0]
-    n_tiles = -(-P // k2.TP)
-    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP
+    n_tiles = -(-P // k2.TP_BF16)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP_BF16
     g = inp["k12"][2]
     g_c = k2.nerf_mlp_vjp_plain(packed[:n], extra[:n], g[:n], lvl, cdt)[2]
     out[f"k12 chunk 0 ({n} points)"] = tree_errors(_tree_sub(outs["k12"], g_c), g_p)
@@ -1935,8 +1939,8 @@ def grid_free_planted_faults(inp, trees) -> dict:
     args = _fine(inp["nerf_rayd_vjp"])
     R = args[1].shape[0]
     P, S = args[0].shape[0], args[0].shape[0] // R
-    n_tiles = -(-P // k2.TP)
-    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP // S
+    n_tiles = -(-P // k2.TP_BF16)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP_BF16 // S
     sub = (args[0][:n * S], args[1][:n], None, None, args[4][:n * S]) + args[5:]
     g_c = k2.nerf_rayd_vjp_plain(*sub)[2]
     out[f"k8 chunk 0 ({n} rays)"] = tree_errors(
@@ -2759,8 +2763,9 @@ def main(argv) -> int:
                                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                                "tflops_achieved": flops / (ms / 1e3) / 1e12}
         print(f"{name}: {ms:.2f} ms at the step's shapes (bound {b_ms:.3f} ms by {b_by}"
-              + (f", plain {plain:.2f} ms, library {lib:.2f} ms" if fp else "") + ")",
-              flush=True)
+              + (f", plain {plain:.2f} ms, library {lib:.2f} ms" if fp else "")
+              + f"; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % "
+              "of the bound)", flush=True)
     report["train_kernels"] = train_kernels
     tk = train_kernels
     kernel_step_ms = (tk["level_train"]["ms"] + tk["level_train_coarse"]["ms"]
@@ -3074,7 +3079,8 @@ def main(argv) -> int:
         print(f"{name}: {ms:.2f} ms at the fine level's {P_f} points"
               + (f", {coarse:.2f} ms at the coarse level's {P_c}" if coarse else "")
               + f" (bound {b_ms:.3f} ms by {b_by}, plain {plain:.2f} ms, "
-              f"library {lib:.2f} ms)", flush=True)
+              f"library {lib:.2f} ms; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
+              f"{100 * b_ms / ms:.2f} % of the bound)", flush=True)
     report["fallback_kernels"] = fb_kernels
     path_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
                                 + r.get("launches", {}).get(k, 0)) for r in paths.values())
@@ -3262,7 +3268,9 @@ def main(argv) -> int:
                             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                             "points": P_l, "tflops_achieved": flops / (ms / 1e3) / 1e12}
         print(f"{name}: {ms:.2f} ms at {P_l} points (bound {b_ms:.3f} ms by {b_by}, "
-              f"plain {plain:.2f} ms, library {lib:.2f} ms)", flush=True)
+              f"plain {plain:.2f} ms, library {lib:.2f} ms; "
+              f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % of "
+              "the bound)", flush=True)
     report["pointwise_kernels"] = pw_kernels
     del packed_f, extra_f
     pw_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)

@@ -42,9 +42,9 @@
 // has 227 KB of shared memory. And dW is a reduction over all points,
 // which Hopper's unordered blocks cannot carry from one grid step to the
 // next. So one call makes five launches (four for K8 and K12):
-//   1. per 32-point tile: PE (accurate sinf, no fast math), the trilinear
+//   1. per tile: PE (accurate sinf, no fast math), the trilinear
 //      sample with _cell_geometry's exact float expression from the 8
-//      corner rows gathered in the kernel, the MLP (mlp.cuh); every layer's
+//      corner rows gathered in the kernel, the MLP; every layer's
 //      input goes to a device-memory stash (train.cuh), raw (P, 16) out;
 //   2. per ray: compositing with the transmittance exp(-sigma dist) kept
 //      explicit and sigma[:, -1] += 1e-6, the cotangents of rgb_map and
@@ -62,10 +62,30 @@
 // backward chain, dW) against ~60 bytes of input, so operations bound it:
 // 0.58 / 1.16 TFLOP at 131,072 / 262,144 points, 0.6 / 1.2 ms at the
 // 989 TFLOP/s bf16 peak; K12 at a per-point step's 393,216 points (2048
-// rays x 192) 1.7 TFLOP, 1.8 ms. This first version runs the products on the CUDA
-// cores, and the stash costs ~20 KB of device traffic a point; moving the
-// products to wgmma and the stash into a recompute are the next steps.
-#include "train.cuh"
+// rays x 192) 1.7 TFLOP, 1.8 ms.
+//
+// Two instantiations. float32 runs launches 1 and 3 as fwd_kernel and
+// bwd_kernel on 32-point tiles with mlp.cuh's SIMT products, and dW with
+// train.cuh's dw_kernel (exact float32; its gates allow no TF32). bf16
+// runs them as fwd_tc_kernel and bwd_tc_kernel on 64-point tiles with the
+// tensor-core products of mma.cuh (mma.sync m16n8k16; the weights staged
+// in 16-row K-slices through a cp.async ring; K zero-padded to 16), and dW
+// with level_dw_kernel (mma.sync over the stash). Each backward product's
+// epilogue applies the activation's derivative from the stashed output and
+// writes gz to its stash slot and, in bf16, to shared memory for the next
+// product, so no float32 tile of ga is kept; the alpha head's one-row
+// cotangent enters gfeat as a rank-1 term of that epilogue; the skip
+// layer's share of the PE cotangent is taken as soon as gz_skip exists,
+// and [pe(dir) | se]'s cotangent is used per point (gse, the corner
+// dCoords, K12's gextra) right after its product. Shared memory at the
+// flagship's widths (H 256, B 128): forward 113,664 B, backward 114,560 B,
+// two 256-thread blocks an SM at 128 registers a thread. Measured on an
+// H100 (PERF.md, `tools/level_ab.py`): K2 at 262,144 points 20.0 ms (87.6
+// in the SIMT design), ~58 TFLOP/s. level_dw_kernel, which reads the stash
+// once per 64-wide output tile, now takes the largest part, then
+// bwd_tc_kernel and fwd_tc_kernel; wgmma and a dW that reads the stash
+// once are the next steps.
+#include "mma.cuh"
 
 namespace {
 
@@ -597,7 +617,7 @@ size_t fwd_smem(const Args& a, int kx, int ndp) {
          (size_t)(8 + 8 + 16 + 8) * TP * sizeof(float) + TP * sizeof(int) + 64;
 }
 
-// bf16 flagship: 99 KB, two blocks an SM
+// float32 at the flagship's widths: 156,736 B, one block an SM
 template <typename T>
 size_t bwd_smem(const Args& a, int ndp) {
   return (size_t)(2 * a.H + 3 * a.B + 8) * TP * sizeof(T) +
@@ -630,6 +650,371 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
                             a.act_stride, a.gz_stride, (int)n_tiles, TP,
                             prods, work, n_work, chunks, part, out, out_len,
                             stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the same launches with the layer products and dW on the tensor
+// cores (mma.cuh), 64-point tiles
+// ---------------------------------------------------------------------------
+using sahs::bf16;
+using sahs::TC_LD;
+using sahs::TC_LDF;
+using sahs::TC_TP;
+
+__host__ __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
+
+// Shared-memory layout of the two per-tile kernels, in bytes (every offset
+// a multiple of 16). Forward: xin [pad16(kx)] (the f32 heads [8 alpha | 8
+// rgb | 16 seg] reuse it after the trunk), din [pad16(ndp + C)], hA, hB
+// [max(H, 2B)] and the weight ring. Backward: T0, T1 [max(H, 2B)] (gz
+// ping-pong; the branches' P, Q in T0, gs0 and gz_d0 in T1), F
+// [max(pad8(kx), pad8(ndp + C))] in f32 (the [pe(dir) | se] cotangent,
+// then the PE's) and the ring.
+struct TcLayout {
+  int kx, ndp, xin, din, ha, hb, fring, fwd, t0, t1, f, bring, bwd;
+  __host__ __device__ explicit TcLayout(const Args& a) {
+    kx = 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
+    ndp = 3 + 6 * a.nf_dir;
+    const int row = TC_LD * 2, rowf = TC_LDF * 4, rh = imax(a.H, 2 * a.B);
+    xin = 0;
+    din = xin + imax(sahs::pad16(kx) * row, 32 * rowf);
+    ha = din + sahs::pad16(ndp + a.C) * row;
+    hb = ha + rh * row;
+    fring = hb + rh * row;
+    fwd = fring + sahs::ring_bytes(imax(a.H, a.B));
+    const int nf = imax(pad8(kx), pad8(ndp + a.C));
+    t0 = 0;
+    t1 = t0 + rh * row;
+    f = t1 + rh * row;
+    bring = f + nf * rowf;
+    bwd = bring + sahs::ring_bytes(imax(imax(a.H, a.B), nf));
+  }
+};
+
+// 1. forward per 64-point tile
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcLayout ly(a);
+  const int kx = ly.kx, ndp = ly.ndp, C = a.C, L = a.L;
+  bf16* xin = reinterpret_cast<bf16*>(smem_raw + ly.xin);
+  bf16* din = reinterpret_cast<bf16*>(smem_raw + ly.din);
+  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
+  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.fring);
+  float* cw = reinterpret_cast<float*>(hB);             // [8][TC_TP], before the trunk
+  int* rowv = reinterpret_cast<int*>(cw + 8 * TC_TP);
+  float* alphaY = reinterpret_cast<float*>(xin);        // after the trunk
+  float* rgbY = alphaY + 8 * TC_LDF;
+  float* segY = rgbY + 8 * TC_LDF;
+  const bf16* wblob = reinterpret_cast<const bf16*>(a.w);
+  const bf16* table = reinterpret_cast<const bf16*>(a.table);
+  const long long tile = blockIdx.x, base = tile * TC_TP;
+  bf16* acts = reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride;
+  const int* act_off = a.slots;
+  const int tid = threadIdx.x;
+  auto layer = [&](int i, const bf16* X1, const bf16* X2, bf16* Y, float* Yf) {
+    sahs::tc_layer(sahs::load_desc(a.meta, i), wblob, a.b, X1, X2, Y, Yf, ring);
+  };
+
+  // K padding: the rows past the encodings stay zero
+  sahs::zero_rows(xin, kx, sahs::pad16(kx));
+  sahs::zero_rows(din, ndp + C, sahs::pad16(ndp + C));
+  const bool per_point = a.mode == MODE_PTS;
+  if (tid < TC_TP) {
+    const long long p = base + tid;
+    const bool valid = p < a.P;
+    float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    float d[3] = {0, 0, 0};
+    if (valid) {
+      for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
+      const float* dsrc = per_point ? a.extra + p * (3 + C) : a.dirs + p / a.S * 3;
+      for (int c = 0; c < 3; ++c) d[c] = dsrc[c];
+    }
+    sahs::pe_group<bf16>(x, 3, a.nf_xyz, xin, 0, tid, TC_LD);
+    if (a.amb > 0)
+      sahs::pe_group<bf16>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TC_LD);
+    sahs::pe_group<bf16>(d, 3, a.nf_dir, din, 0, tid, TC_LD);
+  }
+  if (per_point) {
+    for (int idx = tid; idx < C * TC_TP; idx += blockDim.x) {
+      const int t = idx / C, c = idx % C;
+      const long long p = base + t;
+      din[(ndp + c) * TC_LD + t] =
+          __float2bfloat16_rn(p < a.P ? a.extra[p * (3 + C) + 3 + c] : 0.0f);
+    }
+  } else if (tid < TC_TP && C > 0) {
+    const long long p = base + tid;
+    const bool valid = p < a.P;
+    float x[3] = {0, 0, 0};
+    if (valid)
+      for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
+    float fr[3];
+    const float okf = cell_fracs(x, a, fr);
+    for (int dz = 0; dz < 2; ++dz) {
+      const float wz = dz ? fr[2] : __fsub_rn(1.0f, fr[2]);
+      for (int dy = 0; dy < 2; ++dy) {
+        const float wy = dy ? fr[1] : __fsub_rn(1.0f, fr[1]);
+        for (int dx = 0; dx < 2; ++dx) {
+          const float wx = dx ? fr[0] : __fsub_rn(1.0f, fr[0]);
+          cw[(dz * 4 + dy * 2 + dx) * TC_TP + tid] =
+              __fmul_rn(__fmul_rn(__fmul_rn(wz, wy), wx), okf);
+        }
+      }
+    }
+    rowv[tid] = valid ? a.rows[p] : 0;
+  }
+  __syncthreads();
+  if (!per_point && C > 0) {
+    for (int idx = tid; idx < C * TC_TP; idx += blockDim.x) {
+      const int t = idx / C, c = idx % C;
+      const bf16* row = table + (size_t)rowv[t] * 8 * C;
+      float acc = 0.0f;
+      for (int s8 = 0; s8 < 8; ++s8) {
+        const float v = __fmul_rn(__bfloat162float(row[s8 * C + c]), cw[s8 * TC_TP + t]);
+        acc = s8 == 0 ? v : __fadd_rn(acc, v);
+      }
+      din[(ndp + c) * TC_LD + t] = __float2bfloat16_rn(acc);
+    }
+    __syncthreads();
+  }
+  sahs::stash_rows(xin, acts + act_off[0], kx);
+  sahs::stash_rows(din, acts + act_off[L + 2], ndp + C);
+
+  const bf16* src = xin;
+  bf16* dst = hA;
+  for (int l = 0; l < L; ++l) {
+    const sahs::LayerDesc d = sahs::load_desc(a.meta, l);
+    layer(l, src, d.w2 >= 0 ? xin : nullptr, dst, nullptr);
+    __syncthreads();
+    sahs::stash_rows(dst, acts + act_off[1 + l], a.H);
+    src = dst;
+    dst = dst == hA ? hB : hA;
+  }
+  bf16* hl = const_cast<bf16*>(src);
+  bf16* feat = dst;
+  bf16* b0 = hl;
+  bf16* b1 = hl + a.B * TC_LD;
+  layer(L, hl, nullptr, feat, nullptr);
+  __syncthreads();
+  sahs::stash_rows(feat, acts + act_off[L + 1], a.H);
+  layer(L + 1, feat, nullptr, nullptr, alphaY);
+  // direction branch: [feat | pe(dir) | se] -> 4 x B -> rgb
+  layer(L + 2, feat, din, b0, nullptr);
+  __syncthreads();
+  sahs::stash_rows(b0, acts + act_off[L + 3], a.B);
+  for (int k = 1; k <= 3; ++k) {
+    bf16* in = k % 2 ? b0 : b1;
+    bf16* out = k % 2 ? b1 : b0;
+    layer(L + 2 + k, in, nullptr, out, nullptr);
+    __syncthreads();
+    sahs::stash_rows(out, acts + act_off[L + 3 + k], a.B);
+  }
+  layer(L + 6, b1, nullptr, nullptr, rgbY);
+  __syncthreads();
+  // seg branch: feat -> 4 x B -> 12 logits
+  layer(L + 7, feat, nullptr, b0, nullptr);
+  __syncthreads();
+  sahs::stash_rows(b0, acts + act_off[L + 7], a.B);
+  for (int k = 1; k <= 3; ++k) {
+    bf16* in = k % 2 ? b0 : b1;
+    bf16* out = k % 2 ? b1 : b0;
+    layer(L + 7 + k, in, nullptr, out, nullptr);
+    __syncthreads();
+    sahs::stash_rows(out, acts + act_off[L + 7 + k], a.B);
+  }
+  layer(L + 11, b1, nullptr, nullptr, segY);
+  __syncthreads();
+  if (a.raw == nullptr) return;
+  for (int i = tid; i < 16 * TC_TP; i += blockDim.x) {
+    const int t = i / 16, c = i % 16;
+    const long long p = base + t;
+    if (p >= a.P) continue;
+    const float v = c < 3 ? rgbY[c * TC_LDF + t]
+                  : c < 15 ? segY[(c - 3) * TC_LDF + t] : alphaY[t];
+    a.raw[p * 16 + c] = v;
+  }
+}
+
+// 3. backward per 64-point tile. Each transposed product's epilogue applies
+// the activation's derivative (from the stashed output) and writes gz to
+// its stash slot in f32 and to shared memory in bf16 for the next product.
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcLayout ly(a);
+  const int ndp = ly.ndp, C = a.C, L = a.L, B = a.B;
+  bf16* T0 = reinterpret_cast<bf16*>(smem_raw + ly.t0);
+  bf16* T1 = reinterpret_cast<bf16*>(smem_raw + ly.t1);
+  float* F = reinterpret_cast<float*>(smem_raw + ly.f);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.bring);
+  bf16* gP = T0;
+  bf16* gQ = T0 + B * TC_LD;
+  bf16* gs0 = T1;
+  bf16* gd0 = T1 + B * TC_LD;     // the rgb head's gz first, then gz_d0
+  const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
+  const bf16* table = reinterpret_cast<const bf16*>(a.table);
+  const long long tile = blockIdx.x, base = tile * TC_TP;
+  const bf16* acts = reinterpret_cast<const bf16*>(a.acts) + tile * a.act_stride;
+  float* gzs = a.gzs + tile * a.gz_stride;
+  const int* act_off = a.slots;
+  const int* gz_off = a.slots + a.n_act;
+  const int tid = threadIdx.x;
+  const sahs::Operand none = {nullptr, 0, nullptr};
+  auto bdesc = [&](int i) { return sahs::load_desc(a.metaT, i); };
+  // ga = X W_i (transposed layer i), then gz = ga * leaky'(y), y the
+  // activation in stash slot `y_slot`, to gz slot `gz_slot` and to G
+  auto back = [&](int i, const bf16* X, int y_slot, int gz_slot, bf16* G) {
+    const sahs::LayerDesc d = bdesc(i);
+    sahs::tc_product(sahs::Operand{wT + d.w1, d.k1, X}, none, d.n, ring,
+                     sahs::DactStore{acts + act_off[y_slot], sahs::ACT_LEAKY,
+                                     gzs + gz_off[gz_slot], G, nullptr, nullptr});
+    __syncthreads();
+  };
+
+  // head cotangents: rgb (16 rows in shared memory for K padding, 8 in the
+  // stash), seg (16), alpha (8, stash only: it enters gfeat as a rank-1
+  // term), each zero past its real width
+  for (int i = tid; i < 40 * TC_TP; i += blockDim.x) {
+    const int j = i / TC_TP, t = i % TC_TP;
+    const long long p = base + t;
+    int c, slot, row, n_stash;
+    bf16* dst;
+    if (j < 16) { row = j; c = j < 3 ? j : -1; slot = L + 6; n_stash = 8; dst = gd0; }
+    else if (j < 32) { row = j - 16; c = row < 12 ? 3 + row : -1; slot = L + 11; n_stash = 16; dst = gP; }
+    else { row = j - 32; c = row == 0 ? 15 : -1; slot = L + 1; n_stash = 8; dst = nullptr; }
+    const float g = (c >= 0 && p < a.P) ? a.graw[p * 16 + c] : 0.0f;
+    if (row < n_stash) gzs[gz_off[slot] + row * TC_TP + t] = g;
+    if (dst != nullptr) dst[row * TC_LD + t] = __float2bfloat16_rn(g);
+  }
+  __syncthreads();
+  // seg branch: segout^T, seg3..1 (gz_s3 .. gz_s0), P <-> Q, ending in gs0
+  const bf16* cur = gP;
+  for (int k = 3; k >= 0; --k) {
+    bf16* dst = k == 0 ? gs0 : (k & 1) ? gQ : gP;
+    back(8 - k, cur, L + 7 + k, L + 7 + k, dst);
+    cur = dst;
+  }
+  // direction branch: rgb^T, dir3..1 (gz_d3 .. gz_d0), ending in gd0
+  cur = gd0;
+  for (int k = 3; k >= 0; --k) {
+    bf16* dst = k == 0 ? gd0 : (k & 1) ? gP : gQ;
+    back(3 - k, cur, L + 3 + k, L + 2 + k, dst);
+    cur = dst;
+  }
+  // dir0's [pe(dir) | se] block: its cotangent, used at once per point
+  {
+    const sahs::LayerDesc d = bdesc(4);
+    sahs::tc_product(sahs::Operand{wT + d.w1, d.k1, gd0}, none, d.n, ring,
+                     sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, false});
+    __syncthreads();
+  }
+  float gco[3] = {0.0f, 0.0f, 0.0f};   // the corner dCoords, added at the end
+  if (tid < TC_TP) {
+    const long long p = base + tid;
+    if (p < a.P && a.mode == MODE_PTS) {
+      // K12: gextra = [the direction's, through its PE | gse]
+      const float* e = a.extra + p * (3 + C);
+      float ge[3] = {0, 0, 0};
+      pe_group_bwd(e, 3, a.nf_dir, F, 0, tid, TC_LDF, ge);
+      float* go = a.gextra + p * (3 + C);
+      for (int c = 0; c < 3; ++c) go[c] = ge[c];
+      for (int c = 0; c < C; ++c) go[3 + c] = F[(ndp + c) * TC_LDF + tid];
+    } else if (p < a.P && C > 0) {
+      float x[3];
+      for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
+      float fr[3];
+      const float okf = cell_fracs(x, a, fr);
+      const bf16* crow = table + (size_t)a.rows[p] * 8 * C;
+      const float* gs = F + ndp * TC_LDF + tid;
+      float dfx = 0.0f, dfy = 0.0f, dfz = 0.0f;
+      for (int s = 0; s < 8; ++s) {
+        const int dz = (s >> 2) & 1, dy = (s >> 1) & 1, dx = s & 1;
+        float gv = 0.0f;
+        for (int c = 0; c < C; ++c) gv += gs[c * TC_LDF] * __bfloat162float(crow[s * C + c]);
+        const float wz = dz ? fr[2] : 1.0f - fr[2];
+        const float wy = dy ? fr[1] : 1.0f - fr[1];
+        const float wx = dx ? fr[0] : 1.0f - fr[0];
+        dfx += (dx ? 1.0f : -1.0f) * wz * wy * gv;
+        dfy += (dy ? 1.0f : -1.0f) * wz * wx * gv;
+        dfz += (dz ? 1.0f : -1.0f) * wy * wx * gv;
+      }
+      gco[0] = dfx * okf * (0.5f * (a.gW - 1));
+      gco[1] = dfy * okf * (0.5f * (a.gH - 1));
+      gco[2] = dfz * okf * (0.5f * (a.gD - 1));
+      for (int c = 0; c < C; ++c) a.gse[p * C + c] = gs[c * TC_LDF];
+    }
+  }
+  __syncthreads();
+  // gfeat = gz_s0 Ws0^T + gz_d0 Wd0f^T + gz_alpha Wa^T, feat linear: the
+  // alpha head's one row is the rank-1 term of the epilogue
+  {
+    const sahs::LayerDesc d = bdesc(9);
+    const int kd = d.k2 - 1;
+    sahs::tc_product(sahs::Operand{wT + d.w1, d.k1, gs0},
+                     sahs::Operand{wT + d.w2, kd, gd0}, d.n, ring,
+                     sahs::DactStore{nullptr, sahs::ACT_LINEAR, gzs + gz_off[L], T0,
+                                     gzs + gz_off[L + 1], wT + d.w2 + (size_t)kd * d.n});
+    __syncthreads();
+  }
+  back(10, T0, L, L - 1, T1);
+  // trunk: the skip layer's input rows take their PE cotangent as soon as
+  // gz_skip exists; the ping-pong buffers hold two layers at a time
+  const sahs::LayerDesc dpe = bdesc(10 + L);
+  bool skip_done = false;
+  cur = T1;
+  for (int l = L - 1; l >= 1; --l) {
+    if (l == a.skip && dpe.w2 >= 0) {
+      sahs::tc_product(sahs::Operand{wT + dpe.w2, dpe.k2, cur}, none, dpe.n, ring,
+                       sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, false});
+      skip_done = true;
+    }
+    bf16* dst = cur == T1 ? T0 : T1;
+    back(11 + (L - 1 - l), cur, l, l - 1, dst);
+    cur = dst;
+  }
+  // d(pe) += gz_0 W0^T
+  sahs::tc_product(sahs::Operand{wT + dpe.w1, dpe.k1, cur}, none, dpe.n, ring,
+                   sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, skip_done});
+  __syncthreads();
+
+  // per point: PE backward, plus the corner dCoords
+  if (tid < TC_TP) {
+    const long long p = base + tid;
+    if (p < a.P) {
+      float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
+      float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      pe_group_bwd(x, 3, a.nf_xyz, F, 0, tid, TC_LDF, gxo);
+      pe_group_bwd(x + 3, a.amb, a.nf_amb, F, 3 + 6 * a.nf_xyz, tid, TC_LDF, gxo + 3);
+      for (int c = 0; c < 3; ++c) gxo[c] += gco[c];
+      for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+    }
+  }
+}
+
+int launch_tc(const Args& a, int n_work, int chunks, int out_len,
+              const int* prods, const int* work, float* part, float* out,
+              cudaStream_t stream) {
+  const TcLayout ly(a);
+  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
+  const int nmax = imax(imax(a.H, a.B), imax(pad8(ly.kx), pad8(ly.ndp + a.C)));
+  if (a.H % 16 || a.B % 16 || a.B < 16 || nmax > sahs::TC_NMAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t sc = (size_t)a.S * 24 * sizeof(float);
+  int err = sahs::set_smem(fwd_tc_kernel, ly.fwd);
+  if (!err) err = sahs::set_smem(bwd_tc_kernel, ly.bwd);
+  if (!err) err = sahs::set_smem(composite_kernel, sc);
+  if (err) return err;
+  fwd_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.fwd, stream>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (a.mode == MODE_LOSS || a.mode == MODE_VJP) {
+    composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  bwd_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bwd, stream>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  return sahs::launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
+                               a.act_stride, a.gz_stride, (int)n_tiles, prods,
+                               work, n_work, chunks, part, out, out_len, stream);
 }
 
 }  // namespace
@@ -678,8 +1063,8 @@ extern "C" int sahs_level_train(
   auto pr = (const int*)prods;
   auto wk = (const int*)work;
   if (bf16)
-    return launch<__nv_bfloat16>(a, n_work, chunks, out_len, pr, wk,
-                                 (float*)part, (float*)out, s);
+    return launch_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
+                     (float*)out, s);
   return launch<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
                        (float*)out, s);
 }

@@ -31,6 +31,10 @@ grid-free form (``table`` and ``rows`` None, the folded level's
 dCoords, gx coming through the PE backward alone; K12's gextra is then the
 direction part alone (P, 3).
 
+In bfloat16 the kernels run their layer products and dW on the tensor
+cores over 64-point tiles, in float32 on the CUDA cores over 32-point
+tiles (``tile_points``; the stash follows the tile).
+
 ``nerf_level_train``, ``nerf_level_vjp``, ``nerf_rayd_vjp`` and
 ``nerf_mlp_vjp`` launch the kernel for CUDA tensors and count the call in
 ``<wrapper>.launches``; for CPU tensors they run the ``*_plain`` version. ``level_train_apply`` folds
@@ -53,7 +57,13 @@ from .nerf_level import (LevelWeights, _grid_args, check_device,
                          prepare_level)
 from .nerf_mlp import nerf_mlp_plain, point_kernel_args
 
-TP = 32   # points per tile of K2's per-point kernels and of its stash
+TP_F32 = 32    # points a tile of the float32 per-tile kernels and stash
+TP_BF16 = 64   # points a tile of the bf16 (tensor-core) kernels and stash
+
+
+def tile_points(dtype: torch.dtype) -> int:
+    """Points a tile of the per-tile kernels, and of the stash, in ``dtype``."""
+    return TP_BF16 if dtype == torch.bfloat16 else TP_F32
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +277,12 @@ def nerf_level_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
     return gx, gse, g_bg, grads
 
 
+def _f32_or_wider(g: torch.Tensor) -> torch.Tensor:
+    """A cotangent in float32, or kept in float64 (``tools/level_exact``'s
+    exact sums)."""
+    return g.to(torch.promote_types(g.dtype, torch.float32))
+
+
 def nerf_rayd_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
                         table: torch.Tensor, rows: torch.Tensor,
                         g: torch.Tensor, weights: LevelWeights,
@@ -277,7 +293,7 @@ def nerf_rayd_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
     nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype, grid_dims,
                    acts)
     with torch.no_grad():
-        return level_backward_plain(weights, acts, pts, g.to(torch.float32),
+        return level_backward_plain(weights, acts, pts, _f32_or_wider(g),
                                     torch_dtype(compute_dtype), grid_dims)
 
 
@@ -290,7 +306,7 @@ def nerf_mlp_vjp_plain(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
     acts = {}
     nerf_mlp_plain(pts, extra, weights, compute_dtype, acts)
     with torch.no_grad():
-        return level_backward_plain(weights, acts, pts, g.to(torch.float32),
+        return level_backward_plain(weights, acts, pts, _f32_or_wider(g),
                                     torch_dtype(compute_dtype), None)
 
 
@@ -344,7 +360,8 @@ def level_train_plan(weights: LevelWeights, dtype: torch.dtype) -> TrainPlan:
         inputs += [(d_slot + len(W.dir_rest), -1), (feat_slot, -1)]
         inputs += [(s_slot + k, -1) for k in range(len(W.seg) - 1)]
         inputs += [(s_slot + len(W.seg) - 1, -1)]
-        W._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs, TP, dtype)
+        W._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs,
+                                         tile_points(dtype), dtype)
     return W._blobs[key]
 
 
@@ -362,6 +379,14 @@ def _grads_tree(weights: LevelWeights, layers):
     tree["seg"] = [next(it) for _ in range(ns)]
     tree["fc_seg"] = next(it)
     return tree
+
+
+def _widths_ok(hidden: int, branch: int, dtype: torch.dtype) -> bool:
+    """The widths the kernels take: multiples of 8 (float32) or of 16 (the
+    tensor-core tiles' K step, bf16), at most 256 in bf16."""
+    if dtype == torch.bfloat16:
+        return hidden % 16 == 0 and branch % 16 == 0 and max(hidden, branch) <= 256
+    return hidden % 8 == 0 and branch % 8 == 0
 
 
 _MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
@@ -398,12 +423,12 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
               "graw": (graw, (P, 16))}
     bad = [f"{k} {tuple(t.shape)} (want {want})" for k, (t, want)
            in shapes.items() if t is not None and tuple(t.shape) != want]
+    dtype = torch_dtype(compute_dtype)
     if (bad or len(weights.dir_rest) != 3 or len(weights.seg) != 4
-            or branch % 8 or hidden % 8):
+            or not _widths_ok(hidden, branch, dtype)):
         raise ValueError(f"{what} shapes not supported: {bad}, "
                          f"{len(weights.dir_rest)} dir and {len(weights.seg)} "
                          f"seg layers, hidden {hidden}, branch {branch}")
-    dtype = torch_dtype(compute_dtype)
     plan = level_train_plan(weights, dtype)
     check_device(what, pts.device, rows, table, dirs, z, bg, noise, tgt, lw,
                  g_rgb, g_w, graw, plan.fwd[0])
@@ -413,7 +438,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw = map(
         c, (pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw))
     rows, table = _grid_args(rows, table)
-    n_tiles = -(-P // TP)
+    n_tiles = -(-P // tile_points(dtype))
     e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
     composite = mode != "raw"
     rgb_map, w_out, g_bg = (e(R, 16), e(R, S), e(R, 16)) if composite else (None,) * 3
@@ -520,12 +545,13 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
     check_device("K12", pts.device)
     P, PW, ints = point_kernel_args(pts, extra, weights, "K12")
     n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir = ints
+    dtype = torch_dtype(compute_dtype)
     if (tuple(g.shape) != (P, 16) or len(weights.dir_rest) != 3
-            or len(weights.seg) != 4):
+            or len(weights.seg) != 4 or not _widths_ok(hidden, branch, dtype)):
         raise ValueError(f"K12 shapes not supported: g {tuple(g.shape)} for "
                          f"{P} points, {len(weights.dir_rest)} dir and "
-                         f"{len(weights.seg)} seg layers")
-    dtype = torch_dtype(compute_dtype)
+                         f"{len(weights.seg)} seg layers, hidden {hidden}, "
+                         f"branch {branch}")
     plan = level_train_plan(weights, dtype)
     check_device("K12", pts.device, extra, g, plan.fwd[0])
     f32 = torch.float32
@@ -533,7 +559,7 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
     pts, extra, g = (t.to(f32).contiguous() for t in (pts, extra, g))
     gx = torch.empty((P, PW), dtype=f32, device=dev)
     gextra = torch.empty((P, 3 + C), dtype=f32, device=dev)
-    n_tiles = -(-P // TP)
+    n_tiles = -(-P // tile_points(dtype))
     acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
     p = _build.ptr
     fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)

@@ -1,0 +1,137 @@
+"""Times the level backward (K2, K6, K8, K12 in bf16, per call) and the
+train steps that run it, for one tree of the port, on the card:
+
+    python sahs_tpu_torch/tools/level_ab.py --tree <root of a checkout>
+
+imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
+is in), so that two versions are compared in one call by running it once
+per tree in turns, e.g. for a copy of the parent commit unpacked under
+``build/parent``:
+
+    for t in build/parent . . build/parent; do
+        python sahs_tpu_torch/tools/level_ab.py --tree $t; done
+
+Per call: K2, K6, K8 at a step's fine level (2048 rays x 128) and coarse
+level (x 64), K12 at the per-point step's fine level (2048 x 192 =
+393,216 points), on the flagship model's coarse level at its seeded init
+and seeded inputs; the minimum over 3 rounds of the mean of 3 calls, CUDA
+events. Steps (``train/trace_step.py``'s PATHS and ``build_step``, from
+this checkout, run on the tree's code): the flagship fused step, fallback
+path 1 (fused_grads off), the reuse path (fuse_composite off too) and the
+per-point step (``pointwise``, 64 + 128), each 2 warm-up steps and then
+the mean of 5, CUDA events. Prints one JSON
+line: the tree, the card's name and power limit, and the readings in ms.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+_HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _kernel_times(dev, reps: int = 3) -> dict:
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    cond = g(rng.randn(36) * 0.5)
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    level = k5.prepare_level(model.coarse, cond, pts_g, dir_g)
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    grid = (32, 32, 32)
+    best = lambda fn: cuda_ms(fn, reps, runs=3)
+    out = {}
+    R = 2048
+    for S, lvl_name in ((128, "fine"), (64, "coarse")):
+        P = R * S
+        pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                rng.uniform(-1, 1, (P, 2))], 1))
+        dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+        z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+        bg, noise = g(rng.rand(R, 15)), g(rng.randn(R, S) * 0.5)
+        tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+        lw = g(np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+        rows = _cell_geometry(pts, grid)[0]
+        a = (pts, dirs, table, rows, z, bg, noise)
+        out[f"K2 {lvl_name}"] = best(lambda: k2.nerf_level_train(
+            *a, tgt, lw, level, "bfloat16", grid, 0.5))
+        g_rgb, g_w = g(rng.randn(R, 16) * 1e-3), g(rng.randn(R, S) * 1e-3)
+        out[f"K6 {lvl_name}"] = best(lambda: k2.nerf_level_vjp(
+            *a, g_rgb, g_w, level, "bfloat16", grid))
+        graw = g(rng.randn(P, 16) * 1e-3)
+        out[f"K8 {lvl_name}"] = best(lambda: k2.nerf_rayd_vjp(
+            pts, dirs, table, rows, graw, level, "bfloat16", grid))
+        del a, pts, rows, graw
+    P = R * 192
+    pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)), rng.uniform(-1, 1, (P, 2))], 1))
+    extra = g(np.concatenate([rng.randn(P, 3) * 0.1 + [0, 0, -1], rng.randn(P, 32) * 0.3], 1))
+    gg = g(rng.randn(P, 16) * 1e-3)
+    out["K12 fine"] = best(lambda: k2.nerf_mlp_vjp(pts, extra, gg, level, "bfloat16"))
+    return out
+
+
+def _trace_step():
+    """This checkout's ``train/trace_step.py`` (PATHS and ``build_step``)
+    bound to the ``sahs_tpu_torch`` imported from the tree under test: every
+    tree runs one definition of the steps, on its own code."""
+    import importlib.util
+
+    import sahs_tpu_torch.train  # noqa: F401  (the package its imports resolve in)
+    spec = importlib.util.spec_from_file_location(
+        "sahs_tpu_torch.train._level_ab_steps",
+        os.path.join(_HERE, "sahs_tpu_torch", "train", "trace_step.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _step_times(dev, n_steps: int = 5) -> dict:
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    steps = _trace_step()
+    out = {}
+    for name in ("fused", "fallback", "reuse", "pointwise"):
+        step, state, batch, gen = steps.build_step(name, dev)
+        held = [state]
+
+        def one():
+            held[0], _ = step(held[0], batch, generator=gen)
+        out[name] = cuda_ms(one, n_steps, warmup=2)
+        del held, step
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=_HERE)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    import sahs_tpu_torch
+    from sahs_tpu_torch.utils.device import card_line
+    dev = torch.device("cuda")
+    res = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(sahs_tpu_torch.__file__))),
+           "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}",
+           "kernels_ms": _kernel_times(dev), "steps_ms": _step_times(dev)}
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,6 @@ prints one JSON line per case.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import sys
 from typing import List, Optional
@@ -26,54 +25,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..config import Config
-from ..models import nerface
 from ..ops.grid import _cell_geometry, pack_corner_table
 from ..ops.kernels import field_mlp
 from ..ops.kernels import level_train as k2
 from ..ops.kernels import nerf_level as k5
 from ..utils.compare import tree_errors
 from ..utils.device import card_line, resolve_device
+from .level_exact import coarse_level, exact_sums
 
 GRID = (32, 32, 32)
 R, S = 96, 128
-
-
-@contextlib.contextmanager
-def float64_products():
-    """The plain versions' products and PE backward in float64 (their
-    ``round_to`` keeps float64 operands; the PE backward takes float32)."""
-    round_to, pe_backward = field_mlp.round_to, k2.pe_backward
-    field_mlp.round_to = lambda x, dtype: x.double()
-    k2.pe_backward = lambda p, g, groups: pe_backward(p.float(), g.float(), groups)
-    try:
-        yield
-    finally:
-        field_mlp.round_to, k2.pe_backward = round_to, pe_backward
-
-
-def coarse_level(kind: str, grid: bool, dtype: torch.dtype, dev):
-    """(folded coarse level, model) of the flagship model, seed 0, in
-    ``dtype``: ``kind`` "seeded" or "varied" (the module docstring)."""
-    cfg = Config()
-    cfg.models.coarse.use_spatial_embeddings = grid
-    spec = nerface.ModelSpec.from_config(cfg)
-    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
-    with torch.no_grad():
-        c = model.coarse
-        if kind == "varied":
-            for name, p in c.named_parameters():
-                if name.endswith("bias"):
-                    p.zero_()
-            c.dir[0].weight[:, :c.fc_feat.weight.shape[0]].mul_(30.0)
-        c.fc_alpha.bias.fill_(0.5)
-        c.fc_rgb.weight.mul_(300.0 if kind == "varied" else 100.0)
-    model = model.to(dtype)
-    cond = np.random.RandomState(0).randn(76 + 36).astype(np.float32) * 0.5
-    _, pts_g, dir_g = nerface.build_pe_groups(spec)
-    return (k5.prepare_level(model.coarse, torch.tensor(cond[76:], device=dev,
-                                                        dtype=dtype), pts_g, dir_g),
-            model)
 
 
 def draw(seed: int, dtype: torch.dtype, dev):
@@ -104,7 +65,7 @@ def grid_args(model, pts, grid: bool, dtype):
 
 
 def case(kind: str, grid: bool, seed: int, compute_dtype: str, dev) -> dict:
-    with float64_products():
+    with exact_sums(round_operands=False):
         lvl, model = coarse_level(kind, grid, torch.float64, dev)
         pts, dirs, z, noise, tgt, lw = draw(seed, torch.float64, dev)
         table, rows = grid_args(model, pts, grid, torch.float64)

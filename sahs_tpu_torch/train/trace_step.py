@@ -18,9 +18,11 @@ K10 the only kernel of the port), ``warp_only`` (models.hyper.use_ambient
 off: the fallback with the warp net alone on K13 and K14, then K5, K6, K9)
 or ``ambient_only`` (models.warp.use_warp off: the hyper net alone on K13
 and K14).
-K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6:
-fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce; K8 the
-same without composite_kernel; K3: pair_vjp_kernel, dw_kernel,
+K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6
+in bfloat16, the tensor-core kernels of csrc/mma.cuh: fwd_tc_kernel,
+composite_kernel, bwd_tc_kernel, level_dw_kernel, dw_reduce, and in
+float32 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce;
+K8 the same without composite_kernel; K3: pair_vjp_kernel, dw_kernel,
 dw_reduce; K12 as K8); K5 and K7 both as nerf_level_kernel; K10 as
 grid_bwd_fused_kernel, K11 as nerf_mlp_kernel; K13 as skip_mlp_kernel and
 K14 as skip_vjp_kernel, dw_kernel, dw_reduce.
@@ -52,19 +54,15 @@ PATHS = {"fused": ({}, {}, {}), "fallback": ({"fused_grads": False}, {}, {}),
          "ambient_only": ({}, {}, {("warp", "use_warp"): False})}
 
 
-def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
-    """Trace ``steps`` flagship train steps of ``path`` (PATHS). Returns
-    {"step_ms", "kernels":
-    [{"name", "launches_per_step", "ms_per_step", "share"}], "kernel_ms",
-    "idle_share"}, kernels in decreasing time."""
+def build_step(path: str, dev):
+    """The flagship train step of ``path`` (PATHS) on ``dev``, seeded:
+    (step, state, batch, generator), the synthetic 512x512 frame on the
+    device as a trainer's cached frames are."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ..config import Config
     from ..data.synthetic import SyntheticFaceDataset
     from ..models.nerface import ModelSpec
-    from ..utils.device import cuda_ms
     from . import stage1
 
     cfg = Config()
@@ -77,15 +75,27 @@ def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
         setattr(getattr(cfg.models, sub), k, v)
     spec = ModelSpec.from_config(cfg)
     ts = stage1.TrainSettings.from_config(cfg)
-    dev = torch.device("cuda")
     ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512,
                               near=cfg.dataset.near, far=cfg.dataset.far)
-    # the frame stays on the device, as a trainer's cached frames do
     batch = {k: torch.as_tensor(v).to(dev) for k, v in
              dict(ds[0], background=ds.background()).items() if k != "fname"}
     state = stage1.init_train_state(spec, ts, seed=0, device=dev)
     step = stage1.make_train_step(spec, ts, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    return step, state, batch, torch.Generator(device=dev).manual_seed(0)
+
+
+def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
+    """Trace ``steps`` flagship train steps of ``path`` (PATHS). Returns
+    {"step_ms", "kernels":
+    [{"name", "launches_per_step", "ms_per_step", "share"}], "kernel_ms",
+    "idle_share"}, kernels in decreasing time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..utils.device import cuda_ms
+
+    step, state, batch, gen = build_step(path, torch.device("cuda"))
     for _ in range(2):
         state, _ = step(state, batch, generator=gen)
     held = [state]

@@ -22,6 +22,8 @@ than cuBLAS) and corner rows exact; bfloat16 within 2e-2 relative, the bf16
 gate of PARITY_TPU.json (the two sides round the same operands to bf16 but
 sum them in another order, so a value rounds differently now and then).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,7 @@ from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
 from sahs_tpu_torch.ops.kernels import points as k15
 from sahs_tpu_torch.ops.kernels import skip_mlp as k13
 from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays
-from sahs_tpu_torch.tools import sigma_head
+from sahs_tpu_torch.tools import level_exact
 from sahs_tpu_torch.train import fused
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
 
@@ -86,6 +88,54 @@ def _rel(a, b):
 def _scaled(a, b):
     """max |a - b| / max |b|, for outputs that pass through zero."""
     return float((a - b).abs().max() / b.abs().max())
+
+
+# In bfloat16 a level-backward kernel's distance to exact sums may be at
+# most PLAIN_MULTIPLE times the plain version's on the same draw (or
+# PLAIN_MULTIPLE x PLAIN_FLOOR, a tenth of the bf16 point gate, where the
+# plain version is closer than that), for every cotangent and the worst dW
+# leaf: the plain version stays the yardstick of how far float32
+# arithmetic on the same bf16 operands may move a reading. Over these
+# tests' draws on the card the largest ratio read 3.2 (K8's gse at 96 x
+# 16); tools/level_exact.py's draws with a background read at most ~1.6.
+PLAIN_MULTIPLE = 4.0
+PLAIN_FLOOR = 1e-3
+
+
+def _without_sigma_head(tree):
+    return {k: v for k, v in tree.items() if k != "fc_alpha"}
+
+
+def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
+    """The reference of a level-backward kernel (K2, K6, K8, K12): its plain
+    version. In bfloat16 the plain version with exact sums
+    (``tools/level_exact.exact_plain``: the same bf16 operands, float64 sums):
+    the tensor-core kernels (csrc/mma.cuh) sum the same bf16 products in
+    another order than the plain version's float32 matmuls, so a value
+    rounds to bf16 differently now and then, and against the plain version
+    both sides' rounding would count; with exact sums only the kernel's
+    does. Given the kernel's results ``out_k``, also holds them to the plain
+    version's own distance from exact sums (PLAIN_MULTIPLE), dW without the
+    sigma head where ``skip_sigma``."""
+    if not any(isinstance(a, str) and a == "bfloat16" for a in args):
+        return plain(*args)
+    ref = level_exact.exact_plain(plain, *args)
+    if out_k is not None:
+        # K2's composited colours and weights are forward outputs
+        first = 2 if plain is k2.nerf_level_train_plain else 0
+        out_p = plain(*args)
+        for i, (k, p, x) in enumerate(zip(out_k, out_p, ref)):
+            if i < first or k is None:
+                continue
+            if isinstance(x, dict):
+                if skip_sigma:
+                    k, p, x = (_without_sigma_head(t) for t in (k, p, x))
+                d_k, d_p = tree_errors(k, x)["l2_rel"], tree_errors(p, x)["l2_rel"]
+            else:
+                d_k, d_p = point_errors(k, x)["l2_rel"], point_errors(p, x)["l2_rel"]
+            assert d_k <= PLAIN_MULTIPLE * max(d_p, PLAIN_FLOOR), (
+                plain.__name__, i, d_k, d_p)
+    return ref
 
 
 @pytest.mark.cuda
@@ -226,9 +276,13 @@ def _grads_ok(a, b, gates):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,with_bg,with_noise,bg_sup", [
     (16, True, True, 0.0), (64, True, False, 0.5), (128, False, True, 0.0)])
-def test_level_train_kernel_matches_plain(card, compute_dtype, S, with_bg,
-                                          with_noise, bg_sup):
+def test_level_train_kernel_matches_plain(card, grid_varied, compute_dtype, S,
+                                          with_bg, with_noise, bg_sup):
+    """K2 against its plain version. Without a background the level is
+    ``grid_varied``'s, whose sigma gradient is not a cancelled sum."""
     dev, model, _, level, rng = card
+    if not with_bg:
+        level = grid_varied
     R = 96
     pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (R * S, 3)),
                                     rng.uniform(-1, 1, (R * S, 2))], 1))
@@ -246,7 +300,7 @@ def test_level_train_kernel_matches_plain(card, compute_dtype, S, with_bg,
             compute_dtype, GRID, bg_sup)
     before = k2.nerf_level_train.launches
     out_k = k2.nerf_level_train(*args)
-    out_p = k2.nerf_level_train_plain(*args)
+    out_p = _plain_ref(k2.nerf_level_train_plain, *args, out_k=out_k)
     torch.cuda.synchronize()
     assert k2.nerf_level_train.launches == before + 1
     (rgb_k, w_k, gx_k, gse_k, gbg_k, g_k), (rgb_p, w_p, gx_p, gse_p, gbg_p, g_p) = \
@@ -401,17 +455,21 @@ def _points_ok(a, b, f32):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,with_bg,with_noise", [
     (16, True, True), (64, True, False), (128, False, True)])
-def test_nerf_level_vjp_kernel_matches_plain(card, compute_dtype, S, with_bg,
-                                             with_noise):
+def test_nerf_level_vjp_kernel_matches_plain(card, grid_varied, compute_dtype, S,
+                                             with_bg, with_noise):
+    """K6 against its plain version. Without a background the level is
+    ``grid_varied``'s, whose sigma gradient is not a cancelled sum."""
     dev, model, _, level, rng = card
+    if not with_bg:
+        level = grid_varied
     R = 96
     args = _level_case(dev, model, rng, R, S, with_bg, with_noise, compute_dtype)
     rgb_p, w_p = k5.nerf_level_plain(*args, level, compute_dtype, GRID)
     g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
     vargs = args + (g_rgb, g_w, level, compute_dtype, GRID)
     before = k2.nerf_level_vjp.launches
-    gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
-    gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*vargs)
+    out_k = gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
+    gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
     torch.cuda.synchronize()
     assert k2.nerf_level_vjp.launches == before + 1
     assert all(bool(torch.isfinite(t).all()) for t in (gx_k, gse_k))
@@ -451,8 +509,8 @@ def test_ablation_level_kernels_match_plain(card, compute_dtype, S):
     rgb_p, w_p = k5.nerf_level_plain(*args)
     g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
     vargs = args[:7] + (g_rgb, g_w) + args[7:]
-    gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
-    gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*vargs)
+    out_k = gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
+    gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
     torch.cuda.synchronize()
     f32 = compute_dtype == "float32"
     for a, b in ((rgb_k, rgb_p), (w_k, w_p)):
@@ -493,10 +551,10 @@ def test_nerf_rayd_kernels_match_plain(card, compute_dtype, S):
     out = volume_render_radiance_field(r3, z, dirs, background_prior=bg)
     g_rgb, _ = _loss_cotangents(dev, rng, out.rgb.detach(), out.weights.detach())
     (g,) = torch.autograd.grad(out.rgb, raw, g_rgb[:, :15])
-    gx_k, gse_k, g_k = k2.nerf_rayd_vjp(pts, dirs, table, rows, g, level,
-                                        compute_dtype, GRID)
-    gx_p, gse_p, g_p = k2.nerf_rayd_vjp_plain(pts, dirs, table, rows, g, level,
-                                              compute_dtype, GRID)
+    out_k = gx_k, gse_k, g_k = k2.nerf_rayd_vjp(pts, dirs, table, rows, g, level,
+                                                compute_dtype, GRID)
+    gx_p, gse_p, g_p = _plain_ref(k2.nerf_rayd_vjp_plain, pts, dirs, table, rows, g,
+                                  level, compute_dtype, GRID, out_k=out_k)
     torch.cuda.synchronize()
     assert (k5.nerf_rayd_forward.launches, k2.nerf_rayd_vjp.launches) == (
         counts[0] + 1, counts[1] + 1)
@@ -690,8 +748,9 @@ def test_nerf_mlp_kernels_match_plain(card, compute_dtype, P):
     tgt = _gpu(dev, rng.rand(P, 16))
     g = 2.0 * (torch.sigmoid(raw_p) - tgt) * torch.sigmoid(raw_p) * (
         1.0 - torch.sigmoid(raw_p)) / P
-    gx_k, ge_k, g_k = k2.nerf_mlp_vjp(pts, extra, g, level, compute_dtype)
-    gx_p, ge_p, g_p = k2.nerf_mlp_vjp_plain(pts, extra, g, level, compute_dtype)
+    out_k = gx_k, ge_k, g_k = k2.nerf_mlp_vjp(pts, extra, g, level, compute_dtype)
+    gx_p, ge_p, g_p = _plain_ref(k2.nerf_mlp_vjp_plain, pts, extra, g, level,
+                                 compute_dtype, out_k=out_k)
     torch.cuda.synchronize()
     assert (k11.nerf_mlp_forward_fused.launches, k2.nerf_mlp_vjp.launches) == (
         counts[0] + 1, counts[1] + 1)
@@ -845,12 +904,19 @@ def grid_free(card):
 @pytest.fixture(scope="module")
 def grid_free_varied(grid_free):
     """The grid-free coarse level with colours that vary along a ray
-    (tools/sigma_head.py). At the seeded init the trunk's biases dominate
-    its deep activations and a ray's colour logits agree to 0.2 %; without
+    (tools/level_exact.coarse_level, tools/sigma_head.py). At the seeded
+    init the trunk's biases dominate its deep activations and a ray's colour logits agree to 0.2 %; without
     a background every ray's weights add up to 1, sigma's gradient is a
     difference of a ray's colours, and it is rounding alone (in bfloat16
     either side reads 0.3-0.9 from a float64 run)."""
-    return sigma_head.coarse_level("varied", False, torch.float32, grid_free[0])[0]
+    return level_exact.coarse_level("varied", False, torch.float32, grid_free[0])[0]
+
+
+@pytest.fixture(scope="module")
+def grid_varied(card):
+    """The grid model's coarse level with colours that vary along a ray, as
+    ``grid_free_varied``'s (the same table: only the coarse MLP changes)."""
+    return level_exact.coarse_level("varied", True, torch.float32, card[0])[0]
 
 
 @pytest.mark.cuda
@@ -909,8 +975,8 @@ def test_grid_free_level_kernels_match_plain(grid_free, grid_free_varied,
         assert _rel(rgb_k, rgb_p) <= 2e-2 and _rel(w_k, w_p) <= 2e-2
     g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
     vargs = args + (g_rgb, g_w, level, compute_dtype, None)
-    gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
-    gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*vargs)
+    out_k = gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
+    gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
     torch.cuda.synchronize()
     assert gse_k is None and gse_p is None and torch.isfinite(gx_k).all()
     for a, b in ((gx_k, gx_p),) + (((gbg_k, gbg_p),) if with_bg else ()):
@@ -920,8 +986,9 @@ def test_grid_free_level_kernels_match_plain(grid_free, grid_free_varied,
                                     np.eye(12)[rng.randint(0, 12, R)]], 1))
     lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
     targs = args + (tgt, lw, level, compute_dtype, None, 0.5 if with_bg else 0.0)
-    rgb_k, w_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*targs)
-    rgb_p, w_p, gx_p, gse_p, gbg_p, g_p = k2.nerf_level_train_plain(*targs)
+    out_k = rgb_k, w_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*targs)
+    rgb_p, w_p, gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_train_plain, *targs,
+                                                     out_k=out_k)
     torch.cuda.synchronize()
     assert (k5.nerf_level_forward.launches, k2.nerf_level_vjp.launches,
             k2.nerf_level_train.launches) == tuple(b + 1 for b in before)
@@ -964,8 +1031,8 @@ def test_grid_free_rayd_and_point_kernels_match_plain(grid_free, compute_dtype):
         tgt = _gpu(dev, rng.rand(R * S, 16))
         sig = torch.sigmoid(raw_p)
         g = 2.0 * (sig - tgt) * sig * (1.0 - sig) / (R * S)
-        gx_k, g2_k, g_k = vjp(*args, g, *tail)
-        gx_p, g2_p, g_p = vjp_p(*args, g, *tail)
+        out_k = gx_k, g2_k, g_k = vjp(*args, g, *tail)
+        gx_p, g2_p, g_p = _plain_ref(vjp_p, *args, g, *tail, out_k=out_k)
         torch.cuda.synchronize()
         _points_ok(gx_k, gx_p, f32)
         if len(args) == 4:
@@ -1073,3 +1140,253 @@ def test_exp_pair2_kernels_match_plain(card):
     torch.cuda.synchronize()
     assert [f.launches for f in (xp.narrow_call, xp.paired_call, xp.reshape_call)] == [
         counts[0] + 1, counts[1] + 1, counts[2] + 2]
+
+
+# ---------------------------------------------------------------------------
+# The bf16 level backward on the tensor cores (csrc/mma.cuh): K2, K6, K8
+# and K12 at a step's fine-level size with the last 64-point tile part
+# empty (2047 rays x 127 samples), with and without a background, with the
+# grid and grid-free (dir0's K = 27), against the plain versions with exact
+# sums (``_plain_ref``) at chip_smoke.py's TRAIN_BF16_GATES; and two faults
+# planted in the new code, each of which must miss them. At the card
+# tests' usual 96 rays the plain version with float32 arithmetic itself
+# reads up to 5.6e-3 (with a background) and 1.7e-2 (without) from exact
+# sums on its worst dW leaf outside the sigma head (tools/level_exact.py),
+# so the 2e-3 gate needs a step's size. The card fixture's levels; inputs
+# from a random state of their own, so that the draw does not depend on
+# which tests ran before.
+# ---------------------------------------------------------------------------
+
+# chip_smoke.TRAIN_BF16_GATES: composited outputs within out_rel, per-point
+# cotangents within point_l2_rel, every dW leaf within l2_rel and cosine
+TC_GATES = {"out_rel": 2e-2, "point_l2_rel": 1e-2, "l2_rel": 2e-3, "cosine": 0.9999}
+TC_R, TC_S = 2047, 127
+
+
+def _tc_points_ok(a, b) -> bool:
+    e = point_errors(a, b, 1e-4)
+    return e["l2_rel"] <= TC_GATES["point_l2_rel"] and e["cosine"] >= TC_GATES["cosine"]
+
+
+def _tc_dw_ok(a, b) -> bool:
+    e = tree_errors(a, b)
+    return e["l2_rel"] <= TC_GATES["l2_rel"] and e["cosine"] >= TC_GATES["cosine"]
+
+
+@pytest.fixture(scope="module")
+def tc_levels(card, grid_free):
+    """grid -> (folded coarse level, model): the card fixture's flagship
+    level and the grid-free one."""
+    _, model, _, level, _ = card
+    return {True: (level, model), False: (grid_free[2], None)}
+
+
+@pytest.fixture(scope="module")
+def tc_varied(grid_varied, grid_free_varied):
+    """grid -> the level whose colours vary along a ray, on which K2's
+    sigma head without a background is held at a step's size."""
+    return {True: grid_varied, False: grid_free_varied}
+
+
+def _tc_inputs(dev, rng, model, grid, with_bg):
+    """pts, dirs, table, rows, z, bg, noise at TC_R x TC_S (table and rows
+    None without the grid)."""
+    P = TC_R * TC_S
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                    rng.uniform(-1, 1, (P, 2))], 1))
+    dirs = _gpu(dev, rng.randn(TC_R, 3) * 0.1 + [0, 0, -1])
+    z = _gpu(dev, np.sort(rng.uniform(0.48, 1.08, (TC_R, TC_S)), axis=-1))
+    bg = _gpu(dev, rng.rand(TC_R, 15)) if with_bg else None
+    noise = _gpu(dev, rng.randn(TC_R, TC_S) * 0.5)
+    table = rows = None
+    if grid:
+        table = pack_corner_table(model.spatial_embeddings.detach(),
+                                  dtype=torch.bfloat16)
+        rows = _cell_geometry(pts, GRID)[0]
+    return pts, dirs, table, rows, z, bg, noise
+
+
+def _tc_cotangents(dev, rng, rgb_map, w, z):
+    """Cotangents of the colour loss of ``_loss_cotangents`` plus an L2
+    loss of the expected depth sum_s w z: without a background every ray's
+    weights add up to 1 and sigma's gradient from the colours alone is a
+    difference of a ray's nearly equal colours (rounding); the depth term
+    gives it a part that is not."""
+    g_rgb, g_w = _loss_cotangents(dev, rng, rgb_map, w)
+    R = w.shape[0]
+    depth = (w * z).sum(-1, keepdim=True)
+    target = _gpu(dev, rng.uniform(0.5, 1.0, (R, 1)))
+    return g_rgb, g_w + 2.0 * (depth - target) * z / R
+
+
+def _tc_rayd_cotangent(rng, dev, raw, z, dirs, bg):
+    """The cotangent of raw (P, 16) from the loss of ``_tc_cotangents`` of
+    its composited colours and weights."""
+    from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
+    raw = raw.clone().requires_grad_()
+    r3 = raw.reshape(TC_R, TC_S, 16)
+    if bg is not None:
+        r3 = torch.cat([r3[:, :-1], torch.cat([bg, r3[:, -1:, -1]], -1)[:, None]], 1)
+    out = volume_render_radiance_field(r3, z, dirs, background_prior=bg)
+    g_rgb, g_w = _tc_cotangents(dev, rng, out.rgb.detach(), out.weights.detach(), z)
+    (g,) = torch.autograd.grad((out.rgb, out.weights), raw,
+                               (g_rgb[:, :out.rgb.shape[1]], g_w))
+    return g
+
+
+def _tc_check(out_k, out_p, n_points, dw_index, skip_sigma=False):
+    for a, b in zip(out_k[:n_points], out_p[:n_points]):
+        assert (a is None) == (b is None)
+        assert a is None or _tc_points_ok(a, b), point_errors(a, b)
+    g_k, g_p = out_k[dw_index], out_p[dw_index]
+    if skip_sigma:
+        g_k, g_p = _without_sigma_head(g_k), _without_sigma_head(g_p)
+    assert _tc_dw_ok(g_k, g_p), tree_errors(g_k, g_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("with_bg", [True, False])
+def test_tensor_core_level_kernels_match_plain(tc_levels, tc_varied, grid, with_bg):
+    """K2, K6, K8 and K12 in bf16 at 2047 x 127 points against their plain
+    versions (exact sums), at chip_smoke's TRAIN_BF16_GATES, every output
+    and every dW leaf. K2 without a background: its sigma head's dW on the
+    level whose colours vary along a ray (``tc_varied``), the rest on the
+    flagship level. At a step's size each level conditions only its own
+    part (tools/level_exact.py, PERF.md section 6): on the flagship level
+    sigma's gradient is a difference of a ray's nearly equal colours and
+    its head reads 0.2-41 % from exact sums in the plain version itself,
+    while on the varied level the plain version's gx reads 1.7-2.0 % and
+    its trunk's dW 8e-3-9e-3."""
+    level, model = tc_levels[grid]
+    dev = level.dir0_b.device
+    rng = np.random.RandomState(11 + 2 * grid + with_bg)
+    args = _tc_inputs(dev, rng, model, grid, with_bg)
+    pts, dirs, table, rows, z, bg, noise = args
+    dims = GRID if grid else None
+    P = TC_R * TC_S
+    assert P % k2.TP_BF16
+    counts = [f.launches for f in (k2.nerf_level_train, k2.nerf_level_vjp,
+                                   k2.nerf_rayd_vjp, k2.nerf_mlp_vjp)]
+    # K2
+    tgt = _gpu(dev, np.concatenate([rng.rand(TC_R, 3),
+                                    np.eye(12)[rng.randint(0, 12, TC_R)]], 1))
+    lw = _gpu(dev, np.stack([np.full(TC_R, 1.0 / TC_R), np.full(TC_R, 0.02 / TC_R)], 1))
+    targs = args + (tgt, lw, level, "bfloat16", dims, 0.5 if with_bg else 0.0)
+    out_k = k2.nerf_level_train(*targs)
+    out_p = _plain_ref(k2.nerf_level_train_plain, *targs, out_k=out_k,
+                       skip_sigma=not with_bg)
+    torch.cuda.synchronize()
+    assert _rel(out_k[0], out_p[0]) <= TC_GATES["out_rel"]
+    assert _rel(out_k[1], out_p[1]) <= TC_GATES["out_rel"]
+    assert all(t is None or bool(torch.isfinite(t).all()) for t in out_k[:5])
+    _tc_check(out_k[2:], out_p[2:], 3, 3, skip_sigma=not with_bg)
+    if not with_bg:
+        vargs_k2 = targs[:9] + (tc_varied[grid],) + targs[10:]
+        out_v = k2.nerf_level_train(*vargs_k2)
+        head_k = out_v[5]["fc_alpha"]
+        head_p = _plain_ref(k2.nerf_level_train_plain, *vargs_k2, out_k=out_v)[5]["fc_alpha"]
+        torch.cuda.synchronize()
+        assert _tc_dw_ok(head_k, head_p), tree_errors(head_k, head_p)
+    # K6, from the cotangents of a loss of the plain forward
+    rgb_p, w_p = k5.nerf_level_plain(*args, level, "bfloat16", dims)
+    g_rgb, g_w = _tc_cotangents(dev, rng, rgb_p, w_p, z)
+    vargs = args + (g_rgb, g_w, level, "bfloat16", dims)
+    out_k = k2.nerf_level_vjp(*vargs)
+    out_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
+    torch.cuda.synchronize()
+    _tc_check(out_k, out_p, 3, 3)
+    # K8, from the cotangent of a loss composited from the plain raw field
+    raw_p = k5.nerf_raw_plain(pts, dirs, table, rows, level, "bfloat16", dims)
+    g = _tc_rayd_cotangent(rng, dev, raw_p, z, dirs, bg)
+    rargs = (pts, dirs, table, rows, g, level, "bfloat16", dims)
+    out_k = k2.nerf_rayd_vjp(*rargs)
+    out_p = _plain_ref(k2.nerf_rayd_vjp_plain, *rargs, out_k=out_k)
+    torch.cuda.synchronize()
+    _tc_check(out_k, out_p, 2, 2)
+    # K12 on per-point inputs: [dir | se] (the grid) or the direction alone
+    C = level.dir0_se.shape[0]
+    extra = torch.cat([dirs.repeat_interleave(TC_S, dim=0),
+                       _gpu(dev, rng.randn(P, C) * 0.3)], 1)
+    raw_p = k11.nerf_mlp_plain(pts, extra, level, "bfloat16")
+    sig = torch.sigmoid(raw_p)
+    g = 2.0 * (sig - _gpu(dev, rng.rand(P, 16))) * sig * (1.0 - sig) / P
+    out_k = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")
+    out_p = _plain_ref(k2.nerf_mlp_vjp_plain, pts, extra, g, level, "bfloat16",
+                       out_k=out_k)
+    torch.cuda.synchronize()
+    assert out_k[1].shape == (P, 3 + C)
+    _tc_check(out_k, out_p, 2, 2)
+    assert [f.launches for f in (k2.nerf_level_train, k2.nerf_level_vjp,
+                                 k2.nerf_rayd_vjp, k2.nerf_mlp_vjp)
+            ] == [counts[0] + 1 + (not with_bg)] + [c + 1 for c in counts[1:]]
+
+
+def _k12_case(tc_levels):
+    """K12's inputs at TC_R x TC_S points on the grid model's level, and the
+    cotangent of a loss of its plain output."""
+    level = tc_levels[True][0]
+    dev = level.dir0_b.device
+    rng = np.random.RandomState(17)
+    P = TC_R * TC_S
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                    rng.uniform(-1, 1, (P, 2))], 1))
+    extra = _gpu(dev, np.concatenate([rng.randn(P, 3) * 0.1 + [0, 0, -1],
+                                      rng.randn(P, 32) * 0.3], 1))
+    sig = torch.sigmoid(k11.nerf_mlp_plain(pts, extra, level, "bfloat16"))
+    g = 2.0 * (sig - _gpu(dev, rng.rand(P, 16))) * sig * (1.0 - sig) / P
+    return level, pts, extra, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blob,layer", [("fwd", 1), ("bwd", 10)])
+def test_tensor_core_fault_weight_slice_misses_gates(tc_levels, blob, layer):
+    """One 16-row K-slice of the weights the ring stages left out (rows
+    16-31 of trunk[1] in the forward blob, or of feat^T in the transposed
+    blob): K12's results must miss the gates its faultless run passes."""
+    level, pts, extra, g = _k12_case(tc_levels)
+    good = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")
+    ref = _plain_ref(k2.nerf_mlp_vjp_plain, pts, extra, g, level, "bfloat16",
+                     out_k=good)
+    assert _tc_dw_ok(good[2], ref[2]), tree_errors(good[2], ref[2])
+    faulty = dataclasses.replace(level, _blobs={})
+    plan = k2.level_train_plan(faulty, torch.bfloat16)
+    w, b, meta = getattr(plan, blob)
+    w1, k1_, _, _, n = meta.reshape(-1, 7)[layer, :5].tolist()
+    assert k1_ >= 32
+    w = w.clone()
+    w[w1 + 16 * n:w1 + 32 * n] = 0
+    faulty._blobs[("train", torch.bfloat16)] = dataclasses.replace(
+        plan, **{blob: (w, b, meta)})
+    out = k2.nerf_mlp_vjp(pts, extra, g, faulty, "bfloat16")
+    torch.cuda.synchronize()
+    caught = [not _tc_points_ok(out[0], ref[0]), not _tc_dw_ok(out[2], ref[2])]
+    assert any(caught), (point_errors(out[0], ref[0]), tree_errors(out[2], ref[2]))
+
+
+@pytest.mark.cuda
+def test_tensor_core_fault_split_k_chunk_misses_gates(tc_levels):
+    """The points of the first split-K chunk of the tensor-core dW dropped
+    (the plain dW over them taken off K12's): must miss the dW gates."""
+    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    level, pts, extra, g = _k12_case(tc_levels)
+    P = pts.shape[0]
+    n_tiles = -(-P // k2.TP_BF16)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP_BF16
+    assert dw_chunks(n_tiles) > 1 and n < P
+    g_k = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")[2]
+    g_p = _plain_ref(k2.nerf_mlp_vjp_plain, pts, extra, g, level, "bfloat16")[2]
+    g_c = _plain_ref(k2.nerf_mlp_vjp_plain, pts[:n], extra[:n], g[:n], level,
+                     "bfloat16")[2]
+    torch.cuda.synchronize()
+    assert _tc_dw_ok(g_k, g_p), tree_errors(g_k, g_p)
+    dropped = _tree_sub(g_k, g_c)
+    assert not _tc_dw_ok(dropped, g_p), tree_errors(dropped, g_p)
+
+
+def _tree_sub(a, b):
+    if isinstance(a, dict):
+        return {k: _tree_sub(a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return [_tree_sub(x, y) for x, y in zip(a, b)]
+    return a - b

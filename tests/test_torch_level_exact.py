@@ -1,0 +1,112 @@
+"""The reference of the bf16 level-backward card tests, on the CPU:
+``tools/level_exact.exact_plain`` (the plain version with its products'
+operands rounded to bf16 and every product and sum in float64) and the
+levels the card tests hold K2 on without a background.
+
+  (a) every result of the four plain versions (K2, K6, K8, K12) comes out
+      in float64, with and without the grid, and stays within bf16
+      rounding of the plain version itself;
+  (b) a product whose operands bypass ``field_mlp.round_to`` raises
+      inside ``exact_sums`` instead of summing in float32 unseen, and the
+      patched functions are restored afterwards;
+  (c) the grid model's "varied" level (tests/test_torch_cuda.py:grid_varied)
+      keeps the plain version's sigma head within a gate of a float64 run,
+      as tests/test_torch_gridfree.py holds the grid-free one.
+"""
+import numpy as np
+import pytest
+import torch
+
+from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+from sahs_tpu_torch.ops.kernels import field_mlp
+from sahs_tpu_torch.ops.kernels import level_train as k2
+from sahs_tpu_torch.tools import level_exact, sigma_head
+from sahs_tpu_torch.utils.compare import point_errors, tree_errors
+
+torch.set_num_threads(2)
+
+GRID = level_exact.GRID
+R, S = 4, 16
+
+
+@pytest.fixture(scope="module")
+def levels():
+    return {grid: level_exact.coarse_level("seeded", grid, torch.float32,
+                                           torch.device("cpu"))
+            for grid in (True, False)}
+
+
+def _inputs(levels, grid):
+    level, model = levels[grid]
+    rng = np.random.RandomState(3)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32))
+    P = R * S
+    pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                            rng.uniform(-1, 1, (P, 2))], 1))
+    dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+    bg, noise = g(rng.rand(R, 15)), g(rng.randn(R, S) * 0.5)
+    tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+    lw = g(np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+    table = (pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+             if grid else None)
+    rows = _cell_geometry(pts, GRID)[0] if grid else None
+    dims = GRID if grid else None
+    base = (pts, dirs, table, rows)
+    C = level.dir0_se.shape[0]
+    extra = torch.cat([dirs.repeat_interleave(S, dim=0), g(rng.randn(P, C) * 0.3)], 1)
+    graw = g(rng.randn(P, 16) * 1e-2)
+    return {
+        "K2": (k2.nerf_level_train_plain, base + (z, bg, noise, tgt, lw, level,
+                                                   "bfloat16", dims, 0.5)),
+        "K6": (k2.nerf_level_vjp_plain, base + (z, bg, noise, g(rng.randn(R, 16) * 1e-2),
+                                                 g(rng.randn(R, S) * 1e-3), level,
+                                                 "bfloat16", dims)),
+        "K8": (k2.nerf_rayd_vjp_plain, base + (graw, level, "bfloat16", dims)),
+        "K12": (k2.nerf_mlp_vjp_plain, (pts, extra, graw, level, "bfloat16")),
+    }
+
+
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("kernel", ["K2", "K6", "K8", "K12"])
+def test_exact_plain_sums_every_product_in_float64(levels, grid, kernel):
+    plain, args = _inputs(levels, grid)[kernel]
+    out_x = level_exact.exact_plain(plain, *args)
+    out_p = plain(*args)
+    assert field_mlp.round_to(torch.ones(2), torch.bfloat16).dtype == torch.float32
+    for x, p in zip(out_x, out_p):
+        if isinstance(p, dict):
+            for path_x, path_p in zip(_leaves(x), _leaves(p)):
+                assert path_x.dtype == torch.float64
+            e = tree_errors(x, p)
+            assert e["l2_rel"] <= 5e-2 and e["cosine"] >= 0.999, e
+        elif p is not None:
+            assert x.dtype == torch.float64
+            assert point_errors(x, p)["l2_rel"] <= 5e-2
+
+
+def _leaves(tree):
+    from sahs_tpu_torch.utils.compare import leaves
+    return [t for _, t in leaves(tree)]
+
+
+def test_exact_sums_refuses_a_product_past_round_to(levels, monkeypatch):
+    plain, args = _inputs(levels, True)["K12"]
+    bf = lambda x: x.to(torch.bfloat16).to(torch.float32)
+    monkeypatch.setattr(k2, "mm", lambda a, w, dtype: bf(a) @ bf(w))
+    with pytest.raises(RuntimeError, match="exact_sums"):
+        level_exact.exact_plain(plain, *args)
+    assert field_mlp.round_to(torch.ones(2, dtype=torch.float64),
+                              torch.bfloat16).dtype == torch.float32
+    assert k2.pe_backward is field_mlp.pe_backward
+
+
+@pytest.mark.parametrize("compute_dtype,gate", [("float32", 1e-4),
+                                                ("bfloat16", 5e-2)])
+def test_grid_varied_level_conditions_the_sigma_head(compute_dtype, gate):
+    """The grid model's level whose colours vary along a ray keeps the
+    plain version's sigma head within ``gate`` of a float64 run (the seeded
+    level's does not: tools/sigma_head.py), so the card tests can hold K2
+    without a background there at the gates."""
+    row = sigma_head.case("varied", True, 1, compute_dtype, torch.device("cpu"))
+    assert row["head_plain_vs_float64"] <= gate, row

@@ -1,0 +1,190 @@
+"""What the level-backward kernels (``csrc/level_train.cu``: K2, K6, K8,
+K12) take from Python: the train plan of a NeRF level, built at the tile
+size of each compute dtype (64 points in bf16, the tensor-core kernels of
+``csrc/mma.cuh``; 32 in float32, the SIMT kernels), on the CPU:
+
+  (a) the activation and gz slots tile each stash block without overlap;
+  (b) each slot starts where the tensor-core loads want it: a stash row is
+      a tile's points, so every slot and row starts on a 16-byte boundary
+      (and in bf16 on a 128-byte row);
+  (c) every (k, n) of every dW product, bias rows included, falls in
+      exactly one work item of the split-K reduction;
+  (d) the tile sizes agree with the CUDA sources, and K3's and K14's plans
+      (deform_pair_vjp.cu, skip_mlp.cu) keep their own 32-point tiles.
+"""
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from sahs_tpu_torch.config import Config
+from sahs_tpu_torch.models import nerface
+from sahs_tpu_torch.ops.kernels import deform_pair as k1
+from sahs_tpu_torch.ops.kernels import level_train as k2
+from sahs_tpu_torch.ops.kernels import nerf_level as k5
+from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+from sahs_tpu_torch.ops.kernels.field_mlp import DW_TILE
+
+torch.set_num_threads(2)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "sahs_tpu_torch", "csrc")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _model(grid: bool):
+    cfg = Config()
+    cfg.models.coarse.use_spatial_embeddings = grid
+    spec = nerface.ModelSpec.from_config(cfg)
+    return nerface.NeRFaceModel.init(spec, seed=0, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def models():
+    return {"grid": _model(True), "grid_free": _model(False)}
+
+
+def _level(model):
+    rng = np.random.RandomState(0)
+    cond = torch.tensor(rng.randn(36).astype(np.float32))
+    _, pts_g, dir_g = nerface.build_pe_groups(model.spec)
+    return k5.prepare_level(model.coarse, cond, pts_g, dir_g)
+
+
+def _plan(models, kind, dtype):
+    return k2.level_train_plan(_level(models[kind]), DTYPES[dtype])
+
+
+def _slots(plan):
+    slots = plan.slots.tolist()
+    act = slots[:plan.n_act]
+    gz = slots[plan.n_act:]
+    return act, gz
+
+
+def _act_rows(lvl):
+    """Rows of each activation slot of a level's plan, from its weights:
+    [pe, h_0 .. h_{L-1}, feat, [pe(dir) | se], d0-d3, s0-s3]."""
+    L, hid = len(lvl.trunk), lvl.trunk[0]["w"].shape[1]
+    din = lvl.dir0_dir.shape[0] + lvl.dir0_se.shape[0]
+    B = lvl.dir0_b.shape[0]
+    return [lvl.trunk[0]["w"].shape[0]] + [hid] * (L + 1) + [din] + [B] * 8
+
+
+CASES = [(k, d) for k in ("grid", "grid_free") for d in DTYPES]
+
+
+@pytest.mark.parametrize("kind,dtype", CASES)
+def test_slots_tile_each_stash_block(models, kind, dtype):
+    lvl = _level(models[kind])
+    plan = k2.level_train_plan(lvl, DTYPES[dtype])
+    tp = k2.tile_points(DTYPES[dtype])
+    act, gz = _slots(plan)
+    act_rows = _act_rows(lvl)
+    for offs, stride, rows in (
+            (act, plan.act_stride, act_rows),
+            (gz, plan.gz_stride, [d[4] for d in plan.descs])):
+        assert len(offs) == len(rows)
+        assert offs[0] == 0
+        ends = [o + r * tp for o, r in zip(offs, rows)]
+        # consecutive, non-empty, and the last one ends the block
+        assert all(r > 0 for r in rows)
+        assert ends[:-1] == offs[1:]
+        assert ends[-1] == stride
+    # the activation slots hold the rows the products read
+    for a_off, K, g_off, N, out_off, is_bias in plan.prods.reshape(-1, 6).tolist():
+        if not is_bias:
+            i = act.index(a_off)
+            assert K <= act_rows[i]
+        j = gz.index(g_off)
+        assert N == plan.descs[j][4]
+
+
+@pytest.mark.parametrize("kind,dtype", CASES)
+def test_slots_start_where_the_tensor_core_loads_want(models, kind, dtype):
+    plan = _plan(models, kind, dtype)
+    tp = k2.tile_points(DTYPES[dtype])
+    item = torch.empty((), dtype=DTYPES[dtype]).element_size()
+    act, gz = _slots(plan)
+    for off in act:
+        assert off % tp == 0 and (off * item) % 16 == 0
+    for off in gz:
+        assert off % tp == 0 and (off * 4) % 16 == 0
+    # a stash row is a tile's points: 128 bytes in bf16, the dW kernel's
+    # 16-byte loads and ldmatrix rows
+    assert (tp * item) % 16 == 0 and (tp * 4) % 16 == 0
+    if dtype == "bfloat16":
+        assert tp * item == 128
+        assert (plan.act_stride * item) % 128 == 0 and (plan.gz_stride * 4) % 128 == 0
+    # the weight blobs: every layer's rows start on 16 bytes
+    for meta in (plan.fwd[2], plan.bwd[2]):
+        for w1, k1_, w2, k2_, n, b, act_ in meta.reshape(-1, 7).tolist():
+            assert n % 8 == 0 and (w1 * item) % 16 == 0 and (n * item) % 16 == 0
+            assert w2 < 0 or (w2 * item) % 16 == 0
+
+
+@pytest.mark.parametrize("kind,dtype", CASES)
+def test_work_items_cover_every_product_once(models, kind, dtype):
+    plan = _plan(models, kind, dtype)
+    prods = plan.prods.reshape(-1, 6).tolist()
+    hits = np.zeros(plan.out_len, np.int64)
+    for j, k0, n0 in plan.work.reshape(-1, 3).tolist():
+        _, K, _, N, out_off, _ = prods[j]
+        assert 0 <= k0 < K and 0 <= n0 < N and k0 % DW_TILE == 0 and n0 % DW_TILE == 0
+        kr, nr = min(DW_TILE, K - k0), min(DW_TILE, N - n0)
+        idx = (out_off + (k0 + np.arange(kr))[:, None] * N
+               + n0 + np.arange(nr)[None, :])
+        np.add.at(hits, idx.reshape(-1), 1)
+    # every weight and bias entry of every product, bias rows included
+    want = np.zeros(plan.out_len, np.int64)
+    for _, K, _, N, out_off, is_bias in prods:
+        want[out_off:out_off + K * N] += 1
+        assert not is_bias or K == 1
+    assert (hits == want).all()
+    assert (want == 1).all()
+    assert sum(p[5] for p in prods) == len(plan.descs)
+
+
+def _cu_const(path, name):
+    with open(os.path.join(CSRC, path)) as fp:
+        return int(re.search(rf"constexpr int {name} = (\d+);", fp.read()).group(1))
+
+
+def test_tile_sizes_match_the_cuda_sources():
+    assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
+    assert k2.tile_points(torch.float32) == _cu_const("level_train.cu", "TP") == 32
+    assert k1.TP_BWD == _cu_const("deform_pair_vjp.cu", "TP") == 32
+    assert k13.TP_BWD == _cu_const("skip_mlp.cu", "TP_BWD") == 32
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pair_and_skip_plans_keep_their_tiles(models, dtype):
+    model = models["grid"]
+    rng = np.random.RandomState(1)
+    cond = torch.tensor((rng.randn(76 + 36) * 0.5).astype(np.float32))
+    warp_g = nerface.build_pe_groups(model.spec)[0]
+    pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
+    skip = k13.prepare_skip(model.warp, cond, warp_g, "tanh")
+    for plan, tp in ((k1.pair_train_plan(pair, DTYPES[dtype]), k1.TP_BWD),
+                     (k13.skip_train_plan(skip, DTYPES[dtype]), k13.TP_BWD)):
+        act, gz = _slots(plan)
+        assert plan.act_stride % tp == 0 and plan.gz_stride % tp == 0
+        assert all(o % tp == 0 for o in act + gz)
+        assert plan.gz_stride == tp * sum(d[4] for d in plan.descs)
+
+
+def test_level_plans_differ_only_by_tile(models):
+    """The bf16 plan is the float32 plan at twice the tile: the same
+    products, layers and work list, every slot offset doubled."""
+    lvl = _level(models["grid"])
+    p32 = k2.level_train_plan(lvl, torch.float32)
+    p64 = k2.level_train_plan(lvl, torch.bfloat16)
+    assert torch.equal(p64.slots, 2 * p32.slots)
+    assert (p64.act_stride, p64.gz_stride) == (2 * p32.act_stride, 2 * p32.gz_stride)
+    assert torch.equal(p64.work, p32.work)
+    q32, q64 = p32.prods.reshape(-1, 6).clone(), p64.prods.reshape(-1, 6).clone()
+    q32[:, [0, 2]] *= 2
+    assert torch.equal(q32, q64)
+    assert p64.descs == p32.descs and p64.out_len == p32.out_len
