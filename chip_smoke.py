@@ -42,8 +42,11 @@ Phases, in order (any failure exits non-zero and prints no result):
      gates of TRAIN_F32_GATES and TRAIN_BF16_GATES (every gradient leaf,
      each weight and each bias, against its own norm); faults planted in
      the kernels' bf16 results (a bias gradient dropped, one split-K
-     chunk's points dropped, K4's addend left out) must each miss those
-     gates; one whole float32 step through the kernels against the same
+     chunk's points dropped, rows 16-31 of K3's warp trunk[1] weights
+     left out, K4's addend left out) must each miss those gates; bf16 K3
+     runs on the tensor cores (csrc/skip_tc.cuh, 64-point tiles) and its
+     split-K fault cuts at that tile; one whole float32 step through the
+     kernels against the same
      step on the plain versions (STEP_GATES), printed beside the plain
      step with the camera moved one ulp and the plain step on the CPU;
   6. the main path of training: the flagship Stage-I train step (2048
@@ -55,10 +58,10 @@ Phases, in order (any failure exits non-zero and prints no result):
      ms/step on the device and the host clock, rays/s; then per-kernel
      times at the step's shapes beside the plain versions, the library
      yardsticks and the bounds, with the TFLOP/s reached and the share of
-     the bound (as in phases 8 and 10). In bf16 K2, K6, K8 and K12 run
-     their products and dW on the tensor cores (csrc/mma.cuh, 64-point
-     tiles); the planted split-K faults drop the first chunk of that
-     reduction (level_train.TP_BF16-point tiles);
+     the bound (as in phases 8 and 10). In bf16 K2, K3, K6, K8, K12 and
+     K14 run their products and dW on the tensor cores (csrc/mma.cuh,
+     csrc/skip_tc.cuh, 64-point tiles); the planted split-K faults drop
+     the first chunk of that reduction (level_train.TP_BF16-point tiles);
   7. fallback-kernel parity: K6 (both levels), K7, K8 and K9 against their
      plain versions on the autograd fallback's own inputs and cotangents,
      float32 at 256 rays (bg_sup 0 and 0.5) and bfloat16 at the main path's
@@ -119,8 +122,10 @@ Phases, in order (any failure exits non-zero and prints no result):
      bfloat16 at 2048 (2e-2 of scale; TRAIN_BF16_GATES); K15 bit for bit
      against the expression at both levels of the fused step; faults
      planted (K13 without its head bias, K14's bias gradient dropped,
-     K14's first split-K chunk dropped, one of K15's coordinates one ulp
-     over) must each miss; whole float32 steps at 256 rays, kernels
+     K14's first split-K chunk of 64-point tiles dropped, rows 16-31 of
+     trunk[1]'s weights left out of bf16 K14, which runs on the tensor
+     cores, one of K15's coordinates one ulp over) must each miss; whole
+     float32 steps at 256 rays, kernels
      against plain versions (STEP_GATES, launch counts checked): the
      warp-only, ambient-only and split-conditioning models (phase 5 holds
      the fused step, K15 in it, so);
@@ -130,8 +135,9 @@ Phases, in order (any failure exits non-zero and prints no result):
      bf16 (K13 = K14 = K5 = K6 = K9 = 2 a step), and the flagship fused
      step (K1 = K2 = K15 = 2, K3 = K4 = 1); then
      K13 at the frame's fine chunk (held against its plain version there),
-     K14 at a step's fine level and K15 at the fused step's, beside their
-     plain versions, the library yardsticks and the bounds;
+     K14 at a step's fine level (warp and hyper net, with the TFLOP/s
+     reached) and K15 at the fused step's, beside their plain versions,
+     the library yardsticks and the bounds;
  13. grid-free parity: the flagship with models.coarse.use_spatial_embeddings
      off (view directions, no grid) on the kernel path: K1 without rows,
      K2, K5, K6, K7, K8, K11 and K12 with C = 0, each held against its plain
@@ -551,12 +557,31 @@ def _drop_bias(tree, path):
     return {k: _drop_bias(v, rest) if k == head else v for k, v in tree.items()}
 
 
+def weight_slice_fault(weights, train_plan, layer: int):
+    """A copy of ``weights`` (PairWeights or SkipWeights) whose bf16 train
+    plan leaves out rows 16-31 of forward layer ``layer``'s weights: one
+    16-row k-step of what the tensor-core products stage (bf16 K3, K14)."""
+    import dataclasses
+    import torch
+    faulty = dataclasses.replace(weights, _blobs={})
+    plan = train_plan(faulty, torch.bfloat16)
+    w, b, meta = plan.fwd
+    w1, k1, _, _, n = meta.reshape(-1, 7)[layer, :5].tolist()
+    if k1 < 32:
+        raise ValueError(f"layer {layer} has {k1} < 32 rows")
+    w = w.clone()
+    w[w1 + 16 * n:w1 + 32 * n] = 0
+    faulty._blobs[("train", torch.bfloat16)] = dataclasses.replace(plan, fwd=(w, b, meta))
+    return faulty
+
+
 def planted_faults(inp, trees) -> dict:
     """What the dW gates see in the kernels' own results with a fault
     planted: one bias gradient dropped (K2 fine, K3); the points of one
     split-K chunk dropped (K2 fine, K3: the plain version's dW over those
-    points taken off); the coarse-in-fine addend left out (K4). Every
-    planted fault must miss the gates."""
+    points taken off; 64-point tiles in bf16); rows 16-31 of the warp
+    trunk[1]'s weights left out of K3's forward; the coarse-in-fine addend
+    left out (K4). Every planted fault must miss the gates."""
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
@@ -583,9 +608,12 @@ def planted_faults(inp, trees) -> dict:
     g_p3 = k1.deform_pair_vjp_plain(*inp["k3"])
     out["k3 bias warp.trunk[2]"] = tree_errors(
         _drop_bias(trees["k3"], ["warp", "trunk", 2]), g_p3)
-    m = chunk_points(pts.shape[0], k1.TP_BWD)
+    m = chunk_points(pts.shape[0], k2.TP_BF16)
     g_c = k1.deform_pair_vjp_plain(pts[:m], pair, g[:m], g2[:m], cdt)
     out[f"k3 chunk 0 ({m} points)"] = tree_errors(_tree_sub(trees["k3"], g_c), g_p3)
+    faulty = weight_slice_fault(pair, k1.pair_train_plan, 1)
+    out["k3 rows 16-31 of warp.trunk[1] left out"] = tree_errors(
+        k1.deform_pair_vjp(pts, faulty, g, g2, cdt), g_p3)
     packed, rows, gse, gse2, shape = inp["k4"]
     out["k4 without the addend"] = tree_errors(
         k4.grid_dg(packed, rows, gse, None, shape),
@@ -1439,15 +1467,17 @@ def skip_planted_faults(inputs, trees, k15_args) -> dict:
     """What the gates see with a fault planted in the kernels' own bf16
     results: K13 run without its head bias (warp and hyper nets); K14's
     bias gradient of trunk[1] dropped; the points of K14's first split-K
-    chunk dropped (the plain dW over them taken off); one coordinate of
-    K15's output moved one ulp. Each must miss."""
+    chunk dropped (64-point tiles; the plain dW over them taken off); rows
+    16-31 of trunk[1]'s weights left out of K14's forward; one coordinate
+    of K15's output moved one ulp. Each must miss."""
     import dataclasses
     import torch
     from sahs_tpu_torch.ops.kernels import points as k15
     from sahs_tpu_torch.ops.kernels import skip_mlp as k13
-    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks, tile_points
     from sahs_tpu_torch.utils.compare import tree_errors
     out = {}
+    tp = tile_points(torch.bfloat16)
     for inp, g_k in zip(inputs, trees):
         pts, w, cdt = inp["k13"]
         no_bias = dataclasses.replace(w, out={"w": w.out["w"],
@@ -1459,11 +1489,14 @@ def skip_planted_faults(inputs, trees, k15_args) -> dict:
         g_p = k13.skip_mlp_vjp_plain(pts, w, g, False, cdt)[1]
         out[f"k14 {inp['kind']} bias trunk[1]"] = tree_errors(
             _drop_bias(g_k, ["trunk", 1]), g_p)
-        n_tiles = -(-pts.shape[0] // k13.TP_BWD)
-        m = -(-n_tiles // dw_chunks(n_tiles)) * k13.TP_BWD
+        n_tiles = -(-pts.shape[0] // tp)
+        m = -(-n_tiles // dw_chunks(n_tiles)) * tp
         g_c = k13.skip_mlp_vjp_plain(pts[:m], w, g[:m], False, cdt)[1]
         out[f"k14 {inp['kind']} chunk 0 ({m} points)"] = tree_errors(
             _tree_sub(g_k, g_c), g_p)
+        faulty = weight_slice_fault(w, k13.skip_train_plan, 1)
+        out[f"k14 {inp['kind']} rows 16-31 of trunk[1] left out"] = tree_errors(
+            k13.skip_mlp_vjp(pts, faulty, g, False, cdt)[1], g_p)
     moved = k15.build_pts(*k15_args).clone()
     moved[0, 0] = torch.nextafter(moved[0, 0], torch.tensor(math.inf, device=moved.device))
     out["k15 one coordinate one ulp over"] = {
@@ -1699,9 +1732,12 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
                    "points": P_z}
     report["skip_kernels"] = rows
     for name, r in rows.items():
+        rate = (f"; {r['tflops_achieved']:.1f} TFLOP/s, "
+                f"{100 * r['bound_ms'] / r['ms']:.2f} % of the bound"
+                if "tflops_achieved" in r else "")
         print(f"{name}: {r['ms']:.3f} ms at {r['points']} points (bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.3f} ms, "
-              f"library {r['library_ms']:.3f} ms)", flush=True)
+              f"library {r['library_ms']:.3f} ms{rate})", flush=True)
 
     launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
                            + r.get("launches", {}).get(k, 0)) for r in paths.values())
@@ -1729,7 +1765,8 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[key],
                         **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                "bound_ms", "bound_by", "library_ms")}})
+                                                "bound_ms", "bound_by", "library_ms")},
+                        "tflops_achieved": line.get("tflops_achieved")})
     return ""
 
 
@@ -2797,7 +2834,8 @@ def main(argv) -> int:
                         **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "bound_by",
                                                 "library_ms")},
-                        "coarse_ms": line.get("coarse_ms")})
+                        "coarse_ms": line.get("coarse_ms"),
+                        "tflops_achieved": line["tflops_achieved"]})
 
     del inp, step_inp, lv_c, lv_f
     torch.cuda.empty_cache()

@@ -7,20 +7,24 @@
 // db of the warp trunk (6x128 ReLU, skip at 4) and tanh head and of the
 // hyper trunk (6x64 ReLU, skip at 4) and linear head, conditioning folded.
 //
-// Design: per 32-point tile, one block recomputes the shared positional
-// encoding and both trunks (the forward of K1), writing each layer's input
-// to a device-memory stash, then backpropagates g + g2 through each head
-// and trunk with transposed weights (mlp.cuh's layer product on a
-// transposed-weight blob), writing each layer's gz to a second stash
+// Design: per tile, one block recomputes the shared positional encoding
+// and both trunks (the forward of K1), writing each layer's input to a
+// device-memory stash, then backpropagates g + g2 through each head and
+// trunk with transposed weights, writing each layer's gz to a second stash
 // (train.cuh). A split-K reduction over the stashes gives dW and db, in a
 // fixed order. All launches come from one call.
 //
 // Bound on the H100: about 3 x 0.125 M multiply-adds a point (forward,
 // backward chain, dW) against ~40 bytes of input, so operations bound it:
 // ~0.2 TFLOP at 262,144 fine points, ~0.2 ms at the 989 TFLOP/s bf16 peak.
-// This first version runs on the CUDA cores, and the stash costs ~1 KB of
-// device traffic a point.
-#include "train.cuh"
+//
+// Two instantiations. float32 runs pair_vjp_kernel on 32-point tiles with
+// mlp.cuh's SIMT products and train.cuh's dw_kernel. bf16 runs
+// pair_vjp_tc_kernel on 64-point tiles: one encoding tile, then
+// skip_tc.cuh's skip_net_tc for the warp net and then the hyper net, each
+// product on the tensor cores (mma.sync m16n8k16, at the warp layout its
+// width asks for), and dW on mma.cuh's level_dw_kernel.
+#include "skip_tc.cuh"
 
 namespace {
 
@@ -41,7 +45,7 @@ struct VjpArgs {
   void* acts;            // activation stash, compute dtype
   float* gzs;            // cotangent stash
   long long P, act_stride, gz_stride;
-  int n_warp, n_hyper, n_freq, ho, n_act;
+  int n_warp, n_hyper, warp_skip, hyper_skip, n_freq, ho, n_act;
 };
 
 template <typename T>
@@ -151,6 +155,57 @@ int launch(const VjpArgs& a, int n_work, int chunks, int out_len,
                             stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
+// ---------------------------------------------------------------------------
+using sahs::bf16;
+
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2) pair_vjp_tc_kernel(VjpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int pe_dim = 3 + 6 * a.n_freq;
+  const sahs::SkipLayout ly(pe_dim, false);
+  bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
+  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
+  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
+  const bf16* wblob = reinterpret_cast<const bf16*>(a.w);
+  const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
+  const long long tile = blockIdx.x, base = tile * sahs::TC_TP;
+  bf16* acts = reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride;
+  float* gzs = a.gzs + tile * a.gz_stride;
+  const int* act_off = a.slots;
+  const int* gz_off = a.slots + a.n_act;
+
+  sahs::skip_pe_tile(a.pts, base, a.P, a.n_freq, pe);
+  __syncthreads();
+  sahs::stash_rows(pe, acts + act_off[0], pe_dim);
+  const int gw = 3 + a.ho;
+  const sahs::SkipNet warp = {a.meta, 0, a.metaT, 0, a.n_warp, a.warp_skip, 1,
+                              a.g, a.g2, gw, 0, 3};
+  const sahs::SkipNet hyper = {a.meta, a.n_warp + 1, a.metaT, a.n_warp,
+                               a.n_hyper, a.hyper_skip, 1 + a.n_warp,
+                               a.g, a.g2, gw, 3, a.ho};
+  sahs::skip_net_tc(warp, wblob, a.b, wT, pe, hA, hB, nullptr, ring, acts,
+                    act_off, gzs, gz_off, base, a.P);
+  sahs::skip_net_tc(hyper, wblob, a.b, wT, pe, hA, hB, nullptr, ring, acts,
+                    act_off, gzs, gz_off, base, a.P);
+}
+
+int launch_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
+              const int* prods, const int* work, float* part, float* out,
+              cudaStream_t stream) {
+  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false);
+  int err = sahs::set_smem(pair_vjp_tc_kernel, ly.bytes);
+  if (err) return err;
+  const long long n_tiles = (a.P + sahs::TC_TP - 1) / sahs::TC_TP;
+  pair_vjp_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return sahs::launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
+                               a.act_stride, a.gz_stride, (int)n_tiles, prods,
+                               work, n_work, chunks, part, out, out_len, stream);
+}
+
 }  // namespace
 
 extern "C" int sahs_deform_pair_vjp(
@@ -162,21 +217,22 @@ extern "C" int sahs_deform_pair_vjp(
     int n_work, int chunks, int out_len, const void* prods, const void* work,
     void* part, void* out, void* stream) {
   if (P <= 0) return 0;
-  (void)warp_skip; (void)hyper_skip;   // the skip layers carry w2 in `meta`
+  if (3 + 6 * n_freq > sahs::SKIP_HMAX) return (int)cudaErrorInvalidValue;
   VjpArgs a;
   a.pts = (const float*)pts; a.g = (const float*)g; a.g2 = (const float*)g2;
   a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
   a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
   a.slots = (const int*)slots; a.acts = acts; a.gzs = (float*)gzs;
   a.P = P; a.act_stride = act_stride; a.gz_stride = gz_stride;
-  a.n_warp = n_warp; a.n_hyper = n_hyper; a.n_freq = n_freq; a.ho = ho;
+  a.n_warp = n_warp; a.n_hyper = n_hyper; a.warp_skip = warp_skip;
+  a.hyper_skip = hyper_skip; a.n_freq = n_freq; a.ho = ho;
   a.n_act = n_act;
   auto s = reinterpret_cast<cudaStream_t>(stream);
   auto pr = (const int*)prods;
   auto wk = (const int*)work;
   if (bf16)
-    return launch<__nv_bfloat16>(a, n_work, chunks, out_len, pr, wk,
-                                 (float*)part, (float*)out, s);
+    return launch_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
+                     (float*)out, s);
   return launch<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
                        (float*)out, s);
 }

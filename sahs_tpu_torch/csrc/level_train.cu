@@ -144,26 +144,6 @@ __device__ __forceinline__ float cell_fracs(const float* x, const Args& a,
   return ok ? 1.0f : 0.0f;
 }
 
-// PE backward of one coordinate group of one point: the cotangents of its
-// encoding rows G[row0 ..] (pe_group's layout) added into gx[0 .. dim).
-__device__ __forceinline__ void pe_group_bwd(const float* x, int dim, int nfreq,
-                                             const float* G, int row0, int t,
-                                             int TP, float* gx) {
-  int row = row0;
-  for (int d = 0; d < dim; ++d) gx[d] += G[(row++) * TP + t];
-  for (int f = 0; f < nfreq; ++f) {
-    const float fr = ldexpf(1.0f, f);
-    for (int d = 0; d < dim; ++d) {
-      const float t_ = __fmul_rn(x[d], fr);
-      gx[d] += G[(row++) * TP + t] * cosf(t_) * fr;
-    }
-    for (int d = 0; d < dim; ++d) {
-      const float t_ = __fadd_rn(__fmul_rn(x[d], fr), SAHS_HALF_PI_F);
-      gx[d] += G[(row++) * TP + t] * cosf(t_) * fr;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // 1. forward per tile
 // ---------------------------------------------------------------------------
@@ -568,14 +548,14 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
       float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      pe_group_bwd(x, 3, a.nf_xyz, gxpe, 0, tid, TP, gxo);
-      pe_group_bwd(x + 3, a.amb, a.nf_amb, gxpe, 3 + 6 * a.nf_xyz, tid, TP,
-                   gxo + 3);
+      sahs::pe_group_bwd(x, 3, a.nf_xyz, gxpe, 0, tid, TP, gxo);
+      sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, gxpe, 3 + 6 * a.nf_xyz, tid,
+                         TP, gxo + 3);
       if (a.mode == MODE_PTS) {
         // K12: gextra = [the direction's, through its PE | gse]
         const float* e = a.extra + p * (3 + C);
         float ge[3] = {0, 0, 0};
-        pe_group_bwd(e, 3, a.nf_dir, gdin, 0, tid, TP, ge);
+        sahs::pe_group_bwd(e, 3, a.nf_dir, gdin, 0, tid, TP, ge);
         float* go = a.gextra + p * (3 + C);
         for (int c = 0; c < 3; ++c) go[c] = ge[c];
         for (int c = 0; c < C; ++c) go[3 + c] = gdin[(ndp + c) * TP + tid];
@@ -914,7 +894,7 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
       // K12: gextra = [the direction's, through its PE | gse]
       const float* e = a.extra + p * (3 + C);
       float ge[3] = {0, 0, 0};
-      pe_group_bwd(e, 3, a.nf_dir, F, 0, tid, TC_LDF, ge);
+      sahs::pe_group_bwd(e, 3, a.nf_dir, F, 0, tid, TC_LDF, ge);
       float* go = a.gextra + p * (3 + C);
       for (int c = 0; c < 3; ++c) go[c] = ge[c];
       for (int c = 0; c < C; ++c) go[3 + c] = F[(ndp + c) * TC_LDF + tid];
@@ -983,8 +963,8 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
       float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      pe_group_bwd(x, 3, a.nf_xyz, F, 0, tid, TC_LDF, gxo);
-      pe_group_bwd(x + 3, a.amb, a.nf_amb, F, 3 + 6 * a.nf_xyz, tid, TC_LDF, gxo + 3);
+      sahs::pe_group_bwd(x, 3, a.nf_xyz, F, 0, tid, TC_LDF, gxo);
+      sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, F, 3 + 6 * a.nf_xyz, tid, TC_LDF, gxo + 3);
       for (int c = 0; c < 3; ++c) gxo[c] += gco[c];
       for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
     }

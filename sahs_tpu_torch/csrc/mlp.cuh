@@ -192,6 +192,27 @@ __device__ __forceinline__ void pe_group(const float* x, int dim, int nfreq,
   }
 }
 
+// PE backward of one coordinate group of one point: the cotangents of its
+// encoding rows G[row0 ..] (pe_group's layout, row stride TP) added into
+// gx[0 .. dim), d(sin t)/dx = cos(t) f with t formed as pe_group forms it.
+__device__ __forceinline__ void pe_group_bwd(const float* x, int dim, int nfreq,
+                                             const float* G, int row0, int t,
+                                             int TP, float* gx) {
+  int row = row0;
+  for (int d = 0; d < dim; ++d) gx[d] += G[(row++) * TP + t];
+  for (int f = 0; f < nfreq; ++f) {
+    const float fr = ldexpf(1.0f, f);
+    for (int d = 0; d < dim; ++d) {
+      const float t_ = __fmul_rn(x[d], fr);
+      gx[d] += G[(row++) * TP + t] * cosf(t_) * fr;
+    }
+    for (int d = 0; d < dim; ++d) {
+      const float t_ = __fadd_rn(__fmul_rn(x[d], fr), SAHS_HALF_PI_F);
+      gx[d] += G[(row++) * TP + t] * cosf(t_) * fr;
+    }
+  }
+}
+
 // Base cell of the corner-packed table (ops/grid._cell_geometry), with the
 // JAX package's float expression and no contraction:
 //   i = ((c + 1) * 0.5) * (n - 1); i0 = floor(i); base = clip(i0 + 1, 0, n)

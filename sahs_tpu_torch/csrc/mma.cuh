@@ -1,6 +1,8 @@
-// Tensor-core device code for the bf16 level backward (csrc/level_train.cu):
-// one MLP layer over a 64-point tile on mma.sync, and the split-K dW
-// reduction over the stash on mma.sync.
+// Tensor-core device code for the bf16 backward kernels (the level
+// backward of csrc/level_train.cu; the deformation nets' of
+// deform_pair_vjp.cu and skip_mlp.cu through skip_tc.cuh): one MLP layer
+// over a 64-point tile on mma.sync, and the split-K dW reduction over the
+// stash on mma.sync.
 //
 // The layer product. mlp_layer's contract (mlp.cuh) for bf16 operands:
 //     Y[n][t] = act( sum_k X1[k][t] W1[k][n] (+ sum_k X2[k][t] W2[k][n]) + b[n] )
@@ -18,7 +20,9 @@
 // on both sides: the staged weight rows past K are zero-filled by the copy
 // (cp.async with a source size of 0), and the caller keeps the matching
 // activation rows zero. The eight warps split the tile as 2 groups of 32
-// points x up to 8 groups of 32 outputs, two output groups per warp.
+// points x 4 groups of WN outputs, UPW such groups a warp (tc_product_wn);
+// the level backward takes WN = 32, UPW = 2 (tc_product: up to 8 groups
+// of 32 outputs, two a warp), the deformation nets WN = 32 or 16, UPW = 1.
 //
 // The dW reduction. dW[k][n] = sum_p A[p][k] gz[p][n] over all points, as
 // train.cuh's dw_kernel (work list, 64 x 64 output tiles, split-K chunks of
@@ -50,9 +54,9 @@ constexpr int TC_NMAX = TC_UPW * (TC_THREADS / 32 / TC_MG) * 32;   // 256
 
 __host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) / 16 * 16; }
 
-// bytes of the weight ring for outputs up to nmax wide
-__host__ __device__ __forceinline__ int ring_bytes(int nmax) {
-  return 2 * TC_KS * (nmax + 8) * 2;
+// bytes of the weight ring for outputs up to nmax wide, slices of ks rows
+__host__ __device__ __forceinline__ int ring_bytes(int nmax, int ks = TC_KS) {
+  return 2 * ks * (nmax + 8) * 2;
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -118,24 +122,35 @@ struct Operand {
 
 // acc = X1^T W1 (+ X2^T W2) over the tile, then epi(t, n, value) once for
 // every point t < TC_TP and output n < N. N is a multiple of 8, at most
-// TC_NMAX. All TC_THREADS threads call it; the ring is free again when it
-// returns, and callers __syncthreads() before reading what epi wrote.
-template <class Epi>
-__device__ void tc_product(Operand o1, Operand o2, int N, bf16* ring,
-                           const Epi& epi) {
+// UPW * TC_NG * WN. The warp layout: TC_MG groups of 32 points times TC_NG
+// output groups of WN columns (32 or 16), UPW such groups a warp, strided
+// by TC_NG * WN. The weights are staged KS rows at a time (a multiple of
+// 16: one barrier pair per KS rows), so each input's K is zero-padded to
+// a multiple of KS and the caller keeps those activation rows zero. All
+// TC_THREADS threads call it; the ring (ring_bytes(N, KS)) is free again
+// when it returns, and callers __syncthreads() before reading what epi
+// wrote.
+constexpr int TC_NG = TC_THREADS / 32 / TC_MG;   // output groups a pass (4)
+
+template <int WN, int UPW, int KS, class Epi>
+__device__ void tc_product_wn(Operand o1, Operand o2, int N, bf16* ring,
+                              const Epi& epi) {
+  static_assert(WN == 16 || WN == 32, "a warp's output group is 16 or 32 wide");
+  static_assert(KS % 16 == 0, "a staged slice is whole k-steps of 16");
+  constexpr int NB = WN / 8;   // 8-wide output blocks of a group
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int mat = lane >> 3, r8 = lane & 7;
   const int mg = warp % TC_MG, ng0 = warp / TC_MG;
   const int RS = N + 8;
-  const int s1 = (o1.k + TC_KS - 1) / TC_KS;
-  const int ns = s1 + (o2.x != nullptr ? (o2.k + TC_KS - 1) / TC_KS : 0);
-  float acc[TC_UPW][2][4][4];
+  const int s1 = (o1.k + KS - 1) / KS;
+  const int ns = s1 + (o2.x != nullptr ? (o2.k + KS - 1) / KS : 0);
+  float acc[UPW][2][NB][4];
 #pragma unroll
-  for (int u = 0; u < TC_UPW; ++u)
+  for (int u = 0; u < UPW; ++u)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][i][j][e] = 0.0f;
 
@@ -143,10 +158,10 @@ __device__ void tc_product(Operand o1, Operand o2, int N, bf16* ring,
     const bool first = s < s1;
     const bf16* W = first ? o1.w : o2.w;
     const int K = first ? o1.k : o2.k;
-    const int k0 = (first ? s : s - s1) * TC_KS;
-    bf16* dst = ring + (s & 1) * TC_KS * RS;
+    const int k0 = (first ? s : s - s1) * KS;
+    bf16* dst = ring + (s & 1) * KS * RS;
     const int cpr = N >> 3;
-    for (int i = threadIdx.x; i < TC_KS * cpr; i += blockDim.x) {
+    for (int i = threadIdx.x; i < KS * cpr; i += blockDim.x) {
       const int r = i / cpr, c = i - r * cpr;
       const bool ok = k0 + r < K;
       cp_async16(dst + r * RS + c * 8, W + (size_t)(ok ? k0 + r : 0) * N + c * 8,
@@ -165,32 +180,36 @@ __device__ void tc_product(Operand o1, Operand o2, int N, bf16* ring,
     }
     __syncthreads();
     const bf16* X = s < s1 ? o1.x : o2.x;
-    const int kk = (s < s1 ? s : s - s1) * TC_KS;
-    const bf16* Wt = ring + (s & 1) * TC_KS * RS;
-    unsigned a[2][4];
+    const int kk = (s < s1 ? s : s - s1) * KS;
+    const bf16* Wt = ring + (s & 1) * KS * RS;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      ldsm_x4_t(a[i], X + (kk + r8 + ((mat >> 1) << 3)) * TC_LD + mg * 32 +
-                          i * 16 + ((mat & 1) << 3));
+    for (int kq = 0; kq < KS; kq += 16) {
+      unsigned a[2][4];
 #pragma unroll
-    for (int u = 0; u < TC_UPW; ++u) {
-      const int n0 = (ng0 + u * (TC_THREADS / 32 / TC_MG)) * 32;
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_t(a[i], X + (kk + kq + r8 + ((mat >> 1) << 3)) * TC_LD + mg * 32 +
+                            i * 16 + ((mat & 1) << 3));
 #pragma unroll
-      for (int pr = 0; pr < 2; ++pr) {
-        const int nb = n0 + pr * 16;
-        if (nb + 8 < N) {
-          unsigned b[4];
-          ldsm_x4_t(b, Wt + (r8 + ((mat & 1) << 3)) * RS + nb + ((mat >> 1) << 3));
+      for (int u = 0; u < UPW; ++u) {
+        const int n0 = (ng0 + u * TC_NG) * WN;
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma16816(acc[u][i][2 * pr], a[i], b[0], b[1]);
-            mma16816(acc[u][i][2 * pr + 1], a[i], b[2], b[3]);
+        for (int pr = 0; pr < NB / 2; ++pr) {
+          const int nb = n0 + pr * 16;
+          const bf16* wr = Wt + (kq + r8 + ((mat & 1) << 3)) * RS + nb;
+          if (nb + 8 < N) {
+            unsigned b[4];
+            ldsm_x4_t(b, wr + ((mat >> 1) << 3));
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              mma16816(acc[u][i][2 * pr], a[i], b[0], b[1]);
+              mma16816(acc[u][i][2 * pr + 1], a[i], b[2], b[3]);
+            }
+          } else if (nb < N) {
+            unsigned b[2];
+            ldsm_x2_t(b, wr);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma16816(acc[u][i][2 * pr], a[i], b[0], b[1]);
           }
-        } else if (nb < N) {
-          unsigned b[2];
-          ldsm_x2_t(b, Wt + (r8 + ((mat & 1) << 3)) * RS + nb);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma16816(acc[u][i][2 * pr], a[i], b[0], b[1]);
         }
       }
     }
@@ -199,10 +218,10 @@ __device__ void tc_product(Operand o1, Operand o2, int N, bf16* ring,
 
   const int tq = lane >> 2, nq = 2 * (lane & 3);
 #pragma unroll
-  for (int u = 0; u < TC_UPW; ++u) {
-    const int n0 = (ng0 + u * (TC_THREADS / 32 / TC_MG)) * 32;
+  for (int u = 0; u < UPW; ++u) {
+    const int n0 = (ng0 + u * TC_NG) * WN;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NB; ++j) {
       const int n = n0 + j * 8 + nq;
       if (n0 + j * 8 >= N) continue;
 #pragma unroll
@@ -215,6 +234,14 @@ __device__ void tc_product(Operand o1, Operand o2, int N, bf16* ring,
       }
     }
   }
+}
+
+// The level backward's layout: 32-wide output groups, two a warp, so N up
+// to TC_NMAX (256).
+template <class Epi>
+__device__ __forceinline__ void tc_product(Operand o1, Operand o2, int N,
+                                           bf16* ring, const Epi& epi) {
+  tc_product_wn<32, TC_UPW, TC_KS>(o1, o2, N, ring, epi);
 }
 
 // Y[n][t] = act(v + b[n]) in bf16 (TC_LD stride)

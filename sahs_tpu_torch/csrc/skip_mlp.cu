@@ -10,8 +10,8 @@
 // ambient coordinates). Output (P, out) float32.
 //
 // K14 replaces field_mlp.py:skip_mlp_vjp (:516, pallas_call at :571): per
-// 32-point tile one block recomputes the encoding and the trunk, writing
-// each layer's input to a device-memory stash, takes the cotangent g back
+// tile one block recomputes the encoding and the trunk, writing each
+// layer's input to a device-memory stash, takes the cotangent g back
 // through the head and the trunk with transposed weights, writing each
 // layer's gz to a second stash (train.cuh); a split-K reduction over the
 // stashes gives every dW and db in a fixed order. When asked, the block
@@ -23,15 +23,18 @@
 // Bound on the H100: the warp field is ~98,000 multiply-adds a point in the
 // forward against ~24 bytes moved, so operations bound both kernels: 0.83
 // TFLOP at a 512x512 frame's 4.2 M fine points, ~0.84 ms at the 989
-// TFLOP/s bf16 peak; the backward is about three times the forward. These
-// first versions run the layer products on the CUDA cores (mlp.cuh), as K1
-// and K3 do; moving them to wgmma is later work.
-#include "train.cuh"
+// TFLOP/s bf16 peak; the backward is about three times the forward. K13
+// runs its layer products on the CUDA cores (mlp.cuh), in both dtypes.
+// K14 in float32 runs skip_vjp_kernel on 32-point tiles with mlp.cuh's
+// SIMT products and train.cuh's dw_kernel; in bf16 skip_vjp_tc_kernel on
+// 64-point tiles, the net on skip_tc.cuh's tensor-core routine, and dW on
+// mma.cuh's level_dw_kernel.
+#include "skip_tc.cuh"
 
 namespace {
 
 constexpr int TP = 64;        // points per block of K13
-constexpr int TP_BWD = 32;    // points per block of K14
+constexpr int TP_BWD = 32;    // points per block of K14 in float32
 constexpr int THREADS = 256;
 constexpr int HMAX = 128;     // widest trunk and widest PE (padded) taken
 
@@ -242,6 +245,75 @@ int launch_vjp(const VjpArgs& a, int n_work, int chunks, int out_len,
                             stream);
 }
 
+// ---------------------------------------------------------------------------
+// K14 in bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
+// ---------------------------------------------------------------------------
+using sahs::bf16;
+using sahs::TC_LDF;
+using sahs::TC_TP;
+
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2) skip_vjp_tc_kernel(VjpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int pe_dim = 3 + 6 * a.n_freq;
+  const bool to_pe = a.gx != nullptr;
+  const sahs::SkipLayout ly(pe_dim, to_pe);
+  bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
+  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
+  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
+  bf16* gS = to_pe ? reinterpret_cast<bf16*>(smem_raw + ly.gs) : nullptr;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
+  const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
+  const long long tile = blockIdx.x, base = tile * TC_TP;
+  bf16* acts = reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride;
+  const int* act_off = a.slots;
+  const int L = a.n_layers;
+
+  sahs::skip_pe_tile(a.pts, base, a.P, a.n_freq, pe);
+  __syncthreads();
+  sahs::stash_rows(pe, acts + act_off[0], pe_dim);
+  const sahs::SkipNet net = {a.meta, 0, a.metaT, 0, L, a.skip, 1, a.g, nullptr,
+                             a.out_dim, 0, a.out_dim};
+  const bf16* g0 = sahs::skip_net_tc(
+      net, reinterpret_cast<const bf16*>(a.w), a.b, wT, pe, hA, hB, gS, ring,
+      acts, act_off, a.gzs + tile * a.gz_stride, a.slots + a.n_act, base, a.P);
+  if (!to_pe) return;
+
+  // back to the encoding: gz_0 W_0^T + gz_skip W_skip,pe^T, one two-input
+  // product with an f32 result, in the tile skip_net_tc left free
+  const bool skip_fires = a.skip > 0 && a.skip < L;
+  float* F = reinterpret_cast<float*>(g0 == hA ? hB : hA);
+  const sahs::LayerDesc d = sahs::load_desc(a.metaT, L);
+  const sahs::Operand none = {nullptr, 0, nullptr};
+  sahs::skip_product(sahs::Operand{wT + d.w1, d.k1, g0},
+                     skip_fires ? sahs::Operand{wT + d.w2, d.k2, gS} : none, d.n,
+                     ring, sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, false});
+  __syncthreads();
+  // and through the PE, per point
+  const int tid = threadIdx.x;
+  const long long p = base + tid;
+  if (tid < TC_TP && p < a.P) {
+    const float x[3] = {a.pts[p * 3 + 0], a.pts[p * 3 + 1], a.pts[p * 3 + 2]};
+    float gx[3] = {0.0f, 0.0f, 0.0f};
+    sahs::pe_group_bwd(x, 3, a.n_freq, F, 0, tid, TC_LDF, gx);
+    for (int c = 0; c < 3; ++c) a.gx[p * 3 + c] = gx[c];
+  }
+}
+
+int launch_vjp_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
+                  const int* prods, const int* work, float* part, float* out,
+                  cudaStream_t stream) {
+  const sahs::SkipLayout ly(3 + 6 * a.n_freq, a.gx != nullptr);
+  int err = sahs::set_smem(skip_vjp_tc_kernel, ly.bytes);
+  if (err) return err;
+  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
+  skip_vjp_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return sahs::launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
+                               a.act_stride, a.gz_stride, (int)n_tiles, prods,
+                               work, n_work, chunks, part, out, out_len, stream);
+}
+
 }  // namespace
 
 extern "C" int sahs_skip_mlp_forward(const void* pts, long long P,
@@ -286,8 +358,8 @@ extern "C" int sahs_skip_mlp_vjp(
   auto pr = (const int*)prods;
   auto wk = (const int*)work;
   if (bf16)
-    return launch_vjp<__nv_bfloat16>(a, n_work, chunks, out_len, pr, wk,
-                                     (float*)part, (float*)out, s);
+    return launch_vjp_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
+                         (float*)out, s);
   return launch_vjp<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
                            (float*)out, s);
 }

@@ -8,7 +8,10 @@ bound on the H100 (operations: ~0.25 MFLOP per point) and the design.
 K3 replaces ``field_mlp.py:deform_pair_vjp`` (:1098, ``pallas_call`` at
 :1233) with need_gx=False, the train path's form: the dW and db of both
 trunks and heads from the packed cotangent g (+ an addend g2). The CUDA
-kernel is ``csrc/deform_pair_vjp.cu``.
+kernel is ``csrc/deform_pair_vjp.cu``: in bfloat16 on the tensor cores
+over 64-point tiles (``csrc/skip_tc.cuh``), in float32 on the CUDA cores
+over 32-point tiles (``field_mlp.tile_points``; the stash follows the
+tile).
 
 ``deform_pair_apply_fused`` is the differentiable pair (field_mlp.py:
 1284-1354, need_input_grad=False): a ``torch.autograd.Function`` whose
@@ -31,9 +34,9 @@ from ..grid import _cell_geometry
 from . import _build
 from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
                         dact, dw_chunks, fold_trunk, kernel_pe, linear_params,
-                        mm, mm_t, torch_dtype, trunk_backward, trunk_forward,
-                        trunk_into_blob, trunk_params)
-from .skip_mlp import skip_param_grads
+                        mm, mm_t, tile_points, torch_dtype, trunk_backward,
+                        trunk_forward, trunk_into_blob, trunk_params)
+from .skip_mlp import TC_K_STEP, skip_param_grads
 
 
 @dataclasses.dataclass
@@ -156,9 +159,6 @@ deform_pair_forward.launches = 0
 # K3: the pair's backward
 # ---------------------------------------------------------------------------
 
-TP_BWD = 32   # points per tile of K3's per-point kernel and of its stash
-
-
 def pair_train_plan(weights: PairWeights, dtype: torch.dtype) -> TrainPlan:
     """K3's plan: the forward blob of K1, a blob of transposed head and
     trunk weights in backward order (per net: head, then layers L-1 .. 1,
@@ -189,7 +189,7 @@ def pair_train_plan(weights: PairWeights, dtype: torch.dtype) -> TrainPlan:
             for i in range(len(trunk) - 1, 0, -1):
                 bwd.layer(trunk[i]["w"][:hid].t(), zeros, "linear")
         weights._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs,
-                                               TP_BWD, dtype)
+                                               tile_points(dtype), dtype)
     return weights._blobs[key]
 
 
@@ -242,9 +242,11 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
     dtype = torch_dtype(compute_dtype)
     P = points.shape[0]
     gw = 3 + weights.hyper_out["w"].shape[1]
-    if max(weights.warp_trunk[0]["w"].shape[1],
-           weights.hyper_trunk[0]["w"].shape[1]) > 128:
-        raise ValueError("the K3 kernel takes trunks at most 128 wide")
+    widths = [p["w"].shape[1] for p in weights.warp_trunk + weights.hyper_trunk]
+    if max(widths) > 128 or (dtype == torch.bfloat16
+                             and any(w % TC_K_STEP for w in widths)):
+        raise ValueError(f"the K3 kernel takes trunks at most 128 wide (in "
+                         f"bf16 in multiples of {TC_K_STEP}), got {widths}")
     if tuple(g.shape) != (P, gw) or (g2 is not None and g2.shape != g.shape):
         raise ValueError(f"K3 cotangents must be ({P}, {gw}), got g "
                          f"{tuple(g.shape)}, g2 "
@@ -257,7 +259,7 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
     points = points.contiguous()
     g = g.to(f32).contiguous()
     g2 = g2.to(f32).contiguous() if g2 is not None else None
-    n_tiles = -(-P // TP_BWD)
+    n_tiles = -(-P // tile_points(dtype))
     dev = points.device
     acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
     gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)

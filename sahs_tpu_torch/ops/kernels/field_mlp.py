@@ -341,6 +341,14 @@ class TrainPlan:
 
 
 DW_TILE = 64
+TP_F32 = 32    # points a tile of the float32 per-tile backward kernels and stash
+TP_BF16 = 64   # points a tile of the bf16 (tensor-core, csrc/mma.cuh) ones
+
+
+def tile_points(dtype: torch.dtype) -> int:
+    """Points a tile of the per-tile backward kernels (K2, K3, K6, K8, K12,
+    K14), and of their stash, in ``dtype``."""
+    return TP_BF16 if dtype == torch.bfloat16 else TP_F32
 
 
 def build_train_plan(fwd: BlobBuilder, bwd: BlobBuilder, act_rows: List[int],

@@ -48,22 +48,15 @@ from typing import Optional
 import torch
 
 from . import _build
-from .field_mlp import (BlobBuilder, TrainPlan, build_train_plan, dact,
-                        dw_chunks, mm, mm_t, pe_backward, torch_dtype,
-                        trunk_backward, trunk_params, unfold_cond_grads)
+from .field_mlp import (TP_BF16, BlobBuilder, TrainPlan,  # noqa: F401
+                        build_train_plan, dact, dw_chunks, mm, mm_t,
+                        pe_backward, tile_points, torch_dtype, trunk_backward,
+                        trunk_params, unfold_cond_grads)
 from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, _grid_args, check_device,
                          level_kernel_args, nerf_raw_plain, point_layers,
                          prepare_level)
 from .nerf_mlp import nerf_mlp_plain, point_kernel_args
-
-TP_F32 = 32    # points a tile of the float32 per-tile kernels and stash
-TP_BF16 = 64   # points a tile of the bf16 (tensor-core) kernels and stash
-
-
-def tile_points(dtype: torch.dtype) -> int:
-    """Points a tile of the per-tile kernels, and of the stash, in ``dtype``."""
-    return TP_BF16 if dtype == torch.bfloat16 else TP_F32
 
 
 # ---------------------------------------------------------------------------

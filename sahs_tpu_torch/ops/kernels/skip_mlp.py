@@ -18,7 +18,10 @@ K14 replaces ``field_mlp.py:skip_mlp_vjp`` (:516, ``pallas_call`` at :571):
 the folded dW and db of every trunk layer and of the head, and, when asked,
 the cotangent of the raw coordinates through the PE backward
 (``_pe_bwd``, field_mlp.py:245-259). The CUDA kernels are
-``csrc/skip_mlp.cu``; its source note gives the bound and the design.
+``csrc/skip_mlp.cu``; its source note gives the bound and the design. In
+bfloat16 K14 runs on the tensor cores over 64-point tiles
+(``csrc/skip_tc.cuh``), in float32 on the CUDA cores over 32-point tiles
+(``field_mlp.tile_points``; the stash follows the tile).
 
 ``deform_mlp_apply_fused`` is the differentiable net (field_mlp.py:
 647-703): a ``torch.autograd.Function`` whose forward is K13 and whose
@@ -39,13 +42,15 @@ import torch
 from . import _build
 from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
                         dact, dw_chunks, fold_trunk, kernel_pe, linear_grads,
-                        linear_params, mm, mm_t, pe_backward, torch_dtype,
-                        trunk_backward, trunk_forward, trunk_into_blob,
-                        trunk_params, unfold_cond_grads)
+                        linear_params, mm, mm_t, pe_backward, tile_points,
+                        torch_dtype, trunk_backward, trunk_forward,
+                        trunk_into_blob, trunk_params, unfold_cond_grads)
 
-TP_BWD = 32      # points per tile of K14's per-point kernel and of its stash
 MAX_HIDDEN = 128
 MAX_OUT = 8
+# bf16 K3 and K14 stage their weights in slices of this many rows
+# (csrc/skip_tc.cuh:SKIP_KS): the trunks' widths are multiples of it
+TC_K_STEP = 32
 
 
 @dataclasses.dataclass
@@ -108,7 +113,8 @@ def skip_mlp_plain(points: torch.Tensor, weights: SkipWeights,
         return torch.tanh(y) if weights.out_act == "tanh" else y
 
 
-def _check_kernel_shapes(points, weights: SkipWeights, what: str):
+def _check_kernel_shapes(points, weights: SkipWeights, what: str,
+                         dtype: torch.dtype):
     if weights.pe_groups is None:
         raise ValueError(f"the {what} kernel takes the raw coordinates with "
                          "the PE computed in the kernel; the precomputed-PE "
@@ -121,9 +127,10 @@ def _check_kernel_shapes(points, weights: SkipWeights, what: str):
         raise ValueError(f"points must be (P, 3) float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
     widths = [p["w"].shape[1] for p in weights.trunk]
-    if max(widths) > MAX_HIDDEN or any(w % 8 for w in widths):
+    step = TC_K_STEP if what == "K14" and dtype == torch.bfloat16 else 8
+    if max(widths) > MAX_HIDDEN or any(w % step for w in widths):
         raise ValueError(f"the {what} kernel takes trunks at most "
-                         f"{MAX_HIDDEN} wide, in multiples of 8, got {widths}")
+                         f"{MAX_HIDDEN} wide, in multiples of {step}, got {widths}")
     if weights.out["w"].shape[1] > MAX_OUT:
         raise ValueError(f"the {what} kernel takes a head of at most "
                          f"{MAX_OUT} outputs, got {weights.out['w'].shape[1]}")
@@ -143,8 +150,8 @@ def skip_mlp_forward(points: torch.Tensor, weights: SkipWeights,
     CPU tensors. Same arguments and result as ``skip_mlp_plain``."""
     if points.device.type == "cpu":
         return skip_mlp_plain(points, weights, compute_dtype)
-    _check_kernel_shapes(points, weights, "K13")
     dtype = torch_dtype(compute_dtype)
+    _check_kernel_shapes(points, weights, "K13", dtype)
     wblob, bblob, meta = weights.blob(dtype)
     _on_device(points, wblob, "K13")
     points = points.contiguous()
@@ -198,7 +205,7 @@ def skip_train_plan(weights: SkipWeights, dtype: torch.dtype) -> TrainPlan:
                                                  device=zeros.device),
                   "linear", w2=trunk[skip]["w"][hid:].t() if fires else None)
         weights._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs,
-                                               TP_BWD, dtype)
+                                               tile_points(dtype), dtype)
     return weights._blobs[key]
 
 
@@ -236,8 +243,8 @@ def skip_mlp_vjp(points: torch.Tensor, weights: SkipWeights, g: torch.Tensor,
     call is one count, whatever the number of launches inside."""
     if points.device.type == "cpu":
         return skip_mlp_vjp_plain(points, weights, g, need_gx, compute_dtype)
-    _check_kernel_shapes(points, weights, "K14")
     dtype = torch_dtype(compute_dtype)
+    _check_kernel_shapes(points, weights, "K14", dtype)
     P = points.shape[0]
     out_dim = weights.out["w"].shape[1]
     if tuple(g.shape) != (P, out_dim):
@@ -248,7 +255,7 @@ def skip_mlp_vjp(points: torch.Tensor, weights: SkipWeights, g: torch.Tensor,
     f32 = torch.float32
     points = points.contiguous()
     g = g.to(f32).contiguous()
-    n_tiles = -(-P // TP_BWD)
+    n_tiles = -(-P // tile_points(dtype))
     dev = points.device
     acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
     gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)

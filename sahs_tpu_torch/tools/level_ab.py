@@ -1,5 +1,6 @@
-"""Times the level backward (K2, K6, K8, K12 in bf16, per call) and the
-train steps that run it, for one tree of the port, on the card:
+"""Times the bf16 backward kernels on the tensor cores (the level backward
+K2, K6, K8, K12 and the deformation nets' K3, K14, per call) and the train
+steps that run them, for one tree of the port, on the card:
 
     python sahs_tpu_torch/tools/level_ab.py --tree <root of a checkout>
 
@@ -14,13 +15,20 @@ per tree in turns, e.g. for a copy of the parent commit unpacked under
 Per call: K2, K6, K8 at a step's fine level (2048 rays x 128) and coarse
 level (x 64), K12 at the per-point step's fine level (2048 x 192 =
 393,216 points), on the flagship model's coarse level at its seeded init
-and seeded inputs; the minimum over 3 rounds of the mean of 3 calls, CUDA
-events. Steps (``train/trace_step.py``'s PATHS and ``build_step``, from
-this checkout, run on the tree's code): the flagship fused step, fallback
-path 1 (fused_grads off), the reuse path (fuse_composite off too) and the
-per-point step (``pointwise``, 64 + 128), each 2 warm-up steps and then
-the mean of 5, CUDA events. Prints one JSON
-line: the tree, the card's name and power limit, and the readings in ms.
+and seeded inputs; K3 at the fused step's fine points (262,144, with the
+addend g2) and K14 on the warp and on the hyper net at a step's fine level
+(262,144, no points' cotangent), on the flagship's seeded deformation nets,
+each beside its library call in the same run (autograd of the module under
+bf16 autocast, which the port never calls), its TFLOP/s and its share of
+the bound (operations at 989 TFLOP/s); the minimum over 3 rounds of the
+mean of 3 calls, CUDA events. Steps (``train/trace_step.py``'s PATHS and
+``build_step``, from this checkout, run on the tree's code): the flagship
+fused step, fallback path 1 (fused_grads off), the reuse path
+(fuse_composite off too), the per-point step (``pointwise``, 64 + 128) and
+the warp-only and ambient-only steps, each 2 warm-up steps and then the
+mean of 5, CUDA events. Prints one JSON line: the tree, the card's name
+and power limit, and the readings (ms; TFLOP/s and the bound's share for
+K3 and K14).
 """
 from __future__ import annotations
 
@@ -83,6 +91,81 @@ def _kernel_times(dev, reps: int = 3) -> dict:
     return out
 
 
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 tensor cores
+
+
+def _net_macs(trunk, out) -> int:
+    """Multiply-adds a point of one deformation net's forward (the skip
+    layer's pe rows included)."""
+    return sum(p["w"].numel() for p in trunk) + out["w"].numel()
+
+
+def _vjp_macs(trunk, out, skip) -> int:
+    """Multiply-adds a point of a net's backward without the product back
+    to the encoding: the forward, the backward chain and dW."""
+    hid = trunk[0]["w"].shape[1]
+    return (3 * _net_macs(trunk, out) - trunk[0]["w"].numel()
+            - trunk[skip]["w"][hid:].numel())
+
+
+def _deform_times(dev, reps: int = 3) -> dict:
+    """K3 and K14 per call, each beside its library call, TFLOP/s and the
+    share of its bound."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(1)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    cond = g(rng.randn(76 + 36) * 0.5)
+    driving, pose = cond[:76], cond[76:]
+    warp_g = nerface.build_pe_groups(spec)[0]
+    best = lambda fn: cuda_ms(fn, reps, runs=3)
+    P = 2048 * 128
+    pts = g(rng.uniform(-0.6, 0.6, (P, 3)))
+    pe = kernel_pe(pts, warp_g)
+
+    def library(nets, gsum):
+        params = [p for n in nets for p in n.parameters()]
+
+        def run():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                o = torch.cat([n(pe, driving, pose) for n in nets], dim=-1)
+            return torch.autograd.grad((o.float() * gsum).sum(), params)
+        return run
+
+    def row(ms, lib_ms, macs):
+        flops = 2 * macs * P
+        bound = flops / PEAK_BF16_FLOPS * 1e3
+        return {"ms": ms, "library_ms": lib_ms, "tflops": flops / (ms / 1e3) / 1e12,
+                "bound_ms": bound, "bound_share": bound / ms}
+
+    out = {}
+    pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
+    gp, gp2 = g(rng.randn(P, 5) * 1e-3), g(rng.randn(P, 5) * 1e-3)
+    out["K3 fine"] = row(
+        best(lambda: k1.deform_pair_vjp(pts, pair, gp, gp2, "bfloat16")),
+        best(library((model.warp, model.hyper), gp + gp2)),
+        _vjp_macs(pair.warp_trunk, pair.warp_out, pair.warp_skip)
+        + _vjp_macs(pair.hyper_trunk, pair.hyper_out, pair.hyper_skip))
+    for name, act, cols in (("warp", "tanh", slice(0, 3)), ("hyper", "linear", slice(3, 5))):
+        net = getattr(model, name)
+        w = k13.prepare_skip(net, cond, warp_g, act)
+        gs = gp[:, cols].contiguous()
+        out[f"K14 {name} fine"] = row(
+            best(lambda: k13.skip_mlp_vjp(pts, w, gs, False, "bfloat16")),
+            best(library((net,), gs)), _vjp_macs(w.trunk, w.out, w.skip))
+    return out
+
+
 def _trace_step():
     """This checkout's ``train/trace_step.py`` (PATHS and ``build_step``)
     bound to the ``sahs_tpu_torch`` imported from the tree under test: every
@@ -103,7 +186,8 @@ def _step_times(dev, n_steps: int = 5) -> dict:
 
     steps = _trace_step()
     out = {}
-    for name in ("fused", "fallback", "reuse", "pointwise"):
+    for name in ("fused", "fallback", "reuse", "pointwise", "warp_only",
+                 "ambient_only"):
         step, state, batch, gen = steps.build_step(name, dev)
         held = [state]
 
@@ -128,7 +212,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     res = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(sahs_tpu_torch.__file__))),
            "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}",
-           "kernels_ms": _kernel_times(dev), "steps_ms": _step_times(dev)}
+           "kernels_ms": _kernel_times(dev), "deform_nets": _deform_times(dev),
+           "steps_ms": _step_times(dev)}
     print(json.dumps(res), flush=True)
     return 0
 

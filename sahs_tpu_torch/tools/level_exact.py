@@ -39,6 +39,7 @@ from ..ops.grid import _cell_geometry, pack_corner_table
 from ..ops.kernels import field_mlp
 from ..ops.kernels import level_train as k2
 from ..ops.kernels import nerf_level as k5
+from ..ops.kernels import skip_mlp as k13
 from ..utils.compare import point_errors, tree_errors
 from ..utils.device import card_line, resolve_device
 
@@ -76,9 +77,10 @@ def exact_sums(round_operands: bool = True):
     """The plain versions with every product and sum in float64, their
     products' operands rounded to the compute dtype first (as always) or,
     with ``round_operands`` False, not rounded at all (a float64 run). The
-    PE backward takes float32 (its cosines are the kernels'). A product on
-    other operands than float64 raises."""
-    round_to, pe_backward = field_mlp.round_to, k2.pe_backward
+    PE backward takes float32 (its cosines are the kernels'), in the level
+    backward's and in K14's plain version. A product on other operands than
+    float64 raises."""
+    round_to, pe_backward = field_mlp.round_to, field_mlp.pe_backward
 
     def exact_round_to(x, dtype):
         keep = dtype == torch.float32 or not round_operands
@@ -87,17 +89,20 @@ def exact_sums(round_operands: bool = True):
     def exact_pe_backward(p, g, groups):
         return pe_backward(p.float(), g.float(), groups).double()
 
-    field_mlp.round_to, k2.pe_backward = exact_round_to, exact_pe_backward
+    field_mlp.round_to = exact_round_to
+    k2.pe_backward = k13.pe_backward = exact_pe_backward
     try:
         with _Float64Products():
             yield
     finally:
-        field_mlp.round_to, k2.pe_backward = round_to, pe_backward
+        field_mlp.round_to = round_to
+        k2.pe_backward = k13.pe_backward = pe_backward
 
 
 def _map(x, fn):
-    """``fn`` on every tensor of ``x`` (LevelWeights, dicts, lists)."""
-    if isinstance(x, k5.LevelWeights):
+    """``fn`` on every tensor of ``x`` (folded weights: LevelWeights,
+    PairWeights, SkipWeights; dicts, lists)."""
+    if dataclasses.is_dataclass(x) and hasattr(x, "_blobs"):
         return dataclasses.replace(x, _blobs={}, **{
             f.name: _map(getattr(x, f.name), fn) for f in dataclasses.fields(x)
             if f.name != "_blobs"})
@@ -115,8 +120,9 @@ def _f64(x):
 
 
 def exact_plain(plain, *args):
-    """``plain`` (a level-backward plain version) on ``args`` with exact
-    sums; its float tensors and weights in float64, results in float64."""
+    """``plain`` (the plain version of a backward kernel: K2, K6, K8, K12,
+    K3 or K14) on ``args`` with exact sums; its float tensors and weights
+    in float64, results in float64."""
     with exact_sums():
         return plain(*[_f64(a) for a in args])
 

@@ -22,10 +22,12 @@ K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6
 in bfloat16, the tensor-core kernels of csrc/mma.cuh: fwd_tc_kernel,
 composite_kernel, bwd_tc_kernel, level_dw_kernel, dw_reduce, and in
 float32 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce;
-K8 the same without composite_kernel; K3: pair_vjp_kernel, dw_kernel,
-dw_reduce; K12 as K8); K5 and K7 both as nerf_level_kernel; K10 as
-grid_bwd_fused_kernel, K11 as nerf_mlp_kernel; K13 as skip_mlp_kernel and
-K14 as skip_vjp_kernel, dw_kernel, dw_reduce.
+K8 the same without composite_kernel; K3: pair_vjp_tc_kernel,
+level_dw_kernel, dw_reduce in bfloat16, pair_vjp_kernel, dw_kernel,
+dw_reduce in float32; K12 as K8); K5 and K7 both as nerf_level_kernel; K10
+as grid_bwd_fused_kernel, K11 as nerf_mlp_kernel; K13 as skip_mlp_kernel
+and K14 as skip_vjp_tc_kernel, level_dw_kernel, dw_reduce (bfloat16) or
+skip_vjp_kernel, dw_kernel, dw_reduce (float32).
 """
 from __future__ import annotations
 

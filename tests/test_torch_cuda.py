@@ -90,7 +90,7 @@ def _scaled(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-# In bfloat16 a level-backward kernel's distance to exact sums may be at
+# In bfloat16 a backward kernel's distance to exact sums may be at
 # most PLAIN_MULTIPLE times the plain version's on the same draw (or
 # PLAIN_MULTIPLE x PLAIN_FLOOR, a tenth of the bf16 point gate, where the
 # plain version is closer than that), for every cotangent and the worst dW
@@ -107,16 +107,17 @@ def _without_sigma_head(tree):
 
 
 def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
-    """The reference of a level-backward kernel (K2, K6, K8, K12): its plain
-    version. In bfloat16 the plain version with exact sums
-    (``tools/level_exact.exact_plain``: the same bf16 operands, float64 sums):
-    the tensor-core kernels (csrc/mma.cuh) sum the same bf16 products in
-    another order than the plain version's float32 matmuls, so a value
-    rounds to bf16 differently now and then, and against the plain version
-    both sides' rounding would count; with exact sums only the kernel's
-    does. Given the kernel's results ``out_k``, also holds them to the plain
-    version's own distance from exact sums (PLAIN_MULTIPLE), dW without the
-    sigma head where ``skip_sigma``."""
+    """The reference of a backward kernel on the tensor cores in bf16 (K2,
+    K6, K8, K12; K3, K14): its plain version. In bfloat16 the plain version
+    with exact sums (``tools/level_exact.exact_plain``: the same bf16
+    operands, float64 sums): the tensor-core kernels (csrc/mma.cuh,
+    csrc/skip_tc.cuh) sum the same bf16 products in another order than the
+    plain version's float32 matmuls, so a value rounds to bf16 differently
+    now and then, and against the plain version both sides' rounding would
+    count; with exact sums only the kernel's does. Given the kernel's
+    results ``out_k``, also holds them to the plain version's own distance
+    from exact sums (PLAIN_MULTIPLE), dW without the sigma head where
+    ``skip_sigma``."""
     if not any(isinstance(a, str) and a == "bfloat16" for a in args):
         return plain(*args)
     ref = level_exact.exact_plain(plain, *args)
@@ -124,7 +125,9 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
         # K2's composited colours and weights are forward outputs
         first = 2 if plain is k2.nerf_level_train_plain else 0
         out_p = plain(*args)
-        for i, (k, p, x) in enumerate(zip(out_k, out_p, ref)):
+        # K3 returns its gradient tree alone
+        outs = lambda o: (o,) if isinstance(o, dict) else o
+        for i, (k, p, x) in enumerate(zip(outs(out_k), outs(out_p), outs(ref))):
             if i < first or k is None:
                 continue
             if isinstance(x, dict):
@@ -321,6 +324,9 @@ def test_level_train_kernel_matches_plain(card, grid_varied, compute_dtype, S,
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_deform_pair_vjp_kernel_matches_plain(card, compute_dtype):
+    """K3 against its plain version (in bf16 with exact sums, and within
+    PLAIN_MULTIPLE of the plain version's distance to them), the last
+    64-point tile ragged."""
     dev, _, pair, _, rng = card
     P = 300 * 64 + 17
     pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
@@ -328,7 +334,8 @@ def test_deform_pair_vjp_kernel_matches_plain(card, compute_dtype):
     g2 = _gpu(dev, rng.randn(P, 5) * 0.1)
     before = k1.deform_pair_vjp.launches
     out_k = k1.deform_pair_vjp(pts, pair, g, g2, compute_dtype)
-    out_p = k1.deform_pair_vjp_plain(pts, pair, g, g2, compute_dtype)
+    out_p = _plain_ref(k1.deform_pair_vjp_plain, pts, pair, g, g2, compute_dtype,
+                       out_k=out_k)
     torch.cuda.synchronize()
     assert k1.deform_pair_vjp.launches == before + 1
     _grads_ok(out_k, out_p, compute_dtype)
@@ -796,7 +803,9 @@ def test_skip_mlp_kernels_match_plain(card, net, compute_dtype, P):
     """K13 against its plain version on raw points (P not a multiple of
     the 64-point tile, and 96 rays of 48), the warp net (6x128, tanh, 3)
     and the hyper net (6x64, linear, 2); then K14's dW and the points'
-    cotangent from the cotangent of a loss of K13's plain output."""
+    cotangent from the cotangent of a loss of K13's plain output (in bf16
+    against exact sums, and within PLAIN_MULTIPLE of the plain version's
+    distance to them)."""
     dev, model, _, _, rng = card
     cond = _gpu(dev, rng.randn(76 + 36) * 0.5)
     weights = k13.prepare_skip(getattr(model, net), cond,
@@ -815,7 +824,9 @@ def test_skip_mlp_kernels_match_plain(card, net, compute_dtype, P):
         assert _scaled(y_k, y_p) <= 2e-2
     g = 2.0 * (y_p - _gpu(dev, rng.randn(P, out) * 0.1)) / P
     gx_k, g_k = k13.skip_mlp_vjp(pts, weights, g, True, compute_dtype)
-    gx_p, g_p = k13.skip_mlp_vjp_plain(pts, weights, g, True, compute_dtype)
+    # in bf16 against exact sums (``_plain_ref``)
+    gx_p, g_p = _plain_ref(k13.skip_mlp_vjp_plain, pts, weights, g, True,
+                           compute_dtype, out_k=(gx_k, g_k))
     none, g_n = k13.skip_mlp_vjp(pts, weights, g, False, compute_dtype)
     torch.cuda.synchronize()
     assert (k13.skip_mlp_forward.launches, k13.skip_mlp_vjp.launches) == (
@@ -1382,6 +1393,98 @@ def test_tensor_core_fault_split_k_chunk_misses_gates(tc_levels):
     assert _tc_dw_ok(g_k, g_p), tree_errors(g_k, g_p)
     dropped = _tree_sub(g_k, g_c)
     assert not _tc_dw_ok(dropped, g_p), tree_errors(dropped, g_p)
+
+
+# ---------------------------------------------------------------------------
+# The deformation nets' backward on the tensor cores (csrc/skip_tc.cuh):
+# faults planted in bf16 K3 and K14, each of which must miss the bf16 gates
+# (GRAD_GATES) that the faultless kernel passes against exact sums. Inputs
+# from a random state of their own.
+# ---------------------------------------------------------------------------
+
+def _deform_case(card, kernel):
+    """(wrapper, plain version, plan function, arguments before the
+    weights, weights, arguments after them) of bf16 K3 or K14 on the warp
+    net (the points' cotangent asked for, the cotangent of a loss of K13's
+    plain output) at P = 300 x 64 + 17 points."""
+    dev, model, pair, _, _ = card
+    rng = np.random.RandomState(29)
+    P = 300 * 64 + 17
+    if kernel == "K3":
+        pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
+        g, g2 = _gpu(dev, rng.randn(P, 5) * 0.1), _gpu(dev, rng.randn(P, 5) * 0.1)
+        return (k1.deform_pair_vjp, k1.deform_pair_vjp_plain, k1.pair_train_plan,
+                (pts,), pair, (g, g2, "bfloat16"))
+    cond = _gpu(dev, rng.randn(76 + 36) * 0.5)
+    w = k13.prepare_skip(model.warp, cond, nerface.build_pe_groups(model.spec)[0], "tanh")
+    pts = _gpu(dev, rng.uniform(-1.05, 1.05, (P, 3)))
+    y = k13.skip_mlp_plain(pts, w, "bfloat16")
+    g = 2.0 * (y - _gpu(dev, rng.randn(P, 3) * 0.1)) / P
+    return (k13.skip_mlp_vjp, k13.skip_mlp_vjp_plain, k13.skip_train_plan,
+            (pts,), w, (g, True, "bfloat16"))
+
+
+def _deform_grads(out):
+    """K3's gradient tree, or K14's (its second result)."""
+    return out if isinstance(out, dict) else out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,blob,layer", [
+    ("K3", "fwd", 1), ("K3", "bwd", 7), ("K14", "fwd", 1), ("K14", "bwd", 1)])
+def test_deform_net_fault_weight_slice_misses_gates(card, kernel, blob, layer):
+    """One 16-row k-step of the weights the ring stages left out: rows
+    16-31 of forward layer ``layer`` (the warp trunk[1]) or of transposed
+    layer ``layer`` (K3: the hyper net's trunk[5]^T, a 64-wide product;
+    K14: the warp net's trunk[5]^T). The faultless kernel passes the bf16
+    gates against exact sums; the faulty one must miss them."""
+    fn, plain, train_plan, pre, w, post = _deform_case(card, kernel)
+    good = fn(*pre, w, *post)
+    ref = _plain_ref(plain, *pre, w, *post)
+    g_ref = _deform_grads(ref)
+    assert _dw_within(_deform_grads(good), g_ref)
+    faulty = dataclasses.replace(w, _blobs={})
+    plan = train_plan(faulty, torch.bfloat16)
+    wb, b, meta = getattr(plan, blob)
+    w1, k1_, _, _, n = meta.reshape(-1, 7)[layer, :5].tolist()
+    assert k1_ >= 32
+    wb = wb.clone()
+    wb[w1 + 16 * n:w1 + 32 * n] = 0
+    faulty._blobs[("train", torch.bfloat16)] = dataclasses.replace(
+        plan, **{blob: (wb, b, meta)})
+    out = fn(*pre, faulty, *post)
+    torch.cuda.synchronize()
+    caught = not _dw_within(_deform_grads(out), g_ref)
+    if kernel == "K14":
+        e = point_errors(out[0], ref[0], 1e-4)
+        caught = caught or not (e["l2_rel"] <= 1e-2 and e["cosine"] >= 0.9999)
+    assert caught, tree_errors(_deform_grads(out), g_ref)
+
+
+def _dw_within(a, b) -> bool:
+    e = tree_errors(a, b)
+    rel, cos = GRAD_GATES["bfloat16"]
+    return e["l2_rel"] <= rel and e["cosine"] >= cos
+
+
+@pytest.mark.cuda
+def test_deform_net_fault_split_k_chunk_misses_gates(card):
+    """The points of the first split-K chunk of bf16 K3's dW (64-point
+    tiles) dropped, the plain dW over them taken off: must miss the bf16
+    gates that the faultless kernel passes against exact sums."""
+    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    _, _, _, (pts,), pair, (g, g2, cdt) = _deform_case(card, "K3")
+    P = pts.shape[0]
+    n_tiles = -(-P // k2.TP_BF16)
+    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP_BF16
+    assert dw_chunks(n_tiles) > 1 and n < P
+    g_k = k1.deform_pair_vjp(pts, pair, g, g2, cdt)
+    g_p = _plain_ref(k1.deform_pair_vjp_plain, pts, pair, g, g2, cdt)
+    g_c = _plain_ref(k1.deform_pair_vjp_plain, pts[:n], pair, g[:n], g2[:n], cdt)
+    torch.cuda.synchronize()
+    assert _dw_within(g_k, g_p), tree_errors(g_k, g_p)
+    dropped = _tree_sub(g_k, g_c)
+    assert not _dw_within(dropped, g_p), tree_errors(dropped, g_p)
 
 
 def _tree_sub(a, b):

@@ -1,11 +1,13 @@
-"""The reference of the bf16 level-backward card tests, on the CPU:
+"""The reference of the bf16 backward card tests, on the CPU:
 ``tools/level_exact.exact_plain`` (the plain version with its products'
 operands rounded to bf16 and every product and sum in float64) and the
 levels the card tests hold K2 on without a background.
 
-  (a) every result of the four plain versions (K2, K6, K8, K12) comes out
-      in float64, with and without the grid, and stays within bf16
-      rounding of the plain version itself;
+  (a) every result of the four level plain versions (K2, K6, K8, K12), with
+      and without the grid, and of the deformation nets' (K3, and K14 on
+      the warp and the hyper net, the points' cotangent asked for), comes
+      out in float64 and stays within bf16 rounding of the plain version
+      itself;
   (b) a product whose operands bypass ``field_mlp.round_to`` raises
       inside ``exact_sums`` instead of summing in float32 unseen, and the
       patched functions are restored afterwards;
@@ -17,9 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from sahs_tpu_torch.config import Config
+from sahs_tpu_torch.models import nerface
 from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+from sahs_tpu_torch.ops.kernels import deform_pair as k1
 from sahs_tpu_torch.ops.kernels import field_mlp
 from sahs_tpu_torch.ops.kernels import level_train as k2
+from sahs_tpu_torch.ops.kernels import skip_mlp as k13
 from sahs_tpu_torch.tools import level_exact, sigma_head
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
 
@@ -83,6 +89,47 @@ def test_exact_plain_sums_every_product_in_float64(levels, grid, kernel):
         elif p is not None:
             assert x.dtype == torch.float64
             assert point_errors(x, p)["l2_rel"] <= 5e-2
+
+
+def _deform_inputs(kernel):
+    """(plain version, arguments) of K3 or K14 on the flagship's seeded
+    deformation nets, 200 points (not a multiple of the 64-point tile)."""
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device="cpu")
+    rng = np.random.RandomState(5)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32))
+    cond = g(rng.randn(76 + 36) * 0.5)
+    warp_g = nerface.build_pe_groups(spec)[0]
+    P = 200
+    pts = g(rng.uniform(-1.05, 1.05, (P, 3)))
+    if kernel == "K3":
+        pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
+        return k1.deform_pair_vjp_plain, (pts, pair, g(rng.randn(P, 5) * 0.1),
+                                          g(rng.randn(P, 5) * 0.1), "bfloat16")
+    net, act, out = {"K14 warp": ("warp", "tanh", 3),
+                     "K14 hyper": ("hyper", "linear", 2)}[kernel]
+    w = k13.prepare_skip(getattr(model, net), cond, warp_g, act)
+    return k13.skip_mlp_vjp_plain, (pts, w, g(rng.randn(P, out) * 0.1), True,
+                                    "bfloat16")
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K14 warp", "K14 hyper"])
+def test_exact_plain_sums_the_deformation_nets_in_float64(kernel):
+    plain, args = _deform_inputs(kernel)
+    out_x = level_exact.exact_plain(plain, *args)
+    out_p = plain(*args)
+    assert field_mlp.round_to(torch.ones(2), torch.bfloat16).dtype == torch.float32
+    assert k13.pe_backward is field_mlp.pe_backward
+    if kernel == "K3":
+        out_x, out_p = (None, out_x), (None, out_p)
+    gx_x, g_x = out_x
+    gx_p, g_p = out_p
+    assert all(t.dtype == torch.float64 for t in _leaves(g_x))
+    e = tree_errors(g_x, g_p)
+    assert e["l2_rel"] <= 5e-2 and e["cosine"] >= 0.999, e
+    if gx_p is not None:
+        assert gx_x.dtype == torch.float64 and gx_x.shape == gx_p.shape
+        assert point_errors(gx_x, gx_p)["l2_rel"] <= 5e-2
 
 
 def _leaves(tree):

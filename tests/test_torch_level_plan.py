@@ -1,7 +1,10 @@
-"""What the level-backward kernels (``csrc/level_train.cu``: K2, K6, K8,
-K12) take from Python: the train plan of a NeRF level, built at the tile
-size of each compute dtype (64 points in bf16, the tensor-core kernels of
-``csrc/mma.cuh``; 32 in float32, the SIMT kernels), on the CPU:
+"""What the backward kernels take from Python: the train plans of a NeRF
+level (``csrc/level_train.cu``: K2, K6, K8, K12), of the deformation pair
+(``csrc/deform_pair_vjp.cu``: K3) and of one deformation net, the warp
+field or the hyper sheet (``csrc/skip_mlp.cu``: K14), each built at the
+tile size of its compute dtype (64 points in bf16, the tensor-core kernels
+of ``csrc/mma.cuh`` and ``csrc/skip_tc.cuh``; 32 in float32, the SIMT
+kernels), on the CPU:
 
   (a) the activation and gz slots tile each stash block without overlap;
   (b) each slot starts where the tensor-core loads want it: a stash row is
@@ -9,8 +12,7 @@ size of each compute dtype (64 points in bf16, the tensor-core kernels of
       (and in bf16 on a 128-byte row);
   (c) every (k, n) of every dW product, bias rows included, falls in
       exactly one work item of the split-K reduction;
-  (d) the tile sizes agree with the CUDA sources, and K3's and K14's plans
-      (deform_pair_vjp.cu, skip_mlp.cu) keep their own 32-point tiles.
+  (d) the tile sizes agree with the CUDA sources, in both dtypes.
 """
 import os
 import re
@@ -53,10 +55,6 @@ def _level(model):
     return k5.prepare_level(model.coarse, cond, pts_g, dir_g)
 
 
-def _plan(models, kind, dtype):
-    return k2.level_train_plan(_level(models[kind]), DTYPES[dtype])
-
-
 def _slots(plan):
     slots = plan.slots.tolist()
     act = slots[:plan.n_act]
@@ -73,16 +71,47 @@ def _act_rows(lvl):
     return [lvl.trunk[0]["w"].shape[0]] + [hid] * (L + 1) + [din] + [B] * 8
 
 
-CASES = [(k, d) for k in ("grid", "grid_free") for d in DTYPES]
+def _trunk_rows(trunk):
+    """Rows of a deformation net's activation slots [h_0 .. h_{L-1}]."""
+    return [p["w"].shape[1] for p in trunk]
+
+
+def _deform(models):
+    """The grid model's folded deformation pair and its two nets alone."""
+    model = models["grid"]
+    rng = np.random.RandomState(1)
+    cond = torch.tensor((rng.randn(76 + 36) * 0.5).astype(np.float32))
+    warp_g = nerface.build_pe_groups(model.spec)[0]
+    return {"pair": k1.prepare_pair(model.warp, model.hyper, cond, warp_g),
+            "skip_warp": k13.prepare_skip(model.warp, cond, warp_g, "tanh"),
+            "skip_hyper": k13.prepare_skip(model.hyper, cond, warp_g, "linear")}
+
+
+def _plan_rows(models, kind, dtype):
+    """(train plan, rows of each activation slot) of ``kind``: a level
+    ("grid", "grid_free"), the pair ("pair": [pe, warp h_0 ..., hyper h_0
+    ...]) or one net ("skip_warp", "skip_hyper": [pe, h_0 ...])."""
+    dt = DTYPES[dtype]
+    if kind in ("grid", "grid_free"):
+        lvl = _level(models[kind])
+        return k2.level_train_plan(lvl, dt), _act_rows(lvl)
+    w = _deform(models)[kind]
+    if kind == "pair":
+        return k1.pair_train_plan(w, dt), ([w.warp_trunk[0]["w"].shape[0]]
+                                           + _trunk_rows(w.warp_trunk)
+                                           + _trunk_rows(w.hyper_trunk))
+    return k13.skip_train_plan(w, dt), [w.trunk[0]["w"].shape[0]] + _trunk_rows(w.trunk)
+
+
+KINDS = ("grid", "grid_free", "pair", "skip_warp", "skip_hyper")
+CASES = [(k, d) for k in KINDS for d in DTYPES]
 
 
 @pytest.mark.parametrize("kind,dtype", CASES)
 def test_slots_tile_each_stash_block(models, kind, dtype):
-    lvl = _level(models[kind])
-    plan = k2.level_train_plan(lvl, DTYPES[dtype])
+    plan, act_rows = _plan_rows(models, kind, dtype)
     tp = k2.tile_points(DTYPES[dtype])
     act, gz = _slots(plan)
-    act_rows = _act_rows(lvl)
     for offs, stride, rows in (
             (act, plan.act_stride, act_rows),
             (gz, plan.gz_stride, [d[4] for d in plan.descs])):
@@ -104,7 +133,7 @@ def test_slots_tile_each_stash_block(models, kind, dtype):
 
 @pytest.mark.parametrize("kind,dtype", CASES)
 def test_slots_start_where_the_tensor_core_loads_want(models, kind, dtype):
-    plan = _plan(models, kind, dtype)
+    plan = _plan_rows(models, kind, dtype)[0]
     tp = k2.tile_points(DTYPES[dtype])
     item = torch.empty((), dtype=DTYPES[dtype]).element_size()
     act, gz = _slots(plan)
@@ -127,7 +156,7 @@ def test_slots_start_where_the_tensor_core_loads_want(models, kind, dtype):
 
 @pytest.mark.parametrize("kind,dtype", CASES)
 def test_work_items_cover_every_product_once(models, kind, dtype):
-    plan = _plan(models, kind, dtype)
+    plan = _plan_rows(models, kind, dtype)[0]
     prods = plan.prods.reshape(-1, 6).tolist()
     hits = np.zeros(plan.out_len, np.int64)
     for j, k0, n0 in plan.work.reshape(-1, 3).tolist():
@@ -153,22 +182,28 @@ def _cu_const(path, name):
 
 
 def test_tile_sizes_match_the_cuda_sources():
+    """bf16: the tensor-core tile of mma.cuh, which K2/K6/K8/K12
+    (level_train.cu), K3 and K14 (skip_tc.cuh) take; float32: each SIMT
+    kernel's own tile."""
     assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
     assert k2.tile_points(torch.float32) == _cu_const("level_train.cu", "TP") == 32
-    assert k1.TP_BWD == _cu_const("deform_pair_vjp.cu", "TP") == 32
-    assert k13.TP_BWD == _cu_const("skip_mlp.cu", "TP_BWD") == 32
+    assert k2.tile_points(torch.float32) == _cu_const("deform_pair_vjp.cu", "TP") == 32
+    assert k2.tile_points(torch.float32) == _cu_const("skip_mlp.cu", "TP_BWD") == 32
+    for src in ("deform_pair_vjp.cu", "skip_mlp.cu"):
+        with open(os.path.join(CSRC, src)) as fp:
+            assert '#include "skip_tc.cuh"' in fp.read()
+    # the width step the K3 and K14 wrappers check in bf16
+    assert k13.TC_K_STEP == _cu_const("skip_tc.cuh", "SKIP_KS")
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_pair_and_skip_plans_keep_their_tiles(models, dtype):
-    model = models["grid"]
-    rng = np.random.RandomState(1)
-    cond = torch.tensor((rng.randn(76 + 36) * 0.5).astype(np.float32))
-    warp_g = nerface.build_pe_groups(model.spec)[0]
-    pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
-    skip = k13.prepare_skip(model.warp, cond, warp_g, "tanh")
-    for plan, tp in ((k1.pair_train_plan(pair, DTYPES[dtype]), k1.TP_BWD),
-                     (k13.skip_train_plan(skip, DTYPES[dtype]), k13.TP_BWD)):
+    """K3's and K14's plans take their dtype's tile: 64 points in bf16, 32
+    in float32."""
+    tp = k2.tile_points(DTYPES[dtype])
+    assert tp == {"bfloat16": 64, "float32": 32}[dtype]
+    for kind in ("pair", "skip_warp", "skip_hyper"):
+        plan = _plan_rows(models, kind, dtype)[0]
         act, gz = _slots(plan)
         assert plan.act_stride % tp == 0 and plan.gz_stride % tp == 0
         assert all(o % tp == 0 for o in act + gz)
@@ -178,9 +213,17 @@ def test_pair_and_skip_plans_keep_their_tiles(models, dtype):
 def test_level_plans_differ_only_by_tile(models):
     """The bf16 plan is the float32 plan at twice the tile: the same
     products, layers and work list, every slot offset doubled."""
-    lvl = _level(models["grid"])
-    p32 = k2.level_train_plan(lvl, torch.float32)
-    p64 = k2.level_train_plan(lvl, torch.bfloat16)
+    _plans_differ_only_by_tile(models, "grid")
+
+
+@pytest.mark.parametrize("kind", ["pair", "skip_warp", "skip_hyper"])
+def test_pair_and_skip_plans_differ_only_by_tile(models, kind):
+    _plans_differ_only_by_tile(models, kind)
+
+
+def _plans_differ_only_by_tile(models, kind):
+    p32 = _plan_rows(models, kind, "float32")[0]
+    p64 = _plan_rows(models, kind, "bfloat16")[0]
     assert torch.equal(p64.slots, 2 * p32.slots)
     assert (p64.act_stride, p64.gz_stride) == (2 * p32.act_stride, 2 * p32.gz_stride)
     assert torch.equal(p64.work, p32.work)
