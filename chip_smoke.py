@@ -72,9 +72,14 @@ Phases, in order (any failure exits non-zero and prints no result):
      own inputs (both levels, the loss cotangents with g_w) in float32 at
      256 rays and bfloat16 at 2048, and K5 in bfloat16 at the ablation
      frame's 32,768-ray chunk (64 and 128 samples), with the same gates;
-     faults planted in the kernels' bf16
+     bf16 K7 runs on the tensor cores (level_train.cu:field_tc_kernel) and
+     is also held against exact sums (tools/level_exact.exact_plain: in
+     each output group at most EXACT_MULTIPLE times the plain version's
+     distance); faults planted in the kernels' bf16
      results (K6's bias gradient dropped, K8's first split-K chunk
-     dropped, one corner left out of K9) must each miss them; whole float32
+     dropped, one corner left out of K9, rows 16-31 of trunk[1]'s and,
+     apart, of the rgb head's weights left out of K7's forward blob) must
+     each miss them; whole float32
      steps at 256 rays: the fallback with fuse_composite on and off through
      the kernels against the same steps on the plain versions (STEP_GATES,
      launch counts checked), and the fused step against the fallback step
@@ -94,8 +99,14 @@ Phases, in order (any failure exits non-zero and prints no result):
      on the per-point branch's own inputs (the fine level of a 64 + 128
      step: 192 samples a ray, which the level kernels do not tile) and
      the cotangents its loss sends back, float32 at 256 rays and bfloat16
-     at 2048, with phase 7's gates and K10_GATES; faults planted in the
-     kernels' bf16 results (K11 without a bias, K12's bias gradient
+     at 2048, with phase 7's gates and K10_GATES; bf16 K11 runs on the
+     tensor cores (field_tc_kernel), is held against exact sums as K7, and
+     on 24 points fewer (a ragged last tile) must write nothing past its
+     last point (a NaN guard, which must see a launch told the tile's end
+     as P); faults planted in the
+     kernels' bf16 results (K11 without a bias, rows 16-31 of trunk[1]'s
+     and, apart, of the rgb head's weights left out of K11's forward
+     blob, K12's bias gradient
      dropped, K12's first split-K chunk dropped, one corner left out of
      K10) must each miss them; whole float32 steps at 256 rays through the
      kernels against the same steps on the plain versions (STEP_GATES,
@@ -144,9 +155,12 @@ Phases, in order (any failure exits non-zero and prints no result):
      version on the arguments its path gives it (recorded around the plain
      versions on one step of the fused path, fallback path 1, the reuse
      path and the per-point step at 64 + 128), float32 at 256 rays and
-     bfloat16 at 2048, with the gates of phases 2, 5, 7 and 9; a fault
+     bfloat16 at 2048, with the gates of phases 2, 5, 7 and 9 (bf16 K7
+     and K11 also against exact sums); a fault
      planted in each kernel's bf16 result must miss them (K1 with its hyper
-     bias at 1; K5, K7, K11 without the alpha bias; K2, K6, K12's bias
+     bias at 1; K5, K7, K11 without the alpha bias; K7, K11 with rows
+     16-31 of trunk[1]'s and, apart, of the rgb head's weights left out;
+     K2, K6, K12's bias
      gradient dropped; K8's first split-K chunk dropped); whole float32
      steps at 256 rays through the kernels against the same steps on the
      plain versions (STEP_GATES, launch counts checked) for the fused and
@@ -759,9 +773,11 @@ def fallback_kernel_parity(inp):
             "finite": bool(all(torch.isfinite(t).all() for t in (gx_k, gse_k, gbg_k)))}
     raw_k = k5.nerf_rayd_forward(*inp["k7"])
     raw_p = inp["k7_plain"]
-    res["k7"] = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": scaled_err(raw_k, raw_p),
+    res["k7"] = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": field_scaled(raw_k, raw_p),
                  "max_abs_err": abs_err(raw_k, raw_p),
                  "finite": bool(torch.isfinite(raw_k).all())}
+    if inp["k7"][5] == "bfloat16":
+        res["k7"]["exact"] = field_exact(k5.nerf_raw_plain, inp["k7"], raw_k, raw_p)
     gx_k, gse_k, g_k = k2.nerf_rayd_vjp(*inp["k8"])
     gx_p, gse_p, g_p = inp["k8_plain"]
     outs["k8"] = g_k
@@ -790,6 +806,9 @@ def fallback_gates_missed(res, compute_dtype) -> list:
         if name in ("k7", "k11"):
             ok = r["finite"] and (r["raw_abs"] <= g["out_abs"] if f32
                                   else r["raw_scaled"] <= g["out_rel"])
+            mask = r.get("mask", {"guard_clean": True, "rows_scaled": 0.0})
+            ok = (ok and r.get("exact", {}).get("ok", True) and mask["guard_clean"]
+                  and mask["rows_scaled"] <= BF16_GATE)
             if not ok:
                 missed.append(name)
             continue
@@ -1056,9 +1075,13 @@ def fallback_planted_faults(inp, outs) -> dict:
     """What the dW gates see in the kernels' own results with a fault
     planted: K6's bias gradient of a trunk layer dropped; the points of
     K8's first split-K chunk dropped (the plain dW over them taken off);
-    one corner of every point left out of K9's dGrid. Each must miss."""
+    one corner of every point left out of K9's dGrid; rows 16-31 of
+    trunk[1]'s weights, and apart from that of the rgb head's, left out of
+    the forward blob that the tensor-core K7 reads (field_slice_fault).
+    Each must miss."""
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
     from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
     from sahs_tpu_torch.utils.compare import tree_errors
     out = {}
@@ -1076,6 +1099,9 @@ def fallback_planted_faults(inp, outs) -> dict:
     out["k9 without corner 0"] = tree_errors(
         outs["k9"] - dg_one_corner(coords, g, shape, 0),
         k4.grid_dg_coords_plain(coords, g, shape))
+    for layer, what in field_slice_layers(inp["k7"][4]):
+        out[f"k7 rows 16-31 of {what} left out"] = field_slice_fault(
+            k5.nerf_rayd_forward, k5.nerf_raw_plain, inp["k7"], 4, layer)
     return out
 
 
@@ -1168,9 +1194,13 @@ def pointwise_parity(inp):
     dg_p, dc_p = k4.grid_bwd_fused_plain(*inp["k10"])
     torch.cuda.synchronize()
     e = tree_errors(g_k, g_p)
-    res = {"k11": {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": scaled_err(raw_k, raw_p),
-                   "max_abs_err": abs_err(raw_k, raw_p),
-                   "finite": bool(torch.isfinite(raw_k).all())},
+    k11_res = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": field_scaled(raw_k, raw_p),
+               "max_abs_err": abs_err(raw_k, raw_p),
+               "finite": bool(torch.isfinite(raw_k).all())}
+    if inp["k11"][3] == "bfloat16":
+        k11_res["exact"] = field_exact(k11.nerf_mlp_plain, inp["k11"], raw_k, raw_p)
+        k11_res["mask"] = field_mask_check(*inp["k11"][:3], raw_p)
+    res = {"k11": k11_res,
            "k12": {"gx": point_errors(gx_k, gx_p, tol),
                    "gextra": point_errors(ge_k, ge_p, tol),
                    "dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
@@ -1180,13 +1210,17 @@ def pointwise_parity(inp):
                    "finite": bool(torch.isfinite(gx_k).all() and torch.isfinite(ge_k).all())},
            "k10": {"dg": tree_errors(dg_k, dg_p), "dcoords": tree_errors(dc_k, dc_p),
                    "max_abs_err": max(abs_err(dg_k, dg_p), abs_err(dc_k, dc_p))}}
-    return res, {"k11": raw_k, "k12": g_k, "k10": dg_k}
+    return res, {"k11": raw_k, "k12": g_k, "k10": dg_k, "k11_mask": k11_res.get("mask")}
 
 
 def pointwise_planted_faults(inp, outs) -> dict:
     """What the gates see with a fault planted in the kernels' own bf16
     results: K11 run with the alpha head's bias dropped (its raw field
-    against the plain version's, max |a - b| / max |b|); K12's bias gradient
+    against the plain version's, field_scaled) and with rows 16-31 of
+    trunk[1]'s weights, and apart from that of the rgb head's, left out of
+    its forward blob (field_slice_fault); K11's last tile written past P
+    (field_mask_check: the guard rows past P must not read clean); K12's
+    bias gradient
     of a trunk layer dropped; the points of K12's first split-K chunk
     dropped (the plain dW over them taken off); one corner of every point
     left out of K10's dG. Each must miss."""
@@ -1202,8 +1236,14 @@ def pointwise_planted_faults(inp, outs) -> dict:
     no_bias = dataclasses.replace(lvl, alpha={"w": lvl.alpha["w"],
                                               "b": torch.zeros_like(lvl.alpha["b"])},
                                   _blobs={})
-    out["k11 without the alpha bias"] = {"raw_scaled": scaled_err(
+    out["k11 without the alpha bias"] = {"raw_scaled": field_scaled(
         k11.nerf_mlp_forward_fused(packed, extra, no_bias, cdt), inp["k11_plain"])}
+    for layer, what in field_slice_layers(lvl):
+        out[f"k11 rows 16-31 of {what} left out"] = field_slice_fault(
+            k11.nerf_mlp_forward_fused, k11.nerf_mlp_plain, inp["k11"], 2, layer)
+    mask = outs["k11_mask"]
+    out[f"k11 last tile stored past P ({mask['points']} points)"] = {
+        "guard_clean": mask["fault_guard_clean"]}
     g_p = inp["k12_plain"][2]
     out["k12 bias trunk[1]"] = tree_errors(_drop_bias(outs["k12"], ["trunk", 1]), g_p)
     P = packed.shape[0]
@@ -1221,9 +1261,107 @@ def pointwise_planted_faults(inp, outs) -> dict:
 
 def fault_passes(e) -> bool:
     """True when a planted fault's reading passes the bf16 gates."""
+    if "guard_clean" in e:
+        return e["guard_clean"]
     if "raw_scaled" in e:
-        return e["raw_scaled"] <= BF16_GATE
+        return e["raw_scaled"] <= BF16_GATE and e.get("ok", True)
     return dw_ok(e, TRAIN_BF16_GATES)
+
+
+# The raw field's output groups [rgb3 | seg12 | sigma1]: K7's and K11's
+# gates read each against its own scale, so that a large group (the rgb
+# head) does not hide an error in a small one
+FIELD_GROUPS = (("rgb", 0, 3), ("seg", 3, 15), ("sigma", 15, 16))
+
+# bf16 K7 and K11 on the tensor cores: in each group a kernel's
+# L2-relative distance to exact sums (tools/level_exact.exact_plain: the
+# same bf16 operands, float64 sums) at most EXACT_MULTIPLE times the plain
+# version's own, or EXACT_MULTIPLE x FIELD_FLOOR where the plain version is
+# closer than that. The multiple is the bf16 backwards' rule
+# (tests/test_torch_cuda.py:PLAIN_MULTIPLE); their floor of 1e-3 is not:
+# the plain forwards sit 4.1e-5-5.0e-5 from exact sums over the whole
+# field, so it would pass a kernel 100 times as far, and a kernel that
+# leaves 16 rows of trunk[1] out moves the field by ~6 times the plain
+# version's distance.
+EXACT_MULTIPLE, FIELD_FLOOR = 4.0, 1e-5
+
+
+def field_scaled(a, b) -> float:
+    """The worst group (FIELD_GROUPS) of raw (P, 16) ``a`` against ``b``:
+    max |a - b| / max |b| within the group."""
+    return max(scaled_err(a[:, i:j], b[:, i:j]) for _, i, j in FIELD_GROUPS)
+
+
+def field_exact(fp, args, raw_k, raw_p) -> dict:
+    """A bf16 raw field's L2-relative distances to exact sums, per group:
+    the kernel's and the plain version's, and whether the kernel keeps the
+    rule in every group."""
+    from sahs_tpu_torch.tools.level_exact import exact_plain
+    from sahs_tpu_torch.utils.compare import point_errors
+    raw_x = exact_plain(fp, *args)
+    d_k, d_p = ({g: point_errors(r[:, i:j], raw_x[:, i:j])["l2_rel"]
+                 for g, i, j in FIELD_GROUPS} for r in (raw_k, raw_p))
+    return {"kernel_vs_exact": d_k, "plain_vs_exact": d_p,
+            "ok": all(d_k[g] <= EXACT_MULTIPLE * max(d_p[g], FIELD_FLOOR) for g in d_k)}
+
+
+def field_slice_layers(lvl) -> list:
+    """(layer index in the forward blob, name) of the layers whose rows
+    16-31 field_slice_fault leaves out: trunk[1] and the rgb head."""
+    return [(1, "trunk[1]"), (len(lvl.trunk) + 6, "the rgb head")]
+
+
+def field_slice_fault(fk, fp, args, wi: int, layer: int) -> dict:
+    """A bf16 raw field (K7: the level at ``args[wi]`` = 4, K11: 2) run with
+    rows 16-31 of forward layer ``layer``'s weights left out of the blob
+    that the tensor-core kernel reads (one 16-row K-slice of what the ring
+    stages), against the plain version (field_scaled) and against exact
+    sums (field_exact's rule)."""
+    import dataclasses
+    import torch
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    lvl = args[wi]
+    faulty = dataclasses.replace(lvl, _blobs={})
+    w, b, meta = k5.point_blob(faulty, torch.bfloat16)
+    w1, k, _, _, n = meta.reshape(-1, 7)[layer, :5].tolist()
+    if k < 32:
+        raise ValueError(f"forward layer {layer} has {k} rows, fewer than 32")
+    w = w.clone()
+    w[w1 + 16 * n:w1 + 32 * n] = 0
+    faulty._blobs[("point", torch.bfloat16)] = (w, b, meta)
+    raw_f, raw_p = fk(*(args[:wi] + (faulty,) + args[wi + 1:])), fp(*args)
+    return {"raw_scaled": field_scaled(raw_f, raw_p), **field_exact(fp, args, raw_f, raw_p)}
+
+
+def field_mask_check(pts, extra, lvl, raw_p, cut: int = 24) -> dict:
+    """bf16 K11 on P = len(pts) - ``cut`` points, not a multiple of the
+    64-point tile, into the first P rows of a NaN buffer: the guard rows
+    past P must stay NaN ("guard_clean") and the P rows agree with the
+    plain version ``raw_p`` ("rows_scaled", field_scaled). The check's own
+    check ("fault_guard_clean", which must be False) is the launch that a
+    kernel without its store mask makes: the same kernel told the tile's
+    end as P, so that it writes the last tile's rows past P. It shows that
+    the guard sees such rows; it plants nothing in the kernel, tests the
+    store mask alone, and does not test loads past P (the inputs are views
+    of longer tensors)."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    P = pts.shape[0] - cut
+    n_pad = -(-P // 64) * 64
+    if P % 64 == 0 or n_pad > pts.shape[0]:
+        raise ValueError(f"{P} points do not leave a ragged last tile")
+
+    def run(n):
+        buf = torch.full((n_pad + 64, 16), float("nan"), device=pts.device)
+        ints = k11.point_kernel_args(pts[:n], extra[:n], lvl, "K11")[2]
+        k5.nerf_field_tc("K11", pts[:n], lvl, n, 1, ints, extra=extra[:n], out=buf[:n])
+        torch.cuda.synchronize()
+        return buf
+    buf = run(P)
+    return {"points": P, "guard_clean": bool(torch.isnan(buf[P:]).all()),
+            "rows_scaled": field_scaled(buf[:P], raw_p[:P]),
+            "fault_guard_clean": bool(torch.isnan(run(n_pad)[P:]).all())}
 
 
 def point_mlp_macs(lw) -> int:
@@ -1885,8 +2023,10 @@ def grid_free_parity(inp):
         key = {"k7": "nerf_rayd_forward", "k11": "nerf_mlp_forward_fused"}[name]
         a = _fine(inp[key])
         raw_k, raw_p = fk(*a), fp(*a)
-        res[name] = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": scaled_err(raw_k, raw_p),
+        res[name] = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": field_scaled(raw_k, raw_p),
                      "max_abs_err": abs_err(raw_k, raw_p), "finite": fin(raw_k)}
+        if "bfloat16" in [x for x in a if isinstance(x, str)]:
+            res[name]["exact"] = field_exact(fp, a, raw_k, raw_p)
     a = _fine(inp["nerf_rayd_vjp"])
     gx_k, gse_k, g_k = k2.nerf_rayd_vjp(*a)
     gx_p, gse_p, g_p = k2.nerf_rayd_vjp_plain(*a)
@@ -1929,7 +2069,10 @@ def grid_free_planted_faults(inp, trees) -> dict:
     """What the gates see with one fault planted in each grid-free kernel's
     own bf16 results: K1 without the hyper head's bias (its ambient output
     against the plain version's); K5, K7 and K11 without the alpha head's
-    bias (max |a - b| / max |b| of their outputs); K2, K6 and K12's bias
+    bias (max |a - b| / max |b| of their outputs, K7's and K11's per
+    group), and K7 and K11 with rows 16-31 of trunk[1]'s weights, and apart
+    from that of the rgb head's, left out of their forward blob
+    (field_slice_fault); K2, K6 and K12's bias
     gradient of trunk[1] dropped; the points of K8's first split-K chunk
     dropped (the plain dW over them taken off). Each must miss."""
     import dataclasses
@@ -1966,8 +2109,11 @@ def grid_free_planted_faults(inp, trees) -> dict:
              k11.nerf_mlp_plain, 2)):
         a = _fine(inp[key])
         bad_args = a[:wi] + (no_alpha_bias(a[wi]),) + a[wi + 1:]
-        out[f"{name} without the alpha bias"] = {"raw_scaled": scaled_err(
+        out[f"{name} without the alpha bias"] = {"raw_scaled": field_scaled(
             fk(*bad_args), fp(*a))}
+        for layer, what in field_slice_layers(a[wi]):
+            out[f"{name} rows 16-31 of {what} left out"] = field_slice_fault(
+                fk, fp, a, wi, layer)
     for name, key, plain, gi in (("k2", "nerf_level_train", k2.nerf_level_train_plain, 5),
                                  ("k6", "nerf_level_vjp", k2.nerf_level_vjp_plain, 3),
                                  ("k12", "nerf_mlp_vjp", k2.nerf_mlp_vjp_plain, 2)):
@@ -2860,7 +3006,7 @@ def main(argv) -> int:
             print("fallback planted faults (bf16, main path's shapes; each must miss "
                   "the gates) " + json.dumps(faults), flush=True)
             missed += [f"the gates pass a planted fault: {k}"
-                       for k, e in faults.items() if dw_ok(e, TRAIN_BF16_GATES)]
+                       for k, e in faults.items() if fault_passes(e)]
         del outs
     report["fallback_parity"] = fb_parity
     abl = ablation_parity(dev, gen)
@@ -3132,7 +3278,7 @@ def main(argv) -> int:
     for name, key, src, replaces in (
             ("nerf_level_vjp", "K6", "sahs_tpu_torch/csrc/level_train.cu",
              "sahs_tpu/ops/pallas/field_mlp.py:2951"),
-            ("nerf_rayd_forward", "K7", "sahs_tpu_torch/csrc/nerf_level.cu",
+            ("nerf_rayd_forward", "K7", "sahs_tpu_torch/csrc/level_train.cu",
              "sahs_tpu/ops/pallas/field_mlp.py:1973"),
             ("nerf_rayd_vjp", "K8", "sahs_tpu_torch/csrc/level_train.cu",
              "sahs_tpu/ops/pallas/field_mlp.py:2059"),
@@ -3325,7 +3471,7 @@ def main(argv) -> int:
     for name, key, src, replaces in (
             ("grid_bwd_fused", "K10", "sahs_tpu_torch/csrc/grid_bwd.cu",
              "sahs_tpu/ops/pallas/grid_bwd.py:343"),
-            ("nerf_mlp_forward_fused", "K11", "sahs_tpu_torch/csrc/nerf_mlp.cu",
+            ("nerf_mlp_forward_fused", "K11", "sahs_tpu_torch/csrc/level_train.cu",
              "sahs_tpu/ops/pallas/field_mlp.py:3204"),
             ("nerf_mlp_vjp", "K12", "sahs_tpu_torch/csrc/level_train.cu",
              "sahs_tpu/ops/pallas/field_mlp.py:1546")):

@@ -31,6 +31,10 @@
 // cotangent of that input (the direction's through its PE backward, as the
 // JAX kernel computes it), in place of gse and the corner dCoords.
 //
+// In bf16 the same file also holds K7's and K11's forward
+// (field_tc_kernel, `sahs_nerf_field_tc`): launch 1's tile routine,
+// fwd_tile, with its stash writes compiled out (see below).
+//
 // A model without the spatial-embedding grid runs the grid-free form of
 // the three ray modes (field_mlp.py:nerf_level_vjp / nerf_rayd_vjp and
 // level_train.py with se=None): C = 0, no table and no rows, so launch 1
@@ -643,25 +647,28 @@ using sahs::TC_TP;
 
 __host__ __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
 
-// Shared-memory layout of the two per-tile kernels, in bytes (every offset
-// a multiple of 16). Forward: xin [pad16(kx)] (the f32 heads [8 alpha | 8
-// rgb | 16 seg] reuse it after the trunk), din [pad16(ndp + C)], hA, hB
-// [max(H, 2B)] and the weight ring. Backward: T0, T1 [max(H, 2B)] (gz
-// ping-pong; the branches' P, Q in T0, gs0 and gz_d0 in T1), F
-// [max(pad8(kx), pad8(ndp + C))] in f32 (the [pe(dir) | se] cotangent,
-// then the PE's) and the ring.
+// Shared-memory layout of the per-tile kernels, in bytes (every offset a
+// multiple of 16). Forward (fwd_tc_kernel, and field_tc_kernel with
+// ks = FIELD_KS): xin [padk(kx)] (the f32 heads [8 alpha | 8 rgb | 16 seg]
+// reuse it after the trunk), din [padk(ndp + C)], hA, hB [max(H, 2B)] and
+// the weight ring of ks-row slices; the encodings' rows are padded to a
+// whole slice. Backward: T0, T1 [max(H, 2B)] (gz ping-pong; the branches'
+// P, Q in T0, gs0 and gz_d0 in T1), F [max(pad8(kx), pad8(ndp + C))] in f32
+// (the [pe(dir) | se] cotangent, then the PE's) and the ring.
+__host__ __device__ __forceinline__ int padk(int n, int ks) { return (n + ks - 1) / ks * ks; }
+
 struct TcLayout {
   int kx, ndp, xin, din, ha, hb, fring, fwd, t0, t1, f, bring, bwd;
-  __host__ __device__ explicit TcLayout(const Args& a) {
+  __host__ __device__ explicit TcLayout(const Args& a, int ks = sahs::TC_KS) {
     kx = 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
     ndp = 3 + 6 * a.nf_dir;
     const int row = TC_LD * 2, rowf = TC_LDF * 4, rh = imax(a.H, 2 * a.B);
     xin = 0;
-    din = xin + imax(sahs::pad16(kx) * row, 32 * rowf);
-    ha = din + sahs::pad16(ndp + a.C) * row;
+    din = xin + imax(padk(kx, ks) * row, 32 * rowf);
+    ha = din + padk(ndp + a.C, ks) * row;
     hb = ha + rh * row;
     fring = hb + rh * row;
-    fwd = fring + sahs::ring_bytes(imax(a.H, a.B));
+    fwd = fring + sahs::ring_bytes(imax(a.H, a.B), ks);
     const int nf = imax(pad8(kx), pad8(ndp + a.C));
     t0 = 0;
     t1 = t0 + rh * row;
@@ -671,10 +678,24 @@ struct TcLayout {
   }
 };
 
-// 1. forward per 64-point tile
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const TcLayout ly(a);
+// Rows of a staged weight slice of the forward-only kernel. 16 rows keep
+// two blocks an SM at the flagship's widths (113,664 B); 32 rows halve the
+// barrier pairs but their ring (33,792 B) leaves room for one block.
+// Measured on an H100 (PERF.md, tools/level_ab.py --fields-only): K7 at a
+// step's fine level 4.63-4.66 ms with 16 rows against 7.16-7.30 with 32,
+// K11 at a frame's fine chunk 103.8-103.9 against 164.2-164.5 ms: the
+// second block hides the barriers better than half as many of them do.
+constexpr int FIELD_KS = 16;
+
+// 1. forward per 64-point tile: PE, the [pe(dir) | se] block (from a
+// ray's direction and the corner rows gathered here, or from the point's
+// own extra input in MODE_PTS), the trunk, the heads and both branches,
+// raw (P, 16) out when a.raw is given. With STASH every layer's input also
+// goes to the stash of the backward (launch 1 of K2/K6/K8/K12); without it
+// (the forwards K7 and K11) nothing else leaves the block.
+template <bool STASH, int KS>
+__device__ __forceinline__ void fwd_tile(const Args& a, unsigned char* smem_raw) {
+  const TcLayout ly(a, KS);
   const int kx = ly.kx, ndp = ly.ndp, C = a.C, L = a.L;
   bf16* xin = reinterpret_cast<bf16*>(smem_raw + ly.xin);
   bf16* din = reinterpret_cast<bf16*>(smem_raw + ly.din);
@@ -689,16 +710,19 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
   const bf16* wblob = reinterpret_cast<const bf16*>(a.w);
   const bf16* table = reinterpret_cast<const bf16*>(a.table);
   const long long tile = blockIdx.x, base = tile * TC_TP;
-  bf16* acts = reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride;
+  bf16* acts = STASH ? reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride : nullptr;
   const int* act_off = a.slots;
   const int tid = threadIdx.x;
   auto layer = [&](int i, const bf16* X1, const bf16* X2, bf16* Y, float* Yf) {
-    sahs::tc_layer(sahs::load_desc(a.meta, i), wblob, a.b, X1, X2, Y, Yf, ring);
+    sahs::tc_layer<KS>(sahs::load_desc(a.meta, i), wblob, a.b, X1, X2, Y, Yf, ring);
+  };
+  auto stash = [&](const bf16* src, int slot, int rows) {
+    if constexpr (STASH) sahs::stash_rows(src, acts + act_off[slot], rows);
   };
 
   // K padding: the rows past the encodings stay zero
-  sahs::zero_rows(xin, kx, sahs::pad16(kx));
-  sahs::zero_rows(din, ndp + C, sahs::pad16(ndp + C));
+  sahs::zero_rows(xin, kx, padk(kx, KS));
+  sahs::zero_rows(din, ndp + C, padk(ndp + C, KS));
   const bool per_point = a.mode == MODE_PTS;
   if (tid < TC_TP) {
     const long long p = base + tid;
@@ -757,8 +781,8 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
     }
     __syncthreads();
   }
-  sahs::stash_rows(xin, acts + act_off[0], kx);
-  sahs::stash_rows(din, acts + act_off[L + 2], ndp + C);
+  stash(xin, 0, kx);
+  stash(din, L + 2, ndp + C);
 
   const bf16* src = xin;
   bf16* dst = hA;
@@ -766,7 +790,7 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
     const sahs::LayerDesc d = sahs::load_desc(a.meta, l);
     layer(l, src, d.w2 >= 0 ? xin : nullptr, dst, nullptr);
     __syncthreads();
-    sahs::stash_rows(dst, acts + act_off[1 + l], a.H);
+    stash(dst, 1 + l, a.H);
     src = dst;
     dst = dst == hA ? hB : hA;
   }
@@ -776,31 +800,31 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
   bf16* b1 = hl + a.B * TC_LD;
   layer(L, hl, nullptr, feat, nullptr);
   __syncthreads();
-  sahs::stash_rows(feat, acts + act_off[L + 1], a.H);
+  stash(feat, L + 1, a.H);
   layer(L + 1, feat, nullptr, nullptr, alphaY);
   // direction branch: [feat | pe(dir) | se] -> 4 x B -> rgb
   layer(L + 2, feat, din, b0, nullptr);
   __syncthreads();
-  sahs::stash_rows(b0, acts + act_off[L + 3], a.B);
+  stash(b0, L + 3, a.B);
   for (int k = 1; k <= 3; ++k) {
     bf16* in = k % 2 ? b0 : b1;
     bf16* out = k % 2 ? b1 : b0;
     layer(L + 2 + k, in, nullptr, out, nullptr);
     __syncthreads();
-    sahs::stash_rows(out, acts + act_off[L + 3 + k], a.B);
+    stash(out, L + 3 + k, a.B);
   }
   layer(L + 6, b1, nullptr, nullptr, rgbY);
   __syncthreads();
   // seg branch: feat -> 4 x B -> 12 logits
   layer(L + 7, feat, nullptr, b0, nullptr);
   __syncthreads();
-  sahs::stash_rows(b0, acts + act_off[L + 7], a.B);
+  stash(b0, L + 7, a.B);
   for (int k = 1; k <= 3; ++k) {
     bf16* in = k % 2 ? b0 : b1;
     bf16* out = k % 2 ? b1 : b0;
     layer(L + 7 + k, in, nullptr, out, nullptr);
     __syncthreads();
-    sahs::stash_rows(out, acts + act_off[L + 7 + k], a.B);
+    stash(out, L + 7 + k, a.B);
   }
   layer(L + 11, b1, nullptr, nullptr, segY);
   __syncthreads();
@@ -813,6 +837,34 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
                   : c < 15 ? segY[(c - 3) * TC_LDF + t] : alphaY[t];
     a.raw[p * 16 + c] = v;
   }
+}
+
+// launch 1 of the backward: the forward tile with the stash
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_tile<true, sahs::TC_KS>(a, smem_raw);
+}
+
+// K7 and K11 in bf16: the forward tile alone, raw (P, 16) out.
+//
+// Replaces sahs_tpu/ops/pallas/field_mlp.py:nerf_rayd_forward (:1973,
+// pallas_call at :2040; K7, the reuse path's raw field) and
+// nerf_mlp_forward_fused (:3204, pallas_call at :3246; K11, the per-point
+// branch's field) in bf16; float32 keeps their SIMT kernels (nerf_level.cu
+// RAW, nerf_mlp.cu). Weights: the forward blob that K8 and K12 read
+// (nerf_level.point_blob), so a forward and its backward read the same
+// bytes. Bound on the H100: ~0.74 M multiply-adds a point against ~30
+// (K7) or ~224 (K11) bytes, so operations: K7 at a step's fine level
+// (262,144 points) 0.39 ms, K11 at a frame's fine chunk (6.29 M) 9.4 ms at
+// the 989 TFLOP/s bf16 peak. ptxas: 128 registers, 16 B of spill stores,
+// 113,664 B of dynamic shared memory, two blocks an SM. Measured (PERF.md,
+// tools/level_ab.py): 83-90 TFLOP/s, 8.4-9.1 % of the bound; K7 fine 4.63
+// ms (18.85 on the CUDA cores), K11 at the frame chunk 103.8 ms (427.4),
+// each below its library call. What holds it: the mma.sync products with a
+// barrier pair a 16-row slice; wgmma is the next step.
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2) field_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_tile<false, FIELD_KS>(a, smem_raw);
 }
 
 // 3. backward per 64-point tile. Each transposed product's epilogue applies
@@ -997,7 +1049,48 @@ int launch_tc(const Args& a, int n_work, int chunks, int out_len,
                                work, n_work, chunks, part, out, out_len, stream);
 }
 
+// K7 / K11 in bf16: one launch of the forward tile without the stash
+int launch_field(const Args& a, cudaStream_t stream) {
+  const TcLayout ly(a, FIELD_KS);
+  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
+  if (a.H % FIELD_KS || a.B % FIELD_KS || a.B < 16 || imax(a.H, a.B) > sahs::TC_NMAX)
+    return (int)cudaErrorInvalidValue;
+  const int err = sahs::set_smem(field_tc_kernel, ly.fwd);
+  if (err) return err;
+  field_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.fwd, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The bf16 raw field (P, 16) on the tensor cores: K7 (rays: pts (R*S, PW),
+// dirs (R, 3), rows and table, or C = 0) or, with `extra` (P, 3 + C) given
+// and S = 1, K11 (per point). Weights: the forward blob of the level
+// backward (nerf_level.point_layers).
+extern "C" int sahs_nerf_field_tc(
+    const void* pts, const void* rows, const void* table, const void* dirs,
+    const void* extra, const void* w, const void* b, const void* meta,
+    void* raw, long long R, int S, int PW, int L, int H, int B, int C,
+    int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
+    void* stream) {
+  if (R <= 0) return 0;
+  const bool per_point = extra != nullptr;
+  if (raw == nullptr || S < 1 || PW < 3 || PW > 8 || amb != PW - 3 ||
+      (per_point && S != 1) ||
+      (!per_point && (dirs == nullptr ||
+                      (C > 0 && (rows == nullptr || table == nullptr)))))
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
+  a.dirs = (const float*)dirs; a.extra = (const float*)extra;
+  a.mode = per_point ? MODE_PTS : MODE_RAW;
+  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
+  a.raw = (float*)raw;
+  a.R = R; a.P = R * S; a.S = S; a.PW = PW; a.L = L; a.H = H; a.B = B;
+  a.C = C; a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb;
+  a.nf_dir = nf_dir; a.gD = gD; a.gH = gH; a.gW = gW;
+  return launch_field(a, reinterpret_cast<cudaStream_t>(stream));
+}
 
 extern "C" int sahs_level_train(
     const void* pts, const void* rows, const void* table, const void* dirs,

@@ -298,6 +298,9 @@ struct DactStore {
 
 // One forward layer over the tile (mlp_layer's contract): X2 null for a
 // one-input layer; the result to Y (bf16) or, when Yf is given, to Yf (f32).
+// tc_product's warp layout, the weights staged KS rows at a time (the ring
+// is ring_bytes(N, KS)).
+template <int KS = TC_KS>
 __device__ __forceinline__ void tc_layer(const LayerDesc& d, const bf16* wblob,
                                          const float* bblob, const bf16* X1,
                                          const bf16* X2, bf16* Y, float* Yf,
@@ -306,9 +309,10 @@ __device__ __forceinline__ void tc_layer(const LayerDesc& d, const bf16* wblob,
   const Operand o2 = {X2 != nullptr ? wblob + d.w2 : nullptr,
                       X2 != nullptr ? d.k2 : 0, X2};
   if (Yf != nullptr)
-    tc_product(o1, o2, d.n, ring, StoreF32{Yf, bblob + d.b, d.act, false});
+    tc_product_wn<32, TC_UPW, KS>(o1, o2, d.n, ring,
+                                  StoreF32{Yf, bblob + d.b, d.act, false});
   else
-    tc_product(o1, o2, d.n, ring, StoreAct{Y, bblob + d.b, d.act});
+    tc_product_wn<32, TC_UPW, KS>(o1, o2, d.n, ring, StoreAct{Y, bblob + d.b, d.act});
 }
 
 // Copy `rows` rows of a shared tile (TC_LD stride) to a stash slot (TC_TP

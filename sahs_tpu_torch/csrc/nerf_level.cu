@@ -30,9 +30,12 @@
 //
 // K7 replaces field_mlp.py:nerf_rayd_forward (:1973, pallas_call at :2040)
 // in its corner_interp form, the raw field of the deformation-reuse path
-// (fuse_composite off): the same kernel, instantiated with RAW, writes each
-// point's raw (P, 16) [rgb3 | seg12 | sigma1] to device memory and stops
-// before the compositing. Same design, same bound (operations).
+// (fuse_composite off): in float32 the same kernel, instantiated with RAW,
+// writes each point's raw (P, 16) [rgb3 | seg12 | sigma1] to device memory
+// and stops before the compositing. Same design, same bound (operations).
+// In bf16 K7 runs on the tensor cores (level_train.cu:field_tc_kernel:
+// 4.63 ms at a step's fine level on an H100, 18.85 in this kernel; PERF.md),
+// so RAW is instantiated in float32 only.
 //
 // Design: one block per ray, its S samples processed in 64-point tiles
 // whose activations ping-pong through shared memory (2 x 256 x 64 values);
@@ -369,7 +372,7 @@ extern "C" int sahs_nerf_rayd_forward(
     const void* pts, const void* rows, const void* table, const void* dirs,
     const void* w, const void* b, const void* meta, void* raw, long long R,
     int S, int PW, int n_trunk, int hidden, int branch, int C, int amb,
-    int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW, int bf16,
+    int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
     void* stream) {
   if (R <= 0) return 0;
   if (raw == nullptr) return (int)cudaErrorInvalidValue;
@@ -377,6 +380,5 @@ extern "C" int sahs_nerf_rayd_forward(
                           n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb,
                           nf_dir, gD, gH, gW);
   a.raw_out = (float*)raw;
-  auto s = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16, true>(a, s) : launch<float, true>(a, s);
+  return launch<float, true>(a, reinterpret_cast<cudaStream_t>(stream));
 }

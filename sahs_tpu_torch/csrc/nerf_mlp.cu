@@ -27,8 +27,11 @@
 //
 // Bound on the H100: about 1.47 MFLOP per point against ~224 bytes, so
 // operations bound it: a frame's fine chunk of 6.29 M points (32,768 rays x
-// 192) is 9.3 TFLOP, ~9.4 ms at the 989 TFLOP/s bf16 peak. This first
-// version runs the layer products on the CUDA cores (mlp.cuh), as K5/K7.
+// 192) is 9.3 TFLOP, ~9.4 ms at the 989 TFLOP/s bf16 peak. This kernel runs
+// the layer products on the CUDA cores (mlp.cuh) and serves float32 only
+// (~22 TFLOP/s in bf16 when it served that too: 427 ms at the frame chunk).
+// In bf16, K11 runs on the tensor cores: level_train.cu:field_tc_kernel,
+// 103.8 ms at the frame chunk on an H100 (PERF.md).
 #include "mlp.cuh"
 
 namespace {
@@ -164,7 +167,7 @@ int launch(const Args& a, cudaStream_t stream) {
 extern "C" int sahs_nerf_mlp_forward(
     const void* pts, const void* extra, const void* w, const void* b,
     const void* meta, void* out, long long P, int PW, int n_trunk, int hidden,
-    int branch, int C, int amb, int nf_xyz, int nf_amb, int nf_dir, int bf16,
+    int branch, int C, int amb, int nf_xyz, int nf_amb, int nf_dir,
     void* stream) {
   if (P <= 0) return 0;
   if (PW < 3 || PW > 8 || 2 * branch > hidden || amb != PW - 3)
@@ -175,6 +178,5 @@ extern "C" int sahs_nerf_mlp_forward(
   a.out = (float*)out; a.P = P; a.PW = PW; a.L = n_trunk; a.H = hidden;
   a.B = branch; a.C = C; a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb;
   a.nf_dir = nf_dir;
-  auto s = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+  return launch<float>(a, reinterpret_cast<cudaStream_t>(stream));
 }

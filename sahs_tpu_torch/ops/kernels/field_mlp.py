@@ -353,10 +353,13 @@ def tile_points(dtype: torch.dtype) -> int:
 
 def build_train_plan(fwd: BlobBuilder, bwd: BlobBuilder, act_rows: List[int],
                      inputs: List[Tuple[int, int]], tp: int,
-                     dtype: torch.dtype) -> TrainPlan:
+                     dtype: torch.dtype, fwd_t=None) -> TrainPlan:
     """``act_rows``: rows of each stored activation slot; ``inputs``: per
-    forward layer, the act slots of its first and second input (-1: none)."""
-    fwd_t, bwd_t = fwd.build(dtype), bwd.build(dtype)
+    forward layer, the act slots of its first and second input (-1: none).
+    ``fwd_t``: ``fwd.build(dtype)`` when already built, shared with the
+    forward kernels that read it."""
+    fwd_t = fwd.build(dtype) if fwd_t is None else fwd_t
+    bwd_t = bwd.build(dtype)
     dev = fwd_t[0].device
     act_off, off = [], 0
     for rows in act_rows:

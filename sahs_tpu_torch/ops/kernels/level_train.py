@@ -54,8 +54,8 @@ from .field_mlp import (TP_BF16, BlobBuilder, TrainPlan,  # noqa: F401
                         trunk_params, unfold_cond_grads)
 from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, _grid_args, check_device,
-                         level_kernel_args, nerf_raw_plain, point_layers,
-                         prepare_level)
+                         level_kernel_args, nerf_raw_plain, point_blob,
+                         point_layers, prepare_level, widths_ok)
 from .nerf_mlp import nerf_mlp_plain, point_kernel_args
 
 
@@ -354,7 +354,8 @@ def level_train_plan(weights: LevelWeights, dtype: torch.dtype) -> TrainPlan:
         inputs += [(s_slot + k, -1) for k in range(len(W.seg) - 1)]
         inputs += [(s_slot + len(W.seg) - 1, -1)]
         W._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs,
-                                         tile_points(dtype), dtype)
+                                         tile_points(dtype), dtype,
+                                         fwd_t=point_blob(W, dtype))
     return W._blobs[key]
 
 
@@ -372,14 +373,6 @@ def _grads_tree(weights: LevelWeights, layers):
     tree["seg"] = [next(it) for _ in range(ns)]
     tree["fc_seg"] = next(it)
     return tree
-
-
-def _widths_ok(hidden: int, branch: int, dtype: torch.dtype) -> bool:
-    """The widths the kernels take: multiples of 8 (float32) or of 16 (the
-    tensor-core tiles' K step, bf16), at most 256 in bf16."""
-    if dtype == torch.bfloat16:
-        return hidden % 16 == 0 and branch % 16 == 0 and max(hidden, branch) <= 256
-    return hidden % 8 == 0 and branch % 8 == 0
 
 
 _MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
@@ -418,7 +411,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
            in shapes.items() if t is not None and tuple(t.shape) != want]
     dtype = torch_dtype(compute_dtype)
     if (bad or len(weights.dir_rest) != 3 or len(weights.seg) != 4
-            or not _widths_ok(hidden, branch, dtype)):
+            or not widths_ok(hidden, branch, dtype)):
         raise ValueError(f"{what} shapes not supported: {bad}, "
                          f"{len(weights.dir_rest)} dir and {len(weights.seg)} "
                          f"seg layers, hidden {hidden}, branch {branch}")
@@ -540,7 +533,7 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
     n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir = ints
     dtype = torch_dtype(compute_dtype)
     if (tuple(g.shape) != (P, 16) or len(weights.dir_rest) != 3
-            or len(weights.seg) != 4 or not _widths_ok(hidden, branch, dtype)):
+            or len(weights.seg) != 4 or not widths_ok(hidden, branch, dtype)):
         raise ValueError(f"K12 shapes not supported: g {tuple(g.shape)} for "
                          f"{P} points, {len(weights.dir_rest)} dir and "
                          f"{len(weights.seg)} seg layers, hidden {hidden}, "

@@ -19,7 +19,13 @@ form (JAX: ``field_mlp.py:nerf_render_level`` :3187 and
 (``table`` and ``rows`` None), the folded level's ``dir0_se`` of zero
 rows, so the direction branch's first layer reads [feat | pe(dir)].
 
-``nerf_level_forward`` and ``nerf_rayd_forward`` launch the kernel for
+In bfloat16 K7 runs on the tensor cores (``nerf_field_tc``: the forward
+tile of the level backward, ``csrc/level_train.cu:field_tc_kernel``, on
+64-point tiles), reading the same weight blob as its backward K8
+(``point_blob``); in float32 it runs the SIMT kernel of ``nerf_level.cu``.
+K5 runs that SIMT kernel in both dtypes.
+
+``nerf_level_forward`` and ``nerf_rayd_forward`` launch a kernel for
 tensors on a CUDA device and count the launch in ``<wrapper>.launches``;
 for tensors on the CPU they run ``nerf_level_plain`` / ``nerf_raw_plain``,
 the same functions in plain tensor math.
@@ -108,6 +114,16 @@ def point_layers(W: LevelWeights) -> BlobBuilder:
         fwd.layer(p["w"], p["b"], "leaky")
     fwd.layer(W.seg_out["w"], W.seg_out["b"], "linear")
     return fwd
+
+
+def point_blob(weights: LevelWeights, dtype: torch.dtype):
+    """The (weight blob, bias blob, layer descriptors) of ``point_layers``,
+    built once per folded level and dtype: read by K11, by bf16 K7 and, as
+    the forward blob of their train plan, by K2, K6, K8 and K12."""
+    key = ("point", dtype)
+    if key not in weights._blobs:
+        weights._blobs[key] = point_layers(weights).build(dtype)
+    return weights._blobs[key]
 
 
 def prepare_level(nerf, cond: torch.Tensor, pts_groups: Sequence[PEGroup],
@@ -313,6 +329,15 @@ def _grid_args(rows: Optional[torch.Tensor], table: Optional[torch.Tensor]):
     return rows.reshape(-1).to(torch.int32).contiguous(), table.contiguous()
 
 
+def widths_ok(hidden: int, branch: int, dtype: torch.dtype) -> bool:
+    """The widths the per-tile kernels of csrc/level_train.cu take:
+    multiples of 8 (float32) or of 16 (the tensor-core tiles' K step, bf16),
+    at most 256 in bf16."""
+    if dtype == torch.bfloat16:
+        return hidden % 16 == 0 and branch % 16 == 0 and max(hidden, branch) <= 256
+    return hidden % 8 == 0 and branch % 8 == 0
+
+
 def check_device(what: str, dev, *tensors) -> None:
     """A kernel's tensors (None skipped) must all lie on the CUDA device
     ``dev``."""
@@ -363,11 +388,54 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
 nerf_level_forward.launches = 0
 
 
+def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
+                  R: int, S: int, ints: Sequence[int],
+                  dirs: Optional[torch.Tensor] = None,
+                  table: Optional[torch.Tensor] = None,
+                  rows: Optional[torch.Tensor] = None,
+                  extra: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the bf16 raw field on the tensor cores
+    (``csrc/level_train.cu:field_tc_kernel``): K7 from ray inputs (``dirs``
+    (R, 3), the corner ``table`` and ``rows``, or neither for C = 0), or
+    K11 from per-point ``extra`` (P, 3 + C) with S = 1. ``ints`` are
+    [n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir(, gD, gH,
+    gW)] as ``level_kernel_args`` / ``point_kernel_args`` give them.
+    Returns raw (R*S, 16) float32, written into ``out`` when given (a
+    contiguous float32 (R*S, 16) tensor, e.g. a view of a larger buffer)."""
+    n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir = ints[:8]
+    gD, gH, gW = list(ints[8:11]) or [0, 0, 0]
+    P = R * S
+    if (len(weights.dir_rest) != 3 or len(weights.seg) != 4
+            or not widths_ok(hidden, branch, torch.bfloat16)):
+        raise ValueError(f"{what} shapes not supported in bfloat16: "
+                         f"{len(weights.dir_rest)} dir and {len(weights.seg)} seg "
+                         f"layers, hidden {hidden}, branch {branch}")
+    if out is not None and (tuple(out.shape) != (P, 16) or out.dtype != torch.float32
+                            or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous float32 ({P}, 16) tensor")
+    wblob, bblob, meta = point_blob(weights, torch.bfloat16)
+    check_device(what, pts.device, dirs, table, rows, extra, wblob, out)
+    f32 = torch.float32
+    c = lambda t: None if t is None else t.to(f32).contiguous()
+    pts, dirs, extra = c(pts), c(dirs), c(extra)
+    raw = torch.empty((P, 16), dtype=f32, device=pts.device) if out is None else out
+    fn = _build.function("level_train", "sahs_nerf_field_tc",
+                         "p" * 9 + "l" + "i" * 13 + "p")
+    p = _build.ptr
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(extra), p(wblob), p(bblob),
+            p(meta), p(raw), R, S, pts.shape[1], n_trunk, hidden, branch, C, amb,
+            nf_xyz, nf_amb, nf_dir, gD, gH, gW, _build.stream_ptr(pts.device))
+    _build.check(rc, what)
+    return raw
+
+
 def nerf_rayd_forward(pts: torch.Tensor, dirs: torch.Tensor,
                       table: torch.Tensor, rows: torch.Tensor,
                       weights: LevelWeights, compute_dtype: str = "bfloat16",
                       grid_dims=(32, 32, 32)) -> torch.Tensor:
-    """K7 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    """K7 wrapper: a CUDA kernel for CUDA tensors (bf16: ``nerf_field_tc``
+    on the tensor cores; float32: the SIMT kernel), the plain version for
     CPU tensors. Same arguments and result as ``nerf_raw_plain``."""
     if pts.device.type == "cpu":
         return nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
@@ -376,6 +444,12 @@ def nerf_rayd_forward(pts: torch.Tensor, dirs: torch.Tensor,
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
                                           compute_dtype, grid_dims, "K7")
     dtype = torch_dtype(compute_dtype)
+    if dtype == torch.bfloat16:
+        rows, table = _grid_args(rows, table)
+        raw = nerf_field_tc("K7", pts, weights, R, S, ints, dirs=dirs,
+                            table=table, rows=rows)
+        nerf_rayd_forward.launches += 1
+        return raw
     wblob, bblob, meta = weights.blob(dtype)
     check_device("K7", pts.device, rows, table, dirs, wblob)
     f32 = torch.float32
@@ -384,11 +458,11 @@ def nerf_rayd_forward(pts: torch.Tensor, dirs: torch.Tensor,
     rows, table = _grid_args(rows, table)
     raw = torch.empty((R * S, 16), dtype=f32, device=pts.device)
     fn = _build.function("nerf_level", "sahs_nerf_rayd_forward",
-                         "p" * 8 + "l" + "i" * 14 + "p")
+                         "p" * 8 + "l" + "i" * 13 + "p")
     p = _build.ptr
     rc = fn(p(pts), p(rows), p(table), p(dirs), p(wblob),
             p(bblob), p(meta), p(raw), R, S, PW, *ints,
-            int(dtype == torch.bfloat16), _build.stream_ptr(pts.device))
+            _build.stream_ptr(pts.device))
     _build.check(rc, "nerf_rayd_forward")
     nerf_rayd_forward.launches += 1
     return raw

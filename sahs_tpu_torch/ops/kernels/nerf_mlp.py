@@ -8,10 +8,14 @@ extra input [raw dir | spatial embedding], whose encodings (10 and 4
 frequencies for xyz and ambient, 4 for the direction; the embedding passed
 through) it computes itself. The math is K7's but for the direction
 branch's first layer, which reads the point's own [feat | pe(dir) | se]
-(field_mlp.py:1525). The CUDA kernel is ``csrc/nerf_mlp.cu``; its source
-note gives the bound on the H100 and the design.
+(field_mlp.py:1525). In bfloat16 it runs on the tensor cores: the forward
+tile of the level backward without its stash
+(``csrc/level_train.cu:field_tc_kernel``, through
+``nerf_level.nerf_field_tc``), on the forward blob its backward K12 reads
+(``point_blob``); in float32 on the SIMT kernel of ``csrc/nerf_mlp.cu``.
+The source notes give the bound on the H100 and the design.
 
-``nerf_mlp_forward_fused`` launches the kernel for CUDA tensors and counts
+``nerf_mlp_forward_fused`` launches a kernel for CUDA tensors and counts
 the launch in ``nerf_mlp_forward_fused.launches``; for CPU tensors it runs
 ``nerf_mlp_plain``, the same function in plain tensor math.
 """
@@ -24,7 +28,7 @@ import torch
 from . import _build
 from .field_mlp import kernel_pe, mm, torch_dtype
 from .nerf_level import (LevelWeights, _pe_freqs, check_device, field_plain,
-                         point_layers)
+                         nerf_field_tc, point_blob)
 
 
 def nerf_mlp_plain(pts: torch.Tensor, extra: torch.Tensor,
@@ -77,25 +81,21 @@ def point_kernel_args(pts: torch.Tensor, extra: torch.Tensor,
                    nf_amb, nf_dir]
 
 
-def point_blob(weights: LevelWeights, dtype: torch.dtype):
-    """K11's (weight blob, bias blob, layer descriptors), built once per
-    folded level and dtype."""
-    key = ("point", dtype)
-    if key not in weights._blobs:
-        weights._blobs[key] = point_layers(weights).build(dtype)
-    return weights._blobs[key]
-
-
 def nerf_mlp_forward_fused(pts: torch.Tensor, extra: torch.Tensor,
                            weights: LevelWeights,
                            compute_dtype: str = "bfloat16") -> torch.Tensor:
-    """K11 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    """K11 wrapper: a CUDA kernel for CUDA tensors (bf16: ``nerf_field_tc``
+    on the tensor cores; float32: the SIMT kernel), the plain version for
     CPU tensors. Same arguments and result as ``nerf_mlp_plain``."""
     if pts.device.type == "cpu":
         return nerf_mlp_plain(pts, extra, weights, compute_dtype)
     check_device("K11", pts.device)
     P, PW, ints = point_kernel_args(pts, extra, weights, "K11")
     dtype = torch_dtype(compute_dtype)
+    if dtype == torch.bfloat16:
+        out = nerf_field_tc("K11", pts, weights, P, 1, ints, extra=extra)
+        nerf_mlp_forward_fused.launches += 1
+        return out
     wblob, bblob, meta = point_blob(weights, dtype)
     check_device("K11", pts.device, extra, wblob)
     f32 = torch.float32
@@ -103,10 +103,10 @@ def nerf_mlp_forward_fused(pts: torch.Tensor, extra: torch.Tensor,
     extra = extra.to(f32).contiguous()
     out = torch.empty((P, 16), dtype=f32, device=pts.device)
     fn = _build.function("nerf_mlp", "sahs_nerf_mlp_forward",
-                         "p" * 6 + "l" + "i" * 9 + "i" + "p")
+                         "p" * 6 + "l" + "i" * 9 + "p")
     p = _build.ptr
     rc = fn(p(pts), p(extra), p(wblob), p(bblob), p(meta), p(out), P, PW,
-            *ints, int(dtype == torch.bfloat16), _build.stream_ptr(pts.device))
+            *ints, _build.stream_ptr(pts.device))
     _build.check(rc, "nerf_mlp_forward_fused")
     nerf_mlp_forward_fused.launches += 1
     return out

@@ -1,8 +1,10 @@
-"""Times the bf16 backward kernels on the tensor cores (the level backward
-K2, K6, K8, K12 and the deformation nets' K3, K14, per call) and the train
-steps that run them, for one tree of the port, on the card:
+"""Times the bf16 kernels on the tensor cores (the level backward K2, K6,
+K8, K12, the deformation nets' K3, K14 and the NeRF field's forwards K7,
+K11, per call), the train steps and the frames that run them, for one tree
+of the port, on the card:
 
     python sahs_tpu_torch/tools/level_ab.py --tree <root of a checkout>
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --fields-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -21,14 +23,23 @@ addend g2) and K14 on the warp and on the hyper net at a step's fine level
 each beside its library call in the same run (autograd of the module under
 bf16 autocast, which the port never calls), its TFLOP/s and its share of
 the bound (operations at 989 TFLOP/s); the minimum over 3 rounds of the
-mean of 3 calls, CUDA events. Steps (``train/trace_step.py``'s PATHS and
-``build_step``, from this checkout, run on the tree's code): the flagship
-fused step, fallback path 1 (fused_grads off), the reuse path
-(fuse_composite off too), the per-point step (``pointwise``, 64 + 128) and
-the warp-only and ambient-only steps, each 2 warm-up steps and then the
-mean of 5, CUDA events. Prints one JSON line: the tree, the card's name
-and power limit, and the readings (ms; TFLOP/s and the bound's share for
-K3 and K14).
+mean of 3 calls, CUDA events. K7 at a step's fine (2048 x 128) and coarse
+(x 64) level, K11 at the per-point step's 393,216 points and at the
+per-point frame's fine chunk (32,768 rays x 192 = 6,291,456 points), on
+the flagship's seeded coarse level, each beside its library call (the
+module's forward under bf16 autocast), TFLOP/s and share of the bound.
+Steps (``train/trace_step.py``'s PATHS and ``build_step``, from this
+checkout, run on the tree's code): the flagship fused step, fallback path
+1 (fused_grads off), the reuse path (fuse_composite off too), the
+per-point step (``pointwise``, 64 + 128) and the warp-only and
+ambient-only steps, each 2 warm-up steps and then the mean of 5, CUDA
+events. Frames: the 512x512 per-point frame (64 + 128, through
+``make_eval_renderer``) and one 32,768-ray chunk of the reuse path's frame
+(``render_rays_chunked`` with fuse_composite off), each one warm-up and the
+minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone (to
+compare two builds of their kernel). Prints one JSON line: the tree, the
+card's name and power limit, and the readings (ms; TFLOP/s and the bound's
+share for K3, K14, K7 and K11).
 """
 from __future__ import annotations
 
@@ -92,6 +103,7 @@ def _kernel_times(dev, reps: int = 3) -> dict:
 
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 tensor cores
+PEAK_BYTES = 3.35e12       # its HBM3
 
 
 def _net_macs(trunk, out) -> int:
@@ -166,6 +178,121 @@ def _deform_times(dev, reps: int = 3) -> dict:
     return out
 
 
+def _field_times(dev, reps: int = 3) -> dict:
+    """K7 and K11 per call, each beside its library call, TFLOP/s and the
+    share of its bound."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry, interp_corners, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(2)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    cond = g(rng.randn(76 + 36) * 0.5)
+    driving, pose = cond[:76], cond[76:]
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    level = k5.prepare_level(model.coarse, pose, pts_g, dir_g)
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    grid = (32, 32, 32)
+    best = lambda fn: cuda_ms(fn, reps, runs=3)
+    mats = ([p["w"] for p in level.trunk] + [level.feat["w"], level.alpha["w"],
+            level.dir0_feat, level.dir0_se] + [p["w"] for p in level.dir_rest]
+            + [level.rgb["w"]] + [p["w"] for p in level.seg] + [level.seg_out["w"]])
+    macs = sum(m.numel() for m in mats)       # a point, the direction term aside
+    dmacs = level.dir0_dir.numel()
+
+    def library(x, dpe, se):
+        def run():
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                return model.coarse(x, dpe, driving=driving, pose=pose,
+                                    spatial_embedding=se)
+        return run
+
+    def row(ms, lib_ms, flops, nbytes):
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        return {"ms": ms, "library_ms": lib_ms, "tflops": flops / (ms / 1e3) / 1e12,
+                "bound_ms": bound, "bound_share": bound / ms}
+
+    out = {}
+    R = 2048
+    for S, name in ((128, "fine"), (64, "coarse")):
+        P = R * S
+        pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                rng.uniform(-1, 1, (P, 2))], 1))
+        dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+        rows, fs, ok = _cell_geometry(pts, grid)
+        lib = library(kernel_pe(pts, level.pts_groups),
+                      kernel_pe(dirs, level.dir_groups).repeat_interleave(S, dim=0),
+                      interp_corners(table[rows], fs, ok))
+        out[f"K7 {name}"] = row(
+            best(lambda: k5.nerf_rayd_forward(pts, dirs, table, rows, level,
+                                              "bfloat16", grid)),
+            best(lib), 2 * (macs * P + dmacs * R),
+            P * 6 * 4 + R * 3 * 4 + table.numel() * 2 + P * 16 * 4)
+        del pts, rows, fs, ok, lib
+    for P, name in ((R * 192, "step"), (32768 * 192, "frame chunk")):
+        pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                rng.uniform(-1, 1, (P, 2))], 1))
+        extra = g(np.concatenate([rng.randn(P, 3) * 0.1 + [0, 0, -1],
+                                  rng.randn(P, 32) * 0.3], 1))
+        lib = library(kernel_pe(pts, level.pts_groups),
+                      kernel_pe(extra[:, :3], level.dir_groups), extra[:, 3:])
+        out[f"K11 {name}"] = row(
+            best(lambda: k11.nerf_mlp_forward_fused(pts, extra, level, "bfloat16")),
+            best(lib), 2 * (macs + dmacs) * P, P * (5 + 35 + 16) * 4)
+        del pts, extra, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def _frame_times(dev) -> dict:
+    """The per-point frame (512x512, 64 + 128) and one 32,768-ray chunk of
+    the reuse path's frame, ms on the card."""
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.evaluation import make_eval_renderer
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.rays import get_ray_bundle
+    from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays_chunked
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    cfg = Config()
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512,
+                              near=near, far=far)
+    item = ds[0]
+    cfg.nerf.validation.num_fine = 128
+    render = make_eval_renderer(spec, RenderSettings.from_config(cfg, "validation"),
+                                512, 512, near, far, device=dev)
+    out = {"per-point frame": cuda_ms(lambda: render(
+        model, item["intrinsics"], item["pose"], item["driving"], ds.background()),
+        1, runs=2)}
+    cfg = Config()
+    cfg.runtime.fused_grads = False
+    cfg.runtime.fuse_composite = False
+    s = RenderSettings.from_config(cfg, "validation")
+    t = lambda k: torch.as_tensor(item[k]).to(dev)
+    ro, rd = get_ray_bundle(512, 512, t("intrinsics"), t("pose"))
+    ro, rd = ro.reshape(-1, 3)[:32768], rd.reshape(-1, 3)[:32768]
+    bg = torch.as_tensor(ds.background()).to(dev).reshape(-1, 15)[:32768]
+    out["reuse frame chunk"] = cuda_ms(lambda: render_rays_chunked(
+        model, s, ro, rd, near, far, t("driving"), t("pose"), background_prior=bg,
+        chunksize=32768), 1, runs=2)
+    return out
+
+
 def _trace_step():
     """This checkout's ``train/trace_step.py`` (PATHS and ``build_step``)
     bound to the ``sahs_tpu_torch`` imported from the tree under test: every
@@ -201,6 +328,8 @@ def _step_times(dev, n_steps: int = 5) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=_HERE)
+    ap.add_argument("--fields-only", action="store_true",
+                    help="time K7 and K11 alone")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -212,8 +341,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     res = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(sahs_tpu_torch.__file__))),
            "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}",
-           "kernels_ms": _kernel_times(dev), "deform_nets": _deform_times(dev),
-           "steps_ms": _step_times(dev)}
+           "fields": _field_times(dev)}
+    if not args.fields_only:
+        res.update(kernels_ms=_kernel_times(dev), deform_nets=_deform_times(dev),
+                   steps_ms=_step_times(dev), frames_ms=_frame_times(dev))
     print(json.dumps(res), flush=True)
     return 0
 

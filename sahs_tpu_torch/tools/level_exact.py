@@ -78,9 +78,11 @@ def exact_sums(round_operands: bool = True):
     products' operands rounded to the compute dtype first (as always) or,
     with ``round_operands`` False, not rounded at all (a float64 run). The
     PE backward takes float32 (its cosines are the kernels'), in the level
-    backward's and in K14's plain version. A product on other operands than
-    float64 raises."""
+    backward's and in K14's plain version, and so does the cell geometry of
+    the corner sample (the kernels' cells and fractions, also on a cell's
+    face). A product on other operands than float64 raises."""
     round_to, pe_backward = field_mlp.round_to, field_mlp.pe_backward
+    cell_geometry = k5._cell_geometry
 
     def exact_round_to(x, dtype):
         keep = dtype == torch.float32 or not round_operands
@@ -91,12 +93,14 @@ def exact_sums(round_operands: bool = True):
 
     field_mlp.round_to = exact_round_to
     k2.pe_backward = k13.pe_backward = exact_pe_backward
+    k5._cell_geometry = lambda coords, dims: cell_geometry(coords.float(), dims)
     try:
         with _Float64Products():
             yield
     finally:
         field_mlp.round_to = round_to
         k2.pe_backward = k13.pe_backward = pe_backward
+        k5._cell_geometry = cell_geometry
 
 
 def _map(x, fn):
@@ -121,8 +125,9 @@ def _f64(x):
 
 def exact_plain(plain, *args):
     """``plain`` (the plain version of a backward kernel: K2, K6, K8, K12,
-    K3 or K14) on ``args`` with exact sums; its float tensors and weights
-    in float64, results in float64."""
+    K3 or K14, or of a forward: K7 ``nerf_raw_plain``, K11
+    ``nerf_mlp_plain``) on ``args`` with exact sums; its float tensors and
+    weights in float64, results in float64."""
     with exact_sums():
         return plain(*[_f64(a) for a in args])
 

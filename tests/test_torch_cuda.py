@@ -4,7 +4,9 @@ K2 (level train), K3 (pair backward), K4 (dGrid), K6 (level backward), K7
 (the grid sample's backward), K11 (the per-point field), K12 (its
 backward), K13 (one deformation MLP), K14 (its backward), K15 (the
 sample positions), the grid-free forms of K1, K2, K5-K8, K11 and K12, and
-the tools' experiment kernels X1-X6 against their plain versions, the
+the tools' experiment kernels X1-X6 against their plain versions (the
+kernels on the tensor cores in bf16, the backwards K2, K3, K6, K8, K12,
+K14 and the forwards K7, K11, also against exact sums), the
 kernel path of
 render_rays against the plain path, train steps (fused, the autograd
 fallback on both of its paths, the per-point branch, the plain path, the
@@ -101,14 +103,38 @@ def _scaled(a, b):
 PLAIN_MULTIPLE = 4.0
 PLAIN_FLOOR = 1e-3
 
+# The forwards K7 and K11 keep the multiple in each output group of their
+# raw field [rgb3 | seg12 | sigma1], each against its own scale, with a
+# floor of their own: the plain forwards sit 4.1e-5-5.0e-5 from exact sums
+# over the whole field on the card, so PLAIN_FLOOR would pass a kernel 100
+# times as far, and one that leaves 16 rows of trunk[1] out moves the field
+# by ~6 times the plain version's distance.
+FIELD_GROUPS = (("rgb", 0, 3), ("seg", 3, 15), ("sigma", 15, 16))
+FIELD_FLOOR = 1e-5
+
+
+def _field_scaled(a, b):
+    """The worst group of raw (P, 16) ``a`` against ``b``: max |a - b| /
+    max |b| within the group."""
+    return max(_scaled(a[:, i:j], b[:, i:j]) for _, i, j in FIELD_GROUPS)
+
+
+def _field_exact(k, p, x):
+    """(kernel keeps the rule in every group, {group: (d_k, d_p)}): the
+    L2-relative distances of raw fields ``k`` and ``p`` to exact sums ``x``."""
+    d = {g: (point_errors(k[:, i:j], x[:, i:j])["l2_rel"],
+             point_errors(p[:, i:j], x[:, i:j])["l2_rel"]) for g, i, j in FIELD_GROUPS}
+    return all(dk <= PLAIN_MULTIPLE * max(dp, FIELD_FLOOR) for dk, dp in d.values()), d
+
 
 def _without_sigma_head(tree):
     return {k: v for k, v in tree.items() if k != "fc_alpha"}
 
 
 def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
-    """The reference of a backward kernel on the tensor cores in bf16 (K2,
-    K6, K8, K12; K3, K14): its plain version. In bfloat16 the plain version
+    """The reference of a kernel on the tensor cores in bf16 (the backwards
+    K2, K6, K8, K12; K3, K14; the forwards K7, K11): its plain version. In
+    bfloat16 the plain version
     with exact sums (``tools/level_exact.exact_plain``: the same bf16
     operands, float64 sums): the tensor-core kernels (csrc/mma.cuh,
     csrc/skip_tc.cuh) sum the same bf16 products in another order than the
@@ -125,10 +151,14 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
         # K2's composited colours and weights are forward outputs
         first = 2 if plain is k2.nerf_level_train_plain else 0
         out_p = plain(*args)
-        # K3 returns its gradient tree alone
-        outs = lambda o: (o,) if isinstance(o, dict) else o
+        # K3 returns its gradient tree alone, K7 and K11 their raw field
+        outs = lambda o: (o,) if isinstance(o, (dict, torch.Tensor)) else o
         for i, (k, p, x) in enumerate(zip(outs(out_k), outs(out_p), outs(ref))):
             if i < first or k is None:
+                continue
+            if plain in (k5.nerf_raw_plain, k11.nerf_mlp_plain):
+                ok, d = _field_exact(k, p, x)
+                assert ok, (plain.__name__, d)
                 continue
             if isinstance(x, dict):
                 if skip_sigma:
@@ -1493,3 +1523,179 @@ def _tree_sub(a, b):
     if isinstance(a, (list, tuple)):
         return [_tree_sub(x, y) for x, y in zip(a, b)]
     return a - b
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forwards K7 and K11 on the tensor cores (field_tc_kernel of
+# csrc/level_train.cu): the raw field against the plain version within the
+# bf16 gate of each output group's scale, and against exact sums within
+# PLAIN_MULTIPLE of the plain version's own distance in each group
+# (_field_exact); the grid and grid-free levels, K7 at
+# both levels' sample counts, K11 at a P that is not a multiple of the
+# 64-point tile, with and without ambient coordinates.
+# ---------------------------------------------------------------------------
+
+FIELD_GATE = 2e-2   # the bf16 gate of PARITY_TPU.json, of each group's scale
+
+
+@pytest.fixture(scope="module")
+def no_ambient(card):
+    """The flagship without ambient coordinates (models.hyper.use_ambient
+    off: the packed point is the warped xyz alone, the trunk's input 63
+    wide), its coarse level seeded as ``card``'s, and its corner table."""
+    dev = card[0]
+    cfg = Config()
+    cfg.models.hyper.use_ambient = False
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    with torch.no_grad():
+        model.coarse.fc_alpha.bias.fill_(0.5)
+        model.coarse.fc_rgb.weight.mul_(100.0)
+    cond = _gpu(dev, np.random.RandomState(12).randn(36) * 0.5)
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    level = k5.prepare_level(model.coarse, cond, pts_g, dir_g)
+    assert level.trunk[0]["w"].shape[0] == 63
+    return level, pack_corner_table(model.spatial_embeddings.detach(),
+                                    dtype=torch.bfloat16)
+
+
+def _field_case(card, grid_free, no_ambient, kernel, grid, ambient, n, seed):
+    """(wrapper, plain version, arguments) of bf16 K7 (96 rays x n samples)
+    or K11 (n points) on the grid, grid-free or ambient-free level."""
+    dev, model, _, level, _ = card
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    if not grid:
+        level, table = grid_free[2], None
+    elif not ambient:
+        level, table = no_ambient
+    rng = np.random.RandomState(seed)
+    R = 96 if kernel == "K7" else n
+    P = R * n if kernel == "K7" else n
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                    rng.uniform(-1, 1, (P, 2 if ambient else 0))], 1))
+    dirs = _gpu(dev, rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    if kernel == "K7":
+        rows = _cell_geometry(pts, GRID)[0] if grid else None
+        return (k5.nerf_rayd_forward, k5.nerf_raw_plain,
+                (pts, dirs, table, rows, level, "bfloat16", GRID if grid else None))
+    C = level.dir0_se.shape[0]
+    extra = torch.cat([dirs, _gpu(dev, rng.randn(P, C) * 0.3)], 1)
+    return k11.nerf_mlp_forward_fused, k11.nerf_mlp_plain, (pts, extra, level, "bfloat16")
+
+
+FIELD_CASES = [("K7", True, True, 64), ("K7", True, True, 128),
+               ("K7", False, True, 64), ("K7", False, True, 128),
+               ("K7", True, False, 128), ("K11", True, True, 1000),
+               ("K11", False, True, 1000), ("K11", True, False, 4607)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,grid,ambient,n", FIELD_CASES)
+def test_tensor_core_field_kernels_match_plain(card, grid_free, no_ambient, kernel,
+                                               grid, ambient, n):
+    """bf16 K7 and K11 on the tensor cores against the plain version (the
+    bf16 gate of each output group's scale) and against exact sums (at most
+    PLAIN_MULTIPLE times the plain version's distance in each group), one
+    launch each."""
+    fk, fp, args = _field_case(card, grid_free, no_ambient, kernel, grid, ambient,
+                               n, seed=n)
+    before = fk.launches
+    raw_k = fk(*args)
+    ref = _plain_ref(fp, *args, out_k=raw_k)
+    raw_p = fp(*args)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1
+    assert raw_k.shape == raw_p.shape and torch.isfinite(raw_k).all()
+    assert _field_scaled(raw_k, raw_p) <= FIELD_GATE, _field_scaled(raw_k, raw_p)
+    assert ref.dtype == torch.float64
+
+
+def _field_slice_fault(level, layer: int):
+    """A copy of ``level`` whose bf16 forward blob (``point_blob``, which
+    K7 and K11 read on the tensor cores) leaves out rows 16-31 of layer
+    ``layer``'s weights: one 16-row K-slice of what the ring stages."""
+    faulty = dataclasses.replace(level, _blobs={})
+    w, b, meta = k5.point_blob(faulty, torch.bfloat16)
+    w1, k1_, _, _, n = meta.reshape(-1, 7)[layer, :5].tolist()
+    assert k1_ >= 32
+    w = w.clone()
+    w[w1 + 16 * n:w1 + 32 * n] = 0
+    faulty._blobs[("point", torch.bfloat16)] = (w, b, meta)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", ["trunk[1]", "rgb head"])
+@pytest.mark.parametrize("kernel,grid", [("K7", True), ("K7", False), ("K11", True)])
+def test_tensor_core_field_fault_weight_slice_misses_gate(card, grid_free, no_ambient,
+                                                          kernel, grid, layer):
+    """Rows 16-31 of trunk[1]'s or of the rgb head's weights left out of
+    the forward blob: the raw field must miss the gates its faultless run
+    passes (the plain version's, or exact sums within PLAIN_MULTIPLE of its
+    distance, each in every output group)."""
+    fk, fp, args = _field_case(card, grid_free, no_ambient, kernel, grid, True,
+                               128 if kernel == "K7" else 1000, seed=21)
+    raw_p, raw_k = fp(*args), fk(*args)
+    raw_x = _plain_ref(fp, *args, out_k=raw_k)
+    assert _field_scaled(raw_k, raw_p) <= FIELD_GATE
+    li = 4 if kernel == "K7" else 2      # the folded level among the arguments
+    faulty = list(args)
+    index = 1 if layer == "trunk[1]" else len(args[li].trunk) + 6
+    faulty[li] = _field_slice_fault(args[li], index)
+    raw_f = fk(*faulty)
+    torch.cuda.synchronize()
+    ok, d = _field_exact(raw_f, raw_p, raw_x)
+    assert _field_scaled(raw_f, raw_p) > FIELD_GATE or not ok, (
+        _field_scaled(raw_f, raw_p), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K7", "K11"])
+def test_tensor_core_field_mask_keeps_the_last_tile(card, grid_free, no_ambient, kernel):
+    """P not a multiple of the 64-point tile (K7 at 37 rays x 63, K11 at
+    1000 points): the kernel writes raw (P, 16) into the first P rows of a
+    buffer and nothing past them (the guard rows stay NaN). The guard must
+    see the launch that a kernel without its store mask makes: the same
+    kernel told the tile's end as P, which writes the last tile's rows
+    past P. That plants nothing in the kernel and tests the store mask
+    alone; loads past P are not tested (the inputs are views of longer
+    tensors)."""
+    dev = card[0]
+    if kernel == "K7":
+        R, S = 37, 63
+        _, fp, args = _field_case(card, grid_free, no_ambient, "K7", True, True, S,
+                                  seed=31)
+        pts, dirs, table, rows, level = args[:5]
+        n_rays = lambda n: -(-n // S)     # rays that cover n points
+
+        def run(n, out):
+            r = n_rays(n)
+            ints = k5.level_kernel_args(pts[:r * S], dirs[:r], table, rows[:r * S],
+                                        level, "bfloat16", GRID, "K7")[4]
+            k5.nerf_field_tc("K7", pts[:r * S], level, r, S, ints, dirs=dirs[:r],
+                             table=table, rows=rows[:r * S].to(torch.int32),
+                             out=out[:r * S])
+        P = R * S
+        raw_p = fp(pts[:P], dirs[:R], table, rows[:P], level, "bfloat16", GRID)
+    else:
+        P = 1000
+        _, fp, args = _field_case(card, grid_free, no_ambient, "K11", True, True,
+                                  1024, seed=32)
+        pts, extra, level = args[:3]
+
+        def run(n, out):
+            ints = k11.point_kernel_args(pts[:n], extra[:n], level, "K11")[2]
+            k5.nerf_field_tc("K11", pts[:n], level, n, 1, ints, extra=extra[:n],
+                             out=out[:n])
+        raw_p = fp(pts[:P], extra[:P], level, "bfloat16")
+    n_pad = -(-P // 64) * 64
+    guard_ok = lambda buf: bool(torch.isnan(buf[P:]).all())
+    buf = torch.full((n_pad + 128, 16), float("nan"), device=dev)
+    run(P, buf)
+    torch.cuda.synchronize()
+    assert guard_ok(buf), "the kernel wrote past the last point"
+    assert _field_scaled(buf[:P], raw_p) <= FIELD_GATE
+    bad = torch.full((n_pad + 128, 16), float("nan"), device=dev)
+    run(n_pad, bad)
+    torch.cuda.synchronize()
+    assert not guard_ok(bad)

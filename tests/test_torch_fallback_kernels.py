@@ -272,6 +272,39 @@ def test_nerf_rayd_plain_matches_pallas(flagship, monkeypatch):
     assert_grads_close(grads_t, grads_j)
 
 
+BF16_OUT = 2e-2   # the bf16 gate of PARITY_TPU.json, of the output's scale
+
+
+def test_nerf_rayd_plain_matches_pallas_bfloat16(flagship, monkeypatch):
+    """K7's plain version in bfloat16 (the reference of the tensor-core K7
+    on the card) vs nerf_rayd_forward in bfloat16: the corner table and
+    every product's operands in bf16 on both sides, float32 sums in another
+    order, so the raw field agrees within the bf16 gate of its scale."""
+    spec, params, model = flagship
+    monkeypatch.setattr(jfm, "_PE_SPLIT_DOT", False)
+    rng = np.random.RandomState(6)
+    R, S = 16, 16
+    pts, dirs, _, _, _, cond = _level_inputs(rng, R, S, False, False)
+    _, pts_pe, dir_pe = jn.build_pe_specs(spec)
+    grid = params["spatial_embeddings"]
+    kspec, hidden = jfg._grid_spec(8, 3, pts_pe.raw_out, S, "bfloat16",
+                                   dir_pe.raw_out, grid.shape, params["coarse"])
+    p2 = jfg._fold(params["coarse"], jnp.asarray(cond), pts_pe.raw_out, 3, hidden)
+    corners = jfg.gather_corners(grid, jnp.asarray(pts), "bfloat16")
+    raw_j = np.asarray(jfm.nerf_rayd_forward(kspec, jnp.asarray(pts),
+                                             jnp.asarray(dirs), corners, p2,
+                                             pts_pe, dir_pe), np.float32)
+    lvl, _, rows = _port_level(model, cond, pts)
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    before = k57.nerf_rayd_forward.launches
+    raw_t = k57.nerf_rayd_forward(_t(pts), _t(dirs), table, rows, lvl,
+                                  "bfloat16", GRID)
+    assert k57.nerf_rayd_forward.launches == before   # CPU: the plain version
+    assert raw_t.shape == (R * S, 16) and torch.isfinite(raw_t).all()
+    np.testing.assert_allclose(_n(raw_t), raw_j,
+                               atol=BF16_OUT * float(np.abs(raw_j).max()))
+
+
 def test_grid_dg_coords_plain_matches_pallas_and_xla():
     """K9's plain version vs grid_dg_slab and the XLA _grid_cotangent, on
     sample-major points inside the grid, on cell faces, on the grid's faces

@@ -7,7 +7,9 @@ levels the card tests hold K2 on without a background.
       and without the grid, and of the deformation nets' (K3, and K14 on
       the warp and the hyper net, the points' cotangent asked for), comes
       out in float64 and stays within bf16 rounding of the plain version
-      itself;
+      itself; so does the raw field of the two forwards' (K7
+      ``nerf_raw_plain``, K11 ``nerf_mlp_plain``), which in float32 agrees
+      with their float32 run to float32 rounding;
   (b) a product whose operands bypass ``field_mlp.round_to`` raises
       inside ``exact_sums`` instead of summing in float32 unseen, and the
       patched functions are restored afterwards;
@@ -25,6 +27,8 @@ from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
 from sahs_tpu_torch.ops.kernels import deform_pair as k1
 from sahs_tpu_torch.ops.kernels import field_mlp
 from sahs_tpu_torch.ops.kernels import level_train as k2
+from sahs_tpu_torch.ops.kernels import nerf_level as k5
+from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
 from sahs_tpu_torch.ops.kernels import skip_mlp as k13
 from sahs_tpu_torch.tools import level_exact, sigma_head
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
@@ -70,6 +74,8 @@ def _inputs(levels, grid):
                                                  "bfloat16", dims)),
         "K8": (k2.nerf_rayd_vjp_plain, base + (graw, level, "bfloat16", dims)),
         "K12": (k2.nerf_mlp_vjp_plain, (pts, extra, graw, level, "bfloat16")),
+        "K7": (k5.nerf_raw_plain, base + (level, "bfloat16", dims)),
+        "K11": (k11.nerf_mlp_plain, (pts, extra, level, "bfloat16")),
     }
 
 
@@ -89,6 +95,32 @@ def test_exact_plain_sums_every_product_in_float64(levels, grid, kernel):
         elif p is not None:
             assert x.dtype == torch.float64
             assert point_errors(x, p)["l2_rel"] <= 5e-2
+
+
+# float32 sums against float64 ones over the flagship's widths: a few
+# float32 ulps of each raw value
+F32_VS_F64 = 1e-6
+
+
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("kernel", ["K7", "K11"])
+def test_exact_plain_runs_the_forwards_in_float64(levels, grid, kernel):
+    """The reference of the tensor-core K7 and K11 on the card: the raw
+    field comes out in float64, within bf16 rounding of the plain version
+    in bfloat16, and in float32 (no operand rounded) within F32_VS_F64 of
+    the plain version's float32 run."""
+    plain, args = _inputs(levels, grid)[kernel]
+    out_x, out_p = level_exact.exact_plain(plain, *args), plain(*args)
+    assert out_x.dtype == torch.float64 and out_p.dtype == torch.float32
+    assert out_x.shape == out_p.shape == (R * S, 16)
+    assert point_errors(out_x, out_p)["l2_rel"] <= 5e-2
+    f32 = tuple("float32" if isinstance(a, str) else a for a in args)
+    out_x, out_p = level_exact.exact_plain(plain, *f32), plain(*f32)
+    assert out_x.dtype == torch.float64
+    e = point_errors(out_x, out_p)
+    assert e["l2_rel"] <= F32_VS_F64 and e["cosine"] >= 1 - 1e-9, e
+    assert field_mlp.round_to(torch.ones(2), torch.bfloat16).dtype == torch.float32
+    assert k5._cell_geometry is _cell_geometry
 
 
 def _deform_inputs(kernel):

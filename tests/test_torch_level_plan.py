@@ -12,7 +12,9 @@ kernels), on the CPU:
       (and in bf16 on a 128-byte row);
   (c) every (k, n) of every dW product, bias rows included, falls in
       exactly one work item of the split-K reduction;
-  (d) the tile sizes agree with the CUDA sources, in both dtypes.
+  (d) the tile sizes agree with the CUDA sources, in both dtypes;
+  (e) the bf16 forward-only kernel (K7, K11) takes mma.cuh's tile and
+      block, and its shared memory leaves room for two blocks an SM.
 """
 import os
 import re
@@ -231,3 +233,63 @@ def _plans_differ_only_by_tile(models, kind):
     q32[:, [0, 2]] *= 2
     assert torch.equal(q32, q64)
     assert p64.descs == p32.descs and p64.out_len == p32.out_len
+
+
+def _cu_text(path):
+    with open(os.path.join(CSRC, path)) as fp:
+        return fp.read()
+
+
+# an H100 SM's shared memory for blocks (228 KB) and what the runtime
+# reserves per block (1 KB); a block's dynamic shared memory is at most 227 KB
+SM_SMEM, BLOCK_RESERVED, BLOCK_MAX = 233472, 1024, 232448
+
+
+def _field_smem_bytes(kx, n_din, hidden, branch):
+    """level_train.cu's TcLayout(a, FIELD_KS).fwd, from the sources'
+    constants: the PE tile (the f32 heads after the trunk), the [pe(dir) |
+    se] tile, two activation tiles of max(H, 2B) rows and the two-slice
+    weight ring (mma.cuh:ring_bytes)."""
+    tp, ks = _cu_const("mma.cuh", "TC_TP"), _cu_const("level_train.cu", "FIELD_KS")
+    mma = _cu_text("mma.cuh")
+    assert "constexpr int TC_LD = TC_TP + 8;" in mma
+    assert "constexpr int TC_LDF = TC_TP + 4;" in mma
+    assert "return 2 * ks * (nmax + 8) * 2;" in mma
+    padk = lambda n: -(-n // ks) * ks
+    row, rowf, rh = (tp + 8) * 2, (tp + 4) * 4, max(hidden, 2 * branch)
+    return (max(padk(kx) * row, 32 * rowf) + padk(n_din) * row + 2 * rh * row
+            + 2 * ks * (max(hidden, branch) + 8) * 2)
+
+
+@pytest.mark.parametrize("kind", ["grid", "grid_free", "no_ambient"])
+def test_field_kernel_layout_matches_the_cuda_source(models, kind):
+    """The bf16 forward-only kernel (``level_train.cu:field_tc_kernel``,
+    K7 and K11): the bf16 tile of the Python side, mma.cuh's 256-thread
+    block, launch bounds that ask for two blocks an SM, and shared memory
+    (TcLayout's forward at FIELD_KS) that leaves room for two blocks an SM
+    at the flagship's widths and without the grid or the ambient
+    coordinates."""
+    assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
+    assert _cu_const("mma.cuh", "TC_THREADS") == 256
+    src = _cu_text("level_train.cu")
+    assert re.search(r"__launch_bounds__\(sahs::TC_THREADS, 2\) field_tc_kernel", src)
+    assert "fwd_tile<false, FIELD_KS>(a, smem_raw)" in src
+    assert "const TcLayout ly(a, FIELD_KS);" in src
+    lvl = _level(_model_without_ambient() if kind == "no_ambient" else models[kind])
+    kx = lvl.trunk[0]["w"].shape[0]
+    n_din = lvl.dir0_dir.shape[0] + lvl.dir0_se.shape[0]
+    hidden, branch = lvl.trunk[0]["w"].shape[1], lvl.dir0_b.shape[0]
+    smem = _field_smem_bytes(kx, n_din, hidden, branch)
+    assert smem % 16 == 0 and smem <= BLOCK_MAX
+    assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
+    if kind == "grid":
+        # the flagship: the stash kernel's forward layout, 16-row slices
+        assert (kx, n_din, hidden, branch) == (81, 59, 256, 128)
+        assert smem == 113664
+
+
+def _model_without_ambient():
+    cfg = Config()
+    cfg.models.hyper.use_ambient = False
+    spec = nerface.ModelSpec.from_config(cfg)
+    return nerface.NeRFaceModel.init(spec, seed=0, device="cpu")

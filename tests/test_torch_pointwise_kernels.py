@@ -316,6 +316,37 @@ def test_nerf_mlp_kernels_plain_match_pallas(flagship, monkeypatch):
     _check_leaf("gextra", ge_t, ge_j, "float32")
 
 
+@pytest.mark.parametrize("P", [200, 64 * 3])
+def test_nerf_mlp_forward_plain_matches_pallas_bfloat16(flagship, monkeypatch, P):
+    """K11's plain version in bfloat16 (the reference of the tensor-core
+    K11 on the card) against nerf_mlp_forward_fused in bfloat16, at a P
+    that is not a multiple of the 64-point tile and at one that is: every
+    product's operands rounded to bf16 on both sides, float32 sums in
+    another order, so the raw field agrees within BF16_OUT of its scale."""
+    spec, params, model = flagship
+    monkeypatch.setattr(jfm, "_PE_SPLIT_DOT", False)
+    rng = np.random.RandomState(4)
+    pts, extra, cond = _point_inputs(rng, P)
+    _, pts_pe, _ = jn.build_pe_specs(spec)
+    epe = _extra_pe(spec)
+    kspec, hidden = jfm._nerf_spec_of(8, 3, pts_pe.raw_out, epe.raw_out,
+                                      "bfloat16", params["fine"])
+    trunk = jfm.fold_conditioning(params["fine"]["trunk"], jnp.asarray(cond),
+                                  pts_pe.raw_out)
+    p2 = dict(params["fine"], trunk=jfm.fold_skip_conditioning(
+        hidden, trunk, 3, jnp.asarray(cond), pts_pe.raw_out))
+    raw_j = np.asarray(jfm.nerf_mlp_forward_fused(
+        kspec, jnp.asarray(pts), jnp.asarray(extra), p2, pts_pe, epe), np.float32)
+    _, pts_g, dir_g = tn.build_pe_groups(model.spec)
+    lvl = k57.prepare_level(model.fine, _t(cond), pts_g, dir_g)
+    before = k11.nerf_mlp_forward_fused.launches
+    raw_t = k11.nerf_mlp_forward_fused(_t(pts), _t(extra), lvl, "bfloat16")
+    assert k11.nerf_mlp_forward_fused.launches == before   # CPU: the plain version
+    assert raw_t.shape == (P, 16) and torch.isfinite(raw_t).all()
+    np.testing.assert_allclose(_n(raw_t), raw_j,
+                               atol=BF16_OUT * float(np.abs(raw_j).max()))
+
+
 def test_point_kernel_wrappers_refuse_bad_shapes(flagship):
     """A CUDA call with an extra input of the wrong width, or on a device
     other than the CPU and CUDA, raises before any launch."""
