@@ -130,9 +130,12 @@ Phases, in order (any failure exits non-zero and prints no result):
      cotangent off at no more than 4 points, where a ReLU flips, and with
      those points' cotangent set to zero, its dW under TRAIN_F32_GATES
      and the rest of the points' cotangent within K14_GX_F32) and
-     bfloat16 at 2048 (2e-2 of scale; TRAIN_BF16_GATES); K15 bit for bit
+     bfloat16 at 2048 (2e-2 of scale; TRAIN_BF16_GATES; bf16 K13, on the
+     tensor cores, also within EXACT_MULTIPLE of the plain version's
+     distance to exact sums, floor SKIP_FLOOR); K15 bit for bit
      against the expression at both levels of the fused step; faults
-     planted (K13 without its head bias, K14's bias gradient dropped,
+     planted (K13 without its head bias and, in bf16, with rows 32-63 of
+     trunk[1]'s weights left out of its blob, K14's bias gradient dropped,
      K14's first split-K chunk of 64-point tiles dropped, rows 16-31 of
      trunk[1]'s weights left out of bf16 K14, which runs on the tensor
      cores, one of K15's coordinates one ulp over) must each miss; whole
@@ -148,7 +151,9 @@ Phases, in order (any failure exits non-zero and prints no result):
      K13 at the frame's fine chunk (held against its plain version there),
      K14 at a step's fine level (warp and hyper net, with the TFLOP/s
      reached) and K15 at the fused step's, beside their plain versions,
-     the library yardsticks and the bounds;
+     the library yardsticks and the bounds; K15 with three readings each
+     beside torch.addcmul's: device time (torch.profiler, its "ms"),
+     per-call time (CUDA events) and the host's time;
  13. grid-free parity: the flagship with models.coarse.use_spatial_embeddings
      off (view directions, no grid) on the kernel path: K1 without rows,
      K2, K5, K6, K7, K8, K11 and K12 with C = 0, each held against its plain
@@ -1284,6 +1289,10 @@ FIELD_GROUPS = (("rgb", 0, 3), ("seg", 3, 15), ("sigma", 15, 16))
 # leaves 16 rows of trunk[1] out moves the field by ~6 times the plain
 # version's distance.
 EXACT_MULTIPLE, FIELD_FLOOR = 4.0, 1e-5
+# bf16 K13 on the tensor cores keeps the same multiple on its output (P,
+# out), with a floor of its own below the plain forward's distance to
+# exact sums (as tests/test_torch_cuda.py:SKIP_FLOOR)
+SKIP_FLOOR = 1e-5
 
 
 def field_scaled(a, b) -> float:
@@ -1529,6 +1538,19 @@ def skip_inputs(dev, batch, kind, R, compute_dtype, n_pix, seed):
             "k14": fine(calls["skip_mlp_vjp"])}
 
 
+def skip_exact(pts, w, y_k, y_p) -> dict:
+    """bf16 K13's output and its plain version's, L2-relative from exact
+    sums (tools/level_exact.exact_plain), and whether the kernel keeps the
+    rule (EXACT_MULTIPLE, SKIP_FLOOR)."""
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.tools.level_exact import exact_plain
+    from sahs_tpu_torch.utils.compare import point_errors
+    y_x = exact_plain(k13.skip_mlp_plain, pts, w, "bfloat16")
+    d_k, d_p = (point_errors(y, y_x)["l2_rel"] for y in (y_k, y_p))
+    return {"kernel_vs_exact": d_k, "plain_vs_exact": d_p,
+            "ok": d_k <= EXACT_MULTIPLE * max(d_p, SKIP_FLOOR)}
+
+
 def skip_parity(inp):
     """K13 and K14 (dW, and the raw points' cotangent asked for) against
     their plain versions on ``inp``. Returns the errors and the kernels'
@@ -1538,6 +1560,7 @@ def skip_parity(inp):
     from sahs_tpu_torch.utils.compare import leaves, point_errors, tree_errors
     pts, w, cdt = inp["k13"]
     y_k, y_p = k13.skip_mlp_forward(pts, w, cdt), k13.skip_mlp_plain(pts, w, cdt)
+    k13_exact = skip_exact(pts, w, y_k, y_p) if cdt == "bfloat16" else None
     pts, w, g, _, cdt = inp["k14"]
     gx_k, g_k = k13.skip_mlp_vjp(pts, w, g, True, cdt)
     gx_p, g_p = k13.skip_mlp_vjp_plain(pts, w, g, True, cdt)
@@ -1546,7 +1569,8 @@ def skip_parity(inp):
     tol = TRAIN_F32_GATES["point_tol"]
     res = {"points": pts.shape[0], "net": w.out_act,
            "k13": {"abs": abs_err(y_k, y_p), "scaled": scaled_err(y_k, y_p),
-                   "finite": bool(torch.isfinite(y_k).all())},
+                   "finite": bool(torch.isfinite(y_k).all()),
+                   **({"exact": k13_exact} if k13_exact else {})},
            "k14": {"dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
                    "dw_worst_leaf": e["worst_leaf"],
                    "gx": point_errors(gx_k, gx_p, tol),
@@ -1575,7 +1599,9 @@ def skip_parity(inp):
 
 def skip_gates_missed(res, compute_dtype) -> list:
     """Phase 11's gates that ``res`` misses: K13 within 1e-4 absolute in
-    float32 and 2e-2 of its output's scale in bf16. K14 in float32: at
+    float32 and 2e-2 of its output's scale in bf16, and there within
+    EXACT_MULTIPLE of the plain version's distance to exact sums (floor
+    SKIP_FLOOR). K14 in float32: at
     most TRAIN_F32_GATES' flips among the points' cotangents, and on the
     points that did not flip the cotangent within K14_GX_F32 and dW under
     TRAIN_F32_GATES; in bf16 the cotangent within the bf16 point gate and
@@ -1587,6 +1613,8 @@ def skip_gates_missed(res, compute_dtype) -> list:
     if not r13["finite"] or (r13["abs"] > g["out_abs"] if f32
                              else r13["scaled"] > g["out_rel"]):
         missed.append("k13")
+    if not f32 and not r13["exact"]["ok"]:
+        missed.append(f"k13 against exact sums {r13['exact']}")
     gx, dw = r14["gx"], r14
     if f32:
         gx_ok = gx["n_over"] <= g["point_flips"]
@@ -1603,7 +1631,9 @@ def skip_gates_missed(res, compute_dtype) -> list:
 
 def skip_planted_faults(inputs, trees, k15_args) -> dict:
     """What the gates see with a fault planted in the kernels' own bf16
-    results: K13 run without its head bias (warp and hyper nets); K14's
+    results: K13 run without its head bias and with rows 32-63 of
+    trunk[1]'s weights left out of its blob (warp and hyper nets; the plain
+    gate and the exact-sum rule); K14's
     bias gradient of trunk[1] dropped; the points of K14's first split-K
     chunk dropped (64-point tiles; the plain dW over them taken off); rows
     16-31 of trunk[1]'s weights left out of K14's forward; one coordinate
@@ -1621,8 +1651,13 @@ def skip_planted_faults(inputs, trees, k15_args) -> dict:
         no_bias = dataclasses.replace(w, out={"w": w.out["w"],
                                               "b": torch.zeros_like(w.out["b"])},
                                       _blobs={})
-        out[f"k13 {inp['kind']} without the head bias"] = {"raw_scaled": scaled_err(
-            k13.skip_mlp_forward(pts, no_bias, cdt), k13.skip_mlp_plain(pts, w, cdt))}
+        y_p = k13.skip_mlp_plain(pts, w, cdt)
+        for name, faulty in (("without the head bias", no_bias),
+                             ("rows 32-63 of trunk[1] left out",
+                              skip_forward_slice_fault(w))):
+            y_f = k13.skip_mlp_forward(pts, faulty, cdt)
+            out[f"k13 {inp['kind']} {name}"] = {"raw_scaled": scaled_err(y_f, y_p),
+                                                **skip_exact(pts, w, y_f, y_p)}
         pts, w, g, _, cdt = inp["k14"]
         g_p = k13.skip_mlp_vjp_plain(pts, w, g, False, cdt)[1]
         out[f"k14 {inp['kind']} bias trunk[1]"] = tree_errors(
@@ -1640,6 +1675,23 @@ def skip_planted_faults(inputs, trees, k15_args) -> dict:
     out["k15 one coordinate one ulp over"] = {
         "max_abs_err": abs_err(moved, k15.build_pts_plain(*k15_args))}
     return out
+
+
+def skip_forward_slice_fault(w):
+    """A copy of folded weights ``w`` whose bf16 blob (bf16 K13's) leaves
+    out rows 32-63 of trunk[1]'s weights: one 32-row slice of what the
+    tensor-core kernel's ring stages."""
+    import dataclasses
+    import torch
+    faulty = dataclasses.replace(w, _blobs={})
+    wb, b, meta = faulty.blob(torch.bfloat16)
+    w1, k, _, _, n = meta.reshape(-1, 7)[1, :5].tolist()
+    if k < 64:
+        raise ValueError(f"trunk[1] has {k} rows, fewer than 64")
+    wb = wb.clone()
+    wb[w1 + 32 * n:w1 + 64 * n] = 0
+    faulty._blobs[torch.bfloat16] = (wb, b, meta)
+    return faulty
 
 
 def skip_fault_passes(e) -> bool:
@@ -1760,6 +1812,7 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
     from sahs_tpu_torch.ops.kernels import skip_mlp as k13
     from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
     from sahs_tpu_torch.render.pipeline import RenderSettings
+    from sahs_tpu_torch.tools.level_ab import k15_readings
     H, W = ds.H, ds.W
     item = ds[0]
     paths, frame_models = {}, {}
@@ -1860,11 +1913,18 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
     P_z = z.numel()
     b_ms, b_by = bound(2 * 3 * P_z, (P_z + 6 * ro.shape[0] + 3 * P_z) * 4,
                        PEAK_F32_FLOPS)
-    # the library yardstick: one addcmul (its rounding may differ; it is timed)
-    rows["k15"] = {"ms": cuda_time(lambda: k15.build_pts(ro, rd, z), 20),
-                   "plain_ms": cuda_time(lambda: k15.build_pts_plain(ro, rd, z), 20),
-                   "library_ms": cuda_time(lambda: torch.addcmul(
-                       ro[:, None, :], rd[:, None, :], z[..., None]), 20),
+    # device time (torch.profiler), per-call time (CUDA events) and the
+    # host's time, each beside torch.addcmul's (the library yardstick: one
+    # call; its rounding may differ, it is timed only); "ms" is the
+    # device time
+    t = k15_readings(k15, ro, rd, z)
+    rows["k15"] = {"ms": t["kernel"]["device"], "plain_ms": t["plain"]["device"],
+                   "library_ms": t["addcmul"]["device"],
+                   "per_call_ms": t["kernel"]["per_call"],
+                   "host_ms": t["kernel"]["host"],
+                   "library_per_call_ms": t["addcmul"]["per_call"],
+                   "library_host_ms": t["addcmul"]["host"],
+                   "plain_per_call_ms": t["plain"]["per_call"],
                    "bound_ms": b_ms, "bound_by": b_by,
                    "max_abs_err": max(r["max_abs_err"] for r in report["k15_parity"]),
                    "points": P_z}
@@ -1873,9 +1933,14 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
         rate = (f"; {r['tflops_achieved']:.1f} TFLOP/s, "
                 f"{100 * r['bound_ms'] / r['ms']:.2f} % of the bound"
                 if "tflops_achieved" in r else "")
-        print(f"{name}: {r['ms']:.3f} ms at {r['points']} points (bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.3f} ms, "
-              f"library {r['library_ms']:.3f} ms{rate})", flush=True)
+        if name == "k15":
+            rate = (f"; per call {r['per_call_ms']:.4f} ms (addcmul "
+                    f"{r['library_per_call_ms']:.4f}, plain {r['plain_per_call_ms']:.4f}), "
+                    f"host {r['host_ms']:.4f} ms (addcmul {r['library_host_ms']:.4f}); "
+                    "ms, plain and library: device time (torch.profiler)")
+        print(f"{name}: {r['ms']:.4f} ms at {r['points']} points (bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms{rate})", flush=True)
 
     launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
                            + r.get("launches", {}).get(k, 0)) for r in paths.values())
@@ -1904,7 +1969,9 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
                         "replaces": replaces, "launches": launches[key],
                         **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "bound_by", "library_ms")},
-                        "tflops_achieved": line.get("tflops_achieved")})
+                        "tflops_achieved": line.get("tflops_achieved"),
+                        **{k: v for k, v in line.items()
+                           if k.endswith(("per_call_ms", "host_ms"))}})
     return ""
 
 

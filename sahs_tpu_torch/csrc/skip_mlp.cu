@@ -23,32 +23,46 @@
 // Bound on the H100: the warp field is ~98,000 multiply-adds a point in the
 // forward against ~24 bytes moved, so operations bound both kernels: 0.83
 // TFLOP at a 512x512 frame's 4.2 M fine points, ~0.84 ms at the 989
-// TFLOP/s bf16 peak; the backward is about three times the forward. K13
-// runs its layer products on the CUDA cores (mlp.cuh), in both dtypes.
-// K14 in float32 runs skip_vjp_kernel on 32-point tiles with mlp.cuh's
-// SIMT products and train.cuh's dw_kernel; in bf16 skip_vjp_tc_kernel on
-// 64-point tiles, the net on skip_tc.cuh's tensor-core routine, and dW on
-// mma.cuh's level_dw_kernel.
+// TFLOP/s bf16 peak; the backward is about three times the forward.
+//
+// Routes. K13 in float32 runs skip_mlp_kernel (64-point tiles, mlp.cuh's
+// SIMT products); in bf16 skip_fwd_tc_kernel: skip_tc.cuh's trunk
+// (skip_trunk_tc without the stash) and the head on the tensor cores over
+// 64-point tiles, y = act(v + b) in f32 in the head's epilogue, then a
+// coalesced store of the tile's rows below P. Its shared memory is
+// SkipLayout(pe_dim, false, SKIP_FWD_KS): the encoding, two activation
+// tiles and the weight ring, 63,488 B at 32-row slices for either net, so
+// two blocks an SM. ptxas: 104 registers, 32 B stack frame, no spills.
+// Measured on an H100 (PERF.md, tools/level_ab.py): the warp net at a
+// frame's fine chunk (4.19 M points) 8.30-8.38 ms against its 0.835 ms
+// bound, 98-99 TFLOP/s (10 % of the bound; 36.8 ms on the CUDA cores), the
+// hyper net 4.21-4.24 ms, 57 TFLOP/s (its 64-wide products run 16-wide
+// groups a warp); each below its library call. What holds it: the
+// mma.sync products with a barrier pair a staged slice; wgmma is next.
+// K14 in float32 runs skip_vjp_kernel on 32-point tiles
+// with mlp.cuh's SIMT products and train.cuh's dw_kernel; in bf16
+// skip_vjp_tc_kernel on 64-point tiles, the net on skip_tc.cuh's
+// tensor-core routine, and dW on mma.cuh's level_dw_kernel.
 #include "skip_tc.cuh"
 
 namespace {
 
-constexpr int TP = 64;        // points per block of K13
+constexpr int TP = 64;        // points per block of K13 in float32
 constexpr int TP_BWD = 32;    // points per block of K14 in float32
 constexpr int THREADS = 256;
 constexpr int HMAX = 128;     // widest trunk and widest PE (padded) taken
 
-template <typename T>
+// K13 in float32
 __global__ void __launch_bounds__(THREADS)
 skip_mlp_kernel(const float* __restrict__ pts, long long P,
-                const T* __restrict__ wblob, const float* __restrict__ bblob,
+                const float* __restrict__ wblob, const float* __restrict__ bblob,
                 const int* __restrict__ meta, int n_layers, int hid,
                 int out_dim, int n_freq, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int pe_dim = 3 + 6 * n_freq;
-  T* pe = reinterpret_cast<T*>(smem_raw);
-  T* hA = pe + pe_dim * TP;
-  T* hB = hA + hid * TP;
+  float* pe = reinterpret_cast<float*>(smem_raw);
+  float* hA = pe + pe_dim * TP;
+  float* hB = hA + hid * TP;
   float* y = reinterpret_cast<float*>(hB + hid * TP);    // [8][TP]
 
   const long long base = (long long)blockIdx.x * TP;
@@ -59,22 +73,22 @@ skip_mlp_kernel(const float* __restrict__ pts, long long P,
     if (p < P) {
       x[0] = pts[p * 3 + 0]; x[1] = pts[p * 3 + 1]; x[2] = pts[p * 3 + 2];
     }
-    sahs::pe_group<T>(x, 3, n_freq, pe, 0, tid, TP);
+    sahs::pe_group<float>(x, 3, n_freq, pe, 0, tid, TP);
   }
   __syncthreads();
 
-  const T* src = pe;
-  T* dst = hA;
+  const float* src = pe;
+  float* dst = hA;
   for (int l = 0; l < n_layers; ++l) {
     const sahs::LayerDesc d = sahs::load_desc(meta, l);
-    sahs::mlp_layer<T>(d, wblob, bblob, src, d.w2 >= 0 ? pe : nullptr,
-                       nullptr, dst, nullptr, TP);
+    sahs::mlp_layer<float>(d, wblob, bblob, src, d.w2 >= 0 ? pe : nullptr,
+                           nullptr, dst, nullptr, TP);
     __syncthreads();
     src = dst;
     dst = dst == hA ? hB : hA;
   }
-  sahs::mlp_layer<T>(sahs::load_desc(meta, n_layers), wblob, bblob, src,
-                     nullptr, nullptr, nullptr, y, TP);
+  sahs::mlp_layer<float>(sahs::load_desc(meta, n_layers), wblob, bblob, src,
+                         nullptr, nullptr, nullptr, y, TP);
   __syncthreads();
 
   for (int i = tid; i < TP * out_dim; i += blockDim.x) {
@@ -211,18 +225,16 @@ __global__ void __launch_bounds__(THREADS) skip_vjp_kernel(VjpArgs a) {
   }
 }
 
-template <typename T>
-int launch_forward(const float* pts, long long P, const void* w,
+int launch_forward(const float* pts, long long P, const float* w,
                    const float* b, const int* meta, int n_layers, int hid,
                    int out_dim, int n_freq, float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)(3 + 6 * n_freq + 2 * hid) * TP * sizeof(T) +
+  const size_t smem = (size_t)(3 + 6 * n_freq + 2 * hid) * TP * sizeof(float) +
                       8 * TP * sizeof(float);
-  int err = sahs::set_smem(skip_mlp_kernel<T>, smem);
+  int err = sahs::set_smem(skip_mlp_kernel, smem);
   if (err) return err;
   const long long blocks = (P + TP - 1) / TP;
-  skip_mlp_kernel<T><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      pts, P, reinterpret_cast<const T*>(w), b, meta, n_layers, hid, out_dim,
-      n_freq, out);
+  skip_mlp_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      pts, P, w, b, meta, n_layers, hid, out_dim, n_freq, out);
   return (int)cudaGetLastError();
 }
 
@@ -245,13 +257,82 @@ int launch_vjp(const VjpArgs& a, int n_work, int chunks, int out_len,
                             stream);
 }
 
-// ---------------------------------------------------------------------------
-// K14 in bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
-// ---------------------------------------------------------------------------
 using sahs::bf16;
 using sahs::TC_LDF;
 using sahs::TC_TP;
 
+// ---------------------------------------------------------------------------
+// K13 in bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
+// ---------------------------------------------------------------------------
+
+// Rows of a staged weight slice of K13's forward, and its blocks an SM.
+// Measured on an H100 (PERF.md, tools/level_ab.py --skip-only), the warp
+// net at a frame's fine chunk: 32-row slices 8.3 ms, 16-row slices 10.5
+// (91 registers; half as many rows a barrier pair); three blocks an SM
+// 7.95-8.06 ms (hyper 3.7 against 4.2), but ptxas then spills (80
+// registers, 4 B of spill stores, 16 B of loads): two blocks, no spills.
+constexpr int SKIP_FWD_KS = 32;
+constexpr int SKIP_FWD_BLOCKS = 2;
+
+struct FwdArgs {
+  const float* pts;      // (P, 3)
+  const bf16* w;         // forward blob
+  const float* b;
+  const int* meta;
+  float* out;            // (P, out_dim)
+  long long P;
+  int n_layers, n_freq, out_dim;
+};
+
+// One tile: the encoding, the trunk (skip_trunk_tc, no stash), the head
+// with y = act(v + b) in f32 (the SIMT head's expression) to the tile the
+// trunk left free, then the tile's rows below P, out_dim columns, stored
+// as consecutive words.
+template <int KS>
+__global__ void __launch_bounds__(sahs::TC_THREADS, SKIP_FWD_BLOCKS)
+skip_fwd_tc_kernel(FwdArgs a) {
+  static_assert(sahs::SKIP_KS % KS == 0, "the encoding's rows pad to SKIP_KS");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, KS);
+  bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
+  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
+  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
+  const long long base = (long long)blockIdx.x * TC_TP;
+
+  sahs::skip_pe_tile(a.pts, base, a.P, a.n_freq, pe);
+  __syncthreads();
+  const sahs::SkipNet net = {a.meta, 0, nullptr, 0, a.n_layers, 0, 0, nullptr,
+                             nullptr, 0, 0, 0};
+  const bf16* h = sahs::skip_trunk_tc<false, KS>(net, a.w, a.b, pe, hA, hB, ring,
+                                                 nullptr, nullptr);
+  float* Y = reinterpret_cast<float*>(h == hA ? hB : hA);   // [8][TC_LDF]
+  const sahs::LayerDesc head = sahs::load_desc(a.meta, a.n_layers);
+  const sahs::Operand none = {nullptr, 0, nullptr};
+  sahs::skip_product<KS>(sahs::Operand{a.w + head.w1, head.k1, h}, none, head.n,
+                         ring, sahs::StoreF32{Y, a.b + head.b, head.act, false});
+  __syncthreads();
+  for (int i = threadIdx.x; i < TC_TP * a.out_dim; i += blockDim.x) {
+    const int t = i / a.out_dim, c = i - t * a.out_dim;
+    const long long p = base + t;
+    if (p < a.P) a.out[p * a.out_dim + c] = Y[c * TC_LDF + t];
+  }
+}
+
+int launch_forward_tc(const FwdArgs& a, int hid, cudaStream_t stream) {
+  if (hid % sahs::SKIP_KS) return (int)cudaErrorInvalidValue;
+  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, SKIP_FWD_KS);
+  int err = sahs::set_smem(skip_fwd_tc_kernel<SKIP_FWD_KS>, ly.bytes);
+  if (err) return err;
+  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
+  skip_fwd_tc_kernel<SKIP_FWD_KS>
+      <<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K14 in bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
+// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(sahs::TC_THREADS, 2) skip_vjp_tc_kernel(VjpArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int pe_dim = 3 + 6 * a.n_freq;
@@ -328,11 +409,13 @@ extern "C" int sahs_skip_mlp_forward(const void* pts, long long P,
   auto bb = reinterpret_cast<const float*>(b);
   auto m = reinterpret_cast<const int*>(meta);
   auto o = reinterpret_cast<float*>(out);
-  if (bf16)
-    return launch_forward<__nv_bfloat16>(x, P, w, bb, m, n_layers, hid,
-                                         out_dim, n_freq, o, s);
-  return launch_forward<float>(x, P, w, bb, m, n_layers, hid, out_dim, n_freq,
-                               o, s);
+  if (bf16) {
+    const FwdArgs a = {x, reinterpret_cast<const sahs::bf16*>(w), bb, m, o, P,
+                       n_layers, n_freq, out_dim};
+    return launch_forward_tc(a, hid, s);
+  }
+  return launch_forward(x, P, reinterpret_cast<const float*>(w), bb, m, n_layers,
+                        hid, out_dim, n_freq, o, s);
 }
 
 extern "C" int sahs_skip_mlp_vjp(

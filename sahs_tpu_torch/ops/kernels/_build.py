@@ -17,7 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,6 +29,7 @@ KERNELS = ("deform_pair", "nerf_level", "level_train", "deform_pair_vjp",
            "exp_pair2")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -115,15 +116,18 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def function(name: str, symbol: str, argtypes: str):
-    """C function ``symbol`` of kernel library ``name``. ``argtypes`` spells
-    the signature, one letter per argument: p pointer (and stream),
-    i int, l long long, f float. The result is the launch's cudaError_t."""
-    fn = getattr(load(name), symbol)
-    if fn.argtypes is None:
+    """C function ``symbol`` of kernel library ``name``, resolved and typed
+    once and then kept. ``argtypes`` spells the signature, one letter per
+    argument: p pointer (and stream), i int, l long long, f float. The
+    result is the launch's cudaError_t."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
         kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
                  "l": ctypes.c_longlong, "f": ctypes.c_float}
         fn.argtypes = [kinds[c] for c in argtypes]
         fn.restype = ctypes.c_int
+        _FUNCS[(name, symbol)] = fn
     return fn
 
 
@@ -138,5 +142,9 @@ def ptr(t) -> Optional[int]:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, asked for on
+    every call (a caller may change it), without building a Stream."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

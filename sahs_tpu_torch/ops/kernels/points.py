@@ -28,25 +28,36 @@ def build_pts_plain(ro: torch.Tensor, rd: torch.Tensor,
 
 def build_pts(ro: torch.Tensor, rd: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """K15 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and result as ``build_pts_plain``."""
-    if ro.device.type == "cpu":
-        return build_pts_plain(ro, rd, z)
-    if ro.device.type != "cuda":
+    CPU tensors. Same arguments and result as ``build_pts_plain``. The
+    fused step calls it twice a step at a few hundred thousand points,
+    where the kernel takes microseconds and the wrapper's host path most of
+    a call: one check of dtypes, shapes and devices on ints and the
+    tensors' own attributes, no copy of a contiguous input, the C function
+    looked up once (``_build.function``)."""
+    if not ro.is_cuda:
+        if ro.device.type == "cpu":
+            return build_pts_plain(ro, rd, z)
         raise ValueError(f"unsupported device {ro.device}")
-    R = ro.shape[0]
-    for name, t, shape in (("ro", ro, (R, 3)), ("rd", rd, (R, 3)),
-                           ("z", z, (R, z.shape[-1]))):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape
-                or t.device != ro.device):
-            raise ValueError(f"K15 takes float32 ro, rd (R, 3) and z (R, S) "
-                             f"on one device, got {name} {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
-    S = z.shape[1]
-    ro, rd, z = ro.contiguous(), rd.contiguous(), z.contiguous()
-    out = torch.empty((R * S, 3), dtype=torch.float32, device=ro.device)
+    f32, index = torch.float32, ro.get_device()
+    if not (z.dim() == 2 and ro.dtype is f32 and rd.dtype is f32 and z.dtype is f32
+            and ro.shape == rd.shape and ro.dim() == 2 and ro.shape[1] == 3
+            and ro.shape[0] == z.shape[0]
+            and rd.get_device() == index and z.get_device() == index):
+        raise ValueError(f"K15 takes float32 ro, rd (R, 3) and z (R, S) on one "
+                         f"device, got ro {tuple(ro.shape)} {ro.dtype} on {ro.device}, "
+                         f"rd {tuple(rd.shape)} {rd.dtype} on {rd.device}, "
+                         f"z {tuple(z.shape)} {z.dtype} on {z.device}")
+    if not ro.is_contiguous():
+        ro = ro.contiguous()
+    if not rd.is_contiguous():
+        rd = rd.contiguous()
+    if not z.is_contiguous():
+        z = z.contiguous()
+    R, S = z.shape
+    out = torch.empty((R * S, 3), dtype=f32, device=ro.device)
     fn = _build.function("build_pts", "sahs_build_pts", "ppplipp")
-    rc = fn(_build.ptr(ro), _build.ptr(rd), _build.ptr(z), R, S,
-            _build.ptr(out), _build.stream_ptr(ro.device))
+    rc = fn(ro.data_ptr(), rd.data_ptr(), z.data_ptr(), R, S, out.data_ptr(),
+            _build.stream_ptr(ro.device))
     _build.check(rc, "build_pts")
     build_pts.launches += 1
     return out

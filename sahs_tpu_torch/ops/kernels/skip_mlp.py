@@ -14,6 +14,10 @@ reach, is not ported: its weights (``prepare_skip`` with ``pe_groups``
 None) run on the plain version on the CPU, and the wrapper refuses them
 for a CUDA tensor.
 
+In bfloat16 K13 runs on the tensor cores over 64-point tiles
+(``csrc/skip_mlp.cu:skip_fwd_tc_kernel``, the trunk of ``csrc/skip_tc.cuh``
+without the stash), in float32 on the CUDA cores (``skip_mlp_kernel``).
+
 K14 replaces ``field_mlp.py:skip_mlp_vjp`` (:516, ``pallas_call`` at :571):
 the folded dW and db of every trunk layer and of the head, and, when asked,
 the cotangent of the raw coordinates through the PE backward
@@ -48,8 +52,8 @@ from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
 
 MAX_HIDDEN = 128
 MAX_OUT = 8
-# bf16 K3 and K14 stage their weights in slices of this many rows
-# (csrc/skip_tc.cuh:SKIP_KS): the trunks' widths are multiples of it
+# bf16 K3, K13 and K14 stage their weights in slices of at most this many
+# rows (csrc/skip_tc.cuh:SKIP_KS): the trunks' widths are multiples of it
 TC_K_STEP = 32
 
 
@@ -127,7 +131,7 @@ def _check_kernel_shapes(points, weights: SkipWeights, what: str,
         raise ValueError(f"points must be (P, 3) float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
     widths = [p["w"].shape[1] for p in weights.trunk]
-    step = TC_K_STEP if what == "K14" and dtype == torch.bfloat16 else 8
+    step = TC_K_STEP if dtype == torch.bfloat16 else 8
     if max(widths) > MAX_HIDDEN or any(w % step for w in widths):
         raise ValueError(f"the {what} kernel takes trunks at most "
                          f"{MAX_HIDDEN} wide, in multiples of {step}, got {widths}")
@@ -145,9 +149,12 @@ def _on_device(points, tensor, what: str):
 
 
 def skip_mlp_forward(points: torch.Tensor, weights: SkipWeights,
-                     compute_dtype: str) -> torch.Tensor:
+                     compute_dtype: str,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K13 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and result as ``skip_mlp_plain``."""
+    CPU tensors. Same arguments and result as ``skip_mlp_plain``; ``out``,
+    a (P, out) float32 tensor on the points' device, takes the result in
+    place of a new one (the kernel writes its P rows and nothing else)."""
     if points.device.type == "cpu":
         return skip_mlp_plain(points, weights, compute_dtype)
     dtype = torch_dtype(compute_dtype)
@@ -157,7 +164,13 @@ def skip_mlp_forward(points: torch.Tensor, weights: SkipWeights,
     points = points.contiguous()
     P = points.shape[0]
     out_dim = weights.out["w"].shape[1]
-    out = torch.empty((P, out_dim), dtype=torch.float32, device=points.device)
+    if out is None:
+        out = torch.empty((P, out_dim), dtype=torch.float32, device=points.device)
+    elif (out.shape != (P, out_dim) or out.dtype != torch.float32
+          or out.device != points.device or not out.is_contiguous()):
+        raise ValueError(f"K13's out must be a contiguous ({P}, {out_dim}) float32 "
+                         f"tensor on {points.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
     fn = _build.function("skip_mlp", "sahs_skip_mlp_forward", "plppp" + "i" * 5
                          + "pp")
     rc = fn(_build.ptr(points), P, _build.ptr(wblob), _build.ptr(bblob),

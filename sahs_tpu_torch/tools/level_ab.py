@@ -1,10 +1,11 @@
 """Times the bf16 kernels on the tensor cores (the level backward K2, K6,
-K8, K12, the deformation nets' K3, K14 and the NeRF field's forwards K7,
-K11, per call), the train steps and the frames that run them, for one tree
-of the port, on the card:
+K8, K12, the deformation nets' K3, K14, the NeRF field's forwards K7, K11
+and one deformation net's forward K13, per call), K15, the train steps and
+the frames that run them, for one tree of the port, on the card:
 
     python sahs_tpu_torch/tools/level_ab.py --tree <root of a checkout>
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --fields-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --skip-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -28,18 +29,27 @@ mean of 3 calls, CUDA events. K7 at a step's fine (2048 x 128) and coarse
 per-point frame's fine chunk (32,768 rays x 192 = 6,291,456 points), on
 the flagship's seeded coarse level, each beside its library call (the
 module's forward under bf16 autocast), TFLOP/s and share of the bound.
-Steps (``train/trace_step.py``'s PATHS and ``build_step``, from this
+K13 on the warp and on the hyper net at a frame's fine chunk (32,768 rays
+x 128 = 4,194,304 points) and at a step's fine level (262,144), on the
+flagship's seeded nets, each beside its library call (the module's forward
+under bf16 autocast), TFLOP/s and share of the bound. K15 at the fused
+step's two levels (2048 x 64, 2048 x 128) and at the per-point step's 2048
+x 192, beside ``torch.addcmul``'s counterpart, three readings each
+(``k15_readings``): device time (``torch.profiler``, 200 calls), per-call
+time (CUDA events around 200 calls) and the host's time (its clock around
+200 calls, synchronised at the end only). Steps (``train/trace_step.py``'s PATHS and ``build_step``, from this
 checkout, run on the tree's code): the flagship fused step, fallback path
 1 (fused_grads off), the reuse path (fuse_composite off too), the
 per-point step (``pointwise``, 64 + 128) and the warp-only and
 ambient-only steps, each 2 warm-up steps and then the mean of 5, CUDA
 events. Frames: the 512x512 per-point frame (64 + 128, through
-``make_eval_renderer``) and one 32,768-ray chunk of the reuse path's frame
+``make_eval_renderer``), the warp-only and the ambient-only 512x512 frames
+(64 + 64) and one 32,768-ray chunk of the reuse path's frame
 (``render_rays_chunked`` with fuse_composite off), each one warm-up and the
-minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone (to
-compare two builds of their kernel). Prints one JSON line: the tree, the
+minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone,
+``--skip-only`` K13 alone (to compare two builds of a kernel). Prints one JSON line: the tree, the
 card's name and power limit, and the readings (ms; TFLOP/s and the bound's
-share for K3, K14, K7 and K11).
+share for K3, K14, K7, K11 and K13).
 """
 from __future__ import annotations
 
@@ -253,9 +263,113 @@ def _field_times(dev, reps: int = 3) -> dict:
     return out
 
 
+def _skip_times(dev, reps: int = 3) -> dict:
+    """K13 per call on the warp and the hyper net, each beside its library
+    call, TFLOP/s and the share of its bound."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(3)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    cond = g(rng.randn(76 + 36) * 0.5)
+    driving, pose = cond[:76], cond[76:]
+    warp_g = nerface.build_pe_groups(spec)[0]
+    best = lambda fn: cuda_ms(fn, reps, runs=3)
+    out = {}
+    for P, where in ((32768 * 128, "frame chunk"), (2048 * 128, "step")):
+        pts = g(rng.uniform(-1.05, 1.05, (P, 3)))
+        pe = kernel_pe(pts, warp_g)
+        for name, act in (("warp", "tanh"), ("hyper", "linear")):
+            net = getattr(model, name)
+            w = k13.prepare_skip(net, cond, warp_g, act)
+
+            def library():
+                with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                    return net(pe, driving, pose)
+            ms = best(lambda: k13.skip_mlp_forward(pts, w, "bfloat16"))
+            flops = 2 * _net_macs(w.trunk, w.out) * P
+            bound = max(flops / PEAK_BF16_FLOPS,
+                        P * (3 + w.out["w"].shape[1]) * 4 / PEAK_BYTES) * 1e3
+            out[f"K13 {name} {where}"] = {
+                "ms": ms, "library_ms": best(library),
+                "tflops": flops / (ms / 1e3) / 1e12, "bound_ms": bound,
+                "bound_share": bound / ms}
+        del pts, pe
+        torch.cuda.empty_cache()
+    return out
+
+
+def k15_readings(k15, ro, rd, z, launches: int = 200) -> dict:
+    """K15 (``k15``: the ``ops.kernels.points`` module under test) and
+    ``torch.addcmul``, the one PyTorch call computing o + d z (the port
+    never calls it), on the same inputs, three readings each in ms a call:
+    ``device`` (the kernels' own time, ``torch.profiler``), ``per_call``
+    (CUDA events around ``launches`` calls: the device's time, or the
+    host's where it issues calls more slowly than the device runs them)
+    and ``host`` (the host's clock around ``launches`` calls, synchronised
+    at the end only); the plain version's device and per-call times too,
+    and the wrapper's host time by part (``host_parts``)."""
+    import torch
+
+    timers = _checkout_module("utils/device.py")
+    cuda_ms, device_ms, host_ms = timers.cuda_ms, timers.device_ms, timers.host_ms
+    ro3, rd3, z3 = ro[:, None, :], rd[:, None, :], z[..., None]
+    calls = {"kernel": lambda: k15.build_pts(ro, rd, z),
+             "addcmul": lambda: torch.addcmul(ro3, rd3, z3),
+             "plain": lambda: k15.build_pts_plain(ro, rd, z)}
+    out = {}
+    for name, fn in calls.items():
+        out[name] = {"device": device_ms(fn, launches),
+                     "per_call": cuda_ms(fn, launches, runs=3)}
+        if name != "plain":
+            out[name]["host"] = min(host_ms(fn, launches) for _ in range(3))
+    # the wrapper's host time by part: the launch (the C call on arguments
+    # made beforehand), the output's allocation and the stream's handle;
+    # the rest of "host" is its checks and bookkeeping in Python
+    R, S = z.shape
+    b = k15._build
+    res = torch.empty((R * S, 3), dtype=torch.float32, device=ro.device)
+    fn = b.function("build_pts", "sahs_build_pts", "ppplipp")
+    args = (ro.data_ptr(), rd.data_ptr(), z.data_ptr(), R, S, res.data_ptr(),
+            b.stream_ptr(ro.device))
+    parts = {"launch": lambda: fn(*args),
+             "empty": lambda: torch.empty((R * S, 3), dtype=torch.float32,
+                                          device=ro.device),
+             "stream": lambda: b.stream_ptr(ro.device)}
+    out["kernel"]["host_parts"] = {n: min(host_ms(f, launches) for _ in range(3))
+                                   for n, f in parts.items()}
+    return out
+
+
+def _k15_times(dev) -> dict:
+    """K15's readings (``k15_readings``) at 2048 rays x 64, 128 and 192."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.ops.kernels import points as k15
+
+    rng = np.random.RandomState(4)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    out = {}
+    for S in (64, 128, 192):
+        ro, rd = g(rng.randn(2048, 3) * 0.3), g(rng.randn(2048, 3) * 0.1 + [0, 0, -1])
+        z = g(np.sort(rng.uniform(0.2, 0.8, (2048, S)), axis=-1))
+        out[f"2048x{S}"] = k15_readings(k15, ro, rd, z)
+    return out
+
+
 def _frame_times(dev) -> dict:
-    """The per-point frame (512x512, 64 + 128) and one 32,768-ray chunk of
-    the reuse path's frame, ms on the card."""
+    """The per-point frame (512x512, 64 + 128), the warp-only and the
+    ambient-only frames (64 + 64) and one 32,768-ray chunk of the reuse
+    path's frame, ms on the card."""
     import torch
 
     from sahs_tpu_torch.config import Config
@@ -279,6 +393,18 @@ def _frame_times(dev) -> dict:
     out = {"per-point frame": cuda_ms(lambda: render(
         model, item["intrinsics"], item["pose"], item["driving"], ds.background()),
         1, runs=2)}
+    for name, section, field in (("warp-only", "hyper", "use_ambient"),
+                                 ("ambient-only", "warp", "use_warp")):
+        cfg = Config()
+        setattr(getattr(cfg.models, section), field, False)
+        spec1 = nerface.ModelSpec.from_config(cfg)
+        model1 = nerface.NeRFaceModel.init(spec1, seed=0, device=dev)
+        render1 = make_eval_renderer(spec1, RenderSettings.from_config(cfg, "validation"),
+                                     512, 512, near, far, device=dev)
+        out[f"{name} frame"] = cuda_ms(lambda: render1(
+            model1, item["intrinsics"], item["pose"], item["driving"], ds.background()),
+            1, runs=2)
+        del model1, render1
     cfg = Config()
     cfg.runtime.fused_grads = False
     cfg.runtime.fuse_composite = False
@@ -293,19 +419,27 @@ def _frame_times(dev) -> dict:
     return out
 
 
-def _trace_step():
-    """This checkout's ``train/trace_step.py`` (PATHS and ``build_step``)
-    bound to the ``sahs_tpu_torch`` imported from the tree under test: every
-    tree runs one definition of the steps, on its own code."""
+def _checkout_module(path: str):
+    """This checkout's ``sahs_tpu_torch/<path>``, loaded beside the
+    ``sahs_tpu_torch`` imported from the tree under test (its relative
+    imports resolve in that package): every tree runs one definition of
+    the measurement, on its own code."""
     import importlib.util
 
     import sahs_tpu_torch.train  # noqa: F401  (the package its imports resolve in)
+    package = "sahs_tpu_torch." + os.path.dirname(path).replace("/", ".")
+    name = os.path.splitext(os.path.basename(path))[0]
     spec = importlib.util.spec_from_file_location(
-        "sahs_tpu_torch.train._level_ab_steps",
-        os.path.join(_HERE, "sahs_tpu_torch", "train", "trace_step.py"))
+        f"{package}._level_ab_{name}", os.path.join(_HERE, "sahs_tpu_torch", path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _trace_step():
+    """This checkout's ``train/trace_step.py`` (PATHS and ``build_step``)
+    on the tree's code."""
+    return _checkout_module("train/trace_step.py")
 
 
 def _step_times(dev, n_steps: int = 5) -> dict:
@@ -330,6 +464,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=_HERE)
     ap.add_argument("--fields-only", action="store_true",
                     help="time K7 and K11 alone")
+    ap.add_argument("--skip-only", action="store_true", help="time K13 alone")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -340,11 +475,16 @@ def main(argv=None) -> int:
     from sahs_tpu_torch.utils.device import card_line
     dev = torch.device("cuda")
     res = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(sahs_tpu_torch.__file__))),
-           "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}",
-           "fields": _field_times(dev)}
-    if not args.fields_only:
-        res.update(kernels_ms=_kernel_times(dev), deform_nets=_deform_times(dev),
-                   steps_ms=_step_times(dev), frames_ms=_frame_times(dev))
+           "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}"}
+    if args.skip_only:
+        res["skip_net"] = _skip_times(dev)
+    elif args.fields_only:
+        res["fields"] = _field_times(dev)
+    else:
+        res.update(fields=_field_times(dev), skip_net=_skip_times(dev),
+                   k15=_k15_times(dev), kernels_ms=_kernel_times(dev),
+                   deform_nets=_deform_times(dev), steps_ms=_step_times(dev),
+                   frames_ms=_frame_times(dev))
     print(json.dumps(res), flush=True)
     return 0
 

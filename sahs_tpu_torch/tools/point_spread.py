@@ -1,0 +1,134 @@
+"""Where the bf16 level backward's per-point cotangents are off: K6
+(``nerf_level_vjp``) and its plain version against exact sums at the card
+tests' size, on the card:
+
+    python -m sahs_tpu_torch.tools.point_spread
+
+For each case, draw and per-point output (gx, gse, g_bg) one JSON line:
+the L2-relative distance to exact sums (``tools/level_exact.exact_plain``:
+the same bf16 operands, float64 sums) of the kernel and of the plain
+version, the share of the squared distance that the worst 10 points and
+the worst 1 % of the points carry, the distance without that 1 %, and how
+many of the kernel's worst 10 points are among the plain version's. The
+cases are two card tests of ``tests/test_torch_cuda.py`` (96 rays, with a
+background): ``test_nerf_level_vjp_kernel_matches_plain`` at 64 samples on
+the flagship's seeded coarse level, and
+``test_grid_free_level_kernels_match_plain`` at 16 samples with sigma
+noise on the grid-free one, each level conditioned as the tests' fixtures
+condition it; the draws are each test's own (its ``rng`` fixture: a crc32
+of its node id) and four others.
+"""
+from __future__ import annotations
+
+import json
+import zlib
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models import nerface
+from ..ops.grid import _cell_geometry, pack_corner_table
+from ..ops.kernels import level_train as k2
+from ..ops.kernels import nerf_level as k5
+from ..utils.device import card_line, resolve_device
+from .level_exact import GRID, coarse_level, exact_plain
+
+# case -> (the card test's node id, grid, samples, sigma noise, the seed of
+# its level's conditioning)
+CASES = {
+    "grid S=64": ("tests/test_torch_cuda.py::test_nerf_level_vjp_kernel_matches_plain"
+                  "[64-True-False-bfloat16]", True, 64, False, 0),
+    "grid-free S=16": ("tests/test_torch_cuda.py::test_grid_free_level_kernels_match_plain"
+                       "[16-True-True-bfloat16]", False, 16, True, 1),
+}
+R = 96
+
+
+def spread(a: torch.Tensor, x: torch.Tensor) -> Dict[str, object]:
+    """How ``a`` (P, C) is off ``x``: its L2-relative distance, the share
+    of the squared distance in its worst 10 points and worst 1 %, the
+    distance without that 1 %, and the worst 10 points."""
+    e = (a.double() - x.double()).norm(dim=1) ** 2
+    xn = x.double().norm(dim=1) ** 2
+    order = e.argsort(descending=True)
+    k = max(1, e.numel() // 100)
+    total = float(e.sum())
+    keep = order[k:]
+    return {"l2_rel": (total / float(xn.sum())) ** 0.5,
+            "top10_share": float(e[order[:10]].sum()) / total,
+            "top1pct_share": float(e[order[:k]].sum()) / total,
+            "l2_rel_without_top1pct": float((e[keep].sum() / xn[keep].sum()).sqrt()),
+            "worst10": order[:10].tolist()}
+
+
+def level_of(grid: bool, cond_seed: int, dev):
+    """The card tests' seeded coarse level (``coarse_level("seeded")``)
+    conditioned on ``RandomState(cond_seed).randn(112) * 0.5``, as their
+    fixtures draw it, and its corner table (None without the grid)."""
+    _, model = coarse_level("seeded", grid, torch.float32, dev)
+    cond = np.random.RandomState(cond_seed).randn(76 + 36).astype(np.float32) * 0.5
+    _, pts_g, dir_g = nerface.build_pe_groups(model.spec)
+    level = k5.prepare_level(model.coarse, torch.tensor(cond[76:], device=dev),
+                             pts_g, dir_g)
+    table = (pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+             if grid else None)
+    return level, table
+
+
+def case(level, table, grid: bool, S: int, with_noise: bool, seed: int, dev) -> dict:
+    """One draw, as the card tests make it (their ``_level_case`` or
+    ``_grid_free_case`` and ``_loss_cotangents``)."""
+    rng = np.random.RandomState(seed)
+    g = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    P = R * S
+    pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)), rng.uniform(-1, 1, (P, 2))], 1))
+    dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+    bg = g(rng.rand(R, 15))
+    noise = g(rng.randn(R, S) * 0.5) if with_noise else None
+    rows = _cell_geometry(pts, GRID)[0] if grid else None
+    dims = GRID if grid else None
+    args = (pts, dirs, table, rows, z, bg, noise)
+    rgb, w = k5.nerf_level_plain(*args, level, "bfloat16", dims)
+    tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+    g_rgb = torch.cat([2.0 * (rgb[:, :3] - tgt[:, :3]) / R,
+                       -0.02 * tgt[:, 3:15] / (rgb[:, 3:15] + 1e-10) / R,
+                       torch.zeros_like(rgb[:, :1])], dim=-1)
+    g_w = torch.zeros_like(w)
+    g_w[:, -1] = g(rng.rand(R)) * 1e-3
+    vargs = args + (g_rgb, g_w, level, "bfloat16", dims)
+    out_k = k2.nerf_level_vjp(*vargs)
+    out_p = k2.nerf_level_vjp_plain(*vargs)
+    out_x = exact_plain(k2.nerf_level_vjp_plain, *vargs)
+    res = {}
+    for i, name in enumerate(("gx", "gse", "g_bg")):
+        if out_x[i] is None:
+            continue
+        sk, sp = spread(out_k[i], out_x[i]), spread(out_p[i], out_x[i])
+        shared = len(set(sk.pop("worst10")) & set(sp.pop("worst10")))
+        res[name] = {"kernel": sk, "plain": sp, "worst10_shared": shared,
+                     "ratio": sk["l2_rel"] / max(sp["l2_rel"], 1e-3)}
+    return res
+
+
+def main(argv: Optional[List[str]] = None, device=None, draws: int = 4) -> List[dict]:
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"card: {torch.cuda.get_device_name(dev)} | {card_line()}", flush=True)
+    rows = []
+    for name, (node, grid, S, with_noise, cond_seed) in CASES.items():
+        level, table = level_of(grid, cond_seed, dev)
+        seeds = [("test", zlib.crc32(node.encode()))] + [
+            (f"other {i}", 100 + i) for i in range(draws)]
+        for draw, seed in seeds:
+            row = {"case": name, "draw": draw,
+                   **case(level, table, grid, S, with_noise, seed, dev)}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -167,10 +167,14 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         dims = tuple(grid.shape[1:])
         table = corner_table(grid, cdt)
 
+    # the ray origins arrive as a broadcast view of the camera's centre:
+    # one copy a step, not one in each K15 call
+    ro_rows = ro.contiguous()
+
     def points(z):
         # the same float32 roundings at both levels: every coarse point
         # reappears bit for bit among the sorted fine points
-        return build_pts(ro, rd, z)
+        return build_pts(ro_rows, rd, z)
 
     def noise_for(shape, injected):
         if fcfg.noise_std <= 0:

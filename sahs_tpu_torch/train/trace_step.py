@@ -27,7 +27,8 @@ level_dw_kernel, dw_reduce in bfloat16, pair_vjp_kernel, dw_kernel,
 dw_reduce in float32; K12 as K8); K5 as nerf_level_kernel; K7 and K11
 in bfloat16 as field_tc_kernel (the tensor-core forward of
 csrc/level_train.cu), in float32 as nerf_level_kernel and nerf_mlp_kernel;
-K10 as grid_bwd_fused_kernel; K13 as skip_mlp_kernel and K14 as skip_vjp_tc_kernel, level_dw_kernel, dw_reduce (bfloat16) or
+K10 as grid_bwd_fused_kernel; K13 as skip_fwd_tc_kernel (bfloat16) or
+skip_mlp_kernel (float32); K14 as skip_vjp_tc_kernel, level_dw_kernel, dw_reduce (bfloat16) or
 skip_vjp_kernel, dw_kernel, dw_reduce (float32).
 """
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Device selection for the port's entry points, and the one timer and
-card query that its scripts share."""
+"""Device selection for the port's entry points, and the timers and card
+query that its scripts share."""
 from __future__ import annotations
 
 import subprocess
+import time
 from typing import Callable, Optional, Union
 
 import torch
@@ -39,6 +40,43 @@ def cuda_ms(fn: Callable[[], object], launches: int, runs: int = 1,
         torch.cuda.synchronize()
         best = min(best, ev[0].elapsed_time(ev[1]) / launches)
     return best
+
+
+def device_ms(fn: Callable[[], object], launches: int = 200,
+              warmup: int = 3) -> float:
+    """Milliseconds of device time per call of ``fn()``: the self time of
+    every CUDA kernel that ``torch.profiler`` records over ``launches``
+    calls, summed and divided by ``launches``, after ``warmup`` calls; the
+    host's time between launches does not count. Raises when the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / launches
+
+
+def host_ms(fn: Callable[[], object], launches: int, warmup: int = 3) -> float:
+    """Milliseconds per call of ``fn()`` on the host's clock: ``launches``
+    calls back to back, synchronised at the end only (the host's time to
+    issue them where the device keeps up)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / launches
 
 
 def card_line() -> str:

@@ -6,7 +6,7 @@ backward), K13 (one deformation MLP), K14 (its backward), K15 (the
 sample positions), the grid-free forms of K1, K2, K5-K8, K11 and K12, and
 the tools' experiment kernels X1-X6 against their plain versions (the
 kernels on the tensor cores in bf16, the backwards K2, K3, K6, K8, K12,
-K14 and the forwards K7, K11, also against exact sums), the
+K14 and the forwards K7, K11, K13, also against exact sums), the
 kernel path of
 render_rays against the plain path, train steps (fused, the autograd
 fallback on both of its paths, the per-point branch, the plain path, the
@@ -14,6 +14,8 @@ warp-only and ambient-only models, and the grid-free model on each of
 its paths) through the kernels against the
 same steps on the plain versions, and the fused step against the fallback
 step.
+Every test draws its inputs from its own numpy random state (the ``rng``
+fixture), so it reads the same inputs whichever tests ran before it.
 Marked ``cuda``; without a CUDA device they skip. This file imports no JAX,
 so it runs on a machine without it:
 
@@ -25,6 +27,7 @@ gate of PARITY_TPU.json (the two sides round the same operands to bf16 but
 sum them in another order, so a value rounds differently now and then).
 """
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -51,8 +54,8 @@ GRID = (32, 32, 32)
 
 @pytest.fixture(scope="module")
 def card():
-    """The flagship model with seeded weights on the card, its per-frame
-    folded weights, and a numpy random state for the inputs."""
+    """The flagship model with seeded weights on the card and its per-frame
+    folded weights (the conditioning from a random state of its own)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -73,9 +76,18 @@ def card():
     warp_g, pts_g, dir_g = nerface.build_pe_groups(spec)
     pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
     level = k5.prepare_level(model.coarse, cond[76:], pts_g, dir_g)
-    yield dev, model, pair, level, rng
+    yield dev, model, pair, level
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
+
+
+@pytest.fixture
+def rng(request):
+    """The test's own numpy random state, seeded from a stable hash of its
+    node id (crc32; Python's hash is salted per process): a test draws the
+    same inputs whichever tests ran before it, in the whole file, in a
+    subset or alone."""
+    return np.random.RandomState(zlib.crc32(request.node.nodeid.encode()))
 
 
 def _gpu(dev, a):
@@ -174,8 +186,8 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [16, 128])
-def test_deform_pair_kernel_matches_plain(card, compute_dtype, S):
-    dev, _, pair, _, rng = card
+def test_deform_pair_kernel_matches_plain(card, rng, compute_dtype, S):
+    dev, _, pair, _ = card
     P = 300 * S                   # not a multiple of the 64-point tile
     pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
     before = k1.deform_pair_forward.launches
@@ -199,9 +211,9 @@ def test_deform_pair_kernel_matches_plain(card, compute_dtype, S):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,with_bg,with_noise", [
     (16, True, True), (16, False, False), (128, True, False), (64, False, True)])
-def test_nerf_level_kernel_matches_plain(card, compute_dtype, S, with_bg,
+def test_nerf_level_kernel_matches_plain(card, rng, compute_dtype, S, with_bg,
                                          with_noise):
-    dev, model, _, level, rng = card
+    dev, model, _, level = card
     R = 96
     pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (R * S, 3)),
                                     rng.uniform(-1, 1, (R * S, 2))], 1))
@@ -231,7 +243,7 @@ def test_nerf_level_kernel_matches_plain(card, compute_dtype, S, with_bg,
 
 @pytest.mark.cuda
 def test_wrapper_refuses_weights_on_another_device(card):
-    dev, _, pair, _, _ = card
+    dev, _, pair, _ = card
     cpu_pair = k1.prepare_pair(*_cpu_nets(), torch.zeros(76 + 36),
                                pair.pe_groups)
     with pytest.raises(ValueError, match="weights are on"):
@@ -246,10 +258,10 @@ def _cpu_nets():
 
 
 @pytest.mark.cuda
-def test_render_rays_kernel_path_matches_plain_path(card):
+def test_render_rays_kernel_path_matches_plain_path(card, rng):
     """render_rays on the card, 64 + 64 samples, float32, deterministic:
     K1 + K5 against the plain path, which runs no kernel."""
-    dev, model, _, _, rng = card
+    dev, model, _, _ = card
     R = 256
     ro = torch.zeros((R, 3), device=dev)
     rd = _gpu(dev, rng.randn(R, 3) * 0.05 + [0, 0, -1])
@@ -309,13 +321,15 @@ def _grads_ok(a, b, gates):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,with_bg,with_noise,bg_sup", [
     (16, True, True, 0.0), (64, True, False, 0.5), (128, False, True, 0.0)])
-def test_level_train_kernel_matches_plain(card, grid_varied, compute_dtype, S,
+def test_level_train_kernel_matches_plain(card, rng, grid_varied, compute_dtype, S,
                                           with_bg, with_noise, bg_sup):
-    """K2 against its plain version. Without a background the level is
-    ``grid_varied``'s, whose sigma gradient is not a cancelled sum."""
-    dev, model, _, level, rng = card
-    if not with_bg:
-        level = grid_varied
+    """K2 against its plain version. Without a background, as the
+    tensor-core test at a step's size: every output and every dW leaf but
+    sigma's head on the seeded level, and sigma's head on ``grid_varied``'s.
+    There sigma's gradient is not a cancelled sum, but the trunk's dW is
+    less well conditioned than on the seeded level (tools/level_exact.py,
+    PERF.md section 6)."""
+    dev, model, _, level = card
     R = 96
     pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (R * S, 3)),
                                     rng.uniform(-1, 1, (R * S, 2))], 1))
@@ -333,9 +347,9 @@ def test_level_train_kernel_matches_plain(card, grid_varied, compute_dtype, S,
             compute_dtype, GRID, bg_sup)
     before = k2.nerf_level_train.launches
     out_k = k2.nerf_level_train(*args)
-    out_p = _plain_ref(k2.nerf_level_train_plain, *args, out_k=out_k)
+    out_p = _plain_ref(k2.nerf_level_train_plain, *args, out_k=out_k,
+                       skip_sigma=not with_bg)
     torch.cuda.synchronize()
-    assert k2.nerf_level_train.launches == before + 1
     (rgb_k, w_k, gx_k, gse_k, gbg_k, g_k), (rgb_p, w_p, gx_p, gse_p, gbg_p, g_p) = \
         out_k, out_p
     assert all(bool(torch.isfinite(t).all()) for t in (rgb_k, w_k, gx_k, gse_k))
@@ -348,16 +362,25 @@ def test_level_train_kernel_matches_plain(card, grid_varied, compute_dtype, S,
             assert e["n_over"] <= POINT_FLIPS and e["cosine"] >= 0.9999, e
     else:
         assert _rel(rgb_k, rgb_p) <= 2e-2 and _rel(w_k, w_p) <= 2e-2
-    _grads_ok(g_k, g_p, compute_dtype)
+    if with_bg:
+        _grads_ok(g_k, g_p, compute_dtype)
+    else:
+        _grads_ok(_without_sigma_head(g_k), _without_sigma_head(g_p), compute_dtype)
+        vargs = args[:9] + (grid_varied,) + args[10:]
+        out_v = k2.nerf_level_train(*vargs)
+        head_p = _plain_ref(k2.nerf_level_train_plain, *vargs, out_k=out_v)[5]["fc_alpha"]
+        torch.cuda.synchronize()
+        _grads_ok(out_v[5]["fc_alpha"], head_p, compute_dtype)
+    assert k2.nerf_level_train.launches == before + 1 + (not with_bg)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_deform_pair_vjp_kernel_matches_plain(card, compute_dtype):
+def test_deform_pair_vjp_kernel_matches_plain(card, rng, compute_dtype):
     """K3 against its plain version (in bf16 with exact sums, and within
     PLAIN_MULTIPLE of the plain version's distance to them), the last
     64-point tile ragged."""
-    dev, _, pair, _, rng = card
+    dev, _, pair, _ = card
     P = 300 * 64 + 17
     pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
     g = _gpu(dev, rng.randn(P, 5) * 0.1)
@@ -373,8 +396,8 @@ def test_deform_pair_vjp_kernel_matches_plain(card, compute_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_addend", [False, True])
-def test_grid_dg_kernel_matches_plain(card, with_addend):
-    dev, _, _, _, rng = card
+def test_grid_dg_kernel_matches_plain(card, rng, with_addend):
+    dev, _, _, _ = card
     P = 50000
     pts = _gpu(dev, rng.uniform(-1.1, 1.1, (P, 5)))
     gse = _gpu(dev, rng.randn(P, 32))
@@ -492,11 +515,11 @@ def _points_ok(a, b, f32):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,with_bg,with_noise", [
     (16, True, True), (64, True, False), (128, False, True)])
-def test_nerf_level_vjp_kernel_matches_plain(card, grid_varied, compute_dtype, S,
+def test_nerf_level_vjp_kernel_matches_plain(card, rng, grid_varied, compute_dtype, S,
                                              with_bg, with_noise):
     """K6 against its plain version. Without a background the level is
     ``grid_varied``'s, whose sigma gradient is not a cancelled sum."""
-    dev, model, _, level, rng = card
+    dev, model, _, level = card
     if not with_bg:
         level = grid_varied
     R = 96
@@ -520,14 +543,14 @@ def test_nerf_level_vjp_kernel_matches_plain(card, grid_varied, compute_dtype, S
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [64, 128])
-def test_ablation_level_kernels_match_plain(card, compute_dtype, S):
+def test_ablation_level_kernels_match_plain(card, rng, compute_dtype, S):
     """K5 and K6 at the widths of configs/expression/person_1_ablation.yml
     (no deformation: the points themselves, PW = 3, rows from
     _cell_geometry; 15 PE frequencies; a 4x256 trunk) against their plain
     versions, with a background prior, sigma noise and loss cotangents."""
     import os
     from sahs_tpu_torch.config import load_config
-    dev, _, _, _, rng = card
+    dev, _, _, _ = card
     cfg = load_config(os.path.join(os.path.dirname(__file__), "..", "configs",
                                    "expression", "person_1_ablation.yml"))
     spec = nerface.ModelSpec.from_config(cfg)
@@ -565,11 +588,11 @@ def test_ablation_level_kernels_match_plain(card, compute_dtype, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [16, 128])
-def test_nerf_rayd_kernels_match_plain(card, compute_dtype, S):
+def test_nerf_rayd_kernels_match_plain(card, rng, compute_dtype, S):
     """K7 against its plain version, then K8 from the cotangent of a loss
     composited from K7's plain output."""
     from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
-    dev, model, _, level, rng = card
+    dev, model, _, level = card
     R = 96
     pts, dirs, table, rows, z, bg, _ = _level_case(dev, model, rng, R, S, True,
                                                    False, compute_dtype)
@@ -602,10 +625,10 @@ def test_nerf_rayd_kernels_match_plain(card, compute_dtype, S):
 
 
 @pytest.mark.cuda
-def test_grid_dg_coords_kernel_matches_plain(card):
+def test_grid_dg_coords_kernel_matches_plain(card, rng):
     """K9 on sample-major points inside the grid, on cell faces, on the
     grid's faces and outside it."""
-    dev, _, _, _, rng = card
+    dev, _, _, _ = card
     P = 50000
     pts = rng.uniform(-1.1, 1.1, (P, 5))
     pts[:500, :3] = 2.0 * rng.randint(0, 32, (500, 3)) / 31.0 - 1.0
@@ -736,11 +759,11 @@ def test_fused_step_matches_fallback_step(card, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_grid_bwd_fused_kernel_matches_plain(card, compute_dtype):
+def test_grid_bwd_fused_kernel_matches_plain(card, rng, compute_dtype):
     """K10 on packed (P, 5) points inside the grid, on cell faces, on the
     grid's faces and outside it, from the corner rows the forward gathers:
     dG and dcoords."""
-    dev, model, _, _, rng = card
+    dev, model, _, _ = card
     P = 50000
     pts = rng.uniform(-1.1, 1.1, (P, 5))
     pts[:500, :3] = 2.0 * rng.randint(0, 32, (500, 3)) / 31.0 - 1.0
@@ -764,11 +787,11 @@ def test_grid_bwd_fused_kernel_matches_plain(card, compute_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("P", [1000, 96 * 48])
-def test_nerf_mlp_kernels_match_plain(card, compute_dtype, P):
+def test_nerf_mlp_kernels_match_plain(card, rng, compute_dtype, P):
     """K11 against its plain version on per-point inputs (P not a multiple
     of the 64-point tile, and 96 rays of 48), then K12 from the cotangent
     of a loss of K11's plain output."""
-    dev, _, _, level, rng = card
+    dev, _, _, level = card
     pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
                                     rng.uniform(-1, 1, (P, 2))], 1))
     extra = _gpu(dev, np.concatenate([rng.randn(P, 3) * 0.1 + [0, 0, -1],
@@ -829,14 +852,14 @@ def test_pointwise_step_kernel_path_matches_plain_path(card, monkeypatch,
 @pytest.mark.parametrize("net", ["warp", "hyper"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("P", [1000, 96 * 48])
-def test_skip_mlp_kernels_match_plain(card, net, compute_dtype, P):
+def test_skip_mlp_kernels_match_plain(card, rng, net, compute_dtype, P):
     """K13 against its plain version on raw points (P not a multiple of
     the 64-point tile, and 96 rays of 48), the warp net (6x128, tanh, 3)
     and the hyper net (6x64, linear, 2); then K14's dW and the points'
     cotangent from the cotangent of a loss of K13's plain output (in bf16
     against exact sums, and within PLAIN_MULTIPLE of the plain version's
     distance to them)."""
-    dev, model, _, _, rng = card
+    dev, model, _, _ = card
     cond = _gpu(dev, rng.randn(76 + 36) * 0.5)
     weights = k13.prepare_skip(getattr(model, net), cond,
                                nerface.build_pe_groups(model.spec)[0],
@@ -877,9 +900,9 @@ def test_skip_mlp_kernels_match_plain(card, net, compute_dtype, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S", [(2048, 64), (2048, 128), (37, 63)])
-def test_build_pts_kernel_matches_points(card, R, S):
+def test_build_pts_kernel_matches_points(card, rng, R, S):
     """K15 bit for bit against the fused step's PyTorch expression."""
-    dev, _, _, _, rng = card
+    dev, _, _, _ = card
     ro = _gpu(dev, rng.randn(R, 3) * 0.3)
     rd = _gpu(dev, rng.randn(R, 3) * 0.1 + [0, 0, -1])
     z = _gpu(dev, np.sort(rng.uniform(0.2, 0.8, (R, S)), axis=-1))
@@ -925,8 +948,9 @@ GRID_FREE = (("coarse", "use_spatial_embeddings", False),)
 @pytest.fixture(scope="module")
 def grid_free(card):
     """The grid-free flagship model on the card (sigma active, varied
-    colours, as ``card``'s), its folded pair and coarse level."""
-    dev, _, _, _, rng = card
+    colours, as ``card``'s), its folded pair and coarse level; the
+    conditioning from a random state of its own."""
+    dev = card[0]
     cfg = Config()
     cfg.models.coarse.use_spatial_embeddings = False
     spec = nerface.ModelSpec.from_config(cfg)
@@ -934,12 +958,12 @@ def grid_free(card):
     with torch.no_grad():
         model.coarse.fc_alpha.bias.fill_(0.5)
         model.coarse.fc_rgb.weight.mul_(100.0)
-    cond = torch.tensor(rng.randn(76 + 36).astype(np.float32) * 0.5, device=dev)
+    cond = _gpu(dev, np.random.RandomState(1).randn(76 + 36) * 0.5)
     warp_g, pts_g, dir_g = nerface.build_pe_groups(spec)
     pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
     level = k5.prepare_level(model.coarse, cond[76:], pts_g, dir_g)
     assert model.spatial_embeddings is None and level.dir0_se.shape[0] == 0
-    return dev, pair, level, rng
+    return dev, pair, level
 
 
 @pytest.fixture(scope="module")
@@ -962,9 +986,9 @@ def grid_varied(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_grid_free_deform_pair_kernel_matches_plain(grid_free, compute_dtype):
+def test_grid_free_deform_pair_kernel_matches_plain(grid_free, rng, compute_dtype):
     """K1 without rows (grid_dims None): the packed points alone."""
-    dev, pair, _, rng = grid_free
+    dev, pair, _ = grid_free
     pts = _gpu(dev, rng.uniform(-0.6, 0.6, (300 * 16, 3)))
     before = k1.deform_pair_forward.launches
     out_k, rows_k = k1.deform_pair_forward(pts, pair, compute_dtype, 16, None)
@@ -992,13 +1016,13 @@ def _grid_free_case(dev, rng, R, S, with_bg, with_noise):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,with_bg,with_noise", [
     (16, True, True), (64, True, False), (128, False, True)])
-def test_grid_free_level_kernels_match_plain(grid_free, grid_free_varied,
+def test_grid_free_level_kernels_match_plain(grid_free, rng, grid_free_varied,
                                              compute_dtype, S, with_bg,
                                              with_noise):
     """K5, K6 and K2 with C = 0 (no table, no rows): the composited
     outputs, gx, g_bg and dW; gse is None. Without a background the level
     is ``grid_free_varied``'s, whose sigma gradient is not a cancelled sum."""
-    dev, _, level, rng = grid_free
+    dev, _, level = grid_free
     if not with_bg:
         level = grid_free_varied
     R = 96
@@ -1045,11 +1069,11 @@ def test_grid_free_level_kernels_match_plain(grid_free, grid_free_varied,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_grid_free_rayd_and_point_kernels_match_plain(grid_free, compute_dtype):
+def test_grid_free_rayd_and_point_kernels_match_plain(grid_free, rng, compute_dtype):
     """K7 and K8 with C = 0, and K11 and K12 on the direction alone (extra
     (P, 3)), each backward from the cotangent of a loss of the plain
     forward."""
-    dev, _, level, rng = grid_free
+    dev, _, level = grid_free
     R, S = 96, 48
     pts, dirs, _, _, _, _, _ = _grid_free_case(dev, rng, R, S, False, False)
     f32 = compute_dtype == "float32"
@@ -1218,7 +1242,7 @@ def _tc_dw_ok(a, b) -> bool:
 def tc_levels(card, grid_free):
     """grid -> (folded coarse level, model): the card fixture's flagship
     level and the grid-free one."""
-    _, model, _, level, _ = card
+    _, model, _, level = card
     return {True: (level, model), False: (grid_free[2], None)}
 
 
@@ -1437,7 +1461,7 @@ def _deform_case(card, kernel):
     weights, weights, arguments after them) of bf16 K3 or K14 on the warp
     net (the points' cotangent asked for, the cotangent of a loss of K13's
     plain output) at P = 300 x 64 + 17 points."""
-    dev, model, pair, _, _ = card
+    dev, model, pair, _ = card
     rng = np.random.RandomState(29)
     P = 300 * 64 + 17
     if kernel == "K3":
@@ -1562,7 +1586,7 @@ def no_ambient(card):
 def _field_case(card, grid_free, no_ambient, kernel, grid, ambient, n, seed):
     """(wrapper, plain version, arguments) of bf16 K7 (96 rays x n samples)
     or K11 (n points) on the grid, grid-free or ambient-free level."""
-    dev, model, _, level, _ = card
+    dev, model, _, level = card
     table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
     if not grid:
         level, table = grid_free[2], None
@@ -1697,5 +1721,127 @@ def test_tensor_core_field_mask_keeps_the_last_tile(card, grid_free, no_ambient,
     assert _field_scaled(buf[:P], raw_p) <= FIELD_GATE
     bad = torch.full((n_pad + 128, 16), float("nan"), device=dev)
     run(n_pad, bad)
+    torch.cuda.synchronize()
+    assert not guard_ok(bad)
+
+
+# ---------------------------------------------------------------------------
+# bf16 K13 on the tensor cores (skip_mlp.cu:skip_fwd_tc_kernel, the trunk
+# of skip_tc.cuh without the stash): the warp and the hyper net against
+# the plain version within the bf16 gate of the output's scale, and against
+# exact sums within PLAIN_MULTIPLE of the plain version's own distance,
+# with a floor of the forward's own (SKIP_FLOOR); faults planted in the
+# forward blob must miss those gates; rows past P keep what they held.
+# ---------------------------------------------------------------------------
+
+# Below the plain forward's own L2-relative distance to exact sums on the
+# card (as FIELD_FLOOR is the field's), so that the multiple, not the
+# floor, decides.
+SKIP_FLOOR = 1e-5
+SKIP_SIZES = [1000, 96 * 48, 2048 * 128]
+
+
+def _skip_case(card, rng, net, P):
+    """(points (P, 3), folded weights) of the warp (6x128, tanh, 3) or hyper
+    (6x64, linear, 2) net of the flagship's seeded model."""
+    dev, model, _, _ = card
+    cond = _gpu(dev, rng.randn(76 + 36) * 0.5)
+    w = k13.prepare_skip(getattr(model, net), cond,
+                         nerface.build_pe_groups(model.spec)[0],
+                         "tanh" if net == "warp" else "linear")
+    return _gpu(dev, rng.uniform(-1.05, 1.05, (P, 3))), w
+
+
+def _skip_exact(y_k, y_p, y_x):
+    """(the kernel keeps the rule, (d_k, d_p)): the L2-relative distances of
+    ``y_k`` and ``y_p`` to exact sums ``y_x``."""
+    d_k, d_p = point_errors(y_k, y_x)["l2_rel"], point_errors(y_p, y_x)["l2_rel"]
+    return d_k <= PLAIN_MULTIPLE * max(d_p, SKIP_FLOOR), (d_k, d_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["warp", "hyper"])
+@pytest.mark.parametrize("P", SKIP_SIZES)
+def test_tensor_core_skip_forward_matches_plain(card, rng, net, P):
+    """bf16 K13 on the tensor cores at P = 1000 (a ragged last tile), 96 x
+    48 and a step's 2048 x 128: one launch, finite, within the bf16 gate of
+    the plain version's scale, and at most PLAIN_MULTIPLE times the plain
+    version's distance from exact sums."""
+    pts, w = _skip_case(card, rng, net, P)
+    before = k13.skip_mlp_forward.launches
+    y_k = k13.skip_mlp_forward(pts, w, "bfloat16")
+    y_p = k13.skip_mlp_plain(pts, w, "bfloat16")
+    y_x = level_exact.exact_plain(k13.skip_mlp_plain, pts, w, "bfloat16")
+    torch.cuda.synchronize()
+    assert k13.skip_mlp_forward.launches == before + 1
+    assert y_k.shape == y_p.shape == (P, w.out["w"].shape[1])
+    assert torch.isfinite(y_k).all() and y_x.dtype == torch.float64
+    assert _scaled(y_k, y_p) <= FIELD_GATE, _scaled(y_k, y_p)
+    ok, d = _skip_exact(y_k, y_p, y_x)
+    assert ok, d
+
+
+def _skip_blob_fault(w, fault: str):
+    """A copy of ``w`` whose bf16 forward blob (K13's) leaves out rows 32-63
+    of trunk[1]'s weights (one 32-row slice of what the ring stages) or the
+    head's bias."""
+    faulty = dataclasses.replace(w, _blobs={})
+    wb, b, meta = faulty.blob(torch.bfloat16)
+    descs = meta.reshape(-1, 7).tolist()
+    if fault == "trunk[1] rows 32-63":
+        w1, k1_, _, _, n = descs[1][:5]
+        assert k1_ >= 64
+        wb = wb.clone()
+        wb[w1 + 32 * n:w1 + 64 * n] = 0
+    else:
+        n, ob = descs[len(w.trunk)][4:6]
+        assert float(b[ob:ob + n].abs().max()) > 0
+        b = b.clone()
+        b[ob:ob + n] = 0
+    faulty._blobs[torch.bfloat16] = (wb, b, meta)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["warp", "hyper"])
+@pytest.mark.parametrize("fault", ["trunk[1] rows 32-63", "head bias"])
+def test_tensor_core_skip_forward_fault_misses_gates(card, rng, net, fault):
+    """A fault planted in what bf16 K13 reads (a 32-row slice of trunk[1]'s
+    weights left out, or the head's bias dropped): the output must miss
+    the gates that the faultless launch on the same inputs passes (the
+    plain version's, or exact sums within PLAIN_MULTIPLE of its distance)."""
+    pts, w = _skip_case(card, rng, net, 96 * 48)
+    y_p = k13.skip_mlp_plain(pts, w, "bfloat16")
+    y_x = level_exact.exact_plain(k13.skip_mlp_plain, pts, w, "bfloat16")
+    y_k = k13.skip_mlp_forward(pts, w, "bfloat16")
+    y_f = k13.skip_mlp_forward(pts, _skip_blob_fault(w, fault), "bfloat16")
+    torch.cuda.synchronize()
+    assert _scaled(y_k, y_p) <= FIELD_GATE and _skip_exact(y_k, y_p, y_x)[0]
+    ok, d = _skip_exact(y_f, y_p, y_x)
+    assert _scaled(y_f, y_p) > FIELD_GATE or not ok, (_scaled(y_f, y_p), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["warp", "hyper"])
+def test_tensor_core_skip_forward_keeps_rows_past_p(card, rng, net):
+    """P = 1000, not a multiple of the 64-point tile: bf16 K13 writes its
+    rows into the first P rows of a buffer and nothing past them (the
+    guard rows stay NaN). The guard must see the launch that a kernel
+    without its store mask makes: the same kernel told the tile's end as
+    P, which writes the last tile's rows past P. A check of the store
+    mask; it plants nothing in the kernel."""
+    P = 1000
+    n_pad = -(-P // k2.TP_BF16) * k2.TP_BF16
+    pts, w = _skip_case(card, rng, net, n_pad)
+    out_dim = w.out["w"].shape[1]
+    y_p = k13.skip_mlp_plain(pts[:P], w, "bfloat16")
+    guard_ok = lambda buf: bool(torch.isnan(buf[P:]).all())
+    buf = torch.full((n_pad + 64, out_dim), float("nan"), device=pts.device)
+    k13.skip_mlp_forward(pts[:P], w, "bfloat16", out=buf[:P])
+    torch.cuda.synchronize()
+    assert guard_ok(buf), "the kernel wrote past the last point"
+    assert _scaled(buf[:P], y_p) <= FIELD_GATE
+    bad = torch.full((n_pad + 64, out_dim), float("nan"), device=pts.device)
+    k13.skip_mlp_forward(pts, w, "bfloat16", out=bad[:n_pad])
     torch.cuda.synchronize()
     assert not guard_ok(bad)

@@ -9,13 +9,16 @@ levels the card tests hold K2 on without a background.
       out in float64 and stays within bf16 rounding of the plain version
       itself; so does the raw field of the two forwards' (K7
       ``nerf_raw_plain``, K11 ``nerf_mlp_plain``), which in float32 agrees
-      with their float32 run to float32 rounding;
+      with their float32 run to float32 rounding, and the output of one
+      deformation net's forward (K13 ``skip_mlp_plain``, warp and hyper);
   (b) a product whose operands bypass ``field_mlp.round_to`` raises
       inside ``exact_sums`` instead of summing in float32 unseen, and the
       patched functions are restored afterwards;
   (c) the grid model's "varied" level (tests/test_torch_cuda.py:grid_varied)
       keeps the plain version's sigma head within a gate of a float64 run,
-      as tests/test_torch_gridfree.py holds the grid-free one.
+      as tests/test_torch_gridfree.py holds the grid-free one;
+  (d) ``tools/point_spread.spread`` finds where a per-point distance
+      sits.
 """
 import numpy as np
 import pytest
@@ -30,7 +33,7 @@ from sahs_tpu_torch.ops.kernels import level_train as k2
 from sahs_tpu_torch.ops.kernels import nerf_level as k5
 from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
 from sahs_tpu_torch.ops.kernels import skip_mlp as k13
-from sahs_tpu_torch.tools import level_exact, sigma_head
+from sahs_tpu_torch.tools import level_exact, point_spread, sigma_head
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
 
 torch.set_num_threads(2)
@@ -162,6 +165,37 @@ def test_exact_plain_sums_the_deformation_nets_in_float64(kernel):
     if gx_p is not None:
         assert gx_x.dtype == torch.float64 and gx_x.shape == gx_p.shape
         assert point_errors(gx_x, gx_p)["l2_rel"] <= 5e-2
+
+
+@pytest.mark.parametrize("net", ["warp", "hyper"])
+def test_exact_plain_runs_one_deformation_net_in_float64(net):
+    """The reference of the tensor-core K13 on the card: the output comes
+    out in float64, within bf16 rounding of the plain version in bfloat16,
+    and in float32 (no operand rounded) within F32_VS_F64 of its float32
+    run."""
+    _, (pts, w, g, _, _) = _deform_inputs(f"K14 {net}")
+    out_x = level_exact.exact_plain(k13.skip_mlp_plain, pts, w, "bfloat16")
+    out_p = k13.skip_mlp_plain(pts, w, "bfloat16")
+    assert out_x.dtype == torch.float64 and out_x.shape == out_p.shape == g.shape
+    assert point_errors(out_x, out_p)["l2_rel"] <= 5e-2
+    out_x = level_exact.exact_plain(k13.skip_mlp_plain, pts, w, "float32")
+    e = point_errors(out_x, k13.skip_mlp_plain(pts, w, "float32"))
+    assert e["l2_rel"] <= F32_VS_F64 and e["cosine"] >= 1 - 1e-9, e
+    assert field_mlp.round_to(torch.ones(2), torch.bfloat16).dtype == torch.float32
+
+
+def test_point_spread_finds_the_points_that_carry_a_distance():
+    """(d) A distance planted in 3 of 1000 points: they carry all of the
+    squared distance (worst 10 and worst 1 %), and without the worst 1 %
+    the rest reads the background error alone."""
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.randn(1000, 3))
+    a = x + 1e-6 * torch.tensor(rng.randn(1000, 3))
+    a[[5, 50, 500]] += 1.0
+    s = point_spread.spread(a, x)
+    assert s["top10_share"] > 0.999 and s["top1pct_share"] > 0.999
+    assert sorted(s["worst10"][:3]) == [5, 50, 500]
+    assert s["l2_rel"] > 1e-2 and s["l2_rel_without_top1pct"] < 2e-6
 
 
 def _leaves(tree):

@@ -13,8 +13,10 @@ kernels), on the CPU:
   (c) every (k, n) of every dW product, bias rows included, falls in
       exactly one work item of the split-K reduction;
   (d) the tile sizes agree with the CUDA sources, in both dtypes;
-  (e) the bf16 forward-only kernel (K7, K11) takes mma.cuh's tile and
-      block, and its shared memory leaves room for two blocks an SM.
+  (e) the bf16 forward-only kernels (K7, K11; K13) take mma.cuh's tile and
+      block, and their shared memory leaves room for the blocks an SM
+      that their launch bounds ask for;
+  (f) the kernels' C functions are looked up and typed once.
 """
 import os
 import re
@@ -194,8 +196,18 @@ def test_tile_sizes_match_the_cuda_sources():
     for src in ("deform_pair_vjp.cu", "skip_mlp.cu"):
         with open(os.path.join(CSRC, src)) as fp:
             assert '#include "skip_tc.cuh"' in fp.read()
-    # the width step the K3 and K14 wrappers check in bf16
+    # the width step the K3, K13 and K14 wrappers check in bf16
     assert k13.TC_K_STEP == _cu_const("skip_tc.cuh", "SKIP_KS")
+    # bf16 K13: skip_fwd_tc_kernel on mma.cuh's tile, its slices a whole
+    # number of k-steps that divides the width step, launched with the
+    # layout without the product back to the encoding
+    src = _cu_text("skip_mlp.cu")
+    ks = _cu_const("skip_mlp.cu", "SKIP_FWD_KS")
+    assert ks % 16 == 0 and k13.TC_K_STEP % ks == 0
+    assert "const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, KS);" in src
+    assert "const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, SKIP_FWD_KS);" in src
+    assert "skip_fwd_tc_kernel<SKIP_FWD_KS>\n      <<<(unsigned)n_tiles, sahs::TC_THREADS" in src
+    assert "const long long base = (long long)blockIdx.x * TC_TP;" in src
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -293,3 +305,96 @@ def _model_without_ambient():
     cfg.models.hyper.use_ambient = False
     spec = nerface.ModelSpec.from_config(cfg)
     return nerface.NeRFaceModel.init(spec, seed=0, device="cpu")
+
+
+def _skip_fwd_smem_bytes(pe_dim):
+    """skip_tc.cuh's SkipLayout(pe_dim, false, SKIP_FWD_KS).bytes, from the
+    sources' constants: the encoding [pad(pe_dim) to SKIP_KS], two
+    SKIP_HMAX-row activation tiles and the two-slice weight ring for
+    outputs up to max(SKIP_HMAX, pad8(pe_dim)) wide."""
+    tp, hmax = _cu_const("mma.cuh", "TC_TP"), _cu_const("skip_tc.cuh", "SKIP_HMAX")
+    pad_ks, ks = _cu_const("skip_tc.cuh", "SKIP_KS"), _cu_const("skip_mlp.cu", "SKIP_FWD_KS")
+    hdr = _cu_text("skip_tc.cuh")
+    assert "ha = pe + pad_ks(pe_dim) * TC_LD * 2;" in hdr
+    assert "ring = gs + (to_pe ? SKIP_HMAX * TC_LD * 2 : 0);" in hdr
+    assert "bytes = ring + ring_bytes(n_pe > SKIP_HMAX ? n_pe : SKIP_HMAX, ks);" in hdr
+    row = (tp + 8) * 2
+    return (-(-pe_dim // pad_ks) * pad_ks * row + 2 * hmax * row
+            + 2 * ks * (max(hmax, -(-pe_dim // 8) * 8) + 8) * 2)
+
+
+@pytest.mark.parametrize("net", ["warp", "hyper"])
+def test_skip_forward_layout_fits_its_blocks(models, net):
+    """bf16 K13 (``skip_mlp.cu:skip_fwd_tc_kernel``): the warp and the hyper
+    net's trunks fit the kernel's tiles, and its shared memory leaves room
+    for the blocks an SM that its launch bounds ask for."""
+    cond = torch.tensor(np.random.RandomState(0).randn(76 + 36).astype(np.float32))
+    model = models["grid"]
+    w = k13.prepare_skip(getattr(model, net), cond,
+                         nerface.build_pe_groups(model.spec)[0],
+                         "tanh" if net == "warp" else "linear")
+    pe_dim = w.trunk[0]["w"].shape[0]
+    widths = [p["w"].shape[1] for p in w.trunk]
+    assert pe_dim == 63 and widths == [128 if net == "warp" else 64] * 6
+    assert max(widths) <= _cu_const("skip_tc.cuh", "SKIP_HMAX")
+    assert all(n % k13.TC_K_STEP == 0 for n in widths)
+    blocks = _cu_const("skip_mlp.cu", "SKIP_FWD_BLOCKS")
+    assert re.search(r"__launch_bounds__\(sahs::TC_THREADS, SKIP_FWD_BLOCKS\)\n"
+                     r"skip_fwd_tc_kernel\(FwdArgs a\)", _cu_text("skip_mlp.cu"))
+    assert _cu_const("mma.cuh", "TC_THREADS") * blocks <= 2048
+    smem = _skip_fwd_smem_bytes(pe_dim)
+    assert smem % 16 == 0 and smem <= BLOCK_MAX
+    assert blocks * (smem + BLOCK_RESERVED) <= SM_SMEM
+    if _cu_const("skip_mlp.cu", "SKIP_FWD_KS") == 32:
+        assert smem == 63488
+
+
+def test_kernel_functions_are_resolved_once(monkeypatch):
+    """``_build.function`` keeps one typed C function per (library,
+    symbol): a second lookup returns the same object without loading the
+    library again, and its argument types are set once. A stub library
+    stands in for nvcc's."""
+    import ctypes
+    from sahs_tpu_torch.ops.kernels import _build
+
+    class Fn:
+        def __init__(self):
+            self.sets = 0
+            self._argtypes = None
+
+        @property
+        def argtypes(self):
+            return self._argtypes
+
+        @argtypes.setter
+        def argtypes(self, v):
+            self.sets += 1
+            self._argtypes = v
+
+    loads = []
+
+    class Lib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, symbol):
+            return self.fns.setdefault(symbol, Fn())
+
+    libs = {}
+
+    def load(name):
+        loads.append(name)
+        return libs.setdefault(name, Lib())
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "_FUNCS", {})
+    a = _build.function("stub", "sahs_a", "ppli")
+    assert _build.function("stub", "sahs_a", "ppli") is a
+    assert loads == ["stub"] and a.sets == 1
+    assert a.argtypes == [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                          ctypes.c_int]
+    assert a.restype is ctypes.c_int
+    b = _build.function("stub", "sahs_b", "f")
+    c = _build.function("other", "sahs_a", "p")
+    assert b is not a and c is not a and loads == ["stub", "stub", "other"]
+    assert (b.argtypes, c.argtypes) == ([ctypes.c_float], [ctypes.c_void_p])

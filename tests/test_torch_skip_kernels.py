@@ -223,15 +223,27 @@ def _meta(*shape):
 
 
 @pytest.mark.parametrize("case", ["precomputed_pe", "wide_trunk", "wide_head",
-                                  "points_width", "k15_device"])
+                                  "points_width", "k15_device", "bf16_trunk_step"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(nets, case):
     """(d) Before any launch, on a tensor that is not on the CPU: K13 and
     K14 refuse the precomputed-PE form (not ported), trunks wider than 128,
-    heads of more than 8 outputs and points other than (P, 3); K15 refuses
-    a device other than CUDA."""
+    heads of more than 8 outputs and points other than (P, 3), and in
+    bfloat16 trunk widths that are not multiples of the tensor cores'
+    weight slice (a multiple of 8 that float32 takes); K15 refuses a
+    device other than CUDA."""
     _, model, _, cond, _ = nets
     w = _weights(model, "warp", cond)
     pts = _meta(64, 3)
+    if case == "bf16_trunk_step":
+        w.trunk[1] = {"w": torch.zeros(128, 40), "b": torch.zeros(40)}
+        for fn, args in ((k13.skip_mlp_forward, ()),
+                         (k13.skip_mlp_vjp, (_meta(64, 3), True))):
+            with pytest.raises(ValueError, match=f"multiples of {k13.TC_K_STEP}"):
+                fn(pts, w, *args, "bfloat16")
+            # float32 takes the width: it gets past the check to the device
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                fn(pts, w, *args, "float32")
+        return
     if case == "precomputed_pe":
         w = k13.prepare_skip(model.warp, torch.tensor(cond), None, "tanh")
         pts, match = _meta(64, 63), "precomputed-PE form is not ported"
