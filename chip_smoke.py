@@ -6,18 +6,25 @@
 
 Phases, in order (any failure exits non-zero and prints no result):
   1. build every CUDA kernel of sahs_tpu_torch/csrc (one nvcc per source,
-     in parallel) and print the build time and ptxas' register report;
+     in parallel) and print the build time and ptxas' register and spill
+     report, each under its kernel's (mangled) name;
   2. kernel parity: K1 (deform pair) and K5 (NeRF level) against their
      plain PyTorch versions on the card, on rays of the synthetic frame at
      S = 64 and 128 samples, with a background prior and with sigma noise,
      in float32 (gate: max abs error <= 1e-4, corner rows exact) and in
-     bfloat16 (gate 2e-2 relative, the bf16 gate of PARITY_TPU.json: for
-     K5's rgb_map and weights as max |a - b| / (|b| + 1e-3), the metric of
-     that file; for K1's outputs, which pass through zero, as
-     max |a - b| / max |b| taken separately over the warp offset
-     (output xyz less the input point) and over the ambient coordinates);
-     in both types K1's rows must be, bit for bit, the cells of K1's own
-     output coordinates;
+     bfloat16, where both run on the tensor cores (K1
+     deform_pair_tc_kernel; K5 field_tc_kernel and composite_fwd_kernel),
+     against exact sums (tools/level_exact.exact_plain: in each output
+     group, each against its own scale, at most EXACT_MULTIPLE times the
+     plain version's distance: K5's composited rgb and seg channels and
+     its weights, floor LEVEL_FLOOR; K1's warp offset, output xyz less the
+     input point, and ambient coordinates, floor SKIP_FLOOR); in both
+     types K1's rows must be, bit for bit, the cells of K1's own output
+     coordinates; faults planted in what bf16 K1 and K5 read (rows 32-63
+     of the warp trunk[1]'s weights left out of K1's blob, the hyper
+     head's bias dropped; rows 16-31 of trunk[1]'s and, apart, of the rgb
+     head's weights left out of K5's forward blob, the alpha bias
+     dropped) must each miss those gates;
   3. the main path: the flagship Config() (AudioFaceModel, 64 + 64 samples,
      32-channel 32^3 grid, background prior, bf16) with seeded random
      weights renders a synthetic 512x512 audio frame through
@@ -28,14 +35,19 @@ Phases, in order (any failure exits non-zero and prints no result):
      the plain path (no kernels) within 1e-3; it prints ms/frame on the
      device (CUDA events) and on the host clock;
   4. at the main path's fine-chunk shape (32768 rays x 128 samples, bf16)
-     both kernels are held once more against their plain versions, with
-     phase 2's bf16 gates and K1's rows checked against its own output;
+     both kernels are held once more against exact sums over the whole
+     chunk, with phase 2's bf16 gates (the reference run EXACT_RAYS rays at
+     a time), against their plain versions at 2e-2 (the bf16 gate of
+     PARITY_TPU.json, as before the tensor cores), and K1's rows checked
+     against its own output;
      then per-kernel times at that shape (CUDA events):
      the kernel, its plain version, and the same function as one chain of
      PyTorch calls under bf16 autocast (cuBLAS; a yardstick only), beside
      the least time the card could take (bound_ms); the kernels again at
      the coarse level's shapes, which with the fine times gives the
-     frame's kernel time;
+     frame's kernel time; and bf16 K5's device time by launch
+     (torch.profiler: field_tc_kernel, composite_fwd_kernel), kept in its
+     entry of the kernels line as "launch_ms";
   5. train-kernel parity: K2 (both levels), K3 and K4 against their plain
      versions on the train path's own inputs, float32 at 256 rays (with
      bg_sup 0 and 0.5) and bfloat16 at the main path's 2048 rays, with the
@@ -71,7 +83,9 @@ Phases, in order (any failure exits non-zero and prints no result):
      against their plain versions in float32; K5 and K6 again on path 3's
      own inputs (both levels, the loss cotangents with g_w) in float32 at
      256 rays and bfloat16 at 2048, and K5 in bfloat16 at the ablation
-     frame's 32,768-ray chunk (64 and 128 samples), with the same gates;
+     frame's 32,768-ray chunk (64 and 128 samples), with the same gates
+     (bf16 K5 against exact sums as in phase 2, and phase 2's three
+     faults planted in K5 on path 3's fine level must each miss);
      bf16 K7 runs on the tensor cores (level_train.cu:field_tc_kernel) and
      is also held against exact sums (tools/level_exact.exact_plain: in
      each output group at most EXACT_MULTIPLE times the plain version's
@@ -160,8 +174,8 @@ Phases, in order (any failure exits non-zero and prints no result):
      version on the arguments its path gives it (recorded around the plain
      versions on one step of the fused path, fallback path 1, the reuse
      path and the per-point step at 64 + 128), float32 at 256 rays and
-     bfloat16 at 2048, with the gates of phases 2, 5, 7 and 9 (bf16 K7
-     and K11 also against exact sums); a fault
+     bfloat16 at 2048, with the gates of phases 2, 5, 7 and 9 (bf16 K1,
+     K5, K7 and K11 also against exact sums); a fault
      planted in each kernel's bf16 result must miss them (K1 with its hyper
      bias at 1; K5, K7, K11 without the alpha bias; K7, K11 with rows
      16-31 of trunk[1]'s and, apart, of the rgb head's weights left out;
@@ -824,8 +838,10 @@ def fallback_gates_missed(res, compute_dtype) -> list:
                 missed.append(name)
             continue
         if name.startswith("k5"):
+            # bf16 K5 (the tensor cores) by the exact-sum rule (level_exact)
             ok = r["finite"] and (max(r["rgb_abs"], r["w_abs"]) <= g["out_abs"] if f32
-                                  else max(r["rgb_rel"], r["w_rel"]) <= g["out_rel"])
+                                  else r["exact"]["ok"] and max(r["rgb_rel"], r["w_rel"])
+                                  <= g["out_rel"])
             if not ok:
                 missed.append(name)
             continue
@@ -1006,6 +1022,8 @@ def ablation_kernel_parity(levels) -> dict:
             "rgb_abs": abs_err(rgb_k, rgb_p), "w_abs": abs_err(w_k, w_p),
             "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
             "finite": bool(torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all())}
+        if lv["fwd"][8] == "bfloat16":
+            res[f"k5_{name}"]["exact"] = level_exact(lv["fwd"], rgb_k, w_k, rgb_p, w_p)
         gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*lv["args"])
         gx_p, gse_p, gbg_p, g_p = lv["plain"]
         e = tree_errors(g_k, g_p)
@@ -1021,7 +1039,8 @@ def ablation_kernel_parity(levels) -> dict:
 def ablation_frame_chunk_parity(dev, gen) -> dict:
     """K5 in bfloat16 at the ablation frame's chunk shapes (32,768 rays x
     64 and x 128 samples, no noise, the background prior) against its plain
-    version: max |a - b| / (|b| + 1e-3) over rgb_map and the weights."""
+    version (max |a - b| / (|b| + 1e-3) over rgb_map and the weights) and
+    against exact sums (level_exact, on every ray)."""
     import torch
     from sahs_tpu_torch.config import load_config
     from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
@@ -1055,6 +1074,7 @@ def ablation_frame_chunk_parity(dev, gen) -> dict:
         res[f"k5_{name} ({R} x {S})"] = {
             "rgb_abs": abs_err(rgb_k, rgb_p), "w_abs": abs_err(w_k, w_p),
             "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
+            "exact": level_exact(args, rgb_k, w_k, rgb_p, w_p),
             "finite": bool(torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all())}
         del rgb_k, w_k, rgb_p, w_p
     torch.cuda.synchronize()
@@ -1268,8 +1288,8 @@ def fault_passes(e) -> bool:
     """True when a planted fault's reading passes the bf16 gates."""
     if "guard_clean" in e:
         return e["guard_clean"]
-    if "raw_scaled" in e:
-        return e["raw_scaled"] <= BF16_GATE and e.get("ok", True)
+    if "raw_scaled" in e or "ok" in e:
+        return e.get("raw_scaled", 0.0) <= BF16_GATE and e.get("ok", True)
     return dw_ok(e, TRAIN_BF16_GATES)
 
 
@@ -1314,6 +1334,147 @@ def field_exact(fp, args, raw_k, raw_p) -> dict:
             "ok": all(d_k[g] <= EXACT_MULTIPLE * max(d_p[g], FIELD_FLOOR) for g in d_k)}
 
 
+# bf16 K5 and K1 on the tensor cores keep the same multiple in each of
+# their output groups, each against its own scale (as
+# tests/test_torch_cuda.py's _level_exact and _pair_exact): K5's composited
+# rgb and seg channels and its weights, with a floor below the plain
+# version's distance to exact sums (LEVEL_FLOOR); K1's warp offset (output
+# xyz less the input point) and ambient coordinates, with K13's floor (the
+# same nets). The reference runs on every ray of a call, EXACT_RAYS rays at
+# a time (rays, and K1's points, are independent of each other): a float64
+# run of a frame chunk's 4.19 M points at once would hold tens of GB.
+LEVEL_FLOOR = 1e-7
+EXACT_RAYS = 2048
+
+
+def _exact_rule(sq, floor) -> dict:
+    """The L2-relative distances per group from the sums of squares ``sq``
+    ({group: [|k - x|^2, |p - x|^2, |x|^2]}) and whether the kernel keeps
+    the rule in every group."""
+    d_k = {g: (v[0] / max(v[2], 1e-300)) ** 0.5 for g, v in sq.items()}
+    d_p = {g: (v[1] / max(v[2], 1e-300)) ** 0.5 for g, v in sq.items()}
+    return {"kernel_vs_exact": d_k, "plain_vs_exact": d_p,
+            "ok": all(d_k[g] <= EXACT_MULTIPLE * max(d_p[g], floor) for g in d_k)}
+
+
+def _add_squares(sq, groups, k, p, x):
+    """Adds each group's |k - x|^2, |p - x|^2 and |x|^2 to ``sq``."""
+    for g, f in groups.items():
+        fx = f(x).double()
+        v = sq.setdefault(g, [0.0, 0.0, 0.0])
+        v[0] += float((f(k).double() - fx).pow(2).sum())
+        v[1] += float((f(p).double() - fx).pow(2).sum())
+        v[2] += float(fx.pow(2).sum())
+
+
+def level_exact(args, rgb_k, w_k, rgb_p, w_p) -> dict:
+    """bf16 K5's results (rgb_map, weights) on ``args`` and the plain
+    version's, against exact sums on every ray: the L2-relative distances
+    per group and whether the kernel keeps the rule in every group."""
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.tools.level_exact import exact_plain
+    pts, dirs, table, rows, z, bg, noise = args[:7]
+    R, S = z.shape
+    groups = {"rgb": lambda o: o[0][:, :3], "seg": lambda o: o[0][:, 3:15],
+              "weights": lambda o: o[1]}
+    sq = {}
+    for a in range(0, R, EXACT_RAYS):
+        b = min(R, a + EXACT_RAYS)
+        cut = lambda t: None if t is None else t[a:b]
+        sub = (pts[a * S:b * S], dirs[a:b], table,
+               None if rows is None else rows.reshape(-1)[a * S:b * S], z[a:b], cut(bg),
+               cut(noise)) + tuple(args[7:])
+        _add_squares(sq, groups, (rgb_k[a:b], w_k[a:b]), (rgb_p[a:b], w_p[a:b]),
+                     exact_plain(k5.nerf_level_plain, *sub))
+    return {"rays": R, **_exact_rule(sq, LEVEL_FLOOR)}
+
+
+def pair_exact(args, out_k, out_p) -> dict:
+    """bf16 K1's packed points on ``args`` (points, pair, dtype, samples,
+    grid) and the plain version's, against exact sums on every point: the
+    L2-relative distances of the warp offset and the ambient coordinates
+    and whether the kernel keeps the rule in both."""
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.tools.level_exact import exact_plain
+    pts, pair, dtype, S, dims = args
+    P, n = pts.shape[0], EXACT_RAYS * S
+    sq = {}
+    for a in range(0, P, n):
+        b = min(P, a + n)
+        x = pts[a:b]
+        groups = {"warp": lambda o: o[:, :3].double() - x.double(),
+                  "ambient": lambda o: o[:, 3:]}
+        _add_squares(sq, groups, out_k[a:b], out_p[a:b],
+                     exact_plain(k1.deform_pair_plain, x, pair, dtype, S, dims)[0])
+    return {"points": P, **_exact_rule(sq, SKIP_FLOOR)}
+
+
+def blob_fault(weights, key, layer: int, rows=None):
+    """A copy of folded weights whose blob ``weights._blobs[key]`` (built
+    by ``weights.blob`` / ``nerf_level.point_blob`` first) leaves out the
+    weight rows ``rows`` (a (start, stop) pair) of forward layer ``layer``,
+    or drops its bias when ``rows`` is None."""
+    import dataclasses
+    import torch
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    faulty = dataclasses.replace(weights, _blobs={})
+    w, b, meta = (k5.point_blob(faulty, torch.bfloat16) if key == ("point", torch.bfloat16)
+                  else faulty.blob(key))
+    w1, k, _, _, n, ob = meta.reshape(-1, 7)[layer, :6].tolist()
+    if rows is None:
+        if float(b[ob:ob + n].detach().abs().max()) == 0:
+            raise ValueError(f"forward layer {layer} has no bias to drop")
+        b = b.clone()
+        b[ob:ob + n] = 0
+    else:
+        if k < rows[1]:
+            raise ValueError(f"forward layer {layer} has {k} rows, fewer than {rows[1]}")
+        w = w.clone()
+        w[w1 + rows[0] * n:w1 + rows[1] * n] = 0
+    faulty._blobs[key] = (w, b, meta)
+    return faulty
+
+
+def level_planted_faults(args) -> dict:
+    """bf16 K5 on ``args`` with a fault planted in the forward blob that it
+    reads (``nerf_level.point_blob``): rows 16-31 of trunk[1]'s and, apart,
+    of the rgb head's weights left out, the alpha head's bias dropped. Each
+    must miss level_exact's rule."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    lvl, key = args[7], ("point", torch.bfloat16)
+    L = len(lvl.trunk)
+    rgb_p, w_p = k5.nerf_level_plain(*args)
+    out = {}
+    for name, faulty in (
+            ("rows 16-31 of trunk[1] left out", blob_fault(lvl, key, 1, (16, 32))),
+            ("rows 16-31 of the rgb head left out", blob_fault(lvl, key, L + 6, (16, 32))),
+            ("the alpha bias dropped", blob_fault(lvl, key, L + 1))):
+        rgb_f, w_f = k5.nerf_level_forward(*args[:7], faulty, *args[8:])
+        out[f"k5 {name}"] = level_exact(args, rgb_f, w_f, rgb_p, w_p)
+    return out
+
+
+def pair_planted_faults(args) -> dict:
+    """bf16 K1 on ``args`` with a fault planted in the blob that it reads
+    (K3's too): rows 32-63 of the warp trunk[1]'s weights left out (one
+    32-row slice of what the ring stages), the hyper head's bias dropped.
+    Each must miss pair_exact's rule."""
+    import torch
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    pts, pair = args[:2]
+    out_p = k1.deform_pair_plain(*args)[0]
+    head = len(pair.warp_trunk) + 1 + len(pair.hyper_trunk)
+    out = {}
+    for name, faulty in (
+            ("rows 32-63 of the warp trunk[1] left out",
+             blob_fault(pair, torch.bfloat16, 1, (32, 64))),
+            ("the hyper head's bias dropped", blob_fault(pair, torch.bfloat16, head))):
+        out[f"k1 {name}"] = pair_exact(args, k1.deform_pair_forward(
+            pts, faulty, *args[2:])[0], out_p)
+    return out
+
+
 def field_slice_layers(lvl) -> list:
     """(layer index in the forward blob, name) of the layers whose rows
     16-31 field_slice_fault leaves out: trunk[1] and the rgb head."""
@@ -1326,18 +1487,8 @@ def field_slice_fault(fk, fp, args, wi: int, layer: int) -> dict:
     that the tensor-core kernel reads (one 16-row K-slice of what the ring
     stages), against the plain version (field_scaled) and against exact
     sums (field_exact's rule)."""
-    import dataclasses
     import torch
-    from sahs_tpu_torch.ops.kernels import nerf_level as k5
-    lvl = args[wi]
-    faulty = dataclasses.replace(lvl, _blobs={})
-    w, b, meta = k5.point_blob(faulty, torch.bfloat16)
-    w1, k, _, _, n = meta.reshape(-1, 7)[layer, :5].tolist()
-    if k < 32:
-        raise ValueError(f"forward layer {layer} has {k} rows, fewer than 32")
-    w = w.clone()
-    w[w1 + 16 * n:w1 + 32 * n] = 0
-    faulty._blobs[("point", torch.bfloat16)] = (w, b, meta)
+    faulty = blob_fault(args[wi], ("point", torch.bfloat16), layer, (16, 32))
     raw_f, raw_p = fk(*(args[:wi] + (faulty,) + args[wi + 1:])), fp(*args)
     return {"raw_scaled": field_scaled(raw_f, raw_p), **field_exact(fp, args, raw_f, raw_p)}
 
@@ -2059,6 +2210,8 @@ def grid_free_parity(inp):
             "abs": abs_err(out_k, out_p), **k1_errors(out_k, out_p, a[0]),
             "max_abs_err": abs_err(out_k, out_p),
             "no_rows": rows_k is None and rows_p is None, "finite": fin(out_k)}
+        if a[2] == "bfloat16":
+            res[f"k1 {('coarse', 'fine')[i]}"]["exact"] = pair_exact(a, out_k, out_p)
     a = _fine(inp["nerf_level_train"])
     rgb_k, w_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*a)
     rgb_p, w_p, gx_p, gse_p, gbg_p, g_p = k2.nerf_level_train_plain(*a)
@@ -2077,6 +2230,8 @@ def grid_free_parity(inp):
                       "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
                       "max_abs_err": max(abs_err(rgb_k, rgb_p), abs_err(w_k, w_p)),
                       "finite": fin(rgb_k, w_k)}
+    if a[8] == "bfloat16":
+        res["k5 fine"]["exact"] = level_exact(a, rgb_k, w_k, rgb_p, w_p)
     a = _fine(inp["nerf_level_vjp"])
     gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*a)
     gx_p, gse_p, gbg_p, g_p = k2.nerf_level_vjp_plain(*a)
@@ -2113,16 +2268,15 @@ def grid_free_parity(inp):
 
 def grid_free_gates_missed(res, compute_dtype) -> list:
     """Phases 5, 7 and 9's gates on the grid-free kernels: K1's packed
-    points as phase 2 holds them (1e-4 absolute in float32, 2e-2 of each
-    output group's scale in bf16) and no rows; K2 as train_gates_missed,
-    the rest as fallback_gates_missed."""
+    points as phase 2 holds them (1e-4 absolute in float32, the exact-sum
+    rule of pair_exact in bf16) and no rows; K2 as train_gates_missed, the
+    rest as fallback_gates_missed."""
     f32 = compute_dtype == "float32"
     missed = []
     for name, r in res.items():
         if name.startswith("k1 "):
             ok = r["finite"] and r["no_rows"] and (
-                r["abs"] <= 1e-4 if f32
-                else max(r["k1_scaled_warp"], r["k1_scaled_ambient"]) <= BF16_GATE)
+                r["abs"] <= 1e-4 if f32 else r["exact"]["ok"])
             if not ok:
                 missed.append(name)
     missed += train_gates_missed({k: v for k, v in res.items() if k.startswith("k2 ")},
@@ -2134,10 +2288,10 @@ def grid_free_gates_missed(res, compute_dtype) -> list:
 
 def grid_free_planted_faults(inp, trees) -> dict:
     """What the gates see with one fault planted in each grid-free kernel's
-    own bf16 results: K1 without the hyper head's bias (its ambient output
-    against the plain version's); K5, K7 and K11 without the alpha head's
-    bias (max |a - b| / max |b| of their outputs, K7's and K11's per
-    group), and K7 and K11 with rows 16-31 of trunk[1]'s weights, and apart
+    own bf16 results: K1 with the hyper head's bias set to 1 and K5 without
+    the alpha head's bias (the exact-sum rule of pair_exact and
+    level_exact); K7 and K11 without the alpha head's bias (max |a - b| /
+    max |b| per group), and K7 and K11 with rows 16-31 of trunk[1]'s weights, and apart
     from that of the rgb head's, left out of their forward blob
     (field_slice_fault); K2, K6 and K12's bias
     gradient of trunk[1] dropped; the points of K8's first split-K chunk
@@ -2162,14 +2316,12 @@ def grid_free_planted_faults(inp, trees) -> dict:
     bad = dataclasses.replace(pair, hyper_out={"w": pair.hyper_out["w"],
                                                "b": torch.ones_like(pair.hyper_out["b"])},
                               _blobs={})
-    out["k1 with the hyper head's bias set to 1"] = {"raw_scaled": k1_errors(
-        k1.deform_pair_forward(a[0], bad, *a[2:])[0], k1.deform_pair_plain(*a)[0],
-        a[0])["k1_scaled_ambient"]}
+    out["k1 with the hyper head's bias set to 1"] = pair_exact(
+        a, k1.deform_pair_forward(a[0], bad, *a[2:])[0], k1.deform_pair_plain(*a)[0])
     a = _fine(inp["nerf_level_forward"])
     rgb_k, w_k = k5.nerf_level_forward(*a[:7], no_alpha_bias(a[7]), *a[8:])
     rgb_p, w_p = k5.nerf_level_plain(*a)
-    out["k5 without the alpha bias"] = {"raw_scaled": max(scaled_err(rgb_k, rgb_p),
-                                                          scaled_err(w_k, w_p))}
+    out["k5 without the alpha bias"] = level_exact(a, rgb_k, w_k, rgb_p, w_p)
     for name, key, fk, fp, wi in (
             ("k7", "nerf_rayd_forward", k5.nerf_rayd_forward, k5.nerf_raw_plain, 4),
             ("k11", "nerf_mlp_forward_fused", k11.nerf_mlp_forward_fused,
@@ -2565,7 +2717,7 @@ def main(argv) -> int:
     print(f"kernel build: {report['build_s']:.1f} s", flush=True)
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     cfg = Config()
@@ -2614,6 +2766,11 @@ def main(argv) -> int:
                    "k5_w_abs": abs_err(w_k, w_p), "k5_w_rel": rel_err(w_k, w_p),
                    "finite": bool(torch.isfinite(out_k).all() and torch.isfinite(rgb_k).all()
                                   and torch.isfinite(w_k).all())}
+            k1_args = (pts, pair, compute_dtype, S, dims)
+            k5_args = (out_p, rd, table, rows_p, z, bgr, noise, lw, compute_dtype, dims)
+            if compute_dtype == "bfloat16":
+                row["k1_exact"] = pair_exact(k1_args, out_k, out_p)
+                row["k5_exact"] = level_exact(k5_args, rgb_k, w_k, rgb_p, w_p)
             parity.append(row)
             print("parity " + json.dumps(row), flush=True)
             if not row["finite"]:
@@ -2624,9 +2781,17 @@ def main(argv) -> int:
                 if max(row["k1_abs"], row["k5_rgb_abs"], row["k5_w_abs"]) > 1e-4 \
                         or row["k1_rows_mismatch"]:
                     return fail(f"float32 parity gate (1e-4 abs, exact rows) missed: {row}")
-            elif max(row["k1_scaled_warp"], row["k1_scaled_ambient"],
-                     row["k5_rgb_rel"], row["k5_w_rel"]) > BF16_GATE:
-                return fail(f"bf16 parity gate ({BF16_GATE} rel) missed: {row}")
+            elif not (row["k1_exact"]["ok"] and row["k5_exact"]["ok"]):
+                return fail(f"bf16 parity gate ({EXACT_MULTIPLE} x the plain version's "
+                            f"distance to exact sums) missed: {row}")
+            elif noise is not None:
+                faults = {**pair_planted_faults(k1_args), **level_planted_faults(k5_args)}
+                report["k1_k5_planted_faults"] = faults
+                print("K1 / K5 planted faults (bf16, 2048 rays x 64; each must miss the "
+                      "exact-sum rule) " + json.dumps(faults), flush=True)
+                passed = [k for k, e in faults.items() if fault_passes(e)]
+                if passed:
+                    return fail(f"the bf16 K1 / K5 gates pass a planted fault: {passed}")
     report["parity"] = parity
 
     # 3. main path ------------------------------------------------------------
@@ -2724,16 +2889,21 @@ def main(argv) -> int:
                  != _cell_geometry(out_k1[:, :3], dims)[0]).sum()),
             "k5_rgb_abs": abs_err(rgb_k5, rgb_p5), "k5_rgb_rel": rel_err(rgb_k5, rgb_p5),
             "k5_w_abs": abs_err(w_k5, w_p5), "k5_w_rel": rel_err(w_k5, w_p5),
+            "k1_exact": pair_exact((pts_t, pair, "bfloat16", S_t, dims), out_k1, packed_t),
+            "k5_exact": level_exact((packed_t, rd_t, table_bf, rows_t, z_t, bg_t, None, lw,
+                                     "bfloat16", dims), rgb_k5, w_k5, rgb_p5, w_p5),
             "finite": bool(torch.isfinite(out_k1).all() and torch.isfinite(rgb_k5).all()
                            and torch.isfinite(w_k5).all())}
     report["parity_fine_chunk"] = fine
     print(f"parity at the fine chunk ({R_t} rays x {S_t}, bfloat16) "
           + json.dumps(fine), flush=True)
-    if not fine["finite"] or fine["k1_rows_self_mismatch"] or max(
-            fine["k1_scaled_warp"], fine["k1_scaled_ambient"],
-            fine["k5_rgb_rel"], fine["k5_w_rel"]) > BF16_GATE:
-        return fail(f"bf16 parity gate ({BF16_GATE} rel, rows of K1's own "
-                    f"output) missed at the fine chunk: {fine}")
+    if not (fine["finite"] and fine["k1_exact"]["ok"] and fine["k5_exact"]["ok"]) \
+            or fine["k1_rows_self_mismatch"] or max(
+                fine["k1_scaled_warp"], fine["k1_scaled_ambient"],
+                fine["k5_rgb_rel"], fine["k5_w_rel"]) > BF16_GATE:
+        return fail(f"bf16 parity gate ({EXACT_MULTIPLE} x the plain version's distance "
+                    f"to exact sums, {BF16_GATE} rel of the plain version, rows of "
+                    f"K1's own output) missed at the fine chunk: {fine}")
     err_k1 = fine["k1_abs"]
     err_k5 = max(fine["k5_rgb_abs"], fine["k5_w_abs"])
     del out_k1, rows_k1, rgb_k5, w_k5, rgb_p5, w_p5
@@ -2742,7 +2912,7 @@ def main(argv) -> int:
             ("deform_pair", "sahs_tpu_torch/csrc/deform_pair.cu",
              "sahs_tpu/ops/pallas/field_mlp.py:868", f_k1, f_k1p, f_k1c,
              k1_macs(pair) * P, P * 3 * 4, P * (5 + 1) * 4, err_k1),
-            ("nerf_level", "sahs_tpu_torch/csrc/nerf_level.cu",
+            ("nerf_level", "sahs_tpu_torch/csrc/level_train.cu",
              "sahs_tpu/ops/pallas/field_mlp.py:2681", f_k5, f_k5p, f_k5c,
              k5_macs(lw) * P + lw.dir0_dir.numel() * R_t,
              P * (5 + 1) * 4 + R_t * (3 + S_t + 15) * 4 + table_bf.numel() * 2,
@@ -2766,6 +2936,11 @@ def main(argv) -> int:
         print(f"{name}: {ms:.2f} ms at {P} points (bound {max(t_ops, t_bytes):.2f} ms, "
               f"plain {plain_ms:.2f} ms, library {library_ms:.2f} ms); "
               f"{coarse_ms:.2f} ms at the coarse level's {R_t * 64} points", flush=True)
+    # bf16 K5 is two launches a call: the raw field and the compositing
+    from sahs_tpu_torch.utils.device import device_ms_by_kernel
+    kernels[1]["launch_ms"] = device_ms_by_kernel(f_k5, launches=reps)
+    print(f"nerf_level's launches at the fine chunk (device ms, torch.profiler): "
+          f"{json.dumps(kernels[1]['launch_ms'])}", flush=True)
     report["kernels"] = kernels
     # the frame's kernel time: each chunk runs both kernels at both levels
     kernel_ms = n_chunks * sum(k["ms"] + k["coarse_ms"] for k in kernels)
@@ -3085,13 +3260,21 @@ def main(argv) -> int:
     # at the step's 2048), and K5 in bf16 at the ablation frame's chunk
     abl_path = []
     for compute_dtype, R_p in (("float32", 256), ("bfloat16", 2048)):
-        res = ablation_kernel_parity(ablation_level_inputs(dev, gen, R_p, compute_dtype,
-                                                           0.5))
+        abl_levels = ablation_level_inputs(dev, gen, R_p, compute_dtype, 0.5)
+        res = ablation_kernel_parity(abl_levels)
         abl_path.append({"dtype": compute_dtype, "rays": R_p, "samples": "64+64",
                          "bg_sup": 0.5, **res})
         print("ablation path parity " + json.dumps(abl_path[-1]), flush=True)
         missed += [f"ablation {m} ({compute_dtype}, {R_p} rays)"
                    for m in fallback_gates_missed(res, compute_dtype)]
+        if compute_dtype == "bfloat16":
+            faults = level_planted_faults(abl_levels["fine"]["fwd"])
+            report["ablation_planted_faults"] = faults
+            print("ablation K5 planted faults (bf16, path 3's fine level; each must "
+                  "miss the exact-sum rule) " + json.dumps(faults), flush=True)
+            missed += [f"the gates pass a planted fault: ablation {k}"
+                       for k, e in faults.items() if fault_passes(e)]
+        del abl_levels
     res = ablation_frame_chunk_parity(dev, gen)
     abl_path.append({"dtype": "bfloat16", "frame chunk": True, **res})
     print("ablation frame-chunk parity " + json.dumps(res), flush=True)

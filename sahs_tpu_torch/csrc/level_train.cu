@@ -33,7 +33,10 @@
 //
 // In bf16 the same file also holds K7's and K11's forward
 // (field_tc_kernel, `sahs_nerf_field_tc`): launch 1's tile routine,
-// fwd_tile, with its stash writes compiled out (see below).
+// fwd_tile, with its stash writes compiled out (see below); and K5's
+// (`sahs_nerf_level_tc`): field_tc_kernel's raw field into a float32
+// scratch, then composite_fwd_kernel, the forward half of launch 2 (one
+// routine, composite_fwd, for both), per ray (see launch_level_tc).
 //
 // A model without the spatial-embedding grid runs the grid-free form of
 // the three ray modes (field_mlp.py:nerf_level_vjp / nerf_rayd_vjp and
@@ -300,19 +303,32 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // 2. compositing, loss cotangents, compositing backward, per ray
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(CTHREADS) composite_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+// Per-ray floats of the compositing's shared memory: the forward's
+// channels [S][16], sig, tt, al, dist, cum and wt (COMPOSITE_FWD_FLOATS a
+// sample); the backward's gwt and gcum after them (COMPOSITE_FLOATS).
+constexpr int COMPOSITE_FWD_FLOATS = 22;
+constexpr int COMPOSITE_FLOATS = 24;
+
+// The forward of one ray's compositing (field_mlp.py:2498-2577), shared by
+// K2's and K6's composite_kernel and bf16 K5's composite_fwd_kernel: from
+// the ray's raw field a.raw[r*S .. (r+1)*S) the channels (sigmoid rgb;
+// softmax seg with a background prior, sigmoid without; the last sample's
+// 15 channels the prior itself with one), sig = raw sigma (+ noise), the
+// transmittance tt = exp(-sigma dist) kept explicit with sigma[S-1] +=
+// 1e-6, al = 1 - tt, the exclusive scan of log(tt + 1e-10) turned into T
+// (cum), the weights wt = al T, and rgb_map = sum_s wt ch, written to
+// a.weights, a.rgb_map and, when given, rm[16]. Ends with a __syncthreads().
+__device__ __forceinline__ void composite_fwd(const Args& a, float* smem,
+                                              float* rm) {
   const int S = a.S;
-  float* ch = reinterpret_cast<float*>(smem_raw);   // [S][16]
+  float* ch = smem;            // [S][16]
   float* sig = ch + S * 16;
   float* tt = sig + S;
   float* al = tt + S;
   float* dist = al + S;
   float* cum = dist + S;       // exclusive scan of log t, then T
   float* wt = cum + S;
-  float* gwt = wt + S;
-  float* gcum = gwt + S;       // T * g_T, then its reverse exclusive scan
-  __shared__ float rm[16], grg[16], gw_last;
   const long long r = blockIdx.x;
   const int tid = threadIdx.x;
   const bool has_bg = a.bg != nullptr;
@@ -372,10 +388,29 @@ __global__ void __launch_bounds__(CTHREADS) composite_kernel(Args a) {
   if (tid < 16) {
     float acc = 0.0f;
     for (int s = 0; s < S; ++s) acc = __fadd_rn(acc, __fmul_rn(wt[s], ch[s * 16 + tid]));
-    rm[tid] = acc;
+    if (rm != nullptr) rm[tid] = acc;
     a.rgb_map[r * 16 + tid] = acc;
   }
   __syncthreads();
+}
+
+__global__ void __launch_bounds__(CTHREADS) composite_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = a.S;
+  float* ch = reinterpret_cast<float*>(smem_raw);   // composite_fwd's layout
+  float* sig = ch + S * 16;
+  float* tt = sig + S;
+  float* al = tt + S;
+  float* dist = al + S;
+  float* cum = dist + S;
+  float* wt = cum + S;
+  float* gwt = wt + S;
+  float* gcum = gwt + S;       // T * g_T, then its reverse exclusive scan
+  __shared__ float rm[16], grg[16], gw_last;
+  const long long r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const bool has_bg = a.bg != nullptr;
+  composite_fwd(a, ch, rm);
   const bool given = a.mode == MODE_VJP;
   const float* tg = given ? nullptr : a.tgt + r * 15;
   const bool sup = !given && has_bg && a.bg_sup > 0.0f;
@@ -441,6 +476,14 @@ __global__ void __launch_bounds__(CTHREADS) composite_kernel(Args a) {
     }
     gr[15] = g_sig;
   }
+}
+
+// bf16 K5's second launch: the compositing forward alone, one block a ray,
+// from the raw field that field_tc_kernel left in a.raw (the same routine
+// as K2's and K6's first half, so the same arithmetic).
+__global__ void __launch_bounds__(CTHREADS) composite_fwd_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  composite_fwd(a, reinterpret_cast<float*>(smem_raw), nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -617,7 +660,7 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
   const long long n_tiles = (a.P + TP - 1) / TP;
   if (pad8(kx) > a.H || a.B > a.H || a.B < 16) return (int)cudaErrorInvalidValue;
   const size_t sf = fwd_smem<T>(a, kx, ndp), sb = bwd_smem<T>(a, ndp);
-  const size_t sc = (size_t)a.S * 24 * sizeof(float);
+  const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
   int err = sahs::set_smem(fwd_kernel<T>, sf);
   if (!err) err = sahs::set_smem(bwd_kernel<T>, sb);
   if (!err) err = sahs::set_smem(composite_kernel, sc);
@@ -1031,7 +1074,7 @@ int launch_tc(const Args& a, int n_work, int chunks, int out_len,
   const int nmax = imax(imax(a.H, a.B), imax(pad8(ly.kx), pad8(ly.ndp + a.C)));
   if (a.H % 16 || a.B % 16 || a.B < 16 || nmax > sahs::TC_NMAX)
     return (int)cudaErrorInvalidValue;
-  const size_t sc = (size_t)a.S * 24 * sizeof(float);
+  const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
   int err = sahs::set_smem(fwd_tc_kernel, ly.fwd);
   if (!err) err = sahs::set_smem(bwd_tc_kernel, ly.bwd);
   if (!err) err = sahs::set_smem(composite_kernel, sc);
@@ -1061,6 +1104,55 @@ int launch_field(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// K5 in bf16: the raw field into the scratch a.raw (launch_field), then
+// the compositing forward per ray.
+//
+// Replaces sahs_tpu/ops/pallas/field_mlp.py:nerf_level_forward (:2681,
+// pallas_call at :2761) in bf16; float32 keeps nerf_level.cu's SIMT
+// kernel. Why two launches: a 128-sample ray's raw (8 KB) in the tile
+// would cost field_tc_kernel its second block an SM (2 x 113,664 B of
+// 228 KB), while the scratch round trip is R*S*64 B written and as many
+// read (0.27 GB each way at a frame's fine chunk, ~0.16 ms for both at
+// 3.35 TB/s). Bound on the
+// H100: ~0.74 M multiply-adds a point, operations: 6.2 ms at a frame's
+// fine chunk (4.19 M points). Measured (PERF.md §6, tools/level_ab.py):
+// 70.1 ms there (285 on the CUDA cores; its library call 343), 88
+// TFLOP/s, 8.9 % of the bound; composite_fwd_kernel 0.28 ms of it.
+int launch_level_tc(const Args& a, cudaStream_t stream) {
+  const size_t sc = (size_t)a.S * COMPOSITE_FWD_FLOATS * sizeof(float);
+  int err = sahs::set_smem(composite_fwd_kernel, sc);
+  if (!err) err = launch_field(a, stream);
+  if (err) return err;
+  composite_fwd_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The arguments of a bf16 field launch (K7, K11 and K5's first launch):
+// rays (dirs (R, 3), rows and table, or C = 0) or, with `extra` (P, 3 + C)
+// given and S = 1, points. False when they do not fit the kernel.
+bool field_args(Args* a, const void* pts, const void* rows, const void* table,
+                const void* dirs, const void* extra, const void* w,
+                const void* b, const void* meta, void* raw, long long R, int S,
+                int PW, int L, int H, int B, int C, int amb, int nf_xyz,
+                int nf_amb, int nf_dir, int gD, int gH, int gW) {
+  const bool per_point = extra != nullptr;
+  if (raw == nullptr || S < 1 || PW < 3 || PW > 8 || amb != PW - 3 ||
+      (per_point && S != 1) ||
+      (!per_point && (dirs == nullptr ||
+                      (C > 0 && (rows == nullptr || table == nullptr)))))
+    return false;
+  *a = Args{};
+  a->pts = (const float*)pts; a->rows = (const int*)rows; a->table = table;
+  a->dirs = (const float*)dirs; a->extra = (const float*)extra;
+  a->mode = per_point ? MODE_PTS : MODE_RAW;
+  a->w = w; a->b = (const float*)b; a->meta = (const int*)meta;
+  a->raw = (float*)raw;
+  a->R = R; a->P = R * S; a->S = S; a->PW = PW; a->L = L; a->H = H; a->B = B;
+  a->C = C; a->amb = amb; a->nf_xyz = nf_xyz; a->nf_amb = nf_amb;
+  a->nf_dir = nf_dir; a->gD = gD; a->gH = gH; a->gW = gW;
+  return true;
+}
+
 }  // namespace
 
 // The bf16 raw field (P, 16) on the tensor cores: K7 (rays: pts (R*S, PW),
@@ -1074,22 +1166,32 @@ extern "C" int sahs_nerf_field_tc(
     int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
     void* stream) {
   if (R <= 0) return 0;
-  const bool per_point = extra != nullptr;
-  if (raw == nullptr || S < 1 || PW < 3 || PW > 8 || amb != PW - 3 ||
-      (per_point && S != 1) ||
-      (!per_point && (dirs == nullptr ||
-                      (C > 0 && (rows == nullptr || table == nullptr)))))
+  Args a;
+  if (!field_args(&a, pts, rows, table, dirs, extra, w, b, meta, raw, R, S, PW,
+                  L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW))
     return (int)cudaErrorInvalidValue;
-  Args a = {};
-  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
-  a.dirs = (const float*)dirs; a.extra = (const float*)extra;
-  a.mode = per_point ? MODE_PTS : MODE_RAW;
-  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
-  a.raw = (float*)raw;
-  a.R = R; a.P = R * S; a.S = S; a.PW = PW; a.L = L; a.H = H; a.B = B;
-  a.C = C; a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb;
-  a.nf_dir = nf_dir; a.gD = gD; a.gH = gH; a.gW = gW;
   return launch_field(a, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K5 in bf16, one call of two launches: K7's raw field of the rays into
+// `raw` (R*S, 16), a float32 scratch, then the compositing forward per ray
+// with z (R, S), the background prior bg (R, 15) and the sigma noise (R,
+// S) (either may be null), rgb_map (R, 16) and weights (R, S) out.
+extern "C" int sahs_nerf_level_tc(
+    const void* pts, const void* rows, const void* table, const void* dirs,
+    const void* z, const void* bg, const void* noise, const void* w,
+    const void* b, const void* meta, void* raw, void* rgb_map, void* weights,
+    long long R, int S, int PW, int L, int H, int B, int C, int amb,
+    int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW, void* stream) {
+  if (R <= 0) return 0;
+  Args a;
+  if (z == nullptr || rgb_map == nullptr || weights == nullptr ||
+      !field_args(&a, pts, rows, table, dirs, nullptr, w, b, meta, raw, R, S, PW,
+                  L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW))
+    return (int)cudaErrorInvalidValue;
+  a.z = (const float*)z; a.bg = (const float*)bg; a.noise = (const float*)noise;
+  a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
+  return launch_level_tc(a, reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sahs_level_train(

@@ -30,25 +30,30 @@
 //
 // K7 replaces field_mlp.py:nerf_rayd_forward (:1973, pallas_call at :2040)
 // in its corner_interp form, the raw field of the deformation-reuse path
-// (fuse_composite off): in float32 the same kernel, instantiated with RAW,
-// writes each point's raw (P, 16) [rgb3 | seg12 | sigma1] to device memory
-// and stops before the compositing. Same design, same bound (operations).
-// In bf16 K7 runs on the tensor cores (level_train.cu:field_tc_kernel:
-// 4.63 ms at a step's fine level on an H100, 18.85 in this kernel; PERF.md),
-// so RAW is instantiated in float32 only.
+// (fuse_composite off): the same kernel, instantiated with RAW, writes
+// each point's raw (P, 16) [rgb3 | seg12 | sigma1] to device memory and
+// stops before the compositing.
+//
+// This file holds the float32 instantiations only, the bit-exact oracle
+// of the plain versions (1e-4 absolute). In bf16 both run on the tensor
+// cores in level_train.cu: K7 as field_tc_kernel, K5 as field_tc_kernel's
+// raw field into a float32 scratch and then composite_fwd_kernel, the
+// forward half of K2's and K6's compositing, per ray
+// (sahs_nerf_level_tc): on an H100 70.1 ms at a frame's fine chunk of
+// 4.19 M points against 285 ms in this kernel (PERF.md §6).
 //
 // Design: one block per ray, its S samples processed in 64-point tiles
 // whose activations ping-pong through shared memory (2 x 256 x 64 values);
-// the ~0.6 M trunk and branch weights are read from L2, the 18 MB bf16
-// corner table stays L2-resident, and the per-sample raw outputs of the
-// ray stay in shared memory until the block composites them. Device memory
-// sees only the points, rows, z, and the per-ray outputs.
+// the ~0.6 M trunk and branch weights are read from L2, the corner table
+// stays L2-resident, and the per-sample raw outputs of the ray stay in
+// shared memory until the block composites them. Device memory sees only
+// the points, rows, z, and the per-ray outputs. The layer products run on
+// the CUDA cores (mlp.cuh).
 //
 // Bound on the H100: about 1.47 MFLOP per point against ~30 bytes of
 // input, so the kernel is bound by operations (a fine chunk of 4.19 M
-// points is 6.2 TFLOP: ~6 ms at the 989 TFLOP/s bf16 peak). This first
-// version runs the layer products on the CUDA cores (mlp.cuh); wgmma is
-// the next step.
+// points is 6.2 TFLOP: ~6 ms at the 989 TFLOP/s bf16 peak, ~92 ms at the
+// 67 TFLOP/s float32 peak outside the tensor cores).
 #include "mlp.cuh"
 
 namespace {
@@ -356,7 +361,7 @@ extern "C" int sahs_nerf_level_forward(
     const void* b, const void* meta, void* rgb_map, void* weights,
     long long R, int S, int PW, int n_trunk, int hidden, int branch, int C,
     int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
-    int bf16, void* stream) {
+    void* stream) {
   if (R <= 0) return 0;
   LevelArgs a = make_args(pts, rows, table, dirs, w, b, meta, R, S, PW,
                           n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb,
@@ -364,8 +369,7 @@ extern "C" int sahs_nerf_level_forward(
   a.z = (const float*)z;
   a.bg = (const float*)bg; a.noise = (const float*)noise;
   a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
-  auto s = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16, false>(a, s) : launch<float, false>(a, s);
+  return launch<float, false>(a, reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sahs_nerf_rayd_forward(

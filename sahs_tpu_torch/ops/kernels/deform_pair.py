@@ -3,7 +3,12 @@
 K1 replaces ``sahs_tpu/ops/pallas/field_mlp.py:deform_pair_forward`` (:868,
 ``pallas_call`` at :1022), reached through ``deform_pair_apply_fused``.
 The CUDA kernel is ``csrc/deform_pair.cu``; its source note gives the
-bound on the H100 (operations: ~0.25 MFLOP per point) and the design.
+bound on the H100 (operations: ~0.25 MFLOP per point) and the design. In
+bfloat16 it runs on the tensor cores over 64-point tiles
+(``deform_pair_tc_kernel``: ``csrc/skip_tc.cuh``'s trunk for each net on
+one encoding, the same products as K3's recomputed forward, from the same
+blob); in float32 on the CUDA cores. A bf16 pair whose trunks are not
+multiples of ``skip_mlp.TC_K_STEP`` wide raises.
 
 K3 replaces ``field_mlp.py:deform_pair_vjp`` (:1098, ``pallas_call`` at
 :1233) with need_gx=False, the train path's form: the dW and db of both
@@ -102,57 +107,73 @@ def deform_pair_plain(points: torch.Tensor, weights: PairWeights,
     return packed, rows.to(torch.int32).reshape(-1, samples)
 
 
-def _check_kernel_shapes(points, weights: PairWeights):
+def _check_kernel_shapes(points, weights: PairWeights, what: str,
+                         dtype: torch.dtype):
     if points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3:
         raise ValueError(f"points must be (P, 3) float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
     if weights.pe_groups != ((0, 3, weights.pe_groups[0][2], True, True),):
-        raise ValueError("the K1 kernel encodes xyz with include_input and "
+        raise ValueError(f"the {what} kernel encodes xyz with include_input and "
                          f"log sampling only, got {weights.pe_groups}")
     if weights.warp_out["w"].shape[1] != 3 or weights.hyper_out["w"].shape[1] > 8:
-        raise ValueError("the K1 kernel takes a warp head of 3 outputs and a "
+        raise ValueError(f"the {what} kernel takes a warp head of 3 outputs and a "
                          "hyper head of at most 8")
+    widths = [p["w"].shape[1] for p in weights.warp_trunk + weights.hyper_trunk]
+    if max(widths) > 128 or (dtype == torch.bfloat16
+                             and any(w % TC_K_STEP for w in widths)):
+        raise ValueError(f"the {what} kernel takes trunks at most 128 wide (in "
+                         f"bf16 in multiples of {TC_K_STEP}), got {widths}")
 
 
 def deform_pair_forward(points: torch.Tensor, weights: PairWeights,
                         compute_dtype: str, samples: int, grid_dims):
-    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and results as ``deform_pair_plain``."""
+    """K1 wrapper: the CUDA kernel for CUDA tensors (bf16 on the tensor
+    cores, float32 on the CUDA cores), the plain version for CPU tensors.
+    Same arguments and results as ``deform_pair_plain``."""
     if points.device.type == "cpu":
         return deform_pair_plain(points, weights, compute_dtype, samples,
                                  grid_dims)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    _check_kernel_shapes(points, weights)
     dtype = torch_dtype(compute_dtype)
+    _check_kernel_shapes(points, weights, "K1", dtype)
     points = points.contiguous()
     P = points.shape[0]
-    wblob, bblob, meta = weights.blob(dtype)
-    if wblob.device != points.device:
-        raise ValueError(f"K1 weights are on {wblob.device}, points on "
-                         f"{points.device}")
-    wo, ho = 3, weights.hyper_out["w"].shape[1]
     if P % samples:
         raise ValueError(f"P={P} is not a multiple of samples={samples}")
-    out = torch.empty((P, wo + ho), dtype=torch.float32, device=points.device)
+    out = torch.empty((P, 3 + weights.hyper_out["w"].shape[1]), dtype=torch.float32,
+                      device=points.device)
     rows = (None if grid_dims is None
             else torch.empty((P,), dtype=torch.int32, device=points.device))
-    gD, gH, gW = grid_dims or (0, 0, 0)
-    fn = _build.function("deform_pair", "sahs_deform_pair_forward",
-                         "plppp" + "i" * 8 + "pp" + "iii" + "p")
-    rc = fn(
-        _build.ptr(points), P, _build.ptr(wblob), _build.ptr(bblob),
-        _build.ptr(meta), len(weights.warp_trunk), len(weights.hyper_trunk),
-        weights.warp_trunk[0]["w"].shape[1], weights.hyper_trunk[0]["w"].shape[1],
-        wo, ho, weights.pe_groups[0][2], int(dtype == torch.bfloat16),
-        _build.ptr(out), _build.ptr(rows), gD, gH, gW,
-        _build.stream_ptr(points.device))
-    _build.check(rc, "deform_pair_forward")
+    _launch(points, weights, dtype, grid_dims, out, rows)
     deform_pair_forward.launches += 1
     return out, None if rows is None else rows.reshape(-1, samples)
 
 
 deform_pair_forward.launches = 0
+
+
+def _launch(points: torch.Tensor, weights: PairWeights, dtype: torch.dtype,
+            grid_dims, out: torch.Tensor, rows: Optional[torch.Tensor]):
+    """One launch of K1's kernel on contiguous float32 ``points`` (P, 3):
+    the packed points into ``out`` (a contiguous float32 (P, 3 + ambient)
+    tensor) and, with a grid, the rows into ``rows`` (a contiguous int32
+    (P,) tensor)."""
+    wblob, bblob, meta = weights.blob(dtype)
+    if wblob.device != points.device:
+        raise ValueError(f"K1 weights are on {wblob.device}, points on "
+                         f"{points.device}")
+    gD, gH, gW = grid_dims or (0, 0, 0)
+    fn = _build.function("deform_pair", "sahs_deform_pair_forward",
+                         "plppp" + "i" * 8 + "pp" + "iii" + "p")
+    rc = fn(
+        _build.ptr(points), points.shape[0], _build.ptr(wblob), _build.ptr(bblob),
+        _build.ptr(meta), len(weights.warp_trunk), len(weights.hyper_trunk),
+        weights.warp_trunk[0]["w"].shape[1], weights.hyper_trunk[0]["w"].shape[1],
+        3, weights.hyper_out["w"].shape[1], weights.pe_groups[0][2],
+        int(dtype == torch.bfloat16), _build.ptr(out), _build.ptr(rows), gD, gH, gW,
+        _build.stream_ptr(points.device))
+    _build.check(rc, "deform_pair_forward")
 
 
 # ---------------------------------------------------------------------------
@@ -238,15 +259,10 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
         return deform_pair_vjp_plain(points, weights, g, g2, compute_dtype)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
-    _check_kernel_shapes(points, weights)
     dtype = torch_dtype(compute_dtype)
+    _check_kernel_shapes(points, weights, "K3", dtype)
     P = points.shape[0]
     gw = 3 + weights.hyper_out["w"].shape[1]
-    widths = [p["w"].shape[1] for p in weights.warp_trunk + weights.hyper_trunk]
-    if max(widths) > 128 or (dtype == torch.bfloat16
-                             and any(w % TC_K_STEP for w in widths)):
-        raise ValueError(f"the K3 kernel takes trunks at most 128 wide (in "
-                         f"bf16 in multiples of {TC_K_STEP}), got {widths}")
     if tuple(g.shape) != (P, gw) or (g2 is not None and g2.shape != g.shape):
         raise ValueError(f"K3 cotangents must be ({P}, {gw}), got g "
                          f"{tuple(g.shape)}, g2 "

@@ -19,11 +19,14 @@ form (JAX: ``field_mlp.py:nerf_render_level`` :3187 and
 (``table`` and ``rows`` None), the folded level's ``dir0_se`` of zero
 rows, so the direction branch's first layer reads [feat | pe(dir)].
 
-In bfloat16 K7 runs on the tensor cores (``nerf_field_tc``: the forward
-tile of the level backward, ``csrc/level_train.cu:field_tc_kernel``, on
-64-point tiles), reading the same weight blob as its backward K8
-(``point_blob``); in float32 it runs the SIMT kernel of ``nerf_level.cu``.
-K5 runs that SIMT kernel in both dtypes.
+In bfloat16 both run on the tensor cores, reading the same weight blob as
+their backwards K6 and K8 (``point_blob``): K7 as ``nerf_field_tc`` (the
+forward tile of the level backward, ``csrc/level_train.cu:field_tc_kernel``,
+on 64-point tiles), K5 as ``_nerf_level_tc`` (that raw field into a float32
+scratch, then ``composite_fwd_kernel``, the forward half of K2's and K6's
+compositing, per ray: two launches, one count). A bf16 level those kernels
+do not take raises. In float32 both run the SIMT kernel of
+``nerf_level.cu``.
 
 ``nerf_level_forward`` and ``nerf_rayd_forward`` launch a kernel for
 tensors on a CUDA device and count the launch in ``<wrapper>.launches``;
@@ -168,10 +171,12 @@ def leaky(x: torch.Tensor) -> torch.Tensor:
 
 def composite_plain(raw: torch.Tensor, z: torch.Tensor, dirs: torch.Tensor,
                     bg: Optional[torch.Tensor], noise: Optional[torch.Tensor]):
-    """In-kernel compositing semantics (field_mlp.py:2498-2577) in float32:
-    raw (R, S, 16) = rgb3 | seg12 | sigma1 -> (rgb_map (R, 16), weights (R, S))."""
+    """In-kernel compositing semantics (field_mlp.py:2498-2577) in float32,
+    or in float64 for a float64 ``raw`` (``tools/level_exact``'s exact
+    sums): raw (R, S, 16) = rgb3 | seg12 | sigma1 -> (rgb_map (R, 16),
+    weights (R, S))."""
     R, S, _ = raw.shape
-    f32 = torch.float32
+    f32 = torch.promote_types(raw.dtype, torch.float32)
     dz = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1)
     rdn = torch.sqrt(torch.sum(dirs[:, :3].to(f32) ** 2, dim=-1, keepdim=True))
     dists = dz * rdn
@@ -352,8 +357,10 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
                        z: torch.Tensor, bg: Optional[torch.Tensor],
                        noise: Optional[torch.Tensor], weights: LevelWeights,
                        compute_dtype: str = "bfloat16", grid_dims=(32, 32, 32)):
-    """K5 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and results as ``nerf_level_plain``."""
+    """K5 wrapper: a CUDA kernel for CUDA tensors (bf16: ``_nerf_level_tc``
+    on the tensor cores; float32: the SIMT kernel), the plain version for
+    CPU tensors. Same arguments and results as ``nerf_level_plain``. One
+    call is one count, whatever the number of launches inside."""
     if pts.device.type == "cpu":
         return nerf_level_plain(pts, dirs, table, rows, z, bg, noise, weights,
                                 compute_dtype, grid_dims)
@@ -365,27 +372,78 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
         raise ValueError(f"K5: z {tuple(z.shape)}, bg, noise must be ({R}, {S}), "
                          f"(R, 15), (R, S)")
     dtype = torch_dtype(compute_dtype)
+    rows, table = _grid_args(rows, table)
+    if dtype == torch.bfloat16:
+        raw = torch.empty((R * S, 16), dtype=torch.float32, device=pts.device)
+        out = _nerf_level_tc(pts, dirs, table, rows, z, bg, noise, weights, R, S, ints,
+                             raw)
+        nerf_level_forward.launches += 1
+        return out
     wblob, bblob, meta = weights.blob(dtype)
     check_device("K5", pts.device, rows, table, dirs, z, bg, noise, wblob)
     f32 = torch.float32
     c = lambda t: None if t is None else t.to(f32).contiguous()
     pts, dirs, z, bg, noise = map(c, (pts, dirs, z, bg, noise))
-    rows, table = _grid_args(rows, table)
     rgb_map = torch.empty((R, 16), dtype=f32, device=pts.device)
     w_out = torch.empty((R, S), dtype=f32, device=pts.device)
     fn = _build.function("nerf_level", "sahs_nerf_level_forward",
-                         "p" * 12 + "l" + "i" * 14 + "p")
+                         "p" * 12 + "l" + "i" * 13 + "p")
     p = _build.ptr
     rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
             p(noise), p(wblob), p(bblob), p(meta), p(rgb_map), p(w_out),
-            R, S, PW, *ints, int(dtype == torch.bfloat16),
-            _build.stream_ptr(pts.device))
+            R, S, PW, *ints, _build.stream_ptr(pts.device))
     _build.check(rc, "nerf_level_forward")
     nerf_level_forward.launches += 1
     return rgb_map, w_out
 
 
 nerf_level_forward.launches = 0
+
+
+def _tc_blob(what: str, weights: LevelWeights, hidden: int, branch: int,
+             dev, *tensors):
+    """The bf16 forward blob of ``point_blob`` for the tensor-core field,
+    after the checks of the widths and layers it takes and of the devices
+    of ``tensors`` (None skipped)."""
+    if (len(weights.dir_rest) != 3 or len(weights.seg) != 4
+            or not widths_ok(hidden, branch, torch.bfloat16)):
+        raise ValueError(f"{what} shapes not supported in bfloat16: "
+                         f"{len(weights.dir_rest)} dir and {len(weights.seg)} seg "
+                         f"layers, hidden {hidden}, branch {branch}")
+    blob = point_blob(weights, torch.bfloat16)
+    check_device(what, dev, *tensors, blob[0])
+    return blob
+
+
+def _nerf_level_tc(pts: torch.Tensor, dirs: torch.Tensor,
+                   table: Optional[torch.Tensor], rows: Optional[torch.Tensor],
+                   z: torch.Tensor, bg: Optional[torch.Tensor],
+                   noise: Optional[torch.Tensor], weights: LevelWeights, R: int,
+                   S: int, ints: Sequence[int], raw: torch.Tensor):
+    """bf16 K5 on the tensor cores, one call of two launches
+    (``csrc/level_train.cu:sahs_nerf_level_tc``): ``field_tc_kernel``'s raw
+    field of the rays (K7's) into ``raw``, a contiguous float32 (R*S, 16)
+    scratch, then ``composite_fwd_kernel``, the compositing per ray.
+    ``rows`` int32 and ``table`` contiguous (``_grid_args``), or both None
+    for C = 0; ``ints`` as ``level_kernel_args`` gives them. Returns
+    (rgb_map (R, 16), weights (R, S))."""
+    n_trunk, hidden, branch = ints[:3]
+    wblob, bblob, meta = _tc_blob("K5", weights, hidden, branch, pts.device, dirs,
+                                  table, rows, z, bg, noise, raw)
+    f32 = torch.float32
+    c = lambda t: None if t is None else t.to(f32).contiguous()
+    pts, dirs, z, bg, noise = map(c, (pts, dirs, z, bg, noise))
+    dev = pts.device
+    rgb_map = torch.empty((R, 16), dtype=f32, device=dev)
+    w_out = torch.empty((R, S), dtype=f32, device=dev)
+    fn = _build.function("level_train", "sahs_nerf_level_tc",
+                         "p" * 13 + "l" + "i" * 13 + "p")
+    p = _build.ptr
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg), p(noise), p(wblob),
+            p(bblob), p(meta), p(raw), p(rgb_map), p(w_out), R, S, pts.shape[1],
+            *ints[:11], _build.stream_ptr(dev))
+    _build.check(rc, "nerf_level_forward")
+    return rgb_map, w_out
 
 
 def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
@@ -406,16 +464,11 @@ def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
     n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir = ints[:8]
     gD, gH, gW = list(ints[8:11]) or [0, 0, 0]
     P = R * S
-    if (len(weights.dir_rest) != 3 or len(weights.seg) != 4
-            or not widths_ok(hidden, branch, torch.bfloat16)):
-        raise ValueError(f"{what} shapes not supported in bfloat16: "
-                         f"{len(weights.dir_rest)} dir and {len(weights.seg)} seg "
-                         f"layers, hidden {hidden}, branch {branch}")
     if out is not None and (tuple(out.shape) != (P, 16) or out.dtype != torch.float32
                             or not out.is_contiguous()):
         raise ValueError(f"{what}: out must be a contiguous float32 ({P}, 16) tensor")
-    wblob, bblob, meta = point_blob(weights, torch.bfloat16)
-    check_device(what, pts.device, dirs, table, rows, extra, wblob, out)
+    wblob, bblob, meta = _tc_blob(what, weights, hidden, branch, pts.device, dirs,
+                                  table, rows, extra, out)
     f32 = torch.float32
     c = lambda t: None if t is None else t.to(f32).contiguous()
     pts, dirs, extra = c(pts), c(dirs), c(extra)

@@ -6,6 +6,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root of a checkout>
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --fields-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --skip-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --serve-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -15,7 +16,11 @@ per tree in turns, e.g. for a copy of the parent commit unpacked under
     for t in build/parent . . build/parent; do
         python sahs_tpu_torch/tools/level_ab.py --tree $t; done
 
-Per call: K2, K6, K8 at a step's fine level (2048 rays x 128) and coarse
+Per call: K5 and K1 (the serving frame's kernels) at a frame's fine
+chunk (32,768 rays x 128 = 4,194,304 points) and coarse chunk (x 64), on
+the flagship's seeded coarse level and deformation nets, each beside its
+library call (the plain version under bf16 autocast), TFLOP/s and share
+of the bound; K2, K6, K8 at a step's fine level (2048 rays x 128) and coarse
 level (x 64), K12 at the per-point step's fine level (2048 x 192 =
 393,216 points), on the flagship model's coarse level at its seeded init
 and seeded inputs; K3 at the fused step's fine points (262,144, with the
@@ -42,12 +47,14 @@ checkout, run on the tree's code): the flagship fused step, fallback path
 1 (fused_grads off), the reuse path (fuse_composite off too), the
 per-point step (``pointwise``, 64 + 128) and the warp-only and
 ambient-only steps, each 2 warm-up steps and then the mean of 5, CUDA
-events. Frames: the 512x512 per-point frame (64 + 128, through
-``make_eval_renderer``), the warp-only and the ambient-only 512x512 frames
-(64 + 64) and one 32,768-ray chunk of the reuse path's frame
+events. Frames: the 512x512 flagship, warp-only and ambient-only frames
+(64 + 64, through ``make_eval_renderer``), the per-point frame (64 + 128)
+and one 32,768-ray chunk of the reuse path's frame
 (``render_rays_chunked`` with fuse_composite off), each one warm-up and the
 minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone,
-``--skip-only`` K13 alone (to compare two builds of a kernel). Prints one JSON line: the tree, the
+``--skip-only`` K13 alone (to compare two builds of a kernel),
+``--serve-only`` K5, K1 and the flagship, warp-only and ambient-only
+frames (the serving readings). Prints one JSON line: the tree, the
 card's name and power limit, and the readings (ms; TFLOP/s and the bound's
 share for K3, K14, K7, K11 and K13).
 """
@@ -307,6 +314,74 @@ def _skip_times(dev, reps: int = 3) -> dict:
     return out
 
 
+def _serve_kernel_times(dev, reps: int = 3) -> dict:
+    """K5 and K1 per call at a frame's fine (32,768 rays x 128) and coarse
+    (x 64) chunk, on the flagship's seeded coarse level and deformation
+    nets, each beside its library call (the plain version under bf16
+    autocast, which the port never calls), TFLOP/s and share of the bound
+    (operations at 989 TFLOP/s)."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import pack_corner_table
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(5)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    cond = g(rng.randn(76 + 36) * 0.5)
+    warp_g, pts_g, dir_g = nerface.build_pe_groups(spec)
+    pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
+    level = k5.prepare_level(model.coarse, cond[76:], pts_g, dir_g)
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    grid = (32, 32, 32)
+    best = lambda fn: cuda_ms(fn, reps, runs=3)
+    mats = ([p["w"] for p in level.trunk] + [level.feat["w"], level.alpha["w"],
+            level.dir0_feat, level.dir0_se] + [p["w"] for p in level.dir_rest]
+            + [level.rgb["w"]] + [p["w"] for p in level.seg] + [level.seg_out["w"]])
+    k5_macs = sum(m.numel() for m in mats)    # a point; the direction term a ray
+    k1_macs = (_net_macs(pair.warp_trunk, pair.warp_out)
+               + _net_macs(pair.hyper_trunk, pair.hyper_out))
+
+    def autocast(fn):
+        def run():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return fn()
+        return run
+
+    def row(ms, lib_ms, flops):
+        bound = flops / PEAK_BF16_FLOPS * 1e3
+        return {"ms": ms, "library_ms": lib_ms, "tflops": flops / (ms / 1e3) / 1e12,
+                "bound_ms": bound, "bound_share": bound / ms}
+
+    out = {}
+    R = 32768
+    dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    bg = g(rng.rand(R, 15))
+    for S, name in ((128, "fine"), (64, "coarse")):
+        P = R * S
+        pts = g(rng.uniform(-0.6, 0.6, (P, 3)))
+        args1 = (pts, pair, "bfloat16", S, grid)
+        out[f"K1 {name} chunk"] = row(
+            best(lambda: k1.deform_pair_forward(*args1)),
+            best(autocast(lambda: k1.deform_pair_plain(*args1))), 2 * k1_macs * P)
+        packed, rows = k1.deform_pair_plain(*args1)
+        z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+        args5 = (packed, dirs, table, rows, z, bg, None, level, "bfloat16", grid)
+        out[f"K5 {name} chunk"] = row(
+            best(lambda: k5.nerf_level_forward(*args5)),
+            best(autocast(lambda: k5.nerf_level_plain(*args5))),
+            2 * (k5_macs * P + level.dir0_dir.numel() * R))
+        del pts, packed, rows, z, args1, args5
+        torch.cuda.empty_cache()
+    return out
+
+
 def k15_readings(k15, ro, rd, z, launches: int = 200) -> dict:
     """K15 (``k15``: the ``ops.kernels.points`` module under test) and
     ``torch.addcmul``, the one PyTorch call computing o + d z (the port
@@ -366,46 +441,69 @@ def _k15_times(dev) -> dict:
     return out
 
 
-def _frame_times(dev) -> dict:
-    """The per-point frame (512x512, 64 + 128), the warp-only and the
-    ambient-only frames (64 + 64) and one 32,768-ray chunk of the reuse
-    path's frame, ms on the card."""
-    import torch
-
-    from sahs_tpu_torch.config import Config
+def _frame_ms(dev, cfg) -> float:
+    """One 512x512 frame of the model that ``cfg`` (a flagship Config(),
+    changed) describes, seeded weights and a synthetic audio frame, through
+    ``make_eval_renderer``: one warm-up and the minimum of 2, CUDA events."""
     from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
     from sahs_tpu_torch.evaluation import make_eval_renderer
     from sahs_tpu_torch.models import nerface
-    from sahs_tpu_torch.ops.rays import get_ray_bundle
-    from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays_chunked
+    from sahs_tpu_torch.render.pipeline import RenderSettings
     from sahs_tpu_torch.utils.device import cuda_ms
 
-    cfg = Config()
     near, far = float(cfg.dataset.near), float(cfg.dataset.far)
     spec = nerface.ModelSpec.from_config(cfg)
     model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
     ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512,
                               near=near, far=far)
     item = ds[0]
-    cfg.nerf.validation.num_fine = 128
     render = make_eval_renderer(spec, RenderSettings.from_config(cfg, "validation"),
                                 512, 512, near, far, device=dev)
-    out = {"per-point frame": cuda_ms(lambda: render(
-        model, item["intrinsics"], item["pose"], item["driving"], ds.background()),
-        1, runs=2)}
+    return cuda_ms(lambda: render(model, item["intrinsics"], item["pose"],
+                                  item["driving"], ds.background()), 1, runs=2)
+
+
+def _one_net_configs():
+    """(name, Config()) of the warp-only and the ambient-only model."""
+    from sahs_tpu_torch.config import Config
+    out = []
     for name, section, field in (("warp-only", "hyper", "use_ambient"),
                                  ("ambient-only", "warp", "use_warp")):
         cfg = Config()
         setattr(getattr(cfg.models, section), field, False)
-        spec1 = nerface.ModelSpec.from_config(cfg)
-        model1 = nerface.NeRFaceModel.init(spec1, seed=0, device=dev)
-        render1 = make_eval_renderer(spec1, RenderSettings.from_config(cfg, "validation"),
-                                     512, 512, near, far, device=dev)
-        out[f"{name} frame"] = cuda_ms(lambda: render1(
-            model1, item["intrinsics"], item["pose"], item["driving"], ds.background()),
-            1, runs=2)
-        del model1, render1
+        out.append((name, cfg))
+    return out
+
+
+def _serve_frame_times(dev) -> dict:
+    """The flagship, warp-only and ambient-only 512x512 frames (64 + 64)."""
+    from sahs_tpu_torch.config import Config
+    return {f"{name} frame": _frame_ms(dev, cfg)
+            for name, cfg in [("flagship", Config())] + _one_net_configs()}
+
+
+def _frame_times(dev) -> dict:
+    """The per-point frame (512x512, 64 + 128) and one 32,768-ray chunk of
+    the reuse path's frame, ms on the card."""
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.rays import get_ray_bundle
+    from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays_chunked
+    from sahs_tpu_torch.utils.device import cuda_ms
+
     cfg = Config()
+    cfg.nerf.validation.num_fine = 128
+    out = {"per-point frame": _frame_ms(dev, cfg)}
+    cfg = Config()
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    model = nerface.NeRFaceModel.init(nerface.ModelSpec.from_config(cfg), seed=0,
+                                      device=dev)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512,
+                              near=near, far=far)
+    item = ds[0]
     cfg.runtime.fused_grads = False
     cfg.runtime.fuse_composite = False
     s = RenderSettings.from_config(cfg, "validation")
@@ -465,6 +563,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fields-only", action="store_true",
                     help="time K7 and K11 alone")
     ap.add_argument("--skip-only", action="store_true", help="time K13 alone")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="time K5 and K1 at a frame's chunks and the frames")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -478,13 +578,16 @@ def main(argv=None) -> int:
            "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}"}
     if args.skip_only:
         res["skip_net"] = _skip_times(dev)
+    elif args.serve_only:
+        res.update(serve=_serve_kernel_times(dev), frames_ms=_serve_frame_times(dev))
     elif args.fields_only:
         res["fields"] = _field_times(dev)
     else:
-        res.update(fields=_field_times(dev), skip_net=_skip_times(dev),
-                   k15=_k15_times(dev), kernels_ms=_kernel_times(dev),
-                   deform_nets=_deform_times(dev), steps_ms=_step_times(dev),
-                   frames_ms=_frame_times(dev))
+        res.update(serve=_serve_kernel_times(dev), fields=_field_times(dev),
+                   skip_net=_skip_times(dev), k15=_k15_times(dev),
+                   kernels_ms=_kernel_times(dev), deform_nets=_deform_times(dev),
+                   steps_ms=_step_times(dev),
+                   frames_ms={**_serve_frame_times(dev), **_frame_times(dev)})
     print(json.dumps(res), flush=True)
     return 0
 

@@ -125,11 +125,26 @@ def _f64(x):
 
 def exact_plain(plain, *args):
     """``plain`` (the plain version of a backward kernel: K2, K6, K8, K12,
-    K3 or K14, or of a forward: K7 ``nerf_raw_plain``, K11
-    ``nerf_mlp_plain``) on ``args`` with exact sums; its float tensors and
-    weights in float64, results in float64."""
+    K3 or K14, or of a forward: K5 ``nerf_level_plain``, whose compositing
+    then runs in float64 too, K7 ``nerf_raw_plain``, K11
+    ``nerf_mlp_plain``, K1 ``deform_pair_plain``, K13 ``skip_mlp_plain``)
+    on ``args`` with exact sums; its float tensors and weights in float64,
+    results in float64 (K1's rows are the cells of its float64 output, so
+    a kernel's rows are held against its own output instead)."""
     with exact_sums():
         return plain(*[_f64(a) for a in args])
+
+
+def exact_acts(plain, *args) -> dict:
+    """The activations of a NeRF level's plain forward with exact sums
+    (``exact_plain``'s): ``plain`` is ``nerf_level.nerf_raw_plain`` or
+    ``nerf_mlp.nerf_mlp_plain``, ``args`` its arguments but ``acts``.
+    Returns the ``acts`` dict it fills (``utils/compare.kink_points``
+    reads the trunk's and the branches' outputs)."""
+    acts = {}
+    with exact_sums():
+        plain(*[_f64(a) for a in args], acts)
+    return acts
 
 
 def coarse_level(kind: str, grid: bool, dtype: torch.dtype, dev):

@@ -8,8 +8,13 @@ For each case, draw and per-point output (gx, gse, g_bg) one JSON line:
 the L2-relative distance to exact sums (``tools/level_exact.exact_plain``:
 the same bf16 operands, float64 sums) of the kernel and of the plain
 version, the share of the squared distance that the worst 10 points and
-the worst 1 % of the points carry, the distance without that 1 %, and how
-many of the kernel's worst 10 points are among the plain version's. The
+the worst 1 % of the points carry, the distance without that 1 %, how
+many of the kernel's worst 10 points are among the plain version's, and
+what the kink-point gate of the card tests sees (``utils/compare``): the
+share of kink points, the points each side excuses (kink points off by
+more than ``KINK_TOL``) against the cap (``KINK_SHARE``), the distance
+over the rest, and how close to its kink the nearest pre-activation of
+each of the kernel's worst 10 points lies (``kink_distance``). The
 cases are two card tests of ``tests/test_torch_cuda.py`` (96 rays, with a
 background): ``test_nerf_level_vjp_kernel_matches_plain`` at 64 samples on
 the flagship's seeded coarse level, and
@@ -31,8 +36,9 @@ from ..models import nerface
 from ..ops.grid import _cell_geometry, pack_corner_table
 from ..ops.kernels import level_train as k2
 from ..ops.kernels import nerf_level as k5
+from ..utils import compare
 from ..utils.device import card_line, resolve_device
-from .level_exact import GRID, coarse_level, exact_plain
+from .level_exact import GRID, coarse_level, exact_acts, exact_plain
 
 # case -> (the card test's node id, grid, samples, sigma noise, the seed of
 # its level's conditioning)
@@ -60,6 +66,30 @@ def spread(a: torch.Tensor, x: torch.Tensor) -> Dict[str, object]:
             "top1pct_share": float(e[order[:k]].sum()) / total,
             "l2_rel_without_top1pct": float((e[keep].sum() / xn[keep].sum()).sqrt()),
             "worst10": order[:10].tolist()}
+
+
+def kink_distance(acts: dict) -> torch.Tensor:
+    """(P,) the distance to 0 of each point's nearest leaky-ReLU
+    pre-activation, over its unit's RMS over the points (``acts`` as
+    ``compare.kink_points`` reads them: a point is a kink point where this
+    is at most ``compare.KINK_EPS``)."""
+    d = None
+    for y in list(acts["trunk"]) + list(acts["dacts"]) + list(acts["sacts"]):
+        v = torch.where(y >= 0, y, y / 0.01).double()
+        r = (v.abs() / v.pow(2).mean(dim=0, keepdim=True).sqrt()).amin(dim=1)
+        d = r if d is None else torch.minimum(d, r)
+    return d
+
+
+def excusal(a: torch.Tensor, x: torch.Tensor, kinks: torch.Tensor) -> dict:
+    """The card tests' kink gate on ``a`` against exact sums ``x``: the
+    kink points off by more than ``KINK_TOL`` (excused), the most it may
+    excuse (``kink_cap``) and the L2-relative distance over the rest."""
+    off = compare.excused_points(a, x, kinks)
+    keep = ~off
+    d = (a.double()[keep] - x.double()[keep]).norm() / x.double()[keep].norm()
+    return {"excused": int(off.sum()), "cap": compare.kink_cap(off.numel()),
+            "l2_rel_without_excused": float(d)}
 
 
 def level_of(grid: bool, cond_seed: int, dev):
@@ -101,14 +131,22 @@ def case(level, table, grid: bool, S: int, with_noise: bool, seed: int, dev) -> 
     out_k = k2.nerf_level_vjp(*vargs)
     out_p = k2.nerf_level_vjp_plain(*vargs)
     out_x = exact_plain(k2.nerf_level_vjp_plain, *vargs)
-    res = {}
+    acts = exact_acts(k5.nerf_raw_plain, pts, dirs, table, rows, level, "bfloat16", dims)
+    kinks, near = compare.kink_points(acts), kink_distance(acts)
+    res = {"kink_share": float(kinks.double().mean())}
     for i, name in enumerate(("gx", "gse", "g_bg")):
         if out_x[i] is None:
             continue
         sk, sp = spread(out_k[i], out_x[i]), spread(out_p[i], out_x[i])
-        shared = len(set(sk.pop("worst10")) & set(sp.pop("worst10")))
+        worst = sk.pop("worst10")
+        shared = len(set(worst) & set(sp.pop("worst10")))
         res[name] = {"kernel": sk, "plain": sp, "worst10_shared": shared,
                      "ratio": sk["l2_rel"] / max(sp["l2_rel"], 1e-3)}
+        if out_x[i].shape[0] == kinks.shape[0]:     # per point, not per ray
+            res[name]["kernel"].update(excusal(out_k[i], out_x[i], kinks))
+            res[name]["plain"].update(excusal(out_p[i], out_x[i], kinks))
+            res[name]["kernel"]["worst10_kink_distance"] = [
+                float(near[j]) for j in worst]
     return res
 
 

@@ -24,12 +24,16 @@ composite_kernel, bwd_tc_kernel, level_dw_kernel, dw_reduce, and in
 float32 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce;
 K8 the same without composite_kernel; K3: pair_vjp_tc_kernel,
 level_dw_kernel, dw_reduce in bfloat16, pair_vjp_kernel, dw_kernel,
-dw_reduce in float32; K12 as K8); K5 as nerf_level_kernel; K7 and K11
-in bfloat16 as field_tc_kernel (the tensor-core forward of
-csrc/level_train.cu), in float32 as nerf_level_kernel and nerf_mlp_kernel;
+dw_reduce in float32; K12 as K8); K5 in bfloat16 as its two launches,
+field_tc_kernel (its raw field) and composite_fwd_kernel (its
+compositing), in float32 as nerf_level_kernel; K1 as deform_pair_tc_kernel
+(bfloat16) or deform_pair_kernel (float32); K7 and K11 in bfloat16 as
+field_tc_kernel (the tensor-core forward of csrc/level_train.cu), in
+float32 as nerf_level_kernel and nerf_mlp_kernel;
 K10 as grid_bwd_fused_kernel; K13 as skip_fwd_tc_kernel (bfloat16) or
 skip_mlp_kernel (float32); K14 as skip_vjp_tc_kernel, level_dw_kernel, dw_reduce (bfloat16) or
-skip_vjp_kernel, dw_kernel, dw_reduce (float32).
+skip_vjp_kernel, dw_kernel, dw_reduce (float32). Each line names the
+port's kernels whose launch it is (``OWNERS``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,29 @@ def short_name(kernel: str) -> str:
     name = name.replace("(anonymous namespace)::", "")
     name = re.split(r"\(", name, maxsplit=1)[0]
     return name[:60]
+
+
+# CUDA kernel -> the port's kernels (K1-K15) whose launch it is
+OWNERS = {
+    "deform_pair_tc_kernel": "K1", "deform_pair_kernel": "K1",
+    "field_tc_kernel": "K5 raw field, K7, K11",
+    "composite_fwd_kernel": "K5 compositing",
+    "nerf_level_kernel": "K5, K7 (float32)", "nerf_mlp_kernel": "K11 (float32)",
+    "fwd_tc_kernel": "K2, K6, K8, K12 forward", "fwd_kernel": "K2, K6, K8, K12 forward",
+    "composite_kernel": "K2, K6 compositing and its backward",
+    "bwd_tc_kernel": "K2, K6, K8, K12 backward", "bwd_kernel": "K2, K6, K8, K12 backward",
+    "level_dw_kernel": "dW of K2, K3, K6, K8, K12, K14", "dw_kernel": "dW (float32)",
+    "dw_reduce": "dW's split-K sum",
+    "pair_vjp_tc_kernel": "K3", "pair_vjp_kernel": "K3",
+    "skip_fwd_tc_kernel": "K13", "skip_mlp_kernel": "K13",
+    "skip_vjp_tc_kernel": "K14", "skip_vjp_kernel": "K14",
+    "build_pts_kernel": "K15", "grid_dg_kernel": "K4, K9",
+    "grid_bwd_fused_kernel": "K10"}
+
+
+def owner(name: str) -> str:
+    """The port's kernels that launch ``name`` (a ``short_name``), or ""."""
+    return OWNERS.get(name.split("<")[0].split("::")[-1], "")
 
 
 # path -> (runtime settings, train settings, model settings) over the
@@ -115,8 +142,8 @@ def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
         t = totals.setdefault(short_name(e.key), [0.0, 0.0])
         t[0] += e.count / steps
         t[1] += e.self_device_time_total / 1e3 / steps
-    kernels = [{"name": n, "launches_per_step": c, "ms_per_step": ms,
-                "share": ms / step_ms}
+    kernels = [{"name": n, "owner": owner(n), "launches_per_step": c,
+                "ms_per_step": ms, "share": ms / step_ms}
                for n, (c, ms) in sorted(totals.items(), key=lambda kv: -kv[1][1])]
     kernel_ms = sum(k["ms_per_step"] for k in kernels)
     return {"step_ms": step_ms, "kernels": kernels, "kernel_ms": kernel_ms,
@@ -137,7 +164,8 @@ def main(argv=None) -> int:
           f"{res['kernel_ms']:.2f} ms, idle share {res['idle_share']:.3f}")
     for k in res["kernels"]:
         print(f"{k['ms_per_step']:10.3f} ms {k['launches_per_step']:6.1f} x "
-              f"{100 * k['share']:6.2f} %  {k['name']}")
+              f"{100 * k['share']:6.2f} %  {k['name']}"
+              + (f"  [{k['owner']}]" if k["owner"] else ""))
     return 0
 
 

@@ -60,3 +60,57 @@ def point_errors(a: torch.Tensor, b: torch.Tensor, tol: float = 1e-4
             "p999": float(torch.quantile(e.float(), 0.999)),
             "max": float(e.max()), "n_over": int((e > tol).sum()),
             "points": int(e.numel())}
+
+
+# A leaky-ReLU pre-activation counts as at its kink when it lies within one
+# bf16 rounding step (2^-8) of 0, relative to its unit's RMS over the
+# points. The points whose cotangents carry a bf16 run's distance from
+# exact sums hold a pre-activation 1e-6-4e-3 of that RMS from 0
+# (tools/point_spread.py, on the card): far past float32 rounding, since a
+# value rounded to bf16 one way in one run and the other way in the other
+# moves the next layers' pre-activations. At the flagship's widths (3,072
+# leaky units a point) nearly every point holds one that close, so a
+# gate's cap on the excused points, not this test, keeps a fault from
+# hiding among them.
+KINK_EPS = 2.0 ** -8
+# A kink point is excused from a point gate when its error exceeds this
+# share of the largest point's norm: below it the point is not off by more
+# than bf16 rounding moves the others (tools/point_spread.py).
+KINK_TOL = 1e-3
+# At most this share of the points may be excused; a gate with more kink
+# points off fails. At the card tests' 96 rays the tensor-core K6 is off by
+# more than KINK_TOL at 0.07-0.6 % of the points, the plain version at up to
+# 1 % (tools/point_spread.py, on the card).
+KINK_SHARE = 0.01
+
+
+def kink_points(acts: dict, eps: float = KINK_EPS) -> torch.Tensor:
+    """(P,) bool: the points at which one of the leaky-ReLU
+    pre-activations of a reference run lies within ``eps`` of 0, relative
+    to its unit's RMS over the points. ``acts`` is what the NeRF level's
+    plain forward fills (``nerf_level.nerf_raw_plain`` or
+    ``nerf_mlp.nerf_mlp_plain``): the trunk's ("trunk"), the direction
+    branch's ("dacts") and the seg branch's ("sacts") outputs; a leaky
+    output y < 0 gives the pre-activation y / 0.01."""
+    kink = None
+    for y in list(acts["trunk"]) + list(acts["dacts"]) + list(acts["sacts"]):
+        v = torch.where(y >= 0, y, y / 0.01).double()
+        rms = v.pow(2).mean(dim=0, keepdim=True).sqrt()
+        k = (v.abs() <= eps * rms).any(dim=1)
+        kink = k if kink is None else kink | k
+    return kink
+
+
+def excused_points(a: torch.Tensor, b: torch.Tensor, kinks: torch.Tensor,
+                   tol: float = KINK_TOL) -> torch.Tensor:
+    """(P,) bool: the kink points (``kink_points``) at which the per-point
+    cotangent ``a`` is off the reference ``b`` by more than ``tol`` of the
+    largest point's norm (``point_errors``' e_p), all of them."""
+    a, b = a.double().reshape(a.shape[0], -1), b.double().reshape(b.shape[0], -1)
+    e = (a - b).norm(dim=1) / max(float(b.norm(dim=1).max()), 1e-300)
+    return kinks.to(e.device) & (e > tol)
+
+
+def kink_cap(points: int) -> int:
+    """The most kink points a gate over ``points`` points excuses."""
+    return int(KINK_SHARE * points)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import subprocess
 import time
-from typing import Callable, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -49,6 +49,15 @@ def device_ms(fn: Callable[[], object], launches: int = 200,
     calls, summed and divided by ``launches``, after ``warmup`` calls; the
     host's time between launches does not count. Raises when the profiler
     records no device time."""
+    return sum(device_ms_by_kernel(fn, launches, warmup).values())
+
+
+def device_ms_by_kernel(fn: Callable[[], object], launches: int = 200,
+                        warmup: int = 3) -> Dict[str, float]:
+    """``device_ms`` by CUDA kernel: {kernel name (its demangled name up to
+    the argument list or template arguments, without the anonymous
+    namespace): milliseconds of device time per call of ``fn()``}."""
+    import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -58,11 +67,15 @@ def device_ms(fn: Callable[[], object], launches: int = 200,
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
+    out: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key[5:] if e.key.startswith("void ") else e.key
+            name = re.split(r"[(<]", name.replace("(anonymous namespace)::", ""), 1)[0]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / launches
+    if not out:
         raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / launches
+    return out
 
 
 def host_ms(fn: Callable[[], object], launches: int, warmup: int = 3) -> float:

@@ -6,7 +6,7 @@ backward), K13 (one deformation MLP), K14 (its backward), K15 (the
 sample positions), the grid-free forms of K1, K2, K5-K8, K11 and K12, and
 the tools' experiment kernels X1-X6 against their plain versions (the
 kernels on the tensor cores in bf16, the backwards K2, K3, K6, K8, K12,
-K14 and the forwards K7, K11, K13, also against exact sums), the
+K14 and the forwards K1, K5, K7, K11, K13, also against exact sums), the
 kernel path of
 render_rays against the plain path, train steps (fused, the autograd
 fallback on both of its paths, the per-point branch, the plain path, the
@@ -24,7 +24,15 @@ so it runs on a machine without it:
 Tolerances: float32 within 1e-4 absolute (the kernels sum in another order
 than cuBLAS) and corner rows exact; bfloat16 within 2e-2 relative, the bf16
 gate of PARITY_TPU.json (the two sides round the same operands to bf16 but
-sum them in another order, so a value rounds differently now and then).
+sum them in another order, so a value rounds differently now and then),
+and for the kernels on the tensor cores against exact sums, at most
+PLAIN_MULTIPLE times the plain version's distance to them. bf16 K6 point
+cotangents in the two tests of ROADMAP Queue 3 excuse the kink points
+that are off, and fail with more of them than utils/compare.kink_cap
+(``_kink_gate``).
+Selecting: ``-k tensor_core`` (the tensor-core kernels' own tests), ``-k
+"tensor_core_level_forward or tensor_core_deform_pair"`` (bf16 K5 and K1's
+faults, guards and K5's bit-equality with K2's forward).
 """
 import dataclasses
 import zlib
@@ -47,6 +55,7 @@ from sahs_tpu_torch.ops.kernels import skip_mlp as k13
 from sahs_tpu_torch.render.pipeline import RenderSettings, render_rays
 from sahs_tpu_torch.tools import level_exact
 from sahs_tpu_torch.train import fused
+from sahs_tpu_torch.utils import compare
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
 
 GRID = (32, 32, 32)
@@ -143,7 +152,7 @@ def _without_sigma_head(tree):
     return {k: v for k, v in tree.items() if k != "fc_alpha"}
 
 
-def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
+def _plain_ref(plain, *args, out_k=None, skip_sigma=False, kinks=None):
     """The reference of a kernel on the tensor cores in bf16 (the backwards
     K2, K6, K8, K12; K3, K14; the forwards K7, K11): its plain version. In
     bfloat16 the plain version
@@ -155,7 +164,8 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
     count; with exact sums only the kernel's does. Given the kernel's
     results ``out_k``, also holds them to the plain version's own distance
     from exact sums (PLAIN_MULTIPLE), dW without the sigma head where
-    ``skip_sigma``."""
+    ``skip_sigma``, point cotangents over the points that are not excused
+    kink points where ``kinks`` is given (``_kink_gate``)."""
     if not any(isinstance(a, str) and a == "bfloat16" for a in args):
         return plain(*args)
     ref = level_exact.exact_plain(plain, *args)
@@ -177,16 +187,58 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False):
                     k, p, x = (_without_sigma_head(t) for t in (k, p, x))
                 d_k, d_p = tree_errors(k, x)["l2_rel"], tree_errors(p, x)["l2_rel"]
             else:
-                d_k, d_p = point_errors(k, x)["l2_rel"], point_errors(p, x)["l2_rel"]
+                keep = slice(None)
+                if kinks is not None and len(k) == len(kinks):
+                    off = compare.excused_points(k, x, kinks)
+                    assert int(off.sum()) <= compare.kink_cap(len(off)), (
+                        plain.__name__, i, int(off.sum()), len(off))
+                    keep = ~off
+                d_k = point_errors(k[keep], x[keep])["l2_rel"]
+                d_p = point_errors(p[keep], x[keep])["l2_rel"]
             assert d_k <= PLAIN_MULTIPLE * max(d_p, PLAIN_FLOOR), (
                 plain.__name__, i, d_k, d_p)
     return ref
+
+
+# bf16 K1 and K5 on the tensor cores keep the exact-sum rule in each of
+# their output groups, each against its own scale: K1's warp offset (its
+# output xyz less the input point) and ambient coordinates, with K13's
+# floor (SKIP_FLOOR: the same nets); K5's composited rgb and seg channels
+# and its weights, with a floor of their own below the plain version's
+# distance to exact sums.
+LEVEL_FLOOR = 1e-7
+
+
+def _pair_exact(pts, out_k, out_p, out_x):
+    """(K1's output ``out_k`` keeps the rule in both groups, {group: (d_k,
+    d_p)}): the L2-relative distances of ``out_k`` and ``out_p`` to exact
+    sums ``out_x`` in the warp offset and the ambient coordinates."""
+    groups = {"warp": lambda o: o.double()[:, :3] - pts.double(),
+              "ambient": lambda o: o.double()[:, 3:]}
+    d = {g: (point_errors(f(out_k), f(out_x))["l2_rel"],
+             point_errors(f(out_p), f(out_x))["l2_rel"]) for g, f in groups.items()}
+    return all(dk <= PLAIN_MULTIPLE * max(dp, SKIP_FLOOR) for dk, dp in d.values()), d
+
+
+def _level_exact(out_k, out_p, out_x):
+    """(K5's (rgb_map, weights) ``out_k`` keeps the rule in every group,
+    {group: (d_k, d_p)}): the L2-relative distances of ``out_k`` and
+    ``out_p`` to exact sums ``out_x`` in rgb_map's rgb and seg channels
+    and in the weights."""
+    groups = {"rgb": lambda o: o[0][:, :3], "seg": lambda o: o[0][:, 3:15],
+              "weights": lambda o: o[1]}
+    d = {g: (point_errors(f(out_k), f(out_x))["l2_rel"],
+             point_errors(f(out_p), f(out_x))["l2_rel"]) for g, f in groups.items()}
+    return all(dk <= PLAIN_MULTIPLE * max(dp, LEVEL_FLOOR) for dk, dp in d.values()), d
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [16, 128])
 def test_deform_pair_kernel_matches_plain(card, rng, compute_dtype, S):
+    """K1 against its plain version: float32 within 1e-4 and the rows
+    exact; bf16 (the tensor cores) by the exact-sum rule. In both types the
+    rows are the cells of the kernel's own output, bit for bit."""
     dev, _, pair, _ = card
     P = 300 * S                   # not a multiple of the 64-point tile
     pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
@@ -204,7 +256,10 @@ def test_deform_pair_kernel_matches_plain(card, rng, compute_dtype, S):
         assert float((out_k - out_p).abs().max()) <= 1e-4
         assert torch.equal(rows_k, rows_p)
     else:
-        assert _scaled(out_k, out_p) <= 2e-2
+        out_x = level_exact.exact_plain(k1.deform_pair_plain, pts, pair,
+                                        compute_dtype, S, GRID)[0]
+        ok, d = _pair_exact(pts, out_k, out_p, out_x)
+        assert ok, d
 
 
 @pytest.mark.cuda
@@ -213,6 +268,8 @@ def test_deform_pair_kernel_matches_plain(card, rng, compute_dtype, S):
     (16, True, True), (16, False, False), (128, True, False), (64, False, True)])
 def test_nerf_level_kernel_matches_plain(card, rng, compute_dtype, S, with_bg,
                                          with_noise):
+    """K5 against its plain version: float32 within 1e-4; bf16 (the
+    tensor cores, two launches a call) by the exact-sum rule."""
     dev, model, _, level = card
     R = 96
     pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (R * S, 3)),
@@ -237,8 +294,10 @@ def test_nerf_level_kernel_matches_plain(card, rng, compute_dtype, S, with_bg,
         assert float((rgb_k - rgb_p).abs().max()) <= 1e-4
         assert float((w_k - w_p).abs().max()) <= 1e-4
     else:
-        assert _rel(rgb_k, rgb_p) <= 2e-2
-        assert _rel(w_k, w_p) <= 2e-2
+        out_x = level_exact.exact_plain(k5.nerf_level_plain, *args)
+        assert out_x[0].dtype == out_x[1].dtype == torch.float64
+        ok, d = _level_exact((rgb_k, w_k), (rgb_p, w_p), out_x)
+        assert ok, d
 
 
 @pytest.mark.cuda
@@ -503,11 +562,51 @@ def _loss_cotangents(dev, rng, rgb_map, w):
     return g_rgb, g_w
 
 
-def _points_ok(a, b, f32):
-    e = point_errors(a, b, 1e-4)
+# bf16 K6 point cotangents in the two tests that hold them against exact
+# sums at 96 rays on any of their draws (test_nerf_level_vjp_kernel_...
+# and test_grid_free_level_kernels_...; ROADMAP Queue 3): a kink point
+# (utils/compare.kink_points: a leaky-ReLU pre-activation of the exact-sum
+# run within bf16 rounding of 0) whose cotangent is off by more than
+# compare.KINK_TOL of the largest point's is excused, and a gate with more
+# such points than compare.kink_cap fails (tools/point_spread.py: at 96
+# rays the worst 10 points carry 90-100 % of a bf16 run's squared distance
+# from exact sums, the kernel's and the plain version's alike); every
+# other point keeps the gates, and dW is held over every ray.
+
+
+def _level_kinks(plain, args):
+    """(P,) bool: the kink points of the level whose bf16 backward
+    ``plain`` (K6's or K2's plain version) runs on ``args``, from the
+    activations of its forward with exact sums."""
+    i = next(i for i, a in enumerate(args) if isinstance(a, k5.LevelWeights))
+    return compare.kink_points(level_exact.exact_acts(
+        k5.nerf_raw_plain, *args[:4], *args[i:i + 3]))
+
+
+def _kink_gate(a, b, kinks):
+    """(cotangent ``a`` keeps the bf16 point gate against ``b``, what it
+    read): the kink points off by more than compare.KINK_TOL are excused,
+    at most compare.kink_cap of them; every other point keeps the
+    L2-relative distance and the cosine."""
+    off = compare.excused_points(a, b, kinks)
+    n, cap = int(off.sum()), compare.kink_cap(len(off))
+    e = point_errors(a[~off], b[~off], 1e-4)
+    ok = n <= cap and e["l2_rel"] <= 1e-2 and e["cosine"] >= 0.9999
+    return ok, {"excused": n, "cap": cap, **e}
+
+
+def _points_ok(a, b, f32, kinks=None):
+    """A point cotangent's gate: float32 at most POINT_FLIPS points off
+    and the cosine; bfloat16 the L2-relative distance and the cosine, by
+    ``_kink_gate`` when ``kinks`` is given."""
     if f32:
+        e = point_errors(a, b, 1e-4)
         assert e["n_over"] <= POINT_FLIPS and e["cosine"] >= 0.9999, e
+    elif kinks is not None:
+        ok, e = _kink_gate(a, b, kinks)
+        assert ok, e
     else:
+        e = point_errors(a, b, 1e-4)
         assert e["l2_rel"] <= 1e-2 and e["cosine"] >= 0.9999, e
 
 
@@ -529,15 +628,46 @@ def test_nerf_level_vjp_kernel_matches_plain(card, rng, grid_varied, compute_dty
     vargs = args + (g_rgb, g_w, level, compute_dtype, GRID)
     before = k2.nerf_level_vjp.launches
     out_k = gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
-    gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
+    f32 = compute_dtype == "float32"
+    kinks = None if f32 else _level_kinks(k2.nerf_level_vjp_plain, vargs)
+    gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k,
+                                         kinks=kinks)
     torch.cuda.synchronize()
     assert k2.nerf_level_vjp.launches == before + 1
     assert all(bool(torch.isfinite(t).all()) for t in (gx_k, gse_k))
-    f32 = compute_dtype == "float32"
-    for a, b in ((gx_k, gx_p), (gse_k, gse_p)) + (((gbg_k, gbg_p),) if with_bg else ()):
-        _points_ok(a, b, f32)
+    for a, b in ((gx_k, gx_p), (gse_k, gse_p)):
+        _points_ok(a, b, f32, kinks)
+    if with_bg:
+        _points_ok(gbg_k, gbg_p, f32)
     assert (gbg_k is None) == (not with_bg)
     _grads_ok(g_k, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["gx", "gse"])
+def test_kink_gate_fails_a_fault_in_one_tile(card, rng, out):
+    """The kink gate of bf16 K6's point cotangents refuses a fault limited
+    to one 64-point tile: at the Queue-3 case's size (96 rays x 64, a
+    background, no noise), the kernel's own result with every point of one
+    tile moved by 1e-2 of the largest point's norm (far past KINK_TOL,
+    each point off as a tile computed from a wrong operand would be)."""
+    dev, model, _, level = card
+    R, S = 96, 64
+    args = _level_case(dev, model, rng, R, S, True, False, "bfloat16")
+    rgb_p, w_p = k5.nerf_level_plain(*args, level, "bfloat16", GRID)
+    g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
+    vargs = args + (g_rgb, g_w, level, "bfloat16", GRID)
+    k = k2.nerf_level_vjp(*vargs)[("gx", "gse").index(out)]
+    x = level_exact.exact_plain(k2.nerf_level_vjp_plain, *vargs)[("gx", "gse").index(out)]
+    kinks = _level_kinks(k2.nerf_level_vjp_plain, vargs)
+    torch.cuda.synchronize()
+    bad = k.clone()
+    tile = slice(10 * 64, 11 * 64)
+    step = torch.ones_like(bad[0]) / bad.shape[1] ** 0.5
+    bad[tile] += 1e-2 * float(x.norm(dim=1).max()) * step
+    assert bool(compare.excused_points(bad, x, torch.ones_like(kinks))[tile].all())
+    ok, e = _kink_gate(bad, x, kinks)
+    assert not ok, e
 
 
 @pytest.mark.cuda
@@ -570,18 +700,21 @@ def test_ablation_level_kernels_match_plain(card, rng, compute_dtype, S):
     g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
     vargs = args[:7] + (g_rgb, g_w) + args[7:]
     out_k = gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
+    f32 = compute_dtype == "float32"
     gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
     torch.cuda.synchronize()
-    f32 = compute_dtype == "float32"
     for a, b in ((rgb_k, rgb_p), (w_k, w_p)):
         assert torch.isfinite(a).all()
         if f32:
             assert float((a - b).abs().max()) <= 1e-4
-        else:
-            assert _rel(a, b) <= 2e-2
+    if not f32:
+        ok, d = _level_exact((rgb_k, w_k), (rgb_p, w_p),
+                             level_exact.exact_plain(k5.nerf_level_plain, *args))
+        assert ok, d
     assert gx_k.shape == (R * S, 3)
-    for a, b in ((gx_k, gx_p), (gse_k, gse_p), (gbg_k, gbg_p)):
+    for a, b in ((gx_k, gx_p), (gse_k, gse_p)):
         _points_ok(a, b, f32)
+    _points_ok(gbg_k, gbg_p, f32)
     _grads_ok(g_k, g_p, compute_dtype)
 
 
@@ -999,7 +1132,10 @@ def test_grid_free_deform_pair_kernel_matches_plain(grid_free, rng, compute_dtyp
     if compute_dtype == "float32":
         assert float((out_k - out_p).abs().max()) <= 1e-4
     else:
-        assert _scaled(out_k, out_p) <= 2e-2
+        out_x = level_exact.exact_plain(k1.deform_pair_plain, pts, pair,
+                                        compute_dtype, 16, None)[0]
+        ok, d = _pair_exact(pts, out_k, out_p, out_x)
+        assert ok, d
 
 
 def _grid_free_case(dev, rng, R, S, with_bg, with_noise):
@@ -1037,15 +1173,20 @@ def test_grid_free_level_kernels_match_plain(grid_free, rng, grid_free_varied,
         assert float((rgb_k - rgb_p).abs().max()) <= 1e-4
         assert float((w_k - w_p).abs().max()) <= 1e-4
     else:
-        assert _rel(rgb_k, rgb_p) <= 2e-2 and _rel(w_k, w_p) <= 2e-2
+        ok, d = _level_exact((rgb_k, w_k), (rgb_p, w_p), level_exact.exact_plain(
+            k5.nerf_level_plain, *args, level, compute_dtype, None))
+        assert ok, d
     g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
     vargs = args + (g_rgb, g_w, level, compute_dtype, None)
     out_k = gx_k, gse_k, gbg_k, g_k = k2.nerf_level_vjp(*vargs)
-    gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
+    kinks = None if f32 else _level_kinks(k2.nerf_level_vjp_plain, vargs)
+    gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k,
+                                         kinks=kinks)
     torch.cuda.synchronize()
     assert gse_k is None and gse_p is None and torch.isfinite(gx_k).all()
-    for a, b in ((gx_k, gx_p),) + (((gbg_k, gbg_p),) if with_bg else ()):
-        _points_ok(a, b, f32)
+    _points_ok(gx_k, gx_p, f32, kinks)
+    if with_bg:
+        _points_ok(gbg_k, gbg_p, f32)
     _grads_ok(g_k, g_p, compute_dtype)
     tgt = _gpu(dev, np.concatenate([rng.rand(R, 3),
                                     np.eye(12)[rng.randint(0, 12, R)]], 1))
@@ -1845,3 +1986,209 @@ def test_tensor_core_skip_forward_keeps_rows_past_p(card, rng, net):
     k13.skip_mlp_forward(pts, w, "bfloat16", out=bad[:n_pad])
     torch.cuda.synchronize()
     assert not guard_ok(bad)
+
+
+# ---------------------------------------------------------------------------
+# bf16 K5 and K1 on the tensor cores: K5 as field_tc_kernel's raw field
+# into a scratch and composite_fwd_kernel (level_train.cu), K1 as
+# deform_pair_tc_kernel (deform_pair.cu, skip_tc.cuh's trunk for each
+# net). Faults planted in what they read must miss the exact-sum rule that
+# the faultless launch on the same inputs keeps; nothing is written past
+# the last point of a ragged last tile; a point's deformation does not
+# depend on its neighbours; K5's outputs are K2's forward outputs, bit for
+# bit (the same tile routine at the same slice depth, the same compositing
+# routine).
+# ---------------------------------------------------------------------------
+
+def _tc_level_case(card, grid_free, rng, grid, S, R=96):
+    """K5's arguments in bf16 on the seeded grid or grid-free level: 96 rays
+    of S samples, a background prior and sigma noise."""
+    dev, model, _, level = card
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    if grid:
+        args = _level_case(dev, model, rng, R, S, True, True, "bfloat16")
+        return args + (level, "bfloat16", GRID)
+    args = _grid_free_case(dev, rng, R, S, True, True)
+    return args + (grid_free[2], "bfloat16", None)
+
+
+def _level_blob_fault(level, fault: str):
+    """A copy of ``level`` whose bf16 forward blob (``point_blob``, which
+    K5 reads on the tensor cores) leaves out rows 16-31 of trunk[1]'s or
+    of the rgb head's weights, or drops the alpha head's bias."""
+    if fault != "alpha bias":
+        L = len(level.trunk)
+        return _field_slice_fault(level, 1 if fault == "trunk[1] rows 16-31" else L + 6)
+    faulty = dataclasses.replace(level, _blobs={})
+    w, b, meta = k5.point_blob(faulty, torch.bfloat16)
+    n, ob = meta.reshape(-1, 7)[len(level.trunk) + 1, 4:6].tolist()
+    assert float(b[ob:ob + n].abs().max()) > 0
+    b = b.clone()
+    b[ob:ob + n] = 0
+    faulty._blobs[("point", torch.bfloat16)] = (w, b, meta)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["trunk[1] rows 16-31", "rgb head rows 16-31",
+                                   "alpha bias"])
+@pytest.mark.parametrize("grid", [True, False])
+def test_tensor_core_level_forward_fault_misses_gates(card, grid_free, rng, grid, fault):
+    """A fault planted in the forward blob that bf16 K5 reads: its outputs
+    must miss the exact-sum rule that the faultless launch keeps."""
+    args = _tc_level_case(card, grid_free, rng, grid, 64)
+    out_p = k5.nerf_level_plain(*args)
+    out_x = level_exact.exact_plain(k5.nerf_level_plain, *args)
+    out_k = k5.nerf_level_forward(*args)
+    faulty = args[:7] + (_level_blob_fault(args[7], fault),) + args[8:]
+    out_f = k5.nerf_level_forward(*faulty)
+    torch.cuda.synchronize()
+    ok, d = _level_exact(out_k, out_p, out_x)
+    assert ok, d
+    ok, d = _level_exact(out_f, out_p, out_x)
+    assert not ok, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [True, False])
+def test_tensor_core_level_forward_matches_level_train_forward(card, grid_free, rng,
+                                                               grid):
+    """bf16 K5 and K2's forward outputs (rgb_map, weights) on the same
+    inputs are bit-equal: both run fwd_tile at 16-row slices and the same
+    compositing routine (composite_fwd)."""
+    args = _tc_level_case(card, grid_free, rng, grid, 64)
+    R = args[0].shape[0] // 64
+    dev = args[0].device
+    tgt = _gpu(dev, np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+    lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+    rgb_k, w_k = k5.nerf_level_forward(*args)
+    out2 = k2.nerf_level_train(*args[:7], tgt, lw, *args[7:], 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(rgb_k, out2[0]) and torch.equal(w_k, out2[1])
+
+
+@pytest.mark.cuda
+def test_tensor_core_level_forward_keeps_the_last_tile(card, grid_free, rng):
+    """R x S not a multiple of the 64-point tile (37 rays x 63): bf16 K5's
+    raw-field scratch takes the first R*S rows of a buffer and nothing past
+    them (the guard rows stay NaN); the launch told the tile's end as P
+    (the rays that cover it) writes them."""
+    dev, model, _, level = card
+    R, S = 37, 63
+    n_pad = -(-R * S // 64) * 64
+    r_pad = -(-n_pad // S)
+    pts, dirs, table, rows, z, bg, noise = _level_case(dev, model, rng, r_pad, S, True,
+                                                       True, "bfloat16")
+    rows32 = rows.to(torch.int32)
+
+    def run(r, buf):
+        ints = k5.level_kernel_args(pts[:r * S], dirs[:r], table, rows32[:r * S],
+                                    level, "bfloat16", GRID, "K5")[4]
+        return k5._nerf_level_tc(pts[:r * S], dirs[:r], table, rows32[:r * S], z[:r],
+                                 bg[:r], noise[:r], level, r, S, ints, buf[:r * S])
+    guard_ok = lambda buf: bool(torch.isnan(buf[R * S:]).all())
+    buf = torch.full((r_pad * S + 128, 16), float("nan"), device=dev)
+    rgb_k, w_k = run(R, buf)
+    args = (pts[:R * S], dirs[:R], table, rows[:R * S], z[:R], bg[:R], noise[:R],
+            level, "bfloat16", GRID)
+    out_p = k5.nerf_level_plain(*args)
+    out_x = level_exact.exact_plain(k5.nerf_level_plain, *args)
+    torch.cuda.synchronize()
+    assert guard_ok(buf), "the kernel wrote past the last point"
+    ok, d = _level_exact((rgb_k, w_k), out_p, out_x)
+    assert ok, d
+    bad = torch.full((r_pad * S + 128, 16), float("nan"), device=dev)
+    run(r_pad, bad)
+    torch.cuda.synchronize()
+    assert not guard_ok(bad)
+
+
+def _pair_blob_fault(pair, fault: str):
+    """A copy of ``pair`` whose bf16 blob (K1's, which K3 also reads)
+    leaves out rows 32-63 of the warp trunk[1]'s weights (one 32-row slice
+    of what the ring stages) or drops the hyper head's bias."""
+    faulty = dataclasses.replace(pair, _blobs={})
+    w, b, meta = faulty.blob(torch.bfloat16)
+    descs = meta.reshape(-1, 7).tolist()
+    if fault == "warp trunk[1] rows 32-63":
+        w1, k1_, _, _, n = descs[1][:5]
+        assert k1_ >= 64
+        w = w.clone()
+        w[w1 + 32 * n:w1 + 64 * n] = 0
+    else:
+        n, ob = descs[len(pair.warp_trunk) + 1 + len(pair.hyper_trunk)][4:6]
+        assert float(b[ob:ob + n].abs().max()) > 0
+        b = b.clone()
+        b[ob:ob + n] = 0
+    faulty._blobs[torch.bfloat16] = (w, b, meta)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["warp trunk[1] rows 32-63", "hyper head bias"])
+def test_tensor_core_deform_pair_fault_misses_gates(card, rng, fault):
+    """A fault planted in the blob that bf16 K1 reads: its output must miss
+    the exact-sum rule that the faultless launch keeps."""
+    dev, _, pair, _ = card
+    S = 64
+    pts = _gpu(dev, rng.uniform(-0.6, 0.6, (300 * S, 3)))
+    out_p = k1.deform_pair_plain(pts, pair, "bfloat16", S, GRID)[0]
+    out_x = level_exact.exact_plain(k1.deform_pair_plain, pts, pair, "bfloat16", S,
+                                    GRID)[0]
+    out_k = k1.deform_pair_forward(pts, pair, "bfloat16", S, GRID)[0]
+    out_f = k1.deform_pair_forward(pts, _pair_blob_fault(pair, fault), "bfloat16", S,
+                                   GRID)[0]
+    torch.cuda.synchronize()
+    ok, d = _pair_exact(pts, out_k, out_p, out_x)
+    assert ok, d
+    ok, d = _pair_exact(pts, out_f, out_p, out_x)
+    assert not ok, d
+
+
+@pytest.mark.cuda
+def test_tensor_core_deform_pair_keeps_the_last_tile(card, rng):
+    """P = 1000 points (1 sample a ray), not a multiple of the 64-point
+    tile: bf16 K1 writes its packed points and rows into the first P rows
+    of buffers and nothing past them (the guard rows stay NaN and -1); the
+    launch told the tile's end as P writes them."""
+    dev, _, pair, _ = card
+    P = 1000
+    n_pad = -(-P // 64) * 64
+    pts = _gpu(dev, rng.uniform(-0.6, 0.6, (n_pad, 3)))
+    out_p = k1.deform_pair_plain(pts[:P], pair, "bfloat16", 1, GRID)[0]
+    out_x = level_exact.exact_plain(k1.deform_pair_plain, pts[:P], pair, "bfloat16", 1,
+                                    GRID)[0]
+
+    def run(n):
+        out = torch.full((n_pad + 64, 5), float("nan"), device=dev)
+        rows = torch.full((n_pad + 64,), -1, dtype=torch.int32, device=dev)
+        k1._launch(pts[:n], pair, torch.bfloat16, GRID, out[:n], rows[:n])
+        torch.cuda.synchronize()
+        return out, rows
+    guard_ok = lambda out, rows: bool(torch.isnan(out[P:]).all() and (rows[P:] == -1).all())
+    out, rows = run(P)
+    assert guard_ok(out, rows), "the kernel wrote past the last point"
+    ok, d = _pair_exact(pts[:P], out[:P], out_p, out_x)
+    assert ok, d
+    assert torch.equal(rows[:P].long(), _cell_geometry(out[:P, :3], GRID)[0])
+    assert not guard_ok(*run(n_pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [True, False])
+def test_tensor_core_deform_pair_does_not_depend_on_a_points_tile(card, rng, grid):
+    """bf16 K1 on permuted points gives each point's output and row bit for
+    bit: a point's deformation does not depend on its neighbours or on its
+    place in a tile (the fused step scatters coarse points into the fine
+    pass by their positions)."""
+    dev, _, pair, _ = card
+    P = 300 * 64 + 17
+    pts = _gpu(dev, rng.uniform(-1.05, 1.05, (P, 3)))
+    perm = torch.as_tensor(rng.permutation(P), device=dev)
+    dims = GRID if grid else None
+    out_a, rows_a = k1.deform_pair_forward(pts, pair, "bfloat16", 1, dims)
+    out_b, rows_b = k1.deform_pair_forward(pts[perm], pair, "bfloat16", 1, dims)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a[perm], out_b)
+    if grid:
+        assert torch.equal(rows_a.reshape(-1)[perm], rows_b.reshape(-1))

@@ -18,7 +18,11 @@ levels the card tests hold K2 on without a background.
       keeps the plain version's sigma head within a gate of a float64 run,
       as tests/test_torch_gridfree.py holds the grid-free one;
   (d) ``tools/point_spread.spread`` finds where a per-point distance
-      sits.
+      sits, and ``utils/compare``'s kink gate excuses the points off at a
+      leaky ReLU's kink alone and counts them against its cap;
+  (e) K5's and K1's plain versions (``nerf_level_plain``,
+      ``deform_pair_plain``) run with exact sums in float64, the
+      compositing too.
 """
 import numpy as np
 import pytest
@@ -34,6 +38,7 @@ from sahs_tpu_torch.ops.kernels import nerf_level as k5
 from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
 from sahs_tpu_torch.ops.kernels import skip_mlp as k13
 from sahs_tpu_torch.tools import level_exact, point_spread, sigma_head
+from sahs_tpu_torch.utils import compare
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
 
 torch.set_num_threads(2)
@@ -126,6 +131,55 @@ def test_exact_plain_runs_the_forwards_in_float64(levels, grid, kernel):
     assert k5._cell_geometry is _cell_geometry
 
 
+@pytest.mark.parametrize("with_bg", [True, False])
+@pytest.mark.parametrize("grid", [True, False])
+def test_exact_plain_runs_the_level_forward_in_float64(levels, grid, with_bg):
+    """The reference of the tensor-core K5 on the card: rgb_map and the
+    weights come out in float64 (the compositing too), within bf16
+    rounding of the plain version in bfloat16, and in float32 (no operand
+    rounded) within F32_VS_F64 of the plain version's float32 run."""
+    _, args = _inputs(levels, grid)["K6"]
+    args = args[:5] + (args[5] if with_bg else None,) + args[6:7] + args[9:]
+    for dtype, gate, cosine in (("bfloat16", 5e-2, 0.999),
+                                ("float32", F32_VS_F64, 1 - 1e-9)):
+        a = args[:8] + (dtype,) + args[9:]
+        out_x = level_exact.exact_plain(k5.nerf_level_plain, *a)
+        out_p = k5.nerf_level_plain(*a)
+        assert [t.dtype for t in out_x] == [torch.float64] * 2
+        assert [t.dtype for t in out_p] == [torch.float32] * 2
+        assert out_x[0].shape == (R, 16) and out_x[1].shape == (R, S)
+        for x, p in zip(out_x, out_p):
+            e = point_errors(x, p)
+            assert e["l2_rel"] <= gate and e["cosine"] >= cosine, (dtype, e)
+    assert k5._cell_geometry is _cell_geometry
+
+
+@pytest.mark.parametrize("grid", [True, False])
+def test_exact_plain_runs_the_deformation_pair_in_float64(grid):
+    """The reference of the tensor-core K1 on the card: the packed points
+    come out in float64, within bf16 rounding of the plain version in
+    bfloat16, and in float32 (no operand rounded) within F32_VS_F64 of the
+    plain version's float32 run; the rows (of the float64 output) are
+    those of the plain version's own output but where a coordinate sits on
+    a cell's face within float32 rounding."""
+    _, (pts, pair, _, _, _) = _deform_inputs("K3")
+    dims = GRID if grid else None
+    for dtype, gate in (("bfloat16", 5e-2), ("float32", F32_VS_F64)):
+        (out_x, rows_x) = level_exact.exact_plain(k1.deform_pair_plain, pts, pair, dtype,
+                                                  1, dims)
+        out_p, rows_p = k1.deform_pair_plain(pts, pair, dtype, 1, dims)
+        assert out_x.dtype == torch.float64 and out_p.dtype == torch.float32
+        assert out_x.shape == out_p.shape == (pts.shape[0], 5)
+        for cols in (slice(0, 3), slice(3, 5)):
+            e = point_errors(out_x[:, cols] - (pts.double() if cols.start == 0 else 0),
+                             out_p[:, cols] - (pts if cols.start == 0 else 0))
+            assert e["l2_rel"] <= gate, (dtype, e)
+        assert (rows_x is None) == (rows_p is None) == (not grid)
+        if grid:
+            assert (rows_x != rows_p).float().mean() <= 0.01
+    assert field_mlp.round_to(torch.ones(2), torch.bfloat16).dtype == torch.float32
+
+
 def _deform_inputs(kernel):
     """(plain version, arguments) of K3 or K14 on the flagship's seeded
     deformation nets, 200 points (not a multiple of the 64-point tile)."""
@@ -196,6 +250,58 @@ def test_point_spread_finds_the_points_that_carry_a_distance():
     assert s["top10_share"] > 0.999 and s["top1pct_share"] > 0.999
     assert sorted(s["worst10"][:3]) == [5, 50, 500]
     assert s["l2_rel"] > 1e-2 and s["l2_rel_without_top1pct"] < 2e-6
+
+
+def _kink_case(kink_at, P=1000, seed=4):
+    """Synthetic leaky-ReLU outputs of a level (two trunk layers, one layer
+    of each branch) whose pre-activations all lie at least 0.1 of their
+    unit's RMS from 0 but at the points ``kink_at``, where one unit's lies
+    within 1e-4 of it (on the negative side at every other such point)."""
+    rng = np.random.RandomState(seed)
+    leaky = lambda v: torch.where(v >= 0, v, 0.01 * v)
+    layers = []
+    for width in (64, 64, 32, 32):
+        v = rng.randn(P, width)
+        v = np.sign(v) * np.maximum(np.abs(v), 0.2)
+        for i, p in enumerate(kink_at):
+            v[p, (7 * i) % width] = 1e-4 * (-1) ** i
+        layers.append(leaky(torch.tensor(v)))
+    return {"trunk": layers[:2], "dacts": layers[2:3], "sacts": layers[3:]}
+
+
+def test_kink_points_excuse_points_off_at_a_kink_only():
+    """utils/compare's kink gate on synthetic data: the points planted at a
+    kink (either side of 0) are the kink points; off by far more than
+    KINK_TOL there, they are excused (within the cap) and the rest reads
+    the background error; a point off as far but away from any kink is not
+    excused, and the gate over the rest fails; more kink points off than
+    the cap (KINK_SHARE of the points) fail the cap."""
+    P = 1000
+    at = [5, 50, 500]
+    kinks = compare.kink_points(_kink_case(at))
+    assert kinks.shape == (P,) and sorted(torch.nonzero(kinks)[:, 0].tolist()) == at
+    assert compare.kink_cap(P) == 10
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.randn(P, 3))
+    a = x + 1e-6 * torch.tensor(rng.randn(P, 3))
+    a[at] += 1.0
+    off = compare.excused_points(a, x, kinks)
+    assert sorted(torch.nonzero(off)[:, 0].tolist()) == at
+    assert int(off.sum()) <= compare.kink_cap(P)
+    assert point_errors(a, x)["l2_rel"] > 1e-2
+    assert point_errors(a[~off], x[~off])["l2_rel"] < 1e-5
+    b = a.clone()
+    b[7] += 1.0                      # off, but at no kink
+    off = compare.excused_points(b, x, kinks)
+    assert not bool(off[7]) and int(off.sum()) == 3
+    assert point_errors(b[~off], x[~off])["l2_rel"] > 1e-2
+    many = list(range(0, P, 90))     # 12 points, more than the cap
+    kinks = compare.kink_points(_kink_case(many))
+    c = x.clone()
+    c[many] += 1.0
+    off = compare.excused_points(c, x, kinks)
+    assert sorted(torch.nonzero(off)[:, 0].tolist()) == many
+    assert int(off.sum()) > compare.kink_cap(P)
 
 
 def _leaves(tree):

@@ -13,9 +13,11 @@ kernels), on the CPU:
   (c) every (k, n) of every dW product, bias rows included, falls in
       exactly one work item of the split-K reduction;
   (d) the tile sizes agree with the CUDA sources, in both dtypes;
-  (e) the bf16 forward-only kernels (K7, K11; K13) take mma.cuh's tile and
-      block, and their shared memory leaves room for the blocks an SM
-      that their launch bounds ask for;
+  (e) the bf16 forward-only kernels (K7, K11 and K5's field; K13; K1)
+      take mma.cuh's tile and block, and their shared memory leaves room
+      for the blocks an SM that their launch bounds ask for; K5's
+      compositing holds a ray of the largest sample count the level
+      kernels take;
   (f) the kernels' C functions are looked up and typed once.
 """
 import os
@@ -307,13 +309,15 @@ def _model_without_ambient():
     return nerface.NeRFaceModel.init(spec, seed=0, device="cpu")
 
 
-def _skip_fwd_smem_bytes(pe_dim):
-    """skip_tc.cuh's SkipLayout(pe_dim, false, SKIP_FWD_KS).bytes, from the
+def _skip_fwd_smem_bytes(pe_dim, ks=None):
+    """skip_tc.cuh's SkipLayout(pe_dim, false, ks).bytes, from the
     sources' constants: the encoding [pad(pe_dim) to SKIP_KS], two
-    SKIP_HMAX-row activation tiles and the two-slice weight ring for
-    outputs up to max(SKIP_HMAX, pad8(pe_dim)) wide."""
+    SKIP_HMAX-row activation tiles and the two-slice weight ring of
+    ks-row slices (K13's SKIP_FWD_KS unless given) for outputs up to
+    max(SKIP_HMAX, pad8(pe_dim)) wide."""
     tp, hmax = _cu_const("mma.cuh", "TC_TP"), _cu_const("skip_tc.cuh", "SKIP_HMAX")
-    pad_ks, ks = _cu_const("skip_tc.cuh", "SKIP_KS"), _cu_const("skip_mlp.cu", "SKIP_FWD_KS")
+    pad_ks = _cu_const("skip_tc.cuh", "SKIP_KS")
+    ks = ks or _cu_const("skip_mlp.cu", "SKIP_FWD_KS")
     hdr = _cu_text("skip_tc.cuh")
     assert "ha = pe + pad_ks(pe_dim) * TC_LD * 2;" in hdr
     assert "ring = gs + (to_pe ? SKIP_HMAX * TC_LD * 2 : 0);" in hdr
@@ -347,6 +351,59 @@ def test_skip_forward_layout_fits_its_blocks(models, net):
     assert blocks * (smem + BLOCK_RESERVED) <= SM_SMEM
     if _cu_const("skip_mlp.cu", "SKIP_FWD_KS") == 32:
         assert smem == 63488
+
+
+@pytest.mark.parametrize("grid", [True, False])
+def test_deform_pair_tile_layout_fits_two_blocks(models, grid):
+    """bf16 K1 (``deform_pair.cu:deform_pair_tc_kernel``): the flagship
+    pair's trunks fit skip_tc.cuh's tiles at K3's slice depth (SKIP_KS),
+    and the kernel's shared memory, SkipLayout(pe_dim, false) as Python
+    reckons it from the sources' constants, leaves room for the two blocks
+    an SM that its launch bounds ask for."""
+    model = models["grid" if grid else "grid_free"]
+    cond = torch.tensor(np.random.RandomState(0).randn(76 + 36).astype(np.float32))
+    pair = k1.prepare_pair(model.warp, model.hyper, cond,
+                           nerface.build_pe_groups(model.spec)[0])
+    pe_dim = pair.warp_trunk[0]["w"].shape[0]
+    widths = [p["w"].shape[1] for p in pair.warp_trunk + pair.hyper_trunk]
+    assert pe_dim == 63 and widths == [128] * 6 + [64] * 6
+    ks = _cu_const("skip_tc.cuh", "SKIP_KS")
+    assert max(widths) <= _cu_const("skip_tc.cuh", "SKIP_HMAX")
+    assert all(n % ks == 0 for n in widths) and k13.TC_K_STEP == ks
+    src = _cu_text("deform_pair.cu")
+    assert '#include "skip_tc.cuh"' in src
+    assert re.search(r"__launch_bounds__\(sahs::TC_THREADS, 2\)\n"
+                     r"deform_pair_tc_kernel\(PairArgs a\)", src)
+    assert src.count("const sahs::SkipLayout ly(3 + 6 * a.n_freq, false);") == 2
+    assert src.count("skip_trunk_tc<false, sahs::SKIP_KS>") == 2
+    assert "const long long base = (long long)blockIdx.x * TC_TP;" in src
+    smem = _skip_fwd_smem_bytes(pe_dim, ks)
+    assert smem % 16 == 0 and smem <= BLOCK_MAX
+    assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
+    assert smem == 63488
+
+
+def test_composite_forward_smem_covers_every_tiling_count():
+    """bf16 K5's second launch (``level_train.cu:composite_fwd_kernel``)
+    holds a whole ray in shared memory: COMPOSITE_FWD_FLOATS floats a
+    sample (the channels [S][16] and six per-sample arrays of
+    composite_fwd), and K2's and K6's composite_kernel two more. Both fit
+    a block at the largest sample count the level kernels take (every
+    divisor of nerface.LEVEL_TILE)."""
+    src = _cu_text("level_train.cu")
+    fwd, full = (_cu_const("level_train.cu", n)
+                 for n in ("COMPOSITE_FWD_FLOATS", "COMPOSITE_FLOATS"))
+    body = src[src.index("void composite_fwd(const Args& a"):]
+    body = body[:body.index("const long long r = blockIdx.x;")]
+    assert body.count("float* ch = smem;            // [S][16]") == 1
+    assert fwd == 16 + len(re.findall(r"float\* \w+ = \w+ \+ (?:S \* 16|S);", body)) == 22
+    assert full == fwd + 2
+    assert "(size_t)a.S * COMPOSITE_FWD_FLOATS * sizeof(float)" in src
+    assert src.count("(size_t)a.S * COMPOSITE_FLOATS * sizeof(float)") == 2
+    S = max(s for s in range(1, nerface.LEVEL_TILE + 1) if nerface.level_kernel_compatible(s))
+    assert S == nerface.LEVEL_TILE == 1024
+    for floats in (fwd, full):
+        assert S * floats * 4 <= BLOCK_MAX
 
 
 def test_kernel_functions_are_resolved_once(monkeypatch):
