@@ -74,6 +74,11 @@ Phases, in order (any failure exits non-zero and prints no result):
      K14 run their products and dW on the tensor cores (csrc/mma.cuh,
      csrc/skip_tc.cuh, 64-point tiles); the planted split-K faults drop
      the first chunk of that reduction (level_train.TP_BF16-point tiles);
+     K4, K9 and K10 run one binned routine of csrc/grid_bwd.cu (no float
+     atomics): in phases 5, 7 and 9 a second launch on the same inputs
+     must give dG (and K10's dcoords) bit for bit, and phases 6, 8 and 10
+     print each one's device time by launch (torch.profiler, "launch_ms"
+     in its entry of the kernels line);
   7. fallback-kernel parity: K6 (both levels), K7, K8 and K9 against their
      plain versions on the autograd fallback's own inputs and cotangents,
      float32 at 256 rays (bg_sup 0 and 0.5) and bfloat16 at the main path's
@@ -540,7 +545,8 @@ def train_kernel_parity(inp, compute_dtype):
     g_k, g_p = k4.grid_dg(*inp["k4"]), k4.grid_dg_plain(*inp["k4"])
     e = tree_errors(g_k, g_p)
     res["k4"] = {"dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
-                 "max_abs_err": abs_err(g_k, g_p)}
+                 "max_abs_err": abs_err(g_k, g_p),
+                 "repeat_equal": bool(torch.equal(g_k, k4.grid_dg(*inp["k4"])))}
     torch.cuda.synchronize()
     return res, trees
 
@@ -557,6 +563,8 @@ def train_gates_missed(res, compute_dtype) -> list:
     f32 = compute_dtype == "float32"
     g = TRAIN_F32_GATES if f32 else TRAIN_BF16_GATES
     for name, r in res.items():
+        if not r.get("repeat_equal", True):
+            missed.append(name + " repeat")
         if name.startswith("k2"):
             out_ok = (max(r["rgb_abs"], r["w_abs"]) <= g["out_abs"] if f32
                       else max(r["rgb_rel"], r["w_rel"]) <= g["out_rel"])
@@ -673,15 +681,16 @@ def fallback_level_inputs(model, ds, near, far, dev, R, compute_dtype, gen,
                           bg_sup):
     """The inputs the autograd fallback gives K6 (both levels), K7 and K8
     (the fine level of the deformation-reuse path: coarse and importance
-    points concatenated, 128 a ray) and K9 (the fine level's sample-major
-    points), built with the plain versions from R random pixels of frame
-    0, with the cotangents the fallback's loss sends back."""
+    points concatenated, 128 a ray) and K9 (the fine level's points, ray
+    by ray, as the fallback hands them over), built with the plain versions
+    from R random pixels of frame 0, with the cotangents the fallback's
+    loss sends back."""
     import torch
     from sahs_tpu_torch.models import nerface
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import level_train as k2
     from sahs_tpu_torch.ops.kernels import nerf_level as k5
-    from sahs_tpu_torch.ops.kernels.field_grid import corner_table, sample_major
+    from sahs_tpu_torch.ops.kernels.field_grid import corner_table
     from sahs_tpu_torch.ops.rays import get_rays_at
     from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
     from sahs_tpu_torch.ops.sampling import coarse_z_vals, sample_pdf
@@ -736,8 +745,7 @@ def fallback_level_inputs(model, ds, near, far, dev, R, compute_dtype, gen,
     out["k6"] = levels
     fine = levels["fine"]
     S = 128
-    out["k9"] = (sample_major(fine["args"][0][:, :3], R, S),
-                 sample_major(fine["plain"][1], R, S), tuple(grid.shape))
+    out["k9"] = (fine["args"][0], fine["plain"][1], tuple(grid.shape))
     # the reuse path's fine level: [coarse | importance] points, unsorted
     packed_c, rows_c = k1.deform_pair_plain(pts(z_c), pair, compute_dtype, 64, dims)
     packed_n, rows_n = k1.deform_pair_plain(pts(z_new), pair, compute_dtype, 64, dims)
@@ -810,7 +818,8 @@ def fallback_kernel_parity(inp):
     outs["k9"] = dg_k
     e = tree_errors(dg_k, dg_p)
     res["k9"] = {"dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
-                 "max_abs_err": abs_err(dg_k, dg_p)}
+                 "max_abs_err": abs_err(dg_k, dg_p),
+                 "repeat_equal": bool(torch.equal(dg_k, k4.grid_dg_coords(*inp["k9"])))}
     torch.cuda.synchronize()
     return res, outs
 
@@ -822,6 +831,8 @@ def fallback_gates_missed(res, compute_dtype) -> list:
     f32 = compute_dtype == "float32"
     g = TRAIN_F32_GATES if f32 else TRAIN_BF16_GATES
     for name, r in res.items():
+        if not r.get("repeat_equal", True):
+            missed.append(name + " repeat")
         if name in ("k7", "k11"):
             ok = r["finite"] and (r["raw_abs"] <= g["out_abs"] if f32
                                   else r["raw_scaled"] <= g["out_rel"])
@@ -1217,6 +1228,7 @@ def pointwise_parity(inp):
     gx_p, ge_p, g_p = inp["k12_plain"]
     dg_k, dc_k = k4.grid_bwd_fused(*inp["k10"])
     dg_p, dc_p = k4.grid_bwd_fused_plain(*inp["k10"])
+    dg_r, dc_r = k4.grid_bwd_fused(*inp["k10"])
     torch.cuda.synchronize()
     e = tree_errors(g_k, g_p)
     k11_res = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": field_scaled(raw_k, raw_p),
@@ -1234,7 +1246,8 @@ def pointwise_parity(inp):
                                       in zip(leaves(g_k), leaves(g_p))),
                    "finite": bool(torch.isfinite(gx_k).all() and torch.isfinite(ge_k).all())},
            "k10": {"dg": tree_errors(dg_k, dg_p), "dcoords": tree_errors(dc_k, dc_p),
-                   "max_abs_err": max(abs_err(dg_k, dg_p), abs_err(dc_k, dc_p))}}
+                   "max_abs_err": max(abs_err(dg_k, dg_p), abs_err(dc_k, dc_p)),
+                   "repeat_equal": bool(torch.equal(dg_k, dg_r) and torch.equal(dc_k, dc_r))}}
     return res, {"k11": raw_k, "k12": g_k, "k10": dg_k, "k11_mask": k11_res.get("mask")}
 
 
@@ -1541,6 +1554,14 @@ def grid_sample_library(model, coords, g):
                                         align_corners=True)
     gout = g.t().reshape(o.shape)
     return lambda: torch.autograd.grad(o, g5, gout, retain_graph=True)
+
+
+def grid_launch_ms(fn) -> dict:
+    """The device time of one call of a grid backward (K4, K9, K10: one
+    binned routine) by CUDA kernel, torch.profiler over 20 calls: where
+    its phases spend the call."""
+    from sahs_tpu_torch.utils.device import device_ms_by_kernel
+    return device_ms_by_kernel(fn, launches=20)
 
 
 def level_train_macs(lw) -> int:
@@ -3191,6 +3212,9 @@ def main(argv) -> int:
               + (f", plain {plain:.2f} ms, library {lib:.2f} ms" if fp else "")
               + f"; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % "
               "of the bound)", flush=True)
+    train_kernels["grid_dg"]["launch_ms"] = grid_launch_ms(lambda: k4.grid_dg(*inp["k4"]))
+    print(f"grid_dg's launches at the step's shapes (device ms, torch.profiler): "
+          f"{json.dumps(train_kernels['grid_dg']['launch_ms'])}", flush=True)
     report["train_kernels"] = train_kernels
     tk = train_kernels
     kernel_step_ms = (tk["level_train"]["ms"] + tk["level_train_coarse"]["ms"]
@@ -3223,7 +3247,8 @@ def main(argv) -> int:
                                                 "bound_ms", "bound_by",
                                                 "library_ms")},
                         "coarse_ms": line.get("coarse_ms"),
-                        "tflops_achieved": line["tflops_achieved"]})
+                        "tflops_achieved": line["tflops_achieved"],
+                        **{k: line[k] for k in ("launch_ms",) if k in line}})
 
     del inp, step_inp, lv_c, lv_f
     torch.cuda.empty_cache()
@@ -3515,6 +3540,10 @@ def main(argv) -> int:
               + f" (bound {b_ms:.3f} ms by {b_by}, plain {plain:.2f} ms, "
               f"library {lib:.2f} ms; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
               f"{100 * b_ms / ms:.2f} % of the bound)", flush=True)
+    fb_kernels["grid_dg_coords"]["launch_ms"] = grid_launch_ms(
+        lambda: k4.grid_dg_coords(*fb_inp["k9"]))
+    print(f"grid_dg_coords' launches at the fine level (device ms, torch.profiler): "
+          f"{json.dumps(fb_kernels['grid_dg_coords']['launch_ms'])}", flush=True)
     report["fallback_kernels"] = fb_kernels
     path_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
                                 + r.get("launches", {}).get(k, 0)) for r in paths.values())
@@ -3541,7 +3570,8 @@ def main(argv) -> int:
                         "replaces": replaces, "launches": path_launches[key],
                         **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "bound_by", "library_ms")},
-                        "coarse_ms": line["coarse_ms"]})
+                        "coarse_ms": line["coarse_ms"],
+                        **{k: line[k] for k in ("launch_ms",) if k in line}})
     del fb_inp
     torch.cuda.empty_cache()
 
@@ -3705,6 +3735,11 @@ def main(argv) -> int:
               f"plain {plain:.2f} ms, library {lib:.2f} ms; "
               f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % of "
               "the bound)", flush=True)
+    pw_kernels["grid_bwd_fused"]["launch_ms"] = grid_launch_ms(
+        lambda: k4.grid_bwd_fused(*pw_inp["k10"]))
+    print(f"grid_bwd_fused's launches at the per-point step's fine level (device ms, "
+          f"torch.profiler): {json.dumps(pw_kernels['grid_bwd_fused']['launch_ms'])}",
+          flush=True)
     report["pointwise_kernels"] = pw_kernels
     del packed_f, extra_f
     pw_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
@@ -3731,7 +3766,8 @@ def main(argv) -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": pw_launches[key],
                         **{k: line[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                "bound_ms", "bound_by", "library_ms")}})
+                                                "bound_ms", "bound_by", "library_ms")},
+                        **{k: line[k] for k in ("launch_ms",) if k in line}})
     del pw_inp
     torch.cuda.empty_cache()
 

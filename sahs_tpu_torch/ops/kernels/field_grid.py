@@ -25,8 +25,9 @@ All are differentiable with respect to the NeRF module's parameters, their
 point inputs, the conditioning (and so AudioNet and the latent code behind
 it); the grid-coupled ops also to the grid and, for the level op, the
 background prior; z, the sigma noise and the corner-table rows get no
-gradient. Their dGrid pass (K9) runs over sample-major points, as the JAX op
-orders them (field_grid.py:80-85). The per-point op takes the spatial
+gradient. Their dGrid pass (K9) runs over the points ray by ray: it bins
+them by cell, so it needs no sample-major copy (the JAX op's order,
+field_grid.py:80-85). The per-point op takes the spatial
 embedding as an input, sampled before it by ``ops/grid.grid_sample_3d``,
 whose backward (K10) carries the gradient on to the grid.
 """
@@ -59,12 +60,6 @@ def gather_corners_from_rows(grid: torch.Tensor, rows: torch.Tensor,
     """(C, D, H, W) grid + table rows (any shape) -> (P, 8C) corner rows, in
     bf16 when compute_dtype is bfloat16 (field_grid.py:67-77)."""
     return corner_table(grid, compute_dtype)[rows.reshape(-1).long()]
-
-
-def sample_major(x: torch.Tensor, R: int, S: int) -> torch.Tensor:
-    """(R*S, k) ray-major -> sample-major: all rays' sample s adjacent
-    (field_grid.py:80-85)."""
-    return x.reshape(R, S, x.shape[-1]).transpose(0, 1).reshape(R * S, x.shape[-1])
 
 
 @dataclasses.dataclass
@@ -101,16 +96,15 @@ def _unfold(op: GridLevelOp, grads: dict, cond: torch.Tensor) -> torch.Tensor:
 
 def _backward_tail(op: GridLevelOp, pts_raw, gse, grads, cond):
     """The conditioning unfold, the parameters' gradients in ``op.params``
-    order, and dGrid (K9) over the sample-major points (None for the
-    grid-free form)."""
+    order, and dGrid (K9) over the points as the level holds them, ray by
+    ray: K9 bins them by cell, so their order does not matter (None for
+    the grid-free form)."""
     dcond = _unfold(op, grads, cond)
     by_param = {}
     level_param_grads(by_param, op.nerf, grads)
-    R = op.dirs.shape[0]
     dG = None
     if gse is not None:
-        dG = grid_dg_coords(sample_major(pts_raw[:, :3], R, op.samples),
-                            sample_major(gse, R, op.samples), op.grid_shape)
+        dG = grid_dg_coords(pts_raw, gse, op.grid_shape)
     return dcond, dG, [by_param.get(p) for p in op.params]
 
 

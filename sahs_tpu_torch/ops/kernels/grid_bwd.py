@@ -22,8 +22,15 @@ itself, with the same expression, and has no addend.
 K10 replaces ``grid_bwd.py:grid_bwd_fused`` (:343, ``pallas_call`` at
 :415), the backward of ``ops/grid.grid_sample_3d`` on the per-point branch
 and the plain path: dG and the coordinates' cotangent from the corner rows
-the forward gathered, in one launch of ``csrc/grid_bwd.cu``, with the JAX
-kernel's bf16 roundings in bf16 mode. It takes every grid shape.
+the forward gathered, with the JAX kernel's bf16 roundings in bf16 mode.
+It takes every grid shape.
+
+All three run one routine of ``csrc/grid_bwd.cu``: the points binned by
+cell (a stable radix sort), each cell's points summed in index order into
+its corners' partial sums, each voxel written once. No float atomics and
+no zero fill: dG is the same bit for bit on every run. Each wrapper makes
+one ctypes call, which launches the routine's kernels on PyTorch's current
+stream, and allocates its scratch (``_scratch``) with ``torch.empty``.
 
 ``grid_dg``, ``grid_dg_coords`` and ``grid_bwd_fused`` launch the kernel
 for CUDA tensors and count the call in ``<wrapper>.launches``; for CPU
@@ -32,12 +39,34 @@ tensors they run ``grid_dg_plain`` / ``grid_dg_coords_plain`` /
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 from ..grid import _cell_geometry, corner_dcoords
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_sizes(P: int, C: int, D: int, H: int, W: int) -> Tuple[int, int]:
+    """(int32s, float32s) of scratch the routine takes, as csrc/grid_bwd.cu
+    counts them (``sahs_grid_scratch``)."""
+    sizes = (ctypes.c_longlong * 2)()
+    fn = _build.function("grid_bwd", "sahs_grid_scratch", "liiii" + "p")
+    _build.check(fn(P, C, D, H, W, ctypes.addressof(sizes)), "grid backward scratch")
+    return sizes[0], sizes[1]
+
+
+def _scratch(P: int, C: int, dims: Sequence[int], device):
+    """The routine's scratch for P points, C channels and a (D, H, W) grid:
+    int32s for the sort and the cells' counts and offsets, float32s for
+    the chunks' partial sums. Returns (ints, n_ints, partials, n_floats)."""
+    n_ints, n_floats = _scratch_sizes(P, C, *dims)
+    ints = torch.empty(max(n_ints, 1), dtype=torch.int32, device=device)
+    part = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
+    return ints, n_ints, part, n_floats
 
 
 def _check_addend(gse: torch.Tensor, gse2: Optional[torch.Tensor]) -> None:
@@ -107,11 +136,13 @@ def grid_dg(pts: torch.Tensor, rows: torch.Tensor, gse: torch.Tensor,
     rows = rows.reshape(-1).to(torch.int32).contiguous()
     gse = gse.to(f32).contiguous()
     gse2 = gse2.to(f32).contiguous() if gse2 is not None else None
-    dg = torch.zeros((D, H, W, C), dtype=f32, device=pts.device)
-    fn = _build.function("grid_bwd", "sahs_grid_dg", "pppp" + "li" + "iiii" + "p" + "p")
+    dg = torch.empty((D, H, W, C), dtype=f32, device=pts.device)
+    ints, n_ints, part, n_floats = _scratch(P, C, (D, H, W), pts.device)
+    fn = _build.function("grid_bwd", "sahs_grid_dg",
+                         "pppp" + "li" + "iiii" + "plpl" + "p" + "p")
     p = _build.ptr
-    rc = fn(p(pts), p(rows), p(gse), p(gse2), P, PW, C, D, H, W, p(dg),
-            _build.stream_ptr(pts.device))
+    rc = fn(p(pts), p(rows), p(gse), p(gse2), P, PW, C, D, H, W,
+            p(ints), n_ints, p(part), n_floats, p(dg), _build.stream_ptr(pts.device))
     _build.check(rc, "grid_dg")
     grid_dg.launches += 1
     return dg.permute(3, 0, 1, 2)
@@ -146,11 +177,13 @@ def grid_dg_coords(coords: torch.Tensor, g: torch.Tensor,
     f32 = torch.float32
     coords = coords.to(f32).contiguous()
     g = g.to(f32).contiguous()
-    dg = torch.zeros((D, H, W, C), dtype=f32, device=coords.device)
-    fn = _build.function("grid_bwd", "sahs_grid_dg_coords", "pp" + "li" + "iiii" + "p" + "p")
+    dg = torch.empty((D, H, W, C), dtype=f32, device=coords.device)
+    ints, n_ints, part, n_floats = _scratch(P, C, (D, H, W), coords.device)
+    fn = _build.function("grid_bwd", "sahs_grid_dg_coords",
+                         "pp" + "li" + "iiii" + "plpl" + "p" + "p")
     p = _build.ptr
-    rc = fn(p(coords), p(g), P, PW, C, D, H, W, p(dg),
-            _build.stream_ptr(coords.device))
+    rc = fn(p(coords), p(g), P, PW, C, D, H, W, p(ints), n_ints, p(part),
+            n_floats, p(dg), _build.stream_ptr(coords.device))
     _build.check(rc, "grid_dg_coords")
     grid_dg_coords.launches += 1
     return dg.permute(3, 0, 1, 2)
@@ -228,14 +261,15 @@ def grid_bwd_fused(grid_shape: Sequence[int], coords: torch.Tensor,
     coords = coords.to(f32).contiguous()
     g = g.to(f32).contiguous()
     vals = vals.contiguous()
-    dg = torch.zeros((D, H, W, C), dtype=f32, device=coords.device)
+    dg = torch.empty((D, H, W, C), dtype=f32, device=coords.device)
     dc = torch.empty((P, 3), dtype=f32, device=coords.device)
+    ints, n_ints, part, n_floats = _scratch(P, C, (D, H, W), coords.device)
     fn = _build.function("grid_bwd", "sahs_grid_bwd_fused",
-                         "ppp" + "li" + "iiii" + "i" + "pp" + "p")
+                         "ppp" + "li" + "iiii" + "i" + "plpl" + "pp" + "p")
     p = _build.ptr
     rc = fn(p(coords), p(g), p(vals), P, PW, C, D, H, W,
-            int(compute_dtype == "bfloat16"), p(dg), p(dc),
-            _build.stream_ptr(coords.device))
+            int(compute_dtype == "bfloat16"), p(ints), n_ints, p(part), n_floats,
+            p(dg), p(dc), _build.stream_ptr(coords.device))
     _build.check(rc, "grid_bwd_fused")
     grid_bwd_fused.launches += 1
     return dg.permute(3, 0, 1, 2), dc

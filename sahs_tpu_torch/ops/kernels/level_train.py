@@ -43,7 +43,7 @@ the conditioning, runs K2 and unfolds the trunk's gradients
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -396,8 +396,9 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
             bg_sup: float = 0.0):
     """One call of the level-backward kernel set (csrc/level_train.cu) in
     ``mode``: "loss" (K2), "vjp" (K6) or "raw" (K8). Returns (rgb_map,
-    weights, gx, gse, g_bg (R, 16), grads); rgb_map, weights and g_bg are
-    None in "raw" mode, gse in the grid-free form."""
+    weights, gx, gse, g_bg (R, 16), grads, acts); rgb_map, weights and g_bg
+    are None in "raw" mode, gse in the grid-free form; acts is the
+    activation stash (``_vjp_branches`` reads it)."""
     check_device(what, pts.device)
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
                                           compute_dtype, grid_dims, what)
@@ -448,7 +449,35 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
             p(plan.work), p(part), p(out), _build.stream_ptr(dev))
     _build.check(rc, what)
     return (rgb_map, w_out, gx, gse, g_bg,
-            _grads_tree(weights, plan.unpack(out)))
+            _grads_tree(weights, plan.unpack(out)), acts)
+
+
+def _vjp_branches(pts, dirs, table, rows, z, bg, noise, g_rgb, g_w,
+                  weights: LevelWeights, compute_dtype: str,
+                  grid_dims) -> List[torch.Tensor]:
+    """The leaky-ReLU branches K6 takes on these arguments, read from its
+    stash of activations (slots [pe, h_0 .. h_{L-1}, feat, [pe(dir) | se],
+    d0-d3, s0-s3], tile-blocked as ``level_train_plan``'s ``slots`` lay them
+    out) on a launch of its own, not counted, which gives what the caller's
+    launch gave bit for bit. For each leaky layer in the order the plain
+    forward runs them (the trunk's, then the direction branch's, then the
+    seg branch's), (P, units) bool, True where the kernel's output, and so
+    its pre-activation, is positive."""
+    *_, acts = _launch("vjp", "nerf_level_vjp", pts, dirs, table, rows, weights,
+                       compute_dtype, grid_dims, z=z, bg=bg, noise=noise,
+                       g_rgb=g_rgb, g_w=g_w)
+    plan = level_train_plan(weights, acts.dtype)
+    tp = tile_points(acts.dtype)
+    tiles = acts.numel() // plan.act_stride
+    blocks = acts.reshape(tiles, plan.act_stride)
+    offs = plan.slots[:plan.n_act].tolist() + [plan.act_stride]
+    L = len(weights.trunk)
+    out = []
+    for i in list(range(1, L + 1)) + list(range(L + 3, plan.n_act)):
+        units = (offs[i + 1] - offs[i]) // tp
+        a = blocks[:, offs[i]:offs[i + 1]].reshape(tiles, units, tp)
+        out.append(a.transpose(1, 2).reshape(tiles * tp, units)[:pts.shape[0]] > 0)
+    return out
 
 
 def nerf_level_train(pts: torch.Tensor, dirs: torch.Tensor,
@@ -466,7 +495,7 @@ def nerf_level_train(pts: torch.Tensor, dirs: torch.Tensor,
                                       bg_sup)
     if tgt is None or lw is None:
         raise ValueError("K2 needs the target and the loss weights")
-    rgb_map, w_out, gx, gse, g_bg, grads = _launch(
+    rgb_map, w_out, gx, gse, g_bg, grads, _ = _launch(
         "loss", "nerf_level_train", pts, dirs, table, rows, weights,
         compute_dtype, grid_dims, z=z, bg=bg, noise=noise, tgt=tgt, lw=lw,
         bg_sup=bg_sup)
@@ -491,7 +520,7 @@ def nerf_level_vjp(pts: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
                                     g_w, weights, compute_dtype, grid_dims)
     if g_rgb is None or g_w is None:
         raise ValueError("K6 needs both cotangents, g_rgb and g_w")
-    _, _, gx, gse, g_bg, grads = _launch(
+    _, _, gx, gse, g_bg, grads, _ = _launch(
         "vjp", "nerf_level_vjp", pts, dirs, table, rows, weights,
         compute_dtype, grid_dims, z=z, bg=bg, noise=noise, g_rgb=g_rgb,
         g_w=g_w)
@@ -512,7 +541,7 @@ def nerf_rayd_vjp(pts: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
                                    compute_dtype, grid_dims)
     if g is None:
         raise ValueError("K8 needs the cotangent of the raw field")
-    _, _, gx, gse, _, grads = _launch(
+    _, _, gx, gse, _, grads, _ = _launch(
         "raw", "nerf_rayd_vjp", pts, dirs, table, rows, weights,
         compute_dtype, grid_dims, graw=g)
     nerf_rayd_vjp.launches += 1

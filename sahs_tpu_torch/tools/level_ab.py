@@ -7,6 +7,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --fields-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --skip-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --serve-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --grid-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -45,7 +46,8 @@ time (CUDA events around 200 calls) and the host's time (its clock around
 200 calls, synchronised at the end only). Steps (``train/trace_step.py``'s PATHS and ``build_step``, from this
 checkout, run on the tree's code): the flagship fused step, fallback path
 1 (fused_grads off), the reuse path (fuse_composite off too), the
-per-point step (``pointwise``, 64 + 128) and the warp-only and
+per-point step (``pointwise``, 64 + 128), the plain path's step
+(``plain``, float32, no kernels but K10) and the warp-only and
 ambient-only steps, each 2 warm-up steps and then the mean of 5, CUDA
 events. Frames: the 512x512 flagship, warp-only and ambient-only frames
 (64 + 64, through ``make_eval_renderer``), the per-point frame (64 + 128)
@@ -54,9 +56,11 @@ and one 32,768-ray chunk of the reuse path's frame
 minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone,
 ``--skip-only`` K13 alone (to compare two builds of a kernel),
 ``--serve-only`` K5, K1 and the flagship, warp-only and ambient-only
-frames (the serving readings). Prints one JSON line: the tree, the
-card's name and power limit, and the readings (ms; TFLOP/s and the bound's
-share for K3, K14, K7, K11 and K13).
+frames (the serving readings), ``--grid-only`` the grid backward (K4, K9
+and K10 at their paths' shapes, ``_grid_times``), ``--steps-only`` the
+steps alone. Prints one JSON line: the tree, the card's name and power
+limit, and the readings (ms; TFLOP/s and the bound's share for K3, K14,
+K7, K11 and K13).
 """
 from __future__ import annotations
 
@@ -517,6 +521,79 @@ def _frame_times(dev) -> dict:
     return out
 
 
+def _grid_times(dev, reps: int = 20) -> dict:
+    """K4, K9 and K10 per call at their paths' shapes, on the points of
+    2048 random pixels' rays of the synthetic 512x512 frame, sorted samples
+    between the flagship's near and far planes, ray by ray as a step lays
+    them out (a step's fine points: 262,144 in ~700 of the grid's cells, up
+    to ~3,000 a cell): K4 at the fused step's 262,144 fine points with the
+    addend, K9 there on ray-major points and on the sample-major copies the
+    JAX slab kernel wants (the fallback's layout before K9 binned its
+    points by cell; the two copies are timed too), K10 in bfloat16 and
+    float32 at the per-point step's 393,216, and K9 at a frame chunk's
+    4,194,304 points (32,768 rays x 128: 2,048 of the sort's tiles); each
+    its per-call time (CUDA events, the minimum over 3 runs of ``reps``
+    calls) and its device time by CUDA kernel (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import grid_bwd as k4
+    from sahs_tpu_torch.ops.rays import get_rays_at
+    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel
+
+    rng = np.random.RandomState(2)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    shape = (32, 32, 32, 32)
+    cfg = Config()
+    near, far = cfg.dataset.near, cfg.dataset.far
+    item = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512,
+                                near=near, far=far)[0]
+    idx = torch.tensor(rng.choice(512 * 512, 2048, replace=False), device=dev)
+    camera = [torch.as_tensor(item[k]).to(dev) for k in ("intrinsics", "pose")]
+    ro, rd = get_rays_at(idx, 512, 512, *camera)
+
+    def rays(R, S):
+        z = g(np.sort(rng.uniform(near, far, (R, S)), axis=1))
+        xyz = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(R * S, 3)
+        return torch.cat([xyz, g(rng.uniform(-1, 1, (R * S, 2)))], 1)
+
+    def reading(fn, reps=reps):
+        return {"ms": cuda_ms(fn, reps, runs=3),
+                "launch_ms": device_ms_by_kernel(fn, launches=reps)}
+
+    out = {}
+    R = 2048
+    pts = rays(R, 128)
+    gse, gse2 = g(rng.randn(R * 128, 32) * 1e-3), g(rng.randn(R * 128, 32) * 1e-3)
+    rows = _cell_geometry(pts, shape[1:])[0].to(torch.int32).reshape(R, 128)
+    out["K4 fine"] = reading(lambda: k4.grid_dg(pts, rows, gse, gse2, shape))
+    out["K9 fine, ray-major"] = reading(lambda: k4.grid_dg_coords(pts, gse, shape))
+    # ray-major -> sample-major: all rays' sample s adjacent
+    sample_major = lambda x: x.reshape(R, 128, -1).transpose(0, 1).reshape(R * 128, -1)
+    pts_sm, g_sm = sample_major(pts[:, :3]), sample_major(gse)
+    out["K9 fine, sample-major"] = reading(lambda: k4.grid_dg_coords(pts_sm, g_sm, shape))
+    out["sample_major copies"] = reading(
+        lambda: (sample_major(pts[:, :3]), sample_major(gse)))
+    pts = rays(R, 192)
+    gp = g(rng.randn(R * 192, 32) * 1e-3)
+    rows = _cell_geometry(pts, shape[1:])[0]
+    grid = g(rng.randn(*shape) * 0.1)
+    for dtype, tdt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        vals = pack_corner_table(grid, dtype=tdt)[rows]
+        out[f"K10 {dtype}"] = reading(
+            lambda: k4.grid_bwd_fused(shape, pts, gp, vals, dtype))
+        del vals
+    idx = torch.tensor(rng.choice(512 * 512, 32768, replace=False), device=dev)
+    ro, rd = get_rays_at(idx, 512, 512, *camera)      # ``rays`` reads these
+    pts = rays(32768, 128)
+    gc = g(rng.randn(32768 * 128, 32) * 1e-3)
+    out["K9 frame chunk"] = reading(lambda: k4.grid_dg_coords(pts, gc, shape), reps=5)
+    return out
+
+
 def _checkout_module(path: str):
     """This checkout's ``sahs_tpu_torch/<path>``, loaded beside the
     ``sahs_tpu_torch`` imported from the tree under test (its relative
@@ -545,7 +622,7 @@ def _step_times(dev, n_steps: int = 5) -> dict:
 
     steps = _trace_step()
     out = {}
-    for name in ("fused", "fallback", "reuse", "pointwise", "warp_only",
+    for name in ("fused", "fallback", "reuse", "pointwise", "plain", "warp_only",
                  "ambient_only"):
         step, state, batch, gen = steps.build_step(name, dev)
         held = [state]
@@ -565,6 +642,10 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-only", action="store_true", help="time K13 alone")
     ap.add_argument("--serve-only", action="store_true",
                     help="time K5 and K1 at a frame's chunks and the frames")
+    ap.add_argument("--grid-only", action="store_true",
+                    help="time K4, K9 and K10 at their paths' shapes")
+    ap.add_argument("--steps-only", action="store_true",
+                    help="time the train steps of train/trace_step.py alone")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -576,7 +657,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     res = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(sahs_tpu_torch.__file__))),
            "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}"}
-    if args.skip_only:
+    if args.grid_only:
+        res["grid"] = _grid_times(dev)
+    elif args.steps_only:
+        res["steps_ms"] = _step_times(dev)
+    elif args.skip_only:
         res["skip_net"] = _skip_times(dev)
     elif args.serve_only:
         res.update(serve=_serve_kernel_times(dev), frames_ms=_serve_frame_times(dev))
@@ -586,6 +671,7 @@ def main(argv=None) -> int:
         res.update(serve=_serve_kernel_times(dev), fields=_field_times(dev),
                    skip_net=_skip_times(dev), k15=_k15_times(dev),
                    kernels_ms=_kernel_times(dev), deform_nets=_deform_times(dev),
+                   grid=_grid_times(dev),
                    steps_ms=_step_times(dev),
                    frames_ms={**_serve_frame_times(dev), **_frame_times(dev)})
     print(json.dumps(res), flush=True)

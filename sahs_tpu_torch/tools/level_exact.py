@@ -147,6 +147,70 @@ def exact_acts(plain, *args) -> dict:
     return acts
 
 
+def kernel_branches(args: tuple) -> List[torch.Tensor]:
+    """The leaky-ReLU branches bf16 K6 takes on its ``args``
+    (``level_train._vjp_branches``)."""
+    return k2._vjp_branches(*args)
+
+
+def plain_branches(args: tuple) -> List[torch.Tensor]:
+    """The leaky-ReLU branches the level's plain forward takes in its own
+    float32 run on K6's ``args``, laid out as ``kernel_branches``'."""
+    acts = {}
+    k5.nerf_raw_plain(*args[:4], *args[9:12], acts)
+    return [y > 0 for y in list(acts["trunk"]) + list(acts["dacts"]) + list(acts["sacts"])]
+
+
+@contextlib.contextmanager
+def branches_at(points: torch.Tensor, branches: List[torch.Tensor]):
+    """Inside, the NeRF level's plain version takes, at ``points`` (P,)
+    bool alone, the leaky-ReLU branch that ``branches`` (``kernel_branches``)
+    gives each unit of each leaky layer: forward, y = x or 0.01 x as the
+    branch says, and backward, that branch's slope. Everywhere else it is
+    unchanged. Yields the count of leaky layers it ran (a list of one int),
+    which must equal ``len(branches)``."""
+    leaky, dact = k5.leaky, field_mlp.dact
+    calls, slopes = [0], {}
+
+    def branch_leaky(x):
+        pos = branches[calls[0]].to(x.device)
+        calls[0] += 1
+        at = points.to(x.device)[:, None]
+        y = torch.where(at, torch.where(pos, x, 0.01 * x), leaky(x))
+        slope = torch.where(at, torch.where(pos, 1.0, 0.01), torch.where(y > 0, 1.0, 0.01))
+        slopes[id(y)] = (y, slope.to(y.dtype))
+        return y
+
+    def branch_dact(name, y):
+        hit = slopes.get(id(y))
+        if name == "leaky" and hit is not None and hit[0] is y:
+            return hit[1]
+        return dact(name, y)
+
+    k5.leaky = branch_leaky
+    k2.dact = field_mlp.dact = branch_dact
+    try:
+        yield calls
+    finally:
+        k5.leaky = leaky
+        k2.dact = field_mlp.dact = dact
+
+
+def exact_plain_at_branches(plain, args: tuple, points: torch.Tensor,
+                            branches: List[torch.Tensor]):
+    """``exact_plain(plain, *args)`` with the level's leaky ReLUs on the
+    branches ``branches`` at ``points`` alone (``branches_at``): the
+    exact-sum reference of bf16 K6's plain version that takes one side's own branch (``kernel_branches``,
+    ``plain_branches``) at the kink points where that side's gx is off, so
+    that both compute the same function there."""
+    with branches_at(points, branches) as calls:
+        out = exact_plain(plain, *args)
+    if calls[0] != len(branches):
+        raise RuntimeError(f"the plain version ran {calls[0]} leaky layers, "
+                           f"the branches are for {len(branches)}")
+    return out
+
+
 def coarse_level(kind: str, grid: bool, dtype: torch.dtype, dev):
     """(folded coarse level, model) of the flagship model, seed 0, in
     ``dtype``, conditioned as the card tests' fixture is: ``kind`` "init"

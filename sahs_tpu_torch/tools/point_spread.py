@@ -14,10 +14,26 @@ what the kink-point gate of the card tests sees (``utils/compare``): the
 share of kink points, the points each side excuses (kink points off by
 more than ``KINK_TOL``) against the cap (``KINK_SHARE``), the distance
 over the rest, and how close to its kink the nearest pre-activation of
-each of the kernel's worst 10 points lies (``kink_distance``). The
-cases are two card tests of ``tests/test_torch_cuda.py`` (96 rays, with a
-background): ``test_nerf_level_vjp_kernel_matches_plain`` at 64 samples on
-the flagship's seeded coarse level, and
+each of the kernel's worst 10 points lies (``kink_distance``). For dW
+(``dw``) it prints the worst leaf's L2-relative distance to exact sums of
+the kernel and of the plain version (the card tests' 4x rule reads it) and
+where that distance comes from: K6's dW is a sum over rays, so each of
+the kink rays (a ray that holds a ``kink_points`` point), the rays that
+hold a point the kernel's gx gate excuses and those that hold one the
+plain version's would excuse is run on its own, with the other rays
+apart; for each part the kernel's and the plain version's distance from
+exact sums in that leaf, over the whole leaf's norm, the share of the
+squared distance that the part carries, and the rule read over the rays
+without an excused point alone; and (``own_side``, on the card) the same
+rule and gx with each side held against the reference that takes its own
+branch at the kink points where its gx is off
+(``level_exact.exact_plain_at_branches``). In the grid-free case
+``k2_dw`` splits K2's dW (``nerf_level_train``, on the test's next draw
+of a target) the same way, over the kink rays and the rays holding a
+kink point where K2's gx is off by more than ``KINK_TOL``. The cases are
+two card tests of ``tests/test_torch_cuda.py`` (96 rays, with a
+background): ``test_nerf_level_vjp_kernel_matches_plain`` at 64 samples
+on the flagship's seeded coarse level, and
 ``test_grid_free_level_kernels_match_plain`` at 16 samples with sigma
 noise on the grid-free one, each level conditioned as the tests' fixtures
 condition it; the draws are each test's own (its ``rng`` fixture: a crc32
@@ -38,7 +54,9 @@ from ..ops.kernels import level_train as k2
 from ..ops.kernels import nerf_level as k5
 from ..utils import compare
 from ..utils.device import card_line, resolve_device
-from .level_exact import GRID, coarse_level, exact_acts, exact_plain
+from ..utils.compare import leaves, point_errors, tree_errors
+from .level_exact import (GRID, coarse_level, exact_acts, exact_plain,
+                          exact_plain_at_branches, kernel_branches, plain_branches)
 
 # case -> (the card test's node id, grid, samples, sigma noise, the seed of
 # its level's conditioning)
@@ -92,6 +110,56 @@ def excusal(a: torch.Tensor, x: torch.Tensor, kinks: torch.Tensor) -> dict:
             "l2_rel_without_excused": float(d)}
 
 
+def ray_subset(vargs: tuple, keep: torch.Tensor, S: int) -> tuple:
+    """K6's (or K2's) arguments ``vargs`` on the rays ``keep`` (R,) bool
+    alone: K2's target and loss weights stand where K6's cotangents do."""
+    pts, dirs, table, rows, z, bg, noise, g_rgb, g_w = vargs[:9]
+    pk = keep.repeat_interleave(S)
+    sel = lambda t, m: None if t is None else t[m]
+    rows = None if rows is None else rows.reshape(-1)
+    return (pts[pk], dirs[keep], table, sel(rows, pk), z[keep], sel(bg, keep),
+            sel(noise, keep), g_rgb[keep], g_w[keep]) + tuple(vargs[9:])
+
+
+def dw_split(vargs: tuple, S: int, masks: Dict[str, torch.Tensor],
+             g_k: dict, g_p: dict, g_x: dict, kernel=k2.nerf_level_vjp,
+             plain=k2.nerf_level_vjp_plain) -> dict:
+    """Where the dW distance from exact sums of K6 (or of K2: ``kernel``
+    and ``plain`` given) comes from. ``g_k``, ``g_p``, ``g_x`` are the
+    kernel's, the plain version's and the exact-sum dW over every ray; for
+    each ray mask the same three are run on the rays in the mask and on
+    the others, and the worst leaf's distances read."""
+    e_k, e_p = tree_errors(g_k, g_x), tree_errors(g_p, g_x)
+    leaf = e_k["worst_leaf"]
+    pick = lambda t: dict(leaves(t))[leaf].double()
+    xn = float(pick(g_x).norm())
+    res = {"worst_leaf": leaf, "kernel": e_k["l2_rel"], "plain": e_p["l2_rel"],
+           "ratio": e_k["l2_rel"] / max(e_p["l2_rel"], 1e-3)}
+    for name, m in masks.items():
+        row = {"rays": int(m.sum())}
+        sq = {"kernel": {}, "plain": {}}
+        for part, keep in (("with", m), ("without", ~m)):
+            if not bool(keep.any()):
+                row[part] = None
+                sq["kernel"][part] = sq["plain"][part] = 0.0
+                continue
+            sub = ray_subset(vargs, keep, S)
+            sk, sp = kernel(*sub)[-1], plain(*sub)[-1]
+            sx = exact_plain(plain, *sub)[-1]
+            dk = float((pick(sk) - pick(sx)).norm())
+            dp = float((pick(sp) - pick(sx)).norm())
+            sq["kernel"][part], sq["plain"][part] = dk ** 2, dp ** 2
+            rk, rp = tree_errors(sk, sx)["l2_rel"], tree_errors(sp, sx)["l2_rel"]
+            row[part] = {"kernel": dk / xn, "plain": dp / xn,
+                         "rule_kernel": rk, "rule_plain": rp,
+                         "rule_ratio": rk / max(rp, 1e-3)}
+        for who in ("kernel", "plain"):
+            tot = sq[who]["with"] + sq[who]["without"]
+            row[f"{who}_share_with"] = sq[who]["with"] / tot if tot > 0 else 0.0
+        res[name] = row
+    return res
+
+
 def level_of(grid: bool, cond_seed: int, dev):
     """The card tests' seeded coarse level (``coarse_level("seeded")``)
     conditioned on ``RandomState(cond_seed).randn(112) * 0.5``, as their
@@ -134,6 +202,42 @@ def case(level, table, grid: bool, S: int, with_noise: bool, seed: int, dev) -> 
     acts = exact_acts(k5.nerf_raw_plain, pts, dirs, table, rows, level, "bfloat16", dims)
     kinks, near = compare.kink_points(acts), kink_distance(acts)
     res = {"kink_share": float(kinks.double().mean())}
+    by_ray = lambda m: m.reshape(R, S).any(dim=1)
+    off_k = compare.excused_points(out_k[0], out_x[0], kinks)
+    off_p = compare.excused_points(out_p[0], out_x[0], kinks)
+    res["dw"] = dw_split(vargs, S, {"kink_rays": by_ray(kinks),
+                                    "kernel_excused_rays": by_ray(off_k),
+                                    "plain_excused_rays": by_ray(off_p)},
+                         out_k[3], out_p[3], out_x[3])
+    if dev.type == "cuda":
+        # each side against the reference on its own branch at the kink
+        # points where its gx is off (level_exact.exact_plain_at_branches)
+        plain = k2.nerf_level_vjp_plain
+        x_k = exact_plain_at_branches(plain, vargs, off_k, kernel_branches(vargs))
+        x_p = exact_plain_at_branches(plain, vargs, off_p, plain_branches(vargs))
+        e_k, e_p = tree_errors(out_k[3], x_k[3]), tree_errors(out_p[3], x_p[3])
+        res["dw"]["own_side"] = {
+            "kernel_points": int(off_k.sum()), "plain_points": int(off_p.sum()),
+            "kernel": e_k["l2_rel"], "plain": e_p["l2_rel"], "worst_leaf": e_k["worst_leaf"],
+            "ratio": e_k["l2_rel"] / max(e_p["l2_rel"], 1e-3),
+            "gx_kernel": point_errors(out_k[0], x_k[0])["l2_rel"],
+            "gx_plain": point_errors(out_p[0], x_p[0])["l2_rel"],
+            "gx_kernel_excused": int(compare.excused_points(out_k[0], x_k[0], kinks).sum())}
+    if not grid:
+        # the grid-free test also holds K2 on a target drawn after the
+        # cotangents' (its gx has no kink gate): where its dW distance sits
+        tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+        lw = g(np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+        targs = args + (tgt, lw, level, "bfloat16", dims, 0.5)
+        t_k = k2.nerf_level_train(*targs)
+        t_p = k2.nerf_level_train_plain(*targs)
+        t_x = exact_plain(k2.nerf_level_train_plain, *targs)
+        off2 = compare.excused_points(t_k[2], t_x[2], kinks)
+        res["k2_dw"] = dw_split(targs, S, {"kink_rays": by_ray(kinks),
+                                           "kernel_off_kink_rays": by_ray(off2)},
+                                t_k[-1], t_p[-1], t_x[-1], k2.nerf_level_train,
+                                k2.nerf_level_train_plain)
+        res["k2_dw"]["gx_kernel_off_kink_points"] = int(off2.sum())
     for i, name in enumerate(("gx", "gse", "g_bg")):
         if out_x[i] is None:
             continue

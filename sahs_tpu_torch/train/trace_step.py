@@ -30,7 +30,10 @@ compositing), in float32 as nerf_level_kernel; K1 as deform_pair_tc_kernel
 (bfloat16) or deform_pair_kernel (float32); K7 and K11 in bfloat16 as
 field_tc_kernel (the tensor-core forward of csrc/level_train.cu), in
 float32 as nerf_level_kernel and nerf_mlp_kernel;
-K10 as grid_bwd_fused_kernel; K13 as skip_fwd_tc_kernel (bfloat16) or
+K4, K9 and K10 as the launches of their one routine (dg_cells_kernel,
+dg_hist_kernel, dg_tile_offsets_kernel, dg_scatter_kernel, dg_cell_sums_kernel,
+dg_cell_offsets_kernel, dg_chunk_kernel, dg_voxel_kernel, and K10's
+dg_dcoords_kernel); K13 as skip_fwd_tc_kernel (bfloat16) or
 skip_mlp_kernel (float32); K14 as skip_vjp_tc_kernel, level_dw_kernel, dw_reduce (bfloat16) or
 skip_vjp_kernel, dw_kernel, dw_reduce (float32). Each line names the
 port's kernels whose launch it is (``OWNERS``).
@@ -66,8 +69,14 @@ OWNERS = {
     "pair_vjp_tc_kernel": "K3", "pair_vjp_kernel": "K3",
     "skip_fwd_tc_kernel": "K13", "skip_mlp_kernel": "K13",
     "skip_vjp_tc_kernel": "K14", "skip_vjp_kernel": "K14",
-    "build_pts_kernel": "K15", "grid_dg_kernel": "K4, K9",
-    "grid_bwd_fused_kernel": "K10"}
+    "build_pts_kernel": "K15",
+    "dg_cells_kernel": "K4, K9, K10 dG: cells", "dg_hist_kernel": "K4, K9, K10 dG: sort",
+    "dg_tile_offsets_kernel": "K4, K9, K10 dG: sort",
+    "dg_cell_sums_kernel": "K4, K9, K10 dG: offsets",
+    "dg_cell_offsets_kernel": "K4, K9, K10 dG: offsets",
+    "dg_scatter_kernel": "K4, K9, K10 dG: sort",
+    "dg_chunk_kernel": "K4, K9, K10 dG: cell sums",
+    "dg_voxel_kernel": "K4, K9, K10 dG: voxel sums", "dg_dcoords_kernel": "K10 dcoords"}
 
 
 def owner(name: str) -> str:

@@ -29,10 +29,14 @@ and for the kernels on the tensor cores against exact sums, at most
 PLAIN_MULTIPLE times the plain version's distance to them. bf16 K6 point
 cotangents in the two tests of ROADMAP Queue 3 excuse the kink points
 that are off, and fail with more of them than utils/compare.kink_cap
-(``_kink_gate``).
+(``_kink_gate``); there each side is held against the exact-sum reference
+on its own leaky-ReLU branch at its off kink points (``_plain_ref``). The
+grid backward (K4, K9, K10: one binned routine) is also held to give the
+same bits on a second launch.
 Selecting: ``-k tensor_core`` (the tensor-core kernels' own tests), ``-k
 "tensor_core_level_forward or tensor_core_deform_pair"`` (bf16 K5 and K1's
-faults, guards and K5's bit-equality with K2's forward).
+faults, guards and K5's bit-equality with K2's forward), ``-k "grid_dg or
+grid_bwd or grid_backward or order_free"`` (the grid backward).
 """
 import dataclasses
 import zlib
@@ -57,6 +61,8 @@ from sahs_tpu_torch.tools import level_exact
 from sahs_tpu_torch.train import fused
 from sahs_tpu_torch.utils import compare
 from sahs_tpu_torch.utils.compare import point_errors, tree_errors
+
+import torch_grid_util
 
 GRID = (32, 32, 32)
 
@@ -165,17 +171,38 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False, kinks=None):
     results ``out_k``, also holds them to the plain version's own distance
     from exact sums (PLAIN_MULTIPLE), dW without the sigma head where
     ``skip_sigma``, point cotangents over the points that are not excused
-    kink points where ``kinks`` is given (``_kink_gate``)."""
+    kink points where ``kinks`` is given (``_kink_gate``).
+
+    Where ``kinks`` is given to bf16 K6, each side is held against the
+    exact-sum reference on its own leaky-ReLU branch at the kink points
+    where its gx is off by more than compare.KINK_TOL, and at no other
+    point (``level_exact.exact_plain_at_branches``; at most
+    compare.kink_cap such points of the kernel's): the kernel's reference
+    takes the kernel's branch there (read from its stash), the plain
+    version's its own, so that a flip at a kink moves neither side's
+    distance (ROADMAP Queue 3). The kernel's reference is returned."""
     if not any(isinstance(a, str) and a == "bfloat16" for a in args):
         return plain(*args)
-    ref = level_exact.exact_plain(plain, *args)
+    ref = ref_p = level_exact.exact_plain(plain, *args)
+    out_p = plain(*args) if out_k is not None else None
+    if out_k is not None and kinks is not None and plain is k2.nerf_level_vjp_plain:
+        off = compare.excused_points(out_k[0], ref[0], kinks)
+        off_p = compare.excused_points(out_p[0], ref[0], kinks)
+        assert int(off.sum()) <= compare.kink_cap(len(off)), (
+            plain.__name__, int(off.sum()), len(off))
+        if bool(off.any()):
+            ref = level_exact.exact_plain_at_branches(
+                plain, args, off, level_exact.kernel_branches(args))
+        if bool(off_p.any()):
+            ref_p = level_exact.exact_plain_at_branches(
+                plain, args, off_p, level_exact.plain_branches(args))
     if out_k is not None:
         # K2's composited colours and weights are forward outputs
         first = 2 if plain is k2.nerf_level_train_plain else 0
-        out_p = plain(*args)
         # K3 returns its gradient tree alone, K7 and K11 their raw field
         outs = lambda o: (o,) if isinstance(o, (dict, torch.Tensor)) else o
-        for i, (k, p, x) in enumerate(zip(outs(out_k), outs(out_p), outs(ref))):
+        for i, (k, p, x, xp) in enumerate(zip(outs(out_k), outs(out_p), outs(ref),
+                                              outs(ref_p))):
             if i < first or k is None:
                 continue
             if plain in (k5.nerf_raw_plain, k11.nerf_mlp_plain):
@@ -184,8 +211,8 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False, kinks=None):
                 continue
             if isinstance(x, dict):
                 if skip_sigma:
-                    k, p, x = (_without_sigma_head(t) for t in (k, p, x))
-                d_k, d_p = tree_errors(k, x)["l2_rel"], tree_errors(p, x)["l2_rel"]
+                    k, p, x, xp = (_without_sigma_head(t) for t in (k, p, x, xp))
+                d_k, d_p = tree_errors(k, x)["l2_rel"], tree_errors(p, xp)["l2_rel"]
             else:
                 keep = slice(None)
                 if kinks is not None and len(k) == len(kinks):
@@ -194,7 +221,7 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False, kinks=None):
                         plain.__name__, i, int(off.sum()), len(off))
                     keep = ~off
                 d_k = point_errors(k[keep], x[keep])["l2_rel"]
-                d_p = point_errors(p[keep], x[keep])["l2_rel"]
+                d_p = point_errors(p[keep], xp[keep])["l2_rel"]
             assert d_k <= PLAIN_MULTIPLE * max(d_p, PLAIN_FLOOR), (
                 plain.__name__, i, d_k, d_p)
     return ref
@@ -571,7 +598,12 @@ def _loss_cotangents(dev, rng, rgb_map, w):
 # such points than compare.kink_cap fails (tools/point_spread.py: at 96
 # rays the worst 10 points carry 90-100 % of a bf16 run's squared distance
 # from exact sums, the kernel's and the plain version's alike); every
-# other point keeps the gates, and dW is held over every ray.
+# other point keeps the gates, and dW is held over every ray. At the kink
+# points where a side's gx is off, that side is held against the
+# reference on its own branch (``_plain_ref``): the rays holding the
+# kernel's carry 79-100 % of its squared dW distance from exact sums on
+# the cases' draws, and a flipped unit moves its dW columns by the whole
+# slope (point_spread.py).
 
 
 def _level_kinks(plain, args):
@@ -668,6 +700,63 @@ def test_kink_gate_fails_a_fault_in_one_tile(card, rng, out):
     assert bool(compare.excused_points(bad, x, torch.ones_like(kinks))[tile].all())
     ok, e = _kink_gate(bad, x, kinks)
     assert not ok, e
+
+
+def _queue3_gates(out_k, vargs, kinks):
+    """(the bf16 K6 results ``out_k`` keep the grid-free Queue-3 test's
+    gates on ``vargs``, what failed): the exact-sum rule and the kink gate
+    (``_plain_ref``), the point gates and the dW gate against the
+    reference."""
+    try:
+        gx_p, _, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs,
+                                         out_k=out_k, kinks=kinks)
+        _points_ok(out_k[0], gx_p, False, kinks)
+        _points_ok(out_k[2], gbg_p, False)
+        _grads_ok(out_k[3], g_p, "bfloat16")
+    except AssertionError as e:
+        return False, str(e)[:300]
+    return True, ""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["tile", "half tile", "weight slice"])
+def test_kink_branch_reference_fails_planted_faults(grid_free, rng, fault):
+    """The Queue-3 case (grid-free, 96 rays x 16, a background, sigma
+    noise) whose reference takes the kernel's branch at the excused kink
+    points (``_plain_ref``): the kernel passes its gates, and fails them
+    with every point of one 64-point tile, or of half of one, moved by
+    1e-2 of the largest point's norm in gx, or with rows 16-31 of
+    trunk[1]'s weights left out of its forward blob."""
+    dev, _, level = grid_free
+    R, S = 96, 16
+    args = _grid_free_case(dev, rng, R, S, True, True)
+    rgb_p, w_p = k5.nerf_level_plain(*args, level, "bfloat16", None)
+    g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
+    vargs = args + (g_rgb, g_w, level, "bfloat16", None)
+    kinks = _level_kinks(k2.nerf_level_vjp_plain, vargs)
+    out_k = k2.nerf_level_vjp(*vargs)
+    ok, why = _queue3_gates(out_k, vargs, kinks)
+    assert ok, why
+    if fault == "weight slice":
+        faulty = dataclasses.replace(level, _blobs={})
+        plan = k2.level_train_plan(faulty, torch.bfloat16)
+        w, b, meta = plan.fwd
+        w1, k1_, _, _, n = meta.reshape(-1, 7)[1, :5].tolist()
+        assert k1_ >= 32
+        w = w.clone()
+        w[w1 + 16 * n:w1 + 32 * n] = 0
+        faulty._blobs[("train", torch.bfloat16)] = dataclasses.replace(plan, fwd=(w, b, meta))
+        vargs = args + (g_rgb, g_w, faulty, "bfloat16", None)
+        bad = k2.nerf_level_vjp(*vargs)
+    else:
+        x = level_exact.exact_plain(k2.nerf_level_vjp_plain, *vargs)[0]
+        gx = out_k[0].clone()
+        tile = slice(10 * 64, 10 * 64 + (64 if fault == "tile" else 32))
+        gx[tile] += 1e-2 * float(x.norm(dim=1).max()) / gx.shape[1] ** 0.5
+        bad = (gx,) + tuple(out_k[1:])
+    torch.cuda.synchronize()
+    ok, why = _queue3_gates(bad, vargs, kinks)
+    assert not ok
 
 
 @pytest.mark.cuda
@@ -915,6 +1004,167 @@ def test_grid_bwd_fused_kernel_matches_plain(card, rng, compute_dtype):
     for a, b in ((dg_k, dg_p), (dc_k, dc_p)):
         e = tree_errors(a, b)
         assert e["l2_rel"] <= gate and e["cosine"] >= 0.9999, e
+
+
+# ---------------------------------------------------------------------------
+# The binned grid backward (csrc/grid_bwd.cu: K4, K9 and K10 share one dG
+# routine): repeat launches bit for bit, the layouts of
+# tests/torch_grid_util.py (a hot cell of 50,000 points, every point
+# outside the band, the grid's faces), P = 1 and ragged P, other channel
+# counts, and K9 on both point orders. Gates as the tests above: K4 and K9
+# GRAD_GATES["float32"], K10 within 1e-5 in float32 and 2e-3 in bfloat16.
+# ---------------------------------------------------------------------------
+
+GRID_KINDS = ("K4", "K9", "K10 float32", "K10 bfloat16")
+
+
+def _grid_case(dev, rng, kind, c, C=32):
+    """(kernel call, plain call) of ``kind`` on packed points ``c`` (P, 5)
+    numpy with a random cotangent of C channels (and K4's addend, K10's
+    corner rows from a random grid): each returns (dG, dcoords or None)."""
+    P = len(c)
+    pts, g = _gpu(dev, c), _gpu(dev, rng.randn(P, C))
+    shape = (C,) + GRID
+    if kind == "K4":
+        g2 = _gpu(dev, rng.randn(P, C))
+        rows, _, _ = _cell_geometry(pts, GRID)
+        return ((lambda: (k4.grid_dg(pts, rows, g, g2, shape), None)),
+                (lambda: (k4.grid_dg_plain(pts, rows, g, g2, shape), None)))
+    if kind == "K9":
+        return ((lambda: (k4.grid_dg_coords(pts, g, shape), None)),
+                (lambda: (k4.grid_dg_coords_plain(pts, g, shape), None)))
+    dtype = kind.split()[1]
+    grid = _gpu(dev, rng.randn(*shape) * 0.1)
+    table = pack_corner_table(grid, dtype=torch.bfloat16 if dtype == "bfloat16"
+                              else torch.float32)
+    vals = table[_cell_geometry(pts, GRID)[0]]
+    return ((lambda: k4.grid_bwd_fused(shape, pts, g, vals, dtype)),
+            (lambda: k4.grid_bwd_fused_plain(shape, pts, g, vals, dtype)))
+
+
+def _grid_ok(kind, out_k, out_p):
+    """The kernel's (dG, dcoords) against the plain version's."""
+    if not kind.startswith("K10"):
+        _grads_ok(out_k[0], out_p[0], "float32")
+        return
+    gate = 1e-5 if kind.endswith("float32") else 2e-3
+    for a, b in zip(out_k, out_p):
+        e = tree_errors(a, b)
+        assert e["l2_rel"] <= gate and e["cosine"] >= 0.9999, e
+
+
+def _ray_points(rng, R, S):
+    """(R * S, 5) ray-major points: R rays through the grid, S sorted
+    samples each, as a step's fine level lays them out."""
+    o = np.concatenate([rng.uniform(-0.8, 0.8, (R, 2)), np.full((R, 1), -1.1)], 1)
+    d = np.concatenate([rng.uniform(-0.8, 0.8, (R, 2)), np.full((R, 1), 1.1)], 1) - o
+    t = np.sort(rng.uniform(0.0, 1.0, (R, S)), axis=1)
+    xyz = (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(R * S, 3)
+    return np.concatenate([xyz, rng.uniform(-1, 1, (R * S, 2))], 1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRID_KINDS)
+def test_grid_backward_repeats_bit_for_bit(card, rng, kind):
+    """Two launches on the same inputs (ray-major points, some outside the
+    grid) give dG, and K10's dcoords, equal bit for bit: the routine has no
+    float atomics and sums every voxel in a fixed order."""
+    fk, fp = _grid_case(card[0], rng, kind, _ray_points(rng, 400, 128))
+    a, b = fk(), fk()
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0])
+    if a[1] is not None:
+        assert torch.equal(a[1], b[1])
+    _grid_ok(kind, a, fp())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRID_KINDS)
+@pytest.mark.parametrize("layout", torch_grid_util.LAYOUTS)
+def test_grid_backward_layouts_match_plain(card, rng, layout, kind):
+    """A hot cell (50,000 points in one cell and 8 elsewhere), every point
+    outside the band (dG and dcoords exactly 0), and points on the grid's
+    faces and on cell faces."""
+    c = torch_grid_util.layout(layout, rng, 50008)
+    fk, fp = _grid_case(card[0], rng, kind, c)
+    counts = (k4.grid_dg.launches, k4.grid_dg_coords.launches,
+              k4.grid_bwd_fused.launches)
+    out_k, out_p = fk(), fp()
+    torch.cuda.synchronize()
+    assert sum(f.launches for f in (k4.grid_dg, k4.grid_dg_coords,
+                                    k4.grid_bwd_fused)) == sum(counts) + 1
+    assert torch.isfinite(out_k[0]).all()
+    if layout == "all_outside":
+        assert not out_k[0].any() and not out_p[0].any()
+        if out_k[1] is not None:
+            assert not out_k[1].any()
+        return
+    if layout == "hot_cell":
+        assert torch_grid_util.hot_corners(out_k[0].cpu().numpy()).all()
+    _grid_ok(kind, out_k, out_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRID_KINDS)
+@pytest.mark.parametrize("P", [1, 4097, 12345])
+def test_grid_backward_ragged_points_match_plain(card, rng, kind, P):
+    """One point, one past two of the sort's 2048-key tiles, and a count
+    that tiles nothing."""
+    c = rng.uniform(-1.1, 1.1, (P, 5)).astype(np.float32)
+    fk, fp = _grid_case(card[0], rng, kind, c)
+    out_k, out_p = fk(), fp()
+    torch.cuda.synchronize()
+    assert out_k[0].shape == (32,) + GRID
+    if not out_p[0].any():                  # the one point outside the band
+        assert not out_k[0].any()
+        return
+    _grid_ok(kind, out_k, out_p)
+
+
+@pytest.mark.cuda
+def test_grid_dg_coords_frame_chunk_matches_plain(card, rng):
+    """K9 at a frame chunk's 4,194,304 ray-major points (32,768 rays x
+    128): 2,048 of the sort's tiles, whose digit offsets are scanned in
+    work linear in the tiles. Within the float32 gate, and a second launch
+    equal bit for bit."""
+    dev = card[0]
+    R, S = 32768, 128
+    c, g = _gpu(dev, _ray_points(rng, R, S)), _gpu(dev, rng.randn(R * S, 32))
+    shape = (32,) + GRID
+    a, b = k4.grid_dg_coords(c, g, shape), k4.grid_dg_coords(c, g, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _grads_ok(a, k4.grid_dg_coords_plain(c, g, shape), "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRID_KINDS)
+@pytest.mark.parametrize("C", [5, 12, 64, 160])
+def test_grid_backward_channels_match_plain(card, rng, kind, C):
+    """Channel counts other than 32: not a multiple of 4 (one float a
+    lane), a multiple of 4 but not of 8 (K10's bf16 dcoords one value a
+    lane), 64, and 160 (past one warp's 128 channels a pass)."""
+    c = rng.uniform(-1.1, 1.1, (20000, 5)).astype(np.float32)
+    fk, fp = _grid_case(card[0], rng, kind, c, C)
+    out_k, out_p = fk(), fp()
+    torch.cuda.synchronize()
+    assert out_k[0].shape == (C,) + GRID
+    _grid_ok(kind, out_k, out_p)
+
+
+@pytest.mark.cuda
+def test_grid_dg_coords_is_order_free(card, rng):
+    """K9 on ray-major points and on the same points sample-major
+    (``torch_grid_util.sample_major``, the fallback's former layout): the same
+    dG within the float32 gate."""
+    dev = card[0]
+    R, S = 2048, 128
+    c, g = _gpu(dev, _ray_points(rng, R, S)), _gpu(dev, rng.randn(R * S, 32))
+    ray_major = k4.grid_dg_coords(c, g, (32,) + GRID)
+    by_sample = k4.grid_dg_coords(torch_grid_util.sample_major(c, R, S),
+                                  torch_grid_util.sample_major(g, R, S), (32,) + GRID)
+    torch.cuda.synchronize()
+    _grads_ok(ray_major, by_sample, "float32")
 
 
 @pytest.mark.cuda

@@ -49,6 +49,7 @@ from sahs_tpu_torch.ops.kernels import grid_bwd as k9
 from sahs_tpu_torch.ops.kernels import level_train as k68
 from sahs_tpu_torch.ops.kernels import nerf_level as k57
 from sahs_tpu_torch.utils.weights import grads_to_jax, params_to_jax
+from torch_grid_util import sample_major
 
 torch.set_num_threads(2)
 
@@ -317,8 +318,8 @@ def test_grid_dg_coords_plain_matches_pallas_and_xla():
     pts[200:206, :3] = [[-1, -1, -1], [1, 1, 1], [1.2, 0, 0], [0, 0, 1.0000001],
                         [0.999, 0.999, -0.999], [-3, 3, 0]]
     g = rng.randn(P, 32).astype(np.float32)
-    coords = tfg.sample_major(_t(pts), R, S)
-    g_sm = tfg.sample_major(_t(g), R, S)
+    coords = sample_major(_t(pts), R, S)
+    g_sm = sample_major(_t(g), R, S)
     shape = (32,) + GRID
     before = k9.grid_dg_coords.launches
     dg_t = k9.grid_dg_coords(coords, g_sm, shape)

@@ -22,7 +22,12 @@ levels the card tests hold K2 on without a background.
       leaky ReLU's kink alone and counts them against its cap;
   (e) K5's and K1's plain versions (``nerf_level_plain``,
       ``deform_pair_plain``) run with exact sums in float64, the
-      compositing too.
+      compositing too;
+  (f) ``level_exact.exact_plain_at_branches`` (the Queue-3 reference
+      that takes the kernel's side of the kink at the excused points):
+      given every leaky unit's own branch it is ``exact_plain`` bit for
+      bit; one unit's branch flipped at one point moves that point's gx
+      and that ray's, and no other ray's.
 """
 import numpy as np
 import pytest
@@ -329,3 +334,37 @@ def test_grid_varied_level_conditions_the_sigma_head(compute_dtype, gate):
     without a background there at the gates."""
     row = sigma_head.case("varied", True, 1, compute_dtype, torch.device("cpu"))
     assert row["head_plain_vs_float64"] <= gate, row
+
+
+def _own_branches(vargs):
+    """K6's exact-sum run's own leaky branches, as ``kernel_branches``
+    lays a kernel's out."""
+    acts = level_exact.exact_acts(k5.nerf_raw_plain, *vargs[:4], *vargs[9:12])
+    return [y > 0 for y in list(acts["trunk"]) + list(acts["dacts"]) + list(acts["sacts"])]
+
+
+@pytest.mark.parametrize("grid", [True, False])
+def test_exact_plain_at_branches_takes_the_given_branch_at_the_given_points(levels, grid):
+    plain, vargs = _inputs(levels, grid)["K6"]
+    ref = level_exact.exact_plain(plain, *vargs)
+    own = _own_branches(vargs)
+    P = vargs[0].shape[0]
+    every = torch.ones(P, dtype=torch.bool)
+    same = level_exact.exact_plain_at_branches(plain, vargs, every, own)
+    assert torch.equal(same[0], ref[0])
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(compare.leaves(same[3]),
+                                                           compare.leaves(ref[3])))
+    # flip the branch of the trunk[2] unit closest to its kink at point 5
+    acts = level_exact.exact_acts(k5.nerf_raw_plain, *vargs[:4], *vargs[9:12])
+    y = acts["trunk"][2][5]
+    unit = int(torch.where(y >= 0, y, y / 0.01).abs().argmin())
+    flipped = [b.clone() for b in own]
+    flipped[2][5, unit] = ~flipped[2][5, unit]
+    at = torch.zeros(P, dtype=torch.bool)
+    at[5] = True
+    moved = level_exact.exact_plain_at_branches(plain, vargs, at, flipped)
+    d = (moved[0] - ref[0]).abs().amax(dim=1)
+    assert float(d[5]) > 0
+    assert not d[S:].any()             # point 5 is on ray 0; the other rays hold
+    with pytest.raises(RuntimeError, match="leaky layers"):
+        level_exact.exact_plain_at_branches(plain, vargs, at, flipped + flipped[:1])
