@@ -199,7 +199,8 @@ Phases, in order (any failure exits non-zero and prints no result):
      steps each, each printed beside the flagship's reading of this run;
      then each grid-free kernel per call at 2048 rays beside its plain
      version;
- 15. the tools' experiment kernels X1-X6: both tools' main()
+ 15. the tools' experiment kernels X1-X6 (X1 and X4-X6 on wgmma and TMA,
+     csrc/wgmma.cuh): both tools' main()
      (sahs_tpu_torch/tools/exp_gather.py and exp_pair2.py: every case at
      262,144 rows), with the X counters set to 0 just before and read just
      after; every case's kernel against its plain version on the card

@@ -3,12 +3,35 @@
 // X1 replaces tools/exp_gather.py:make_chain (:52, pallas_call at :63): a
 // bare chain h <- bf16(relu(h @ W)), n_layers times with the same (H, H)
 // bf16 weight W, float32 accumulation, over (P, H) bf16 rows; out[p] is the
-// float32 sum of row p's last activation. It measures what the layer
-// product of the field kernels reaches when nothing else is in the kernel,
-// so it is built from that product itself (mlp.cuh: mlp_layer, a 4-point x
-// 8-output register tile a thread on the CUDA cores, weights read from L2,
-// 64-point tiles k-major in shared memory). Bound: operations, 2 P H^2 n
-// (0.28 ms at 8 x 256 over 262,144 rows at the 989 TFLOP/s bf16 peak).
+// float32 sum of row p's last activation. It is the NeRF trunk's layer
+// product with nothing else in the kernel (H = 256 or 512). Bound:
+// operations, 2 P H^2 n (0.28 ms at 8 x 256 over 262,144 rows at the 989
+// TFLOP/s bf16 peak); the bytes in and out are 1/2000 of it.
+// Design (wgmma.cuh): persistent blocks, one an SM, of two consumer
+// warpgroups and one producer warp. A warpgroup owns a 64-row tile and
+// runs each layer as H / 16 wgmma.m64n256k16 products, A (the tile's
+// activations) and B (W, MN-major, no transpose) both from shared memory;
+// the ReLU, the bf16 rounding and the store back into the tile, in the
+// swizzled layout the next layer's A descriptor reads, run in the epilogue
+// from the accumulator registers; the last layer sums its rows there. The
+// producer warp stages every tile by TMA (rows past P arrive as zeros and
+// are not written) when its warpgroup has freed the buffer; the other
+// warpgroup's products cover the wait.
+//   - H = 256: W (128 KB) is loaded once and stays; the tiles (2 x 32 KB)
+//     are overwritten in place after the layer's products; 192 KB.
+//   - H = 512: W (512 KB) cannot stay. The output is two N = 256 halves;
+//     the 64-row x 256-column halves of the activations alternate between
+//     the tile's first four 64-column blocks and a second buffer (lo), so
+//     the first half's result is stored while the second half's products
+//     still read the input, and the second half's result overwrites the
+//     tile's last four blocks once its products are done. W streams through
+//     a 4-stage TMA ring of 16 k rows x 256 columns (8 KB), both warpgroups
+//     reading each stage, so every W byte read from L2 serves 128 rows:
+//     W 32 KB + tiles 2 x 64 KB + lo 2 x 32 KB = 224 KB of the 227 KB.
+// The roles branch on wg::warpgroup() (uniform across a warp) and the
+// barrier arrivals between products are predicated: a divergent branch
+// made ptxas serialise every wgmma (warning C7520), and X1 took 1.19-1.27x
+// the time (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 //
 // X2 replaces make_dg (:78, pallas_call at :91): within each 1024-row
 // tile of h (P, L), n_gathers gathers g[r, c] = h[idx[r, c], c] summed in
@@ -37,38 +60,190 @@
 // The TPU's chunk-select loop, 128-lane pads and scan/eps anti-hoisting do
 // not carry over: the caller adds eps to the input before the launch.
 #include "mlp.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int TP = 64;         // rows per X1 tile
 constexpr int THREADS = 256;
 constexpr int TILE = 1024;     // X2's gather tile
 constexpr int CW = 16;         // X2's slab width (columns)
 
-__global__ void __launch_bounds__(THREADS)
-chain_kernel(const __nv_bfloat16* __restrict__ x, long long P, int H,
-             const __nv_bfloat16* __restrict__ w, const float* __restrict__ zero_bias,
-             int n_layers, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* hA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* hB = hA + H * TP;
-  const long long base = (long long)blockIdx.x * TP;
-  for (int i = threadIdx.x; i < TP * H; i += blockDim.x) {
-    const int t = i / H, k = i % H;
-    const long long p = base + t;
-    hA[k * TP + t] = p < P ? x[p * H + k] : __float2bfloat16_rn(0.0f);
+// X1
+constexpr int CH = 256;                             // output columns a product
+constexpr int X1_WG = 2;                            // consumer warpgroups
+constexpr int X1_THREADS = X1_WG * wg::THREADS + 32;  // and the producer warp
+constexpr int RING_K = 16;                          // k rows a W stage (H = 512)
+constexpr int RING = 4;                             // W stages
+
+template <int H>
+struct ChainPlan {
+  static constexpr bool RESIDENT = H <= CH;         // W stays in shared memory
+  static constexpr int NCH = H / CH;                // output halves of 256
+  static constexpr int TILE_B = wg::ROWS * H * 2;   // a warpgroup's activations
+  static constexpr int W_B = RESIDENT ? H * H * 2 : RING * RING_K * CH * 2;
+  static constexpr int LO_B = NCH > 1 ? wg::ROWS * CH * 2 : 0;
+  static constexpr int STAGE_B = RING_K * CH * 2;   // a W stage (H = 512)
+  // + barriers, + the slack that aligns the base to 1,024 bytes
+  static constexpr int BYTES = W_B + X1_WG * (TILE_B + LO_B) + 8 * (2 * RING + 2 * X1_WG) + 1024;
+};
+
+struct Relu {
+  __device__ __forceinline__ float operator()(float v) const { return fmaxf(v, 0.0f); }
+};
+
+template <int H>
+__global__ void __launch_bounds__(X1_THREADS, 1)
+chain_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+             long long P, int n_layers, float* __restrict__ out) {
+  using C = ChainPlan<H>;
+  extern __shared__ __align__(1024) unsigned char x1_smem[];
+  unsigned char* w = x1_smem + ((1024 - (wg::smem_u32(x1_smem) & 1023)) & 1023);
+  unsigned char* tiles = w + C::W_B;                   // [X1_WG][TILE_B]
+  unsigned char* los = tiles + X1_WG * C::TILE_B;      // [X1_WG][LO_B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(los + X1_WG * C::LO_B);  // [RING]
+  uint64_t* empty = full + RING;                       // [RING]
+  uint64_t* afull = empty + RING;                      // [X1_WG]
+  uint64_t* aempty = afull + X1_WG;                    // [X1_WG]
+  const int tid = threadIdx.x, g = wg::warpgroup();
+  const long long n_tiles = (P + wg::ROWS - 1) / wg::ROWS;
+  const long long pairs = (n_tiles + X1_WG - 1) / X1_WG;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 4 * X1_WG);             // every consumer warp
+    }
+    for (int q = 0; q < X1_WG; ++q) {
+      wg::mbar_init(&afull[q], 1);
+      wg::mbar_init(&aempty[q], 4);
+    }
+    wg::mbar_fence_init();
   }
   __syncthreads();
-  const __nv_bfloat16* h = sahs::chain_layers<__nv_bfloat16>(
-      w, 0, H, n_layers, sahs::ACT_RELU, zero_bias, hA, hB, TP);
-  if (threadIdx.x < TP) {
-    const long long p = base + threadIdx.x;
-    if (p < P) {
-      float s = 0.0f;
-      for (int k = 0; k < H; ++k) s += sahs::to_f(h[k * TP + threadIdx.x]);
-      out[p] = s;
+
+  if (g == X1_WG) {  // the producer warp: every TMA load
+    if (tid % 32 == 0) {
+      if constexpr (C::RESIDENT) {
+        wg::mbar_expect(&full[0], H * H * 2);
+        for (int nb = 0; nb < H / 64; ++nb) wg::tma_load(w + nb * H * 128, &tw, &full[0], nb * 64, 0);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      int it = 0;
+      for (long long pr = blockIdx.x; pr < pairs; pr += gridDim.x, ++it) {
+        for (int q = 0; q < X1_WG; ++q) {
+          // a warpgroup past the last tile repeats it (its sums are not stored)
+          const long long tile = min(pr * X1_WG + q, n_tiles - 1);
+          wg::mbar_wait(&aempty[q], (it & 1) ^ 1);
+          wg::mbar_expect(&afull[q], C::TILE_B);
+          for (int kb = 0; kb < H / 64; ++kb)
+            wg::tma_load(tiles + q * C::TILE_B + kb * wg::BLOCK, &tx, &afull[q], kb * 64,
+                         (int)(tile * wg::ROWS));
+        }
+        if constexpr (!C::RESIDENT) {
+          for (int layer = 0; layer < n_layers; ++layer)
+            for (int c = 0; c < C::NCH; ++c)
+              for (int ks = 0; ks < H / RING_K; ++ks) {
+                wg::mbar_wait(&empty[stage], phase ^ 1);
+                wg::mbar_expect(&full[stage], C::STAGE_B);
+                unsigned char* dst = w + stage * C::STAGE_B;
+                for (int nb = 0; nb < CH / 64; ++nb)
+                  wg::tma_load(dst + nb * RING_K * 128, &tw, &full[stage], c * CH + nb * 64,
+                               ks * RING_K);
+                if (++stage == RING) { stage = 0; phase ^= 1; }
+              }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup
+  const int t = tid % wg::THREADS, lane = t % 32;
+  unsigned char* tile = tiles + g * C::TILE_B;
+  unsigned char* lo = los + g * C::LO_B;
+  const uint32_t w_s = wg::smem_u32(w);
+  if constexpr (C::RESIDENT) wg::mbar_wait(&full[0], 0);
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  int it = 0;
+  float d[CH / 2];
+  for (long long pr = blockIdx.x; pr < pairs; pr += gridDim.x, ++it) {
+    const long long tile_i = pr * X1_WG + g;
+    wg::mbar_wait(&afull[g], it & 1);
+    float s0 = 0.0f, s1 = 0.0f;  // the sums of rows r0 and r0 + 8
+    for (int layer = 0; layer < n_layers; ++layer) {
+      const bool last = layer == n_layers - 1;
+      // columns 0-255 of this layer's input, and where its output's go
+      unsigned char* in_lo = (C::NCH > 1 && (layer & 1)) ? lo : tile;
+      unsigned char* out_lo = (C::NCH > 1 && !(layer & 1)) ? lo : tile;
+      for (int c = 0; c < C::NCH; ++c) {
+        wg::fence_operand(d);
+        wg::fence();
+#pragma unroll 4
+        for (int ks = 0; ks < H / 16; ++ks) {
+          const uint64_t da = wg::a_desc(wg::smem_u32(ks < CH / 16 ? in_lo : tile), ks);
+          if constexpr (C::RESIDENT) {
+            wg::mma<CH, 1>(d, da, wg::b_desc(w_s, ks, H * 128), ks > 0);
+          } else {
+            wg::mbar_wait(&full[stage], phase);
+            wg::fence();
+            wg::mma<CH, 1>(d, da, wg::b_desc(w_s + stage * C::STAGE_B, 0, RING_K * 128), ks > 0);
+            wg::commit();
+            wg::wait<1>();  // the previous stage's product is done
+            wg::mbar_arrive(&empty[prev], ks > 0 && lane == 0);
+            prev = stage;
+            if (++stage == RING) { stage = 0; phase ^= 1; }
+          }
+        }
+        if constexpr (C::RESIDENT) wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(d);
+        if constexpr (!C::RESIDENT) wg::mbar_arrive(&empty[prev], lane == 0);
+        if (last) {
+#pragma unroll
+          for (int j = 0; j < CH / 8; ++j) {
+            s0 += __bfloat162float(__float2bfloat16_rn(Relu()(d[4 * j])));
+            s0 += __bfloat162float(__float2bfloat16_rn(Relu()(d[4 * j + 1])));
+            s1 += __bfloat162float(__float2bfloat16_rn(Relu()(d[4 * j + 2])));
+            s1 += __bfloat162float(__float2bfloat16_rn(Relu()(d[4 * j + 3])));
+          }
+        } else {
+          // the last half overwrites what every warp's products read
+          if (c == C::NCH - 1) wg::bar_sync(1 + g, wg::THREADS);
+          wg::store_acc<CH>(d, c == 0 ? out_lo : tile, c * CH, Relu());
+        }
+      }
+      if (!last) {
+        wg::fence_async();
+        wg::bar_sync(1 + g, wg::THREADS);
+      }
+    }
+    wg::mbar_arrive(&aempty[g], lane == 0);  // the tile may be loaded again
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (lane % 4 == 0 && tile_i < n_tiles) {
+      const long long row = tile_i * wg::ROWS + 16 * (t / 32) + lane / 4;
+      if (row < P) out[row] = s0;
+      if (row + 8 < P) out[row + 8] = s1;
     }
   }
+}
+
+template <int H>
+int launch_chain(const CUtensorMap& tx, const CUtensorMap& tw, long long P, int n_layers,
+                 float* out, cudaStream_t stream) {
+  int err = (int)cudaFuncSetAttribute(chain_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      ChainPlan<H>::BYTES);
+  int dev = 0, sms = 0;
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const long long pairs = ((P + wg::ROWS - 1) / wg::ROWS + X1_WG - 1) / X1_WG;
+  chain_kernel<H><<<(unsigned)(pairs < sms ? pairs : sms), X1_THREADS, ChainPlan<H>::BYTES,
+                    stream>>>(tx, tw, P, n_layers, out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -126,23 +301,22 @@ chunk_kernel(const T* __restrict__ tab, long long N, const int* __restrict__ idx
 
 }  // namespace
 
+// X1: zero_bias is kept in the signature and not read (the chain has no
+// bias); H is 256 or 512.
 extern "C" int sahs_exp_chain(const void* x, long long P, int H, const void* w,
                               const void* zero_bias, int n_layers, void* out,
                               void* stream) {
+  (void)zero_bias;
   if (P <= 0) return 0;
-  if (H % 8 || H <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * H * TP * sizeof(__nv_bfloat16);
-  int err = (int)cudaFuncSetAttribute(chain_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)smem);
+  if ((H != 256 && H != 512) || n_layers < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  int err = wg::make_map(&tx, x, P, H, 2LL * H, wg::ROWS);
+  if (!err) err = wg::make_map(&tw, w, H, H, 2LL * H, H <= CH ? H : RING_K);
   if (err) return err;
-  chain_kernel<<<(unsigned)((P + TP - 1) / TP), THREADS, smem,
-                 reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), P, H,
-      reinterpret_cast<const __nv_bfloat16*>(w),
-      reinterpret_cast<const float*>(zero_bias), n_layers,
-      reinterpret_cast<float*>(out));
-  return (int)cudaGetLastError();
+  auto s = reinterpret_cast<cudaStream_t>(stream);
+  float* o = reinterpret_cast<float*>(out);
+  return H == 256 ? launch_chain<256>(tx, tw, P, n_layers, o, s)
+                  : launch_chain<512>(tx, tw, P, n_layers, o, s);
 }
 
 extern "C" int sahs_exp_dg(const void* x, const void* idx, long long P, int L,

@@ -150,28 +150,6 @@ __device__ void mlp_layer(const LayerDesc& d, const T* __restrict__ wblob,
   }
 }
 
-// n_layers layers of one (H, H) shape, Y = act(X W_l) with no bias term
-// (``zero_bias`` holds H zeros), over a tile held k-major in hA, ping-
-// ponging between hA and hB: the bare chains of the tools' experiments
-// (X1, X4-X6). Layer l's weights start at w + l * w_stride (a stride of 0
-// repeats one matrix). Returns the buffer holding the last activation.
-template <typename T>
-__device__ T* chain_layers(const T* w, int w_stride, int H, int n_layers,
-                           int act, const float* zero_bias, T* hA, T* hB,
-                           int TP) {
-  T* src = hA;
-  T* dst = hB;
-  for (int l = 0; l < n_layers; ++l) {
-    const LayerDesc d = {l * w_stride, H, -1, 0, H, 0, act};
-    mlp_layer<T>(d, w, zero_bias, src, nullptr, nullptr, dst, nullptr, TP);
-    __syncthreads();
-    T* t = src;
-    src = dst;
-    dst = t;
-  }
-  return src;
-}
-
 // Positional encoding of one coordinate group, for one point, written
 // k-major into X starting at row `row0`: [x (dim) ; sin(f0 x) ; cos(f0 x) ;
 // sin(f1 x) ; ...] with f_j = 2^j (log sampling). cos is sin(x f + pi/2)

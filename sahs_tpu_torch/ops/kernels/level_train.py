@@ -398,7 +398,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     ``mode``: "loss" (K2), "vjp" (K6) or "raw" (K8). Returns (rgb_map,
     weights, gx, gse, g_bg (R, 16), grads, acts); rgb_map, weights and g_bg
     are None in "raw" mode, gse in the grid-free form; acts is the
-    activation stash (``_vjp_branches`` reads it)."""
+    activation stash (``_stash_branches`` reads it)."""
     check_device(what, pts.device)
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
                                           compute_dtype, grid_dims, what)
@@ -452,20 +452,15 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
             _grads_tree(weights, plan.unpack(out)), acts)
 
 
-def _vjp_branches(pts, dirs, table, rows, z, bg, noise, g_rgb, g_w,
-                  weights: LevelWeights, compute_dtype: str,
-                  grid_dims) -> List[torch.Tensor]:
-    """The leaky-ReLU branches K6 takes on these arguments, read from its
-    stash of activations (slots [pe, h_0 .. h_{L-1}, feat, [pe(dir) | se],
-    d0-d3, s0-s3], tile-blocked as ``level_train_plan``'s ``slots`` lay them
-    out) on a launch of its own, not counted, which gives what the caller's
-    launch gave bit for bit. For each leaky layer in the order the plain
+def _stash_branches(acts: torch.Tensor, weights: LevelWeights,
+                    P: int) -> List[torch.Tensor]:
+    """The leaky-ReLU branches of a level kernel's launch, read from its
+    stash of activations ``acts`` (slots [pe, h_0 .. h_{L-1}, feat,
+    [pe(dir) | se], d0-d3, s0-s3], tile-blocked as ``level_train_plan``'s
+    ``slots`` lay them out): for each leaky layer in the order the plain
     forward runs them (the trunk's, then the direction branch's, then the
     seg branch's), (P, units) bool, True where the kernel's output, and so
     its pre-activation, is positive."""
-    *_, acts = _launch("vjp", "nerf_level_vjp", pts, dirs, table, rows, weights,
-                       compute_dtype, grid_dims, z=z, bg=bg, noise=noise,
-                       g_rgb=g_rgb, g_w=g_w)
     plan = level_train_plan(weights, acts.dtype)
     tp = tile_points(acts.dtype)
     tiles = acts.numel() // plan.act_stride
@@ -476,8 +471,32 @@ def _vjp_branches(pts, dirs, table, rows, z, bg, noise, g_rgb, g_w,
     for i in list(range(1, L + 1)) + list(range(L + 3, plan.n_act)):
         units = (offs[i + 1] - offs[i]) // tp
         a = blocks[:, offs[i]:offs[i + 1]].reshape(tiles, units, tp)
-        out.append(a.transpose(1, 2).reshape(tiles * tp, units)[:pts.shape[0]] > 0)
+        out.append(a.transpose(1, 2).reshape(tiles * tp, units)[:P] > 0)
     return out
+
+
+def _vjp_branches(pts, dirs, table, rows, z, bg, noise, g_rgb, g_w,
+                  weights: LevelWeights, compute_dtype: str,
+                  grid_dims) -> List[torch.Tensor]:
+    """The leaky-ReLU branches K6 takes on these arguments
+    (``_stash_branches``), from a launch of its own, not counted, which
+    gives what the caller's launch gave bit for bit."""
+    *_, acts = _launch("vjp", "nerf_level_vjp", pts, dirs, table, rows, weights,
+                       compute_dtype, grid_dims, z=z, bg=bg, noise=noise,
+                       g_rgb=g_rgb, g_w=g_w)
+    return _stash_branches(acts, weights, pts.shape[0])
+
+
+def _train_branches(pts, dirs, table, rows, z, bg, noise, tgt, lw,
+                    weights: LevelWeights, compute_dtype: str, grid_dims,
+                    bg_sup: float = 0.0) -> List[torch.Tensor]:
+    """The leaky-ReLU branches K2 takes on these arguments
+    (``_stash_branches``), from a launch of its own, not counted, which
+    gives what the caller's launch gave bit for bit."""
+    *_, acts = _launch("loss", "nerf_level_train", pts, dirs, table, rows,
+                       weights, compute_dtype, grid_dims, z=z, bg=bg,
+                       noise=noise, tgt=tgt, lw=lw, bg_sup=bg_sup)
+    return _stash_branches(acts, weights, pts.shape[0])
 
 
 def nerf_level_train(pts: torch.Tensor, dirs: torch.Tensor,

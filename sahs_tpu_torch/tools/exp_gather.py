@@ -1,8 +1,8 @@
 """The gather experiments on the H100 (counterpart of ``tools/exp_gather.py``).
 
-1. chain (X1): a bare chain of (H, H) bf16 layer products with ReLU, built
-   from the field kernels' own layer product (csrc/mlp.cuh): the rate that
-   product reaches at the trunk's shapes with nothing else in the kernel.
+1. chain (X1): a bare chain of (H, H) bf16 layer products with ReLU on
+   the tensor cores (wgmma, csrc/wgmma.cuh): the rate the trunk's layer
+   product reaches at its shapes with nothing else in the kernel.
 2. dg (X2): n gathers within each 1024-row tile, summed: the cost of an
    in-tile gather (from a shared-memory slab on this card).
 3. chunk (X3): out[r] = sum_c tab[idx[r, c], c] from a (32768, L) table:
@@ -72,25 +72,36 @@ def chain_plain(x: torch.Tensor, w: torch.Tensor, n_layers: int) -> torch.Tensor
 
 
 def chain_rows(x: torch.Tensor, w: torch.Tensor, n_layers: int) -> torch.Tensor:
-    """X1 wrapper: x (P, H) bf16, w (H, H) bf16 -> (P, 1) float32."""
+    """X1 wrapper: x (P, H) bf16, w (H, H) bf16, H 256 or 512 (the trunk's
+    widths, CHAIN_CASES), n_layers >= 1 -> (P, 1) float32."""
     if x.device.type == "cpu":
         return chain_plain(x, w, n_layers)
     _cuda("X1", x, w)
     Pn, H = x.shape
     if (x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16
-            or tuple(w.shape) != (H, H) or H % 8 or H > 512):
-        raise ValueError(f"X1 takes (P, H) and (H, H) bf16 with H a multiple "
-                         f"of 8 up to 512, got {tuple(x.shape)} {x.dtype}, "
-                         f"{tuple(w.shape)} {w.dtype}")
-    x, w = x.contiguous(), w.contiguous()
+            or tuple(w.shape) != (H, H) or H not in (256, 512) or n_layers < 1):
+        raise ValueError(f"X1 takes (P, H) and (H, H) bf16 with H 256 or 512 "
+                         f"and at least one layer, got {tuple(x.shape)} "
+                         f"{x.dtype}, {tuple(w.shape)} {w.dtype}, {n_layers}")
     out = torch.empty((Pn, 1), dtype=torch.float32, device=x.device)
-    zero = torch.zeros(H, dtype=torch.float32, device=x.device)
-    fn = _build.function("exp_gather", "sahs_exp_chain", "plippip" + "p")
-    rc = fn(_build.ptr(x), Pn, H, _build.ptr(w), _build.ptr(zero), n_layers,
-            _build.ptr(out), _build.stream_ptr(x.device))
-    _build.check(rc, "chain_rows")
+    _chain_launch(x.contiguous(), w.contiguous(), n_layers, out)
     chain_rows.launches += 1
     return out
+
+
+def _chain_launch(x: torch.Tensor, w: torch.Tensor, n_layers: int,
+                  out: torch.Tensor) -> None:
+    """X1's kernel on checked, contiguous x and w, its P row sums into the
+    first P floats of ``out`` (which may be longer)."""
+    if (out.device != x.device or out.dtype != torch.float32
+            or out.numel() < x.shape[0] or not out.is_contiguous()):
+        raise ValueError(f"X1: out must be a contiguous float32 tensor of at "
+                         f"least {x.shape[0]} values on {x.device}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    fn = _build.function("exp_gather", "sahs_exp_chain", "plippip" + "p")
+    rc = fn(_build.ptr(x), x.shape[0], x.shape[1], _build.ptr(w), None,
+            n_layers, _build.ptr(out), _build.stream_ptr(x.device))
+    _build.check(rc, "chain_rows")
 
 
 chain_rows.launches = 0

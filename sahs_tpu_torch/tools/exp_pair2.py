@@ -65,7 +65,10 @@ def reshape_plain(x: torch.Tensor, ws2: Sequence[torch.Tensor],
 
 
 def _launch(what: str, x: torch.Tensor, ws: Sequence[torch.Tensor], mode: int,
-            H: int) -> torch.Tensor:
+            H: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel on x and ws in ``mode``; its R output rows into a new
+    (R, 128) tensor, or into the first R rows of ``out`` (which may hold
+    more)."""
     dev = x.device
     if (dev.type != "cuda" or x.dtype != torch.bfloat16 or x.dim() != 2
             or x.shape[1] != 128 or len(ws) != L
@@ -79,10 +82,14 @@ def _launch(what: str, x: torch.Tensor, ws: Sequence[torch.Tensor], mode: int,
     R = x.shape[0] // 2 if mode == _PAIRED else x.shape[0]
     x = x.contiguous()
     w = torch.stack([w.contiguous() for w in ws]).contiguous()
-    out = torch.empty((R, 128), dtype=torch.bfloat16, device=dev)
-    zero = torch.zeros(H, dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((R, 128), dtype=torch.bfloat16, device=dev)
+    elif (out.device != dev or out.dtype != torch.bfloat16 or out.dim() != 2
+          or out.shape[0] < R or out.shape[1] != 128 or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous ({R}+, 128) bf16 "
+                         f"tensor on {dev}, got {tuple(out.shape)} {out.dtype}")
     fn = _build.function("exp_pair2", "sahs_exp_tanh_chain", "pliipp" + "ipip")
-    rc = fn(_build.ptr(x), R, mode, H, _build.ptr(w), _build.ptr(zero), L,
+    rc = fn(_build.ptr(x), R, mode, H, _build.ptr(w), None, L,
             _build.ptr(out), 128, _build.stream_ptr(dev))
     _build.check(rc, what)
     return out

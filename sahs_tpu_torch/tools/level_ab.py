@@ -8,6 +8,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --skip-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --serve-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --grid-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --chains-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -57,7 +58,9 @@ minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone,
 ``--skip-only`` K13 alone (to compare two builds of a kernel),
 ``--serve-only`` K5, K1 and the flagship, warp-only and ambient-only
 frames (the serving readings), ``--grid-only`` the grid backward (K4, K9
-and K10 at their paths' shapes, ``_grid_times``), ``--steps-only`` the
+and K10 at their paths' shapes, ``_grid_times``), ``--chains-only`` the
+tools' chain kernels X1 and X4-X6 with their gates' readings
+(``_chain_times``), ``--steps-only`` the
 steps alone. Prints one JSON line: the tree, the card's name and power
 limit, and the readings (ms; TFLOP/s and the bound's share for K3, K14,
 K7, K11 and K13).
@@ -594,6 +597,48 @@ def _grid_times(dev, reps: int = 20) -> dict:
     return out
 
 
+def _chain_times(dev, reps: int = 20) -> dict:
+    """The tools' chain kernels per call at the tools' 262,144 rows (CUDA
+    events, the minimum over 3 runs of ``reps`` calls): X1 at every
+    CHAIN_CASE, X4, X5 and X6 (reshape), each with its TFLOP/s and its
+    distance to its plain version (L2-relative, and the worst row against
+    the largest for X1, the worst entry for X4-X6: phase 15's TOOL_GATES);
+    X4-X6 also on the card tests' draw (16,384 rows, seed 2)."""
+    import torch
+
+    from sahs_tpu_torch.tools import exp_gather as xg
+    from sahs_tpu_torch.tools import exp_pair2 as xp
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    def dist(a, b, rows: bool):
+        a, b = a.double(), b.double()
+        worst = (a - b).abs().max() / (b.abs().max() if rows else 1.0)
+        return {"l2_rel": float((a - b).norm() / b.norm()), "worst": float(worst)}
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    P = xg.P
+    for n, H in xg.CHAIN_CASES:
+        x, w = xg.chain_inputs(H, gen, dev)
+        ms = cuda_ms(lambda: xg.chain_rows(x, w, n), reps, runs=3)
+        out[f"X1 {n}x{H}"] = {"ms": ms, "tflops": 2 * P * H * H * n / ms / 1e9,
+                              **dist(xg.chain_rows(x, w, n), xg.chain_plain(x, w, n), True)}
+    x, x2, ws, ws2 = xp.inputs(gen, dev)
+    sx, sx2, sws, sws2 = xp.inputs(torch.Generator(device=dev).manual_seed(2), dev, 16384)
+    for name, call, plain, width, small in (
+            ("X4", xp.narrow_call, xp.narrow_plain, 64, (sx, sws)),
+            ("X5", xp.paired_call, xp.paired_plain, 128, (sx2, sws2)),
+            ("X6", lambda a, w: xp.reshape_call(a, w, "reshape"),
+             lambda a, w: xp.reshape_plain(a, w, "reshape"), 128, (sx, sws2))):
+        args = {"X4": (x, ws), "X5": (x2, ws2), "X6": (x, ws2)}[name]
+        ms = cuda_ms(lambda: call(*args), reps, runs=3)
+        rows = P if width == 64 else P // 2
+        out[name] = {"ms": ms, "tflops": 2 * rows * width * width * xp.L / ms / 1e9,
+                     **dist(call(*args), plain(*args), False),
+                     "16384 rows": dist(call(*small), plain(*small), False)}
+    return out
+
+
 def _checkout_module(path: str):
     """This checkout's ``sahs_tpu_torch/<path>``, loaded beside the
     ``sahs_tpu_torch`` imported from the tree under test (its relative
@@ -644,6 +689,8 @@ def main(argv=None) -> int:
                     help="time K5 and K1 at a frame's chunks and the frames")
     ap.add_argument("--grid-only", action="store_true",
                     help="time K4, K9 and K10 at their paths' shapes")
+    ap.add_argument("--chains-only", action="store_true",
+                    help="time the tools' chain kernels X1 and X4-X6")
     ap.add_argument("--steps-only", action="store_true",
                     help="time the train steps of train/trace_step.py alone")
     args = ap.parse_args(argv)
@@ -659,6 +706,8 @@ def main(argv=None) -> int:
            "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}"}
     if args.grid_only:
         res["grid"] = _grid_times(dev)
+    elif args.chains_only:
+        res["chains"] = _chain_times(dev)
     elif args.steps_only:
         res["steps_ms"] = _step_times(dev)
     elif args.skip_only:

@@ -147,15 +147,20 @@ def exact_acts(plain, *args) -> dict:
     return acts
 
 
-def kernel_branches(args: tuple) -> List[torch.Tensor]:
-    """The leaky-ReLU branches bf16 K6 takes on its ``args``
-    (``level_train._vjp_branches``)."""
-    return k2._vjp_branches(*args)
+def kernel_branches(args: tuple, plain=k2.nerf_level_vjp_plain) -> List[torch.Tensor]:
+    """The leaky-ReLU branches a bf16 level kernel takes on its ``args``,
+    read from its own stash: K6's (``plain`` K6's plain version,
+    ``level_train._vjp_branches``) or K2's (``nerf_level_train_plain``,
+    ``level_train._train_branches``)."""
+    branches = {k2.nerf_level_vjp_plain: k2._vjp_branches,
+                k2.nerf_level_train_plain: k2._train_branches}
+    return branches[plain](*args)
 
 
 def plain_branches(args: tuple) -> List[torch.Tensor]:
     """The leaky-ReLU branches the level's plain forward takes in its own
-    float32 run on K6's ``args``, laid out as ``kernel_branches``'."""
+    float32 run on K6's or K2's ``args`` (the level's weights, compute
+    dtype and grid at 9-11 in both), laid out as ``kernel_branches``'."""
     acts = {}
     k5.nerf_raw_plain(*args[:4], *args[9:12], acts)
     return [y > 0 for y in list(acts["trunk"]) + list(acts["dacts"]) + list(acts["sacts"])]
@@ -200,9 +205,10 @@ def exact_plain_at_branches(plain, args: tuple, points: torch.Tensor,
                             branches: List[torch.Tensor]):
     """``exact_plain(plain, *args)`` with the level's leaky ReLUs on the
     branches ``branches`` at ``points`` alone (``branches_at``): the
-    exact-sum reference of bf16 K6's plain version that takes one side's own branch (``kernel_branches``,
-    ``plain_branches``) at the kink points where that side's gx is off, so
-    that both compute the same function there."""
+    exact-sum reference of bf16 K6's or K2's plain version that takes one
+    side's own branch (``kernel_branches``, ``plain_branches``) at the kink
+    points where that side's gx is off, so that both compute the same
+    function there."""
     with branches_at(points, branches) as calls:
         out = exact_plain(plain, *args)
     if calls[0] != len(branches):

@@ -30,7 +30,8 @@ branch at the kink points where its gx is off
 (``level_exact.exact_plain_at_branches``). In the grid-free case
 ``k2_dw`` splits K2's dW (``nerf_level_train``, on the test's next draw
 of a target) the same way, over the kink rays and the rays holding a
-kink point where K2's gx is off by more than ``KINK_TOL``. The cases are
+kink point where K2's gx is off by more than ``KINK_TOL``, and reads
+K2's ``own_side`` rule as the test holds it. The cases are
 two card tests of ``tests/test_torch_cuda.py`` (96 rays, with a
 background): ``test_nerf_level_vjp_kernel_matches_plain`` at 64 samples
 on the flagship's seeded coarse level, and
@@ -225,7 +226,7 @@ def case(level, table, grid: bool, S: int, with_noise: bool, seed: int, dev) -> 
             "gx_kernel_excused": int(compare.excused_points(out_k[0], x_k[0], kinks).sum())}
     if not grid:
         # the grid-free test also holds K2 on a target drawn after the
-        # cotangents' (its gx has no kink gate): where its dW distance sits
+        # cotangents': where its dW distance sits
         tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
         lw = g(np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
         targs = args + (tgt, lw, level, "bfloat16", dims, 0.5)
@@ -238,6 +239,20 @@ def case(level, table, grid: bool, S: int, with_noise: bool, seed: int, dev) -> 
                                 t_k[-1], t_p[-1], t_x[-1], k2.nerf_level_train,
                                 k2.nerf_level_train_plain)
         res["k2_dw"]["gx_kernel_off_kink_points"] = int(off2.sum())
+        if dev.type == "cuda":
+            # K2 as the card test holds it: each side against the reference
+            # on its own branch at the kink points where its gx is off
+            plain = k2.nerf_level_train_plain
+            off2_p = compare.excused_points(t_p[2], t_x[2], kinks)
+            x_k = exact_plain_at_branches(plain, targs, off2, kernel_branches(targs, plain))
+            x_p = exact_plain_at_branches(plain, targs, off2_p, plain_branches(targs))
+            e_k, e_p = tree_errors(t_k[-1], x_k[-1]), tree_errors(t_p[-1], x_p[-1])
+            res["k2_dw"]["own_side"] = {
+                "kernel_points": int(off2.sum()), "plain_points": int(off2_p.sum()),
+                "kernel": e_k["l2_rel"], "plain": e_p["l2_rel"], "worst_leaf": e_k["worst_leaf"],
+                "ratio": e_k["l2_rel"] / max(e_p["l2_rel"], 1e-3),
+                "gx_kernel": point_errors(t_k[2], x_k[2])["l2_rel"],
+                "gx_plain": point_errors(t_p[2], x_p[2])["l2_rel"]}
     for i, name in enumerate(("gx", "gse", "g_bg")):
         if out_x[i] is None:
             continue

@@ -27,10 +27,11 @@ gate of PARITY_TPU.json (the two sides round the same operands to bf16 but
 sum them in another order, so a value rounds differently now and then),
 and for the kernels on the tensor cores against exact sums, at most
 PLAIN_MULTIPLE times the plain version's distance to them. bf16 K6 point
-cotangents in the two tests of ROADMAP Queue 3 excuse the kink points
-that are off, and fail with more of them than utils/compare.kink_cap
-(``_kink_gate``); there each side is held against the exact-sum reference
-on its own leaky-ReLU branch at its off kink points (``_plain_ref``). The
+cotangents in the two tests of ROADMAP Queue 3, and bf16 K2's in the
+grid-free one, excuse the kink points that are off, and fail with more of
+them than utils/compare.kink_cap (``_kink_gate``); there each side is held
+against the exact-sum reference on its own leaky-ReLU branch at its off
+kink points (``_plain_ref``). The
 grid backward (K4, K9, K10: one binned routine) is also held to give the
 same bits on a second launch.
 Selecting: ``-k tensor_core`` (the tensor-core kernels' own tests), ``-k
@@ -158,6 +159,12 @@ def _without_sigma_head(tree):
     return {k: v for k, v in tree.items() if k != "fc_alpha"}
 
 
+# The bf16 level kernels whose reference takes each side's own leaky-ReLU
+# branch at its off kink points (``_plain_ref``; level_exact.kernel_branches
+# reads the kernel's from its stash): the index of gx among their results.
+BRANCH_GX = {k2.nerf_level_vjp_plain: 0, k2.nerf_level_train_plain: 2}
+
+
 def _plain_ref(plain, *args, out_k=None, skip_sigma=False, kinks=None):
     """The reference of a kernel on the tensor cores in bf16 (the backwards
     K2, K6, K8, K12; K3, K14; the forwards K7, K11): its plain version. In
@@ -173,26 +180,27 @@ def _plain_ref(plain, *args, out_k=None, skip_sigma=False, kinks=None):
     ``skip_sigma``, point cotangents over the points that are not excused
     kink points where ``kinks`` is given (``_kink_gate``).
 
-    Where ``kinks`` is given to bf16 K6, each side is held against the
-    exact-sum reference on its own leaky-ReLU branch at the kink points
-    where its gx is off by more than compare.KINK_TOL, and at no other
-    point (``level_exact.exact_plain_at_branches``; at most
+    Where ``kinks`` is given to bf16 K6 or K2 (BRANCH_GX), each side is
+    held against the exact-sum reference on its own leaky-ReLU branch at
+    the kink points where its gx is off by more than compare.KINK_TOL, and
+    at no other point (``level_exact.exact_plain_at_branches``; at most
     compare.kink_cap such points of the kernel's): the kernel's reference
-    takes the kernel's branch there (read from its stash), the plain
+    takes the kernel's branch there (read from its own stash), the plain
     version's its own, so that a flip at a kink moves neither side's
     distance (ROADMAP Queue 3). The kernel's reference is returned."""
     if not any(isinstance(a, str) and a == "bfloat16" for a in args):
         return plain(*args)
     ref = ref_p = level_exact.exact_plain(plain, *args)
     out_p = plain(*args) if out_k is not None else None
-    if out_k is not None and kinks is not None and plain is k2.nerf_level_vjp_plain:
-        off = compare.excused_points(out_k[0], ref[0], kinks)
-        off_p = compare.excused_points(out_p[0], ref[0], kinks)
+    gx = BRANCH_GX.get(plain)
+    if out_k is not None and kinks is not None and gx is not None:
+        off = compare.excused_points(out_k[gx], ref[gx], kinks)
+        off_p = compare.excused_points(out_p[gx], ref[gx], kinks)
         assert int(off.sum()) <= compare.kink_cap(len(off)), (
             plain.__name__, int(off.sum()), len(off))
         if bool(off.any()):
             ref = level_exact.exact_plain_at_branches(
-                plain, args, off, level_exact.kernel_branches(args))
+                plain, args, off, level_exact.kernel_branches(args, plain))
         if bool(off_p.any()):
             ref_p = level_exact.exact_plain_at_branches(
                 plain, args, off_p, level_exact.plain_branches(args))
@@ -591,9 +599,10 @@ def _loss_cotangents(dev, rng, rgb_map, w):
 
 # bf16 K6 point cotangents in the two tests that hold them against exact
 # sums at 96 rays on any of their draws (test_nerf_level_vjp_kernel_...
-# and test_grid_free_level_kernels_...; ROADMAP Queue 3): a kink point
-# (utils/compare.kink_points: a leaky-ReLU pre-activation of the exact-sum
-# run within bf16 rounding of 0) whose cotangent is off by more than
+# and test_grid_free_level_kernels_..., where K2's are held so too; ROADMAP
+# Queue 3): a kink point (utils/compare.kink_points: a leaky-ReLU
+# pre-activation of the exact-sum run within bf16 rounding of 0) whose
+# cotangent is off by more than
 # compare.KINK_TOL of the largest point's is excused, and a gate with more
 # such points than compare.kink_cap fails (tools/point_spread.py: at 96
 # rays the worst 10 points carry 90-100 % of a bf16 run's squared distance
@@ -702,17 +711,24 @@ def test_kink_gate_fails_a_fault_in_one_tile(card, rng, out):
     assert not ok, e
 
 
-def _queue3_gates(out_k, vargs, kinks):
-    """(the bf16 K6 results ``out_k`` keep the grid-free Queue-3 test's
-    gates on ``vargs``, what failed): the exact-sum rule and the kink gate
-    (``_plain_ref``), the point gates and the dW gate against the
-    reference."""
+def _queue3_gates(kernel, out_k, args, kinks):
+    """(bf16 K6's or K2's results ``out_k`` keep the grid-free Queue-3
+    test's gates on ``args``, what failed): the exact-sum rule and the kink
+    gate (``_plain_ref``), the point gates and the dW gate against the
+    reference, and K2's composited colours."""
     try:
-        gx_p, _, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs,
-                                         out_k=out_k, kinks=kinks)
-        _points_ok(out_k[0], gx_p, False, kinks)
-        _points_ok(out_k[2], gbg_p, False)
-        _grads_ok(out_k[3], g_p, "bfloat16")
+        if kernel == "K6":
+            gx_p, _, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *args,
+                                             out_k=out_k, kinks=kinks)
+            gx_k, gbg_k, g_k = out_k[0], out_k[2], out_k[3]
+        else:
+            rgb_p, _, gx_p, _, gbg_p, g_p = _plain_ref(k2.nerf_level_train_plain, *args,
+                                                       out_k=out_k, kinks=kinks)
+            assert _rel(out_k[0], rgb_p) <= 2e-2
+            gx_k, gbg_k, g_k = out_k[2], out_k[4], out_k[5]
+        _points_ok(gx_k, gx_p, False, kinks)
+        _points_ok(gbg_k, gbg_p, False)
+        _grads_ok(g_k, g_p, "bfloat16")
     except AssertionError as e:
         return False, str(e)[:300]
     return True, ""
@@ -720,22 +736,36 @@ def _queue3_gates(out_k, vargs, kinks):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["tile", "half tile", "weight slice"])
-def test_kink_branch_reference_fails_planted_faults(grid_free, rng, fault):
+@pytest.mark.parametrize("kernel", ["K6", "K2"])
+def test_kink_branch_reference_fails_planted_faults(grid_free, request, kernel, fault):
     """The Queue-3 case (grid-free, 96 rays x 16, a background, sigma
-    noise) whose reference takes the kernel's branch at the excused kink
-    points (``_plain_ref``): the kernel passes its gates, and fails them
-    with every point of one 64-point tile, or of half of one, moved by
-    1e-2 of the largest point's norm in gx, or with rows 16-31 of
-    trunk[1]'s weights left out of its forward blob."""
+    noise) whose reference takes the kernel's own branch at the excused
+    kink points (``_plain_ref``), for K6 and for K2: the kernel passes its
+    gates, and fails them with every point of one 64-point tile, or of half
+    of one, moved by 1e-2 of the largest point's norm in gx, or with rows
+    16-31 of trunk[1]'s weights left out of its forward blob. Both kernels
+    take the draw of the node id without the kernel's name (K6's draw
+    before K2 had cases here)."""
     dev, _, level = grid_free
+    rng = np.random.RandomState(zlib.crc32(
+        request.node.nodeid.replace(f"[{kernel}-", "[").encode()))
     R, S = 96, 16
     args = _grid_free_case(dev, rng, R, S, True, True)
     rgb_p, w_p = k5.nerf_level_plain(*args, level, "bfloat16", None)
     g_rgb, g_w = _loss_cotangents(dev, rng, rgb_p, w_p)
-    vargs = args + (g_rgb, g_w, level, "bfloat16", None)
-    kinks = _level_kinks(k2.nerf_level_vjp_plain, vargs)
-    out_k = k2.nerf_level_vjp(*vargs)
-    ok, why = _queue3_gates(out_k, vargs, kinks)
+    if kernel == "K6":
+        plain, call, gx, extra = k2.nerf_level_vjp_plain, k2.nerf_level_vjp, 0, (g_rgb, g_w)
+        tail = ()
+    else:
+        tgt = _gpu(dev, np.concatenate([rng.rand(R, 3),
+                                        np.eye(12)[rng.randint(0, 12, R)]], 1))
+        lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+        plain, call, gx, extra = k2.nerf_level_train_plain, k2.nerf_level_train, 2, (tgt, lw)
+        tail = (0.5,)
+    kargs = args + extra + (level, "bfloat16", None) + tail
+    kinks = _level_kinks(plain, kargs)
+    out_k = call(*kargs)
+    ok, why = _queue3_gates(kernel, out_k, kargs, kinks)
     assert ok, why
     if fault == "weight slice":
         faulty = dataclasses.replace(level, _blobs={})
@@ -746,16 +776,16 @@ def test_kink_branch_reference_fails_planted_faults(grid_free, rng, fault):
         w = w.clone()
         w[w1 + 16 * n:w1 + 32 * n] = 0
         faulty._blobs[("train", torch.bfloat16)] = dataclasses.replace(plan, fwd=(w, b, meta))
-        vargs = args + (g_rgb, g_w, faulty, "bfloat16", None)
-        bad = k2.nerf_level_vjp(*vargs)
+        kargs = args + extra + (faulty, "bfloat16", None) + tail
+        bad = call(*kargs)
     else:
-        x = level_exact.exact_plain(k2.nerf_level_vjp_plain, *vargs)[0]
-        gx = out_k[0].clone()
+        x = level_exact.exact_plain(plain, *kargs)[gx]
+        g = out_k[gx].clone()
         tile = slice(10 * 64, 10 * 64 + (64 if fault == "tile" else 32))
-        gx[tile] += 1e-2 * float(x.norm(dim=1).max()) / gx.shape[1] ** 0.5
-        bad = (gx,) + tuple(out_k[1:])
+        g[tile] += 1e-2 * float(x.norm(dim=1).max()) / g.shape[1] ** 0.5
+        bad = tuple(out_k[:gx]) + (g,) + tuple(out_k[gx + 1:])
     torch.cuda.synchronize()
-    ok, why = _queue3_gates(bad, vargs, kinks)
+    ok, why = _queue3_gates(kernel, bad, kargs, kinks)
     assert not ok
 
 
@@ -1443,8 +1473,9 @@ def test_grid_free_level_kernels_match_plain(grid_free, rng, grid_free_varied,
     lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
     targs = args + (tgt, lw, level, compute_dtype, None, 0.5 if with_bg else 0.0)
     out_k = rgb_k, w_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*targs)
+    kinks = None if f32 else _level_kinks(k2.nerf_level_train_plain, targs)
     rgb_p, w_p, gx_p, gse_p, gbg_p, g_p = _plain_ref(k2.nerf_level_train_plain, *targs,
-                                                     out_k=out_k)
+                                                     out_k=out_k, kinks=kinks)
     torch.cuda.synchronize()
     assert (k5.nerf_level_forward.launches, k2.nerf_level_vjp.launches,
             k2.nerf_level_train.launches) == tuple(b + 1 for b in before)
@@ -1453,8 +1484,9 @@ def test_grid_free_level_kernels_match_plain(grid_free, rng, grid_free_varied,
         assert float((rgb_k - rgb_p).abs().max()) <= 1e-4
     else:
         assert _rel(rgb_k, rgb_p) <= 2e-2
-    for a, b in ((gx_k, gx_p),) + (((gbg_k, gbg_p),) if with_bg else ()):
-        _points_ok(a, b, f32)
+    _points_ok(gx_k, gx_p, f32, kinks)
+    if with_bg:
+        _points_ok(gbg_k, gbg_p, f32)
     _grads_ok(g_k, g_p, compute_dtype)
 
 
@@ -1596,6 +1628,56 @@ def test_exp_pair2_kernels_match_plain(card):
     torch.cuda.synchronize()
     assert [f.launches for f in (xp.narrow_call, xp.paired_call, xp.reshape_call)] == [
         counts[0] + 1, counts[1] + 1, counts[2] + 2]
+
+
+# X1 and X4-X6 run persistent blocks (one an SM) that walk 64-row tiles
+# staged by TMA: the last tile part empty must read as zeros and write no
+# row past the end (the output buffer is longer, its tail a sentinel), and
+# at H = 512, 65,553 rows (1,025 tiles, 513 tile pairs) make each of the
+# card's blocks walk about four pairs, with W streamed anew for each.
+SENTINEL_ROWS = 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_layers,H,rows", [
+    (8, 256, 16383), (16, 256, 16383), (8, 512, 16383), (8, 512, 65553)])
+def test_exp_chain_kernel_ragged_tile_and_sweeps(card, n_layers, H, rows):
+    from sahs_tpu_torch.tools import exp_gather as xg
+    dev = card[0]
+    x, w = xg.chain_inputs(H, torch.Generator(device=dev).manual_seed(3), dev, rows)
+    out = torch.full((rows + SENTINEL_ROWS, 1), 7.0, device=dev)
+    xg._chain_launch(x, w, n_layers, out)
+    b = xg.chain_plain(x, w, n_layers)
+    torch.cuda.synchronize()
+    a = out[:rows]
+    assert bool((out[rows:] == 7.0).all())
+    assert _l2(a, b) <= 1e-3 and _scaled(a, b) <= 1e-2, (_l2(a, b), _scaled(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["narrow", "paired", "reshape"])
+def test_exp_pair2_kernel_ragged_tile(card, case):
+    """X4 at 16,383 rows; X5 at 8,191 rows; X6 on 16,382 input rows (8,191
+    output rows): within the gates of the plain version, no row written
+    past the end."""
+    from sahs_tpu_torch.tools import exp_pair2 as xp
+    dev = card[0]
+    x, _, ws, ws2 = xp.inputs(torch.Generator(device=dev).manual_seed(4), dev, 16384)
+    x = x[:16383] if case == "narrow" else x[:16382]
+    arg, weights, mode, H, plain = {
+        "narrow": (x, ws, xp._ROWS, 64, lambda: xp.narrow_plain(x, ws)),
+        "paired": (x[:8191], ws2, xp._ROWS, 128, lambda: xp.paired_plain(x[:8191], ws2)),
+        "reshape": (x, ws2, xp._PAIRED, 128, lambda: xp.reshape_plain(x, ws2, "reshape")),
+    }[case]
+    R = arg.shape[0] // 2 if mode == xp._PAIRED else arg.shape[0]
+    out = torch.full((R + SENTINEL_ROWS, 128), 7.0, device=dev, dtype=torch.bfloat16)
+    xp._launch(case, arg, weights, mode, H, out)
+    b = plain()
+    torch.cuda.synchronize()
+    a = out[:R]
+    assert bool((out[R:] == 7.0).all())
+    assert _l2(a.float(), b.float()) <= 1e-3
+    assert float((a.float() - b.float()).abs().max()) <= 5e-2
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,8 @@ levels the card tests hold K2 on without a background.
       that takes the kernel's side of the kink at the excused points):
       given every leaky unit's own branch it is ``exact_plain`` bit for
       bit; one unit's branch flipped at one point moves that point's gx
-      and that ray's, and no other ray's.
+      and that ray's, and no other ray's; for K6's plain version and for
+      K2's (``nerf_level_train_plain``).
 """
 import numpy as np
 import pytest
@@ -343,17 +344,20 @@ def _own_branches(vargs):
     return [y > 0 for y in list(acts["trunk"]) + list(acts["dacts"]) + list(acts["sacts"])]
 
 
-@pytest.mark.parametrize("grid", [True, False])
-def test_exact_plain_at_branches_takes_the_given_branch_at_the_given_points(levels, grid):
-    plain, vargs = _inputs(levels, grid)["K6"]
+def _check_given_branches(plain, vargs, gx, grads):
+    """``exact_plain_at_branches`` on ``vargs`` (gx and the grads tree at
+    results ``gx`` and ``grads``): every unit's own branch at every point
+    gives ``exact_plain`` bit for bit; one unit's branch flipped at point 5
+    moves that point's gx and its ray's, and no other ray's; a branch list
+    of the wrong length raises. Returns the two runs' results."""
     ref = level_exact.exact_plain(plain, *vargs)
     own = _own_branches(vargs)
     P = vargs[0].shape[0]
     every = torch.ones(P, dtype=torch.bool)
     same = level_exact.exact_plain_at_branches(plain, vargs, every, own)
-    assert torch.equal(same[0], ref[0])
-    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(compare.leaves(same[3]),
-                                                           compare.leaves(ref[3])))
+    assert torch.equal(same[gx], ref[gx])
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(compare.leaves(same[grads]),
+                                                           compare.leaves(ref[grads])))
     # flip the branch of the trunk[2] unit closest to its kink at point 5
     acts = level_exact.exact_acts(k5.nerf_raw_plain, *vargs[:4], *vargs[9:12])
     y = acts["trunk"][2][5]
@@ -363,8 +367,29 @@ def test_exact_plain_at_branches_takes_the_given_branch_at_the_given_points(leve
     at = torch.zeros(P, dtype=torch.bool)
     at[5] = True
     moved = level_exact.exact_plain_at_branches(plain, vargs, at, flipped)
-    d = (moved[0] - ref[0]).abs().amax(dim=1)
+    d = (moved[gx] - ref[gx]).abs().amax(dim=1)
     assert float(d[5]) > 0
     assert not d[S:].any()             # point 5 is on ray 0; the other rays hold
     with pytest.raises(RuntimeError, match="leaky layers"):
         level_exact.exact_plain_at_branches(plain, vargs, at, flipped + flipped[:1])
+    return ref, moved
+
+
+@pytest.mark.parametrize("grid", [True, False])
+def test_exact_plain_at_branches_takes_the_given_branch_at_the_given_points(levels, grid):
+    plain, vargs = _inputs(levels, grid)["K6"]
+    _check_given_branches(plain, vargs, 0, 3)
+
+
+@pytest.mark.parametrize("grid", [True, False])
+def test_exact_plain_at_branches_takes_the_given_branch_in_k2(levels, grid):
+    """The same for K2's plain version (gx its result 2, the grads 5), the
+    reference of K2 in the grid-free Queue-3 card test; the composited
+    colours of the other rays hold too, and ``plain_branches`` reads K2's
+    arguments as it reads K6's."""
+    plain, targs = _inputs(levels, grid)["K2"]
+    ref, moved = _check_given_branches(plain, targs, 2, 5)
+    assert torch.equal(moved[0][1:], ref[0][1:])
+    _, vargs = _inputs(levels, grid)["K6"]
+    assert all(torch.equal(a, b) for a, b in zip(level_exact.plain_branches(targs),
+                                                 level_exact.plain_branches(vargs)))
