@@ -210,7 +210,20 @@ Phases, in order (any failure exits non-zero and prints no result):
      index moved by one, the last layer's weights transposed) missing
      them, and every case's ms beside its bound, its plain version and a
      library call (a cuBLAS bf16 chain, torch.gather on the tiled view,
-     indexing of the (N, L) table, tanh chains).
+     indexing of the (N, L) table, tanh chains); X2 runs its TMA ring
+     (csrc/exp_gather.cu:dg_kernel) and each case prints its share of the
+     bound;
+ 16. the Stage-I trainer's entry point at the flagship Config() on
+     synthetic 512x512 frames: cli.train_stage1.main with 4 steps a launch
+     of train/stage1.make_multi_train_step to iteration 9 (a validation
+     frame at 8, a checkpoint at 9), launch counters zeroed just before
+     and checked just after (K1 = 34, K2 = K15 = 18, K3 = K4 = 9, K5 = 16);
+     its metrics.jsonl keys; the checkpoint restored into a fresh state
+     equal to the run's final state (every parameter and Adam moment, bit
+     for bit) and a resumed run to iteration 10; 4 steps of the multi-step loop
+     against 4 single train_step calls fed the same draws, bit for bit;
+     ms a step through the multi-step loop (K = 8) and through single steps, in
+     turns (CUDA events and the host clock).
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -2680,6 +2693,7 @@ def phase15_tools(dev, report, kernels) -> str:
         row = {"kernel": k, "case": name, **e, "fault": f,
                "ms": cuda_time(call, 10), "plain_ms": cuda_time(plain, 3),
                "library_ms": cuda_time(lib, 3), "bound_ms": b_ms, "bound_by": b_by}
+        row["bound_share"] = b_ms / row["ms"]
         if flops:
             row["tflops_achieved"] = flops / (row["ms"] / 1e3) / 1e12
         rows.append(row)
@@ -2698,6 +2712,171 @@ def phase15_tools(dev, report, kernels) -> str:
                         "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == k),
                         **{q: first[q] for q in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}})
+    return ""
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the Stage-I trainer's entry point on the card
+# ---------------------------------------------------------------------------
+
+# the kernels of phase 16's runs, by their entry of the kernels line
+TRAINER_KERNELS = {"K1": "sahs_tpu/ops/pallas/field_mlp.py:868",
+                   "K2": "sahs_tpu/ops/pallas/level_train.py:55",
+                   "K3": "sahs_tpu/ops/pallas/field_mlp.py:1098",
+                   "K4": "sahs_tpu/ops/pallas/grid_bwd.py:211",
+                   "K5": "sahs_tpu/ops/pallas/field_mlp.py:2681",
+                   "K15": "sahs_tpu/ops/pallas/field_mlp.py:814"}
+TRAIN_KEYS = {"train/loss", "train/psnr", "train/coarse_l2", "train/fine_l2",
+              "train/coarse_ce", "train/fine_ce", "perf/rays_per_s"}
+
+
+def _states_equal(a, b) -> list:
+    """The parameters and Adam moments (by name) where two train states
+    differ; [] when every one is equal bit for bit."""
+    import torch
+    diff = []
+    named = lambda st: ([(n, p) for n, p in st.model.named_parameters()]
+                        + [(n, getattr(st, n)) for n in ("background", "latent_codes")
+                           if getattr(st, n) is not None])
+    for (n, p), (_, q) in zip(named(a), named(b)):
+        if not torch.equal(p, q):
+            diff.append(f"{n}: max |d| {float((p - q).abs().max()):.3e}")
+        sa, sb = a.optimizer.state.get(p, {}), b.optimizer.state.get(q, {})
+        if sorted(sa) != sorted(sb):
+            diff.append(f"{n}: Adam state keys {sorted(sa)} / {sorted(sb)}")
+            continue
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            if k in sa and not torch.equal(sa[k], sb[k]):
+                diff.append(f"{n}: {k}")
+    return diff
+
+
+def phase16_trainer(dev, report, kernels) -> str:
+    """Phase 16. The Stage-I trainer's entry point at the flagship
+    Config() (AudioFaceModel, 2048 rays, 64 + 64, bf16, the fused path) on
+    synthetic 512x512 frames: ``cli.train_stage1.main`` with 4 steps a
+    launch to iteration 9 (two launches of the multi-step loop and one
+    single step, a validation frame at 8, a checkpoint at 9), the launch
+    counters zeroed just before and read just after; the checkpoint
+    restored into a fresh state must equal the run's final state (every
+    parameter and Adam moment, bit for bit), and a resumed run goes on to
+    iteration 10; then 4 steps through make_multi_train_step against 4
+    single train_step calls fed the same draws (bit for bit), and ms a
+    step through the multi-step loop (K = 8) and through single steps in turns.
+    Returns a failure message, or ""."""
+    import shutil
+
+    import torch
+    import yaml
+
+    from sahs_tpu_torch.cli import train_stage1 as cli
+    from sahs_tpu_torch.config import load_config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.models.nerface import ModelSpec
+    from sahs_tpu_torch.train import stage1
+    from sahs_tpu_torch.utils import checkpoint as ck
+
+    out = os.path.join(REPO, "build", "phase16")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    logdir = os.path.join(out, "log")
+    cfg_path = os.path.join(out, "cfg.yml")
+    with open(cfg_path, "w") as fp:
+        yaml.safe_dump({"experiment": {"id": "smoke", "logdir": logdir, "randomseed": 0,
+                                       "print_every": 4, "validate_every": 8,
+                                       "save_every": 1000000},
+                        "runtime": {"validate_frames": 1}}, fp)
+    args = ["--config", cfg_path, "--synthetic", "--synthetic-size", "512",
+            "--steps-per-launch", "4", "--device", str(dev)]
+    held = kernel_counters()
+    for f in held.values():
+        f.launches = 0
+    t0 = time.time()
+    state = cli.main(args + ["--max-iters", "9"])
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = {k: f.launches for k, f in held.items() if f.launches}
+    print(f"trainer CLI to iteration 9: {run_s:.1f} s, launches {launches}", flush=True)
+    # 9 fused steps (K1, K2, K15 x2, K3, K4 x1) and one 512x512 frame of 8
+    # chunks (K1, K5 x2)
+    want = {"K1": 2 * 9 + 16, "K2": 18, "K3": 9, "K4": 9, "K5": 16, "K15": 18}
+    if launches != want:
+        return f"the trainer's launches {launches}, expected {want}"
+    run_dir = os.path.join(logdir, "smoke")
+    ckpt9 = os.path.join(run_dir, "checkpoint0000009.ckpt")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fp:
+        recs = [json.loads(line) for line in fp]
+    train_recs = [r for r in recs if "train/loss" in r]
+    if ([r["step"] for r in train_recs] != [4, 8, 9] or any(not TRAIN_KEYS <= set(r) for r in train_recs)
+            or not any("val/psnr" in r for r in recs) or not os.path.exists(ckpt9)
+            or state.step != 9):
+        return f"the trainer's log or checkpoint is not as expected: {recs}"
+    if not all(math.isfinite(r[k]) for r in train_recs for k in TRAIN_KEYS):
+        return f"non-finite training metrics: {train_recs}"
+    cfg = load_config(cfg_path)
+    spec, ts = ModelSpec.from_config(cfg), stage1.TrainSettings.from_config(cfg)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=8, H=512, W=512,
+                              near=cfg.dataset.near, far=cfg.dataset.far)
+    bg = ds.background()
+    fresh = stage1.init_train_state(spec, ts, seed=1, background=bg, device=dev)
+    restored, _ = ck.restore_train_state(ckpt9, fresh)
+    diff = _states_equal(restored, state)
+    if diff or restored.step != 9 or not torch.equal(restored.sample_prob, state.sample_prob):
+        return f"the restored checkpoint differs from the run's state: {diff[:8]}"
+    resumed = cli.main(args + ["--max-iters", "10", "--load-checkpoint", ckpt9])
+    torch.cuda.synchronize()
+    if resumed.step != 10 or not os.path.exists(os.path.join(run_dir, "checkpoint0000010.ckpt")):
+        return f"the resumed run ended at iteration {resumed.step}"
+    del state, restored, resumed, fresh
+
+    # the multi-step loop against single steps fed the same draws
+    items = [ds[j] for j in (3, 1, 6, 0, 5, 2, 7, 4)]
+    multi = stage1.make_multi_train_step(spec, ts, device=dev)
+    step = stage1.make_train_step(spec, ts, device=dev)
+    a = stage1.init_train_state(spec, ts, seed=0, background=bg, device=dev)
+    b = stage1.init_train_state(spec, ts, seed=0, background=bg, device=dev)
+    a, ma = multi(a, stage1.stack_batches(items[:4], bg, device=dev),
+                  generator=torch.Generator(device=dev).manual_seed(3))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    singles = [cli.device_batch(it, torch.from_numpy(bg).to(dev), dev) for it in items]
+    for batch in singles[:4]:
+        b, mb = step(b, batch, generator=gen)
+    torch.cuda.synchronize()
+    diff = _states_equal(a, b)
+    if not torch.equal(ma["loss"][-1], mb["loss"]):
+        diff.append(f"loss {float(ma['loss'][-1])} / {float(mb['loss'])}")
+    report["trainer_multi_vs_single"] = {"steps": 4, "differ": diff}
+    print(f"multi-step (K = 4) against 4 single steps, same draws: "
+          f"{'bit for bit' if not diff else diff}", flush=True)
+    if diff:
+        return f"the multi-step loop's 4 steps differ from 4 single steps: {diff[:8]}"
+
+    # ms a step, in turns: multi-step (K = 8), single steps, single steps, multi-step
+    stacked = stage1.stack_batches(items, bg, device=dev)
+    readings = {"multi": [], "single": []}
+    for kind in ("multi", "single", "single", "multi"):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.time()
+        ev[0].record()
+        if kind == "multi":
+            a, _ = multi(a, stacked, generator=gen)
+        else:
+            for batch in singles:
+                a, _ = step(a, batch, generator=gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        readings[kind].append({"device_ms": ev[0].elapsed_time(ev[1]) / len(items),
+                               "host_ms": (time.time() - t0) * 1e3 / len(items)})
+    report["trainer"] = {"cli_to_iter9_s": run_s, "launches": launches,
+                         "ms_per_step": readings}
+    print("ms a step in turns (multi-step K = 8 / single / single / multi-step): "
+          + json.dumps(readings), flush=True)
+    for kk in kernels:
+        key = next((k for k, r in TRAINER_KERNELS.items() if r == kk["replaces"]), None)
+        if key:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["Stage-I trainer (phase 16)"] = launches[key]
+            kk["launches"] += launches[key]
     return ""
 
 
@@ -3800,6 +3979,12 @@ def main(argv) -> int:
 
     # 15. the tools' experiment kernels X1-X6 -------------------------------
     msg = phase15_tools(dev, report, kernels)
+    if msg:
+        return fail(msg)
+    torch.cuda.empty_cache()
+
+    # 16. the Stage-I trainer's entry point --------------------------------
+    msg = phase16_trainer(dev, report, kernels)
     if msg:
         return fail(msg)
     if len(kernels) != 21:

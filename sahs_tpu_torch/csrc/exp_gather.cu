@@ -36,17 +36,30 @@
 // X2 replaces make_dg (:78, pallas_call at :91): within each 1024-row
 // tile of h (P, L), n_gathers gathers g[r, c] = h[idx[r, c], c] summed in
 // float32, idx <- (idx + 7) mod 1024 after each, and out[r] the row sum.
-// Design: one block per tile. A float32 (1024, 256) tile is 1 MB, far over
-// a block's 227 KB of shared memory, and read from L2 every gather would
-// cost a 32-byte sector per 4-byte value, with 256 tiles' worth (up to
-// 268 MB) in flight against a 50 MB L2. So the block walks the tile in
-// slabs of 16 columns: it stages the slab in shared memory as float32,
-// column-major with a row stride of 1025 (a warp's gathers from one column
-// land on random banks, and its staging stores on distinct ones), then each
-// (row, column) pair runs its n gathers from shared memory; the 16 column
-// sums of a row are reduced by shuffles and added to the row's sum in a
-// fixed order. Device memory sees h and idx once and out. Bound: bytes,
-// P L (4 + dtype bytes) + 4 P (0.080 ms at L = 128 in float32).
+// Bound: bytes, the entries of h the gathers touch, idx once, and out
+// (0.066 ms at L = 128, one gather, float32: 63 % of h is touched).
+// Design: a gather reaches anywhere in its tile, so a stage holds all 1024
+// rows of a group of columns: 64 bytes of h a row (16 float32 or 32 bf16
+// columns), 64 KB. One persistent block an SM walks its tiles' groups
+// through a ring of 3 such stages in shared memory (192 KB), filled by TMA
+// (a 2-D map, four 256-row boxes a stage), so the next groups' bytes are
+// in flight while one group is gathered; a __syncthreads frees a stage for
+// its next load. idx is read once, so it bypasses shared memory: the lanes
+// that use a row's indices load them from device memory (64 bytes a row,
+// one request a warp) for 32 rows at a time.
+// The stage keeps h row-major, 16 words a row, so the word (row j, column
+// word c) lies in bank 16 (j mod 2) + c. A warp takes one row at a time:
+// lane (q, c), q < 2, gathers column word c for the gathers k = q, q + 2,
+// ... (j + 7 k is odd for one q and even for the other: the 32 lanes hit
+// 32 banks); with one gather lane (q, c) takes row r + q. Each lane sums
+// its gathers of 32 rows in registers, and a butterfly of 31 shuffles (15
+// for two rows a step) leaves lane l the sum of one row; the rows' sums
+// over the groups stay in registers until the tile ends. Every sum runs in
+// a fixed order. Measured on an H100 (PERF.md): a first design, 32-byte rows
+// with idx staged beside them by TMA, read 1.02-1.17x this one's time, and
+// with the boxes' L2 misses promoted to 256-byte lines 1.26-1.38x its own
+// time at 128 (the promoted lines of 132 SMs' tiles overflow the 50 MB L2
+// before the next groups use them).
 //
 // X3 replaces make_chunk (:106, pallas_call at :122): out[r] =
 // sum_c tab[idx[r, c], c] over the (N, L) table, which arrives as
@@ -66,7 +79,24 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TILE = 1024;     // X2's gather tile
-constexpr int CW = 16;         // X2's slab width (columns)
+
+// X2
+constexpr int DG_WORDS = 16;                  // 4-byte words of h a row of a stage
+constexpr int DG_PHASES = 32 / DG_WORDS;      // lanes on one column word
+constexpr int DG_BOX = 256;                   // rows of one TMA box
+// an L2 miss of a box fetches the 128-byte line: the next group reads the
+// rest of it
+constexpr CUtensorMapL2promotion DG_PROMOTION = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
+constexpr int DG_BATCHES = TILE / (THREADS / 32) / 32;  // 32-row batches a warp a stage
+
+template <typename T>
+struct DgPlan {
+  static constexpr int COLS = DG_WORDS * 4 / (int)sizeof(T);  // columns a stage
+  static constexpr int STAGE_B = TILE * DG_WORDS * 4;         // h: 64 KB
+  static constexpr int STAGES = 3;
+  // + the barriers, + the slack that aligns the base to 128 bytes
+  static constexpr int BYTES = STAGES * STAGE_B + 8 * STAGES + 128;
+};
 
 // X1
 constexpr int CH = 256;                             // output columns a product
@@ -246,41 +276,144 @@ int launch_chain(const CUtensorMap& tx, const CUtensorMap& tw, long long P, int 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dg_kernel(const T* __restrict__ x, const int* __restrict__ idx, int L,
-          int n_gathers, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* slab = reinterpret_cast<float*>(smem_raw);   // [CW][TILE + 1]
-  float* rowsum = slab + CW * (TILE + 1);              // [TILE]
-  const long long base = (long long)blockIdx.x * TILE;
-  const int tid = threadIdx.x;
-  for (int r = tid; r < TILE; r += blockDim.x) rowsum[r] = 0.0f;
-  for (int c0 = 0; c0 < L; c0 += CW) {
-    __syncthreads();
-    for (int i = tid; i < TILE * CW; i += blockDim.x) {
-      const int r = i / CW, c = i % CW;
-      slab[c * (TILE + 1) + r] = sahs::to_f(x[(base + r) * L + c0 + c]);
-    }
-    __syncthreads();
-    // blockDim is a multiple of CW: a thread keeps its column, and the CW
-    // lanes of one row are one half warp
-    for (int i = tid; i < TILE * CW; i += blockDim.x) {
-      const int r = i / CW, c = i % CW;
-      const float* col = slab + c * (TILE + 1);
-      int j = idx[(base + r) * L + c0 + c] & (TILE - 1);
-      float acc = 0.0f;
-      for (int n = 0; n < n_gathers; ++n) {
-        acc += col[j];
-        j = (j + 7) & (TILE - 1);
-      }
-      for (int off = CW / 2; off > 0; off >>= 1)
-        acc += __shfl_down_sync(0xffffffffu, acc, off, CW);
-      if (c == 0) rowsum[r] += acc;
-    }
+// value of column 2 c + HI of the bf16 word w, or the float32 word w
+template <typename T, int HI>
+__device__ __forceinline__ float dg_val(uint32_t w) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(w);
+  else return __uint_as_float(HI ? (w & 0xffff0000u) : (w << 16));
+}
+
+// One level of the butterfly below: lanes l and l ^ O exchange halves,
+// and each keeps the sum of the half its bit O selects (O a compile-time
+// constant at every level, so v stays in registers).
+template <int O, int S>
+__device__ __forceinline__ void dg_fold(float (&v)[S], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float send = up ? v[k] : v[k + O];
+    const float keep = up ? v[k + O] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) dg_fold<O / 2, S>(v, lane);
+}
+
+// sum over the warp's lanes of v[k], k < S, for the S = 32 / RPS steps of
+// a batch: lane l ends with step l % S's (lanes l and l ^ o, o < S, are
+// summed; with RPS = 4 the lanes of one q). Fixed order.
+template <int S>
+__device__ __forceinline__ float dg_transpose_sum(float (&v)[S], int lane) {
+  dg_fold<S / 2, S>(v, lane);
+  return v[0];
+}
+
+// RPS rows a warp step: 1 (the lanes of a column word split the gathers,
+// n_gathers >= DG_PHASES) or DG_PHASES (a lane a row, all the gathers)
+template <typename T, int RPS>
+__global__ void __launch_bounds__(THREADS, 1)
+dg_kernel(const __grid_constant__ CUtensorMap tx, const int* __restrict__ idx,
+          int n_tiles, int L, int n_gathers, float* __restrict__ out) {
+  using C = DgPlan<T>;
+  constexpr int S = 32 / RPS;
+  extern __shared__ __align__(128) unsigned char x2_smem[];
+  unsigned char* ring = x2_smem + ((128 - (wg::smem_u32(x2_smem) & 127)) & 127);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE_B);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q = lane / DG_WORDS, c = lane % DG_WORDS;
+  const int groups = L / C::COLS;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int units = my_tiles * groups;       // (tile, column group), tile-major
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) wg::mbar_init(&full[s], 1);
+    wg::mbar_fence_init();
   }
   __syncthreads();
-  for (int r = tid; r < TILE; r += blockDim.x) out[base + r] = rowsum[r];
+  auto issue = [&](int u) {                  // thread 0: unit u into its stage
+    unsigned char* st = ring + (u % C::STAGES) * C::STAGE_B;
+    uint64_t* bar = &full[u % C::STAGES];
+    const int row0 = ((int)blockIdx.x + (u / groups) * (int)gridDim.x) * TILE;
+    const int col0 = (u % groups) * C::COLS;
+    wg::mbar_expect(bar, C::STAGE_B);
+#pragma unroll
+    for (int b = 0; b < TILE / DG_BOX; ++b) {
+      wg::tma_load(st + b * DG_BOX * DG_WORDS * 4, &tx, bar, col0, row0 + b * DG_BOX);
+    }
+  };
+  if (tid == 0)
+    for (int u = 0; u < C::STAGES && u < units; ++u) issue(u);
+
+  // the gathers k = first, first + step, ... of a lane
+  const int first = RPS == 1 ? q : 0, step = RPS == 1 ? DG_PHASES : 1;
+  float rowsum[DG_BATCHES];
+#pragma unroll
+  for (int b = 0; b < DG_BATCHES; ++b) rowsum[b] = 0.0f;
+  for (int u = 0; u < units; ++u) {
+    const int s = u % C::STAGES;
+    wg::mbar_wait(&full[s], (uint32_t)(u / C::STAGES) & 1u);
+    const uint32_t* xw = reinterpret_cast<const uint32_t*>(ring + s * C::STAGE_B);
+    const int* ix = idx + (((long long)blockIdx.x + (u / groups) * (long long)gridDim.x) * TILE) * L
+                    + (u % groups) * C::COLS;
+#pragma unroll
+    for (int b = 0; b < DG_BATCHES; ++b) {
+      const int r0 = warp * (TILE / (THREADS / 32)) + b * 32 + (RPS == 1 ? 0 : q);
+      float v[S];
+      int ja[S], jb[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const int r = r0 + k * RPS;
+        v[k] = 0.0f;
+        if constexpr (sizeof(T) == 4) {
+          ja[k] = ix[(long long)r * L + c];
+        } else {
+          const int2 j2 = *reinterpret_cast<const int2*>(ix + (long long)r * L + 2 * c);
+          ja[k] = j2.x;
+          jb[k] = j2.y;
+        }
+      }
+      for (int g = first; g < n_gathers; g += step) {
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          v[k] += dg_val<T, 0>(xw[((ja[k] + 7 * g) & (TILE - 1)) * DG_WORDS + c]);
+          if constexpr (sizeof(T) == 2)
+            v[k] += dg_val<T, 1>(xw[((jb[k] + 7 * g) & (TILE - 1)) * DG_WORDS + c]);
+        }
+      }
+      rowsum[b] += dg_transpose_sum<S>(v, lane);
+    }
+    __syncthreads();                          // every warp is done with stage s
+    if (tid == 0 && u + C::STAGES < units) issue(u + C::STAGES);
+    if ((u + 1) % groups == 0) {              // the tile's last group: its row sums
+      const long long row0 = ((long long)blockIdx.x + (u / groups) * (long long)gridDim.x) * TILE;
+      const int l = RPS == 1 ? lane : (lane % S) * RPS + lane / S;
+#pragma unroll
+      for (int b = 0; b < DG_BATCHES; ++b) {
+        out[row0 + warp * (TILE / (THREADS / 32)) + b * 32 + l] = rowsum[b];
+        rowsum[b] = 0.0f;
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_dg(const CUtensorMap& tx, const int* idx, int n_tiles, int L, int n_gathers,
+              float* out, cudaStream_t stream) {
+  int err = (int)cudaFuncSetAttribute(dg_kernel<T, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      DgPlan<T>::BYTES);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(dg_kernel<T, DG_PHASES>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, DgPlan<T>::BYTES);
+  int dev = 0, sms = 0;
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  if (n_gathers >= DG_PHASES)
+    dg_kernel<T, 1><<<blocks, THREADS, DgPlan<T>::BYTES, stream>>>(tx, idx, n_tiles, L, n_gathers,
+                                                                   out);
+  else
+    dg_kernel<T, DG_PHASES><<<blocks, THREADS, DgPlan<T>::BYTES, stream>>>(tx, idx, n_tiles, L,
+                                                                           n_gathers, out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -319,32 +452,26 @@ extern "C" int sahs_exp_chain(const void* x, long long P, int H, const void* w,
                   : launch_chain<512>(tx, tw, P, n_layers, o, s);
 }
 
+// X2: x and idx 16-byte aligned, P a multiple of 1024 below 2^31 (TMA's
+// coordinates), L a multiple of a stage's columns (16 float32, 32 bf16)
 extern "C" int sahs_exp_dg(const void* x, const void* idx, long long P, int L,
                            int n_gathers, int bf16, void* out, void* stream) {
   if (P <= 0) return 0;
-  if (P % TILE || L % CW || L <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)CW * (TILE + 1) + TILE) * sizeof(float);
+  const int esize = bf16 ? 2 : 4, cols = DG_WORDS * 4 / esize;
+  if (P % TILE || P >= (1LL << 31) || L % cols || L <= 0 || n_gathers < 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx;
+  int err = wg::make_map_of(&tx, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            x, P, L, (long long)L * esize, cols, DG_BOX, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            DG_PROMOTION);
+  if (err) return err;
   auto s = reinterpret_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)(P / TILE);
-  const int* ix = reinterpret_cast<const int*>(idx);
   float* o = reinterpret_cast<float*>(out);
-  int err;
-  if (bf16) {
-    err = (int)cudaFuncSetAttribute(dg_kernel<__nv_bfloat16>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem);
-    if (err) return err;
-    dg_kernel<__nv_bfloat16><<<blocks, THREADS, smem, s>>>(
-        reinterpret_cast<const __nv_bfloat16*>(x), ix, L, n_gathers, o);
-  } else {
-    err = (int)cudaFuncSetAttribute(dg_kernel<float>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem);
-    if (err) return err;
-    dg_kernel<float><<<blocks, THREADS, smem, s>>>(
-        reinterpret_cast<const float*>(x), ix, L, n_gathers, o);
-  }
-  return (int)cudaGetLastError();
+  const int* ix = reinterpret_cast<const int*>(idx);
+  const int n_tiles = (int)(P / TILE);
+  return bf16 ? launch_dg<__nv_bfloat16>(tx, ix, n_tiles, L, n_gathers, o, s)
+              : launch_dg<float>(tx, ix, n_tiles, L, n_gathers, o, s);
 }
 
 extern "C" int sahs_exp_chunk(const void* tab, long long N, const void* idx,

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks: warpgroup products (wgmma) from
 // shared-memory descriptors, mbarriers, and TMA tile copies between device
 // memory and shared memory. Used by the tools' chain kernels (X1 in
-// exp_gather.cu, X4-X6 in exp_pair2.cu); the path kernels stay on
-// mma.sync (mma.cuh).
+// exp_gather.cu, X4-X6 in exp_pair2.cu) and, for its TMA ring alone, by
+// X2's in-tile gathers (exp_gather.cu); the path kernels stay on mma.sync
+// (mma.cuh).
 //
 // The layout. Every bf16 operand in shared memory is in the 128-byte
 // swizzle (CU_TENSOR_MAP_SWIZZLE_128B, descriptor layout type 1): rows of
@@ -311,22 +312,32 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encoder() {
   return fn;
 }
 
-// A 2-D bf16 tensor (rows x cols, rows `row_bytes` apart) cut into boxes
-// of box_rows x 64 columns (128 bytes, the swizzle's width). Returns 0 or
-// a cudaError_t.
-inline int make_map(CUtensorMap* map, const void* base, long long rows, long long cols,
-                    long long row_bytes, int box_rows) {
+// A 2-D tensor of `dtype` (rows x cols, rows `row_bytes` apart) cut into
+// boxes of box_rows x box_cols, written to shared memory in `swizzle`'s
+// layout; a box's L2 misses fetch `promotion`'s line from device memory.
+// Returns 0 or a cudaError_t.
+inline int make_map_of(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                       long long rows, long long cols, long long row_bytes, int box_cols,
+                       int box_rows, CUtensorMapSwizzle swizzle,
+                       CUtensorMapL2promotion promotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = enc(map, dtype, 2, const_cast<void*>(base), dims, strides, box, step,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 2-D bf16 tensor (rows x cols, rows `row_bytes` apart) cut into boxes
+// of box_rows x 64 columns (128 bytes, the swizzle's width).
+inline int make_map(CUtensorMap* map, const void* base, long long rows, long long cols,
+                    long long row_bytes, int box_rows) {
+  return make_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows, cols, row_bytes, 64,
+                     box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace wg

@@ -1,25 +1,25 @@
-"""Synthetic fixture dataset (a copy of ``sahs_tpu/data/synthetic.py``
-without the on-disk writer; the port never imports the JAX package).
+"""Synthetic fixture dataset (a copy of ``sahs_tpu/data/synthetic.py``; the
+port never imports the JAX package).
 
 The reference's NerFACE/AD-NeRF datasets are not redistributable, so tests,
 benchmarks and CI smoke-train on a procedurally generated stand-in: random
 camera poses orbiting a colored-blob "head" with concentric semantic regions
 (face / nose / eyes / lips / hair / torso / background) plus random driving
 vectors (76-d expression or (16,29) DeepSpeech-like windows) and a fixed
-background.
+background. ``write_synthetic_dataset`` writes it to disk in both reference
+layouts, so that the disk loaders (data/audio.py, data/nerface.py) run end
+to end.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict
 
 import numpy as np
 
-from ..utils.seg import NUM_CLASSES, PALETTE
-
-
-def labels_to_onehot(labels: np.ndarray) -> np.ndarray:
-    """(H, W) class labels -> (H, W, 12) one-hot (data/common.py:82-83)."""
-    return np.eye(NUM_CLASSES, dtype=np.float32)[labels]
+from ..utils.seg import PALETTE
+from .common import _cv2, labels_to_onehot
 
 
 def _look_at_pose(rng: np.random.RandomState, radius: float) -> np.ndarray:
@@ -109,3 +109,63 @@ class SyntheticFaceDataset:
             "fname": f"f_{idx:04d}.png",
         }
 
+
+def write_synthetic_dataset(basedir: str, kind: str = "audio",
+                            num_frames: int = 4, H: int = 64, W: int = 64,
+                            seed: int = 0, modes=("train", "val")) -> None:
+    """Write a synthetic dataset to disk in the reference's layout (the
+    JAX package's writer, file for file), so that the disk loaders can be
+    tested end to end. Needs OpenCV."""
+    cv2 = _cv2()
+    ds = SyntheticFaceDataset(kind, num_frames * len(modes), H, W, seed)
+    os.makedirs(basedir, exist_ok=True)
+
+    def write_mask(path, labels):
+        # parse maps are stored BGR-matched (data/common.read_parse_map)
+        cv2.imwrite(path, PALETTE[labels].astype(np.uint8))
+
+    def pose4(g):
+        return np.vstack([ds.poses[g], [0, 0, 0, 1]]).tolist()
+
+    if kind == "audio":
+        np.save(os.path.join(basedir, "aud.npy"), ds.driving)
+        imdir = os.path.join(basedir, "com_imgs")
+        os.makedirs(os.path.join(imdir, "masks"), exist_ok=True)
+        cv2.imwrite(os.path.join(basedir, "bc.jpg"),
+                    (ds._bg[..., 2::-1] * 255).astype(np.uint8))
+        for m, mode in enumerate(modes):
+            frames = []
+            for i in range(num_frames):
+                g = m * num_frames + i
+                cv2.imwrite(os.path.join(imdir, f"{g}.jpg"),
+                            (ds.images[g][..., ::-1] * 255).astype(np.uint8))
+                write_mask(os.path.join(imdir, "masks", f"{g}.png"), ds.labels[g])
+                frames.append({"img_id": g, "aud_id": g,
+                               "transform_matrix": pose4(g)})
+            meta = {"focal_len": float(ds.intrinsics[0]),
+                    "cx": float(ds.intrinsics[2] * H),
+                    "cy": float(ds.intrinsics[3] * W),
+                    "frames": frames}
+            with open(os.path.join(basedir, f"transforms_{mode}.json"), "w") as fp:
+                json.dump(meta, fp)
+    else:
+        os.makedirs(os.path.join(basedir, "bg"), exist_ok=True)
+        cv2.imwrite(os.path.join(basedir, "bg", "00050.png"),
+                    (ds._bg[..., 2::-1] * 255).astype(np.uint8))
+        for m, mode in enumerate(modes):
+            mdir = os.path.join(basedir, mode)
+            os.makedirs(os.path.join(mdir, "masks"), exist_ok=True)
+            frames = []
+            for i in range(num_frames):
+                g = m * num_frames + i
+                name = f"{g:04d}"
+                cv2.imwrite(os.path.join(mdir, name + ".png"),
+                            (ds.images[g][..., ::-1] * 255).astype(np.uint8))
+                write_mask(os.path.join(mdir, "masks", name + ".png"), ds.labels[g])
+                frames.append({"file_path": name, "transform_matrix": pose4(g),
+                               "expression": ds.driving[g].tolist()})
+            meta = {"camera_angle_x": float(2 * np.arctan(0.5 * W / ds.intrinsics[0])),
+                    "intrinsics": [float(v) for v in ds.intrinsics],
+                    "frames": frames}
+            with open(os.path.join(basedir, f"transforms_{mode}.json"), "w") as fp:
+                json.dump(meta, fp)

@@ -4,7 +4,8 @@
    the tensor cores (wgmma, csrc/wgmma.cuh): the rate the trunk's layer
    product reaches at its shapes with nothing else in the kernel.
 2. dg (X2): n gathers within each 1024-row tile, summed: the cost of an
-   in-tile gather (from a shared-memory slab on this card).
+   in-tile gather (from a TMA-filled ring of shared-memory stages on this
+   card).
 3. chunk (X3): out[r] = sum_c tab[idx[r, c], c] from a (32768, L) table:
    the cost of a gather from an L2-resident table, as K5 and K2 gather
    their corner rows.
@@ -138,18 +139,21 @@ def dg_plain(x: torch.Tensor, idx: torch.Tensor, n_gathers: int) -> torch.Tensor
 
 def dg_rows(x: torch.Tensor, idx: torch.Tensor, n_gathers: int) -> torch.Tensor:
     """X2 wrapper: x (P, L) float32 or bf16, idx (P, L) int32 in [0, 1024),
-    P a multiple of 1024, L of 16 -> (P, 1) float32."""
+    P a multiple of 1024, L of a stage's 64 bytes of x (16 float32 or 32
+    bf16 columns) -> (P, 1) float32."""
     if x.device.type == "cpu":
         return dg_plain(x, idx, n_gathers)
     _cuda("X2", x, idx)
     Pn, L = x.shape
+    cols = 64 // x.element_size()
     if (x.dtype not in (torch.float32, torch.bfloat16) or idx.shape != x.shape
-            or Pn % TILE or L % 16):
+            or Pn % TILE or L % cols):
         raise ValueError(f"X2 takes (P, L) float32 or bf16 with P a multiple "
-                         f"of {TILE} and L of 16 and an idx of its shape, got "
+                         f"of {TILE} and L of {cols} and an idx of its shape, got "
                          f"{tuple(x.shape)} {x.dtype}, {tuple(idx.shape)}")
-    x = x.contiguous()
-    idx = idx.to(torch.int32).contiguous()
+    # the kernel reads x through TMA and idx in 8-byte pairs, from aligned rows
+    x, idx = (t if t.data_ptr() % 16 == 0 else t.clone()
+              for t in (x.contiguous(), idx.to(torch.int32).contiguous()))
     out = torch.empty((Pn, 1), dtype=torch.float32, device=x.device)
     fn = _build.function("exp_gather", "sahs_exp_dg", "pplii" + "ip" + "p")
     rc = fn(_build.ptr(x), _build.ptr(idx), Pn, L, n_gathers,

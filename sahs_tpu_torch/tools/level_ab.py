@@ -9,6 +9,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --serve-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --grid-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --chains-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --dg-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -60,7 +61,8 @@ minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone,
 frames (the serving readings), ``--grid-only`` the grid backward (K4, K9
 and K10 at their paths' shapes, ``_grid_times``), ``--chains-only`` the
 tools' chain kernels X1 and X4-X6 with their gates' readings
-(``_chain_times``), ``--steps-only`` the
+(``_chain_times``), ``--dg-only`` X2 in its four cases beside its
+library call (``_dg_times``), ``--steps-only`` the
 steps alone. Prints one JSON line: the tree, the card's name and power
 limit, and the readings (ms; TFLOP/s and the bound's share for K3, K14,
 K7, K11 and K13).
@@ -639,6 +641,38 @@ def _chain_times(dev, reps: int = 20) -> dict:
     return out
 
 
+def _dg_times(dev, reps: int = 30) -> dict:
+    """X2 per call at every DG_CASE at the tool's 262,144 rows (CUDA events,
+    the minimum over 3 runs of ``reps`` calls), its L2-relative distance
+    to its plain version, whether a second launch gives the same bits, and
+    its library call (``torch.gather`` on the tiled view, as phase 15)."""
+    import torch
+
+    from sahs_tpu_torch.tools import exp_gather as xg
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T = xg.TILE
+    for L, dt, n in xg.DG_CASES:
+        x, idx = xg.dg_inputs(L, dt, gen, dev)
+
+        def lib():
+            h, i = x.reshape(-1, T, L), idx.reshape(-1, T, L).long()
+            acc = torch.zeros(h.shape, dtype=torch.float32, device=dev)
+            for _ in range(n):
+                acc += torch.gather(h, 1, i).float()
+                i = (i + 7) % T
+            return acc.sum(-1)
+        a, b = xg.dg_rows(x, idx, n), xg.dg_plain(x, idx, n)
+        out[f"X2 L={L} x{n} {dt}"] = {
+            "ms": cuda_ms(lambda: xg.dg_rows(x, idx, n), reps, runs=3),
+            "library_ms": cuda_ms(lib, 3, runs=1),
+            "l2_rel": float((a.double() - b.double()).norm() / b.double().norm()),
+            "repeat_equal": bool(torch.equal(a, xg.dg_rows(x, idx, n)))}
+    return out
+
+
 def _checkout_module(path: str):
     """This checkout's ``sahs_tpu_torch/<path>``, loaded beside the
     ``sahs_tpu_torch`` imported from the tree under test (its relative
@@ -691,6 +725,8 @@ def main(argv=None) -> int:
                     help="time K4, K9 and K10 at their paths' shapes")
     ap.add_argument("--chains-only", action="store_true",
                     help="time the tools' chain kernels X1 and X4-X6")
+    ap.add_argument("--dg-only", action="store_true",
+                    help="time X2 in its four cases")
     ap.add_argument("--steps-only", action="store_true",
                     help="time the train steps of train/trace_step.py alone")
     args = ap.parse_args(argv)
@@ -708,6 +744,8 @@ def main(argv=None) -> int:
         res["grid"] = _grid_times(dev)
     elif args.chains_only:
         res["chains"] = _chain_times(dev)
+    elif args.dg_only:
+        res["dg"] = _dg_times(dev)
     elif args.steps_only:
         res["steps_ms"] = _step_times(dev)
     elif args.skip_only:

@@ -16,6 +16,9 @@ One step (reference nerf-pytorch/train_stage_rays_auto.py:273-544):
   - Adam with the reference's exponential decay, lr0 * factor^(step /
     (lr_decay * 1000)) at the pre-update count (stage1.py:110-126);
   - the dynamic ``sample_prob`` carry and the metrics.
+``make_multi_train_step`` runs K steps a call (the JAX package's
+``lax.scan`` loop, stage1.py:326-343, as a loop over the same step) on
+batches stacked along a leading K axis by ``stack_batches``.
 
 Loss stack (train_stage_rays_auto.py:455-492):
   L = [coarse_l2 + 0.02 coarse_ce + 0.005 sum(mouth_l2 + mouth_ce)] + fine(...)
@@ -295,3 +298,49 @@ def make_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
         return train_step(state, batch, spec, ts, generator, draws)
 
     return step
+
+
+def make_multi_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
+    """K train steps a call (counterpart of the JAX package's
+    ``make_multi_train_step``, whose ``lax.scan`` becomes a loop over the
+    step of ``make_train_step``; no CUDA graph): multi(state, batches,
+    generator=None, draws=None) -> (state, metrics). ``batches`` holds
+    each batch key stacked along a leading K axis (``stack_batches``);
+    ``draws`` is a TrainDraws whose given fields are stacked along K (step
+    k takes index k), else every step draws from ``generator``. The
+    metrics come back stacked (K,) on the device: nothing is read back to
+    the host between steps. CUDA unless the caller names another device;
+    with no device given and no CUDA present this raises."""
+    step = make_train_step(spec, ts, device=device)
+
+    def multi(state: TrainState, batches: Dict[str, torch.Tensor],
+              generator=None, draws: Optional[TrainDraws] = None):
+        K = int(batches["image"].shape[0])
+        per_step = []
+        for k in range(K):
+            batch = {name: v[k] for name, v in batches.items()}
+            d = TrainDraws() if draws is None else TrainDraws(
+                *(None if f is None else f[k] for f in draws))
+            state, metrics = step(state, batch, generator=generator, draws=d)
+            per_step.append(metrics)
+        return state, {name: torch.stack([m[name] for m in per_step])
+                       for name in per_step[0]}
+
+    return multi
+
+
+def stack_batches(items, background=None, device=None) -> Dict[str, torch.Tensor]:
+    """Per-frame batch dicts (numpy, as the datasets give them) -> one dict
+    of tensors on ``device`` stacked along a leading K axis, for
+    ``make_multi_train_step``; ``background`` (H, W, 15), when given, is
+    broadcast to (K, H, W, 15) as a view. CUDA unless the caller names
+    another device; with no device given and no CUDA present this
+    raises."""
+    dev = resolve_device(device)
+    keys = [k for k in items[0] if k != "fname"]
+    out = {k: torch.from_numpy(np.stack([np.asarray(it[k]) for it in items])).to(dev)
+           for k in keys}
+    if background is not None:
+        bg = torch.as_tensor(background, dtype=torch.float32).to(dev)
+        out["background"] = bg.expand((len(items),) + tuple(bg.shape))
+    return out

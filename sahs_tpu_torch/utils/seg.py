@@ -1,6 +1,6 @@
-"""The 12 semantic classes and their palette (the part of
-``sahs_tpu/utils/seg.py`` the synthetic dataset needs, copied: the port
-never imports the JAX package). Classes: 0 background, 1 face, 2 nose,
+"""The 12 semantic classes, their palette and ``label2color`` (the part of
+``sahs_tpu/utils/seg.py`` the data layer and the trainer's validation
+need, copied: the port never imports the JAX package). Classes: 0 background, 1 face, 2 nose,
 3 glasses, 4 eyes, 5 brows, 6 ears, 7 mouth-interior, 8 lips, 9 hair,
 10 neck, 11 torso.
 """
@@ -29,3 +29,12 @@ PALETTE = np.array(
     dtype=np.int32,
 )
 
+
+
+def label2color(mask: np.ndarray) -> np.ndarray:
+    """(H, W, 12) -> (H, W, 3) float BGR-ordered colours in [0, 1]: the
+    reference writes the palette reversed per pixel (utils.py:138, cv2's
+    BGR convention), kept for output parity (``sahs_tpu/utils/seg.py``)."""
+    labels = np.argmax(mask, axis=-1)
+    colors = PALETTE[:, ::-1].astype(np.float32) / 255.0
+    return colors[labels]

@@ -1611,6 +1611,43 @@ def test_exp_gather_kernels_match_plain(card):
         counts[0] + 3, counts[1] + 4, counts[2] + 3]
 
 
+# X2 (csrc/exp_gather.cu:dg_kernel): one persistent block an SM walks its
+# tiles' column groups through a TMA-filled ring. The four DG_CASES, n
+# = 1 in bf16 (one gather: a lane a row), n = 3 and 5 (the two lanes of a
+# column word split the gathers unevenly), n = 0 and L = 160 (five bf16
+# groups of 32 columns), at 16 tiles (a block each) and at 140 tiles
+# (more than the card's 132 SMs: a block walks two, its ring running on
+# from one tile into the next): within 1e-6 of the plain version (the same
+# values summed in another order), the same bits on a second launch, and
+# every index moved by one (phase 15's planted fault) outside that gate.
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,dt,n,tiles", [
+    (128, "float32", 1, 16), (128, "float32", 8, 16), (128, "bfloat16", 8, 16),
+    (256, "float32", 8, 16), (128, "float32", 3, 16), (160, "bfloat16", 5, 16),
+    (128, "float32", 0, 16), (128, "float32", 8, 140), (128, "bfloat16", 1, 140)])
+def test_exp_dg_kernel_cases(card, rng, L, dt, n, tiles):
+    from sahs_tpu_torch.tools import exp_gather as xg
+    dev = card[0]
+    rows = tiles * xg.TILE
+    x = torch.from_numpy(rng.standard_normal((rows, L)).astype(np.float32)).to(
+        dev).to(getattr(torch, dt))
+    idx = torch.from_numpy(rng.randint(0, xg.TILE, (rows, L)).astype(np.int32)).to(dev)
+    before = xg.dg_rows.launches
+    a = xg.dg_rows(x, idx, n)
+    again = xg.dg_rows(x, idx, n)
+    fault = xg.dg_rows(x, (idx + 1) % xg.TILE, n)
+    b = xg.dg_plain(x, idx, n)
+    torch.cuda.synchronize()
+    assert xg.dg_rows.launches == before + 3
+    assert a.shape == (rows, 1) and a.dtype == torch.float32
+    assert torch.equal(a, again)
+    if n == 0:
+        assert not a.any() and not fault.any()
+        return
+    assert _l2(a, b) <= 1e-6, _l2(a, b)
+    assert _l2(fault, b) > 1e-6, _l2(fault, b)
+
+
 @pytest.mark.cuda
 def test_exp_pair2_kernels_match_plain(card):
     from sahs_tpu_torch.tools import exp_pair2 as xp
@@ -1628,6 +1665,46 @@ def test_exp_pair2_kernels_match_plain(card):
     torch.cuda.synchronize()
     assert [f.launches for f in (xp.narrow_call, xp.paired_call, xp.reshape_call)] == [
         counts[0] + 1, counts[1] + 1, counts[2] + 2]
+
+
+# The multi-step loop (train/stage1.make_multi_train_step): K = 3 flagship
+# steps (2048 rays, 64 + 64, bf16, the fused path's kernels) on stacked
+# synthetic frames against 3 single train_step calls on one generator of
+# the same seed: the same launches a step, and every parameter, Adam moment
+# and metric bit for bit (the step's kernels are deterministic: the grid
+# backward bins without float atomics).
+@pytest.mark.cuda
+def test_multi_step_matches_single_steps_on_the_card(card):
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.train import stage1
+    dev = card[0]
+    cfg = Config()
+    spec, ts = nerface.ModelSpec.from_config(cfg), stage1.TrainSettings.from_config(cfg)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=3, H=96, W=96,
+                              near=cfg.dataset.near, far=cfg.dataset.far)
+    items, bg = [ds[j] for j in (2, 0, 1)], ds.background()
+    a = stage1.init_train_state(spec, ts, seed=0, background=bg, device=dev)
+    b = stage1.init_train_state(spec, ts, seed=0, background=bg, device=dev)
+    held = (k1.deform_pair_forward, k2.nerf_level_train, k1.deform_pair_vjp, k4.grid_dg,
+            k15.build_pts)
+    before = [f.launches for f in held]
+    a, ma = stage1.make_multi_train_step(spec, ts, device=dev)(
+        a, stage1.stack_batches(items, bg, device=dev),
+        generator=torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(held, before)] == [6, 6, 3, 3, 6]
+    step = stage1.make_train_step(spec, ts, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    losses = []
+    for item in items:
+        b, mb = step(b, dict(item, background=bg), generator=gen)
+        losses.append(mb["loss"])
+    assert torch.equal(ma["loss"], torch.stack(losses))
+    assert a.step == b.step == 3 and torch.equal(a.sample_prob, b.sample_prob)
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(a.optimizer.state[p][k], b.optimizer.state[q][k]), (name, k)
 
 
 # X1 and X4-X6 run persistent blocks (one an SM) that walk 64-row tiles
