@@ -223,7 +223,22 @@ Phases, in order (any failure exits non-zero and prints no result):
      for bit) and a resumed run to iteration 10; 4 steps of the multi-step loop
      against 4 single train_step calls fed the same draws, bit for bit;
      ms a step through the multi-step loop (K = 8) and through single steps, in
-     turns (CUDA events and the host clock).
+     turns (CUDA events and the host clock);
+ 17. what a user runs after Stage-I training, on phase 16's checkpoint:
+     cli.eval_stage1.main over a synthetic audio dataset's 3 val frames at
+     512x512 (written by write_synthetic_dataset to build/phase17/) with
+     every output switched on, launch counters zeroed just before and
+     checked just after (K1 = K5 = 16 a frame), every file there, one
+     frame's rgb file byte for byte make_eval_renderer's written the same
+     way; Stage II through its CLIs (train_stage2 one epoch, its
+     checkpoint restored bit for bit, a resume, eval_stage2 writing every
+     refined frame), the trained generator's float32 forward on the card
+     against the CPU's (GEN_CPU_GATE), metrics.two_folders with LPIPS from
+     a random-weight .pth (card against CPU within LPIPS_CPU_GATE) and a
+     finite metrics.txt, all under torch's default precision settings
+     (cuDNN's TF32 allowed: the entry points set float32); it prints the
+     eval CLI's s a frame and the render's device ms, the generator's ms
+     per inference and per train step, and SSIM's and LPIPS's ms a frame.
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -231,6 +246,7 @@ PATH, everything measured is also written to PATH as JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1570,12 +1586,12 @@ def grid_sample_library(model, coords, g):
     return lambda: torch.autograd.grad(o, g5, gout, retain_graph=True)
 
 
-def grid_launch_ms(fn) -> dict:
+def grid_launch_ms(fn, counter) -> dict:
     """The device time of one call of a grid backward (K4, K9, K10: one
     binned routine) by CUDA kernel, torch.profiler over 20 calls: where
-    its phases spend the call."""
+    its phases spend the call. ``counter``: the wrapper ``fn`` calls."""
     from sahs_tpu_torch.utils.device import device_ms_by_kernel
-    return device_ms_by_kernel(fn, launches=20)
+    return device_ms_by_kernel(fn, launches=20, counter=counter)
 
 
 def level_train_macs(lw) -> int:
@@ -2880,6 +2896,287 @@ def phase16_trainer(dev, report, kernels) -> str:
     return ""
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: what a user runs after Stage-I training
+# ---------------------------------------------------------------------------
+
+# the kernels of phase 17's eval CLI, by their entry of the kernels line
+PIPELINE_KERNELS = {"K1": "sahs_tpu/ops/pallas/field_mlp.py:868",
+                    "K5": "sahs_tpu/ops/pallas/field_mlp.py:2681"}
+PIPELINE_FRAMES = 3
+# a generator forward at 512x512 on the card (``make_infer``, which sets
+# full float32) against the same generator on the CPU: max abs error over
+# the refined frame.
+# 4x the reading of 1.07e-5 (NVIDIA H100 80GB HBM3, 700.00 W), under the
+# 1e-4 ceiling the card tests keep
+GEN_CPU_GATE = 4e-5
+# LPIPS of one frame pair on the card against the CPU, relative
+LPIPS_CPU_GATE = 1e-4
+
+
+def phase17_pipeline(dev, report, kernels, size: int = 512) -> str:
+    """Phase 17. The user's pipeline after Stage-I training, on phase 16's
+    checkpoint at iteration 10 (the flagship Config(), 512x512): a
+    synthetic audio dataset of PIPELINE_FRAMES train and val frames
+    written to build/phase17/; ``cli.eval_stage1.main`` over the val
+    frames with every output switched on (launch counters zeroed just
+    before and read just after: K1 = K5 = 16 a frame), every file there,
+    one frame's rgb file equal byte for byte to make_eval_renderer's frame
+    written the same way; the train frames rendered through
+    ``evaluate_dataset``; Stage II through its CLIs (``train_stage2`` one
+    epoch, a resume from its checkpoint, which must restore the run's
+    state bit for bit, ``eval_stage2``), the trained generator's float32
+    forward on the card against the CPU's (GEN_CPU_GATE), its ms per
+    inference and per train step; ``metrics.two_folders`` of the val
+    frames against the refined ones with LPIPS from a random-weight .pth
+    in lpips-package naming, LPIPS on the card against the CPU
+    (LPIPS_CPU_GATE), SSIM and LPIPS ms a frame. ``size``: the frames'
+    side (512; smaller only to rehearse the phase). Returns a failure
+    message, or ""."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from sahs_tpu_torch import lpips, metrics
+    from sahs_tpu_torch.cli import eval_stage1, eval_stage2, train_stage1, train_stage2
+    from sahs_tpu_torch.config import load_config
+    from sahs_tpu_torch.data.audio import AudioDataset
+    from sahs_tpu_torch.data.synthetic import write_synthetic_dataset
+    from sahs_tpu_torch.data.texture import identity_photo, spade_output_dataset
+    from sahs_tpu_torch.evaluation import cast_to_image, evaluate_dataset, make_eval_renderer
+    from sahs_tpu_torch.models import spade
+    from sahs_tpu_torch.models.nerface import ModelSpec, NeRFaceModel
+    from sahs_tpu_torch.render.pipeline import RenderSettings
+    from sahs_tpu_torch.train import stage2
+    from sahs_tpu_torch.utils import checkpoint as ck
+    from sahs_tpu_torch.utils.images import imread, imwrite
+    from sahs_tpu_torch.utils.weights import params_from_jax
+
+    ckpt10 = os.path.join(REPO, "build", "phase16", "log", "smoke", "checkpoint0000010.ckpt")
+    if not os.path.exists(ckpt10):
+        return f"phase 16's checkpoint {ckpt10} is missing"
+    out = os.path.join(REPO, "build", "phase17")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    ds_dir = os.path.join(out, "dataset")
+    write_synthetic_dataset(ds_dir, kind="audio", num_frames=PIPELINE_FRAMES, H=size, W=size)
+    r_val, r_train = os.path.join(out, "renders_val"), os.path.join(out, "renders_train")
+    refined, logdir = os.path.join(out, "refined"), os.path.join(out, "log")
+    cfg_path = os.path.join(out, "cfg.yml")
+    with open(cfg_path, "w") as fp:
+        yaml.safe_dump({
+            "experiment": {"id": "smoke", "logdir": logdir, "randomseed": 0},
+            "dataset": {"type": "audio", "basedir": ds_dir},
+            "texture_refine": {"texture_photo": os.path.join(ds_dir, "com_imgs", "0.jpg"),
+                               "train_basedir": r_train, "val_basedir": r_val,
+                               "test_basedir": r_val, "epochs": 1, "epochs_decay": 0,
+                               "log_iters": 1, "scan_frames": 2}}, fp)
+    cfg = load_config(cfg_path)
+    res = {}
+
+    # the eval CLI over the val frames, launch counters zeroed just before
+    held = kernel_counters()
+    for f in held.values():
+        f.launches = 0
+    t0 = time.time()
+    times = eval_stage1.main(["--config", cfg_path, "--checkpoint", ckpt10, "--savedir", r_val,
+                              "--deterministic", "--save-disparity-image",
+                              "--save-error-image", "--save-mesh", "--device", str(dev)])
+    torch.cuda.synchronize()
+    res["eval_cli_s"] = time.time() - t0
+    launches = {k: f.launches for k, f in held.items() if f.launches}
+    res["eval_s_per_frame"] = times
+    print(f"eval CLI: {len(times)} frames in {res['eval_cli_s']:.1f} s, s a frame "
+          f"{[round(t, 4) for t in times]}, launches {launches}", flush=True)
+    # two levels of chunks of 32,768 rays: 16 a 512x512 frame
+    per_frame = 2 * math.ceil(size * size / 32768)
+    want = {"K1": per_frame * PIPELINE_FRAMES, "K5": per_frame * PIPELINE_FRAMES}
+    if launches != want:
+        return f"the eval CLI's launches {launches}, expected {want}"
+    val = train_stage1.build_dataset(cfg, "val")
+    stems = [os.path.splitext(val[i]["fname"])[0] for i in range(len(val))]
+    files = [os.path.join(r_val, s + ".jpg") for s in stems]
+    for sub, ext in (("masks", ".png"), ("normals", ".png"), ("disparity", ".png"),
+                     ("error", ".png"), ("mesh", ".obj")):
+        files += [os.path.join(r_val, sub, s + ext) for s in stems]
+    missing = [f for f in files if not os.path.exists(f)]
+    if len(stems) != PIPELINE_FRAMES or missing:
+        return f"the eval CLI's outputs are missing: {missing[:6]} ({len(stems)} frames)"
+
+    # one frame against make_eval_renderer's, written the same way
+    spec = ModelSpec.from_config(cfg)
+    tree, extras = eval_stage1.load_any_checkpoint(ckpt10, spec)
+    model = params_from_jax(NeRFaceModel.init(spec, device="cpu"), tree).to(dev)
+    settings = dataclasses.replace(RenderSettings.from_config(cfg, "validation"),
+                                   perturb=False, radiance_field_noise_std=0.0)
+    render = make_eval_renderer(spec, settings, val.H, val.W, float(cfg.dataset.near),
+                                float(cfg.dataset.far), device=dev)
+    item = val[0]
+    bg = extras["background"]
+    call = lambda: render(model, item["intrinsics"], item["pose"], item["driving"], bg, None)
+    with torch.no_grad():
+        frame = call()
+        ref_path = os.path.join(out, "renderer_frame.jpg")
+        imwrite(ref_path, cast_to_image(frame["rgb_fine"][..., :3]))
+        with open(ref_path, "rb") as fa, open(files[0], "rb") as fb:
+            same = fa.read() == fb.read()
+        res["render_device_ms"] = cuda_time(call, 3)
+    print(f"eval CLI frame {os.path.basename(files[0])} against make_eval_renderer's: "
+          f"{'byte for byte' if same else 'DIFFERENT'}; the render's device ms "
+          f"{res['render_device_ms']:.1f}", flush=True)
+    if not same:
+        return "the eval CLI's frame differs from make_eval_renderer's"
+    train = train_stage1.build_dataset(cfg, "train")
+    evaluate_dataset(cfg, spec, model, train, r_train, background=bg, save_normals=False,
+                     deterministic=True, device=dev)
+    del model, frame
+
+    # Stage II through its CLIs: one epoch, a resume, the refined frames
+    s2dir = os.path.join(logdir, "smoke_stage2")
+    ckpt_s2 = os.path.join(s2dir, "checkpoint_ep0000.ckpt")
+    t0 = time.time()
+    state = train_stage2.main(["--config", cfg_path, "--max-epochs", "1", "--device", str(dev)])
+    torch.cuda.synchronize()
+    res["stage2_epoch_s"] = time.time() - t0
+    first = ck.stage2_sections(state)
+    s = stage2.Stage2Settings.from_config(cfg, steps_per_epoch=PIPELINE_FRAMES)
+    fresh = stage2.init_stage2_state(s, seed=5, device=dev)
+    fresh, _ = ck.restore_stage2_state(ckpt_s2, fresh)
+    diff = [k for k, a in first.items()
+            for x, y in zip(_leaves(a), _leaves(ck.stage2_sections(fresh)[k]))
+            if not np.array_equal(x, y)]
+    resumed = train_stage2.main(["--config", cfg_path, "--max-epochs", "1", "--device",
+                                 str(dev), "--load-checkpoint", ckpt_s2])
+    torch.cuda.synchronize()
+    print(f"Stage II: one epoch in {res['stage2_epoch_s']:.1f} s to step {state.step}, "
+          f"restored {'bit for bit' if not diff else diff}, resumed to step {resumed.step}",
+          flush=True)
+    if diff or resumed.step != 2 * state.step or state.step == 0:
+        return f"Stage II's checkpoint or resume failed: {diff}, steps {state.step} / {resumed.step}"
+    written = eval_stage2.main(["--config", cfg_path, "--checkpoint", ckpt_s2, "--savedir",
+                                refined, "--device", str(dev)])
+    if len(written) != PIPELINE_FRAMES or not all(os.path.exists(w) for w in written):
+        return f"eval_stage2 wrote {written}"
+    if any(imread(w).shape != (size, size, 3) for w in written):
+        return f"a refined frame is not {size}x{size}x3"
+
+    # the trained generator on the card against the CPU, float32
+    sections, _ = ck.restore_sections(ckpt_s2)
+    gens = {d: spade.from_jax(spade.Generator(audio=True).to(d), sections["params"],
+                              sections["bufs"]) for d in (dev, torch.device("cpu"))}
+    src = identity_photo(cfg)[None]
+    raw = spade_output_dataset("val", cfg)[0][None]
+    aud = AudioDataset("val", cfg).get_all_auds()[0]
+    infer = stage2.make_infer(s)
+    t = lambda a, d: torch.as_tensor(np.asarray(a, np.float32), device=d)
+    outs = {d: infer(g, t(src, d), t(raw, d), t(aud, d)).cpu() for d, g in gens.items()}
+    gen_err = float((outs[dev] - outs[torch.device("cpu")]).abs().max())
+    res["generator_cuda_vs_cpu_max_abs"] = gen_err
+    res["generator_infer_ms"] = cuda_time(
+        lambda: infer(gens[dev], t(src, dev), t(raw, dev), t(aud, dev)), 5)
+    st = stage2.init_stage2_state(s, seed=0, device=dev)
+    step = stage2.make_train_step(s)
+    tgt = t(imread(os.path.join(ds_dir, "com_imgs", f"{PIPELINE_FRAMES}.jpg"))[None] / 255.0, dev)
+    res["generator_train_step_ms"] = cuda_time(
+        lambda: step(st, t(src, dev), t(raw, dev), tgt, t(aud, dev)), 5)
+    f_inf, f_step = generator_flops(size)
+    res["generator_flops"] = {"inference": f_inf, "train_step": f_step}
+    print(f"generator {size}x{size}: card against CPU max |d| {gen_err:.3e} (gate {GEN_CPU_GATE}); "
+          f"ms per inference {res['generator_infer_ms']:.2f} ({f_inf / 1e12:.3f} TFLOP, "
+          f"{f_inf / res['generator_infer_ms'] / 1e9:.1f} TFLOP/s), per train step "
+          f"{res['generator_train_step_ms']:.2f} ({f_step / 1e12:.3f} TFLOP, "
+          f"{f_step / res['generator_train_step_ms'] / 1e9:.1f} TFLOP/s)", flush=True)
+    if not gen_err <= GEN_CPU_GATE:
+        return f"the generator on the card is {gen_err:.3e} from the CPU's"
+    del gens, st
+
+    # metrics: the val frames against the refined ones, LPIPS on the card
+    gt_dir = os.path.join(out, "gt_val")
+    os.makedirs(gt_dir)
+    for w in written:
+        shutil.copy(os.path.join(ds_dir, "com_imgs", os.path.basename(w)), gt_dir)
+    params = lpips.random_params(0)
+    pth = os.path.join(out, "lpips_random.pth")
+    sd = {}
+    for li, ci in enumerate([0, 3, 6, 8, 10]):
+        sd[f"net.slice{[1, 1, 2, 3, 4][li]}.{ci}.weight"] = torch.from_numpy(params["convs"][li]["w"])
+        sd[f"net.slice{[1, 1, 2, 3, 4][li]}.{ci}.bias"] = torch.from_numpy(params["convs"][li]["b"])
+        sd[f"lin{li}.model.1.weight"] = torch.from_numpy(params["lins"][li][None, :, None, None])
+    torch.save(sd, pth)
+    old = os.environ.get("SAHS_LPIPS_WEIGHTS")
+    os.environ["SAHS_LPIPS_WEIGHTS"] = pth
+    try:
+        summary = metrics.two_folders(gt_dir, refined, device=dev)
+    finally:
+        if old is None:
+            del os.environ["SAHS_LPIPS_WEIGHTS"]
+        else:
+            os.environ["SAHS_LPIPS_WEIGHTS"] = old
+    with open(os.path.join(refined, "metrics.txt")) as fp:
+        means = [float(l.rsplit("\t", 1)[1]) for l in fp.read().splitlines()
+                 if l.startswith(" mean")]
+    a = imread(os.path.join(gt_dir, os.path.basename(written[0])))[..., :3] / 255
+    b = imread(written[0])[..., :3] / 255
+    nets = {d: lpips.LpipsNet(params, d) for d in (dev, torch.device("cpu"))}
+    lp = {d: lpips.lpips_distance(n, a, b) for d, n in nets.items()}
+    lp_err = abs(lp[dev] - lp[torch.device("cpu")]) / abs(lp[torch.device("cpu")])
+    res.update(metrics=summary, lpips_cuda_vs_cpu_rel=lp_err,
+               lpips_ms=cuda_time(lambda: lpips.lpips_distance(nets[dev], a, b), 5))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        metrics.ssim(a, b)
+    res["ssim_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"metrics: {summary}; LPIPS card against CPU {lp_err:.3e} relative "
+          f"(gate {LPIPS_CPU_GATE}); ms a frame: SSIM {res['ssim_ms']:.1f} (host), LPIPS "
+          f"{res['lpips_ms']:.2f}", flush=True)
+    if len(means) != 4 or not all(math.isfinite(m) for m in means) or summary["LPIPS"] is None:
+        return f"metrics.txt's means are not four finite numbers: {means}"
+    if not lp_err <= LPIPS_CPU_GATE:
+        return f"LPIPS on the card is {lp_err:.3e} from the CPU's"
+    report["pipeline"] = res
+    for kk in kernels:
+        key = next((k for k, r in PIPELINE_KERNELS.items() if r == kk["replaces"]), None)
+        if key:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["serving CLI (phase 17)"] = launches[key]
+            kk["launches"] += launches[key]
+    return ""
+
+
+def generator_flops(size: int) -> tuple:
+    """(forward, train step) operations of the audio generator at
+    size x size: torch.utils.flop_counter over a forward in eval mode, and
+    over a train-mode forward, the MSE loss and its gradients, on meta
+    tensors (nothing is computed)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sahs_tpu_torch.models import spade
+    g = spade.Generator(audio=True).to("meta")
+    for m in g.modules():
+        if isinstance(m, spade.SNConv):
+            m.u = torch.empty(m.w.shape[0], device="meta")
+    x = torch.empty(1, 3, size, size, device="meta")
+    a = torch.empty(16, 29, device="meta")
+    with FlopCounterMode(display=False) as fwd:
+        g(x, x, a, train=False)
+    with FlopCounterMode(display=False) as step:
+        y = g(x, x, a, train=True).clamp(0.0, 1.0)
+        torch.autograd.grad((y - x).square().mean(), list(g.parameters()), allow_unused=True)
+    return fwd.get_total_flops(), step.get_total_flops()
+
+
+def _leaves(tree) -> list:
+    """A section tree's leaves in key order (dicts sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def main(argv) -> int:
     report_path = argv[argv.index("--report") + 1] if "--report" in argv else None
     try:
@@ -3139,7 +3436,8 @@ def main(argv) -> int:
               f"{coarse_ms:.2f} ms at the coarse level's {R_t * 64} points", flush=True)
     # bf16 K5 is two launches a call: the raw field and the compositing
     from sahs_tpu_torch.utils.device import device_ms_by_kernel
-    kernels[1]["launch_ms"] = device_ms_by_kernel(f_k5, launches=reps)
+    kernels[1]["launch_ms"] = device_ms_by_kernel(f_k5, launches=reps,
+                                                     counter=k5.nerf_level_forward)
     print(f"nerf_level's launches at the fine chunk (device ms, torch.profiler): "
           f"{json.dumps(kernels[1]['launch_ms'])}", flush=True)
     report["kernels"] = kernels
@@ -3392,7 +3690,7 @@ def main(argv) -> int:
               + (f", plain {plain:.2f} ms, library {lib:.2f} ms" if fp else "")
               + f"; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % "
               "of the bound)", flush=True)
-    train_kernels["grid_dg"]["launch_ms"] = grid_launch_ms(lambda: k4.grid_dg(*inp["k4"]))
+    train_kernels["grid_dg"]["launch_ms"] = grid_launch_ms(lambda: k4.grid_dg(*inp["k4"]), k4.grid_dg)
     print(f"grid_dg's launches at the step's shapes (device ms, torch.profiler): "
           f"{json.dumps(train_kernels['grid_dg']['launch_ms'])}", flush=True)
     report["train_kernels"] = train_kernels
@@ -3721,7 +4019,7 @@ def main(argv) -> int:
               f"library {lib:.2f} ms; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
               f"{100 * b_ms / ms:.2f} % of the bound)", flush=True)
     fb_kernels["grid_dg_coords"]["launch_ms"] = grid_launch_ms(
-        lambda: k4.grid_dg_coords(*fb_inp["k9"]))
+        lambda: k4.grid_dg_coords(*fb_inp["k9"]), k4.grid_dg_coords)
     print(f"grid_dg_coords' launches at the fine level (device ms, torch.profiler): "
           f"{json.dumps(fb_kernels['grid_dg_coords']['launch_ms'])}", flush=True)
     report["fallback_kernels"] = fb_kernels
@@ -3916,7 +4214,7 @@ def main(argv) -> int:
               f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % of "
               "the bound)", flush=True)
     pw_kernels["grid_bwd_fused"]["launch_ms"] = grid_launch_ms(
-        lambda: k4.grid_bwd_fused(*pw_inp["k10"]))
+        lambda: k4.grid_bwd_fused(*pw_inp["k10"]), k4.grid_bwd_fused)
     print(f"grid_bwd_fused's launches at the per-point step's fine level (device ms, "
           f"torch.profiler): {json.dumps(pw_kernels['grid_bwd_fused']['launch_ms'])}",
           flush=True)
@@ -3985,6 +4283,18 @@ def main(argv) -> int:
 
     # 16. the Stage-I trainer's entry point --------------------------------
     msg = phase16_trainer(dev, report, kernels)
+    if msg:
+        return fail(msg)
+    torch.cuda.empty_cache()
+
+    # 17. what a user runs after Stage-I training, under torch's default
+    # precision settings (cuDNN may use TF32), as a user's process has them:
+    # Stage II's and LPIPS's entry points set full float32 themselves
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        msg = phase17_pipeline(dev, report, kernels)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     if msg:
         return fail(msg)
     if len(kernels) != 21:

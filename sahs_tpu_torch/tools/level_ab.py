@@ -565,21 +565,23 @@ def _grid_times(dev, reps: int = 20) -> dict:
         xyz = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(R * S, 3)
         return torch.cat([xyz, g(rng.uniform(-1, 1, (R * S, 2)))], 1)
 
-    def reading(fn, reps=reps):
+    def reading(fn, counter=None, reps=reps):
         return {"ms": cuda_ms(fn, reps, runs=3),
-                "launch_ms": device_ms_by_kernel(fn, launches=reps)}
+                "launch_ms": device_ms_by_kernel(fn, launches=reps, counter=counter)}
 
     out = {}
     R = 2048
     pts = rays(R, 128)
     gse, gse2 = g(rng.randn(R * 128, 32) * 1e-3), g(rng.randn(R * 128, 32) * 1e-3)
     rows = _cell_geometry(pts, shape[1:])[0].to(torch.int32).reshape(R, 128)
-    out["K4 fine"] = reading(lambda: k4.grid_dg(pts, rows, gse, gse2, shape))
-    out["K9 fine, ray-major"] = reading(lambda: k4.grid_dg_coords(pts, gse, shape))
+    out["K4 fine"] = reading(lambda: k4.grid_dg(pts, rows, gse, gse2, shape), k4.grid_dg)
+    out["K9 fine, ray-major"] = reading(lambda: k4.grid_dg_coords(pts, gse, shape),
+                                    k4.grid_dg_coords)
     # ray-major -> sample-major: all rays' sample s adjacent
     sample_major = lambda x: x.reshape(R, 128, -1).transpose(0, 1).reshape(R * 128, -1)
     pts_sm, g_sm = sample_major(pts[:, :3]), sample_major(gse)
-    out["K9 fine, sample-major"] = reading(lambda: k4.grid_dg_coords(pts_sm, g_sm, shape))
+    out["K9 fine, sample-major"] = reading(lambda: k4.grid_dg_coords(pts_sm, g_sm, shape),
+                                       k4.grid_dg_coords)
     out["sample_major copies"] = reading(
         lambda: (sample_major(pts[:, :3]), sample_major(gse)))
     pts = rays(R, 192)
@@ -589,13 +591,14 @@ def _grid_times(dev, reps: int = 20) -> dict:
     for dtype, tdt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         vals = pack_corner_table(grid, dtype=tdt)[rows]
         out[f"K10 {dtype}"] = reading(
-            lambda: k4.grid_bwd_fused(shape, pts, gp, vals, dtype))
+            lambda: k4.grid_bwd_fused(shape, pts, gp, vals, dtype), k4.grid_bwd_fused)
         del vals
     idx = torch.tensor(rng.choice(512 * 512, 32768, replace=False), device=dev)
     ro, rd = get_rays_at(idx, 512, 512, *camera)      # ``rays`` reads these
     pts = rays(32768, 128)
     gc = g(rng.randn(32768 * 128, 32) * 1e-3)
-    out["K9 frame chunk"] = reading(lambda: k4.grid_dg_coords(pts, gc, shape), reps=5)
+    out["K9 frame chunk"] = reading(lambda: k4.grid_dg_coords(pts, gc, shape),
+                                 k4.grid_dg_coords, reps=5)
     return out
 
 

@@ -24,6 +24,15 @@ package under ``SAHS_OPT_FLATTEN=1``) raises CheckpointError.
 
 The importer maps a released reference ``.ckpt`` (torch.save) onto the
 parameter tree; ``weights.params_from_jax`` loads the tree into a model.
+
+Stage II: ``stage2_sections`` gives the sections the JAX package's
+Stage-II CLI writes with ``save_sections`` (params, bufs and optax adam's
+state of the generator; d_params, d_bufs, d_opt with the discriminator),
+in its leaf names and layouts (``models/spade.to_jax``), and
+``restore_stage2_state`` resumes a trainer state from either package's;
+``import_torch_generator_checkpoint`` maps a reference Generator
+checkpoint onto the JAX package's (params, bufs) trees, which
+``models/spade.from_jax`` loads.
 """
 from __future__ import annotations
 
@@ -96,17 +105,19 @@ def _state_tree(state, get=lambda p: p) -> Dict[str, Any]:
     return tree
 
 
-def _adam_tree(state) -> list:
-    """optax adam's state of ``state.optimizer`` (a torch Adam): the
-    moments of a parameter Adam has not updated yet are zeros."""
-    st = state.optimizer.state
+def _adam_tree(opt, tree) -> list:
+    """optax adam's state of the torch Adam ``opt``, its moments laid out
+    by ``tree(get)`` (the JAX parameter tree, each parameter mapped through
+    ``get``): the moments of a parameter Adam has not updated yet are
+    zeros."""
+    st = opt.state
 
     def moment(name):
         return lambda p: st[p][name] if name in st.get(p, {}) else torch.zeros_like(p)
     steps = [float(s["step"]) for s in st.values() if "step" in s]
     count = np.int32(max(steps) if steps else 0)
-    return [{"count": count, "mu": _state_tree(state, moment("exp_avg")),
-             "nu": _state_tree(state, moment("exp_avg_sq"))}, {"count": count}]
+    return [{"count": count, "mu": tree(moment("exp_avg")),
+             "nu": tree(moment("exp_avg_sq"))}, {"count": count}]
 
 
 def save_checkpoint(path: str, state, extras: Optional[Dict[str, Any]] = None):
@@ -116,7 +127,8 @@ def save_checkpoint(path: str, state, extras: Optional[Dict[str, Any]] = None):
     entries: Dict[str, np.ndarray] = {}
     bf16: list = []
     _flatten_section("params", _state_tree(state), entries, bf16)
-    _flatten_section("opt", _adam_tree(state), entries, bf16)
+    _flatten_section("opt", _adam_tree(state.optimizer,
+                                       lambda get: _state_tree(state, get)), entries, bf16)
     entries["sample_prob"] = _to_numpy(state.sample_prob, "sample_prob", bf16)
     scalars: Dict[str, Any] = {"iter": int(state.step)}
     for k, v in (extras or {}).items():
@@ -413,3 +425,174 @@ def import_torch_checkpoint(path: str, spec) -> Dict[str, Any]:
         if k in ckpt:
             out[k] = ckpt[k]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Stage II: the reference's Generator checkpoints, and the trainer's state
+# ---------------------------------------------------------------------------
+
+def _conv2d_t(sd, prefix):
+    """torch Conv2d (O, I, kh, kw) -> the JAX tree's HWIO."""
+    return {"w": np.asarray(sd[prefix + ".weight"]).transpose(2, 3, 1, 0).copy(),
+            "b": np.asarray(sd[prefix + ".bias"]).copy()}
+
+
+def _bn_t(sd, prefix):
+    p = {"gamma": np.asarray(sd[prefix + ".weight"]).copy(),
+         "beta": np.asarray(sd[prefix + ".bias"]).copy()}
+    b = {"mean": np.asarray(sd[prefix + ".running_mean"]).copy(),
+         "var": np.asarray(sd[prefix + ".running_var"]).copy()}
+    return p, b
+
+
+def _sn_conv_t(sd, prefix):
+    """A spectral-normalised conv: torch stores weight_orig, weight_u and
+    weight_v. Both vectors are imported, so that eval reproduces torch's
+    sigma exactly (sigma = u . (W v) with the stored vectors)."""
+    w_orig = np.asarray(sd[prefix + ".weight_orig"])   # (O, I, kh, kw)
+    O, I, kh, kw = w_orig.shape
+    p = {"w": w_orig.transpose(2, 3, 1, 0).copy(),
+         "b": np.asarray(sd[prefix + ".bias"]).copy()}
+    # torch flattens the fan-in axis as (I, kh, kw); the JAX tree as (kh, kw, I)
+    v = np.asarray(sd[prefix + ".weight_v"]).reshape(I, kh, kw)
+    b = {"u": np.asarray(sd[prefix + ".weight_u"]).copy(),
+         "v": v.transpose(1, 2, 0).reshape(-1).copy()}
+    return p, b
+
+
+def _resblock_t(sd, prefix, downsample):
+    p = {"initial": _conv2d_t(sd, prefix + ".initial.0")}
+    p["bn1"], bn1 = _bn_t(sd, prefix + ".initial.1")
+    bufs = {"bn1": bn1}
+    if downsample:
+        p["down_id"] = _conv2d_t(sd, prefix + ".downsample_layer")
+        p["down_res"] = _conv2d_t(sd, prefix + ".residual_downsample")
+    else:
+        p["residual"] = _conv2d_t(sd, prefix + ".residual.0")
+        p["bn2"], bn2 = _bn_t(sd, prefix + ".residual.1")
+        bufs["bn2"] = bn2
+    return p, bufs
+
+
+def _spade_layer_t(sd, prefix):
+    return {"shared": _conv2d_t(sd, prefix + ".mlp_shared.0"),
+            "gamma": _conv2d_t(sd, prefix + ".conv_gamma"),
+            "beta": _conv2d_t(sd, prefix + ".conv_beta")}
+
+
+def _spade_block_t(sd, prefix, downsample, upsample):
+    p = {"spade1": _spade_layer_t(sd, prefix + ".spade1"),
+         "spade2": _spade_layer_t(sd, prefix + ".spade2"),
+         "spade_s": _spade_layer_t(sd, prefix + ".spade_s")}
+    bufs = {}
+    p["conv1"], bufs["conv1"] = _sn_conv_t(sd, prefix + ".conv1")
+    p["conv2"], bufs["conv2"] = _sn_conv_t(sd, prefix + ".conv2")
+    p["conv_s"], bufs["conv_s"] = _sn_conv_t(sd, prefix + ".conv_s")
+    if downsample:
+        p["down_id"] = _conv2d_t(sd, prefix + ".residual_downsample")
+    if upsample:
+        # a ConvTranspose2d's (I, O, kh, kw) through the same transpose is
+        # (kh, kw, O, I), the kernel of lax.conv_transpose(...,
+        # transpose_kernel=True); up_id is square, so a swap would not raise
+        p["up_id"] = _conv2d_t(sd, prefix + ".residual_upsample")
+    return p, bufs
+
+
+def import_torch_generator_state_dict(sd: Dict[str, Any], audio: bool):
+    """A reference Stage-II Generator(_audio) state_dict (tensors or numpy
+    arrays) -> the JAX package's (params, bufs) trees, numpy leaves, for
+    ``models.spade.from_jax`` (reference nerf-pytorch/nerf/_init_spade.py:
+    IdEncoder :185-203, RefineNetwork :284-312, Generator :315-325,
+    Generator_audio :359-373)."""
+    sd = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+          for k, v in sd.items()}
+    params: Dict[str, Any] = {}
+    bufs: Dict[str, Any] = {}
+
+    idp: Dict[str, Any] = {"stem": _conv2d_t(sd, "idencoder.layer1.0")}
+    idb: Dict[str, Any] = {}
+    for name, layer, down in (("l2", "layer2", False),
+                              ("l3", "layer3", True),
+                              ("l4", "layer4", True)):
+        idp[name], idb[name] = _resblock_t(sd, f"idencoder.{layer}", down)
+    params["idenc"], bufs["idenc"] = idp, idb
+
+    # RefineNetwork layer2..7 <-> blocks[0..5]; (down, up) as REFINE_LAYERS
+    flags = [(True, False), (True, False), (False, False),
+             (False, True), (False, True), (False, True)]
+    rp: Dict[str, Any] = {"stem": _conv2d_t(sd, "refine_network.layer1.0"),
+                          "blocks": []}
+    rb: Dict[str, Any] = {"blocks": []}
+    for i, (down, up) in enumerate(flags):
+        bp, bb = _spade_block_t(sd, f"refine_network.layer{i + 2}", down, up)
+        rp["blocks"].append(bp)
+        rb["blocks"].append(bb)
+    rp["head"] = _conv2d_t(sd, "refine_network.layer8")
+    params["refine"], bufs["refine"] = rp, rb
+
+    if audio:
+        params["audnet"] = {
+            "convs": [_conv1d(sd, f"AudioNet.encoder_conv.{i}") for i in (0, 2, 4, 6)],
+            "fc1": _lin(sd, "AudioNet.encoder_fc1.0"),
+            "fc2": _lin(sd, "AudioNet.encoder_fc1.2"),
+        }
+    return params, bufs
+
+
+def import_torch_generator_checkpoint(path: str, audio: bool) -> Dict[str, Any]:
+    """A reference Stage-II ``.ckpt`` (torch.save dict with
+    model_state_dict, reference train_get_texture_photo_audio.py:235-253)
+    -> {"params", "bufs", "iter"}."""
+    ckpt = torch.load(path, map_location="cpu")
+    params, bufs = import_torch_generator_state_dict(ckpt["model_state_dict"], audio)
+    return {"params": params, "bufs": bufs, "iter": ckpt.get("iter")}
+
+
+def _stage2_adam_tree(opt, module) -> list:
+    from ..models.spade import to_jax
+    return _adam_tree(opt, lambda get: to_jax(module, "params", get))
+
+
+def stage2_sections(state) -> Dict[str, Any]:
+    """The Stage-II trainer's checkpoint sections, as the JAX package's CLI
+    writes them: params, bufs and Adam's state of the generator, and of
+    the discriminator (d_params, d_bufs, d_opt) when it has one."""
+    from ..models.spade import to_jax
+    g = state.generator
+    sections = {"params": to_jax(g), "bufs": to_jax(g, "bufs"),
+                "opt": _stage2_adam_tree(state.opt, g)}
+    if state.discriminator is not None:
+        d = state.discriminator
+        sections.update(d_params=to_jax(d), d_bufs=to_jax(d, "bufs"),
+                        d_opt=_stage2_adam_tree(state.d_opt, d))
+    return sections
+
+
+def _restore_stage2_adam(opt, module, tree) -> None:
+    """optax's count and moments into the torch Adam ``opt``. Every
+    parameter gets them: the Stage-II step hands Adam a zero gradient
+    where a parameter had none, as optax updates every leaf."""
+    from ..models.spade import param_map
+    mu, nu = param_map(module, tree[0]["mu"]), param_map(module, tree[0]["nu"])
+    count = float(tree[0]["count"])
+    opt.state.clear()
+    if count:
+        for p in opt.param_groups[0]["params"]:
+            opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                            "exp_avg": mu[p].clone(), "exp_avg_sq": nu[p].clone()}
+
+
+def restore_stage2_state(path: str, state):
+    """Resume a Stage-II state (a fresh one of the same settings) from a
+    checkpoint of either package's trainer, in place: the generator's
+    params and bufs, Adam's moments and count, the step, and the
+    discriminator's when both have one. Returns (state, scalars)."""
+    from ..models.spade import from_jax
+    sections, scalars = restore_sections(path)
+    from_jax(state.generator, sections["params"], sections["bufs"])
+    _restore_stage2_adam(state.opt, state.generator, sections["opt"])
+    if state.discriminator is not None and "d_params" in sections:
+        from_jax(state.discriminator, sections["d_params"], sections["d_bufs"])
+        _restore_stage2_adam(state.d_opt, state.discriminator, sections["d_opt"])
+    state.step = int(scalars.get("step", 0))
+    return state, scalars

@@ -2,11 +2,15 @@
 query that its scripts share."""
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 from typing import Callable, Dict, Optional, Union
 
 import torch
+
+# profiler windows that ``device_ms_by_kernel`` runs before it gives up
+_PROFILER_WINDOWS = 3
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -53,29 +57,61 @@ def device_ms(fn: Callable[[], object], launches: int = 200,
 
 
 def device_ms_by_kernel(fn: Callable[[], object], launches: int = 200,
-                        warmup: int = 3) -> Dict[str, float]:
+                        warmup: int = 3, counter=None) -> Dict[str, float]:
     """``device_ms`` by CUDA kernel: {kernel name (its demangled name up to
     the argument list or template arguments, without the anonymous
-    namespace): milliseconds of device time per call of ``fn()``}."""
+    namespace): milliseconds of device time per call of ``fn()``}.
+
+    ``counter``: the kernel wrapper (its ``launches`` count) that ``fn``
+    drives. A profiler window now and then records no CUDA event at all
+    (seen on the card once, at 20 calls of a 0.13 ms call, after other
+    windows of the same run had recorded; cause unknown). Such a window is
+    run again, up to ``_PROFILER_WINDOWS`` in all, only when ``counter``
+    moved in it: the kernel launched and the profiler missed it. Without a
+    counter, or when it did not move, an empty window raises."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    out: Dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            name = e.key[5:] if e.key.startswith("void ") else e.key
-            name = re.split(r"[(<]", name.replace("(anonymous namespace)::", ""), 1)[0]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / launches
-    if not out:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return out
+    for _ in range(_PROFILER_WINDOWS):
+        before = None if counter is None else counter.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        out: Dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                name = e.key[5:] if e.key.startswith("void ") else e.key
+                name = re.split(r"[(<]", name.replace("(anonymous namespace)::", ""), 1)[0]
+                out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / launches
+        if out:
+            return out
+        if before is None or counter.launches == before:
+            raise RuntimeError("torch.profiler recorded no device time, and no kernel "
+                               "launch is known to have been missed")
+    raise RuntimeError(f"torch.profiler recorded no device time in {_PROFILER_WINDOWS} "
+                       "windows of launches")
+
+
+@contextlib.contextmanager
+def full_float32():
+    """cuDNN's convolutions and cuBLAS's products in full float32 (no TF32)
+    inside the block, whatever the process has set; its settings come back
+    after. Stage II's and LPIPS's entry points run under it: the JAX
+    package computes them in float32, and torch's default lets cuDNN use
+    TF32."""
+    cudnn = torch.backends.cudnn.allow_tf32
+    matmul = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.set_float32_matmul_precision(matmul)
 
 
 def host_ms(fn: Callable[[], object], launches: int, warmup: int = 3) -> float:

@@ -2601,3 +2601,99 @@ def test_tensor_core_deform_pair_does_not_depend_on_a_points_tile(card, rng, gri
     assert torch.equal(out_a[perm], out_b)
     if grid:
         assert torch.equal(rows_a.reshape(-1)[perm], rows_b.reshape(-1))
+
+
+@pytest.fixture
+def f32_card():
+    """The card with TF32 off for matmuls and cuDNN, restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("audio", [False, True])
+@pytest.mark.parametrize("train", [False, True])
+def test_stage2_generator_on_the_card_matches_the_cpu(f32_card, rng, audio, train):
+    """Stage II's generator (cuDNN convolutions) in float32 on the card
+    against the same weights on the CPU at 128 x 128: the refined frame
+    within 1e-4 absolute (chip_smoke.py's GEN_CPU_GATE ceiling) and, in
+    train mode, the buffers it leaves (batch-norm statistics, spectral
+    norm's u) within 1e-5."""
+    import copy
+    from sahs_tpu_torch.models import spade
+    cpu = spade.Generator.init(audio=audio, seed=1, device="cpu")
+    gpu = copy.deepcopy(cpu).to(f32_card)
+    src, raw = (rng.rand(1, 3, 128, 128).astype(np.float32) for _ in range(2))
+    aud = rng.randn(16, 29).astype(np.float32) if audio else None
+    outs = []
+    for g, d in ((cpu, "cpu"), (gpu, f32_card)):
+        t = lambda a: None if a is None else torch.as_tensor(a, device=d)
+        with torch.no_grad():
+            outs.append(g(t(src), t(raw), t(aud), train=train).cpu())
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+    if train:
+        for a, b in zip(cpu.buffers(), gpu.buffers()):
+            assert float((a - b.cpu()).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_lpips_on_the_card_matches_the_cpu(f32_card, rng):
+    from sahs_tpu_torch import lpips
+    params = lpips.random_params(0)
+    x = rng.rand(128, 128, 3).astype(np.float32)
+    y = np.clip(x + rng.randn(128, 128, 3).astype(np.float32) * 0.05, 0, 1)
+    a = lpips.lpips_distance(lpips.LpipsNet(params, "cpu"), x, y)
+    b = lpips.lpips_distance(lpips.LpipsNet(params, f32_card), x, y)
+    assert a > 0 and abs(a - b) <= 1e-4 * a
+
+
+@pytest.fixture
+def default_card():
+    """The card under torch's default precision settings (cuDNN may use
+    TF32; matmuls in float32), the process's settings restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = saved[0]
+    torch.set_float32_matmul_precision(saved[1])
+
+
+@pytest.mark.cuda
+def test_stage2_and_lpips_entry_points_set_float32_themselves(default_card, rng):
+    """Stage II's infer and train step and LPIPS's distance run in full
+    float32 whatever the process allows: under torch's defaults the card
+    holds the CPU within the float32 gates (the refined frame 1e-4
+    absolute, as the generator test; the step's loss 1e-5 relative;
+    LPIPS 1e-4 relative), and TF32 is allowed again after each call."""
+    from sahs_tpu_torch import lpips
+    from sahs_tpu_torch.train import stage2
+    s = stage2.Stage2Settings(lr_G=2e-4, beta1=0.0, beta2=0.999, epochs=1,
+                              epochs_decay=1, steps_per_epoch=1, audio=True)
+    src, raw, tgt = (rng.rand(1, 128, 128, 3).astype(np.float32) for _ in range(3))
+    aud = rng.randn(16, 29).astype(np.float32)
+    infer, step = stage2.make_infer(s), stage2.make_train_step(s)
+    outs, losses = [], []
+    for d in ("cpu", default_card):
+        t = lambda a: torch.as_tensor(a, device=d)
+        state = stage2.init_stage2_state(s, seed=1, device=d)
+        outs.append(infer(state.generator, t(src), t(raw), t(aud)).cpu())
+        assert torch.backends.cudnn.allow_tf32
+        losses.append(float(step(state, t(src), t(raw), t(tgt), t(aud))[1]["loss"]))
+        assert torch.backends.cudnn.allow_tf32
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    params = lpips.random_params(0)
+    x = rng.rand(128, 128, 3).astype(np.float32)
+    y = np.clip(x + rng.randn(128, 128, 3).astype(np.float32) * 0.05, 0, 1)
+    a = lpips.lpips_distance(lpips.LpipsNet(params, "cpu"), x, y)
+    b = lpips.lpips_distance(lpips.LpipsNet(params, default_card), x, y)
+    assert torch.backends.cudnn.allow_tf32
+    assert a > 0 and abs(a - b) <= 1e-4 * a
