@@ -238,7 +238,35 @@ Phases, in order (any failure exits non-zero and prints no result):
      finite metrics.txt, all under torch's default precision settings
      (cuDNN's TF32 allowed: the entry points set float32); it prints the
      eval CLI's s a frame and the render's device ms, the generator's ms
-     per inference and per train step, and SSIM's and LPIPS's ms a frame.
+     per inference and per train step, and SSIM's and LPIPS's ms a frame;
+ 18. data parallelism over rays (sahs_tpu_torch/parallel/mesh.py, the ray
+     group of train/stage1.train_step, data/sharded.py, the trainer's
+     multi-process branch, the eval renderer's ray group): (1) world size
+     1 over NCCL, the flagship fused step (2048 rays, 64 + 64, bf16)
+     through make_sharded_train_step for SHARD_STEPS steps against
+     make_train_step on the same state and draws, bit for bit, launch
+     counters zeroed just before and checked just after (K1 = K2 = K15 =
+     2, K3 = K4 = 1 a step), then both timed in turns and the bucket's
+     all-reduce alone; (2) two ranks on the one card over gloo (NCCL
+     refuses two ranks on one card), 1024 rays each, float32 and bf16, on
+     the fused step and on fallback path 1: rank 0 holds each step against
+     the single step on the card (SHARD_GATES: the first step's summed
+     gradient and parameters, the later steps' parameters, every weight
+     and bias against its own norm; the loss and sample_prob), both ranks'
+     states equal bit for bit, three planted faults (one rank's gradient
+     left unreduced, rank 0's block one ray on, the normalisers of the
+     block's own rays) missing the gates, and the bucket's all-reduce, a
+     frame's broadcast and a sharded step timed over gloo; (3) the CLI on
+     2 ranks (K = 4) to iteration 8 on synthetic frames, a checkpoint,
+     a resume to 12: both ranks' states equal bit for bit after each, the
+     checkpoint restoring to them, and a resume in the single-process CLI;
+     (4) the 512x512 frame on 2 ranks against the single frame
+     (SHARD_FRAME_GATE, bit-equality printed), and both timed; (5) NCCL
+     over min(4, cards) cards where the machine has more than one. Each
+     rank is a process (parallel/mesh.spawn_ranks, a timeout on every
+     collective and the join); the kernels line adds every rank's launches.
+     ``--only-phase 18`` runs the build and this phase alone (no kernels
+     line, no result line).
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -3177,6 +3205,536 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: data parallelism over rays
+# ---------------------------------------------------------------------------
+
+# the kernels of phase 18's paths, by their entry of the kernels line
+SHARD_KERNELS = {"K1": "sahs_tpu/ops/pallas/field_mlp.py:868",
+                 "K2": "sahs_tpu/ops/pallas/level_train.py:55",
+                 "K3": "sahs_tpu/ops/pallas/field_mlp.py:1098",
+                 "K4": "sahs_tpu/ops/pallas/grid_bwd.py:211",
+                 "K5": "sahs_tpu/ops/pallas/field_mlp.py:2681",
+                 "K6": "sahs_tpu/ops/pallas/field_mlp.py:2951",
+                 "K9": "sahs_tpu/ops/pallas/grid_bwd.py:103",
+                 "K15": "sahs_tpu/ops/pallas/field_mlp.py:814"}
+SHARD_STEPS = 3
+# two ranks' steps against the single step on the same card, each leaf
+# (every weight and every bias) against its own norm: the first step's
+# summed gradient ("grad") and parameters ("param0"), from the same state;
+# the parameters after each later step ("param": Adam divides each entry
+# by its own size, so the sums' order moves the next steps' states apart,
+# and their gradients are taken at other parameters: not gated); every
+# step's loss and sample_prob (L2, relative). 4x the largest reading,
+# rounded up (NVIDIA H100 80GB HBM3, 700.00 W; float32 /
+# bf16: grad 4.3e-7 / 4.6e-7, param0 2.5e-8 / 2.4e-8, param 1.1e-4 /
+# 4.7e-4, loss 9.0e-8 / 1.6e-6, prob 3.3e-7 / 1.4e-5); the planted faults
+# read grad 2.4e-2 and more (shifted block), 1.0 (own normalisers), and
+# one rank's gradient left unreduced parts the ranks' states.
+SHARD_GATES = {"float32": {"grad": 2e-6, "param0": 1e-7, "param": 5e-4, "loss": 4e-7,
+                           "prob": 2e-6},
+               "bfloat16": {"grad": 2e-6, "param0": 1e-7, "param": 2e-3, "loss": 7e-6,
+                            "prob": 6e-5}}
+# the 2-rank eval frame against the single frame, max abs over each output:
+# bit for bit (every op of a ray is per ray or per point, and K1 and K5
+# take a ray's points alike in any block; read bit for bit on an NVIDIA
+# H100 80GB HBM3, 700.00 W)
+SHARD_FRAME_GATE = 0.0
+
+
+def _state_digest(st) -> str:
+    """sha256 of a TrainState's parameters, Adam state, step and
+    sample_prob, in a fixed order: equal digests, equal states bit for bit."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    params = [p for g in st.optimizer.param_groups for p in g["params"]]
+    for p in params:
+        h.update(p.detach().cpu().numpy().tobytes())
+        s = st.optimizer.state.get(p, {})
+        for k in sorted(s):
+            h.update(k.encode())
+            h.update(torch.as_tensor(s[k]).detach().cpu().numpy().tobytes())
+    h.update(st.sample_prob.detach().cpu().numpy().tobytes())
+    h.update(str(st.step).encode())
+    return h.hexdigest()
+
+
+def _named_leaves(st, grad=False) -> dict:
+    """Every trained tensor of a TrainState (or its gradient), by name, cloned."""
+    import torch
+    named = ([(n, p) for n, p in st.model.named_parameters()]
+             + [(n, getattr(st, n)) for n in ("background", "latent_codes")
+                if getattr(st, n) is not None])
+    out = {}
+    for n, p in named:
+        t = p.grad if grad else p
+        out[n] = (torch.zeros_like(p) if t is None else t).detach().clone()
+    return out
+
+
+def _leaf_rel(a: dict, b: dict) -> tuple:
+    """(worst leaf's name, its L2 distance over its own norm) over leaves."""
+    worst = ("", 0.0)
+    for n in b:
+        x, y = a[n].double(), b[n].double()
+        r = float((x - y).norm() / max(float(y.norm()), 1e-30))
+        if r > worst[1]:
+            worst = (n, r)
+    return worst
+
+
+def _dist_util():
+    """tests/torch_dist_util.py (it imports no JAX): the step runner and the
+    planted faults that phase 18 shares with the sharding tests."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_dist_util
+    return torch_dist_util
+
+
+def _shard_setup(dev, rays, size, compute_dtype, fused):
+    import torch
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.models.nerface import ModelSpec
+    from sahs_tpu_torch.train import stage1
+    cfg = Config()
+    cfg.nerf.train.num_random_rays = rays
+    cfg.runtime.compute_dtype = compute_dtype
+    cfg.runtime.fused_grads = fused
+    spec, ts = ModelSpec.from_config(cfg), stage1.TrainSettings.from_config(cfg)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=size, W=size,
+                              near=cfg.dataset.near, far=cfg.dataset.far)
+    bg = ds.background()
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds[0].items() if k != "fname"}
+    batch["background"] = torch.as_tensor(bg).to(dev)
+    return cfg, spec, ts, bg, batch
+
+
+def _run_shard_steps(dev, cfg, bg, batch, group, steps, ref=None, record=False):
+    """``steps`` steps from the seeded state (sharded over ``group``, or
+    single with None), the generator seeded 5 (``torch_dist_util.run_steps``).
+    ``record``: the readings are each step's leaves (a reference); else,
+    with ``ref`` (the single steps' leaves), each step's worst leaves
+    against it, and without, none. Returns (per-step readings, per-step
+    digests, the final state, launches)."""
+    import torch
+    held = kernel_counters()
+    for f in held.values():
+        f.launches = 0
+    out, digests, last = [], [], []
+
+    def observe(st, m):
+        last[:] = [st]
+        leaves = {"grad": _named_leaves(st, grad=True), "param": _named_leaves(st),
+                  "loss": float(m["loss"]), "prob": st.sample_prob.detach().clone()}
+        if record:
+            out.append(leaves)
+        elif ref is not None:
+            r = ref[len(digests)]
+            g, p = _leaf_rel(leaves["grad"], r["grad"]), _leaf_rel(leaves["param"], r["param"])
+            out.append({"grad": g[1], "grad_leaf": g[0], "param": p[1], "param_leaf": p[0],
+                        "loss": abs(leaves["loss"] - r["loss"]) / abs(r["loss"]),
+                        "prob": float((leaves["prob"] - r["prob"]).norm()
+                                      / r["prob"].norm())})
+        digests.append(_state_digest(st))
+
+    _dist_util().run_steps(group, cfg, [batch] * steps, dev, seed=5, background=bg,
+                           observe=observe)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {k: f.launches for k, f in held.items() if f.launches}
+    return out, digests, last[0], launches
+
+
+def _shard_missed(readings, gates) -> list:
+    """The gates (SHARD_GATES) a run's per-step readings miss."""
+    missed = []
+    for k, r in enumerate(readings):
+        held = ({"grad": r["grad"], "param0": r["param"]} if k == 0
+                else {"param": r["param"]})
+        held.update(loss=r["loss"], prob=r["prob"])
+        missed += [f"step {k} {g} {v:.3e} > {gates[g]:.0e}"
+                   for g, v in held.items() if not v <= gates[g]]
+    return missed
+
+
+def phase18_two_ranks(group, rays, size, steps, dev_type="cuda"):
+    """Rank function of phase 18 (2): two ranks on one card over gloo. For
+    float32 and bf16, on the fused step and on fallback path 1: rank 0 runs
+    the single step (all rays) and both ranks the sharded step (half the
+    rays each), ``steps`` steps from the same seeded state and draws; rank
+    0 reads each step's worst leaves against the single step's; each rank
+    returns its states' digests. Then the planted faults (one sharded
+    step each, fused bf16) and the collectives' times."""
+    import torch
+    from sahs_tpu_torch.data.sharded import HostShardedFrames, assemble_sharded_batches
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.rank_device(dev_type)
+    out = {"cases": {}, "faults": {}}
+    for compute_dtype in ("float32", "bfloat16"):
+        for path in ("fused", "fallback 1"):
+            cfg, _, _, bg, batch = _shard_setup(dev, rays, size, compute_dtype,
+                                                path == "fused")
+            ref = None
+            if group.rank == 0:
+                ref = _run_shard_steps(dev, cfg, bg, batch, None, steps,
+                                       record=True)[0]
+            readings, digests, _, launches = _run_shard_steps(
+                dev, cfg, bg, batch, group, steps, ref)
+            out["cases"][f"{path} {compute_dtype}"] = {
+                "readings": readings, "digests": digests, "launches": launches}
+            if compute_dtype == "bfloat16" and path == "fused":
+                du = _dist_util()
+                for fault in du.FAULTS:
+                    undo = du.plant_fault(fault, group)
+                    try:
+                        out["faults"][fault] = _run_shard_steps(
+                            dev, cfg, bg, batch, group, 1, ref)[:2]
+                    finally:
+                        undo()
+            del ref
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    # the step's collective over gloo (the flat bucket of every gradient and
+    # the metrics) and the broadcast of one frame, ms each
+    cfg, spec, ts, bg, batch = _shard_setup(dev, rays, size, "bfloat16", True)
+    _, _, st, _ = _run_shard_steps(dev, cfg, bg, batch, group, 1, None)
+    n = sum(p.numel() for g in st.optimizer.param_groups for p in g["params"]) + 19
+    flat = torch.zeros(n, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn, reps):
+        fn()
+        group.all_reduce_(torch.zeros(1, device=dev))
+        sync()
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.time() - t0) * 1e3 / reps
+
+    # a frame for every rank to own (HostShardedFrames refuses a rank none)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=max(2, group.world), H=size, W=size)
+    frames = HostShardedFrames(ds, group.rank, group.world)
+    out["allreduce_ms"] = timed(lambda: group.all_reduce_(flat), 10)
+    out["bucket_floats"] = n
+    out["frame_broadcast_ms"] = timed(
+        lambda: assemble_sharded_batches(frames, [0, 1], bg, group, device=dev), 3) / 2
+    step = mesh.make_sharded_train_step(spec, ts, group, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out["step_ms"] = timed(lambda: step(st, batch, generator=gen), 3)
+    return out
+
+
+def phase18_trainer_rank(group, runs, dev_type="cuda"):
+    """Rank function of phase 18 (3): ``cli.train_stage1.main`` for each
+    argument list, in this rank's group; each run's final state's digest,
+    its step and this rank's launches."""
+    import torch
+    from sahs_tpu_torch.cli import train_stage1 as cli
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    held = kernel_counters()
+    for f in held.values():
+        f.launches = 0
+    out = []
+    for args in runs:
+        t0 = time.time()
+        st = cli.main(args)
+        if dev_type == "cuda":
+            torch.cuda.synchronize()
+        out.append({"digest": _state_digest(st), "step": st.step,
+                    "s": time.time() - t0})
+    return {"runs": out, "launches": {k: f.launches for k, f in held.items() if f.launches}}
+
+
+def phase18_eval_rank(group, size, dev_type="cuda"):
+    """Rank function of phase 18 (4): the flagship 512x512 frame through
+    ``make_eval_renderer`` with the ray group; rank 0 also renders the
+    single frame and reads each output's distance from it."""
+    import torch
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.evaluation import make_eval_renderer
+    from sahs_tpu_torch.models.nerface import ModelSpec, NeRFaceModel
+    from sahs_tpu_torch.parallel import mesh
+    from sahs_tpu_torch.render.pipeline import RenderSettings
+    dev = mesh.rank_device(dev_type)
+    cfg = Config()
+    if dev.type == "cpu":
+        cfg.runtime.compute_dtype = "float32"
+    spec = ModelSpec.from_config(cfg)
+    model = NeRFaceModel.init(spec, seed=0, device=dev)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=size, W=size,
+                              near=cfg.dataset.near, far=cfg.dataset.far)
+    it, bg = ds[0], ds.background()
+    settings = RenderSettings.from_config(cfg, "validation")
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+
+    def frame(rg):
+        r = make_eval_renderer(spec, settings, size, size, near, far, device=dev,
+                               ray_group=rg)
+        with torch.no_grad():
+            return r(model, it["intrinsics"], it["pose"], it["driving"], bg,
+                     torch.Generator(device=dev).manual_seed(3))
+
+    def timed(rg):
+        if rg is not None:
+            group.all_reduce_(torch.zeros(1, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.time()
+        o = frame(rg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return o, (time.time() - t0) * 1e3
+
+    held = kernel_counters()
+    for f in held.values():
+        f.launches = 0
+    sharded, first_ms = timed(group)
+    launches = {k: f.launches for k, f in held.items() if f.launches}
+    sharded, ms = timed(group)
+    res = {"launches": launches, "sharded_first_ms": first_ms, "sharded_ms": ms}
+    if group.rank == 0:
+        frame(None)
+        single, res["single_ms"] = timed(None)
+        res["errs"] = {k: float((sharded[k].double() - v.double()).abs().max())
+                       for k, v in single.items() if v is not None}
+        res["bit_equal"] = all(torch.equal(sharded[k], v)
+                               for k, v in single.items() if v is not None)
+    return res
+
+
+def phase18_sharding(dev, report, kernels, rays: int = 2048, size: int = 512,
+                     steps: int = SHARD_STEPS) -> str:
+    """Phase 18. Data parallelism over rays (parallel/mesh.py, the ray group
+    of train/stage1.train_step, data/sharded.py, the CLI's multi-process
+    branch, the eval renderer's ray group). Returns a failure message, or
+    ""."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import yaml
+
+    from sahs_tpu_torch.cli import train_stage1 as cli
+    from sahs_tpu_torch.config import load_config
+    from sahs_tpu_torch.models.nerface import ModelSpec
+    from sahs_tpu_torch.parallel import mesh
+    from sahs_tpu_torch.train import stage1
+    from sahs_tpu_torch.utils import checkpoint as ck
+
+    out = os.path.join(REPO, "build", "phase18")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    res = {}
+    launches_all = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+
+    # (1) world size 1 over NCCL: the flagship fused step through the sharded
+    # step against make_train_step, bit for bit, then both timed in turns
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg, spec, ts, bg, batch = _shard_setup(dev, rays, size, "bfloat16", True)
+    single, single_digests, st_a, _ = _run_shard_steps(dev, cfg, bg, batch, None, steps)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method="file://" + os.path.join(out, "nccl1"),
+                            world_size=1, rank=0)
+    try:
+        group = mesh.make_ray_group()
+        _, digests, st_b, launches = _run_shard_steps(dev, cfg, bg, batch, group, steps)
+        want = {"K1": 2 * steps, "K2": 2 * steps, "K3": steps, "K4": steps, "K15": 2 * steps}
+        if cuda and launches != want:
+            return f"the sharded step's launches {launches}, expected {want}"
+        add(launches)
+        diff = _states_equal(st_b, st_a)
+        if digests != single_digests or diff:
+            return f"world size 1 over NCCL differs from the single step: {diff[:8]}"
+        print(f"phase 18 (1): world size 1 over NCCL, {steps} flagship fused steps "
+              f"(bf16): bit for bit the single step's; launches {launches}", flush=True)
+        step_s = stage1.make_train_step(spec, ts, device=dev)
+        step_g = mesh.make_sharded_train_step(spec, ts, group, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        readings = {"sharded": [], "single": []}
+        for kind in ("sharded", "single", "single", "sharded"):
+            fn = step_g if kind == "sharded" else step_s
+            st = st_b if kind == "sharded" else st_a
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+            t0 = time.time()
+            if cuda:
+                ev[0].record()
+            for _ in range(10):
+                st, _ = fn(st, batch, generator=gen)
+            if cuda:
+                ev[1].record()
+            sync()
+            host = (time.time() - t0) * 1e3 / 10
+            readings[kind].append({"device_ms": ev[0].elapsed_time(ev[1]) / 10 if cuda
+                                   else host, "host_ms": host})
+        n = sum(p.numel() for g in st_b.optimizer.param_groups for p in g["params"]) + 19
+        flat = torch.zeros(n, device=dev)
+        if cuda:
+            ar_ms = cuda_time(lambda: group.all_reduce_(flat), 50)
+        else:
+            t0 = time.time()
+            for _ in range(50):
+                group.all_reduce_(flat)
+            ar_ms = (time.time() - t0) * 1e3 / 50
+        res["world1_nccl"] = {"ms_per_step": readings, "allreduce_ms": ar_ms,
+                              "bucket_floats": n}
+        print("phase 18 (1): ms a step in turns (sharded / single / single / sharded): "
+              + json.dumps(readings) + f"; the bucket's all-reduce over NCCL ({n} floats) "
+              f"{ar_ms:.4f} ms", flush=True)
+    finally:
+        dist.destroy_process_group()
+    del st_a, st_b, single
+    torch.cuda.empty_cache()
+
+    # (2) two ranks on the one card over gloo
+    two = mesh.spawn_ranks(phase18_two_ranks, 2, (rays, size, steps, dev.type),
+                           backend="gloo", device=dev.type, timeout_s=900,
+                           workdir=os.path.join(out, "two"))
+    r0 = two[0]
+    missed = []
+    for name, case in r0["cases"].items():
+        gates = SHARD_GATES["float32" if "float32" in name else "bfloat16"]
+        if case["digests"] != two[1]["cases"][name]["digests"]:
+            missed.append(f"{name}: the ranks' states differ")
+        missed += [f"{name}: {m}" for m in _shard_missed(case["readings"], gates)]
+        add(case["launches"])
+        add(two[1]["cases"][name]["launches"])
+        print(f"phase 18 (2): 2 ranks x {rays // 2} rays, {name}: per step worst leaf "
+              + "; ".join(f"grad {r['grad']:.3e} ({r['grad_leaf']}), param {r['param']:.3e} "
+                          f"({r['param_leaf']}), loss {r['loss']:.2e}, prob {r['prob']:.2e}"
+                          for r in case["readings"])
+              + f"; launches rank 0 {case['launches']}", flush=True)
+    for fault, (readings, digests) in r0["faults"].items():
+        caught = _shard_missed(readings, SHARD_GATES["bfloat16"])
+        if digests != two[1]["faults"][fault][1]:
+            caught.append("the ranks' states differ")
+        print(f"phase 18 (2): planted fault {fault}: grad {readings[0]['grad']:.3e}, "
+              f"param {readings[0]['param']:.3e}, loss {readings[0]['loss']:.2e}: "
+              f"{'caught: ' + '; '.join(caught) if caught else 'MISSED'}", flush=True)
+        if not caught:
+            missed.append(f"the planted fault {fault} passes the gates")
+    print(f"phase 18 (2): over gloo on one card: the bucket's all-reduce "
+          f"({r0['bucket_floats']} floats) {r0['allreduce_ms']:.3f} ms, a {size}x{size} "
+          f"frame's broadcast {r0['frame_broadcast_ms']:.3f} ms, a sharded step "
+          f"{r0['step_ms']:.2f} ms (host clock)", flush=True)
+    res["two_ranks"] = {k: v for k, v in r0.items()}
+    if missed:
+        return f"phase 18 (2) gates: {missed[:8]}"
+
+    # (3) the trainer's multi-process branch: 2 ranks, K = 4, to iteration 8
+    # on synthetic frames, a checkpoint, a resume to 12
+    logdir = os.path.join(out, "log")
+    cfg_path = os.path.join(out, "cfg.yml")
+    with open(cfg_path, "w") as fp:
+        yaml.safe_dump({"experiment": {"id": "smoke", "logdir": logdir, "randomseed": 0,
+                                       "print_every": 4, "validate_every": 8,
+                                       "save_every": 1000000},
+                        "nerf": {"train": {"num_random_rays": rays}},
+                        "runtime": {"validate_frames": 1,
+                                    "compute_dtype": "bfloat16" if cuda else "float32"}},
+                       fp)
+    args = ["--config", cfg_path, "--synthetic", "--synthetic-size", str(size),
+            "--steps-per-launch", "4", "--device", str(dev.type)]
+    ckpt8 = os.path.join(logdir, "smoke", "checkpoint0000008.ckpt")
+    runs = [args + ["--max-iters", "8"], args + ["--max-iters", "12", "--load-checkpoint", ckpt8]]
+    tr = mesh.spawn_ranks(phase18_trainer_rank, 2, (runs, dev.type), backend="gloo",
+                          device=dev.type, timeout_s=900,
+                          workdir=os.path.join(out, "trainer"))
+    for r in tr:
+        add(r["launches"])
+    if [x["digest"] for x in tr[0]["runs"]] != [x["digest"] for x in tr[1]["runs"]]:
+        return "the trainer's ranks differ"
+    if [x["step"] for x in tr[0]["runs"]] != [8, 12] or not os.path.exists(
+            os.path.join(logdir, "smoke", "checkpoint0000012.ckpt")):
+        return f"the trainer's ranks ended at {[x['step'] for x in tr[0]['runs']]}"
+    cfg = load_config(cfg_path)
+    spec1, ts1 = ModelSpec.from_config(cfg), stage1.TrainSettings.from_config(cfg)
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    ds = SyntheticFaceDataset(kind="audio", num_frames=8, H=size, W=size,
+                              near=cfg.dataset.near, far=cfg.dataset.far)
+    fresh = stage1.init_train_state(spec1, ts1, seed=1, background=ds.background(), device=dev)
+    restored, _ = ck.restore_train_state(ckpt8, fresh)
+    if _state_digest(restored) != tr[0]["runs"][0]["digest"]:
+        return "the 2-rank checkpoint restores to another state"
+    resumed = cli.main(args + ["--max-iters", "9", "--load-checkpoint", ckpt8])
+    sync()
+    if resumed.step != 9:
+        return f"the single-process resume ended at {resumed.step}"
+    res["trainer"] = {"runs": tr[0]["runs"], "launches": [r["launches"] for r in tr]}
+    print(f"phase 18 (3): the CLI on 2 ranks, K = 4, to 8 in {tr[0]['runs'][0]['s']:.1f} s "
+          f"and resumed to 12 in {tr[0]['runs'][1]['s']:.1f} s: the ranks equal bit for "
+          f"bit after each; the checkpoint at 8 restores to rank 0's state and resumes "
+          f"in the single-process CLI; launches {tr[0]['launches']} / {tr[1]['launches']}",
+          flush=True)
+    del fresh, restored, resumed
+    torch.cuda.empty_cache()
+
+    # (4) the ray-sharded eval frame against the single frame
+    ev = mesh.spawn_ranks(phase18_eval_rank, 2, (size, dev.type), backend="gloo",
+                          device=dev.type, timeout_s=900, workdir=os.path.join(out, "eval"))
+    for r in ev:
+        add(r["launches"])
+    e0 = ev[0]
+    worst = max(e0["errs"].values())
+    res["eval"] = e0
+    print(f"phase 18 (4): the {size}x{size} frame on 2 ranks against the single frame: "
+          f"{'bit for bit' if e0['bit_equal'] else 'max abs ' + json.dumps(e0['errs'])}; "
+          f"the sharded frame {e0['sharded_ms']:.1f} ms (its first {e0['sharded_first_ms']:.1f}), "
+          f"the single frame {e0['single_ms']:.1f} ms (host clock, both ranks on one "
+          f"card); launches {e0['launches']} / {ev[1]['launches']}",
+          flush=True)
+    if not worst <= SHARD_FRAME_GATE:
+        return f"the sharded frame is {worst:.3e} from the single frame"
+
+    # (5) NCCL across cards, where the machine has more than one: over 2 or 4
+    # of them, a world size that divides the step's rays
+    n_cards = min(4, torch.cuda.device_count()) if cuda else 0
+    n_cards = 1 << (n_cards.bit_length() - 1) if n_cards else 0
+    if n_cards > 1:
+        m = mesh.spawn_ranks(phase18_two_ranks, n_cards, (rays, size, 1), device="cuda",
+                             timeout_s=900, workdir=os.path.join(out, "nccl"))
+        for name, case in m[0]["cases"].items():
+            gates = SHARD_GATES["float32" if "float32" in name else "bfloat16"]
+            if any(r["cases"][name]["digests"] != case["digests"] for r in m[1:]):
+                return f"NCCL over {n_cards} cards: {name}: the ranks differ"
+            if _shard_missed(case["readings"], gates):
+                return f"NCCL over {n_cards} cards: {name}: gates missed"
+        print(f"phase 18 (5): NCCL over {n_cards} cards held", flush=True)
+    else:
+        print("phase 18 (5): one card: NCCL across cards not run", flush=True)
+    report["sharding"] = res
+    for kk in kernels:
+        key = next((k for k, r in SHARD_KERNELS.items() if r == kk["replaces"]), None)
+        if key and launches_all.get(key):
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["ray sharding (phase 18)"] = launches_all[key]
+            kk["launches"] += launches_all[key]
+    report["sharding_launches"] = launches_all
+    return ""
+
+
 def main(argv) -> int:
     report_path = argv[argv.index("--report") + 1] if "--report" in argv else None
     try:
@@ -3217,6 +3775,13 @@ def main(argv) -> int:
         for line in _build.build_log(name).splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    if "--only-phase" in argv and argv[argv.index("--only-phase") + 1] == "18":
+        # the sharding phase alone, after the build (no kernels line)
+        msg = phase18_sharding(dev, report, [])
+        if msg:
+            return fail(msg)
+        print(f"phase 18 alone: {time.time() - T_START:.0f} s", flush=True)
+        return 0
 
     cfg = Config()
     near, far = float(cfg.dataset.near), float(cfg.dataset.far)
@@ -4295,6 +4860,12 @@ def main(argv) -> int:
         msg = phase17_pipeline(dev, report, kernels)
     finally:
         torch.backends.cudnn.allow_tf32 = False
+    if msg:
+        return fail(msg)
+    torch.cuda.empty_cache()
+
+    # 18. data parallelism over rays ----------------------------------------
+    msg = phase18_sharding(dev, report, kernels)
     if msg:
         return fail(msg)
     if len(kernels) != 21:

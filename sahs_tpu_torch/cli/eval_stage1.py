@@ -11,6 +11,15 @@ through ``evaluation.evaluate_dataset``. Takes the native checkpoints of
 either package (the npz schema of ``utils/checkpoint.py``) and reference
 torch checkpoints. Runs on ``cuda`` unless ``--device`` names another
 device.
+
+Across several cards, one process each (the JAX package's eval mesh,
+evaluation.py:232-242):
+
+    torchrun --nproc_per_node=N -m sahs_tpu_torch.cli.eval_stage1 ...
+
+every rank renders its block of each frame's rays (``evaluate_dataset``
+takes the run's group) and only rank 0 writes files. NCCL on CUDA, gloo
+with ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 from ..config import load_config
 from ..evaluation import evaluate_dataset
 from ..models.nerface import ModelSpec, NeRFaceModel
+from ..parallel import mesh
 from ..utils import checkpoint as ckpt_lib
 from ..utils.device import resolve_device
 from ..utils.weights import params_from_jax
@@ -68,9 +78,14 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if resolve_device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to evaluate on the CPU")
+    with mesh.run_group(args.device) as group:
+        return _evaluate(args, group)
+
+
+def _evaluate(args, group: mesh.RayGroup):
+    dev = mesh.rank_device(args.device)
     cfg = load_config(args.config)
     spec = ModelSpec.from_config(cfg)
     tree, extras = load_any_checkpoint(args.checkpoint, spec)
@@ -90,7 +105,8 @@ def main(argv=None):
         if os.path.exists(map_path):
             index_map = np.load(map_path)
 
-    os.makedirs(args.savedir, exist_ok=True)
+    if group.rank == 0:
+        os.makedirs(args.savedir, exist_ok=True)
     return evaluate_dataset(cfg, spec, model, val_data, args.savedir,
                             background=background,
                             save_disparity=args.save_disparity_image,

@@ -17,7 +17,24 @@ stay on the device and are read only at ``print_every``. Checkpoints are
 the native npz schema of ``utils/checkpoint.py``, shared with the JAX
 package. ``--synthetic`` trains on the procedural fixture
 (``SyntheticFaceDataset``: 8 frames of ``--synthetic-size`` pixels a side,
-64 by default, as the JAX package). There is no multi-host branch.
+64 by default, as the JAX package).
+
+Across several cards, one process each (the JAX package's multi-host
+branch, cli/train_stage1.py:123-172):
+
+    torchrun --nproc_per_node=N -m sahs_tpu_torch.cli.train_stage1 \
+        --config cfg.yml --steps-per-launch K
+
+Every rank runs the sharded step (``parallel/mesh.py``: each renders its
+block of every step's rays; one all-reduce a step); K is rounded to a
+multiple of the world size; each launch's frames follow
+``data/sharded.blocked_frame_schedule`` seeded ``randomseed + i``, each
+rank decoding only the frames it owns and broadcasting them
+(``assemble_sharded_batches``); only rank 0 prints, logs, validates and
+writes checkpoints; a resume restores the checkpoint on every rank. NCCL
+on CUDA, gloo with ``--device cpu``. A rank that fails raises, so its
+process exits nonzero, and its peers' next collective fails within
+``parallel/mesh.DEFAULT_TIMEOUT_S`` seconds.
 """
 from __future__ import annotations
 
@@ -33,6 +50,7 @@ from ..data.audio import AudioDataset
 from ..data.nerface import NerfaceDataset
 from ..data.synthetic import SyntheticFaceDataset
 from ..models.nerface import ModelSpec
+from ..parallel import mesh
 from ..train.stage1 import (TrainSettings, init_train_state,
                             make_multi_train_step, make_train_step,
                             stack_batches)
@@ -77,9 +95,17 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if resolve_device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to train on the CPU")
+    with mesh.run_group(args.device) as group:
+        return _train(args, group)
+
+
+def _train(args, group: mesh.RayGroup):
+    pc, pi = group.world, group.rank
+    lead = pi == 0
+    say = print if lead else (lambda *a, **k: None)
+    dev = mesh.rank_device(args.device)
     cfg = load_config(args.config)
     spec = ModelSpec.from_config(cfg)
     ts = TrainSettings.from_config(cfg)
@@ -89,8 +115,12 @@ def main(argv=None):
 
     train_data = build_dataset(cfg, "train", args.synthetic, args.synthetic_size)
     val_data = build_dataset(cfg, "val", args.synthetic, args.synthetic_size)
-    print(f"dataset: {len(train_data)} train / {len(val_data)} val frames, "
-          f"{train_data.H}x{train_data.W}")
+    say(f"dataset: {len(train_data)} train / {len(val_data)} val frames, "
+        f"{train_data.H}x{train_data.W}")
+    sharded_frames = None
+    if pc > 1:
+        from ..data.sharded import HostShardedFrames
+        sharded_frames = HostShardedFrames(train_data, pi, pc)
 
     background = None
     if ts.train_background and not ts.fixed_background:
@@ -98,9 +128,13 @@ def main(argv=None):
         # blurred (reference train_stage_rays_auto.py:143-157)
         from ..data.common import average_background
         acc = None
-        for j in range(len(train_data)):
-            img = np.asarray(train_data[j]["image"], np.float32)
+        # across ranks each sums the frames it owns and the sums are summed
+        for j in (sorted(sharded_frames.owned) if sharded_frames else range(len(train_data))):
+            item = sharded_frames.get(j) if sharded_frames else train_data[j]
+            img = np.asarray(item["image"], np.float32)
             acc = img.copy() if acc is None else acc + img
+        if sharded_frames:
+            acc = group.all_reduce_(torch.from_numpy(acc).to(dev)).cpu().numpy()
         background = torch.from_numpy(average_background(
             acc[None] / len(train_data), blur=cfg.runtime.blur_background)).to(dev)
     elif ts.fixed_background or ts.train_background:
@@ -109,7 +143,8 @@ def main(argv=None):
 
     state = init_train_state(spec, ts, seed=seed, background=background, device=dev,
                              num_latent_frames=len(train_data))
-    pose_c = torch.as_tensor(train_data[0]["pose"]).to(dev)   # canonical pose: frame 0
+    # canonical pose: frame 0 (rank 0's, which alone writes checkpoints)
+    pose_c = torch.as_tensor(train_data[0]["pose"]).to(dev) if lead else None
 
     if args.import_torch_checkpoint:
         imported = ckpt_lib.import_torch_checkpoint(args.import_torch_checkpoint, spec)
@@ -124,16 +159,27 @@ def main(argv=None):
             background = extras["background"].to(dev, torch.float32)
         if extras.get("pose_c") is not None:
             pose_c = extras["pose_c"].to(dev)
-        print(f"resumed from {args.load_checkpoint} at iter {state.step}")
+        say(f"resumed from {args.load_checkpoint} at iter {state.step}")
+    ray_group = None              # one process: the single step
+    if pc > 1:
+        # every rank holds rank 0's state, whatever its own start was
+        mesh.replicate(group, state)
+        ray_group = group
 
     logdir = os.path.join(cfg.experiment.logdir, cfg.experiment.id)
-    logger = MetricLogger(logdir)
-    with open(os.path.join(logdir, "config.yml"), "w") as fp:
-        fp.write(cfg.dump())
+    logger = None
+    if lead:
+        logger = MetricLogger(logdir)
+        with open(os.path.join(logdir, "config.yml"), "w") as fp:
+            fp.write(cfg.dump())
 
     K = max(1, args.steps_per_launch)
-    multi_fn = make_multi_train_step(spec, ts, device=dev) if K > 1 else None
-    step_fn = make_train_step(spec, ts, device=dev)
+    if pc > 1 and K % pc:
+        K = pc * max(1, K // pc)
+        say(f"steps-per-launch rounded to {K} (a multiple of the world size {pc})")
+    multi_fn = (make_multi_train_step(spec, ts, device=dev, ray_group=ray_group)
+                if K > 1 else None)
+    step_fn = make_train_step(spec, ts, device=dev, ray_group=ray_group)
     n_iters = args.max_iters or cfg.experiment.train_iters
 
     def crossed(prev, cur, every):
@@ -145,21 +191,37 @@ def main(argv=None):
     while i < n_iters:
         i_prev = i
         if K > 1 and i + K <= n_iters:
-            frame_ids = np.random.choice(len(train_data), size=K)
-            batches = stack_batches([train_data[j] for j in frame_ids], background,
-                                    device=dev)
+            if sharded_frames is not None:
+                from ..data.sharded import (assemble_sharded_batches,
+                                            blocked_frame_schedule)
+                sched = blocked_frame_schedule(cfg.experiment.randomseed + i,
+                                               len(train_data), K, pc)
+                batches = assemble_sharded_batches(sharded_frames, sched, background,
+                                                   group, device=dev)
+            else:
+                frame_ids = np.random.choice(len(train_data), size=K)
+                batches = stack_batches([train_data[j] for j in frame_ids],
+                                        background, device=dev)
             state, ms = multi_fn(state, batches, generator=gen)
             metrics = {k: v[-1] for k, v in ms.items()}
             rays_done += ts.num_random_rays * K
             i += K
         else:
             img_i = np.random.choice(len(train_data))
-            batch = device_batch(train_data[img_i], background, dev)
+            if sharded_frames is not None:
+                from ..data.sharded import assemble_sharded_batches
+                # rank 0's pick: a library on one rank may draw from numpy's
+                # global generator (tensorboard's import, under the logger)
+                img_i = int(group.broadcast_(torch.tensor([img_i], device=dev))[0])
+                batch = {k: v[0] for k, v in assemble_sharded_batches(
+                    sharded_frames, [img_i], background, group, device=dev).items()}
+            else:
+                batch = device_batch(train_data[img_i], background, dev)
             state, metrics = step_fn(state, batch, generator=gen)
             rays_done += ts.num_random_rays
             i += 1
 
-        if crossed(i_prev, i, cfg.experiment.print_every) or i >= n_iters:
+        if lead and (crossed(i_prev, i, cfg.experiment.print_every) or i >= n_iters):
             m = {k: float(v) for k, v in metrics.items()}   # the only read-back
             dt = time.time() - t_report
             rps = rays_done / max(dt, 1e-9)
@@ -176,17 +238,22 @@ def main(argv=None):
             rays_done = 0
 
         bg_now = state.background if ts.train_background else background
-        if crossed(i_prev, i, cfg.experiment.validate_every) and i > 0:
+        if lead and crossed(i_prev, i, cfg.experiment.validate_every) and i > 0:
             _validate(cfg, spec, state, val_data, bg_now, logger, i, dev)
 
-        if (crossed(i_prev, i, cfg.experiment.save_every) and i > 0) or i >= n_iters:
+        if lead and ((crossed(i_prev, i, cfg.experiment.save_every) and i > 0)
+                     or i >= n_iters):
             path = os.path.join(logdir, f"checkpoint{i:07d}.ckpt")
             ckpt_lib.save_checkpoint(path, state, extras={
                 "background": bg_now, "pose_c": pose_c,
                 "height": train_data.H, "width": train_data.W,
                 "focal_length": train_data.intrinsics})
             print(f"saved {path}")
-    logger.close()
+    if lead:
+        logger.close()
+    if pc > 1:
+        # no rank returns before rank 0's last checkpoint is on disk
+        group.all_reduce_(torch.zeros(1, device=dev))
     return state
 
 

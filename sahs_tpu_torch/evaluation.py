@@ -143,9 +143,13 @@ def error_image(gt, pred) -> np.ndarray:
 def make_eval_renderer(spec: ModelSpec, settings: RenderSettings, H: int,
                        W: int, near: float, far: float,
                        chunksize: Optional[int] = None,
-                       with_latent: bool = False, device=None):
+                       with_latent: bool = False, device=None, ray_group=None):
     """A full-image renderer on ``device`` (CUDA unless the caller names
     another; with no device given and no CUDA present this raises).
+    ``ray_group`` (parallel/mesh.RayGroup; the JAX package's ``mesh=``,
+    evaluation.py:134-173): each rank renders its block of every chunk and
+    every rank gets the whole frame; each rank passes the same inputs and a
+    generator in the same state.
 
     Returns render(model, intrinsics, pose, driving, background, generator
     [, latent_code]) -> dict of (H, W, ...) tensors, as render_image. The
@@ -171,7 +175,8 @@ def make_eval_renderer(spec: ModelSpec, settings: RenderSettings, H: int,
         return render_image(model, settings, H, W, _to(intrinsics), _to(pose),
                             near, far, _to(driving), generator=generator,
                             background=_to(background),
-                            latent_code=_to(latent_code), chunksize=chunksize)
+                            latent_code=_to(latent_code), chunksize=chunksize,
+                            ray_group=ray_group)
 
     return render
 
@@ -204,7 +209,8 @@ def evaluate_dataset(cfg: Config, spec: ModelSpec, model: NeRFaceModel, dataset,
                      limit: int = 1500, seed: int = 0,
                      deterministic: bool = False,
                      latent_codes=None, latent_index_map=None,
-                     frontalize: Optional[bool] = None, device=None):
+                     frontalize: Optional[bool] = None, device=None,
+                     ray_group=None):
     """The reference's eval loop (eval_stage_rays.py:355-556): renders
     every frame of ``dataset`` with ``model`` (already on ``device``:
     CUDA unless the caller names another), saves rgb, the colourised seg
@@ -220,22 +226,35 @@ def evaluate_dataset(cfg: Config, spec: ModelSpec, model: NeRFaceModel, dataset,
     (eval_stage_rays.py:450-452). ``frontalize`` (default
     cfg.runtime.frontalize): every frame from frame 0's pose
     (eval_stage_rays.py:415-416). Random draws come from one torch
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``.
+
+    Across several processes (``ray_group``, by default the run's group
+    when it has more than one rank, as the JAX package takes a mesh when
+    more than one device is visible, evaluation.py:232-242) every rank
+    renders its block of each frame's rays and only rank 0 writes files
+    and prints."""
     dev = resolve_device(device)
+    if ray_group is None:
+        from .parallel.mesh import make_ray_group
+        ray_group = make_ray_group()
+    lead = ray_group.rank == 0
+    if ray_group.world == 1:
+        ray_group = None
     settings = RenderSettings.from_config(cfg, "validation")
     if deterministic:
         settings = dataclasses.replace(settings, perturb=False,
                                        radiance_field_noise_std=0.0)
-    os.makedirs(savedir, exist_ok=True)
-    for sub in ("masks", "normals") + (("disparity",) if save_disparity else ()) \
-            + (("error",) if save_error else ()) + (("mesh",) if save_mesh else ()):
+    subs = ("masks", "normals") + (("disparity",) if save_disparity else ()) \
+        + (("error",) if save_error else ()) + (("mesh",) if save_mesh else ())
+    for sub in subs if lead else ():
         os.makedirs(os.path.join(savedir, sub), exist_ok=True)
 
     H, W = dataset.H, dataset.W
     latent_code = select_eval_latent_code(latent_codes, latent_index_map)
     renderer = make_eval_renderer(spec, settings, H, W, float(cfg.dataset.near),
                                   float(cfg.dataset.far),
-                                  with_latent=latent_code is not None, device=dev)
+                                  with_latent=latent_code is not None, device=dev,
+                                  ray_group=ray_group)
     if frontalize is None:
         frontalize = bool(getattr(cfg.runtime, "frontalize", False))
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -258,6 +277,8 @@ def evaluate_dataset(cfg: Config, spec: ModelSpec, model: NeRFaceModel, dataset,
             # normals' cleanup
             wmap = _host(out["weights"][:, -1]).reshape(H, W)
             times.append(time.time() - t0)
+            if not lead:
+                continue
 
             fname = (f"f_{i:04d}.png" if is_expression
                      else os.path.basename(item.get("fname", f"{i}.jpg")))

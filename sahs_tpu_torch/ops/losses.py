@@ -8,7 +8,10 @@ Parity targets in the reference:
 
 Both masked losses return (unmasked mean, per-class masked vector,
 class-weight-scaled vector); the per-class count has a zero guard
-(count == 0 -> 1).
+(count == 0 -> 1). Given ``norm`` = (rays, counts) of a whole batch, they
+take a block of its rays (a ray group's rank, train/stage1.py) and divide
+by the batch's ray count and class counts, so the blocks' values sum to
+the batch's.
 """
 from __future__ import annotations
 
@@ -23,18 +26,25 @@ def _class_counts(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(counts == 0, torch.ones_like(counts), counts)
 
 
+def _reduce(x: torch.Tensor, mask: torch.Tensor, norm):
+    """(mean of x, per-class mean of x): over ``x``'s rows, or, given norm
+    = (rays, counts), the rows' sums over a whole batch's normalisers."""
+    if norm is None:
+        return torch.mean(x), torch.sum(x * mask, dim=0) / _class_counts(mask)
+    rays, counts = norm
+    return torch.sum(x) / rays, torch.sum(x * mask, dim=0) / counts
+
+
 def mask_mse_loss(mask: torch.Tensor, pred: torch.Tensor, target: torch.Tensor,
-                  weights: Optional[torch.Tensor] = None
+                  weights: Optional[torch.Tensor] = None, norm=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """mask (N, 12) one-hot; pred/target (N, 3). The per-pixel diff is the
     SUM of squared channel errors, as the reference (nerf_helpers.py:56-58)."""
     mask = mask.reshape(-1, mask.shape[-1])
     pred = pred.reshape(-1, 3)
     target = target.reshape(-1, 3)
-    counts = _class_counts(mask)
     diff = torch.sum(torch.square(pred - target), dim=-1, keepdim=True)
-    unmasked = torch.mean(diff)
-    masked = torch.sum(diff * mask, dim=0) / counts
+    unmasked, masked = _reduce(diff, mask, norm)
     if weights is None:
         weights = torch.ones((mask.shape[-1],), dtype=mask.dtype,
                              device=mask.device)
@@ -43,17 +53,15 @@ def mask_mse_loss(mask: torch.Tensor, pred: torch.Tensor, target: torch.Tensor,
 
 def mask_cross_entropy_loss(mask: torch.Tensor, probs: torch.Tensor,
                             target: torch.Tensor,
-                            weights: Optional[torch.Tensor] = None
+                            weights: Optional[torch.Tensor] = None, norm=None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """mask/target (N, 12) one-hot; probs (N, 12) composited probabilities,
     hence -sum(target * log(probs + 1e-10)) (nerf_helpers.py:31)."""
     mask = mask.reshape(-1, mask.shape[-1])
     probs = probs.reshape(-1, probs.shape[-1])
     target = target.reshape(-1, target.shape[-1])
-    counts = _class_counts(mask)
     ce = -torch.sum(target * torch.log(probs + 1e-10), dim=-1, keepdim=True)
-    unmasked = torch.mean(ce)
-    masked = torch.sum(ce * mask, dim=0) / counts
+    unmasked, masked = _reduce(ce, mask, norm)
     if weights is None:
         weights = torch.ones((mask.shape[-1],), dtype=mask.dtype,
                              device=mask.device)

@@ -251,10 +251,20 @@ def render_rays_chunked(model: NeRFaceModel, settings: RenderSettings,
                         generator: Optional[torch.Generator] = None,
                         background_prior: Optional[torch.Tensor] = None,
                         latent_code: Optional[torch.Tensor] = None,
-                        chunksize: Optional[int] = None) -> RayRenderResult:
+                        chunksize: Optional[int] = None,
+                        ray_group=None) -> RayRenderResult:
     """Full-bundle rendering as a Python loop over ray chunks (the JAX
     package's lax.map; the reference's get_minibatches loop,
-    train_utils.py:274-295). The per-frame evaluators are built once."""
+    train_utils.py:274-295). The per-frame evaluators are built once.
+
+    ``ray_group`` (parallel/mesh.RayGroup; the JAX package's
+    ``ray_constraint``, pipeline.py:278-305): each rank renders its
+    contiguous block of every chunk and the per-ray outputs are gathered,
+    so every rank returns the whole frame. Every rank draws the chunk's
+    random draws at its full width from the same generator state, as the
+    single render draws them, and keeps its block; a chunk whose rays do
+    not divide by the world size is padded with copies of its last ray,
+    which are dropped after the gather."""
     chunksize = chunksize or settings.chunksize
     R = ray_origins.shape[0]
     outs = []
@@ -266,14 +276,80 @@ def render_rays_chunked(model: NeRFaceModel, settings: RenderSettings,
         for start in range(0, R, chunksize):
             sl = slice(start, min(start + chunksize, R))
             bg = background_prior[sl] if background_prior is not None else None
-            outs.append(render_rays(model, settings, ray_origins[sl],
-                                    ray_directions[sl], near, far,
-                                    driving_or_audio, pose, generator=generator,
-                                    background_prior=bg,
-                                    latent_code=latent_code, fns=fns))
+            if ray_group is None:
+                outs.append(render_rays(model, settings, ray_origins[sl],
+                                        ray_directions[sl], near, far,
+                                        driving_or_audio, pose,
+                                        generator=generator,
+                                        background_prior=bg,
+                                        latent_code=latent_code, fns=fns))
+            else:
+                outs.append(_render_chunk_sharded(
+                    model, settings, ray_origins[sl], ray_directions[sl], near,
+                    far, driving_or_audio, pose, generator, bg, latent_code,
+                    fns, ray_group))
     return RayRenderResult(*[
         None if parts[0] is None else torch.cat(parts, dim=0)
         for parts in zip(*outs)])
+
+
+def full_draws(settings: RenderSettings, n: int, fine: bool, generator, device,
+               given: Draws = Draws()) -> Draws:
+    """The draws of one render_rays call over n rays (``fine``: it reaches
+    a fine level), those not ``given`` taken from ``generator`` in the
+    order and at the shapes render_rays takes them (coarse jitter, coarse
+    sigma noise, importance uniforms, fine sigma noise), so that a block
+    of the rays' rows of them is what the whole call would draw."""
+    f32 = torch.float32
+    Sc, Sn = settings.num_coarse, settings.num_fine
+    noisy = settings.radiance_field_noise_std > 0
+
+    def draw(have, make, shape, wanted):
+        if have is not None or not wanted:
+            return have
+        return make(shape, generator=generator, dtype=f32, device=device)
+
+    t_rand = draw(given.t_rand, torch.rand, (n, Sc), settings.perturb)
+    nc = draw(given.noise_coarse, torch.randn, (n, Sc), noisy)
+    fine = fine and Sn > 0
+    u = draw(given.u, torch.rand, (n, Sn), fine and settings.perturb)
+    nf = draw(given.noise_fine, torch.randn, (n, Sc + Sn), fine and noisy)
+    return Draws(t_rand, u, nc, nf)
+
+
+def _render_chunk_sharded(model, settings, ro, rd, near, far, driving, pose,
+                          generator, bg, latent_code, fns, ray_group):
+    n = ro.shape[0]
+    fine = settings.num_fine > 0 and model.fine is not None
+    draws = full_draws(settings, n, fine, generator, ro.device)
+    padded = -(-n // ray_group.world) * ray_group.world
+
+    def cut(x):
+        if x is None:
+            return None
+        if padded > n:
+            x = torch.cat([x, x[-1:].expand((padded - n,) + tuple(x.shape[1:]))])
+        return x[ray_group.block(padded)]
+
+    res = render_rays(model, settings, cut(ro), cut(rd), near, far, driving,
+                      pose, generator=None, background_prior=cut(bg),
+                      latent_code=latent_code, fns=fns,
+                      draws=Draws(*(cut(d) for d in draws)))
+    # one gather of every per-ray output, packed along the channels
+    fields = [None if x is None else x.reshape(x.shape[0], -1).to(torch.float32)
+              for x in res]
+    widths = [0 if x is None else x.shape[1] for x in fields]
+    flat = ray_group.all_gather_rows(torch.cat([x for x in fields if x is not None],
+                                               dim=1))[:n]
+    parts = iter(flat.split([w for w in widths if w], dim=1))
+    out = []
+    for x in res:
+        if x is None:
+            out.append(None)
+            continue
+        y = next(parts)
+        out.append(y.reshape((n,) + tuple(x.shape[1:])).to(x.dtype))
+    return RayRenderResult(*out)
 
 
 def render_image(model: NeRFaceModel, settings: RenderSettings, H: int, W: int,
@@ -282,9 +358,11 @@ def render_image(model: NeRFaceModel, settings: RenderSettings, H: int, W: int,
                  generator: Optional[torch.Generator] = None,
                  background: Optional[torch.Tensor] = None,
                  latent_code: Optional[torch.Tensor] = None,
-                 chunksize: Optional[int] = None) -> Dict[str, Any]:
+                 chunksize: Optional[int] = None,
+                 ray_group=None) -> Dict[str, Any]:
     """Full-image render (the reference's mode='validation' path,
-    train_utils.py:303-319). background: (H, W, 15) or None."""
+    train_utils.py:303-319). background: (H, W, 15) or None. ``ray_group``:
+    each rank renders its block of every chunk (render_rays_chunked)."""
     from ..ops.rays import get_ray_bundle, ndc_rays
     ro, rd = get_ray_bundle(H, W, intrinsics, pose)
     if settings.use_ndc:
@@ -293,7 +371,8 @@ def render_image(model: NeRFaceModel, settings: RenderSettings, H: int, W: int,
     res = render_rays_chunked(model, settings, ro.reshape(-1, 3),
                               rd.reshape(-1, 3), near, far, driving_or_audio,
                               pose, generator=generator, background_prior=bg,
-                              latent_code=latent_code, chunksize=chunksize)
+                              latent_code=latent_code, chunksize=chunksize,
+                              ray_group=ray_group)
 
     def img(x):
         if x is None:

@@ -62,6 +62,9 @@ class FusedCfg:
     lindisp: bool
     compute_dtype: str
     bg_sup_weight: float       # background_loss_weight when supervised, 0 off
+    # the rays the background term averages over: None = this call's; a
+    # ray group's rank passes the whole batch's (train/stage1.py)
+    num_rays: Optional[int] = None
 
 
 class TrainDraws(NamedTuple):
@@ -199,7 +202,7 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
     z_mid = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
     z_new = sample_pdf(z_mid, w_c[..., 1:-1], Sn, det=not fcfg.perturb,
                        generator=generator, u=draws.u)
-    bg_sup = (fcfg.bg_sup_weight / R
+    bg_sup = (fcfg.bg_sup_weight / (fcfg.num_rays or R)
               if (fcfg.bg_sup_weight > 0 and bg is not None) else 0.0)
     z_f = torch.sort(torch.cat([z_c, z_new], dim=-1), dim=-1, stable=True).values
     pts_f = points(z_f)

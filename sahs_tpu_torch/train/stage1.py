@@ -20,6 +20,20 @@ One step (reference nerf-pytorch/train_stage_rays_auto.py:273-544):
 ``lax.scan`` loop, stage1.py:326-343, as a loop over the same step) on
 batches stacked along a leading K axis by ``stack_batches``.
 
+With a ray group (``parallel/mesh.py``; the JAX package's
+``ray_constraint``, stage1.py:164, :201-210) each rank renders the
+rank-th contiguous block of the step's rays and the step stays the single
+step's: every rank picks the rays and forms the rays, targets, masks,
+background rays and every draw of the whole step from the same generator
+state, then keeps its block; the loss normalisers (``ray_loss_weights``,
+the losses' 1/R and class counts, the background term's 1/R) are the
+whole batch's, so the ranks' losses sum to the single step's; the latent
+and grid regularisers count on rank 0 only; one sum all-reduce of a flat
+bucket (every gradient, then the metrics' sums) comes before Adam, so
+every rank takes the same Adam step and holds the same metrics and
+``sample_prob``. At world size 1 the step is the single step plus that
+all-reduce, bit for bit.
+
 Loss stack (train_stage_rays_auto.py:455-492):
   L = [coarse_l2 + 0.02 coarse_ce + 0.005 sum(mouth_l2 + mouth_ce)] + fine(...)
       (+ 10 * 0.0005 ||grid||) (+ 10 * 0.0005 ||latent||)
@@ -40,7 +54,7 @@ from ..ops import losses as L
 from ..ops.rays import get_rays_at, ndc_rays
 from ..ops.sampling import (bbox_ray_probs, gather_rays, semantic_ray_probs,
                             weighted_ray_indices)
-from ..render.pipeline import Draws, RenderSettings, render_rays
+from ..render.pipeline import Draws, RenderSettings, full_draws, render_rays
 from ..utils.device import resolve_device
 from ..utils.seg import NUM_CLASSES
 from .fused import (FusedCfg, TrainDraws, ray_loss_weights, stage1_fused,
@@ -161,11 +175,11 @@ def init_train_state(spec: ModelSpec, ts: TrainSettings, seed: int = 0,
                       latent_codes=codes)
 
 
-def _stage1_losses(ts: TrainSettings, rgb, mask, target, cw):
+def _stage1_losses(ts: TrainSettings, rgb, mask, target, cw, norm=None):
     l2, masked_l2, masked_l2_w = L.mask_mse_loss(mask, rgb[..., :3],
-                                                 target[..., :3], cw)
+                                                 target[..., :3], cw, norm)
     ce, masked_ce, masked_ce_w = L.mask_cross_entropy_loss(mask, rgb[..., 3:],
-                                                           mask, cw)
+                                                           mask, cw, norm)
     mouth = torch.sum(masked_l2[7:9] + masked_ce[7:9])
     total = l2 + ts.ce_weight * ce + ts.mouth_loss_weight * mouth
     return total, l2, ce, masked_l2_w, masked_ce_w
@@ -179,13 +193,15 @@ def _as_batch(batch: Dict[str, Any], dev) -> Dict[str, torch.Tensor]:
 
 def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
                ts: TrainSettings, generator: Optional[torch.Generator] = None,
-               draws: TrainDraws = TrainDraws()):
+               draws: TrainDraws = TrainDraws(), ray_group=None):
     """One training step in place on ``state``. batch keys: image (H, W, 3),
     mask (H, W, 12), pose (3, 4), intrinsics (4,), driving ((76,) or the
     (16, 29) audio window), background (H, W, 15) [fixed background], bbox
     (4,) [optional], frame_idx () [for latent codes]. Random draws come
-    from ``generator`` unless given in ``draws``. Returns (state, metrics); the model's ``.grad`` fields hold
-    the step's gradients afterwards."""
+    from ``generator`` unless given in ``draws``. ``ray_group``
+    (parallel/mesh.RayGroup): this rank renders its block of the rays
+    (module note). Returns (state, metrics); the model's ``.grad`` fields
+    hold the step's gradients afterwards (summed over the ranks)."""
     model = state.model
     dev = next(model.parameters()).device
     b = _as_batch(batch, dev)
@@ -209,6 +225,23 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
     target_s, mask_s = gather_rays(idx, b["image"], mask_img)
     bg_r = gather_rays(idx, bg_img)[0] if use_bg else None
     cw = class_weights(ts, dev)
+    fused = ts.fused_grads and stage1_fused_eligible(spec, ts.render)
+    # every draw of the step up front, in the order and at the shapes the
+    # render takes them, so that a rank's block of them is the single step's
+    d = full_draws(ts.render, idx.shape[0], fused or model.fine is not None,
+                   generator, dev, Draws(draws.t_rand, draws.u,
+                                         draws.noise_coarse, draws.noise_fine))
+    draws = TrainDraws(None, d.t_rand, d.u, d.noise_coarse, d.noise_fine)
+    sharded = ray_group is not None and ray_group.world > 1
+    lw, norm = _batch_normalisers(ts, mask_s, fused, sharded)
+    rays = None if norm is None else norm[0]
+    if sharded:
+        sl = _ray_block(ray_group, idx.shape[0])
+        ro, rd, target_s, mask_s = ro[sl], rd[sl], target_s[sl], mask_s[sl]
+        bg_r = None if bg_r is None else bg_r[sl]
+        lw = None if lw is None else lw[sl]
+        draws = TrainDraws(None, *(None if d is None else d[sl]
+                                   for d in draws[1:]))
 
     state.optimizer.zero_grad(set_to_none=True)
     latent = None
@@ -216,18 +249,18 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
             and state.latent_codes is not None):
         latent = state.latent_codes[b["frame_idx"].long()]
     sup = ts.supervised_train_background and bg_r is not None
-    if ts.fused_grads and stage1_fused_eligible(spec, ts.render):
+    if fused:
         driving = compute_driving(model, b["driving"])
         pose_enc = encode_pose(b["pose"])
         tgt15 = torch.cat([target_s[..., :3], mask_s], dim=-1)
-        lw = ray_loss_weights(mask_s, ts.ce_weight, ts.mouth_loss_weight)
         fcfg = FusedCfg(num_coarse=ts.render.num_coarse,
                         num_fine=ts.render.num_fine, near=ts.near, far=ts.far,
                         perturb=ts.render.perturb,
                         noise_std=ts.render.radiance_field_noise_std,
                         lindisp=ts.render.lindisp,
                         compute_dtype=ts.render.compute_dtype,
-                        bg_sup_weight=ts.background_loss_weight if sup else 0.0)
+                        bg_sup_weight=ts.background_loss_weight if sup else 0.0,
+                        num_rays=rays)
         loss, rgb_c, rgb_f, weights = stage1_fused(
             model, fcfg, driving, pose_enc, ro, rd, tgt15, lw, bg_r, generator,
             draws, latent)
@@ -240,53 +273,99 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
                                       draws.noise_fine),
                           differentiable=True)
         rgb_c, rgb_f, weights = res.rgb_coarse, res.rgb_fine, res.weights
-        loss = _stage1_losses(ts, rgb_c, mask_s, target_s, cw)[0]
+        loss = _stage1_losses(ts, rgb_c, mask_s, target_s, cw, norm)[0]
         if rgb_f is not None:
-            loss = loss + _stage1_losses(ts, rgb_f, mask_s, target_s, cw)[0]
+            loss = loss + _stage1_losses(ts, rgb_f, mask_s, target_s, cw, norm)[0]
         if sup:
-            loss = loss + _bg_loss(ts, bg_r, target_s, weights)
-    if ts.regularize_latent_codes and latent is not None:
+            loss = loss + _bg_loss(ts, bg_r, target_s, weights, rays)
+    # the regularisers count once over the ranks
+    once = ray_group is None or ray_group.rank == 0
+    if ts.regularize_latent_codes and latent is not None and once:
         loss = loss + 10.0 * ts.latent_reg_weight * torch.linalg.norm(latent)
-    if ts.regularize_spatial_embedding and ts.use_spatial_embeddings:
+    if ts.regularize_spatial_embedding and ts.use_spatial_embeddings and once:
         loss = loss + 10.0 * ts.spatial_reg_weight * torch.linalg.norm(
             model.spatial_embeddings)
     loss.backward()
+
+    with torch.no_grad():
+        _, c_l2, c_ce, c_ml2w, c_mcew = _stage1_losses(ts, rgb_c.detach(),
+                                                       mask_s, target_s, cw, norm)
+        f_l2, f_ce, prob_num = c_l2, c_ce, c_ml2w + c_mcew
+        if rgb_f is not None:
+            _, f_l2, f_ce, f_ml2w, f_mcew = _stage1_losses(
+                ts, rgb_f.detach(), mask_s, target_s, cw, norm)
+            prob_num = prob_num + f_ml2w + f_mcew
+        bg_loss = (_bg_loss(ts, bg_r.detach(), target_s, weights.detach(), rays)
+                   if sup else torch.zeros((), device=dev))
+        sums = {"loss": loss.detach(), "coarse_l2": c_l2, "fine_l2": f_l2,
+                "coarse_ce": c_ce, "fine_ce": f_ce, "bg_loss": bg_loss,
+                "prob_num": prob_num}
+        if ray_group is not None:
+            sums = _reduce_step(ray_group, state.optimizer, sums)
     if state.lr_fn is not None:
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr_fn(state.step)
     state.optimizer.step()
 
     with torch.no_grad():
-        _, c_l2, c_ce, c_ml2w, c_mcew = _stage1_losses(ts, rgb_c.detach(),
-                                                       mask_s, target_s, cw)
-        f_l2, f_ce, prob_num = c_l2, c_ce, c_ml2w + c_mcew
-        if rgb_f is not None:
-            _, f_l2, f_ce, f_ml2w, f_mcew = _stage1_losses(
-                ts, rgb_f.detach(), mask_s, target_s, cw)
-            prob_num = prob_num + f_ml2w + f_mcew
-        bg_loss = (_bg_loss(ts, bg_r.detach(), target_s, weights.detach())
-                   if sup else torch.zeros((), device=dev))
+        prob_num = sums.pop("prob_num")
         if ts.dynamic_sampling:
             state.sample_prob = prob_num / torch.sum(prob_num)
-        metrics = {"loss": loss.detach(), "coarse_l2": c_l2, "fine_l2": f_l2,
-                   "coarse_ce": c_ce, "fine_ce": f_ce, "bg_loss": bg_loss,
-                   "psnr": -10.0 * torch.log10(torch.clamp(f_l2, min=1e-10))}
+        metrics = dict(sums, psnr=-10.0 * torch.log10(
+            torch.clamp(sums["fine_l2"], min=1e-10)))
     state.step += 1
     return state, metrics
 
 
-def _bg_loss(ts: TrainSettings, bg_r, target_s, weights):
+def _ray_block(ray_group, R: int) -> slice:
+    """This rank's rays of the step."""
+    return ray_group.block(R)
+
+
+def _batch_normalisers(ts: TrainSettings, mask_s, fused: bool, sharded: bool):
+    """The whole batch's loss normalisers: ray_loss_weights (R, 2) on the
+    fused path (else None), and for a sharded step the losses' (R, the
+    per-class counts) (else None: the losses take their own)."""
+    lw = (ray_loss_weights(mask_s, ts.ce_weight, ts.mouth_loss_weight)
+          if fused else None)
+    return lw, ((mask_s.shape[0], L._class_counts(mask_s)) if sharded else None)
+
+
+def _reduce_step(ray_group, optimizer, sums: Dict[str, torch.Tensor]):
+    """One sum all-reduce over the ranks of a flat bucket: every gradient,
+    in the optimizer's order, then the metrics' sums. The gradients come
+    back in place; returns the summed metrics. The collective is ordered
+    after the kernels that wrote the gradients: they run on the current
+    stream, which NCCL's stream waits on and gloo's copy to the host
+    follows."""
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    names = list(sums)
+    parts = grads + [sums[k].reshape(-1).to(torch.float32) for k in names]
+    flat = ray_group.all_reduce_(torch.cat([t.reshape(-1) for t in parts]))
+    chunks = flat.split([t.numel() for t in parts])
+    for g, c in zip(grads, chunks):
+        g.copy_(c.view_as(g))
+    return {k: c.view_as(sums[k]) for k, c in zip(names, chunks[len(grads):])}
+
+
+def _bg_loss(ts: TrainSettings, bg_r, target_s, weights, rays=None):
     """The background supervision: the background sample's weight times
-    its colour error, averaged over the rays (stage1.py:284-294)."""
+    its colour error, averaged over the rays (stage1.py:284-294), or,
+    given ``rays``, summed over a block of a batch of that many."""
     per_ray = torch.sum(torch.square(bg_r[..., :3] - target_s[..., :3]), dim=-1)
-    return torch.mean(per_ray * weights[:, -1]) * ts.background_loss_weight
+    x = per_ray * weights[:, -1]
+    mean = torch.mean(x) if rays is None else torch.sum(x) / rays
+    return mean * ts.background_loss_weight
 
 
-def make_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
+def make_train_step(spec: ModelSpec, ts: TrainSettings, device=None,
+                    ray_group=None):
     """A train-step closure for ``device`` (CUDA unless the caller names
     another; with no device given and no CUDA present this raises):
     step(state, batch, generator=None, draws=TrainDraws()) -> (state,
-    metrics)."""
+    metrics). With ``ray_group`` each rank renders its block of the rays
+    (``parallel/mesh.make_sharded_train_step``)."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch, generator=None,
@@ -295,12 +374,13 @@ def make_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
         if on.type != dev.type:
             raise ValueError(f"the model is on {on}, the step was made for "
                              f"{dev}")
-        return train_step(state, batch, spec, ts, generator, draws)
+        return train_step(state, batch, spec, ts, generator, draws, ray_group)
 
     return step
 
 
-def make_multi_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
+def make_multi_train_step(spec: ModelSpec, ts: TrainSettings, device=None,
+                          ray_group=None):
     """K train steps a call (counterpart of the JAX package's
     ``make_multi_train_step``, whose ``lax.scan`` becomes a loop over the
     step of ``make_train_step``; no CUDA graph): multi(state, batches,
@@ -310,8 +390,10 @@ def make_multi_train_step(spec: ModelSpec, ts: TrainSettings, device=None):
     k takes index k), else every step draws from ``generator``. The
     metrics come back stacked (K,) on the device: nothing is read back to
     the host between steps. CUDA unless the caller names another device;
-    with no device given and no CUDA present this raises."""
-    step = make_train_step(spec, ts, device=device)
+    with no device given and no CUDA present this raises. With
+    ``ray_group`` each step is the sharded step
+    (``parallel/mesh.make_sharded_train_step``)."""
+    step = make_train_step(spec, ts, device=device, ray_group=ray_group)
 
     def multi(state: TrainState, batches: Dict[str, torch.Tensor],
               generator=None, draws: Optional[TrainDraws] = None):

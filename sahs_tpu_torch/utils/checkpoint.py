@@ -273,6 +273,23 @@ def _param_map(state, tree) -> Dict[torch.nn.Parameter, torch.Tensor]:
     return out
 
 
+def restore_adam(opt, params, mu, nu, count: float, every_param: bool) -> None:
+    """optax's Adam state (``mu``, ``nu``: parameter -> moment, and the
+    ``count``) into torch's Adam ``opt`` for ``params``. ``every_param``:
+    every parameter gets state once the count is nonzero (Stage II, whose
+    step hands Adam a zero gradient where a parameter had none, as optax
+    updates every leaf); else only a parameter whose moments are not all
+    zero (Stage I: torch's Adam keeps no state for a parameter it has not
+    updated)."""
+    for p in params:
+        opt.state.pop(p, None)
+        has = (bool(count) if every_param
+               else bool(mu[p].any()) or bool(nu[p].any()))
+        if has:
+            opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                            "exp_avg": mu[p].clone(), "exp_avg_sq": nu[p].clone()}
+
+
 def restore_train_state(path: str, state):
     """Resume ``state`` (a freshly initialised TrainState of the same
     configuration, which gives the structure) from a native checkpoint in
@@ -285,18 +302,14 @@ def restore_train_state(path: str, state):
     opt = _restore_section("opt", [{"count": 0, "mu": template, "nu": template},
                                    {"count": 0}], entries, path, True)
     values, mu, nu = (_param_map(state, t) for t in (params, opt[0]["mu"], opt[0]["nu"]))
-    count = float(opt[0]["count"])
     with torch.no_grad():
         for p, v in values.items():
             p.copy_(v)
-            # a parameter whose moments are zero has had no gradient yet:
-            # torch's Adam keeps no state for it and counts its own steps
-            # from its first update, so it gets none
-            state.optimizer.state.pop(p, None)
-            if bool(mu[p].any()) or bool(nu[p].any()):
-                state.optimizer.state[p] = {
-                    "step": torch.tensor(count, dtype=torch.float32),
-                    "exp_avg": mu[p].clone(), "exp_avg_sq": nu[p].clone()}
+    # a parameter whose moments are zero has had no gradient yet: torch's
+    # Adam keeps no state for it and counts its own steps from its first
+    # update, so it gets none
+    restore_adam(state.optimizer, list(values), mu, nu, float(opt[0]["count"]),
+                 every_param=False)
     dev = state.sample_prob.device
     state.step = int(schema["scalars"]["iter"])
     state.sample_prob = entries["sample_prob"].to(device=dev, dtype=torch.float32)
@@ -574,12 +587,9 @@ def _restore_stage2_adam(opt, module, tree) -> None:
     where a parameter had none, as optax updates every leaf."""
     from ..models.spade import param_map
     mu, nu = param_map(module, tree[0]["mu"]), param_map(module, tree[0]["nu"])
-    count = float(tree[0]["count"])
     opt.state.clear()
-    if count:
-        for p in opt.param_groups[0]["params"]:
-            opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
-                            "exp_avg": mu[p].clone(), "exp_avg_sq": nu[p].clone()}
+    restore_adam(opt, opt.param_groups[0]["params"], mu, nu, float(tree[0]["count"]),
+                 every_param=True)
 
 
 def restore_stage2_state(path: str, state):
