@@ -267,6 +267,27 @@ Phases, in order (any failure exits non-zero and prints no result):
      collective and the join); the kernels line adds every rank's launches.
      ``--only-phase 18`` runs the build and this phase alone (no kernels
      line, no result line).
+ 19. the kernels' remaining input forms and the leftover modules, launch
+     counters zeroed just before and added to the kernels line after: (1)
+     each form against its plain version in float32 and bf16 (K13/K14 on a
+     (P, 63) encoding, warp and hyper net, phase 11's gates; K3 with the
+     points' cotangent, its dW bit for bit the train path's; K11/K12 on the
+     per-point step's own fine level encoded, pts_embed (P, 81) and
+     dir_extra (P, 59), phase 9's gates; K7/K8, K5/K6 and K2 on a
+     per-point se (P, 32) at 256 / 2048 rays x 128 with a background,
+     sigma noise and loss cotangents, phases 5 and 7's gates; bf16 raw
+     fields and K5 also against exact sums, EXACT_MULTIPLE), one fault
+     planted a form in bf16 that must miss its gate; each form's bf16 ms
+     beside the kernel's existing form at the same shape, in turns (K13
+     also at a frame's 4,194,304 fine points, K11 at a per-point frame's
+     6,291,456); (2) make_field_fn's kernel path (K1, K7 in float32)
+     against apply_field on one 32,768-ray chunk x 64 (FIELD_FN_GATES);
+     (3) AudioAttNet, MaskGeneratorMLP and WarpEmbeddingMLP on the card
+     against the CPU (NETS_CPU_GATE); (4) utils/profiling.trace around one
+     flagship fused step, whose trace must name K1, K2 and K3; (5) the
+     parse-map codec (sahs_tpu_torch/native, built by g++ into
+     build/native/) on a 512x512 map bit for bit against its numpy
+     version. ``--only-phase 19`` runs the build and this phase alone.
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -3735,6 +3756,545 @@ def phase18_sharding(dev, report, kernels, rays: int = 2048, size: int = 512,
     return ""
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the kernels' remaining input forms, and the leftover modules
+# ---------------------------------------------------------------------------
+
+# The forms on their own inputs: f32 at the sizes of the kernels' earlier
+# f32 phases (256 rays: a few flips at most), bf16 at the main path's
+FORMS_RAYS = {"float32": 256, "bfloat16": 2048}
+# the kernels phase 19 drives, by their entry of the kernels line
+FORMS_KERNELS = {"K1": "sahs_tpu/ops/pallas/field_mlp.py:868",
+                 "K2": "sahs_tpu/ops/pallas/level_train.py:55",
+                 "K3": "sahs_tpu/ops/pallas/field_mlp.py:1098",
+                 "K4": "sahs_tpu/ops/pallas/grid_bwd.py:211",
+                 "K5": "sahs_tpu/ops/pallas/field_mlp.py:2681",
+                 "K6": "sahs_tpu/ops/pallas/field_mlp.py:2951",
+                 "K7": "sahs_tpu/ops/pallas/field_mlp.py:1973",
+                 "K8": "sahs_tpu/ops/pallas/field_mlp.py:2059",
+                 "K11": "sahs_tpu/ops/pallas/field_mlp.py:3204",
+                 "K12": "sahs_tpu/ops/pallas/field_mlp.py:1546",
+                 "K13": "sahs_tpu/ops/pallas/field_mlp.py:345",
+                 "K14": "sahs_tpu/ops/pallas/field_mlp.py:516",
+                 "K15": "sahs_tpu/ops/pallas/field_mlp.py:814"}
+# make_field_fn's kernel path against apply_field on one chunk, float32
+# (tests/test_smoke.py's tolerance)
+FIELD_FN_GATES = {"atol": 2e-3, "rtol": 2e-2}
+# the leftover nets on the card against the CPU, float32 (TF32 off)
+NETS_CPU_GATE = 1e-5
+
+
+def _forms_model(dev):
+    """The flagship model (seed 0) as the card tests condition it: sigma's
+    bias 0.5 and the rgb head x100 (a live sigma head, colours that vary
+    along a ray), its folded pair and levels, a conditioning of its own."""
+    import torch
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    cfg = Config()
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    with torch.no_grad():
+        model.coarse.fc_alpha.bias.fill_(0.5)
+        model.coarse.fc_rgb.weight.mul_(100.0)
+    gen = torch.Generator().manual_seed(19)
+    cond = (torch.randn(76 + 36, generator=gen) * 0.5).to(dev)
+    warp_g, pts_g, dir_g = nerface.build_pe_groups(spec)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512, near=near, far=far)
+    return {"model": model, "cond": cond, "gen": gen, "groups": (warp_g, pts_g, dir_g),
+            "ds": ds, "near": near, "far": far,
+            "pair": k1.prepare_pair(model.warp, model.hyper, cond, warp_g),
+            "level": k5.prepare_level(model.coarse, cond[76:], pts_g, dir_g),
+            "level_pre": k5.prepare_level(model.coarse, cond[76:], None, None)}
+
+
+def _rnd(gen, dev, *shape, scale=1.0, lo=None, hi=None):
+    import torch
+    if lo is not None:
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev)
+    return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+
+def _ray_inputs(fm, dev, R, S):
+    """R rays of S samples: packed points [xyz | ambient], directions,
+    sorted z, a background prior, sigma noise, se (R*S, 32), the target and
+    per-ray loss weights."""
+    import torch
+    gen = fm["gen"]
+    P = R * S
+    pts = torch.cat([_rnd(gen, dev, P, 3, lo=-1.05, hi=1.05),
+                     _rnd(gen, dev, P, 2, lo=-1.0, hi=1.0)], 1)
+    dirs = _rnd(gen, dev, R, 3, scale=0.1) + torch.tensor([0.0, 0.0, -1.0], device=dev)
+    z = torch.sort(_rnd(gen, dev, R, S, lo=0.48, hi=1.08), dim=-1).values
+    bg = _rnd(gen, dev, R, 15, lo=0.0, hi=1.0)
+    noise = _rnd(gen, dev, R, S, scale=0.5)
+    se = _rnd(gen, dev, P, 32, scale=0.3)
+    cls = torch.randint(0, 12, (R,), generator=gen).to(dev)
+    tgt = torch.cat([_rnd(gen, dev, R, 3, lo=0.0, hi=1.0),
+                     torch.nn.functional.one_hot(cls, 12).float()], 1)
+    lw = torch.stack([torch.full((R,), 1.0 / R), torch.full((R,), 0.02 / R)], 1).to(dev)
+    return pts, dirs, z, bg, noise, se, tgt, lw
+
+
+def _points_res(k, p):
+    from sahs_tpu_torch.utils.compare import point_errors
+    return point_errors(k, p, TRAIN_F32_GATES["point_tol"])
+
+
+def _bwd_res(points, g_k, g_p):
+    """The schema of fallback_gates_missed for a backward: each point
+    cotangent (name -> (kernel, plain)) and the dW trees."""
+    import torch
+    from sahs_tpu_torch.utils.compare import leaves, tree_errors
+    e = tree_errors(g_k, g_p)
+    return {**{n: _points_res(k, p) for n, (k, p) in points.items()},
+            "dw_l2_rel": e["l2_rel"], "dw_cosine": e["cosine"],
+            "dw_worst_leaf": e["worst_leaf"],
+            "max_abs_err": max(abs_err(x, y) for (_, x), (_, y)
+                               in zip(leaves(g_k), leaves(g_p))),
+            "finite": bool(all(torch.isfinite(k).all() for k, _ in points.values()))}
+
+
+def _field_res(raw_k, raw_p, fp, args, compute_dtype):
+    """A raw field's schema of fallback_gates_missed ("k7", "k11"), with
+    the exact-sum rule in bf16 (``fp`` the plain version on ``args``)."""
+    import torch
+    r = {"raw_abs": abs_err(raw_k, raw_p), "raw_scaled": field_scaled(raw_k, raw_p),
+         "max_abs_err": abs_err(raw_k, raw_p), "finite": bool(torch.isfinite(raw_k).all())}
+    if compute_dtype == "bfloat16":
+        r["exact"] = field_exact(fp, args, raw_k, raw_p)
+    return r
+
+
+def _level_se_exact(args, rgb_k, w_k, rgb_p, w_p) -> dict:
+    """level_exact for K5 on a per-point se: the same rule, the reference
+    on every ray EXACT_RAYS rays at a time, se cut with the rays."""
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.tools.level_exact import exact_plain
+    pts, dirs, _, _, z, bg, noise, lw, cdt, _, se = args
+    R, S = z.shape
+    groups = {"rgb": lambda o: o[0][:, :3], "seg": lambda o: o[0][:, 3:15],
+              "weights": lambda o: o[1]}
+    sq = {}
+    for a in range(0, R, EXACT_RAYS):
+        b = min(R, a + EXACT_RAYS)
+        cut = lambda t: None if t is None else t[a:b]
+        _add_squares(sq, groups, (rgb_k[a:b], w_k[a:b]), (rgb_p[a:b], w_p[a:b]),
+                     exact_plain(k5.nerf_level_plain, pts[a * S:b * S], dirs[a:b], None,
+                                 None, z[a:b], cut(bg), cut(noise), lw, cdt, None,
+                                 se[a * S:b * S]))
+    return {"rays": R, **_exact_rule(sq, LEVEL_FLOOR)}
+
+
+def forms_parity(fm, dev, compute_dtype) -> tuple:
+    """Every form of the kernels that phase 19 adds against its plain
+    version, in ``compute_dtype``: results in the schemas of phases 5, 7,
+    9 and 11 (their gate functions read them), and the readings of one
+    planted fault per form (bf16)."""
+    import dataclasses
+    import torch
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    from sahs_tpu_torch.utils.compare import leaves, tree_errors
+    cdt, bf = compute_dtype, compute_dtype == "bfloat16"
+    R = FORMS_RAYS[cdt]
+    gen, model = fm["gen"], fm["model"]
+    warp_g, pts_g, dir_g = fm["groups"]
+    res, faults = {}, {}
+    # K13/K14 on the (P, 63) encoding: phase 11's parity and gates
+    P = R * 128
+    enc = kernel_pe(_rnd(gen, dev, P, 3, lo=-1.05, hi=1.05), warp_g)
+    for net, act in (("warp", "tanh"), ("hyper", "linear")):
+        w = k13.prepare_skip(getattr(model, net), fm["cond"], None, act)
+        y_p = k13.skip_mlp_plain(enc, w, cdt)
+        g = 2.0 * (y_p - _rnd(gen, dev, *y_p.shape, scale=0.1)) / P
+        inp = {"kind": f"pre-encoded {net}", "k13": (enc, w, cdt),
+               "k14": (enc, w, g, None, cdt)}
+        r, g_k = skip_parity(inp)
+        res[f"k13/k14 pre-encoded {net}"] = r
+        if bf:
+            no_bias = dataclasses.replace(w, out={"w": w.out["w"],
+                                                  "b": torch.zeros_like(w.out["b"])},
+                                          _blobs={})
+            y_f = k13.skip_mlp_forward(enc, no_bias, cdt)
+            faults[f"k13 pre-encoded {net} without the head bias"] = {
+                "raw_scaled": scaled_err(y_f, y_p), **skip_exact(enc, w, y_f, y_p)}
+            g_p = k13.skip_mlp_vjp_plain(enc, w, g, False, cdt)[1]
+            faults[f"k14 pre-encoded {net} bias trunk[1]"] = tree_errors(
+                _drop_bias(g_k, ["trunk", 1]), g_p)
+    # K3 with the points' cotangent
+    pts = _rnd(gen, dev, P, 3, lo=-0.6, hi=0.6)
+    g, g2 = _rnd(gen, dev, P, 5, scale=0.1), _rnd(gen, dev, P, 5, scale=0.1)
+    gx_k, g_k = k1.deform_pair_vjp(pts, fm["pair"], g, g2, cdt, need_gx=True)
+    g_n = k1.deform_pair_vjp(pts, fm["pair"], g, g2, cdt)
+    gx_p, g_p = k1.deform_pair_vjp_plain(pts, fm["pair"], g, g2, cdt, need_gx=True)
+    r = _bwd_res({"gx": (gx_k, gx_p)}, g_k, g_p)
+    r["repeat_equal"] = all(torch.equal(a, b) for (_, a), (_, b)
+                            in zip(leaves(g_k), leaves(g_n)))
+    res["k3 gx"] = r
+    if bf:
+        faults["k3 gx without the residual of the warped points"] = {
+            "gx": _points_res(gx_k - (g + g2)[:, :3], gx_p)}
+    # K11/K12 on pts_embed (P, 81) and dir_extra (P, 59): phase 9's inputs
+    # (the per-point step's fine level, R x 192, and the cotangent its loss
+    # sends back), encoded
+    pw = pointwise_inputs(model, fm["ds"], fm["near"], fm["far"], dev, R, cdt, gen)
+    packed, extra, g, lvl_raw, _ = pw["k12"]
+    lvl = dataclasses.replace(lvl_raw, pts_groups=None, dir_groups=None, _blobs={})
+    x = kernel_pe(packed, lvl_raw.pts_groups)
+    e = torch.cat([kernel_pe(extra[:, :3], lvl_raw.dir_groups), extra[:, 3:]], 1)
+    del pw, packed, extra
+    raw_k = k11.nerf_mlp_forward_fused(x, e, lvl, cdt)
+    raw_p = k11.nerf_mlp_plain(x, e, lvl, cdt)
+    res["k11"] = _field_res(raw_k, raw_p, k11.nerf_mlp_plain, (x, e, lvl, cdt), cdt)
+    gx_k, ge_k, g_k = k2.nerf_mlp_vjp(x, e, g, lvl, cdt)
+    gx_p, ge_p, g_p = k2.nerf_mlp_vjp_plain(x, e, g, lvl, cdt)
+    res["k12"] = _bwd_res({"gx": (gx_k, gx_p), "gextra": (ge_k, ge_p)}, g_k, g_p)
+    no_se = dataclasses.replace(lvl, dir0_se=torch.zeros_like(lvl.dir0_se), _blobs={})
+    if bf:
+        faults["k11 pre-encoded without the se block"] = _field_res(
+            k11.nerf_mlp_forward_fused(x, e, no_se, cdt), raw_p, k11.nerf_mlp_plain,
+            (x, e, lvl, cdt), cdt)
+        ge_f = ge_k.clone()
+        ge_f[:, 27:] = 0
+        faults["k12 pre-encoded gextra without se's"] = {"gextra": _points_res(ge_f, ge_p)}
+    del x, e, raw_k, raw_p, gx_k, ge_k, gx_p, ge_p
+    # K7/K8, K5/K6, K2 on a per-point se (R x 128, C = 32)
+    S = 128
+    pts, dirs, z, bg, noise, se, tgt, lw = _ray_inputs(fm, dev, R, S)
+    lvl = fm["level"]
+    no_se = dataclasses.replace(lvl, dir0_se=torch.zeros_like(lvl.dir0_se), _blobs={})
+    p7 = (pts, dirs, None, None, lvl, cdt, None, None, se)
+    raw_k = k5.nerf_rayd_forward(pts, dirs, None, None, lvl, cdt, None, se=se)
+    raw_p = k5.nerf_raw_plain(*p7)
+    res["k7"] = _field_res(raw_k, raw_p, k5.nerf_raw_plain, p7, cdt)
+    # K8's cotangent: the loss's, through the compositing of the plain raw
+    # field (random cotangents at every point make one flipped slope move a
+    # small bias's dW by ~1 %: the earlier phases take the loss's too)
+    from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
+    raw = raw_p.clone().requires_grad_()
+    r3 = raw.reshape(R, S, 16)
+    r3 = torch.cat([r3[:, :-1], torch.cat([bg, r3[:, -1:, -1]], -1)[:, None]], 1)
+    rend = volume_render_radiance_field(r3, z, dirs, radiance_field_noise_std=1.0,
+                                        background_prior=bg, noise=noise)
+    g_rgb, g_w = loss_cotangents(rend.rgb.detach(), rend.weights.detach(), tgt, lw, bg,
+                                 0.5)
+    (g,) = torch.autograd.grad([rend.rgb, rend.weights], raw, [g_rgb[:, :15], g_w])
+    del raw, r3, rend
+    a8 = (pts, dirs, None, None, g, lvl, cdt, None, se)
+    out_k, out_p = k2.nerf_rayd_vjp(*a8), k2.nerf_rayd_vjp_plain(*a8)
+    res["k8"] = _bwd_res({"gx": (out_k[0], out_p[0]), "gse": (out_k[1], out_p[1])},
+                         out_k[2], out_p[2])
+    a5 = (pts, dirs, None, None, z, bg, noise, lvl, cdt, None, se)
+    rgb_k, w_k = k5.nerf_level_forward(*a5)
+    rgb_p, w_p = k5.nerf_level_plain(*a5)
+    res["k5 se"] = {"rgb_abs": abs_err(rgb_k, rgb_p), "w_abs": abs_err(w_k, w_p),
+                    "rgb_rel": rel_err(rgb_k, rgb_p), "w_rel": rel_err(w_k, w_p),
+                    "max_abs_err": max(abs_err(rgb_k, rgb_p), abs_err(w_k, w_p)),
+                    "finite": bool(torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all())}
+    if bf:
+        res["k5 se"]["exact"] = _level_se_exact(a5, rgb_k, w_k, rgb_p, w_p)
+    g_rgb, g_w = loss_cotangents(rgb_p, w_p, tgt, lw, bg, 0.5)
+    a6 = a5[:7] + (g_rgb, g_w) + a5[7:]
+    out6_k, out6_p = k2.nerf_level_vjp(*a6), k2.nerf_level_vjp_plain(*a6)
+    res["k6 se"] = _bwd_res({"gx": (out6_k[0], out6_p[0]), "gse": (out6_k[1], out6_p[1]),
+                             "gbg": (out6_k[2], out6_p[2])}, out6_k[3], out6_p[3])
+    a2 = a5[:7] + (tgt, lw, lvl, cdt, None, 0.5, se)
+    rgb2_k, w2_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*a2)
+    rgb2_p, w2_p, gx_p, gse_p, gbg_p, g_p = k2.nerf_level_train_plain(*a2)
+    res["k2_se"] = {**_bwd_res({"gx": (gx_k, gx_p), "gse": (gse_k, gse_p),
+                                "gbg": (gbg_k, gbg_p)}, g_k, g_p),
+                    "rgb_abs": abs_err(rgb2_k, rgb2_p), "w_abs": abs_err(w2_k, w2_p),
+                    "rgb_rel": rel_err(rgb2_k, rgb2_p), "w_rel": rel_err(w2_k, w2_p)}
+    if bf:
+        faults["k7 se without the se block"] = _field_res(
+            k5.nerf_rayd_forward(pts, dirs, None, None, no_se, cdt, None, se=se), raw_p,
+            k5.nerf_raw_plain, p7, cdt)
+        rgb_f, w_f = k5.nerf_level_forward(*a5[:7], no_se, *a5[8:])
+        faults["k5 se without the se block"] = {
+            "exact": _level_se_exact(a5, rgb_f, w_f, rgb_p, w_p)}
+        for name, (gk, gp) in (("k8", (out_k[1], out_p[1])), ("k6", (out6_k[1], out6_p[1])),
+                               ("k2", (gse_k, gse_p))):
+            gf = gk.clone()
+            gf[:, :16] = 0
+            faults[f"{name} se with half of gse dropped"] = {"gse": _points_res(gf, gp)}
+    torch.cuda.synchronize()
+    return res, faults
+
+
+def forms_gates_missed(res, compute_dtype) -> list:
+    """The earlier phases' gates that the forms miss: phase 11's for K13/K14
+    (skip_gates_missed), phase 5's for K2 (train_gates_missed), phase 7's
+    for the others (fallback_gates_missed: a raw field by the plain gate
+    and, in bf16, the exact-sum rule; K5 by the level rule; every backward
+    by its points' and dW gates); K3's dW with gx must equal the train
+    path's bit for bit ("repeat")."""
+    missed = []
+    rest = {}
+    for name, r in res.items():
+        if name.startswith("k13/k14"):
+            missed += [f"{name}: {m}" for m in skip_gates_missed(r, compute_dtype)]
+        elif name.startswith("k2"):
+            missed += train_gates_missed({name: r}, compute_dtype)
+        else:
+            rest[name] = r
+    return missed + fallback_gates_missed(rest, compute_dtype)
+
+
+def forms_fault_passes(e) -> bool:
+    """True when a planted fault's reading passes the bf16 gates it was
+    planted under."""
+    g = TRAIN_BF16_GATES
+    points = [e[k] for k in ("gx", "gse", "gextra") if k in e]
+    if points:
+        return all(p["l2_rel"] <= g["point_l2_rel"] and p["cosine"] >= g["cosine"]
+                   for p in points)
+    if "raw_abs" in e:     # a raw field: the plain gate and the exact-sum rule
+        return e["raw_scaled"] <= g["out_rel"] and e["exact"]["ok"]
+    if "exact" in e:       # K5: the level's exact-sum rule
+        return e["exact"]["ok"]
+    return fault_passes(e)
+
+
+def _time_pair(new, old, reps=3) -> dict:
+    """A new form's ms beside the existing form's at the same shape (CUDA
+    events), in turns: new, old, old, new."""
+    a = cuda_time(new, reps)
+    b = cuda_time(old, reps)
+    b2 = cuda_time(old, reps)
+    a2 = cuda_time(new, reps)
+    return {"ms": [a, a2], "existing_form_ms": [b, b2]}
+
+
+def forms_times(fm, dev) -> dict:
+    """bf16 times of each form beside the kernel's existing form at the
+    same shape: K13 / K14 pre-encoded against raw points at a step's
+    262,144 points (and K13 at a frame's fine chunk of 4,194,304), K3 with
+    gx against without, K11 / K12 on the encodings against raw inputs at a
+    per-point step's 393,216 points (and K11 at a per-point frame's fine
+    chunk of 6,291,456), K7, K8, K5, K6, K2 on se against the corner table
+    at a step's fine level (2048 x 128)."""
+    import torch
+    from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+    from sahs_tpu_torch.ops.kernels import skip_mlp as k13
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    gen, model, bf = fm["gen"], fm["model"], "bfloat16"
+    warp_g, pts_g, dir_g = fm["groups"]
+    out = {}
+    for P in (262144, 4194304):
+        pts = _rnd(gen, dev, P, 3, lo=-1.05, hi=1.05)
+        enc = kernel_pe(pts, warp_g).to(torch.bfloat16)
+        for net, act in (("warp", "tanh"), ("hyper", "linear")):
+            w_raw = k13.prepare_skip(getattr(model, net), fm["cond"], warp_g, act)
+            w_pre = k13.prepare_skip(getattr(model, net), fm["cond"], None, act)
+            out[f"K13 {net} at {P}"] = _time_pair(
+                lambda: k13.skip_mlp_forward(enc, w_pre, bf),
+                lambda: k13.skip_mlp_forward(pts, w_raw, bf))
+            if P == 262144:
+                g = _rnd(gen, dev, P, w_raw.out["w"].shape[1], scale=1e-3)
+                out[f"K14 {net} at {P}"] = _time_pair(
+                    lambda: k13.skip_mlp_vjp(enc, w_pre, g, True, bf),
+                    lambda: k13.skip_mlp_vjp(pts, w_raw, g, True, bf))
+        if P == 262144:
+            g = _rnd(gen, dev, P, 5, scale=1e-3)
+            out[f"K3 at {P}"] = _time_pair(
+                lambda: k1.deform_pair_vjp(pts, fm["pair"], g, None, bf, need_gx=True),
+                lambda: k1.deform_pair_vjp(pts, fm["pair"], g, None, bf))
+        del pts, enc
+    for P in (393216, 6291456):
+        raw_pts = torch.cat([_rnd(gen, dev, P, 3, lo=-1.05, hi=1.05),
+                             _rnd(gen, dev, P, 2, lo=-1.0, hi=1.0)], 1)
+        dirs = _rnd(gen, dev, P, 3, scale=0.1) + torch.tensor([0.0, 0.0, -1.0], device=dev)
+        se = _rnd(gen, dev, P, 32, scale=0.3)
+        extra = torch.cat([dirs, se], 1)
+        x = kernel_pe(raw_pts, pts_g).to(torch.bfloat16)
+        e = torch.cat([kernel_pe(dirs, dir_g), se], 1).to(torch.bfloat16)
+        del dirs, se
+        out[f"K11 at {P}"] = _time_pair(
+            lambda: k11.nerf_mlp_forward_fused(x, e, fm["level_pre"], bf),
+            lambda: k11.nerf_mlp_forward_fused(raw_pts, extra, fm["level"], bf))
+        if P == 393216:
+            g = _rnd(gen, dev, P, 16, scale=1e-3)
+            out[f"K12 at {P}"] = _time_pair(
+                lambda: k2.nerf_mlp_vjp(x, e, g, fm["level_pre"], bf),
+                lambda: k2.nerf_mlp_vjp(raw_pts, extra, g, fm["level"], bf))
+        del raw_pts, extra, x, e
+        torch.cuda.empty_cache()
+    R, S = 2048, 128
+    pts, dirs, z, bg, noise, se, tgt, lw = _ray_inputs(fm, dev, R, S)
+    lvl = fm["level"]
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    dims = tuple(model.spatial_embeddings.shape[1:])
+    rows = _cell_geometry(pts, dims)[0].to(torch.int32)
+    g = _rnd(gen, dev, R * S, 16, scale=1e-3)
+    g_rgb, g_w = _rnd(gen, dev, R, 16, scale=1e-3), _rnd(gen, dev, R, S, scale=1e-3)
+    se_kw, grid = {"se": se}, (table, rows)
+    cases = {
+        "K7": lambda s, t, r, d: k5.nerf_rayd_forward(pts, dirs, t, r, lvl, bf, d, **s),
+        "K8": lambda s, t, r, d: k2.nerf_rayd_vjp(pts, dirs, t, r, g, lvl, bf, d, **s),
+        "K5": lambda s, t, r, d: k5.nerf_level_forward(pts, dirs, t, r, z, bg, noise,
+                                                       lvl, bf, d, **s),
+        "K6": lambda s, t, r, d: k2.nerf_level_vjp(pts, dirs, t, r, z, bg, noise, g_rgb,
+                                                   g_w, lvl, bf, d, **s),
+        "K2": lambda s, t, r, d: k2.nerf_level_train(pts, dirs, t, r, z, bg, noise, tgt,
+                                                     lw, lvl, bf, d, 0.5, **s)}
+    for k, f in cases.items():
+        out[f"{k} at {R}x{S}"] = _time_pair(lambda f=f: f(se_kw, None, None, None),
+                                            lambda f=f: f({}, *grid, dims))
+    return out
+
+
+def phase19_forms(dev, report, kernels, field_rays: int = 32768) -> str:
+    """Phase 19 (see the top of this file), make_field_fn's check on
+    ``field_rays`` rays. Returns "" or what failed."""
+    import copy
+    import torch
+    from sahs_tpu_torch import native
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.data.common import palette_labels
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.models import fields, nerface
+    from sahs_tpu_torch.train.trace_step import build_step, owner, short_name
+    from sahs_tpu_torch.utils import profiling
+    from sahs_tpu_torch.utils.seg import PALETTE
+    t0 = time.time()
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    fm = _forms_model(dev)
+    out = {"parity": {}, "faults": {}}
+    # 1. the forms against their plain versions, and one fault a form
+    for cdt in ("float32", "bfloat16"):
+        res, faults = forms_parity(fm, dev, cdt)
+        out["parity"][cdt] = res
+        print(f"phase 19 forms ({cdt}) " + json.dumps(res), flush=True)
+        missed = forms_gates_missed(res, cdt)
+        if missed:
+            return f"phase 19: the forms miss their gates ({cdt}): {missed}"
+        if faults:
+            out["faults"] = faults
+            print("phase 19 planted faults (bf16; each must miss its gate) "
+                  + json.dumps(faults), flush=True)
+            passed = [k for k, e in faults.items() if forms_fault_passes(e)]
+            if passed:
+                return f"phase 19: a planted fault passes its gate: {passed}"
+        torch.cuda.empty_cache()
+    out["times"] = forms_times(fm, dev)
+    print("phase 19 each form's ms beside the existing form's at the same shape "
+          "(bf16; new, existing, existing, new) " + json.dumps(out["times"]), flush=True)
+    torch.cuda.empty_cache()
+    # 2. apply_field against make_field_fn's kernel path, one 32,768-ray chunk
+    model = nerface.NeRFaceModel.init(nerface.ModelSpec.from_config(Config()), seed=0,
+                                      device=dev)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512)
+    item = ds[0]
+    R, S = field_rays, 64
+    ro, rd, _, _ = frame_rays(ds, 0, dev, n=R, offset=(512 * 512 - R) // 2)
+    z = torch.linspace(0.2, 0.8, S, device=dev)
+    pts = (ro[:, None, :] + rd[:, None, :] * z[None, :, None]).reshape(-1, 3)
+    drv, pose = (torch.as_tensor(item[k]).to(dev) for k in ("driving", "pose"))
+    with torch.no_grad():
+        field_fn = nerface.make_field_fn(model, drv, pose, use_pallas=True,
+                                         compute_dtype="float32")
+        raw_k = field_fn("fine", pts, rd, S)
+        raw_p = nerface.apply_field(model, "fine", pts, rd.repeat_interleave(S, dim=0),
+                                    drv, pose)
+    torch.cuda.synchronize()
+    err = (raw_k - raw_p).abs()
+    field = {"points": R * S, "max_abs_err": float(err.max()),
+             "over": int((err > FIELD_FN_GATES["atol"]
+                          + FIELD_FN_GATES["rtol"] * raw_p.abs()).sum()),
+             "finite": bool(torch.isfinite(raw_k).all())}
+    out["field_fn"] = field
+    print(f"phase 19 make_field_fn (kernel path, f32) vs apply_field on {R} rays x {S} "
+          + json.dumps(field), flush=True)
+    if field["over"] or not field["finite"]:
+        return f"phase 19: make_field_fn's kernel path misses apply_field: {field}"
+    del pts, raw_k, raw_p, err
+    # 3. the leftover nets, card against CPU
+    nets = {"audio_att": (fields.AudioAttNet, lambda g: (torch.randn(8, 76, generator=g),)),
+            "mask_generator": (fields.MaskGeneratorMLP, lambda g: (
+                torch.randn(4096, 63, generator=g), torch.randn(4096, 27, generator=g),
+                torch.randn(76, generator=g), torch.randn(32, generator=g) * 0.1)),
+            "warp_embedding": (fields.WarpEmbeddingMLP,
+                               lambda g: (torch.randn(4096, 36, generator=g),))}
+    out["nets"] = {}
+    for name, (cls, inputs) in nets.items():
+        g = torch.Generator().manual_seed(5)
+        net = cls(generator=g)
+        xs = inputs(g)
+        with torch.no_grad():
+            y_cpu = net(*xs)
+            y_dev = copy.deepcopy(net).to(dev)(*[x.to(dev) for x in xs]).cpu()
+        out["nets"][name] = abs_err(y_dev, y_cpu)
+    print("phase 19 leftover nets, card vs CPU (max abs) " + json.dumps(out["nets"]),
+          flush=True)
+    if max(out["nets"].values()) > NETS_CPU_GATE:
+        return f"phase 19: a leftover net on the card misses the CPU: {out['nets']}"
+    # 4. a trace of one flagship fused step must name K1, K2 and K3
+    step, state, batch, gen = build_step("fused", dev)
+    state, _ = step(state, batch, generator=gen)        # warm-up
+    logdir = os.path.join(REPO, "build", "phase19", "trace")
+    with profiling.trace(logdir) as prof:
+        state, _ = step(state, batch, generator=gen)
+    with open(prof.trace_path) as fp:
+        names = {short_name(e["name"]) for e in json.load(fp)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    owners = {o for n in names for o in owner(n).replace(",", " ").split()}
+    named = {k: k in owners for k in ("K1", "K2", "K3")}
+    out["trace"] = {"file": os.path.relpath(prof.trace_path, REPO), "named": named,
+                    "kernels": len(names)}
+    print("phase 19 profiling.trace of a fused step " + json.dumps(out["trace"]), flush=True)
+    if not all(named.values()):
+        return f"phase 19: the trace does not name every kernel of the step: {named}"
+    del step, state, batch
+    # 5. the codec on a 512x512 parse map against its numpy version
+    rng = torch.Generator().manual_seed(7)
+    labels = torch.randint(0, 12, (512, 512), generator=rng).numpy()
+    bgr = PALETTE[labels].astype("uint8")
+    bgr[:8] = 17                       # colours of no class
+    t_c = time.time()
+    got = native.palette_to_labels(bgr)
+    codec_ms = (time.time() - t_c) * 1e3
+    t_n = time.time()
+    want = palette_labels(bgr)
+    numpy_ms = (time.time() - t_n) * 1e3
+    codec = {"equal": bool((got == want).all()) and got.dtype == want.dtype,
+             "ms": codec_ms, "numpy_ms": numpy_ms, "library": os.path.relpath(
+                 native.library_path(), REPO)}
+    out["codec"] = codec
+    print("phase 19 parse-map codec, 512x512 (host) " + json.dumps(codec), flush=True)
+    if not codec["equal"]:
+        return "phase 19: the codec differs from its numpy version"
+    launches = {k: f.launches for k, f in counters.items()}
+    out["launches"] = launches
+    out["seconds"] = time.time() - t0
+    report["forms"] = out
+    print(f"phase 19 launches {json.dumps(launches)}; {out['seconds']:.0f} s", flush=True)
+    missing = [k for k in FORMS_KERNELS if not launches[k]]
+    if missing:
+        return f"phase 19: {missing} were not launched"
+    for kk in kernels:
+        key = next((k for k, r in FORMS_KERNELS.items() if r == kk["replaces"]), None)
+        if key:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["kernel forms and leftovers (phase 19)"] = launches[key]
+            kk["launches"] += launches[key]
+    return ""
+
+
 def main(argv) -> int:
     report_path = argv[argv.index("--report") + 1] if "--report" in argv else None
     try:
@@ -3775,12 +4335,13 @@ def main(argv) -> int:
         for line in _build.build_log(name).splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    if "--only-phase" in argv and argv[argv.index("--only-phase") + 1] == "18":
-        # the sharding phase alone, after the build (no kernels line)
-        msg = phase18_sharding(dev, report, [])
+    only = argv[argv.index("--only-phase") + 1] if "--only-phase" in argv else None
+    if only in ("18", "19"):
+        # one phase alone, after the build (no kernels line)
+        msg = (phase18_sharding if only == "18" else phase19_forms)(dev, report, [])
         if msg:
             return fail(msg)
-        print(f"phase 18 alone: {time.time() - T_START:.0f} s", flush=True)
+        print(f"phase {only} alone: {time.time() - T_START:.0f} s", flush=True)
         return 0
 
     cfg = Config()
@@ -4866,6 +5427,12 @@ def main(argv) -> int:
 
     # 18. data parallelism over rays ----------------------------------------
     msg = phase18_sharding(dev, report, kernels)
+    if msg:
+        return fail(msg)
+    torch.cuda.empty_cache()
+
+    # 19. the kernels' remaining input forms, and the leftover modules ------
+    msg = phase19_forms(dev, report, kernels)
     if msg:
         return fail(msg)
     if len(kernels) != 21:

@@ -1,11 +1,17 @@
-// K3: the deformation pair's backward (dW and db only).
+// K3: the deformation pair's backward.
 //
 // Replaces sahs_tpu/ops/pallas/field_mlp.py:deform_pair_vjp (:1098,
-// pallas_call at :1233) with need_gx=False, the fused train path's form
-// (train/fused.py:433-436): from the raw fine points (P, 3) and the packed
+// pallas_call at :1233): from the raw fine points (P, 3) and the packed
 // cotangent g (+ the coarse-slot addend g2) (P, 3 + ambient), the dW and
 // db of the warp trunk (6x128 ReLU, skip at 4) and tanh head and of the
 // hyper trunk (6x64 ReLU, skip at 4) and linear head, conditioning folded.
+// The fused train path asks for nothing more (need_gx=False,
+// train/fused.py:433-436). With gx given (need_gx, field_mlp.py:1089-1094)
+// each net also takes its cotangent back to the shared encoding (layer 0
+// and the skip layer's pe rows, one two-input product, as K14), the two
+// are summed in float32 (warp + hyper), and one PE backward per point
+// gives gx (P, 3) = pe_bwd(x, gpe_warp + gpe_hyper) + (g + g2)[:, :3], the
+// last term the residual of the warped coordinates x + warp(x).
 //
 // Design: per tile, one block recomputes the shared positional encoding
 // and both trunks (the forward of K1), writing each layer's input to a
@@ -35,10 +41,12 @@ struct VjpArgs {
   const float* pts;      // (P, 3)
   const float* g;        // (P, gw) with gw = 3 + ho
   const float* g2;       // (P, gw) or null
+  float* gx;             // (P, 3), or null: no cotangent of the points
   const void* w;         // forward blob (K1's), compute dtype
   const float* b;
   const int* meta;
-  const void* wT;        // transposed blob: per net head, layers L-1 .. 1
+  const void* wT;        // transposed blob: per net head, layers L-1 .. 1;
+                         // with gx, then per net its layer back to the PE
   const float* bT;
   const int* metaT;
   const int* slots;      // act slot offsets [n_act], then gz slot offsets
@@ -60,6 +68,9 @@ __global__ void __launch_bounds__(THREADS) pair_vjp_kernel(VjpArgs a) {
   T* gB = gA + hmax * TP;
   float* fout = reinterpret_cast<float*>(gB + hmax * TP);   // [hmax][TP]
   float* y = fout + hmax * TP;                              // [8][TP]
+  // with gx: the skip layer's gz, and the sum of the nets' PE cotangents
+  T* gS = reinterpret_cast<T*>(y + 8 * TP);                 // [hmax][TP]
+  float* gpe = reinterpret_cast<float*>(gS + hmax * TP);    // [pad8(pe_dim)][TP]
   const T* wblob = reinterpret_cast<const T*>(a.w);
   const T* wT = reinterpret_cast<const T*>(a.wT);
   const long long tile = blockIdx.x;
@@ -122,15 +133,44 @@ __global__ void __launch_bounds__(THREADS) pair_vjp_kernel(VjpArgs a) {
     sahs::mlp_layer<T>(sahs::load_desc(a.metaT, boff), wT, a.bT, gA, nullptr,
                        nullptr, nullptr, fout, TP);
     __syncthreads();
+    const int skip = net == 0 ? a.warp_skip : a.hyper_skip;
+    const bool skip_fires = skip > 0 && skip < L;
     for (int l = L - 1; l >= 0; --l) {
       const sahs::LayerDesc d = sahs::load_desc(a.meta, first + l);
       sahs::dact_step<T>(fout, acts + act_off[aslot + l], d.act, d.n, TP,
                          gzs + gz_off[first + l], gB);
       __syncthreads();
+      if (a.gx != nullptr && skip_fires && l == skip)
+        for (int i = tid; i < d.n * TP; i += blockDim.x) gS[i] = gB[i];
       if (l > 0) {
         sahs::mlp_layer<T>(sahs::load_desc(a.metaT, boff + L - l), wT, a.bT,
                            gB, nullptr, nullptr, nullptr, fout, TP);
         __syncthreads();
+      }
+    }
+    if (a.gx == nullptr) continue;
+    // back to the encoding: gz_0 W_0^T (+ gz_skip W_skip,pe^T), summed
+    // over the two nets in float32
+    const sahs::LayerDesc dpe = sahs::load_desc(a.metaT, a.n_warp + a.n_hyper + net);
+    sahs::mlp_layer<T>(dpe, wT, a.bT, gB, skip_fires ? gS : nullptr, nullptr,
+                       nullptr, fout, TP);
+    __syncthreads();
+    for (int i = tid; i < dpe.n * TP; i += blockDim.x)
+      gpe[i] = net == 0 ? fout[i] : gpe[i] + fout[i];
+    __syncthreads();
+  }
+  if (a.gx == nullptr) return;
+  // the one PE backward, then the residual of the warped coordinates
+  if (tid < TP) {
+    const long long p = base + tid;
+    if (p < a.P) {
+      const float x[3] = {a.pts[p * 3 + 0], a.pts[p * 3 + 1], a.pts[p * 3 + 2]};
+      float gx[3] = {0.0f, 0.0f, 0.0f};
+      sahs::pe_group_bwd(x, 3, a.n_freq, gpe, 0, tid, TP, gx);
+      for (int c = 0; c < 3; ++c) {
+        float gv = a.g[p * gw + c];
+        if (a.g2 != nullptr) gv = __fadd_rn(gv, a.g2[p * gw + c]);
+        a.gx[p * 3 + c] = gx[c] + gv;
       }
     }
   }
@@ -141,8 +181,10 @@ int launch(const VjpArgs& a, int n_work, int chunks, int out_len,
            const int* prods, const int* work, float* part, float* out,
            cudaStream_t stream) {
   const int pe_dim = 3 + 6 * a.n_freq;
-  const size_t smem = (size_t)(pe_dim + 4 * 128) * TP * sizeof(T) +
-                      (size_t)(128 + 8) * TP * sizeof(float);
+  size_t smem = (size_t)(pe_dim + 4 * 128) * TP * sizeof(T) +
+                (size_t)(128 + 8) * TP * sizeof(float);
+  if (a.gx != nullptr)   // gS and gpe
+    smem += (size_t)128 * TP * sizeof(T) + (size_t)(pe_dim + 7) / 8 * 8 * TP * sizeof(float);
   int err = sahs::set_smem(pair_vjp_kernel<T>, smem);
   if (err) return err;
   const long long n_tiles = (a.P + TP - 1) / TP;
@@ -163,10 +205,13 @@ using sahs::bf16;
 __global__ void __launch_bounds__(sahs::TC_THREADS, 2) pair_vjp_tc_kernel(VjpArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int pe_dim = 3 + 6 * a.n_freq;
-  const sahs::SkipLayout ly(pe_dim, false);
+  const bool to_pe = a.gx != nullptr;
+  const sahs::SkipLayout ly(pe_dim, to_pe, sahs::SKIP_KS, to_pe);
   bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
   bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
   bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
+  bf16* gS = to_pe ? reinterpret_cast<bf16*>(smem_raw + ly.gs) : nullptr;
+  float* gpe = to_pe ? reinterpret_cast<float*>(smem_raw + ly.gp) : nullptr;
   bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
   const bf16* wblob = reinterpret_cast<const bf16*>(a.w);
   const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
@@ -185,16 +230,42 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) pair_vjp_tc_kernel(VjpArg
   const sahs::SkipNet hyper = {a.meta, a.n_warp + 1, a.metaT, a.n_warp,
                                a.n_hyper, a.hyper_skip, 1 + a.n_warp,
                                a.g, a.g2, gw, 3, a.ho};
-  sahs::skip_net_tc(warp, wblob, a.b, wT, pe, hA, hB, nullptr, ring, acts,
-                    act_off, gzs, gz_off, base, a.P);
-  sahs::skip_net_tc(hyper, wblob, a.b, wT, pe, hA, hB, nullptr, ring, acts,
-                    act_off, gzs, gz_off, base, a.P);
+  const sahs::Operand none = {nullptr, 0, nullptr};
+  for (int net = 0; net < 2; ++net) {
+    const sahs::SkipNet& s = net == 0 ? warp : hyper;
+    const bf16* g0 = sahs::skip_net_tc(s, wblob, a.b, wT, pe, hA, hB, gS, ring,
+                                       acts, act_off, gzs, gz_off, base, a.P);
+    if (!to_pe) continue;
+    // back to the encoding, one two-input product (as K14's), its f32
+    // result added to the warp net's in gpe: gpe_warp + gpe_hyper
+    const bool skip_fires = s.skip > 0 && s.skip < s.L;
+    const sahs::LayerDesc d = sahs::load_desc(a.metaT, a.n_warp + a.n_hyper + net);
+    sahs::skip_product(sahs::Operand{wT + d.w1, d.k1, g0},
+                       skip_fires ? sahs::Operand{wT + d.w2, d.k2, gS} : none, d.n,
+                       ring, sahs::StoreF32{gpe, nullptr, sahs::ACT_LINEAR, net == 1});
+    __syncthreads();
+  }
+  if (!to_pe) return;
+  // the one PE backward, then the residual of the warped coordinates
+  const int tid = threadIdx.x;
+  const long long p = base + tid;
+  if (tid < sahs::TC_TP && p < a.P) {
+    const float x[3] = {a.pts[p * 3 + 0], a.pts[p * 3 + 1], a.pts[p * 3 + 2]};
+    float gx[3] = {0.0f, 0.0f, 0.0f};
+    sahs::pe_group_bwd(x, 3, a.n_freq, gpe, 0, tid, sahs::TC_LDF, gx);
+    for (int c = 0; c < 3; ++c) {
+      float gv = a.g[p * gw + c];
+      if (a.g2 != nullptr) gv = __fadd_rn(gv, a.g2[p * gw + c]);
+      a.gx[p * 3 + c] = gx[c] + gv;
+    }
+  }
 }
 
 int launch_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
               const int* prods, const int* work, float* part, float* out,
               cudaStream_t stream) {
-  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false);
+  const bool to_pe = a.gx != nullptr;
+  const sahs::SkipLayout ly(3 + 6 * a.n_freq, to_pe, sahs::SKIP_KS, to_pe);
   int err = sahs::set_smem(pair_vjp_tc_kernel, ly.bytes);
   if (err) return err;
   const long long n_tiles = (a.P + sahs::TC_TP - 1) / sahs::TC_TP;
@@ -209,7 +280,7 @@ int launch_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
 }  // namespace
 
 extern "C" int sahs_deform_pair_vjp(
-    const void* pts, long long P, const void* g, const void* g2,
+    const void* pts, long long P, const void* g, const void* g2, void* gx,
     const void* w, const void* b, const void* meta, const void* wT,
     const void* bT, const void* metaT, int n_warp, int n_hyper, int warp_skip,
     int hyper_skip, int n_freq, int ho, int bf16, const void* slots,
@@ -220,6 +291,7 @@ extern "C" int sahs_deform_pair_vjp(
   if (3 + 6 * n_freq > sahs::SKIP_HMAX) return (int)cudaErrorInvalidValue;
   VjpArgs a;
   a.pts = (const float*)pts; a.g = (const float*)g; a.g2 = (const float*)g2;
+  a.gx = (float*)gx;
   a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
   a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
   a.slots = (const int*)slots; a.acts = acts; a.gzs = (float*)gzs;

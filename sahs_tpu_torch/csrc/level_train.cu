@@ -42,7 +42,14 @@
 // the three ray modes (field_mlp.py:nerf_level_vjp / nerf_rayd_vjp and
 // level_train.py with se=None): C = 0, no table and no rows, so launch 1
 // gathers nothing, and launch 3 writes no gse and adds no trilinear
-// dCoords (gx is the PE backward alone).
+// dCoords (gx is the PE backward alone). The ray modes also take JAX's
+// per-point spatial embedding (se (P, C), the non-corner_interp form,
+// field_mlp.py:2130-2142, level_train.py:62): launch 1 reads each point's
+// row rounded to the compute dtype in place of the gather, and launch 3
+// writes gse (P, C) and adds no dCoords. MODE_PTS also takes the
+// pre-encoded inputs of field_mlp.py:nerf_mlp_vjp (ENC_PTS, ENC_EXTRA: the
+// encodings in the compute dtype, no PE; gx and gextra the encodings'
+// cotangents).
 //
 // Why not one pass, as on the TPU: a backward needs all 8 trunk layers,
 // the heads and the PE of every point, 3.5 K values a point, while a block
@@ -100,14 +107,18 @@ constexpr int TP = 32;
 constexpr int THREADS = 256;
 constexpr int CTHREADS = 128;
 enum { MODE_LOSS = 0, MODE_VJP = 1, MODE_RAW = 2, MODE_PTS = 3 };
+// MODE_PTS's pre-encoded inputs (field_mlp.py:nerf_mlp_forward_fused and
+// nerf_mlp_vjp with pe_spec / extra_pe_spec None), bits of Args::enc
+enum { ENC_PTS = 1, ENC_EXTRA = 2 };
 
 struct Args {
   const float* pts;     // (P, PW)
   const int* rows;      // (P,), null in MODE_PTS and when C = 0
   const void* table;    // corner table, compute dtype; null in MODE_PTS and when C = 0
   const float* dirs;    // (R, 3); null in MODE_PTS
-  const float* extra;   // (P, 3 + C), MODE_PTS
-  float* gextra;        // (P, 3 + C), MODE_PTS
+  const float* extra;   // (P, 3 + C), MODE_PTS; with ENC_EXTRA (P, C), compute dtype
+  float* gextra;        // (P, 3 + C), MODE_PTS; with ENC_EXTRA (P, C)
+  const float* se;      // (P, C) per-point spatial embedding, or null (ray modes)
   const float* z;       // (R, S)
   const float* bg;      // (R, 15) or null
   const float* noise;   // (R, S) or null
@@ -128,13 +139,20 @@ struct Args {
   long long R, P, act_stride, gz_stride;
   int S, PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW;
   int n_act, mode;
+  int enc;              // ENC_* bits, MODE_PTS only
+  int kx, ndp;          // rows of the point encoding and of pe(dir) (set_widths)
   float bg_sup;
 };
 
-__device__ __forceinline__ int kx_of(const Args& a) {
-  return 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
+// The encodings' widths: the point's PE (kx), or with ENC_PTS the given
+// encoding's PW columns; the direction's PE (ndp), none with ENC_EXTRA, whose
+// C columns are all of [pe(dir) | se].
+void set_widths(Args& a) {
+  a.kx = (a.enc & ENC_PTS) ? a.PW : 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
+  a.ndp = (a.enc & ENC_EXTRA) ? 0 : 3 + 6 * a.nf_dir;
 }
-__device__ __forceinline__ int ndp_of(const Args& a) { return 3 + 6 * a.nf_dir; }
+__device__ __forceinline__ int kx_of(const Args& a) { return a.kx; }
+__device__ __forceinline__ int ndp_of(const Args& a) { return a.ndp; }
 __host__ __device__ __forceinline__ int pad8(int n) { return (n + 7) / 8 * 8; }
 
 // cell fractions and the zeros-padding predicate (ops/grid._cell_geometry)
@@ -175,29 +193,37 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
   const int tid = threadIdx.x;
 
   const bool per_point = a.mode == MODE_PTS;
+  const bool xenc = a.enc & ENC_PTS, eenc = a.enc & ENC_EXTRA;
   if (tid < TP) {
     const long long p = base + tid;
     const bool valid = p < a.P;
     float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     float d[3] = {0, 0, 0};
-    if (valid) {
+    if (valid && !xenc)
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
+    if (valid && !eenc) {
       const float* dsrc = per_point ? a.extra + p * (3 + C) : a.dirs + p / a.S * 3;
       for (int c = 0; c < 3; ++c) d[c] = dsrc[c];
     }
-    sahs::pe_group<T>(x, 3, a.nf_xyz, xin, 0, tid, TP);
-    if (a.amb > 0)
-      sahs::pe_group<T>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TP);
-    sahs::pe_group<T>(d, 3, a.nf_dir, din, 0, tid, TP);
-  }
-  if (per_point) {
-    // K12: the spatial embedding is given, channel-fastest reads
-    for (int idx = tid; idx < C * TP; idx += blockDim.x) {
-      const int t = idx / C, c = idx % C;
-      const long long p = base + t;
-      din[(ndp + c) * TP + t] =
-          sahs::from_f<T>(p < a.P ? a.extra[p * (3 + C) + 3 + c] : 0.0f);
+    if (!xenc) {
+      sahs::pe_group<T>(x, 3, a.nf_xyz, xin, 0, tid, TP);
+      if (a.amb > 0)
+        sahs::pe_group<T>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TP);
     }
+    if (!eenc) sahs::pe_group<T>(d, 3, a.nf_dir, din, 0, tid, TP);
+  }
+  if (xenc)   // K12 pre-encoded: the point's encoding is given
+    sahs::point_rows<T>(reinterpret_cast<const T*>(a.pts), kx, base, a.P, kx, xin,
+                        0, TP, TP);
+  if (per_point && eenc) {   // [pe(dir) | se] given, in the compute dtype
+    sahs::point_rows<T>(reinterpret_cast<const T*>(a.extra), C, base, a.P, C, din,
+                        0, TP, TP);
+  } else if (per_point) {
+    // K12: the spatial embedding is given, channel-fastest reads
+    sahs::point_rows<T>(a.extra + 3, 3 + C, base, a.P, C, din, ndp, TP, TP);
+  } else if (a.se != nullptr) {
+    // the ray modes on a per-point spatial embedding
+    sahs::point_rows<T>(a.se, C, base, a.P, C, din, ndp, TP, TP);
   } else if (tid < TP && C > 0) {
     const long long p = base + tid;
     const bool valid = p < a.P;
@@ -220,7 +246,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
     rowv[tid] = valid ? a.rows[p] : 0;
   }
   __syncthreads();
-  if (!per_point && C > 0) {
+  if (!per_point && a.se == nullptr && C > 0) {
     for (int idx = tid; idx < C * TP; idx += blockDim.x) {
       const int t = idx / C, c = idx % C;
       const T* row = table + (size_t)rowv[t] * 8 * C;
@@ -591,26 +617,37 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
   // per point: PE backward, corner dCoords (or K12's gextra), outputs
   if (tid < TP) {
     const long long p = base + tid;
+    if (p < a.P && (a.enc & ENC_PTS)) {   // the given encoding's cotangent
+      for (int c = 0; c < kx; ++c) a.gx[p * kx + c] = gxpe[c * TP + tid];
+    }
     if (p < a.P) {
       float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      sahs::pe_group_bwd(x, 3, a.nf_xyz, gxpe, 0, tid, TP, gxo);
-      sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, gxpe, 3 + 6 * a.nf_xyz, tid,
-                         TP, gxo + 3);
+      if (!(a.enc & ENC_PTS)) {
+        for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
+        sahs::pe_group_bwd(x, 3, a.nf_xyz, gxpe, 0, tid, TP, gxo);
+        sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, gxpe, 3 + 6 * a.nf_xyz, tid,
+                           TP, gxo + 3);
+      }
       if (a.mode == MODE_PTS) {
-        // K12: gextra = [the direction's, through its PE | gse]
-        const float* e = a.extra + p * (3 + C);
-        float ge[3] = {0, 0, 0};
-        sahs::pe_group_bwd(e, 3, a.nf_dir, gdin, 0, tid, TP, ge);
-        float* go = a.gextra + p * (3 + C);
-        for (int c = 0; c < 3; ++c) go[c] = ge[c];
-        for (int c = 0; c < C; ++c) go[3 + c] = gdin[(ndp + c) * TP + tid];
-        for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+        if (a.enc & ENC_EXTRA) {   // the given [pe(dir) | se]'s cotangent
+          for (int c = 0; c < C; ++c) a.gextra[p * C + c] = gdin[c * TP + tid];
+        } else {
+          // K12: gextra = [the direction's, through its PE | gse]
+          const float* e = a.extra + p * (3 + C);
+          float ge[3] = {0, 0, 0};
+          sahs::pe_group_bwd(e, 3, a.nf_dir, gdin, 0, tid, TP, ge);
+          float* go = a.gextra + p * (3 + C);
+          for (int c = 0; c < 3; ++c) go[c] = ge[c];
+          for (int c = 0; c < C; ++c) go[3 + c] = gdin[(ndp + c) * TP + tid];
+        }
+        if (!(a.enc & ENC_PTS))
+          for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
         return;
       }
-      if (C == 0) {   // grid-free: no trilinear sample, no gse
+      if (C == 0 || a.se != nullptr) {   // no trilinear sample: no dCoords
         for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+        for (int c = 0; c < C; ++c) a.gse[p * C + c] = gdin[(ndp + c) * TP + tid];
         return;
       }
       float fr[3];
@@ -655,8 +692,7 @@ template <typename T>
 int launch(const Args& a, int n_work, int chunks, int out_len,
            const int* prods, const int* work, float* part, float* out,
            cudaStream_t stream) {
-  const int kx = 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
-  const int ndp = 3 + 6 * a.nf_dir;
+  const int kx = a.kx, ndp = a.ndp;
   const long long n_tiles = (a.P + TP - 1) / TP;
   if (pad8(kx) > a.H || a.B > a.H || a.B < 16) return (int)cudaErrorInvalidValue;
   const size_t sf = fwd_smem<T>(a, kx, ndp), sb = bwd_smem<T>(a, ndp);
@@ -703,8 +739,8 @@ __host__ __device__ __forceinline__ int padk(int n, int ks) { return (n + ks - 1
 struct TcLayout {
   int kx, ndp, xin, din, ha, hb, fring, fwd, t0, t1, f, bring, bwd;
   __host__ __device__ explicit TcLayout(const Args& a, int ks = sahs::TC_KS) {
-    kx = 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
-    ndp = 3 + 6 * a.nf_dir;
+    kx = a.kx;
+    ndp = a.ndp;
     const int row = TC_LD * 2, rowf = TC_LDF * 4, rh = imax(a.H, 2 * a.B);
     xin = 0;
     din = xin + imax(padk(kx, ks) * row, 32 * rowf);
@@ -767,28 +803,36 @@ __device__ __forceinline__ void fwd_tile(const Args& a, unsigned char* smem_raw)
   sahs::zero_rows(xin, kx, padk(kx, KS));
   sahs::zero_rows(din, ndp + C, padk(ndp + C, KS));
   const bool per_point = a.mode == MODE_PTS;
+  const bool xenc = a.enc & ENC_PTS, eenc = a.enc & ENC_EXTRA;
   if (tid < TC_TP) {
     const long long p = base + tid;
     const bool valid = p < a.P;
     float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     float d[3] = {0, 0, 0};
-    if (valid) {
+    if (valid && !xenc)
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
+    if (valid && !eenc) {
       const float* dsrc = per_point ? a.extra + p * (3 + C) : a.dirs + p / a.S * 3;
       for (int c = 0; c < 3; ++c) d[c] = dsrc[c];
     }
-    sahs::pe_group<bf16>(x, 3, a.nf_xyz, xin, 0, tid, TC_LD);
-    if (a.amb > 0)
-      sahs::pe_group<bf16>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TC_LD);
-    sahs::pe_group<bf16>(d, 3, a.nf_dir, din, 0, tid, TC_LD);
-  }
-  if (per_point) {
-    for (int idx = tid; idx < C * TC_TP; idx += blockDim.x) {
-      const int t = idx / C, c = idx % C;
-      const long long p = base + t;
-      din[(ndp + c) * TC_LD + t] =
-          __float2bfloat16_rn(p < a.P ? a.extra[p * (3 + C) + 3 + c] : 0.0f);
+    if (!xenc) {
+      sahs::pe_group<bf16>(x, 3, a.nf_xyz, xin, 0, tid, TC_LD);
+      if (a.amb > 0)
+        sahs::pe_group<bf16>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TC_LD);
     }
+    if (!eenc) sahs::pe_group<bf16>(d, 3, a.nf_dir, din, 0, tid, TC_LD);
+  }
+  if (xenc)   // K11/K12 pre-encoded: the point's bf16 encoding is given
+    sahs::point_rows<bf16>(reinterpret_cast<const bf16*>(a.pts), kx, base, a.P, kx,
+                           xin, 0, TC_TP, TC_LD);
+  if (per_point && eenc) {   // [pe(dir) | se] given in bf16
+    sahs::point_rows<bf16>(reinterpret_cast<const bf16*>(a.extra), C, base, a.P, C,
+                           din, 0, TC_TP, TC_LD);
+  } else if (per_point) {
+    sahs::point_rows<bf16>(a.extra + 3, 3 + C, base, a.P, C, din, ndp, TC_TP, TC_LD);
+  } else if (a.se != nullptr) {
+    // the ray forms on a per-point spatial embedding, rounded to bf16 here
+    sahs::point_rows<bf16>(a.se, C, base, a.P, C, din, ndp, TC_TP, TC_LD);
   } else if (tid < TC_TP && C > 0) {
     const long long p = base + tid;
     const bool valid = p < a.P;
@@ -811,7 +855,7 @@ __device__ __forceinline__ void fwd_tile(const Args& a, unsigned char* smem_raw)
     rowv[tid] = valid ? a.rows[p] : 0;
   }
   __syncthreads();
-  if (!per_point && C > 0) {
+  if (!per_point && a.se == nullptr && C > 0) {
     for (int idx = tid; idx < C * TC_TP; idx += blockDim.x) {
       const int t = idx / C, c = idx % C;
       const bf16* row = table + (size_t)rowv[t] * 8 * C;
@@ -985,7 +1029,10 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
   float gco[3] = {0.0f, 0.0f, 0.0f};   // the corner dCoords, added at the end
   if (tid < TC_TP) {
     const long long p = base + tid;
-    if (p < a.P && a.mode == MODE_PTS) {
+    if (p < a.P && a.mode == MODE_PTS && (a.enc & ENC_EXTRA)) {
+      // K12 pre-encoded: the given [pe(dir) | se]'s cotangent
+      for (int c = 0; c < C; ++c) a.gextra[p * C + c] = F[c * TC_LDF + tid];
+    } else if (p < a.P && a.mode == MODE_PTS) {
       // K12: gextra = [the direction's, through its PE | gse]
       const float* e = a.extra + p * (3 + C);
       float ge[3] = {0, 0, 0};
@@ -993,6 +1040,9 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
       float* go = a.gextra + p * (3 + C);
       for (int c = 0; c < 3; ++c) go[c] = ge[c];
       for (int c = 0; c < C; ++c) go[3 + c] = F[(ndp + c) * TC_LDF + tid];
+    } else if (p < a.P && a.se != nullptr) {
+      // a per-point spatial embedding: gse per point, no dCoords
+      for (int c = 0; c < C; ++c) a.gse[p * C + c] = F[(ndp + c) * TC_LDF + tid];
     } else if (p < a.P && C > 0) {
       float x[3];
       for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
@@ -1054,7 +1104,9 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
   // per point: PE backward, plus the corner dCoords
   if (tid < TC_TP) {
     const long long p = base + tid;
-    if (p < a.P) {
+    if (p < a.P && (a.enc & ENC_PTS)) {   // the given encoding's cotangent
+      for (int c = 0; c < ly.kx; ++c) a.gx[p * ly.kx + c] = F[c * TC_LDF + tid];
+    } else if (p < a.P) {
       float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -1128,66 +1180,76 @@ int launch_level_tc(const Args& a, cudaStream_t stream) {
 }
 
 // The arguments of a bf16 field launch (K7, K11 and K5's first launch):
-// rays (dirs (R, 3), rows and table, or C = 0) or, with `extra` (P, 3 + C)
-// given and S = 1, points. False when they do not fit the kernel.
+// rays (dirs (R, 3), rows and table, or a per-point se (P, C), or C = 0)
+// or, with `extra` (P, 3 + C) given and S = 1, points (with `enc`, ENC_*
+// bits, pre-encoded). False when they do not fit the kernel.
 bool field_args(Args* a, const void* pts, const void* rows, const void* table,
-                const void* dirs, const void* extra, const void* w,
-                const void* b, const void* meta, void* raw, long long R, int S,
-                int PW, int L, int H, int B, int C, int amb, int nf_xyz,
-                int nf_amb, int nf_dir, int gD, int gH, int gW) {
+                const void* dirs, const void* extra, const void* se,
+                const void* w, const void* b, const void* meta, void* raw,
+                long long R, int S, int PW, int L, int H, int B, int C, int amb,
+                int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
+                int enc) {
   const bool per_point = extra != nullptr;
-  if (raw == nullptr || S < 1 || PW < 3 || PW > 8 || amb != PW - 3 ||
-      (per_point && S != 1) ||
+  if (raw == nullptr || S < 1 || enc < 0 || enc > (ENC_PTS | ENC_EXTRA) ||
+      (enc != 0 && (!per_point || se != nullptr)) ||
+      (!(enc & ENC_PTS) && (PW < 3 || PW > 8 || amb != PW - 3)) ||
+      (per_point && (S != 1 || se != nullptr)) ||
       (!per_point && (dirs == nullptr ||
-                      (C > 0 && (rows == nullptr || table == nullptr)))))
+                      (C > 0 && se == nullptr &&
+                       (rows == nullptr || table == nullptr)))))
     return false;
   *a = Args{};
   a->pts = (const float*)pts; a->rows = (const int*)rows; a->table = table;
   a->dirs = (const float*)dirs; a->extra = (const float*)extra;
+  a->se = (const float*)se; a->enc = enc;
   a->mode = per_point ? MODE_PTS : MODE_RAW;
   a->w = w; a->b = (const float*)b; a->meta = (const int*)meta;
   a->raw = (float*)raw;
   a->R = R; a->P = R * S; a->S = S; a->PW = PW; a->L = L; a->H = H; a->B = B;
   a->C = C; a->amb = amb; a->nf_xyz = nf_xyz; a->nf_amb = nf_amb;
   a->nf_dir = nf_dir; a->gD = gD; a->gH = gH; a->gW = gW;
+  set_widths(*a);
   return true;
 }
 
 }  // namespace
 
 // The bf16 raw field (P, 16) on the tensor cores: K7 (rays: pts (R*S, PW),
-// dirs (R, 3), rows and table, or C = 0) or, with `extra` (P, 3 + C) given
-// and S = 1, K11 (per point). Weights: the forward blob of the level
-// backward (nerf_level.point_layers).
+// dirs (R, 3), rows and table, or se (P, C), or C = 0) or, with `extra`
+// (P, 3 + C) given and S = 1, K11 (per point; `enc`: ENC_PTS, pts is the
+// bf16 point encoding (P, PW); ENC_EXTRA, extra is the bf16 [pe(dir) | se]
+// (P, C)). Weights: the forward blob of the level backward
+// (nerf_level.point_layers).
 extern "C" int sahs_nerf_field_tc(
     const void* pts, const void* rows, const void* table, const void* dirs,
-    const void* extra, const void* w, const void* b, const void* meta,
-    void* raw, long long R, int S, int PW, int L, int H, int B, int C,
-    int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
-    void* stream) {
+    const void* extra, const void* se, const void* w, const void* b,
+    const void* meta, void* raw, long long R, int S, int PW, int L, int H,
+    int B, int C, int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH,
+    int gW, int enc, void* stream) {
   if (R <= 0) return 0;
   Args a;
-  if (!field_args(&a, pts, rows, table, dirs, extra, w, b, meta, raw, R, S, PW,
-                  L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW))
+  if (!field_args(&a, pts, rows, table, dirs, extra, se, w, b, meta, raw, R, S,
+                  PW, L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW, enc))
     return (int)cudaErrorInvalidValue;
   return launch_field(a, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// K5 in bf16, one call of two launches: K7's raw field of the rays into
+// K5 in bf16, one call of two launches: K7's raw field of the rays (the
+// spatial embedding from rows and table, or se (P, C), or C = 0) into
 // `raw` (R*S, 16), a float32 scratch, then the compositing forward per ray
 // with z (R, S), the background prior bg (R, 15) and the sigma noise (R,
 // S) (either may be null), rgb_map (R, 16) and weights (R, S) out.
 extern "C" int sahs_nerf_level_tc(
     const void* pts, const void* rows, const void* table, const void* dirs,
-    const void* z, const void* bg, const void* noise, const void* w,
+    const void* se, const void* z, const void* bg, const void* noise, const void* w,
     const void* b, const void* meta, void* raw, void* rgb_map, void* weights,
     long long R, int S, int PW, int L, int H, int B, int C, int amb,
     int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW, void* stream) {
   if (R <= 0) return 0;
   Args a;
   if (z == nullptr || rgb_map == nullptr || weights == nullptr ||
-      !field_args(&a, pts, rows, table, dirs, nullptr, w, b, meta, raw, R, S, PW,
-                  L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW))
+      !field_args(&a, pts, rows, table, dirs, nullptr, se, w, b, meta, raw, R, S,
+                  PW, L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW, 0))
     return (int)cudaErrorInvalidValue;
   a.z = (const float*)z; a.bg = (const float*)bg; a.noise = (const float*)noise;
   a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
@@ -1198,7 +1260,7 @@ extern "C" int sahs_level_train(
     const void* pts, const void* rows, const void* table, const void* dirs,
     const void* z, const void* bg, const void* noise, const void* tgt,
     const void* lw, const void* g_rgb, const void* g_w, const void* extra,
-    void* gextra, int mode, const void* w, const void* b, const void* meta,
+    void* gextra, const void* se, int enc, int mode, const void* w, const void* b, const void* meta,
     const void* wT, const void* bT, const void* metaT, void* rgb_map,
     void* weights, void* gx, void* gse, void* g_bg, void* raw, void* graw,
     void* acts, void* gzs, const void* slots, long long R, int S, int PW,
@@ -1212,15 +1274,19 @@ extern "C" int sahs_level_train(
       (mode == MODE_VJP && (g_rgb == nullptr || g_w == nullptr || raw == nullptr)) ||
       (mode == MODE_RAW && graw == nullptr) ||
       (mode == MODE_PTS && (graw == nullptr || extra == nullptr ||
-                            gextra == nullptr || S != 1)) ||
+                            gextra == nullptr || S != 1 || se != nullptr)) ||
+      enc < 0 || enc > (ENC_PTS | ENC_EXTRA) || (enc != 0 && mode != MODE_PTS) ||
+      (!(enc & ENC_PTS) && (PW < 3 || PW > 8)) ||
       (mode != MODE_PTS &&
        (dirs == nullptr ||
-        (C > 0 && (rows == nullptr || table == nullptr || gse == nullptr)))))
+        (C > 0 && (gse == nullptr ||
+                   (se == nullptr && (rows == nullptr || table == nullptr)))))))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
   a.dirs = (const float*)dirs; a.z = (const float*)z;
   a.extra = (const float*)extra; a.gextra = (float*)gextra;
+  a.se = (const float*)se; a.enc = enc;
   a.bg = (const float*)bg; a.noise = (const float*)noise;
   a.tgt = (const float*)tgt; a.lw = (const float*)lw;
   a.g_rgb = (const float*)g_rgb; a.g_w = (const float*)g_w; a.mode = mode;
@@ -1234,6 +1300,7 @@ extern "C" int sahs_level_train(
   a.S = S; a.PW = PW; a.L = L; a.skip = skip; a.H = H; a.B = B; a.C = C;
   a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb; a.nf_dir = nf_dir;
   a.gD = gD; a.gH = gH; a.gW = gW; a.n_act = n_act; a.bg_sup = bg_sup;
+  set_widths(a);
   auto s = reinterpret_cast<cudaStream_t>(stream);
   auto pr = (const int*)prods;
   auto wk = (const int*)work;

@@ -170,6 +170,23 @@ __device__ __forceinline__ void pe_group(const float* x, int dim, int nfreq,
   }
 }
 
+// Columns [0, dim) of the rows of a per-point input src (row stride
+// `stride`) for the tile's points [base, base + tp), in the compute dtype
+// T (round to nearest from float32, as the JAX callers cast the input
+// before their kernels), written k-major into X (row stride ld) from row
+// row0; zeros past the last point. The whole block takes part, neighbouring
+// threads reading neighbouring columns of a point's row.
+template <typename T, typename S>
+__device__ __forceinline__ void point_rows(const S* src, long long stride,
+                                           long long base, long long P, int dim,
+                                           T* X, int row0, int tp, int ld) {
+  for (int i = threadIdx.x; i < dim * tp; i += blockDim.x) {
+    const int t = i / dim, r = i - t * dim;
+    const long long p = base + t;
+    X[(row0 + r) * ld + t] = from_f<T>(p < P ? to_f(src[p * stride + r]) : 0.0f);
+  }
+}
+
 // PE backward of one coordinate group of one point: the cotangents of its
 // encoding rows G[row0 ..] (pe_group's layout, row stride TP) added into
 // gx[0 .. dim), d(sin t)/dx = cos(t) f with t formed as pe_group forms it.

@@ -26,7 +26,10 @@
 // A model without the spatial-embedding grid runs the grid-free form
 // (field_mlp.py:nerf_render_level :3187, se=None): C = 0, no table and no
 // rows, so no cell geometry and no gather; the direction branch's first
-// layer reads [feat | pe(dir)] (its se block has no rows).
+// layer reads [feat | pe(dir)] (its se block has no rows). The form on a
+// per-point spatial embedding (se (P, C), JAX's non-corner_interp form,
+// field_mlp.py:1997-2032) reads each point's se row, rounded to the
+// compute dtype as JAX casts it, in place of the gather.
 //
 // K7 replaces field_mlp.py:nerf_rayd_forward (:1973, pallas_call at :2040)
 // in its corner_interp form, the raw field of the deformation-reuse path
@@ -66,6 +69,7 @@ struct LevelArgs {
   const int* rows;      // (R*S,) corner-table rows; null when C = 0
   const void* table;    // (rows, 8*C) corner table, compute dtype; null when C = 0
   const float* dirs;    // (R, 3)
+  const float* se;      // (R*S, C) per-point spatial embedding, or null
   const float* z;       // (R, S)
   const float* bg;      // (R, 15) or null
   const float* noise;   // (R, S) or null
@@ -165,7 +169,7 @@ __global__ void __launch_bounds__(THREADS) nerf_level_kernel(LevelArgs a) {
         for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       sahs::pe_group<T>(x, 3, a.nf_xyz, sm.xin, 0, tid, TP);
       if (a.amb > 0) sahs::pe_group<T>(x + 3, a.amb, a.nf_amb, sm.xin, kx_xyz, tid, TP);
-      if (C > 0) {   // the grid-free form has no cell geometry
+      if (C > 0 && a.se == nullptr) {   // a corner gather: the cell geometry
         const int dims[3] = {a.gW, a.gH, a.gD};
         float fr[3];
         bool ok = true;
@@ -190,9 +194,11 @@ __global__ void __launch_bounds__(THREADS) nerf_level_kernel(LevelArgs a) {
         sm.rowv[tid] = valid ? a.rows[p] : 0;
       }
     }
+    if (a.se != nullptr)   // the spatial embedding given per point
+      sahs::point_rows<T>(a.se, C, r * S + s0, r * S + S, C, sm.se, 0, TP, TP);
     __syncthreads();
     // spatial embedding from the gathered corner rows
-    for (int idx = tid; idx < C * TP; idx += blockDim.x) {
+    for (int idx = tid; a.se == nullptr && idx < C * TP; idx += blockDim.x) {
       const int t = idx / C, c = idx % C;
       const T* row = table + (size_t)sm.rowv[t] * 8 * C;
       float acc = 0.0f;
@@ -339,13 +345,13 @@ int launch(const LevelArgs& a, cudaStream_t stream) {
 }
 
 LevelArgs make_args(const void* pts, const void* rows, const void* table,
-                    const void* dirs, const void* w, const void* b,
+                    const void* dirs, const void* se, const void* w, const void* b,
                     const void* meta, long long R, int S, int PW, int n_trunk,
                     int hidden, int branch, int C, int amb, int nf_xyz,
                     int nf_amb, int nf_dir, int gD, int gH, int gW) {
   LevelArgs a = {};
   a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
-  a.dirs = (const float*)dirs;
+  a.dirs = (const float*)dirs; a.se = (const float*)se;
   a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
   a.R = R; a.S = S; a.PW = PW; a.n_trunk = n_trunk; a.hidden = hidden;
   a.branch = branch; a.C = C; a.amb = amb; a.nf_xyz = nf_xyz;
@@ -357,13 +363,13 @@ LevelArgs make_args(const void* pts, const void* rows, const void* table,
 
 extern "C" int sahs_nerf_level_forward(
     const void* pts, const void* rows, const void* table, const void* dirs,
-    const void* z, const void* bg, const void* noise, const void* w,
+    const void* se, const void* z, const void* bg, const void* noise, const void* w,
     const void* b, const void* meta, void* rgb_map, void* weights,
     long long R, int S, int PW, int n_trunk, int hidden, int branch, int C,
     int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
     void* stream) {
   if (R <= 0) return 0;
-  LevelArgs a = make_args(pts, rows, table, dirs, w, b, meta, R, S, PW,
+  LevelArgs a = make_args(pts, rows, table, dirs, se, w, b, meta, R, S, PW,
                           n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb,
                           nf_dir, gD, gH, gW);
   a.z = (const float*)z;
@@ -374,13 +380,13 @@ extern "C" int sahs_nerf_level_forward(
 
 extern "C" int sahs_nerf_rayd_forward(
     const void* pts, const void* rows, const void* table, const void* dirs,
-    const void* w, const void* b, const void* meta, void* raw, long long R,
+    const void* se, const void* w, const void* b, const void* meta, void* raw, long long R,
     int S, int PW, int n_trunk, int hidden, int branch, int C, int amb,
     int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
     void* stream) {
   if (R <= 0) return 0;
   if (raw == nullptr) return (int)cudaErrorInvalidValue;
-  LevelArgs a = make_args(pts, rows, table, dirs, w, b, meta, R, S, PW,
+  LevelArgs a = make_args(pts, rows, table, dirs, se, w, b, meta, R, S, PW,
                           n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb,
                           nf_dir, gD, gH, gW);
   a.raw_out = (float*)raw;

@@ -13,6 +13,10 @@
 //     folded into biases), feat and alpha heads, a 4x128 direction branch
 //     whose first layer reads [feat | pe(dir) | se] (field_mlp.py:1525),
 //     and a 4x128 seg branch to 12 logits.
+// In the pre-encoded form (pe_spec / extra_pe_spec None, field_mlp.py:
+// 3220-3223; ENC_PTS, ENC_EXTRA) the tile reads the point's encoding
+// (P, 81) and [pe(dir) | se] (P, 59) as given, in the compute dtype, and
+// forms no PE.
 // Output raw (P, 16) [rgb3 | seg12 | sigma1], the layout of
 // fields.nerf_mlp_apply. The math is K7's (csrc/nerf_level.cu, RAW) but for
 // the direction term, which K7 forms once per ray.
@@ -39,21 +43,29 @@ namespace {
 constexpr int TP = 64;
 constexpr int THREADS = 256;
 
+// Pre-encoded inputs (pe_spec / extra_pe_spec None), bits of Args::enc:
+// the point's encoding (P, PW) in place of the packed point, and [pe(dir)
+// | se] (P, C) in place of the extra input (no direction PE, ndp 0).
+enum { ENC_PTS = 1, ENC_EXTRA = 2 };
+
 struct Args {
-  const float* pts;     // (P, PW) packed [warped xyz | ambient]
-  const float* extra;   // (P, 3 + C) [raw dir | spatial embedding]
+  const float* pts;     // (P, PW) packed [warped xyz | ambient], or its encoding
+  const float* extra;   // (P, 3 + C) [raw dir | spatial embedding], or (P, C)
   const void* w;        // weight blob, compute dtype
   const float* b;       // bias blob
   const int* meta;      // layer descriptors
   float* out;           // (P, 16)
   long long P;
-  int PW, L, H, B, C, amb, nf_xyz, nf_amb, nf_dir;
+  int PW, L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, enc;
+  __host__ __device__ int kx() const {
+    return (enc & ENC_PTS) ? PW : 3 + 6 * nf_xyz + amb * (1 + 2 * nf_amb);
+  }
+  __host__ __device__ int ndp() const { return (enc & ENC_EXTRA) ? 0 : 3 + 6 * nf_dir; }
 };
 
 template <typename T>
 size_t smem_bytes(const Args& a) {
-  const int kx = 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
-  const int ndp = 3 + 6 * a.nf_dir;
+  const int kx = a.kx(), ndp = a.ndp();
   return (size_t)(kx + ndp + a.C + 2 * a.H) * TP * sizeof(T) +
          (size_t)(8 + 16 + 8) * TP * sizeof(float);
 }
@@ -61,8 +73,7 @@ size_t smem_bytes(const Args& a) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS) nerf_mlp_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int kx = 3 + 6 * a.nf_xyz + a.amb * (1 + 2 * a.nf_amb);
-  const int ndp = 3 + 6 * a.nf_dir, C = a.C, L = a.L, EW = 3 + a.C;
+  const int kx = a.kx(), ndp = a.ndp(), C = a.C, L = a.L, EW = 3 + a.C;
   T* xin = reinterpret_cast<T*>(smem_raw);
   T* din = xin + kx * TP;                 // [pe(dir) ; se]
   T* hA = din + (ndp + C) * TP;
@@ -74,25 +85,30 @@ __global__ void __launch_bounds__(THREADS) nerf_mlp_kernel(Args a) {
   const long long base = (long long)blockIdx.x * TP;
   const int tid = threadIdx.x;
 
+  const bool xenc = a.enc & ENC_PTS, eenc = a.enc & ENC_EXTRA;
   if (tid < TP) {
     const long long p = base + tid;
     float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     float d[3] = {0, 0, 0};
-    if (p < a.P) {
+    if (p < a.P && !xenc)
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
+    if (p < a.P && !eenc)
       for (int c = 0; c < 3; ++c) d[c] = a.extra[p * EW + c];
+    if (!xenc) {
+      sahs::pe_group<T>(x, 3, a.nf_xyz, xin, 0, tid, TP);
+      if (a.amb > 0)
+        sahs::pe_group<T>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TP);
     }
-    sahs::pe_group<T>(x, 3, a.nf_xyz, xin, 0, tid, TP);
-    if (a.amb > 0)
-      sahs::pe_group<T>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TP);
-    sahs::pe_group<T>(d, 3, a.nf_dir, din, 0, tid, TP);
+    if (!eenc) sahs::pe_group<T>(d, 3, a.nf_dir, din, 0, tid, TP);
   }
-  // the spatial embedding, channel-fastest reads of the extra rows
-  for (int i = tid; i < C * TP; i += blockDim.x) {
-    const int t = i / C, c = i % C;
-    const long long p = base + t;
-    din[(ndp + c) * TP + t] = sahs::from_f<T>(p < a.P ? a.extra[p * EW + 3 + c] : 0.0f);
-  }
+  if (xenc)   // the point's encoding, given in the compute dtype
+    sahs::point_rows<T>(reinterpret_cast<const T*>(a.pts), kx, base, a.P, kx, xin,
+                        0, TP, TP);
+  if (eenc)   // [pe(dir) | se], given in the compute dtype
+    sahs::point_rows<T>(reinterpret_cast<const T*>(a.extra), C, base, a.P, C, din,
+                        0, TP, TP);
+  else        // the spatial embedding, channel-fastest reads of the extra rows
+    sahs::point_rows<T>(a.extra + 3, EW, base, a.P, C, din, ndp, TP, TP);
   __syncthreads();
 
   // trunk
@@ -167,16 +183,17 @@ int launch(const Args& a, cudaStream_t stream) {
 extern "C" int sahs_nerf_mlp_forward(
     const void* pts, const void* extra, const void* w, const void* b,
     const void* meta, void* out, long long P, int PW, int n_trunk, int hidden,
-    int branch, int C, int amb, int nf_xyz, int nf_amb, int nf_dir,
+    int branch, int C, int amb, int nf_xyz, int nf_amb, int nf_dir, int enc,
     void* stream) {
   if (P <= 0) return 0;
-  if (PW < 3 || PW > 8 || 2 * branch > hidden || amb != PW - 3)
+  if (enc < 0 || enc > (ENC_PTS | ENC_EXTRA) || 2 * branch > hidden ||
+      (!(enc & ENC_PTS) && (PW < 3 || PW > 8 || amb != PW - 3)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.pts = (const float*)pts; a.extra = (const float*)extra;
   a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
   a.out = (float*)out; a.P = P; a.PW = PW; a.L = n_trunk; a.H = hidden;
   a.B = branch; a.C = C; a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb;
-  a.nf_dir = nf_dir;
+  a.nf_dir = nf_dir; a.enc = enc;
   return launch<float>(a, reinterpret_cast<cudaStream_t>(stream));
 }

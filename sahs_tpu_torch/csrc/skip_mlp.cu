@@ -1,9 +1,11 @@
 // K13 and K14: one deformation MLP on its own, forward and backward.
 //
 // K13 replaces sahs_tpu/ops/pallas/field_mlp.py:skip_mlp_forward (:345,
-// pallas_call at :372) in its raw-coordinate form: the positional encoding
-// of the raw point (10 frequencies, 63 values) is computed in the kernel,
-// then the trunk (the warp field's 6x128 ReLU or the hyper sheet's 6x64,
+// pallas_call at :372). In the raw-coordinate form (pe_spec given) the
+// positional encoding of the raw point (10 frequencies, 63 values) is
+// computed in the kernel; in the pre-encoded form (pe_spec None, enc_dim >
+// 0) the tile reads the given encoding (P, enc_dim) in the compute dtype,
+// as JAX casts it before its kernel (field_mlp.py:354-356). Then the trunk (the warp field's 6x128 ReLU or the hyper sheet's 6x64,
 // skip layer at 4 taking [h ; pe]), the per-frame conditioning already
 // folded into the input and skip biases, then the head and its activation
 // (tanh for the warp field's 3 outputs, linear for the hyper sheet's
@@ -18,7 +20,8 @@
 // also takes the cotangent back to the encoding (layer 0 and the skip
 // layer's pe rows, one two-input product) and through the PE's backward to
 // the raw coordinates: d(sin t)/dx = cos(t) f, with t formed exactly as in
-// the forward.
+// the forward; in the pre-encoded form that product's result is gx, the
+// cotangent of the encoding (P, enc_dim) float32.
 //
 // Bound on the H100: the warp field is ~98,000 multiply-adds a point in the
 // forward against ~24 bytes moved, so operations bound both kernels: 0.83
@@ -57,9 +60,9 @@ __global__ void __launch_bounds__(THREADS)
 skip_mlp_kernel(const float* __restrict__ pts, long long P,
                 const float* __restrict__ wblob, const float* __restrict__ bblob,
                 const int* __restrict__ meta, int n_layers, int hid,
-                int out_dim, int n_freq, float* __restrict__ out) {
+                int out_dim, int n_freq, int enc_dim, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pe_dim = 3 + 6 * n_freq;
+  const int pe_dim = enc_dim > 0 ? enc_dim : 3 + 6 * n_freq;
   float* pe = reinterpret_cast<float*>(smem_raw);
   float* hA = pe + pe_dim * TP;
   float* hB = hA + hid * TP;
@@ -67,7 +70,9 @@ skip_mlp_kernel(const float* __restrict__ pts, long long P,
 
   const long long base = (long long)blockIdx.x * TP;
   const int tid = threadIdx.x;
-  if (tid < TP) {
+  if (enc_dim > 0) {
+    sahs::point_rows<float>(pts, enc_dim, base, P, enc_dim, pe, 0, TP, TP);
+  } else if (tid < TP) {
     const long long p = base + tid;
     float x[3] = {0.0f, 0.0f, 0.0f};
     if (p < P) {
@@ -99,7 +104,7 @@ skip_mlp_kernel(const float* __restrict__ pts, long long P,
 }
 
 struct VjpArgs {
-  const float* pts;      // (P, 3)
+  const void* pts;       // (P, 3) float32, or (P, enc_dim) in the compute dtype
   const float* g;        // (P, out_dim)
   const void* w;         // forward blob (K13's), compute dtype
   const float* b;
@@ -110,16 +115,19 @@ struct VjpArgs {
   const int* slots;      // act slot offsets [n_act], then gz slot offsets
   void* acts;            // activation stash, compute dtype
   float* gzs;            // cotangent stash
-  float* gx;             // (P, 3) or null
+  float* gx;             // (P, 3) or (P, enc_dim), or null
   long long P, act_stride, gz_stride;
-  int n_layers, skip, n_freq, out_dim, n_act;
+  int n_layers, skip, n_freq, enc_dim, out_dim, n_act;
+  // the width of the net's input: the encoding formed here, or the given one
+  __host__ __device__ int pe_dim() const { return enc_dim > 0 ? enc_dim : 3 + 6 * n_freq; }
 };
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) skip_vjp_kernel(VjpArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int TB = TP_BWD;
-  const int pe_dim = 3 + 6 * a.n_freq;
+  const int pe_dim = a.pe_dim();
+  const float* pts = reinterpret_cast<const float*>(a.pts);
   T* pe = reinterpret_cast<T*>(smem_raw);
   T* hA = pe + pe_dim * TB;
   T* hB = hA + HMAX * TB;
@@ -139,11 +147,14 @@ __global__ void __launch_bounds__(THREADS) skip_vjp_kernel(VjpArgs a) {
   const int tid = threadIdx.x;
   const int L = a.n_layers;
 
-  if (tid < TB) {
+  if (a.enc_dim > 0) {
+    sahs::point_rows<T>(reinterpret_cast<const T*>(a.pts), a.enc_dim, base, a.P,
+                        pe_dim, pe, 0, TB, TB);
+  } else if (tid < TB) {
     const long long p = base + tid;
     float x[3] = {0.0f, 0.0f, 0.0f};
     if (p < a.P) {
-      x[0] = a.pts[p * 3 + 0]; x[1] = a.pts[p * 3 + 1]; x[2] = a.pts[p * 3 + 2];
+      x[0] = pts[p * 3 + 0]; x[1] = pts[p * 3 + 1]; x[2] = pts[p * 3 + 2];
     }
     sahs::pe_group<T>(x, 3, a.n_freq, pe, 0, tid, TB);
   }
@@ -199,6 +210,14 @@ __global__ void __launch_bounds__(THREADS) skip_vjp_kernel(VjpArgs a) {
   sahs::mlp_layer<T>(sahs::load_desc(a.metaT, L), wT, a.bT, gB,
                      skip_fires ? gS : nullptr, nullptr, nullptr, fout, TB);
   __syncthreads();
+  if (a.enc_dim > 0) {   // a given encoding: its cotangent is the result
+    for (int i = tid; i < pe_dim * TB; i += blockDim.x) {
+      const int t = i / pe_dim, r = i - t * pe_dim;
+      const long long p = base + t;
+      if (p < a.P) a.gx[p * pe_dim + r] = fout[r * TB + t];
+    }
+    return;
+  }
   // and through the PE: gx[d] = g_x[d] + sum_f f (g_sin cos(x f) +
   // g_cos cos(x f + pi/2)), the angles exactly as pe_group forms them
   if (tid < TB) {
@@ -206,7 +225,7 @@ __global__ void __launch_bounds__(THREADS) skip_vjp_kernel(VjpArgs a) {
     if (p < a.P) {
       float x[3], acc[3];
       for (int d = 0; d < 3; ++d) {
-        x[d] = a.pts[p * 3 + d];
+        x[d] = pts[p * 3 + d];
         acc[d] = fout[d * TB + tid];
       }
       int row = 3;
@@ -227,14 +246,16 @@ __global__ void __launch_bounds__(THREADS) skip_vjp_kernel(VjpArgs a) {
 
 int launch_forward(const float* pts, long long P, const float* w,
                    const float* b, const int* meta, int n_layers, int hid,
-                   int out_dim, int n_freq, float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)(3 + 6 * n_freq + 2 * hid) * TP * sizeof(float) +
+                   int out_dim, int n_freq, int enc_dim, float* out,
+                   cudaStream_t stream) {
+  const int pe_dim = enc_dim > 0 ? enc_dim : 3 + 6 * n_freq;
+  const size_t smem = (size_t)(pe_dim + 2 * hid) * TP * sizeof(float) +
                       8 * TP * sizeof(float);
   int err = sahs::set_smem(skip_mlp_kernel, smem);
   if (err) return err;
   const long long blocks = (P + TP - 1) / TP;
   skip_mlp_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
-      pts, P, w, b, meta, n_layers, hid, out_dim, n_freq, out);
+      pts, P, w, b, meta, n_layers, hid, out_dim, n_freq, enc_dim, out);
   return (int)cudaGetLastError();
 }
 
@@ -242,7 +263,7 @@ template <typename T>
 int launch_vjp(const VjpArgs& a, int n_work, int chunks, int out_len,
                const int* prods, const int* work, float* part, float* out,
                cudaStream_t stream) {
-  const int pe_dim = 3 + 6 * a.n_freq;
+  const int pe_dim = a.pe_dim();
   const size_t smem = (size_t)(pe_dim + 5 * HMAX) * TP_BWD * sizeof(T) +
                       (size_t)(HMAX + 8) * TP_BWD * sizeof(float);
   int err = sahs::set_smem(skip_vjp_kernel<T>, smem);
@@ -275,13 +296,14 @@ constexpr int SKIP_FWD_KS = 32;
 constexpr int SKIP_FWD_BLOCKS = 2;
 
 struct FwdArgs {
-  const float* pts;      // (P, 3)
+  const void* pts;       // (P, 3) float32, or (P, enc_dim) bf16
   const bf16* w;         // forward blob
   const float* b;
   const int* meta;
   float* out;            // (P, out_dim)
   long long P;
-  int n_layers, n_freq, out_dim;
+  int n_layers, n_freq, enc_dim, out_dim;
+  __host__ __device__ int pe_dim() const { return enc_dim > 0 ? enc_dim : 3 + 6 * n_freq; }
 };
 
 // One tile: the encoding, the trunk (skip_trunk_tc, no stash), the head
@@ -293,14 +315,14 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, SKIP_FWD_BLOCKS)
 skip_fwd_tc_kernel(FwdArgs a) {
   static_assert(sahs::SKIP_KS % KS == 0, "the encoding's rows pad to SKIP_KS");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, KS);
+  const sahs::SkipLayout ly(a.pe_dim(), false, KS);
   bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
   bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
   bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
   bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
   const long long base = (long long)blockIdx.x * TC_TP;
 
-  sahs::skip_pe_tile(a.pts, base, a.P, a.n_freq, pe);
+  sahs::skip_input_tile(a.pts, a.enc_dim, base, a.P, a.n_freq, pe);
   __syncthreads();
   const sahs::SkipNet net = {a.meta, 0, nullptr, 0, a.n_layers, 0, 0, nullptr,
                              nullptr, 0, 0, 0};
@@ -321,7 +343,7 @@ skip_fwd_tc_kernel(FwdArgs a) {
 
 int launch_forward_tc(const FwdArgs& a, int hid, cudaStream_t stream) {
   if (hid % sahs::SKIP_KS) return (int)cudaErrorInvalidValue;
-  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, SKIP_FWD_KS);
+  const sahs::SkipLayout ly(a.pe_dim(), false, SKIP_FWD_KS);
   int err = sahs::set_smem(skip_fwd_tc_kernel<SKIP_FWD_KS>, ly.bytes);
   if (err) return err;
   const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
@@ -335,7 +357,7 @@ int launch_forward_tc(const FwdArgs& a, int hid, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(sahs::TC_THREADS, 2) skip_vjp_tc_kernel(VjpArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pe_dim = 3 + 6 * a.n_freq;
+  const int pe_dim = a.pe_dim();
   const bool to_pe = a.gx != nullptr;
   const sahs::SkipLayout ly(pe_dim, to_pe);
   bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
@@ -349,7 +371,7 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) skip_vjp_tc_kernel(VjpArg
   const int* act_off = a.slots;
   const int L = a.n_layers;
 
-  sahs::skip_pe_tile(a.pts, base, a.P, a.n_freq, pe);
+  sahs::skip_input_tile(a.pts, a.enc_dim, base, a.P, a.n_freq, pe);
   __syncthreads();
   sahs::stash_rows(pe, acts + act_off[0], pe_dim);
   const sahs::SkipNet net = {a.meta, 0, a.metaT, 0, L, a.skip, 1, a.g, nullptr,
@@ -369,11 +391,20 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) skip_vjp_tc_kernel(VjpArg
                      skip_fires ? sahs::Operand{wT + d.w2, d.k2, gS} : none, d.n,
                      ring, sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, false});
   __syncthreads();
-  // and through the PE, per point
   const int tid = threadIdx.x;
+  if (a.enc_dim > 0) {   // a given encoding: its cotangent is the result
+    for (int i = tid; i < pe_dim * TC_TP; i += blockDim.x) {
+      const int t = i / pe_dim, r = i - t * pe_dim;
+      const long long p = base + t;
+      if (p < a.P) a.gx[p * pe_dim + r] = F[r * TC_LDF + t];
+    }
+    return;
+  }
+  // and through the PE, per point
+  const float* pts = reinterpret_cast<const float*>(a.pts);
   const long long p = base + tid;
   if (tid < TC_TP && p < a.P) {
-    const float x[3] = {a.pts[p * 3 + 0], a.pts[p * 3 + 1], a.pts[p * 3 + 2]};
+    const float x[3] = {pts[p * 3 + 0], pts[p * 3 + 1], pts[p * 3 + 2]};
     float gx[3] = {0.0f, 0.0f, 0.0f};
     sahs::pe_group_bwd(x, 3, a.n_freq, F, 0, tid, TC_LDF, gx);
     for (int c = 0; c < 3; ++c) a.gx[p * 3 + c] = gx[c];
@@ -383,7 +414,7 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) skip_vjp_tc_kernel(VjpArg
 int launch_vjp_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
                   const int* prods, const int* work, float* part, float* out,
                   cudaStream_t stream) {
-  const sahs::SkipLayout ly(3 + 6 * a.n_freq, a.gx != nullptr);
+  const sahs::SkipLayout ly(a.pe_dim(), a.gx != nullptr);
   int err = sahs::set_smem(skip_vjp_tc_kernel, ly.bytes);
   if (err) return err;
   const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
@@ -400,42 +431,44 @@ int launch_vjp_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
 extern "C" int sahs_skip_mlp_forward(const void* pts, long long P,
                                      const void* w, const void* b,
                                      const void* meta, int n_layers, int hid,
-                                     int out_dim, int n_freq, int bf16,
-                                     void* out, void* stream) {
+                                     int out_dim, int n_freq, int enc_dim,
+                                     int bf16, void* out, void* stream) {
   if (P <= 0) return 0;
-  if (hid > HMAX || out_dim > 8) return (int)cudaErrorInvalidValue;
+  if (hid > HMAX || out_dim > 8 || enc_dim < 0 || enc_dim > HMAX)
+    return (int)cudaErrorInvalidValue;
   auto s = reinterpret_cast<cudaStream_t>(stream);
-  auto x = reinterpret_cast<const float*>(pts);
   auto bb = reinterpret_cast<const float*>(b);
   auto m = reinterpret_cast<const int*>(meta);
   auto o = reinterpret_cast<float*>(out);
   if (bf16) {
-    const FwdArgs a = {x, reinterpret_cast<const sahs::bf16*>(w), bb, m, o, P,
-                       n_layers, n_freq, out_dim};
+    const FwdArgs a = {pts, reinterpret_cast<const sahs::bf16*>(w), bb, m, o, P,
+                       n_layers, n_freq, enc_dim, out_dim};
     return launch_forward_tc(a, hid, s);
   }
-  return launch_forward(x, P, reinterpret_cast<const float*>(w), bb, m, n_layers,
-                        hid, out_dim, n_freq, o, s);
+  return launch_forward(reinterpret_cast<const float*>(pts), P,
+                        reinterpret_cast<const float*>(w), bb, m, n_layers, hid,
+                        out_dim, n_freq, enc_dim, o, s);
 }
 
 extern "C" int sahs_skip_mlp_vjp(
     const void* pts, long long P, const void* g, const void* w,
     const void* b, const void* meta, const void* wT, const void* bT,
-    const void* metaT, int n_layers, int skip, int n_freq, int out_dim,
-    int bf16, const void* slots, void* acts, void* gzs, void* gx, int n_act,
+    const void* metaT, int n_layers, int skip, int n_freq, int enc_dim,
+    int out_dim, int bf16, const void* slots, void* acts, void* gzs, void* gx, int n_act,
     int act_stride, int gz_stride, int n_work, int chunks, int out_len,
     const void* prods, const void* work, void* part, void* out,
     void* stream) {
   if (P <= 0) return 0;
-  if (out_dim > 8 || 3 + 6 * n_freq > HMAX) return (int)cudaErrorInvalidValue;
+  if (out_dim > 8 || enc_dim < 0 || (enc_dim > 0 ? enc_dim : 3 + 6 * n_freq) > HMAX)
+    return (int)cudaErrorInvalidValue;
   VjpArgs a;
-  a.pts = (const float*)pts; a.g = (const float*)g;
+  a.pts = pts; a.g = (const float*)g;
   a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
   a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
   a.slots = (const int*)slots; a.acts = acts; a.gzs = (float*)gzs;
   a.gx = (float*)gx;
   a.P = P; a.act_stride = act_stride; a.gz_stride = gz_stride;
-  a.n_layers = n_layers; a.skip = skip; a.n_freq = n_freq;
+  a.n_layers = n_layers; a.skip = skip; a.n_freq = n_freq; a.enc_dim = enc_dim;
   a.out_dim = out_dim; a.n_act = n_act;
   auto s = reinterpret_cast<cudaStream_t>(stream);
   auto pr = (const int*)prods;

@@ -170,12 +170,14 @@ __device__ bf16* skip_net_tc(const SkipNet& s, const bf16* wblob,
 // 16): the encoding [pad_ks(pe_dim)], hA and hB, and with the product back
 // to the encoding (to_pe) gS, each of SKIP_HMAX rows and, with to_pe, at
 // least as large as that product's f32 result [pad8(pe_dim)] (TC_LDF
-// stride), which takes the tile skip_net_tc leaves free; then the weight
-// ring of ks-row slices for outputs up to max(SKIP_HMAX, pad8(pe_dim))
-// wide.
+// stride), which takes the tile skip_net_tc leaves free; with `pair` (K3's
+// points cotangent) gp, an f32 tile of that result's size where the two
+// nets' results are summed; then the weight ring of ks-row slices for
+// outputs up to max(SKIP_HMAX, pad8(pe_dim)) wide.
 struct SkipLayout {
-  int pe, ha, hb, gs, ring, bytes;
-  __host__ __device__ SkipLayout(int pe_dim, bool to_pe, int ks = SKIP_KS) {
+  int pe, ha, hb, gs, gp, ring, bytes;
+  __host__ __device__ SkipLayout(int pe_dim, bool to_pe, int ks = SKIP_KS,
+                                 bool pair = false) {
     const int n_pe = (pe_dim + 7) / 8 * 8;
     int h = SKIP_HMAX * TC_LD * 2;
     if (to_pe && n_pe * TC_LDF * 4 > h) h = n_pe * TC_LDF * 4;
@@ -184,6 +186,8 @@ struct SkipLayout {
     hb = ha + h;
     gs = hb + h;
     ring = gs + (to_pe ? SKIP_HMAX * TC_LD * 2 : 0);
+    gp = ring;
+    if (pair) ring += n_pe * TC_LDF * 4;
     bytes = ring + ring_bytes(n_pe > SKIP_HMAX ? n_pe : SKIP_HMAX, ks);
   }
 };
@@ -203,6 +207,21 @@ __device__ __forceinline__ void skip_pe_tile(const float* pts, long long base,
     }
     pe_group<bf16>(x, 3, n_freq, pe, 0, t, TC_LD);
   }
+}
+
+// The tile's input: skip_pe_tile's encoding of the raw points (P, 3)
+// float32 when enc_dim is 0, else the rows of a given bf16 encoding
+// (P, enc_dim) (rows [enc_dim, pad_ks(enc_dim)) zero).
+__device__ __forceinline__ void skip_input_tile(const void* in, int enc_dim,
+                                                long long base, long long P,
+                                                int n_freq, bf16* pe) {
+  if (enc_dim == 0) {
+    skip_pe_tile(reinterpret_cast<const float*>(in), base, P, n_freq, pe);
+    return;
+  }
+  zero_rows(pe, enc_dim, pad_ks(enc_dim));
+  point_rows<bf16>(reinterpret_cast<const bf16*>(in), enc_dim, base, P, enc_dim,
+                   pe, 0, TC_TP, TC_LD);
 }
 
 }  // namespace sahs

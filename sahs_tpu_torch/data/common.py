@@ -76,12 +76,15 @@ def read_parse_map(path: str, h: int, w: int) -> np.ndarray:
     parse maps with cv2 (BGR) and matches them against the RGB palette
     (nerface_dataloader.py:180-183, utils.py:27-66): the files store the
     palette's colours in BGR order, and the BGR-read pixels are matched
-    against the RGB palette, as the reference does."""
+    against the RGB palette, as the reference does. The match runs in the
+    host C++ codec (``native.palette_to_labels``; ``palette_labels`` is its
+    plain version)."""
+    from ..native import palette_to_labels
     cv2 = _cv2()
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
     if bgr is None:
         raise FileNotFoundError(path)
-    labels = palette_labels(bgr)
+    labels = palette_to_labels(bgr)
     if labels.shape != (h, w):
         labels = cv2.resize(labels, dsize=(w, h), interpolation=cv2.INTER_NEAREST)
     return labels

@@ -5,6 +5,11 @@ Architectural parity targets in the reference:
   - WarpFieldMLP   nerf-pytorch/nerf/modules.py:323-398
   - HyperSheetMLP  nerf-pytorch/nerf/modules.py:401-462
   - AudioNet       nerf-pytorch/nerf/modules.py:43-73
+  - AudioAttNet    nerf-pytorch/nerf/modules.py:30-36
+  - MaskGeneratorMLP  nerf-pytorch/nerf/modules.py:76-165 (named by the
+                   config key models.mask.module, never built by the
+                   reference's scripts)
+  - WarpEmbeddingMLP  nerf-pytorch/nerf/modules.py:298-321 (unused there)
 
 Module and parameter names follow the JAX parameter tree (``trunk``,
 ``out``, ``fc_feat``, ``dir``, ...), so ``utils/weights.params_from_jax``
@@ -329,6 +334,95 @@ class AudioNet(nn.Module):
         x = act(self.fc1(x))
         x = self.fc2(x)
         return x[0] if audio.dim() == 2 else x
+
+
+class AudioAttNet(nn.Module):
+    """Temporal attention over a window of driving vectors (reference
+    modules.py:30-36): five same-padded kernel-3 convs over the window
+    (dim_aud -> 16 -> 8 -> 4 -> 2 -> 1 channels, leaky 0.02), a linear
+    layer over the window and a softmax; the window's weighted sum."""
+
+    def __init__(self, *, generator: torch.Generator, dim_aud: int = 32,
+                 seq_len: int = 8):
+        super().__init__()
+        self.dim_aud = dim_aud
+        chans = [(dim_aud, 16), (16, 8), (8, 4), (4, 2), (2, 1)]
+        self.convs = nn.ModuleList(
+            [torch.nn.utils.skip_init(nn.Conv1d, cin, cout, 3, padding=1)
+             for cin, cout in chans])
+        self.fc = linear(seq_len, seq_len)
+        init_uniform_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (seq_len, dim) -> (dim,)."""
+        y = x[None, :, :self.dim_aud].transpose(1, 2)      # (1, dim_aud, seq) NCW
+        for conv in self.convs:
+            y = leaky_relu(conv(y), 0.02)
+        att = torch.softmax(self.fc(y[0, 0]), dim=-1)
+        return torch.sum(att[:, None] * x, dim=0)
+
+
+class MaskGeneratorMLP(nn.Module):
+    """The NeRF MLP variant with a one-channel seg head and a latent-code
+    input (reference modules.py:76-165): a 6 x 256 leaky trunk over
+    [pe(xyz) | latent code | driving], skip at 3; output (P, 5) = rgb3 |
+    seg1 | alpha1. Two of the reference's quirks are kept: its seg branch
+    re-reads ``feat`` at every layer, so only ``seg[3]`` (applied to feat)
+    matters; its direction branch applies ``dir[0:3]``, so ``dir[3]`` has
+    weights and no use."""
+
+    def __init__(self, *, generator: torch.Generator, num_encoding_fn_xyz: int = 10,
+                 num_encoding_fn_dir: int = 4, include_driving: bool = True,
+                 latent_code_dim: int = 32):
+        super().__init__()
+        dim_xyz = encoded_dim(3, num_encoding_fn_xyz, True)
+        dim_dir = encoded_dim(3, num_encoding_fn_dir, True)
+        input_dim = dim_xyz + latent_code_dim + (DRIVING_DIM if include_driving else 0)
+        self.include_driving = include_driving
+        self.trunk = SkipTrunk(input_dim, 256, 6, 3)
+        self.fc_feat = linear(256, 256)
+        self.fc_alpha = linear(256, 1)
+        self.dir = nn.ModuleList([linear(d, 256) for d in (256 + dim_dir, 256, 256, 256)])
+        self.fc_rgb = linear(256, 3)
+        self.seg = nn.ModuleList([linear(256, 256) for _ in range(4)])
+        self.fc_seg = linear(256, 1)
+        init_uniform_(self, generator)
+
+    def forward(self, xyz_embed: torch.Tensor, dirs_embed: torch.Tensor,
+                driving: Optional[torch.Tensor],
+                latent_code: torch.Tensor) -> torch.Tensor:
+        act = lambda v: leaky_relu(v, 0.01)
+        n = xyz_embed.shape[:-1]
+        parts = [xyz_embed, latent_code.expand(*n, latent_code.shape[-1])]
+        if driving is not None:
+            parts.append(driving.expand(*n, DRIVING_DIM))
+        h = self.trunk(torch.cat(parts, dim=-1), act)
+        feat = self.fc_feat(h)
+        alpha = self.fc_alpha(feat)
+        seg = self.fc_seg(act(self.seg[3](feat)))
+        x = act(self.dir[0](torch.cat([feat, dirs_embed], dim=-1)))
+        for lin in self.dir[1:3]:
+            x = act(lin(x))
+        return torch.cat([self.fc_rgb(x), seg, alpha], dim=-1)
+
+
+class WarpEmbeddingMLP(nn.Module):
+    """A small ReLU MLP (reference modules.py:298-321, unused there):
+    input_s -> hidden x (num_layers - 1) -> output_s, ReLU after every
+    layer, the last one too."""
+
+    def __init__(self, *, generator: torch.Generator, num_layers: int = 4,
+                 hidden_size: int = 64, input_s: int = 36, output_s: int = 36):
+        super().__init__()
+        dims = [input_s] + [hidden_size] * (num_layers - 1) + [output_s]
+        self.layers = nn.ModuleList([linear(dims[i], dims[i + 1])
+                                     for i in range(num_layers)])
+        init_uniform_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lin in self.layers:
+            x = torch.relu(lin(x))
+        return x
 
 
 def spatial_grid(generator: torch.Generator) -> torch.Tensor:

@@ -423,3 +423,32 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
         return nerf_fn(level, front_half(pts_flat, samples), dirs_ray, samples)
 
     return RenderFns(field_fn, level_fn, front_half, nerf_fn)
+
+
+def make_field_fn(model: NeRFaceModel, driving_or_audio: torch.Tensor,
+                  pose: torch.Tensor, latent_code=None, use_pallas: bool = False,
+                  compute_dtype: str = "bfloat16"):
+    """``make_render_fns``' field_fn alone (nerface.py:490-497):
+    field_fn(level, pts_flat (P, 3), dirs_ray (R, 3), samples) -> (P, 16),
+    on the kernel path with ``use_pallas``."""
+    return make_render_fns(model, driving_or_audio, pose, latent_code=latent_code,
+                           use_pallas=use_pallas, compute_dtype=compute_dtype)[0]
+
+
+def apply_field(model: NeRFaceModel, level: str, points: torch.Tensor,
+                viewdirs: Optional[torch.Tensor], driving_or_audio: torch.Tensor,
+                pose: torch.Tensor,
+                latent_code: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-point field in plain tensor math, the kernel path's oracle
+    (nerface.py:500-517): (P, 3) points and (P, 3) raw view directions ->
+    (P, 16) raw field. ``pose`` is the (3, 4) camera pose, encoded once a
+    call: map_points, then the grid sample at the warped points, then the
+    level's query."""
+    driving = compute_driving(model, driving_or_audio)
+    pose_enc = encode_pose(pose)
+    mapped = map_points(model, points, driving, pose_enc)
+    se = None
+    if model.spec.use_spatial_embeddings:
+        se = grid_sample_3d(model.spatial_embeddings, mapped[..., :3])
+    return query_template(model, level, mapped, viewdirs, driving, pose_enc,
+                          latent_code, se)

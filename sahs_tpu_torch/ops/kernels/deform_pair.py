@@ -11,17 +11,22 @@ blob); in float32 on the CUDA cores. A bf16 pair whose trunks are not
 multiples of ``skip_mlp.TC_K_STEP`` wide raises.
 
 K3 replaces ``field_mlp.py:deform_pair_vjp`` (:1098, ``pallas_call`` at
-:1233) with need_gx=False, the train path's form: the dW and db of both
-trunks and heads from the packed cotangent g (+ an addend g2). The CUDA
-kernel is ``csrc/deform_pair_vjp.cu``: in bfloat16 on the tensor cores
-over 64-point tiles (``csrc/skip_tc.cuh``), in float32 on the CUDA cores
-over 32-point tiles (``field_mlp.tile_points``; the stash follows the
-tile).
+:1233): the dW and db of both trunks and heads from the packed cotangent g
+(+ an addend g2), and with need_gx the cotangent of the raw points
+(field_mlp.py:1089-1094): gx = pe_bwd(x, gpe_warp + gpe_hyper) + g[:, :3],
+the two nets' PE cotangents summed before the one shared PE backward, then
+the residual of the warped coordinates. The train path asks for no gx
+(need_gx=False) and runs as it did before that form existed: the same
+plan, the same launches. The CUDA kernel is ``csrc/deform_pair_vjp.cu``:
+in bfloat16 on the tensor cores over 64-point tiles
+(``csrc/skip_tc.cuh``), in float32 on the CUDA cores over 32-point tiles
+(``field_mlp.tile_points``; the stash follows the tile).
 
 ``deform_pair_apply_fused`` is the differentiable pair (field_mlp.py:
-1284-1354, need_input_grad=False): a ``torch.autograd.Function`` whose
-forward is K1 and whose backward is K3, with the gradient going to the
-warp and hyper parameters and to the conditioning; the points get none.
+1284-1354): a ``torch.autograd.Function`` whose forward is K1 and whose
+backward is K3, with the gradient going to the warp and hyper parameters,
+to the conditioning and, only when autograd asks for it, to the points
+(JAX's need_input_grad; the model path asks for none).
 
 Each wrapper launches its kernel for tensors on a CUDA device and counts
 the call in ``<wrapper>.launches``; for tensors on the CPU it runs the
@@ -39,8 +44,9 @@ from ..grid import _cell_geometry
 from . import _build
 from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
                         dact, dw_chunks, fold_trunk, kernel_pe, linear_params,
-                        mm, mm_t, tile_points, torch_dtype, trunk_backward,
-                        trunk_forward, trunk_into_blob, trunk_params)
+                        mm, mm_t, pe_backward, tile_points, torch_dtype,
+                        trunk_backward, trunk_forward, trunk_into_blob,
+                        trunk_params)
 from .skip_mlp import TC_K_STEP, skip_param_grads
 
 
@@ -180,12 +186,16 @@ def _launch(points: torch.Tensor, weights: PairWeights, dtype: torch.dtype,
 # K3: the pair's backward
 # ---------------------------------------------------------------------------
 
-def pair_train_plan(weights: PairWeights, dtype: torch.dtype) -> TrainPlan:
+def pair_train_plan(weights: PairWeights, dtype: torch.dtype,
+                    need_gx: bool = False) -> TrainPlan:
     """K3's plan: the forward blob of K1, a blob of transposed head and
     trunk weights in backward order (per net: head, then layers L-1 .. 1,
     the skip layer by its hidden rows), the activation slots [pe, warp h_0
-    .. h_{L-1}, hyper h_0 .. h_{L-1}] and the products of every layer."""
-    key = ("train", dtype)
+    .. h_{L-1}, hyper h_0 .. h_{L-1}] and the products of every layer.
+    With ``need_gx`` the transposed blob also ends with each net's layer
+    back to the encoding (warp, then hyper: layer 0 and the skip layer's pe
+    rows, one two-input layer, as K14's); the rest is the plan without."""
+    key = ("train", dtype) + (("gx",) if need_gx else ())
     if key not in weights._blobs:
         fwd, bwd = BlobBuilder(), BlobBuilder()
         trunk_into_blob(fwd, weights.warp_trunk, weights.warp_skip, "relu",
@@ -209,6 +219,14 @@ def pair_train_plan(weights: PairWeights, dtype: torch.dtype) -> TrainPlan:
             bwd.layer(out["w"].t(), zeros, "linear")
             for i in range(len(trunk) - 1, 0, -1):
                 bwd.layer(trunk[i]["w"][:hid].t(), zeros, "linear")
+        if need_gx:
+            for trunk, skip in ((weights.warp_trunk, weights.warp_skip),
+                                (weights.hyper_trunk, weights.hyper_skip)):
+                hid = trunk[0]["w"].shape[1]
+                fires = 0 < skip < len(trunk)
+                bwd.layer(trunk[0]["w"].t(),
+                          torch.zeros(pe_rows, device=trunk[0]["w"].device),
+                          "linear", w2=trunk[skip]["w"][hid:].t() if fires else None)
         weights._blobs[key] = build_train_plan(fwd, bwd, act_rows, inputs,
                                                tile_points(dtype), dtype)
     return weights._blobs[key]
@@ -220,18 +238,22 @@ def _pair_grads(warp_layers, hyper_layers):
 
 
 def deform_pair_vjp_plain(points: torch.Tensor, weights: PairWeights,
-                          g: torch.Tensor, g2, compute_dtype: str):
-    """Backward of K1 (field_mlp.py:_pair_bwd_math :1038-1095, need_gx
-    False): both trunks recomputed from the shared PE of the raw points
-    (P, 3), the packed cotangent g (+ g2) (P, 3 + ambient) taken back
-    through the tanh warp head and the linear hyper head. Returns
-    {"warp"|"hyper": {"trunk": [{"w", "b"}] folded, "out": {"w", "b"}}}."""
+                          g: torch.Tensor, g2, compute_dtype: str,
+                          need_gx: bool = False):
+    """Backward of K1 (field_mlp.py:_pair_bwd_math :1038-1095): both trunks
+    recomputed from the shared PE of the raw points (P, 3), the packed
+    cotangent g (+ g2) (P, 3 + ambient) taken back through the tanh warp
+    head and the linear hyper head. Returns {"warp"|"hyper": {"trunk":
+    [{"w", "b"}] folded, "out": {"w", "b"}}}; with ``need_gx`` (gx, that
+    tree), gx (P, 3) float32 the cotangent of the raw points: the PE
+    backward of the two nets' summed PE cotangents, plus the cotangent of
+    the warped coordinates (the residual x of x + warp(x))."""
     dtype = torch_dtype(compute_dtype)
     with torch.no_grad():
         pe = kernel_pe(points, weights.pe_groups)
         gval = g.to(torch.float32) if g2 is None else (
             g.to(torch.float32) + g2.to(torch.float32))
-        nets = []
+        nets, gpe = [], None
         for trunk, out, skip, act, cols in (
                 (weights.warp_trunk, weights.warp_out, weights.warp_skip,
                  "tanh", slice(0, 3)),
@@ -244,19 +266,26 @@ def deform_pair_vjp_plain(points: torch.Tensor, weights: PairWeights,
             gz = gval[:, cols] * dact(act, y)
             head = {"w": mm_t(h, gz, dtype), "b": torch.sum(gz, dim=0)}
             ga = mm(gz, out["w"].t(), dtype)
-            _, tg = trunk_backward(trunk, pe, acts, ga, skip, "relu", dtype,
-                                   need_gx=False)
+            gp, tg = trunk_backward(trunk, pe, acts, ga, skip, "relu", dtype,
+                                    need_gx=need_gx)
+            gpe = gp if gpe is None else gpe + gp
             nets.append(tg + [head])
-    return _pair_grads(*nets)
+        grads = _pair_grads(*nets)
+        if not need_gx:
+            return grads
+        gx = pe_backward(points, gpe, weights.pe_groups) + gval[:, :3]
+    return gx, grads
 
 
 def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
-                    g: torch.Tensor, g2, compute_dtype: str):
+                    g: torch.Tensor, g2, compute_dtype: str,
+                    need_gx: bool = False):
     """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Same arguments and results as ``deform_pair_vjp_plain``.
     One call is one count, whatever the number of launches inside."""
     if points.device.type == "cpu":
-        return deform_pair_vjp_plain(points, weights, g, g2, compute_dtype)
+        return deform_pair_vjp_plain(points, weights, g, g2, compute_dtype,
+                                     need_gx)
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     dtype = torch_dtype(compute_dtype)
@@ -267,7 +296,7 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
         raise ValueError(f"K3 cotangents must be ({P}, {gw}), got g "
                          f"{tuple(g.shape)}, g2 "
                          f"{None if g2 is None else tuple(g2.shape)}")
-    plan = pair_train_plan(weights, dtype)
+    plan = pair_train_plan(weights, dtype, need_gx)
     if plan.fwd[0].device != points.device:
         raise ValueError(f"K3 weights are on {plan.fwd[0].device}, points on "
                          f"{points.device}")
@@ -282,11 +311,12 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
     chunks = dw_chunks(n_tiles)
     part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
     out = torch.empty(plan.out_len, dtype=f32, device=dev)
+    gx = torch.empty((P, 3), dtype=f32, device=dev) if need_gx else None
     p = _build.ptr
     fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp",
-                         "plpp" + "ppp" + "ppp" + "iiiiiii" + "p"
+                         "plppp" + "ppp" + "ppp" + "iiiiiii" + "p"
                          + "pp" + "i" * 6 + "pppp" + "p")
-    rc = fn(p(points), P, p(g), p(g2), *[p(t) for t in plan.fwd],
+    rc = fn(p(points), P, p(g), p(g2), p(gx), *[p(t) for t in plan.fwd],
             *[p(t) for t in plan.bwd], len(weights.warp_trunk),
             len(weights.hyper_trunk), weights.warp_skip, weights.hyper_skip,
             weights.pe_groups[0][2], gw - 3, int(dtype == torch.bfloat16),
@@ -298,7 +328,8 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
     deform_pair_vjp.launches += 1
     layers = plan.unpack(out)
     nw = len(weights.warp_trunk) + 1
-    return _pair_grads(layers[:nw], layers[nw:])
+    grads = _pair_grads(layers[:nw], layers[nw:])
+    return (gx, grads) if need_gx else grads
 
 
 deform_pair_vjp.launches = 0
@@ -335,10 +366,10 @@ class PairOp:
 
 class _DeformPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, op, cond, *params):
+    def forward(ctx, op, cond, points, *params):
         ctx.op = op
         ctx.save_for_backward(cond)
-        packed, rows = deform_pair_forward(op.points, op.weights,
+        packed, rows = deform_pair_forward(points, op.weights,
                                            op.compute_dtype, op.samples,
                                            op.grid_dims)
         if rows is not None:
@@ -349,15 +380,17 @@ class _DeformPair(torch.autograd.Function):
     def backward(ctx, g_packed, _):
         op = ctx.op
         (cond,) = ctx.saved_tensors
-        pair_g = deform_pair_vjp(op.points, op.weights, g_packed, None,
-                                 op.compute_dtype)
+        need_gx = ctx.needs_input_grad[2]
+        out = deform_pair_vjp(op.points, op.weights, g_packed, None,
+                              op.compute_dtype, need_gx=need_gx)
+        gx, pair_g = out if need_gx else (None, out)
         by_param, dcond = pair_param_grads(op.warp, op.hyper, pair_g, cond)
-        return (None, dcond, *[by_param.get(p) for p in op.params])
+        return (None, dcond, gx, *[by_param.get(p) for p in op.params])
 
 
 def deform_pair_apply_fused(op: PairOp, cond: torch.Tensor):
     """The deformation pair, differentiable with respect to the modules'
-    parameters and ``cond``: (packed (P, 3 + ambient), rows (P // S, S) |
-    None)."""
-    return _DeformPair.apply(op, cond, *op.params)
+    parameters, ``cond`` and, when ``op.points`` asks for a gradient, the
+    points: (packed (P, 3 + ambient), rows (P // S, S) | None)."""
+    return _DeformPair.apply(op, cond, op.points, *op.params)
 

@@ -21,6 +21,15 @@ in their grid-free form (JAX: ``field_mlp.py:nerf_render_level`` :3187 and
 rows in the op; K5/K6 and K7/K8 run with C = 0 and the backward has no
 dGrid (no K9).
 
+The level ops also take JAX's third source of the se columns, a per-point
+spatial embedding (P, C) given as a differentiable input in place of the
+grid (field_mlp.py:nerf_render_level :3187 and nerf_mlp_apply_rayd :2399
+with se (P, C)):
+
+  nerf_render_level_se     forward K5, backward K6 and the conditioning
+                           unfold; se's gradient is K6's gse
+  nerf_mlp_apply_rayd_se   forward K7, backward K8 and the unfold
+
 All are differentiable with respect to the NeRF module's parameters, their
 point inputs, the conditioning (and so AudioNet and the latent code behind
 it); the grid-coupled ops also to the grid and, for the level op, the
@@ -169,6 +178,62 @@ def nerf_mlp_apply_rayd_grid(op: GridLevelOp, grid: Optional[torch.Tensor],
     return _RaydGrid.apply(op, pts_raw, cond, grid, *op.params)
 
 
+class _LevelSe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, pts_raw, bg, cond, se, *params):
+        ctx.op = op
+        ctx.save_for_backward(pts_raw, bg, cond, se)
+        return nerf_level_forward(pts_raw, op.dirs, None, None, op.z, bg, op.noise,
+                                  op.weights, op.compute_dtype, None, se=se)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_w):
+        op = ctx.op
+        pts_raw, bg, cond, se = ctx.saved_tensors
+        gx, gse, g_bg, grads = nerf_level_vjp(
+            pts_raw, op.dirs, None, None, op.z, bg, op.noise, g_rgb, g_w,
+            op.weights, op.compute_dtype, None, se=se)
+        dcond, _, dparams = _backward_tail(op, pts_raw, None, grads, cond)
+        return (None, gx, g_bg, dcond, gse, *dparams)
+
+
+class _RaydSe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, pts_raw, cond, se, *params):
+        ctx.op = op
+        ctx.save_for_backward(pts_raw, cond, se)
+        return nerf_rayd_forward(pts_raw, op.dirs, None, None, op.weights,
+                                 op.compute_dtype, None, se=se)
+
+    @staticmethod
+    def backward(ctx, g):
+        op = ctx.op
+        pts_raw, cond, se = ctx.saved_tensors
+        gx, gse, grads = nerf_rayd_vjp(pts_raw, op.dirs, None, None, g, op.weights,
+                                       op.compute_dtype, None, se=se)
+        dcond, _, dparams = _backward_tail(op, pts_raw, None, grads, cond)
+        return (None, gx, dcond, gse, *dparams)
+
+
+def nerf_render_level_se(op: GridLevelOp, se: torch.Tensor,
+                         pts_raw: torch.Tensor, bg: Optional[torch.Tensor],
+                         cond: torch.Tensor):
+    """The level on a per-point spatial embedding se (P, C) (JAX's
+    nerf_render_level with se (P, C), field_mlp.py:3187): ``op`` without
+    table, rows or grid; otherwise as ``nerf_render_level_grid``, se taking
+    the place of the grid. Returns (rgb_map (R, 16), weights (R, S))."""
+    return _LevelSe.apply(op, pts_raw, bg, cond, se, *op.params)
+
+
+def nerf_mlp_apply_rayd_se(op: GridLevelOp, se: torch.Tensor,
+                           pts_raw: torch.Tensor,
+                           cond: torch.Tensor) -> torch.Tensor:
+    """The raw field on a per-point spatial embedding se (P, C) (JAX's
+    nerf_mlp_apply_rayd with se, field_mlp.py:2399): ``op`` without table,
+    rows or grid. Returns (P, 16) [rgb3 | seg12 | sigma1]."""
+    return _RaydSe.apply(op, pts_raw, cond, se, *op.params)
+
+
 @dataclasses.dataclass
 class PointOp:
     """What the per-point op holds beside its differentiable inputs: the
@@ -204,7 +269,10 @@ def nerf_mlp_apply_fused(op: PointOp, pts_raw: torch.Tensor,
     """The per-point NeRF field (field_mlp.py:1356-1428): pts_raw (P, 3 +
     ambient) packed [warped | ambient], extra (P, 3 + C) [raw dir | spatial
     embedding] (the direction alone, C = 0, without a grid), cond the
-    level's conditioning, folded into the weights.
+    level's conditioning, folded into the weights. A level folded without
+    PE groups takes the encodings instead (JAX's form without pe specs):
+    pts_embed (P, kx) and dir_extra (P, n_dir + C), and their gradients
+    are those of the encodings.
     Forward K11, backward K12 and the conditioning unfold; differentiable
     with respect to the module's parameters, both inputs and ``cond``.
     Returns (P, 16) [rgb3 | seg12 | sigma1]."""

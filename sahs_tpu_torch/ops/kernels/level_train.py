@@ -31,6 +31,15 @@ grid-free form (``table`` and ``rows`` None, the folded level's
 dCoords, gx coming through the PE backward alone; K12's gextra is then the
 direction part alone (P, 3).
 
+K2, K6 and K8 also take a per-point spatial embedding ``se`` (P, C) in
+place of the table and rows (JAX's non-``corner_interp`` form,
+field_mlp.py:2130-2142, level_train.py:62, :157, :207): the kernels read
+each point's row rounded to the compute dtype, gse comes back per point
+(P, C) float32 and gx carries no trilinear dCoords. K12 also takes the
+pre-encoded inputs of K11 (``nerf_mlp.py``; field_mlp.py:1546 with
+``pe_spec`` / ``extra_pe_spec`` None): gx and gextra are then the
+cotangents of the encodings, with no PE backward.
+
 In bfloat16 the kernels run their layer products and dW on the tensor
 cores over 64-point tiles, in float32 on the CUDA cores over 32-point
 tiles (``tile_points``; the stash follows the tile).
@@ -56,7 +65,7 @@ from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, _grid_args, check_device,
                          level_kernel_args, nerf_raw_plain, point_blob,
                          point_layers, prepare_level, widths_ok)
-from .nerf_mlp import nerf_mlp_plain, point_kernel_args
+from .nerf_mlp import ENC_EXTRA, ENC_PTS, nerf_mlp_plain, point_kernel_args
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +183,11 @@ def level_backward_plain(weights: LevelWeights, acts: dict, pts: torch.Tensor,
     with dir[0]'s rows [feat | pe(dir) | se], the JAX package's layout.
     For K12 (``acts`` of ``nerf_mlp_plain``, ``grid_dims`` None) there is
     no trilinear sample in the pass: gx is the PE backward alone, and the
-    second result is gextra (P, 3 + C), the cotangent of [dir | se]. In
-    the grid-free form (no corner rows in ``acts``) gx is the PE backward
-    alone and gse is None."""
+    second result is gextra (P, 3 + C), the cotangent of [dir | se] (of
+    the encodings when the level has no PE groups: gx (P, kx) and gextra
+    (P, n_dir + C)). Without corner rows in ``acts`` gx is the PE backward
+    alone, and gse is None in the grid-free form (C = 0) and (P, C) for a
+    given per-point se."""
     W = weights
     feat, se, h = acts["feat"], acts["se"], acts["h"]
     dacts, sacts = acts["dacts"], acts["sacts"]
@@ -212,14 +223,16 @@ def level_backward_plain(weights: LevelWeights, acts: dict, pts: torch.Tensor,
     gh = mm(gfeat, W.feat["w"].t(), dtype)
     gx_pe, trunk_g = trunk_backward(W.trunk, acts["x"], acts["trunk"], gh,
                                     W.skip, "leaky", dtype, need_gx=True)
-    gx = pe_backward(pts, gx_pe, W.pts_groups)
+    gx = (gx_pe if W.pts_groups is None
+          else pe_backward(pts, gx_pe, W.pts_groups))
     grads.update(trunk=trunk_g, dir=dir_g, seg=seg_g)
     if "dirs" in acts:
-        gdir = pe_backward(acts["dirs"], mm(gzd0, W.dir0_dir.t(), dtype),
-                           W.dir_groups)
+        gdir = mm(gzd0, W.dir0_dir.t(), dtype)
+        if W.dir_groups is not None:
+            gdir = pe_backward(acts["dirs"], gdir, W.dir_groups)
         return gx, torch.cat([gdir, gse], dim=-1), grads
     if acts["cf"] is None:
-        return gx, None, grads
+        return gx, gse if gse.shape[1] else None, grads
     gx[:, :3] += corner_dcoords(gse, acts["fs"], acts["ok"], acts["cf"], grid_dims)
     return gx, gse, grads
 
@@ -229,7 +242,8 @@ def nerf_level_train_plain(pts: torch.Tensor, dirs: torch.Tensor,
                            z: torch.Tensor, bg: Optional[torch.Tensor],
                            noise: Optional[torch.Tensor], tgt: torch.Tensor,
                            lw: torch.Tensor, weights: LevelWeights,
-                           compute_dtype: str, grid_dims, bg_sup: float = 0.0):
+                           compute_dtype: str, grid_dims, bg_sup: float = 0.0,
+                           se: Optional[torch.Tensor] = None):
     """K2's plain version. Arguments as ``nerf_level.nerf_level_plain``
     plus tgt (R, 15) [target rgb | seg mask], lw (R, 2) per-ray loss
     weights and bg_sup. Returns (rgb_map (R, 16), weights (R, S), gx
@@ -238,7 +252,7 @@ def nerf_level_train_plain(pts: torch.Tensor, dirs: torch.Tensor,
     R, S = z.shape
     acts = {}
     raw = nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
-                         grid_dims, acts)
+                         grid_dims, acts, se)
     with torch.no_grad():
         rgb_map, w_out, graw, g_bg = composite_train_plain(
             raw.reshape(R, S, 16), z, dirs, bg, noise, tgt, lw, bg_sup)
@@ -253,14 +267,15 @@ def nerf_level_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
                          z: torch.Tensor, bg: Optional[torch.Tensor],
                          noise: Optional[torch.Tensor], g_rgb: torch.Tensor,
                          g_w: torch.Tensor, weights: LevelWeights,
-                         compute_dtype: str, grid_dims):
+                         compute_dtype: str, grid_dims,
+                         se: Optional[torch.Tensor] = None):
     """K6's plain version: K5's arguments plus the cotangents g_rgb (R, 16)
     and g_w (R, S) of its outputs. Returns (gx (P, 3 + ambient), gse (P, C) | None,
     g_bg (R, 15) | None, grads), grads as ``level_backward_plain``'s."""
     R, S = z.shape
     acts = {}
     raw = nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
-                         grid_dims, acts)
+                         grid_dims, acts, se)
     with torch.no_grad():
         _, _, graw, g_bg = composite_vjp_plain(raw.reshape(R, S, 16), z, dirs,
                                                bg, noise, g_rgb, g_w)
@@ -279,12 +294,13 @@ def _f32_or_wider(g: torch.Tensor) -> torch.Tensor:
 def nerf_rayd_vjp_plain(pts: torch.Tensor, dirs: torch.Tensor,
                         table: torch.Tensor, rows: torch.Tensor,
                         g: torch.Tensor, weights: LevelWeights,
-                        compute_dtype: str, grid_dims):
+                        compute_dtype: str, grid_dims,
+                        se: Optional[torch.Tensor] = None):
     """K8's plain version: K7's arguments plus the cotangent g (P, 16) of
     its raw output. Returns (gx (P, 3 + ambient), gse (P, C) | None, grads)."""
     acts = {}
     nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype, grid_dims,
-                   acts)
+                   acts, se)
     with torch.no_grad():
         return level_backward_plain(weights, acts, pts, _f32_or_wider(g),
                                     torch_dtype(compute_dtype), grid_dims)
@@ -376,8 +392,8 @@ def _grads_tree(weights: LevelWeights, layers):
 
 
 _MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
-_SIGNATURE = ("p" * 11 + "pp" + "i" + "ppp" + "ppp" + "p" * 5 + "pp" + "pp"
-              + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
+_SIGNATURE = ("p" * 11 + "pp" + "pi" + "i" + "ppp" + "ppp" + "p" * 5 + "pp"
+              + "pp" + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
 
 
 def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
@@ -393,15 +409,16 @@ def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
 def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
             compute_dtype: str, grid_dims, z=None, bg=None, noise=None,
             tgt=None, lw=None, g_rgb=None, g_w=None, graw=None,
-            bg_sup: float = 0.0):
+            bg_sup: float = 0.0, se=None):
     """One call of the level-backward kernel set (csrc/level_train.cu) in
-    ``mode``: "loss" (K2), "vjp" (K6) or "raw" (K8). Returns (rgb_map,
-    weights, gx, gse, g_bg (R, 16), grads, acts); rgb_map, weights and g_bg
-    are None in "raw" mode, gse in the grid-free form; acts is the
-    activation stash (``_stash_branches`` reads it)."""
+    ``mode``: "loss" (K2), "vjp" (K6) or "raw" (K8), the spatial embedding
+    from the corner table and rows, from a per-point ``se`` (P, C), or
+    none. Returns (rgb_map, weights, gx, gse, g_bg (R, 16), grads, acts);
+    rgb_map, weights and g_bg are None in "raw" mode, gse in the grid-free
+    form; acts is the activation stash (``_stash_branches`` reads it)."""
     check_device(what, pts.device)
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
-                                          compute_dtype, grid_dims, what)
+                                          compute_dtype, grid_dims, what, se)
     hidden, branch = ints[1], ints[2]
     P = R * S
     shapes = {"z": (z, (R, S)), "bg": (bg, (R, 15)), "noise": (noise, (R, S)),
@@ -417,13 +434,13 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
                          f"{len(weights.dir_rest)} dir and {len(weights.seg)} "
                          f"seg layers, hidden {hidden}, branch {branch}")
     plan = level_train_plan(weights, dtype)
-    check_device(what, pts.device, rows, table, dirs, z, bg, noise, tgt, lw,
+    check_device(what, pts.device, rows, table, dirs, se, z, bg, noise, tgt, lw,
                  g_rgb, g_w, graw, plan.fwd[0])
     f32 = torch.float32
     dev = pts.device
     c = lambda t: None if t is None else t.to(f32).contiguous()
-    pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw = map(
-        c, (pts, dirs, z, bg, noise, tgt, lw, g_rgb, g_w, graw))
+    pts, dirs, se, z, bg, noise, tgt, lw, g_rgb, g_w, graw = map(
+        c, (pts, dirs, se, z, bg, noise, tgt, lw, g_rgb, g_w, graw))
     rows, table = _grid_args(rows, table)
     n_tiles = -(-P // tile_points(dtype))
     e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
@@ -438,7 +455,8 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
     fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
     rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
-            p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, _MODES[mode],
+            p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, p(se), 0,
+            _MODES[mode],
             *[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd], p(rgb_map),
             p(w_out), p(gx), p(gse), p(g_bg), p(raw), p(graw), p(acts), p(gzs),
             p(plan.slots), R, S, PW, n_trunk, weights.skip, hidden, branch, C,
@@ -504,20 +522,21 @@ def nerf_level_train(pts: torch.Tensor, dirs: torch.Tensor,
                      bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
                      tgt: torch.Tensor, lw: torch.Tensor,
                      weights: LevelWeights, compute_dtype: str = "bfloat16",
-                     grid_dims=(32, 32, 32), bg_sup: float = 0.0):
+                     grid_dims=(32, 32, 32), bg_sup: float = 0.0,
+                     se: Optional[torch.Tensor] = None):
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Same arguments and results as ``nerf_level_train_plain``.
     One call is one count, whatever the number of launches inside."""
     if pts.device.type == "cpu":
         return nerf_level_train_plain(pts, dirs, table, rows, z, bg, noise, tgt,
                                       lw, weights, compute_dtype, grid_dims,
-                                      bg_sup)
+                                      bg_sup, se)
     if tgt is None or lw is None:
         raise ValueError("K2 needs the target and the loss weights")
     rgb_map, w_out, gx, gse, g_bg, grads, _ = _launch(
         "loss", "nerf_level_train", pts, dirs, table, rows, weights,
         compute_dtype, grid_dims, z=z, bg=bg, noise=noise, tgt=tgt, lw=lw,
-        bg_sup=bg_sup)
+        bg_sup=bg_sup, se=se)
     nerf_level_train.launches += 1
     return (rgb_map, w_out, gx, gse, g_bg[:, :15] if bg is not None else None,
             grads)
@@ -531,18 +550,18 @@ def nerf_level_vjp(pts: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
                    bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
                    g_rgb: torch.Tensor, g_w: torch.Tensor,
                    weights: LevelWeights, compute_dtype: str = "bfloat16",
-                   grid_dims=(32, 32, 32)):
+                   grid_dims=(32, 32, 32), se: Optional[torch.Tensor] = None):
     """K6 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Same arguments and results as ``nerf_level_vjp_plain``."""
     if pts.device.type == "cpu":
         return nerf_level_vjp_plain(pts, dirs, table, rows, z, bg, noise, g_rgb,
-                                    g_w, weights, compute_dtype, grid_dims)
+                                    g_w, weights, compute_dtype, grid_dims, se)
     if g_rgb is None or g_w is None:
         raise ValueError("K6 needs both cotangents, g_rgb and g_w")
     _, _, gx, gse, g_bg, grads, _ = _launch(
         "vjp", "nerf_level_vjp", pts, dirs, table, rows, weights,
         compute_dtype, grid_dims, z=z, bg=bg, noise=noise, g_rgb=g_rgb,
-        g_w=g_w)
+        g_w=g_w, se=se)
     nerf_level_vjp.launches += 1
     return gx, gse, g_bg[:, :15] if bg is not None else None, grads
 
@@ -552,17 +571,18 @@ nerf_level_vjp.launches = 0
 
 def nerf_rayd_vjp(pts: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
                   rows: torch.Tensor, g: torch.Tensor, weights: LevelWeights,
-                  compute_dtype: str = "bfloat16", grid_dims=(32, 32, 32)):
+                  compute_dtype: str = "bfloat16", grid_dims=(32, 32, 32),
+                  se: Optional[torch.Tensor] = None):
     """K8 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Same arguments and results as ``nerf_rayd_vjp_plain``."""
     if pts.device.type == "cpu":
         return nerf_rayd_vjp_plain(pts, dirs, table, rows, g, weights,
-                                   compute_dtype, grid_dims)
+                                   compute_dtype, grid_dims, se)
     if g is None:
         raise ValueError("K8 needs the cotangent of the raw field")
     _, _, gx, gse, _, grads, _ = _launch(
         "raw", "nerf_rayd_vjp", pts, dirs, table, rows, weights,
-        compute_dtype, grid_dims, graw=g)
+        compute_dtype, grid_dims, graw=g, se=se)
     nerf_rayd_vjp.launches += 1
     return gx, gse, grads
 
@@ -577,7 +597,7 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
     if pts.device.type == "cpu":
         return nerf_mlp_vjp_plain(pts, extra, g, weights, compute_dtype)
     check_device("K12", pts.device)
-    P, PW, ints = point_kernel_args(pts, extra, weights, "K12")
+    P, PW, ints, enc = point_kernel_args(pts, extra, weights, "K12")
     n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir = ints
     dtype = torch_dtype(compute_dtype)
     if (tuple(g.shape) != (P, 16) or len(weights.dir_rest) != 3
@@ -590,16 +610,19 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
     check_device("K12", pts.device, extra, g, plan.fwd[0])
     f32 = torch.float32
     dev = pts.device
-    pts, extra, g = (t.to(f32).contiguous() for t in (pts, extra, g))
+    # pre-encoded inputs go in the compute dtype, as JAX casts them
+    pts = pts.to(dtype if enc & ENC_PTS else f32).contiguous()
+    extra = extra.to(dtype if enc & ENC_EXTRA else f32).contiguous()
+    g = g.to(f32).contiguous()
     gx = torch.empty((P, PW), dtype=f32, device=dev)
-    gextra = torch.empty((P, 3 + C), dtype=f32, device=dev)
+    gextra = torch.empty(tuple(extra.shape), dtype=f32, device=dev)
     n_tiles = -(-P // tile_points(dtype))
     acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
     p = _build.ptr
     fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
     # no rays: P points of one sample each, no table, rows or directions
     rc = fn(p(pts), None, None, None, None, None, None, None, None, None, None,
-            p(extra), p(gextra), _MODES["pts"],
+            p(extra), p(gextra), None, enc, _MODES["pts"],
             *[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd], None, None,
             p(gx), None, None, None, p(g), p(acts), p(gzs), p(plan.slots),
             P, 1, PW, n_trunk, weights.skip, hidden, branch, C, amb, nf_xyz,
@@ -617,14 +640,18 @@ nerf_mlp_vjp.launches = 0
 
 def level_train_apply(nerf, cond: torch.Tensor, pts, dirs, table, rows, z, bg,
                       noise, tgt, lw, pts_groups, dir_groups,
-                      compute_dtype: str, grid_dims, bg_sup: float = 0.0):
+                      compute_dtype: str, grid_dims, bg_sup: float = 0.0,
+                      se: Optional[torch.Tensor] = None):
     """Fold ``cond`` into the ``NeRFMLP`` module ``nerf``, run K2, unfold
-    the trunk's gradients (level_train.py:358-405). Returns (rgb_map,
-    weights, gx, gse, g_bg, grads with the raw trunk's shapes, dcond)."""
+    the trunk's gradients (level_train.py:358-405). The spatial embedding
+    comes from the corner ``table`` and ``rows``, or from a per-point
+    ``se`` (P, C) (table, rows and grid_dims None; gse then (P, C)), or
+    none. Returns (rgb_map, weights, gx, gse, g_bg, grads with the raw
+    trunk's shapes, dcond)."""
     lvl = prepare_level(nerf, cond, pts_groups, dir_groups)
     rgb_map, w, gx, gse, g_bg, grads = nerf_level_train(
         pts, dirs, table, rows, z, bg, noise, tgt, lw, lvl, compute_dtype,
-        grid_dims, bg_sup)
+        grid_dims, bg_sup, se)
     spec = nerf.spec
     raw = [{"w": p["w"].detach(), "b": p["b"].detach()}
            for p in trunk_params(nerf.trunk)]

@@ -19,6 +19,12 @@ form (JAX: ``field_mlp.py:nerf_render_level`` :3187 and
 (``table`` and ``rows`` None), the folded level's ``dir0_se`` of zero
 rows, so the direction branch's first layer reads [feat | pe(dir)].
 
+Both also take JAX's third source of the se columns, a per-point spatial
+embedding ``se`` (P, C) given in place of the corner table and rows (the
+non-``corner_interp`` form, field_mlp.py:1997-2032): JAX rounds it to the
+compute dtype before its kernel and the kernel reads it as it is, so the
+kernels here read each point's row and round it to the compute dtype.
+
 In bfloat16 both run on the tensor cores, reading the same weight blob as
 their backwards K6 and K8 (``point_blob``): K7 as ``nerf_field_tc`` (the
 forward tile of the level backward, ``csrc/level_train.cu:field_tc_kernel``,
@@ -64,8 +70,8 @@ class LevelWeights:
     rgb: dict
     seg: List[dict]
     seg_out: dict
-    pts_groups: Tuple[PEGroup, ...]
-    dir_groups: Tuple[PEGroup, ...]
+    pts_groups: Optional[Tuple[PEGroup, ...]]
+    dir_groups: Optional[Tuple[PEGroup, ...]]
     _blobs: dict = dataclasses.field(default_factory=dict)
 
     def blob(self, dtype: torch.dtype):
@@ -129,9 +135,12 @@ def point_blob(weights: LevelWeights, dtype: torch.dtype):
     return weights._blobs[key]
 
 
-def prepare_level(nerf, cond: torch.Tensor, pts_groups: Sequence[PEGroup],
-                  dir_groups: Sequence[PEGroup]) -> LevelWeights:
-    """Fold ``cond`` into a ``NeRFMLP``'s trunk (field_grid.py:113-118)."""
+def prepare_level(nerf, cond: torch.Tensor,
+                  pts_groups: Optional[Sequence[PEGroup]],
+                  dir_groups: Optional[Sequence[PEGroup]]) -> LevelWeights:
+    """Fold ``cond`` into a ``NeRFMLP``'s trunk (field_grid.py:113-118).
+    PE groups None: the per-point field (K11/K12) takes that input as an
+    encoding already (field_mlp.py:nerf_mlp_apply_fused without pe specs)."""
     spec = nerf.spec
     pe_dim = spec.pe_xyz_dim + spec.ambient_pe_dim
     hid = spec.hidden_size
@@ -149,7 +158,8 @@ def prepare_level(nerf, cond: torch.Tensor, pts_groups: Sequence[PEGroup],
             rgb=linear_params(nerf.fc_rgb),
             seg=[linear_params(l) for l in nerf.seg],
             seg_out=linear_params(nerf.fc_seg),
-            pts_groups=tuple(pts_groups), dir_groups=tuple(dir_groups))
+            pts_groups=None if pts_groups is None else tuple(pts_groups),
+            dir_groups=None if dir_groups is None else tuple(dir_groups))
 
 
 def level_param_grads(out: dict, nerf, g) -> None:
@@ -208,11 +218,13 @@ def composite_plain(raw: torch.Tensor, z: torch.Tensor, dirs: torch.Tensor,
 def nerf_raw_plain(pts: torch.Tensor, dirs: torch.Tensor,
                    table: torch.Tensor, rows: torch.Tensor,
                    weights: LevelWeights, compute_dtype: str, grid_dims,
-                   acts: Optional[dict] = None) -> torch.Tensor:
+                   acts: Optional[dict] = None,
+                   se: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7's plain version. pts (P, 3 + ambient) packed [warped | ambient],
     P = R*S ray-major; dirs (R, 3) raw; table the corner table; rows (P,)
     its row per point (both None for the grid-free form, whose ``se`` has
-    no columns). Returns raw (P, 16) [rgb3 | seg12 | sigma1].
+    no columns, and for a given per-point ``se`` (P, C)). Returns raw
+    (P, 16) [rgb3 | seg12 | sigma1].
     ``acts``, when given, receives what a backward needs: the PE ``x``, the
     cell geometry ``fs``/``ok``, the corner rows ``cf`` (with a grid),
     ``se``, the trunk activations, ``h``, ``feat``, the per-point
@@ -223,7 +235,10 @@ def nerf_raw_plain(pts: torch.Tensor, dirs: torch.Tensor,
     with torch.no_grad():
         x = kernel_pe(pts, W.pts_groups)
         fs = ok = cf = None
-        se = pts.new_zeros((pts.shape[0], 0), dtype=torch.float32)
+        if se is not None:
+            se = se.to(torch.promote_types(se.dtype, torch.float32))
+        else:
+            se = pts.new_zeros((pts.shape[0], 0), dtype=torch.float32)
         if table is not None:
             _, fs, ok = _cell_geometry(pts, grid_dims)
             cf = table[rows.reshape(-1).long()].to(torch.float32)
@@ -271,13 +286,14 @@ def field_plain(W: LevelWeights, x: torch.Tensor, dir0, dtype: torch.dtype,
 def nerf_level_plain(pts: torch.Tensor, dirs: torch.Tensor,
                      table: torch.Tensor, rows: torch.Tensor, z: torch.Tensor,
                      bg: Optional[torch.Tensor], noise: Optional[torch.Tensor],
-                     weights: LevelWeights, compute_dtype: str, grid_dims):
+                     weights: LevelWeights, compute_dtype: str, grid_dims,
+                     se: Optional[torch.Tensor] = None):
     """K5's plain version: ``nerf_raw_plain``'s arguments plus z (R, S),
     bg (R, 15) | None and noise (R, S) | None (already scaled).
     Returns (rgb_map (R, 16), weights (R, S))."""
     R, S = z.shape
     raw = nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
-                         grid_dims)
+                         grid_dims, se=se)
     with torch.no_grad():
         return composite_plain(raw.reshape(R, S, 16), z, dirs, bg, noise)
 
@@ -292,11 +308,12 @@ def _pe_freqs(groups, want: int, what: str) -> List[int]:
 def level_kernel_args(pts: torch.Tensor, dirs: torch.Tensor,
                       table: torch.Tensor, rows: torch.Tensor,
                       weights: LevelWeights, compute_dtype: str, grid_dims,
-                      what: str):
+                      what: str, se: Optional[torch.Tensor] = None):
     """The shape checks and integer arguments shared by the NeRF-level
     kernels (K5-K8): (R, S, PW, C, [n_trunk, hidden, branch, C, amb,
     nf_xyz, nf_amb, nf_dir, gD, gH, gW]). The grid-free form (``table``
-    and ``rows`` None) has C = 0 and no grid dimensions."""
+    and ``rows`` None) has C = 0 and no grid dimensions; the form on a
+    per-point ``se`` (P, C) has no table, rows or grid dimensions."""
     R = dirs.shape[0]
     P, PW = pts.shape
     nf_xyz, nf_amb = (_pe_freqs(weights.pts_groups, 2, "point") if PW > 3
@@ -304,7 +321,10 @@ def level_kernel_args(pts: torch.Tensor, dirs: torch.Tensor,
     (nf_dir,) = _pe_freqs(weights.dir_groups, 1, "direction")
     hidden = weights.trunk[0]["w"].shape[1]
     branch = weights.dir0_b.shape[0]
-    if table is None:
+    if se is not None:
+        C, (gD, gH, gW) = se.shape[-1], (0, 0, 0)
+        grid_ok = table is None and rows is None and tuple(se.shape) == (P, C)
+    elif table is None:
         C, (gD, gH, gW) = 0, (0, 0, 0)
         grid_ok = rows is None
     else:
@@ -318,7 +338,8 @@ def level_kernel_args(pts: torch.Tensor, dirs: torch.Tensor,
         shape = lambda t: None if t is None else tuple(t.shape)
         raise ValueError(
             f"{what} shapes not supported: pts {tuple(pts.shape)}, rows "
-            f"{shape(rows)}, dirs {tuple(dirs.shape)}, table {shape(table)} "
+            f"{shape(rows)}, dirs {tuple(dirs.shape)}, table {shape(table)}, "
+            f"se {shape(se)} "
             f"for grid {grid_dims} and {weights.dir0_se.shape[0]} embedding "
             f"channels, dir freqs {nf_dir}, hidden {hidden}, branch {branch}")
     ints = [len(weights.trunk), hidden, branch, C, PW - 3, nf_xyz, nf_amb,
@@ -356,17 +377,18 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
                        table: torch.Tensor, rows: torch.Tensor,
                        z: torch.Tensor, bg: Optional[torch.Tensor],
                        noise: Optional[torch.Tensor], weights: LevelWeights,
-                       compute_dtype: str = "bfloat16", grid_dims=(32, 32, 32)):
+                       compute_dtype: str = "bfloat16", grid_dims=(32, 32, 32),
+                       se: Optional[torch.Tensor] = None):
     """K5 wrapper: a CUDA kernel for CUDA tensors (bf16: ``_nerf_level_tc``
     on the tensor cores; float32: the SIMT kernel), the plain version for
     CPU tensors. Same arguments and results as ``nerf_level_plain``. One
     call is one count, whatever the number of launches inside."""
     if pts.device.type == "cpu":
         return nerf_level_plain(pts, dirs, table, rows, z, bg, noise, weights,
-                                compute_dtype, grid_dims)
+                                compute_dtype, grid_dims, se)
     check_device("K5", pts.device)
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
-                                          compute_dtype, grid_dims, "K5")
+                                          compute_dtype, grid_dims, "K5", se)
     if (tuple(z.shape) != (R, S) or (bg is not None and tuple(bg.shape) != (R, 15))
             or (noise is not None and tuple(noise.shape) != (R, S))):
         raise ValueError(f"K5: z {tuple(z.shape)}, bg, noise must be ({R}, {S}), "
@@ -376,20 +398,20 @@ def nerf_level_forward(pts: torch.Tensor, dirs: torch.Tensor,
     if dtype == torch.bfloat16:
         raw = torch.empty((R * S, 16), dtype=torch.float32, device=pts.device)
         out = _nerf_level_tc(pts, dirs, table, rows, z, bg, noise, weights, R, S, ints,
-                             raw)
+                             raw, se)
         nerf_level_forward.launches += 1
         return out
     wblob, bblob, meta = weights.blob(dtype)
-    check_device("K5", pts.device, rows, table, dirs, z, bg, noise, wblob)
+    check_device("K5", pts.device, rows, table, dirs, se, z, bg, noise, wblob)
     f32 = torch.float32
     c = lambda t: None if t is None else t.to(f32).contiguous()
-    pts, dirs, z, bg, noise = map(c, (pts, dirs, z, bg, noise))
+    pts, dirs, se, z, bg, noise = map(c, (pts, dirs, se, z, bg, noise))
     rgb_map = torch.empty((R, 16), dtype=f32, device=pts.device)
     w_out = torch.empty((R, S), dtype=f32, device=pts.device)
     fn = _build.function("nerf_level", "sahs_nerf_level_forward",
-                         "p" * 12 + "l" + "i" * 13 + "p")
+                         "p" * 13 + "l" + "i" * 13 + "p")
     p = _build.ptr
-    rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(se), p(z), p(bg),
             p(noise), p(wblob), p(bblob), p(meta), p(rgb_map), p(w_out),
             R, S, PW, *ints, _build.stream_ptr(pts.device))
     _build.check(rc, "nerf_level_forward")
@@ -419,27 +441,29 @@ def _nerf_level_tc(pts: torch.Tensor, dirs: torch.Tensor,
                    table: Optional[torch.Tensor], rows: Optional[torch.Tensor],
                    z: torch.Tensor, bg: Optional[torch.Tensor],
                    noise: Optional[torch.Tensor], weights: LevelWeights, R: int,
-                   S: int, ints: Sequence[int], raw: torch.Tensor):
+                   S: int, ints: Sequence[int], raw: torch.Tensor,
+                   se: Optional[torch.Tensor] = None):
     """bf16 K5 on the tensor cores, one call of two launches
     (``csrc/level_train.cu:sahs_nerf_level_tc``): ``field_tc_kernel``'s raw
     field of the rays (K7's) into ``raw``, a contiguous float32 (R*S, 16)
     scratch, then ``composite_fwd_kernel``, the compositing per ray.
     ``rows`` int32 and ``table`` contiguous (``_grid_args``), or both None
-    for C = 0; ``ints`` as ``level_kernel_args`` gives them. Returns
-    (rgb_map (R, 16), weights (R, S))."""
+    for C = 0 or for a per-point ``se`` (R*S, C); ``ints`` as
+    ``level_kernel_args`` gives them. Returns (rgb_map (R, 16), weights
+    (R, S))."""
     n_trunk, hidden, branch = ints[:3]
     wblob, bblob, meta = _tc_blob("K5", weights, hidden, branch, pts.device, dirs,
-                                  table, rows, z, bg, noise, raw)
+                                  table, rows, se, z, bg, noise, raw)
     f32 = torch.float32
     c = lambda t: None if t is None else t.to(f32).contiguous()
-    pts, dirs, z, bg, noise = map(c, (pts, dirs, z, bg, noise))
+    pts, dirs, se, z, bg, noise = map(c, (pts, dirs, se, z, bg, noise))
     dev = pts.device
     rgb_map = torch.empty((R, 16), dtype=f32, device=dev)
     w_out = torch.empty((R, S), dtype=f32, device=dev)
     fn = _build.function("level_train", "sahs_nerf_level_tc",
-                         "p" * 13 + "l" + "i" * 13 + "p")
+                         "p" * 14 + "l" + "i" * 13 + "p")
     p = _build.ptr
-    rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg), p(noise), p(wblob),
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(se), p(z), p(bg), p(noise), p(wblob),
             p(bblob), p(meta), p(raw), p(rgb_map), p(w_out), R, S, pts.shape[1],
             *ints[:11], _build.stream_ptr(dev))
     _build.check(rc, "nerf_level_forward")
@@ -452,11 +476,15 @@ def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
                   table: Optional[torch.Tensor] = None,
                   rows: Optional[torch.Tensor] = None,
                   extra: Optional[torch.Tensor] = None,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out: Optional[torch.Tensor] = None,
+                  se: Optional[torch.Tensor] = None, enc: int = 0) -> torch.Tensor:
     """One launch of the bf16 raw field on the tensor cores
     (``csrc/level_train.cu:field_tc_kernel``): K7 from ray inputs (``dirs``
-    (R, 3), the corner ``table`` and ``rows``, or neither for C = 0), or
-    K11 from per-point ``extra`` (P, 3 + C) with S = 1. ``ints`` are
+    (R, 3), the corner ``table`` and ``rows``, or a per-point ``se``
+    (R*S, C), or none of them for C = 0), or K11 from per-point ``extra``
+    (P, 3 + C) with S = 1. ``enc`` (K11's pre-encoded form, bits of
+    ``nerf_mlp.ENC_PTS`` / ``ENC_EXTRA``): ``pts`` is the point encoding,
+    ``extra`` the [pe(dir) | se] encoding, each read in bf16. ``ints`` are
     [n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir(, gD, gH,
     gW)] as ``level_kernel_args`` / ``point_kernel_args`` give them.
     Returns raw (R*S, 16) float32, written into ``out`` when given (a
@@ -468,17 +496,18 @@ def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
                             or not out.is_contiguous()):
         raise ValueError(f"{what}: out must be a contiguous float32 ({P}, 16) tensor")
     wblob, bblob, meta = _tc_blob(what, weights, hidden, branch, pts.device, dirs,
-                                  table, rows, extra, out)
-    f32 = torch.float32
-    c = lambda t: None if t is None else t.to(f32).contiguous()
-    pts, dirs, extra = c(pts), c(dirs), c(extra)
+                                  table, rows, extra, se, out)
+    f32, bf16 = torch.float32, torch.bfloat16
+    c = lambda t, dt=f32: None if t is None else t.to(dt).contiguous()
+    pts, extra = c(pts, bf16 if enc & 1 else f32), c(extra, bf16 if enc & 2 else f32)
+    dirs, se = c(dirs), c(se)
     raw = torch.empty((P, 16), dtype=f32, device=pts.device) if out is None else out
     fn = _build.function("level_train", "sahs_nerf_field_tc",
-                         "p" * 9 + "l" + "i" * 13 + "p")
+                         "p" * 10 + "l" + "i" * 14 + "p")
     p = _build.ptr
-    rc = fn(p(pts), p(rows), p(table), p(dirs), p(extra), p(wblob), p(bblob),
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(extra), p(se), p(wblob), p(bblob),
             p(meta), p(raw), R, S, pts.shape[1], n_trunk, hidden, branch, C, amb,
-            nf_xyz, nf_amb, nf_dir, gD, gH, gW, _build.stream_ptr(pts.device))
+            nf_xyz, nf_amb, nf_dir, gD, gH, gW, enc, _build.stream_ptr(pts.device))
     _build.check(rc, what)
     return raw
 
@@ -486,34 +515,36 @@ def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
 def nerf_rayd_forward(pts: torch.Tensor, dirs: torch.Tensor,
                       table: torch.Tensor, rows: torch.Tensor,
                       weights: LevelWeights, compute_dtype: str = "bfloat16",
-                      grid_dims=(32, 32, 32)) -> torch.Tensor:
+                      grid_dims=(32, 32, 32),
+                      se: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 wrapper: a CUDA kernel for CUDA tensors (bf16: ``nerf_field_tc``
     on the tensor cores; float32: the SIMT kernel), the plain version for
     CPU tensors. Same arguments and result as ``nerf_raw_plain``."""
     if pts.device.type == "cpu":
         return nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
-                              grid_dims)
+                              grid_dims, se=se)
     check_device("K7", pts.device)
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
-                                          compute_dtype, grid_dims, "K7")
+                                          compute_dtype, grid_dims, "K7", se)
     dtype = torch_dtype(compute_dtype)
     if dtype == torch.bfloat16:
         rows, table = _grid_args(rows, table)
         raw = nerf_field_tc("K7", pts, weights, R, S, ints, dirs=dirs,
-                            table=table, rows=rows)
+                            table=table, rows=rows, se=se)
         nerf_rayd_forward.launches += 1
         return raw
     wblob, bblob, meta = weights.blob(dtype)
-    check_device("K7", pts.device, rows, table, dirs, wblob)
+    check_device("K7", pts.device, rows, table, dirs, se, wblob)
     f32 = torch.float32
     pts = pts.to(f32).contiguous()
     dirs = dirs.to(f32).contiguous()
+    se = None if se is None else se.to(f32).contiguous()
     rows, table = _grid_args(rows, table)
     raw = torch.empty((R * S, 16), dtype=f32, device=pts.device)
     fn = _build.function("nerf_level", "sahs_nerf_rayd_forward",
-                         "p" * 8 + "l" + "i" * 13 + "p")
+                         "p" * 9 + "l" + "i" * 13 + "p")
     p = _build.ptr
-    rc = fn(p(pts), p(rows), p(table), p(dirs), p(wblob),
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(se), p(wblob),
             p(bblob), p(meta), p(raw), R, S, PW, *ints,
             _build.stream_ptr(pts.device))
     _build.check(rc, "nerf_rayd_forward")

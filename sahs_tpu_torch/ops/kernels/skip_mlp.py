@@ -7,12 +7,13 @@ different conditioning) runs each net through these
 (``sahs_tpu/models/nerface.py:380-398``).
 
 K13 replaces ``sahs_tpu/ops/pallas/field_mlp.py:skip_mlp_forward`` (:345,
-``pallas_call`` at :372) in its raw-coordinate form (``pe_spec`` given: the
-positional encoding is computed in the kernel), the only form the model
-uses. The precomputed-PE form, which only the JAX package's own tests
-reach, is not ported: its weights (``prepare_skip`` with ``pe_groups``
-None) run on the plain version on the CPU, and the wrapper refuses them
-for a CUDA tensor.
+``pallas_call`` at :372) in both its forms: the raw-coordinate form
+(``pe_spec`` given: the positional encoding is computed in the kernel), the
+one the model uses, and the pre-encoded form (``pe_spec`` None, weights of
+``prepare_skip`` with ``pe_groups`` None), whose input is the (P, in_dim)
+encoding itself. As JAX casts that encoding to the compute dtype before
+its kernel (field_mlp.py:354-356), the wrapper does, and the kernel reads
+it as it is and forms no PE.
 
 In bfloat16 K13 runs on the tensor cores over 64-point tiles
 (``csrc/skip_mlp.cu:skip_fwd_tc_kernel``, the trunk of ``csrc/skip_tc.cuh``
@@ -21,7 +22,8 @@ without the stash), in float32 on the CUDA cores (``skip_mlp_kernel``).
 K14 replaces ``field_mlp.py:skip_mlp_vjp`` (:516, ``pallas_call`` at :571):
 the folded dW and db of every trunk layer and of the head, and, when asked,
 the cotangent of the raw coordinates through the PE backward
-(``_pe_bwd``, field_mlp.py:245-259). The CUDA kernels are
+(``_pe_bwd``, field_mlp.py:245-259), or in the pre-encoded form the
+cotangent of the encoding, (P, in_dim) float32, with no PE backward. The CUDA kernels are
 ``csrc/skip_mlp.cu``; its source note gives the bound and the design. In
 bfloat16 K14 runs on the tensor cores over 64-point tiles
 (``csrc/skip_tc.cuh``), in float32 on the CUDA cores over 32-point tiles
@@ -117,19 +119,29 @@ def skip_mlp_plain(points: torch.Tensor, weights: SkipWeights,
         return torch.tanh(y) if weights.out_act == "tanh" else y
 
 
-def _check_kernel_shapes(points, weights: SkipWeights, what: str,
-                         dtype: torch.dtype):
+def _kernel_input(points, weights: SkipWeights, what: str,
+                  dtype: torch.dtype):
+    """The checks of the kernels' shapes; returns (the input as the kernel
+    reads it, n_freq, enc_dim): the raw (P, 3) float32 points with their PE
+    frequencies and enc_dim 0, or a pre-encoded (P, in_dim) input in the
+    compute dtype with n_freq 0 and enc_dim in_dim."""
     if weights.pe_groups is None:
-        raise ValueError(f"the {what} kernel takes the raw coordinates with "
-                         "the PE computed in the kernel; the precomputed-PE "
-                         "form is not ported")
-    nf = weights.pe_groups[0][2]
-    if weights.pe_groups != ((0, 3, nf, True, True),):
-        raise ValueError(f"the {what} kernel encodes xyz with include_input "
-                         f"and log sampling only, got {weights.pe_groups}")
-    if points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3:
-        raise ValueError(f"points must be (P, 3) float32, got "
-                         f"{tuple(points.shape)} {points.dtype}")
+        in_dim = weights.trunk[0]["w"].shape[0]
+        if (not points.is_floating_point() or points.dim() != 2
+                or points.shape[1] != in_dim or -(-in_dim // 8) * 8 > MAX_HIDDEN):
+            raise ValueError(f"the pre-encoded input must be (P, {in_dim}), at "
+                             f"most {MAX_HIDDEN} wide, got {tuple(points.shape)} "
+                             f"{points.dtype}")
+        x, n_freq, enc_dim = points.to(dtype).contiguous(), 0, in_dim
+    else:
+        n_freq = weights.pe_groups[0][2]
+        if weights.pe_groups != ((0, 3, n_freq, True, True),):
+            raise ValueError(f"the {what} kernel encodes xyz with include_input "
+                             f"and log sampling only, got {weights.pe_groups}")
+        if points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3:
+            raise ValueError(f"points must be (P, 3) float32, got "
+                             f"{tuple(points.shape)} {points.dtype}")
+        x, enc_dim = points.contiguous(), 0
     widths = [p["w"].shape[1] for p in weights.trunk]
     step = TC_K_STEP if dtype == torch.bfloat16 else 8
     if max(widths) > MAX_HIDDEN or any(w % step for w in widths):
@@ -138,6 +150,7 @@ def _check_kernel_shapes(points, weights: SkipWeights, what: str,
     if weights.out["w"].shape[1] > MAX_OUT:
         raise ValueError(f"the {what} kernel takes a head of at most "
                          f"{MAX_OUT} outputs, got {weights.out['w'].shape[1]}")
+    return x, n_freq, enc_dim
 
 
 def _on_device(points, tensor, what: str):
@@ -158,10 +171,9 @@ def skip_mlp_forward(points: torch.Tensor, weights: SkipWeights,
     if points.device.type == "cpu":
         return skip_mlp_plain(points, weights, compute_dtype)
     dtype = torch_dtype(compute_dtype)
-    _check_kernel_shapes(points, weights, "K13", dtype)
+    x, n_freq, enc_dim = _kernel_input(points, weights, "K13", dtype)
     wblob, bblob, meta = weights.blob(dtype)
     _on_device(points, wblob, "K13")
-    points = points.contiguous()
     P = points.shape[0]
     out_dim = weights.out["w"].shape[1]
     if out is None:
@@ -171,11 +183,11 @@ def skip_mlp_forward(points: torch.Tensor, weights: SkipWeights,
         raise ValueError(f"K13's out must be a contiguous ({P}, {out_dim}) float32 "
                          f"tensor on {points.device}, got {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}")
-    fn = _build.function("skip_mlp", "sahs_skip_mlp_forward", "plppp" + "i" * 5
+    fn = _build.function("skip_mlp", "sahs_skip_mlp_forward", "plppp" + "i" * 6
                          + "pp")
-    rc = fn(_build.ptr(points), P, _build.ptr(wblob), _build.ptr(bblob),
+    rc = fn(_build.ptr(x), P, _build.ptr(wblob), _build.ptr(bblob),
             _build.ptr(meta), len(weights.trunk), weights.trunk[0]["w"].shape[1],
-            out_dim, weights.pe_groups[0][2], int(dtype == torch.bfloat16),
+            out_dim, n_freq, enc_dim, int(dtype == torch.bfloat16),
             _build.ptr(out), _build.stream_ptr(points.device))
     _build.check(rc, "skip_mlp_forward")
     skip_mlp_forward.launches += 1
@@ -228,7 +240,7 @@ def skip_mlp_vjp_plain(points: torch.Tensor, weights: SkipWeights,
     encoding of ``points``, the cotangent g (P, out) taken back through the
     head's activation. Returns (gx (P, 3) | None, {"trunk": [{"w", "b"}]
     folded, "out": {"w", "b"}}); gx is with respect to the raw coordinates
-    (the encoding, for weights without PE groups)."""
+    (the encoding, (P, in_dim), for weights without PE groups)."""
     dtype = torch_dtype(compute_dtype)
     with torch.no_grad():
         pe = _encode(points, weights)
@@ -257,7 +269,7 @@ def skip_mlp_vjp(points: torch.Tensor, weights: SkipWeights, g: torch.Tensor,
     if points.device.type == "cpu":
         return skip_mlp_vjp_plain(points, weights, g, need_gx, compute_dtype)
     dtype = torch_dtype(compute_dtype)
-    _check_kernel_shapes(points, weights, "K14", dtype)
+    x, n_freq, enc_dim = _kernel_input(points, weights, "K14", dtype)
     P = points.shape[0]
     out_dim = weights.out["w"].shape[1]
     if tuple(g.shape) != (P, out_dim):
@@ -266,23 +278,23 @@ def skip_mlp_vjp(points: torch.Tensor, weights: SkipWeights, g: torch.Tensor,
     plan = skip_train_plan(weights, dtype)
     _on_device(points, plan.fwd[0], "K14")
     f32 = torch.float32
-    points = points.contiguous()
     g = g.to(f32).contiguous()
     n_tiles = -(-P // tile_points(dtype))
     dev = points.device
     acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
     gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)
-    gx = torch.empty((P, 3), dtype=f32, device=dev) if need_gx else None
+    gx = (torch.empty((P, enc_dim or 3), dtype=f32, device=dev) if need_gx
+          else None)
     chunks = dw_chunks(n_tiles)
     part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
     out = torch.empty(plan.out_len, dtype=f32, device=dev)
     p = _build.ptr
     fn = _build.function("skip_mlp", "sahs_skip_mlp_vjp",
-                         "plp" + "ppp" + "ppp" + "iiiii" + "pppp"
+                         "plp" + "ppp" + "ppp" + "i" * 6 + "pppp"
                          + "i" * 6 + "pppp" + "p")
-    rc = fn(p(points), P, p(g), *[p(t) for t in plan.fwd],
+    rc = fn(p(x), P, p(g), *[p(t) for t in plan.fwd],
             *[p(t) for t in plan.bwd], len(weights.trunk), weights.skip,
-            weights.pe_groups[0][2], out_dim, int(dtype == torch.bfloat16),
+            n_freq, enc_dim, out_dim, int(dtype == torch.bfloat16),
             p(plan.slots), p(acts), p(gzs), p(gx), plan.n_act, plan.act_stride,
             plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
             p(plan.prods), p(plan.work), p(part), p(out), _build.stream_ptr(dev))

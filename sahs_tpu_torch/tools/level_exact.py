@@ -36,6 +36,7 @@ from torch.overrides import TorchFunctionMode
 from ..config import Config
 from ..models import nerface
 from ..ops.grid import _cell_geometry, pack_corner_table
+from ..ops.kernels import deform_pair as k1
 from ..ops.kernels import field_mlp
 from ..ops.kernels import level_train as k2
 from ..ops.kernels import nerf_level as k5
@@ -78,7 +79,8 @@ def exact_sums(round_operands: bool = True):
     products' operands rounded to the compute dtype first (as always) or,
     with ``round_operands`` False, not rounded at all (a float64 run). The
     PE backward takes float32 (its cosines are the kernels'), in the level
-    backward's and in K14's plain version, and so does the cell geometry of
+    backward's, in K14's and in K3's (the points' cotangent) plain
+    versions, and so does the cell geometry of
     the corner sample (the kernels' cells and fractions, also on a cell's
     face). A product on other operands than float64 raises."""
     round_to, pe_backward = field_mlp.round_to, field_mlp.pe_backward
@@ -92,14 +94,14 @@ def exact_sums(round_operands: bool = True):
         return pe_backward(p.float(), g.float(), groups).double()
 
     field_mlp.round_to = exact_round_to
-    k2.pe_backward = k13.pe_backward = exact_pe_backward
+    k1.pe_backward = k2.pe_backward = k13.pe_backward = exact_pe_backward
     k5._cell_geometry = lambda coords, dims: cell_geometry(coords.float(), dims)
     try:
         with _Float64Products():
             yield
     finally:
         field_mlp.round_to = round_to
-        k2.pe_backward = k13.pe_backward = pe_backward
+        k1.pe_backward = k2.pe_backward = k13.pe_backward = pe_backward
         k5._cell_geometry = cell_geometry
 
 

@@ -18,9 +18,13 @@ pickle anywhere (loading an untrusted file cannot run code):
   iter, height, width   scalars in the header
 The same names and layouts as the JAX package, so a checkpoint written by
 either package resumes in the other. bf16 leaves are stored as their
-uint16 bits (a view through torch). A checkpoint whose structure does not
-match the model and optimizer (another model, or one written by the JAX
-package under ``SAHS_OPT_FLATTEN=1``) raises CheckpointError.
+uint16 bits (a view through torch). A checkpoint the JAX package wrote
+under ``SAHS_OPT_FLATTEN=1`` (optax.flatten around adam) holds mu and nu
+each as one raveled vector, ``opt|0/mu`` and ``opt|0/nu``: they are split
+in the parameter tree's leaf order (jax.tree_util's: dict keys sorted,
+lists in order) and restored as any other. A checkpoint whose structure
+does not match the model and optimizer (another model, or a raveled
+vector of another length) raises CheckpointError.
 
 The importer maps a released reference ``.ckpt`` (torch.save) onto the
 parameter tree; ``weights.params_from_jax`` loads the tree into a model.
@@ -273,6 +277,39 @@ def _param_map(state, tree) -> Dict[torch.nn.Parameter, torch.Tensor]:
     return out
 
 
+def _split_raveled(template, vec: torch.Tensor, key: str, path: str):
+    """``template``'s tree with its leaves cut, in jax.tree_util's leaf
+    order, from the raveled vector ``vec`` (optax.flatten's moments);
+    raises CheckpointError when ``vec`` is not one vector of the tree's
+    size."""
+    def leaves(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from leaves(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                yield from leaves(v)
+        else:
+            yield node
+    n = sum(int(np.size(v)) for v in leaves(template))
+    if vec.dim() != 1 or vec.numel() != n:
+        raise CheckpointError(
+            f"{path}: entry {key!r} has shape {tuple(vec.shape)}, the current "
+            f"model's raveled parameters ({n},)")
+    off = 0
+
+    def cut(node):
+        nonlocal off
+        if isinstance(node, dict):
+            return {k: cut(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [cut(v) for v in node]
+        size = int(np.size(node))
+        off += size
+        return vec[off - size:off].reshape(np.shape(node))
+    return cut(template)
+
+
 def restore_adam(opt, params, mu, nu, count: float, every_param: bool) -> None:
     """optax's Adam state (``mu``, ``nu``: parameter -> moment, and the
     ``count``) into torch's Adam ``opt`` for ``params``. ``every_param``:
@@ -299,8 +336,14 @@ def restore_train_state(path: str, state):
     entries, schema = load_checkpoint(path)
     template = _state_tree(state)
     params = _restore_section("params", template, entries, path, True)
-    opt = _restore_section("opt", [{"count": 0, "mu": template, "nu": template},
-                                   {"count": 0}], entries, path, True)
+    if "opt|0/mu" in entries:    # the JAX package under SAHS_OPT_FLATTEN=1
+        _restore_section("opt", [{"count": 0}, {"count": 0}], entries, path, True)
+        opt = [{"count": entries["opt|0/count"],
+                **{m: _split_raveled(template, entries[f"opt|0/{m}"], f"opt|0/{m}", path)
+                   for m in ("mu", "nu")}}]
+    else:
+        opt = _restore_section("opt", [{"count": 0, "mu": template, "nu": template},
+                                       {"count": 0}], entries, path, True)
     values, mu, nu = (_param_map(state, t) for t in (params, opt[0]["mu"], opt[0]["nu"]))
     with torch.no_grad():
         for p, v in values.items():

@@ -1,6 +1,7 @@
-"""The 12 semantic classes, their palette and ``label2color`` (the part of
-``sahs_tpu/utils/seg.py`` the data layer and the trainer's validation
-need, copied: the port never imports the JAX package). Classes: 0 background, 1 face, 2 nose,
+"""The 12 semantic classes, their palette and the mask codecs
+``color2label``, ``shrink`` and ``label2color`` (``sahs_tpu/utils/seg.py``,
+copied: the port never imports the JAX package; reference
+nerf-pytorch/nerf/utils.py:5-140). Classes: 0 background, 1 face, 2 nose,
 3 glasses, 4 eyes, 5 brows, 6 ears, 7 mouth-interior, 8 lips, 9 hair,
 10 neck, 11 torso.
 """
@@ -29,6 +30,20 @@ PALETTE = np.array(
     dtype=np.int32,
 )
 
+
+def color2label(target: np.ndarray) -> np.ndarray:
+    """(H, W, 3) RGB parse map -> (H, W, 12) int32 one-hot. A pixel that
+    matches no palette entry maps to all zeros (the reference's
+    behaviour)."""
+    flat = target.reshape(-1, 3).astype(np.int32)
+    eq = (flat[:, None, :] == PALETTE[None, :, :]).all(axis=-1)   # (N, 12)
+    return eq.reshape(target.shape[0], target.shape[1], NUM_CLASSES).astype(np.int32)
+
+
+def shrink(mask: np.ndarray) -> np.ndarray:
+    """The argmax of a (H, W, 12) soft mask, one-hot again, int32
+    (reference utils.py:5-24)."""
+    return np.eye(NUM_CLASSES, dtype=np.int32)[np.argmax(mask, axis=-1)]
 
 
 def label2color(mask: np.ndarray) -> np.ndarray:

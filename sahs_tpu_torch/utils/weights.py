@@ -8,7 +8,9 @@ and loads it into a ``NeRFaceModel``. Two layout changes:
     ``nn.Conv1d.weight`` is (cout, cin, k) for NCW data.
 ``params_to_jax`` goes back, for round-trip checks, and ``grads_to_jax``
 maps the ``.grad`` fields onto the same tree, so that gradients compare
-leaf by leaf. With a train state's per-frame ``latent_codes`` table given,
+leaf by leaf. ``net_from_jax`` / ``net_to_jax`` do the same for the small
+nets outside the model (``AudioAttNet``, ``MaskGeneratorMLP``,
+``WarpEmbeddingMLP``), each against its JAX ``*_init`` tree. With a train state's per-frame ``latent_codes`` table given,
 ``params_from_jax`` and ``grads_to_jax`` take and give the JAX train
 state's whole tree, {"model": ..., "latent_codes": (frames, 32)}.
 """
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.fields import AudioAttNet, MaskGeneratorMLP, WarpEmbeddingMLP
 from ..models.nerface import NeRFaceModel
 
 
@@ -123,3 +126,51 @@ def grads_to_jax(model: NeRFaceModel,
         return tree
     return {"model": tree,
             "latent_codes": grad(latent_codes).detach().cpu().numpy()}
+
+
+def _load_convs(convs, ps) -> None:
+    if len(convs) != len(ps):
+        raise ValueError(f"conv count {len(ps)} != {len(convs)}")
+    with torch.no_grad():
+        for c, p in zip(convs, ps):
+            c.weight.copy_(_t(p["w"]).permute(2, 1, 0))   # (k, cin, cout) -> (cout, cin, k)
+            c.bias.copy_(_t(p["b"]))
+
+
+_NERF_HEADS = ("fc_feat", "fc_alpha", "fc_rgb", "fc_seg")
+
+
+def net_from_jax(net: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """Load a JAX tree (numpy leaves) into one of the small nets in place:
+    ``audio_att_net_init``'s {"convs", "fc"}, ``mask_generator_init``'s
+    NeRF-like tree, ``warp_embedding_init``'s {"layers"}."""
+    if isinstance(net, AudioAttNet):
+        _load_convs(net.convs, tree["convs"])
+        _load_linear(net.fc, tree["fc"])
+    elif isinstance(net, MaskGeneratorMLP):
+        _load_linears(net.trunk.layers, tree["trunk"])
+        for name in _NERF_HEADS:
+            _load_linear(getattr(net, name), tree[name])
+        _load_linears(net.dir, tree["dir"])
+        _load_linears(net.seg, tree["seg"])
+    elif isinstance(net, WarpEmbeddingMLP):
+        _load_linears(net.layers, tree["layers"])
+    else:
+        raise TypeError(f"no JAX layout for {type(net).__name__}")
+    return net
+
+
+def net_to_jax(net: nn.Module) -> Dict[str, Any]:
+    """The inverse of ``net_from_jax``: a tree of numpy arrays."""
+    np_ = lambda p: p.detach().cpu().numpy()
+    lin = lambda l: {"w": np_(l.weight).T, "b": np_(l.bias)}
+    if isinstance(net, AudioAttNet):
+        return {"convs": [{"w": np_(c.weight).transpose(2, 1, 0), "b": np_(c.bias)}
+                          for c in net.convs], "fc": lin(net.fc)}
+    if isinstance(net, MaskGeneratorMLP):
+        return {"trunk": [lin(l) for l in net.trunk.layers],
+                **{name: lin(getattr(net, name)) for name in _NERF_HEADS},
+                "dir": [lin(l) for l in net.dir], "seg": [lin(l) for l in net.seg]}
+    if isinstance(net, WarpEmbeddingMLP):
+        return {"layers": [lin(l) for l in net.layers]}
+    raise TypeError(f"no JAX layout for {type(net).__name__}")

@@ -175,6 +175,9 @@ def test_structure_mismatch_raises(tmp_path):
 
 
 def test_jax_flattened_optimizer_checkpoint_raises(tmp_path, monkeypatch):
+    """A checkpoint the JAX package wrote under SAHS_OPT_FLATTEN=1 (one
+    raveled mu and nu) restores into the port; the same file with a
+    raveled moment one element short raises, naming the entry."""
     monkeypatch.setenv("SAHS_OPT_FLATTEN", "1")
     cfg = _cfg(Config)
     spec, ts = jn.ModelSpec.from_config(cfg), jstage1.TrainSettings.from_config(cfg)
@@ -183,8 +186,16 @@ def test_jax_flattened_optimizer_checkpoint_raises(tmp_path, monkeypatch):
     path = str(tmp_path / "flat.ckpt")
     jck.save_checkpoint(path, jst)
     _, _, st = _port_state()
+    tck.restore_train_state(path, st)
+    with np.load(path) as z:
+        entries = {k: z[k] for k in z.files}
+    entries["opt|0/mu"] = entries["opt|0/mu"][:-1]
+    short = str(tmp_path / "short.ckpt")
+    with open(short, "wb") as fp:
+        np.savez(fp, **entries)
+    _, _, st = _port_state()
     with pytest.raises(tck.CheckpointError, match="opt"):
-        tck.restore_train_state(path, st)
+        tck.restore_train_state(short, st)
 
 
 def test_export_import_roundtrip_matches_jax(tmp_path):

@@ -37,7 +37,9 @@ same bits on a second launch.
 Selecting: ``-k tensor_core`` (the tensor-core kernels' own tests), ``-k
 "tensor_core_level_forward or tensor_core_deform_pair"`` (bf16 K5 and K1's
 faults, guards and K5's bit-equality with K2's forward), ``-k "grid_dg or
-grid_bwd or grid_backward or order_free"`` (the grid backward).
+grid_bwd or grid_backward or order_free"`` (the grid backward), ``-k
+"pre_encoded or points_cotangent or on_se"`` (the kernels' pre-encoded
+forms, K3's points' cotangent and the level kernels on a per-point se).
 """
 import dataclasses
 import zlib
@@ -2793,3 +2795,259 @@ def test_two_ranks_over_gloo_on_one_card_match_the_single_step(tmp_path, compute
         assert du.gates_missed([r[path] for r in res], single[path]) == [], path
     for fault in du.FAULTS:
         assert du.gates_missed([r[fault] for r in res], single["fused"][:1]), fault
+
+
+# ---------------------------------------------------------------------------
+# The kernels' remaining input forms: K13/K14 and K11/K12 on pre-encoded
+# inputs, K3 with the points' cotangent, and K2, K5-K8 on a per-point
+# spatial embedding se (P, C). float32 at a few thousand points (at most
+# POINT_FLIPS flips), bfloat16 at TC_R x TC_S against exact sums
+# (``_plain_ref``) and TC_GATES; each form with a planted fault that must
+# miss the gates its faultless launch passes.
+# ---------------------------------------------------------------------------
+
+FORM_POINTS = {"float32": 96 * 48 + 17, "bfloat16": TC_R * TC_S}
+
+
+def _encode(pts, groups):
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    return kernel_pe(pts, groups)
+
+
+def _pre_skip_case(card, rng, net, P):
+    """(the (P, 63) encoding of raw points, weights without PE groups, of
+    the warp or hyper net)."""
+    dev, model, _, _ = card
+    cond = _gpu(dev, rng.randn(76 + 36) * 0.5)
+    w = k13.prepare_skip(getattr(model, net), cond, None,
+                         "tanh" if net == "warp" else "linear")
+    pts = _gpu(dev, rng.uniform(-1.05, 1.05, (P, 3)))
+    return _encode(pts, nerface.build_pe_groups(model.spec)[0]), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["warp", "hyper"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_pre_encoded_skip_kernels_match_plain(card, rng, net, compute_dtype):
+    """K13 and K14 on the (P, 63) encoding (weights without PE groups):
+    K13's output, K14's dW and the encoding's cotangent (P, 63) against
+    the plain versions (bf16: exact sums, PLAIN_MULTIPLE), one launch
+    each; planted fault: one column of the encoding left out of K13's
+    input must miss the gates."""
+    P = FORM_POINTS[compute_dtype]
+    enc, w = _pre_skip_case(card, rng, net, P)
+    dev = enc.device
+    counts = (k13.skip_mlp_forward.launches, k13.skip_mlp_vjp.launches)
+    y_k = k13.skip_mlp_forward(enc, w, compute_dtype)
+    y_p = k13.skip_mlp_plain(enc, w, compute_dtype)
+    f32 = compute_dtype == "float32"
+    ok = lambda y: (float((y - y_p).abs().max()) <= 1e-4 if f32 else
+                    _scaled(y, y_p) <= FIELD_GATE and _skip_exact(y, y_p, y_x)[0])
+    y_x = None if f32 else level_exact.exact_plain(k13.skip_mlp_plain, enc, w, "bfloat16")
+    torch.cuda.synchronize()
+    assert y_k.shape == (P, w.out["w"].shape[1]) and torch.isfinite(y_k).all()
+    assert ok(y_k)
+    cut = enc.clone()
+    cut[:, 40] = 0
+    assert not ok(k13.skip_mlp_forward(cut, w, compute_dtype))
+    g = 2.0 * (y_p - _gpu(dev, rng.randn(*y_p.shape) * 0.1)) / P
+    gx_k, g_k = k13.skip_mlp_vjp(enc, w, g, True, compute_dtype)
+    gx_p, g_p = _plain_ref(k13.skip_mlp_vjp_plain, enc, w, g, True, compute_dtype,
+                           out_k=(gx_k, g_k))
+    torch.cuda.synchronize()
+    assert (k13.skip_mlp_forward.launches, k13.skip_mlp_vjp.launches) == (
+        counts[0] + 2, counts[1] + 1)
+    assert gx_k.shape == (P, 63)
+    _points_ok(gx_k, gx_p, f32)
+    _grads_ok(g_k, g_p, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_deform_pair_vjp_points_cotangent_matches_plain(card, rng, compute_dtype):
+    """K3 with need_gx: dW bit for bit the train path's (need_gx off, the
+    same products), and gx (P, 3) = pe_bwd(x, gpe_warp + gpe_hyper) +
+    (g + g2)[:, :3] against the plain version (bf16: exact sums,
+    PLAIN_MULTIPLE); one launch a call; planted fault: the residual of the
+    warped coordinates left out of gx must miss the points' gate."""
+    dev, _, pair, _ = card
+    P = FORM_POINTS[compute_dtype]
+    pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
+    g = _gpu(dev, rng.randn(P, 5) * 0.1)
+    g2 = _gpu(dev, rng.randn(P, 5) * 0.1)
+    before = k1.deform_pair_vjp.launches
+    gx_k, g_k = k1.deform_pair_vjp(pts, pair, g, g2, compute_dtype, need_gx=True)
+    g_n = k1.deform_pair_vjp(pts, pair, g, g2, compute_dtype)
+    gx_p, g_p = _plain_ref(k1.deform_pair_vjp_plain, pts, pair, g, g2, compute_dtype,
+                           True, out_k=(gx_k, g_k))
+    torch.cuda.synchronize()
+    assert k1.deform_pair_vjp.launches == before + 2
+    for (path, a), (_, b) in zip(compare.leaves(g_k), compare.leaves(g_n)):
+        assert torch.equal(a, b), path
+    assert gx_k.shape == (P, 3) and torch.isfinite(gx_k).all()
+    f32 = compute_dtype == "float32"
+    _points_ok(gx_k, gx_p, f32)
+    _grads_ok(g_k, g_p, compute_dtype)
+    with pytest.raises(AssertionError):
+        _points_ok(gx_k - (g + g2)[:, :3], gx_p, f32)
+
+
+def _pre_point_case(card, rng, P):
+    """(pts_embed (P, 81), dir_extra (P, 59), the flagship level folded
+    without PE groups)."""
+    dev, model, _, _ = card
+    _, pts_g, dir_g = nerface.build_pe_groups(model.spec)
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                    rng.uniform(-1, 1, (P, 2))], 1))
+    dirs = _gpu(dev, rng.randn(P, 3) * 0.1 + [0, 0, -1])
+    extra = torch.cat([_encode(dirs, dir_g), _gpu(dev, rng.randn(P, 32) * 0.3)], 1)
+    level = k5.prepare_level(model.coarse, _gpu(dev, rng.randn(36) * 0.5), None, None)
+    return _encode(pts, pts_g), extra, level
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_pre_encoded_nerf_mlp_kernels_match_plain(card, rng, compute_dtype):
+    """K11 and K12 on pts_embed (P, 81) and dir_extra (P, 59): the raw
+    field, then gx (P, 81), gextra (P, 59) and dW from a loss of the plain
+    field, against the plain versions (bf16: exact sums, the field's rule
+    and TC_GATES); one launch each; planted fault: the se block of the
+    direction branch's first layer left out of K11's weights must miss."""
+    P = FORM_POINTS[compute_dtype]
+    x, e, level = _pre_point_case(card, rng, P)
+    dev = x.device
+    counts = (k11.nerf_mlp_forward_fused.launches, k2.nerf_mlp_vjp.launches)
+    raw_k = k11.nerf_mlp_forward_fused(x, e, level, compute_dtype)
+    raw_p = _plain_ref(k11.nerf_mlp_plain, x, e, level, compute_dtype, out_k=raw_k)
+    f32 = compute_dtype == "float32"
+    plain = k11.nerf_mlp_plain(x, e, level, compute_dtype)
+    torch.cuda.synchronize()
+    assert raw_k.shape == (P, 16) and torch.isfinite(raw_k).all()
+    ok = lambda r: (float((r - raw_p).abs().max()) <= 1e-4 if f32 else
+                    _field_scaled(r, plain) <= FIELD_GATE and _field_exact(r, plain, raw_p)[0])
+    assert ok(raw_k)
+    no_se = dataclasses.replace(level, dir0_se=torch.zeros_like(level.dir0_se), _blobs={})
+    assert not ok(k11.nerf_mlp_forward_fused(x, e, no_se, compute_dtype))
+    sig = torch.sigmoid(plain)
+    g = 2.0 * (sig - _gpu(dev, rng.rand(P, 16))) * sig * (1.0 - sig) / P
+    out_k = k2.nerf_mlp_vjp(x, e, g, level, compute_dtype)
+    out_p = _plain_ref(k2.nerf_mlp_vjp_plain, x, e, g, level, compute_dtype, out_k=out_k)
+    torch.cuda.synchronize()
+    assert (k11.nerf_mlp_forward_fused.launches, k2.nerf_mlp_vjp.launches) == (
+        counts[0] + 2, counts[1] + 1)
+    assert out_k[0].shape == (P, 81) and out_k[1].shape == (P, 59)
+    if f32:
+        _points_ok(out_k[0], out_p[0], True)
+        _points_ok(out_k[1], out_p[1], True)
+        _grads_ok(out_k[2], out_p[2], "float32")
+    else:
+        _tc_check(out_k, out_p, 2, 2)
+
+
+def _se_case(card, rng, compute_dtype):
+    """Ray inputs at the form's size (f32: 96 rays of 48; bf16: TC_R x
+    TC_S) with a background and sigma noise, and se (P, 32)."""
+    dev = card[0]
+    R, S = (96, 48) if compute_dtype == "float32" else (TC_R, TC_S)
+    P = R * S
+    pts = _gpu(dev, np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                    rng.uniform(-1, 1, (P, 2))], 1))
+    dirs = _gpu(dev, rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    z = _gpu(dev, np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+    bg = _gpu(dev, rng.rand(R, 15))
+    noise = _gpu(dev, rng.randn(R, S) * 0.5)
+    se = _gpu(dev, rng.randn(P, 32) * 0.3)
+    return R, S, pts, dirs, z, bg, noise, se
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_level_kernels_on_se_match_plain(card, rng, compute_dtype):
+    """K7/K8, K5/K6 and K2 on a per-point se (P, 32) in place of the corner
+    table: the raw field and the composited outputs against the plain
+    versions (bf16: exact sums, the field's and the level's rules), gx (no
+    trilinear term), gse (P, 32) float32, g_bg and dW from the plain
+    outputs' loss cotangents (bf16: TC_GATES against exact sums); one
+    launch a call; planted faults: the se block of the first direction
+    layer left out of K7's and K5's weights, half of gse's channels dropped
+    from K8's, K6's and K2's results, each missing its gate."""
+    dev, _, _, level = card
+    R, S, pts, dirs, z, bg, noise, se = _se_case(card, rng, compute_dtype)
+    P = R * S
+    f32 = compute_dtype == "float32"
+    held = (k5.nerf_rayd_forward, k2.nerf_rayd_vjp, k5.nerf_level_forward,
+            k2.nerf_level_vjp, k2.nerf_level_train)
+    counts = [f.launches for f in held]
+    no_se = dataclasses.replace(level, dir0_se=torch.zeros_like(level.dir0_se), _blobs={})
+    half = lambda out, i: tuple(t.clone() if j == i else t for j, t in enumerate(out))
+
+    def gse_fault(out, i):
+        out = half(out, i)
+        out[i][:, :16] = 0
+        return out
+
+    def check_bwd(out_k, out_p, n_points):
+        if f32:
+            for a, b in zip(out_k[:n_points], out_p[:n_points]):
+                _points_ok(a, b, True)
+            _grads_ok(out_k[-1], out_p[-1], "float32")
+        else:
+            _tc_check(out_k, out_p, n_points, len(out_k) - 1)
+
+    # K7 / K8
+    rayd = lambda lv: k5.nerf_rayd_forward(pts, dirs, None, None, lv, compute_dtype,
+                                           None, se=se)
+    raw_k = rayd(level)
+    raw_x = _plain_ref(k5.nerf_raw_plain, pts, dirs, None, None, level, compute_dtype,
+                       None, None, se, out_k=raw_k)
+    raw_p = k5.nerf_raw_plain(pts, dirs, None, None, level, compute_dtype, None, se=se)
+    ok7 = lambda r: (float((r - raw_x).abs().max()) <= 1e-4 if f32 else
+                     _field_scaled(r, raw_p) <= FIELD_GATE and _field_exact(r, raw_p, raw_x)[0])
+    assert raw_k.shape == (P, 16) and ok7(raw_k) and not ok7(rayd(no_se))
+    g = _tc_rayd_cotangent(rng, dev, raw_p, z, dirs, bg) if not f32 else \
+        _gpu(dev, rng.randn(P, 16) * 0.01)
+    rargs = (pts, dirs, None, None, g, level, compute_dtype, None, se)
+    out_k = k2.nerf_rayd_vjp(*rargs)
+    out_p = _plain_ref(k2.nerf_rayd_vjp_plain, *rargs, out_k=out_k)
+    torch.cuda.synchronize()
+    assert out_k[1].shape == (P, 32) and out_k[1].dtype == torch.float32
+    check_bwd(out_k, out_p, 2)
+    with pytest.raises(AssertionError):
+        check_bwd(gse_fault(out_k, 1), out_p, 2)
+    # K5 / K6
+    largs = (pts, dirs, None, None, z, bg, noise)
+    level_k = lambda lv: k5.nerf_level_forward(*largs, lv, compute_dtype, None, se)
+    rgb_k, w_k = level_k(level)
+    rgb_p, w_p = k5.nerf_level_plain(*largs, level, compute_dtype, None, se)
+    if f32:
+        ok5 = lambda o: max(float((o[0] - rgb_p).abs().max()),
+                            float((o[1] - w_p).abs().max())) <= 1e-4
+    else:
+        out_x = level_exact.exact_plain(k5.nerf_level_plain, *largs, level, "bfloat16",
+                                        None, se)
+        ok5 = lambda o: _level_exact(o, (rgb_p, w_p), out_x)[0]
+    assert ok5((rgb_k, w_k)) and not ok5(level_k(no_se))
+    g_rgb, g_w = _tc_cotangents(dev, rng, rgb_p, w_p, z)
+    vargs = largs + (g_rgb, g_w, level, compute_dtype, None, se)
+    out_k = k2.nerf_level_vjp(*vargs)
+    out_p = _plain_ref(k2.nerf_level_vjp_plain, *vargs, out_k=out_k)
+    torch.cuda.synchronize()
+    check_bwd(out_k, out_p, 3)
+    with pytest.raises(AssertionError):
+        check_bwd(gse_fault(out_k, 1), out_p, 3)
+    # K2
+    tgt = _gpu(dev, np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+    lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+    targs = largs + (tgt, lw, level, compute_dtype, None, 0.5, se)
+    out_k = k2.nerf_level_train(*targs)
+    out_p = _plain_ref(k2.nerf_level_train_plain, *targs, out_k=out_k)
+    torch.cuda.synchronize()
+    if f32:
+        assert max(float((out_k[i] - out_p[i]).abs().max()) for i in (0, 1)) <= 1e-4
+    else:
+        assert max(_rel(out_k[i], out_p[i]) for i in (0, 1)) <= TC_GATES["out_rel"]
+    assert out_k[3].shape == (P, 32)
+    check_bwd(out_k[2:], out_p[2:], 3)
+    with pytest.raises(AssertionError):
+        check_bwd(gse_fault(out_k[2:], 1), out_p[2:], 3)
+    assert [f.launches for f in held] == [c + n for c, n in zip(counts, (2, 1, 2, 1, 1))]

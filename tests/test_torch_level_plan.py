@@ -206,8 +206,9 @@ def test_tile_sizes_match_the_cuda_sources():
     src = _cu_text("skip_mlp.cu")
     ks = _cu_const("skip_mlp.cu", "SKIP_FWD_KS")
     assert ks % 16 == 0 and k13.TC_K_STEP % ks == 0
-    assert "const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, KS);" in src
-    assert "const sahs::SkipLayout ly(3 + 6 * a.n_freq, false, SKIP_FWD_KS);" in src
+    assert "const sahs::SkipLayout ly(a.pe_dim(), false, KS);" in src
+    assert "const sahs::SkipLayout ly(a.pe_dim(), false, SKIP_FWD_KS);" in src
+    assert ("return enc_dim > 0 ? enc_dim : 3 + 6 * n_freq;" in src)
     assert "skip_fwd_tc_kernel<SKIP_FWD_KS>\n      <<<(unsigned)n_tiles, sahs::TC_THREADS" in src
     assert "const long long base = (long long)blockIdx.x * TC_TP;" in src
 

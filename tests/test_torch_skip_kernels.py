@@ -226,7 +226,8 @@ def _meta(*shape):
                                   "points_width", "k15_device", "bf16_trunk_step"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(nets, case):
     """(d) Before any launch, on a tensor that is not on the CPU: K13 and
-    K14 refuse the precomputed-PE form (not ported), trunks wider than 128,
+    K14 refuse a precomputed-PE input whose width is not the encoding's
+    (and take one that is, up to the device check), trunks wider than 128,
     heads of more than 8 outputs and points other than (P, 3), and in
     bfloat16 trunk widths that are not multiples of the tensor cores'
     weight slice (a multiple of 8 that float32 takes); K15 refuses a
@@ -246,7 +247,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(nets, case):
         return
     if case == "precomputed_pe":
         w = k13.prepare_skip(model.warp, torch.tensor(cond), None, "tanh")
-        pts, match = _meta(64, 63), "precomputed-PE form is not ported"
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            k13.skip_mlp_forward(_meta(64, 63), w, "float32")
+        pts, match = _meta(64, 3), r"pre-encoded input must be \(P, 63\)"
     elif case == "wide_trunk":
         w.trunk[1] = {"w": torch.zeros(128, 256), "b": torch.zeros(256)}
         match = "at most 128 wide"
