@@ -288,6 +288,29 @@ Phases, in order (any failure exits non-zero and prints no result):
      parse-map codec (sahs_tpu_torch/native, built by g++ into
      build/native/) on a 512x512 map bit for bit against its numpy
      version. ``--only-phase 19`` runs the build and this phase alone.
+ 20. the fused step's structural variants (train/fused.py: SAHS_BWD_SPLIT,
+     SAHS_FUSED_UNION, SAHS_PAIR_RAYS, SAHS_PAIR_FOLD, and _PAIR_RAYS with
+     _PAIR_FOLD and with _UNION) at the flagship Config(), 2048 rays, 64 +
+     64, Adam: (1) the kernel forms they reach, float32 at 256 rays and
+     bf16 at 2048, 64 and 128 samples a ray: K1's and K3's rays= forms bit
+     for bit K15 then the positional forms, K1's against its plain version
+     (bf16: phase 2's gates), K2's pair= form bit for bit K2 then K3's
+     rays= form on K2's gx and against its plain version, and K3's rays=
+     form against its plain version on K2's gx (bf16 dW by the exact-sum
+     rule: each takes K2's gx, whose kink points sit off exact sums in
+     either side's bf16 run); planted faults: an FMA in the
+     position build must break the bit-equality, g2 dropped from K3's rays=
+     form must miss its gate; each form's bf16 ms beside the existing
+     form's at 2048 x 128, in turns; (2) each variant's whole step against
+     the default step on the same draws, float32 (the CPU tests'
+     tolerances, VARIANT_F32) and bf16 (VARIANT_BF16), the launches a step
+     checked (VARIANT_LAUNCHES), with the counters zeroed just before and
+     read just after into the kernels line; planted faults: the coarse
+     level's pair dW dropped from the fold, g2 dropped from K3's rays= call
+     of the merge, each must miss; (3) each variant's bf16 ms a step in
+     turns with the default (default, variant, variant, default; 2 warm-up,
+     10 timed) and each CUDA kernel's device time a step (torch.profiler).
+     ``--only-phase 20`` runs the build and this phase alone.
 Then it prints the `kernels` JSON line, the nvidia-smi name and power
 limit, and as the last line {"ok": true, "device": {...}}. With --report
 PATH, everything measured is also written to PATH as JSON.
@@ -471,6 +494,7 @@ def fused_swaps():
             (fused, "deform_pair_forward", k1.deform_pair_plain),
             (fused, "deform_pair_vjp", k1.deform_pair_vjp_plain),
             (fused, "grid_dg", k4.grid_dg_plain),
+            (fused, "grid_dg_coords", k4.grid_dg_coords_plain),
             (k2, "nerf_level_train", k2.nerf_level_train_plain)]
 
 
@@ -4295,6 +4319,460 @@ def phase19_forms(dev, report, kernels, field_rays: int = 32768) -> str:
     return ""
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the fused step's structural variants
+# ---------------------------------------------------------------------------
+
+# the variants, by their flags in sahs_tpu_torch/train/fused.py
+VARIANT_FLAGS = {"split": ("_BWD_SPLIT",), "union": ("_UNION",),
+                 "rays": ("_PAIR_RAYS",), "fold": ("_PAIR_FOLD",),
+                 "rays_fold": ("_PAIR_RAYS", "_PAIR_FOLD"),
+                 "rays_union": ("_PAIR_RAYS", "_UNION")}
+# each variant's launches a step (the default's: K1 = K2 = K15 = 2, K3 =
+# K4 = 1)
+VARIANT_LAUNCHES = {
+    "default": {"K1": 2, "K2": 2, "K3": 1, "K4": 1, "K15": 2},
+    "split": {"K1": 2, "K2": 2, "K3": 2, "K4": 2, "K15": 2},
+    "union": {"K1": 2, "K2": 2, "K3": 1, "K9": 1, "K15": 2},
+    "rays": {"K1": 2, "K2": 2, "K3": 1, "K4": 1},
+    "fold": {"K1": 2, "K2": 2, "K4": 2, "K15": 2},
+    "rays_fold": {"K1": 2, "K2": 2, "K4": 2},
+    "rays_union": {"K1": 2, "K2": 2, "K3": 1, "K9": 1, "K15": 2}}
+# float32: a variant's whole step against the default's, the CPU tests'
+# tolerances (tests/test_fused_train.py's): the loss within "loss_rel",
+# every gradient entry within "atol" + "rtol" of the default's
+VARIANT_F32 = {"split": {"loss_rel": 1e-6, "rtol": 1e-4, "atol": 1e-6}}
+VARIANT_F32_DEFAULT = {"loss_rel": 1e-5, "rtol": 2e-4, "atol": 2e-6}
+# bf16: the loss within "loss_rel" and every gradient leaf (each weight and
+# each bias) within "l2_rel" of its own norm, at "cosine". Readings (NVIDIA
+# H100 80GB HBM3, 700.00 W): every variant's loss equal to the default's
+# (the same forward bits); the worst leaf 2.61e-3 / cosine 0.9999966 (the
+# split and the fold: each level's head cotangent rounds to bf16 on its
+# own, where the merge rounds their sum), 4.6e-7 (the union), 0 (rays);
+# the planted faults 0.86 / 0.55. The gates are 4x the largest distance,
+# rounded up, and the loss to 1e-6.
+VARIANT_BF16 = {"loss_rel": 1e-6, "l2_rel": 1.1e-2, "cosine": 0.99998}
+# the kernels phase 20 drives, by their entry of the kernels line
+VARIANT_KERNELS = {"K1": "sahs_tpu/ops/pallas/field_mlp.py:868",
+                   "K2": "sahs_tpu/ops/pallas/level_train.py:55",
+                   "K3": "sahs_tpu/ops/pallas/field_mlp.py:1098",
+                   "K4": "sahs_tpu/ops/pallas/grid_bwd.py:211",
+                   "K9": "sahs_tpu/ops/pallas/grid_bwd.py:103",
+                   "K15": "sahs_tpu/ops/pallas/field_mlp.py:814"}
+VARIANT_RAYS = 2048
+
+
+@contextlib.contextmanager
+def variant_flags(on):
+    """The port's fused step with exactly the flags ``on`` set."""
+    from sahs_tpu_torch.train import fused
+    names = ("_BWD_SPLIT", "_UNION", "_PAIR_RAYS", "_PAIR_FOLD")
+    saved = {n: getattr(fused, n) for n in names}
+    for n in names:
+        setattr(fused, n, n in on)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(fused, n, v)
+
+
+@contextlib.contextmanager
+def variant_fault(kind):
+    """A fault planted in a variant's step: "fold_coarse" drops the coarse
+    level's pair dW from the fold (K2's pair= result of the first level
+    zeroed), "rays_g2" drops g2 from K3's rays= call (the coarse
+    cotangents of the merge), None plants nothing."""
+    import torch
+    from sahs_tpu_torch.train import fused
+    saved = (fused.level_train_apply, fused.deform_pair_vjp)
+    if kind == "fold_coarse":
+        calls = []
+
+        def level(*a, **kw):
+            out = list(saved[0](*a, **kw))
+            calls.append(1)
+            if len(calls) == 1 and kw.get("pair") is not None:
+                out[2] = _tree_map(torch.zeros_like, out[2])
+            return tuple(out)
+        fused.level_train_apply = level
+    elif kind == "rays_g2":
+        def vjp(points, weights, g, g2, cdt, need_gx=False, rays=None):
+            return saved[1](points, weights, g, None if rays is not None else g2, cdt,
+                            need_gx, rays)
+        fused.deform_pair_vjp = vjp
+    try:
+        yield
+    finally:
+        fused.level_train_apply, fused.deform_pair_vjp = saved
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def variant_vs_default(res, ref, compute_dtype, name) -> dict:
+    """A variant's step ``res`` (loss, grads, launches) against the
+    default's ``ref``: the loss's relative distance and, per gradient leaf,
+    in float32 the entries past the CPU tolerances, in bf16 the worst leaf's
+    L2 distance and cosine."""
+    import torch
+    from sahs_tpu_torch.utils.compare import tree_errors
+    loss_rel = abs(res[0] - ref[0]) / max(abs(ref[0]), 1e-30)
+    out = {"loss_rel": loss_rel}
+    if compute_dtype == "float32":
+        tol = VARIANT_F32.get(name, VARIANT_F32_DEFAULT)
+        over, worst, wname = 0, 0.0, ""
+        for n, b in ref[1].items():
+            a = res[1][n].double()
+            b = b.double()
+            excess = (a - b).abs() - (tol["atol"] + tol["rtol"] * b.abs())
+            over += int((excess > 0).sum())
+            m = float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())).max())
+            if m > worst:
+                worst, wname = m, n
+        out.update({"over": over, "worst_ratio": worst, "worst_leaf": wname,
+                    "ok": loss_rel <= tol["loss_rel"] and over == 0})
+    else:
+        e = tree_errors(res[1], ref[1])
+        out.update({"l2_rel": e["l2_rel"], "cosine": e["cosine"],
+                    "worst_leaf": e["worst_leaf"],
+                    "ok": (loss_rel <= VARIANT_BF16["loss_rel"]
+                           and e["l2_rel"] <= VARIANT_BF16["l2_rel"]
+                           and e["cosine"] >= VARIANT_BF16["cosine"])})
+    out["finite"] = bool(all(torch.isfinite(g).all() for g in res[1].values()))
+    out["ok"] = out["ok"] and out["finite"]
+    return out
+
+
+def variant_forms(fm, dev, compute_dtype) -> tuple:
+    """The kernel forms of the variants at phase 19's sizes (FORMS_RAYS:
+    float32 256 rays, where a ReLU flips at a few points at most; bf16
+    2048): K1 and K3 in their rays= form bit for bit K15 then the
+    positional form, at 64 and 128 samples a ray (any cotangents); K1's
+    against its plain version; K2's pair= form (128 samples) bit for bit K2
+    then K3's rays= form on K2's gx, and against its plain version; K3's
+    rays= form against its plain version on K2's gx with the addend g2 =
+    the next ray's gx / 2 (a loss's cotangents, as phase 5's: random ones at every point
+    make a flipped ReLU move a whole bias leaf). bf16 dW by the exact-sum
+    rule. Planted faults: an FMA in the position build (o + d z rounded
+    once, as float64 rounds it) must break the bit-equality, g2 dropped
+    from K3's rays= form must miss K3's gate. Returns (readings, faults)."""
+    import torch
+    from sahs_tpu_torch.ops.grid import pack_corner_table
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import points as k15
+    from sahs_tpu_torch.tools import level_exact
+    from sahs_tpu_torch.utils.compare import leaves, point_errors, tree_errors
+    ds, near, far, pair = fm["ds"], fm["near"], fm["far"], fm["pair"]
+    dims = (32, 32, 32)
+    bf16 = compute_dtype == "bfloat16"
+    R = FORMS_RAYS[compute_dtype]
+    ro, rd, _, _ = frame_rays(ds, 0, dev, n=R, offset=(512 * 512 - R) // 2)
+    trees_equal = lambda a, b: all(torch.equal(x, y) for (_, x), (_, y)
+                                   in zip(leaves(a), leaves(b)))
+
+    def dw_reading(k, p, plain_fn, *args):
+        """dW ``k`` against the plain version's ``p``; in bf16 also the
+        exact-sum rule (``plain_fn`` on ``args`` with exact sums)."""
+        e = tree_errors(k, p)
+        if bf16:
+            x = level_exact.exact_plain(plain_fn, *args)
+            x = x if isinstance(x, dict) else x[2]
+            e["exact"] = exact_rule(tree_errors(k, x)["l2_rel"],
+                                    tree_errors(p, x)["l2_rel"])
+        return e
+    res, faults = {}, {}
+    for S in (64, 128):
+        z, _ = level_inputs(ro, rd, near, far, S, fm["gen"], dev)
+        rays = (ro, rd, z)
+        pts = k15.build_pts(ro, rd, z)
+        out_r, rows_r = k1.deform_pair_forward(None, pair, compute_dtype, S, dims, rays=rays)
+        out_k, rows_k = k1.deform_pair_forward(pts, pair, compute_dtype, S, dims)
+        out_p, rows_p = k1.deform_pair_plain(None, pair, compute_dtype, S, dims, rays=rays)
+        g = _rnd(fm["gen"], dev, R * S, 5, scale=0.1)
+        g2 = _rnd(fm["gen"], dev, R * S, 5, scale=0.1)
+        t_r = k1.deform_pair_vjp(None, pair, g, g2, compute_dtype, rays=rays)
+        t_k = k1.deform_pair_vjp(pts, pair, g, g2, compute_dtype)
+        fma = (ro.double()[:, None, :] + rd.double()[:, None, :]
+               * z.double()[..., None]).float().reshape(-1, 3)
+        out_f, _ = k1.deform_pair_forward(fma, pair, compute_dtype, S, dims)
+        res[f"S{S}"] = {
+            "k1_equal": bool(torch.equal(out_r, out_k) and torch.equal(rows_r, rows_k)),
+            "k3_equal": trees_equal(t_r, t_k),
+            "k1_abs": abs_err(out_r, out_p), "k1_rows_mismatch": int((rows_r != rows_p).sum()),
+            "finite": bool(torch.isfinite(out_r).all())}
+        if bf16:   # phase 2's gates: each output group's scale, and exact sums
+            res[f"S{S}"].update(k1_errors(out_r, out_p, pts))
+            res[f"S{S}"]["k1_exact"] = pair_exact((pts, pair, compute_dtype, S, dims),
+                                                  out_r, out_p)
+        faults[f"fma_position_S{S}"] = {
+            "points_moved": int((fma != pts).any(dim=1).sum()),
+            "equal": bool(torch.equal(out_f, out_r))}
+        del out_r, out_k, out_p, out_f, pts, fma, g, g2
+    # K2's pair= form at a step's fine level, and K3's rays= form on its gx
+    S = 128
+    pts, dirs, z, bg, noise, _, tgt, lw = _ray_inputs(fm, dev, R, S)
+    ro2 = _rnd(fm["gen"], dev, R, 3, scale=0.05) + torch.tensor([0.0, 0.0, 1.2],
+                                                                device=dev)
+    rays2 = (ro2, dirs, z)
+    tdt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    table = pack_corner_table(fm["model"].spatial_embeddings.detach(), dtype=tdt)
+    args = (pts, dirs, table, _cell_geometry_rows(pts, dims, S), z, bg, noise, tgt, lw,
+            fm["level"], compute_dtype, dims, 0.5)
+    rgb_f, w_f, pg_f, gse_f, gbg_f, g_f = k2.nerf_level_train(*args, pair=(pair, ro2))
+    rgb_k, w_k, gx_k, gse_k, gbg_k, g_k = k2.nerf_level_train(*args)
+    pg_k = k1.deform_pair_vjp(None, pair, gx_k, None, compute_dtype, rays=rays2)
+    plain = k2.nerf_level_train_plain(*args, pair=(pair, ro2))
+    # the pair's dW takes K2's gx, whose kink points sit off exact sums in
+    # either side's bf16 run: in bf16 the exact-sum rule, as the card test
+    e_pair = dw_reading(pg_f, plain[2], k2.nerf_level_train_plain, *args, None, (pair, ro2))
+    e_lvl = tree_errors(g_f, plain[5])
+    g2 = 0.5 * gx_k.roll(S, 0)   # the next ray's cotangents: an addend of its own
+    t3 = k1.deform_pair_vjp(None, pair, gx_k, g2, compute_dtype, rays=rays2)
+    t3_p = k1.deform_pair_vjp_plain(None, pair, gx_k, g2, compute_dtype, rays=rays2)
+    e3 = dw_reading(t3, t3_p, k1.deform_pair_vjp_plain, None, pair, gx_k, g2, compute_dtype,
+                    False, rays2)
+    e_g2 = tree_errors(k1.deform_pair_vjp(None, pair, gx_k, None, compute_dtype, rays=rays2),
+                       t3_p)
+    faults["k3_rays_without_g2"] = {"l2_rel": e_g2["l2_rel"], "cosine": e_g2["cosine"]}
+    res["k3_rays"] = {"l2_rel": e3["l2_rel"], "cosine": e3["cosine"],
+                      "worst_leaf": e3["worst_leaf"], "exact": e3.get("exact")}
+    res["k2_pair"] = {
+        "equal": bool(torch.equal(rgb_f, rgb_k) and torch.equal(w_f, w_k)
+                      and torch.equal(gse_f, gse_k) and torch.equal(gbg_f, gbg_k)
+                      and trees_equal(g_f, g_k) and trees_equal(pg_f, pg_k)),
+        "pair_l2_rel": e_pair["l2_rel"], "pair_cosine": e_pair["cosine"],
+        "pair_worst_leaf": e_pair["worst_leaf"], "pair_exact": e_pair.get("exact"),
+        "dw_l2_rel": e_lvl["l2_rel"], "dw_cosine": e_lvl["cosine"],
+        "rgb_rel": rel_err(rgb_f, plain[0]), "w_rel": rel_err(w_f, plain[1]),
+        "rgb_abs": abs_err(rgb_f, plain[0]), "w_abs": abs_err(w_f, plain[1]),
+        "gse": point_errors(gse_f, plain[3], TRAIN_F32_GATES["point_tol"]),
+        "finite": bool(torch.isfinite(rgb_f).all() and torch.isfinite(w_f).all())}
+    torch.cuda.synchronize()
+    return res, faults
+
+
+# bf16 backwards against exact sums: a kernel's dW at most EXACT_MULTIPLE
+# times the plain version's distance, floor DW_FLOOR (the card tests'
+# PLAIN_FLOOR for the backwards)
+DW_FLOOR = 1e-3
+
+
+def exact_rule(d_k, d_p, floor=DW_FLOOR) -> dict:
+    """The exact-sum rule on a kernel's distance ``d_k`` and the plain
+    version's ``d_p`` to exact sums."""
+    return {"kernel": d_k, "plain": d_p, "ok": d_k <= EXACT_MULTIPLE * max(d_p, floor)}
+
+
+def variant_form_times(fm, dev) -> dict:
+    """bf16 ms of each new form beside the existing form at the same shape,
+    2048 rays x 128 (262,144 points), in turns (``_time_pair``): K1 rays=
+    against K15 then K1, K3 rays= (with g2) against K15 then K3, K2 pair=
+    against K2 then K3 rays= on K2's gx."""
+    import torch
+    from sahs_tpu_torch.ops.grid import pack_corner_table
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import points as k15
+    cdt, dims, R, S = "bfloat16", (32, 32, 32), VARIANT_RAYS, 128
+    pair = fm["pair"]
+    ro, rd, _, _ = frame_rays(fm["ds"], 0, dev, n=R, offset=(512 * 512 - R) // 2)
+    z, _ = level_inputs(ro, rd, fm["near"], fm["far"], S, fm["gen"], dev)
+    rays = (ro, rd, z)
+    g = _rnd(fm["gen"], dev, R * S, 5, scale=0.1)
+    g2 = _rnd(fm["gen"], dev, R * S, 5, scale=0.1)
+    pts, dirs, z2, bg, noise, _, tgt, lw = _ray_inputs(fm, dev, R, S)
+    table = pack_corner_table(fm["model"].spatial_embeddings.detach(), dtype=torch.bfloat16)
+    args = (pts, dirs, table, _cell_geometry_rows(pts, dims, S), z2, bg, noise, tgt, lw,
+            fm["level"], cdt, dims, 0.5)
+    return {
+        "K1": _time_pair(
+            lambda: k1.deform_pair_forward(None, pair, cdt, S, dims, rays=rays),
+            lambda: k1.deform_pair_forward(k15.build_pts(*rays), pair, cdt, S, dims)),
+        "K3": _time_pair(
+            lambda: k1.deform_pair_vjp(None, pair, g, g2, cdt, rays=rays),
+            lambda: k1.deform_pair_vjp(k15.build_pts(*rays), pair, g, g2, cdt)),
+        "K2": _time_pair(
+            lambda: k2.nerf_level_train(*args, pair=(pair, ro)),
+            lambda: k1.deform_pair_vjp(None, pair, k2.nerf_level_train(*args)[2], None,
+                                       cdt, rays=(ro, dirs, z2)))}
+
+
+def _cell_geometry_rows(pts, dims, S):
+    """The corner-table rows (R, S) of packed points (R * S, >= 3)."""
+    import torch
+    from sahs_tpu_torch.ops.grid import _cell_geometry
+    return _cell_geometry(pts[:, :3], dims)[0].to(torch.int32).reshape(-1, S)
+
+
+def variant_forms_missed(res, faults, compute_dtype) -> list:
+    """The forms' gates that ``res`` misses, and the faults that pass."""
+    f32 = compute_dtype == "float32"
+    g = TRAIN_F32_GATES if f32 else TRAIN_BF16_GATES
+    missed = []
+    for S in ("S64", "S128"):
+        r = res[S]
+        if not (r["k1_equal"] and r["k3_equal"] and r["finite"]):
+            missed.append(f"{S} bit-equality with K15 then K1 / K3")
+        if not (r["k1_abs"] <= 1e-4 and r["k1_rows_mismatch"] == 0 if f32
+                else max(r["k1_scaled_warp"], r["k1_scaled_ambient"]) <= BF16_GATE
+                and r["k1_exact"]["ok"]):
+            missed.append(f"{S} K1 rays= vs plain")
+        f = faults[f"fma_position_{S}"]
+        if f["equal"] or not f["points_moved"]:
+            missed.append(f"{S} the FMA fault passes the bit-equality")
+    r = res["k3_rays"]
+    if not (dw_ok(r, g) if f32 else r["exact"]["ok"]):
+        missed.append("K3 rays= vs plain")
+    if dw_ok(faults["k3_rays_without_g2"], g):
+        missed.append("K3 rays= without g2 passes its gate")
+    r = res["k2_pair"]
+    out_ok = (max(r["rgb_abs"], r["w_abs"]) <= g["out_abs"] if f32
+              else max(r["rgb_rel"], r["w_rel"]) <= g["out_rel"])
+    if not (r["equal"] and r["finite"] and out_ok):
+        missed.append("K2 pair= vs K2 then K3 rays= / outputs")
+    pair_ok = (dw_ok({"l2_rel": r["pair_l2_rel"], "cosine": r["pair_cosine"]}, g) if f32
+               else r["pair_exact"]["ok"])
+    if not (pair_ok and dw_ok({"l2_rel": r["dw_l2_rel"], "cosine": r["dw_cosine"]}, g)):
+        missed.append("K2 pair= dW vs plain")
+    return missed
+
+
+def phase20_variants(dev, report, kernels) -> str:
+    """Phase 20 (see the top of this file). Returns "" or what failed."""
+    import torch
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.data.synthetic import SyntheticFaceDataset
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.train import stage1
+    from sahs_tpu_torch.utils.device import device_ms_by_kernel
+    t0 = time.time()
+    counters = kernel_counters()
+    fm = _forms_model(dev)
+    out = {"forms": {}, "form_faults": {}, "steps": {}, "faults": {}}
+    # 1. the kernel forms
+    for cdt in ("float32", "bfloat16"):
+        res, faults = variant_forms(fm, dev, cdt)
+        out["forms"][cdt], out["form_faults"][cdt] = res, faults
+        print(f"phase 20 forms ({cdt}) " + json.dumps(res), flush=True)
+        print(f"phase 20 form faults ({cdt}; each must miss) " + json.dumps(faults),
+              flush=True)
+        missed = variant_forms_missed(res, faults, cdt)
+        if missed:
+            return f"phase 20: the kernel forms miss their gates ({cdt}): {missed}"
+        torch.cuda.empty_cache()
+    out["form_times"] = variant_form_times(fm, dev)
+    print("phase 20 each form's ms beside the existing form's at the same shape (bf16, "
+          "2048 rays x 128; new, existing, existing, new) " + json.dumps(out["form_times"]),
+          flush=True)
+    del fm
+    torch.cuda.empty_cache()
+    # 2. each variant's whole step against the default's, and the faults;
+    # the launch counters zeroed just before and read just after
+    for f in counters.values():
+        f.launches = 0
+    cfg0 = Config()
+    near, far = float(cfg0.dataset.near), float(cfg0.dataset.far)
+    ds = SyntheticFaceDataset(kind="audio", num_frames=1, H=512, W=512, near=near, far=far)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds[0].items() if k != "fname"}
+    batch["background"] = torch.as_tensor(ds.background()).to(dev)
+    draws = make_draws(VARIANT_RAYS, 512 * 512, 20, dev)
+    for cdt in ("float32", "bfloat16"):
+        cfg = path_cfg("flagship", rays=VARIANT_RAYS, compute_dtype=cdt)
+        with variant_flags(()):
+            ref = run_step(dev, batch, draws, cfg)
+        rows = {"default": {"launches": ref[2], "loss": ref[0]}}
+        bad = []
+        if ref[2] != VARIANT_LAUNCHES["default"]:
+            bad.append(("default", ref[2]))
+        for name, on in VARIANT_FLAGS.items():
+            with variant_flags(on):
+                res = run_step(dev, batch, draws, cfg)
+            rows[name] = {**variant_vs_default(res, ref, cdt, name), "launches": res[2]}
+            if res[2] != VARIANT_LAUNCHES[name]:
+                bad.append((name, res[2]))
+        faults = {}
+        for fault, on in (("fold_coarse", ("_PAIR_FOLD",)), ("rays_g2", ("_PAIR_RAYS",))):
+            with variant_flags(on), variant_fault(fault):
+                res = run_step(dev, batch, draws, cfg)
+            faults[fault] = variant_vs_default(res, ref, cdt, on[0])
+        out["steps"][cdt], out["faults"][cdt] = rows, faults
+        print(f"phase 20 variant steps vs the default ({cdt}, {VARIANT_RAYS} rays, 64 + 64) "
+              + json.dumps(rows), flush=True)
+        print(f"phase 20 planted step faults ({cdt}; each must miss) " + json.dumps(faults),
+              flush=True)
+        if bad:
+            return f"phase 20: launches a step other than expected ({cdt}): {bad}"
+        missed = [n for n, r in rows.items() if n != "default" and not r["ok"]]
+        if missed:
+            return f"phase 20: variants miss their gates against the default ({cdt}): {missed}"
+        passed = [n for n, r in faults.items() if r["ok"]]
+        if passed:
+            return f"phase 20: a planted fault passes the variants' gate ({cdt}): {passed}"
+        torch.cuda.empty_cache()
+    launches = {k: f.launches for k, f in counters.items()}
+    # 3. ms a step in turns (bf16): default, variant, variant, default; then
+    # each kernel's device time a step
+    cfg = path_cfg("flagship", rays=VARIANT_RAYS, compute_dtype="bfloat16")
+    spec = nerface.ModelSpec.from_config(cfg)
+    ts = stage1.TrainSettings.from_config(cfg)
+    st = stage1.init_train_state(spec, ts, seed=0, device=dev)
+    step = stage1.make_train_step(spec, ts, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = {"st": st}
+
+    def one():
+        state["st"], _ = step(state["st"], batch, generator=gen)
+
+    def block(on):
+        with variant_flags(on):
+            for _ in range(2):
+                one()
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for _ in range(10):
+                one()
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1) / 10
+    times, device = {}, {}
+    for name, on in VARIANT_FLAGS.items():
+        d1, v1, v2, d2 = block(()), block(on), block(on), block(())
+        times[name] = {"ms": [v1, v2], "default_ms": [d1, d2]}
+    for name, on in {"default": (), **VARIANT_FLAGS}.items():
+        with variant_flags(on):
+            by = device_ms_by_kernel(one, launches=3, warmup=1)
+        device[name] = {"total": sum(by.values()),
+                        **{k: v for k, v in sorted(by.items(), key=lambda kv: -kv[1])
+                           if v >= 0.05}}
+    out["times"], out["device_ms"] = times, device
+    print("phase 20 ms a step, bf16 (default, variant, variant, default; 2 warm-up, "
+          "10 timed) " + json.dumps(times), flush=True)
+    print("phase 20 device ms a step by CUDA kernel (bf16, >= 0.05 ms) "
+          + json.dumps(device), flush=True)
+    out["launches"] = launches
+    out["seconds"] = time.time() - t0
+    report["variants"] = out
+    print(f"phase 20 launches {json.dumps(launches)}; {out['seconds']:.0f} s", flush=True)
+    missing = [k for k in ("K1", "K2", "K3", "K9") if not launches[k]]
+    if missing:
+        return f"phase 20: {missing} were not launched"
+    for kk in kernels:
+        key = next((k for k, r in VARIANT_KERNELS.items() if r == kk["replaces"]), None)
+        if key:
+            kk.setdefault("launches_by_path", {"earlier paths": kk["launches"]})
+            kk["launches_by_path"]["fused step variants (phase 20)"] = launches[key]
+            kk["launches"] += launches[key]
+    return ""
+
+
 def main(argv) -> int:
     report_path = argv[argv.index("--report") + 1] if "--report" in argv else None
     try:
@@ -4336,9 +4814,10 @@ def main(argv) -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     only = argv[argv.index("--only-phase") + 1] if "--only-phase" in argv else None
-    if only in ("18", "19"):
+    if only in ("18", "19", "20"):
         # one phase alone, after the build (no kernels line)
-        msg = (phase18_sharding if only == "18" else phase19_forms)(dev, report, [])
+        msg = {"18": phase18_sharding, "19": phase19_forms,
+               "20": phase20_variants}[only](dev, report, [])
         if msg:
             return fail(msg)
         print(f"phase {only} alone: {time.time() - T_START:.0f} s", flush=True)
@@ -5433,6 +5912,12 @@ def main(argv) -> int:
 
     # 19. the kernels' remaining input forms, and the leftover modules ------
     msg = phase19_forms(dev, report, kernels)
+    if msg:
+        return fail(msg)
+    torch.cuda.empty_cache()
+
+    # 20. the fused step's structural variants ------------------------------
+    msg = phase20_variants(dev, report, kernels)
     if msg:
         return fail(msg)
     if len(kernels) != 21:

@@ -34,6 +34,14 @@
 // frame's fine chunk (46.6 on the CUDA cores; its library call 92.8),
 // 86 TFLOP/s, 8.7 % of the bound. What holds it: the mma.sync products
 // with a barrier pair a staged slice, as K13's; wgmma is the next step.
+//
+// The rays= form (field_mlp.py:882-885, :915, :949-953; JAX's
+// SAHS_PAIR_RAYS fused step) reads the rays (o (R, 3), d (R, 3), z (R, S))
+// in place of the points: a tile of 64 points covers one ray at S = 64,
+// half of one at S = 128. Each position is built where the points were
+// read, as K15 builds it, __fadd_rn(o, __fmul_rn(d, z)) (mlp.cuh's
+// PointSrc), so the form's output and rows equal K1's on K15's points bit
+// for bit, in both instantiations.
 #include "skip_tc.cuh"
 
 namespace {
@@ -43,7 +51,7 @@ constexpr int THREADS = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-deform_pair_kernel(const float* __restrict__ pts, long long P,
+deform_pair_kernel(const sahs::PointSrc src, long long P,
                    const T* __restrict__ wblob,
                    const float* __restrict__ bblob,
                    const int* __restrict__ meta, int n_warp, int n_hyper,
@@ -66,9 +74,7 @@ deform_pair_kernel(const float* __restrict__ pts, long long P,
   if (tid < TP) {
     const long long p = base + tid;
     float x[3] = {0.0f, 0.0f, 0.0f};
-    if (p < P) {
-      x[0] = pts[p * 3 + 0]; x[1] = pts[p * 3 + 1]; x[2] = pts[p * 3 + 2];
-    }
+    if (p < P) src.load(p, x);
     sahs::pe_group<T>(x, 3, n_freq, pe, 0, tid, TP);
   }
   __syncthreads();
@@ -97,9 +103,10 @@ deform_pair_kernel(const float* __restrict__ pts, long long P,
     const long long p = base + tid;
     if (p < P) {
       const int od = wo_dim + ho_dim;
-      float w[3];
+      float x[3], w[3];
+      src.load(p, x);
       for (int c = 0; c < wo_dim; ++c) {
-        w[c] = __fadd_rn(pts[p * 3 + c], yw[c * TP + tid]);
+        w[c] = __fadd_rn(x[c], yw[c * TP + tid]);
         out[p * od + c] = w[c];
       }
       for (int c = 0; c < ho_dim; ++c) out[p * od + wo_dim + c] = yh[c * TP + tid];
@@ -115,7 +122,7 @@ size_t smem_bytes(int n_freq, int hmax) {
 }
 
 template <typename T>
-int launch(const float* pts, long long P, const void* w, const float* b,
+int launch(const sahs::PointSrc& pts, long long P, const void* w, const float* b,
            const int* meta, int n_warp, int n_hyper, int hid_w, int hid_h,
            int wo_dim, int ho_dim, int n_freq, float* out, int* rows, int gD,
            int gH, int gW, cudaStream_t stream) {
@@ -140,7 +147,7 @@ using sahs::TC_LDF;
 using sahs::TC_TP;
 
 struct PairArgs {
-  const float* pts;      // (P, 3)
+  sahs::PointSrc pts;    // (P, 3), or the rays
   const bf16* w;         // K1's blob: warp trunk, head, hyper trunk, head
   const float* b;
   const int* meta;
@@ -191,8 +198,9 @@ deform_pair_tc_kernel(PairArgs a) {
   if (tid < TC_TP && base + tid < a.P) {
     const long long p = base + tid;
     float x[3];
+    a.pts.load(p, x);
     for (int c = 0; c < 3; ++c) {
-      x[c] = __fadd_rn(a.pts[p * 3 + c], Y[c * TC_LDF + tid]);
+      x[c] = __fadd_rn(x[c], Y[c * TC_LDF + tid]);
       a.out[p * od + c] = x[c];
     }
     if (a.rows != nullptr) a.rows[p] = sahs::cell_row(x, a.gD, a.gH, a.gW);
@@ -222,6 +230,27 @@ int launch_tc(const PairArgs& a, int hid_w, int hid_h, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// One K1 call on the points of `src`.
+int forward_call(const sahs::PointSrc& src, long long P, const void* w, const void* b,
+                 const void* meta, int n_warp, int n_hyper, int hid_w, int hid_h,
+                 int wo_dim, int ho_dim, int n_freq, int bf16, void* out, void* rows,
+                 int gD, int gH, int gW, void* stream) {
+  if (P <= 0) return 0;
+  auto s = reinterpret_cast<cudaStream_t>(stream);
+  auto bb = reinterpret_cast<const float*>(b);
+  auto m = reinterpret_cast<const int*>(meta);
+  auto o = reinterpret_cast<float*>(out);
+  auto r = reinterpret_cast<int*>(rows);
+  if (bf16) {
+    if (wo_dim != 3) return (int)cudaErrorInvalidValue;
+    const PairArgs a = {src, reinterpret_cast<const sahs::bf16*>(w), bb, m, o, r, P,
+                        n_warp, n_hyper, ho_dim, n_freq, gD, gH, gW};
+    return launch_tc(a, hid_w, hid_h, s);
+  }
+  return launch<float>(src, P, w, bb, m, n_warp, n_hyper, hid_w, hid_h, wo_dim,
+                       ho_dim, n_freq, o, r, gD, gH, gW, s);
+}
+
 }  // namespace
 
 extern "C" int sahs_deform_pair_forward(
@@ -229,19 +258,24 @@ extern "C" int sahs_deform_pair_forward(
     const void* meta, int n_warp, int n_hyper, int hid_w, int hid_h,
     int wo_dim, int ho_dim, int n_freq, int bf16, void* out, void* rows,
     int gD, int gH, int gW, void* stream) {
-  if (P <= 0) return 0;
-  auto s = reinterpret_cast<cudaStream_t>(stream);
-  auto x = reinterpret_cast<const float*>(pts);
-  auto bb = reinterpret_cast<const float*>(b);
-  auto m = reinterpret_cast<const int*>(meta);
-  auto o = reinterpret_cast<float*>(out);
-  auto r = reinterpret_cast<int*>(rows);
-  if (bf16) {
-    if (wo_dim != 3) return (int)cudaErrorInvalidValue;
-    const PairArgs a = {x, reinterpret_cast<const sahs::bf16*>(w), bb, m, o, r, P,
-                        n_warp, n_hyper, ho_dim, n_freq, gD, gH, gW};
-    return launch_tc(a, hid_w, hid_h, s);
-  }
-  return launch<float>(x, P, w, bb, m, n_warp, n_hyper, hid_w, hid_h, wo_dim,
-                       ho_dim, n_freq, o, r, gD, gH, gW, s);
+  const sahs::PointSrc src = {reinterpret_cast<const float*>(pts), nullptr, nullptr,
+                              nullptr, 1};
+  return forward_call(src, P, w, b, meta, n_warp, n_hyper, hid_w, hid_h, wo_dim,
+                      ho_dim, n_freq, bf16, out, rows, gD, gH, gW, stream);
+}
+
+// The rays= form: the points of R rays of S samples, o (R, 3), d (R, 3),
+// z (R, S) float32; the rest as sahs_deform_pair_forward.
+extern "C" int sahs_deform_pair_forward_rays(
+    const void* ro, const void* rd, const void* z, long long R, int S,
+    const void* w, const void* b, const void* meta, int n_warp, int n_hyper,
+    int hid_w, int hid_h, int wo_dim, int ho_dim, int n_freq, int bf16, void* out,
+    void* rows, int gD, int gH, int gW, void* stream) {
+  if (S <= 0 || ro == nullptr || rd == nullptr || z == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const sahs::PointSrc src = {nullptr, reinterpret_cast<const float*>(ro),
+                              reinterpret_cast<const float*>(rd),
+                              reinterpret_cast<const float*>(z), S};
+  return forward_call(src, R * S, w, b, meta, n_warp, n_hyper, hid_w, hid_h, wo_dim,
+                      ho_dim, n_freq, bf16, out, rows, gD, gH, gW, stream);
 }

@@ -99,7 +99,7 @@
 // once per 64-wide output tile, now takes the largest part, then
 // bwd_tc_kernel and fwd_tc_kernel; wgmma and a dW that reads the stash
 // once are the next steps.
-#include "mma.cuh"
+#include "pair_bwd.cuh"
 
 namespace {
 
@@ -126,6 +126,7 @@ struct Args {
   const float* lw;      // (R, 2), MODE_LOSS
   const float* g_rgb;   // (R, 16), MODE_VJP
   const float* g_w;     // (R, S), MODE_VJP
+  const float* ro;      // (R, 3) ray origins, MODE_LOSS with the pair folded in
   const void* w; const float* b; const int* meta;      // forward layers
   const void* wT; const float* bT; const int* metaT;   // transposed layers
   float* rgb_map;       // (R, 16)
@@ -167,6 +168,45 @@ __device__ __forceinline__ float cell_fracs(const float* x, const Args& a,
     ok = ok && (i0 >= -1.0f) && (i0 <= (float)(dims[ax] - 1));
   }
   return ok ? 1.0f : 0.0f;
+}
+
+// K2's pair= form (level_train.py:232-246, JAX's SAHS_PAIR_FOLD). The
+// pair's tile (pair_bwd.cuh) takes the level tile's points: the same tile
+// size in either type (TP = PAIR_TP in float32, TC_TP in bf16).
+static_assert(TP == sahs::PAIR_TP, "the fold runs the pair on the level's tile");
+
+// Where the fold keeps the tile's gx: past the pair tile's own shared
+// memory, which the pair's backward overwrites from byte 0.
+template <typename T>
+__host__ __device__ __forceinline__ int fold_g_offset(int n_freq) {
+  if constexpr (sizeof(T) == 2)
+    return sahs::pair_bwd_tc_layout(n_freq, false).bytes;
+  else
+    return (int)sahs::pair_bwd_smem<T>(n_freq, false);
+}
+
+// The fold's last step of the level's backward tile: the tile's gx (each
+// point's f32 cotangent of [x + warp(x) | ambient], as K2 would write it,
+// zero past the last point), held in gxo by the tile's first TPT threads,
+// goes to shared memory once every level buffer is read; then the pair's
+// backward runs on the same points, rebuilt from the rays (o, d, z) as K15
+// builds them, with that tile as its cotangent (rows from the tile's first
+// point). gx is never written to device memory, and in bf16 it reaches the
+// pair's head epilogue in f32, as the JAX kernel's VMEM value does.
+template <typename T, int TPT>
+__device__ __forceinline__ void fold_pair(const Args& a, const sahs::PairBwd& pb,
+                                          unsigned char* smem_raw, const float (&gxo)[8]) {
+  __syncthreads();
+  float* G = reinterpret_cast<float*>(smem_raw + fold_g_offset<T>(pb.n_freq));
+  const int tid = threadIdx.x;
+  if (tid < TPT)
+    for (int c = 0; c < a.PW; ++c) G[tid * a.PW + c] = gxo[c];
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * TPT;
+  if constexpr (sizeof(T) == 2)
+    sahs::pair_bwd_tc_tile(pb, G, base, smem_raw, blockIdx.x);
+  else
+    sahs::pair_bwd_tile<T>(pb, G, base, smem_raw, blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -515,9 +555,12 @@ __global__ void __launch_bounds__(CTHREADS) composite_fwd_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // 3. backward per tile
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// With FOLD (K2's pair= form) the level's gx stays in the block and the
+// pair's backward runs on the same points (fold_pair, below); pb is then
+// the pair's, else null.
+template <typename T, bool FOLD>
+__device__ __forceinline__ void bwd_tile(const Args& a, const sahs::PairBwd* pb,
+                                         unsigned char* smem_raw) {
   const int kx = kx_of(a), ndp = ndp_of(a), C = a.C, L = a.L, H = a.H, B = a.B;
   // gz buffers: gA the trunk's (and the rgb head's), gB the branches'
   T* gA = reinterpret_cast<T*>(smem_raw);
@@ -614,7 +657,13 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
                      nullptr, gxpe, TP);
   __syncthreads();
 
-  // per point: PE backward, corner dCoords (or K12's gextra), outputs
+  // per point: PE backward, corner dCoords (or K12's gextra), outputs; gx
+  // to a.gx, or with FOLD kept in gxo for the pair
+  float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  auto put_gx = [&](long long p) {
+    if constexpr (!FOLD)
+      for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+  };
   if (tid < TP) {
     const long long p = base + tid;
     if (p < a.P && (a.enc & ENC_PTS)) {   // the given encoding's cotangent
@@ -622,7 +671,6 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
     }
     if (p < a.P) {
       float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       if (!(a.enc & ENC_PTS)) {
         for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
         sahs::pe_group_bwd(x, 3, a.nf_xyz, gxpe, 0, tid, TP, gxo);
@@ -641,15 +689,11 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
           for (int c = 0; c < 3; ++c) go[c] = ge[c];
           for (int c = 0; c < C; ++c) go[3 + c] = gdin[(ndp + c) * TP + tid];
         }
-        if (!(a.enc & ENC_PTS))
-          for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
-        return;
-      }
-      if (C == 0 || a.se != nullptr) {   // no trilinear sample: no dCoords
-        for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+        if (!(a.enc & ENC_PTS)) put_gx(p);
+      } else if (C == 0 || a.se != nullptr) {   // no trilinear sample: no dCoords
+        put_gx(p);
         for (int c = 0; c < C; ++c) a.gse[p * C + c] = gdin[(ndp + c) * TP + tid];
-        return;
-      }
+      } else {
       float fr[3];
       const float okf = cell_fracs(x, a, fr);
       const T* crow = table + (size_t)a.rows[p] * 8 * C;
@@ -669,10 +713,26 @@ __global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
       gxo[0] += dfx * okf * (0.5f * (a.gW - 1));
       gxo[1] += dfy * okf * (0.5f * (a.gH - 1));
       gxo[2] += dfz * okf * (0.5f * (a.gD - 1));
-      for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+      put_gx(p);
       for (int c = 0; c < C; ++c) a.gse[p * C + c] = gs[c * TP];
+      }
     }
   }
+  if constexpr (FOLD) fold_pair<T, TP>(a, *pb, smem_raw, gxo);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_tile<T, false>(a, nullptr, smem_raw);
+}
+
+// K2's pair= form in float32: the level's backward, then the pair's
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bwd_fold_kernel(Args a, const __grid_constant__ sahs::PairBwd pb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_tile<T, true>(a, &pb, smem_raw);
 }
 
 template <typename T>
@@ -688,17 +748,34 @@ size_t bwd_smem(const Args& a, int ndp) {
          (size_t)(a.H + pad8(ndp + a.C)) * TP * sizeof(float) + 64;
 }
 
+// The pair of K2's pair= form: its tile's arguments (the points are the
+// rays', the cotangent the tile's gx) and its split-K dW.
+struct PairCall {
+  sahs::PairBwd pb;
+  const int* prods;
+  const int* work;
+  int n_work, chunks, out_len;
+  float* part;
+  float* out;
+};
+
 template <typename T>
 int launch(const Args& a, int n_work, int chunks, int out_len,
            const int* prods, const int* work, float* part, float* out,
-           cudaStream_t stream) {
+           const PairCall* pc, cudaStream_t stream) {
   const int kx = a.kx, ndp = a.ndp;
   const long long n_tiles = (a.P + TP - 1) / TP;
   if (pad8(kx) > a.H || a.B > a.H || a.B < 16) return (int)cudaErrorInvalidValue;
-  const size_t sf = fwd_smem<T>(a, kx, ndp), sb = bwd_smem<T>(a, ndp);
+  const size_t sf = fwd_smem<T>(a, kx, ndp);
+  size_t sb = bwd_smem<T>(a, ndp);
+  if (pc != nullptr) {   // the pair's tile and the gx tile past it
+    const size_t sp = (size_t)fold_g_offset<T>(pc->pb.n_freq) + TP * a.PW * sizeof(float);
+    if (sp > sb) sb = sp;
+  }
   const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
   int err = sahs::set_smem(fwd_kernel<T>, sf);
-  if (!err) err = sahs::set_smem(bwd_kernel<T>, sb);
+  if (!err) err = pc != nullptr ? sahs::set_smem(bwd_fold_kernel<T>, sb)
+                                : sahs::set_smem(bwd_kernel<T>, sb);
   if (!err) err = sahs::set_smem(composite_kernel, sc);
   if (err) return err;
   fwd_kernel<T><<<(unsigned)n_tiles, THREADS, sf, stream>>>(a);
@@ -707,12 +784,18 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
     composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  bwd_kernel<T><<<(unsigned)n_tiles, THREADS, sb, stream>>>(a);
+  if (pc != nullptr)
+    bwd_fold_kernel<T><<<(unsigned)n_tiles, THREADS, sb, stream>>>(a, pc->pb);
+  else
+    bwd_kernel<T><<<(unsigned)n_tiles, THREADS, sb, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  return sahs::launch_dw<T>(reinterpret_cast<const T*>(a.acts), a.gzs,
-                            a.act_stride, a.gz_stride, (int)n_tiles, TP,
-                            prods, work, n_work, chunks, part, out, out_len,
-                            stream);
+  err = sahs::launch_dw<T>(reinterpret_cast<const T*>(a.acts), a.gzs,
+                           a.act_stride, a.gz_stride, (int)n_tiles, TP,
+                           prods, work, n_work, chunks, part, out, out_len,
+                           stream);
+  if (err || pc == nullptr) return err;
+  return sahs::pair_dw<T>(pc->pb, (int)n_tiles, pc->prods, pc->work, pc->n_work,
+                          pc->chunks, pc->part, pc->out, pc->out_len, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -957,8 +1040,11 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) field_tc_kernel(Args a) {
 // 3. backward per 64-point tile. Each transposed product's epilogue applies
 // the activation's derivative (from the stashed output) and writes gz to
 // its stash slot in f32 and to shared memory in bf16 for the next product.
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// With FOLD (K2's pair= form) gx stays in the block and the pair's
+// backward runs on the same points (fold_pair); pb is then the pair's.
+template <bool FOLD>
+__device__ __forceinline__ void bwd_tc_tile(const Args& a, const sahs::PairBwd* pb,
+                                            unsigned char* smem_raw) {
   const TcLayout ly(a);
   const int ndp = ly.ndp, C = a.C, L = a.L, B = a.B;
   bf16* T0 = reinterpret_cast<bf16*>(smem_raw + ly.t0);
@@ -1101,7 +1187,9 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
                    sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, skip_done});
   __syncthreads();
 
-  // per point: PE backward, plus the corner dCoords
+  // per point: PE backward, plus the corner dCoords; gx to a.gx, or with
+  // FOLD kept in gfold for the pair (zero past the last point)
+  float gfold[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (tid < TC_TP) {
     const long long p = base + tid;
     if (p < a.P && (a.enc & ENC_PTS)) {   // the given encoding's cotangent
@@ -1113,22 +1201,45 @@ __global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
       sahs::pe_group_bwd(x, 3, a.nf_xyz, F, 0, tid, TC_LDF, gxo);
       sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, F, 3 + 6 * a.nf_xyz, tid, TC_LDF, gxo + 3);
       for (int c = 0; c < 3; ++c) gxo[c] += gco[c];
-      for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+      if constexpr (FOLD) {
+        for (int c = 0; c < 8; ++c) gfold[c] = gxo[c];
+      } else {
+        for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+      }
     }
   }
+  if constexpr (FOLD) fold_pair<bf16, TC_TP>(a, *pb, smem_raw, gfold);
+}
+
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_tc_tile<false>(a, nullptr, smem_raw);
+}
+
+// K2's pair= form in bf16: the level's backward, then the pair's (the
+// pair's arguments read in place: __grid_constant__, no local copy)
+__global__ void __launch_bounds__(sahs::TC_THREADS, 2)
+bwd_tc_fold_kernel(Args a, const __grid_constant__ sahs::PairBwd pb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_tc_tile<true>(a, &pb, smem_raw);
 }
 
 int launch_tc(const Args& a, int n_work, int chunks, int out_len,
               const int* prods, const int* work, float* part, float* out,
-              cudaStream_t stream) {
+              const PairCall* pc, cudaStream_t stream) {
   const TcLayout ly(a);
   const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
   const int nmax = imax(imax(a.H, a.B), imax(pad8(ly.kx), pad8(ly.ndp + a.C)));
   if (a.H % 16 || a.B % 16 || a.B < 16 || nmax > sahs::TC_NMAX)
     return (int)cudaErrorInvalidValue;
+  // the fold's tile: the pair's (54,784 B at the flagship's widths) and the
+  // gx tile past it fit in the level's (114,560 B), two blocks an SM
+  const int sb = pc == nullptr ? ly.bwd
+                 : imax(ly.bwd, fold_g_offset<bf16>(pc->pb.n_freq) + TC_TP * a.PW * 4);
   const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
   int err = sahs::set_smem(fwd_tc_kernel, ly.fwd);
-  if (!err) err = sahs::set_smem(bwd_tc_kernel, ly.bwd);
+  if (!err) err = pc != nullptr ? sahs::set_smem(bwd_tc_fold_kernel, sb)
+                                : sahs::set_smem(bwd_tc_kernel, sb);
   if (!err) err = sahs::set_smem(composite_kernel, sc);
   if (err) return err;
   fwd_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.fwd, stream>>>(a);
@@ -1137,11 +1248,17 @@ int launch_tc(const Args& a, int n_work, int chunks, int out_len,
     composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  bwd_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bwd, stream>>>(a);
+  if (pc != nullptr)
+    bwd_tc_fold_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, sb, stream>>>(a, pc->pb);
+  else
+    bwd_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, sb, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  return sahs::launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
-                               a.act_stride, a.gz_stride, (int)n_tiles, prods,
-                               work, n_work, chunks, part, out, out_len, stream);
+  err = sahs::launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
+                              a.act_stride, a.gz_stride, (int)n_tiles, prods,
+                              work, n_work, chunks, part, out, out_len, stream);
+  if (err || pc == nullptr) return err;
+  return sahs::pair_dw<bf16>(pc->pb, (int)n_tiles, pc->prods, pc->work, pc->n_work,
+                             pc->chunks, pc->part, pc->out, pc->out_len, stream);
 }
 
 // K7 / K11 in bf16: one launch of the forward tile without the stash
@@ -1212,6 +1329,71 @@ bool field_args(Args* a, const void* pts, const void* rows, const void* table,
   return true;
 }
 
+// One call of the level kernel set, with the pair folded in when pc is
+// given (MODE_LOSS only).
+int level_train_call(
+    const void* pts, const void* rows, const void* table, const void* dirs,
+    const void* z, const void* bg, const void* noise, const void* tgt,
+    const void* lw, const void* g_rgb, const void* g_w, const void* extra,
+    void* gextra, const void* se, int enc, int mode, const void* w, const void* b, const void* meta,
+    const void* wT, const void* bT, const void* metaT, void* rgb_map,
+    void* weights, void* gx, void* gse, void* g_bg, void* raw, void* graw,
+    void* acts, void* gzs, const void* slots, long long R, int S, int PW,
+    int L, int skip, int H, int B, int C, int amb, int nf_xyz, int nf_amb,
+    int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
+    int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
+    const void* prods, const void* work, void* part, void* out, PairCall* pc,
+    void* stream) {
+  if (R <= 0) return 0;
+  if (mode < MODE_LOSS || mode > MODE_PTS) return (int)cudaErrorInvalidValue;
+  if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
+      (mode == MODE_VJP && (g_rgb == nullptr || g_w == nullptr || raw == nullptr)) ||
+      (mode == MODE_RAW && graw == nullptr) ||
+      (mode == MODE_PTS && (graw == nullptr || extra == nullptr ||
+                            gextra == nullptr || S != 1 || se != nullptr)) ||
+      enc < 0 || enc > (ENC_PTS | ENC_EXTRA) || (enc != 0 && mode != MODE_PTS) ||
+      (!(enc & ENC_PTS) && (PW < 3 || PW > 8)) ||
+      (mode != MODE_PTS &&
+       (dirs == nullptr ||
+        (C > 0 && (gse == nullptr ||
+                   (se == nullptr && (rows == nullptr || table == nullptr)))))) ||
+      (pc != nullptr && (mode != MODE_LOSS || PW != 3 + pc->pb.ho ||
+                         pc->pb.src.ro == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
+  a.dirs = (const float*)dirs; a.z = (const float*)z;
+  a.extra = (const float*)extra; a.gextra = (float*)gextra;
+  a.se = (const float*)se; a.enc = enc;
+  a.bg = (const float*)bg; a.noise = (const float*)noise;
+  a.tgt = (const float*)tgt; a.lw = (const float*)lw;
+  a.g_rgb = (const float*)g_rgb; a.g_w = (const float*)g_w; a.mode = mode;
+  a.ro = pc != nullptr ? pc->pb.src.ro : nullptr;
+  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
+  a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
+  a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
+  a.gx = (float*)gx; a.gse = (float*)gse; a.g_bg = (float*)g_bg;
+  a.raw = (float*)raw; a.graw = (float*)graw;
+  a.acts = acts; a.gzs = (float*)gzs; a.slots = (const int*)slots;
+  a.R = R; a.P = R * S; a.act_stride = act_stride; a.gz_stride = gz_stride;
+  a.S = S; a.PW = PW; a.L = L; a.skip = skip; a.H = H; a.B = B; a.C = C;
+  a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb; a.nf_dir = nf_dir;
+  a.gD = gD; a.gH = gH; a.gW = gW; a.n_act = n_act; a.bg_sup = bg_sup;
+  set_widths(a);
+  if (pc != nullptr) {   // the pair's points: the level's rays (o, d, z)
+    pc->pb.src = sahs::PointSrc{nullptr, a.ro, a.dirs, a.z, S};
+    pc->pb.P = a.P;
+  }
+  auto s = reinterpret_cast<cudaStream_t>(stream);
+  auto pr = (const int*)prods;
+  auto wk = (const int*)work;
+  if (bf16)
+    return launch_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
+                     (float*)out, pc, s);
+  return launch<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
+                       (float*)out, pc, s);
+}
+
 }  // namespace
 
 // The bf16 raw field (P, 16) on the tensor cores: K7 (rays: pts (R*S, PW),
@@ -1268,45 +1450,56 @@ extern "C" int sahs_level_train(
     int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
     int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
     const void* prods, const void* work, void* part, void* out, void* stream) {
-  if (R <= 0) return 0;
-  if (mode < MODE_LOSS || mode > MODE_PTS) return (int)cudaErrorInvalidValue;
-  if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
-      (mode == MODE_VJP && (g_rgb == nullptr || g_w == nullptr || raw == nullptr)) ||
-      (mode == MODE_RAW && graw == nullptr) ||
-      (mode == MODE_PTS && (graw == nullptr || extra == nullptr ||
-                            gextra == nullptr || S != 1 || se != nullptr)) ||
-      enc < 0 || enc > (ENC_PTS | ENC_EXTRA) || (enc != 0 && mode != MODE_PTS) ||
-      (!(enc & ENC_PTS) && (PW < 3 || PW > 8)) ||
-      (mode != MODE_PTS &&
-       (dirs == nullptr ||
-        (C > 0 && (gse == nullptr ||
-                   (se == nullptr && (rows == nullptr || table == nullptr)))))))
+  return level_train_call(pts, rows, table, dirs, z, bg, noise, tgt, lw, g_rgb, g_w,
+                          extra, gextra, se, enc, mode, w, b, meta, wT, bT, metaT,
+                          rgb_map, weights, gx, gse, g_bg, raw, graw, acts, gzs, slots,
+                          R, S, PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD,
+                          gH, gW, bf16, n_act, act_stride, gz_stride, n_work, chunks,
+                          out_len, bg_sup, prods, work, part, out, nullptr, stream);
+}
+
+// K2's pair= form (MODE_LOSS): K2's arguments without gx, then the ray
+// origins ro (R, 3) and the pair's K3 plan (deform_pair.pair_train_plan,
+// need_gx off: the forward and transposed blobs, slots and stashes, and its
+// split-K dW into pout). The pair's points are the level's rays, o + d z
+// with d = dirs.
+extern "C" int sahs_level_train_pair(
+    const void* pts, const void* rows, const void* table, const void* dirs,
+    const void* z, const void* bg, const void* noise, const void* tgt,
+    const void* lw, const void* se, const void* w, const void* b, const void* meta,
+    const void* wT, const void* bT, const void* metaT, void* rgb_map,
+    void* weights, void* gse, void* g_bg, void* raw, void* graw,
+    void* acts, void* gzs, const void* slots, long long R, int S, int PW,
+    int L, int skip, int H, int B, int C, int amb, int nf_xyz, int nf_amb,
+    int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
+    int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
+    const void* prods, const void* work, void* part, void* out,
+    const void* ro, const void* pw, const void* pb, const void* pmeta,
+    const void* pwT, const void* pbT, const void* pmetaT, int n_warp, int n_hyper,
+    int warp_skip, int hyper_skip, int n_freq, int ho, const void* pslots,
+    void* pacts, void* pgzs, int p_n_act, int p_act_stride, int p_gz_stride,
+    int p_n_work, int p_chunks, int p_out_len, const void* pprods,
+    const void* pwork, void* ppart, void* pout, void* stream) {
+  if (ro == nullptr || 3 + 6 * n_freq > sahs::SKIP_HMAX)
     return (int)cudaErrorInvalidValue;
-  Args a;
-  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
-  a.dirs = (const float*)dirs; a.z = (const float*)z;
-  a.extra = (const float*)extra; a.gextra = (float*)gextra;
-  a.se = (const float*)se; a.enc = enc;
-  a.bg = (const float*)bg; a.noise = (const float*)noise;
-  a.tgt = (const float*)tgt; a.lw = (const float*)lw;
-  a.g_rgb = (const float*)g_rgb; a.g_w = (const float*)g_w; a.mode = mode;
-  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
-  a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
-  a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
-  a.gx = (float*)gx; a.gse = (float*)gse; a.g_bg = (float*)g_bg;
-  a.raw = (float*)raw; a.graw = (float*)graw;
-  a.acts = acts; a.gzs = (float*)gzs; a.slots = (const int*)slots;
-  a.R = R; a.P = R * S; a.act_stride = act_stride; a.gz_stride = gz_stride;
-  a.S = S; a.PW = PW; a.L = L; a.skip = skip; a.H = H; a.B = B; a.C = C;
-  a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb; a.nf_dir = nf_dir;
-  a.gD = gD; a.gH = gH; a.gW = gW; a.n_act = n_act; a.bg_sup = bg_sup;
-  set_widths(a);
-  auto s = reinterpret_cast<cudaStream_t>(stream);
-  auto pr = (const int*)prods;
-  auto wk = (const int*)work;
-  if (bf16)
-    return launch_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
-                     (float*)out, s);
-  return launch<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
-                       (float*)out, s);
+  PairCall pc;
+  sahs::PairBwd& q = pc.pb;
+  q.src = sahs::PointSrc{nullptr, (const float*)ro, nullptr, nullptr, S};
+  q.g = nullptr; q.g2 = nullptr; q.gx = nullptr;
+  q.w = pw; q.b = (const float*)pb; q.meta = (const int*)pmeta;
+  q.wT = pwT; q.bT = (const float*)pbT; q.metaT = (const int*)pmetaT;
+  q.slots = (const int*)pslots; q.acts = pacts; q.gzs = (float*)pgzs;
+  q.P = 0; q.act_stride = p_act_stride; q.gz_stride = p_gz_stride;
+  q.n_warp = n_warp; q.n_hyper = n_hyper; q.warp_skip = warp_skip;
+  q.hyper_skip = hyper_skip; q.n_freq = n_freq; q.ho = ho; q.n_act = p_n_act;
+  pc.prods = (const int*)pprods; pc.work = (const int*)pwork;
+  pc.n_work = p_n_work; pc.chunks = p_chunks; pc.out_len = p_out_len;
+  pc.part = (float*)ppart; pc.out = (float*)pout;
+  return level_train_call(pts, rows, table, dirs, z, bg, noise, tgt, lw, nullptr,
+                          nullptr, nullptr, nullptr, se, 0, MODE_LOSS, w, b, meta, wT,
+                          bT, metaT, rgb_map, weights, nullptr, gse, g_bg, raw, graw,
+                          acts, gzs, slots, R, S, PW, L, skip, H, B, C, amb, nf_xyz,
+                          nf_amb, nf_dir, gD, gH, gW, bf16, n_act, act_stride,
+                          gz_stride, n_work, chunks, out_len, bg_sup, prods, work, part,
+                          out, &pc, stream);
 }

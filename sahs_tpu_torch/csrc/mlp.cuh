@@ -226,4 +226,27 @@ __device__ __forceinline__ int cell_row(const float* c, int D, int H, int W) {
   return (base[2] * (H + 1) + base[1]) * (W + 1) + base[0];
 }
 
+// Where a kernel's raw points come from: a (P, 3) float32 array, or, with
+// pts null, the rays (o (R, 3), d (R, 3), z (R, S)) they lie on, point
+// r * S + s at o[r] + d[r] z[r, s]. The rays' positions are rounded as
+// K15 (build_pts.cu) rounds them, the product and then the sum, never one
+// FMA, so that a kernel reading the rays sees K15's points bit for bit.
+struct PointSrc {
+  const float* pts;
+  const float* ro;
+  const float* rd;
+  const float* z;
+  int S;
+  __device__ __forceinline__ void load(long long p, float x[3]) const {
+    if (pts != nullptr) {
+      x[0] = pts[p * 3 + 0]; x[1] = pts[p * 3 + 1]; x[2] = pts[p * 3 + 2];
+      return;
+    }
+    const long long r = p / S;
+    const float zi = z[p];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[c] = __fadd_rn(ro[r * 3 + c], __fmul_rn(rd[r * 3 + c], zi));
+  }
+};
+
 }  // namespace sahs

@@ -77,13 +77,14 @@ struct HeadGz {
   long long base, P;
   float* gz;
   bf16* G;
+  long long gbase;      // g's and g2's first row is point gbase's (0: all P)
   __device__ void operator()(int t, int n, float v) const {
     const float y = apply_act(v + b[n], act);
     const long long p = base + t;
     float gv = 0.0f;
     if (n < ncol && p < P) {
-      gv = g[p * gw + col0 + n];
-      if (g2 != nullptr) gv = __fadd_rn(gv, g2[p * gw + col0 + n]);
+      gv = g[(p - gbase) * gw + col0 + n];
+      if (g2 != nullptr) gv = __fadd_rn(gv, g2[(p - gbase) * gw + col0 + n]);
     }
     const float gzv = act == ACT_TANH ? gv * (1.0f - y * y) : gv;
     gz[n * TC_TP + t] = gzv;
@@ -102,6 +103,8 @@ struct SkipNet {
   const float* g;       // (P, gw) cotangent of the packed output
   const float* g2;      // (P, gw) addend, or null
   int gw, col0, ncol;   // the net's columns of g: [col0, col0 + ncol)
+  long long gbase = 0;  // g's and g2's first row is point gbase's (a tile's
+                        // cotangent in shared memory; 0: they hold all P)
 };
 
 // The trunk of one net over the tile: layer l's output to hA for even l,
@@ -149,7 +152,7 @@ __device__ bf16* skip_net_tc(const SkipNet& s, const bf16* wblob,
   zero_rows(X, head.n, pad_ks(head.n));
   skip_product(Operand{wblob + head.w1, head.k1, src}, none, head.n, ring,
                HeadGz{bblob + head.b, head.act, s.g, s.g2, s.gw, s.col0, s.ncol,
-                      base, P, gzs + gz_off[s.first + s.L], X});
+                      base, P, gzs + gz_off[s.first + s.L], X, s.gbase});
   __syncthreads();
   // ga_l = gz_{l+1} W_{l+1}^T (head^T for l = L - 1), gz_l = ga_l relu'(h_l)
   const bool to_gs = gS != nullptr && s.skip > 0 && s.skip < s.L;
@@ -194,7 +197,7 @@ struct SkipLayout {
 
 // The tile's encoding: rows [pe_dim, pad_ks(pe_dim)) zero, then per point
 // pe_group's rows of its raw coordinates (zeros past the last point).
-__device__ __forceinline__ void skip_pe_tile(const float* pts, long long base,
+__device__ __forceinline__ void skip_pe_tile(const PointSrc& src, long long base,
                                              long long P, int n_freq, bf16* pe) {
   const int pe_dim = 3 + 6 * n_freq;
   zero_rows(pe, pe_dim, pad_ks(pe_dim));
@@ -202,11 +205,13 @@ __device__ __forceinline__ void skip_pe_tile(const float* pts, long long base,
   if (t < TC_TP) {
     const long long p = base + t;
     float x[3] = {0.0f, 0.0f, 0.0f};
-    if (p < P) {
-      x[0] = pts[p * 3 + 0]; x[1] = pts[p * 3 + 1]; x[2] = pts[p * 3 + 2];
-    }
+    if (p < P) src.load(p, x);
     pe_group<bf16>(x, 3, n_freq, pe, 0, t, TC_LD);
   }
+}
+__device__ __forceinline__ void skip_pe_tile(const float* pts, long long base,
+                                             long long P, int n_freq, bf16* pe) {
+  skip_pe_tile(PointSrc{pts, nullptr, nullptr, nullptr, 1}, base, P, n_freq, pe);
 }
 
 // The tile's input: skip_pe_tile's encoding of the raw points (P, 3)

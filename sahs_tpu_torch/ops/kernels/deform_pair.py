@@ -28,6 +28,13 @@ backward is K3, with the gradient going to the warp and hyper parameters,
 to the conditioning and, only when autograd asks for it, to the points
 (JAX's need_input_grad; the model path asks for none).
 
+K1 and K3 also take the rays= form (field_mlp.py:882-885, :915, :949-953
+and :1108-1130, :1181-1192; the JAX fused step under ``SAHS_PAIR_RAYS``):
+``rays=(ro (R, 3), rd (R, 3), z (R, S))`` in place of the points, which
+the kernels build per tile as K15 builds them (``points.build_pts``: the
+product and then the sum rounded, never one FMA), so that the form's
+results equal, bit for bit, the kernel's on K15's points.
+
 Each wrapper launches its kernel for tensors on a CUDA device and counts
 the call in ``<wrapper>.launches``; for tensors on the CPU it runs the
 ``*_plain`` version, the same function in plain tensor math. There is no
@@ -47,7 +54,20 @@ from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
                         mm, mm_t, pe_backward, tile_points, torch_dtype,
                         trunk_backward, trunk_forward, trunk_into_blob,
                         trunk_params)
+from .points import build_pts_plain
 from .skip_mlp import TC_K_STEP, skip_param_grads
+
+# The rays of the rays= form: (ro (R, 3), rd (R, 3), z (R, S)), float32.
+Rays = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def ray_points(rays: Rays) -> torch.Tensor:
+    """The rays' points (R * S, 3) as K15 rounds them, in float32 whatever
+    the rays' type (an exact-sum run hands float64 copies of float32 rays),
+    returned in the rays' type."""
+    ro, rd, z = rays
+    f32 = torch.float32
+    return build_pts_plain(ro.to(f32), rd.to(f32), z.to(f32)).to(ro.dtype)
 
 
 @dataclasses.dataclass
@@ -91,12 +111,16 @@ def prepare_pair(warp, hyper, cond: torch.Tensor,
                        hyper.spec.skip_connect_every, tuple(pe_groups))
 
 
-def deform_pair_plain(points: torch.Tensor, weights: PairWeights,
-                      compute_dtype: str, samples: int, grid_dims):
+def deform_pair_plain(points: Optional[torch.Tensor], weights: PairWeights,
+                      compute_dtype: str, samples: int, grid_dims,
+                      rays: Optional[Rays] = None):
     """points (P, 3) float32 -> (packed (P, 3 + ambient) [x + warp(x) |
     ambient], the corner-table rows of the warped points, int32 shaped
     (P // samples, samples)). With ``grid_dims`` None (a model without the
-    grid, JAX's emit_rows=None) there are no rows: (packed, None)."""
+    grid, JAX's emit_rows=None) there are no rows: (packed, None). With
+    ``rays`` (points None) the points are ``ray_points(rays)``."""
+    if rays is not None:
+        points = ray_points(rays)
     dtype = torch_dtype(compute_dtype)
     relu = torch.relu
     with torch.no_grad():
@@ -115,7 +139,10 @@ def deform_pair_plain(points: torch.Tensor, weights: PairWeights,
 
 def _check_kernel_shapes(points, weights: PairWeights, what: str,
                          dtype: torch.dtype):
-    if points.dtype != torch.float32 or points.dim() != 2 or points.shape[1] != 3:
+    """Raise unless the kernel takes ``points`` (None: the rays= form,
+    checked by ``_rays_args``) and the pair's widths."""
+    if points is not None and (points.dtype != torch.float32 or points.dim() != 2
+                               or points.shape[1] != 3):
         raise ValueError(f"points must be (P, 3) float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
     if weights.pe_groups != ((0, 3, weights.pe_groups[0][2], True, True),):
@@ -131,27 +158,56 @@ def _check_kernel_shapes(points, weights: PairWeights, what: str,
                          f"bf16 in multiples of {TC_K_STEP}), got {widths}")
 
 
-def deform_pair_forward(points: torch.Tensor, weights: PairWeights,
-                        compute_dtype: str, samples: int, grid_dims):
+def _rays_args(rays: Rays, what: str):
+    """The rays of the rays= form as contiguous float32 tensors on one CUDA
+    device, and their (R, S)."""
+    ro, rd, z = rays
+    f32 = torch.float32
+    if not (z.dim() == 2 and ro.dim() == 2 and ro.shape == rd.shape
+            and ro.shape[1] == 3 and ro.shape[0] == z.shape[0]
+            and ro.dtype is f32 and rd.dtype is f32 and z.dtype is f32
+            and rd.device == ro.device and z.device == ro.device):
+        raise ValueError(f"{what} takes float32 rays ro, rd (R, 3) and z (R, S) on "
+                         f"one device, got ro {tuple(ro.shape)} {ro.dtype} on "
+                         f"{ro.device}, rd {tuple(rd.shape)} {rd.dtype} on {rd.device}, "
+                         f"z {tuple(z.shape)} {z.dtype} on {z.device}")
+    return (ro.contiguous(), rd.contiguous(), z.contiguous()), tuple(z.shape)
+
+
+def _points_device(points, rays) -> torch.device:
+    return (points if rays is None else rays[2]).device
+
+
+def deform_pair_forward(points: Optional[torch.Tensor], weights: PairWeights,
+                        compute_dtype: str, samples: int, grid_dims,
+                        rays: Optional[Rays] = None):
     """K1 wrapper: the CUDA kernel for CUDA tensors (bf16 on the tensor
     cores, float32 on the CUDA cores), the plain version for CPU tensors.
-    Same arguments and results as ``deform_pair_plain``."""
-    if points.device.type == "cpu":
+    Same arguments and results as ``deform_pair_plain``; with ``rays``
+    (points None) the kernel's rays= form."""
+    dev = _points_device(points, rays)
+    if dev.type == "cpu":
         return deform_pair_plain(points, weights, compute_dtype, samples,
-                                 grid_dims)
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
+                                 grid_dims, rays)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     dtype = torch_dtype(compute_dtype)
     _check_kernel_shapes(points, weights, "K1", dtype)
-    points = points.contiguous()
-    P = points.shape[0]
-    if P % samples:
-        raise ValueError(f"P={P} is not a multiple of samples={samples}")
+    if rays is not None:
+        rays, (R, S) = _rays_args(rays, "K1")
+        if S != samples:
+            raise ValueError(f"K1 rays of {S} samples, asked for {samples}")
+        P = R * S
+    else:
+        points = points.contiguous()
+        P = points.shape[0]
+        if P % samples:
+            raise ValueError(f"P={P} is not a multiple of samples={samples}")
     out = torch.empty((P, 3 + weights.hyper_out["w"].shape[1]), dtype=torch.float32,
-                      device=points.device)
+                      device=dev)
     rows = (None if grid_dims is None
-            else torch.empty((P,), dtype=torch.int32, device=points.device))
-    _launch(points, weights, dtype, grid_dims, out, rows)
+            else torch.empty((P,), dtype=torch.int32, device=dev))
+    _launch(points, weights, dtype, grid_dims, out, rows, rays)
     deform_pair_forward.launches += 1
     return out, None if rows is None else rows.reshape(-1, samples)
 
@@ -159,26 +215,35 @@ def deform_pair_forward(points: torch.Tensor, weights: PairWeights,
 deform_pair_forward.launches = 0
 
 
-def _launch(points: torch.Tensor, weights: PairWeights, dtype: torch.dtype,
-            grid_dims, out: torch.Tensor, rows: Optional[torch.Tensor]):
-    """One launch of K1's kernel on contiguous float32 ``points`` (P, 3):
-    the packed points into ``out`` (a contiguous float32 (P, 3 + ambient)
+def _launch(points: Optional[torch.Tensor], weights: PairWeights,
+            dtype: torch.dtype, grid_dims, out: torch.Tensor,
+            rows: Optional[torch.Tensor], rays: Optional[Rays] = None):
+    """One launch of K1's kernel on contiguous float32 ``points`` (P, 3),
+    or on contiguous float32 ``rays`` (the rays= form, points None): the
+    packed points into ``out`` (a contiguous float32 (P, 3 + ambient)
     tensor) and, with a grid, the rows into ``rows`` (a contiguous int32
     (P,) tensor)."""
+    dev = _points_device(points, rays)
     wblob, bblob, meta = weights.blob(dtype)
-    if wblob.device != points.device:
-        raise ValueError(f"K1 weights are on {wblob.device}, points on "
-                         f"{points.device}")
+    if wblob.device != dev:
+        raise ValueError(f"K1 weights are on {wblob.device}, points on {dev}")
     gD, gH, gW = grid_dims or (0, 0, 0)
-    fn = _build.function("deform_pair", "sahs_deform_pair_forward",
-                         "plppp" + "i" * 8 + "pp" + "iii" + "p")
-    rc = fn(
-        _build.ptr(points), points.shape[0], _build.ptr(wblob), _build.ptr(bblob),
-        _build.ptr(meta), len(weights.warp_trunk), len(weights.hyper_trunk),
-        weights.warp_trunk[0]["w"].shape[1], weights.hyper_trunk[0]["w"].shape[1],
-        3, weights.hyper_out["w"].shape[1], weights.pe_groups[0][2],
-        int(dtype == torch.bfloat16), _build.ptr(out), _build.ptr(rows), gD, gH, gW,
-        _build.stream_ptr(points.device))
+    rest = (_build.ptr(wblob), _build.ptr(bblob),
+            _build.ptr(meta), len(weights.warp_trunk), len(weights.hyper_trunk),
+            weights.warp_trunk[0]["w"].shape[1], weights.hyper_trunk[0]["w"].shape[1],
+            3, weights.hyper_out["w"].shape[1], weights.pe_groups[0][2],
+            int(dtype == torch.bfloat16), _build.ptr(out), _build.ptr(rows), gD, gH, gW,
+            _build.stream_ptr(dev))
+    if rays is None:
+        fn = _build.function("deform_pair", "sahs_deform_pair_forward",
+                             "plppp" + "i" * 8 + "pp" + "iii" + "p")
+        rc = fn(_build.ptr(points), points.shape[0], *rest)
+    else:
+        ro, rd, z = rays
+        fn = _build.function("deform_pair", "sahs_deform_pair_forward_rays",
+                             "ppp" + "li" + "ppp" + "i" * 8 + "pp" + "iii" + "p")
+        rc = fn(_build.ptr(ro), _build.ptr(rd), _build.ptr(z), z.shape[0], z.shape[1],
+                *rest)
     _build.check(rc, "deform_pair_forward")
 
 
@@ -237,9 +302,17 @@ def _pair_grads(warp_layers, hyper_layers):
             "hyper": {"trunk": hyper_layers[:-1], "out": hyper_layers[-1]}}
 
 
-def deform_pair_vjp_plain(points: torch.Tensor, weights: PairWeights,
+def pair_grads_tree(weights: PairWeights, plan: TrainPlan, out: torch.Tensor):
+    """The split-K reduction's output ``out`` of a pair plan as the plain
+    version's gradient tree."""
+    layers = plan.unpack(out)
+    nw = len(weights.warp_trunk) + 1
+    return _pair_grads(layers[:nw], layers[nw:])
+
+
+def deform_pair_vjp_plain(points: Optional[torch.Tensor], weights: PairWeights,
                           g: torch.Tensor, g2, compute_dtype: str,
-                          need_gx: bool = False):
+                          need_gx: bool = False, rays: Optional[Rays] = None):
     """Backward of K1 (field_mlp.py:_pair_bwd_math :1038-1095): both trunks
     recomputed from the shared PE of the raw points (P, 3), the packed
     cotangent g (+ g2) (P, 3 + ambient) taken back through the tanh warp
@@ -247,7 +320,10 @@ def deform_pair_vjp_plain(points: torch.Tensor, weights: PairWeights,
     [{"w", "b"}] folded, "out": {"w", "b"}}}; with ``need_gx`` (gx, that
     tree), gx (P, 3) float32 the cotangent of the raw points: the PE
     backward of the two nets' summed PE cotangents, plus the cotangent of
-    the warped coordinates (the residual x of x + warp(x))."""
+    the warped coordinates (the residual x of x + warp(x)). With ``rays``
+    (points None) the points are ``ray_points(rays)``."""
+    if rays is not None:
+        points = ray_points(rays)
     dtype = torch_dtype(compute_dtype)
     with torch.no_grad():
         pe = kernel_pe(points, weights.pe_groups)
@@ -277,35 +353,39 @@ def deform_pair_vjp_plain(points: torch.Tensor, weights: PairWeights,
     return gx, grads
 
 
-def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
+def deform_pair_vjp(points: Optional[torch.Tensor], weights: PairWeights,
                     g: torch.Tensor, g2, compute_dtype: str,
-                    need_gx: bool = False):
+                    need_gx: bool = False, rays: Optional[Rays] = None):
     """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and results as ``deform_pair_vjp_plain``.
-    One call is one count, whatever the number of launches inside."""
-    if points.device.type == "cpu":
+    CPU tensors. Same arguments and results as ``deform_pair_vjp_plain``;
+    with ``rays`` (points None) the kernel's rays= form. One call is one
+    count, whatever the number of launches inside."""
+    dev = _points_device(points, rays)
+    if dev.type == "cpu":
         return deform_pair_vjp_plain(points, weights, g, g2, compute_dtype,
-                                     need_gx)
-    if points.device.type != "cuda":
-        raise ValueError(f"unsupported device {points.device}")
+                                     need_gx, rays)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     dtype = torch_dtype(compute_dtype)
     _check_kernel_shapes(points, weights, "K3", dtype)
-    P = points.shape[0]
+    if rays is not None:
+        rays, (R, S) = _rays_args(rays, "K3")
+        P = R * S
+    else:
+        P = points.shape[0]
     gw = 3 + weights.hyper_out["w"].shape[1]
     if tuple(g.shape) != (P, gw) or (g2 is not None and g2.shape != g.shape):
         raise ValueError(f"K3 cotangents must be ({P}, {gw}), got g "
                          f"{tuple(g.shape)}, g2 "
                          f"{None if g2 is None else tuple(g2.shape)}")
     plan = pair_train_plan(weights, dtype, need_gx)
-    if plan.fwd[0].device != points.device:
+    if plan.fwd[0].device != dev or g.device != dev:
         raise ValueError(f"K3 weights are on {plan.fwd[0].device}, points on "
-                         f"{points.device}")
+                         f"{dev}, g on {g.device}")
     f32 = torch.float32
-    points = points.contiguous()
     g = g.to(f32).contiguous()
     g2 = g2.to(f32).contiguous() if g2 is not None else None
     n_tiles = -(-P // tile_points(dtype))
-    dev = points.device
     acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
     gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)
     chunks = dw_chunks(n_tiles)
@@ -313,10 +393,7 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
     out = torch.empty(plan.out_len, dtype=f32, device=dev)
     gx = torch.empty((P, 3), dtype=f32, device=dev) if need_gx else None
     p = _build.ptr
-    fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp",
-                         "plppp" + "ppp" + "ppp" + "iiiiiii" + "p"
-                         + "pp" + "i" * 6 + "pppp" + "p")
-    rc = fn(p(points), P, p(g), p(g2), p(gx), *[p(t) for t in plan.fwd],
+    rest = (p(g), p(g2), p(gx), *[p(t) for t in plan.fwd],
             *[p(t) for t in plan.bwd], len(weights.warp_trunk),
             len(weights.hyper_trunk), weights.warp_skip, weights.hyper_skip,
             weights.pe_groups[0][2], gw - 3, int(dtype == torch.bfloat16),
@@ -324,11 +401,19 @@ def deform_pair_vjp(points: torch.Tensor, weights: PairWeights,
             plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
             p(plan.prods), p(plan.work), p(part), p(out),
             _build.stream_ptr(dev))
+    sig = "ppp" + "ppp" + "ppp" + "iiiiiii" + "p" + "pp" + "i" * 6 + "pppp" + "p"
+    if rays is None:
+        points = points.contiguous()
+        fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp", "pl" + sig)
+        rc = fn(p(points), P, *rest)
+    else:
+        ro, rd, z = rays
+        fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp_rays",
+                             "pppli" + sig)
+        rc = fn(p(ro), p(rd), p(z), R, S, *rest)
     _build.check(rc, "deform_pair_vjp")
     deform_pair_vjp.launches += 1
-    layers = plan.unpack(out)
-    nw = len(weights.warp_trunk) + 1
-    grads = _pair_grads(layers[:nw], layers[nw:])
+    grads = pair_grads_tree(weights, plan, out)
     return (gx, grads) if need_gx else grads
 
 

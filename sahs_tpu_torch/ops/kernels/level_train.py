@@ -44,6 +44,17 @@ In bfloat16 the kernels run their layer products and dW on the tensor
 cores over 64-point tiles, in float32 on the CUDA cores over 32-point
 tiles (``tile_points``; the stash follows the tile).
 
+K2 also takes the pair= form (level_train.py:58-78, body :232-246; the JAX
+fused step under ``SAHS_PAIR_FOLD``): ``pair=(PairWeights, ro (R, 3))``.
+The backward launch then keeps each tile's gx (P, 3 + ambient) in float32
+in shared memory and runs the deformation pair's backward (K3's tile,
+``csrc/pair_bwd.cuh``) on the same points, rebuilt from the rays (ro, the
+level's directions, z) as K15 builds them; the pair's dW goes through its
+own stash into the split-K reduction, after the level's. gx is not
+written: the pair's gradient tree (``deform_pair_vjp``'s) comes back in
+its place. The plain version runs ``deform_pair_vjp_plain`` on the rays'
+points with K2's gx.
+
 ``nerf_level_train``, ``nerf_level_vjp``, ``nerf_rayd_vjp`` and
 ``nerf_mlp_vjp`` launch the kernel for CUDA tensors and count the call in
 ``<wrapper>.launches``; for CPU tensors they run the ``*_plain`` version. ``level_train_apply`` folds
@@ -66,6 +77,8 @@ from .nerf_level import (LevelWeights, _grid_args, check_device,
                          level_kernel_args, nerf_raw_plain, point_blob,
                          point_layers, prepare_level, widths_ok)
 from .nerf_mlp import ENC_EXTRA, ENC_PTS, nerf_mlp_plain, point_kernel_args
+from .deform_pair import (_check_kernel_shapes, deform_pair_vjp_plain,
+                          pair_grads_tree, pair_train_plan)
 
 
 # ---------------------------------------------------------------------------
@@ -243,12 +256,14 @@ def nerf_level_train_plain(pts: torch.Tensor, dirs: torch.Tensor,
                            noise: Optional[torch.Tensor], tgt: torch.Tensor,
                            lw: torch.Tensor, weights: LevelWeights,
                            compute_dtype: str, grid_dims, bg_sup: float = 0.0,
-                           se: Optional[torch.Tensor] = None):
+                           se: Optional[torch.Tensor] = None, pair=None):
     """K2's plain version. Arguments as ``nerf_level.nerf_level_plain``
     plus tgt (R, 15) [target rgb | seg mask], lw (R, 2) per-ray loss
     weights and bg_sup. Returns (rgb_map (R, 16), weights (R, S), gx
     (P, 3 + ambient), gse (P, C) | None, g_bg (R, 15) | None, grads), grads as
-    ``level_backward_plain``'s."""
+    ``level_backward_plain``'s. With ``pair`` (PairWeights, ro (R, 3)) the
+    pair's gradient tree of gx at the rays' points (o + d z, d = dirs)
+    comes back in gx's place."""
     R, S = z.shape
     acts = {}
     raw = nerf_raw_plain(pts, dirs, table, rows, weights, compute_dtype,
@@ -259,6 +274,9 @@ def nerf_level_train_plain(pts: torch.Tensor, dirs: torch.Tensor,
         gx, gse, grads = level_backward_plain(
             weights, acts, pts, graw.reshape(R * S, 16),
             torch_dtype(compute_dtype), grid_dims)
+    if pair is not None:
+        gx = deform_pair_vjp_plain(None, pair[0], gx, None, compute_dtype,
+                                   rays=(pair[1], dirs[:, :3], z))
     return rgb_map, w_out, gx, gse, g_bg, grads
 
 
@@ -394,6 +412,11 @@ def _grads_tree(weights: LevelWeights, layers):
 _MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
 _SIGNATURE = ("p" * 11 + "pp" + "pi" + "i" + "ppp" + "ppp" + "p" * 5 + "pp"
               + "pp" + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
+# sahs_level_train_pair: K2's arguments without g_rgb, g_w, extra, gextra,
+# enc, mode and gx, then ro and the pair's plan
+_PAIR_SIGNATURE = ("p" * 10 + "p" * 6 + "p" * 6 + "p" * 3 + "l" + "i" * 21 + "f"
+                   + "p" * 4 + "p" * 7 + "i" * 6 + "p" * 3 + "i" * 6 + "p" * 4
+                   + "p")
 
 
 def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
@@ -409,13 +432,15 @@ def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
 def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
             compute_dtype: str, grid_dims, z=None, bg=None, noise=None,
             tgt=None, lw=None, g_rgb=None, g_w=None, graw=None,
-            bg_sup: float = 0.0, se=None):
+            bg_sup: float = 0.0, se=None, pair=None):
     """One call of the level-backward kernel set (csrc/level_train.cu) in
     ``mode``: "loss" (K2), "vjp" (K6) or "raw" (K8), the spatial embedding
     from the corner table and rows, from a per-point ``se`` (P, C), or
     none. Returns (rgb_map, weights, gx, gse, g_bg (R, 16), grads, acts);
     rgb_map, weights and g_bg are None in "raw" mode, gse in the grid-free
-    form; acts is the activation stash (``_stash_branches`` reads it)."""
+    form; acts is the activation stash (``_stash_branches`` reads it).
+    With ``pair`` (K2's pair= form, "loss" mode: PairWeights, ro (R, 3))
+    the pair's gradient tree comes back in gx's place."""
     check_device(what, pts.device)
     R, S, PW, C, ints = level_kernel_args(pts, dirs, table, rows, weights,
                                           compute_dtype, grid_dims, what, se)
@@ -436,6 +461,17 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     plan = level_train_plan(weights, dtype)
     check_device(what, pts.device, rows, table, dirs, se, z, bg, noise, tgt, lw,
                  g_rgb, g_w, graw, plan.fwd[0])
+    if pair is not None:
+        pw, ro = pair
+        _check_kernel_shapes(None, pw, what, dtype)
+        ho = pw.hyper_out["w"].shape[1]
+        if mode != "loss" or PW != 3 + ho or tuple(ro.shape) != (R, 3):
+            raise ValueError(f"{what}'s pair= form takes the loss mode, packed points "
+                             f"3 + {ho} wide and ro ({R}, 3), got {mode}, {PW}, "
+                             f"{tuple(ro.shape)}")
+        pplan = pair_train_plan(pw, dtype)
+        check_device(what, pts.device, ro, pplan.fwd[0])
+        ro = ro.to(torch.float32).contiguous()
     f32 = torch.float32
     dev = pts.device
     c = lambda t: None if t is None else t.to(f32).contiguous()
@@ -446,26 +482,42 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
     composite = mode != "raw"
     rgb_map, w_out, g_bg = (e(R, 16), e(R, S), e(R, 16)) if composite else (None,) * 3
-    gx, gse = e(P, PW), (e(P, C) if C else None)
+    gx, gse = (e(P, PW) if pair is None else None), (e(P, C) if C else None)
     raw = e(P, 16) if composite else None
     if composite:
         graw = e(P, 16)
     acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
     p = _build.ptr
     n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
-    fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
-    rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
-            p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, p(se), 0,
-            _MODES[mode],
-            *[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd], p(rgb_map),
-            p(w_out), p(gx), p(gse), p(g_bg), p(raw), p(graw), p(acts), p(gzs),
-            p(plan.slots), R, S, PW, n_trunk, weights.skip, hidden, branch, C,
-            amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW,
-            int(dtype == torch.bfloat16), plan.n_act, plan.act_stride,
-            plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
-            float(bg_sup if bg is not None else 0.0), p(plan.prods),
-            p(plan.work), p(part), p(out), _build.stream_ptr(dev))
+    blobs = (*[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd])
+    sizes = (R, S, PW, n_trunk, weights.skip, hidden, branch, C,
+             amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW,
+             int(dtype == torch.bfloat16), plan.n_act, plan.act_stride,
+             plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
+             float(bg_sup if bg is not None else 0.0), p(plan.prods),
+             p(plan.work), p(part), p(out))
+    if pair is None:
+        fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
+        rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
+                p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, p(se), 0,
+                _MODES[mode], *blobs, p(rgb_map), p(w_out), p(gx), p(gse), p(g_bg),
+                p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes,
+                _build.stream_ptr(dev))
+    else:
+        pacts, pgzs, pchunks, ppart, pout = _plan_buffers(pplan, n_tiles, dtype, dev)
+        fn = _build.function("level_train", "sahs_level_train_pair", _PAIR_SIGNATURE)
+        rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg), p(noise), p(tgt),
+                p(lw), p(se), *blobs, p(rgb_map), p(w_out), p(gse), p(g_bg), p(raw),
+                p(graw), p(acts), p(gzs), p(plan.slots), *sizes,
+                p(ro), *[p(t) for t in pplan.fwd], *[p(t) for t in pplan.bwd],
+                len(pw.warp_trunk), len(pw.hyper_trunk), pw.warp_skip,
+                pw.hyper_skip, pw.pe_groups[0][2], ho, p(pplan.slots), p(pacts),
+                p(pgzs), pplan.n_act, pplan.act_stride, pplan.gz_stride,
+                pplan.work.numel() // 3, pchunks, pplan.out_len, p(pplan.prods),
+                p(pplan.work), p(ppart), p(pout), _build.stream_ptr(dev))
     _build.check(rc, what)
+    if pair is not None:
+        gx = pair_grads_tree(pw, pplan, pout)
     return (rgb_map, w_out, gx, gse, g_bg,
             _grads_tree(weights, plan.unpack(out)), acts)
 
@@ -523,20 +575,21 @@ def nerf_level_train(pts: torch.Tensor, dirs: torch.Tensor,
                      tgt: torch.Tensor, lw: torch.Tensor,
                      weights: LevelWeights, compute_dtype: str = "bfloat16",
                      grid_dims=(32, 32, 32), bg_sup: float = 0.0,
-                     se: Optional[torch.Tensor] = None):
+                     se: Optional[torch.Tensor] = None, pair=None):
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Same arguments and results as ``nerf_level_train_plain``.
-    One call is one count, whatever the number of launches inside."""
+    CPU tensors. Same arguments and results as ``nerf_level_train_plain``;
+    with ``pair`` the kernel's pair= form. One call is one count, whatever
+    the number of launches inside."""
     if pts.device.type == "cpu":
         return nerf_level_train_plain(pts, dirs, table, rows, z, bg, noise, tgt,
                                       lw, weights, compute_dtype, grid_dims,
-                                      bg_sup, se)
+                                      bg_sup, se, pair)
     if tgt is None or lw is None:
         raise ValueError("K2 needs the target and the loss weights")
     rgb_map, w_out, gx, gse, g_bg, grads, _ = _launch(
         "loss", "nerf_level_train", pts, dirs, table, rows, weights,
         compute_dtype, grid_dims, z=z, bg=bg, noise=noise, tgt=tgt, lw=lw,
-        bg_sup=bg_sup, se=se)
+        bg_sup=bg_sup, se=se, pair=pair)
     nerf_level_train.launches += 1
     return (rgb_map, w_out, gx, gse, g_bg[:, :15] if bg is not None else None,
             grads)
@@ -641,17 +694,20 @@ nerf_mlp_vjp.launches = 0
 def level_train_apply(nerf, cond: torch.Tensor, pts, dirs, table, rows, z, bg,
                       noise, tgt, lw, pts_groups, dir_groups,
                       compute_dtype: str, grid_dims, bg_sup: float = 0.0,
-                      se: Optional[torch.Tensor] = None):
+                      se: Optional[torch.Tensor] = None, pair=None):
     """Fold ``cond`` into the ``NeRFMLP`` module ``nerf``, run K2, unfold
     the trunk's gradients (level_train.py:358-405). The spatial embedding
     comes from the corner ``table`` and ``rows``, or from a per-point
     ``se`` (P, C) (table, rows and grid_dims None; gse then (P, C)), or
     none. Returns (rgb_map, weights, gx, gse, g_bg, grads with the raw
-    trunk's shapes, dcond)."""
+    trunk's shapes, dcond); with ``pair`` (PairWeights, ro (R, 3): K2's
+    pair= form) the pair's folded gradient tree in gx's place."""
     lvl = prepare_level(nerf, cond, pts_groups, dir_groups)
-    rgb_map, w, gx, gse, g_bg, grads = nerf_level_train(
-        pts, dirs, table, rows, z, bg, noise, tgt, lw, lvl, compute_dtype,
-        grid_dims, bg_sup, se)
+    args = (pts, dirs, table, rows, z, bg, noise, tgt, lw, lvl, compute_dtype,
+            grid_dims, bg_sup, se)
+    # without the pair, K2 takes the arguments it always took
+    rgb_map, w, gx, gse, g_bg, grads = (nerf_level_train(*args) if pair is None
+                                        else nerf_level_train(*args, pair=pair))
     spec = nerf.spec
     raw = [{"w": p["w"].detach(), "b": p["b"].detach()}
            for p in trunk_params(nerf.trunk)]

@@ -29,10 +29,44 @@ rounds as the PyTorch expression ro + rd z does, bit for bit. The JAX
 package keeps its kernel behind ``SAHS_PTS_KERNEL`` (fused.py:156-163)
 for a cost of its TPU layout (the 128-lane padded intermediate), which
 the port does not have, so the port takes the kernel on every step.
+
+Four structural variants, switched as in the JAX package by environment
+variables read at import (fused.py:128-175) into module flags that tests
+may patch. Each computes the default step's function; what differs is
+where the coarse points' backward runs, and so the order of sums:
+  - ``SAHS_BWD_SPLIT`` (``_BWD_SPLIT``): no coarse-in-fine merge. K3 runs
+    once per level, on each level's own cotangent, and with a grid K4 once
+    per level; the two levels' gradients are summed (fused.py:449-466,
+    :410-415). Exact because both backwards are linear in the cotangent:
+    the merge only regroups the sum over the coarse points.
+  - ``SAHS_FUSED_UNION`` (``_UNION``): K1 runs on the new points alone (no
+    rows); the fine level's points are the coarse ∪ new union permuted by a
+    stable argsort of [z_c | z_new] (ties coarse first, as the stable sort
+    puts them), its rows computed from the permuted packed points with
+    ``_cell_geometry``'s expression (the one K1's rows follow, so the rows
+    equal K1's bit for bit). The fine cotangents go back through the
+    inverse permutation and the coarse ones are added at their own slots:
+    one K3 over the union points and, with a grid, one K9 on the union
+    coordinates (fused.py:309-360). Exact: a permutation moves values
+    without rounding, and each union point's cotangent is the same sum of
+    two terms as the merge's.
+  - ``SAHS_PAIR_RAYS`` (``_PAIR_RAYS``): K1 and K3 take their rays= form,
+    building each position in the kernel as K15 does (two roundings), so
+    no position array is made and every coarse point still reappears bit
+    for bit among the fine points (fused.py:240-247, :290-293, :427-440).
+    Under ``_UNION`` only the coarse level takes it: the new points go
+    through the positional K1, and the union's K3 through K15's points.
+  - ``SAHS_PAIR_FOLD`` (``_PAIR_FOLD``, ignored under ``_UNION``): K2's
+    pair= form runs the pair's backward inside each level's backward
+    launch on that level's own gx, held in float32 in shared memory; the
+    two levels' pair gradients are summed and no K3 runs; with a grid K4
+    runs once per level, as under the split (fused.py:252-256, :266-277,
+    :416-423). Exact as the split is: the same per-level backwards.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -42,12 +76,21 @@ from ..models.nerface import (NeRFaceModel, build_pe_groups,
                               level_kernel_compatible, pair_kernel_ok)
 from ..ops.kernels.deform_pair import (deform_pair_forward, deform_pair_vjp,
                                        pair_param_grads, prepare_pair)
+from ..ops.grid import _cell_geometry
 from ..ops.kernels.field_grid import corner_table
-from ..ops.kernels.grid_bwd import grid_dg
+from ..ops.kernels.grid_bwd import grid_dg, grid_dg_coords
 from ..ops.kernels.level_train import level_train_apply
 from ..ops.kernels.nerf_level import level_param_grads
 from ..ops.kernels.points import build_pts
 from ..ops.sampling import coarse_z_vals, sample_pdf
+
+
+# The JAX package's structural switches (fused.py:128-175), read at import
+# from the same environment variables; see the module docstring.
+_PAIR_RAYS = os.environ.get("SAHS_PAIR_RAYS", "0") == "1"
+_PAIR_FOLD = os.environ.get("SAHS_PAIR_FOLD", "0") == "1"
+_UNION = os.environ.get("SAHS_FUSED_UNION", "0") == "1"
+_BWD_SPLIT = os.environ.get("SAHS_BWD_SPLIT", "0") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,12 +173,22 @@ def _cond_parts(dcond, spec_parts, out, name="driving"):
     return out
 
 
+def _tree_add(a, b):
+    """Leafwise a + b of two gradient trees of one layout."""
+    if isinstance(a, dict):
+        return {k: _tree_add(a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return [_tree_add(x, y) for x, y in zip(a, b)]
+    return a + b
+
+
 def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
                   ro, rd, tgt, lw, bg, generator=None,
                   draws: TrainDraws = TrainDraws(), latent=None):
-    """Both levels, the loss and its gradients (fused.py:186-516, default
-    branch). Returns (loss, rgb_c (R, 15), rgb_f (R, 15), w_f (R, Nc + Nf),
-    {parameter: grad}, d_driving, d_bg | None, d_latent | None)."""
+    """Both levels, the loss and its gradients (fused.py:186-516), in the
+    variant the module's flags select. Returns (loss, rgb_c (R, 15), rgb_f
+    (R, 15), w_f (R, Nc + Nf), {parameter: grad}, d_driving, d_bg | None,
+    d_latent | None)."""
     spec = model.spec
     cdt = fcfg.compute_dtype
     R = ro.shape[0]
@@ -179,6 +232,27 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         # reappears bit for bit among the sorted fine points
         return build_pts(ro_rows, rd, z)
 
+    def pair_points(z):
+        """K1's and K3's points at z: (K15's positions, None), or under
+        _PAIR_RAYS (None, the rays), which the kernels build alike."""
+        return (None, (ro_rows, rd, z)) if _PAIR_RAYS else (points(z), None)
+
+    # K1 and K3 on points take the arguments they always took; on rays
+    # their rays= form
+    def pair_forward(pts, rays, samples, dims_):
+        if rays is None:
+            return deform_pair_forward(pts, pair, cdt, samples, dims_)
+        return deform_pair_forward(None, pair, cdt, samples, dims_, rays=rays)
+
+    def pair_vjp(pts, rays, g, g2):
+        if rays is None:
+            return deform_pair_vjp(pts, pair, g, g2, cdt)
+        return deform_pair_vjp(None, pair, g, g2, cdt, rays=rays)
+
+    pair_fold = _PAIR_FOLD and not _UNION
+    merge = not (_BWD_SPLIT or pair_fold)
+    fold = (pair, ro_rows) if pair_fold else None
+
     def noise_for(shape, injected):
         if fcfg.noise_std <= 0:
             return None
@@ -191,36 +265,82 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
     z_c = coarse_z_vals(nearv, farv, Sc, lindisp=fcfg.lindisp,
                         perturb=fcfg.perturb, generator=generator,
                         t_rand=draws.t_rand)
-    pts_c = points(z_c)
-    packed_c, rows_c = deform_pair_forward(pts_c, pair, cdt, Sc, dims)
+    pts_c, rays_c = pair_points(z_c)
+    packed_c, rows_c = pair_forward(pts_c, rays_c, Sc, dims)
     cond_c, parts_c = nerf_cond(spec.coarse)
+    # with the fold, gx_c / gx_f are the levels' pair gradient trees
     rgb_c, w_c, gx_c, gse_c, gbg_c, grads_c, dcond_c = level_train_apply(
         model.coarse, cond_c, packed_c, rd, table, rows_c, z_c, bg,
         noise_for(z_c.shape, draws.noise_coarse), tgt, lw, pts_pe, dir_pe,
-        cdt, dims, 0.0)
+        cdt, dims, 0.0, pair=fold)
 
     z_mid = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
     z_new = sample_pdf(z_mid, w_c[..., 1:-1], Sn, det=not fcfg.perturb,
                        generator=generator, u=draws.u)
     bg_sup = (fcfg.bg_sup_weight / (fcfg.num_rays or R)
               if (fcfg.bg_sup_weight > 0 and bg is not None) else 0.0)
-    z_f = torch.sort(torch.cat([z_c, z_new], dim=-1), dim=-1, stable=True).values
-    pts_f = points(z_f)
-    packed_f, rows_f = deform_pair_forward(pts_f, pair, cdt, Sf, dims)
+    z_cat = torch.cat([z_c, z_new], dim=-1)
+    if _UNION:
+        # the union [coarse | new] of each ray, permuted into z order
+        pts_n = points(z_new)
+        packed_n, _ = pair_forward(pts_n, None, Sn, None)
+        perm = torch.argsort(z_cat, dim=-1, stable=True)
+        z_f = torch.gather(z_cat, 1, perm)
+        packed_u = torch.cat([packed_c.reshape(R, Sc, -1),
+                              packed_n.reshape(R, Sn, -1)], dim=1)
+        packed_f = torch.gather(packed_u, 1, perm[..., None].expand(
+            -1, -1, packed_u.shape[-1])).reshape(R * Sf, -1)
+        rows_f = (None if dims is None else
+                  _cell_geometry(packed_f[:, :3], dims)[0].to(torch.int32)
+                  .reshape(R, Sf))
+    else:
+        z_f = torch.sort(z_cat, dim=-1, stable=True).values
+        pts_f, rays_f = pair_points(z_f)
+        packed_f, rows_f = pair_forward(pts_f, rays_f, Sf, dims)
     cond_f, parts_f = nerf_cond(spec.fine)
     rgb_f, w_f, gx_f, gse_f, gbg_f, grads_f, dcond_f = level_train_apply(
         model.fine, cond_f, packed_f, rd, table, rows_f, z_f, bg,
         noise_for(z_f.shape, draws.noise_fine), tgt, lw, pts_pe, dir_pe,
-        cdt, dims, bg_sup)
+        cdt, dims, bg_sup, pair=fold)
 
-    # coarse cotangents into their sorted-fine slots: slot(j) = j +
-    # #{z_new < z_c[j]}, ties coarse-first as the stable sort puts them;
-    # one term per sum, so the scatter is exact
-    pos_c = (torch.arange(Sc, device=dev)[None, :]
-             + torch.sum(z_new[:, None, :] < z_c[:, :, None], dim=-1))
-    slot = (torch.arange(R, device=dev)[:, None] * Sf + pos_c).reshape(-1)
-    gx_add = torch.zeros_like(gx_f).index_add_(0, slot, gx_c)
-    pair_g = deform_pair_vjp(pts_f, pair, gx_f, gx_add, cdt)
+    dG = None
+    if _UNION:
+        # the fine cotangents back onto the union through the inverse
+        # permutation, the coarse ones added at their own slots; one K3
+        # over the union points, one K9 on the union coordinates
+        inv = torch.argsort(perm, dim=-1)
+
+        def to_union(x_f, x_c):
+            w = x_f.shape[-1]
+            xu = torch.gather(x_f.reshape(R, Sf, w), 1, inv[..., None].expand(-1, -1, w))
+            xu[:, :Sc] += x_c.reshape(R, Sc, w)
+            return xu.reshape(R * Sf, w)
+
+        pts_u = torch.cat([(points(z_c) if pts_c is None else pts_c).reshape(R, Sc, 3),
+                           pts_n.reshape(R, Sn, 3)], dim=1).reshape(-1, 3)
+        pair_g = pair_vjp(pts_u, None, to_union(gx_f, gx_c), None)
+        if grid is not None:
+            dG = grid_dg_coords(packed_u.reshape(R * Sf, -1),
+                                to_union(gse_f, gse_c), grid.shape)
+    elif merge:
+        # coarse cotangents into their sorted-fine slots: slot(j) = j +
+        # #{z_new < z_c[j]}, ties coarse-first as the stable sort puts them;
+        # one term per sum, so the scatter is exact
+        pos_c = (torch.arange(Sc, device=dev)[None, :]
+                 + torch.sum(z_new[:, None, :] < z_c[:, :, None], dim=-1))
+        slot = (torch.arange(R, device=dev)[:, None] * Sf + pos_c).reshape(-1)
+        gx_add = torch.zeros_like(gx_f).index_add_(0, slot, gx_c)
+        pair_g = pair_vjp(pts_f, rays_f, gx_f, gx_add)
+        if grid is not None:
+            gse_add = torch.zeros_like(gse_f).index_add_(0, slot, gse_c)
+            dG = grid_dg(packed_f, rows_f, gse_f, gse_add, grid.shape)
+    else:
+        # per level: the fold's trees from K2, or K3 on each level's points
+        pair_g = (_tree_add(gx_c, gx_f) if pair_fold else _tree_add(
+            pair_vjp(pts_c, rays_c, gx_c, None), pair_vjp(pts_f, rays_f, gx_f, None)))
+        if grid is not None:
+            dG = (grid_dg(packed_c, rows_c, gse_c, None, grid.shape)
+                  + grid_dg(packed_f, rows_f, gse_f, None, grid.shape))
 
     grads, dcond = pair_param_grads(model.warp, model.hyper, pair_g, cond_pair)
     d_driving = _cond_parts(dcond, pair_parts, torch.zeros_like(driving))
@@ -233,9 +353,7 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         d_latent = _cond_parts(dcond_c, parts_c, torch.zeros_like(latent), "latent")
         d_latent = _cond_parts(dcond_f, parts_f, d_latent, "latent")
     if grid is not None:
-        gse_add = torch.zeros_like(gse_f).index_add_(0, slot, gse_c)
-        grads[model.spatial_embeddings] = grid_dg(packed_f, rows_f, gse_f,
-                                                  gse_add, grid.shape)
+        grads[model.spatial_embeddings] = dG
 
     loss = _level_loss(rgb_c, tgt, lw) + _level_loss(rgb_f, tgt, lw)
     if bg_sup > 0.0:

@@ -234,14 +234,17 @@ def make_infer(s: Stage2Settings):
 
 
 def load_vgg_params(path: str, seed: int = 0, allow_random: bool = False,
-                    device="cpu") -> vgg.VGG19Features:
+                    device=None) -> vgg.VGG19Features:
     """The VGG weights of the perceptual loss, from a local file only: a
-    torchvision vgg19 state_dict (.pth) or an .npz of the same keys.
+    torchvision vgg19 state_dict (.pth) or an .npz of the same keys, on
+    ``device`` (the card unless the caller names one; without CUDA and
+    without a device this raises, as every entry point does).
 
     An empty path raises unless ``allow_random``: a "perceptual" loss
     through random VGG features is noise with a learning rate, so it is an
     explicit opt-in (tests, architecture checks), never a silent fallback
     (the reference always uses pretrained VGG, _init_spade.py:415-451)."""
+    device = resolve_device(device)
     if not path:
         if not allow_random:
             raise ValueError(

@@ -956,6 +956,7 @@ FALLBACK_KERNELS = {"deform_pair_forward": (k1, k1.deform_pair_plain),
 FUSED_KERNELS = [(fused, "deform_pair_forward", k1.deform_pair_plain),
                  (fused, "deform_pair_vjp", k1.deform_pair_vjp_plain),
                  (fused, "grid_dg", k4.grid_dg_plain),
+                 (fused, "grid_dg_coords", k4.grid_dg_coords_plain),
                  (fused, "build_pts", k15.build_pts_plain),
                  (k2, "nerf_level_train", k2.nerf_level_train_plain)]
 COUNTERS = {"K1": k1.deform_pair_forward, "K2": k2.nerf_level_train,
@@ -3051,3 +3052,186 @@ def test_level_kernels_on_se_match_plain(card, rng, compute_dtype):
     with pytest.raises(AssertionError):
         check_bwd(gse_fault(out_k[2:], 1), out_p[2:], 3)
     assert [f.launches for f in held] == [c + n for c, n in zip(counts, (2, 1, 2, 1, 1))]
+
+
+# ---------------------------------------------------------------------------
+# The fused step's variants: K1 and K3 in their rays= form, K2 in its pair=
+# form (sahs_tpu_torch/train/fused.py: SAHS_PAIR_RAYS, SAHS_PAIR_FOLD)
+# ---------------------------------------------------------------------------
+
+def _variant_rays(dev, rng, R, S):
+    """Rays from a camera at z = 1.2 looking down -z, sorted z in [0.3, 1.6]."""
+    ro = _gpu(dev, rng.randn(R, 3) * 0.05 + [0, 0, 1.2])
+    rd = _gpu(dev, rng.randn(R, 3) * 0.3 + [0, 0, -1])
+    z = _gpu(dev, np.sort(rng.uniform(0.3, 1.6, (R, S)), axis=-1))
+    return ro, rd, z
+
+
+def _fma_points(ro, rd, z):
+    """o + d z rounded once to float32 (float64 holds the product exactly),
+    as an FMA rounds it: K15's contract is two roundings."""
+    return (ro.double()[:, None, :] + rd.double()[:, None, :] * z.double()[..., None]
+            ).float().reshape(-1, 3)
+
+
+def _trees_equal(a, b):
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(compare.leaves(a),
+                                                          compare.leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,S", [(2048, 64), (1024, 128), (37, 63)])
+def test_pair_rays_forms_equal_positional_forms(card, rng, compute_dtype, R, S):
+    """K1's and K3's rays= forms equal K15 then the positional form bit for
+    bit: K1's packed points and rows, K3's every dW leaf with g2 (a ragged
+    last tile at 37 x 63); each call counts once under its kernel."""
+    dev, _, pair, _ = card
+    rays = _variant_rays(dev, rng, R, S)
+    pts = k15.build_pts(*rays)
+    g = _gpu(dev, rng.randn(R * S, 5) * 0.1)
+    g2 = _gpu(dev, rng.randn(R * S, 5) * 0.1)
+    before = (k1.deform_pair_forward.launches, k1.deform_pair_vjp.launches)
+    out_r, rows_r = k1.deform_pair_forward(None, pair, compute_dtype, S, GRID, rays=rays)
+    t_r = k1.deform_pair_vjp(None, pair, g, g2, compute_dtype, rays=rays)
+    assert (k1.deform_pair_forward.launches, k1.deform_pair_vjp.launches) == (
+        before[0] + 1, before[1] + 1)
+    out_k, rows_k = k1.deform_pair_forward(pts, pair, compute_dtype, S, GRID)
+    t_k = k1.deform_pair_vjp(pts, pair, g, g2, compute_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out_r, out_k) and torch.equal(rows_r, rows_k)
+    assert _trees_equal(t_r, t_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_pair_rays_forms_fail_an_fma_position(card, rng, compute_dtype):
+    """Planted fault: the positional forms on positions rounded once (an
+    FMA) must differ from the rays= forms, which round as K15 does."""
+    dev, _, pair, _ = card
+    R, S = 512, 64
+    rays = _variant_rays(dev, rng, R, S)
+    fma = _fma_points(*rays)
+    assert bool((fma != k15.build_pts(*rays)).any())
+    g = _gpu(dev, rng.randn(R * S, 5) * 0.1)
+    out_r, _ = k1.deform_pair_forward(None, pair, compute_dtype, S, GRID, rays=rays)
+    out_f, _ = k1.deform_pair_forward(fma, pair, compute_dtype, S, GRID)
+    t_r = k1.deform_pair_vjp(None, pair, g, None, compute_dtype, rays=rays)
+    t_f = k1.deform_pair_vjp(fma, pair, g, None, compute_dtype)
+    torch.cuda.synchronize()
+    assert not torch.equal(out_r, out_f)
+    assert not _trees_equal(t_r, t_f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_deform_pair_vjp_rays_form_matches_plain(card, rng, compute_dtype):
+    """K3's rays= form with g2 against its plain version (in bf16 with
+    exact sums, within PLAIN_MULTIPLE of the plain version's distance);
+    planted fault: g2 dropped must miss the gate."""
+    dev, _, pair, _ = card
+    R, S = 300, 64
+    rays = _variant_rays(dev, rng, R, S)
+    g = _gpu(dev, rng.randn(R * S, 5) * 0.1)
+    g2 = _gpu(dev, rng.randn(R * S, 5) * 0.1)
+    out_k = k1.deform_pair_vjp(None, pair, g, g2, compute_dtype, rays=rays)
+    out_p = _plain_ref(k1.deform_pair_vjp_plain, None, pair, g, g2, compute_dtype,
+                       False, rays, out_k=out_k)
+    torch.cuda.synchronize()
+    _grads_ok(out_k, out_p, compute_dtype)
+    with pytest.raises(AssertionError):
+        _grads_ok(k1.deform_pair_vjp(None, pair, g, None, compute_dtype, rays=rays),
+                  out_p, compute_dtype)
+
+
+def _pair_form_case(dev, model, rng, level, R, S, compute_dtype):
+    """K2's arguments at R rays of S samples with a background, sigma noise,
+    loss targets and bg_sup 0.5, then se None and the pair (PairWeights,
+    ro) of K2's pair= form."""
+    pts, dirs, table, rows, z, bg, noise = _level_case(dev, model, rng, R, S, True,
+                                                       True, compute_dtype)
+    tgt = _gpu(dev, np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+    lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+    ro = _gpu(dev, rng.randn(R, 3) * 0.05 + [0, 0, 1.2])
+    return (pts, dirs, table, rows, z, bg, noise, tgt, lw, level, compute_dtype, GRID,
+            0.5, None), ro
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_level_train_pair_form_matches_plain(card, rng, compute_dtype):
+    """K2's pair= form against its plain version: the outputs, gse, g_bg,
+    every level dW leaf and every pair dW leaf (f32 per leaf; bf16 with
+    exact sums, within PLAIN_MULTIPLE of the plain version's distance: the
+    pair's dW takes K2's gx, whose kink points sit off exact sums in either
+    side's bf16 run, so its leaves are held by that rule alone), and bit
+    for bit K2 then K3's rays= form on K2's gx (the same f32 gx, the same
+    tiles, the same split-K order). Planted fault: the pair's hyper head
+    bias gradient dropped must miss the gate."""
+    dev, model, pair, level = card
+    args, ro = _pair_form_case(dev, model, rng, level, 96, 64, compute_dtype)
+    before = k2.nerf_level_train.launches
+    out_k = k2.nerf_level_train(*args, (pair, ro))
+    assert k2.nerf_level_train.launches == before + 1
+    out_p = _plain_ref(k2.nerf_level_train_plain, *args, (pair, ro), out_k=out_k)
+    torch.cuda.synchronize()
+    rgb_k, w_k, pg_k, gse_k, gbg_k, g_k = out_k
+    rgb_p, w_p, pg_p, gse_p, gbg_p, g_p = out_p
+    assert all(bool(torch.isfinite(t).all()) for t in (rgb_k, w_k, gse_k, gbg_k))
+    if compute_dtype == "float32":
+        assert float((rgb_k - rgb_p).abs().max()) <= 1e-4
+        assert float((w_k - w_p).abs().max()) <= 1e-4
+        for a, b in ((gse_k, gse_p), (gbg_k, gbg_p)):
+            e = point_errors(a, b, 1e-4)
+            assert e["n_over"] <= POINT_FLIPS and e["cosine"] >= 0.9999, e
+    else:
+        assert _rel(rgb_k, rgb_p) <= 2e-2 and _rel(w_k, w_p) <= 2e-2
+    _grads_ok(g_k, g_p, compute_dtype)
+    fault = {**pg_k, "hyper": {**pg_k["hyper"], "out": {
+        "w": pg_k["hyper"]["out"]["w"], "b": torch.zeros_like(pg_k["hyper"]["out"]["b"])}}}
+    if compute_dtype == "float32":
+        _grads_ok(pg_k, pg_p, compute_dtype)
+        with pytest.raises(AssertionError):
+            _grads_ok(fault, pg_p, compute_dtype)
+    else:   # the exact-sum rule, which _plain_ref held pg_k to
+        d_p = tree_errors(k2.nerf_level_train_plain(*args, (pair, ro))[2], pg_p)["l2_rel"]
+        assert tree_errors(fault, pg_p)["l2_rel"] > PLAIN_MULTIPLE * max(d_p, PLAIN_FLOOR)
+    # K2 then K3's rays= form on K2's gx
+    rgb_d, w_d, gx_d, gse_d, gbg_d, g_d = k2.nerf_level_train(*args)
+    pg_d = k1.deform_pair_vjp(None, pair, gx_d, None, compute_dtype,
+                              rays=(ro, args[1], args[4]))
+    torch.cuda.synchronize()
+    for a, b in ((rgb_k, rgb_d), (w_k, w_d), (gse_k, gse_d), (gbg_k, gbg_d)):
+        assert torch.equal(a, b)
+    assert _trees_equal(g_k, g_d) and _trees_equal(pg_k, pg_d)
+
+
+@pytest.mark.cuda
+def test_fused_step_variants_match_default(card, monkeypatch):
+    """Each structural variant's float32 fused step (256 rays, 64 + 64)
+    against the default step on the same draws: the loss within 1e-5 (the
+    split 1e-6), every gradient entry within rtol 2e-4 / atol 2e-6 (the
+    split 1e-4 / 1e-6), tests/test_fused_train.py's tolerances; the
+    variant's launches a step as its structure says."""
+    dev = card[0]
+    want = {(): {"K1": 2, "K2": 2, "K3": 1, "K4": 1, "K15": 2},
+            ("_BWD_SPLIT",): {"K1": 2, "K2": 2, "K3": 2, "K4": 2, "K15": 2},
+            ("_UNION",): {"K1": 2, "K2": 2, "K3": 1, "K9": 1, "K15": 2},
+            ("_PAIR_RAYS",): {"K1": 2, "K2": 2, "K3": 1, "K4": 1},
+            ("_PAIR_FOLD",): {"K1": 2, "K2": 2, "K4": 2, "K15": 2},
+            ("_PAIR_RAYS", "_PAIR_FOLD"): {"K1": 2, "K2": 2, "K4": 2},
+            ("_PAIR_RAYS", "_UNION"): {"K1": 2, "K2": 2, "K3": 1, "K9": 1, "K15": 2}}
+    runs = {}
+    for on, launches in want.items():
+        for f in ("_BWD_SPLIT", "_UNION", "_PAIR_RAYS", "_PAIR_FOLD"):
+            monkeypatch.setattr(fused, f, f in on)
+        runs[on] = _f32_step(dev, monkeypatch, False, True)
+        got = {k: n for k, n in runs[on][2].items() if n}
+        assert got == launches, (on, got)
+    loss_d, g_d = runs[()][:2]
+    for on, (loss, g) in ((o, r[:2]) for o, r in runs.items() if o):
+        l_tol, rtol, atol = (1e-6, 1e-4, 1e-6) if on == ("_BWD_SPLIT",) else (1e-5, 2e-4,
+                                                                            2e-6)
+        assert abs(loss - loss_d) <= l_tol * abs(loss_d), (on, loss, loss_d)
+        for n, b in g_d.items():
+            torch.testing.assert_close(g[n], b, rtol=rtol, atol=atol, msg=f"{on} {n}")

@@ -190,14 +190,17 @@ def _cu_const(path, name):
 def test_tile_sizes_match_the_cuda_sources():
     """bf16: the tensor-core tile of mma.cuh, which K2/K6/K8/K12
     (level_train.cu), K3 and K14 (skip_tc.cuh) take; float32: each SIMT
-    kernel's own tile."""
+    kernel's own tile (K3's in pair_bwd.cuh, which K2's pair= form runs on
+    the level's tile: level_train.cu asserts the two equal)."""
     assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
     assert k2.tile_points(torch.float32) == _cu_const("level_train.cu", "TP") == 32
-    assert k2.tile_points(torch.float32) == _cu_const("deform_pair_vjp.cu", "TP") == 32
+    assert k2.tile_points(torch.float32) == _cu_const("pair_bwd.cuh", "PAIR_TP") == 32
     assert k2.tile_points(torch.float32) == _cu_const("skip_mlp.cu", "TP_BWD") == 32
-    for src in ("deform_pair_vjp.cu", "skip_mlp.cu"):
+    assert "static_assert(TP == sahs::PAIR_TP" in _cu_text("level_train.cu")
+    for src, inc in (("deform_pair_vjp.cu", "pair_bwd.cuh"), ("pair_bwd.cuh", "skip_tc.cuh"),
+                     ("skip_mlp.cu", "skip_tc.cuh")):
         with open(os.path.join(CSRC, src)) as fp:
-            assert '#include "skip_tc.cuh"' in fp.read()
+            assert f'#include "{inc}"' in fp.read()
     # the width step the K3, K13 and K14 wrappers check in bf16
     assert k13.TC_K_STEP == _cu_const("skip_tc.cuh", "SKIP_KS")
     # bf16 K13: skip_fwd_tc_kernel on mma.cuh's tile, its slices a whole

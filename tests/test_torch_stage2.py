@@ -344,10 +344,13 @@ def test_scan_step_equals_single_steps():
     _assert_states_equal(a, b)
 
 
-def test_perceptual_needs_weights():
+def test_perceptual_needs_weights(monkeypatch):
     with pytest.raises(ValueError):
-        tst.load_vgg_params("")
-    assert tst.load_vgg_params("", allow_random=True) is not None
+        tst.load_vgg_params("", device="cpu")
+    assert tst.load_vgg_params("", allow_random=True, device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tst.load_vgg_params("", allow_random=True)
 
 
 def test_vgg_importer_reads_torchvision_keys(tmp_path):
@@ -361,7 +364,7 @@ def test_vgg_importer_reads_torchvision_keys(tmp_path):
         sd[f"features.{i}.bias"] = c.bias.detach().clone()
     path = str(tmp_path / "vgg.pth")
     torch.save(sd, path)
-    loaded = tst.load_vgg_params(path)
+    loaded = tst.load_vgg_params(path, device="cpu")
     x = torch.from_numpy(np.random.RandomState(2).rand(1, 3, 32, 32).astype(np.float32))
     want = jvgg.vgg19_slice_features(jvgg.import_torch_vgg_features(sd),
                                      jnp.asarray(x.permute(0, 2, 3, 1).numpy()))
