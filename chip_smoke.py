@@ -47,7 +47,14 @@ Phases, in order (any failure exits non-zero and prints no result):
      the coarse level's shapes, which with the fine times gives the
      frame's kernel time; and bf16 K5's device time by launch
      (torch.profiler: field_tc_kernel, composite_fwd_kernel), kept in its
-     entry of the kernels line as "launch_ms";
+     entry of the kernels line as "launch_ms"; K5's fine and coarse ms,
+     TFLOP/s and share of the bound beside the mma.sync tile's reading
+     (MMA_SYNC_MS); then the forward tile on wgmma (level_train.cu fw::):
+     ptxas' registers, spills and stack of fwd_tc_kernel and every
+     field_tc_kernel<PROMOTE>, the accumulation form the kernels run and
+     each candidate form's distance from exact sums and time
+     (tools/field_forms.py --quick); it fails when a kernel the path runs
+     spills or has its wgmma serialised, or the form run misses the rule;
   5. train-kernel parity: K2 (both levels), K3 and K4 against their plain
      versions on the train path's own inputs, float32 at 256 rays (with
      bg_sup 0 and 0.5) and bfloat16 at the main path's 2048 rays, with the
@@ -70,7 +77,9 @@ Phases, in order (any failure exits non-zero and prints no result):
      ms/step on the device and the host clock, rays/s; then per-kernel
      times at the step's shapes beside the plain versions, the library
      yardsticks and the bounds, with the TFLOP/s reached and the share of
-     the bound (as in phases 8 and 10). In bf16 K2, K3, K6, K8, K12 and
+     the bound (as in phases 8 and 10), and K2's launches by device time
+     with launch 1 (fwd_tc_kernel) beside the mma.sync tile's reading a
+     fused step (K7 in phase 8 and K11 in phase 10 likewise). In bf16 K2, K3, K6, K8, K12 and
      K14 run their products and dW on the tensor cores (csrc/mma.cuh,
      csrc/skip_tc.cuh, 64-point tiles); the planted split-K faults drop
      the first chunk of that reduction (level_train.TP_BF16-point tiles);
@@ -1688,6 +1697,90 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# The bf16 forward tile's readings in its design before wgmma (mma.sync
+# with a cp.async ring, two blocks an SM; NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6, the kernel table's earlier readings): K5, K7 and K11
+# from this script's runs, fwd_tc_kernel's two launches of a fused step
+# from its phase 20 (torch.profiler), ms.
+MMA_SYNC_MS = {"K5 fine chunk": 69.09, "K5 coarse chunk": 34.62, "K7 fine": 4.63,
+               "K7 coarse": 2.34, "K11 frame chunk": 104.66,
+               "fwd_tc_kernel a fused step": 8.95}
+
+
+def vs_mma_sync(key: str, ms: float) -> str:
+    """``ms`` beside the mma.sync tile's reading of the same shape."""
+    old = MMA_SYNC_MS[key]
+    return f"the mma.sync tile {old:.2f} ms ({old / ms:.2f}x this)"
+
+
+def forward_tile_ptxas() -> dict:
+    """ptxas' report of the forward tile's kernels (fwd_tc_kernel and every
+    field_tc_kernel<PROMOTE>) from level_train's build log: registers,
+    spill bytes, stack frame and shared memory by kernel, and every line
+    that warns of serialised wgmma (C7520)."""
+    import re
+    from sahs_tpu_torch.ops.kernels import _build
+    out, name = {"C7520": []}, None
+    for line in _build.build_log("level_train").splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            mangled, name = m.group(1), None
+            t = re.search(r"field_tc_kernelILi(\d+)E", mangled)
+            if t:
+                name = f"field_tc_kernel<{t.group(1)}>"
+            elif "fwd_tc_kernel" in mangled:
+                name = "fwd_tc_kernel"
+            if name:
+                out[name] = {}
+            continue
+        if "C7520" in line or "serializ" in line:
+            out["C7520"].append(line.strip())
+        if name is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("stack", r"(\d+) bytes stack frame"),
+                         ("smem_static", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out[name][key] = int(m.group(1))
+    return out
+
+
+def forward_tile_readings(report) -> str:
+    """The bf16 forward tile on wgmma (level_train.cu fw::): ptxas' report of
+    its kernels, the accumulation form the kernels run, and each candidate
+    form's distance from exact sums on the card tests' draws and its time
+    at a frame's fine chunk (tools/field_forms.py --quick). Printed and kept
+    in report["forward_tile"]; a message when ptxas spilled or serialised
+    the tile or the form the kernels run misses the rule."""
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.tools import field_forms
+    ptx = forward_tile_ptxas()
+    print(f"forward tile, ptxas: {json.dumps(ptx)}", flush=True)
+    chosen = k5.field_promote()
+    rows = field_forms.main(["--quick"])
+    brief = {r["promote"]: {"holds": r["holds"],
+                            "worst_ratio": max(d["worst_ratio"]
+                                               for d in r["distances"].values()),
+                            "ms": r["ms"]} for r in rows}
+    print(f"forward tile, accumulation form run: PROMOTE {chosen} (k16 steps in the "
+          f"tensor core before each float32 add, 0 the whole K); candidates' worst "
+          f"ratio to the plain version's distance from exact sums (rule: <= "
+          f"{field_forms.MULTIPLE}) and time: {json.dumps(brief)}", flush=True)
+    report["forward_tile"] = {"ptxas": ptx, "promote": chosen, "candidates": rows}
+    run = ("fwd_tc_kernel", f"field_tc_kernel<{chosen}>")
+    spilled = {k: ptx[k] for k in run
+               if ptx.get(k, {}).get("spill_stores") or ptx.get(k, {}).get("spill_loads")}
+    if ptx["C7520"] or spilled or any(k not in ptx for k in run):
+        return (f"the forward tile's kernels ({', '.join(run)}) were serialised, spilled "
+                f"or not built: {json.dumps(ptx)}")
+    if not brief[chosen]["holds"]:
+        return f"the forward tile's form {chosen} misses the exact-sum rule: {brief}"
+    return ""
 
 
 # ---------------------------------------------------------------------------
@@ -5039,12 +5132,22 @@ def main(argv) -> int:
         print(f"{name}: {ms:.2f} ms at {P} points (bound {max(t_ops, t_bytes):.2f} ms, "
               f"plain {plain_ms:.2f} ms, library {library_ms:.2f} ms); "
               f"{coarse_ms:.2f} ms at the coarse level's {R_t * 64} points", flush=True)
+        if name == "nerf_level":
+            b_ms = max(t_ops, t_bytes)
+            print(f"  K5 on the wgmma tile: fine chunk {ms:.2f} ms, "
+                  f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % of the "
+                  f"bound ({vs_mma_sync('K5 fine chunk', ms)}); coarse chunk "
+                  f"{coarse_ms:.2f} ms ({vs_mma_sync('K5 coarse chunk', coarse_ms)})",
+                  flush=True)
     # bf16 K5 is two launches a call: the raw field and the compositing
     from sahs_tpu_torch.utils.device import device_ms_by_kernel
     kernels[1]["launch_ms"] = device_ms_by_kernel(f_k5, launches=reps,
                                                      counter=k5.nerf_level_forward)
     print(f"nerf_level's launches at the fine chunk (device ms, torch.profiler): "
           f"{json.dumps(kernels[1]['launch_ms'])}", flush=True)
+    msg = forward_tile_readings(report)
+    if msg:
+        return fail(msg)
     report["kernels"] = kernels
     # the frame's kernel time: each chunk runs both kernels at both levels
     kernel_ms = n_chunks * sum(k["ms"] + k["coarse_ms"] for k in kernels)
@@ -5295,6 +5398,22 @@ def main(argv) -> int:
               + (f", plain {plain:.2f} ms, library {lib:.2f} ms" if fp else "")
               + f"; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % "
               "of the bound)", flush=True)
+    # launch 1 of K2, the forward tile with the stash, by device time
+    from sahs_tpu_torch.utils.device import device_ms_by_kernel
+    for key, lv, P_l in (("level_train", lv_f, P_f), ("level_train_coarse", lv_c, P_c)):
+        by = device_ms_by_kernel(lambda: k2.nerf_level_train(*lv["args"]), launches=reps,
+                                 counter=k2.nerf_level_train)
+        train_kernels[key]["launch_ms"] = by
+        l1, fl1 = by.get("fwd_tc_kernel", 0.0), 2 * k5_macs(lv["args"][9]) * P_l
+        b1 = fl1 / PEAK_BF16_FLOPS * 1e3
+        print(f"{key}'s launches (device ms, torch.profiler): {json.dumps(by)}; launch 1 "
+              f"(fwd_tc_kernel, wgmma) {l1:.2f} ms at {P_l} points, "
+              f"{fl1 / (l1 / 1e3) / 1e12:.1f} TFLOP/s, {100 * b1 / l1:.2f} % of its bound "
+              f"{b1:.3f} ms", flush=True)
+    l1_step = sum(train_kernels[k]["launch_ms"].get("fwd_tc_kernel", 0.0)
+                  for k in ("level_train", "level_train_coarse"))
+    print(f"launch 1 of K2 a fused step (both levels): {l1_step:.2f} ms "
+          f"({vs_mma_sync('fwd_tc_kernel a fused step', l1_step)})", flush=True)
     train_kernels["grid_dg"]["launch_ms"] = grid_launch_ms(lambda: k4.grid_dg(*inp["k4"]), k4.grid_dg)
     print(f"grid_dg's launches at the step's shapes (device ms, torch.profiler): "
           f"{json.dumps(train_kernels['grid_dg']['launch_ms'])}", flush=True)
@@ -5623,6 +5742,10 @@ def main(argv) -> int:
               + f" (bound {b_ms:.3f} ms by {b_by}, plain {plain:.2f} ms, "
               f"library {lib:.2f} ms; {flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
               f"{100 * b_ms / ms:.2f} % of the bound)", flush=True)
+    k7 = fb_kernels["nerf_rayd_forward"]
+    print(f"  K7 on the wgmma tile: fine {k7['ms']:.2f} ms "
+          f"({vs_mma_sync('K7 fine', k7['ms'])}), coarse {k7['coarse_ms']:.2f} ms "
+          f"({vs_mma_sync('K7 coarse', k7['coarse_ms'])})", flush=True)
     fb_kernels["grid_dg_coords"]["launch_ms"] = grid_launch_ms(
         lambda: k4.grid_dg_coords(*fb_inp["k9"]), k4.grid_dg_coords)
     print(f"grid_dg_coords' launches at the fine level (device ms, torch.profiler): "
@@ -5818,6 +5941,9 @@ def main(argv) -> int:
               f"plain {plain:.2f} ms, library {lib:.2f} ms; "
               f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, {100 * b_ms / ms:.2f} % of "
               "the bound)", flush=True)
+    k11_ms = pw_kernels["nerf_mlp_forward_fused"]["ms"]
+    print(f"  K11 on the wgmma tile: {k11_ms:.2f} ms at the per-point frame's chunk "
+          f"({vs_mma_sync('K11 frame chunk', k11_ms)})", flush=True)
     pw_kernels["grid_bwd_fused"]["launch_ms"] = grid_launch_ms(
         lambda: k4.grid_bwd_fused(*pw_inp["k10"]), k4.grid_bwd_fused)
     print(f"grid_bwd_fused's launches at the per-point step's fine level (device ms, "

@@ -32,9 +32,9 @@
 // JAX kernel computes it), in place of gse and the corner dCoords.
 //
 // In bf16 the same file also holds K7's and K11's forward
-// (field_tc_kernel, `sahs_nerf_field_tc`): launch 1's tile routine,
-// fwd_tile, with its stash writes compiled out (see below); and K5's
-// (`sahs_nerf_level_tc`): field_tc_kernel's raw field into a float32
+// (field_tc_kernel, `sahs_nerf_field_tc`): launch 1's tile routine on
+// wgmma, fw::tile, with its stash writes compiled out (see below); and
+// K5's (`sahs_nerf_level_tc`): field_tc_kernel's raw field into a float32
 // scratch, then composite_fwd_kernel, the forward half of launch 2 (one
 // routine, composite_fwd, for both), per ray (see launch_level_tc).
 //
@@ -81,7 +81,9 @@
 // Two instantiations. float32 runs launches 1 and 3 as fwd_kernel and
 // bwd_kernel on 32-point tiles with mlp.cuh's SIMT products, and dW with
 // train.cuh's dw_kernel (exact float32; its gates allow no TF32). bf16
-// runs them as fwd_tc_kernel and bwd_tc_kernel on 64-point tiles with the
+// runs them on 64-point tiles: launch 1 as fwd_tc_kernel, the forward tile
+// on wgmma (fw:: below: persistent blocks, a TMA ring of weight stages,
+// two consumer warpgroups), launch 3 as bwd_tc_kernel with the
 // tensor-core products of mma.cuh (mma.sync m16n8k16; the weights staged
 // in 16-row K-slices through a cp.async ring; K zero-padded to 16), and dW
 // with level_dw_kernel (mma.sync over the stash). Each backward product's
@@ -92,14 +94,15 @@
 // layer's share of the PE cotangent is taken as soon as gz_skip exists,
 // and [pe(dir) | se]'s cotangent is used per point (gse, the corner
 // dCoords, K12's gextra) right after its product. Shared memory at the
-// flagship's widths (H 256, B 128): forward 113,664 B, backward 114,560 B,
-// two 256-thread blocks an SM at 128 registers a thread. Measured on an
-// H100 (PERF.md, `tools/level_ab.py`): K2 at 262,144 points 20.0 ms (87.6
-// in the SIMT design), ~58 TFLOP/s. level_dw_kernel, which reads the stash
-// once per 64-wide output tile, now takes the largest part, then
-// bwd_tc_kernel and fwd_tc_kernel; wgmma and a dW that reads the stash
-// once are the next steps.
+// flagship's widths (H 256, B 128): backward 114,560 B, two 256-thread
+// blocks an SM at 128 registers a thread; the forward tile fw::Layout.
+// Measured on an H100 (PERF.md, `tools/level_ab.py`): K2 at 262,144
+// points 20.0 ms with the forward on mma.sync (87.6 in the SIMT design),
+// ~58 TFLOP/s; level_dw_kernel, which reads the stash once per 64-wide
+// output tile, takes the largest part, then bwd_tc_kernel; the backward
+// on wgmma and a dW that reads the stash once are the next steps.
 #include "pair_bwd.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -143,6 +146,8 @@ struct Args {
   int enc;              // ENC_* bits, MODE_PTS only
   int kx, ndp;          // rows of the point encoding and of pe(dir) (set_widths)
   float bg_sup;
+  const void* wg;       // bf16 forward: the weight stages (nerf_level.wgmma_blob)
+  long long wg_bytes;
 };
 
 // The encodings' widths: the point's PE (kx), or with ENC_PTS the given
@@ -799,8 +804,8 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same launches with the layer products and dW on the tensor
-// cores (mma.cuh), 64-point tiles
+// bf16: the same launches on the tensor cores, 64-point tiles: the forward
+// tile on wgmma (wgmma.cuh), the backward tile and dW on mma.sync (mma.cuh)
 // ---------------------------------------------------------------------------
 using sahs::bf16;
 using sahs::TC_LD;
@@ -809,28 +814,16 @@ using sahs::TC_TP;
 
 __host__ __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
 
-// Shared-memory layout of the per-tile kernels, in bytes (every offset a
-// multiple of 16). Forward (fwd_tc_kernel, and field_tc_kernel with
-// ks = FIELD_KS): xin [padk(kx)] (the f32 heads [8 alpha | 8 rgb | 16 seg]
-// reuse it after the trunk), din [padk(ndp + C)], hA, hB [max(H, 2B)] and
-// the weight ring of ks-row slices; the encodings' rows are padded to a
-// whole slice. Backward: T0, T1 [max(H, 2B)] (gz ping-pong; the branches'
-// P, Q in T0, gs0 and gz_d0 in T1), F [max(pad8(kx), pad8(ndp + C))] in f32
-// (the [pe(dir) | se] cotangent, then the PE's) and the ring.
-__host__ __device__ __forceinline__ int padk(int n, int ks) { return (n + ks - 1) / ks * ks; }
-
+// Shared-memory layout of the backward tile (bwd_tc_kernel), in bytes
+// (every offset a multiple of 16): T0, T1 [max(H, 2B)] (gz ping-pong; the
+// branches' P, Q in T0, gs0 and gz_d0 in T1), F [max(pad8(kx), pad8(ndp +
+// C))] in f32 (the [pe(dir) | se] cotangent, then the PE's) and the ring.
 struct TcLayout {
-  int kx, ndp, xin, din, ha, hb, fring, fwd, t0, t1, f, bring, bwd;
-  __host__ __device__ explicit TcLayout(const Args& a, int ks = sahs::TC_KS) {
+  int kx, ndp, t0, t1, f, bring, bwd;
+  __host__ __device__ explicit TcLayout(const Args& a) {
     kx = a.kx;
     ndp = a.ndp;
     const int row = TC_LD * 2, rowf = TC_LDF * 4, rh = imax(a.H, 2 * a.B);
-    xin = 0;
-    din = xin + imax(padk(kx, ks) * row, 32 * rowf);
-    ha = din + padk(ndp + a.C, ks) * row;
-    hb = ha + rh * row;
-    fring = hb + rh * row;
-    fwd = fring + sahs::ring_bytes(imax(a.H, a.B), ks);
     const int nf = imax(pad8(kx), pad8(ndp + a.C));
     t0 = 0;
     t1 = t0 + rh * row;
@@ -840,201 +833,693 @@ struct TcLayout {
   }
 };
 
-// Rows of a staged weight slice of the forward-only kernel. 16 rows keep
-// two blocks an SM at the flagship's widths (113,664 B); 32 rows halve the
-// barrier pairs but their ring (33,792 B) leaves room for one block.
-// Measured on an H100 (PERF.md, tools/level_ab.py --fields-only): K7 at a
-// step's fine level 4.63-4.66 ms with 16 rows against 7.16-7.30 with 32,
-// K11 at a frame's fine chunk 103.8-103.9 against 164.2-164.5 ms: the
-// second block hides the barriers better than half as many of them do.
-constexpr int FIELD_KS = 16;
+// ---------------------------------------------------------------------------
+// 1. forward per 64-point tile in bf16, on wgmma: field_tc_kernel (K5's raw
+// field, K7, K11) and fwd_tc_kernel (launch 1 of K2, K6, K8, K12)
+// ---------------------------------------------------------------------------
+// What the tile computes: per point its inputs (the PE with the accurate
+// sinf; the 8-corner trilinear sample with _cell_geometry's expression, a
+// per-point se, C = 0, or MODE_PTS's [dir | se], each optionally given
+// pre-encoded), the trunk with the skip input, feat, the alpha head, the
+// direction branch [feat | pe(dir) | se] -> 4 x B -> rgb and the seg branch
+// 4 x B -> 12; raw (P, 16) out when a.raw is given and, with STASH, every
+// layer's bf16 input to the stash of the backward (slots as before).
+//
+// Design (csrc/wgmma.cuh). Persistent blocks, one an SM, of two consumer
+// warpgroups and a producer warp. A warpgroup owns a 64-point tile (the
+// stash's unit stays the 64-point tile, TC_TP) and runs every layer as
+// wgmma.m64nNk16 products, A (the tile's activations, K-major, 128-byte
+// swizzle) and B (the weights) both from shared memory. The weights stream
+// through a ring of stages in shared memory: a stage is one 64-k block of
+// one chunk of a layer's outputs (N <= 128 rows of 128 bytes, K-major and
+// swizzled, laid out ahead of time by nerf_level.wgmma_blob in the order
+// the tile runs them), copied by one TMA bulk copy; both warpgroups read
+// each stage, so every weight byte read from L2 serves 128 points. Outputs
+// of 256 columns (the trunk, feat) are two chunks of 128, so the float32
+// sums of a chunk fit the registers twice over (PROMOTE below). The
+// epilogue adds the bias, applies the activation and rounds to bf16 from
+// the accumulator registers (the stash rows from there too, two points a
+// 4-byte store) and stores the next layer's A: the first chunk of two into
+// the other of two column-0-127 regions, the rest in place once every
+// warp's products are done. The heads (N = 8, 16) write raw in f32.
+// K is zero-padded to whole 64-k blocks: the stages' rows past K are zero
+// and the tile's columns past K are zeroed, so a block's four k-steps need
+// no branch. The front half (PE, the corner gather, per-point rows) writes
+// straight into the swizzled A tiles; rows past P are zeros and nothing is
+// written past P. The roles branch on wg::warpgroup() (uniform across a
+// warp) and the arrivals are predicated, so ptxas keeps the wgmma
+// pipelined (a divergent role branch serialises them: ptxas's C7520).
+//
+// Accumulation (PROMOTE): the tensor core's sum truncates; mma.sync's tiles
+// (mma.cuh) sum each k16 step from zero there and add it to the running
+// sum in float32 round-to-nearest. PROMOTE s sums s k16 steps in the
+// tensor core, then adds them to the float32 sums (s = 1 is mma.cuh's
+// semantics); PROMOTE 0 carries the sum over the whole K in the tensor
+// core. FIELD_PROMOTE is the one the kernels run (PERF.md §6 has each
+// candidate's distance from exact sums and time).
+//
+// Bound on the H100: ~0.74 M multiply-adds a point against ~30 (K7) to
+// ~224 (K11) bytes, so operations: K5 at a frame's fine chunk (4.19 M
+// points) 6.2 ms, K11 at its 6.29 M 9.4 ms, K7 at a step's fine level
+// (262,144) 0.39 ms at the 989 TFLOP/s bf16 peak. The weights (1.53 MB at
+// the flagship's widths) are read from L2 once per 128 points, ~31 bytes a
+// clock an SM at the tensor cores' rate, near what L2 gives.
+namespace fw {
 
-// 1. forward per 64-point tile: PE, the [pe(dir) | se] block (from a
-// ray's direction and the corner rows gathered here, or from the point's
-// own extra input in MODE_PTS), the trunk, the heads and both branches,
-// raw (P, 16) out when a.raw is given. With STASH every layer's input also
-// goes to the stash of the backward (launch 1 of K2/K6/K8/K12); without it
-// (the forwards K7 and K11) nothing else leaves the block.
-template <bool STASH, int KS>
-__device__ __forceinline__ void fwd_tile(const Args& a, unsigned char* smem_raw) {
-  const TcLayout ly(a, KS);
-  const int kx = ly.kx, ndp = ly.ndp, C = a.C, L = a.L;
-  bf16* xin = reinterpret_cast<bf16*>(smem_raw + ly.xin);
-  bf16* din = reinterpret_cast<bf16*>(smem_raw + ly.din);
-  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
-  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.fring);
-  float* cw = reinterpret_cast<float*>(hB);             // [8][TC_TP], before the trunk
-  int* rowv = reinterpret_cast<int*>(cw + 8 * TC_TP);
-  float* alphaY = reinterpret_cast<float*>(xin);        // after the trunk
-  float* rgbY = alphaY + 8 * TC_LDF;
-  float* segY = rgbY + 8 * TC_LDF;
-  const bf16* wblob = reinterpret_cast<const bf16*>(a.w);
-  const bf16* table = reinterpret_cast<const bf16*>(a.table);
-  const long long tile = blockIdx.x, base = tile * TC_TP;
-  bf16* acts = STASH ? reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride : nullptr;
-  const int* act_off = a.slots;
-  const int tid = threadIdx.x;
-  auto layer = [&](int i, const bf16* X1, const bf16* X2, bf16* Y, float* Yf) {
-    sahs::tc_layer<KS>(sahs::load_desc(a.meta, i), wblob, a.b, X1, X2, Y, Yf, ring);
-  };
-  auto stash = [&](const bf16* src, int slot, int rows) {
-    if constexpr (STASH) sahs::stash_rows(src, acts + act_off[slot], rows);
-  };
+// ptxas gives a block of more than two warpgroups (288 threads count as
+// three) at most 168 registers a thread; the sums of one 128-wide chunk,
+// its partials and the epilogue fit them without a spill
+constexpr int WG = 2;                                // consumer warpgroups
+constexpr int THREADS = WG * wg::THREADS + 32;       // and the producer warp
+constexpr int KB = 64;                               // k rows of a weight stage
+constexpr int NC = 128;                              // output columns of a chunk
+constexpr int SLOT = NC * 128;                       // bytes of a ring slot
+constexpr int RING_MAX = 6;
+constexpr int SMEM_MAX = 232448;                     // a block's dynamic shared memory
+enum { SRC_NONE = 0, SRC_X, SRC_D, SRC_H, SRC_B };
+enum { OUT_H = 0, OUT_B, OUT_ALPHA, OUT_RGB, OUT_SEG };
 
-  // K padding: the rows past the encodings stay zero
-  sahs::zero_rows(xin, kx, padk(kx, KS));
-  sahs::zero_rows(din, ndp + C, padk(ndp + C, KS));
+__host__ __device__ __forceinline__ int cdiv(int x, int y) { return (x + y - 1) / y; }
+
+// One product of the tile (a layer of the forward blob): its inputs s1
+// (k1 columns) and s2 (k2 columns, or none), n outputs, where they go, the
+// activation (leaky ReLU or linear) and the stash slot of the output.
+struct Prod {
+  int s1, k1, s2, k2, n, out, leaky, slot;
+};
+
+// The products in the order the tile runs them and the weight stages
+// hold them (nerf_level.point_layers' order): the trunk (the skip layer's
+// second input the PE), feat, alpha, dir0 (feat and [pe(dir) | se]),
+// dir1-3, rgb, seg0-3, the seg head.
+__host__ __device__ __forceinline__ int n_prods(const Args& a) { return a.L + 12; }
+__host__ __device__ __forceinline__ Prod prod_of(const Args& a, int q) {
+  const int L = a.L, H = a.H, B = a.B, kd = a.ndp + a.C;
+  if (q < L) {
+    const bool skip = q == a.skip && q > 0;
+    return Prod{q == 0 ? SRC_X : SRC_H, q == 0 ? a.kx : H, skip ? SRC_X : SRC_NONE,
+                skip ? a.kx : 0, H, OUT_H, 1, 1 + q};
+  }
+  const int r = q - L;
+  if (r == 0) return Prod{SRC_H, H, SRC_NONE, 0, H, OUT_H, 0, L + 1};       // feat
+  if (r == 1) return Prod{SRC_H, H, SRC_NONE, 0, 8, OUT_ALPHA, 0, -1};      // alpha
+  if (r == 2) return Prod{SRC_H, H, SRC_D, kd, B, OUT_B, 1, L + 3};         // dir0
+  if (r < 6) return Prod{SRC_B, B, SRC_NONE, 0, B, OUT_B, 1, L + 1 + r};    // dir1-3
+  if (r == 6) return Prod{SRC_B, B, SRC_NONE, 0, 8, OUT_RGB, 0, -1};        // rgb
+  if (r == 7) return Prod{SRC_H, H, SRC_NONE, 0, B, OUT_B, 1, L + 7};       // seg0
+  if (r < 11) return Prod{SRC_B, B, SRC_NONE, 0, B, OUT_B, 1, L + r};       // seg1-3
+  return Prod{SRC_B, B, SRC_NONE, 0, 16, OUT_SEG, 0, -1};                   // seg head
+}
+
+__host__ __device__ __forceinline__ bool is_head(int out) { return out >= OUT_ALPHA; }
+// chunks of a product's outputs: a head is one chunk of n (8 or 16); other
+// outputs, n rounded up to 64, chunks of NC (the last may be 64)
+__host__ __device__ __forceinline__ int n_chunks(const Prod& p) {
+  return is_head(p.out) ? 1 : cdiv(p.n, NC);
+}
+__host__ __device__ __forceinline__ int chunk_cols(const Prod& p, int c) {
+  if (is_head(p.out)) return p.n;
+  const int w = cdiv(p.n, KB) * KB - c * NC;
+  return w < NC ? w : NC;
+}
+__host__ __device__ __forceinline__ int k_blocks(int k) { return cdiv(k, KB); }
+
+// Bytes of the weight stages of one tile: a stage per chunk, input and
+// 64-k block, chunk_cols rows of 128 bytes.
+inline long long blob_bytes(const Args& a) {
+  long long s = 0;
+  for (int q = 0; q < n_prods(a); ++q) {
+    const Prod p = prod_of(a, q);
+    for (int c = 0; c < n_chunks(p); ++c)
+      s += 128LL * chunk_cols(p, c) * (k_blocks(p.k1) + k_blocks(p.k2));
+  }
+  return s;
+}
+
+// The forward blob's biases, every layer's n (padded) in the products'
+// order (nerf_level.point_layers): (L + 1) H + 8 B + 32 floats.
+__host__ __device__ __forceinline__ int bias_floats(const Args& a) {
+  return (a.L + 1) * a.H + 8 * a.B + 32;
+}
+
+// Shared memory, from a 1,024-byte-aligned base: the ring of `ring` slots,
+// then each warpgroup's regions of 64-column blocks (wg::BLOCK, 64 points x
+// 128 bytes): x [xb] (the PE; the branches' activations after the trunk),
+// d [db] ([pe(dir) | se]), h0 [2 x h0] (the hidden columns 0-127, in turns;
+// the corner weights and rows during the front half) and h1 [h1] (columns
+// 128 on); then the biases and the stash slots' offsets (read in every
+// epilogue: from device memory each read would wait on L2, since shared
+// memory leaves L1 little room), the barriers, and the slack that aligns
+// the base.
+struct Layout {
+  int xb, db, h0, h1, per_wg, ring, bias, slots, bar, bytes;
+  __host__ __device__ explicit Layout(const Args& a) {
+    xb = imax(cdiv(a.kx, KB), cdiv(a.B, KB));
+    db = imax(cdiv(a.ndp + a.C, KB), 1);
+    const int hb = cdiv(a.H, KB);
+    h0 = hb < 2 ? hb : 2;
+    h1 = hb - h0;
+    per_wg = (xb + db + 2 * h0 + h1) * wg::BLOCK;
+    const int params = (bias_floats(a) + a.L + 12 + 3) / 4 * 16;
+    const int fixed = WG * per_wg + params + 16 * RING_MAX + 1024;
+    ring = (SMEM_MAX - fixed) / SLOT;
+    if (ring > RING_MAX) ring = RING_MAX;
+    bias = ring * SLOT + WG * per_wg;
+    slots = bias + 4 * bias_floats(a);
+    bar = bias + params;
+    bytes = bar + 16 * RING_MAX + 1024;
+  }
+};
+
+struct Ring {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int n, stage;
+  uint32_t phase;
+  __device__ __forceinline__ void next() {
+    if (++stage == n) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// An input's 64-column blocks in shared memory: blocks 0-1 from lo, 2 on
+// from hi, nb of them.
+struct ASrc {
+  uint32_t lo, hi;
+  int nb;
+};
+__device__ __forceinline__ uint32_t a_block(const ASrc& s, int kb) {
+  return kb < 2 ? s.lo + kb * wg::BLOCK : s.hi + (kb - 2) * wg::BLOCK;
+}
+
+// d = A1 W1 (+ A2 W2) over one N-wide chunk of outputs, one ring stage a
+// 64-k block. Called by the whole warpgroup.
+template <int N, int PROMOTE>
+__device__ __forceinline__ void product(float (&d)[N / 2], const ASrc& s1, const ASrc& s2,
+                                        Ring& rg, int lane) {
+  constexpr int R = N / 2;
+  float p[PROMOTE > 1 || (PROMOTE == 1 && N != 2 * KB) ? R : 1];
+  if constexpr (PROMOTE != 0) {
+#pragma unroll
+    for (int e = 0; e < R; ++e) d[e] = 0.0f;
+  }
+  int prev = 0;
+  bool first = true;
+  const int nb = s1.nb + s2.nb;
+  for (int b = 0; b < nb; ++b) {
+    const uint32_t ab = b < s1.nb ? a_block(s1, b) : a_block(s2, b - s1.nb);
+    wg::mbar_wait(&rg.full[rg.stage], rg.phase);
+    const uint32_t wb = wg::smem_u32(rg.slots + rg.stage * SLOT);
+    if constexpr (PROMOTE == 1 && N == 2 * KB) {
+      // each k16 step apart, in two 64-column halves: one half's float32
+      // adds run while the other half's product is in flight (the order
+      // of the groups: A0 B0 A1 B1 ...; wait<1> leaves the newest pending)
+      float pa[KB / 2], pb[KB / 2];
+      wg::fence_operand(pa);
+      wg::fence_operand(pb);
+      wg::fence();
+      wg::mma<KB, 0>(pa, wg::k_desc(ab, 0), wg::k_desc(wb, 0), 0);
+      wg::commit();
+      wg::mma<KB, 0>(pb, wg::k_desc(ab, 0), wg::k_desc(wb + KB * 128, 0), 0);
+      wg::commit();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wg::wait<1>();
+        wg::fence_operand(pa);
+#pragma unroll
+        for (int e = 0; e < KB / 2; ++e) d[e] = __fadd_rn(d[e], pa[e]);
+        if (j < 3) {
+          wg::fence();
+          wg::mma<KB, 0>(pa, wg::k_desc(ab, j + 1), wg::k_desc(wb, j + 1), 0);
+          wg::commit();
+          wg::wait<1>();
+        } else {
+          wg::wait<0>();
+        }
+        wg::fence_operand(pb);
+#pragma unroll
+        for (int e = 0; e < KB / 2; ++e) d[KB / 2 + e] = __fadd_rn(d[KB / 2 + e], pb[e]);
+        if (j < 3) {
+          wg::fence();
+          wg::mma<KB, 0>(pb, wg::k_desc(ab, j + 1), wg::k_desc(wb + KB * 128, j + 1), 0);
+          wg::commit();
+        }
+      }
+      wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
+    } else if constexpr (PROMOTE == 0) {
+      wg::fence_operand(d);
+      wg::fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wg::mma<N, 0>(d, wg::k_desc(ab, j), wg::k_desc(wb, j), !(first && j == 0));
+      wg::commit();
+      wg::wait<1>();  // the previous stage's products are done
+      wg::fence_operand(d);
+      wg::mbar_arrive(&rg.empty[prev], !first && lane == 0);
+    } else {
+#pragma unroll
+      for (int j0 = 0; j0 < 4; j0 += PROMOTE) {
+        wg::fence_operand(p);
+        wg::fence();
+#pragma unroll
+        for (int j = j0; j < j0 + PROMOTE; ++j)
+          wg::mma<N, 0>(p, wg::k_desc(ab, j), wg::k_desc(wb, j), j > j0);
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(p);
+#pragma unroll
+        for (int e = 0; e < R; ++e) d[e] = __fadd_rn(d[e], p[e]);
+      }
+      wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
+    }
+    prev = rg.stage;
+    rg.next();
+    first = false;
+  }
+  if constexpr (PROMOTE == 0) {
+    wg::wait<0>();
+    wg::fence_operand(d);
+    wg::mbar_arrive(&rg.empty[prev], lane == 0);
+  }
+}
+
+// A 4-byte shared-memory store. No memory clobber: the epilogue's bias reads
+// must not wait behind each store; the fences and barriers after the
+// epilogue order the stores for their readers.
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+
+__device__ __forceinline__ void put(unsigned char* X, int t, int col, float v) {
+  *reinterpret_cast<bf16*>(X + wg::sw128(wg::ROWS, t, col)) = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ uint32_t get2(const unsigned char* X, int t, int col) {
+  return *reinterpret_cast<const unsigned short*>(X + wg::sw128(wg::ROWS, t, col));
+}
+
+// act(d + b) in bf16, packed two columns a word into h (output columns
+// col0 .. col0 + N - 1; with GUARD, zero from n_real on), and with `st`
+// given into the stash slot (a row of TC_TP points per output column):
+// lanes l and l ^ 4 hold neighbouring points, so each keeps one column of
+// the two and stores both points' values at once. LEAKY: leaky ReLU as
+// fmaxf(v, 0.01 v), the same value as mlp.cuh's select for every v (and
+// -0, NaN); else linear. Only two warps a scheduler run an epilogue, so its
+// instruction count is its time: the activation and the guard are compile-
+// time.
+template <int N, bool LEAKY, bool GUARD>
+__device__ __forceinline__ void pack_chunk(const float (&d)[N / 2], uint32_t (&h)[N / 4],
+                                           int col0, int n_real, const float* bias, bf16* st,
+                                           int t) {
+  const int l = t % 32, q = l % 4;
+  const int r0 = 16 * (t / 32) + l / 4;
+  const bool odd = (l >> 2) & 1;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int n = col0 + 8 * j + 2 * q;
+    const bool ok = !GUARD || n < n_real;  // n_real even: n + 1 with n
+    const float2 b = ok ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v0 = d[4 * j + 2 * i] + b.x, v1 = d[4 * j + 2 * i + 1] + b.y;
+      if (LEAKY) {
+        v0 = fmaxf(v0, 0.01f * v0);
+        v1 = fmaxf(v1, 0.01f * v1);
+      }
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(ok ? v0 : 0.0f, ok ? v1 : 0.0f);
+      h[2 * j + i] = *reinterpret_cast<const uint32_t*>(&hv);
+      if (st != nullptr) {
+        const uint32_t lo = h[2 * j + i] & 0xffffu, hi = h[2 * j + i] >> 16;
+        const uint32_t got = (uint32_t)__shfl_xor_sync(0xffffffffu, (int)(odd ? lo : hi), 4);
+        const int r = r0 + 8 * i, rw = odd ? n + 1 : n;
+        const uint32_t w = odd ? (got | (hi << 16)) : (lo | (got << 16));
+        if (ok)
+          *reinterpret_cast<uint32_t*>(st + (size_t)rw * TC_TP + (odd ? r - 1 : r)) = w;
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void pack_chunk_as(const float (&d)[N / 2], uint32_t (&h)[N / 4],
+                                              int col0, int n_real, const float* bias,
+                                              bool leaky, bf16* st, int t) {
+  const bool guard = col0 + N > n_real;
+  if (leaky && !guard) pack_chunk<N, true, false>(d, h, col0, n_real, bias, st, t);
+  else if (leaky) pack_chunk<N, true, true>(d, h, col0, n_real, bias, st, t);
+  else if (!guard) pack_chunk<N, false, false>(d, h, col0, n_real, bias, st, t);
+  else pack_chunk<N, false, true>(d, h, col0, n_real, bias, st, t);
+}
+
+// The packed words of pack_chunk into columns [0, N) of the K-major region
+// at shared address `dst` (row r0's 16-byte chunk c at c ^ (r0 % 8)).
+template <int N>
+__device__ __forceinline__ void put_chunk(const uint32_t (&h)[N / 4], uint32_t dst, int t) {
+  const int l = t % 32, q = l % 4;
+  const int r0 = 16 * (t / 32) + l / 4, sw = r0 & 7;
+  const uint32_t row = dst + r0 * 128 + 4 * q;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      sts32(row + i * 1024 + (j >> 3) * wg::BLOCK + (((j & 7) ^ sw) << 4), h[2 * j + i]);
+}
+
+// A head's f32 outputs d + b to raw (P, 16): alpha to channel 15, rgb to
+// 0-2, the seg logits to 3-14.
+template <int N>
+__device__ __forceinline__ void store_raw(const float (&d)[N / 2], int out, const float* bias,
+                                          float* raw, long long base, long long P, int t) {
+  const int l = t % 32, q = l % 4;
+  const int r0 = 16 * (t / 32) + l / 4;
+  const int n_real = out == OUT_ALPHA ? 1 : out == OUT_RGB ? 3 : 12;
+  const int ch0 = out == OUT_ALPHA ? 15 : out == OUT_RGB ? 0 : 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = 8 * j + 2 * q + c;
+        const long long p = base + r0 + 8 * i;
+        if (n < n_real && p < P) raw[p * 16 + ch0 + n] = d[4 * j + 2 * i + c] + bias[n];
+      }
+}
+
+// Positional encoding of one coordinate group of point t (DIM
+// coordinates, x[0 .. DIM)) into columns col0 .. of the K-major region X
+// (mlp.cuh:pe_group's values and order). DIM is known at compile time, so
+// x stays in registers.
+template <int DIM>
+__device__ __forceinline__ void pe_sw(const float* x, int nfreq, unsigned char* X, int col0,
+                                      int t) {
+  int col = col0;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) put(X, t, col++, x[d]);
+  for (int f = 0; f < nfreq; ++f) {
+    const float fr = ldexpf(1.0f, f);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) put(X, t, col++, sinf(__fmul_rn(x[d], fr)));
+#pragma unroll
+    for (int d = 0; d < DIM; ++d)
+      put(X, t, col++, sinf(__fadd_rn(__fmul_rn(x[d], fr), SAHS_HALF_PI_F)));
+  }
+}
+
+// Columns [0, dim) of the tile points' rows of src (row stride `stride`),
+// rounded to bf16, into columns col0 .. of X (mlp.cuh:point_rows' values);
+// zeros past P; neighbouring threads read neighbouring columns.
+template <typename S>
+__device__ __forceinline__ void rows_sw(const S* src, long long stride, long long base,
+                                        long long P, int dim, unsigned char* X, int col0,
+                                        int t) {
+  for (int i = t; i < dim * TC_TP; i += wg::THREADS) {
+    const int pt = i / dim, r = i - pt * dim;
+    const long long p = base + pt;
+    put(X, pt, col0 + r, p < P ? sahs::to_f(src[p * stride + r]) : 0.0f);
+  }
+}
+
+__device__ __forceinline__ void zero_cols(unsigned char* X, int c0, int c1, int t) {
+  for (int i = t; i < (c1 - c0) * TC_TP; i += wg::THREADS) put(X, i % TC_TP, c0 + i / TC_TP, 0.0f);
+}
+
+// Columns [0, n) of a region to rows [0, n) of a stash slot, 8 points (16
+// bytes) a thread, lanes on neighbouring columns (their reads fall on
+// different banks).
+__device__ __forceinline__ void stash_region(const unsigned char* X, int n, bf16* st, int t) {
+  const int n32 = (n + 31) / 32 * 32;
+  for (int i = t; i < n32 * (TC_TP / 8); i += wg::THREADS) {
+    const int col = i % n32, g = i / n32;
+    if (col >= n) continue;
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = get2(X, 8 * g + 2 * k, col) | (get2(X, 8 * g + 2 * k + 1, col) << 16);
+    *reinterpret_cast<uint4*>(st + (size_t)col * TC_TP + 8 * g) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The tile's inputs into x (the point's encoding) and d ([pe(dir) | se]),
+// their K padding zeroed; `scratch` holds the corner weights and rows.
+// Ends with the regions visible to wgmma.
+__device__ __forceinline__ void front_half(const Args& a, const Layout& ly, unsigned char* X,
+                                           unsigned char* D, unsigned char* scratch,
+                                           long long base, int t, int bar) {
+  const int kx = a.kx, ndp = a.ndp, C = a.C, kd = ndp + C;
+  wg::bar_sync(bar, wg::THREADS);  // the last tile's products are done with every region
+  zero_cols(X, kx, ly.xb * KB, t);
+  zero_cols(D, kd, ly.db * KB, t);
   const bool per_point = a.mode == MODE_PTS;
   const bool xenc = a.enc & ENC_PTS, eenc = a.enc & ENC_EXTRA;
-  if (tid < TC_TP) {
-    const long long p = base + tid;
-    const bool valid = p < a.P;
-    float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const int pt = t % TC_TP;
+  const long long p = base + pt;
+  const bool valid = p < a.P;
+  if (t < TC_TP) {
+    if (!xenc) {
+      float x[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) x[c] = valid && c < a.PW ? a.pts[p * a.PW + c] : 0.0f;
+      pe_sw<3>(x, a.nf_xyz, X, 0, pt);
+      const int c0 = 3 + 6 * a.nf_xyz;
+      switch (a.amb) {  // PW <= 8
+        case 1: pe_sw<1>(x + 3, a.nf_amb, X, c0, pt); break;
+        case 2: pe_sw<2>(x + 3, a.nf_amb, X, c0, pt); break;
+        case 3: pe_sw<3>(x + 3, a.nf_amb, X, c0, pt); break;
+        case 4: pe_sw<4>(x + 3, a.nf_amb, X, c0, pt); break;
+        case 5: pe_sw<5>(x + 3, a.nf_amb, X, c0, pt); break;
+        default: break;
+      }
+    }
+  } else if (!eenc) {
     float d[3] = {0, 0, 0};
-    if (valid && !xenc)
-      for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
-    if (valid && !eenc) {
+    if (valid) {
       const float* dsrc = per_point ? a.extra + p * (3 + C) : a.dirs + p / a.S * 3;
+#pragma unroll
       for (int c = 0; c < 3; ++c) d[c] = dsrc[c];
     }
-    if (!xenc) {
-      sahs::pe_group<bf16>(x, 3, a.nf_xyz, xin, 0, tid, TC_LD);
-      if (a.amb > 0)
-        sahs::pe_group<bf16>(x + 3, a.amb, a.nf_amb, xin, 3 + 6 * a.nf_xyz, tid, TC_LD);
-    }
-    if (!eenc) sahs::pe_group<bf16>(d, 3, a.nf_dir, din, 0, tid, TC_LD);
+    pe_sw<3>(d, a.nf_dir, D, 0, pt);
   }
-  if (xenc)   // K11/K12 pre-encoded: the point's bf16 encoding is given
-    sahs::point_rows<bf16>(reinterpret_cast<const bf16*>(a.pts), kx, base, a.P, kx,
-                           xin, 0, TC_TP, TC_LD);
-  if (per_point && eenc) {   // [pe(dir) | se] given in bf16
-    sahs::point_rows<bf16>(reinterpret_cast<const bf16*>(a.extra), C, base, a.P, C,
-                           din, 0, TC_TP, TC_LD);
+  if (xenc)  // K11/K12 pre-encoded: the point's bf16 encoding is given
+    rows_sw(reinterpret_cast<const bf16*>(a.pts), kx, base, a.P, kx, X, 0, t);
+  if (per_point && eenc) {  // [pe(dir) | se] given in bf16
+    rows_sw(reinterpret_cast<const bf16*>(a.extra), C, base, a.P, C, D, 0, t);
   } else if (per_point) {
-    sahs::point_rows<bf16>(a.extra + 3, 3 + C, base, a.P, C, din, ndp, TC_TP, TC_LD);
+    rows_sw(a.extra + 3, 3 + C, base, a.P, C, D, ndp, t);
   } else if (a.se != nullptr) {
     // the ray forms on a per-point spatial embedding, rounded to bf16 here
-    sahs::point_rows<bf16>(a.se, C, base, a.P, C, din, ndp, TC_TP, TC_LD);
-  } else if (tid < TC_TP && C > 0) {
-    const long long p = base + tid;
-    const bool valid = p < a.P;
-    float x[3] = {0, 0, 0};
-    if (valid)
-      for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
-    float fr[3];
-    const float okf = cell_fracs(x, a, fr);
-    for (int dz = 0; dz < 2; ++dz) {
-      const float wz = dz ? fr[2] : __fsub_rn(1.0f, fr[2]);
-      for (int dy = 0; dy < 2; ++dy) {
-        const float wy = dy ? fr[1] : __fsub_rn(1.0f, fr[1]);
-        for (int dx = 0; dx < 2; ++dx) {
-          const float wx = dx ? fr[0] : __fsub_rn(1.0f, fr[0]);
-          cw[(dz * 4 + dy * 2 + dx) * TC_TP + tid] =
-              __fmul_rn(__fmul_rn(__fmul_rn(wz, wy), wx), okf);
+    rows_sw(a.se, C, base, a.P, C, D, ndp, t);
+  } else if (C > 0) {
+    float* cw = reinterpret_cast<float*>(scratch);  // [8][TC_TP]
+    int* rowv = reinterpret_cast<int*>(cw + 8 * TC_TP);
+    if (t < TC_TP) {
+      float x[3] = {0, 0, 0};
+      if (valid) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
+      }
+      float fr[3];
+      const float okf = cell_fracs(x, a, fr);
+      for (int dz = 0; dz < 2; ++dz) {
+        const float wz = dz ? fr[2] : __fsub_rn(1.0f, fr[2]);
+        for (int dy = 0; dy < 2; ++dy) {
+          const float wy = dy ? fr[1] : __fsub_rn(1.0f, fr[1]);
+          for (int dx = 0; dx < 2; ++dx) {
+            const float wx = dx ? fr[0] : __fsub_rn(1.0f, fr[0]);
+            cw[(dz * 4 + dy * 2 + dx) * TC_TP + pt] =
+                __fmul_rn(__fmul_rn(__fmul_rn(wz, wy), wx), okf);
+          }
+        }
+      }
+      rowv[pt] = valid ? a.rows[p] : 0;
+    }
+    wg::bar_sync(bar, wg::THREADS);
+    const bf16* table = reinterpret_cast<const bf16*>(a.table);
+#pragma unroll 4
+    for (int idx = t; idx < C * TC_TP; idx += wg::THREADS) {
+      const int q = idx / C, c = idx % C;
+      const bf16* row = table + (size_t)rowv[q] * 8 * C;
+      float acc = 0.0f;
+      for (int s8 = 0; s8 < 8; ++s8) {
+        const float v = __fmul_rn(__bfloat162float(row[s8 * C + c]), cw[s8 * TC_TP + q]);
+        acc = s8 == 0 ? v : __fadd_rn(acc, v);
+      }
+      put(D, q, ndp + c, acc);
+    }
+  }
+  wg::fence_async();
+  wg::bar_sync(bar, wg::THREADS);
+}
+
+template <bool STASH, int PROMOTE>
+__device__ __forceinline__ void tile(const Args& a, unsigned char* smem) {
+  const Layout ly(a);
+  unsigned char* base = smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + ly.bar);
+  uint64_t* empty = full + RING_MAX;
+  const int tid = threadIdx.x, g = wg::warpgroup(), lane = tid % 32;
+  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
+  const long long pairs = (n_tiles + WG - 1) / WG;
+  float* bias_s = reinterpret_cast<float*>(base + ly.bias);
+  int* slots_s = reinterpret_cast<int*>(base + ly.slots);
+  for (int i = tid; i < bias_floats(a); i += blockDim.x) bias_s[i] = a.b[i];
+  if (STASH)
+    for (int i = tid; i < a.L + 12; i += blockDim.x) slots_s[i] = a.slots[i];
+  if (tid == 0) {
+    for (int s = 0; s < ly.ring; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 4 * WG);  // lane 0 of every consumer warp
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  Ring rg{base, full, empty, ly.ring, 0, 0u};
+
+  if (g == WG) {  // the producer warp: one thread issues every weight stage
+    if (lane == 0) {
+      const unsigned char* src0 = reinterpret_cast<const unsigned char*>(a.wg);
+      for (long long pr = blockIdx.x; pr < pairs; pr += gridDim.x) {
+        const unsigned char* src = src0;
+        for (int q = 0; q < n_prods(a); ++q) {
+          const Prod p = prod_of(a, q);
+          const int ns = k_blocks(p.k1) + k_blocks(p.k2);
+          for (int c = 0; c < n_chunks(p); ++c) {
+            const uint32_t bytes = 128u * chunk_cols(p, c);
+            for (int s = 0; s < ns; ++s) {
+              wg::mbar_wait(&rg.empty[rg.stage], rg.phase ^ 1u);
+              wg::mbar_expect(&rg.full[rg.stage], bytes);
+              wg::bulk_load(rg.slots + rg.stage * SLOT, src, bytes, &rg.full[rg.stage]);
+              src += bytes;
+              rg.next();
+            }
+          }
         }
       }
     }
-    rowv[tid] = valid ? a.rows[p] : 0;
+    return;
   }
-  __syncthreads();
-  if (!per_point && a.se == nullptr && C > 0) {
-    for (int idx = tid; idx < C * TC_TP; idx += blockDim.x) {
-      const int t = idx / C, c = idx % C;
-      const bf16* row = table + (size_t)rowv[t] * 8 * C;
-      float acc = 0.0f;
-      for (int s8 = 0; s8 < 8; ++s8) {
-        const float v = __fmul_rn(__bfloat162float(row[s8 * C + c]), cw[s8 * TC_TP + t]);
-        acc = s8 == 0 ? v : __fadd_rn(acc, v);
-      }
-      din[(ndp + c) * TC_LD + t] = __float2bfloat16_rn(acc);
-    }
-    __syncthreads();
-  }
-  stash(xin, 0, kx);
-  stash(din, L + 2, ndp + C);
 
-  const bf16* src = xin;
-  bf16* dst = hA;
-  for (int l = 0; l < L; ++l) {
-    const sahs::LayerDesc d = sahs::load_desc(a.meta, l);
-    layer(l, src, d.w2 >= 0 ? xin : nullptr, dst, nullptr);
-    __syncthreads();
-    stash(dst, 1 + l, a.H);
-    src = dst;
-    dst = dst == hA ? hB : hA;
-  }
-  bf16* hl = const_cast<bf16*>(src);
-  bf16* feat = dst;
-  bf16* b0 = hl;
-  bf16* b1 = hl + a.B * TC_LD;
-  layer(L, hl, nullptr, feat, nullptr);
-  __syncthreads();
-  stash(feat, L + 1, a.H);
-  layer(L + 1, feat, nullptr, nullptr, alphaY);
-  // direction branch: [feat | pe(dir) | se] -> 4 x B -> rgb
-  layer(L + 2, feat, din, b0, nullptr);
-  __syncthreads();
-  stash(b0, L + 3, a.B);
-  for (int k = 1; k <= 3; ++k) {
-    bf16* in = k % 2 ? b0 : b1;
-    bf16* out = k % 2 ? b1 : b0;
-    layer(L + 2 + k, in, nullptr, out, nullptr);
-    __syncthreads();
-    stash(out, L + 3 + k, a.B);
-  }
-  layer(L + 6, b1, nullptr, nullptr, rgbY);
-  __syncthreads();
-  // seg branch: feat -> 4 x B -> 12 logits
-  layer(L + 7, feat, nullptr, b0, nullptr);
-  __syncthreads();
-  stash(b0, L + 7, a.B);
-  for (int k = 1; k <= 3; ++k) {
-    bf16* in = k % 2 ? b0 : b1;
-    bf16* out = k % 2 ? b1 : b0;
-    layer(L + 7 + k, in, nullptr, out, nullptr);
-    __syncthreads();
-    stash(out, L + 7 + k, a.B);
-  }
-  layer(L + 11, b1, nullptr, nullptr, segY);
-  __syncthreads();
-  if (a.raw == nullptr) return;
-  for (int i = tid; i < 16 * TC_TP; i += blockDim.x) {
-    const int t = i / 16, c = i % 16;
-    const long long p = base + t;
-    if (p >= a.P) continue;
-    const float v = c < 3 ? rgbY[c * TC_LDF + t]
-                  : c < 15 ? segY[(c - 3) * TC_LDF + t] : alphaY[t];
-    a.raw[p * 16 + c] = v;
+  // a consumer warpgroup
+  const int t = tid % wg::THREADS, bar = 1 + g;
+  unsigned char* X = base + ly.ring * SLOT + g * ly.per_wg;
+  unsigned char* D = X + ly.xb * wg::BLOCK;
+  unsigned char* const H0a = D + ly.db * wg::BLOCK;
+  unsigned char* const H0b = H0a + ly.h0 * wg::BLOCK;
+  unsigned char* const H1 = H0b + ly.h0 * wg::BLOCK;
+  const int kd = a.ndp + a.C;
+  bool cur = false;  // H0b (else H0a) holds the hidden columns 0-127
+  for (long long pr = blockIdx.x; pr < pairs; pr += gridDim.x) {
+    const long long ti = pr * WG + g, pbase = ti * TC_TP;
+    // a warpgroup past the last tile runs on zeros and writes nothing
+    bf16* acts = (STASH && ti < n_tiles)
+                     ? reinterpret_cast<bf16*>(a.acts) + ti * a.act_stride : nullptr;
+    front_half(a, ly, X, D, cur ? H0b : H0a, pbase, t, bar);
+    if (acts != nullptr) {
+      stash_region(X, a.kx, acts + slots_s[0], t);
+      stash_region(D, kd, acts + slots_s[a.L + 2], t);
+    }
+    const float* bias = bias_s;  // each product's biases follow the last one's
+    for (int q = 0; q < n_prods(a); ++q) {
+      const Prod p = prod_of(a, q);
+      auto src = [&](int kind, int k) {
+        const uint32_t x = wg::smem_u32(X), dd = wg::smem_u32(D);
+        const uint32_t h0 = wg::smem_u32(cur ? H0b : H0a), h1 = wg::smem_u32(H1);
+        const uint32_t lo = kind == SRC_D ? dd : kind == SRC_H ? h0 : x;
+        const uint32_t hi = kind == SRC_H ? h1 : lo + 2 * wg::BLOCK;
+        return ASrc{lo, hi, kind == SRC_NONE ? 0 : k_blocks(k)};
+      };
+      const ASrc s1 = src(p.s1, p.k1), s2 = src(p.s2, p.k2);
+      if (p.out == OUT_SEG) {
+        float d[8];
+        product<16, PROMOTE>(d, s1, s2, rg, lane);
+        if (a.raw != nullptr) store_raw<16>(d, p.out, bias, a.raw, pbase, a.P, t);
+      } else if (is_head(p.out)) {
+        float d[4];
+        product<8, PROMOTE>(d, s1, s2, rg, lane);
+        if (a.raw != nullptr) store_raw<8>(d, p.out, bias, a.raw, pbase, a.P, t);
+      } else {
+        bf16* st = acts != nullptr ? acts + slots_s[p.slot] : nullptr;
+        for (int c = 0; c < n_chunks(p); ++c) {
+          // the first chunk of a hidden layer goes to the other region; the
+          // rest overwrite what every warp's products read
+          const uint32_t dst = wg::smem_u32(p.out == OUT_B ? X : c > 0 ? H1 : cur ? H0a : H0b);
+          const bool in_place = !(p.out == OUT_H && c == 0);
+          uint32_t h[NC / 4];
+          if (chunk_cols(p, c) == NC) {
+            float d[NC / 2];
+            product<NC, PROMOTE>(d, s1, s2, rg, lane);
+            pack_chunk_as<NC>(d, h, c * NC, p.n, bias, p.leaky, st, t);
+            if (in_place) wg::bar_sync(bar, wg::THREADS);
+            put_chunk<NC>(h, dst, t);
+          } else {
+            uint32_t(&hk)[KB / 4] = reinterpret_cast<uint32_t(&)[KB / 4]>(h);
+            float d[KB / 2];
+            product<KB, PROMOTE>(d, s1, s2, rg, lane);
+            pack_chunk_as<KB>(d, hk, c * NC, p.n, bias, p.leaky, st, t);
+            if (in_place) wg::bar_sync(bar, wg::THREADS);
+            put_chunk<KB>(hk, dst, t);
+          }
+        }
+        if (p.out == OUT_H) cur = !cur;
+        wg::fence_async();
+        wg::bar_sync(bar, wg::THREADS);
+      }
+      bias += p.n;
+    }
   }
 }
+
+}  // namespace fw
+
+// The accumulation form the kernels run (fw::product's PROMOTE): k16 steps
+// summed in the tensor core before each float32 add, 0 for the whole K.
+// Measured on an H100 (PERF.md §6; tools/field_forms.py, the card suite):
+// K5's field at a frame's fine chunk 16.1 ms carried over K, 18.7 every 4
+// steps, 21.1 every 2, 23.9 every step (pipelined in two halves); all keep
+// the exact-sum rule on the K7 draws of tools/field_forms, but the card
+// suite's gates fail 17 times carried, 4 times every 4 steps and 3 times
+// every 2 (cases without a background: K5's rgb 4.6x and 6.9x, K2's gse
+// 10.8x the plain version's distance from exact sums), so the kernels run
+// every step, mma.cuh's semantics.
+// The candidates stay instantiated for field_tc_kernel (sahs_nerf_field_tc's
+// `promote`) so that the smoke run and tools/field_forms print them.
+constexpr int FIELD_PROMOTE = 1;
 
 // launch 1 of the backward: the forward tile with the stash
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2) fwd_tc_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  fwd_tile<true, sahs::TC_KS>(a, smem_raw);
+__global__ void __launch_bounds__(fw::THREADS, 1) fwd_tc_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) unsigned char fw_smem[];
+  fw::tile<true, FIELD_PROMOTE>(a, fw_smem);
 }
 
-// K7 and K11 in bf16: the forward tile alone, raw (P, 16) out.
+// K7 and K11 in bf16, and K5's raw field: the forward tile alone, raw (P,
+// 16) out.
 //
 // Replaces sahs_tpu/ops/pallas/field_mlp.py:nerf_rayd_forward (:1973,
 // pallas_call at :2040; K7, the reuse path's raw field) and
 // nerf_mlp_forward_fused (:3204, pallas_call at :3246; K11, the per-point
 // branch's field) in bf16; float32 keeps their SIMT kernels (nerf_level.cu
-// RAW, nerf_mlp.cu). Weights: the forward blob that K8 and K12 read
-// (nerf_level.point_blob), so a forward and its backward read the same
-// bytes. Bound on the H100: ~0.74 M multiply-adds a point against ~30
-// (K7) or ~224 (K11) bytes, so operations: K7 at a step's fine level
-// (262,144 points) 0.39 ms, K11 at a frame's fine chunk (6.29 M) 9.4 ms at
-// the 989 TFLOP/s bf16 peak. ptxas: 128 registers, 16 B of spill stores,
-// 113,664 B of dynamic shared memory, two blocks an SM. Measured (PERF.md,
-// tools/level_ab.py): 83-90 TFLOP/s, 8.4-9.1 % of the bound; K7 fine 4.63
-// ms (18.85 on the CUDA cores), K11 at the frame chunk 103.8 ms (427.4),
-// each below its library call. What holds it: the mma.sync products with a
-// barrier pair a 16-row slice; wgmma is the next step.
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2) field_tc_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  fwd_tile<false, FIELD_KS>(a, smem_raw);
+// RAW, nerf_mlp.cu). Weights: the stages of nerf_level.wgmma_blob, laid out
+// from the forward blob that K8 and K12 read (nerf_level.point_blob), so a
+// forward and its backward read the same bytes. Design, bound and
+// accumulation: fw above. ptxas: fwd_tc_kernel 150 registers,
+// field_tc_kernel<1> 157 (of the 168 that 288 threads allow), no spill, a
+// 32-byte stack frame (sinf's reduction of huge angles), no C7520 (the
+// carried candidate <0> 168, 4 B spilled), 227,632 B of dynamic shared
+// memory at the flagship's
+// widths (a 4-stage ring). Measured on an H100 (PERF.md §6,
+// tools/level_ab.py in turns with the mma.sync tile): K5 at a frame's fine
+// chunk 24.4 ms (70.3), K7 at a step's fine level 1.64 (4.65), K11 at the
+// per-point frame's chunk 34.6 (103.8), ~250-270 TFLOP/s, 25-27 % of the
+// bound; launch 1 of K2 2.36 ms at a step's fine level (6.13). What holds
+// it: each k16 step's float32 adds (every 4 steps read 18.7 ms) and, in an
+// earlier build with a heavier epilogue, cutting the epilogue out read
+// 7.5 ms and the front half (PE, corner gather) 4 ms less.
+template <int PROMOTE>
+__global__ void __launch_bounds__(fw::THREADS, 1) field_tc_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) unsigned char fw_smem[];
+  fw::tile<false, PROMOTE>(a, fw_smem);
 }
 
 // 3. backward per 64-point tile. Each transposed product's epilogue applies
@@ -1224,6 +1709,25 @@ bwd_tc_fold_kernel(Args a, const __grid_constant__ sahs::PairBwd pb) {
   bwd_tc_tile<true>(a, &pb, smem_raw);
 }
 
+// The forward tile's launch (fw::tile): persistent blocks, one an SM, two
+// 64-point tiles a block at a time. Refuses widths the tile does not take
+// and a weight blob that is not the tile's stages.
+template <class K>
+int launch_fwd(K kernel, const Args& a, cudaStream_t stream) {
+  const fw::Layout ly(a);
+  if (a.H % 16 || a.B % 16 || a.B < 16 || a.B > fw::NC || a.H > 2 * fw::NC || ly.ring < 2 ||
+      a.wg == nullptr || a.wg_bytes != fw::blob_bytes(a))
+    return (int)cudaErrorInvalidValue;
+  int err = sahs::set_smem(kernel, ly.bytes);
+  int dev = 0, sms = 0;
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const long long pairs = ((a.P + TC_TP - 1) / TC_TP + fw::WG - 1) / fw::WG;
+  kernel<<<(unsigned)(pairs < sms ? pairs : sms), fw::THREADS, ly.bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 int launch_tc(const Args& a, int n_work, int chunks, int out_len,
               const int* prods, const int* work, float* part, float* out,
               const PairCall* pc, cudaStream_t stream) {
@@ -1237,13 +1741,11 @@ int launch_tc(const Args& a, int n_work, int chunks, int out_len,
   const int sb = pc == nullptr ? ly.bwd
                  : imax(ly.bwd, fold_g_offset<bf16>(pc->pb.n_freq) + TC_TP * a.PW * 4);
   const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
-  int err = sahs::set_smem(fwd_tc_kernel, ly.fwd);
-  if (!err) err = pc != nullptr ? sahs::set_smem(bwd_tc_fold_kernel, sb)
-                                : sahs::set_smem(bwd_tc_kernel, sb);
+  int err = pc != nullptr ? sahs::set_smem(bwd_tc_fold_kernel, sb)
+                          : sahs::set_smem(bwd_tc_kernel, sb);
   if (!err) err = sahs::set_smem(composite_kernel, sc);
+  if (!err) err = launch_fwd(fwd_tc_kernel, a, stream);
   if (err) return err;
-  fwd_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.fwd, stream>>>(a);
-  if ((err = (int)cudaGetLastError())) return err;
   if (a.mode == MODE_LOSS || a.mode == MODE_VJP) {
     composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
@@ -1261,16 +1763,16 @@ int launch_tc(const Args& a, int n_work, int chunks, int out_len,
                              pc->chunks, pc->part, pc->out, pc->out_len, stream);
 }
 
-// K7 / K11 in bf16: one launch of the forward tile without the stash
-int launch_field(const Args& a, cudaStream_t stream) {
-  const TcLayout ly(a, FIELD_KS);
-  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
-  if (a.H % FIELD_KS || a.B % FIELD_KS || a.B < 16 || imax(a.H, a.B) > sahs::TC_NMAX)
-    return (int)cudaErrorInvalidValue;
-  const int err = sahs::set_smem(field_tc_kernel, ly.fwd);
-  if (err) return err;
-  field_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.fwd, stream>>>(a);
-  return (int)cudaGetLastError();
+// K7 / K11 in bf16: one launch of the forward tile without the stash, in
+// the accumulation form `promote` (FIELD_PROMOTE, or a candidate)
+int launch_field(const Args& a, int promote, cudaStream_t stream) {
+  switch (promote) {
+    case 0: return launch_fwd(field_tc_kernel<0>, a, stream);
+    case 1: return launch_fwd(field_tc_kernel<1>, a, stream);
+    case 2: return launch_fwd(field_tc_kernel<2>, a, stream);
+    case 4: return launch_fwd(field_tc_kernel<4>, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K5 in bf16: the raw field into the scratch a.raw (launch_field), then
@@ -1278,19 +1780,16 @@ int launch_field(const Args& a, cudaStream_t stream) {
 //
 // Replaces sahs_tpu/ops/pallas/field_mlp.py:nerf_level_forward (:2681,
 // pallas_call at :2761) in bf16; float32 keeps nerf_level.cu's SIMT
-// kernel. Why two launches: a 128-sample ray's raw (8 KB) in the tile
-// would cost field_tc_kernel its second block an SM (2 x 113,664 B of
-// 228 KB), while the scratch round trip is R*S*64 B written and as many
-// read (0.27 GB each way at a frame's fine chunk, ~0.16 ms for both at
-// 3.35 TB/s). Bound on the
-// H100: ~0.74 M multiply-adds a point, operations: 6.2 ms at a frame's
-// fine chunk (4.19 M points). Measured (PERF.md §6, tools/level_ab.py):
-// 70.1 ms there (285 on the CUDA cores; its library call 343), 88
-// TFLOP/s, 8.9 % of the bound; composite_fwd_kernel 0.28 ms of it.
+// kernel. Why two launches: the tile's shared memory holds its weight ring
+// and two warpgroups' activations (up to 227 KB), not a 128-sample ray's
+// raw, while the scratch round trip is R*S*64 B written and as many read
+// (0.27 GB each way at a frame's fine chunk, ~0.16 ms for both at 3.35
+// TB/s). Bound on the H100: ~0.74 M multiply-adds a point, operations: 6.2
+// ms at a frame's fine chunk (4.19 M points).
 int launch_level_tc(const Args& a, cudaStream_t stream) {
   const size_t sc = (size_t)a.S * COMPOSITE_FWD_FLOATS * sizeof(float);
   int err = sahs::set_smem(composite_fwd_kernel, sc);
-  if (!err) err = launch_field(a, stream);
+  if (!err) err = launch_field(a, FIELD_PROMOTE, stream);
   if (err) return err;
   composite_fwd_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
   return (int)cudaGetLastError();
@@ -1299,13 +1798,14 @@ int launch_level_tc(const Args& a, cudaStream_t stream) {
 // The arguments of a bf16 field launch (K7, K11 and K5's first launch):
 // rays (dirs (R, 3), rows and table, or a per-point se (P, C), or C = 0)
 // or, with `extra` (P, 3 + C) given and S = 1, points (with `enc`, ENC_*
-// bits, pre-encoded). False when they do not fit the kernel.
+// bits, pre-encoded); the weight stages `wg` (wg_bytes) and the biases of
+// the forward blob (b, meta). False when they do not fit the kernel.
 bool field_args(Args* a, const void* pts, const void* rows, const void* table,
                 const void* dirs, const void* extra, const void* se,
                 const void* w, const void* b, const void* meta, void* raw,
-                long long R, int S, int PW, int L, int H, int B, int C, int amb,
-                int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
-                int enc) {
+                long long R, int S, int PW, int L, int skip, int H, int B, int C,
+                int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW,
+                int enc, const void* wg, long long wg_bytes) {
   const bool per_point = extra != nullptr;
   if (raw == nullptr || S < 1 || enc < 0 || enc > (ENC_PTS | ENC_EXTRA) ||
       (enc != 0 && (!per_point || se != nullptr)) ||
@@ -1322,6 +1822,7 @@ bool field_args(Args* a, const void* pts, const void* rows, const void* table,
   a->mode = per_point ? MODE_PTS : MODE_RAW;
   a->w = w; a->b = (const float*)b; a->meta = (const int*)meta;
   a->raw = (float*)raw;
+  a->wg = wg; a->wg_bytes = wg_bytes; a->skip = skip;
   a->R = R; a->P = R * S; a->S = S; a->PW = PW; a->L = L; a->H = H; a->B = B;
   a->C = C; a->amb = amb; a->nf_xyz = nf_xyz; a->nf_amb = nf_amb;
   a->nf_dir = nf_dir; a->gD = gD; a->gH = gH; a->gW = gW;
@@ -1343,7 +1844,7 @@ int level_train_call(
     int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
     int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
     const void* prods, const void* work, void* part, void* out, PairCall* pc,
-    void* stream) {
+    const void* wg, long long wg_bytes, void* stream) {
   if (R <= 0) return 0;
   if (mode < MODE_LOSS || mode > MODE_PTS) return (int)cudaErrorInvalidValue;
   if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
@@ -1379,6 +1880,7 @@ int level_train_call(
   a.S = S; a.PW = PW; a.L = L; a.skip = skip; a.H = H; a.B = B; a.C = C;
   a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb; a.nf_dir = nf_dir;
   a.gD = gD; a.gH = gH; a.gW = gW; a.n_act = n_act; a.bg_sup = bg_sup;
+  a.wg = wg; a.wg_bytes = wg_bytes;
   set_widths(a);
   if (pc != nullptr) {   // the pair's points: the level's rays (o, d, z)
     pc->pb.src = sahs::PointSrc{nullptr, a.ro, a.dirs, a.z, S};
@@ -1400,20 +1902,24 @@ int level_train_call(
 // dirs (R, 3), rows and table, or se (P, C), or C = 0) or, with `extra`
 // (P, 3 + C) given and S = 1, K11 (per point; `enc`: ENC_PTS, pts is the
 // bf16 point encoding (P, PW); ENC_EXTRA, extra is the bf16 [pe(dir) | se]
-// (P, C)). Weights: the forward blob of the level backward
-// (nerf_level.point_layers).
+// (P, C)). Weights: the stages `wg` (wg_bytes) of nerf_level.wgmma_blob and
+// the biases of the forward blob of the level backward
+// (nerf_level.point_layers: b, meta). `promote`: the accumulation form, -1
+// for FIELD_PROMOTE, or a candidate (0, 1, 2, 4; fw::product).
 extern "C" int sahs_nerf_field_tc(
     const void* pts, const void* rows, const void* table, const void* dirs,
     const void* extra, const void* se, const void* w, const void* b,
-    const void* meta, void* raw, long long R, int S, int PW, int L, int H,
+    const void* meta, void* raw, long long R, int S, int PW, int L, int skip, int H,
     int B, int C, int amb, int nf_xyz, int nf_amb, int nf_dir, int gD, int gH,
-    int gW, int enc, void* stream) {
+    int gW, int enc, const void* wg, long long wg_bytes, int promote, void* stream) {
   if (R <= 0) return 0;
   Args a;
   if (!field_args(&a, pts, rows, table, dirs, extra, se, w, b, meta, raw, R, S,
-                  PW, L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW, enc))
+                  PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW, enc,
+                  wg, wg_bytes))
     return (int)cudaErrorInvalidValue;
-  return launch_field(a, reinterpret_cast<cudaStream_t>(stream));
+  return launch_field(a, promote < 0 ? FIELD_PROMOTE : promote,
+                      reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K5 in bf16, one call of two launches: K7's raw field of the rays (the
@@ -1425,18 +1931,23 @@ extern "C" int sahs_nerf_level_tc(
     const void* pts, const void* rows, const void* table, const void* dirs,
     const void* se, const void* z, const void* bg, const void* noise, const void* w,
     const void* b, const void* meta, void* raw, void* rgb_map, void* weights,
-    long long R, int S, int PW, int L, int H, int B, int C, int amb,
-    int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW, void* stream) {
+    long long R, int S, int PW, int L, int skip, int H, int B, int C, int amb,
+    int nf_xyz, int nf_amb, int nf_dir, int gD, int gH, int gW, const void* wg,
+    long long wg_bytes, void* stream) {
   if (R <= 0) return 0;
   Args a;
   if (z == nullptr || rgb_map == nullptr || weights == nullptr ||
       !field_args(&a, pts, rows, table, dirs, nullptr, se, w, b, meta, raw, R, S,
-                  PW, L, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW, 0))
+                  PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW, 0,
+                  wg, wg_bytes))
     return (int)cudaErrorInvalidValue;
   a.z = (const float*)z; a.bg = (const float*)bg; a.noise = (const float*)noise;
   a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
   return launch_level_tc(a, reinterpret_cast<cudaStream_t>(stream));
 }
+
+// The accumulation form the bf16 forward tile runs (FIELD_PROMOTE).
+extern "C" int sahs_field_promote() { return FIELD_PROMOTE; }
 
 extern "C" int sahs_level_train(
     const void* pts, const void* rows, const void* table, const void* dirs,
@@ -1449,13 +1960,15 @@ extern "C" int sahs_level_train(
     int L, int skip, int H, int B, int C, int amb, int nf_xyz, int nf_amb,
     int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
     int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
-    const void* prods, const void* work, void* part, void* out, void* stream) {
+    const void* prods, const void* work, void* part, void* out, const void* wg,
+    long long wg_bytes, void* stream) {
   return level_train_call(pts, rows, table, dirs, z, bg, noise, tgt, lw, g_rgb, g_w,
                           extra, gextra, se, enc, mode, w, b, meta, wT, bT, metaT,
                           rgb_map, weights, gx, gse, g_bg, raw, graw, acts, gzs, slots,
                           R, S, PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD,
                           gH, gW, bf16, n_act, act_stride, gz_stride, n_work, chunks,
-                          out_len, bg_sup, prods, work, part, out, nullptr, stream);
+                          out_len, bg_sup, prods, work, part, out, nullptr, wg, wg_bytes,
+                          stream);
 }
 
 // K2's pair= form (MODE_LOSS): K2's arguments without gx, then the ray
@@ -1479,7 +1992,8 @@ extern "C" int sahs_level_train_pair(
     int warp_skip, int hyper_skip, int n_freq, int ho, const void* pslots,
     void* pacts, void* pgzs, int p_n_act, int p_act_stride, int p_gz_stride,
     int p_n_work, int p_chunks, int p_out_len, const void* pprods,
-    const void* pwork, void* ppart, void* pout, void* stream) {
+    const void* pwork, void* ppart, void* pout, const void* wg, long long wg_bytes,
+    void* stream) {
   if (ro == nullptr || 3 + 6 * n_freq > sahs::SKIP_HMAX)
     return (int)cudaErrorInvalidValue;
   PairCall pc;
@@ -1501,5 +2015,5 @@ extern "C" int sahs_level_train_pair(
                           acts, gzs, slots, R, S, PW, L, skip, H, B, C, amb, nf_xyz,
                           nf_amb, nf_dir, gD, gH, gW, bf16, n_act, act_stride,
                           gz_stride, n_work, chunks, out_len, bg_sup, prods, work, part,
-                          out, &pc, stream);
+                          out, &pc, wg, wg_bytes, stream);
 }

@@ -32,9 +32,10 @@
 // _mmT semantics), sums in f32. A bias row takes the unrounded f32 gz,
 // summed off the tensor cores.
 //
-// wgmma (64-row warpgroup products from shared-memory descriptors) would
-// take the products further; this header uses mma.sync, which reaches the
-// tensor cores with per-warp fragments and no descriptors or swizzles.
+// The NeRF field's forward tile runs on wgmma (level_train.cu fw::, with
+// wgmma.cuh); the backward tiles here, the deformation nets' tiles
+// (skip_tc.cuh) and dW stay on mma.sync, which reaches the tensor cores
+// with per-warp fragments and no descriptors or swizzles.
 #pragma once
 
 #include "train.cuh"
@@ -295,25 +296,6 @@ struct DactStore {
     g[n * TC_LD + t] = __float2bfloat16_rn(gv);
   }
 };
-
-// One forward layer over the tile (mlp_layer's contract): X2 null for a
-// one-input layer; the result to Y (bf16) or, when Yf is given, to Yf (f32).
-// tc_product's warp layout, the weights staged KS rows at a time (the ring
-// is ring_bytes(N, KS)).
-template <int KS = TC_KS>
-__device__ __forceinline__ void tc_layer(const LayerDesc& d, const bf16* wblob,
-                                         const float* bblob, const bf16* X1,
-                                         const bf16* X2, bf16* Y, float* Yf,
-                                         bf16* ring) {
-  const Operand o1 = {wblob + d.w1, d.k1, X1};
-  const Operand o2 = {X2 != nullptr ? wblob + d.w2 : nullptr,
-                      X2 != nullptr ? d.k2 : 0, X2};
-  if (Yf != nullptr)
-    tc_product_wn<32, TC_UPW, KS>(o1, o2, d.n, ring,
-                                  StoreF32{Yf, bblob + d.b, d.act, false});
-  else
-    tc_product_wn<32, TC_UPW, KS>(o1, o2, d.n, ring, StoreAct{Y, bblob + d.b, d.act});
-}
 
 // Copy `rows` rows of a shared tile (TC_LD stride) to a stash slot (TC_TP
 // stride), 16 bytes a thread.

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks: warpgroup products (wgmma) from
-// shared-memory descriptors, mbarriers, and TMA tile copies between device
-// memory and shared memory. Used by the tools' chain kernels (X1 in
-// exp_gather.cu, X4-X6 in exp_pair2.cu) and, for its TMA ring alone, by
-// X2's in-tile gathers (exp_gather.cu); the path kernels stay on mma.sync
-// (mma.cuh).
+// shared-memory descriptors, mbarriers, TMA tile copies between device
+// memory and shared memory, and TMA bulk copies of contiguous bytes. Used
+// by the tools' chain kernels (X1 in exp_gather.cu, X4-X6 in exp_pair2.cu),
+// for its TMA ring alone by X2's in-tile gathers (exp_gather.cu), and by
+// the NeRF field's forward tile (level_train.cu: field_tc_kernel, K5/K7/K11,
+// and fwd_tc_kernel, launch 1 of K2/K6/K8/K12); the backward tiles stay on
+// mma.sync (mma.cuh).
 //
 // The layout. Every bf16 operand in shared memory is in the 128-byte
 // swizzle (CU_TENSOR_MAP_SWIZZLE_128B, descriptor layout type 1): rows of
@@ -15,12 +17,15 @@
 //     of 64 columns, each 64 rows x 128 bytes (8,192 bytes); the k-step kk
 //     (16 columns) starts at block kk / 4, byte (kk % 4) * 32 of each row
 //     (``a_desc``; stride between 8-row groups 1,024 bytes).
-//   - B (the weights W[k][n], as they lie in device memory): MN-major, so
+//   - B MN-major (the weights W[k][n], as they lie in device memory), so
 //     the product reads W without a transpose (the transpose flag of
 //     wgmma). N is cut into blocks of 64 columns; a block holds its k rows
 //     one after another, 128 bytes each, and the blocks are ``nblock``
 //     bytes apart (``b_desc``: the leading byte offset is that stride,
 //     the stride byte offset the 1,024 bytes of 8 k rows).
+//   - B K-major (W transposed, N rows of 64 k a block, as A; ``k_desc``,
+//     transpose flag 0): the layout of a weight stage laid out ahead of
+//     time, any N that is a multiple of 8.
 //
 // The product. ``mma<N>`` issues one wgmma.m64nNk16 (bf16 in, f32 sums in
 // registers): thread t of the warpgroup (warp w = t / 32, lane l) holds
@@ -78,6 +83,12 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t w, int kk, uint32_t nblock) 
   return desc(w + kk * 16 * 128, nblock, 1024);
 }
 
+// A K-major operand of k-step j (of 4) of one 64-column block at shared
+// address `blk` (A, or a K-major B of any multiple of 8 rows)
+__device__ __forceinline__ uint64_t k_desc(uint32_t blk, int j) {
+  return desc(blk + j * 32, 16, 1024);
+}
+
 __device__ __forceinline__ void fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -107,6 +118,30 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 
 // ---- one k16 step of a warpgroup product (generated: the operand lists
 // name every accumulator register) ----
+template <int TRANS_B>
+__device__ __forceinline__ void mma_n8(float (&d)[4], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3},"
+      " %4, %5, p, 1, 1, 0, %7;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void mma_n16(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
 template <int TRANS_B>
 __device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
@@ -193,11 +228,13 @@ __device__ __forceinline__ void mma_n256(float (&d)[128], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
-// d (+)= A B over one k16 step: N = 64, 128 or 256; TRANS_B 1 for
+// d (+)= A B over one k16 step: N = 8, 16, 64, 128 or 256; TRANS_B 1 for
 // MN-major B; accumulate 0 overwrites d
 template <int N, int TRANS_B>
 __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
-  if constexpr (N == 64) mma_n64<TRANS_B>(d, da, db, accumulate);
+  if constexpr (N == 8) mma_n8<TRANS_B>(d, da, db, accumulate);
+  else if constexpr (N == 16) mma_n16<TRANS_B>(d, da, db, accumulate);
+  else if constexpr (N == 64) mma_n64<TRANS_B>(d, da, db, accumulate);
   else if constexpr (N == 128) mma_n128<TRANS_B>(d, da, db, accumulate);
   else mma_n256<TRANS_B>(d, da, db, accumulate);
 }
@@ -273,6 +310,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory `src` into shared `dst`, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 // shared `src` to the box at (c0, c1) of `map`; the part of the box

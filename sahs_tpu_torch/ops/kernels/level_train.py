@@ -75,7 +75,7 @@ from .field_mlp import (TP_BF16, BlobBuilder, TrainPlan,  # noqa: F401
 from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, _grid_args, check_device,
                          level_kernel_args, nerf_raw_plain, point_blob,
-                         point_layers, prepare_level, widths_ok)
+                         point_layers, prepare_level, wgmma_blob, widths_ok)
 from .nerf_mlp import ENC_EXTRA, ENC_PTS, nerf_mlp_plain, point_kernel_args
 from .deform_pair import (_check_kernel_shapes, deform_pair_vjp_plain,
                           pair_grads_tree, pair_train_plan)
@@ -411,12 +411,22 @@ def _grads_tree(weights: LevelWeights, layers):
 
 _MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
 _SIGNATURE = ("p" * 11 + "pp" + "pi" + "i" + "ppp" + "ppp" + "p" * 5 + "pp"
-              + "pp" + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "p")
+              + "pp" + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "pl" + "p")
 # sahs_level_train_pair: K2's arguments without g_rgb, g_w, extra, gextra,
 # enc, mode and gx, then ro and the pair's plan
 _PAIR_SIGNATURE = ("p" * 10 + "p" * 6 + "p" * 6 + "p" * 3 + "l" + "i" * 21 + "f"
                    + "p" * 4 + "p" * 7 + "i" * 6 + "p" * 3 + "i" * 6 + "p" * 4
-                   + "p")
+                   + "pl" + "p")
+
+
+def _forward_stages(weights: LevelWeights, plan: TrainPlan, dtype: torch.dtype):
+    """(pointer, bytes) of the weight stages that launch 1's tile reads in
+    bf16 (``nerf_level.wgmma_blob`` of the plan's forward blob); (None, 0) in
+    float32, whose tile reads the forward blob itself."""
+    if dtype != torch.bfloat16:
+        return None, 0
+    wg = wgmma_blob(weights, plan.fwd[0])
+    return wg.data_ptr(), 2 * wg.numel()
 
 
 def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
@@ -490,6 +500,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     p = _build.ptr
     n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
     blobs = (*[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd])
+    wg = _forward_stages(weights, plan, dtype)
     sizes = (R, S, PW, n_trunk, weights.skip, hidden, branch, C,
              amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW,
              int(dtype == torch.bfloat16), plan.n_act, plan.act_stride,
@@ -501,7 +512,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
         rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
                 p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, p(se), 0,
                 _MODES[mode], *blobs, p(rgb_map), p(w_out), p(gx), p(gse), p(g_bg),
-                p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes,
+                p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes, *wg,
                 _build.stream_ptr(dev))
     else:
         pacts, pgzs, pchunks, ppart, pout = _plan_buffers(pplan, n_tiles, dtype, dev)
@@ -514,7 +525,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
                 pw.hyper_skip, pw.pe_groups[0][2], ho, p(pplan.slots), p(pacts),
                 p(pgzs), pplan.n_act, pplan.act_stride, pplan.gz_stride,
                 pplan.work.numel() // 3, pchunks, pplan.out_len, p(pplan.prods),
-                p(pplan.work), p(ppart), p(pout), _build.stream_ptr(dev))
+                p(pplan.work), p(ppart), p(pout), *wg, _build.stream_ptr(dev))
     _build.check(rc, what)
     if pair is not None:
         gx = pair_grads_tree(pw, pplan, pout)
@@ -682,7 +693,7 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
             nf_amb, nf_dir, 0, 0, 0, int(dtype == torch.bfloat16), plan.n_act,
             plan.act_stride, plan.gz_stride, plan.work.numel() // 3, chunks,
             plan.out_len, 0.0, p(plan.prods), p(plan.work), p(part), p(out),
-            _build.stream_ptr(dev))
+            *_forward_stages(weights, plan, dtype), _build.stream_ptr(dev))
     _build.check(rc, "nerf_mlp_vjp")
     nerf_mlp_vjp.launches += 1
     return gx, gextra, _grads_tree(weights, plan.unpack(out))

@@ -42,8 +42,9 @@ the same functions in plain tensor math.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -131,8 +132,112 @@ def point_blob(weights: LevelWeights, dtype: torch.dtype):
     the forward blob of their train plan, by K2, K6, K8 and K12."""
     key = ("point", dtype)
     if key not in weights._blobs:
-        weights._blobs[key] = point_layers(weights).build(dtype)
+        bb = point_layers(weights)
+        weights._blobs[key] = bb.build(dtype)
+        weights._blobs["point_descs"] = bb.descs
     return weights._blobs[key]
+
+
+# The stages of the bf16 forward tile (csrc/level_train.cu, fw::): k rows
+# of a stage (one 128-byte swizzled row of bf16) and output columns of a
+# chunk.
+WG_KB, WG_NC = 64, 128
+
+
+def wgmma_heads(n_trunk: int) -> Tuple[int, int, int]:
+    """The layers of ``point_layers`` that are heads (alpha, rgb, the seg
+    logits): the tile runs each as one product of its padded width."""
+    return n_trunk + 1, n_trunk + 6, n_trunk + 11
+
+
+def wgmma_chunks(n: int, head: bool) -> List[Tuple[int, int]]:
+    """(first column, columns) of each chunk of a layer's n (padded)
+    outputs, as fw::n_chunks / chunk_cols cut them: a head one chunk of n;
+    else n rounded up to WG_KB, in chunks of WG_NC (the last may be 64)."""
+    if head:
+        return [(0, n)]
+    nn = -(-n // WG_KB) * WG_KB
+    return [(c0, min(WG_NC, nn - c0)) for c0 in range(0, nn, WG_NC)]
+
+
+def wgmma_stages(descs, n_trunk: int):
+    """The stages of the forward tile's weight ring in the order the tile
+    reads them, one per (layer, chunk, input, 64-k block): (layer, w offset
+    of the input's (k, n) row-major block in the forward blob, k, n, first
+    column, rows, k block)."""
+    heads = wgmma_heads(n_trunk)
+    out = []
+    for q, (w1, k1, w2, k2, n, _, _) in enumerate(descs):
+        for c0, rows in wgmma_chunks(n, q in heads):
+            for off, k in ((w1, k1), (w2, k2)):
+                if off < 0:
+                    continue
+                out += [(q, off, k, n, c0, rows, kb) for kb in range(-(-k // WG_KB))]
+    return out
+
+
+def _swizzled(rows: int) -> np.ndarray:
+    """Element index within a stage of (row r, k column kc), rows x 64 bf16
+    in the 128-byte swizzle (wgmma.cuh): the 16-byte chunk kc // 8 of row r
+    lies at chunk (kc // 8) ^ (r % 8)."""
+    r = np.arange(rows)[:, None]
+    kc = np.arange(WG_KB)[None, :]
+    return r * WG_KB + (((kc >> 3) ^ (r & 7)) << 3) + (kc & 7)
+
+
+def wgmma_index(descs, n_trunk: int, n_weights: int) -> np.ndarray:
+    """For every element of the stages, its index in the forward blob of
+    ``n_weights`` elements, or ``n_weights`` (a zero) for the K and N
+    padding. A stage holds rows (outputs c0 .. c0 + rows) x 64 k (k block
+    kb), K-major: W[kb * 64 + kc, c0 + r] at ``_swizzled(rows)[r, kc]``."""
+    parts = []
+    for _, off, k, n, c0, rows, kb in wgmma_stages(descs, n_trunk):
+        r = np.arange(rows)[:, None]
+        kk = kb * WG_KB + np.arange(WG_KB)[None, :]
+        src = np.where((kk < k) & (c0 + r < n), off + kk * n + c0 + r, n_weights)
+        stage = np.empty(rows * WG_KB, np.int64)
+        stage[_swizzled(rows).ravel()] = src.ravel()
+        parts.append(stage)
+    return np.concatenate(parts)
+
+
+# wgmma_index on a device, per layer structure: a level is folded anew for
+# every frame and step, its structure is not
+_WG_INDEX: Dict[tuple, torch.Tensor] = {}
+
+
+def field_promote() -> int:
+    """The accumulation form of the bf16 forward tile (csrc/level_train.cu
+    FIELD_PROMOTE): k16 steps summed in the tensor core before each float32
+    add, 0 for a layer's whole K."""
+    return _build.function("level_train", "sahs_field_promote", "")()
+
+
+def wgmma_blob(weights: LevelWeights, w: torch.Tensor) -> torch.Tensor:
+    """The weight stages of the bf16 forward tile (``field_tc_kernel`` and
+    ``fwd_tc_kernel`` of csrc/level_train.cu) from ``w``, the bf16 weight
+    blob of ``point_blob`` or of a train plan's forward blob (a copy that a
+    test may have altered): each stage is one 64-k block of one output chunk
+    of a layer, rows of 128 bytes in the 128-byte swizzle, K-major (the
+    transposed weights), zero past K and past the layer's outputs; stages in
+    the order the tile runs its products. Built on w's device, kept while
+    ``w`` is the same tensor, unchanged."""
+    key = ("wgmma", w.dtype)
+    hit = weights._blobs.get(key)
+    if hit is not None and hit[0] is w and hit[1] == w._version:
+        return hit[2]
+    descs = weights._blobs.get("point_descs") or point_layers(weights).descs
+    if [descs[q][4] for q in wgmma_heads(len(weights.trunk))] != [8, 8, 16]:
+        raise ValueError("the forward tile takes heads of 1, 3 and 12 outputs "
+                         f"(padded 8, 8, 16), got {[d[4] for d in descs]}")
+    index_key = (tuple(map(tuple, descs)), len(weights.trunk), w.numel(), w.device)
+    if index_key not in _WG_INDEX:
+        _WG_INDEX[index_key] = torch.from_numpy(
+            wgmma_index(descs, len(weights.trunk), w.numel())).to(w.device)
+    with torch.no_grad():
+        blob = torch.cat([w.reshape(-1), w.new_zeros(1)])[_WG_INDEX[index_key]]
+    weights._blobs[key] = (w, w._version, blob)
+    return blob
 
 
 def prepare_level(nerf, cond: torch.Tensor,
@@ -454,6 +559,7 @@ def _nerf_level_tc(pts: torch.Tensor, dirs: torch.Tensor,
     n_trunk, hidden, branch = ints[:3]
     wblob, bblob, meta = _tc_blob("K5", weights, hidden, branch, pts.device, dirs,
                                   table, rows, se, z, bg, noise, raw)
+    wg = wgmma_blob(weights, wblob)
     f32 = torch.float32
     c = lambda t: None if t is None else t.to(f32).contiguous()
     pts, dirs, se, z, bg, noise = map(c, (pts, dirs, se, z, bg, noise))
@@ -461,11 +567,12 @@ def _nerf_level_tc(pts: torch.Tensor, dirs: torch.Tensor,
     rgb_map = torch.empty((R, 16), dtype=f32, device=dev)
     w_out = torch.empty((R, S), dtype=f32, device=dev)
     fn = _build.function("level_train", "sahs_nerf_level_tc",
-                         "p" * 14 + "l" + "i" * 13 + "p")
+                         "p" * 14 + "l" + "i" * 14 + "pl" + "p")
     p = _build.ptr
     rc = fn(p(pts), p(rows), p(table), p(dirs), p(se), p(z), p(bg), p(noise), p(wblob),
             p(bblob), p(meta), p(raw), p(rgb_map), p(w_out), R, S, pts.shape[1],
-            *ints[:11], _build.stream_ptr(dev))
+            n_trunk, weights.skip, *ints[1:11], p(wg), 2 * wg.numel(),
+            _build.stream_ptr(dev))
     _build.check(rc, "nerf_level_forward")
     return rgb_map, w_out
 
@@ -477,7 +584,8 @@ def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
                   rows: Optional[torch.Tensor] = None,
                   extra: Optional[torch.Tensor] = None,
                   out: Optional[torch.Tensor] = None,
-                  se: Optional[torch.Tensor] = None, enc: int = 0) -> torch.Tensor:
+                  se: Optional[torch.Tensor] = None, enc: int = 0,
+                  promote: int = -1) -> torch.Tensor:
     """One launch of the bf16 raw field on the tensor cores
     (``csrc/level_train.cu:field_tc_kernel``): K7 from ray inputs (``dirs``
     (R, 3), the corner ``table`` and ``rows``, or a per-point ``se``
@@ -488,7 +596,11 @@ def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
     [n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir(, gD, gH,
     gW)] as ``level_kernel_args`` / ``point_kernel_args`` give them.
     Returns raw (R*S, 16) float32, written into ``out`` when given (a
-    contiguous float32 (R*S, 16) tensor, e.g. a view of a larger buffer)."""
+    contiguous float32 (R*S, 16) tensor, e.g. a view of a larger buffer).
+    ``promote`` picks the kernel's accumulation form: -1 the one the port
+    runs (``FIELD_PROMOTE``), or a candidate the measurements compare (0: the
+    sum carried in the tensor core over the whole K; 1, 2, 4: that many k16
+    steps summed there before each float32 add)."""
     n_trunk, hidden, branch, C, amb, nf_xyz, nf_amb, nf_dir = ints[:8]
     gD, gH, gW = list(ints[8:11]) or [0, 0, 0]
     P = R * S
@@ -502,12 +614,14 @@ def nerf_field_tc(what: str, pts: torch.Tensor, weights: LevelWeights,
     pts, extra = c(pts, bf16 if enc & 1 else f32), c(extra, bf16 if enc & 2 else f32)
     dirs, se = c(dirs), c(se)
     raw = torch.empty((P, 16), dtype=f32, device=pts.device) if out is None else out
+    wg = wgmma_blob(weights, wblob)
     fn = _build.function("level_train", "sahs_nerf_field_tc",
-                         "p" * 10 + "l" + "i" * 14 + "p")
+                         "p" * 10 + "l" + "i" * 15 + "pli" + "p")
     p = _build.ptr
     rc = fn(p(pts), p(rows), p(table), p(dirs), p(extra), p(se), p(wblob), p(bblob),
-            p(meta), p(raw), R, S, pts.shape[1], n_trunk, hidden, branch, C, amb,
-            nf_xyz, nf_amb, nf_dir, gD, gH, gW, enc, _build.stream_ptr(pts.device))
+            p(meta), p(raw), R, S, pts.shape[1], n_trunk, weights.skip, hidden, branch,
+            C, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW, enc, p(wg), 2 * wg.numel(),
+            promote, _build.stream_ptr(pts.device))
     _build.check(rc, what)
     return raw
 

@@ -55,10 +55,14 @@ events. Frames: the 512x512 flagship, warp-only and ambient-only frames
 (64 + 64, through ``make_eval_renderer``), the per-point frame (64 + 128)
 and one 32,768-ray chunk of the reuse path's frame
 (``render_rays_chunked`` with fuse_composite off), each one warm-up and the
-minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone,
+minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone
+and the launches of K2, K6, K8 and K12 by device time
+(``_launch1_times``: their launch 1, ``fwd_tc_kernel``, is the forward tile
+with the stash),
 ``--skip-only`` K13 alone (to compare two builds of a kernel),
-``--serve-only`` K5, K1 and the flagship, warp-only and ambient-only
-frames (the serving readings), ``--grid-only`` the grid backward (K4, K9
+``--serve-only`` K5, K1 and the frames (the flagship, warp-only,
+ambient-only and per-point frames and the reuse chunk: the serving
+readings), ``--grid-only`` the grid backward (K4, K9
 and K10 at their paths' shapes, ``_grid_times``), ``--chains-only`` the
 tools' chain kernels X1 and X4-X6 with their gates' readings
 (``_chain_times``), ``--dg-only`` X2 in its four cases beside its
@@ -276,6 +280,63 @@ def _field_times(dev, reps: int = 3) -> dict:
             best(lib), 2 * (macs + dmacs) * P, P * (5 + 35 + 16) * 4)
         del pts, extra, lib
         torch.cuda.empty_cache()
+    return out
+
+
+def _launch1_times(dev, launches: int = 5) -> dict:
+    """Launch 1 of K2, K6 and K8 (``fwd_tc_kernel``, the forward tile with
+    the stash) by device time (torch.profiler), in a call of each at a
+    step's fine (2048 rays x 128) and coarse (x 64) level, and of K12 at the
+    per-point step's 2048 x 192, on the flagship's seeded coarse level,
+    beside the call's other launches."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.utils.device import device_ms_by_kernel
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    level = k5.prepare_level(model.coarse, g(rng.randn(36) * 0.5), pts_g, dir_g)
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    grid = (32, 32, 32)
+    out = {}
+    R = 2048
+    for S, name in ((128, "fine"), (64, "coarse")):
+        P = R * S
+        pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                rng.uniform(-1, 1, (P, 2))], 1))
+        dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+        z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+        bg, noise = g(rng.rand(R, 15)), g(rng.randn(R, S) * 0.5)
+        tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+        lw = g(np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+        rows = _cell_geometry(pts, grid)[0]
+        args = (pts, dirs, table, rows, z, bg, noise, tgt, lw, level, "bfloat16", grid, 0.5)
+        out[f"K2 {name}"] = device_ms_by_kernel(lambda: k2.nerf_level_train(*args),
+                                                launches, counter=k2.nerf_level_train)
+        g_rgb, g_w = g(rng.randn(R, 16) * 1e-3), g(rng.randn(R, S) * 1e-3)
+        out[f"K6 {name}"] = device_ms_by_kernel(lambda: k2.nerf_level_vjp(
+            pts, dirs, table, rows, z, bg, noise, g_rgb, g_w, level, "bfloat16", grid),
+            launches, counter=k2.nerf_level_vjp)
+        graw = g(rng.randn(P, 16) * 1e-3)
+        out[f"K8 {name}"] = device_ms_by_kernel(lambda: k2.nerf_rayd_vjp(
+            pts, dirs, table, rows, graw, level, "bfloat16", grid),
+            launches, counter=k2.nerf_rayd_vjp)
+    P = R * 192
+    pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)), rng.uniform(-1, 1, (P, 2))], 1))
+    extra = g(np.concatenate([rng.randn(P, 3) * 0.1 + [0, 0, -1], rng.randn(P, 32) * 0.3], 1))
+    gg = g(rng.randn(P, 16) * 1e-3)
+    out["K12 fine"] = device_ms_by_kernel(lambda: k2.nerf_mlp_vjp(pts, extra, gg, level,
+                                                                  "bfloat16"),
+                                          launches, counter=k2.nerf_mlp_vjp)
     return out
 
 
@@ -754,9 +815,10 @@ def main(argv=None) -> int:
     elif args.skip_only:
         res["skip_net"] = _skip_times(dev)
     elif args.serve_only:
-        res.update(serve=_serve_kernel_times(dev), frames_ms=_serve_frame_times(dev))
+        res.update(serve=_serve_kernel_times(dev),
+                   frames_ms={**_serve_frame_times(dev), **_frame_times(dev)})
     elif args.fields_only:
-        res["fields"] = _field_times(dev)
+        res.update(fields=_field_times(dev), launch1=_launch1_times(dev))
     else:
         res.update(serve=_serve_kernel_times(dev), fields=_field_times(dev),
                    skip_net=_skip_times(dev), k15=_k15_times(dev),

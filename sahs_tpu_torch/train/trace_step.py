@@ -19,8 +19,9 @@ off: the fallback with the warp net alone on K13 and K14, then K5, K6, K9)
 or ``ambient_only`` (models.warp.use_warp off: the hyper net alone on K13
 and K14).
 K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6
-in bfloat16, the tensor-core kernels of csrc/mma.cuh: fwd_tc_kernel,
-composite_kernel, bwd_tc_kernel, level_dw_kernel, dw_reduce, and in
+in bfloat16: fwd_tc_kernel, the forward tile on wgmma, then
+composite_kernel, bwd_tc_kernel, level_dw_kernel, dw_reduce, the
+tensor-core kernels of csrc/mma.cuh; in
 float32 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce;
 K8 the same without composite_kernel; K3: pair_vjp_tc_kernel,
 level_dw_kernel, dw_reduce in bfloat16, pair_vjp_kernel, dw_kernel,

@@ -2323,6 +2323,118 @@ def test_tensor_core_field_mask_keeps_the_last_tile(card, grid_free, no_ambient,
     assert not guard_ok(bad)
 
 
+# The forward tile on wgmma (level_train.cu fw::tile; field_tc_kernel for
+# K5's field, K7 and K11, fwd_tc_kernel for launch 1 of K2/K6/K8/K12) has
+# risks of its own design: persistent blocks whose two warpgroups take one
+# 64-point tile each (a tile count can leave the second without one), a
+# ring of weight stages that both warpgroups read in one order, and the
+# order of its float32 sums.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,tail", [(1, 37), (3, 64), (2 * 132 * 2 + 1, 41)])
+def test_tensor_core_field_tile_counts_keep_rows_past_p(card, grid_free, no_ambient,
+                                                       tiles, tail):
+    """K11 at tile counts that leave a block's second warpgroup without a
+    tile (one tile; three; 529, over two sweeps of 132 persistent blocks)
+    and with a ragged last tile (P = (tiles - 1) x 64 + tail): the raw field
+    written into the first P rows of a buffer keeps the plain gate and the
+    exact-sum rule, and the guard rows past P stay NaN."""
+    P = (tiles - 1) * 64 + tail
+    dev = card[0]
+    _, fp, args = _field_case(card, grid_free, no_ambient, "K11", True, True, P,
+                              seed=40 + tiles)
+    pts, extra, level = args[:3]
+    ints = k11.point_kernel_args(pts, extra, level, "K11")[2]
+    buf = torch.full((tiles * 64 + 128, 16), float("nan"), device=dev)
+    k5.nerf_field_tc("K11", pts, level, P, 1, ints, extra=extra, out=buf[:P])
+    raw_p = fp(*args)
+    _plain_ref(fp, *args, out_k=buf[:P])        # the exact-sum rule
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(buf[P:]).all()), "the kernel wrote past the last point"
+    assert _field_scaled(buf[:P], raw_p) <= FIELD_GATE
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tensor_core_forward_tile_repeats_bit_for_bit(card, grid_free, no_ambient, rng):
+    """Two launches on the same inputs give the same bits: K7
+    (field_tc_kernel) and K2 (fwd_tc_kernel, then the backward over its
+    stash: every output and gradient), each at 96 rays x 63 samples (95
+    tiles, an odd count, the last ragged). The tile's sums run in a fixed
+    order whatever block takes a tile and whichever warpgroup reads a
+    stage first."""
+    fk, _, args = _field_case(card, grid_free, no_ambient, "K7", True, True, 63, seed=51)
+    assert _same_bits(fk(*args), fk(*args))
+    largs = _tc_level_case(card, grid_free, rng, True, 63)
+    R = largs[0].shape[0] // 63
+    dev = largs[0].device
+    tgt = _gpu(dev, np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+    lw = _gpu(dev, np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+    run = lambda: k2.nerf_level_train(*largs[:7], tgt, lw, *largs[7:], 0.5)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert _same_bits(first, second)
+
+
+def _ring_stage_fault(level):
+    """A copy of ``level`` whose weight stages (``nerf_level.wgmma_blob``,
+    which the wgmma tile streams) leave out trunk[4]'s first stage: its
+    first 64 k of its first 128 outputs."""
+    faulty = dataclasses.replace(level, _blobs={})
+    w, _, meta = k5.point_blob(faulty, torch.bfloat16)
+    stages = k5.wgmma_blob(faulty, w).clone()
+    at = 0
+    for q, _, _, _, _, rows, _ in k5.wgmma_stages(meta.reshape(-1, 7).tolist(),
+                                                    len(level.trunk)):
+        if q == 4:
+            break
+        at += rows * 64
+    assert float(stages[at:at + rows * 64].float().abs().max()) > 0
+    stages[at:at + rows * 64] = 0
+    faulty._blobs[("wgmma", torch.bfloat16)] = (w, w._version, stages)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K5", "K7", "K11"])
+def test_tensor_core_field_fault_ring_stage_misses_gates(card, grid_free, no_ambient,
+                                                        rng, kernel):
+    """One ring stage of trunk[4] left out of the weights the wgmma tile
+    streams: K5's composited outputs and K7's and K11's raw field must miss
+    the exact-sum rule that the faultless launch keeps."""
+    if kernel == "K5":
+        args = _tc_level_case(card, grid_free, rng, True, 64)
+        out_p = k5.nerf_level_plain(*args)
+        out_x = level_exact.exact_plain(k5.nerf_level_plain, *args)
+        ok, d = _level_exact(k5.nerf_level_forward(*args), out_p, out_x)
+        assert ok, d
+        faulty = args[:7] + (_ring_stage_fault(args[7]),) + args[8:]
+        ok, d = _level_exact(k5.nerf_level_forward(*faulty), out_p, out_x)
+        assert not ok, d
+        return
+    fk, fp, args = _field_case(card, grid_free, no_ambient, kernel, True, True,
+                               128 if kernel == "K7" else 1000, seed=52)
+    raw_p = fp(*args)
+    raw_x = _plain_ref(fp, *args, out_k=fk(*args))
+    li = 4 if kernel == "K7" else 2      # the folded level among the arguments
+    faulty = list(args)
+    faulty[li] = _ring_stage_fault(args[li])
+    raw_f = fk(*faulty)
+    torch.cuda.synchronize()
+    ok, d = _field_exact(raw_f, raw_p, raw_x)
+    assert not ok, d
+
+
 # ---------------------------------------------------------------------------
 # bf16 K13 on the tensor cores (skip_mlp.cu:skip_fwd_tc_kernel, the trunk
 # of skip_tc.cuh without the stash): the warp and the hyper net against

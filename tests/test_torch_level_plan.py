@@ -13,11 +13,18 @@ kernels), on the CPU:
   (c) every (k, n) of every dW product, bias rows included, falls in
       exactly one work item of the split-K reduction;
   (d) the tile sizes agree with the CUDA sources, in both dtypes;
-  (e) the bf16 forward-only kernels (K7, K11 and K5's field; K13; K1)
-      take mma.cuh's tile and block, and their shared memory leaves room
-      for the blocks an SM that their launch bounds ask for; K5's
-      compositing holds a ray of the largest sample count the level
-      kernels take;
+  (e) the bf16 forward tile on wgmma (level_train.cu fw::, K5's field,
+      K7, K11 and launch 1 of K2/K6/K8/K12): its 64-point tiles, one
+      block an SM, and its shared memory (the weight ring's stages, each
+      warpgroup's A tiles and hidden tiles) within a block's 227 KB at the
+      flagship's widths, warp-only and grid-free, from the constants of
+      the CUDA source; its weight stages (nerf_level.wgmma_blob) unpack
+      to each layer's (k, n) weights, with zero K and N padding, in the
+      order the tile runs its products, for every form of the level; the
+      other bf16 forward-only kernels (K13; K1) take mma.cuh's tile and
+      block, and their shared memory leaves room for the blocks an SM
+      that their launch bounds ask for; K5's compositing holds a ray of
+      the largest sample count the level kernels take;
   (f) the kernels' C functions are looked up and typed once.
 """
 import os
@@ -263,47 +270,188 @@ def _cu_text(path):
 SM_SMEM, BLOCK_RESERVED, BLOCK_MAX = 233472, 1024, 232448
 
 
-def _field_smem_bytes(kx, n_din, hidden, branch):
-    """level_train.cu's TcLayout(a, FIELD_KS).fwd, from the sources'
-    constants: the PE tile (the f32 heads after the trunk), the [pe(dir) |
-    se] tile, two activation tiles of max(H, 2B) rows and the two-slice
-    weight ring (mma.cuh:ring_bytes)."""
-    tp, ks = _cu_const("mma.cuh", "TC_TP"), _cu_const("level_train.cu", "FIELD_KS")
-    mma = _cu_text("mma.cuh")
-    assert "constexpr int TC_LD = TC_TP + 8;" in mma
-    assert "constexpr int TC_LDF = TC_TP + 4;" in mma
-    assert "return 2 * ks * (nmax + 8) * 2;" in mma
-    padk = lambda n: -(-n // ks) * ks
-    row, rowf, rh = (tp + 8) * 2, (tp + 4) * 4, max(hidden, 2 * branch)
-    return (max(padk(kx) * row, 32 * rowf) + padk(n_din) * row + 2 * rh * row
-            + 2 * ks * (max(hidden, branch) + 8) * 2)
+def _field_layout(kx, n_din, hidden, branch, n_trunk):
+    """level_train.cu's fw::Layout(a) (ring slots, bytes), from the
+    source's constants: per warpgroup x [max(kx, B) / 64 blocks], d [n_din
+    / 64], two column-0-127 hidden regions and the columns from 128 on,
+    blocks of 64 points x 128 bytes; the biases ((L + 1) H + 8 B + 32
+    floats) and the L + 12 stash slots' offsets; then as many ring slots of
+    NC rows x 128 bytes as fit, at most RING_MAX; the barriers; the
+    alignment slack."""
+    c = lambda n: _cu_const("level_train.cu", n)
+    kb, nc, ring_max, smem_max, wgs = c("KB"), c("NC"), c("RING_MAX"), c("SMEM_MAX"), c("WG")
+    src = _cu_text("level_train.cu")
+    assert "constexpr int SLOT = NC * 128;" in src
+    assert "per_wg = (xb + db + 2 * h0 + h1) * wg::BLOCK;" in src
+    assert "return (a.L + 1) * a.H + 8 * a.B + 32;" in src
+    assert "const int params = (bias_floats(a) + a.L + 12 + 3) / 4 * 16;" in src
+    assert "const int fixed = WG * per_wg + params + 16 * RING_MAX + 1024;" in src
+    assert "bytes = bar + 16 * RING_MAX + 1024;" in src
+    assert "constexpr int BLOCK = 64 * 128;" in _cu_text("wgmma.cuh")
+    cd = lambda n, d: -(-n // d)
+    hb = cd(hidden, kb)
+    h0 = min(hb, 2)
+    per_wg = (max(cd(kx, kb), cd(branch, kb)) + max(cd(n_din, kb), 1) + 2 * h0
+              + hb - h0) * 64 * 128
+    params = ((n_trunk + 1) * hidden + 8 * branch + 32 + n_trunk + 12 + 3) // 4 * 16
+    fixed = wgs * per_wg + params + 16 * ring_max + 1024
+    ring = min(ring_max, (smem_max - fixed) // (nc * 128))
+    return ring, fixed + ring * nc * 128
 
 
 @pytest.mark.parametrize("kind", ["grid", "grid_free", "no_ambient"])
 def test_field_kernel_layout_matches_the_cuda_source(models, kind):
-    """The bf16 forward-only kernel (``level_train.cu:field_tc_kernel``,
-    K7 and K11): the bf16 tile of the Python side, mma.cuh's 256-thread
-    block, launch bounds that ask for two blocks an SM, and shared memory
-    (TcLayout's forward at FIELD_KS) that leaves room for two blocks an SM
-    at the flagship's widths and without the grid or the ambient
-    coordinates."""
+    """The bf16 forward tile on wgmma (``level_train.cu:fw::tile``, run by
+    ``field_tc_kernel`` for K5's field, K7 and K11 and by ``fwd_tc_kernel``
+    for launch 1 of K2/K6/K8/K12): the Python side's bf16 tile is the
+    tile's 64 points (one warpgroup's product rows), the block is two
+    consumer warpgroups and a producer warp, one block an SM, and its
+    shared memory (a ring of at least two weight stages, each warpgroup's
+    A and hidden tiles) fits a block at the flagship's widths, warp-only
+    and without the grid."""
     assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
-    assert _cu_const("mma.cuh", "TC_THREADS") == 256
+    assert _cu_const("wgmma.cuh", "ROWS") == 64
+    assert _cu_const("level_train.cu", "WG") == 2
     src = _cu_text("level_train.cu")
-    assert re.search(r"__launch_bounds__\(sahs::TC_THREADS, 2\) field_tc_kernel", src)
-    assert "fwd_tile<false, FIELD_KS>(a, smem_raw)" in src
-    assert "const TcLayout ly(a, FIELD_KS);" in src
+    assert "constexpr int THREADS = WG * wg::THREADS + 32;" in src
+    assert re.search(r"__launch_bounds__\(fw::THREADS, 1\) field_tc_kernel", src)
+    assert re.search(r"__launch_bounds__\(fw::THREADS, 1\) fwd_tc_kernel", src)
+    assert "fw::tile<false, PROMOTE>(a, fw_smem);" in src
+    assert "fw::tile<true, FIELD_PROMOTE>(a, fw_smem);" in src
+    assert (k5.WG_KB, k5.WG_NC) == (_cu_const("level_train.cu", "KB"),
+                                    _cu_const("level_train.cu", "NC"))
     lvl = _level(_model_without_ambient() if kind == "no_ambient" else models[kind])
     kx = lvl.trunk[0]["w"].shape[0]
     n_din = lvl.dir0_dir.shape[0] + lvl.dir0_se.shape[0]
     hidden, branch = lvl.trunk[0]["w"].shape[1], lvl.dir0_b.shape[0]
-    smem = _field_smem_bytes(kx, n_din, hidden, branch)
-    assert smem % 16 == 0 and smem <= BLOCK_MAX
-    assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
+    ring, smem = _field_layout(kx, n_din, hidden, branch, len(lvl.trunk))
+    assert ring >= 2 and smem % 16 == 0 and smem <= BLOCK_MAX
+    assert smem + BLOCK_RESERVED <= SM_SMEM
+    assert (kx, n_din, hidden, branch) == {"grid": (81, 59, 256, 128),
+                                           "grid_free": (81, 27, 256, 128),
+                                           "no_ambient": (63, 59, 256, 128)}[kind]
+    # every form at the flagship's widths: four 16 KB stages
+    assert (ring, smem) == (4, 227632)
+
+
+def _forms():
+    """The folded levels of every form the forward tile takes: with the grid
+    (the ray forms on the corner table or a per-point se, and K11's per-point
+    field share its layers), without it, without the ambient coordinates,
+    pre-encoded (K11's point and [pe(dir) | se] encodings given), and the
+    ablation config's 4 x 256 trunk with 15 PE frequencies."""
+    from sahs_tpu_torch.config import load_config
+    rng = np.random.RandomState(0)
+    out = {}
+    for kind, model in (("grid", _model(True)), ("grid_free", _model(False)),
+                        ("no_ambient", _model_without_ambient())):
+        cond = torch.tensor(rng.randn(36).astype(np.float32))
+        _, pts_g, dir_g = nerface.build_pe_groups(model.spec)
+        out[kind] = k5.prepare_level(model.coarse, cond, pts_g, dir_g)
+        if kind == "grid":
+            out["pre_encoded"] = k5.prepare_level(model.coarse, cond, None, None)
+    cfg = load_config(os.path.join(os.path.dirname(CSRC), "..", "configs", "expression",
+                                   "person_1_ablation.yml"))
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device="cpu")
+    _, pts_g, dir_g = nerface.build_pe_groups(spec)
+    out["ablation"] = k5.prepare_level(model.coarse, torch.tensor(
+        rng.randn(76).astype(np.float32)), pts_g, dir_g)
+    return out
+
+
+FORMS = ("grid", "grid_free", "no_ambient", "pre_encoded", "ablation")
+
+
+@pytest.fixture(scope="module")
+def forms():
+    return _forms()
+
+
+def _tile_products(lvl):
+    """fw::prod_of's products of one tile, from the level's widths: (layer,
+    [k of each input], n, head)."""
+    L, hid = len(lvl.trunk), lvl.trunk[0]["w"].shape[1]
+    kx, B = lvl.trunk[0]["w"].shape[0], lvl.dir0_b.shape[0]
+    kd = lvl.dir0_dir.shape[0] + lvl.dir0_se.shape[0]
+    out = [(q, [kx] if q == 0 else [hid, kx] if q == lvl.skip else [hid], hid, False)
+           for q in range(L)]
+    out += [(L, [hid], hid, False), (L + 1, [hid], 8, True), (L + 2, [hid, kd], B, False)]
+    out += [(L + 2 + k, [B], B, False) for k in (1, 2, 3)] + [(L + 6, [B], 8, True)]
+    out += [(L + 7, [hid], B, False)] + [(L + 7 + k, [B], B, False) for k in (1, 2, 3)]
+    return out + [(L + 11, [B], 16, True)]
+
+
+@pytest.mark.parametrize("kind", FORMS)
+def test_field_weight_stages_unpack_to_each_layer(forms, kind):
+    """``nerf_level.wgmma_blob``, the weight stages the forward tile
+    streams, read back on the CPU: stage by stage, in the order the tile
+    runs its products (fw::prod_of: each layer's output chunks of at most
+    128 columns, the heads one chunk of 8 or 16, then each input, then its
+    64-k blocks), each stage rows (outputs) x 64 k in the 128-byte swizzle,
+    K-major. Un-swizzled, the stages put back every layer's (k, n) weights
+    of the bf16 forward blob, exactly, with zeros past K and past the
+    layer's outputs; the blob's length is the kernel's fw::blob_bytes."""
+    lvl = forms[kind]
+    w, _, meta = k5.point_blob(lvl, torch.bfloat16)
+    descs = meta.reshape(-1, 7).tolist()
+    stages = k5.wgmma_blob(lvl, w)
+    assert stages.dtype == torch.bfloat16 and k5.wgmma_blob(lvl, w) is stages
+    L = len(lvl.trunk)
+    prods = _tile_products(lvl)
+    assert [(d[1], d[3]) for d in descs] == [(k[0], k[1] if len(k) > 1 else 0)
+                                             for _, k, _, _ in prods]
+    unswizzle = torch.from_numpy(k5._swizzled(1).ravel())
+    pos, n_stages = 0, 0
+    for q, ks, n, head in prods:
+        w1, _, w2, _, n_pad = descs[q][:5]
+        assert (n_pad == n) if head else n_pad == -(-n // 8) * 8
+        cols = -(-n // 64) * 64
+        chunks = [(0, n)] if head else [(c0, min(128, cols - c0)) for c0 in range(0, cols, 128)]
+        for c0, rows in chunks:
+            for off, k in zip((w1, w2), ks):
+                got = torch.zeros(-(-k // 64) * 64, rows)
+                perm = torch.from_numpy(k5._swizzled(rows).ravel())
+                for kb in range(-(-k // 64)):
+                    st = stages[pos:pos + rows * 64].float()
+                    pos += rows * 64
+                    n_stages += 1
+                    got[kb * 64:kb * 64 + 64] = st[perm].reshape(rows, 64).t()
+                want = torch.zeros_like(got)
+                real = w[off:off + k * n_pad].float().reshape(k, n_pad)[:, c0:c0 + rows]
+                want[:k, :real.shape[1]] = real
+                assert torch.equal(got, want), (kind, q, c0, off)
+    assert pos == stages.numel() and unswizzle.tolist() == list(range(64))
+    assert n_stages == len(k5.wgmma_stages(descs, L))
+    # the kernel's count, fw::blob_bytes: 128 bytes a row, per chunk the
+    # 64-k blocks of every input
+    kb = lambda k: -(-k // 64)
+    assert 2 * stages.numel() == sum(
+        128 * rows * sum(kb(k) for k in ks)
+        for _, ks, n, head in prods
+        for rows in ([n] if head else [min(128, -(-n // 64) * 64 - c0)
+                                       for c0 in range(0, -(-n // 64) * 64, 128)]))
     if kind == "grid":
-        # the flagship: the stash kernel's forward layout, 16-row slices
-        assert (kx, n_din, hidden, branch) == (81, 59, 256, 128)
-        assert smem == 113664
+        assert 2 * stages.numel() == 1533952 and n_stages == 101
+
+
+def test_field_weight_stages_follow_the_blob_they_are_built_from(forms):
+    """The stages are built from the forward blob they are given (a test's
+    altered copy, a train plan's), and built anew when that blob changes in
+    place: a zeroed 16-row slice of trunk[1] in the blob is zero in its
+    stages and nowhere else."""
+    lvl = forms["grid"]
+    w, _, meta = k5.point_blob(lvl, torch.bfloat16)
+    base = k5.wgmma_blob(lvl, w)
+    w1, _, _, _, n = meta.reshape(-1, 7)[1, :5].tolist()
+    bad = w.clone()
+    bad[w1 + 16 * n:w1 + 32 * n] = 0
+    changed = k5.wgmma_blob(lvl, bad)
+    assert changed is not base
+    diff = (changed != base).nonzero().reshape(-1)
+    assert 0 < diff.numel() <= 16 * n and bool((changed[diff] == 0).all())
+    bad[w1 + 16 * n:w1 + 32 * n] = w[w1 + 16 * n:w1 + 32 * n]
+    assert torch.equal(k5.wgmma_blob(lvl, bad), base)
 
 
 def _model_without_ambient():
