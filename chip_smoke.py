@@ -13,7 +13,7 @@ Phases, in order (any failure exits non-zero and prints no result):
      S = 64 and 128 samples, with a background prior and with sigma noise,
      in float32 (gate: max abs error <= 1e-4, corner rows exact) and in
      bfloat16, where both run on the tensor cores (K1
-     deform_pair_tc_kernel; K5 field_tc_kernel and composite_fwd_kernel),
+     deform_pair_wg_kernel; K5 field_tc_kernel and composite_fwd_kernel),
      against exact sums (tools/level_exact.exact_plain: in each output
      group, each against its own scale, at most EXACT_MULTIPLE times the
      plain version's distance: K5's composited rgb and seg channels and
@@ -55,6 +55,10 @@ Phases, in order (any failure exits non-zero and prints no result):
      each candidate form's distance from exact sums and time
      (tools/field_forms.py --quick); it fails when a kernel the path runs
      spills or has its wgmma serialised, or the form run misses the rule;
+     K1's fine and coarse ms beside its mma.sync kernel's (MMA_SYNC_MS),
+     and ptxas' report of the deformation nets' tile on wgmma (skip_wg.cuh:
+     deform_pair_wg_kernel, K1; skip_wg_kernel, K13), which fails on
+     serialised wgmma or a kernel not built and prints any spill;
   5. train-kernel parity: K2 (both levels), K3 and K4 against their plain
      versions on the train path's own inputs, float32 at 256 rays (with
      bg_sup 0 and 0.5) and bfloat16 at the main path's 2048 rays, with the
@@ -159,7 +163,7 @@ Phases, in order (any failure exits non-zero and prints no result):
      those points' cotangent set to zero, its dW under TRAIN_F32_GATES
      and the rest of the points' cotangent within K14_GX_F32) and
      bfloat16 at 2048 (2e-2 of scale; TRAIN_BF16_GATES; bf16 K13, on the
-     tensor cores, also within EXACT_MULTIPLE of the plain version's
+     deformation nets' wgmma tile, also within EXACT_MULTIPLE of the plain version's
      distance to exact sums, floor SKIP_FLOOR); K15 bit for bit
      against the expression at both levels of the fused step; faults
      planted (K13 without its head bias and, in bf16, with rows 32-63 of
@@ -176,7 +180,8 @@ Phases, in order (any failure exits non-zero and prints no result):
      frames (K13 = K5 = 2 a chunk), their steps at 2048 rays, 64 + 64,
      bf16 (K13 = K14 = K5 = K6 = K9 = 2 a step), and the flagship fused
      step (K1 = K2 = K15 = 2, K3 = K4 = 1); then
-     K13 at the frame's fine chunk (held against its plain version there),
+     K13 at the frame's fine chunk (held against its plain version there,
+     beside its mma.sync kernel's reading, MMA_SYNC_MS),
      K14 at a step's fine level (warp and hyper net, with the TFLOP/s
      reached) and K15 at the fused step's, beside their plain versions,
      the library yardsticks and the bounds; K15 with three readings each
@@ -1706,7 +1711,11 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
 # from its phase 20 (torch.profiler), ms.
 MMA_SYNC_MS = {"K5 fine chunk": 69.09, "K5 coarse chunk": 34.62, "K7 fine": 4.63,
                "K7 coarse": 2.34, "K11 frame chunk": 104.66,
-               "fwd_tc_kernel a fused step": 8.95}
+               "fwd_tc_kernel a fused step": 8.95,
+               # the deformation nets' forward on mma.sync (K1, K13), this
+               # script's readings before their tile on wgmma
+               "K1 fine chunk": 12.36, "K1 coarse chunk": 6.22,
+               "K13 warp fine chunk": 8.29, "K13 hyper fine chunk": 4.25}
 
 
 def vs_mma_sync(key: str, ms: float) -> str:
@@ -1715,23 +1724,18 @@ def vs_mma_sync(key: str, ms: float) -> str:
     return f"the mma.sync tile {old:.2f} ms ({old / ms:.2f}x this)"
 
 
-def forward_tile_ptxas() -> dict:
-    """ptxas' report of the forward tile's kernels (fwd_tc_kernel and every
-    field_tc_kernel<PROMOTE>) from level_train's build log: registers,
-    spill bytes, stack frame and shared memory by kernel, and every line
-    that warns of serialised wgmma (C7520)."""
+def tile_ptxas(library: str, name_of) -> dict:
+    """ptxas' report of the kernels of ``library``'s build log whose mangled
+    name ``name_of`` maps to a name: registers, spill bytes, stack frame
+    and shared memory by kernel, and every line that warns of serialised
+    wgmma (C7520)."""
     import re
     from sahs_tpu_torch.ops.kernels import _build
     out, name = {"C7520": []}, None
-    for line in _build.build_log("level_train").splitlines():
+    for line in _build.build_log(library).splitlines():
         m = re.search(r"entry function '([^']+)'", line)
         if m:
-            mangled, name = m.group(1), None
-            t = re.search(r"field_tc_kernelILi(\d+)E", mangled)
-            if t:
-                name = f"field_tc_kernel<{t.group(1)}>"
-            elif "fwd_tc_kernel" in mangled:
-                name = "fwd_tc_kernel"
+            name = name_of(m.group(1))
             if name:
                 out[name] = {}
             continue
@@ -1748,6 +1752,44 @@ def forward_tile_ptxas() -> dict:
             if m:
                 out[name][key] = int(m.group(1))
     return out
+
+
+def forward_tile_ptxas() -> dict:
+    """ptxas' report of the forward tile's kernels (fwd_tc_kernel and every
+    field_tc_kernel<PROMOTE>) from level_train's build log."""
+    import re
+
+    def name_of(mangled):
+        t = re.search(r"field_tc_kernelILi(\d+)E", mangled)
+        if t:
+            return f"field_tc_kernel<{t.group(1)}>"
+        return "fwd_tc_kernel" if "fwd_tc_kernel" in mangled else None
+    return tile_ptxas("level_train", name_of)
+
+
+def deform_tile_ptxas() -> dict:
+    """ptxas' report of the deformation nets' tile on wgmma (skip_wg.cuh):
+    deform_pair_wg_kernel (K1) and skip_wg_kernel (K13)."""
+    out = {"C7520": []}
+    for library, kernel in (("deform_pair", "deform_pair_wg_kernel"),
+                            ("skip_mlp", "skip_wg_kernel")):
+        rep = tile_ptxas(library, lambda m, k=kernel: k if k in m else None)
+        out["C7520"] += rep.pop("C7520")
+        out.update(rep)
+    return out
+
+
+def deform_tile_readings(report) -> str:
+    """ptxas' report of the deformation nets' tile, printed and kept in
+    report["deform_tile"]; a message when ptxas serialised its wgmma or
+    did not build a kernel of it (a spill is printed)."""
+    ptx = deform_tile_ptxas()
+    print(f"deformation nets' tile, ptxas: {json.dumps(ptx)}", flush=True)
+    report["deform_tile"] = {"ptxas": ptx}
+    run = ("deform_pair_wg_kernel", "skip_wg_kernel")
+    if ptx["C7520"] or any(k not in ptx for k in run):
+        return f"the deformation nets' tile was serialised or not built: {json.dumps(ptx)}"
+    return ""
 
 
 def forward_tile_readings(report) -> str:
@@ -2260,6 +2302,8 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": chunk_abs,
             "scaled_err": chunk_err, "points": P_f,
             "tflops_achieved": 2 * skip_macs(w) * P_f / (ms / 1e3) / 1e12}
+        print(f"  K13 {name} on the wgmma tile at the frame's fine chunk: {ms:.2f} ms "
+              f"({vs_mma_sync(f'K13 {name} fine chunk', ms)})", flush=True)
     del pts_f
     for inp in bf16:
         pts, w, g, _, cdt = inp["k14"]
@@ -5132,6 +5176,11 @@ def main(argv) -> int:
         print(f"{name}: {ms:.2f} ms at {P} points (bound {max(t_ops, t_bytes):.2f} ms, "
               f"plain {plain_ms:.2f} ms, library {library_ms:.2f} ms); "
               f"{coarse_ms:.2f} ms at the coarse level's {R_t * 64} points", flush=True)
+        if name == "deform_pair":
+            print(f"  K1 on the wgmma tile: fine chunk {ms:.2f} ms, "
+                  f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s "
+                  f"({vs_mma_sync('K1 fine chunk', ms)}); coarse chunk {coarse_ms:.2f} ms "
+                  f"({vs_mma_sync('K1 coarse chunk', coarse_ms)})", flush=True)
         if name == "nerf_level":
             b_ms = max(t_ops, t_bytes)
             print(f"  K5 on the wgmma tile: fine chunk {ms:.2f} ms, "
@@ -5145,7 +5194,7 @@ def main(argv) -> int:
                                                      counter=k5.nerf_level_forward)
     print(f"nerf_level's launches at the fine chunk (device ms, torch.profiler): "
           f"{json.dumps(kernels[1]['launch_ms'])}", flush=True)
-    msg = forward_tile_readings(report)
+    msg = forward_tile_readings(report) or deform_tile_readings(report)
     if msg:
         return fail(msg)
     report["kernels"] = kernels

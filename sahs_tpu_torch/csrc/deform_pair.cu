@@ -19,21 +19,17 @@
 //
 // Two instantiations, no switch: the dtype picks one. float32 runs
 // deform_pair_kernel, 64-point tiles with mlp.cuh's SIMT products, the
-// bit-exact oracle of the plain version. bf16 runs deform_pair_tc_kernel
-// on the tensor cores: skip_tc.cuh's trunk (skip_trunk_tc without the
-// stash, at SKIP_KS, the slice depth of K3's skip_net_tc) once for each
-// net over one encoding tile, each head's y = act(v + b) in f32 in its
-// product's epilogue (as bf16 K13's), so K1's output is, product for
-// product, the forward that K3 recomputes from the same blob. Every row of
-// an mma.sync tile is its point's alone: a point's output does not depend
-// on its neighbours or its place in a tile (the fused step's coarse-in-fine
-// scatter needs that). Shared memory SkipLayout(63, false): the encoding,
-// two activation tiles and the weight ring, 63,488 B, two 256-thread
-// blocks an SM; ptxas: 125 registers, 32 B stack frame, no spills.
-// Measured on an H100 (PERF.md §6, tools/level_ab.py): 12.3-12.4 ms at a
-// frame's fine chunk (46.6 on the CUDA cores; its library call 92.8),
-// 86 TFLOP/s, 8.7 % of the bound. What holds it: the mma.sync products
-// with a barrier pair a staged slice, as K13's; wgmma is the next step.
+// bit-exact oracle of the plain version. bf16 runs deform_pair_wg_kernel,
+// skip_wg.cuh's tile on wgmma (the design and bound are there): the warp
+// net and then the hyper net over one encoding tile, each head's y =
+// act(v + b) in f32, the weights streamed as the stages of
+// field_mlp.stage_blob from the pair's blob. A point's output does not
+// depend on its neighbours or its place in a tile (the fused step's
+// coarse-in-fine scatter needs that). Each k16 step is summed from zero
+// and added in f32, the semantics of the mma.sync products that K3
+// recomputes from the same blob. The mma.sync kernel it replaces read
+// 12.3-12.4 ms at a frame's fine chunk on an H100 (PERF.md §6); the
+// tile's readings are in PERF.md §6 (tools/level_ab.py --serve-only).
 //
 // The rays= form (field_mlp.py:882-885, :915, :949-953; JAX's
 // SAHS_PAIR_RAYS fused step) reads the rays (o (R, 3), d (R, 3), z (R, S))
@@ -42,7 +38,7 @@
 // read, as K15 builds it, __fadd_rn(o, __fmul_rn(d, z)) (mlp.cuh's
 // PointSrc), so the form's output and rows equal K1's on K15's points bit
 // for bit, in both instantiations.
-#include "skip_tc.cuh"
+#include "skip_wg.cuh"
 
 namespace {
 
@@ -139,102 +135,21 @@ int launch(const sahs::PointSrc& pts, long long P, const void* w, const float* b
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
-// ---------------------------------------------------------------------------
-using sahs::bf16;
-using sahs::TC_LDF;
-using sahs::TC_TP;
-
-struct PairArgs {
-  sahs::PointSrc pts;    // (P, 3), or the rays
-  const bf16* w;         // K1's blob: warp trunk, head, hyper trunk, head
-  const float* b;
-  const int* meta;
-  float* out;            // (P, 3 + ho)
-  int* rows;             // (P,) or null (no grid)
-  long long P;
-  int n_warp, n_hyper, ho, n_freq, gD, gH, gW;
-};
-
-// One net's head over the tile, y = act(v + b) in f32 (the SIMT head's
-// expression), into the tile the trunk left free; returns it ([8][TC_LDF]).
-__device__ __forceinline__ const float* pair_head(const PairArgs& a, int layer,
-                                                  const bf16* h, bf16* hA,
-                                                  bf16* hB, bf16* ring) {
-  float* Y = reinterpret_cast<float*>(h == hA ? hB : hA);
-  const sahs::LayerDesc head = sahs::load_desc(a.meta, layer);
-  const sahs::Operand none = {nullptr, 0, nullptr};
-  sahs::skip_product(sahs::Operand{a.w + head.w1, head.k1, h}, none, head.n, ring,
-                     sahs::StoreF32{Y, a.b + head.b, head.act, false});
-  __syncthreads();
-  return Y;
+// bf16: skip_wg.cuh's tile on wgmma, both nets on one encoding
+__global__ void __launch_bounds__(sk::THREADS, 1)
+deform_pair_wg_kernel(const __grid_constant__ sk::Args a) {
+  extern __shared__ __align__(1024) unsigned char sk_smem[];
+  sk::tile(a, sk_smem);
 }
 
-// One tile: the encoding once; the warp trunk and its tanh head; x + warp
-// (round to nearest), the warped point's corner row and the three warped
-// columns stored before the hyper trunk takes hA and hB again; then the
-// hyper trunk, its linear head and the ambient columns. Every product is
-// K3's forward (skip_trunk_tc at SKIP_KS, the same blob), so K1's output
-// is the forward that K3 recomputes, product for product.
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2)
-deform_pair_tc_kernel(PairArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false);
-  bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
-  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
-  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
-  const long long base = (long long)blockIdx.x * TC_TP;
-  const int tid = threadIdx.x, od = 3 + a.ho;
-
-  sahs::skip_pe_tile(a.pts, base, a.P, a.n_freq, pe);
-  __syncthreads();
-  const sahs::SkipNet warp = {a.meta, 0, nullptr, 0, a.n_warp, 0, 0, nullptr,
-                              nullptr, 0, 0, 0};
-  const bf16* h = sahs::skip_trunk_tc<false, sahs::SKIP_KS>(
-      warp, a.w, a.b, pe, hA, hB, ring, nullptr, nullptr);
-  const float* Y = pair_head(a, a.n_warp, h, hA, hB, ring);
-  if (tid < TC_TP && base + tid < a.P) {
-    const long long p = base + tid;
-    float x[3];
-    a.pts.load(p, x);
-    for (int c = 0; c < 3; ++c) {
-      x[c] = __fadd_rn(x[c], Y[c * TC_LDF + tid]);
-      a.out[p * od + c] = x[c];
-    }
-    if (a.rows != nullptr) a.rows[p] = sahs::cell_row(x, a.gD, a.gH, a.gW);
-  }
-  __syncthreads();
-  const sahs::SkipNet hyper = {a.meta, a.n_warp + 1, nullptr, 0, a.n_hyper, 0, 0,
-                               nullptr, nullptr, 0, 0, 0};
-  h = sahs::skip_trunk_tc<false, sahs::SKIP_KS>(hyper, a.w, a.b, pe, hA, hB, ring,
-                                               nullptr, nullptr);
-  Y = pair_head(a, a.n_warp + 1 + a.n_hyper, h, hA, hB, ring);
-  for (int i = tid; i < TC_TP * a.ho; i += blockDim.x) {
-    const int t = i / a.ho, c = i - t * a.ho;
-    const long long p = base + t;
-    if (p < a.P) a.out[p * od + 3 + c] = Y[c * TC_LDF + t];
-  }
-}
-
-int launch_tc(const PairArgs& a, int hid_w, int hid_h, cudaStream_t stream) {
-  if (hid_w % sahs::SKIP_KS || hid_h % sahs::SKIP_KS || hid_w > sahs::SKIP_HMAX ||
-      hid_h > sahs::SKIP_HMAX || a.ho > 8 || 3 + 6 * a.n_freq > sahs::SKIP_HMAX)
-    return (int)cudaErrorInvalidValue;
-  const sahs::SkipLayout ly(3 + 6 * a.n_freq, false);
-  const int err = sahs::set_smem(deform_pair_tc_kernel, ly.bytes);
-  if (err) return err;
-  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
-  deform_pair_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// One K1 call on the points of `src`.
+// One K1 call on the points of `src`. bf16 reads the weight stages
+// (`stages`, stage_bytes) and the blob's layer table (`descs`, host
+// memory) in place of the blob and its device descriptors.
 int forward_call(const sahs::PointSrc& src, long long P, const void* w, const void* b,
                  const void* meta, int n_warp, int n_hyper, int hid_w, int hid_h,
                  int wo_dim, int ho_dim, int n_freq, int bf16, void* out, void* rows,
-                 int gD, int gH, int gW, void* stream) {
+                 int gD, int gH, int gW, const void* stages, long long stage_bytes,
+                 const void* descs, void* stream) {
   if (P <= 0) return 0;
   auto s = reinterpret_cast<cudaStream_t>(stream);
   auto bb = reinterpret_cast<const float*>(b);
@@ -242,10 +157,22 @@ int forward_call(const sahs::PointSrc& src, long long P, const void* w, const vo
   auto o = reinterpret_cast<float*>(out);
   auto r = reinterpret_cast<int*>(rows);
   if (bf16) {
-    if (wo_dim != 3) return (int)cudaErrorInvalidValue;
-    const PairArgs a = {src, reinterpret_cast<const sahs::bf16*>(w), bb, m, o, r, P,
-                        n_warp, n_hyper, ho_dim, n_freq, gD, gH, gW};
-    return launch_tc(a, hid_w, hid_h, s);
+    if (wo_dim != 3 || descs == nullptr) return (int)cudaErrorInvalidValue;
+    sk::Args a = sk::args_of(reinterpret_cast<const int*>(descs), 2, n_warp, n_hyper);
+    a.pts = src;
+    a.wg = stages;
+    a.wg_bytes = stage_bytes;
+    a.b = bb;
+    a.out = o;
+    a.rows = r;
+    a.P = P;
+    a.pe_dim = 3 + 6 * n_freq;
+    a.n_freq = n_freq;
+    a.od = 3 + ho_dim;
+    a.gD = gD;
+    a.gH = gH;
+    a.gW = gW;
+    return sk::launch(deform_pair_wg_kernel, a, s);
   }
   return launch<float>(src, P, w, bb, m, n_warp, n_hyper, hid_w, hid_h, wo_dim,
                        ho_dim, n_freq, o, r, gD, gH, gW, s);
@@ -257,11 +184,13 @@ extern "C" int sahs_deform_pair_forward(
     const void* pts, long long P, const void* w, const void* b,
     const void* meta, int n_warp, int n_hyper, int hid_w, int hid_h,
     int wo_dim, int ho_dim, int n_freq, int bf16, void* out, void* rows,
-    int gD, int gH, int gW, void* stream) {
+    int gD, int gH, int gW, const void* stages, long long stage_bytes,
+    const void* descs, void* stream) {
   const sahs::PointSrc src = {reinterpret_cast<const float*>(pts), nullptr, nullptr,
                               nullptr, 1};
   return forward_call(src, P, w, b, meta, n_warp, n_hyper, hid_w, hid_h, wo_dim,
-                      ho_dim, n_freq, bf16, out, rows, gD, gH, gW, stream);
+                      ho_dim, n_freq, bf16, out, rows, gD, gH, gW, stages, stage_bytes,
+                      descs, stream);
 }
 
 // The rays= form: the points of R rays of S samples, o (R, 3), d (R, 3),
@@ -270,12 +199,14 @@ extern "C" int sahs_deform_pair_forward_rays(
     const void* ro, const void* rd, const void* z, long long R, int S,
     const void* w, const void* b, const void* meta, int n_warp, int n_hyper,
     int hid_w, int hid_h, int wo_dim, int ho_dim, int n_freq, int bf16, void* out,
-    void* rows, int gD, int gH, int gW, void* stream) {
+    void* rows, int gD, int gH, int gW, const void* stages, long long stage_bytes,
+    const void* descs, void* stream) {
   if (S <= 0 || ro == nullptr || rd == nullptr || z == nullptr)
     return (int)cudaErrorInvalidValue;
   const sahs::PointSrc src = {nullptr, reinterpret_cast<const float*>(ro),
                               reinterpret_cast<const float*>(rd),
                               reinterpret_cast<const float*>(z), S};
   return forward_call(src, R * S, w, b, meta, n_warp, n_hyper, hid_w, hid_h, wo_dim,
-                      ho_dim, n_freq, bf16, out, rows, gD, gH, gW, stream);
+                      ho_dim, n_freq, bf16, out, rows, gD, gH, gW, stages, stage_bytes,
+                      descs, stream);
 }

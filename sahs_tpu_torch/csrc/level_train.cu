@@ -870,13 +870,10 @@ struct TcLayout {
 // warp) and the arrivals are predicated, so ptxas keeps the wgmma
 // pipelined (a divergent role branch serialises them: ptxas's C7520).
 //
-// Accumulation (PROMOTE): the tensor core's sum truncates; mma.sync's tiles
-// (mma.cuh) sum each k16 step from zero there and add it to the running
-// sum in float32 round-to-nearest. PROMOTE s sums s k16 steps in the
-// tensor core, then adds them to the float32 sums (s = 1 is mma.cuh's
-// semantics); PROMOTE 0 carries the sum over the whole K in the tensor
-// core. FIELD_PROMOTE is the one the kernels run (PERF.md §6 has each
-// candidate's distance from exact sums and time).
+// Accumulation (PROMOTE, wgmma.cuh's product): FIELD_PROMOTE is the one
+// the kernels run (PERF.md §6 has each candidate's distance from exact
+// sums and time). The ring, its stages and the products are wgmma.cuh's,
+// shared with the deformation nets' tile (skip_wg.cuh).
 //
 // Bound on the H100: ~0.74 M multiply-adds a point against ~30 (K7) to
 // ~224 (K11) bytes, so operations: K5 at a frame's fine chunk (4.19 M
@@ -891,9 +888,13 @@ namespace fw {
 // its partials and the epilogue fit them without a spill
 constexpr int WG = 2;                                // consumer warpgroups
 constexpr int THREADS = WG * wg::THREADS + 32;       // and the producer warp
-constexpr int KB = 64;                               // k rows of a weight stage
-constexpr int NC = 128;                              // output columns of a chunk
-constexpr int SLOT = NC * 128;                       // bytes of a ring slot
+using wg::KB;                                         // k rows of a weight stage
+using wg::NC;                                         // output columns of a chunk
+using wg::SLOT;                                       // bytes of a ring slot
+using wg::ASrc;
+using wg::Ring;
+using wg::product;
+using wg::sts32;
 constexpr int RING_MAX = 6;
 constexpr int SMEM_MAX = 232448;                     // a block's dynamic shared memory
 enum { SRC_NONE = 0, SRC_X, SRC_D, SRC_H, SRC_B };
@@ -990,128 +991,6 @@ struct Layout {
     bytes = bar + 16 * RING_MAX + 1024;
   }
 };
-
-struct Ring {
-  unsigned char* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  int n, stage;
-  uint32_t phase;
-  __device__ __forceinline__ void next() {
-    if (++stage == n) {
-      stage = 0;
-      phase ^= 1u;
-    }
-  }
-};
-
-// An input's 64-column blocks in shared memory: blocks 0-1 from lo, 2 on
-// from hi, nb of them.
-struct ASrc {
-  uint32_t lo, hi;
-  int nb;
-};
-__device__ __forceinline__ uint32_t a_block(const ASrc& s, int kb) {
-  return kb < 2 ? s.lo + kb * wg::BLOCK : s.hi + (kb - 2) * wg::BLOCK;
-}
-
-// d = A1 W1 (+ A2 W2) over one N-wide chunk of outputs, one ring stage a
-// 64-k block. Called by the whole warpgroup.
-template <int N, int PROMOTE>
-__device__ __forceinline__ void product(float (&d)[N / 2], const ASrc& s1, const ASrc& s2,
-                                        Ring& rg, int lane) {
-  constexpr int R = N / 2;
-  float p[PROMOTE > 1 || (PROMOTE == 1 && N != 2 * KB) ? R : 1];
-  if constexpr (PROMOTE != 0) {
-#pragma unroll
-    for (int e = 0; e < R; ++e) d[e] = 0.0f;
-  }
-  int prev = 0;
-  bool first = true;
-  const int nb = s1.nb + s2.nb;
-  for (int b = 0; b < nb; ++b) {
-    const uint32_t ab = b < s1.nb ? a_block(s1, b) : a_block(s2, b - s1.nb);
-    wg::mbar_wait(&rg.full[rg.stage], rg.phase);
-    const uint32_t wb = wg::smem_u32(rg.slots + rg.stage * SLOT);
-    if constexpr (PROMOTE == 1 && N == 2 * KB) {
-      // each k16 step apart, in two 64-column halves: one half's float32
-      // adds run while the other half's product is in flight (the order
-      // of the groups: A0 B0 A1 B1 ...; wait<1> leaves the newest pending)
-      float pa[KB / 2], pb[KB / 2];
-      wg::fence_operand(pa);
-      wg::fence_operand(pb);
-      wg::fence();
-      wg::mma<KB, 0>(pa, wg::k_desc(ab, 0), wg::k_desc(wb, 0), 0);
-      wg::commit();
-      wg::mma<KB, 0>(pb, wg::k_desc(ab, 0), wg::k_desc(wb + KB * 128, 0), 0);
-      wg::commit();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wg::wait<1>();
-        wg::fence_operand(pa);
-#pragma unroll
-        for (int e = 0; e < KB / 2; ++e) d[e] = __fadd_rn(d[e], pa[e]);
-        if (j < 3) {
-          wg::fence();
-          wg::mma<KB, 0>(pa, wg::k_desc(ab, j + 1), wg::k_desc(wb, j + 1), 0);
-          wg::commit();
-          wg::wait<1>();
-        } else {
-          wg::wait<0>();
-        }
-        wg::fence_operand(pb);
-#pragma unroll
-        for (int e = 0; e < KB / 2; ++e) d[KB / 2 + e] = __fadd_rn(d[KB / 2 + e], pb[e]);
-        if (j < 3) {
-          wg::fence();
-          wg::mma<KB, 0>(pb, wg::k_desc(ab, j + 1), wg::k_desc(wb + KB * 128, j + 1), 0);
-          wg::commit();
-        }
-      }
-      wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
-    } else if constexpr (PROMOTE == 0) {
-      wg::fence_operand(d);
-      wg::fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wg::mma<N, 0>(d, wg::k_desc(ab, j), wg::k_desc(wb, j), !(first && j == 0));
-      wg::commit();
-      wg::wait<1>();  // the previous stage's products are done
-      wg::fence_operand(d);
-      wg::mbar_arrive(&rg.empty[prev], !first && lane == 0);
-    } else {
-#pragma unroll
-      for (int j0 = 0; j0 < 4; j0 += PROMOTE) {
-        wg::fence_operand(p);
-        wg::fence();
-#pragma unroll
-        for (int j = j0; j < j0 + PROMOTE; ++j)
-          wg::mma<N, 0>(p, wg::k_desc(ab, j), wg::k_desc(wb, j), j > j0);
-        wg::commit();
-        wg::wait<0>();
-        wg::fence_operand(p);
-#pragma unroll
-        for (int e = 0; e < R; ++e) d[e] = __fadd_rn(d[e], p[e]);
-      }
-      wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
-    }
-    prev = rg.stage;
-    rg.next();
-    first = false;
-  }
-  if constexpr (PROMOTE == 0) {
-    wg::wait<0>();
-    wg::fence_operand(d);
-    wg::mbar_arrive(&rg.empty[prev], lane == 0);
-  }
-}
-
-// A 4-byte shared-memory store. No memory clobber: the epilogue's bias reads
-// must not wait behind each store; the fences and barriers after the
-// epilogue order the stores for their readers.
-__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
-}
 
 __device__ __forceinline__ void put(unsigned char* X, int t, int col, float v) {
   *reinterpret_cast<bf16*>(X + wg::sw128(wg::ROWS, t, col)) = __float2bfloat16_rn(v);
@@ -1388,11 +1267,8 @@ __device__ __forceinline__ void tile(const Args& a, unsigned char* smem) {
           for (int c = 0; c < n_chunks(p); ++c) {
             const uint32_t bytes = 128u * chunk_cols(p, c);
             for (int s = 0; s < ns; ++s) {
-              wg::mbar_wait(&rg.empty[rg.stage], rg.phase ^ 1u);
-              wg::mbar_expect(&rg.full[rg.stage], bytes);
-              wg::bulk_load(rg.slots + rg.stage * SLOT, src, bytes, &rg.full[rg.stage]);
+              rg.push(src, bytes);
               src += bytes;
-              rg.next();
             }
           }
         }

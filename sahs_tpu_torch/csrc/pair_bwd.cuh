@@ -185,7 +185,7 @@ __device__ __forceinline__ void pair_bwd_tile(const PairBwd& a, const float* g,
 
 // Shared memory of the tensor-core tile (skip_tc.cuh's SkipLayout).
 __host__ __device__ __forceinline__ SkipLayout pair_bwd_tc_layout(int n_freq, bool gx) {
-  return SkipLayout(3 + 6 * n_freq, gx, SKIP_KS, gx);
+  return SkipLayout(3 + 6 * n_freq, gx, gx);
 }
 
 // The bf16 tile `tile` of TC_TP points on the tensor cores; all TC_THREADS
@@ -195,7 +195,7 @@ __device__ __forceinline__ void pair_bwd_tc_tile(const PairBwd& a, const float* 
                                                  long long tile) {
   const int pe_dim = 3 + 6 * a.n_freq;
   const bool to_pe = a.gx != nullptr;
-  const SkipLayout ly(pe_dim, to_pe, SKIP_KS, to_pe);
+  const SkipLayout ly(pe_dim, to_pe, to_pe);
   bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
   bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
   bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);

@@ -29,24 +29,19 @@
 // TFLOP/s bf16 peak; the backward is about three times the forward.
 //
 // Routes. K13 in float32 runs skip_mlp_kernel (64-point tiles, mlp.cuh's
-// SIMT products); in bf16 skip_fwd_tc_kernel: skip_tc.cuh's trunk
-// (skip_trunk_tc without the stash) and the head on the tensor cores over
-// 64-point tiles, y = act(v + b) in f32 in the head's epilogue, then a
-// coalesced store of the tile's rows below P. Its shared memory is
-// SkipLayout(pe_dim, false, SKIP_FWD_KS): the encoding, two activation
-// tiles and the weight ring, 63,488 B at 32-row slices for either net, so
-// two blocks an SM. ptxas: 104 registers, 32 B stack frame, no spills.
-// Measured on an H100 (PERF.md, tools/level_ab.py): the warp net at a
-// frame's fine chunk (4.19 M points) 8.30-8.38 ms against its 0.835 ms
-// bound, 98-99 TFLOP/s (10 % of the bound; 36.8 ms on the CUDA cores), the
-// hyper net 4.21-4.24 ms, 57 TFLOP/s (its 64-wide products run 16-wide
-// groups a warp); each below its library call. What holds it: the
-// mma.sync products with a barrier pair a staged slice; wgmma is next.
+// SIMT products), the bit-exact oracle of the plain version; in bf16
+// skip_wg_kernel, skip_wg.cuh's tile on wgmma with one net (the design is
+// there; the tile K1 runs with two), on the raw points or the given
+// encoding, the weights streamed as the stages of field_mlp.stage_blob.
+// The mma.sync kernel it replaces read 8.30-8.38 ms (warp net) and
+// 4.21-4.24 ms (hyper) at a frame's fine chunk on an H100 (PERF.md §6);
+// the tile's readings are in PERF.md §6 (tools/level_ab.py --skip-only).
 // K14 in float32 runs skip_vjp_kernel on 32-point tiles
 // with mlp.cuh's SIMT products and train.cuh's dw_kernel; in bf16
 // skip_vjp_tc_kernel on 64-point tiles, the net on skip_tc.cuh's
 // tensor-core routine, and dW on mma.cuh's level_dw_kernel.
 #include "skip_tc.cuh"
+#include "skip_wg.cuh"
 
 namespace {
 
@@ -283,73 +278,12 @@ using sahs::TC_LDF;
 using sahs::TC_TP;
 
 // ---------------------------------------------------------------------------
-// K13 in bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
+// K13 in bf16: skip_wg.cuh's tile on wgmma, one net
 // ---------------------------------------------------------------------------
-
-// Rows of a staged weight slice of K13's forward, and its blocks an SM.
-// Measured on an H100 (PERF.md, tools/level_ab.py --skip-only), the warp
-// net at a frame's fine chunk: 32-row slices 8.3 ms, 16-row slices 10.5
-// (91 registers; half as many rows a barrier pair); three blocks an SM
-// 7.95-8.06 ms (hyper 3.7 against 4.2), but ptxas then spills (80
-// registers, 4 B of spill stores, 16 B of loads): two blocks, no spills.
-constexpr int SKIP_FWD_KS = 32;
-constexpr int SKIP_FWD_BLOCKS = 2;
-
-struct FwdArgs {
-  const void* pts;       // (P, 3) float32, or (P, enc_dim) bf16
-  const bf16* w;         // forward blob
-  const float* b;
-  const int* meta;
-  float* out;            // (P, out_dim)
-  long long P;
-  int n_layers, n_freq, enc_dim, out_dim;
-  __host__ __device__ int pe_dim() const { return enc_dim > 0 ? enc_dim : 3 + 6 * n_freq; }
-};
-
-// One tile: the encoding, the trunk (skip_trunk_tc, no stash), the head
-// with y = act(v + b) in f32 (the SIMT head's expression) to the tile the
-// trunk left free, then the tile's rows below P, out_dim columns, stored
-// as consecutive words.
-template <int KS>
-__global__ void __launch_bounds__(sahs::TC_THREADS, SKIP_FWD_BLOCKS)
-skip_fwd_tc_kernel(FwdArgs a) {
-  static_assert(sahs::SKIP_KS % KS == 0, "the encoding's rows pad to SKIP_KS");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const sahs::SkipLayout ly(a.pe_dim(), false, KS);
-  bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
-  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
-  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
-  const long long base = (long long)blockIdx.x * TC_TP;
-
-  sahs::skip_input_tile(a.pts, a.enc_dim, base, a.P, a.n_freq, pe);
-  __syncthreads();
-  const sahs::SkipNet net = {a.meta, 0, nullptr, 0, a.n_layers, 0, 0, nullptr,
-                             nullptr, 0, 0, 0};
-  const bf16* h = sahs::skip_trunk_tc<false, KS>(net, a.w, a.b, pe, hA, hB, ring,
-                                                 nullptr, nullptr);
-  float* Y = reinterpret_cast<float*>(h == hA ? hB : hA);   // [8][TC_LDF]
-  const sahs::LayerDesc head = sahs::load_desc(a.meta, a.n_layers);
-  const sahs::Operand none = {nullptr, 0, nullptr};
-  sahs::skip_product<KS>(sahs::Operand{a.w + head.w1, head.k1, h}, none, head.n,
-                         ring, sahs::StoreF32{Y, a.b + head.b, head.act, false});
-  __syncthreads();
-  for (int i = threadIdx.x; i < TC_TP * a.out_dim; i += blockDim.x) {
-    const int t = i / a.out_dim, c = i - t * a.out_dim;
-    const long long p = base + t;
-    if (p < a.P) a.out[p * a.out_dim + c] = Y[c * TC_LDF + t];
-  }
-}
-
-int launch_forward_tc(const FwdArgs& a, int hid, cudaStream_t stream) {
-  if (hid % sahs::SKIP_KS) return (int)cudaErrorInvalidValue;
-  const sahs::SkipLayout ly(a.pe_dim(), false, SKIP_FWD_KS);
-  int err = sahs::set_smem(skip_fwd_tc_kernel<SKIP_FWD_KS>, ly.bytes);
-  if (err) return err;
-  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
-  skip_fwd_tc_kernel<SKIP_FWD_KS>
-      <<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(sk::THREADS, 1)
+skip_wg_kernel(const __grid_constant__ sk::Args a) {
+  extern __shared__ __align__(1024) unsigned char sk_smem[];
+  sk::tile(a, sk_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -428,11 +362,16 @@ int launch_vjp_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
 
 }  // namespace
 
+// bf16 reads the weight stages (`stages`, stage_bytes) and the blob's
+// layer table (`descs`, host memory) in place of the blob and its device
+// descriptors.
 extern "C" int sahs_skip_mlp_forward(const void* pts, long long P,
                                      const void* w, const void* b,
                                      const void* meta, int n_layers, int hid,
                                      int out_dim, int n_freq, int enc_dim,
-                                     int bf16, void* out, void* stream) {
+                                     int bf16, void* out, const void* stages,
+                                     long long stage_bytes, const void* descs,
+                                     void* stream) {
   if (P <= 0) return 0;
   if (hid > HMAX || out_dim > 8 || enc_dim < 0 || enc_dim > HMAX)
     return (int)cudaErrorInvalidValue;
@@ -441,9 +380,20 @@ extern "C" int sahs_skip_mlp_forward(const void* pts, long long P,
   auto m = reinterpret_cast<const int*>(meta);
   auto o = reinterpret_cast<float*>(out);
   if (bf16) {
-    const FwdArgs a = {pts, reinterpret_cast<const sahs::bf16*>(w), bb, m, o, P,
-                       n_layers, n_freq, enc_dim, out_dim};
-    return launch_forward_tc(a, hid, s);
+    if (descs == nullptr) return (int)cudaErrorInvalidValue;
+    sk::Args a = sk::args_of(reinterpret_cast<const int*>(descs), 1, n_layers, 0);
+    a.pts = sahs::PointSrc{enc_dim > 0 ? nullptr : reinterpret_cast<const float*>(pts),
+                           nullptr, nullptr, nullptr, 1};
+    a.enc = enc_dim > 0 ? reinterpret_cast<const sahs::bf16*>(pts) : nullptr;
+    a.wg = stages;
+    a.wg_bytes = stage_bytes;
+    a.b = bb;
+    a.out = o;
+    a.P = P;
+    a.pe_dim = enc_dim > 0 ? enc_dim : 3 + 6 * n_freq;
+    a.n_freq = n_freq;
+    a.od = out_dim;
+    return sk::launch(skip_wg_kernel, a, s);
   }
   return launch_forward(reinterpret_cast<const float*>(pts), P,
                         reinterpret_cast<const float*>(w), bb, m, n_layers, hid,

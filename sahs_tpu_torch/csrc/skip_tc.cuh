@@ -1,17 +1,18 @@
-// The deformation nets on the tensor cores: one skip MLP over a 64-point
-// tile on mma.cuh's products. Its forward half (skip_trunk_tc) is bf16
-// K13's (skip_mlp.cu:skip_fwd_tc_kernel, no stash); the whole net
-// (skip_net_tc, forward with the stash, then backward) is bf16 K3's
-// (deform_pair_vjp.cu) and K14's (skip_mlp.cu).
+// The deformation nets' backward on the tensor cores: one skip MLP over a
+// 64-point tile on mma.cuh's products, forward with the stash, then
+// backward (skip_net_tc), bf16 K3's (deform_pair_vjp.cu, pair_bwd.cuh) and
+// K14's (skip_mlp.cu). The forwards K1 and K13 run skip_wg.cuh's tile on
+// wgmma, with the same semantics (each k16 step summed from zero, added in
+// float32).
 //
 // A deformation net is a ReLU trunk of L layers H wide (the warp field's
 // 6 x 128, the hyper sheet's 6 x 64) whose layer `skip` takes [h ; pe],
 // and a head of at most 8 outputs padded to 8 columns (tanh for the warp
 // field, linear for the hyper sheet). skip_trunk_tc takes the tile's
 // encoding already in shared memory (its rows past pe_dim zero, for the K
-// padding) and runs the trunk forward, with STASH each layer's output to
-// the activation stash. skip_net_tc then
-//   1. runs skip_trunk_tc with the stash;
+// padding) and runs the trunk forward, each layer's output to the
+// activation stash. skip_net_tc then
+//   1. runs skip_trunk_tc;
 //   2. runs the head, whose epilogue forms the head's cotangent in float32
 //      as the SIMT kernels do: gz = (g + g2) act'(y), zero on the padded
 //      columns and past the last point, to the gz stash and, in bf16, to
@@ -20,13 +21,7 @@
 //      epilogue applying the ReLU's derivative from the stashed output and
 //      writing gz to the gz stash (f32) and to shared memory (bf16) for the
 //      next product (mma.cuh's DactStore), so no f32 tile is kept.
-// dW is then mma.cuh's level_dw_kernel over the two stashes. K13's kernel
-// runs skip_trunk_tc without the stash and the head with the forward's
-// epilogue, y = act(v + b) in f32 (mma.cuh's StoreF32): SkipLayout(pe_dim,
-// false) is 63,488 B at 32-row slices, ptxas gives it 104 registers and
-// no spills, two blocks an SM; on an H100 it runs the warp net at 98-99
-// TFLOP/s, 10 % of its bound (8.3 ms at a frame's 4.19 M fine points
-// against 0.835), the hyper net at 57 (skip_mlp.cu, PERF.md).
+// dW is then mma.cuh's level_dw_kernel over the two stashes.
 //
 // The warp layout follows N. tc_product's fixed layout (two 32-wide output
 // groups a warp, strided by 128) would leave every warp's second group
@@ -35,9 +30,9 @@
 // one a warp: each warp 32 points x 32 outputs; a product at N <= 64 (the
 // hyper sheet's layers, the heads, the product back to the encoding) takes
 // 16-wide groups: each warp 32 points x 16 outputs. All eight warps hold
-// outputs at either width. The weights are staged KS rows at a time
-// (mma.cuh's ring; one barrier pair per slice; SKIP_KS for K3 and K14), so
-// every K is padded to a multiple of KS: the trunks' widths are multiples
+// outputs at either width. The weights are staged SKIP_KS rows at a time
+// (mma.cuh's ring; one barrier pair per slice), so every K is padded to
+// a multiple of SKIP_KS: the trunks' widths are multiples
 // of SKIP_KS (the wrappers check), the encoding's and the head cotangent's
 // padding rows are zero.
 #pragma once
@@ -54,14 +49,14 @@ __host__ __device__ __forceinline__ int pad_ks(int n) {
 }
 
 // One product at the warp layout its N asks for (N <= SKIP_HMAX), the
-// weights staged KS rows a slice.
-template <int KS = SKIP_KS, class Epi>
+// weights staged SKIP_KS rows a slice.
+template <class Epi>
 __device__ __forceinline__ void skip_product(Operand o1, Operand o2, int N,
                                              bf16* ring, const Epi& epi) {
   if (N > 64)
-    tc_product_wn<32, 1, KS>(o1, o2, N, ring, epi);
+    tc_product_wn<32, 1, SKIP_KS>(o1, o2, N, ring, epi);
   else
-    tc_product_wn<16, 1, KS>(o1, o2, N, ring, epi);
+    tc_product_wn<16, 1, SKIP_KS>(o1, o2, N, ring, epi);
 }
 
 // The head's epilogue: y = act(v + b[n]) as mlp_layer forms it, then the
@@ -108,11 +103,9 @@ struct SkipNet {
 };
 
 // The trunk of one net over the tile: layer l's output to hA for even l,
-// hB for odd l, with STASH also to the activation stash (act_off[s.aslot
-// + l]); without it acts and act_off are not read. Returns the tile
-// holding h_{L-1} (hA or hB); the other is free then. Ends with a
-// __syncthreads().
-template <bool STASH, int KS>
+// hB for odd l, and to the activation stash (act_off[s.aslot + l]).
+// Returns the tile holding h_{L-1} (hA or hB); the other is free then.
+// Ends with a __syncthreads().
 __device__ __forceinline__ bf16* skip_trunk_tc(const SkipNet& s, const bf16* wblob,
                                                const float* bblob, const bf16* pe,
                                                bf16* hA, bf16* hB, bf16* ring,
@@ -122,11 +115,11 @@ __device__ __forceinline__ bf16* skip_trunk_tc(const SkipNet& s, const bf16* wbl
   for (int l = 0; l < s.L; ++l) {
     const LayerDesc d = load_desc(s.meta, s.first + l);
     bf16* y = h == hA ? hB : hA;
-    skip_product<KS>(Operand{wblob + d.w1, d.k1, h != nullptr ? h : pe},
-                     d.w2 >= 0 ? Operand{wblob + d.w2, d.k2, pe} : none, d.n, ring,
-                     StoreAct{y, bblob + d.b, d.act});
+    skip_product(Operand{wblob + d.w1, d.k1, h != nullptr ? h : pe},
+                 d.w2 >= 0 ? Operand{wblob + d.w2, d.k2, pe} : none, d.n, ring,
+                 StoreAct{y, bblob + d.b, d.act});
     __syncthreads();
-    if constexpr (STASH) stash_rows(y, acts + act_off[s.aslot + l], d.n);
+    stash_rows(y, acts + act_off[s.aslot + l], d.n);
     h = y;
   }
   return h;
@@ -143,8 +136,7 @@ __device__ bf16* skip_net_tc(const SkipNet& s, const bf16* wblob,
                              bf16* acts, const int* act_off, float* gzs,
                              const int* gz_off, long long base, long long P) {
   const Operand none = {nullptr, 0, nullptr};
-  const bf16* src = skip_trunk_tc<true, SKIP_KS>(s, wblob, bblob, pe, hA, hB, ring,
-                                                 acts, act_off);
+  const bf16* src = skip_trunk_tc(s, wblob, bblob, pe, hA, hB, ring, acts, act_off);
   // the head's gz in the free tile, its rows past the head's padded width
   // zero for head^T's K padding
   const LayerDesc head = load_desc(s.meta, s.first + s.L);
@@ -175,12 +167,11 @@ __device__ bf16* skip_net_tc(const SkipNet& s, const bf16* wblob,
 // least as large as that product's f32 result [pad8(pe_dim)] (TC_LDF
 // stride), which takes the tile skip_net_tc leaves free; with `pair` (K3's
 // points cotangent) gp, an f32 tile of that result's size where the two
-// nets' results are summed; then the weight ring of ks-row slices for
-// outputs up to max(SKIP_HMAX, pad8(pe_dim)) wide.
+// nets' results are summed; then the weight ring of SKIP_KS-row slices
+// for outputs up to max(SKIP_HMAX, pad8(pe_dim)) wide.
 struct SkipLayout {
   int pe, ha, hb, gs, gp, ring, bytes;
-  __host__ __device__ SkipLayout(int pe_dim, bool to_pe, int ks = SKIP_KS,
-                                 bool pair = false) {
+  __host__ __device__ SkipLayout(int pe_dim, bool to_pe, bool pair = false) {
     const int n_pe = (pe_dim + 7) / 8 * 8;
     int h = SKIP_HMAX * TC_LD * 2;
     if (to_pe && n_pe * TC_LDF * 4 > h) h = n_pe * TC_LDF * 4;
@@ -191,7 +182,7 @@ struct SkipLayout {
     ring = gs + (to_pe ? SKIP_HMAX * TC_LD * 2 : 0);
     gp = ring;
     if (pair) ring += n_pe * TC_LDF * 4;
-    bytes = ring + ring_bytes(n_pe > SKIP_HMAX ? n_pe : SKIP_HMAX, ks);
+    bytes = ring + ring_bytes(n_pe > SKIP_HMAX ? n_pe : SKIP_HMAX, SKIP_KS);
   }
 };
 

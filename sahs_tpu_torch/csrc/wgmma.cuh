@@ -3,9 +3,10 @@
 // memory and shared memory, and TMA bulk copies of contiguous bytes. Used
 // by the tools' chain kernels (X1 in exp_gather.cu, X4-X6 in exp_pair2.cu),
 // for its TMA ring alone by X2's in-tile gathers (exp_gather.cu), and by
-// the NeRF field's forward tile (level_train.cu: field_tc_kernel, K5/K7/K11,
-// and fwd_tc_kernel, launch 1 of K2/K6/K8/K12); the backward tiles stay on
-// mma.sync (mma.cuh).
+// the forward tiles: the NeRF field's (level_train.cu: field_tc_kernel,
+// K5/K7/K11, and fwd_tc_kernel, launch 1 of K2/K6/K8/K12) and the
+// deformation nets' (skip_wg.cuh: K1 and K13), which share the weight ring
+// and the products below; the backward tiles stay on mma.sync (mma.cuh).
 //
 // The layout. Every bf16 operand in shared memory is in the 128-byte
 // swizzle (CU_TENSOR_MAP_SWIZZLE_128B, descriptor layout type 1): rows of
@@ -340,6 +341,155 @@ __device__ __forceinline__ void tma_store_wait_read() {
 // the committed stores are complete
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- weight stages through a ring (the forward tiles: level_train.cu's
+// fw::tile, skip_wg.cuh's sk::tile) ----
+// A stage is one 64-k block of one chunk of a layer's outputs (at most NC
+// rows of 128 bytes, K-major in the 128-byte swizzle), laid out ahead of
+// time in the order a tile runs its products; one producer thread copies
+// each into the next free slot of the ring (Ring::push), every consumer
+// warp frees it (lane 0 arrives on `empty`). ``product`` runs one chunk's
+// products, A from the warpgroup's tiles in shared memory.
+//
+// Accumulation (PROMOTE): the tensor core's sum truncates; mma.sync's tiles
+// (mma.cuh) sum each k16 step from zero there and add it to the running
+// sum in float32 round-to-nearest. PROMOTE s sums s k16 steps in the
+// tensor core, then adds them to the float32 sums (s = 1 is mma.cuh's
+// semantics); PROMOTE 0 carries the sum over the whole K in the tensor
+// core.
+constexpr int KB = 64;             // k rows of a weight stage
+constexpr int NC = 128;            // output columns of a chunk, at most
+constexpr int SLOT = NC * 128;     // bytes of a ring slot
+
+struct Ring {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int n, stage;
+  uint32_t phase;
+  __device__ __forceinline__ void next() {
+    if (++stage == n) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+  // the producer's side: `bytes` from device memory `src` into the next
+  // slot once the consumers have freed it
+  __device__ __forceinline__ void push(const void* src, uint32_t bytes) {
+    mbar_wait(&empty[stage], phase ^ 1u);
+    mbar_expect(&full[stage], bytes);
+    bulk_load(slots + stage * SLOT, src, bytes, &full[stage]);
+    next();
+  }
+};
+
+// An input's 64-column blocks in shared memory: blocks 0-1 from lo, 2 on
+// from hi, nb of them.
+struct ASrc {
+  uint32_t lo, hi;
+  int nb;
+};
+__device__ __forceinline__ uint32_t a_block(const ASrc& s, int kb) {
+  return kb < 2 ? s.lo + kb * wg::BLOCK : s.hi + (kb - 2) * wg::BLOCK;
+}
+
+// d = A1 W1 (+ A2 W2) over one N-wide chunk of outputs, one ring stage a
+// 64-k block. Called by the whole warpgroup.
+template <int N, int PROMOTE>
+__device__ __forceinline__ void product(float (&d)[N / 2], const ASrc& s1, const ASrc& s2,
+                                        Ring& rg, int lane) {
+  constexpr int R = N / 2;
+  float p[PROMOTE > 1 || (PROMOTE == 1 && N != 2 * KB) ? R : 1];
+  if constexpr (PROMOTE != 0) {
+#pragma unroll
+    for (int e = 0; e < R; ++e) d[e] = 0.0f;
+  }
+  int prev = 0;
+  bool first = true;
+  const int nb = s1.nb + s2.nb;
+  for (int b = 0; b < nb; ++b) {
+    const uint32_t ab = b < s1.nb ? a_block(s1, b) : a_block(s2, b - s1.nb);
+    wg::mbar_wait(&rg.full[rg.stage], rg.phase);
+    const uint32_t wb = wg::smem_u32(rg.slots + rg.stage * SLOT);
+    if constexpr (PROMOTE == 1 && N == 2 * KB) {
+      // each k16 step apart, in two 64-column halves: one half's float32
+      // adds run while the other half's product is in flight (the order
+      // of the groups: A0 B0 A1 B1 ...; wait<1> leaves the newest pending)
+      float pa[KB / 2], pb[KB / 2];
+      wg::fence_operand(pa);
+      wg::fence_operand(pb);
+      wg::fence();
+      wg::mma<KB, 0>(pa, wg::k_desc(ab, 0), wg::k_desc(wb, 0), 0);
+      wg::commit();
+      wg::mma<KB, 0>(pb, wg::k_desc(ab, 0), wg::k_desc(wb + KB * 128, 0), 0);
+      wg::commit();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wg::wait<1>();
+        wg::fence_operand(pa);
+#pragma unroll
+        for (int e = 0; e < KB / 2; ++e) d[e] = __fadd_rn(d[e], pa[e]);
+        if (j < 3) {
+          wg::fence();
+          wg::mma<KB, 0>(pa, wg::k_desc(ab, j + 1), wg::k_desc(wb, j + 1), 0);
+          wg::commit();
+          wg::wait<1>();
+        } else {
+          wg::wait<0>();
+        }
+        wg::fence_operand(pb);
+#pragma unroll
+        for (int e = 0; e < KB / 2; ++e) d[KB / 2 + e] = __fadd_rn(d[KB / 2 + e], pb[e]);
+        if (j < 3) {
+          wg::fence();
+          wg::mma<KB, 0>(pb, wg::k_desc(ab, j + 1), wg::k_desc(wb + KB * 128, j + 1), 0);
+          wg::commit();
+        }
+      }
+      wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
+    } else if constexpr (PROMOTE == 0) {
+      wg::fence_operand(d);
+      wg::fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wg::mma<N, 0>(d, wg::k_desc(ab, j), wg::k_desc(wb, j), !(first && j == 0));
+      wg::commit();
+      wg::wait<1>();  // the previous stage's products are done
+      wg::fence_operand(d);
+      wg::mbar_arrive(&rg.empty[prev], !first && lane == 0);
+    } else {
+#pragma unroll
+      for (int j0 = 0; j0 < 4; j0 += PROMOTE) {
+        wg::fence_operand(p);
+        wg::fence();
+#pragma unroll
+        for (int j = j0; j < j0 + PROMOTE; ++j)
+          wg::mma<N, 0>(p, wg::k_desc(ab, j), wg::k_desc(wb, j), j > j0);
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(p);
+#pragma unroll
+        for (int e = 0; e < R; ++e) d[e] = __fadd_rn(d[e], p[e]);
+      }
+      wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
+    }
+    prev = rg.stage;
+    rg.next();
+    first = false;
+  }
+  if constexpr (PROMOTE == 0) {
+    wg::wait<0>();
+    wg::fence_operand(d);
+    wg::mbar_arrive(&rg.empty[prev], lane == 0);
+  }
+}
+
+// A 4-byte shared-memory store. No memory clobber: the epilogue's bias reads
+// must not wait behind each store; the fences and barriers after the
+// epilogue order the stores for their readers.
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
 }
 
 // ---- host: tensor maps ----

@@ -3,12 +3,13 @@
 K1 replaces ``sahs_tpu/ops/pallas/field_mlp.py:deform_pair_forward`` (:868,
 ``pallas_call`` at :1022), reached through ``deform_pair_apply_fused``.
 The CUDA kernel is ``csrc/deform_pair.cu``; its source note gives the
-bound on the H100 (operations: ~0.25 MFLOP per point) and the design. In
-bfloat16 it runs on the tensor cores over 64-point tiles
-(``deform_pair_tc_kernel``: ``csrc/skip_tc.cuh``'s trunk for each net on
-one encoding, the same products as K3's recomputed forward, from the same
-blob); in float32 on the CUDA cores. A bf16 pair whose trunks are not
-multiples of ``skip_mlp.TC_K_STEP`` wide raises.
+bound on the H100 (operations: ~0.26 MFLOP per point) and the design. In
+bfloat16 it runs on the tensor cores (``deform_pair_wg_kernel``: the
+deformation nets' tile on wgmma, ``csrc/skip_wg.cuh``, both nets on one
+encoding, with the semantics of K3's recomputed forward from the same
+blob), its weights streamed as the stages of ``field_mlp.stage_blob``
+(``skip_mlp.tile_stages``); in float32 on the CUDA cores. A bf16 pair whose
+trunks are not multiples of ``skip_mlp.TC_K_STEP`` wide raises.
 
 K3 replaces ``field_mlp.py:deform_pair_vjp`` (:1098, ``pallas_call`` at
 :1233): the dW and db of both trunks and heads from the packed cotangent g
@@ -45,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..grid import _cell_geometry
@@ -55,7 +57,7 @@ from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
                         trunk_backward, trunk_forward, trunk_into_blob,
                         trunk_params)
 from .points import build_pts_plain
-from .skip_mlp import TC_K_STEP, skip_param_grads
+from .skip_mlp import TC_K_STEP, skip_param_grads, tile_stages
 
 # The rays of the rays= form: (ro (R, 3), rd (R, 3), z (R, S)), float32.
 Rays = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -93,6 +95,7 @@ class PairWeights:
             trunk_into_blob(bb, self.hyper_trunk, self.hyper_skip, "relu",
                             self.hyper_out, "linear")
             self._blobs[dtype] = bb.build(dtype)
+            self._blobs["descs"] = np.asarray(bb.descs, np.int32)
         return self._blobs[dtype]
 
 
@@ -228,20 +231,26 @@ def _launch(points: Optional[torch.Tensor], weights: PairWeights,
     if wblob.device != dev:
         raise ValueError(f"K1 weights are on {wblob.device}, points on {dev}")
     gD, gH, gW = grid_dims or (0, 0, 0)
+    n_warp = len(weights.warp_trunk)
+    stages, descs = None, None
+    if dtype == torch.bfloat16:
+        heads = [n_warp, n_warp + 1 + len(weights.hyper_trunk)]
+        stages, descs = tile_stages(weights, heads)
     rest = (_build.ptr(wblob), _build.ptr(bblob),
-            _build.ptr(meta), len(weights.warp_trunk), len(weights.hyper_trunk),
+            _build.ptr(meta), n_warp, len(weights.hyper_trunk),
             weights.warp_trunk[0]["w"].shape[1], weights.hyper_trunk[0]["w"].shape[1],
             3, weights.hyper_out["w"].shape[1], weights.pe_groups[0][2],
             int(dtype == torch.bfloat16), _build.ptr(out), _build.ptr(rows), gD, gH, gW,
-            _build.stream_ptr(dev))
+            _build.ptr(stages), 0 if stages is None else 2 * stages.numel(),
+            None if descs is None else descs.ctypes.data, _build.stream_ptr(dev))
     if rays is None:
         fn = _build.function("deform_pair", "sahs_deform_pair_forward",
-                             "plppp" + "i" * 8 + "pp" + "iii" + "p")
+                             "plppp" + "i" * 8 + "pp" + "iii" + "plpp")
         rc = fn(_build.ptr(points), points.shape[0], *rest)
     else:
         ro, rd, z = rays
         fn = _build.function("deform_pair", "sahs_deform_pair_forward_rays",
-                             "ppp" + "li" + "ppp" + "i" * 8 + "pp" + "iii" + "p")
+                             "ppp" + "li" + "ppp" + "i" * 8 + "pp" + "iii" + "plpp")
         rc = fn(_build.ptr(ro), _build.ptr(rd), _build.ptr(z), z.shape[0], z.shape[1],
                 *rest)
     _build.check(rc, "deform_pair_forward")

@@ -416,3 +416,92 @@ def trunk_into_blob(bb: BlobBuilder, trunk, skip_every: int, act: str,
         else:
             bb.layer(p["w"], p["b"], act)
     bb.layer(head["w"], head["b"], head_act)
+
+
+# ---------------------------------------------------------------------------
+# The weight stages of the bf16 forward tiles on wgmma (csrc/wgmma.cuh's
+# ring; the NeRF field's tile, level_train.cu fw::, and the deformation
+# nets', skip_wg.cuh sk::)
+# ---------------------------------------------------------------------------
+
+# k rows of a stage (one 128-byte swizzled row of bf16) and output columns
+# of a chunk (wgmma.cuh's KB and NC)
+WG_KB, WG_NC = 64, 128
+
+
+def wgmma_chunks(n: int, head: bool) -> List[Tuple[int, int]]:
+    """(first column, columns) of each chunk of a layer's n (padded)
+    outputs, as the tiles cut them: a head one chunk of n; else n rounded
+    up to WG_KB, in chunks of WG_NC (the last may be 64)."""
+    if head:
+        return [(0, n)]
+    nn = -(-n // WG_KB) * WG_KB
+    return [(c0, min(WG_NC, nn - c0)) for c0 in range(0, nn, WG_NC)]
+
+
+def stage_order(descs, heads) -> List[tuple]:
+    """The stages of a blob's layers (``descs``, BlobBuilder's) in the order
+    a tile reads them, one per (layer, chunk, input, 64-k block): (layer, w
+    offset of the input's (k, n) row-major block in the blob, k, n, first
+    column, rows, k block). ``heads``: the layers run as one product of
+    their padded width."""
+    out = []
+    for q, (w1, k1, w2, k2, n, _, _) in enumerate(descs):
+        for c0, rows in wgmma_chunks(n, q in heads):
+            for off, k in ((w1, k1), (w2, k2)):
+                if off < 0:
+                    continue
+                out += [(q, off, k, n, c0, rows, kb) for kb in range(-(-k // WG_KB))]
+    return out
+
+
+def swizzled(rows: int) -> np.ndarray:
+    """Element index within a stage of (row r, k column kc), rows x 64 bf16
+    in the 128-byte swizzle (wgmma.cuh): the 16-byte chunk kc // 8 of row r
+    lies at chunk (kc // 8) ^ (r % 8)."""
+    r = np.arange(rows)[:, None]
+    kc = np.arange(WG_KB)[None, :]
+    return r * WG_KB + (((kc >> 3) ^ (r & 7)) << 3) + (kc & 7)
+
+
+def stage_index(descs, heads, n_weights: int) -> np.ndarray:
+    """For every element of the stages, its index in a blob of
+    ``n_weights`` elements, or ``n_weights`` (a zero) for the K and N
+    padding. A stage holds rows (outputs c0 .. c0 + rows) x 64 k (k block
+    kb), K-major: W[kb * 64 + kc, c0 + r] at ``swizzled(rows)[r, kc]``."""
+    parts = []
+    for _, off, k, n, c0, rows, kb in stage_order(descs, heads):
+        r = np.arange(rows)[:, None]
+        kk = kb * WG_KB + np.arange(WG_KB)[None, :]
+        src = np.where((kk < k) & (c0 + r < n), off + kk * n + c0 + r, n_weights)
+        stage = np.empty(rows * WG_KB, np.int64)
+        stage[swizzled(rows).ravel()] = src.ravel()
+        parts.append(stage)
+    return np.concatenate(parts)
+
+
+# stage_index on a device, per layer structure: weights are folded anew for
+# every frame and step, their structure is not
+_STAGE_INDEX: Dict[tuple, torch.Tensor] = {}
+
+
+def stage_blob(blobs: dict, w: torch.Tensor, descs, heads) -> torch.Tensor:
+    """The weight stages of bf16 blob ``w`` (``descs`` its layers): each
+    stage one 64-k block of one output chunk of a layer, rows of 128 bytes
+    in the 128-byte swizzle, K-major (the transposed weights), zero past K
+    and past the layer's outputs, in ``stage_order``. Built on w's device
+    and kept in ``blobs`` (the folded weights' cache) while ``w`` is the
+    same tensor, unchanged: a test's altered copy of the blob, or one
+    changed in place, is staged anew."""
+    key = ("wgmma", w.dtype)
+    hit = blobs.get(key)
+    if hit is not None and hit[0] is w and hit[1] == w._version:
+        return hit[2]
+    index_key = (tuple(map(tuple, descs)), tuple(heads), w.numel(), w.device)
+    if index_key not in _STAGE_INDEX:
+        _STAGE_INDEX[index_key] = torch.from_numpy(
+            stage_index(descs, heads, w.numel())).to(w.device)
+    with torch.no_grad():
+        blob = torch.cat([w.reshape(-1), w.new_zeros(1)])[_STAGE_INDEX[index_key]]
+    blobs[key] = (w, w._version, blob)
+    return blob

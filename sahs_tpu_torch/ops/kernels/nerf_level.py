@@ -42,16 +42,15 @@ the same functions in plain tensor math.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from . import _build
 from ..grid import _cell_geometry, interp_corners
 from .field_mlp import (BlobBuilder, PEGroup, fold_trunk, kernel_pe, mm,
-                        linear_grads, linear_params, torch_dtype,
-                        trunk_forward, trunk_params)
+                        linear_grads, linear_params, stage_blob, stage_order,
+                        torch_dtype, trunk_forward, trunk_params)
 
 
 @dataclasses.dataclass
@@ -138,72 +137,16 @@ def point_blob(weights: LevelWeights, dtype: torch.dtype):
     return weights._blobs[key]
 
 
-# The stages of the bf16 forward tile (csrc/level_train.cu, fw::): k rows
-# of a stage (one 128-byte swizzled row of bf16) and output columns of a
-# chunk.
-WG_KB, WG_NC = 64, 128
-
-
 def wgmma_heads(n_trunk: int) -> Tuple[int, int, int]:
     """The layers of ``point_layers`` that are heads (alpha, rgb, the seg
     logits): the tile runs each as one product of its padded width."""
     return n_trunk + 1, n_trunk + 6, n_trunk + 11
 
 
-def wgmma_chunks(n: int, head: bool) -> List[Tuple[int, int]]:
-    """(first column, columns) of each chunk of a layer's n (padded)
-    outputs, as fw::n_chunks / chunk_cols cut them: a head one chunk of n;
-    else n rounded up to WG_KB, in chunks of WG_NC (the last may be 64)."""
-    if head:
-        return [(0, n)]
-    nn = -(-n // WG_KB) * WG_KB
-    return [(c0, min(WG_NC, nn - c0)) for c0 in range(0, nn, WG_NC)]
-
-
 def wgmma_stages(descs, n_trunk: int):
-    """The stages of the forward tile's weight ring in the order the tile
-    reads them, one per (layer, chunk, input, 64-k block): (layer, w offset
-    of the input's (k, n) row-major block in the forward blob, k, n, first
-    column, rows, k block)."""
-    heads = wgmma_heads(n_trunk)
-    out = []
-    for q, (w1, k1, w2, k2, n, _, _) in enumerate(descs):
-        for c0, rows in wgmma_chunks(n, q in heads):
-            for off, k in ((w1, k1), (w2, k2)):
-                if off < 0:
-                    continue
-                out += [(q, off, k, n, c0, rows, kb) for kb in range(-(-k // WG_KB))]
-    return out
-
-
-def _swizzled(rows: int) -> np.ndarray:
-    """Element index within a stage of (row r, k column kc), rows x 64 bf16
-    in the 128-byte swizzle (wgmma.cuh): the 16-byte chunk kc // 8 of row r
-    lies at chunk (kc // 8) ^ (r % 8)."""
-    r = np.arange(rows)[:, None]
-    kc = np.arange(WG_KB)[None, :]
-    return r * WG_KB + (((kc >> 3) ^ (r & 7)) << 3) + (kc & 7)
-
-
-def wgmma_index(descs, n_trunk: int, n_weights: int) -> np.ndarray:
-    """For every element of the stages, its index in the forward blob of
-    ``n_weights`` elements, or ``n_weights`` (a zero) for the K and N
-    padding. A stage holds rows (outputs c0 .. c0 + rows) x 64 k (k block
-    kb), K-major: W[kb * 64 + kc, c0 + r] at ``_swizzled(rows)[r, kc]``."""
-    parts = []
-    for _, off, k, n, c0, rows, kb in wgmma_stages(descs, n_trunk):
-        r = np.arange(rows)[:, None]
-        kk = kb * WG_KB + np.arange(WG_KB)[None, :]
-        src = np.where((kk < k) & (c0 + r < n), off + kk * n + c0 + r, n_weights)
-        stage = np.empty(rows * WG_KB, np.int64)
-        stage[_swizzled(rows).ravel()] = src.ravel()
-        parts.append(stage)
-    return np.concatenate(parts)
-
-
-# wgmma_index on a device, per layer structure: a level is folded anew for
-# every frame and step, its structure is not
-_WG_INDEX: Dict[tuple, torch.Tensor] = {}
+    """``field_mlp.stage_order`` of a level's forward blob: the stages of
+    the field's forward tile in the order it reads them."""
+    return stage_order(descs, wgmma_heads(n_trunk))
 
 
 def field_promote() -> int:
@@ -222,22 +165,12 @@ def wgmma_blob(weights: LevelWeights, w: torch.Tensor) -> torch.Tensor:
     transposed weights), zero past K and past the layer's outputs; stages in
     the order the tile runs its products. Built on w's device, kept while
     ``w`` is the same tensor, unchanged."""
-    key = ("wgmma", w.dtype)
-    hit = weights._blobs.get(key)
-    if hit is not None and hit[0] is w and hit[1] == w._version:
-        return hit[2]
     descs = weights._blobs.get("point_descs") or point_layers(weights).descs
-    if [descs[q][4] for q in wgmma_heads(len(weights.trunk))] != [8, 8, 16]:
+    heads = wgmma_heads(len(weights.trunk))
+    if [descs[q][4] for q in heads] != [8, 8, 16]:
         raise ValueError("the forward tile takes heads of 1, 3 and 12 outputs "
                          f"(padded 8, 8, 16), got {[d[4] for d in descs]}")
-    index_key = (tuple(map(tuple, descs)), len(weights.trunk), w.numel(), w.device)
-    if index_key not in _WG_INDEX:
-        _WG_INDEX[index_key] = torch.from_numpy(
-            wgmma_index(descs, len(weights.trunk), w.numel())).to(w.device)
-    with torch.no_grad():
-        blob = torch.cat([w.reshape(-1), w.new_zeros(1)])[_WG_INDEX[index_key]]
-    weights._blobs[key] = (w, w._version, blob)
-    return blob
+    return stage_blob(weights._blobs, w, descs, heads)
 
 
 def prepare_level(nerf, cond: torch.Tensor,

@@ -15,9 +15,11 @@ encoding itself. As JAX casts that encoding to the compute dtype before
 its kernel (field_mlp.py:354-356), the wrapper does, and the kernel reads
 it as it is and forms no PE.
 
-In bfloat16 K13 runs on the tensor cores over 64-point tiles
-(``csrc/skip_mlp.cu:skip_fwd_tc_kernel``, the trunk of ``csrc/skip_tc.cuh``
-without the stash), in float32 on the CUDA cores (``skip_mlp_kernel``).
+In bfloat16 K13 runs on the tensor cores (``csrc/skip_mlp.cu:
+skip_wg_kernel``, the deformation nets' tile on wgmma, ``csrc/skip_wg.cuh``,
+the one K1 runs with two nets), its weights streamed as the stages of
+``field_mlp.stage_blob`` (``tile_stages``); in float32 on the CUDA cores
+(``skip_mlp_kernel``).
 
 K14 replaces ``field_mlp.py:skip_mlp_vjp`` (:516, ``pallas_call`` at :571):
 the folded dW and db of every trunk layer and of the head, and, when asked,
@@ -43,19 +45,22 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
 from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
                         dact, dw_chunks, fold_trunk, kernel_pe, linear_grads,
-                        linear_params, mm, mm_t, pe_backward, tile_points,
-                        torch_dtype, trunk_backward, trunk_forward,
+                        linear_params, mm, mm_t, pe_backward, stage_blob,
+                        tile_points, torch_dtype, trunk_backward, trunk_forward,
                         trunk_into_blob, trunk_params, unfold_cond_grads)
 
 MAX_HIDDEN = 128
 MAX_OUT = 8
-# bf16 K3, K13 and K14 stage their weights in slices of at most this many
-# rows (csrc/skip_tc.cuh:SKIP_KS): the trunks' widths are multiples of it
+# bf16 K3 and K14 stage their weights in slices of at most this many rows
+# (csrc/skip_tc.cuh:SKIP_KS), and the forward tile of K1 and K13
+# (csrc/skip_wg.cuh) takes trunks of whole multiples of it: the trunks'
+# widths are multiples of it
 TC_K_STEP = 32
 
 
@@ -81,7 +86,23 @@ class SkipWeights:
                 trunk_into_blob(bb, self.trunk, self.skip, "relu", self.out,
                                 self.out_act)
                 self._blobs[dtype] = bb.build(dtype)
+            self._blobs["descs"] = np.asarray(bb.descs, np.int32)
         return self._blobs[dtype]
+
+
+def tile_stages(weights, heads: Sequence[int]) -> Tuple[torch.Tensor, np.ndarray]:
+    """What the bf16 forward tile of csrc/skip_wg.cuh reads beside the bias
+    blob: the weight stages of ``weights.blob(bfloat16)`` (``SkipWeights``,
+    or K1's ``PairWeights``; ``field_mlp.stage_blob``, rebuilt when that
+    blob is another tensor or changed in place), and the blob's layer table
+    in host memory (int32, 7 a layer), which the launch passes to the tile
+    as a kernel parameter. ``heads``: each net's head layer."""
+    w, _, meta = weights.blob(torch.bfloat16)
+    descs = weights._blobs.get("descs")
+    if descs is None:   # a blob put in place by hand
+        descs = weights._blobs["descs"] = np.asarray(meta.reshape(-1, 7).tolist(),
+                                                     np.int32)
+    return stage_blob(weights._blobs, w, descs.tolist(), tuple(heads)), descs
 
 
 def prepare_skip(net, cond: torch.Tensor,
@@ -183,12 +204,18 @@ def skip_mlp_forward(points: torch.Tensor, weights: SkipWeights,
         raise ValueError(f"K13's out must be a contiguous ({P}, {out_dim}) float32 "
                          f"tensor on {points.device}, got {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}")
+    stages, descs, n_stage = None, None, 0
+    if dtype == torch.bfloat16:
+        stages, descs = tile_stages(weights, [len(weights.trunk)])
+        n_stage = 2 * stages.numel()
     fn = _build.function("skip_mlp", "sahs_skip_mlp_forward", "plppp" + "i" * 6
-                         + "pp")
+                         + "pplpp")
     rc = fn(_build.ptr(x), P, _build.ptr(wblob), _build.ptr(bblob),
             _build.ptr(meta), len(weights.trunk), weights.trunk[0]["w"].shape[1],
             out_dim, n_freq, enc_dim, int(dtype == torch.bfloat16),
-            _build.ptr(out), _build.stream_ptr(points.device))
+            _build.ptr(out), _build.ptr(stages), n_stage,
+            None if descs is None else descs.ctypes.data,
+            _build.stream_ptr(points.device))
     _build.check(rc, "skip_mlp_forward")
     skip_mlp_forward.launches += 1
     return out

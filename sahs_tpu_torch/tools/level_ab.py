@@ -59,10 +59,13 @@ minimum of 2, CUDA events. ``--fields-only`` times K7 and K11 alone
 and the launches of K2, K6, K8 and K12 by device time
 (``_launch1_times``: their launch 1, ``fwd_tc_kernel``, is the forward tile
 with the stash),
-``--skip-only`` K13 alone (to compare two builds of a kernel),
+``--skip-only`` the deformation nets' forwards alone, K13 and K1 at a
+frame's chunks (``_pair_times``; to compare two builds of their tile),
 ``--serve-only`` K5, K1 and the frames (the flagship, warp-only,
 ambient-only and per-point frames and the reuse chunk: the serving
-readings), ``--grid-only`` the grid backward (K4, K9
+readings; with ``--k1-bits FILE`` K1's fine-chunk output is saved to FILE,
+or held bit for bit against the one another tree saved there),
+``--grid-only`` the grid backward (K4, K9
 and K10 at their paths' shapes, ``_grid_times``), ``--chains-only`` the
 tools' chain kernels X1 and X4-X6 with their gates' readings
 (``_chain_times``), ``--dg-only`` X2 in its four cases beside its
@@ -384,12 +387,49 @@ def _skip_times(dev, reps: int = 3) -> dict:
     return out
 
 
-def _serve_kernel_times(dev, reps: int = 3) -> dict:
+def _pair_times(dev, reps: int = 3) -> dict:
+    """K1 alone per call at a frame's fine (32,768 rays x 128) and coarse
+    (x 64) chunk, on the flagship's seeded deformation nets (the draw of
+    ``_serve_kernel_times``), TFLOP/s and share of the bound."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.utils.device import cuda_ms
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(5)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    cond = g(rng.randn(76 + 36) * 0.5)
+    pair = k1.prepare_pair(model.warp, model.hyper, cond, nerface.build_pe_groups(spec)[0])
+    macs = _net_macs(pair.warp_trunk, pair.warp_out) + _net_macs(pair.hyper_trunk,
+                                                                  pair.hyper_out)
+    out = {}
+    for S, name in ((128, "fine"), (64, "coarse")):
+        P = 32768 * S
+        pts = g(rng.uniform(-0.6, 0.6, (P, 3)))
+        ms = cuda_ms(lambda: k1.deform_pair_forward(pts, pair, "bfloat16", S, (32, 32, 32)),
+                     reps, runs=3)
+        bound = 2 * macs * P / PEAK_BF16_FLOPS * 1e3
+        out[f"K1 {name} chunk"] = {"ms": ms, "tflops": 2 * macs * P / (ms / 1e3) / 1e12,
+                                   "bound_ms": bound, "bound_share": bound / ms}
+        del pts
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_kernel_times(dev, reps: int = 3, k1_bits: str = None) -> dict:
     """K5 and K1 per call at a frame's fine (32,768 rays x 128) and coarse
     (x 64) chunk, on the flagship's seeded coarse level and deformation
     nets, each beside its library call (the plain version under bf16
     autocast, which the port never calls), TFLOP/s and share of the bound
-    (operations at 989 TFLOP/s)."""
+    (operations at 989 TFLOP/s). With ``k1_bits``, a file path: K1's output
+    and rows at the fine chunk are saved there when it does not exist, and
+    otherwise held against the saved ones (another tree's, on the same
+    draw), under "K1 bits"."""
     import numpy as np
     import torch
 
@@ -440,6 +480,8 @@ def _serve_kernel_times(dev, reps: int = 3) -> dict:
         out[f"K1 {name} chunk"] = row(
             best(lambda: k1.deform_pair_forward(*args1)),
             best(autocast(lambda: k1.deform_pair_plain(*args1))), 2 * k1_macs * P)
+        if k1_bits and name == "fine":
+            out["K1 bits"] = _k1_bits(k1.deform_pair_forward(*args1), k1_bits)
         packed, rows = k1.deform_pair_plain(*args1)
         z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
         args5 = (packed, dirs, table, rows, z, bg, None, level, "bfloat16", grid)
@@ -450,6 +492,25 @@ def _serve_kernel_times(dev, reps: int = 3) -> dict:
         del pts, packed, rows, z, args1, args5
         torch.cuda.empty_cache()
     return out
+
+
+def _k1_bits(got, path: str) -> dict:
+    """K1's (packed, rows) saved to ``path``, or held against the ones saved
+    there: whether each is equal bit for bit, the points whose packed row
+    differs and the largest absolute difference."""
+    import torch
+    packed, rows = (t.cpu() for t in got)
+    if not os.path.exists(path):
+        torch.save({"packed": packed, "rows": rows}, path)
+        return {"saved": path}
+    ref = torch.load(path)
+    differ = (packed != ref["packed"]).any(dim=1)
+    return {"packed_equal": torch.equal(packed, ref["packed"]),
+            "rows_equal": torch.equal(rows, ref["rows"]),
+            "points_differing": int(differ.sum()), "points": packed.shape[0],
+            "max_abs": float((packed - ref["packed"]).abs().max()),
+            "max_abs_warp": float((packed[:, :3] - ref["packed"][:, :3]).abs().max()),
+            "max_abs_ambient": float((packed[:, 3:] - ref["packed"][:, 3:]).abs().max())}
 
 
 def k15_readings(k15, ro, rd, z, launches: int = 200) -> dict:
@@ -782,7 +843,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=_HERE)
     ap.add_argument("--fields-only", action="store_true",
                     help="time K7 and K11 alone")
-    ap.add_argument("--skip-only", action="store_true", help="time K13 alone")
+    ap.add_argument("--skip-only", action="store_true",
+                    help="time the deformation nets' forwards alone (K13, K1)")
     ap.add_argument("--serve-only", action="store_true",
                     help="time K5 and K1 at a frame's chunks and the frames")
     ap.add_argument("--grid-only", action="store_true",
@@ -793,6 +855,9 @@ def main(argv=None) -> int:
                     help="time X2 in its four cases")
     ap.add_argument("--steps-only", action="store_true",
                     help="time the train steps of train/trace_step.py alone")
+    ap.add_argument("--k1-bits", default=None,
+                    help="with --serve-only: save K1's fine-chunk output to this file, "
+                         "or hold it against the one saved there")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -813,9 +878,9 @@ def main(argv=None) -> int:
     elif args.steps_only:
         res["steps_ms"] = _step_times(dev)
     elif args.skip_only:
-        res["skip_net"] = _skip_times(dev)
+        res.update(skip_net=_skip_times(dev), pair=_pair_times(dev))
     elif args.serve_only:
-        res.update(serve=_serve_kernel_times(dev),
+        res.update(serve=_serve_kernel_times(dev, k1_bits=args.k1_bits),
                    frames_ms={**_serve_frame_times(dev), **_frame_times(dev)})
     elif args.fields_only:
         res.update(fields=_field_times(dev), launch1=_launch1_times(dev))

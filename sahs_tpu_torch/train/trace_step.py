@@ -27,14 +27,15 @@ K8 the same without composite_kernel; K3: pair_vjp_tc_kernel,
 level_dw_kernel, dw_reduce in bfloat16, pair_vjp_kernel, dw_kernel,
 dw_reduce in float32; K12 as K8); K5 in bfloat16 as its two launches,
 field_tc_kernel (its raw field) and composite_fwd_kernel (its
-compositing), in float32 as nerf_level_kernel; K1 as deform_pair_tc_kernel
-(bfloat16) or deform_pair_kernel (float32); K7 and K11 in bfloat16 as
+compositing), in float32 as nerf_level_kernel; K1 as deform_pair_wg_kernel
+(bfloat16, the deformation nets' tile on wgmma) or deform_pair_kernel
+(float32); K7 and K11 in bfloat16 as
 field_tc_kernel (the tensor-core forward of csrc/level_train.cu), in
 float32 as nerf_level_kernel and nerf_mlp_kernel;
 K4, K9 and K10 as the launches of their one routine (dg_cells_kernel,
 dg_hist_kernel, dg_tile_offsets_kernel, dg_scatter_kernel, dg_cell_sums_kernel,
 dg_cell_offsets_kernel, dg_chunk_kernel, dg_voxel_kernel, and K10's
-dg_dcoords_kernel); K13 as skip_fwd_tc_kernel (bfloat16) or
+dg_dcoords_kernel); K13 as skip_wg_kernel (bfloat16, the same tile) or
 skip_mlp_kernel (float32); K14 as skip_vjp_tc_kernel, level_dw_kernel, dw_reduce (bfloat16) or
 skip_vjp_kernel, dw_kernel, dw_reduce (float32). Each line names the
 port's kernels whose launch it is (``OWNERS``).
@@ -58,7 +59,7 @@ def short_name(kernel: str) -> str:
 
 # CUDA kernel -> the port's kernels (K1-K15) whose launch it is
 OWNERS = {
-    "deform_pair_tc_kernel": "K1", "deform_pair_kernel": "K1",
+    "deform_pair_wg_kernel": "K1", "deform_pair_kernel": "K1",
     "field_tc_kernel": "K5 raw field, K7, K11",
     "composite_fwd_kernel": "K5 compositing",
     "nerf_level_kernel": "K5, K7 (float32)", "nerf_mlp_kernel": "K11 (float32)",
@@ -68,7 +69,7 @@ OWNERS = {
     "level_dw_kernel": "dW of K2, K3, K6, K8, K12, K14", "dw_kernel": "dW (float32)",
     "dw_reduce": "dW's split-K sum",
     "pair_vjp_tc_kernel": "K3", "pair_vjp_kernel": "K3",
-    "skip_fwd_tc_kernel": "K13", "skip_mlp_kernel": "K13",
+    "skip_wg_kernel": "K13", "skip_mlp_kernel": "K13",
     "skip_vjp_tc_kernel": "K14", "skip_vjp_kernel": "K14",
     "build_pts_kernel": "K15",
     "dg_cells_kernel": "K4, K9, K10 dG: cells", "dg_hist_kernel": "K4, K9, K10 dG: sort",

@@ -53,6 +53,7 @@ from sahs_tpu_torch.models import nerface
 from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
 from sahs_tpu_torch.ops.kernels import deform_pair as k1
 from sahs_tpu_torch.ops.kernels import field_grid
+from sahs_tpu_torch.ops.kernels import field_mlp
 from sahs_tpu_torch.ops.kernels import grid_bwd as k4
 from sahs_tpu_torch.ops.kernels import level_train as k2
 from sahs_tpu_torch.ops.kernels import nerf_level as k5
@@ -2436,8 +2437,8 @@ def test_tensor_core_field_fault_ring_stage_misses_gates(card, grid_free, no_amb
 
 
 # ---------------------------------------------------------------------------
-# bf16 K13 on the tensor cores (skip_mlp.cu:skip_fwd_tc_kernel, the trunk
-# of skip_tc.cuh without the stash): the warp and the hyper net against
+# bf16 K13 on the tensor cores (skip_mlp.cu:skip_wg_kernel, the deformation
+# nets' tile on wgmma, skip_wg.cuh): the warp and the hyper net against
 # the plain version within the bf16 gate of the output's scale, and against
 # exact sums within PLAIN_MULTIPLE of the plain version's own distance,
 # with a floor of the forward's own (SKIP_FLOOR); faults planted in the
@@ -2493,8 +2494,8 @@ def test_tensor_core_skip_forward_matches_plain(card, rng, net, P):
 
 def _skip_blob_fault(w, fault: str):
     """A copy of ``w`` whose bf16 forward blob (K13's) leaves out rows 32-63
-    of trunk[1]'s weights (one 32-row slice of what the ring stages) or the
-    head's bias."""
+    of trunk[1]'s weights (half of one 64-k weight stage of the wgmma tile)
+    or the head's bias."""
     faulty = dataclasses.replace(w, _blobs={})
     wb, b, meta = faulty.blob(torch.bfloat16)
     descs = meta.reshape(-1, 7).tolist()
@@ -2560,8 +2561,8 @@ def test_tensor_core_skip_forward_keeps_rows_past_p(card, rng, net):
 # ---------------------------------------------------------------------------
 # bf16 K5 and K1 on the tensor cores: K5 as field_tc_kernel's raw field
 # into a scratch and composite_fwd_kernel (level_train.cu), K1 as
-# deform_pair_tc_kernel (deform_pair.cu, skip_tc.cuh's trunk for each
-# net). Faults planted in what they read must miss the exact-sum rule that
+# deform_pair_wg_kernel (deform_pair.cu, skip_wg.cuh's tile with both
+# nets). Faults planted in what they read must miss the exact-sum rule that
 # the faultless launch on the same inputs keeps; nothing is written past
 # the last point of a ragged last tile; a point's deformation does not
 # depend on its neighbours; K5's outputs are K2's forward outputs, bit for
@@ -2674,8 +2675,9 @@ def test_tensor_core_level_forward_keeps_the_last_tile(card, grid_free, rng):
 
 def _pair_blob_fault(pair, fault: str):
     """A copy of ``pair`` whose bf16 blob (K1's, which K3 also reads)
-    leaves out rows 32-63 of the warp trunk[1]'s weights (one 32-row slice
-    of what the ring stages) or drops the hyper head's bias."""
+    leaves out rows 32-63 of the warp trunk[1]'s weights (half of one
+    64-k weight stage of the wgmma tile, one 32-row slice of K3's ring) or
+    drops the hyper head's bias."""
     faulty = dataclasses.replace(pair, _blobs={})
     w, b, meta = faulty.blob(torch.bfloat16)
     descs = meta.reshape(-1, 7).tolist()
@@ -2761,6 +2763,154 @@ def test_tensor_core_deform_pair_does_not_depend_on_a_points_tile(card, rng, gri
     assert torch.equal(out_a[perm], out_b)
     if grid:
         assert torch.equal(rows_a.reshape(-1)[perm], rows_b.reshape(-1))
+
+
+# The deformation nets' forward tile on wgmma (skip_wg.cuh: deform_pair_wg_kernel
+# for bf16 K1, skip_wg_kernel for bf16 K13) has the risks of the field's
+# tile: persistent blocks whose two warpgroups take one 64-point tile each,
+# a ring of weight stages both warpgroups read in one order, and the order
+# of its float32 sums.
+# ---------------------------------------------------------------------------
+
+DEFORM_TILE_KERNELS = ["K1", "K13 warp", "K13 hyper"]
+
+
+def _deform_tile_run(card, rng, kernel, P):
+    """(run(n, buffers) launching the tile on the first n points into the
+    first n rows of the buffers, guard buffers of ``rows`` rows, gate(buf)
+    holding the first P rows against the plain version and exact sums)
+    for K1 (the flagship pair, with the grid) or K13 (the warp or the hyper
+    net), on P_pad points drawn for a tile count that covers P."""
+    dev, _, pair, _ = card
+    n_pad = -(-P // 64) * 64
+    if kernel == "K1":
+        pts = _gpu(dev, rng.uniform(-0.6, 0.6, (n_pad, 3)))
+        out_p = k1.deform_pair_plain(pts[:P], pair, "bfloat16", 1, GRID)[0]
+        out_x = level_exact.exact_plain(k1.deform_pair_plain, pts[:P], pair, "bfloat16",
+                                        1, GRID)[0]
+
+        def buffers(rows):
+            return (torch.full((rows, 5), float("nan"), device=dev),
+                    torch.full((rows,), -1, dtype=torch.int32, device=dev))
+
+        def run(n, bufs):
+            k1._launch(pts[:n], pair, torch.bfloat16, GRID, bufs[0][:n], bufs[1][:n])
+
+        def guard_ok(bufs):
+            return bool(torch.isnan(bufs[0][P:]).all() and (bufs[1][P:] == -1).all())
+
+        def gate(bufs):
+            ok, d = _pair_exact(pts[:P], bufs[0][:P], out_p, out_x)
+            rows_ok = torch.equal(bufs[1][:P].long(), _cell_geometry(bufs[0][:P, :3], GRID)[0])
+            return ok and rows_ok and _scaled(bufs[0][:P], out_p) <= FIELD_GATE, d
+        return run, buffers, guard_ok, gate
+    pts, w = _skip_case(card, rng, kernel.split()[1], n_pad)
+    y_p = k13.skip_mlp_plain(pts[:P], w, "bfloat16")
+    y_x = level_exact.exact_plain(k13.skip_mlp_plain, pts[:P], w, "bfloat16")
+    od = w.out["w"].shape[1]
+
+    def buffers(rows):
+        return (torch.full((rows, od), float("nan"), device=dev),)
+
+    def run(n, bufs):
+        k13.skip_mlp_forward(pts[:n], w, "bfloat16", out=bufs[0][:n])
+
+    def guard_ok(bufs):
+        return bool(torch.isnan(bufs[0][P:]).all())
+
+    def gate(bufs):
+        ok, d = _skip_exact(bufs[0][:P], y_p, y_x)
+        return ok and _scaled(bufs[0][:P], y_p) <= FIELD_GATE, d
+    return run, buffers, guard_ok, gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,tail", [(1, 37), (2 * 132 + 1, 41)])
+@pytest.mark.parametrize("kernel", DEFORM_TILE_KERNELS)
+def test_tensor_core_deform_tile_counts_keep_rows_past_p(card, rng, kernel, tiles, tail):
+    """bf16 K1 and K13 at tile counts that leave a block's second warpgroup
+    without a tile (one tile) and that cross the persistent grid (265
+    tiles: one past two tiles for each of 132 blocks), the last tile ragged
+    (P = (tiles - 1) x 64 + tail): the first P rows of the buffers keep the
+    plain gate and the exact-sum rule (K1's rows the cells of its own
+    output), and the guard rows past P keep what they held."""
+    P = (tiles - 1) * 64 + tail
+    run, buffers, guard_ok, gate = _deform_tile_run(card, rng, kernel, P)
+    bufs = buffers(tiles * 64 + 128)
+    run(P, bufs)
+    torch.cuda.synchronize()
+    assert guard_ok(bufs), "the kernel wrote past the last point"
+    ok, d = gate(bufs)
+    assert ok, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DEFORM_TILE_KERNELS)
+def test_tensor_core_deform_tile_repeats_bit_for_bit(card, rng, kernel):
+    """Two launches of bf16 K1 or K13 on the same inputs give the same bits
+    (95 tiles, an odd count, the last ragged): the tile's sums run in a
+    fixed order whatever block takes a tile and whichever warpgroup reads a
+    stage first."""
+    P = 94 * 64 + 23
+    run, buffers, _, gate = _deform_tile_run(card, rng, kernel, P)
+    first, second = buffers(P), buffers(P)
+    run(P, first)
+    run(P, second)
+    torch.cuda.synchronize()
+    assert gate(first)[0]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _deform_stage_fault(weights, heads, layer: int):
+    """A copy of K1's or K13's folded ``weights`` whose weight stages
+    (``skip_mlp.tile_stages``, which the wgmma tile streams) leave out a
+    16-row slice (16 outputs x 64 k) of layer ``layer``'s first stage."""
+    faulty = dataclasses.replace(weights, _blobs={})
+    stages, descs = k13.tile_stages(faulty, heads)
+    stages = stages.clone()
+    at = 0
+    for q, _, _, _, _, rows, _ in field_mlp.stage_order(descs.tolist(), heads):
+        if q == layer:
+            break
+        at += rows * 64
+    assert float(stages[at:at + 16 * 64].float().abs().max()) > 0
+    stages[at:at + 16 * 64] = 0
+    w = faulty.blob(torch.bfloat16)[0]
+    faulty._blobs[("wgmma", torch.bfloat16)] = (w, w._version, stages)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DEFORM_TILE_KERNELS)
+def test_tensor_core_deform_fault_ring_stage_misses_gates(card, rng, kernel):
+    """A 16-row slice of one weight stage of trunk[1] (the warp net's in K1)
+    left out of what the wgmma tile streams: the output must miss the
+    exact-sum rule (or the plain gate) that the faultless launch keeps."""
+    dev, _, pair, _ = card
+    P = 300 * 64
+    if kernel == "K1":
+        pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
+        out_p = k1.deform_pair_plain(pts, pair, "bfloat16", 64, GRID)[0]
+        out_x = level_exact.exact_plain(k1.deform_pair_plain, pts, pair, "bfloat16", 64,
+                                        GRID)[0]
+        nw = len(pair.warp_trunk)
+        faulty = _deform_stage_fault(pair, [nw, nw + 1 + len(pair.hyper_trunk)], 1)
+        out_k = k1.deform_pair_forward(pts, pair, "bfloat16", 64, GRID)[0]
+        out_f = k1.deform_pair_forward(pts, faulty, "bfloat16", 64, GRID)[0]
+        torch.cuda.synchronize()
+        assert _pair_exact(pts, out_k, out_p, out_x)[0]
+        ok, d = _pair_exact(pts, out_f, out_p, out_x)
+        assert not ok or _scaled(out_f, out_p) > FIELD_GATE, d
+        return
+    pts, w = _skip_case(card, rng, kernel.split()[1], P)
+    y_p = k13.skip_mlp_plain(pts, w, "bfloat16")
+    y_x = level_exact.exact_plain(k13.skip_mlp_plain, pts, w, "bfloat16")
+    y_k = k13.skip_mlp_forward(pts, w, "bfloat16")
+    y_f = k13.skip_mlp_forward(pts, _deform_stage_fault(w, [len(w.trunk)], 1), "bfloat16")
+    torch.cuda.synchronize()
+    assert _skip_exact(y_k, y_p, y_x)[0]
+    ok, d = _skip_exact(y_f, y_p, y_x)
+    assert not ok or _scaled(y_f, y_p) > FIELD_GATE, d
 
 
 @pytest.fixture

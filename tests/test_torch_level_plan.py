@@ -21,10 +21,12 @@ kernels), on the CPU:
       the CUDA source; its weight stages (nerf_level.wgmma_blob) unpack
       to each layer's (k, n) weights, with zero K and N padding, in the
       order the tile runs its products, for every form of the level; the
-      other bf16 forward-only kernels (K13; K1) take mma.cuh's tile and
-      block, and their shared memory leaves room for the blocks an SM
-      that their launch bounds ask for; K5's compositing holds a ray of
-      the largest sample count the level kernels take;
+      deformation nets' forward tile on wgmma (skip_wg.cuh: bf16 K1 and
+      K13) likewise: its shared memory fits its one block an SM with a
+      ring of at least two stages, and its weight stages
+      (skip_mlp.tile_stages) unpack to each layer of the pair's and of
+      each net's blob, raw and pre-encoded; K5's compositing holds a ray
+      of the largest sample count the level kernels take;
   (f) the kernels' C functions are looked up and typed once.
 """
 import os
@@ -40,7 +42,8 @@ from sahs_tpu_torch.ops.kernels import deform_pair as k1
 from sahs_tpu_torch.ops.kernels import level_train as k2
 from sahs_tpu_torch.ops.kernels import nerf_level as k5
 from sahs_tpu_torch.ops.kernels import skip_mlp as k13
-from sahs_tpu_torch.ops.kernels.field_mlp import DW_TILE
+from sahs_tpu_torch.ops.kernels.field_mlp import (DW_TILE, WG_KB, WG_NC, stage_order,
+                                                   swizzled)
 
 torch.set_num_threads(2)
 
@@ -210,17 +213,22 @@ def test_tile_sizes_match_the_cuda_sources():
             assert f'#include "{inc}"' in fp.read()
     # the width step the K3, K13 and K14 wrappers check in bf16
     assert k13.TC_K_STEP == _cu_const("skip_tc.cuh", "SKIP_KS")
-    # bf16 K13: skip_fwd_tc_kernel on mma.cuh's tile, its slices a whole
-    # number of k-steps that divides the width step, launched with the
-    # layout without the product back to the encoding
-    src = _cu_text("skip_mlp.cu")
-    ks = _cu_const("skip_mlp.cu", "SKIP_FWD_KS")
-    assert ks % 16 == 0 and k13.TC_K_STEP % ks == 0
-    assert "const sahs::SkipLayout ly(a.pe_dim(), false, KS);" in src
-    assert "const sahs::SkipLayout ly(a.pe_dim(), false, SKIP_FWD_KS);" in src
-    assert ("return enc_dim > 0 ? enc_dim : 3 + 6 * n_freq;" in src)
-    assert "skip_fwd_tc_kernel<SKIP_FWD_KS>\n      <<<(unsigned)n_tiles, sahs::TC_THREADS" in src
-    assert "const long long base = (long long)blockIdx.x * TC_TP;" in src
+    # bf16 K13 and K1: the deformation nets' tile on wgmma (skip_wg.cuh),
+    # 64-point tiles (a warpgroup's product rows), launched from the blob's
+    # layer table with one net (K13) or two (K1); no mma.sync forward is left
+    assert _cu_const("wgmma.cuh", "ROWS") == k2.tile_points(torch.bfloat16)
+    assert "constexpr int TP = wg::ROWS;" in _cu_text("skip_wg.cuh")
+    for src, fn, nets in (("skip_mlp.cu", "skip_wg_kernel", "1, n_layers, 0"),
+                          ("deform_pair.cu", "deform_pair_wg_kernel", "2, n_warp, n_hyper")):
+        text = _cu_text(src)
+        assert f'#include "skip_wg.cuh"' in text
+        assert re.search(rf"__launch_bounds__\(sk::THREADS, 1\)\n{fn}\(", text)
+        assert f"sk::args_of(reinterpret_cast<const int*>(descs), {nets});" in text
+        assert f"return sk::launch({fn}, a, s);" in text
+        assert "skip_trunk_tc" not in text
+        assert "deform_pair_tc_kernel" not in text and "skip_fwd_tc_kernel" not in text
+    assert "a.pe_dim = enc_dim > 0 ? enc_dim : 3 + 6 * n_freq;" in _cu_text("skip_mlp.cu")
+    assert "a.pe_dim = 3 + 6 * n_freq;" in _cu_text("deform_pair.cu")
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -279,9 +287,11 @@ def _field_layout(kx, n_din, hidden, branch, n_trunk):
     NC rows x 128 bytes as fit, at most RING_MAX; the barriers; the
     alignment slack."""
     c = lambda n: _cu_const("level_train.cu", n)
-    kb, nc, ring_max, smem_max, wgs = c("KB"), c("NC"), c("RING_MAX"), c("SMEM_MAX"), c("WG")
+    kb, nc = _cu_const("wgmma.cuh", "KB"), _cu_const("wgmma.cuh", "NC")
+    ring_max, smem_max, wgs = c("RING_MAX"), c("SMEM_MAX"), c("WG")
     src = _cu_text("level_train.cu")
-    assert "constexpr int SLOT = NC * 128;" in src
+    assert "constexpr int SLOT = NC * 128;" in _cu_text("wgmma.cuh")
+    assert "using wg::KB;" in src and "using wg::NC;" in src and "using wg::SLOT;" in src
     assert "per_wg = (xb + db + 2 * h0 + h1) * wg::BLOCK;" in src
     assert "return (a.L + 1) * a.H + 8 * a.B + 32;" in src
     assert "const int params = (bias_floats(a) + a.L + 12 + 3) / 4 * 16;" in src
@@ -318,8 +328,7 @@ def test_field_kernel_layout_matches_the_cuda_source(models, kind):
     assert re.search(r"__launch_bounds__\(fw::THREADS, 1\) fwd_tc_kernel", src)
     assert "fw::tile<false, PROMOTE>(a, fw_smem);" in src
     assert "fw::tile<true, FIELD_PROMOTE>(a, fw_smem);" in src
-    assert (k5.WG_KB, k5.WG_NC) == (_cu_const("level_train.cu", "KB"),
-                                    _cu_const("level_train.cu", "NC"))
+    assert (WG_KB, WG_NC) == (_cu_const("wgmma.cuh", "KB"), _cu_const("wgmma.cuh", "NC"))
     lvl = _level(_model_without_ambient() if kind == "no_ambient" else models[kind])
     kx = lvl.trunk[0]["w"].shape[0]
     n_din = lvl.dir0_dir.shape[0] + lvl.dir0_se.shape[0]
@@ -401,7 +410,7 @@ def test_field_weight_stages_unpack_to_each_layer(forms, kind):
     prods = _tile_products(lvl)
     assert [(d[1], d[3]) for d in descs] == [(k[0], k[1] if len(k) > 1 else 0)
                                              for _, k, _, _ in prods]
-    unswizzle = torch.from_numpy(k5._swizzled(1).ravel())
+    unswizzle = torch.from_numpy(swizzled(1).ravel())
     pos, n_stages = 0, 0
     for q, ks, n, head in prods:
         w1, _, w2, _, n_pad = descs[q][:5]
@@ -411,7 +420,7 @@ def test_field_weight_stages_unpack_to_each_layer(forms, kind):
         for c0, rows in chunks:
             for off, k in zip((w1, w2), ks):
                 got = torch.zeros(-(-k // 64) * 64, rows)
-                perm = torch.from_numpy(k5._swizzled(rows).ravel())
+                perm = torch.from_numpy(swizzled(rows).ravel())
                 for kb in range(-(-k // 64)):
                     st = stages[pos:pos + rows * 64].float()
                     pos += rows * 64
@@ -461,57 +470,80 @@ def _model_without_ambient():
     return nerface.NeRFaceModel.init(spec, seed=0, device="cpu")
 
 
-def _skip_fwd_smem_bytes(pe_dim, ks=None):
-    """skip_tc.cuh's SkipLayout(pe_dim, false, ks).bytes, from the
-    sources' constants: the encoding [pad(pe_dim) to SKIP_KS], two
-    SKIP_HMAX-row activation tiles and the two-slice weight ring of
-    ks-row slices (K13's SKIP_FWD_KS unless given) for outputs up to
-    max(SKIP_HMAX, pad8(pe_dim)) wide."""
-    tp, hmax = _cu_const("mma.cuh", "TC_TP"), _cu_const("skip_tc.cuh", "SKIP_HMAX")
-    pad_ks = _cu_const("skip_tc.cuh", "SKIP_KS")
-    ks = ks or _cu_const("skip_mlp.cu", "SKIP_FWD_KS")
-    hdr = _cu_text("skip_tc.cuh")
-    assert "ha = pe + pad_ks(pe_dim) * TC_LD * 2;" in hdr
-    assert "ring = gs + (to_pe ? SKIP_HMAX * TC_LD * 2 : 0);" in hdr
-    assert "bytes = ring + ring_bytes(n_pe > SKIP_HMAX ? n_pe : SKIP_HMAX, ks);" in hdr
-    row = (tp + 8) * 2
-    return (-(-pe_dim // pad_ks) * pad_ks * row + 2 * hmax * row
-            + 2 * ks * (max(hmax, -(-pe_dim // 8) * 8) + 8) * 2)
+def _skip_layout(pe_dim, widths, b_len):
+    """skip_wg.cuh's sk::Layout (ring slots, bytes) from the sources'
+    constants: per warpgroup the encoding [pe_dim / 64 blocks], two hidden
+    tiles [max width / 64 blocks each], blocks of 64 points x 128 bytes,
+    then the raw points (f32 [64][3]) and two heads' outputs (f32 [64][8]),
+    padded to 1,024 bytes; the biases (b_len floats); as many ring slots of
+    NC rows x 128 bytes as fit, at most RING_MAX; the barriers; the
+    alignment slack."""
+    c = lambda n: _cu_const("skip_wg.cuh", n)
+    kb, nc = _cu_const("wgmma.cuh", "KB"), _cu_const("wgmma.cuh", "NC")
+    wgs, ring_max, smem_max, head = c("WG"), c("RING_MAX"), c("SMEM_MAX"), c("HEAD")
+    src = _cu_text("skip_wg.cuh")
+    assert "xs = (eb + 2 * hb) * wg::BLOCK;" in src
+    assert "ys = xs + TP * 3 * 4;" in src
+    assert "per_wg = cdiv(ys + 2 * TP * HEAD * 4, 1024) * 1024;" in src
+    assert "const int params = cdiv(a.b_len, 4) * 16;" in src
+    assert "const int fixed = WG * per_wg + params + 16 * RING_MAX + 1024;" in src
+    assert "bytes = bar + 16 * RING_MAX + 1024;" in src
+    assert "constexpr int SLOT = NC * 128;" in _cu_text("wgmma.cuh")
+    cd = lambda n, d: -(-n // d)
+    eb, hb = cd(pe_dim, kb), cd(max(widths), kb)
+    xs = (eb + 2 * hb) * 64 * 128
+    per_wg = cd(xs + 64 * 3 * 4 + 2 * 64 * head * 4, 1024) * 1024
+    fixed = wgs * per_wg + cd(b_len, 4) * 16 + 16 * ring_max + 1024
+    ring = min(ring_max, (smem_max - fixed) // (nc * 128))
+    return ring, fixed + ring * nc * 128
+
+
+def _skip_tile_fits(pe_dim, widths, b_len):
+    """The block the deformation nets' tile launches (two consumer
+    warpgroups and a producer warp, one block an SM, from the sources) and
+    its shared memory at these widths: a ring of at least two weight
+    stages, within a block's 227 KB. Returns (ring slots, bytes)."""
+    assert _cu_const("skip_wg.cuh", "WG") == 2
+    assert "constexpr int THREADS = WG * wg::THREADS + 32;" in _cu_text("skip_wg.cuh")
+    assert _cu_const("wgmma.cuh", "THREADS") == 128
+    assert "kernel<<<(unsigned)(pairs < sms ? pairs : sms), THREADS, ly.bytes, stream>>>(a);" \
+        in _cu_text("skip_wg.cuh")
+    assert max(widths) <= _cu_const("skip_wg.cuh", "HMAX") and pe_dim <= _cu_const("skip_wg.cuh", "HMAX")
+    assert all(n % k13.TC_K_STEP == 0 for n in widths)
+    assert "(d.n % 32 || d.n > HMAX || d.act != sahs::ACT_RELU)" in _cu_text("skip_wg.cuh")
+    ring, smem = _skip_layout(pe_dim, widths, b_len)
+    assert ring >= 2 and smem % 16 == 0 and smem <= BLOCK_MAX
+    assert smem + BLOCK_RESERVED <= SM_SMEM
+    return ring, smem
+
+
+def _b_len(w, dtype=torch.bfloat16):
+    return w.blob(dtype)[1].numel()
 
 
 @pytest.mark.parametrize("net", ["warp", "hyper"])
 def test_skip_forward_layout_fits_its_blocks(models, net):
-    """bf16 K13 (``skip_mlp.cu:skip_fwd_tc_kernel``): the warp and the hyper
-    net's trunks fit the kernel's tiles, and its shared memory leaves room
-    for the blocks an SM that its launch bounds ask for."""
-    cond = torch.tensor(np.random.RandomState(0).randn(76 + 36).astype(np.float32))
-    model = models["grid"]
-    w = k13.prepare_skip(getattr(model, net), cond,
-                         nerface.build_pe_groups(model.spec)[0],
-                         "tanh" if net == "warp" else "linear")
+    """bf16 K13 (``skip_mlp.cu:skip_wg_kernel``, skip_wg.cuh's tile with
+    one net): the warp and the hyper net's trunks are widths the tile takes
+    (multiples of 32 up to 128), and its shared memory (the ring, each
+    warpgroup's encoding and hidden tiles, the biases) fits the one block
+    an SM that it launches, with a ring of at least two stages."""
+    w = _deform(models)["skip_" + net]
     pe_dim = w.trunk[0]["w"].shape[0]
     widths = [p["w"].shape[1] for p in w.trunk]
     assert pe_dim == 63 and widths == [128 if net == "warp" else 64] * 6
-    assert max(widths) <= _cu_const("skip_tc.cuh", "SKIP_HMAX")
-    assert all(n % k13.TC_K_STEP == 0 for n in widths)
-    blocks = _cu_const("skip_mlp.cu", "SKIP_FWD_BLOCKS")
-    assert re.search(r"__launch_bounds__\(sahs::TC_THREADS, SKIP_FWD_BLOCKS\)\n"
-                     r"skip_fwd_tc_kernel\(FwdArgs a\)", _cu_text("skip_mlp.cu"))
-    assert _cu_const("mma.cuh", "TC_THREADS") * blocks <= 2048
-    smem = _skip_fwd_smem_bytes(pe_dim)
-    assert smem % 16 == 0 and smem <= BLOCK_MAX
-    assert blocks * (smem + BLOCK_RESERVED) <= SM_SMEM
-    if _cu_const("skip_mlp.cu", "SKIP_FWD_KS") == 32:
-        assert smem == 63488
+    ring, smem = _skip_tile_fits(pe_dim, widths, _b_len(w))
+    assert (ring, smem) == {"warp": (8, 227488), "hyper": (8, 193184)}[net]
 
 
 @pytest.mark.parametrize("grid", [True, False])
 def test_deform_pair_tile_layout_fits_two_blocks(models, grid):
-    """bf16 K1 (``deform_pair.cu:deform_pair_tc_kernel``): the flagship
-    pair's trunks fit skip_tc.cuh's tiles at K3's slice depth (SKIP_KS),
-    and the kernel's shared memory, SkipLayout(pe_dim, false) as Python
-    reckons it from the sources' constants, leaves room for the two blocks
-    an SM that its launch bounds ask for."""
+    """bf16 K1 (``deform_pair.cu:deform_pair_wg_kernel``, skip_wg.cuh's
+    tile with both nets): the flagship pair's trunks are widths the tile
+    takes, and its shared memory, sk::Layout as Python reckons it from the
+    sources' constants, holds the blocks of both consumer warpgroups (a
+    64-point tile each) and a ring of at least two stages in the one block
+    an SM that it launches."""
     model = models["grid" if grid else "grid_free"]
     cond = torch.tensor(np.random.RandomState(0).randn(76 + 36).astype(np.float32))
     pair = k1.prepare_pair(model.warp, model.hyper, cond,
@@ -519,20 +551,104 @@ def test_deform_pair_tile_layout_fits_two_blocks(models, grid):
     pe_dim = pair.warp_trunk[0]["w"].shape[0]
     widths = [p["w"].shape[1] for p in pair.warp_trunk + pair.hyper_trunk]
     assert pe_dim == 63 and widths == [128] * 6 + [64] * 6
-    ks = _cu_const("skip_tc.cuh", "SKIP_KS")
-    assert max(widths) <= _cu_const("skip_tc.cuh", "SKIP_HMAX")
-    assert all(n % ks == 0 for n in widths) and k13.TC_K_STEP == ks
-    src = _cu_text("deform_pair.cu")
-    assert '#include "skip_tc.cuh"' in src
-    assert re.search(r"__launch_bounds__\(sahs::TC_THREADS, 2\)\n"
-                     r"deform_pair_tc_kernel\(PairArgs a\)", src)
-    assert src.count("const sahs::SkipLayout ly(3 + 6 * a.n_freq, false);") == 2
-    assert src.count("skip_trunk_tc<false, sahs::SKIP_KS>") == 2
-    assert "const long long base = (long long)blockIdx.x * TC_TP;" in src
-    smem = _skip_fwd_smem_bytes(pe_dim, ks)
-    assert smem % 16 == 0 and smem <= BLOCK_MAX
-    assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
-    assert smem == 63488
+    ring, smem = _skip_tile_fits(pe_dim, widths, _b_len(pair))
+    assert (ring, smem) == (8, 229056)
+    assert _cu_const("skip_wg.cuh", "LAYERS_MAX") >= len(widths) + 2
+
+
+def _skip_kinds(models):
+    """The deformation nets' folded weights the tile runs, with each net's
+    head layer: K1's pair, K13's warp and hyper nets, and K13's hyper net
+    in the pre-encoded form (its input an encoding, no PE groups)."""
+    d = _deform(models)
+    model = models["grid"]
+    cond = torch.tensor((np.random.RandomState(2).randn(76 + 36) * 0.5).astype(np.float32))
+    pair = d["pair"]
+    nw = len(pair.warp_trunk)
+    return {"pair": (pair, [nw, nw + 1 + len(pair.hyper_trunk)]),
+            "warp": (d["skip_warp"], [len(d["skip_warp"].trunk)]),
+            "hyper": (d["skip_hyper"], [len(d["skip_hyper"].trunk)]),
+            "pre_encoded": (k13.prepare_skip(model.hyper, cond, None, "linear"),
+                            [len(model.hyper.trunk.layers)])}
+
+
+def _net_products(trunk, skip):
+    """A net's layers as the tile runs them: ([k of each input], n, head)."""
+    hid = trunk[0]["w"].shape[1]
+    pe = trunk[0]["w"].shape[0]
+    out = [([pe] if i == 0 else [hid, pe] if i == skip and i > 0 else [hid], hid, False)
+           for i in range(len(trunk))]
+    return out + [([hid], 8, True)]
+
+
+@pytest.mark.parametrize("kind", ["pair", "warp", "hyper", "pre_encoded"])
+def test_skip_weight_stages_unpack_to_each_layer(models, kind):
+    """``skip_mlp.tile_stages``, the weight stages the deformation nets'
+    tile streams, read back on the CPU: stage by stage, in the order the
+    tile runs its products (each net's layers, then its head; per layer its
+    one chunk of outputs (the width rounded up to 64, a head's 8), then
+    each input, then its 64-k blocks), each stage rows (outputs) x 64 k in
+    the 128-byte swizzle, K-major. Un-swizzled, the stages put back every
+    layer's (k, n) weights of the bf16 blob exactly, with zeros past K and
+    past the layer's outputs; their bytes are the kernel's count
+    (sk::blob_bytes), and the host layer table is the blob's."""
+    w, heads = _skip_kinds(models)[kind]
+    wb, _, meta = w.blob(torch.bfloat16)
+    stages, descs = k13.tile_stages(w, heads)
+    assert stages.dtype == torch.bfloat16 and k13.tile_stages(w, heads)[0] is stages
+    assert descs.dtype == np.int32 and descs.tolist() == meta.reshape(-1, 7).tolist()
+    if kind == "pair":
+        prods = (_net_products(w.warp_trunk, w.warp_skip)
+                 + _net_products(w.hyper_trunk, w.hyper_skip))
+    else:
+        prods = _net_products(w.trunk, w.skip)
+    assert [i for i, p in enumerate(prods) if p[2]] == heads
+    assert [(d[1], d[3], d[4]) for d in descs.tolist()] == [
+        (ks[0], ks[1] if len(ks) > 1 else 0, n) for ks, n, _ in prods]
+    pos = 0
+    for q, (ks, n, head) in enumerate(prods):
+        w1, _, w2, _, n_pad = descs[q][:5].tolist()
+        rows = n if head else -(-n // 64) * 64
+        for off, k in zip((w1, w2), ks):
+            got = torch.zeros(-(-k // 64) * 64, rows)
+            perm = torch.from_numpy(swizzled(rows).ravel())
+            for kb in range(-(-k // 64)):
+                got[kb * 64:kb * 64 + 64] = stages[pos:pos + rows * 64].float()[perm].reshape(
+                    rows, 64).t()
+                pos += rows * 64
+            want = torch.zeros_like(got)
+            want[:k, :n_pad] = wb[off:off + k * n_pad].float().reshape(k, n_pad)
+            assert torch.equal(got, want), (kind, q, off)
+    assert pos == stages.numel()
+    assert len(stage_order(descs.tolist(), heads)) == sum(
+        -(-k // 64) for ks, _, _ in prods for k in ks)
+    kb = lambda k: -(-k // 64)
+    assert 2 * stages.numel() == sum(128 * (n if head else -(-n // 64) * 64)
+                                     * sum(kb(k) for k in ks) for ks, n, head in prods)
+    want_bytes = {"pair": 257024, "warp": 198656, "hyper": 58368, "pre_encoded": 58368}
+    assert 2 * stages.numel() == want_bytes[kind]
+
+
+@pytest.mark.parametrize("kind", ["pair", "warp"])
+def test_skip_weight_stages_follow_the_blob_they_are_built_from(models, kind):
+    """The stages are built from the bf16 blob the weights hold (a test's
+    altered copy put in its place, as the card tests' faults are), and
+    built anew when that blob changes in place: a zeroed 16-row slice of
+    the warp trunk[1] is zero in its stages and nowhere else."""
+    w, heads = _skip_kinds(models)[kind]
+    wb, b, meta = w.blob(torch.bfloat16)
+    base = k13.tile_stages(w, heads)[0]
+    w1, _, _, _, n = meta.reshape(-1, 7)[1, :5].tolist()
+    bad = wb.clone()
+    bad[w1 + 16 * n:w1 + 32 * n] = 0
+    w._blobs[torch.bfloat16] = (bad, b, meta)
+    changed = k13.tile_stages(w, heads)[0]
+    assert changed is not base
+    diff = (changed != base).nonzero().reshape(-1)
+    assert 0 < diff.numel() <= 16 * n and bool((changed[diff] == 0).all())
+    bad[w1 + 16 * n:w1 + 32 * n] = wb[w1 + 16 * n:w1 + 32 * n]
+    assert torch.equal(k13.tile_stages(w, heads)[0], base)
+    w._blobs[torch.bfloat16] = (wb, b, meta)
 
 
 def test_composite_forward_smem_covers_every_tiling_count():
