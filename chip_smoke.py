@@ -1715,7 +1715,12 @@ MMA_SYNC_MS = {"K5 fine chunk": 69.09, "K5 coarse chunk": 34.62, "K7 fine": 4.63
                # the deformation nets' forward on mma.sync (K1, K13), this
                # script's readings before their tile on wgmma
                "K1 fine chunk": 12.36, "K1 coarse chunk": 6.22,
-               "K13 warp fine chunk": 8.29, "K13 hyper fine chunk": 4.25}
+               "K13 warp fine chunk": 8.29, "K13 hyper fine chunk": 4.25,
+               # the level backward's tile and dW on mma.sync (launch 3 and
+               # the dW of K2 at a step's fine / coarse level), the parent's
+               # readings in turns before their redesign on wgmma
+               "bwd_tc_kernel level_train": 6.47, "bwd_tc_kernel level_train_coarse": 3.24,
+               "dW level_train": 7.24, "dW level_train_coarse": 3.69}
 
 
 def vs_mma_sync(key: str, ms: float) -> str:
@@ -1777,6 +1782,60 @@ def deform_tile_ptxas() -> dict:
         out["C7520"] += rep.pop("C7520")
         out.update(rep)
     return out
+
+
+def backward_tile_ptxas() -> dict:
+    """ptxas' report of the bf16 level backward on wgmma (level_train.cu:
+    bwd_tc_kernel, launch 3 of K2/K6/K8/K12, and level_dw.cuh's
+    level_dw_kernel, its dW) and of the pair= form's mma.sync tile."""
+    def name_of(mangled):
+        return next((k for k in ("bwd_tc_fold_kernel", "bwd_tc_kernel", "level_dw_kernel")
+                     if k in mangled), None)
+    return tile_ptxas("level_train", name_of)
+
+
+def sass_hgmma(library: str) -> dict:
+    """The count of HGMMA (wgmma) instructions of each kernel of
+    ``library``'s build in its SASS (cuobjdump -sass); {} without the tool."""
+    import re
+    import shutil
+    import subprocess
+    from sahs_tpu_torch.ops.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", _build._target(library)], capture_output=True,
+                          text=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+        elif name is not None and "HGMMA" in line:
+            out[name] += 1
+    return out
+
+
+def backward_tile_readings(report) -> str:
+    """The bf16 level backward on wgmma: ptxas' report of bwd_tc_kernel and
+    level_dw_kernel (registers, spills, stack; every C7520 line) and their
+    HGMMA counts in the SASS, printed and kept in report["backward_tile"];
+    a message when ptxas serialised their wgmma, did not build them, or
+    their SASS holds no HGMMA (a spill is printed, not refused)."""
+    ptx = backward_tile_ptxas()
+    hg = sass_hgmma("level_train")
+    hgmma = {k: sum(v for m, v in hg.items() if k in m and "fold" not in m)
+             for k in ("bwd_tc_kernel", "level_dw_kernel")}
+    print(f"backward tile and dW, ptxas: {json.dumps(ptx)}; HGMMA in the SASS: "
+          f"{json.dumps(hgmma)}", flush=True)
+    report["backward_tile"] = {"ptxas": ptx, "hgmma": hgmma}
+    run = ("bwd_tc_kernel", "level_dw_kernel")
+    if ptx["C7520"] or any(k not in ptx for k in run):
+        return f"the level backward's kernels were serialised or not built: {json.dumps(ptx)}"
+    if hg and not all(hgmma.values()):
+        return f"a level backward kernel on wgmma holds no HGMMA: {hgmma}"
+    return ""
 
 
 def deform_tile_readings(report) -> str:
@@ -4592,7 +4651,8 @@ def variant_forms(fm, dev, compute_dtype) -> tuple:
     2048): K1 and K3 in their rays= form bit for bit K15 then the
     positional form, at 64 and 128 samples a ray (any cotangents); K1's
     against its plain version; K2's pair= form (128 samples) bit for bit K2
-    then K3's rays= form on K2's gx, and against its plain version; K3's
+    then K3's rays= form on K2's gx (in bf16 the forward's outputs and g_bg:
+    the fold keeps the mma.sync backward), and against its plain version; K3's
     rays= form against its plain version on K2's gx with the addend g2 =
     the next ray's gx / 2 (a loss's cotangents, as phase 5's: random ones at every point
     make a flipped ReLU move a whole bias leaf). bf16 dW by the exact-sum
@@ -4680,10 +4740,15 @@ def variant_forms(fm, dev, compute_dtype) -> tuple:
     faults["k3_rays_without_g2"] = {"l2_rel": e_g2["l2_rel"], "cosine": e_g2["cosine"]}
     res["k3_rays"] = {"l2_rel": e3["l2_rel"], "cosine": e3["cosine"],
                       "worst_leaf": e3["worst_leaf"], "exact": e3.get("exact")}
+    # bit for bit: in float32 every output; in bf16 the forward's outputs
+    # and g_bg (launches 1 and 2), since the fold keeps the mma.sync
+    # backward tile and dW beside the pair's while K2 runs the wgmma tile
+    # and level_dw.cuh's dW (each held to its plain version here)
+    same_bwd = bf16 or (torch.equal(gse_f, gse_k) and trees_equal(g_f, g_k)
+                        and trees_equal(pg_f, pg_k))
     res["k2_pair"] = {
         "equal": bool(torch.equal(rgb_f, rgb_k) and torch.equal(w_f, w_k)
-                      and torch.equal(gse_f, gse_k) and torch.equal(gbg_f, gbg_k)
-                      and trees_equal(g_f, g_k) and trees_equal(pg_f, pg_k)),
+                      and torch.equal(gbg_f, gbg_k) and same_bwd),
         "pair_l2_rel": e_pair["l2_rel"], "pair_cosine": e_pair["cosine"],
         "pair_worst_leaf": e_pair["worst_leaf"], "pair_exact": e_pair.get("exact"),
         "dw_l2_rel": e_lvl["l2_rel"], "dw_cosine": e_lvl["cosine"],
@@ -5194,7 +5259,8 @@ def main(argv) -> int:
                                                      counter=k5.nerf_level_forward)
     print(f"nerf_level's launches at the fine chunk (device ms, torch.profiler): "
           f"{json.dumps(kernels[1]['launch_ms'])}", flush=True)
-    msg = forward_tile_readings(report) or deform_tile_readings(report)
+    msg = (forward_tile_readings(report) or deform_tile_readings(report)
+           or backward_tile_readings(report))
     if msg:
         return fail(msg)
     report["kernels"] = kernels
@@ -5459,6 +5525,25 @@ def main(argv) -> int:
               f"(fwd_tc_kernel, wgmma) {l1:.2f} ms at {P_l} points, "
               f"{fl1 / (l1 / 1e3) / 1e12:.1f} TFLOP/s, {100 * b1 / l1:.2f} % of its bound "
               f"{b1:.3f} ms", flush=True)
+        # launch 3 (the backward tile) and the dW, each beside its bound:
+        # launch 3 the transposed products (the forward's multiply-adds but
+        # the heads' and the PE's, taken as the forward's), the dW the
+        # stashes' bytes read once (bf16 activations and gz)
+        l3 = by.get("bwd_tc_kernel", 0.0)
+        ldw = sum(v for n, v in by.items()
+                  if n.split("::")[-1] in ("level_dw_kernel", "bias_dw_kernel", "dw_reduce"))
+        n_tiles = -(-P_l // k2.TP_BF16)
+        stash = n_tiles * (k2_plan.act_stride + k2_plan.gz_stride) * 2
+        b3, bdw = fl1 / PEAK_BF16_FLOPS * 1e3, stash / PEAK_BYTES * 1e3
+        train_kernels[key]["launch_bound_ms"] = {"bwd_tc_kernel": b3, "level_dw_kernel": bdw}
+        train_kernels[key]["stash_gb"] = stash / 1e9
+        ldw_ms = next((v for n, v in by.items() if n.endswith("level_dw_kernel")), 0.0)
+        print(f"{key}: launch 3 (bwd_tc_kernel, wgmma) {l3:.2f} ms, bound {b3:.3f} ms by "
+              f"operations ({vs_mma_sync('bwd_tc_kernel ' + key, l3)}); dW (level_dw_kernel, "
+              f"bias_dw_kernel, dw_reduce) {ldw:.2f} ms ({vs_mma_sync('dW ' + key, ldw)}), "
+              f"the stashes {stash / 1e9:.3f} GB, bound {bdw:.3f} ms by bytes; at its time "
+              f"level_dw_kernel could have read at most {ldw_ms / 1e3 * PEAK_BYTES / 1e9:.2f} "
+              f"GB of device memory", flush=True)
     l1_step = sum(train_kernels[k]["launch_ms"].get("fwd_tc_kernel", 0.0)
                   for k in ("level_train", "level_train_coarse"))
     print(f"launch 1 of K2 a fused step (both levels): {l1_step:.2f} ms "
@@ -5499,7 +5584,8 @@ def main(argv) -> int:
                                                 "library_ms")},
                         "coarse_ms": line.get("coarse_ms"),
                         "tflops_achieved": line["tflops_achieved"],
-                        **{k: line[k] for k in ("launch_ms",) if k in line}})
+                        **{k: line[k] for k in ("launch_ms", "launch_bound_ms", "stash_gb")
+                           if k in line}})
 
     del inp, step_inp, lv_c, lv_f
     torch.cuda.empty_cache()

@@ -29,7 +29,7 @@
 // pair_vjp_tc_kernel on 64-point tiles: one encoding tile, then
 // skip_tc.cuh's skip_net_tc for the warp net and then the hyper net, each
 // product on the tensor cores (mma.sync m16n8k16, at the warp layout its
-// width asks for), and dW on mma.cuh's level_dw_kernel. Each kernel is one
+// width asks for), and dW on mma.cuh's stash_dw_kernel. Each kernel is one
 // tile routine of pair_bwd.cuh, which K2's pair= form also runs.
 //
 // The rays= form (field_mlp.py:1108-1130, :1181-1192; JAX's SAHS_PAIR_RAYS

@@ -69,38 +69,37 @@
 //   3. per tile: the head, branch and trunk backward with transposed
 //      weights, each layer's gz to a second stash, then per point the PE
 //      backward and the corner dCoords (field_mlp.py:1824-1843);
-//   4-5. the split-K dW reduction over both stashes (train.cuh), summed in
-//      a fixed order.
+//   4-5. the dW reduction over both stashes (bf16: level_dw.cuh, float32:
+//      train.cuh), summed in a fixed order.
 //
 // Bound on the H100: about 3 x 0.74 M multiply-adds a point (forward,
 // backward chain, dW) against ~60 bytes of input, so operations bound it:
 // 0.58 / 1.16 TFLOP at 131,072 / 262,144 points, 0.6 / 1.2 ms at the
 // 989 TFLOP/s bf16 peak; K12 at a per-point step's 393,216 points (2048
-// rays x 192) 1.7 TFLOP, 1.8 ms.
+// rays x 192) 1.7 TFLOP, 1.8 ms. Apart, the dW reads the stashes (13.6 KB
+// a point in bf16: 3.6 GB at 262,144 points, 1.07 ms at 3.35 TB/s).
 //
 // Two instantiations. float32 runs launches 1 and 3 as fwd_kernel and
 // bwd_kernel on 32-point tiles with mlp.cuh's SIMT products, and dW with
 // train.cuh's dw_kernel (exact float32; its gates allow no TF32). bf16
-// runs them on 64-point tiles: launch 1 as fwd_tc_kernel, the forward tile
-// on wgmma (fw:: below: persistent blocks, a TMA ring of weight stages,
-// two consumer warpgroups), launch 3 as bwd_tc_kernel with the
-// tensor-core products of mma.cuh (mma.sync m16n8k16; the weights staged
-// in 16-row K-slices through a cp.async ring; K zero-padded to 16), and dW
-// with level_dw_kernel (mma.sync over the stash). Each backward product's
-// epilogue applies the activation's derivative from the stashed output and
-// writes gz to its stash slot and, in bf16, to shared memory for the next
-// product, so no float32 tile of ga is kept; the alpha head's one-row
-// cotangent enters gfeat as a rank-1 term of that epilogue; the skip
-// layer's share of the PE cotangent is taken as soon as gz_skip exists,
-// and [pe(dir) | se]'s cotangent is used per point (gse, the corner
-// dCoords, K12's gextra) right after its product. Shared memory at the
-// flagship's widths (H 256, B 128): backward 114,560 B, two 256-thread
-// blocks an SM at 128 registers a thread; the forward tile fw::Layout.
-// Measured on an H100 (PERF.md, `tools/level_ab.py`): K2 at 262,144
-// points 20.0 ms with the forward on mma.sync (87.6 in the SIMT design),
-// ~58 TFLOP/s; level_dw_kernel, which reads the stash once per 64-wide
-// output tile, takes the largest part, then bwd_tc_kernel; the backward
-// on wgmma and a dW that reads the stash once are the next steps.
+// runs them on 64-point tiles and wgmma (wgmma.cuh: persistent blocks, two
+// consumer warpgroups, a producer warp streaming weight stages laid out
+// ahead of time through a TMA ring): launch 1 as fwd_tc_kernel (fw::
+// below), launch 3 as bwd_tc_kernel (bw:: below: the transposed layers'
+// stages, and each chunk's stashed outputs copied by TMA into the same
+// ring for the activation's derivative), and dW as level_dw.cuh's
+// level_dw_kernel (each stash block read once from device memory; db from
+// the per-tile column sums of gz that launch 3 forms). The gz stash is
+// bf16 (the dW rounds gz anyway). Each backward product's epilogue applies
+// the activation's derivative and writes gz to its stash slot and to
+// shared memory for the next product, so no float32 tile of ga is kept;
+// the alpha head's one-row cotangent enters gfeat as a rank-1 term of that
+// epilogue; the skip layer's share of the PE cotangent is taken as soon as
+// gz_skip exists, and [pe(dir) | se]'s cotangent is used per point (gse,
+// the corner dCoords, K12's gextra) right after its product. K2's pair=
+// form keeps the mma.sync backward tile beside the pair's
+// (bwd_tc_fold_kernel, mma.cuh's stash_dw_kernel over a float32 gz stash).
+#include "level_dw.cuh"
 #include "pair_bwd.cuh"
 #include "wgmma.cuh"
 
@@ -148,6 +147,9 @@ struct Args {
   float bg_sup;
   const void* wg;       // bf16 forward: the weight stages (nerf_level.wgmma_blob)
   long long wg_bytes;
+  const void* wgb;      // bf16 backward: the transposed layers' stages (level_train.backward_stages)
+  long long wgb_bytes;
+  float* bsum;          // bf16 backward: each tile's column sums of gz (n_tiles, gz_stride / 64)
 };
 
 // The encodings' widths: the point's PE (kx), or with ENC_PTS the given
@@ -805,7 +807,8 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
 
 // ---------------------------------------------------------------------------
 // bf16: the same launches on the tensor cores, 64-point tiles: the forward
-// tile on wgmma (wgmma.cuh), the backward tile and dW on mma.sync (mma.cuh)
+// and backward tiles on wgmma (wgmma.cuh), the dW on wgmma (level_dw.cuh);
+// K2's pair= form's backward tile and dW on mma.sync (mma.cuh)
 // ---------------------------------------------------------------------------
 using sahs::bf16;
 using sahs::TC_LD;
@@ -814,10 +817,11 @@ using sahs::TC_TP;
 
 __host__ __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
 
-// Shared-memory layout of the backward tile (bwd_tc_kernel), in bytes
-// (every offset a multiple of 16): T0, T1 [max(H, 2B)] (gz ping-pong; the
-// branches' P, Q in T0, gs0 and gz_d0 in T1), F [max(pad8(kx), pad8(ndp +
-// C))] in f32 (the [pe(dir) | se] cotangent, then the PE's) and the ring.
+// Shared-memory layout of K2's pair= form's mma.sync tile
+// (bwd_tc_fold_kernel), in bytes (every offset a multiple of 16): T0, T1
+// [max(H, 2B)] (gz ping-pong; the branches' P, Q in T0, gs0 and gz_d0 in
+// T1), F [max(pad8(kx), pad8(ndp + C))] in f32 (the [pe(dir) | se]
+// cotangent, then the PE's) and the ring.
 struct TcLayout {
   int kx, ndp, t0, t1, f, bring, bwd;
   __host__ __device__ explicit TcLayout(const Args& a) {
@@ -999,6 +1003,17 @@ __device__ __forceinline__ uint32_t get2(const unsigned char* X, int t, int col)
   return *reinterpret_cast<const unsigned short*>(X + wg::sw128(wg::ROWS, t, col));
 }
 
+// The packed word h (columns n, n + 1 of point r) into the stash slot st (a
+// row of TC_TP points per column): lanes l and l ^ 4 hold neighbouring
+// points (`odd`: r is the second), so each keeps one column of the two and
+// stores both points' values at once.
+__device__ __forceinline__ void stash_pair(uint32_t h, bf16* st, int n, int r, bool odd, bool ok) {
+  const uint32_t lo = h & 0xffffu, hi = h >> 16;
+  const uint32_t got = (uint32_t)__shfl_xor_sync(0xffffffffu, (int)(odd ? lo : hi), 4);
+  const uint32_t w = odd ? (got | (hi << 16)) : (lo | (got << 16));
+  if (ok) *reinterpret_cast<uint32_t*>(st + (size_t)(odd ? n + 1 : n) * TC_TP + (odd ? r - 1 : r)) = w;
+}
+
 // act(d + b) in bf16, packed two columns a word into h (output columns
 // col0 .. col0 + N - 1; with GUARD, zero from n_real on), and with `st`
 // given into the stash slot (a row of TC_TP points per output column):
@@ -1029,14 +1044,7 @@ __device__ __forceinline__ void pack_chunk(const float (&d)[N / 2], uint32_t (&h
       }
       const __nv_bfloat162 hv = __floats2bfloat162_rn(ok ? v0 : 0.0f, ok ? v1 : 0.0f);
       h[2 * j + i] = *reinterpret_cast<const uint32_t*>(&hv);
-      if (st != nullptr) {
-        const uint32_t lo = h[2 * j + i] & 0xffffu, hi = h[2 * j + i] >> 16;
-        const uint32_t got = (uint32_t)__shfl_xor_sync(0xffffffffu, (int)(odd ? lo : hi), 4);
-        const int r = r0 + 8 * i, rw = odd ? n + 1 : n;
-        const uint32_t w = odd ? (got | (hi << 16)) : (lo | (got << 16));
-        if (ok)
-          *reinterpret_cast<uint32_t*>(st + (size_t)rw * TC_TP + (odd ? r - 1 : r)) = w;
-      }
+      if (st != nullptr) stash_pair(h[2 * j + i], st, n, r0 + 8 * i, odd, ok);
     }
   }
 }
@@ -1398,14 +1406,581 @@ __global__ void __launch_bounds__(fw::THREADS, 1) field_tc_kernel(const __grid_c
   fw::tile<false, PROMOTE>(a, fw_smem);
 }
 
-// 3. backward per 64-point tile. Each transposed product's epilogue applies
-// the activation's derivative (from the stashed output) and writes gz to
-// its stash slot in f32 and to shared memory in bf16 for the next product.
-// With FOLD (K2's pair= form) gx stays in the block and the pair's
-// backward runs on the same points (fold_pair); pb is then the pair's.
-template <bool FOLD>
-__device__ __forceinline__ void bwd_tc_tile(const Args& a, const sahs::PairBwd* pb,
-                                            unsigned char* smem_raw) {
+// ---------------------------------------------------------------------------
+// 3. backward per 64-point tile in bf16, on wgmma: bwd_tc_kernel (launch 3
+// of K2, K6, K8, K12)
+// ---------------------------------------------------------------------------
+// What the tile computes (as the float32 bwd_tile, with bf16 products and
+// float32 sums): from the heads' cotangents (graw's channels: rgb 0-2, seg
+// 3-14, alpha 15) the transposed products of the direction branch (rgb^T,
+// dir3^T .. dir1^T), dir0's [pe(dir) | se] block, used at once per point
+// (gse and the corner dCoords from _cell_geometry's exact expression, or
+// K12's gextra through the direction's PE backward, or the given
+// encodings' cotangents), the seg branch (the seg head^T, seg3^T ..
+// seg1^T), gfeat = gz_s0 Ws0^T + gz_d0 Wd0f^T + the alpha head's rank-1
+// term round_bf16(gz_alpha) Wa^T in the epilogue (feat is linear), feat^T
+// and the trunk L-1 .. 1, the skip layer's input rows taking the PE
+// cotangent as soon as gz_skip exists and trunk[0]^T adding to it, and the
+// PE backward with the accurate sinf (no fast math). Each product's
+// epilogue applies the activation's derivative, gz = ga * leaky'(y) with y
+// the layer's stashed output, and writes gz in bf16 to the gz stash (the
+// dW rounds it anyway) and to the next product's A tile, and the float32
+// gz's column sums over the tile's points (db's per-tile partials, bsum).
+//
+// Design (wgmma.cuh, as fw::tile). Persistent blocks, one an SM, of two
+// consumer warpgroups and a producer warp; a warpgroup owns a 64-point tile
+// (the stashes' unit, TC_TP) and runs every transposed layer as
+// wgmma.m64nNk16 products, A (the tile's gz, K-major, 128-byte swizzle)
+// and B (the transposed weights) from shared memory. The weights stream
+// through the ring as stages laid out ahead of time in the order the tile
+// runs its products (level_train.backward_stages, from the plan's
+// transposed blob); outputs of 256 columns are two chunks of 128. The
+// stashed outputs y that an epilogue's derivative reads ride the same ring:
+// after a chunk's weight stages the producer copies each warpgroup's y rows
+// (the chunk's 128 columns x 64 points, a TMA box of the activation stash
+// in the 128-byte swizzle) into a slot of its own, so the epilogue reads y
+// from shared memory, never element by element from device memory. The
+// gz of a layer goes to the other of two column-0-127 regions (R0, R1) and,
+// from column 128 on, in place (R2) once every warp's products are done;
+// the branches run in R0/R1 and keep gz_d0 in R2 until gfeat. The column
+// sums fold the tile's 64 points in registers (a butterfly over the 8
+// lanes of a column, then the 4 warps in order), so they are deterministic.
+// Replaces the backward half of the TPU kernels of K2, K6, K8 and K12 (the
+// head of this file names them), with the dW in level_dw.cuh. Bound on the
+// H100: operations, ~0.74 M multiply-adds a point (K2's launch 3 at a
+// step's fine level 0.39 ms at the 989 TFLOP/s bf16 peak); the gz stash it
+// writes (1.76 GB there) ~0.53 ms at 3.35 TB/s. Measured on an H100
+// (PERF.md §6, tools/level_ab.py in turns with the mma.sync tile): K2's
+// launch 3 at a step's fine level 4.34 ms (6.47), 9 % of the bound; ptxas
+// 168 registers (the cap of a 288-thread block), 340 bytes spilled.
+namespace bw {
+
+using fw::cdiv;
+using fw::k_blocks;
+using wg::KB;
+using wg::NC;
+using wg::SLOT;
+using wg::ASrc;
+using wg::Ring;
+using wg::product;
+
+constexpr int WG = 2;                                // consumer warpgroups
+constexpr int THREADS = WG * wg::THREADS + 32;       // and the producer warp
+constexpr int RING_MAX = 8;
+constexpr int SMEM_MAX = 232448;                     // a block's dynamic shared memory
+constexpr int PROMOTE = 1;                           // every k16 step (mma.cuh's semantics)
+constexpr uint32_t YBYTES = NC * 128;                // a y stage: 128 columns x 64 points
+// a product's regions: R0, R1, R2 of the warpgroup; RH the hidden gz
+// (columns 0-127 in R0 or R1, in turns, 128 on in R2)
+enum { R0 = 0, R1, R2, RH };
+enum { OUT_GZ = 0, OUT_F, OUT_FADD };
+
+struct Prod {
+  int k1, k2, n;   // the inputs' K (k2 0: one input) and the outputs (padded to 8)
+  int s1, s2;      // the inputs' regions
+  int out, dst;    // OUT_*; for OUT_GZ the region of the first chunk
+  int y, gz;       // the activation slot of the derivative (-1: linear) and the gz slot
+  int rank1;       // the alpha head's rank-1 term (gfeat)
+};
+
+__host__ __device__ __forceinline__ bool has_skip(const Args& a) {
+  return a.skip > 0 && a.skip < a.L;
+}
+__host__ __device__ __forceinline__ int n_prods(const Args& a) {
+  return a.L + 11 + (has_skip(a) ? 1 : 0);
+}
+
+// The products in the order the tile runs them and its weight stages hold
+// them (level_train.backward_order): rgb^T, dir3^T .. dir1^T (transposed
+// layers 0-3), dir0's [pe(dir) | se] block (4), the seg head^T, seg3^T ..
+// seg1^T (5-8), gfeat (9: seg0^T on gz_s0 and dir0's feat block^T on
+// gz_d0), feat^T (10), the trunk L-1 .. 1 (11 ..) with the PE layer's
+// second input (the skip layer's input rows) before trunk[skip]^T, and the
+// PE layer's first (trunk[0]^T).
+__host__ __device__ __forceinline__ Prod prod_of(const Args& a, int q) {
+  const int L = a.L, H = a.H, B = a.B;
+  const int nx = pad8(a.kx), nd = pad8(a.ndp + a.C);
+  if (q < 4)  // gz_d3 .. gz_d0, the last kept in R2
+    return Prod{q == 0 ? 3 : B, 0, B, q % 2 ? R1 : R0, -1, OUT_GZ,
+                q == 3 ? R2 : q % 2 ? R0 : R1, L + 6 - q, L + 5 - q, 0};
+  if (q == 4) return Prod{B, 0, nd, R2, -1, OUT_F, 0, -1, -1, 0};
+  if (q < 9) {  // gz_s3 .. gz_s0, the last in R0
+    const int r = q - 5;
+    return Prod{r == 0 ? 12 : B, 0, B, r % 2 ? R1 : R0, -1, OUT_GZ, r % 2 ? R0 : R1,
+                L + 10 - r, L + 10 - r, 0};
+  }
+  if (q == 9) return Prod{B, B, H, R0, R2, OUT_GZ, R1, -1, L, 1};
+  if (q == 10) return Prod{H, 0, H, RH, -1, OUT_GZ, RH, L, L - 1, 0};
+  const int j = q - 11, fs = has_skip(a) ? L - 1 - a.skip : -1;
+  if (j == fs) return Prod{H, 0, nx, RH, -1, OUT_F, 0, -1, -1, 0};
+  if (j == L - 1 + (fs >= 0 ? 1 : 0))
+    return Prod{H, 0, nx, RH, -1, fs >= 0 ? OUT_FADD : OUT_F, 0, -1, -1, 0};
+  const int l = L - 1 - j + (fs >= 0 && j > fs ? 1 : 0);
+  return Prod{H, 0, H, RH, -1, OUT_GZ, RH, l, l - 1, 0};
+}
+
+// chunks of n outputs: n rounded up to 64, chunks of NC (the last may be 64)
+__host__ __device__ __forceinline__ int n_chunks(int n) { return cdiv(n, NC); }
+__host__ __device__ __forceinline__ int chunk_cols(int n, int c) {
+  const int w = cdiv(n, KB) * KB - c * NC;
+  return w < NC ? w : NC;
+}
+
+// Bytes of the weight stages of one tile: a stage per chunk, input and
+// 64-k block, chunk_cols rows of 128 bytes.
+inline long long blob_bytes(const Args& a) {
+  long long s = 0;
+  for (int q = 0; q < n_prods(a); ++q) {
+    const Prod p = prod_of(a, q);
+    for (int c = 0; c < n_chunks(p.n); ++c)
+      s += 128LL * chunk_cols(p.n, c) * (k_blocks(p.k1) + k_blocks(p.k2));
+  }
+  return s;
+}
+
+// Shared memory, from a 1,024-byte-aligned base: the ring of `ring` slots,
+// then each warpgroup's regions of 64-column blocks (wg::BLOCK): R0 and R1
+// [r01] and R2 [r2]; its float32 F [nf rows x TC_LDF] (the [pe(dir) | se]
+// cotangent, then the PE's), the column sums [2 x 4 warps x NC], gz_alpha
+// [TC_TP] and the corner dCoords [3 x TC_TP], padded to 1,024 bytes; then
+// the alpha head's row of gfeat (H bf16) and the stash slots' offsets, the
+// barriers, and the slack that aligns the base.
+struct Layout {
+  int r01, r2, nf, f, per_wg, ring, alpha, slots, bar, bytes;
+  __host__ __device__ explicit Layout(const Args& a) {
+    const int hb = cdiv(a.H, KB), bb = cdiv(a.B, KB), h0 = hb < 2 ? hb : 2;
+    r01 = imax(h0, bb);
+    r2 = imax(hb - h0, bb);
+    nf = imax(pad8(a.kx), pad8(a.ndp + a.C));
+    f = (2 * r01 + r2) * wg::BLOCK;
+    per_wg = (f + nf * TC_LDF * 4 + (2 * 4 * NC + 4 * TC_TP) * 4 + 1023) / 1024 * 1024;
+    const int params = (2 * a.H + 4 * (a.n_act + a.L + 12) + 15) / 16 * 16;
+    const int fixed = WG * per_wg + params + 16 * RING_MAX + 1024;
+    ring = (SMEM_MAX - fixed) / SLOT;
+    if (ring > RING_MAX) ring = RING_MAX;
+    alpha = ring * SLOT + WG * per_wg;
+    slots = alpha + 2 * a.H;
+    bar = alpha + params;
+    bytes = bar + 16 * RING_MAX + 1024;
+  }
+};
+
+// The epilogue of a gz product: v = d (+ round_bf16(rx[point]) rw[n], the
+// rank-1 term) (* leaky'(y), y the stashed output in the y stage Y: column
+// n's 64 points a 128-byte row, swizzled), zero from n_real on, as mma.cuh's
+// DactStore, value for value: gz packed two columns a word into h, and the
+// float32 gz's sums over this thread's two points of each column into s
+// (s[2 j + c], column 8 j + 2 (l % 4) + c).
+template <int N, bool LEAKY, bool RANK1>
+__device__ __forceinline__ void dact_chunk(const float (&d)[N / 2], uint32_t (&h)[N / 4],
+                                           float (&s)[N / 4], int col0, int n_real,
+                                           const unsigned char* Y, const float* rx,
+                                           const bf16* rw, int t) {
+  const int l = t % 32, q = l % 4;
+  const int r0 = 16 * (t / 32) + l / 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int nl = 8 * j + 2 * q;
+    const bool ok = col0 + nl < n_real;  // n_real even: nl + 1 with nl
+    float2 w = make_float2(0.0f, 0.0f);
+    if (RANK1) w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rw + col0 + nl));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      float v0 = d[4 * j + 2 * i], v1 = d[4 * j + 2 * i + 1];
+      if (RANK1) {
+        const float x = __bfloat162float(__float2bfloat16_rn(rx[r]));
+        v0 = fmaf(x, w.x, v0);
+        v1 = fmaf(x, w.y, v1);
+      }
+      if (LEAKY) {
+        const float y0 = __bfloat162float(*reinterpret_cast<const bf16*>(Y + wg::sw128(wg::ROWS, nl, r)));
+        const float y1 = __bfloat162float(*reinterpret_cast<const bf16*>(Y + wg::sw128(wg::ROWS, nl + 1, r)));
+        v0 = v0 * (y0 > 0.0f ? 1.0f : 0.01f);
+        v1 = v1 * (y1 > 0.0f ? 1.0f : 0.01f);
+      }
+      if (!ok) {
+        v0 = 0.0f;
+        v1 = 0.0f;
+      }
+      s[2 * j] = i == 0 ? v0 : s[2 * j] + v0;
+      s[2 * j + 1] = i == 0 ? v1 : s[2 * j + 1] + v1;
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+      h[2 * j + i] = *reinterpret_cast<const uint32_t*>(&hv);
+    }
+  }
+}
+
+// h into the gz stash slot st (row col0 + the chunk's column, a row of TC_TP
+// points each)
+template <int N>
+__device__ __forceinline__ void stash_chunk(const uint32_t (&h)[N / 4], bf16* st, int col0,
+                                            int n_real, int t) {
+  const int l = t % 32, q = l % 4;
+  const int r0 = 16 * (t / 32) + l / 4;
+  const bool odd = (l >> 2) & 1;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = col0 + 8 * j + 2 * q;
+      fw::stash_pair(h[2 * j + i], st, n, r0 + 8 * i, odd, n < n_real);
+    }
+}
+
+// One step of the column sums' butterfly: lanes l and l ^ b each keep half
+// of their HALF * 2 sums and add the other lane's copy of that half.
+template <int HALF, int M>
+__device__ __forceinline__ void fold_half(float (&s)[M], int b, int l) {
+  const bool up = (l & b) != 0;
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const float send = up ? s[k] : s[k + HALF];
+    const float keep = up ? s[k + HALF] : s[k];
+    s[k] = keep + __shfl_xor_sync(0xffffffffu, send, b);
+  }
+}
+
+// The warp's sums over its 16 points of each of the chunk's N columns into
+// cs[col], from each lane's sums of its two points (s, dact_chunk's): a
+// column's 8 lanes (l / 4) halve their sums three times; lane l then
+// holds the M / 8 sums of list positions o = k + (l & 16 ? M/2) + (l & 8 ?
+// M/4) + (l & 4 ? M/8), o = 2 j + c for column 8 j + 2 (l % 4) + c.
+template <int N>
+__device__ __forceinline__ void col_sums(float (&s)[N / 4], float* cs, int t) {
+  constexpr int M = N / 4;
+  const int l = t % 32, q = l % 4;
+  fold_half<M / 2>(s, 16, l);
+  fold_half<M / 4>(s, 8, l);
+  fold_half<M / 8>(s, 4, l);
+  const int o0 = (l & 16 ? M / 2 : 0) + (l & 8 ? M / 4 : 0) + (l & 4 ? M / 8 : 0);
+#pragma unroll
+  for (int k = 0; k < M / 8; ++k) {
+    const int o = o0 + k;
+    cs[8 * (o / 2) + 2 * q + (o % 2)] = s[k];
+  }
+}
+
+// A float32 product's outputs into F (n rows x TC_LDF), columns col0 ..
+// below n_real, added to what F holds with `add`.
+template <int N>
+__device__ __forceinline__ void store_f(const float (&d)[N / 2], float* F, int col0, int n_real,
+                                        bool add, int t) {
+  const int l = t % 32, q = l % 4;
+  const int r0 = 16 * (t / 32) + l / 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = col0 + 8 * j + 2 * q + c;
+        if (n < n_real) {
+          float* o = F + n * TC_LDF + r0 + 8 * i;
+          *o = add ? *o + d[4 * j + 2 * i + c] : d[4 * j + 2 * i + c];
+        }
+      }
+}
+
+// A head's gz (graw's channels ch0 .. ch0 + n_real - 1) as the K-major A
+// tile X, columns 0-63, zero past n_real and past P.
+__device__ __forceinline__ void head_tile(const Args& a, unsigned char* X, int ch0, int n_real,
+                                          long long pbase, int t) {
+  for (int i = t; i < KB * TC_TP; i += wg::THREADS) {
+    const int col = i / TC_TP, pt = i % TC_TP;
+    const long long p = pbase + pt;
+    fw::put(X, pt, col, col < n_real && p < a.P ? a.graw[p * 16 + ch0 + col] : 0.0f);
+  }
+}
+
+// The heads' gz from graw (rgb 8 rows, seg 16, alpha 8 in the stash, zero
+// past 3, 12, 1): to the gz stash in bf16, their column sums to bsum (each
+// a sum over the tile's points in order), alpha's f32 gz to rx.
+__device__ __forceinline__ void heads(const Args& a, bf16* gzt, float* bst, float* rx,
+                                      const int* slots, long long pbase, int t) {
+  const int L = a.L;
+  auto head = [&](int j, int& slot, int& row) {
+    if (j < 8) { slot = L + 6; row = j; return j < 3 ? j : -1; }
+    if (j < 24) { slot = L + 11; row = j - 8; return row < 12 ? 3 + row : -1; }
+    slot = L + 1; row = j - 24;
+    return row == 0 ? 15 : -1;
+  };
+  for (int i = t; i < 32 * TC_TP; i += wg::THREADS) {
+    const int j = i / TC_TP, pt = i % TC_TP;
+    const long long p = pbase + pt;
+    int slot, row;
+    const int c = head(j, slot, row);
+    const float g = (c >= 0 && p < a.P) ? a.graw[p * 16 + c] : 0.0f;
+    if (gzt != nullptr) gzt[slots[a.n_act + slot] + row * TC_TP + pt] = __float2bfloat16_rn(g);
+    if (j == 24) rx[pt] = g;
+  }
+  if (bst != nullptr && t < 32) {
+    int slot, row;
+    const int c = head(t, slot, row);
+    float s = 0.0f;
+    for (int pt = 0; pt < TC_TP; ++pt) {
+      const long long p = pbase + pt;
+      s += (c >= 0 && p < a.P) ? a.graw[p * 16 + c] : 0.0f;
+    }
+    bst[slots[a.n_act + slot] / TC_TP + row] = s;
+  }
+}
+
+// After dir0's [pe(dir) | se] product, per point (t < TC_TP): K12's gextra
+// (the direction's through its PE backward, and gse; or the given
+// encoding's), or gse, with the corner dCoords into gco [3][TC_TP].
+__device__ __forceinline__ void dir_points(const Args& a, const float* F, float* gco,
+                                           long long pbase, int t) {
+  const int ndp = a.ndp, C = a.C;
+  const long long p = pbase + t;
+  if (t >= TC_TP || p >= a.P) return;
+  if (a.mode == MODE_PTS && (a.enc & ENC_EXTRA)) {
+    for (int c = 0; c < C; ++c) a.gextra[p * C + c] = F[c * TC_LDF + t];
+  } else if (a.mode == MODE_PTS) {
+    const float* e = a.extra + p * (3 + C);
+    float ge[3] = {0, 0, 0};
+    sahs::pe_group_bwd(e, 3, a.nf_dir, F, 0, t, TC_LDF, ge);
+    float* go = a.gextra + p * (3 + C);
+    for (int c = 0; c < 3; ++c) go[c] = ge[c];
+    for (int c = 0; c < C; ++c) go[3 + c] = F[(ndp + c) * TC_LDF + t];
+  } else if (a.se != nullptr) {
+    for (int c = 0; c < C; ++c) a.gse[p * C + c] = F[(ndp + c) * TC_LDF + t];
+  } else if (C > 0) {
+    float x[3];
+    for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
+    float fr[3];
+    const float okf = cell_fracs(x, a, fr);
+    const bf16* crow = reinterpret_cast<const bf16*>(a.table) + (size_t)a.rows[p] * 8 * C;
+    const float* gs = F + ndp * TC_LDF + t;
+    float dfx = 0.0f, dfy = 0.0f, dfz = 0.0f;
+    for (int s = 0; s < 8; ++s) {
+      const int dz = (s >> 2) & 1, dy = (s >> 1) & 1, dx = s & 1;
+      float gv = 0.0f;
+      for (int c = 0; c < C; ++c) gv += gs[c * TC_LDF] * __bfloat162float(crow[s * C + c]);
+      const float wz = dz ? fr[2] : 1.0f - fr[2];
+      const float wy = dy ? fr[1] : 1.0f - fr[1];
+      const float wx = dx ? fr[0] : 1.0f - fr[0];
+      dfx += (dx ? 1.0f : -1.0f) * wz * wy * gv;
+      dfy += (dy ? 1.0f : -1.0f) * wz * wx * gv;
+      dfz += (dz ? 1.0f : -1.0f) * wy * wx * gv;
+    }
+    gco[t] = dfx * okf * (0.5f * (a.gW - 1));
+    gco[TC_TP + t] = dfy * okf * (0.5f * (a.gH - 1));
+    gco[2 * TC_TP + t] = dfz * okf * (0.5f * (a.gD - 1));
+    for (int c = 0; c < C; ++c) a.gse[p * C + c] = gs[c * TC_LDF];
+  }
+}
+
+// At the end, per point (t < TC_TP): the PE backward plus the corner
+// dCoords to gx, or the given encoding's cotangent.
+__device__ __forceinline__ void pe_points(const Args& a, const float* F, const float* gco,
+                                          long long pbase, int t) {
+  const long long p = pbase + t;
+  if (t >= TC_TP || p >= a.P) return;
+  if (a.enc & ENC_PTS) {
+    for (int c = 0; c < a.kx; ++c) a.gx[p * a.kx + c] = F[c * TC_LDF + t];
+    return;
+  }
+  float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
+  float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  sahs::pe_group_bwd(x, 3, a.nf_xyz, F, 0, t, TC_LDF, gxo);
+  sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, F, 3 + 6 * a.nf_xyz, t, TC_LDF, gxo + 3);
+  for (int c = 0; c < 3; ++c) gxo[c] += gco[c * TC_TP + t];
+  for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+}
+
+// One N-wide chunk of a gz product, after its products: the derivative
+// from the y stage Y (null for a linear layer), the stash, the column sums
+// into cs [4 warps][NC], then (every warp's products done) the chunk into
+// the A tile at `dst` and the sums of the 4 warps, in order, to bs.
+template <int N>
+__device__ __forceinline__ void gz_chunk(const float (&d)[N / 2], const Prod& p, int col0,
+                                         const unsigned char* Y, const float* rx,
+                                         const bf16* rw, bf16* st, float* cs, float* bs,
+                                         uint32_t dst, int bar, int t) {
+  uint32_t h[N / 4];
+  float s[N / 4];
+  if (p.rank1) dact_chunk<N, false, true>(d, h, s, col0, p.n, Y, rx, rw, t);
+  else if (Y != nullptr) dact_chunk<N, true, false>(d, h, s, col0, p.n, Y, rx, rw, t);
+  else dact_chunk<N, false, false>(d, h, s, col0, p.n, Y, rx, rw, t);
+  col_sums<N>(s, cs + (t / 32) * NC, t);
+  if (st != nullptr) stash_chunk<N>(h, st, col0, p.n, t);
+  wg::bar_sync(bar, wg::THREADS);
+  fw::put_chunk<N>(h, dst, t);
+  if (bs != nullptr && t < N && col0 + t < p.n)
+    bs[col0 + t] = ((cs[t] + cs[NC + t]) + cs[2 * NC + t]) + cs[3 * NC + t];
+}
+
+__device__ __forceinline__ void tile(const Args& a, const CUtensorMap* ymap, unsigned char* smem) {
+  const Layout ly(a);
+  unsigned char* base = smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + ly.bar);
+  uint64_t* empty = full + RING_MAX;
+  const int tid = threadIdx.x, g = wg::warpgroup(), lane = tid % 32;
+  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
+  const long long pairs = (n_tiles + WG - 1) / WG;
+  bf16* alpha_s = reinterpret_cast<bf16*>(base + ly.alpha);
+  int* slots_s = reinterpret_cast<int*>(base + ly.slots);
+  {
+    // gfeat's second input is [dir0's feat block ; alpha]: its last row,
+    // the alpha head's, is the epilogue's rank-1 term
+    const sahs::LayerDesc d9 = sahs::load_desc(a.metaT, 9);
+    const bf16* wa = reinterpret_cast<const bf16*>(a.wT) + d9.w2 + (size_t)a.B * d9.n;
+    for (int i = tid; i < a.H; i += blockDim.x) alpha_s[i] = wa[i];
+    for (int i = tid; i < a.n_act + a.L + 12; i += blockDim.x) slots_s[i] = a.slots[i];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < ly.ring; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 4 * WG);  // lane 0 of every consumer warp
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  Ring rg{base, full, empty, ly.ring, 0, 0u};
+
+  if (g == WG) {  // the producer warp: one thread copies every stage
+    if (lane == 0) {
+      for (long long pr = blockIdx.x; pr < pairs; pr += gridDim.x) {
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(a.wgb);
+        for (int q = 0; q < n_prods(a); ++q) {
+          const Prod p = prod_of(a, q);
+          const int ns = k_blocks(p.k1) + k_blocks(p.k2);
+          for (int c = 0; c < n_chunks(p.n); ++c) {
+            const uint32_t bytes = 128u * chunk_cols(p.n, c);
+            for (int s = 0; s < ns; ++s) {
+              rg.push(src, bytes);
+              src += bytes;
+            }
+            if (p.y < 0) continue;
+            for (int w = 0; w < WG; ++w) {  // each warpgroup's y rows (past the last tile: any tile's)
+              const long long ti = pr * WG + w < n_tiles ? pr * WG + w : n_tiles - 1;
+              const long long row = (ti * a.act_stride + slots_s[p.y]) / TC_TP + c * NC;
+              rg.push_map(ymap, 0, (int)row, YBYTES);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup
+  const int t = tid % wg::THREADS, bar = 1 + g;
+  unsigned char* const RB = base + ly.ring * SLOT + g * ly.per_wg;
+  auto region = [&](int r) { return RB + (r == R0 ? 0 : r == R1 ? ly.r01 : 2 * ly.r01) * wg::BLOCK; };
+  float* F = reinterpret_cast<float*>(RB + ly.f);
+  float* cs0 = F + ly.nf * TC_LDF;   // the column sums, two sets in turns
+  float* rx = cs0 + 2 * 4 * NC;      // gz_alpha in f32
+  float* gco = rx + TC_TP;           // the corner dCoords
+  const int b_len = (int)(a.gz_stride / TC_TP);
+  int par = 0;
+  for (long long pr = blockIdx.x; pr < pairs; pr += gridDim.x) {
+    const long long ti = pr * WG + g, pbase = ti * TC_TP;
+    // a warpgroup past the last tile runs on zeros and writes nothing
+    const bool live = ti < n_tiles;
+    bf16* gzt = live ? reinterpret_cast<bf16*>(a.gzs) + ti * a.gz_stride : nullptr;
+    float* bst = live ? a.bsum + ti * b_len : nullptr;
+    wg::bar_sync(bar, wg::THREADS);  // the last tile is done with every region
+    heads(a, gzt, bst, rx, slots_s, pbase, t);
+    head_tile(a, region(R0), 0, 3, pbase, t);
+    for (int i = t; i < 3 * TC_TP; i += wg::THREADS) gco[i] = 0.0f;
+    wg::fence_async();
+    wg::bar_sync(bar, wg::THREADS);
+    int hcur = R1;  // the region of the hidden gz's columns 0-127 (gfeat's first chunk: R1)
+    for (int q = 0; q < n_prods(a); ++q) {
+      const Prod p = prod_of(a, q);
+      if (q == 5) {  // the seg head's gz into R0 (free since dir2^T)
+        head_tile(a, region(R0), 3, 12, pbase, t);
+        wg::fence_async();
+        wg::bar_sync(bar, wg::THREADS);
+      }
+      auto src = [&](int r, int k) {
+        if (r < 0) return ASrc{0u, 0u, 0};
+        const uint32_t lo = wg::smem_u32(region(r == RH ? hcur : r));
+        return ASrc{lo, r == RH ? wg::smem_u32(region(R2)) : lo + 2 * wg::BLOCK, k_blocks(k)};
+      };
+      const ASrc s1 = src(p.s1, p.k1), s2 = src(p.s2, p.k2);
+      const int other = hcur == R0 ? R1 : R0;
+      for (int c = 0; c < n_chunks(p.n); ++c) {
+        const int col0 = c * NC;
+        if (p.out != OUT_GZ) {
+          if (chunk_cols(p.n, c) == NC) {
+            float d[NC / 2];
+            product<NC, PROMOTE>(d, s1, s2, rg, lane);
+            store_f<NC>(d, F, col0, p.n, p.out == OUT_FADD, t);
+          } else {
+            float d[KB / 2];
+            product<KB, PROMOTE>(d, s1, s2, rg, lane);
+            store_f<KB>(d, F, col0, p.n, p.out == OUT_FADD, t);
+          }
+          continue;
+        }
+        float d[NC / 2];
+        if (chunk_cols(p.n, c) == NC) product<NC, PROMOTE>(d, s1, s2, rg, lane);
+        else product<KB, PROMOTE>(reinterpret_cast<float(&)[KB / 2]>(d), s1, s2, rg, lane);
+        const uint32_t dst = wg::smem_u32(region(c > 0 ? R2 : p.dst == RH ? other : p.dst));
+        // the stash slot's rows and the bias sums (stash_chunk's columns count from 0)
+        bf16* st = gzt != nullptr ? gzt + slots_s[a.n_act + p.gz] : nullptr;
+        float* bs = bst != nullptr ? bst + slots_s[a.n_act + p.gz] / TC_TP : nullptr;
+        float* cs = cs0 + par * 4 * NC;
+        par ^= 1;
+        // the two y stages follow the chunk's weight stages: wg 0's, then wg 1's
+        const unsigned char* Y = nullptr;
+        int y0 = 0, y1 = 0;
+        if (p.y >= 0) {
+          y0 = rg.stage;
+          const uint32_t ph0 = rg.phase;
+          rg.next();
+          y1 = rg.stage;
+          const uint32_t ph1 = rg.phase;
+          rg.next();
+          // both: a warp arrives on both once read, so neither may be a
+          // slot that the producer has not yet filled for this chunk
+          wg::mbar_wait(&full[y0], ph0);
+          wg::mbar_wait(&full[y1], ph1);
+          Y = base + (g == 0 ? y0 : y1) * SLOT;
+        }
+        if (chunk_cols(p.n, c) == NC)
+          gz_chunk<NC>(d, p, col0, Y, rx, alpha_s, st, cs, bs, dst, bar, t);
+        else
+          gz_chunk<KB>(reinterpret_cast<float(&)[KB / 2]>(d), p, col0, Y, rx, alpha_s, st, cs, bs,
+                       dst, bar, t);
+        if (p.y >= 0) {  // after this warp's reads of its y stage (gz_chunk's barrier)
+          wg::mbar_arrive(&empty[y0], lane == 0);
+          wg::mbar_arrive(&empty[y1], lane == 0);
+        }
+      }
+      if (p.out == OUT_GZ && p.dst == RH) hcur = other;
+      wg::fence_async();
+      wg::bar_sync(bar, wg::THREADS);
+      if (q == 4) dir_points(a, F, gco, pbase, t);
+    }
+    pe_points(a, F, gco, pbase, t);
+  }
+}
+
+}  // namespace bw
+
+// launch 3 of the backward in bf16 (bw::tile); ymap: the activation stash's
+// boxes of 128 rows (a slot's columns) x 64 points, 128-byte swizzle
+__global__ void __launch_bounds__(bw::THREADS, 1)
+bwd_tc_kernel(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap ymap) {
+  extern __shared__ __align__(1024) unsigned char bw_smem[];
+  bw::tile(a, &ymap, bw_smem);
+}
+
+// K2's pair= form in bf16 (bwd_tc_fold_kernel): launch 3 as the mma.sync
+// tile of mma.cuh (each transposed product's epilogue applies the
+// activation's derivative from the stashed output, read from device
+// memory, and writes gz to its stash slot in f32 and to shared memory in
+// bf16 for the next product), then the pair's backward on the same points
+// (fold_pair); its dW and the pair's on mma.cuh's stash_dw_kernel. The
+// pair's tile (pair_bwd.cuh) is on mma.sync too, so the fold keeps the
+// level's mma.sync tile beside it.
+__device__ __forceinline__ void bwd_tc_fold_tile(const Args& a, const sahs::PairBwd& pb,
+                                                 unsigned char* smem_raw) {
   const TcLayout ly(a);
   const int ndp = ly.ndp, C = a.C, L = a.L, B = a.B;
   bf16* T0 = reinterpret_cast<bf16*>(smem_raw + ly.t0);
@@ -1476,18 +2051,7 @@ __device__ __forceinline__ void bwd_tc_tile(const Args& a, const sahs::PairBwd* 
   float gco[3] = {0.0f, 0.0f, 0.0f};   // the corner dCoords, added at the end
   if (tid < TC_TP) {
     const long long p = base + tid;
-    if (p < a.P && a.mode == MODE_PTS && (a.enc & ENC_EXTRA)) {
-      // K12 pre-encoded: the given [pe(dir) | se]'s cotangent
-      for (int c = 0; c < C; ++c) a.gextra[p * C + c] = F[c * TC_LDF + tid];
-    } else if (p < a.P && a.mode == MODE_PTS) {
-      // K12: gextra = [the direction's, through its PE | gse]
-      const float* e = a.extra + p * (3 + C);
-      float ge[3] = {0, 0, 0};
-      sahs::pe_group_bwd(e, 3, a.nf_dir, F, 0, tid, TC_LDF, ge);
-      float* go = a.gextra + p * (3 + C);
-      for (int c = 0; c < 3; ++c) go[c] = ge[c];
-      for (int c = 0; c < C; ++c) go[3 + c] = F[(ndp + c) * TC_LDF + tid];
-    } else if (p < a.P && a.se != nullptr) {
+    if (p < a.P && a.se != nullptr) {
       // a per-point spatial embedding: gse per point, no dCoords
       for (int c = 0; c < C; ++c) a.gse[p * C + c] = F[(ndp + c) * TC_LDF + tid];
     } else if (p < a.P && C > 0) {
@@ -1548,41 +2112,29 @@ __device__ __forceinline__ void bwd_tc_tile(const Args& a, const sahs::PairBwd* 
                    sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, skip_done});
   __syncthreads();
 
-  // per point: PE backward, plus the corner dCoords; gx to a.gx, or with
-  // FOLD kept in gfold for the pair (zero past the last point)
+  // per point: PE backward, plus the corner dCoords; gx kept in gfold for
+  // the pair (zero past the last point)
   float gfold[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (tid < TC_TP) {
     const long long p = base + tid;
-    if (p < a.P && (a.enc & ENC_PTS)) {   // the given encoding's cotangent
-      for (int c = 0; c < ly.kx; ++c) a.gx[p * ly.kx + c] = F[c * TC_LDF + tid];
-    } else if (p < a.P) {
+    if (p < a.P) {
       float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
       float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
       sahs::pe_group_bwd(x, 3, a.nf_xyz, F, 0, tid, TC_LDF, gxo);
       sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, F, 3 + 6 * a.nf_xyz, tid, TC_LDF, gxo + 3);
-      for (int c = 0; c < 3; ++c) gxo[c] += gco[c];
-      if constexpr (FOLD) {
-        for (int c = 0; c < 8; ++c) gfold[c] = gxo[c];
-      } else {
-        for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
-      }
+      for (int c = 0; c < 3; ++c) gfold[c] = gxo[c] + gco[c];
+      for (int c = 3; c < 8; ++c) gfold[c] = gxo[c];
     }
   }
-  if constexpr (FOLD) fold_pair<bf16, TC_TP>(a, *pb, smem_raw, gfold);
+  fold_pair<bf16, TC_TP>(a, pb, smem_raw, gfold);
 }
 
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2) bwd_tc_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_tile<false>(a, nullptr, smem_raw);
-}
-
-// K2's pair= form in bf16: the level's backward, then the pair's (the
-// pair's arguments read in place: __grid_constant__, no local copy)
+// (the pair's arguments read in place: __grid_constant__, no local copy)
 __global__ void __launch_bounds__(sahs::TC_THREADS, 2)
 bwd_tc_fold_kernel(Args a, const __grid_constant__ sahs::PairBwd pb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_tile<true>(a, &pb, smem_raw);
+  bwd_tc_fold_tile(a, pb, smem_raw);
 }
 
 // The forward tile's launch (fw::tile): persistent blocks, one an SM, two
@@ -1604,37 +2156,74 @@ int launch_fwd(K kernel, const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Whether the backward tile (bw::tile) takes these widths and its stage blob.
+bool bwd_ok(const Args& a) {
+  return a.H % 16 == 0 && a.B % 16 == 0 && a.B >= 16 && a.B <= fw::NC && a.H <= 2 * fw::NC &&
+         bw::Layout(a).ring >= 2 && a.wgb != nullptr && a.wgb_bytes == bw::blob_bytes(a) &&
+         a.bsum != nullptr && a.act_stride % TC_TP == 0 && a.gz_stride % TC_TP == 0;
+}
+
+// The backward tile's launch: persistent blocks, one an SM, two 64-point
+// tiles a block at a time; the map of the activation stash from which the
+// producer copies the y stages.
+int launch_bwd(const Args& a, cudaStream_t stream) {
+  const bw::Layout ly(a);
+  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
+  CUtensorMap ymap;
+  int err = wg::make_map(&ymap, a.acts, n_tiles * a.act_stride / TC_TP, TC_TP, 2 * TC_TP, wg::NC);
+  if (!err) err = sahs::set_smem(bwd_tc_kernel, ly.bytes);
+  int dev = 0, sms = 0;
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const long long pairs = (n_tiles + bw::WG - 1) / bw::WG;
+  bwd_tc_kernel<<<(unsigned)(pairs < sms ? pairs : sms), bw::THREADS, ly.bytes, stream>>>(a, ymap);
+  return (int)cudaGetLastError();
+}
+
+// bf16: launch 1 (fwd_tc_kernel), 2 (the compositing, ray modes), 3
+// (bwd_tc_kernel) and the dW of level_dw.cuh over `chunks` chunks of tiles
+// (`items`, n_items rows of its work list); with pc, K2's pair= form:
+// launch 3 as bwd_tc_fold_kernel and the level's and the pair's dW on
+// stash_dw_kernel (the plan's `work`, the float32 gz stash).
 int launch_tc(const Args& a, int n_work, int chunks, int out_len,
               const int* prods, const int* work, float* part, float* out,
-              const PairCall* pc, cudaStream_t stream) {
-  const TcLayout ly(a);
+              const PairCall* pc, const int* items, int n_items, cudaStream_t stream) {
   const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
-  const int nmax = imax(imax(a.H, a.B), imax(pad8(ly.kx), pad8(ly.ndp + a.C)));
-  if (a.H % 16 || a.B % 16 || a.B < 16 || nmax > sahs::TC_NMAX)
-    return (int)cudaErrorInvalidValue;
-  // the fold's tile: the pair's (54,784 B at the flagship's widths) and the
-  // gx tile past it fit in the level's (114,560 B), two blocks an SM
-  const int sb = pc == nullptr ? ly.bwd
-                 : imax(ly.bwd, fold_g_offset<bf16>(pc->pb.n_freq) + TC_TP * a.PW * 4);
   const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
-  int err = pc != nullptr ? sahs::set_smem(bwd_tc_fold_kernel, sb)
-                          : sahs::set_smem(bwd_tc_kernel, sb);
-  if (!err) err = sahs::set_smem(composite_kernel, sc);
+  int sb = 0;
+  int err = sahs::set_smem(composite_kernel, sc);
+  if (pc != nullptr) {
+    const TcLayout ly(a);
+    const int nmax = imax(imax(a.H, a.B), imax(pad8(ly.kx), pad8(ly.ndp + a.C)));
+    if (a.H % 16 || a.B % 16 || a.B < 16 || nmax > sahs::TC_NMAX)
+      return (int)cudaErrorInvalidValue;
+    // the pair's tile (54,784 B at the flagship's widths) and the gx tile
+    // past it fit in the level's (114,560 B), two blocks an SM
+    sb = imax(ly.bwd, fold_g_offset<bf16>(pc->pb.n_freq) + TC_TP * a.PW * 4);
+    if (!err) err = sahs::set_smem(bwd_tc_fold_kernel, sb);
+  } else if (!bwd_ok(a) || items == nullptr || n_items <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (!err) err = launch_fwd(fwd_tc_kernel, a, stream);
   if (err) return err;
   if (a.mode == MODE_LOSS || a.mode == MODE_VJP) {
     composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  if (pc != nullptr)
-    bwd_tc_fold_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, sb, stream>>>(a, pc->pb);
-  else
-    bwd_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, sb, stream>>>(a);
+  if (pc == nullptr) {
+    if ((err = launch_bwd(a, stream))) return err;
+    return ldw::launch_level_dw(reinterpret_cast<const bf16*>(a.acts),
+                                reinterpret_cast<const bf16*>(a.gzs), a.bsum, a.act_stride,
+                                a.gz_stride, (int)n_tiles, prods, items, n_items, chunks, part,
+                                out, out_len, (int)(a.gz_stride / TC_TP), stream);
+  }
+  bwd_tc_fold_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, sb, stream>>>(a, pc->pb);
   if ((err = (int)cudaGetLastError())) return err;
-  err = sahs::launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
-                              a.act_stride, a.gz_stride, (int)n_tiles, prods,
-                              work, n_work, chunks, part, out, out_len, stream);
-  if (err || pc == nullptr) return err;
+  err = sahs::launch_stash_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs, a.act_stride,
+                              a.gz_stride, (int)n_tiles, prods, work, n_work, chunks, part,
+                              out, out_len, stream);
+  if (err) return err;
   return sahs::pair_dw<bf16>(pc->pb, (int)n_tiles, pc->prods, pc->work, pc->n_work,
                              pc->chunks, pc->part, pc->out, pc->out_len, stream);
 }
@@ -1720,7 +2309,8 @@ int level_train_call(
     int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
     int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
     const void* prods, const void* work, void* part, void* out, PairCall* pc,
-    const void* wg, long long wg_bytes, void* stream) {
+    const void* wg, long long wg_bytes, const void* wgb, long long wgb_bytes, void* bsum,
+    const void* items, int n_items, void* stream) {
   if (R <= 0) return 0;
   if (mode < MODE_LOSS || mode > MODE_PTS) return (int)cudaErrorInvalidValue;
   if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
@@ -1757,6 +2347,7 @@ int level_train_call(
   a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb; a.nf_dir = nf_dir;
   a.gD = gD; a.gH = gH; a.gW = gW; a.n_act = n_act; a.bg_sup = bg_sup;
   a.wg = wg; a.wg_bytes = wg_bytes;
+  a.wgb = wgb; a.wgb_bytes = wgb_bytes; a.bsum = (float*)bsum;
   set_widths(a);
   if (pc != nullptr) {   // the pair's points: the level's rays (o, d, z)
     pc->pb.src = sahs::PointSrc{nullptr, a.ro, a.dirs, a.z, S};
@@ -1767,7 +2358,7 @@ int level_train_call(
   auto wk = (const int*)work;
   if (bf16)
     return launch_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
-                     (float*)out, pc, s);
+                     (float*)out, pc, (const int*)items, n_items, s);
   return launch<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
                        (float*)out, pc, s);
 }
@@ -1825,6 +2416,12 @@ extern "C" int sahs_nerf_level_tc(
 // The accumulation form the bf16 forward tile runs (FIELD_PROMOTE).
 extern "C" int sahs_field_promote() { return FIELD_PROMOTE; }
 
+// K2, K6, K8 or K12 (mode) in one call. In bf16 gzs is the bf16 gz stash,
+// wgb (wgb_bytes) the backward tile's stages (level_train.backward_stages),
+// bsum (n_tiles x gz_stride / 64 floats) the tiles' column sums of gz, and
+// items (n_items x 4 ints) the work list of level_dw.cuh's dW over `chunks`
+// chunks of tiles (level_train.dw_items); in float32 those are null and gzs
+// is the float32 gz stash of dw_kernel, over the plan's `work`.
 extern "C" int sahs_level_train(
     const void* pts, const void* rows, const void* table, const void* dirs,
     const void* z, const void* bg, const void* noise, const void* tgt,
@@ -1837,14 +2434,15 @@ extern "C" int sahs_level_train(
     int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
     int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
     const void* prods, const void* work, void* part, void* out, const void* wg,
-    long long wg_bytes, void* stream) {
+    long long wg_bytes, const void* wgb, long long wgb_bytes, void* bsum, const void* items,
+    int n_items, void* stream) {
   return level_train_call(pts, rows, table, dirs, z, bg, noise, tgt, lw, g_rgb, g_w,
                           extra, gextra, se, enc, mode, w, b, meta, wT, bT, metaT,
                           rgb_map, weights, gx, gse, g_bg, raw, graw, acts, gzs, slots,
                           R, S, PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD,
                           gH, gW, bf16, n_act, act_stride, gz_stride, n_work, chunks,
                           out_len, bg_sup, prods, work, part, out, nullptr, wg, wg_bytes,
-                          stream);
+                          wgb, wgb_bytes, bsum, items, n_items, stream);
 }
 
 // K2's pair= form (MODE_LOSS): K2's arguments without gx, then the ray
@@ -1891,5 +2489,5 @@ extern "C" int sahs_level_train_pair(
                           acts, gzs, slots, R, S, PW, L, skip, H, B, C, amb, nf_xyz,
                           nf_amb, nf_dir, gD, gH, gW, bf16, n_act, act_stride,
                           gz_stride, n_work, chunks, out_len, bg_sup, prods, work, part,
-                          out, &pc, wg, wg_bytes, stream);
+                          out, &pc, wg, wg_bytes, nullptr, 0, nullptr, nullptr, 0, stream);
 }

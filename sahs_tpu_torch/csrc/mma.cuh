@@ -1,8 +1,8 @@
-// Tensor-core device code for the bf16 backward kernels (the level
-// backward of csrc/level_train.cu; the deformation nets' of
-// deform_pair_vjp.cu and skip_mlp.cu through skip_tc.cuh): one MLP layer
-// over a 64-point tile on mma.sync, and the split-K dW reduction over the
-// stash on mma.sync.
+// Tensor-core device code for the bf16 backward kernels on mma.sync: the
+// deformation nets' (deform_pair_vjp.cu and skip_mlp.cu through
+// skip_tc.cuh) and K2's pair= form (level_train.cu's bwd_tc_fold_kernel):
+// one MLP layer over a 64-point tile, and the split-K dW reduction over
+// their stashes (stash_dw_kernel).
 //
 // The layer product. mlp_layer's contract (mlp.cuh) for bf16 operands:
 //     Y[n][t] = act( sum_k X1[k][t] W1[k][n] (+ sum_k X2[k][t] W2[k][n]) + b[n] )
@@ -24,7 +24,8 @@
 // the level backward takes WN = 32, UPW = 2 (tc_product: up to 8 groups
 // of 32 outputs, two a warp), the deformation nets WN = 32 or 16, UPW = 1.
 //
-// The dW reduction. dW[k][n] = sum_p A[p][k] gz[p][n] over all points, as
+// The dW reduction (stash_dw_kernel: K3, K14, and the level and the pair of
+// K2's pair= form). dW[k][n] = sum_p A[p][k] gz[p][n] over all points, as
 // train.cuh's dw_kernel (work list, 64 x 64 output tiles, split-K chunks of
 // point tiles summed by dw_reduce in chunk order, so the result is
 // deterministic), with the product on mma.sync: A is the stashed bf16
@@ -32,10 +33,11 @@
 // _mmT semantics), sums in f32. A bias row takes the unrounded f32 gz,
 // summed off the tensor cores.
 //
-// The NeRF field's forward tile runs on wgmma (level_train.cu fw::, with
-// wgmma.cuh); the backward tiles here, the deformation nets' tiles
-// (skip_tc.cuh) and dW stay on mma.sync, which reaches the tensor cores
-// with per-warp fragments and no descriptors or swizzles.
+// The level's own tiles run on wgmma (level_train.cu: the forward fw::, the
+// backward bw::, with wgmma.cuh; its dW level_dw.cuh); the tiles here, the
+// deformation nets' backward (skip_tc.cuh) and their dW stay on mma.sync,
+// which reaches the tensor cores with per-warp fragments and no
+// descriptors or swizzles.
 #pragma once
 
 #include "train.cuh"
@@ -324,7 +326,7 @@ constexpr int LDW_THREADS = 128;   // four warps, 2 x 2 over the 64 x 64 tile
 // both read by ldmatrix without transposition. Warp (wm, wn) owns k rows
 // wm*32.. and n columns wn*32.. .
 __global__ void __launch_bounds__(LDW_THREADS, 4)
-level_dw_kernel(const bf16* __restrict__ acts, const float* __restrict__ gzs,
+stash_dw_kernel(const bf16* __restrict__ acts, const float* __restrict__ gzs,
                 long long act_stride, long long gz_stride, int n_tiles,
                 const int* __restrict__ prods, const int* __restrict__ work,
                 int tiles_per_chunk, float* __restrict__ part, int out_len) {
@@ -421,13 +423,13 @@ level_dw_kernel(const bf16* __restrict__ acts, const float* __restrict__ gzs,
 
 // Both launches of the tensor-core reduction, on `stream`; the partials
 // are summed by train.cuh's dw_reduce in chunk order.
-inline int launch_level_dw(const bf16* acts, const float* gzs,
+inline int launch_stash_dw(const bf16* acts, const float* gzs,
                            long long act_stride, long long gz_stride,
                            int n_tiles, const int* prods, const int* work,
                            int n_work, int chunks, float* part, float* out,
                            int out_len, cudaStream_t stream) {
   const int per = (n_tiles + chunks - 1) / chunks;
-  level_dw_kernel<<<dim3(n_work, chunks), LDW_THREADS, 0, stream>>>(
+  stash_dw_kernel<<<dim3(n_work, chunks), LDW_THREADS, 0, stream>>>(
       acts, gzs, act_stride, gz_stride, n_tiles, prods, work, per, part,
       out_len);
   cudaError_t err = cudaGetLastError();

@@ -252,13 +252,13 @@ __device__ __forceinline__ void pair_bwd_tc_tile(const PairBwd& a, const float* 
 }
 
 // The pair's dW and db from the two stashes of `n_tiles` tiles (split-K,
-// a fixed order): level_dw_kernel in bf16, dw_kernel in float32.
+// a fixed order): stash_dw_kernel in bf16, dw_kernel in float32.
 template <typename T>
 int pair_dw(const PairBwd& a, int n_tiles, const int* prods, const int* work,
             int n_work, int chunks, float* part, float* out, int out_len,
             cudaStream_t stream) {
   if constexpr (sizeof(T) == 2)
-    return launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs, a.act_stride,
+    return launch_stash_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs, a.act_stride,
                            a.gz_stride, n_tiles, prods, work, n_work, chunks, part,
                            out, out_len, stream);
   else

@@ -39,7 +39,7 @@
 // K14 in float32 runs skip_vjp_kernel on 32-point tiles
 // with mlp.cuh's SIMT products and train.cuh's dw_kernel; in bf16
 // skip_vjp_tc_kernel on 64-point tiles, the net on skip_tc.cuh's
-// tensor-core routine, and dW on mma.cuh's level_dw_kernel.
+// tensor-core routine, and dW on mma.cuh's stash_dw_kernel.
 #include "skip_tc.cuh"
 #include "skip_wg.cuh"
 
@@ -355,7 +355,7 @@ int launch_vjp_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
   skip_vjp_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return sahs::launch_level_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
+  return sahs::launch_stash_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
                                a.act_stride, a.gz_stride, (int)n_tiles, prods,
                                work, n_work, chunks, part, out, out_len, stream);
 }

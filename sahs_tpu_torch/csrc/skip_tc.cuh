@@ -21,7 +21,7 @@
 //      epilogue applying the ReLU's derivative from the stashed output and
 //      writing gz to the gz stash (f32) and to shared memory (bf16) for the
 //      next product (mma.cuh's DactStore), so no f32 tile is kept.
-// dW is then mma.cuh's level_dw_kernel over the two stashes.
+// dW is then mma.cuh's stash_dw_kernel over the two stashes.
 //
 // The warp layout follows N. tc_product's fixed layout (two 32-wide output
 // groups a warp, strided by 128) would leave every warp's second group

@@ -343,8 +343,8 @@ __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// ---- weight stages through a ring (the forward tiles: level_train.cu's
-// fw::tile, skip_wg.cuh's sk::tile) ----
+// ---- weight stages through a ring (level_train.cu's fw::tile and bw::tile,
+// skip_wg.cuh's sk::tile) ----
 // A stage is one 64-k block of one chunk of a layer's outputs (at most NC
 // rows of 128 bytes, K-major in the 128-byte swizzle), laid out ahead of
 // time in the order a tile runs its products; one producer thread copies
@@ -380,6 +380,13 @@ struct Ring {
     mbar_wait(&empty[stage], phase ^ 1u);
     mbar_expect(&full[stage], bytes);
     bulk_load(slots + stage * SLOT, src, bytes, &full[stage]);
+    next();
+  }
+  // the box at (c0, c1) of `map` (`bytes` of it) into the next slot
+  __device__ __forceinline__ void push_map(const CUtensorMap* map, int c0, int c1, uint32_t bytes) {
+    mbar_wait(&empty[stage], phase ^ 1u);
+    mbar_expect(&full[stage], bytes);
+    tma_load(slots + stage * SLOT, map, &full[stage], c0, c1);
     next();
   }
 };

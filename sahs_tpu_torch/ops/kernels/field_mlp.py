@@ -319,7 +319,8 @@ class TrainPlan:
       ``out_off`` of the float32 output, which is laid out like the forward
       weight blob followed by its bias blob (bias rows take A = 1);
     - ``work``: int32 (m, 3) rows [product, k0, n0], one 64 x 64 output
-      tile each."""
+      tile each;
+    - ``descs_t``: the transposed blob's layers (BlobBuilder's descs)."""
     fwd: tuple
     bwd: tuple
     descs: List[List[int]]
@@ -332,6 +333,7 @@ class TrainPlan:
     work: torch.Tensor
     w_len: int
     out_len: int
+    descs_t: List[List[int]] = dataclasses.field(default_factory=list)
 
     def unpack(self, out: torch.Tensor):
         """The float32 output of the dW reduction -> one {"w", "b"} per
@@ -385,7 +387,7 @@ def build_train_plan(fwd: BlobBuilder, bwd: BlobBuilder, act_rows: List[int],
     return TrainPlan(fwd_t, bwd_t, fwd.descs, fwd.n_real,
                      i32(act_off + gz_off), act_stride, gz_stride,
                      len(act_off), i32(prods).reshape(-1), i32(work).reshape(-1),
-                     w_len, w_len + fwd.b_len)
+                     w_len, w_len + fwd.b_len, bwd.descs)
 
 
 def dw_chunks(n_tiles: int) -> int:
@@ -464,13 +466,14 @@ def swizzled(rows: int) -> np.ndarray:
     return r * WG_KB + (((kc >> 3) ^ (r & 7)) << 3) + (kc & 7)
 
 
-def stage_index(descs, heads, n_weights: int) -> np.ndarray:
-    """For every element of the stages, its index in a blob of
-    ``n_weights`` elements, or ``n_weights`` (a zero) for the K and N
-    padding. A stage holds rows (outputs c0 .. c0 + rows) x 64 k (k block
-    kb), K-major: W[kb * 64 + kc, c0 + r] at ``swizzled(rows)[r, kc]``."""
+def stage_index(order, n_weights: int) -> np.ndarray:
+    """For every element of the stages of ``order`` (``stage_order``'s
+    tuples), its index in a blob of ``n_weights`` elements, or
+    ``n_weights`` (a zero) for the K and N padding. A stage holds rows
+    (outputs c0 .. c0 + rows) x 64 k (k block kb), K-major: W[kb * 64 + kc,
+    c0 + r] at ``swizzled(rows)[r, kc]``."""
     parts = []
-    for _, off, k, n, c0, rows, kb in stage_order(descs, heads):
+    for _, off, k, n, c0, rows, kb in order:
         r = np.arange(rows)[:, None]
         kk = kb * WG_KB + np.arange(WG_KB)[None, :]
         src = np.where((kk < k) & (c0 + r < n), off + kk * n + c0 + r, n_weights)
@@ -480,27 +483,30 @@ def stage_index(descs, heads, n_weights: int) -> np.ndarray:
     return np.concatenate(parts)
 
 
-# stage_index on a device, per layer structure: weights are folded anew for
+# stage_index on a device, per stage order: weights are folded anew for
 # every frame and step, their structure is not
 _STAGE_INDEX: Dict[tuple, torch.Tensor] = {}
 
 
-def stage_blob(blobs: dict, w: torch.Tensor, descs, heads) -> torch.Tensor:
+def stage_blob(blobs: dict, w: torch.Tensor, descs, heads, order=None,
+               name: str = "wgmma") -> torch.Tensor:
     """The weight stages of bf16 blob ``w`` (``descs`` its layers): each
     stage one 64-k block of one output chunk of a layer, rows of 128 bytes
     in the 128-byte swizzle, K-major (the transposed weights), zero past K
-    and past the layer's outputs, in ``stage_order``. Built on w's device
-    and kept in ``blobs`` (the folded weights' cache) while ``w`` is the
-    same tensor, unchanged: a test's altered copy of the blob, or one
-    changed in place, is staged anew."""
-    key = ("wgmma", w.dtype)
+    and past the layer's outputs, in ``stage_order`` (or in the order that
+    the callable ``order`` returns, ``stage_order``'s tuples). Built on w's
+    device and kept in ``blobs`` (the folded weights' cache, under
+    ``name``) while ``w`` is the same tensor, unchanged: a test's altered
+    copy of the blob, or one changed in place, is staged anew."""
+    key = (name, w.dtype)
     hit = blobs.get(key)
     if hit is not None and hit[0] is w and hit[1] == w._version:
         return hit[2]
-    index_key = (tuple(map(tuple, descs)), tuple(heads), w.numel(), w.device)
+    stages = tuple(stage_order(descs, heads) if order is None else order())
+    index_key = (stages, w.numel(), w.device)
     if index_key not in _STAGE_INDEX:
         _STAGE_INDEX[index_key] = torch.from_numpy(
-            stage_index(descs, heads, w.numel())).to(w.device)
+            stage_index(stages, w.numel())).to(w.device)
     with torch.no_grad():
         blob = torch.cat([w.reshape(-1), w.new_zeros(1)])[_STAGE_INDEX[index_key]]
     blobs[key] = (w, w._version, blob)

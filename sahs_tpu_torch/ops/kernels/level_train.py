@@ -41,8 +41,11 @@ pre-encoded inputs of K11 (``nerf_mlp.py``; field_mlp.py:1546 with
 cotangents of the encodings, with no PE backward.
 
 In bfloat16 the kernels run their layer products and dW on the tensor
-cores over 64-point tiles, in float32 on the CUDA cores over 32-point
-tiles (``tile_points``; the stash follows the tile).
+cores over 64-point tiles (``wgmma``: the forward and backward tiles
+stream their weights as stages, ``nerf_level.wgmma_blob`` and
+``backward_stages``; the gz stash is bf16 and dW runs over ``dw_items``),
+in float32 on the CUDA cores over 32-point tiles (``tile_points``; the
+stash follows the tile).
 
 K2 also takes the pair= form (level_train.py:58-78, body :232-246; the JAX
 fused step under ``SAHS_PAIR_FOLD``): ``pair=(PairWeights, ro (R, 3))``.
@@ -68,10 +71,11 @@ from typing import List, Optional
 import torch
 
 from . import _build
-from .field_mlp import (TP_BF16, BlobBuilder, TrainPlan,  # noqa: F401
+from .field_mlp import (TP_BF16, WG_KB, BlobBuilder, TrainPlan,  # noqa: F401
                         build_train_plan, dact, dw_chunks, mm, mm_t,
-                        pe_backward, tile_points, torch_dtype, trunk_backward,
-                        trunk_params, unfold_cond_grads)
+                        pe_backward, stage_blob, tile_points, torch_dtype,
+                        trunk_backward, trunk_params, unfold_cond_grads,
+                        wgmma_chunks)
 from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, _grid_args, check_device,
                          level_kernel_args, nerf_raw_plain, point_blob,
@@ -411,12 +415,99 @@ def _grads_tree(weights: LevelWeights, layers):
 
 _MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
 _SIGNATURE = ("p" * 11 + "pp" + "pi" + "i" + "ppp" + "ppp" + "p" * 5 + "pp"
-              + "pp" + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "pl" + "p")
+              + "pp" + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "pl"
+              + "plppi" + "p")
 # sahs_level_train_pair: K2's arguments without g_rgb, g_w, extra, gextra,
 # enc, mode and gx, then ro and the pair's plan
 _PAIR_SIGNATURE = ("p" * 10 + "p" * 6 + "p" * 6 + "p" * 3 + "l" + "i" * 21 + "f"
                    + "p" * 4 + "p" * 7 + "i" * 6 + "p" * 3 + "i" * 6 + "p" * 4
                    + "pl" + "p")
+
+
+def backward_order(descs_t, n_trunk: int, skip: int):
+    """The transposed layers' products in the order the bf16 backward tile
+    runs them (csrc/level_train.cu, ``bw::prod_of``), each ([(w offset, k)
+    of each input], n) from the plan's transposed layers ``descs_t``:
+    rgb^T, dir3^T .. dir1^T, dir0's [pe(dir) | se] block, the seg head^T,
+    seg3^T .. seg1^T, gfeat (seg0^T on gz_s0 and dir0's feat block^T on
+    gz_d0: the last row of that input, the alpha head's, is the epilogue's
+    rank-1 term and has no stage), feat^T, the trunk L-1 .. 1 with the PE
+    layer's second input (the skip layer's input rows) before
+    trunk[skip]^T, and the PE layer's first (trunk[0]^T)."""
+    d, L = descs_t, n_trunk
+    out = [([(d[i][0], d[i][1])], d[i][4]) for i in range(9)]
+    out.append(([(d[9][0], d[9][1]), (d[9][2], d[9][3] - 1)], d[9][4]))
+    out.append(([(d[10][0], d[10][1])], d[10][4]))
+    pe = d[10 + L]
+    for i in range(L - 1, 0, -1):
+        if i == skip and pe[2] >= 0:
+            out.append(([(pe[2], pe[3])], pe[4]))
+        t = d[11 + L - 1 - i]
+        out.append(([(t[0], t[1])], t[4]))
+    out.append(([(pe[0], pe[1])], pe[4]))
+    return out
+
+
+def backward_stage_order(descs_t, n_trunk: int, skip: int) -> List[tuple]:
+    """``field_mlp.stage_order``'s tuples for ``backward_order``: per
+    product, each output chunk (at most 128 columns), input and 64-k
+    block."""
+    out = []
+    for q, (inputs, n) in enumerate(backward_order(descs_t, n_trunk, skip)):
+        for c0, rows in wgmma_chunks(n, False):
+            for off, k in inputs:
+                out += [(q, off, k, n, c0, rows, kb) for kb in range(-(-k // WG_KB))]
+    return out
+
+
+def backward_stages(weights: LevelWeights, plan: TrainPlan) -> torch.Tensor:
+    """The weight stages of the bf16 backward tile (``bwd_tc_kernel``) from
+    the plan's transposed blob (a copy that a test may have altered), in
+    ``backward_stage_order``; built on the blob's device and kept while the
+    blob is the same tensor, unchanged."""
+    L = len(weights.trunk)
+    return stage_blob(weights._blobs, plan.bwd[0], plan.descs_t, (),
+                      order=lambda: backward_stage_order(plan.descs_t, L, weights.skip),
+                      name="wgmma_bwd")
+
+
+# k rows of an item of the bf16 dW (two warpgroups of 64) and its gz
+# columns at most (csrc/level_dw.cuh: WG * KW, NW)
+DW_ROWS = 128
+
+
+def dw_items(descs) -> List[List[int]]:
+    """The work list of the bf16 level's dW (csrc/level_dw.cuh) from the
+    forward layers ``descs``: [product, k0, n0, rows] for every weight
+    product of the train plan's ``prods`` (their order; the bias rows have
+    none, db comes from the tiles' column sums), k0 in steps of 128 and n0
+    of 128, rows = the item's gz columns."""
+    out, j = [], 0
+    for o1, k1, o2, k2, n, _, _ in descs:
+        for k in ([k1] if o2 < 0 else [k1, k2]):
+            out += [[j, k0, n0, min(DW_ROWS, n - n0)]
+                    for k0 in range(0, k, DW_ROWS) for n0 in range(0, n, DW_ROWS)]
+            j += 1
+        j += 1
+    return out
+
+
+def level_dw_chunks(n_tiles: int) -> int:
+    """Chunks of point tiles of the bf16 level's dW: at least 64 tiles a
+    chunk, at most 32 chunks (a block per item and chunk)."""
+    return max(1, min(32, n_tiles // 64))
+
+
+# dw_items on a device, per layer structure
+_DW_ITEMS = {}
+
+
+def _dw_items_on(plan: TrainPlan, dev) -> torch.Tensor:
+    key = (tuple(tuple(d[1:5]) for d in plan.descs), dev)
+    if key not in _DW_ITEMS:
+        _DW_ITEMS[key] = torch.tensor(dw_items(plan.descs), dtype=torch.int32,
+                                      device=dev).reshape(-1)
+    return _DW_ITEMS[key]
 
 
 def _forward_stages(weights: LevelWeights, plan: TrainPlan, dtype: torch.dtype):
@@ -437,6 +528,39 @@ def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
             torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev),
             chunks, torch.zeros(chunks * plan.out_len, dtype=f32, device=dev),
             torch.empty(plan.out_len, dtype=f32, device=dev))
+
+
+def _level_buffers(plan: TrainPlan, n_tiles: int, dev):
+    """The bf16 stashes (activations and gz), each tile's column sums of
+    gz, and the dW's chunk partials and output of one call (every entry of
+    the partials is written)."""
+    f32, bf = torch.float32, torch.bfloat16
+    chunks = level_dw_chunks(n_tiles)
+    return (torch.empty(n_tiles * plan.act_stride, dtype=bf, device=dev),
+            torch.empty(n_tiles * plan.gz_stride, dtype=bf, device=dev),
+            torch.empty(n_tiles * (plan.gz_stride // TP_BF16), dtype=f32, device=dev),
+            chunks, torch.empty(chunks * plan.out_len, dtype=f32, device=dev),
+            torch.empty(plan.out_len, dtype=f32, device=dev))
+
+
+def _call_buffers(weights: LevelWeights, plan: TrainPlan, n_tiles: int,
+                  dtype: torch.dtype, dev, fold: bool = False):
+    """(acts, gzs, bsum, chunks, part, out, the backward's arguments: its
+    stages, their bytes, bsum, the dW's items and their count) of one call:
+    in bf16 (but K2's pair= form, whose fold keeps the mma.sync tile) the
+    wgmma backward's, else the float32 stash and the plan's work list (bsum
+    None). The caller holds every tensor until the launches are queued: a
+    buffer freed before them would be handed to the next allocation while
+    the kernels write it."""
+    p = _build.ptr
+    if dtype != torch.bfloat16 or fold:
+        acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
+        return acts, gzs, None, chunks, part, out, (None, 0, None, None, 0)
+    acts, gzs, bsum, chunks, part, out = _level_buffers(plan, n_tiles, dev)
+    stages = backward_stages(weights, plan)
+    items = _dw_items_on(plan, dev)
+    return (acts, gzs, bsum, chunks, part, out,
+            (p(stages), 2 * stages.numel(), p(bsum), p(items), items.numel() // 4))
 
 
 def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
@@ -496,7 +620,8 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     raw = e(P, 16) if composite else None
     if composite:
         graw = e(P, 16)
-    acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
+    acts, gzs, bsum, chunks, part, out, bwd = _call_buffers(weights, plan, n_tiles, dtype,
+                                                            dev, fold=pair is not None)
     p = _build.ptr
     n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
     blobs = (*[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd])
@@ -512,7 +637,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
         rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
                 p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, p(se), 0,
                 _MODES[mode], *blobs, p(rgb_map), p(w_out), p(gx), p(gse), p(g_bg),
-                p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes, *wg,
+                p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes, *wg, *bwd,
                 _build.stream_ptr(dev))
     else:
         pacts, pgzs, pchunks, ppart, pout = _plan_buffers(pplan, n_tiles, dtype, dev)
@@ -577,6 +702,17 @@ def _train_branches(pts, dirs, table, rows, z, bg, noise, tgt, lw,
     *_, acts = _launch("loss", "nerf_level_train", pts, dirs, table, rows,
                        weights, compute_dtype, grid_dims, z=z, bg=bg,
                        noise=noise, tgt=tgt, lw=lw, bg_sup=bg_sup)
+    return _stash_branches(acts, weights, pts.shape[0])
+
+
+def _rayd_branches(pts, dirs, table, rows, g, weights: LevelWeights,
+                   compute_dtype: str, grid_dims,
+                   se: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """The leaky-ReLU branches K8 takes on these arguments
+    (``_stash_branches``), from a launch of its own, not counted, which
+    gives what the caller's launch gave bit for bit."""
+    *_, acts = _launch("raw", "nerf_rayd_vjp", pts, dirs, table, rows, weights,
+                       compute_dtype, grid_dims, graw=g, se=se)
     return _stash_branches(acts, weights, pts.shape[0])
 
 
@@ -681,7 +817,8 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
     gx = torch.empty((P, PW), dtype=f32, device=dev)
     gextra = torch.empty(tuple(extra.shape), dtype=f32, device=dev)
     n_tiles = -(-P // tile_points(dtype))
-    acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
+    acts, gzs, bsum, chunks, part, out, bwd = _call_buffers(weights, plan, n_tiles,
+                                                            dtype, dev)
     p = _build.ptr
     fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
     # no rays: P points of one sample each, no table, rows or directions
@@ -693,7 +830,7 @@ def nerf_mlp_vjp(pts: torch.Tensor, extra: torch.Tensor, g: torch.Tensor,
             nf_amb, nf_dir, 0, 0, 0, int(dtype == torch.bfloat16), plan.n_act,
             plan.act_stride, plan.gz_stride, plan.work.numel() // 3, chunks,
             plan.out_len, 0.0, p(plan.prods), p(plan.work), p(part), p(out),
-            *_forward_stages(weights, plan, dtype), _build.stream_ptr(dev))
+            *_forward_stages(weights, plan, dtype), *bwd, _build.stream_ptr(dev))
     _build.check(rc, "nerf_mlp_vjp")
     nerf_mlp_vjp.launches += 1
     return gx, gextra, _grads_tree(weights, plan.unpack(out))

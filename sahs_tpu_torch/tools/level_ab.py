@@ -10,6 +10,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --grid-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --chains-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --dg-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --bwd-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -70,7 +71,12 @@ and K10 at their paths' shapes, ``_grid_times``), ``--chains-only`` the
 tools' chain kernels X1 and X4-X6 with their gates' readings
 (``_chain_times``), ``--dg-only`` X2 in its four cases beside its
 library call (``_dg_times``), ``--steps-only`` the
-steps alone. Prints one JSON line: the tree, the card's name and power
+steps alone, ``--bwd-only`` the level backward: K2, K6 and K8 at a step's
+fine and coarse level and K12 at the per-point step's 393,216 points per
+call (``_kernel_times``) and by launch (device ms, torch.profiler,
+``_launch1_times``), then the traced fused, fallback-1 and per-point steps
+(``train/trace_step.py``'s ``trace_train_step``, 3 steps each: kernel ms,
+idle share, step ms, and each kernel's ms a step). Prints one JSON line: the tree, the card's name and power
 limit, and the readings (ms; TFLOP/s and the bound's share for K3, K14,
 K7, K11 and K13).
 """
@@ -821,6 +827,20 @@ def _trace_step():
     return _checkout_module("train/trace_step.py")
 
 
+def _step_traces(paths=("fused", "fallback", "pointwise"), n_steps: int = 3) -> dict:
+    """The traced steps of ``paths`` (this checkout's ``trace_train_step``
+    on the tree's code): step ms (CUDA events), kernel ms, idle share and
+    each kernel's ms a step."""
+    steps = _trace_step()
+    out = {}
+    for name in paths:
+        res = steps.trace_train_step(n_steps, name)
+        out[name] = {"step_ms": res["step_ms"], "kernel_ms": res["kernel_ms"],
+                     "idle_share": res["idle_share"],
+                     "kernels": {k["name"]: k["ms_per_step"] for k in res["kernels"]}}
+    return out
+
+
 def _step_times(dev, n_steps: int = 5) -> dict:
     from sahs_tpu_torch.utils.device import cuda_ms
 
@@ -855,6 +875,9 @@ def main(argv=None) -> int:
                     help="time X2 in its four cases")
     ap.add_argument("--steps-only", action="store_true",
                     help="time the train steps of train/trace_step.py alone")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="time the level backward (K2, K6, K8, K12) per call and by "
+                         "launch, and trace the fused, fallback and per-point steps")
     ap.add_argument("--k1-bits", default=None,
                     help="with --serve-only: save K1's fine-chunk output to this file, "
                          "or hold it against the one saved there")
@@ -877,6 +900,9 @@ def main(argv=None) -> int:
         res["dg"] = _dg_times(dev)
     elif args.steps_only:
         res["steps_ms"] = _step_times(dev)
+    elif args.bwd_only:
+        res.update(kernels_ms=_kernel_times(dev), launches=_launch1_times(dev),
+                   traces=_step_traces())
     elif args.skip_only:
         res.update(skip_net=_skip_times(dev), pair=_pair_times(dev))
     elif args.serve_only:

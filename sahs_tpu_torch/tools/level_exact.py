@@ -152,19 +152,23 @@ def exact_acts(plain, *args) -> dict:
 def kernel_branches(args: tuple, plain=k2.nerf_level_vjp_plain) -> List[torch.Tensor]:
     """The leaky-ReLU branches a bf16 level kernel takes on its ``args``,
     read from its own stash: K6's (``plain`` K6's plain version,
-    ``level_train._vjp_branches``) or K2's (``nerf_level_train_plain``,
-    ``level_train._train_branches``)."""
+    ``level_train._vjp_branches``), K2's (``nerf_level_train_plain``,
+    ``level_train._train_branches``) or K8's (``nerf_rayd_vjp_plain``,
+    ``level_train._rayd_branches``)."""
     branches = {k2.nerf_level_vjp_plain: k2._vjp_branches,
-                k2.nerf_level_train_plain: k2._train_branches}
+                k2.nerf_level_train_plain: k2._train_branches,
+                k2.nerf_rayd_vjp_plain: k2._rayd_branches}
     return branches[plain](*args)
 
 
 def plain_branches(args: tuple) -> List[torch.Tensor]:
     """The leaky-ReLU branches the level's plain forward takes in its own
-    float32 run on K6's or K2's ``args`` (the level's weights, compute
-    dtype and grid at 9-11 in both), laid out as ``kernel_branches``'."""
+    float32 run on K6's, K2's or K8's ``args`` (the rays' inputs first,
+    then somewhere the level's weights, compute dtype and grid), laid out
+    as ``kernel_branches``'."""
+    i = next(i for i, a in enumerate(args) if isinstance(a, k5.LevelWeights))
     acts = {}
-    k5.nerf_raw_plain(*args[:4], *args[9:12], acts)
+    k5.nerf_raw_plain(*args[:4], *args[i:i + 3], acts)
     return [y > 0 for y in list(acts["trunk"]) + list(acts["dacts"]) + list(acts["sacts"])]
 
 

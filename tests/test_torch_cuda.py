@@ -27,14 +27,15 @@ gate of PARITY_TPU.json (the two sides round the same operands to bf16 but
 sum them in another order, so a value rounds differently now and then),
 and for the kernels on the tensor cores against exact sums, at most
 PLAIN_MULTIPLE times the plain version's distance to them. bf16 K6 point
-cotangents in the two tests of ROADMAP Queue 3, and bf16 K2's in the
-grid-free one, excuse the kink points that are off, and fail with more of
-them than utils/compare.kink_cap (``_kink_gate``); there each side is held
-against the exact-sum reference on its own leaky-ReLU branch at its off
-kink points (``_plain_ref``). The
+cotangents in the two tests of ROADMAP Queue 3, bf16 K2's in the
+grid-free one and bf16 K8's in the raw-field one, excuse the kink points
+that are off, and fail with more of them than utils/compare.kink_cap
+(``_kink_gate``); there each side is held against the exact-sum reference
+on its own leaky-ReLU branch at its off kink points (``_plain_ref``). The
 grid backward (K4, K9, K10: one binned routine) is also held to give the
 same bits on a second launch.
-Selecting: ``-k tensor_core`` (the tensor-core kernels' own tests), ``-k
+Selecting: ``-k tensor_core`` (the tensor-core kernels' own tests, the
+level backward's faults, repeats and ragged last tile among them), ``-k
 "tensor_core_level_forward or tensor_core_deform_pair"`` (bf16 K5 and K1's
 faults, guards and K5's bit-equality with K2's forward), ``-k "grid_dg or
 grid_bwd or grid_backward or order_free"`` (the grid backward), ``-k
@@ -165,7 +166,8 @@ def _without_sigma_head(tree):
 # The bf16 level kernels whose reference takes each side's own leaky-ReLU
 # branch at its off kink points (``_plain_ref``; level_exact.kernel_branches
 # reads the kernel's from its stash): the index of gx among their results.
-BRANCH_GX = {k2.nerf_level_vjp_plain: 0, k2.nerf_level_train_plain: 2}
+BRANCH_GX = {k2.nerf_level_vjp_plain: 0, k2.nerf_level_train_plain: 2,
+             k2.nerf_rayd_vjp_plain: 0}
 
 
 def _plain_ref(plain, *args, out_k=None, skip_sigma=False, kinks=None):
@@ -760,22 +762,28 @@ def test_kink_gate_fails_a_fault_in_half_a_tile(card, rng, out):
 
 
 def _queue3_gates(kernel, out_k, args, kinks):
-    """(bf16 K6's or K2's results ``out_k`` keep the grid-free Queue-3
+    """(bf16 K6's, K2's or K8's results ``out_k`` keep the grid-free Queue-3
     test's gates on ``args``, what failed): the exact-sum rule and the kink
     gate (``_plain_ref``), the point gates and the dW gate against the
     reference, and K2's composited colours."""
     try:
+        gbg_k = gbg_p = None
         if kernel == "K6":
             gx_p, _, gbg_p, g_p = _plain_ref(k2.nerf_level_vjp_plain, *args,
                                              out_k=out_k, kinks=kinks)
             gx_k, gbg_k, g_k = out_k[0], out_k[2], out_k[3]
+        elif kernel == "K8":
+            gx_p, _, g_p = _plain_ref(k2.nerf_rayd_vjp_plain, *args, out_k=out_k,
+                                      kinks=kinks)
+            gx_k, g_k = out_k[0], out_k[2]
         else:
             rgb_p, _, gx_p, _, gbg_p, g_p = _plain_ref(k2.nerf_level_train_plain, *args,
                                                        out_k=out_k, kinks=kinks)
             assert _rel(out_k[0], rgb_p) <= 2e-2
             gx_k, gbg_k, g_k = out_k[2], out_k[4], out_k[5]
         _points_ok(gx_k, gx_p, False, kinks)
-        _points_ok(gbg_k, gbg_p, False)
+        if gbg_k is not None:
+            _points_ok(gbg_k, gbg_p, False)
         _grads_ok(g_k, g_p, "bfloat16")
     except AssertionError as e:
         return False, str(e)[:300]
@@ -784,16 +792,17 @@ def _queue3_gates(kernel, out_k, args, kinks):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["tile", "half tile", "weight slice"])
-@pytest.mark.parametrize("kernel", ["K6", "K2"])
+@pytest.mark.parametrize("kernel", ["K6", "K2", "K8"])
 def test_kink_branch_reference_fails_planted_faults(grid_free, request, kernel, fault):
     """The Queue-3 case (grid-free, 96 rays x 16, a background, sigma
     noise) whose reference takes the kernel's own branch at the excused
-    kink points (``_plain_ref``), for K6 and for K2: the kernel passes its
+    kink points (``_plain_ref``), for K6, K2 and K8: the kernel passes its
     gates, and fails them with every point of one 64-point tile, or of half
     of one, moved by 1e-2 of the largest point's norm in gx, or with rows
-    16-31 of trunk[1]'s weights left out of its forward blob. Both kernels
+    16-31 of trunk[1]'s weights left out of its forward blob. The kernels
     take the draw of the node id without the kernel's name (K6's draw
-    before K2 had cases here)."""
+    before K2 and K8 had cases here); K8 the cotangent of its raw field
+    from the same loss."""
     dev, _, level = grid_free
     rng = np.random.RandomState(zlib.crc32(
         request.node.nodeid.replace(f"[{kernel}-", "[").encode()))
@@ -804,6 +813,15 @@ def test_kink_branch_reference_fails_planted_faults(grid_free, request, kernel, 
     if kernel == "K6":
         plain, call, gx, extra = k2.nerf_level_vjp_plain, k2.nerf_level_vjp, 0, (g_rgb, g_w)
         tail = ()
+    elif kernel == "K8":
+        # the cotangent of raw from the same colour loss, through the plain
+        # compositing of the plain raw field
+        raw = k5.nerf_raw_plain(*args[:4], level, "bfloat16", None).detach().requires_grad_()
+        rgb_r, _ = k5.composite_plain(raw.reshape(R, S, 16), args[4], args[1], args[5],
+                                      args[6])
+        (graw,) = torch.autograd.grad(rgb_r, raw, g_rgb)
+        plain, call, gx = k2.nerf_rayd_vjp_plain, k2.nerf_rayd_vjp, 0
+        args, extra, tail = args[:4], (graw,), ()
     else:
         tgt = _gpu(dev, np.concatenate([rng.rand(R, 3),
                                         np.eye(12)[rng.randint(0, 12, R)]], 1))
@@ -890,7 +908,11 @@ def test_ablation_level_kernels_match_plain(card, rng, compute_dtype, S):
 @pytest.mark.parametrize("S", [16, 128])
 def test_nerf_rayd_kernels_match_plain(card, rng, compute_dtype, S):
     """K7 against its plain version, then K8 from the cotangent of a loss
-    composited from K7's plain output."""
+    composited from K7's plain output. In bf16 K8's point cotangents take
+    the kink gate and each side is held on its own branch at its off kink
+    points, as K6's and K2's (ROADMAP Queue 3: at 96 rays x 16 about ten
+    leaky-ReLU units of 4.7 M flip at a kink and carry the whole distance on
+    some draws)."""
     from sahs_tpu_torch.ops.rendering import volume_render_radiance_field
     dev, model, _, level = card
     R = 96
@@ -911,16 +933,16 @@ def test_nerf_rayd_kernels_match_plain(card, rng, compute_dtype, S):
     out = volume_render_radiance_field(r3, z, dirs, background_prior=bg)
     g_rgb, _ = _loss_cotangents(dev, rng, out.rgb.detach(), out.weights.detach())
     (g,) = torch.autograd.grad(out.rgb, raw, g_rgb[:, :15])
-    out_k = gx_k, gse_k, g_k = k2.nerf_rayd_vjp(pts, dirs, table, rows, g, level,
-                                                compute_dtype, GRID)
-    gx_p, gse_p, g_p = _plain_ref(k2.nerf_rayd_vjp_plain, pts, dirs, table, rows, g,
-                                  level, compute_dtype, GRID, out_k=out_k)
+    rargs = (pts, dirs, table, rows, g, level, compute_dtype, GRID)
+    out_k = gx_k, gse_k, g_k = k2.nerf_rayd_vjp(*rargs)
+    f32 = compute_dtype == "float32"
+    kinks = None if f32 else _level_kinks(k2.nerf_rayd_vjp_plain, rargs)
+    gx_p, gse_p, g_p = _plain_ref(k2.nerf_rayd_vjp_plain, *rargs, out_k=out_k, kinks=kinks)
     torch.cuda.synchronize()
     assert (k5.nerf_rayd_forward.launches, k2.nerf_rayd_vjp.launches) == (
         counts[0] + 1, counts[1] + 1)
-    f32 = compute_dtype == "float32"
-    _points_ok(gx_k, gx_p, f32)
-    _points_ok(gse_k, gse_p, f32)
+    _points_ok(gx_k, gx_p, f32, kinks)
+    _points_ok(gse_k, gse_p, f32, kinks)
     _grads_ok(g_k, g_p, compute_dtype)
 
 
@@ -2030,14 +2052,14 @@ def test_tensor_core_fault_weight_slice_misses_gates(tc_levels, blob, layer):
 
 @pytest.mark.cuda
 def test_tensor_core_fault_split_k_chunk_misses_gates(tc_levels):
-    """The points of the first split-K chunk of the tensor-core dW dropped
-    (the plain dW over them taken off K12's): must miss the dW gates."""
-    from sahs_tpu_torch.ops.kernels.field_mlp import dw_chunks
+    """The points of the first chunk of the dW's point tiles dropped
+    (csrc/level_dw.cuh: a block per work item and chunk; the plain dW over
+    those points taken off K12's): must miss the dW gates."""
     level, pts, extra, g = _k12_case(tc_levels)
     P = pts.shape[0]
     n_tiles = -(-P // k2.TP_BF16)
-    n = -(-n_tiles // dw_chunks(n_tiles)) * k2.TP_BF16
-    assert dw_chunks(n_tiles) > 1 and n < P
+    n = -(-n_tiles // k2.level_dw_chunks(n_tiles)) * k2.TP_BF16
+    assert k2.level_dw_chunks(n_tiles) > 1 and n < P
     g_k = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")[2]
     g_p = _plain_ref(k2.nerf_mlp_vjp_plain, pts, extra, g, level, "bfloat16")[2]
     g_c = _plain_ref(k2.nerf_mlp_vjp_plain, pts[:n], extra[:n], g[:n], level,
@@ -2046,6 +2068,129 @@ def test_tensor_core_fault_split_k_chunk_misses_gates(tc_levels):
     assert _tc_dw_ok(g_k, g_p), tree_errors(g_k, g_p)
     dropped = _tree_sub(g_k, g_c)
     assert not _tc_dw_ok(dropped, g_p), tree_errors(dropped, g_p)
+
+
+def _chunk_first_tiles(P):
+    """The points of the first tile of every chunk of the bf16 level dW's
+    point tiles (level_train.level_dw_chunks), and the points of the first
+    chunk."""
+    tp = k2.TP_BF16
+    n_tiles = -(-P // tp)
+    chunks = k2.level_dw_chunks(n_tiles)
+    per = -(-n_tiles // chunks)
+    assert chunks > 1
+    first = torch.cat([torch.arange(c * per * tp, min(P, (c * per + 1) * tp))
+                       for c in range(chunks) if c * per < n_tiles])
+    return first, torch.arange(per * tp)
+
+
+def _bias_sub(a, b):
+    """``a`` with ``b``'s bias leaves ("b") taken off its own."""
+    if isinstance(a, dict):
+        return {k: a[k] - b[k] if k == "b" else _bias_sub(a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return [_bias_sub(x, y) for x, y in zip(a, b)]
+    return a
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["stash_block", "bias_partial"])
+def test_tensor_core_fault_level_dw_misses_gates(tc_levels, fault):
+    """Faults of the dW over the stash (csrc/level_dw.cuh), planted in K12's
+    result: the first stash block (tile) of every chunk of point tiles
+    dropped, as a producer that skipped it would (the plain dW over its
+    points taken off), or the bias partials (the tiles' column sums of gz)
+    of the first chunk dropped (the plain db over its points taken off db
+    alone): each must miss the dW gates that the faultless result passes."""
+    level, pts, extra, g = _k12_case(tc_levels)
+    first, chunk = _chunk_first_tiles(pts.shape[0])
+    idx = (first if fault == "stash_block" else chunk).to(pts.device)
+    g_k = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")[2]
+    g_p = _plain_ref(k2.nerf_mlp_vjp_plain, pts, extra, g, level, "bfloat16")[2]
+    g_c = _plain_ref(k2.nerf_mlp_vjp_plain, pts[idx], extra[idx], g[idx], level,
+                     "bfloat16")[2]
+    torch.cuda.synchronize()
+    assert _tc_dw_ok(g_k, g_p), tree_errors(g_k, g_p)
+    dropped = _tree_sub(g_k, g_c) if fault == "stash_block" else _bias_sub(g_k, g_c)
+    assert not _tc_dw_ok(dropped, g_p), tree_errors(dropped, g_p)
+
+
+def _bwd_ring_stage_fault(level, q_fault):
+    """A copy of ``level`` whose backward weight stages
+    (``level_train.backward_stages``, which the wgmma backward tile streams)
+    leave out one stage: the first 64 k of the first outputs of the tile's
+    product ``q_fault`` (``level_train.backward_order``)."""
+    faulty = dataclasses.replace(level, _blobs={})
+    plan = k2.level_train_plan(faulty, torch.bfloat16)
+    stages = k2.backward_stages(faulty, plan).clone()
+    at = 0
+    for q, _, _, _, _, rows, _ in k2.backward_stage_order(plan.descs_t, len(level.trunk),
+                                                           level.skip):
+        if q == q_fault:
+            break
+        at += rows * 64
+    assert float(stages[at:at + rows * 64].float().abs().max()) > 0
+    stages[at:at + rows * 64] = 0
+    w = plan.bwd[0]
+    faulty._blobs[("wgmma_bwd", torch.bfloat16)] = (w, w._version, stages)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 10])
+def test_tensor_core_backward_fault_ring_stage_misses_gates(tc_levels, q):
+    """One stage of the backward tile's ring left out (the first 64 k of
+    dir2^T's outputs, product 2, or of feat^T's first 128, product 10):
+    K12's results must miss the gates that its faultless run passes."""
+    level, pts, extra, g = _k12_case(tc_levels)
+    good = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")
+    ref = _plain_ref(k2.nerf_mlp_vjp_plain, pts, extra, g, level, "bfloat16", out_k=good)
+    assert _tc_points_ok(good[0], ref[0]) and _tc_points_ok(good[1], ref[1])
+    assert _tc_dw_ok(good[2], ref[2]), tree_errors(good[2], ref[2])
+    out = k2.nerf_mlp_vjp(pts, extra, g, _bwd_ring_stage_fault(level, q), "bfloat16")
+    torch.cuda.synchronize()
+    caught = [not _tc_points_ok(out[0], ref[0]), not _tc_points_ok(out[1], ref[1]),
+              not _tc_dw_ok(out[2], ref[2])]
+    assert any(caught), (point_errors(out[0], ref[0]), tree_errors(out[2], ref[2]))
+
+
+@pytest.mark.cuda
+def test_tensor_core_level_backward_repeats_bit_for_bit(tc_levels):
+    """Two launches of bf16 K12 on the same inputs give the same bits: the
+    backward tile's column sums and the dW's sums run in a fixed order."""
+    level, pts, extra, g = _k12_case(tc_levels)
+    a = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")
+    b = k2.nerf_mlp_vjp(pts, extra, g, level, "bfloat16")
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(a[2]), _leaves(b[2])))
+
+
+@pytest.mark.cuda
+def test_tensor_core_level_backward_keeps_a_ragged_last_tile(tc_levels):
+    """A last tile that is only partly full (P = 64 x 300 + 17: 301 tiles, so
+    the last pair's second warpgroup runs past the end too) gives bf16 K12
+    the same results as the same points followed by 47 more whose
+    cotangent is zero: the rows past P add nothing to dW, db or the point
+    cotangents, and the tiles, chunks and sums are the same."""
+    level, pts, extra, g = _k12_case(tc_levels)
+    n, m = 64 * 300 + 17, 64 * 301
+    a = k2.nerf_mlp_vjp(pts[:n], extra[:n], g[:n], level, "bfloat16")
+    gz = g[:m].clone()
+    gz[n:] = 0
+    b = k2.nerf_mlp_vjp(pts[:m], extra[:m], gz, level, "bfloat16")
+    torch.cuda.synchronize()
+    assert torch.isfinite(a[0]).all() and torch.isfinite(a[1]).all()
+    assert torch.equal(a[0], b[0][:n]) and torch.equal(a[1], b[1][:n])
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(a[2]), _leaves(b[2])))
 
 
 # ---------------------------------------------------------------------------
@@ -3427,9 +3572,13 @@ def test_level_train_pair_form_matches_plain(card, rng, compute_dtype):
     exact sums, within PLAIN_MULTIPLE of the plain version's distance: the
     pair's dW takes K2's gx, whose kink points sit off exact sums in either
     side's bf16 run, so its leaves are held by that rule alone), and bit
-    for bit K2 then K3's rays= form on K2's gx (the same f32 gx, the same
-    tiles, the same split-K order). Planted fault: the pair's hyper head
-    bias gradient dropped must miss the gate."""
+    for bit K2 then K3's rays= form on K2's gx: in float32 every output
+    (the same f32 gx, the same tiles, the same split-K order); in bf16 the
+    forward's outputs and g_bg (launches 1 and 2), since there the fold
+    keeps the mma.sync backward tile and dW beside the pair's while K2 runs
+    the wgmma tile and level_dw.cuh's dW, each held to exact sums above.
+    Planted fault: the pair's hyper head bias gradient dropped must miss
+    the gate."""
     dev, model, pair, level = card
     args, ro = _pair_form_case(dev, model, rng, level, 96, 64, compute_dtype)
     before = k2.nerf_level_train.launches
@@ -3463,9 +3612,11 @@ def test_level_train_pair_form_matches_plain(card, rng, compute_dtype):
     pg_d = k1.deform_pair_vjp(None, pair, gx_d, None, compute_dtype,
                               rays=(ro, args[1], args[4]))
     torch.cuda.synchronize()
-    for a, b in ((rgb_k, rgb_d), (w_k, w_d), (gse_k, gse_d), (gbg_k, gbg_d)):
+    for a, b in ((rgb_k, rgb_d), (w_k, w_d), (gbg_k, gbg_d)):
         assert torch.equal(a, b)
-    assert _trees_equal(g_k, g_d) and _trees_equal(pg_k, pg_d)
+    if compute_dtype == "float32":
+        assert torch.equal(gse_k, gse_d)
+        assert _trees_equal(g_k, g_d) and _trees_equal(pg_k, pg_d)
 
 
 @pytest.mark.cuda

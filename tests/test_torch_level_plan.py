@@ -29,6 +29,7 @@ kernels), on the CPU:
       of the largest sample count the level kernels take;
   (f) the kernels' C functions are looked up and typed once.
 """
+import dataclasses
 import os
 import re
 
@@ -723,3 +724,239 @@ def test_kernel_functions_are_resolved_once(monkeypatch):
     c = _build.function("other", "sahs_a", "p")
     assert b is not a and c is not a and loads == ["stub", "stub", "other"]
     assert (b.argtypes, c.argtypes) == ([ctypes.c_float], [ctypes.c_void_p])
+
+
+# ---------------------------------------------------------------------------
+# (g) The bf16 level backward on wgmma: bwd_tc_kernel (level_train.cu bw::,
+# launch 3 of K2/K6/K8/K12) and its dW (level_dw.cuh)
+# ---------------------------------------------------------------------------
+
+def _ns_text(path, ns):
+    """The body of ``namespace ns { ... }`` in a CUDA source."""
+    src = _cu_text(path)
+    return src[src.index(f"namespace {ns} {{"):src.index(f"}}  // namespace {ns}")]
+
+
+def _ns_const(path, ns, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _ns_text(path, ns)).group(1))
+
+
+def _level_widths(lvl):
+    """(L, H, B, kx, n_din, skip) of a folded level."""
+    return (len(lvl.trunk), lvl.trunk[0]["w"].shape[1], lvl.dir0_b.shape[0],
+            lvl.trunk[0]["w"].shape[0], lvl.dir0_dir.shape[0] + lvl.dir0_se.shape[0],
+            lvl.skip)
+
+
+def _backward_products(L, H, B, kx, n_din, skip):
+    """bw::prod_of's products from the level's widths: (k1, k2, n) in the
+    order the tile runs them: rgb^T (K 3), dir3^T-dir1^T, dir0's [pe(dir) |
+    se] block, the seg head^T (K 12), seg3^T-seg1^T, gfeat (two inputs of
+    B), feat^T, the trunk L-1 .. 1 with the PE layer's skip input before
+    trunk[skip]^T, and trunk[0]^T, each n padded to 8."""
+    p8 = lambda n: -(-n // 8) * 8
+    out = [(3, 0, B)] + [(B, 0, B)] * 3 + [(B, 0, p8(n_din))]
+    out += [(12, 0, B)] + [(B, 0, B)] * 3 + [(B, B, H), (H, 0, H)]
+    for i in range(L - 1, 0, -1):
+        if i == skip and 0 < skip < L:
+            out.append((H, 0, p8(kx)))
+        out.append((H, 0, H))
+    return out + [(H, 0, p8(kx))]
+
+
+def _backward_layout(L, H, B, kx, n_din, n_act):
+    """level_train.cu's bw::Layout(a) (ring slots, bytes), from the source's
+    constants: per warpgroup R0 and R1 [max(min(H / 64, 2), B / 64) blocks],
+    R2 [max(H / 64 - 2, B / 64)], blocks of 64 points x 128 bytes, then F
+    (max(pad8(kx), pad8(n_din)) rows of TC_LDF floats), the column sums (2
+    x 4 warps x NC floats), gz_alpha and the corner dCoords (4 x 64 floats),
+    padded to 1,024 bytes; the alpha head's row (H bf16) and the stash
+    slots' offsets; as many ring slots of NC rows x 128 bytes as fit, at
+    most RING_MAX; the barriers; the alignment slack."""
+    c = lambda n: _ns_const("level_train.cu", "bw", n)
+    kb, nc = _cu_const("wgmma.cuh", "KB"), _cu_const("wgmma.cuh", "NC")
+    wgs, ring_max, smem_max = c("WG"), c("RING_MAX"), c("SMEM_MAX")
+    ldf = _cu_const("mma.cuh", "TC_TP") + 4
+    src = _ns_text("level_train.cu", "bw")
+    assert "f = (2 * r01 + r2) * wg::BLOCK;" in src
+    assert ("per_wg = (f + nf * TC_LDF * 4 + (2 * 4 * NC + 4 * TC_TP) * 4 + 1023) / 1024 * 1024;"
+            in src)
+    assert "const int params = (2 * a.H + 4 * (a.n_act + a.L + 12) + 15) / 16 * 16;" in src
+    assert "const int fixed = WG * per_wg + params + 16 * RING_MAX + 1024;" in src
+    assert "bytes = bar + 16 * RING_MAX + 1024;" in src
+    assert "constexpr int TC_LDF = TC_TP + 4;" in _cu_text("mma.cuh")
+    cd = lambda n, d: -(-n // d)
+    p8 = lambda n: -(-n // 8) * 8
+    hb, bb = cd(H, kb), cd(B, kb)
+    h0 = min(hb, 2)
+    r01, r2 = max(h0, bb), max(hb - h0, bb)
+    nf = max(p8(kx), p8(n_din))
+    per_wg = cd((2 * r01 + r2) * 64 * 128 + nf * ldf * 4 + (2 * 4 * nc + 4 * 64) * 4, 1024) * 1024
+    fixed = wgs * per_wg + (2 * H + 4 * (n_act + L + 12) + 15) // 16 * 16 + 16 * ring_max + 1024
+    ring = min(ring_max, (smem_max - fixed) // (nc * 128))
+    return ring, fixed + ring * nc * 128
+
+
+@pytest.mark.parametrize("kind", ["grid", "grid_free", "no_ambient"])
+def test_backward_tile_layout_fits_its_block(forms, kind):
+    """The bf16 backward tile on wgmma (``level_train.cu:bwd_tc_kernel``,
+    bw::tile): two consumer warpgroups of a 64-point tile each (the stashes'
+    unit) and a producer warp, one block an SM, and its shared memory (each
+    warpgroup's three gz regions, its float32 cotangent tile and column
+    sums, a ring of at least two stages: a chunk's two y stages must both
+    fit) within a block's 227 KB at the flagship's widths, warp-only and
+    without the grid."""
+    assert _ns_const("level_train.cu", "bw", "WG") == 2
+    src = _cu_text("level_train.cu")
+    assert "constexpr int THREADS = WG * wg::THREADS + 32;" in _ns_text("level_train.cu", "bw")
+    assert re.search(r"__launch_bounds__\(bw::THREADS, 1\)\nbwd_tc_kernel\(", src)
+    assert "bw::Layout(a).ring >= 2" in src
+    assert "constexpr uint32_t YBYTES = NC * 128;" in src
+    lvl = forms[kind]
+    L, H, B, kx, n_din, _ = _level_widths(lvl)
+    plan = k2.level_train_plan(lvl, torch.bfloat16)
+    ring, smem = _backward_layout(L, H, B, kx, n_din, plan.n_act)
+    assert ring >= 2 and smem % 16 == 0 and smem <= BLOCK_MAX
+    assert smem + BLOCK_RESERVED <= SM_SMEM
+    # four 16 KB slots; five without the ambient coordinates (kx 63: F 64 rows)
+    assert (ring, smem) == {"grid": (4, 225056), "grid_free": (4, 225056),
+                            "no_ambient": (5, 227104)}[kind]
+
+
+@pytest.mark.parametrize("kind", FORMS)
+def test_backward_weight_stages_unpack_to_each_transposed_layer(forms, kind):
+    """``level_train.backward_stages``, the weight stages the backward tile
+    streams, read back on the CPU in the order the tile runs its products
+    (bw::prod_of, here from the level's widths alone): per product its
+    output chunks of at most 128 columns, its inputs, their 64-k blocks,
+    each stage rows (outputs) x 64 k in the 128-byte swizzle, K-major. They
+    put back every transposed layer's (k, n) weights of the plan's bf16
+    transposed blob exactly, zero past K and past n: gfeat's second input
+    without its last row (the alpha head's, the epilogue's rank-1 term),
+    the PE layer's two inputs as two products. The blob's length is the
+    kernel's bw::blob_bytes."""
+    lvl = forms[kind]
+    plan = k2.level_train_plan(lvl, torch.bfloat16)
+    w = plan.bwd[0]
+    d = plan.descs_t
+    L, H, B, kx, n_din, skip = _level_widths(lvl)
+    stages = k2.backward_stages(lvl, plan)
+    assert stages.dtype == torch.bfloat16 and k2.backward_stages(lvl, plan) is stages
+    # the tile's products from the widths, and the transposed layers they read
+    prods = _backward_products(L, H, B, kx, n_din, skip)
+    pe = d[10 + L]
+    layers = [([(d[i][0], d[i][1])], d[i][4]) for i in range(9)]
+    layers += [([(d[9][0], d[9][1]), (d[9][2], d[9][3] - 1)], d[9][4]),
+               ([(d[10][0], d[10][1])], d[10][4])]
+    for i in range(L - 1, 0, -1):
+        if i == skip:
+            layers.append(([(pe[2], pe[3])], pe[4]))
+        t = d[11 + L - 1 - i]
+        layers.append(([(t[0], t[1])], t[4]))
+    layers.append(([(pe[0], pe[1])], pe[4]))
+    assert [(ins[0][1], ins[1][1] if len(ins) > 1 else 0, n) for ins, n in layers] == prods
+    assert d[9][3] == B + 1 and d[0][1] == 3 and d[5][1] == 12
+    pos = 0
+    for ins, n in layers:
+        cols = -(-n // 64) * 64
+        for c0 in range(0, cols, 128):
+            rows = min(128, cols - c0)
+            perm = torch.from_numpy(swizzled(rows).ravel())
+            for off, k in ins:
+                got = torch.zeros(-(-k // 64) * 64, rows)
+                for kb in range(-(-k // 64)):
+                    st = stages[pos:pos + rows * 64].float()
+                    pos += rows * 64
+                    got[kb * 64:kb * 64 + 64] = st[perm].reshape(rows, 64).t()
+                want = torch.zeros_like(got)
+                real = w[off:off + k * n].float().reshape(k, n)[:, c0:c0 + rows]
+                want[:k, :real.shape[1]] = real
+                assert torch.equal(got, want), (kind, off, c0)
+    assert pos == stages.numel()
+    kb = lambda k: -(-k // 64)
+    assert 2 * stages.numel() == sum(
+        128 * min(128, -(-n // 64) * 64 - c0) * (kb(k1_) + kb(k2_))
+        for k1_, k2_, n in prods for c0 in range(0, -(-n // 64) * 64, 128))
+    src = _ns_text("level_train.cu", "bw")
+    assert "s += 128LL * chunk_cols(p.n, c) * (k_blocks(p.k1) + k_blocks(p.k2));" in src
+    assert "a.wgb_bytes == bw::blob_bytes(a)" in _cu_text("level_train.cu")
+    if kind == "grid":
+        assert 2 * stages.numel() == 1556480
+    # a zeroed 16-row slice of feat^T in the blob is zero in its stages alone
+    bad = w.clone()
+    bad[d[10][0] + 16 * d[10][4]:d[10][0] + 32 * d[10][4]] = 0
+    changed = k2.backward_stages(lvl, dataclasses.replace(plan, bwd=(bad,) + plan.bwd[1:]))
+    diff = (changed != stages).nonzero().reshape(-1)
+    assert 0 < diff.numel() <= 16 * d[10][4] and bool((changed[diff] == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["grid", "grid_free", "ablation"])
+def test_level_dw_schedule_covers_every_product_and_stash_block_once(forms, kind):
+    """The bf16 level's dW (``level_dw.cuh``): its work list
+    (``level_train.dw_items``, [product, k0, n0, rows]) covers every (k, n)
+    of every weight product of the plan exactly once (128 k rows, two
+    warpgroups' 64, by at most 128 gz columns an item), and db's entries
+    are the bias blob past the weights, b_len = gz_stride / 64 floats a
+    tile (the tiles' column sums); the chunks of point tiles partition the
+    tiles, so each (item, tile) reads its stash blocks once: the item's k
+    rows of the activation slot and its gz rows."""
+    lvl = forms[kind]
+    plan = k2.level_train_plan(lvl, torch.bfloat16)
+    prods = plan.prods.reshape(-1, 6).tolist()
+    items = k2.dw_items(plan.descs)
+    assert k2.DW_ROWS == _cu_const("level_dw.cuh", "WG") * _cu_const("level_dw.cuh", "KW")
+    assert k2.DW_ROWS == _cu_const("level_dw.cuh", "NW")
+    assert _cu_const("level_dw.cuh", "ITEM_INTS") == len(items[0]) == 4
+    hits = np.zeros(plan.out_len, np.int64)
+    for j, k0, n0, rows in items:
+        a_off, K, g_off, N, out_off, is_bias = prods[j]
+        assert not is_bias and k0 % k2.DW_ROWS == 0 and n0 % k2.DW_ROWS == 0
+        assert 0 <= k0 < K and 0 <= n0 < N and rows == min(k2.DW_ROWS, N - n0)
+        assert rows % 8 == 0 and rows % _cu_const("level_dw.cuh", "GBOX") == 0
+        kr = min(k2.DW_ROWS, K - k0)
+        idx = out_off + (k0 + np.arange(kr))[:, None] * N + n0 + np.arange(rows)[None, :]
+        np.add.at(hits, idx.reshape(-1), 1)
+    b_len = plan.gz_stride // k2.TP_BF16
+    assert plan.out_len - plan.w_len == b_len
+    hits[plan.w_len:] += 1   # bias_dw_kernel: every entry of the bias blob
+    assert (hits == 1).all()
+    bias = [p for p in prods if p[5]]
+    assert sorted(p[4] - plan.w_len + p[3] for p in bias)[-1] == b_len
+    for p in bias:   # a layer's bias entries are its gz slot's rows
+        assert p[4] - plan.w_len == p[2] // k2.TP_BF16
+    for n_tiles in (1, 63, 64, 96, 2047, 4096, 6144):
+        chunks = k2.level_dw_chunks(n_tiles)
+        per = -(-n_tiles // chunks)
+        seen = np.zeros(n_tiles, np.int64)
+        for c in range(chunks):
+            seen[c * per:min(n_tiles, (c + 1) * per)] += 1
+        assert (seen == 1).all() and 1 <= chunks <= 32
+    src = _cu_text("level_dw.cuh")
+    assert "const int per = (n_tiles + chunks - 1) / chunks;" in src
+    assert "level_dw_kernel<<<dim3(n_items, chunks), THREADS, SMEM, stream>>>(" in src
+    assert "bias_dw_kernel<<<dim3((b_len + 255) / 256, chunks), 256, 0, stream>>>(" in src
+
+
+def test_level_dw_tile_sizes_match_the_cuda_sources():
+    """The dW's operands: a stash row is a tile's 64 points (128 bytes of
+    bf16, the TMA box's width and wgmma's K-major row), a warpgroup's A
+    block 64 k rows, a ring stage both warpgroups' A and 128 gz rows, within
+    a block's shared memory; the gz stash is bf16 in the backward tile's
+    calls (``level_train._level_buffers``) and the bias sums one float per
+    gz row of a tile."""
+    c = lambda n: _cu_const("level_dw.cuh", n)
+    src = _cu_text("level_dw.cuh")
+    assert "constexpr int TP = wg::ROWS;" in src and _cu_const("wgmma.cuh", "ROWS") == 64
+    assert k2.tile_points(torch.bfloat16) == 64
+    assert "constexpr int A_BYTES = KW * 128;" in src
+    assert "constexpr int STAGE = WG * A_BYTES + NW * 128;" in src
+    assert "constexpr int SMEM = RING * STAGE + 16 * RING + 1024;" in src
+    smem = c("RING") * (c("WG") * c("KW") * 128 + c("NW") * 128) + 16 * c("RING") + 1024
+    assert smem <= BLOCK_MAX and smem + BLOCK_RESERVED <= SM_SMEM
+    lvl = _level(_model(True))
+    plan = k2.level_train_plan(lvl, torch.bfloat16)
+    acts, gzs, bsum, chunks, part, out = k2._level_buffers(plan, 5, "cpu")
+    assert acts.dtype == gzs.dtype == torch.bfloat16
+    assert (acts.numel(), gzs.numel()) == (5 * plan.act_stride, 5 * plan.gz_stride)
+    assert bsum.numel() == 5 * plan.gz_stride // 64 and bsum.dtype == torch.float32
+    assert (chunks, part.numel(), out.numel()) == (1, plan.out_len, plan.out_len)
