@@ -67,8 +67,9 @@ Phases, in order (any failure exits non-zero and prints no result):
      the kernels' bf16 results (a bias gradient dropped, one split-K
      chunk's points dropped, rows 16-31 of K3's warp trunk[1] weights
      left out, K4's addend left out) must each miss those gates; bf16 K3
-     runs on the tensor cores (csrc/skip_tc.cuh, 64-point tiles) and its
-     split-K fault cuts at that tile; one whole float32 step through the
+     runs the deformation nets' backward tile on wgmma (csrc/skip_bw.cuh,
+     64-point tiles) and level_dw.cuh's dW, and its split-K fault cuts at
+     that tile; one whole float32 step through the
      kernels against the same
      step on the plain versions (STEP_GATES), printed beside the plain
      step with the camera moved one ulp and the plain step on the CPU;
@@ -83,10 +84,13 @@ Phases, in order (any failure exits non-zero and prints no result):
      yardsticks and the bounds, with the TFLOP/s reached and the share of
      the bound (as in phases 8 and 10), and K2's launches by device time
      with launch 1 (fwd_tc_kernel) beside the mma.sync tile's reading a
-     fused step (K7 in phase 8 and K11 in phase 10 likewise). In bf16 K2, K3, K6, K8, K12 and
-     K14 run their products and dW on the tensor cores (csrc/mma.cuh,
-     csrc/skip_tc.cuh, 64-point tiles); the planted split-K faults drop
-     the first chunk of that reduction (level_train.TP_BF16-point tiles);
+     fused step (K7 in phase 8 and K11 in phase 10 likewise), and K3's
+     launches by device time beside the mma.sync tile's and dW's readings
+     (K14's in phase 12). In bf16 K2, K3, K6, K8, K12 and K14 run their
+     products and dW on wgmma (csrc/level_train.cu's tiles,
+     csrc/skip_bw.cuh, csrc/level_dw.cuh; 64-point tiles); the planted
+     split-K faults drop the first chunk of that reduction
+     (level_train.TP_BF16-point tiles);
      K4, K9 and K10 run one binned routine of csrc/grid_bwd.cu (no float
      atomics): in phases 5, 7 and 9 a second launch on the same inputs
      must give dG (and K10's dcoords) bit for bit, and phases 6, 8 and 10
@@ -1720,7 +1724,13 @@ MMA_SYNC_MS = {"K5 fine chunk": 69.09, "K5 coarse chunk": 34.62, "K7 fine": 4.63
                # the dW of K2 at a step's fine / coarse level), the parent's
                # readings in turns before their redesign on wgmma
                "bwd_tc_kernel level_train": 6.47, "bwd_tc_kernel level_train_coarse": 3.24,
-               "dW level_train": 7.24, "dW level_train_coarse": 3.69}
+               "dW level_train": 7.24, "dW level_train_coarse": 3.69,
+               # the deformation nets' backward tile and dW on mma.sync (K3
+               # at a step's fine points, K14's warp and hyper nets there),
+               # the parent's readings (PERF.md section 5, PR 21's traces;
+               # the per-call readings of its kernel table)
+               "K3 tile": 2.56, "K3 dW": 2.13, "K3": 4.70, "K14 warp": 3.34,
+               "K14 hyper": 1.75}
 
 
 def vs_mma_sync(key: str, ms: float) -> str:
@@ -1848,6 +1858,39 @@ def deform_tile_readings(report) -> str:
     run = ("deform_pair_wg_kernel", "skip_wg_kernel")
     if ptx["C7520"] or any(k not in ptx for k in run):
         return f"the deformation nets' tile was serialised or not built: {json.dumps(ptx)}"
+    return ""
+
+
+def deform_backward_readings(report) -> str:
+    """The deformation nets' backward tile on wgmma (skip_bw.cuh:
+    pair_bwd_wg_kernel, bf16 K3; skip_bwd_wg_kernel, bf16 K14) and their
+    dW (level_dw.cuh's level_dw_kernel, built into each library): ptxas'
+    report (registers, spill bytes, stack; every C7520 line) beside
+    bwd_tc_kernel's, and their HGMMA counts in the SASS, printed and kept
+    in report["deform_backward"]; a message when ptxas serialised their
+    wgmma, did not build them, or their SASS holds no HGMMA (a spill is
+    printed, not refused)."""
+    ptx, hgmma = {"C7520": []}, {}
+    for library, kernel in (("deform_pair_vjp", "pair_bwd_wg_kernel"),
+                            ("skip_mlp", "skip_bwd_wg_kernel")):
+        rep = tile_ptxas(library, lambda m, k=kernel: (
+            k if k in m else f"level_dw_kernel ({library})" if "level_dw_kernel" in m else None))
+        ptx["C7520"] += rep.pop("C7520")
+        ptx.update(rep)
+        hg = sass_hgmma(library)
+        hgmma.update({k: sum(v for m, v in hg.items() if k.split(" ")[0] in m)
+                      for k in (kernel, f"level_dw_kernel ({library})")})
+    level = report.get("backward_tile", {}).get("ptxas", {}).get("bwd_tc_kernel")
+    print(f"deformation nets' backward tile and dW, ptxas: {json.dumps(ptx)}; HGMMA in "
+          f"the SASS: {json.dumps(hgmma)}; beside bwd_tc_kernel's ptxas: "
+          f"{json.dumps(level)}", flush=True)
+    report["deform_backward"] = {"ptxas": ptx, "hgmma": hgmma}
+    run = ("pair_bwd_wg_kernel", "skip_bwd_wg_kernel", "level_dw_kernel (deform_pair_vjp)",
+           "level_dw_kernel (skip_mlp)")
+    if ptx["C7520"] or any(k not in ptx for k in run):
+        return f"the deformation nets' backward was serialised or not built: {json.dumps(ptx)}"
+    if hgmma and not all(hgmma.values()):
+        return f"a deformation-net backward kernel on wgmma holds no HGMMA: {hgmma}"
     return ""
 
 
@@ -2281,6 +2324,7 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
     from sahs_tpu_torch.ops.kernels import skip_mlp as k13
     from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
     from sahs_tpu_torch.render.pipeline import RenderSettings
+    from sahs_tpu_torch.utils.device import device_ms_by_kernel
     from sahs_tpu_torch.tools.level_ab import k15_readings
     H, W = ds.H, ds.W
     item = ds[0]
@@ -2373,13 +2417,18 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
         flops = 2 * skip_vjp_macs(w) * P_s
         b_ms, b_by = bound(flops, P_s * (3 + g.shape[1]) * 4 + plan.out_len * 4)
         ms = cuda_time(lambda: k13.skip_mlp_vjp(pts, w, g, False, cdt), 3)
+        by = device_ms_by_kernel(lambda: k13.skip_mlp_vjp(pts, w, g, False, cdt),
+                                 launches=3, counter=k13.skip_mlp_vjp)
         rows[f"k14 {name}"] = {
             "ms": ms, "plain_ms": cuda_time(
                 lambda: k13.skip_mlp_vjp_plain(pts, w, g, False, cdt), 1),
             "library_ms": cuda_time(module_library(net, pts, g), 1),
             "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": inp["max_abs_err"]["k14"], "points": P_s,
-            "tflops_achieved": flops / (ms / 1e3) / 1e12}
+            "tflops_achieved": flops / (ms / 1e3) / 1e12, "launch_ms": by}
+        print(f"  K14 {name} on the wgmma tile at a step's fine level: {ms:.2f} ms "
+              f"({vs_mma_sync(f'K14 {name}', ms)}); by launch (device ms): "
+              f"{json.dumps(by)}", flush=True)
     ro, rd, z = k15_args
     P_z = z.numel()
     b_ms, b_by = bound(2 * 3 * P_z, (P_z + 6 * ro.shape[0] + 3 * P_z) * 4,
@@ -5260,7 +5309,7 @@ def main(argv) -> int:
     print(f"nerf_level's launches at the fine chunk (device ms, torch.profiler): "
           f"{json.dumps(kernels[1]['launch_ms'])}", flush=True)
     msg = (forward_tile_readings(report) or deform_tile_readings(report)
-           or backward_tile_readings(report))
+           or backward_tile_readings(report) or deform_backward_readings(report))
     if msg:
         return fail(msg)
     report["kernels"] = kernels
@@ -5544,6 +5593,17 @@ def main(argv) -> int:
               f"the stashes {stash / 1e9:.3f} GB, bound {bdw:.3f} ms by bytes; at its time "
               f"level_dw_kernel could have read at most {ldw_ms / 1e3 * PEAK_BYTES / 1e9:.2f} "
               f"GB of device memory", flush=True)
+    # K3: the backward tile (pair_bwd_wg_kernel) and its dW by device time
+    by = device_ms_by_kernel(lambda: k1.deform_pair_vjp(*inp["k3"]), launches=reps,
+                             counter=k1.deform_pair_vjp)
+    train_kernels["deform_pair_vjp"]["launch_ms"] = by
+    k3_dw = sum(v for n, v in by.items()
+                if n.split("::")[-1] in ("level_dw_kernel", "bias_dw_kernel", "dw_reduce"))
+    k3_tile = by.get("pair_bwd_wg_kernel", 0.0)
+    print(f"deform_pair_vjp's launches (device ms, torch.profiler): {json.dumps(by)}; the "
+          f"tile (pair_bwd_wg_kernel, wgmma) {k3_tile:.2f} ms "
+          f"({vs_mma_sync('K3 tile', k3_tile)}), its dW {k3_dw:.2f} ms "
+          f"({vs_mma_sync('K3 dW', k3_dw)})", flush=True)
     l1_step = sum(train_kernels[k]["launch_ms"].get("fwd_tc_kernel", 0.0)
                   for k in ("level_train", "level_train_coarse"))
     print(f"launch 1 of K2 a fused step (both levels): {l1_step:.2f} ms "

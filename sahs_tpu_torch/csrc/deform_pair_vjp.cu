@@ -16,28 +16,35 @@
 // Design: per tile, one block recomputes the shared positional encoding
 // and both trunks (the forward of K1), writing each layer's input to a
 // device-memory stash, then backpropagates g + g2 through each head and
-// trunk with transposed weights, writing each layer's gz to a second stash
-// (train.cuh). A split-K reduction over the stashes gives dW and db, in a
-// fixed order. All launches come from one call.
+// trunk with transposed weights, writing each layer's gz to a second stash.
+// A reduction over the stashes gives dW and db, in a fixed order. All
+// launches come from one call.
 //
 // Bound on the H100: about 3 x 0.125 M multiply-adds a point (forward,
 // backward chain, dW) against ~40 bytes of input, so operations bound it:
-// ~0.2 TFLOP at 262,144 fine points, ~0.2 ms at the 989 TFLOP/s bf16 peak.
+// ~0.2 TFLOP at 262,144 fine points, ~0.19 ms at the 989 TFLOP/s bf16 peak.
 //
 // Two instantiations. float32 runs pair_vjp_kernel on 32-point tiles with
-// mlp.cuh's SIMT products and train.cuh's dw_kernel. bf16 runs
-// pair_vjp_tc_kernel on 64-point tiles: one encoding tile, then
-// skip_tc.cuh's skip_net_tc for the warp net and then the hyper net, each
-// product on the tensor cores (mma.sync m16n8k16, at the warp layout its
-// width asks for), and dW on mma.cuh's stash_dw_kernel. Each kernel is one
-// tile routine of pair_bwd.cuh, which K2's pair= form also runs.
+// mlp.cuh's SIMT products (pair_bwd.cuh's pair_bwd_tile, the bit-exact
+// oracle of the plain version) and train.cuh's dw_kernel. bf16 runs
+// pair_bwd_wg_kernel, the deformation nets' backward tile on wgmma
+// (skip_bw.cuh, the design is there: persistent blocks of two 64-point
+// warpgroups, the weights streamed by TMA, the warp net and then the hyper
+// net, bf16 stashes and the tiles' column sums of gz), and dW on
+// level_dw.cuh's level_dw_kernel, bias_dw_kernel and dw_reduce, as the
+// level backward's. The mma.sync kernel it replaces (pair_vjp_tc_kernel
+// and mma.cuh's stash_dw_kernel) read 4.70 ms a call at a step's fine
+// points on an H100 (PERF.md section 6); K2's pair= form still runs that
+// routine (pair_bwd.cuh's pair_bwd_tc_tile) inside its fold.
 //
 // The rays= form (field_mlp.py:1108-1130, :1181-1192; JAX's SAHS_PAIR_RAYS
 // fused step) reads the rays (o (R, 3), d (R, 3), z (R, S)) in place of the
 // points and builds each tile's positions as K15 does, __fadd_rn(o,
 // __fmul_rn(d, z)), so that its dW is, bit for bit, K3's on K15's points:
 // the same kernels, another PointSrc (mlp.cuh).
+#include "level_dw.cuh"
 #include "pair_bwd.cuh"
+#include "skip_bw.cuh"
 
 namespace {
 
@@ -65,26 +72,48 @@ int launch(const sahs::PairBwd& a, int n_work, int chunks, int out_len,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
+// bf16: the backward tile on wgmma (skip_bw.cuh) and the dW of level_dw.cuh
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2)
-pair_vjp_tc_kernel(const __grid_constant__ sahs::PairBwd a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  sahs::pair_bwd_tc_tile(a, a.g, 0, smem_raw, blockIdx.x);
+__global__ void __launch_bounds__(sb::THREADS, 1)
+pair_bwd_wg_kernel(const __grid_constant__ sb::Args a) {
+  extern __shared__ __align__(1024) unsigned char sb_smem[];
+  sb::tile(a, sb_smem);
 }
 
-int launch_tc(const sahs::PairBwd& a, int n_work, int chunks, int out_len,
-              const int* prods, const int* work, float* part, float* out,
-              cudaStream_t stream) {
-  const sahs::SkipLayout ly = sahs::pair_bwd_tc_layout(a.n_freq, a.gx != nullptr);
-  int err = sahs::set_smem(pair_vjp_tc_kernel, ly.bytes);
+// The wgmma launches: the tile's Args from the plan's host tables (descs,
+// descs_t of n_t layers, act_off), the stage blobs wf and wb, the bf16
+// stashes and bsum; then the dW over n_items work items.
+struct WgCall {
+  const void *wf, *wb, *descs, *descs_t, *act_off, *items;
+  long long wf_bytes, wb_bytes;
+  int n_t, n_items;
+  void* bsum;
+};
+
+int launch_wg(const sahs::PointSrc& src, long long P, const float* g, const float* g2,
+              float* gx, const float* b, int n_warp, int n_hyper, int warp_skip,
+              int hyper_skip, int n_freq, int ho, void* acts, void* gzs, long long act_stride,
+              long long gz_stride, int chunks, int out_len, const int* prods, float* part,
+              float* out, const WgCall& w, cudaStream_t stream) {
+  if (w.descs == nullptr || w.descs_t == nullptr || w.act_off == nullptr ||
+      (gx != nullptr && w.n_t < n_warp + n_hyper + 2))
+    return (int)cudaErrorInvalidValue;
+  sb::Args a = sb::args_of((const int*)w.descs, (const int*)w.descs_t, w.n_t,
+                           (const int*)w.act_off, 2, n_warp, n_hyper);
+  a.pts = src;
+  a.wf = w.wf; a.wf_bytes = w.wf_bytes; a.wb = w.wb; a.wb_bytes = w.wb_bytes;
+  a.b = b; a.g = g; a.g2 = g2; a.gx = gx;
+  a.acts = (sb::bf16*)acts; a.gzs = (sb::bf16*)gzs; a.bsum = (float*)w.bsum;
+  a.P = P; a.act_stride = act_stride; a.gz_stride = gz_stride;
+  a.skip[0] = warp_skip; a.skip[1] = hyper_skip;
+  a.gw = 3 + ho; a.col0[0] = 0; a.col0[1] = 3; a.ncol[0] = 3; a.ncol[1] = ho;
+  a.pe_dim = 3 + 6 * n_freq; a.n_freq = n_freq; a.residual = 1;
+  int err = sb::launch(pair_bwd_wg_kernel, a, stream);
   if (err) return err;
-  const long long n_tiles = (a.P + sahs::TC_TP - 1) / sahs::TC_TP;
-  pair_vjp_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return sahs::pair_dw<sahs::bf16>(a, (int)n_tiles, prods, work, n_work, chunks,
-                                   part, out, out_len, stream);
+  const int n_tiles = (int)((P + sb::TP - 1) / sb::TP);
+  return ldw::launch_level_dw(a.acts, a.gzs, a.bsum, act_stride, gz_stride, n_tiles, prods,
+                              (const int*)w.items, w.n_items, chunks, part, out, out_len,
+                              a.b_len, stream);
 }
 
 int vjp_call(const sahs::PointSrc& src, long long P, const void* g, const void* g2,
@@ -93,7 +122,7 @@ int vjp_call(const sahs::PointSrc& src, long long P, const void* g, const void* 
              int warp_skip, int hyper_skip, int n_freq, int ho, int bf16,
              const void* slots, void* acts, void* gzs, int n_act, int act_stride,
              int gz_stride, int n_work, int chunks, int out_len, const void* prods,
-             const void* work, void* part, void* out, void* stream) {
+             const void* work, void* part, void* out, const WgCall& wc, void* stream) {
   if (P <= 0) return 0;
   if (3 + 6 * n_freq > sahs::SKIP_HMAX) return (int)cudaErrorInvalidValue;
   sahs::PairBwd a;
@@ -110,14 +139,18 @@ int vjp_call(const sahs::PointSrc& src, long long P, const void* g, const void* 
   auto pr = (const int*)prods;
   auto wk = (const int*)work;
   if (bf16)
-    return launch_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
-                     (float*)out, s);
+    return launch_wg(src, P, a.g, a.g2, a.gx, a.b, n_warp, n_hyper, warp_skip, hyper_skip,
+                     n_freq, ho, acts, gzs, act_stride, gz_stride, chunks, out_len, pr,
+                     (float*)part, (float*)out, wc, s);
   return launch<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
                        (float*)out, s);
 }
 
 }  // namespace
 
+// bf16 also takes the tile's stage blobs (wf, wb and their bytes), the
+// plan's host tables (descs, descs_t of n_t layers, act_off), the tiles'
+// column sums bsum and the dW's work items; float32 reads none of them.
 extern "C" int sahs_deform_pair_vjp(
     const void* pts, long long P, const void* g, const void* g2, void* gx,
     const void* w, const void* b, const void* meta, const void* wT,
@@ -125,12 +158,16 @@ extern "C" int sahs_deform_pair_vjp(
     int hyper_skip, int n_freq, int ho, int bf16, const void* slots,
     void* acts, void* gzs, int n_act, int act_stride, int gz_stride,
     int n_work, int chunks, int out_len, const void* prods, const void* work,
-    void* part, void* out, void* stream) {
+    void* part, void* out, const void* wf, long long wf_bytes, const void* wb,
+    long long wb_bytes, const void* descs, const void* descs_t, int n_t, const void* act_off,
+    void* bsum, const void* items, int n_items, void* stream) {
   const sahs::PointSrc src = {(const float*)pts, nullptr, nullptr, nullptr, 1};
   return vjp_call(src, P, g, g2, gx, w, b, meta, wT, bT, metaT, n_warp, n_hyper,
                   warp_skip, hyper_skip, n_freq, ho, bf16, slots, acts, gzs, n_act,
                   act_stride, gz_stride, n_work, chunks, out_len, prods, work, part,
-                  out, stream);
+                  out, WgCall{wf, wb, descs, descs_t, act_off, items, wf_bytes, wb_bytes, n_t,
+                              n_items, bsum},
+                  stream);
 }
 
 // The rays= form: the points of R rays of S samples, o (R, 3), d (R, 3),
@@ -143,7 +180,9 @@ extern "C" int sahs_deform_pair_vjp_rays(
     int hyper_skip, int n_freq, int ho, int bf16, const void* slots,
     void* acts, void* gzs, int n_act, int act_stride, int gz_stride,
     int n_work, int chunks, int out_len, const void* prods, const void* work,
-    void* part, void* out, void* stream) {
+    void* part, void* out, const void* wf, long long wf_bytes, const void* wb,
+    long long wb_bytes, const void* descs, const void* descs_t, int n_t, const void* act_off,
+    void* bsum, const void* items, int n_items, void* stream) {
   if (S <= 0 || ro == nullptr || rd == nullptr || z == nullptr)
     return (int)cudaErrorInvalidValue;
   const sahs::PointSrc src = {nullptr, (const float*)ro, (const float*)rd,
@@ -151,5 +190,7 @@ extern "C" int sahs_deform_pair_vjp_rays(
   return vjp_call(src, R * S, g, g2, gx, w, b, meta, wT, bT, metaT, n_warp, n_hyper,
                   warp_skip, hyper_skip, n_freq, ho, bf16, slots, acts, gzs, n_act,
                   act_stride, gz_stride, n_work, chunks, out_len, prods, work, part,
-                  out, stream);
+                  out, WgCall{wf, wb, descs, descs_t, act_off, items, wf_bytes, wb_bytes, n_t,
+                              n_items, bsum},
+                  stream);
 }

@@ -1,9 +1,12 @@
 // dW of the bf16 level backward (K2, K6, K8, K12: launches 4-6 of
-// level_train.cu) on wgmma, from the two stashes of the backward tile.
+// level_train.cu) and of the deformation nets' (K3: deform_pair_vjp.cu, K14:
+// skip_mlp.cu, after skip_bw.cuh's tile) on wgmma, from the two stashes of
+// the backward tile.
 //
-// What it computes: for every product of the level's train plan
-// (field_mlp.TrainPlan's prods) dW[k][n] = sum_p bf16(a[p][k]) bf16(gz[p][n])
-// with float32 sums (the JAX package's _mmT), and for every layer
+// What it computes: for every product of the train plan (the level's, the
+// pair's, one net's; field_mlp.TrainPlan's prods)
+// dW[k][n] = sum_p bf16(a[p][k]) bf16(gz[p][n]) with float32 sums (the JAX
+// package's _mmT), and for every layer
 // db[n] = sum_p gz[p][n] in unrounded float32. The activation stash holds
 // bf16 a, the gz stash bf16 gz (the product rounds it anyway); db comes from
 // the per-tile column sums of the float32 gz that the backward tile forms

@@ -187,7 +187,7 @@ static_assert(TP == sahs::PAIR_TP, "the fold runs the pair on the level's tile")
 template <typename T>
 __host__ __device__ __forceinline__ int fold_g_offset(int n_freq) {
   if constexpr (sizeof(T) == 2)
-    return sahs::pair_bwd_tc_layout(n_freq, false).bytes;
+    return sahs::pair_bwd_tc_layout(n_freq).bytes;
   else
     return (int)sahs::pair_bwd_smem<T>(n_freq, false);
 }
@@ -1628,38 +1628,7 @@ __device__ __forceinline__ void stash_chunk(const uint32_t (&h)[N / 4], bf16* st
     }
 }
 
-// One step of the column sums' butterfly: lanes l and l ^ b each keep half
-// of their HALF * 2 sums and add the other lane's copy of that half.
-template <int HALF, int M>
-__device__ __forceinline__ void fold_half(float (&s)[M], int b, int l) {
-  const bool up = (l & b) != 0;
-#pragma unroll
-  for (int k = 0; k < HALF; ++k) {
-    const float send = up ? s[k] : s[k + HALF];
-    const float keep = up ? s[k + HALF] : s[k];
-    s[k] = keep + __shfl_xor_sync(0xffffffffu, send, b);
-  }
-}
-
-// The warp's sums over its 16 points of each of the chunk's N columns into
-// cs[col], from each lane's sums of its two points (s, dact_chunk's): a
-// column's 8 lanes (l / 4) halve their sums three times; lane l then
-// holds the M / 8 sums of list positions o = k + (l & 16 ? M/2) + (l & 8 ?
-// M/4) + (l & 4 ? M/8), o = 2 j + c for column 8 j + 2 (l % 4) + c.
-template <int N>
-__device__ __forceinline__ void col_sums(float (&s)[N / 4], float* cs, int t) {
-  constexpr int M = N / 4;
-  const int l = t % 32, q = l % 4;
-  fold_half<M / 2>(s, 16, l);
-  fold_half<M / 4>(s, 8, l);
-  fold_half<M / 8>(s, 4, l);
-  const int o0 = (l & 16 ? M / 2 : 0) + (l & 8 ? M / 4 : 0) + (l & 4 ? M / 8 : 0);
-#pragma unroll
-  for (int k = 0; k < M / 8; ++k) {
-    const int o = o0 + k;
-    cs[8 * (o / 2) + 2 * q + (o % 2)] = s[k];
-  }
-}
+using wg::col_sums;
 
 // A float32 product's outputs into F (n rows x TC_LDF), columns col0 ..
 // below n_real, added to what F holds with `add`.

@@ -1,8 +1,8 @@
-// Tensor-core device code for the bf16 backward kernels on mma.sync: the
-// deformation nets' (deform_pair_vjp.cu and skip_mlp.cu through
-// skip_tc.cuh) and K2's pair= form (level_train.cu's bwd_tc_fold_kernel):
-// one MLP layer over a 64-point tile, and the split-K dW reduction over
-// their stashes (stash_dw_kernel).
+// Tensor-core device code for the one bf16 backward left on mma.sync, K2's
+// pair= form (level_train.cu's bwd_tc_fold_kernel, which runs the level's
+// tile here and the deformation pair's tile of pair_bwd.cuh through
+// skip_tc.cuh): one MLP layer over a 64-point tile, and the split-K dW
+// reduction over their stashes (stash_dw_kernel).
 //
 // The layer product. mlp_layer's contract (mlp.cuh) for bf16 operands:
 //     Y[n][t] = act( sum_k X1[k][t] W1[k][n] (+ sum_k X2[k][t] W2[k][n]) + b[n] )
@@ -24,8 +24,8 @@
 // the level backward takes WN = 32, UPW = 2 (tc_product: up to 8 groups
 // of 32 outputs, two a warp), the deformation nets WN = 32 or 16, UPW = 1.
 //
-// The dW reduction (stash_dw_kernel: K3, K14, and the level and the pair of
-// K2's pair= form). dW[k][n] = sum_p A[p][k] gz[p][n] over all points, as
+// The dW reduction (stash_dw_kernel: the level and the pair of K2's pair=
+// form). dW[k][n] = sum_p A[p][k] gz[p][n] over all points, as
 // train.cuh's dw_kernel (work list, 64 x 64 output tiles, split-K chunks of
 // point tiles summed by dw_reduce in chunk order, so the result is
 // deterministic), with the product on mma.sync: A is the stashed bf16
@@ -33,11 +33,12 @@
 // _mmT semantics), sums in f32. A bias row takes the unrounded f32 gz,
 // summed off the tensor cores.
 //
-// The level's own tiles run on wgmma (level_train.cu: the forward fw::, the
-// backward bw::, with wgmma.cuh; its dW level_dw.cuh); the tiles here, the
-// deformation nets' backward (skip_tc.cuh) and their dW stay on mma.sync,
-// which reaches the tensor cores with per-warp fragments and no
-// descriptors or swizzles.
+// Every other bf16 tile runs on wgmma: the level's (level_train.cu: the
+// forward fw::, the backward bw::), the deformation nets' (skip_wg.cuh's
+// forward, K1 and K13; skip_bw.cuh's backward, K3 and K14), with
+// wgmma.cuh, and their dW level_dw.cuh. The fold keeps these tiles, which
+// reach the tensor cores with per-warp fragments and no descriptors or
+// swizzles, until it moves onto the wgmma tiles too.
 #pragma once
 
 #include "train.cuh"

@@ -1,6 +1,8 @@
-// The deformation pair's backward over one tile of points: K3's tile
-// (deform_pair_vjp.cu) and the pair backward that K2's pair= form runs
-// inside its backward launch (level_train.cu, JAX's SAHS_PAIR_FOLD).
+// The deformation pair's backward over one tile of points: float32 K3's
+// tile (deform_pair_vjp.cu) and the pair backward that K2's pair= form runs
+// inside its backward launch (level_train.cu, JAX's SAHS_PAIR_FOLD), in
+// float32 and, on mma.sync, in bf16; bf16 K3 runs skip_bw.cuh's tile on
+// wgmma.
 //
 // One tile recomputes the shared positional encoding of its raw points and
 // both trunks (the forward of K1), writing each layer's input to a
@@ -17,9 +19,10 @@
 // rows starting at point gbase: K3's (P, gw) array from 0, the fold's tile
 // in shared memory from the tile's first point.
 //
-// Two instantiations, as K3's: pair_bwd_tile<float> on PAIR_TP-point tiles
-// with mlp.cuh's SIMT products, pair_bwd_tc_tile on 64-point tiles on the
-// tensor cores (skip_tc.cuh's skip_net_tc for each net).
+// Two instantiations: pair_bwd_tile<float> on PAIR_TP-point tiles with
+// mlp.cuh's SIMT products (float32 K3 and the float32 fold),
+// pair_bwd_tc_tile on 64-point tiles on mma.sync (skip_tc.cuh's
+// skip_net_tc for each net; the bf16 fold's alone).
 #pragma once
 
 #include "skip_tc.cuh"
@@ -184,23 +187,21 @@ __device__ __forceinline__ void pair_bwd_tile(const PairBwd& a, const float* g,
 }
 
 // Shared memory of the tensor-core tile (skip_tc.cuh's SkipLayout).
-__host__ __device__ __forceinline__ SkipLayout pair_bwd_tc_layout(int n_freq, bool gx) {
-  return SkipLayout(3 + 6 * n_freq, gx, gx);
+__host__ __device__ __forceinline__ SkipLayout pair_bwd_tc_layout(int n_freq) {
+  return SkipLayout(3 + 6 * n_freq);
 }
 
-// The bf16 tile `tile` of TC_TP points on the tensor cores; all TC_THREADS
-// threads of the block.
+// The bf16 tile `tile` of TC_TP points on mma.sync (the fold's; it asks for
+// no points' cotangent, a.gx is not read); all TC_THREADS threads of the
+// block.
 __device__ __forceinline__ void pair_bwd_tc_tile(const PairBwd& a, const float* g,
                                                  long long gbase, unsigned char* smem_raw,
                                                  long long tile) {
   const int pe_dim = 3 + 6 * a.n_freq;
-  const bool to_pe = a.gx != nullptr;
-  const SkipLayout ly(pe_dim, to_pe, to_pe);
+  const SkipLayout ly(pe_dim);
   bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
   bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
   bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
-  bf16* gS = to_pe ? reinterpret_cast<bf16*>(smem_raw + ly.gs) : nullptr;
-  float* gpe = to_pe ? reinterpret_cast<float*>(smem_raw + ly.gp) : nullptr;
   bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
   const bf16* wblob = reinterpret_cast<const bf16*>(a.w);
   const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
@@ -219,40 +220,13 @@ __device__ __forceinline__ void pair_bwd_tc_tile(const PairBwd& a, const float* 
   const SkipNet hyper = {a.meta, a.n_warp + 1, a.metaT, a.n_warp,
                          a.n_hyper, a.hyper_skip, 1 + a.n_warp,
                          g, a.g2, gw, 3, a.ho, gbase};
-  const Operand none = {nullptr, 0, nullptr};
-  for (int net = 0; net < 2; ++net) {
-    const SkipNet& s = net == 0 ? warp : hyper;
-    const bf16* g0 = skip_net_tc(s, wblob, a.b, wT, pe, hA, hB, gS, ring, acts,
-                                 act_off, gzs, gz_off, base, a.P);
-    if (!to_pe) continue;
-    // back to the encoding, one two-input product (as K14's), its f32
-    // result added to the warp net's in gpe: gpe_warp + gpe_hyper
-    const bool skip_fires = s.skip > 0 && s.skip < s.L;
-    const LayerDesc d = load_desc(a.metaT, a.n_warp + a.n_hyper + net);
-    skip_product(Operand{wT + d.w1, d.k1, g0},
-                 skip_fires ? Operand{wT + d.w2, d.k2, gS} : none, d.n, ring,
-                 StoreF32{gpe, nullptr, ACT_LINEAR, net == 1});
-    __syncthreads();
-  }
-  if (!to_pe) return;
-  // the one PE backward, then the residual of the warped coordinates
-  const int tid = threadIdx.x;
-  const long long p = base + tid;
-  if (tid < TC_TP && p < a.P) {
-    float x[3];
-    a.src.load(p, x);
-    float gx[3] = {0.0f, 0.0f, 0.0f};
-    pe_group_bwd(x, 3, a.n_freq, gpe, 0, tid, TC_LDF, gx);
-    for (int c = 0; c < 3; ++c) {
-      float gv = g[(p - gbase) * gw + c];
-      if (a.g2 != nullptr) gv = __fadd_rn(gv, a.g2[(p - gbase) * gw + c]);
-      a.gx[p * 3 + c] = gx[c] + gv;
-    }
-  }
+  skip_net_tc(warp, wblob, a.b, wT, pe, hA, hB, ring, acts, act_off, gzs, gz_off, base, a.P);
+  skip_net_tc(hyper, wblob, a.b, wT, pe, hA, hB, ring, acts, act_off, gzs, gz_off, base, a.P);
 }
 
 // The pair's dW and db from the two stashes of `n_tiles` tiles (split-K,
-// a fixed order): stash_dw_kernel in bf16, dw_kernel in float32.
+// a fixed order): stash_dw_kernel in bf16 (the fold's), dw_kernel in
+// float32.
 template <typename T>
 int pair_dw(const PairBwd& a, int n_tiles, const int* prods, const int* work,
             int n_work, int chunks, float* part, float* out, int out_len,

@@ -38,9 +38,14 @@
 // the tile's readings are in PERF.md §6 (tools/level_ab.py --skip-only).
 // K14 in float32 runs skip_vjp_kernel on 32-point tiles
 // with mlp.cuh's SIMT products and train.cuh's dw_kernel; in bf16
-// skip_vjp_tc_kernel on 64-point tiles, the net on skip_tc.cuh's
-// tensor-core routine, and dW on mma.cuh's stash_dw_kernel.
-#include "skip_tc.cuh"
+// skip_bwd_wg_kernel, the deformation nets' backward tile on wgmma with
+// one net (skip_bw.cuh, the tile K3 runs with two), and dW on
+// level_dw.cuh's level_dw_kernel, bias_dw_kernel and dw_reduce. The
+// mma.sync kernel it replaces (skip_vjp_tc_kernel and mma.cuh's
+// stash_dw_kernel) read 3.34 ms (warp net) and 1.75 ms (hyper) a call at a
+// step's 262,144 fine points on an H100 (PERF.md section 6).
+#include "level_dw.cuh"
+#include "skip_bw.cuh"
 #include "skip_wg.cuh"
 
 namespace {
@@ -273,10 +278,6 @@ int launch_vjp(const VjpArgs& a, int n_work, int chunks, int out_len,
                             stream);
 }
 
-using sahs::bf16;
-using sahs::TC_LDF;
-using sahs::TC_TP;
-
 // ---------------------------------------------------------------------------
 // K13 in bf16: skip_wg.cuh's tile on wgmma, one net
 // ---------------------------------------------------------------------------
@@ -287,77 +288,12 @@ skip_wg_kernel(const __grid_constant__ sk::Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// K14 in bf16: 64-point tiles on the tensor cores (skip_tc.cuh, mma.cuh)
+// K14 in bf16: skip_bw.cuh's tile on wgmma, one net, and level_dw.cuh's dW
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2) skip_vjp_tc_kernel(VjpArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pe_dim = a.pe_dim();
-  const bool to_pe = a.gx != nullptr;
-  const sahs::SkipLayout ly(pe_dim, to_pe);
-  bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
-  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
-  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
-  bf16* gS = to_pe ? reinterpret_cast<bf16*>(smem_raw + ly.gs) : nullptr;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
-  const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
-  const long long tile = blockIdx.x, base = tile * TC_TP;
-  bf16* acts = reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride;
-  const int* act_off = a.slots;
-  const int L = a.n_layers;
-
-  sahs::skip_input_tile(a.pts, a.enc_dim, base, a.P, a.n_freq, pe);
-  __syncthreads();
-  sahs::stash_rows(pe, acts + act_off[0], pe_dim);
-  const sahs::SkipNet net = {a.meta, 0, a.metaT, 0, L, a.skip, 1, a.g, nullptr,
-                             a.out_dim, 0, a.out_dim};
-  const bf16* g0 = sahs::skip_net_tc(
-      net, reinterpret_cast<const bf16*>(a.w), a.b, wT, pe, hA, hB, gS, ring,
-      acts, act_off, a.gzs + tile * a.gz_stride, a.slots + a.n_act, base, a.P);
-  if (!to_pe) return;
-
-  // back to the encoding: gz_0 W_0^T + gz_skip W_skip,pe^T, one two-input
-  // product with an f32 result, in the tile skip_net_tc left free
-  const bool skip_fires = a.skip > 0 && a.skip < L;
-  float* F = reinterpret_cast<float*>(g0 == hA ? hB : hA);
-  const sahs::LayerDesc d = sahs::load_desc(a.metaT, L);
-  const sahs::Operand none = {nullptr, 0, nullptr};
-  sahs::skip_product(sahs::Operand{wT + d.w1, d.k1, g0},
-                     skip_fires ? sahs::Operand{wT + d.w2, d.k2, gS} : none, d.n,
-                     ring, sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, false});
-  __syncthreads();
-  const int tid = threadIdx.x;
-  if (a.enc_dim > 0) {   // a given encoding: its cotangent is the result
-    for (int i = tid; i < pe_dim * TC_TP; i += blockDim.x) {
-      const int t = i / pe_dim, r = i - t * pe_dim;
-      const long long p = base + t;
-      if (p < a.P) a.gx[p * pe_dim + r] = F[r * TC_LDF + t];
-    }
-    return;
-  }
-  // and through the PE, per point
-  const float* pts = reinterpret_cast<const float*>(a.pts);
-  const long long p = base + tid;
-  if (tid < TC_TP && p < a.P) {
-    const float x[3] = {pts[p * 3 + 0], pts[p * 3 + 1], pts[p * 3 + 2]};
-    float gx[3] = {0.0f, 0.0f, 0.0f};
-    sahs::pe_group_bwd(x, 3, a.n_freq, F, 0, tid, TC_LDF, gx);
-    for (int c = 0; c < 3; ++c) a.gx[p * 3 + c] = gx[c];
-  }
-}
-
-int launch_vjp_tc(const VjpArgs& a, int n_work, int chunks, int out_len,
-                  const int* prods, const int* work, float* part, float* out,
-                  cudaStream_t stream) {
-  const sahs::SkipLayout ly(a.pe_dim(), a.gx != nullptr);
-  int err = sahs::set_smem(skip_vjp_tc_kernel, ly.bytes);
-  if (err) return err;
-  const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
-  skip_vjp_tc_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, ly.bytes, stream>>>(a);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return sahs::launch_stash_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs,
-                               a.act_stride, a.gz_stride, (int)n_tiles, prods,
-                               work, n_work, chunks, part, out, out_len, stream);
+__global__ void __launch_bounds__(sb::THREADS, 1)
+skip_bwd_wg_kernel(const __grid_constant__ sb::Args a) {
+  extern __shared__ __align__(1024) unsigned char sb_smem[];
+  sb::tile(a, sb_smem);
 }
 
 }  // namespace
@@ -384,7 +320,7 @@ extern "C" int sahs_skip_mlp_forward(const void* pts, long long P,
     sk::Args a = sk::args_of(reinterpret_cast<const int*>(descs), 1, n_layers, 0);
     a.pts = sahs::PointSrc{enc_dim > 0 ? nullptr : reinterpret_cast<const float*>(pts),
                            nullptr, nullptr, nullptr, 1};
-    a.enc = enc_dim > 0 ? reinterpret_cast<const sahs::bf16*>(pts) : nullptr;
+    a.enc = enc_dim > 0 ? reinterpret_cast<const sb::bf16*>(pts) : nullptr;
     a.wg = stages;
     a.wg_bytes = stage_bytes;
     a.b = bb;
@@ -406,8 +342,10 @@ extern "C" int sahs_skip_mlp_vjp(
     const void* metaT, int n_layers, int skip, int n_freq, int enc_dim,
     int out_dim, int bf16, const void* slots, void* acts, void* gzs, void* gx, int n_act,
     int act_stride, int gz_stride, int n_work, int chunks, int out_len,
-    const void* prods, const void* work, void* part, void* out,
-    void* stream) {
+    const void* prods, const void* work, void* part, void* out, const void* wf,
+    long long wf_bytes, const void* wb, long long wb_bytes, const void* descs,
+    const void* descs_t, int n_t, const void* act_off, void* bsum, const void* items,
+    int n_items, void* stream) {
   if (P <= 0) return 0;
   if (out_dim > 8 || enc_dim < 0 || (enc_dim > 0 ? enc_dim : 3 + 6 * n_freq) > HMAX)
     return (int)cudaErrorInvalidValue;
@@ -423,9 +361,27 @@ extern "C" int sahs_skip_mlp_vjp(
   auto s = reinterpret_cast<cudaStream_t>(stream);
   auto pr = (const int*)prods;
   auto wk = (const int*)work;
-  if (bf16)
-    return launch_vjp_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
-                         (float*)out, s);
+  if (bf16) {
+    if (descs == nullptr || descs_t == nullptr || act_off == nullptr ||
+        (gx != nullptr && n_t < n_layers + 1))
+      return (int)cudaErrorInvalidValue;
+    sb::Args t = sb::args_of((const int*)descs, (const int*)descs_t, n_t, (const int*)act_off,
+                             1, n_layers, 0);
+    t.pts = sahs::PointSrc{enc_dim > 0 ? nullptr : (const float*)pts, nullptr, nullptr,
+                           nullptr, 1};
+    t.enc = enc_dim > 0 ? (const sb::bf16*)pts : nullptr;
+    t.wf = wf; t.wf_bytes = wf_bytes; t.wb = wb; t.wb_bytes = wb_bytes;
+    t.b = a.b; t.g = a.g; t.gx = a.gx;
+    t.acts = (sb::bf16*)acts; t.gzs = (sb::bf16*)gzs; t.bsum = (float*)bsum;
+    t.P = P; t.act_stride = act_stride; t.gz_stride = gz_stride;
+    t.skip[0] = skip; t.gw = out_dim; t.ncol[0] = out_dim;
+    t.pe_dim = a.pe_dim(); t.n_freq = n_freq;
+    int err = sb::launch(skip_bwd_wg_kernel, t, s);
+    if (err) return err;
+    return ldw::launch_level_dw(t.acts, t.gzs, t.bsum, act_stride, gz_stride,
+                                (int)((P + sb::TP - 1) / sb::TP), pr, (const int*)items,
+                                n_items, chunks, (float*)part, (float*)out, out_len, t.b_len, s);
+  }
   return launch_vjp<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
                            (float*)out, s);
 }

@@ -1,9 +1,10 @@
-// The deformation nets' backward on the tensor cores: one skip MLP over a
-// 64-point tile on mma.cuh's products, forward with the stash, then
-// backward (skip_net_tc), bf16 K3's (deform_pair_vjp.cu, pair_bwd.cuh) and
-// K14's (skip_mlp.cu). The forwards K1 and K13 run skip_wg.cuh's tile on
-// wgmma, with the same semantics (each k16 step summed from zero, added in
-// float32).
+// The deformation pair's backward on mma.sync: one skip MLP over a 64-point
+// tile on mma.cuh's products, forward with the stash, then backward
+// (skip_net_tc), for the pair tile that K2's pair= form runs inside its
+// fold (pair_bwd.cuh's pair_bwd_tc_tile, level_train.cu's
+// bwd_tc_fold_kernel), its only user. bf16 K3 and K14 run skip_bw.cuh's
+// tile on wgmma, and the forwards K1 and K13 skip_wg.cuh's, with the same
+// semantics (each k16 step summed from zero, added in float32).
 //
 // A deformation net is a ReLU trunk of L layers H wide (the warp field's
 // 6 x 128, the hyper sheet's 6 x 64) whose layer `skip` takes [h ; pe],
@@ -126,15 +127,12 @@ __device__ __forceinline__ bf16* skip_trunk_tc(const SkipNet& s, const bf16* wbl
 }
 
 // One net over the tile: forward, head cotangent, backward (see the top of
-// this file). hA, hB: SKIP_HMAX-row tiles (TC_LD stride); gS null, or a
-// third such tile that takes gz_skip (for a product back to the encoding
-// after the trunk). Returns the tile holding gz_0 (hA or hB); the other is
-// free then. Ends with a __syncthreads().
-__device__ bf16* skip_net_tc(const SkipNet& s, const bf16* wblob,
-                             const float* bblob, const bf16* wT, const bf16* pe,
-                             bf16* hA, bf16* hB, bf16* gS, bf16* ring,
-                             bf16* acts, const int* act_off, float* gzs,
-                             const int* gz_off, long long base, long long P) {
+// this file). hA, hB: SKIP_HMAX-row tiles (TC_LD stride). Ends with a
+// __syncthreads().
+__device__ void skip_net_tc(const SkipNet& s, const bf16* wblob, const float* bblob,
+                            const bf16* wT, const bf16* pe, bf16* hA, bf16* hB, bf16* ring,
+                            bf16* acts, const int* act_off, float* gzs, const int* gz_off,
+                            long long base, long long P) {
   const Operand none = {nullptr, 0, nullptr};
   const bf16* src = skip_trunk_tc(s, wblob, bblob, pe, hA, hB, ring, acts, act_off);
   // the head's gz in the free tile, its rows past the head's padded width
@@ -147,41 +145,30 @@ __device__ bf16* skip_net_tc(const SkipNet& s, const bf16* wblob,
                       base, P, gzs + gz_off[s.first + s.L], X, s.gbase});
   __syncthreads();
   // ga_l = gz_{l+1} W_{l+1}^T (head^T for l = L - 1), gz_l = ga_l relu'(h_l)
-  const bool to_gs = gS != nullptr && s.skip > 0 && s.skip < s.L;
   for (int l = s.L - 1; l >= 0; --l) {
     const LayerDesc d = load_desc(s.meta, s.first + l);
     const LayerDesc t = load_desc(s.metaT, s.tfirst + s.L - 1 - l);
-    bf16* Y = (to_gs && l == s.skip) ? gS : (X == hA ? hB : hA);
+    bf16* Y = X == hA ? hB : hA;
     skip_product(Operand{wT + t.w1, t.k1, X}, none, t.n, ring,
                  DactStore{acts + act_off[s.aslot + l], d.act,
                            gzs + gz_off[s.first + l], Y, nullptr, nullptr});
     __syncthreads();
     X = Y;
   }
-  return X;
 }
 
-// Shared memory of a skip-net kernel, in bytes (every offset a multiple of
-// 16): the encoding [pad_ks(pe_dim)], hA and hB, and with the product back
-// to the encoding (to_pe) gS, each of SKIP_HMAX rows and, with to_pe, at
-// least as large as that product's f32 result [pad8(pe_dim)] (TC_LDF
-// stride), which takes the tile skip_net_tc leaves free; with `pair` (K3's
-// points cotangent) gp, an f32 tile of that result's size where the two
-// nets' results are summed; then the weight ring of SKIP_KS-row slices
-// for outputs up to max(SKIP_HMAX, pad8(pe_dim)) wide.
+// Shared memory of the pair tile, in bytes (every offset a multiple of
+// 16): the encoding [pad_ks(pe_dim)], hA and hB of SKIP_HMAX rows, then the
+// weight ring of SKIP_KS-row slices for outputs up to SKIP_HMAX wide.
 struct SkipLayout {
-  int pe, ha, hb, gs, gp, ring, bytes;
-  __host__ __device__ SkipLayout(int pe_dim, bool to_pe, bool pair = false) {
+  int pe, ha, hb, ring, bytes;
+  __host__ __device__ explicit SkipLayout(int pe_dim) {
     const int n_pe = (pe_dim + 7) / 8 * 8;
-    int h = SKIP_HMAX * TC_LD * 2;
-    if (to_pe && n_pe * TC_LDF * 4 > h) h = n_pe * TC_LDF * 4;
+    const int h = SKIP_HMAX * TC_LD * 2;
     pe = 0;
     ha = pe + pad_ks(pe_dim) * TC_LD * 2;
     hb = ha + h;
-    gs = hb + h;
-    ring = gs + (to_pe ? SKIP_HMAX * TC_LD * 2 : 0);
-    gp = ring;
-    if (pair) ring += n_pe * TC_LDF * 4;
+    ring = hb + h;
     bytes = ring + ring_bytes(n_pe > SKIP_HMAX ? n_pe : SKIP_HMAX, SKIP_KS);
   }
 };
@@ -199,25 +186,6 @@ __device__ __forceinline__ void skip_pe_tile(const PointSrc& src, long long base
     if (p < P) src.load(p, x);
     pe_group<bf16>(x, 3, n_freq, pe, 0, t, TC_LD);
   }
-}
-__device__ __forceinline__ void skip_pe_tile(const float* pts, long long base,
-                                             long long P, int n_freq, bf16* pe) {
-  skip_pe_tile(PointSrc{pts, nullptr, nullptr, nullptr, 1}, base, P, n_freq, pe);
-}
-
-// The tile's input: skip_pe_tile's encoding of the raw points (P, 3)
-// float32 when enc_dim is 0, else the rows of a given bf16 encoding
-// (P, enc_dim) (rows [enc_dim, pad_ks(enc_dim)) zero).
-__device__ __forceinline__ void skip_input_tile(const void* in, int enc_dim,
-                                                long long base, long long P,
-                                                int n_freq, bf16* pe) {
-  if (enc_dim == 0) {
-    skip_pe_tile(reinterpret_cast<const float*>(in), base, P, n_freq, pe);
-    return;
-  }
-  zero_rows(pe, enc_dim, pad_ks(enc_dim));
-  point_rows<bf16>(reinterpret_cast<const bf16*>(in), enc_dim, base, P, enc_dim,
-                   pe, 0, TC_TP, TC_LD);
 }
 
 }  // namespace sahs

@@ -148,8 +148,10 @@ __device__ __forceinline__ void put(unsigned char* X, int t, int col, float v) {
 // The tile's input into E (its columns [0, pe_dim)) and, for K1's
 // output, the raw points into Xs. Called by the whole warpgroup; begins
 // with the barrier that frees the last tile's regions and ends with E
-// visible to wgmma.
-__device__ __forceinline__ void front_half(const Args& a, unsigned char* E, float* Xs,
+// visible to wgmma. A: Args, or the backward tile's (skip_bw.cuh), whose
+// fields of these names mean the same.
+template <class A>
+__device__ __forceinline__ void front_half(const A& a, unsigned char* E, float* Xs,
                                            long long base, int t, int bar) {
   wg::bar_sync(bar, wg::THREADS);
   if (a.enc != nullptr) {  // K13 pre-encoded: the rows of the given encoding

@@ -3,10 +3,13 @@
 // memory and shared memory, and TMA bulk copies of contiguous bytes. Used
 // by the tools' chain kernels (X1 in exp_gather.cu, X4-X6 in exp_pair2.cu),
 // for its TMA ring alone by X2's in-tile gathers (exp_gather.cu), and by
-// the forward tiles: the NeRF field's (level_train.cu: field_tc_kernel,
-// K5/K7/K11, and fwd_tc_kernel, launch 1 of K2/K6/K8/K12) and the
-// deformation nets' (skip_wg.cuh: K1 and K13), which share the weight ring
-// and the products below; the backward tiles stay on mma.sync (mma.cuh).
+// the tiles of the system's paths, which share the weight ring, the
+// products and the epilogue helpers below: the NeRF field's forward
+// (level_train.cu: field_tc_kernel, K5/K7/K11, and fwd_tc_kernel, launch 1
+// of K2/K6/K8/K12) and backward (bwd_tc_kernel, launch 3), the deformation
+// nets' forward (skip_wg.cuh: K1 and K13) and backward (skip_bw.cuh: K3 and
+// K14), and their dW (level_dw.cuh). K2's pair= fold alone stays on
+// mma.sync (mma.cuh).
 //
 // The layout. Every bf16 operand in shared memory is in the 128-byte
 // swizzle (CU_TENSOR_MAP_SWIZZLE_128B, descriptor layout type 1): rows of
@@ -497,6 +500,41 @@ __device__ __forceinline__ void product(float (&d)[N / 2], const ASrc& s1, const
 // epilogue order the stores for their readers.
 __device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+
+// ---- the column sums of a gz epilogue (level_train.cu's bw::, skip_bw.cuh's
+// sb::) ----
+// One step of the column sums' butterfly: lanes l and l ^ b each keep half
+// of their HALF * 2 sums and add the other lane's copy of that half.
+template <int HALF, int M>
+__device__ __forceinline__ void fold_half(float (&s)[M], int b, int l) {
+  const bool up = (l & b) != 0;
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const float send = up ? s[k] : s[k + HALF];
+    const float keep = up ? s[k + HALF] : s[k];
+    s[k] = keep + __shfl_xor_sync(0xffffffffu, send, b);
+  }
+}
+
+// The warp's sums over its 16 points of each of the chunk's N columns into
+// cs[col], from each lane's sums of its two points (s; N >= 32): a
+// column's 8 lanes (l / 4) halve their sums three times; lane l then
+// holds the M / 8 sums of list positions o = k + (l & 16 ? M/2) + (l & 8 ?
+// M/4) + (l & 4 ? M/8), o = 2 j + c for column 8 j + 2 (l % 4) + c.
+template <int N>
+__device__ __forceinline__ void col_sums(float (&s)[N / 4], float* cs, int t) {
+  constexpr int M = N / 4;
+  const int l = t % 32, q = l % 4;
+  fold_half<M / 2>(s, 16, l);
+  fold_half<M / 4>(s, 8, l);
+  fold_half<M / 8>(s, 4, l);
+  const int o0 = (l & 16 ? M / 2 : 0) + (l & 8 ? M / 4 : 0) + (l & 4 ? M / 8 : 0);
+#pragma unroll
+  for (int k = 0; k < M / 8; ++k) {
+    const int o = o0 + k;
+    cs[8 * (o / 2) + 2 * q + (o % 2)] = s[k];
+  }
 }
 
 // ---- host: tensor maps ----

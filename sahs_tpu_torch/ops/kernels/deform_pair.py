@@ -19,9 +19,11 @@ the two nets' PE cotangents summed before the one shared PE backward, then
 the residual of the warped coordinates. The train path asks for no gx
 (need_gx=False) and runs as it did before that form existed: the same
 plan, the same launches. The CUDA kernel is ``csrc/deform_pair_vjp.cu``:
-in bfloat16 on the tensor cores over 64-point tiles
-(``csrc/skip_tc.cuh``), in float32 on the CUDA cores over 32-point tiles
-(``field_mlp.tile_points``; the stash follows the tile).
+in bfloat16 the deformation nets' backward tile on wgmma over 64-point
+tiles (``csrc/skip_bw.cuh``, its weights streamed as the two stage blobs
+of ``skip_mlp.backward_stages``) and the dW of ``csrc/level_dw.cuh`` over
+bf16 stashes (``skip_mlp.vjp_buffers``); in float32 on the CUDA cores over
+32-point tiles (``field_mlp.tile_points``; the stash follows the tile).
 
 ``deform_pair_apply_fused`` is the differentiable pair (field_mlp.py:
 1284-1354): a ``torch.autograd.Function`` whose forward is K1 and whose
@@ -52,12 +54,12 @@ import torch
 from ..grid import _cell_geometry
 from . import _build
 from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
-                        dact, dw_chunks, fold_trunk, kernel_pe, linear_params,
-                        mm, mm_t, pe_backward, tile_points, torch_dtype,
-                        trunk_backward, trunk_forward, trunk_into_blob,
-                        trunk_params)
+                        dact, fold_trunk, kernel_pe, linear_params, mm, mm_t,
+                        pe_backward, tile_points, torch_dtype, trunk_backward,
+                        trunk_forward, trunk_into_blob, trunk_params)
 from .points import build_pts_plain
-from .skip_mlp import TC_K_STEP, skip_param_grads, tile_stages
+from .skip_mlp import (TC_K_STEP, VJP_WG_SIGNATURE, skip_param_grads,
+                       tile_stages, vjp_buffers)
 
 # The rays of the rays= form: (ro (R, 3), rd (R, 3), z (R, S)), float32.
 Rays = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -155,10 +157,12 @@ def _check_kernel_shapes(points, weights: PairWeights, what: str,
         raise ValueError(f"the {what} kernel takes a warp head of 3 outputs and a "
                          "hyper head of at most 8")
     widths = [p["w"].shape[1] for p in weights.warp_trunk + weights.hyper_trunk]
-    if max(widths) > 128 or (dtype == torch.bfloat16
-                             and any(w % TC_K_STEP for w in widths)):
-        raise ValueError(f"the {what} kernel takes trunks at most 128 wide (in "
-                         f"bf16 in multiples of {TC_K_STEP}), got {widths}")
+    # bf16: the forward tile (K1) and K2's pair= fold (the mma.sync pair
+    # tile) take multiples of TC_K_STEP, K3's backward tile any of 8
+    step = TC_K_STEP if dtype == torch.bfloat16 and what != "K3" else 8
+    if max(widths) > 128 or any(w % step for w in widths):
+        raise ValueError(f"the {what} kernel takes trunks at most 128 wide, in "
+                         f"multiples of {step}, got {widths}")
 
 
 def _rays_args(rays: Rays, what: str):
@@ -395,22 +399,21 @@ def deform_pair_vjp(points: Optional[torch.Tensor], weights: PairWeights,
     g = g.to(f32).contiguous()
     g2 = g2.to(f32).contiguous() if g2 is not None else None
     n_tiles = -(-P // tile_points(dtype))
-    acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
-    gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)
-    chunks = dw_chunks(n_tiles)
-    part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
-    out = torch.empty(plan.out_len, dtype=f32, device=dev)
+    nw, nh = len(weights.warp_trunk), len(weights.hyper_trunk)
+    # held: what wg_args point to, alive until the launches are queued
+    acts, gzs, chunks, part, out, wg_args, held = vjp_buffers(
+        weights, plan, [nw, nw + 1 + nh], [nw, nh], need_gx, n_tiles, dtype, dev)
     gx = torch.empty((P, 3), dtype=f32, device=dev) if need_gx else None
     p = _build.ptr
     rest = (p(g), p(g2), p(gx), *[p(t) for t in plan.fwd],
-            *[p(t) for t in plan.bwd], len(weights.warp_trunk),
-            len(weights.hyper_trunk), weights.warp_skip, weights.hyper_skip,
+            *[p(t) for t in plan.bwd], nw, nh, weights.warp_skip, weights.hyper_skip,
             weights.pe_groups[0][2], gw - 3, int(dtype == torch.bfloat16),
             p(plan.slots), p(acts), p(gzs), plan.n_act, plan.act_stride,
             plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
-            p(plan.prods), p(plan.work), p(part), p(out),
+            p(plan.prods), p(plan.work), p(part), p(out), *wg_args,
             _build.stream_ptr(dev))
-    sig = "ppp" + "ppp" + "ppp" + "iiiiiii" + "p" + "pp" + "i" * 6 + "pppp" + "p"
+    sig = ("ppp" + "ppp" + "ppp" + "iiiiiii" + "p" + "pp" + "i" * 6 + "pppp"
+           + VJP_WG_SIGNATURE + "p")
     if rays is None:
         points = points.contiguous()
         fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp", "pl" + sig)

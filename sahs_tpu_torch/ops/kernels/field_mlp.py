@@ -320,7 +320,9 @@ class TrainPlan:
       weight blob followed by its bias blob (bias rows take A = 1);
     - ``work``: int32 (m, 3) rows [product, k0, n0], one 64 x 64 output
       tile each;
-    - ``descs_t``: the transposed blob's layers (BlobBuilder's descs)."""
+    - ``descs_t``: the transposed blob's layers (BlobBuilder's descs);
+    - ``act_off``: the activation slots' offsets, on the host (the bf16
+      backward tile of K3 and K14 takes them as kernel parameters)."""
     fwd: tuple
     bwd: tuple
     descs: List[List[int]]
@@ -334,6 +336,7 @@ class TrainPlan:
     w_len: int
     out_len: int
     descs_t: List[List[int]] = dataclasses.field(default_factory=list)
+    act_off: List[int] = dataclasses.field(default_factory=list)
 
     def unpack(self, out: torch.Tensor):
         """The float32 output of the dW reduction -> one {"w", "b"} per
@@ -387,13 +390,78 @@ def build_train_plan(fwd: BlobBuilder, bwd: BlobBuilder, act_rows: List[int],
     return TrainPlan(fwd_t, bwd_t, fwd.descs, fwd.n_real,
                      i32(act_off + gz_off), act_stride, gz_stride,
                      len(act_off), i32(prods).reshape(-1), i32(work).reshape(-1),
-                     w_len, w_len + fwd.b_len, bwd.descs)
+                     w_len, w_len + fwd.b_len, bwd.descs, act_off)
 
 
 def dw_chunks(n_tiles: int) -> int:
     """Split-K factor of the dW reduction: chunks of at least 64 tiles,
     at most 64 chunks."""
     return max(1, min(64, n_tiles // 64))
+
+
+# k rows of an item of the bf16 dW (two warpgroups of 64) and its gz
+# columns at most (csrc/level_dw.cuh: WG * KW, NW)
+DW_ROWS = 128
+
+
+def dw_items(descs) -> List[List[int]]:
+    """The work list of the bf16 dW (csrc/level_dw.cuh: the level's, K3's
+    and K14's) from the forward layers ``descs``: [product, k0, n0, rows]
+    for every weight product of the train plan's ``prods`` (their order;
+    the bias rows have none, db comes from the tiles' column sums), k0 in
+    steps of 128 and n0 of 128, rows = the item's gz columns."""
+    out, j = [], 0
+    for o1, k1, o2, k2, n, _, _ in descs:
+        for k in ([k1] if o2 < 0 else [k1, k2]):
+            out += [[j, k0, n0, min(DW_ROWS, n - n0)]
+                    for k0 in range(0, k, DW_ROWS) for n0 in range(0, n, DW_ROWS)]
+            j += 1
+        j += 1
+    return out
+
+
+def level_dw_chunks(n_tiles: int) -> int:
+    """Chunks of point tiles of the bf16 dW: at least 64 tiles a chunk, at
+    most 32 chunks (a block per item and chunk)."""
+    return max(1, min(32, n_tiles // 64))
+
+
+# dw_items on a device, per layer structure
+_DW_ITEMS = {}
+
+
+def dw_items_on(plan: TrainPlan, dev) -> torch.Tensor:
+    key = (tuple(tuple(d[1:5]) for d in plan.descs), dev)
+    if key not in _DW_ITEMS:
+        _DW_ITEMS[key] = torch.tensor(dw_items(plan.descs), dtype=torch.int32,
+                                      device=dev).reshape(-1)
+    return _DW_ITEMS[key]
+
+
+def plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
+    """The stashes, the split-K partials and the dW output of one call of a
+    float32 backward (and of K2's pair= form): train.cuh's dw_kernel, or
+    mma.cuh's stash_dw_kernel over the float32 gz stash."""
+    f32 = torch.float32
+    chunks = dw_chunks(n_tiles)
+    return (torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev),
+            torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev),
+            chunks, torch.zeros(chunks * plan.out_len, dtype=f32, device=dev),
+            torch.empty(plan.out_len, dtype=f32, device=dev))
+
+
+def stash_buffers(plan: TrainPlan, n_tiles: int, dev):
+    """The bf16 stashes (activations and gz), each tile's column sums of
+    gz, and the dW's chunk partials and output of one call of a wgmma
+    backward tile and level_dw.cuh's dW (the level's, K3's, K14's; every
+    entry of the partials is written)."""
+    f32, bf = torch.float32, torch.bfloat16
+    chunks = level_dw_chunks(n_tiles)
+    return (torch.empty(n_tiles * plan.act_stride, dtype=bf, device=dev),
+            torch.empty(n_tiles * plan.gz_stride, dtype=bf, device=dev),
+            torch.empty(n_tiles * (plan.gz_stride // TP_BF16), dtype=f32, device=dev),
+            chunks, torch.empty(chunks * plan.out_len, dtype=f32, device=dev),
+            torch.empty(plan.out_len, dtype=f32, device=dev))
 
 
 def unpack_blob_grads(descs, n_real, dw: torch.Tensor, db: torch.Tensor):

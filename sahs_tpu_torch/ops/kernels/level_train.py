@@ -71,11 +71,12 @@ from typing import List, Optional
 import torch
 
 from . import _build
-from .field_mlp import (TP_BF16, WG_KB, BlobBuilder, TrainPlan,  # noqa: F401
-                        build_train_plan, dact, dw_chunks, mm, mm_t,
-                        pe_backward, stage_blob, tile_points, torch_dtype,
-                        trunk_backward, trunk_params, unfold_cond_grads,
-                        wgmma_chunks)
+from .field_mlp import (DW_ROWS, TP_BF16, WG_KB, BlobBuilder,  # noqa: F401
+                        TrainPlan, build_train_plan, dact, dw_items,
+                        dw_items_on, level_dw_chunks, mm, mm_t, pe_backward,
+                        plan_buffers, stage_blob, stash_buffers, tile_points,
+                        torch_dtype, trunk_backward, trunk_params,
+                        unfold_cond_grads, wgmma_chunks)
 from ..grid import corner_dcoords
 from .nerf_level import (LevelWeights, _grid_args, check_device,
                          level_kernel_args, nerf_raw_plain, point_blob,
@@ -471,45 +472,6 @@ def backward_stages(weights: LevelWeights, plan: TrainPlan) -> torch.Tensor:
                       name="wgmma_bwd")
 
 
-# k rows of an item of the bf16 dW (two warpgroups of 64) and its gz
-# columns at most (csrc/level_dw.cuh: WG * KW, NW)
-DW_ROWS = 128
-
-
-def dw_items(descs) -> List[List[int]]:
-    """The work list of the bf16 level's dW (csrc/level_dw.cuh) from the
-    forward layers ``descs``: [product, k0, n0, rows] for every weight
-    product of the train plan's ``prods`` (their order; the bias rows have
-    none, db comes from the tiles' column sums), k0 in steps of 128 and n0
-    of 128, rows = the item's gz columns."""
-    out, j = [], 0
-    for o1, k1, o2, k2, n, _, _ in descs:
-        for k in ([k1] if o2 < 0 else [k1, k2]):
-            out += [[j, k0, n0, min(DW_ROWS, n - n0)]
-                    for k0 in range(0, k, DW_ROWS) for n0 in range(0, n, DW_ROWS)]
-            j += 1
-        j += 1
-    return out
-
-
-def level_dw_chunks(n_tiles: int) -> int:
-    """Chunks of point tiles of the bf16 level's dW: at least 64 tiles a
-    chunk, at most 32 chunks (a block per item and chunk)."""
-    return max(1, min(32, n_tiles // 64))
-
-
-# dw_items on a device, per layer structure
-_DW_ITEMS = {}
-
-
-def _dw_items_on(plan: TrainPlan, dev) -> torch.Tensor:
-    key = (tuple(tuple(d[1:5]) for d in plan.descs), dev)
-    if key not in _DW_ITEMS:
-        _DW_ITEMS[key] = torch.tensor(dw_items(plan.descs), dtype=torch.int32,
-                                      device=dev).reshape(-1)
-    return _DW_ITEMS[key]
-
-
 def _forward_stages(weights: LevelWeights, plan: TrainPlan, dtype: torch.dtype):
     """(pointer, bytes) of the weight stages that launch 1's tile reads in
     bf16 (``nerf_level.wgmma_blob`` of the plan's forward blob); (None, 0) in
@@ -518,29 +480,6 @@ def _forward_stages(weights: LevelWeights, plan: TrainPlan, dtype: torch.dtype):
         return None, 0
     wg = wgmma_blob(weights, plan.fwd[0])
     return wg.data_ptr(), 2 * wg.numel()
-
-
-def _plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
-    """The stashes, the split-K partials and the dW output of one call."""
-    f32 = torch.float32
-    chunks = dw_chunks(n_tiles)
-    return (torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev),
-            torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev),
-            chunks, torch.zeros(chunks * plan.out_len, dtype=f32, device=dev),
-            torch.empty(plan.out_len, dtype=f32, device=dev))
-
-
-def _level_buffers(plan: TrainPlan, n_tiles: int, dev):
-    """The bf16 stashes (activations and gz), each tile's column sums of
-    gz, and the dW's chunk partials and output of one call (every entry of
-    the partials is written)."""
-    f32, bf = torch.float32, torch.bfloat16
-    chunks = level_dw_chunks(n_tiles)
-    return (torch.empty(n_tiles * plan.act_stride, dtype=bf, device=dev),
-            torch.empty(n_tiles * plan.gz_stride, dtype=bf, device=dev),
-            torch.empty(n_tiles * (plan.gz_stride // TP_BF16), dtype=f32, device=dev),
-            chunks, torch.empty(chunks * plan.out_len, dtype=f32, device=dev),
-            torch.empty(plan.out_len, dtype=f32, device=dev))
 
 
 def _call_buffers(weights: LevelWeights, plan: TrainPlan, n_tiles: int,
@@ -554,11 +493,11 @@ def _call_buffers(weights: LevelWeights, plan: TrainPlan, n_tiles: int,
     the kernels write it."""
     p = _build.ptr
     if dtype != torch.bfloat16 or fold:
-        acts, gzs, chunks, part, out = _plan_buffers(plan, n_tiles, dtype, dev)
+        acts, gzs, chunks, part, out = plan_buffers(plan, n_tiles, dtype, dev)
         return acts, gzs, None, chunks, part, out, (None, 0, None, None, 0)
-    acts, gzs, bsum, chunks, part, out = _level_buffers(plan, n_tiles, dev)
+    acts, gzs, bsum, chunks, part, out = stash_buffers(plan, n_tiles, dev)
     stages = backward_stages(weights, plan)
-    items = _dw_items_on(plan, dev)
+    items = dw_items_on(plan, dev)
     return (acts, gzs, bsum, chunks, part, out,
             (p(stages), 2 * stages.numel(), p(bsum), p(items), items.numel() // 4))
 
@@ -640,7 +579,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
                 p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes, *wg, *bwd,
                 _build.stream_ptr(dev))
     else:
-        pacts, pgzs, pchunks, ppart, pout = _plan_buffers(pplan, n_tiles, dtype, dev)
+        pacts, pgzs, pchunks, ppart, pout = plan_buffers(pplan, n_tiles, dtype, dev)
         fn = _build.function("level_train", "sahs_level_train_pair", _PAIR_SIGNATURE)
         rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg), p(noise), p(tgt),
                 p(lw), p(se), *blobs, p(rgb_map), p(w_out), p(gse), p(g_bg), p(raw),

@@ -27,8 +27,10 @@ the cotangent of the raw coordinates through the PE backward
 (``_pe_bwd``, field_mlp.py:245-259), or in the pre-encoded form the
 cotangent of the encoding, (P, in_dim) float32, with no PE backward. The CUDA kernels are
 ``csrc/skip_mlp.cu``; its source note gives the bound and the design. In
-bfloat16 K14 runs on the tensor cores over 64-point tiles
-(``csrc/skip_tc.cuh``), in float32 on the CUDA cores over 32-point tiles
+bfloat16 K14 runs the deformation nets' backward tile on wgmma over
+64-point tiles (``csrc/skip_bw.cuh``, the tile K3 runs with both nets;
+``backward_stages``) and the dW of ``csrc/level_dw.cuh``
+(``vjp_buffers``), in float32 on the CUDA cores over 32-point tiles
 (``field_mlp.tile_points``; the stash follows the tile).
 
 ``deform_mlp_apply_fused`` is the differentiable net (field_mlp.py:
@@ -49,18 +51,20 @@ import numpy as np
 import torch
 
 from . import _build
-from .field_mlp import (BlobBuilder, PEGroup, TrainPlan, build_train_plan,
-                        dact, dw_chunks, fold_trunk, kernel_pe, linear_grads,
-                        linear_params, mm, mm_t, pe_backward, stage_blob,
+from .field_mlp import (WG_KB, BlobBuilder, PEGroup, TrainPlan,
+                        build_train_plan, dact, dw_items_on, fold_trunk,
+                        kernel_pe, linear_grads, linear_params, mm, mm_t,
+                        pe_backward, plan_buffers, stage_blob, stash_buffers,
                         tile_points, torch_dtype, trunk_backward, trunk_forward,
-                        trunk_into_blob, trunk_params, unfold_cond_grads)
+                        trunk_into_blob, trunk_params, unfold_cond_grads,
+                        wgmma_chunks)
 
 MAX_HIDDEN = 128
 MAX_OUT = 8
-# bf16 K3 and K14 stage their weights in slices of at most this many rows
-# (csrc/skip_tc.cuh:SKIP_KS), and the forward tile of K1 and K13
-# (csrc/skip_wg.cuh) takes trunks of whole multiples of it: the trunks'
-# widths are multiples of it
+# The forward tile of bf16 K1 and K13 (csrc/skip_wg.cuh) takes trunks of
+# whole multiples of this width; the backward tile of K3 and K14
+# (csrc/skip_bw.cuh), whose stages are zero-padded to 64 k, takes any
+# multiple of 8 (the blobs' padding)
 TC_K_STEP = 32
 
 
@@ -103,6 +107,73 @@ def tile_stages(weights, heads: Sequence[int]) -> Tuple[torch.Tensor, np.ndarray
         descs = weights._blobs["descs"] = np.asarray(meta.reshape(-1, 7).tolist(),
                                                      np.int32)
     return stage_blob(weights._blobs, w, descs.tolist(), tuple(heads)), descs
+
+
+def backward_stage_order(descs_t, trunks: Sequence[int], need_gx: bool) -> List[tuple]:
+    """``field_mlp.stage_order``'s tuples of the transposed layers ``descs_t``
+    of a pair's or one net's train plan (``trunks``: each net's trunk
+    layers) in the order the bf16 backward tile (csrc/skip_bw.cuh) runs
+    them: per net its head^T, trunk L-1 .. 1 and, with ``need_gx``, its
+    layer back to the encoding (the plan's last layers, a net each: layer
+    0's and the skip layer's pe rows, two inputs); per layer its one chunk
+    of outputs (the width rounded up to 64), each input, its 64-k blocks."""
+    out, t0 = [], 0
+    for net, L in enumerate(trunks):
+        layers = list(range(t0, t0 + L)) + ([sum(trunks) + net] if need_gx else [])
+        t0 += L
+        for q in layers:
+            w1, k1, w2, k2, n = descs_t[q][:5]
+            for c0, rows in wgmma_chunks(n, False):
+                for off, k in ((w1, k1), (w2, k2)):
+                    if off >= 0:
+                        out += [(q, off, k, n, c0, rows, kb) for kb in range(-(-k // WG_KB))]
+    return out
+
+
+def backward_stages(weights, plan: TrainPlan, heads: Sequence[int],
+                    trunks: Sequence[int], need_gx: bool):
+    """The two stage blobs the bf16 backward tile (K3, K14) streams, built
+    from the plan's blobs (a test's altered copy reaches the kernel; each
+    kept while its blob is the same tensor, unchanged): the forward layers'
+    (``field_mlp.stage_blob`` of ``plan.fwd``, as K1's and K13's tile reads
+    them; ``heads``: each net's head layer) and the transposed layers' in
+    ``backward_stage_order``."""
+    fwd = stage_blob(weights._blobs, plan.fwd[0], plan.descs, tuple(heads),
+                     name="wgmma_train")
+    bwd = stage_blob(weights._blobs, plan.bwd[0], plan.descs_t, (),
+                     order=lambda: backward_stage_order(plan.descs_t, trunks, need_gx),
+                     name=f"wgmma_train_bwd{int(need_gx)}")
+    return fwd, bwd
+
+
+def vjp_buffers(weights, plan: TrainPlan, heads: Sequence[int], trunks: Sequence[int],
+                need_gx: bool, n_tiles: int, dtype: torch.dtype, dev):
+    """(acts, gzs, chunks, part, out, the wgmma launch's arguments, what
+    they point to) of one K3 or K14 call. In bf16: the bf16 stashes, the
+    tiles' column sums and level_dw.cuh's partials (``stash_buffers``), and
+    the arguments (the two stage blobs and their bytes, the plan's host
+    layer tables and slot offsets, bsum, the dW's work items and their
+    count). In float32: the float32 stash and the plan's work list
+    (``plan_buffers``), no such arguments. The caller holds the last entry
+    until the launches are queued: a tensor freed before them would be
+    handed to the next allocation while the kernels write it."""
+    if dtype != torch.bfloat16:
+        acts, gzs, chunks, part, out = plan_buffers(plan, n_tiles, dtype, dev)
+        return acts, gzs, chunks, part, out, (None, 0, None, 0, None, None, 0, None, None,
+                                              None, 0), ()
+    acts, gzs, bsum, chunks, part, out = stash_buffers(plan, n_tiles, dev)
+    wf, wb = backward_stages(weights, plan, heads, trunks, need_gx)
+    items = dw_items_on(plan, dev)
+    host = [np.asarray(t, np.int32) for t in (plan.descs, plan.descs_t, plan.act_off)]
+    p = _build.ptr
+    args = (p(wf), 2 * wf.numel(), p(wb), 2 * wb.numel(), host[0].ctypes.data,
+            host[1].ctypes.data, len(plan.descs_t), host[2].ctypes.data, p(bsum), p(items),
+            items.numel() // 4)
+    return acts, gzs, chunks, part, out, args, (wf, wb, items, bsum, *host)
+
+
+# the C functions' arguments of vjp_buffers' launch, after the dW output
+VJP_WG_SIGNATURE = "plplppipppi"
 
 
 def prepare_skip(net, cond: torch.Tensor,
@@ -164,7 +235,7 @@ def _kernel_input(points, weights: SkipWeights, what: str,
                              f"{tuple(points.shape)} {points.dtype}")
         x, enc_dim = points.contiguous(), 0
     widths = [p["w"].shape[1] for p in weights.trunk]
-    step = TC_K_STEP if dtype == torch.bfloat16 else 8
+    step = TC_K_STEP if dtype == torch.bfloat16 and what == "K13" else 8
     if max(widths) > MAX_HIDDEN or any(w % step for w in widths):
         raise ValueError(f"the {what} kernel takes trunks at most "
                          f"{MAX_HIDDEN} wide, in multiples of {step}, got {widths}")
@@ -292,7 +363,9 @@ def skip_mlp_vjp(points: torch.Tensor, weights: SkipWeights, g: torch.Tensor,
                  need_gx: bool, compute_dtype: str):
     """K14 wrapper: the CUDA kernels for CUDA tensors, the plain version for
     CPU tensors. Same arguments and results as ``skip_mlp_vjp_plain``. One
-    call is one count, whatever the number of launches inside."""
+    call is one count, whatever the number of launches inside: in bf16 the
+    backward tile on wgmma (``skip_bwd_wg_kernel``) and level_dw.cuh's dW,
+    in float32 the SIMT tile and dW."""
     if points.device.type == "cpu":
         return skip_mlp_vjp_plain(points, weights, g, need_gx, compute_dtype)
     dtype = torch_dtype(compute_dtype)
@@ -308,23 +381,23 @@ def skip_mlp_vjp(points: torch.Tensor, weights: SkipWeights, g: torch.Tensor,
     g = g.to(f32).contiguous()
     n_tiles = -(-P // tile_points(dtype))
     dev = points.device
-    acts = torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev)
-    gzs = torch.empty(n_tiles * plan.gz_stride, dtype=f32, device=dev)
+    L = len(weights.trunk)
+    # held: what wg_args point to, alive until the launches are queued
+    acts, gzs, chunks, part, out, wg_args, held = vjp_buffers(
+        weights, plan, [L], [L], need_gx, n_tiles, dtype, dev)
     gx = (torch.empty((P, enc_dim or 3), dtype=f32, device=dev) if need_gx
           else None)
-    chunks = dw_chunks(n_tiles)
-    part = torch.zeros(chunks * plan.out_len, dtype=f32, device=dev)
-    out = torch.empty(plan.out_len, dtype=f32, device=dev)
     p = _build.ptr
     fn = _build.function("skip_mlp", "sahs_skip_mlp_vjp",
                          "plp" + "ppp" + "ppp" + "i" * 6 + "pppp"
-                         + "i" * 6 + "pppp" + "p")
+                         + "i" * 6 + "pppp" + VJP_WG_SIGNATURE + "p")
     rc = fn(p(x), P, p(g), *[p(t) for t in plan.fwd],
-            *[p(t) for t in plan.bwd], len(weights.trunk), weights.skip,
+            *[p(t) for t in plan.bwd], L, weights.skip,
             n_freq, enc_dim, out_dim, int(dtype == torch.bfloat16),
             p(plan.slots), p(acts), p(gzs), p(gx), plan.n_act, plan.act_stride,
             plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
-            p(plan.prods), p(plan.work), p(part), p(out), _build.stream_ptr(dev))
+            p(plan.prods), p(plan.work), p(part), p(out), *wg_args,
+            _build.stream_ptr(dev))
     _build.check(rc, "skip_mlp_vjp")
     skip_mlp_vjp.launches += 1
     layers = plan.unpack(out)

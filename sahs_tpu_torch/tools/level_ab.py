@@ -11,6 +11,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --chains-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --dg-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --bwd-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --deform-only [--k3-bits FILE]
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -70,7 +71,13 @@ or held bit for bit against the one another tree saved there),
 and K10 at their paths' shapes, ``_grid_times``), ``--chains-only`` the
 tools' chain kernels X1 and X4-X6 with their gates' readings
 (``_chain_times``), ``--dg-only`` X2 in its four cases beside its
-library call (``_dg_times``), ``--steps-only`` the
+library call (``_dg_times``), ``--deform-only`` the deformation nets'
+backwards: K3 and K14 per call, by launch (device ms, torch.profiler) and
+in their other forms (``_deform_times``; with ``--k3-bits FILE`` K3's
+activation stash, bf16 K1's and K13's outputs and float32 K3's and K14's
+results are saved to FILE, or held bit for bit against the ones another
+tree saved there, the stash slot by slot), then the traced fused,
+fallback-1, per-point and warp-only steps, ``--steps-only`` the
 steps alone, ``--bwd-only`` the level backward: K2, K6 and K8 at a step's
 fine and coarse level and K12 at the per-point step's 393,216 points per
 call (``_kernel_times``) and by launch (device ms, torch.profiler,
@@ -159,9 +166,17 @@ def _vjp_macs(trunk, out, skip) -> int:
             - trunk[skip]["w"][hid:].numel())
 
 
-def _deform_times(dev, reps: int = 3) -> dict:
+def _deform_times(dev, reps: int = 3, by_launch: bool = False,
+                  k3_bits: str = None) -> dict:
     """K3 and K14 per call, each beside its library call, TFLOP/s and the
-    share of its bound."""
+    share of its bound. With ``by_launch``, also each call's launches by
+    device time (torch.profiler) and the other forms per call: K3 with the
+    points' cotangent and in the rays= form, K14 with the points' cotangent
+    and on a given encoding. With ``k3_bits``, a file path: K3's activation
+    stash (the recomputed forward), and what must not change beside it
+    (bf16 K1's and K13's outputs at the same points, float32 K3's and K14's
+    dW and points' cotangent on the first 8,192), saved there, or held bit
+    for bit against the ones another tree saved (``_held_bits``)."""
     import numpy as np
     import torch
 
@@ -170,7 +185,7 @@ def _deform_times(dev, reps: int = 3) -> dict:
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import skip_mlp as k13
     from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
-    from sahs_tpu_torch.utils.device import cuda_ms
+    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel
 
     spec = nerface.ModelSpec.from_config(Config())
     model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
@@ -193,28 +208,109 @@ def _deform_times(dev, reps: int = 3) -> dict:
             return torch.autograd.grad((o.float() * gsum).sum(), params)
         return run
 
-    def row(ms, lib_ms, macs):
+    def row(fn, counter, lib_ms, macs):
+        ms = best(fn)
         flops = 2 * macs * P
         bound = flops / PEAK_BF16_FLOPS * 1e3
-        return {"ms": ms, "library_ms": lib_ms, "tflops": flops / (ms / 1e3) / 1e12,
-                "bound_ms": bound, "bound_share": bound / ms}
+        out = {"ms": ms, "library_ms": lib_ms, "tflops": flops / (ms / 1e3) / 1e12,
+               "bound_ms": bound, "bound_share": bound / ms}
+        if by_launch:
+            out["launch_ms"] = device_ms_by_kernel(fn, 5, counter=counter)
+        return out
 
     out = {}
     pair = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
     gp, gp2 = g(rng.randn(P, 5) * 1e-3), g(rng.randn(P, 5) * 1e-3)
-    out["K3 fine"] = row(
-        best(lambda: k1.deform_pair_vjp(pts, pair, gp, gp2, "bfloat16")),
-        best(library((model.warp, model.hyper), gp + gp2)),
-        _vjp_macs(pair.warp_trunk, pair.warp_out, pair.warp_skip)
-        + _vjp_macs(pair.hyper_trunk, pair.hyper_out, pair.hyper_skip))
+    k3 = lambda: k1.deform_pair_vjp(pts, pair, gp, gp2, "bfloat16")
+    k3_macs = (_vjp_macs(pair.warp_trunk, pair.warp_out, pair.warp_skip)
+               + _vjp_macs(pair.hyper_trunk, pair.hyper_out, pair.hyper_skip))
+    out["K3 fine"] = row(k3, k1.deform_pair_vjp,
+                         best(library((model.warp, model.hyper), gp + gp2)), k3_macs)
+    if k3_bits:
+        plan = k1.pair_train_plan(pair, torch.bfloat16)
+        named = {"K3 stash": _k3_stash(k3, (P // 64) * plan.act_stride)}
+        named["K1 packed"], named["K1 rows"] = k1.deform_pair_forward(
+            pts, pair, "bfloat16", 128, (32, 32, 32))
+        n = 8192
+        gx, tree = k1.deform_pair_vjp(pts[:n], pair, gp[:n], gp2[:n], "float32",
+                                      need_gx=True)
+        named["K3 float32 gx"] = gx
+        for net in ("warp", "hyper"):
+            for i, lay in enumerate(tree[net]["trunk"] + [tree[net]["out"]]):
+                named[f"K3 float32 {net} layer {i}"] = torch.cat([lay["w"].reshape(-1), lay["b"]])
+        for name, act, cols in (("warp", "tanh", slice(0, 3)), ("hyper", "linear", slice(3, 5))):
+            w = k13.prepare_skip(getattr(model, name), cond, warp_g, act)
+            named[f"K13 {name}"] = k13.skip_mlp_forward(pts, w, "bfloat16")
+            gx, tree = k13.skip_mlp_vjp(pts[:n], w, gp[:n, cols].contiguous(), True, "float32")
+            named[f"K14 float32 {name} gx"] = gx
+            for i, lay in enumerate(tree["trunk"] + [tree["out"]]):
+                named[f"K14 float32 {name} layer {i}"] = torch.cat([lay["w"].reshape(-1),
+                                                                   lay["b"]])
+        out["K3 bits"] = _held_bits(named, plan.slots[:plan.n_act].tolist(), plan.act_stride,
+                                    k3_bits)
+    if by_launch:
+        ro, rd = g(rng.randn(2048, 3) * 0.1), g(rng.randn(2048, 3) * 0.3 + [0, 0, -1])
+        z = g(np.sort(rng.uniform(0.5, 1.5, (2048, 128)), axis=-1))
+        out["K3 fine, points' cotangent"] = {"ms": best(
+            lambda: k1.deform_pair_vjp(pts, pair, gp, gp2, "bfloat16", need_gx=True))}
+        out["K3 fine, rays="] = {"ms": best(
+            lambda: k1.deform_pair_vjp(None, pair, gp, gp2, "bfloat16", rays=(ro, rd, z)))}
     for name, act, cols in (("warp", "tanh", slice(0, 3)), ("hyper", "linear", slice(3, 5))):
         net = getattr(model, name)
         w = k13.prepare_skip(net, cond, warp_g, act)
         gs = gp[:, cols].contiguous()
         out[f"K14 {name} fine"] = row(
-            best(lambda: k13.skip_mlp_vjp(pts, w, gs, False, "bfloat16")),
+            lambda: k13.skip_mlp_vjp(pts, w, gs, False, "bfloat16"), k13.skip_mlp_vjp,
             best(library((net,), gs)), _vjp_macs(w.trunk, w.out, w.skip))
+        if by_launch:
+            out[f"K14 {name} fine, points' cotangent"] = {"ms": best(
+                lambda: k13.skip_mlp_vjp(pts, w, gs, True, "bfloat16"))}
+            we = k13.prepare_skip(net, cond, None, act)
+            out[f"K14 {name} fine, pre-encoded"] = {"ms": best(
+                lambda: k13.skip_mlp_vjp(pe, we, gs, True, "bfloat16"))}
     return out
+
+
+def _k3_stash(fn, n: int):
+    """The activation stash of one call of ``fn`` (a bf16 K3): the bf16
+    tensor of ``n`` elements it allocates, caught at ``torch.empty`` (each
+    tree's wrapper allocates it there, and returns no stash)."""
+    import torch
+    made, empty = [], torch.empty
+
+    def catch(*args, **kw):
+        t = empty(*args, **kw)
+        made.append(t)
+        return t
+    torch.empty = catch
+    try:
+        fn()
+    finally:
+        torch.empty = empty
+    torch.cuda.synchronize()
+    return next(t for t in made if t.dtype == torch.bfloat16 and t.numel() == n)
+
+
+def _held_bits(named: dict, slots, block: int, path: str) -> dict:
+    """The tensors of ``named`` saved to ``path``, or held against the ones
+    saved there, bit for bit (compared as integers): whether each is equal,
+    and for K3's activation stash the elements that differ by slot (the
+    encoding, then each net's h_0 ..., ``slots`` their offsets in a
+    64-point tile's block of ``block`` elements) and the first differing
+    slot."""
+    import torch
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.int32: torch.int32}
+    got = {k: v.detach().contiguous().view(ints[v.dtype]).cpu() for k, v in named.items()}
+    if not os.path.exists(path):
+        torch.save(got, path)
+        return {"saved": path}
+    ref = torch.load(path)
+    stash, ref_stash = got["K3 stash"], ref["K3 stash"]
+    diff = (stash != ref_stash).reshape(stash.numel() // block, block)
+    by_slot = [int(diff[:, a:b].sum()) for a, b in zip(slots, slots[1:] + [block])]
+    return {"equal": {k: bool(torch.equal(v, ref[k])) for k, v in got.items()},
+            "elements": stash.numel(), "differing_by_slot": by_slot,
+            "first_differing_slot": next((i for i, n in enumerate(by_slot) if n), None)}
 
 
 def _field_times(dev, reps: int = 3) -> dict:
@@ -878,6 +974,14 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd-only", action="store_true",
                     help="time the level backward (K2, K6, K8, K12) per call and by "
                          "launch, and trace the fused, fallback and per-point steps")
+    ap.add_argument("--deform-only", action="store_true",
+                    help="time the deformation nets' backwards (K3, K14) per call, by "
+                         "launch and in their other forms, and trace the fused, "
+                         "fallback, per-point and warp-only steps")
+    ap.add_argument("--k3-bits", default=None,
+                    help="with --deform-only: save K3's activation stash (and K1's, "
+                         "K13's and float32 K3's and K14's results) to this file, or "
+                         "hold them bit for bit against the ones saved there")
     ap.add_argument("--k1-bits", default=None,
                     help="with --serve-only: save K1's fine-chunk output to this file, "
                          "or hold it against the one saved there")
@@ -903,6 +1007,9 @@ def main(argv=None) -> int:
     elif args.bwd_only:
         res.update(kernels_ms=_kernel_times(dev), launches=_launch1_times(dev),
                    traces=_step_traces())
+    elif args.deform_only:
+        res.update(deform_nets=_deform_times(dev, by_launch=True, k3_bits=args.k3_bits),
+                   traces=_step_traces(("fused", "fallback", "pointwise", "warp_only")))
     elif args.skip_only:
         res.update(skip_net=_skip_times(dev), pair=_pair_times(dev))
     elif args.serve_only:

@@ -25,8 +25,9 @@ level_dw_kernel, bias_dw_kernel, dw_reduce (csrc/level_dw.cuh); K2's
 pair= form bwd_tc_fold_kernel and stash_dw_kernel on mma.sync in place of
 the backward tile and its dW; in
 float32 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce;
-K8 the same without composite_kernel; K3: pair_vjp_tc_kernel,
-stash_dw_kernel, dw_reduce in bfloat16, pair_vjp_kernel, dw_kernel,
+K8 the same without composite_kernel; K3: pair_bwd_wg_kernel (the
+deformation nets' backward tile on wgmma), level_dw_kernel,
+bias_dw_kernel, dw_reduce in bfloat16, pair_vjp_kernel, dw_kernel,
 dw_reduce in float32; K12 as K8); K5 in bfloat16 as its two launches,
 field_tc_kernel (its raw field) and composite_fwd_kernel (its
 compositing), in float32 as nerf_level_kernel; K1 as deform_pair_wg_kernel
@@ -38,8 +39,9 @@ K4, K9 and K10 as the launches of their one routine (dg_cells_kernel,
 dg_hist_kernel, dg_tile_offsets_kernel, dg_scatter_kernel, dg_cell_sums_kernel,
 dg_cell_offsets_kernel, dg_chunk_kernel, dg_voxel_kernel, and K10's
 dg_dcoords_kernel); K13 as skip_wg_kernel (bfloat16, the same tile) or
-skip_mlp_kernel (float32); K14 as skip_vjp_tc_kernel, stash_dw_kernel, dw_reduce (bfloat16) or
-skip_vjp_kernel, dw_kernel, dw_reduce (float32). Each line names the
+skip_mlp_kernel (float32); K14 as skip_bwd_wg_kernel (the backward tile),
+level_dw_kernel, bias_dw_kernel, dw_reduce (bfloat16) or skip_vjp_kernel,
+dw_kernel, dw_reduce (float32). Each line names the
 port's kernels whose launch it is (``OWNERS``).
 """
 from __future__ import annotations
@@ -69,12 +71,13 @@ OWNERS = {
     "composite_kernel": "K2, K6 compositing and its backward",
     "bwd_tc_kernel": "K2, K6, K8, K12 backward", "bwd_kernel": "K2, K6, K8, K12 backward",
     "bwd_tc_fold_kernel": "K2's pair= form backward",
-    "level_dw_kernel": "dW of K2, K6, K8, K12", "bias_dw_kernel": "db of K2, K6, K8, K12",
-    "stash_dw_kernel": "dW of K3, K14, K2's pair= form", "dw_kernel": "dW (float32)",
+    "level_dw_kernel": "dW of K2, K6, K8, K12, K3, K14",
+    "bias_dw_kernel": "db of K2, K6, K8, K12, K3, K14",
+    "stash_dw_kernel": "dW of K2's pair= form", "dw_kernel": "dW (float32)",
     "dw_reduce": "dW's split-K sum",
-    "pair_vjp_tc_kernel": "K3", "pair_vjp_kernel": "K3",
+    "pair_bwd_wg_kernel": "K3", "pair_vjp_kernel": "K3",
     "skip_wg_kernel": "K13", "skip_mlp_kernel": "K13",
-    "skip_vjp_tc_kernel": "K14", "skip_vjp_kernel": "K14",
+    "skip_bwd_wg_kernel": "K14", "skip_vjp_kernel": "K14",
     "build_pts_kernel": "K15",
     "dg_cells_kernel": "K4, K9, K10 dG: cells", "dg_hist_kernel": "K4, K9, K10 dG: sort",
     "dg_tile_offsets_kernel": "K4, K9, K10 dG: sort",

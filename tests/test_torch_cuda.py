@@ -33,8 +33,11 @@ that are off, and fail with more of them than utils/compare.kink_cap
 (``_kink_gate``); there each side is held against the exact-sum reference
 on its own leaky-ReLU branch at its off kink points (``_plain_ref``). The
 grid backward (K4, K9, K10: one binned routine) is also held to give the
-same bits on a second launch.
-Selecting: ``-k tensor_core`` (the tensor-core kernels' own tests, the
+same bits on a second launch, as the deformation nets' backward (bf16 K3
+and K14) is; its tests also hold a ragged last tile, the rows of gx past
+P and trunks a multiple of 8.
+Selecting: ``-k deform_backward`` (bf16 K3's and K14's tile and dW: faults,
+repeats, ragged last tile, gx past P, widths), ``-k tensor_core`` (the tensor-core kernels' own tests, the
 level backward's faults, repeats and ragged last tile among them), ``-k
 "tensor_core_level_forward or tensor_core_deform_pair"`` (bf16 K5 and K1's
 faults, guards and K5's bit-equality with K2's forward), ``-k "grid_dg or
@@ -2194,10 +2197,10 @@ def test_tensor_core_level_backward_keeps_a_ragged_last_tile(tc_levels):
 
 
 # ---------------------------------------------------------------------------
-# The deformation nets' backward on the tensor cores (csrc/skip_tc.cuh):
-# faults planted in bf16 K3 and K14, each of which must miss the bf16 gates
-# (GRAD_GATES) that the faultless kernel passes against exact sums. Inputs
-# from a random state of their own.
+# The deformation nets' backward on wgmma (csrc/skip_bw.cuh, bf16 K3 and
+# K14) and its dW (csrc/level_dw.cuh): faults planted in bf16 K3 and K14,
+# each of which must miss the bf16 gates (GRAD_GATES) that the faultless
+# kernel passes against exact sums. Inputs from a random state of their own.
 # ---------------------------------------------------------------------------
 
 def _deform_case(card, kernel):
@@ -2291,6 +2294,192 @@ def _tree_sub(a, b):
     if isinstance(a, (list, tuple)):
         return [_tree_sub(x, y) for x, y in zip(a, b)]
     return a - b
+
+
+def _deform_backward_stage_fault(kernel, w, q_fault, need_gx):
+    """A copy of ``w`` whose backward tile's transposed stages
+    (``skip_mlp.backward_stages``) leave out one stage: the first 64 k of
+    the outputs of the tile's transposed layer ``q_fault``
+    (``skip_mlp.backward_stage_order``)."""
+    faulty = dataclasses.replace(w, _blobs={})
+    if kernel == "K3":
+        plan = k1.pair_train_plan(faulty, torch.bfloat16, need_gx)
+        nw, nh = len(w.warp_trunk), len(w.hyper_trunk)
+        heads, trunks = [nw, nw + 1 + nh], [nw, nh]
+    else:
+        plan = k13.skip_train_plan(faulty, torch.bfloat16)
+        heads = trunks = [len(w.trunk)]
+    stages = k13.backward_stages(faulty, plan, heads, trunks, need_gx)[1].clone()
+    at = 0
+    for q, _, _, _, _, rows, _ in k13.backward_stage_order(plan.descs_t, trunks, need_gx):
+        if q == q_fault:
+            break
+        at += rows * 64
+    assert float(stages[at:at + rows * 64].float().abs().max()) > 0
+    stages[at:at + rows * 64] = 0
+    b = plan.bwd[0]
+    faulty._blobs[(f"wgmma_train_bwd{int(need_gx)}", torch.bfloat16)] = (b, b._version, stages)
+    return faulty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,q", [("K3", 1), ("K3", 8), ("K14", 3), ("K14", 6)])
+def test_deform_backward_fault_ring_stage_misses_gates(card, kernel, q):
+    """One stage of the backward tile's ring left out: the first 64 k of
+    a transposed layer's outputs (K3: the warp trunk[5]^T, product 1, or
+    the hyper trunk[4]^T, product 8; K14 on the warp net with the points'
+    cotangent: trunk[3]^T, product 3, or the layer back to the encoding,
+    product 6): the results must miss the gates that the faultless run
+    passes."""
+    fn, plain, _, pre, w, post = _deform_case(card, kernel)
+    good = fn(*pre, w, *post)
+    ref = _plain_ref(plain, *pre, w, *post)
+    assert _dw_within(_deform_grads(good), _deform_grads(ref))
+    out = fn(*pre, _deform_backward_stage_fault(kernel, w, q, kernel == "K14"), *post)
+    torch.cuda.synchronize()
+    caught = not _dw_within(_deform_grads(out), _deform_grads(ref))
+    if kernel == "K14":
+        e = point_errors(out[0], ref[0], 1e-4)
+        caught = caught or not (e["l2_rel"] <= 1e-2 and e["cosine"] >= 0.9999)
+    assert caught, tree_errors(_deform_grads(out), _deform_grads(ref))
+
+
+@pytest.mark.cuda
+def test_deform_backward_fault_tile_column_sums_misses_gates(card):
+    """One tile's column sums of gz dropped (bsum, db's only source), as
+    an epilogue that skipped them would: the plain db over the tile's 64
+    points taken off bf16 K3's db alone must miss the dW gates that the
+    faultless result passes."""
+    _, _, _, (pts,), pair, (g, g2, cdt) = _deform_case(card, "K3")
+    tile = slice(64 * 10, 64 * 11)
+    g_k = k1.deform_pair_vjp(pts, pair, g, g2, cdt)
+    g_p = _plain_ref(k1.deform_pair_vjp_plain, pts, pair, g, g2, cdt)
+    g_t = _plain_ref(k1.deform_pair_vjp_plain, pts[tile], pair, g[tile], g2[tile], cdt)
+    torch.cuda.synchronize()
+    assert _dw_within(g_k, g_p), tree_errors(g_k, g_p)
+    dropped = _bias_sub(g_k, g_t)
+    assert not _dw_within(dropped, g_p), tree_errors(dropped, g_p)
+
+
+def _deform_gx_case(card, kernel):
+    """(wrapper, points, weights, the arguments after them asking for the
+    points' cotangent) of bf16 K3, K14 on raw points and K14 on the
+    encoding, at P = 300 x 64 + 17 (the last of 301 tiles ragged)."""
+    fn, _, _, (pts,), w, post = _deform_case(card, "K3" if kernel == "K3" else "K14")
+    if kernel == "K3":
+        return fn, pts, w, post + (True,)
+    if kernel == "K14":
+        return fn, pts, w, post
+    dev, model, _, _ = card
+    cond = _gpu(dev, np.random.RandomState(31).randn(76 + 36) * 0.5)
+    w = k13.prepare_skip(model.warp, cond, None, "tanh")
+    return fn, _encode(pts, nerface.build_pe_groups(model.spec)[0]), w, post
+
+
+def _gx_of(out):
+    return out[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K14", "K14 pre-encoded"])
+def test_deform_backward_repeats_bit_for_bit(card, kernel):
+    """Two launches of bf16 K3 and K14 (with the points' cotangent) on the
+    same inputs give the same bits: the tile's column sums and the dW's
+    sums run in a fixed order."""
+    fn, pts, w, post = _deform_gx_case(card, kernel)
+    a, b = fn(pts, w, *post), fn(pts, w, *post)
+    torch.cuda.synchronize()
+    assert torch.equal(_gx_of(a), _gx_of(b))
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(a[1]), _leaves(b[1])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K14", "K14 pre-encoded"])
+def test_deform_backward_keeps_a_ragged_last_tile(card, kernel):
+    """A last tile that is only partly full (P = 64 x 300 + 17: 301 tiles,
+    so the last pair's second warpgroup runs past the end too) gives bf16
+    K3 and K14 the same results as the same points followed by 47 more
+    whose cotangent is zero: the rows past P add nothing to dW, db or the
+    points' cotangent, and the tiles, chunks and sums are the same."""
+    fn, pts, w, post = _deform_gx_case(card, kernel)
+    n, m = pts.shape[0], 64 * 301
+    more = pts[:m - n] * 0.5
+    pad = lambda t: torch.cat([t, torch.zeros_like(t[:m - n])])
+    post_m = tuple(pad(x) if isinstance(x, torch.Tensor) else x for x in post)
+    a = fn(pts, w, *post)
+    b = fn(torch.cat([pts, more]), w, *post_m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(_gx_of(a)).all() and torch.equal(_gx_of(a), _gx_of(b)[:n])
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(a[1]), _leaves(b[1])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K14", "K14 pre-encoded"])
+def test_deform_backward_writes_no_gx_row_past_p(card, kernel, monkeypatch):
+    """bf16 K3 and K14 write the points' cotangent (P, 3), or the
+    encoding's (P, 63), of their P rows and nothing past them: the
+    wrapper's output is handed a view of a larger buffer whose rows past P
+    hold a sentinel, and those rows keep it."""
+    fn, pts, w, post = _deform_gx_case(card, kernel)
+    P, width = pts.shape[0], 63 if kernel == "K14 pre-encoded" else 3
+    empty, big = torch.empty, []
+
+    def gx_in_big(*shape, **kw):
+        if shape == ((P, width),) and kw.get("dtype") == torch.float32 and not big:
+            big.append(empty((P + 64, width), dtype=torch.float32, device=kw["device"]))
+            big[0].fill_(7.0)
+            return big[0][:P]
+        return empty(*shape, **kw)
+    monkeypatch.setattr(torch, "empty", gx_in_big)
+    out = fn(pts, w, *post)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert big and _gx_of(out).data_ptr() == big[0].data_ptr()
+    assert torch.isfinite(_gx_of(out)).all()
+    assert bool((big[0][P:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K14"])
+def test_deform_backward_takes_trunks_a_multiple_of_8(kernel):
+    """bf16 K3 and K14 on nets whose trunks are 72 (warp) and 40 (hyper)
+    wide, which the forward tile of K1 and K13 refuses (multiples of
+    skip_mlp.TC_K_STEP): the backward tile's stages are zero-padded to 64
+    k and its epilogues guard the columns past the width, so it takes any
+    multiple of 8; dW and the points' cotangent against the plain version
+    with exact sums, within PLAIN_MULTIPLE of its distance to them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    cfg = Config()
+    cfg.models.warp.hidden_size, cfg.models.hyper.hidden_size = 72, 40
+    spec = nerface.ModelSpec.from_config(cfg)
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(37)
+    cond = _gpu(dev, rng.randn(76 + 36) * 0.5)
+    warp_g = nerface.build_pe_groups(spec)[0]
+    P = 64 * 150 + 9
+    pts = _gpu(dev, rng.uniform(-0.6, 0.6, (P, 3)))
+    if kernel == "K3":
+        w = k1.prepare_pair(model.warp, model.hyper, cond, warp_g)
+        g, g2 = _gpu(dev, rng.randn(P, 5) * 0.1), _gpu(dev, rng.randn(P, 5) * 0.1)
+        args = (pts, w, g, g2, "bfloat16", True)
+        gx_k, g_k = k1.deform_pair_vjp(*args)
+        gx_p, g_p = _plain_ref(k1.deform_pair_vjp_plain, *args, out_k=(gx_k, g_k))
+        with pytest.raises(ValueError, match="multiples of 32"):
+            k1.deform_pair_forward(pts, w, "bfloat16", 64, None)
+    else:
+        w = k13.prepare_skip(model.hyper, cond, warp_g, "linear")
+        g = _gpu(dev, rng.randn(P, 2) * 0.1)
+        args = (pts, w, g, True, "bfloat16")
+        gx_k, g_k = k13.skip_mlp_vjp(*args)
+        gx_p, g_p = _plain_ref(k13.skip_mlp_vjp_plain, *args, out_k=(gx_k, g_k))
+        with pytest.raises(ValueError, match="multiples of 32"):
+            k13.skip_mlp_forward(pts, w, "bfloat16")
+    torch.cuda.synchronize()
+    assert gx_k.shape == (P, 3)
+    _points_ok(gx_k, gx_p, False)
+    _grads_ok(g_k, g_p, "bfloat16")
 
 
 # ---------------------------------------------------------------------------

@@ -199,8 +199,8 @@ def _cu_const(path, name):
 
 
 def test_tile_sizes_match_the_cuda_sources():
-    """bf16: the tensor-core tile of mma.cuh, which K2/K6/K8/K12
-    (level_train.cu), K3 and K14 (skip_tc.cuh) take; float32: each SIMT
+    """bf16: the 64-point tile of mma.cuh and wgmma.cuh, which K2/K6/K8/K12
+    (level_train.cu), K3 and K14 (skip_bw.cuh) take; float32: each SIMT
     kernel's own tile (K3's in pair_bwd.cuh, which K2's pair= form runs on
     the level's tile: level_train.cu asserts the two equal)."""
     assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
@@ -208,11 +208,21 @@ def test_tile_sizes_match_the_cuda_sources():
     assert k2.tile_points(torch.float32) == _cu_const("pair_bwd.cuh", "PAIR_TP") == 32
     assert k2.tile_points(torch.float32) == _cu_const("skip_mlp.cu", "TP_BWD") == 32
     assert "static_assert(TP == sahs::PAIR_TP" in _cu_text("level_train.cu")
+    # float32 K3 keeps pair_bwd.cuh's SIMT tile; bf16 K3 and K14 run the
+    # deformation nets' backward tile on wgmma (skip_bw.cuh) and the dW of
+    # level_dw.cuh; skip_tc.cuh's mma.sync routine is K2's pair= fold's alone
     for src, inc in (("deform_pair_vjp.cu", "pair_bwd.cuh"), ("pair_bwd.cuh", "skip_tc.cuh"),
-                     ("skip_mlp.cu", "skip_tc.cuh")):
+                     ("deform_pair_vjp.cu", "skip_bw.cuh"), ("skip_mlp.cu", "skip_bw.cuh"),
+                     ("deform_pair_vjp.cu", "level_dw.cuh"), ("skip_mlp.cu", "level_dw.cuh")):
         with open(os.path.join(CSRC, src)) as fp:
             assert f'#include "{inc}"' in fp.read()
-    # the width step the K3, K13 and K14 wrappers check in bf16
+    assert '#include "skip_tc.cuh"' not in _cu_text("skip_mlp.cu")
+    for src, gone in (("deform_pair_vjp.cu", "pair_vjp_tc_kernel"),
+                      ("skip_mlp.cu", "skip_vjp_tc_kernel")):
+        assert f"{gone}<<<" not in _cu_text(src) and "launch_stash_dw(" not in _cu_text(src)
+    assert "constexpr int TP = wg::ROWS;" in _cu_text("skip_bw.cuh")
+    # the width step the K1 and K13 wrappers (the forward tile) and K2's
+    # pair= form (the fold's mma.sync pair tile) check in bf16
     assert k13.TC_K_STEP == _cu_const("skip_tc.cuh", "SKIP_KS")
     # bf16 K13 and K1: the deformation nets' tile on wgmma (skip_wg.cuh),
     # 64-point tiles (a warpgroup's product rows), launched from the blob's
@@ -942,7 +952,7 @@ def test_level_dw_tile_sizes_match_the_cuda_sources():
     bf16, the TMA box's width and wgmma's K-major row), a warpgroup's A
     block 64 k rows, a ring stage both warpgroups' A and 128 gz rows, within
     a block's shared memory; the gz stash is bf16 in the backward tile's
-    calls (``level_train._level_buffers``) and the bias sums one float per
+    calls (``field_mlp.stash_buffers``) and the bias sums one float per
     gz row of a tile."""
     c = lambda n: _cu_const("level_dw.cuh", n)
     src = _cu_text("level_dw.cuh")
@@ -955,7 +965,7 @@ def test_level_dw_tile_sizes_match_the_cuda_sources():
     assert smem <= BLOCK_MAX and smem + BLOCK_RESERVED <= SM_SMEM
     lvl = _level(_model(True))
     plan = k2.level_train_plan(lvl, torch.bfloat16)
-    acts, gzs, bsum, chunks, part, out = k2._level_buffers(plan, 5, "cpu")
+    acts, gzs, bsum, chunks, part, out = k2.stash_buffers(plan, 5, "cpu")
     assert acts.dtype == gzs.dtype == torch.bfloat16
     assert (acts.numel(), gzs.numel()) == (5 * plan.act_stride, 5 * plan.gz_stride)
     assert bsum.numel() == 5 * plan.gz_stride // 64 and bsum.dtype == torch.float32

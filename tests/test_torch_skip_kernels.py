@@ -228,22 +228,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(nets, case):
     """(d) Before any launch, on a tensor that is not on the CPU: K13 and
     K14 refuse a precomputed-PE input whose width is not the encoding's
     (and take one that is, up to the device check), trunks wider than 128,
-    heads of more than 8 outputs and points other than (P, 3), and in
-    bfloat16 trunk widths that are not multiples of the tensor cores'
-    weight slice (a multiple of 8 that float32 takes); K15 refuses a
-    device other than CUDA."""
+    heads of more than 8 outputs and points other than (P, 3), and K13 in
+    bfloat16 trunk widths that are not multiples of its forward tile's
+    step (a multiple of 8 that float32 takes, and K14's backward tile in
+    either type); K15 refuses a device other than CUDA."""
     _, model, _, cond, _ = nets
     w = _weights(model, "warp", cond)
     pts = _meta(64, 3)
     if case == "bf16_trunk_step":
         w.trunk[1] = {"w": torch.zeros(128, 40), "b": torch.zeros(40)}
-        for fn, args in ((k13.skip_mlp_forward, ()),
-                         (k13.skip_mlp_vjp, (_meta(64, 3), True))):
-            with pytest.raises(ValueError, match=f"multiples of {k13.TC_K_STEP}"):
-                fn(pts, w, *args, "bfloat16")
-            # float32 takes the width: it gets past the check to the device
+        with pytest.raises(ValueError, match=f"multiples of {k13.TC_K_STEP}"):
+            k13.skip_mlp_forward(pts, w, "bfloat16")
+        # the others take the width: they get past the check to the device
+        for fn, args, dtype in ((k13.skip_mlp_forward, (), "float32"),
+                                (k13.skip_mlp_vjp, (_meta(64, 3), True), "float32"),
+                                (k13.skip_mlp_vjp, (_meta(64, 3), True), "bfloat16")):
             with pytest.raises(ValueError, match="unsupported device meta"):
-                fn(pts, w, *args, "float32")
+                fn(pts, w, *args, dtype)
         return
     if case == "precomputed_pe":
         w = k13.prepare_skip(model.warp, torch.tensor(cond), None, "tanh")
