@@ -313,7 +313,8 @@ Phases, in order (any failure exits non-zero and prints no result):
      bf16 at 2048, 64 and 128 samples a ray: K1's and K3's rays= forms bit
      for bit K15 then the positional forms, K1's against its plain version
      (bf16: phase 2's gates), K2's pair= form bit for bit K2 then K3's
-     rays= form on K2's gx and against its plain version, and K3's rays=
+     rays= form on K2's gx in both dtypes (rgb, weights, g_bg, gse, every
+     level and pair dW leaf) and against its plain version, and K3's rays=
      form against its plain version on K2's gx (bf16 dW by the exact-sum
      rule: each takes K2's gx, whose kink points sit off exact sums in
      either side's bf16 run); planted faults: an FMA in the
@@ -1797,10 +1798,9 @@ def deform_tile_ptxas() -> dict:
 def backward_tile_ptxas() -> dict:
     """ptxas' report of the bf16 level backward on wgmma (level_train.cu:
     bwd_tc_kernel, launch 3 of K2/K6/K8/K12, and level_dw.cuh's
-    level_dw_kernel, its dW) and of the pair= form's mma.sync tile."""
+    level_dw_kernel, its dW)."""
     def name_of(mangled):
-        return next((k for k in ("bwd_tc_fold_kernel", "bwd_tc_kernel", "level_dw_kernel")
-                     if k in mangled), None)
+        return next((k for k in ("bwd_tc_kernel", "level_dw_kernel") if k in mangled), None)
     return tile_ptxas("level_train", name_of)
 
 
@@ -1835,7 +1835,7 @@ def backward_tile_readings(report) -> str:
     their SASS holds no HGMMA (a spill is printed, not refused)."""
     ptx = backward_tile_ptxas()
     hg = sass_hgmma("level_train")
-    hgmma = {k: sum(v for m, v in hg.items() if k in m and "fold" not in m)
+    hgmma = {k: sum(v for m, v in hg.items() if k in m)
              for k in ("bwd_tc_kernel", "level_dw_kernel")}
     print(f"backward tile and dW, ptxas: {json.dumps(ptx)}; HGMMA in the SASS: "
           f"{json.dumps(hgmma)}", flush=True)
@@ -4609,17 +4609,12 @@ VARIANT_RAYS = 2048
 
 @contextlib.contextmanager
 def variant_flags(on):
-    """The port's fused step with exactly the flags ``on`` set."""
-    from sahs_tpu_torch.train import fused
-    names = ("_BWD_SPLIT", "_UNION", "_PAIR_RAYS", "_PAIR_FOLD")
-    saved = {n: getattr(fused, n) for n in names}
-    for n in names:
-        setattr(fused, n, n in on)
-    try:
+    """The port's fused step with exactly the flags ``on`` set
+    (``train/trace_step.variant``: the variant of those flags)."""
+    from sahs_tpu_torch.train import trace_step
+    name = next(n for n, f in trace_step.VARIANTS.items() if set(f) == set(on))
+    with trace_step.variant(name):
         yield
-    finally:
-        for n, v in saved.items():
-            setattr(fused, n, v)
 
 
 @contextlib.contextmanager
@@ -4700,8 +4695,8 @@ def variant_forms(fm, dev, compute_dtype) -> tuple:
     2048): K1 and K3 in their rays= form bit for bit K15 then the
     positional form, at 64 and 128 samples a ray (any cotangents); K1's
     against its plain version; K2's pair= form (128 samples) bit for bit K2
-    then K3's rays= form on K2's gx (in bf16 the forward's outputs and g_bg:
-    the fold keeps the mma.sync backward), and against its plain version; K3's
+    then K3's rays= form on K2's gx (every output: rgb, weights, g_bg, gse,
+    each level and pair dW leaf), and against its plain version; K3's
     rays= form against its plain version on K2's gx with the addend g2 =
     the next ray's gx / 2 (a loss's cotangents, as phase 5's: random ones at every point
     make a flipped ReLU move a whole bias leaf). bf16 dW by the exact-sum
@@ -4789,15 +4784,13 @@ def variant_forms(fm, dev, compute_dtype) -> tuple:
     faults["k3_rays_without_g2"] = {"l2_rel": e_g2["l2_rel"], "cosine": e_g2["cosine"]}
     res["k3_rays"] = {"l2_rel": e3["l2_rel"], "cosine": e3["cosine"],
                       "worst_leaf": e3["worst_leaf"], "exact": e3.get("exact")}
-    # bit for bit: in float32 every output; in bf16 the forward's outputs
-    # and g_bg (launches 1 and 2), since the fold keeps the mma.sync
-    # backward tile and dW beside the pair's while K2 runs the wgmma tile
-    # and level_dw.cuh's dW (each held to its plain version here)
-    same_bwd = bf16 or (torch.equal(gse_f, gse_k) and trees_equal(g_f, g_k)
-                        and trees_equal(pg_f, pg_k))
+    # bit for bit in either dtype, every output: the form runs K2's launches
+    # (gx to a scratch) and then K3's on the rays' points
+    equal = {"rgb": torch.equal(rgb_f, rgb_k), "weights": torch.equal(w_f, w_k),
+             "g_bg": torch.equal(gbg_f, gbg_k), "gse": torch.equal(gse_f, gse_k),
+             "level_dw": trees_equal(g_f, g_k), "pair_dw": trees_equal(pg_f, pg_k)}
     res["k2_pair"] = {
-        "equal": bool(torch.equal(rgb_f, rgb_k) and torch.equal(w_f, w_k)
-                      and torch.equal(gbg_f, gbg_k) and same_bwd),
+        "equal": all(equal.values()), "equal_by_output": equal,
         "pair_l2_rel": e_pair["l2_rel"], "pair_cosine": e_pair["cosine"],
         "pair_worst_leaf": e_pair["worst_leaf"], "pair_exact": e_pair.get("exact"),
         "dw_l2_rel": e_lvl["l2_rel"], "dw_cosine": e_lvl["cosine"],

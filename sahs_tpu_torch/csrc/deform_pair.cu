@@ -26,8 +26,8 @@
 // field_mlp.stage_blob from the pair's blob. A point's output does not
 // depend on its neighbours or its place in a tile (the fused step's
 // coarse-in-fine scatter needs that). Each k16 step is summed from zero
-// and added in f32, the semantics of the mma.sync products that K3
-// recomputes from the same blob. The mma.sync kernel it replaces read
+// and added in f32, the semantics of the products that K3 recomputes
+// from the same blob. The warp-level tensor-core kernel it replaces read
 // 12.3-12.4 ms at a frame's fine chunk on an H100 (PERF.md §6); the
 // tile's readings are in PERF.md §6 (tools/level_ab.py --serve-only).
 //

@@ -32,10 +32,10 @@
 // warpgroups, the weights streamed by TMA, the warp net and then the hyper
 // net, bf16 stashes and the tiles' column sums of gz), and dW on
 // level_dw.cuh's level_dw_kernel, bias_dw_kernel and dw_reduce, as the
-// level backward's. The mma.sync kernel it replaces (pair_vjp_tc_kernel
-// and mma.cuh's stash_dw_kernel) read 4.70 ms a call at a step's fine
-// points on an H100 (PERF.md section 6); K2's pair= form still runs that
-// routine (pair_bwd.cuh's pair_bwd_tc_tile) inside its fold.
+// level backward's. The warp-level tensor-core kernel it replaces
+// (pair_vjp_tc_kernel and its dW) read 4.70 ms a call at a step's fine
+// points on an H100 (PERF.md section 6). K2's pair= form (level_train.py)
+// runs K2 and then this file's rays= call on K2's gx.
 //
 // The rays= form (field_mlp.py:1108-1130, :1181-1192; JAX's SAHS_PAIR_RAYS
 // fused step) reads the rays (o (R, 3), d (R, 3), z (R, S)) in place of the
@@ -53,7 +53,7 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(256) pair_vjp_kernel(const __grid_constant__ sahs::PairBwd a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  sahs::pair_bwd_tile<T>(a, a.g, 0, smem_raw, blockIdx.x);
+  sahs::pair_bwd_tile<T>(a, smem_raw, blockIdx.x);
 }
 
 template <typename T>
@@ -67,8 +67,9 @@ int launch(const sahs::PairBwd& a, int n_work, int chunks, int out_len,
   pair_vjp_kernel<T><<<(unsigned)n_tiles, 256, smem, stream>>>(a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return sahs::pair_dw<T>(a, (int)n_tiles, prods, work, n_work, chunks, part, out,
-                          out_len, stream);
+  return sahs::launch_dw<T>(reinterpret_cast<const T*>(a.acts), a.gzs, a.act_stride,
+                            a.gz_stride, (int)n_tiles, sahs::PAIR_TP, prods, work, n_work,
+                            chunks, part, out, out_len, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -124,7 +125,7 @@ int vjp_call(const sahs::PointSrc& src, long long P, const void* g, const void* 
              int gz_stride, int n_work, int chunks, int out_len, const void* prods,
              const void* work, void* part, void* out, const WgCall& wc, void* stream) {
   if (P <= 0) return 0;
-  if (3 + 6 * n_freq > sahs::SKIP_HMAX) return (int)cudaErrorInvalidValue;
+  if (3 + 6 * n_freq > sahs::PAIR_HMAX) return (int)cudaErrorInvalidValue;
   sahs::PairBwd a;
   a.src = src;
   a.g = (const float*)g; a.g2 = (const float*)g2; a.gx = (float*)gx;

@@ -25,7 +25,7 @@
 // past N are other slots' finite values, or zeros past the stash, and meet
 // only output rows and columns that are not written). Each k16 step is
 // summed from zero in the tensor core and added to the float32 sums with
-// round-to-nearest (mma.cuh's semantics). The grid is items x chunks with
+// round-to-nearest (wgmma.cuh's PROMOTE 1). The grid is items x chunks with
 // the items fastest, so the blocks that read one tile's slots (an
 // activation slot serves every n range of its products, a gz slot every k
 // range) run together and read it from L2: device-memory reads approach one
@@ -39,7 +39,7 @@
 // the stashes hold 1.82 GB of activations and 1.76 GB of gz, read once:
 // 1.07 ms at 3.35 TB/s; the products (0.74 M multiply-adds a point) 0.39 ms
 // at the bf16 peak. Measured on an H100 (PERF.md §6, tools/level_ab.py in
-// turns with the mma.sync dW): 1.76 ms there (7.24), its loads 6.56 GB
+// turns with the warp-level tensor-core dW it replaced): 1.76 ms there (7.24), its loads 6.56 GB
 // through L2, so at most 5.9 GB from device memory; 150 registers, no
 // spill.
 #pragma once

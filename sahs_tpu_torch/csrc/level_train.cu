@@ -96,11 +96,19 @@
 // the alpha head's one-row cotangent enters gfeat as a rank-1 term of that
 // epilogue; the skip layer's share of the PE cotangent is taken as soon as
 // gz_skip exists, and [pe(dir) | se]'s cotangent is used per point (gse,
-// the corner dCoords, K12's gextra) right after its product. K2's pair=
-// form keeps the mma.sync backward tile beside the pair's
-// (bwd_tc_fold_kernel, mma.cuh's stash_dw_kernel over a float32 gz stash).
+// the corner dCoords, K12's gextra) right after its product.
+//
+// K2's pair= form (level_train.py:58-78, :232-246, JAX's SAHS_PAIR_FOLD
+// fused step) is not a kernel of this file: the wrapper (level_train.py)
+// runs this library's K2 call, with gx written to a float32 scratch, and
+// then K3's rays= call (deform_pair_vjp.cu) on that gx. On the TPU the
+// fold kept gx in VMEM; here the level's backward tile and the pair's are
+// persistent blocks with up to 227 KB of shared memory each, rings and
+// layouts of their own, and gx at a step's fine level (262,144 x 5 x 4 B =
+// 5.2 MB) is ~1.6 us each way at 3.35 TB/s and sits in the 50 MB L2, so
+// one kernel for both would save microseconds against milliseconds of
+// products.
 #include "level_dw.cuh"
-#include "pair_bwd.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -128,7 +136,6 @@ struct Args {
   const float* lw;      // (R, 2), MODE_LOSS
   const float* g_rgb;   // (R, 16), MODE_VJP
   const float* g_w;     // (R, S), MODE_VJP
-  const float* ro;      // (R, 3) ray origins, MODE_LOSS with the pair folded in
   const void* w; const float* b; const int* meta;      // forward layers
   const void* wT; const float* bT; const int* metaT;   // transposed layers
   float* rgb_map;       // (R, 16)
@@ -175,45 +182,6 @@ __device__ __forceinline__ float cell_fracs(const float* x, const Args& a,
     ok = ok && (i0 >= -1.0f) && (i0 <= (float)(dims[ax] - 1));
   }
   return ok ? 1.0f : 0.0f;
-}
-
-// K2's pair= form (level_train.py:232-246, JAX's SAHS_PAIR_FOLD). The
-// pair's tile (pair_bwd.cuh) takes the level tile's points: the same tile
-// size in either type (TP = PAIR_TP in float32, TC_TP in bf16).
-static_assert(TP == sahs::PAIR_TP, "the fold runs the pair on the level's tile");
-
-// Where the fold keeps the tile's gx: past the pair tile's own shared
-// memory, which the pair's backward overwrites from byte 0.
-template <typename T>
-__host__ __device__ __forceinline__ int fold_g_offset(int n_freq) {
-  if constexpr (sizeof(T) == 2)
-    return sahs::pair_bwd_tc_layout(n_freq).bytes;
-  else
-    return (int)sahs::pair_bwd_smem<T>(n_freq, false);
-}
-
-// The fold's last step of the level's backward tile: the tile's gx (each
-// point's f32 cotangent of [x + warp(x) | ambient], as K2 would write it,
-// zero past the last point), held in gxo by the tile's first TPT threads,
-// goes to shared memory once every level buffer is read; then the pair's
-// backward runs on the same points, rebuilt from the rays (o, d, z) as K15
-// builds them, with that tile as its cotangent (rows from the tile's first
-// point). gx is never written to device memory, and in bf16 it reaches the
-// pair's head epilogue in f32, as the JAX kernel's VMEM value does.
-template <typename T, int TPT>
-__device__ __forceinline__ void fold_pair(const Args& a, const sahs::PairBwd& pb,
-                                          unsigned char* smem_raw, const float (&gxo)[8]) {
-  __syncthreads();
-  float* G = reinterpret_cast<float*>(smem_raw + fold_g_offset<T>(pb.n_freq));
-  const int tid = threadIdx.x;
-  if (tid < TPT)
-    for (int c = 0; c < a.PW; ++c) G[tid * a.PW + c] = gxo[c];
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * TPT;
-  if constexpr (sizeof(T) == 2)
-    sahs::pair_bwd_tc_tile(pb, G, base, smem_raw, blockIdx.x);
-  else
-    sahs::pair_bwd_tile<T>(pb, G, base, smem_raw, blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -562,12 +530,9 @@ __global__ void __launch_bounds__(CTHREADS) composite_fwd_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // 3. backward per tile
 // ---------------------------------------------------------------------------
-// With FOLD (K2's pair= form) the level's gx stays in the block and the
-// pair's backward runs on the same points (fold_pair, below); pb is then
-// the pair's, else null.
-template <typename T, bool FOLD>
-__device__ __forceinline__ void bwd_tile(const Args& a, const sahs::PairBwd* pb,
-                                         unsigned char* smem_raw) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kx = kx_of(a), ndp = ndp_of(a), C = a.C, L = a.L, H = a.H, B = a.B;
   // gz buffers: gA the trunk's (and the rgb head's), gB the branches'
   T* gA = reinterpret_cast<T*>(smem_raw);
@@ -664,12 +629,10 @@ __device__ __forceinline__ void bwd_tile(const Args& a, const sahs::PairBwd* pb,
                      nullptr, gxpe, TP);
   __syncthreads();
 
-  // per point: PE backward, corner dCoords (or K12's gextra), outputs; gx
-  // to a.gx, or with FOLD kept in gxo for the pair
+  // per point: PE backward, corner dCoords (or K12's gextra), outputs
   float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   auto put_gx = [&](long long p) {
-    if constexpr (!FOLD)
-      for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
+    for (int c = 0; c < a.PW; ++c) a.gx[p * a.PW + c] = gxo[c];
   };
   if (tid < TP) {
     const long long p = base + tid;
@@ -725,21 +688,6 @@ __device__ __forceinline__ void bwd_tile(const Args& a, const sahs::PairBwd* pb,
       }
     }
   }
-  if constexpr (FOLD) fold_pair<T, TP>(a, *pb, smem_raw, gxo);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) bwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tile<T, false>(a, nullptr, smem_raw);
-}
-
-// K2's pair= form in float32: the level's backward, then the pair's
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-bwd_fold_kernel(Args a, const __grid_constant__ sahs::PairBwd pb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tile<T, true>(a, &pb, smem_raw);
 }
 
 template <typename T>
@@ -755,34 +703,18 @@ size_t bwd_smem(const Args& a, int ndp) {
          (size_t)(a.H + pad8(ndp + a.C)) * TP * sizeof(float) + 64;
 }
 
-// The pair of K2's pair= form: its tile's arguments (the points are the
-// rays', the cotangent the tile's gx) and its split-K dW.
-struct PairCall {
-  sahs::PairBwd pb;
-  const int* prods;
-  const int* work;
-  int n_work, chunks, out_len;
-  float* part;
-  float* out;
-};
-
 template <typename T>
 int launch(const Args& a, int n_work, int chunks, int out_len,
            const int* prods, const int* work, float* part, float* out,
-           const PairCall* pc, cudaStream_t stream) {
+           cudaStream_t stream) {
   const int kx = a.kx, ndp = a.ndp;
   const long long n_tiles = (a.P + TP - 1) / TP;
   if (pad8(kx) > a.H || a.B > a.H || a.B < 16) return (int)cudaErrorInvalidValue;
   const size_t sf = fwd_smem<T>(a, kx, ndp);
-  size_t sb = bwd_smem<T>(a, ndp);
-  if (pc != nullptr) {   // the pair's tile and the gx tile past it
-    const size_t sp = (size_t)fold_g_offset<T>(pc->pb.n_freq) + TP * a.PW * sizeof(float);
-    if (sp > sb) sb = sp;
-  }
+  const size_t sb = bwd_smem<T>(a, ndp);
   const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
   int err = sahs::set_smem(fwd_kernel<T>, sf);
-  if (!err) err = pc != nullptr ? sahs::set_smem(bwd_fold_kernel<T>, sb)
-                                : sahs::set_smem(bwd_kernel<T>, sb);
+  if (!err) err = sahs::set_smem(bwd_kernel<T>, sb);
   if (!err) err = sahs::set_smem(composite_kernel, sc);
   if (err) return err;
   fwd_kernel<T><<<(unsigned)n_tiles, THREADS, sf, stream>>>(a);
@@ -791,51 +723,24 @@ int launch(const Args& a, int n_work, int chunks, int out_len,
     composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  if (pc != nullptr)
-    bwd_fold_kernel<T><<<(unsigned)n_tiles, THREADS, sb, stream>>>(a, pc->pb);
-  else
-    bwd_kernel<T><<<(unsigned)n_tiles, THREADS, sb, stream>>>(a);
+  bwd_kernel<T><<<(unsigned)n_tiles, THREADS, sb, stream>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  err = sahs::launch_dw<T>(reinterpret_cast<const T*>(a.acts), a.gzs,
-                           a.act_stride, a.gz_stride, (int)n_tiles, TP,
-                           prods, work, n_work, chunks, part, out, out_len,
-                           stream);
-  if (err || pc == nullptr) return err;
-  return sahs::pair_dw<T>(pc->pb, (int)n_tiles, pc->prods, pc->work, pc->n_work,
-                          pc->chunks, pc->part, pc->out, pc->out_len, stream);
+  return sahs::launch_dw<T>(reinterpret_cast<const T*>(a.acts), a.gzs,
+                            a.act_stride, a.gz_stride, (int)n_tiles, TP,
+                            prods, work, n_work, chunks, part, out, out_len,
+                            stream);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: the same launches on the tensor cores, 64-point tiles: the forward
-// and backward tiles on wgmma (wgmma.cuh), the dW on wgmma (level_dw.cuh);
-// K2's pair= form's backward tile and dW on mma.sync (mma.cuh)
+// and backward tiles on wgmma (wgmma.cuh), the dW on wgmma (level_dw.cuh)
 // ---------------------------------------------------------------------------
-using sahs::bf16;
-using sahs::TC_LD;
-using sahs::TC_LDF;
-using sahs::TC_TP;
+using bf16 = __nv_bfloat16;
+constexpr int TC_TP = 64;            // points a tile (a warpgroup's product rows, a stash block)
+constexpr int TC_LDF = TC_TP + 4;    // row stride of a float32 tile in shared memory
+static_assert(TC_TP == wg::ROWS, "a tile is one warpgroup product's rows");
 
 __host__ __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : y; }
-
-// Shared-memory layout of K2's pair= form's mma.sync tile
-// (bwd_tc_fold_kernel), in bytes (every offset a multiple of 16): T0, T1
-// [max(H, 2B)] (gz ping-pong; the branches' P, Q in T0, gs0 and gz_d0 in
-// T1), F [max(pad8(kx), pad8(ndp + C))] in f32 (the [pe(dir) | se]
-// cotangent, then the PE's) and the ring.
-struct TcLayout {
-  int kx, ndp, t0, t1, f, bring, bwd;
-  __host__ __device__ explicit TcLayout(const Args& a) {
-    kx = a.kx;
-    ndp = a.ndp;
-    const int row = TC_LD * 2, rowf = TC_LDF * 4, rh = imax(a.H, 2 * a.B);
-    const int nf = imax(pad8(kx), pad8(ndp + a.C));
-    t0 = 0;
-    t1 = t0 + rh * row;
-    f = t1 + rh * row;
-    bring = f + nf * rowf;
-    bwd = bring + sahs::ring_bytes(imax(imax(a.H, a.B), nf));
-  }
-};
 
 // ---------------------------------------------------------------------------
 // 1. forward per 64-point tile in bf16, on wgmma: field_tc_kernel (K5's raw
@@ -1366,7 +1271,7 @@ __device__ __forceinline__ void tile(const Args& a, unsigned char* smem) {
 // suite's gates fail 17 times carried, 4 times every 4 steps and 3 times
 // every 2 (cases without a background: K5's rgb 4.6x and 6.9x, K2's gse
 // 10.8x the plain version's distance from exact sums), so the kernels run
-// every step, mma.cuh's semantics.
+// every step apart (wgmma.cuh's PROMOTE 1).
 // The candidates stay instantiated for field_tc_kernel (sahs_nerf_field_tc's
 // `promote`) so that the smoke run and tools/field_forms print them.
 constexpr int FIELD_PROMOTE = 1;
@@ -1393,7 +1298,8 @@ __global__ void __launch_bounds__(fw::THREADS, 1) fwd_tc_kernel(const __grid_con
 // carried candidate <0> 168, 4 B spilled), 227,632 B of dynamic shared
 // memory at the flagship's
 // widths (a 4-stage ring). Measured on an H100 (PERF.md §6,
-// tools/level_ab.py in turns with the mma.sync tile): K5 at a frame's fine
+// tools/level_ab.py in turns with the warp-level tensor-core tile it
+// replaced): K5 at a frame's fine
 // chunk 24.4 ms (70.3), K7 at a step's fine level 1.64 (4.65), K11 at the
 // per-point frame's chunk 34.6 (103.8), ~250-270 TFLOP/s, 25-27 % of the
 // bound; launch 1 of K2 2.36 ms at a step's fine level (6.13). What holds
@@ -1450,7 +1356,8 @@ __global__ void __launch_bounds__(fw::THREADS, 1) field_tc_kernel(const __grid_c
 // H100: operations, ~0.74 M multiply-adds a point (K2's launch 3 at a
 // step's fine level 0.39 ms at the 989 TFLOP/s bf16 peak); the gz stash it
 // writes (1.76 GB there) ~0.53 ms at 3.35 TB/s. Measured on an H100
-// (PERF.md §6, tools/level_ab.py in turns with the mma.sync tile): K2's
+// (PERF.md §6, tools/level_ab.py in turns with the warp-level tensor-core
+// tile it replaced): K2's
 // launch 3 at a step's fine level 4.34 ms (6.47), 9 % of the bound; ptxas
 // 168 registers (the cap of a 288-thread block), 340 bytes spilled.
 namespace bw {
@@ -1468,7 +1375,7 @@ constexpr int WG = 2;                                // consumer warpgroups
 constexpr int THREADS = WG * wg::THREADS + 32;       // and the producer warp
 constexpr int RING_MAX = 8;
 constexpr int SMEM_MAX = 232448;                     // a block's dynamic shared memory
-constexpr int PROMOTE = 1;                           // every k16 step (mma.cuh's semantics)
+constexpr int PROMOTE = 1;                           // every k16 step apart, as fw::
 constexpr uint32_t YBYTES = NC * 128;                // a y stage: 128 columns x 64 points
 // a product's regions: R0, R1, R2 of the warpgroup; RH the hidden gz
 // (columns 0-127 in R0 or R1, in turns, 128 on in R2)
@@ -1567,8 +1474,8 @@ struct Layout {
 
 // The epilogue of a gz product: v = d (+ round_bf16(rx[point]) rw[n], the
 // rank-1 term) (* leaky'(y), y the stashed output in the y stage Y: column
-// n's 64 points a 128-byte row, swizzled), zero from n_real on, as mma.cuh's
-// DactStore, value for value: gz packed two columns a word into h, and the
+// n's 64 points a 128-byte row, swizzled), zero from n_real on, as the
+// float32 tile's dact_step (train.cuh) forms it: gz packed two columns a word into h, and the
 // float32 gz's sums over this thread's two points of each column into s
 // (s[2 j + c], column 8 j + 2 (l % 4) + c).
 template <int N, bool LEAKY, bool RANK1>
@@ -1940,172 +1847,6 @@ bwd_tc_kernel(const __grid_constant__ Args a, const __grid_constant__ CUtensorMa
   bw::tile(a, &ymap, bw_smem);
 }
 
-// K2's pair= form in bf16 (bwd_tc_fold_kernel): launch 3 as the mma.sync
-// tile of mma.cuh (each transposed product's epilogue applies the
-// activation's derivative from the stashed output, read from device
-// memory, and writes gz to its stash slot in f32 and to shared memory in
-// bf16 for the next product), then the pair's backward on the same points
-// (fold_pair); its dW and the pair's on mma.cuh's stash_dw_kernel. The
-// pair's tile (pair_bwd.cuh) is on mma.sync too, so the fold keeps the
-// level's mma.sync tile beside it.
-__device__ __forceinline__ void bwd_tc_fold_tile(const Args& a, const sahs::PairBwd& pb,
-                                                 unsigned char* smem_raw) {
-  const TcLayout ly(a);
-  const int ndp = ly.ndp, C = a.C, L = a.L, B = a.B;
-  bf16* T0 = reinterpret_cast<bf16*>(smem_raw + ly.t0);
-  bf16* T1 = reinterpret_cast<bf16*>(smem_raw + ly.t1);
-  float* F = reinterpret_cast<float*>(smem_raw + ly.f);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.bring);
-  bf16* gP = T0;
-  bf16* gQ = T0 + B * TC_LD;
-  bf16* gs0 = T1;
-  bf16* gd0 = T1 + B * TC_LD;     // the rgb head's gz first, then gz_d0
-  const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
-  const bf16* table = reinterpret_cast<const bf16*>(a.table);
-  const long long tile = blockIdx.x, base = tile * TC_TP;
-  const bf16* acts = reinterpret_cast<const bf16*>(a.acts) + tile * a.act_stride;
-  float* gzs = a.gzs + tile * a.gz_stride;
-  const int* act_off = a.slots;
-  const int* gz_off = a.slots + a.n_act;
-  const int tid = threadIdx.x;
-  const sahs::Operand none = {nullptr, 0, nullptr};
-  auto bdesc = [&](int i) { return sahs::load_desc(a.metaT, i); };
-  // ga = X W_i (transposed layer i), then gz = ga * leaky'(y), y the
-  // activation in stash slot `y_slot`, to gz slot `gz_slot` and to G
-  auto back = [&](int i, const bf16* X, int y_slot, int gz_slot, bf16* G) {
-    const sahs::LayerDesc d = bdesc(i);
-    sahs::tc_product(sahs::Operand{wT + d.w1, d.k1, X}, none, d.n, ring,
-                     sahs::DactStore{acts + act_off[y_slot], sahs::ACT_LEAKY,
-                                     gzs + gz_off[gz_slot], G, nullptr, nullptr});
-    __syncthreads();
-  };
-
-  // head cotangents: rgb (16 rows in shared memory for K padding, 8 in the
-  // stash), seg (16), alpha (8, stash only: it enters gfeat as a rank-1
-  // term), each zero past its real width
-  for (int i = tid; i < 40 * TC_TP; i += blockDim.x) {
-    const int j = i / TC_TP, t = i % TC_TP;
-    const long long p = base + t;
-    int c, slot, row, n_stash;
-    bf16* dst;
-    if (j < 16) { row = j; c = j < 3 ? j : -1; slot = L + 6; n_stash = 8; dst = gd0; }
-    else if (j < 32) { row = j - 16; c = row < 12 ? 3 + row : -1; slot = L + 11; n_stash = 16; dst = gP; }
-    else { row = j - 32; c = row == 0 ? 15 : -1; slot = L + 1; n_stash = 8; dst = nullptr; }
-    const float g = (c >= 0 && p < a.P) ? a.graw[p * 16 + c] : 0.0f;
-    if (row < n_stash) gzs[gz_off[slot] + row * TC_TP + t] = g;
-    if (dst != nullptr) dst[row * TC_LD + t] = __float2bfloat16_rn(g);
-  }
-  __syncthreads();
-  // seg branch: segout^T, seg3..1 (gz_s3 .. gz_s0), P <-> Q, ending in gs0
-  const bf16* cur = gP;
-  for (int k = 3; k >= 0; --k) {
-    bf16* dst = k == 0 ? gs0 : (k & 1) ? gQ : gP;
-    back(8 - k, cur, L + 7 + k, L + 7 + k, dst);
-    cur = dst;
-  }
-  // direction branch: rgb^T, dir3..1 (gz_d3 .. gz_d0), ending in gd0
-  cur = gd0;
-  for (int k = 3; k >= 0; --k) {
-    bf16* dst = k == 0 ? gd0 : (k & 1) ? gP : gQ;
-    back(3 - k, cur, L + 3 + k, L + 2 + k, dst);
-    cur = dst;
-  }
-  // dir0's [pe(dir) | se] block: its cotangent, used at once per point
-  {
-    const sahs::LayerDesc d = bdesc(4);
-    sahs::tc_product(sahs::Operand{wT + d.w1, d.k1, gd0}, none, d.n, ring,
-                     sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, false});
-    __syncthreads();
-  }
-  float gco[3] = {0.0f, 0.0f, 0.0f};   // the corner dCoords, added at the end
-  if (tid < TC_TP) {
-    const long long p = base + tid;
-    if (p < a.P && a.se != nullptr) {
-      // a per-point spatial embedding: gse per point, no dCoords
-      for (int c = 0; c < C; ++c) a.gse[p * C + c] = F[(ndp + c) * TC_LDF + tid];
-    } else if (p < a.P && C > 0) {
-      float x[3];
-      for (int c = 0; c < 3; ++c) x[c] = a.pts[p * a.PW + c];
-      float fr[3];
-      const float okf = cell_fracs(x, a, fr);
-      const bf16* crow = table + (size_t)a.rows[p] * 8 * C;
-      const float* gs = F + ndp * TC_LDF + tid;
-      float dfx = 0.0f, dfy = 0.0f, dfz = 0.0f;
-      for (int s = 0; s < 8; ++s) {
-        const int dz = (s >> 2) & 1, dy = (s >> 1) & 1, dx = s & 1;
-        float gv = 0.0f;
-        for (int c = 0; c < C; ++c) gv += gs[c * TC_LDF] * __bfloat162float(crow[s * C + c]);
-        const float wz = dz ? fr[2] : 1.0f - fr[2];
-        const float wy = dy ? fr[1] : 1.0f - fr[1];
-        const float wx = dx ? fr[0] : 1.0f - fr[0];
-        dfx += (dx ? 1.0f : -1.0f) * wz * wy * gv;
-        dfy += (dy ? 1.0f : -1.0f) * wz * wx * gv;
-        dfz += (dz ? 1.0f : -1.0f) * wy * wx * gv;
-      }
-      gco[0] = dfx * okf * (0.5f * (a.gW - 1));
-      gco[1] = dfy * okf * (0.5f * (a.gH - 1));
-      gco[2] = dfz * okf * (0.5f * (a.gD - 1));
-      for (int c = 0; c < C; ++c) a.gse[p * C + c] = gs[c * TC_LDF];
-    }
-  }
-  __syncthreads();
-  // gfeat = gz_s0 Ws0^T + gz_d0 Wd0f^T + gz_alpha Wa^T, feat linear: the
-  // alpha head's one row is the rank-1 term of the epilogue
-  {
-    const sahs::LayerDesc d = bdesc(9);
-    const int kd = d.k2 - 1;
-    sahs::tc_product(sahs::Operand{wT + d.w1, d.k1, gs0},
-                     sahs::Operand{wT + d.w2, kd, gd0}, d.n, ring,
-                     sahs::DactStore{nullptr, sahs::ACT_LINEAR, gzs + gz_off[L], T0,
-                                     gzs + gz_off[L + 1], wT + d.w2 + (size_t)kd * d.n});
-    __syncthreads();
-  }
-  back(10, T0, L, L - 1, T1);
-  // trunk: the skip layer's input rows take their PE cotangent as soon as
-  // gz_skip exists; the ping-pong buffers hold two layers at a time
-  const sahs::LayerDesc dpe = bdesc(10 + L);
-  bool skip_done = false;
-  cur = T1;
-  for (int l = L - 1; l >= 1; --l) {
-    if (l == a.skip && dpe.w2 >= 0) {
-      sahs::tc_product(sahs::Operand{wT + dpe.w2, dpe.k2, cur}, none, dpe.n, ring,
-                       sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, false});
-      skip_done = true;
-    }
-    bf16* dst = cur == T1 ? T0 : T1;
-    back(11 + (L - 1 - l), cur, l, l - 1, dst);
-    cur = dst;
-  }
-  // d(pe) += gz_0 W0^T
-  sahs::tc_product(sahs::Operand{wT + dpe.w1, dpe.k1, cur}, none, dpe.n, ring,
-                   sahs::StoreF32{F, nullptr, sahs::ACT_LINEAR, skip_done});
-  __syncthreads();
-
-  // per point: PE backward, plus the corner dCoords; gx kept in gfold for
-  // the pair (zero past the last point)
-  float gfold[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (tid < TC_TP) {
-    const long long p = base + tid;
-    if (p < a.P) {
-      float x[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      for (int c = 0; c < a.PW; ++c) x[c] = a.pts[p * a.PW + c];
-      float gxo[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      sahs::pe_group_bwd(x, 3, a.nf_xyz, F, 0, tid, TC_LDF, gxo);
-      sahs::pe_group_bwd(x + 3, a.amb, a.nf_amb, F, 3 + 6 * a.nf_xyz, tid, TC_LDF, gxo + 3);
-      for (int c = 0; c < 3; ++c) gfold[c] = gxo[c] + gco[c];
-      for (int c = 3; c < 8; ++c) gfold[c] = gxo[c];
-    }
-  }
-  fold_pair<bf16, TC_TP>(a, pb, smem_raw, gfold);
-}
-
-// (the pair's arguments read in place: __grid_constant__, no local copy)
-__global__ void __launch_bounds__(sahs::TC_THREADS, 2)
-bwd_tc_fold_kernel(Args a, const __grid_constant__ sahs::PairBwd pb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_tc_fold_tile(a, pb, smem_raw);
-}
-
 // The forward tile's launch (fw::tile): persistent blocks, one an SM, two
 // 64-point tiles a block at a time. Refuses widths the tile does not take
 // and a weight blob that is not the tile's stages.
@@ -2152,49 +1893,24 @@ int launch_bwd(const Args& a, cudaStream_t stream) {
 
 // bf16: launch 1 (fwd_tc_kernel), 2 (the compositing, ray modes), 3
 // (bwd_tc_kernel) and the dW of level_dw.cuh over `chunks` chunks of tiles
-// (`items`, n_items rows of its work list); with pc, K2's pair= form:
-// launch 3 as bwd_tc_fold_kernel and the level's and the pair's dW on
-// stash_dw_kernel (the plan's `work`, the float32 gz stash).
-int launch_tc(const Args& a, int n_work, int chunks, int out_len,
-              const int* prods, const int* work, float* part, float* out,
-              const PairCall* pc, const int* items, int n_items, cudaStream_t stream) {
+// (`items`, n_items rows of its work list).
+int launch_tc(const Args& a, int chunks, int out_len, const int* prods, float* part,
+              float* out, const int* items, int n_items, cudaStream_t stream) {
   const long long n_tiles = (a.P + TC_TP - 1) / TC_TP;
   const size_t sc = (size_t)a.S * COMPOSITE_FLOATS * sizeof(float);
-  int sb = 0;
+  if (!bwd_ok(a) || items == nullptr || n_items <= 0) return (int)cudaErrorInvalidValue;
   int err = sahs::set_smem(composite_kernel, sc);
-  if (pc != nullptr) {
-    const TcLayout ly(a);
-    const int nmax = imax(imax(a.H, a.B), imax(pad8(ly.kx), pad8(ly.ndp + a.C)));
-    if (a.H % 16 || a.B % 16 || a.B < 16 || nmax > sahs::TC_NMAX)
-      return (int)cudaErrorInvalidValue;
-    // the pair's tile (54,784 B at the flagship's widths) and the gx tile
-    // past it fit in the level's (114,560 B), two blocks an SM
-    sb = imax(ly.bwd, fold_g_offset<bf16>(pc->pb.n_freq) + TC_TP * a.PW * 4);
-    if (!err) err = sahs::set_smem(bwd_tc_fold_kernel, sb);
-  } else if (!bwd_ok(a) || items == nullptr || n_items <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
   if (!err) err = launch_fwd(fwd_tc_kernel, a, stream);
   if (err) return err;
   if (a.mode == MODE_LOSS || a.mode == MODE_VJP) {
     composite_kernel<<<(unsigned)a.R, CTHREADS, sc, stream>>>(a);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  if (pc == nullptr) {
-    if ((err = launch_bwd(a, stream))) return err;
-    return ldw::launch_level_dw(reinterpret_cast<const bf16*>(a.acts),
-                                reinterpret_cast<const bf16*>(a.gzs), a.bsum, a.act_stride,
-                                a.gz_stride, (int)n_tiles, prods, items, n_items, chunks, part,
-                                out, out_len, (int)(a.gz_stride / TC_TP), stream);
-  }
-  bwd_tc_fold_kernel<<<(unsigned)n_tiles, sahs::TC_THREADS, sb, stream>>>(a, pc->pb);
-  if ((err = (int)cudaGetLastError())) return err;
-  err = sahs::launch_stash_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs, a.act_stride,
-                              a.gz_stride, (int)n_tiles, prods, work, n_work, chunks, part,
-                              out, out_len, stream);
-  if (err) return err;
-  return sahs::pair_dw<bf16>(pc->pb, (int)n_tiles, pc->prods, pc->work, pc->n_work,
-                             pc->chunks, pc->part, pc->out, pc->out_len, stream);
+  if ((err = launch_bwd(a, stream))) return err;
+  return ldw::launch_level_dw(reinterpret_cast<const bf16*>(a.acts),
+                              reinterpret_cast<const bf16*>(a.gzs), a.bsum, a.act_stride,
+                              a.gz_stride, (int)n_tiles, prods, items, n_items, chunks, part,
+                              out, out_len, (int)(a.gz_stride / TC_TP), stream);
 }
 
 // K7 / K11 in bf16: one launch of the forward tile without the stash, in
@@ -2262,74 +1978,6 @@ bool field_args(Args* a, const void* pts, const void* rows, const void* table,
   a->nf_dir = nf_dir; a->gD = gD; a->gH = gH; a->gW = gW;
   set_widths(*a);
   return true;
-}
-
-// One call of the level kernel set, with the pair folded in when pc is
-// given (MODE_LOSS only).
-int level_train_call(
-    const void* pts, const void* rows, const void* table, const void* dirs,
-    const void* z, const void* bg, const void* noise, const void* tgt,
-    const void* lw, const void* g_rgb, const void* g_w, const void* extra,
-    void* gextra, const void* se, int enc, int mode, const void* w, const void* b, const void* meta,
-    const void* wT, const void* bT, const void* metaT, void* rgb_map,
-    void* weights, void* gx, void* gse, void* g_bg, void* raw, void* graw,
-    void* acts, void* gzs, const void* slots, long long R, int S, int PW,
-    int L, int skip, int H, int B, int C, int amb, int nf_xyz, int nf_amb,
-    int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
-    int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
-    const void* prods, const void* work, void* part, void* out, PairCall* pc,
-    const void* wg, long long wg_bytes, const void* wgb, long long wgb_bytes, void* bsum,
-    const void* items, int n_items, void* stream) {
-  if (R <= 0) return 0;
-  if (mode < MODE_LOSS || mode > MODE_PTS) return (int)cudaErrorInvalidValue;
-  if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
-      (mode == MODE_VJP && (g_rgb == nullptr || g_w == nullptr || raw == nullptr)) ||
-      (mode == MODE_RAW && graw == nullptr) ||
-      (mode == MODE_PTS && (graw == nullptr || extra == nullptr ||
-                            gextra == nullptr || S != 1 || se != nullptr)) ||
-      enc < 0 || enc > (ENC_PTS | ENC_EXTRA) || (enc != 0 && mode != MODE_PTS) ||
-      (!(enc & ENC_PTS) && (PW < 3 || PW > 8)) ||
-      (mode != MODE_PTS &&
-       (dirs == nullptr ||
-        (C > 0 && (gse == nullptr ||
-                   (se == nullptr && (rows == nullptr || table == nullptr)))))) ||
-      (pc != nullptr && (mode != MODE_LOSS || PW != 3 + pc->pb.ho ||
-                         pc->pb.src.ro == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
-  a.dirs = (const float*)dirs; a.z = (const float*)z;
-  a.extra = (const float*)extra; a.gextra = (float*)gextra;
-  a.se = (const float*)se; a.enc = enc;
-  a.bg = (const float*)bg; a.noise = (const float*)noise;
-  a.tgt = (const float*)tgt; a.lw = (const float*)lw;
-  a.g_rgb = (const float*)g_rgb; a.g_w = (const float*)g_w; a.mode = mode;
-  a.ro = pc != nullptr ? pc->pb.src.ro : nullptr;
-  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
-  a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
-  a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
-  a.gx = (float*)gx; a.gse = (float*)gse; a.g_bg = (float*)g_bg;
-  a.raw = (float*)raw; a.graw = (float*)graw;
-  a.acts = acts; a.gzs = (float*)gzs; a.slots = (const int*)slots;
-  a.R = R; a.P = R * S; a.act_stride = act_stride; a.gz_stride = gz_stride;
-  a.S = S; a.PW = PW; a.L = L; a.skip = skip; a.H = H; a.B = B; a.C = C;
-  a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb; a.nf_dir = nf_dir;
-  a.gD = gD; a.gH = gH; a.gW = gW; a.n_act = n_act; a.bg_sup = bg_sup;
-  a.wg = wg; a.wg_bytes = wg_bytes;
-  a.wgb = wgb; a.wgb_bytes = wgb_bytes; a.bsum = (float*)bsum;
-  set_widths(a);
-  if (pc != nullptr) {   // the pair's points: the level's rays (o, d, z)
-    pc->pb.src = sahs::PointSrc{nullptr, a.ro, a.dirs, a.z, S};
-    pc->pb.P = a.P;
-  }
-  auto s = reinterpret_cast<cudaStream_t>(stream);
-  auto pr = (const int*)prods;
-  auto wk = (const int*)work;
-  if (bf16)
-    return launch_tc(a, n_work, chunks, out_len, pr, wk, (float*)part,
-                     (float*)out, pc, (const int*)items, n_items, s);
-  return launch<float>(a, n_work, chunks, out_len, pr, wk, (float*)part,
-                       (float*)out, pc, s);
 }
 
 }  // namespace
@@ -2405,58 +2053,46 @@ extern "C" int sahs_level_train(
     const void* prods, const void* work, void* part, void* out, const void* wg,
     long long wg_bytes, const void* wgb, long long wgb_bytes, void* bsum, const void* items,
     int n_items, void* stream) {
-  return level_train_call(pts, rows, table, dirs, z, bg, noise, tgt, lw, g_rgb, g_w,
-                          extra, gextra, se, enc, mode, w, b, meta, wT, bT, metaT,
-                          rgb_map, weights, gx, gse, g_bg, raw, graw, acts, gzs, slots,
-                          R, S, PW, L, skip, H, B, C, amb, nf_xyz, nf_amb, nf_dir, gD,
-                          gH, gW, bf16, n_act, act_stride, gz_stride, n_work, chunks,
-                          out_len, bg_sup, prods, work, part, out, nullptr, wg, wg_bytes,
-                          wgb, wgb_bytes, bsum, items, n_items, stream);
-}
-
-// K2's pair= form (MODE_LOSS): K2's arguments without gx, then the ray
-// origins ro (R, 3) and the pair's K3 plan (deform_pair.pair_train_plan,
-// need_gx off: the forward and transposed blobs, slots and stashes, and its
-// split-K dW into pout). The pair's points are the level's rays, o + d z
-// with d = dirs.
-extern "C" int sahs_level_train_pair(
-    const void* pts, const void* rows, const void* table, const void* dirs,
-    const void* z, const void* bg, const void* noise, const void* tgt,
-    const void* lw, const void* se, const void* w, const void* b, const void* meta,
-    const void* wT, const void* bT, const void* metaT, void* rgb_map,
-    void* weights, void* gse, void* g_bg, void* raw, void* graw,
-    void* acts, void* gzs, const void* slots, long long R, int S, int PW,
-    int L, int skip, int H, int B, int C, int amb, int nf_xyz, int nf_amb,
-    int nf_dir, int gD, int gH, int gW, int bf16, int n_act, int act_stride,
-    int gz_stride, int n_work, int chunks, int out_len, float bg_sup,
-    const void* prods, const void* work, void* part, void* out,
-    const void* ro, const void* pw, const void* pb, const void* pmeta,
-    const void* pwT, const void* pbT, const void* pmetaT, int n_warp, int n_hyper,
-    int warp_skip, int hyper_skip, int n_freq, int ho, const void* pslots,
-    void* pacts, void* pgzs, int p_n_act, int p_act_stride, int p_gz_stride,
-    int p_n_work, int p_chunks, int p_out_len, const void* pprods,
-    const void* pwork, void* ppart, void* pout, const void* wg, long long wg_bytes,
-    void* stream) {
-  if (ro == nullptr || 3 + 6 * n_freq > sahs::SKIP_HMAX)
+  if (R <= 0) return 0;
+  if (mode < MODE_LOSS || mode > MODE_PTS) return (int)cudaErrorInvalidValue;
+  if ((mode == MODE_LOSS && (tgt == nullptr || lw == nullptr || raw == nullptr)) ||
+      (mode == MODE_VJP && (g_rgb == nullptr || g_w == nullptr || raw == nullptr)) ||
+      (mode == MODE_RAW && graw == nullptr) ||
+      (mode == MODE_PTS && (graw == nullptr || extra == nullptr ||
+                            gextra == nullptr || S != 1 || se != nullptr)) ||
+      enc < 0 || enc > (ENC_PTS | ENC_EXTRA) || (enc != 0 && mode != MODE_PTS) ||
+      (!(enc & ENC_PTS) && (PW < 3 || PW > 8)) ||
+      (mode != MODE_PTS &&
+       (dirs == nullptr ||
+        (C > 0 && (gse == nullptr ||
+                   (se == nullptr && (rows == nullptr || table == nullptr)))))))
     return (int)cudaErrorInvalidValue;
-  PairCall pc;
-  sahs::PairBwd& q = pc.pb;
-  q.src = sahs::PointSrc{nullptr, (const float*)ro, nullptr, nullptr, S};
-  q.g = nullptr; q.g2 = nullptr; q.gx = nullptr;
-  q.w = pw; q.b = (const float*)pb; q.meta = (const int*)pmeta;
-  q.wT = pwT; q.bT = (const float*)pbT; q.metaT = (const int*)pmetaT;
-  q.slots = (const int*)pslots; q.acts = pacts; q.gzs = (float*)pgzs;
-  q.P = 0; q.act_stride = p_act_stride; q.gz_stride = p_gz_stride;
-  q.n_warp = n_warp; q.n_hyper = n_hyper; q.warp_skip = warp_skip;
-  q.hyper_skip = hyper_skip; q.n_freq = n_freq; q.ho = ho; q.n_act = p_n_act;
-  pc.prods = (const int*)pprods; pc.work = (const int*)pwork;
-  pc.n_work = p_n_work; pc.chunks = p_chunks; pc.out_len = p_out_len;
-  pc.part = (float*)ppart; pc.out = (float*)pout;
-  return level_train_call(pts, rows, table, dirs, z, bg, noise, tgt, lw, nullptr,
-                          nullptr, nullptr, nullptr, se, 0, MODE_LOSS, w, b, meta, wT,
-                          bT, metaT, rgb_map, weights, nullptr, gse, g_bg, raw, graw,
-                          acts, gzs, slots, R, S, PW, L, skip, H, B, C, amb, nf_xyz,
-                          nf_amb, nf_dir, gD, gH, gW, bf16, n_act, act_stride,
-                          gz_stride, n_work, chunks, out_len, bg_sup, prods, work, part,
-                          out, &pc, wg, wg_bytes, nullptr, 0, nullptr, nullptr, 0, stream);
+  Args a;
+  a.pts = (const float*)pts; a.rows = (const int*)rows; a.table = table;
+  a.dirs = (const float*)dirs; a.z = (const float*)z;
+  a.extra = (const float*)extra; a.gextra = (float*)gextra;
+  a.se = (const float*)se; a.enc = enc;
+  a.bg = (const float*)bg; a.noise = (const float*)noise;
+  a.tgt = (const float*)tgt; a.lw = (const float*)lw;
+  a.g_rgb = (const float*)g_rgb; a.g_w = (const float*)g_w; a.mode = mode;
+  a.w = w; a.b = (const float*)b; a.meta = (const int*)meta;
+  a.wT = wT; a.bT = (const float*)bT; a.metaT = (const int*)metaT;
+  a.rgb_map = (float*)rgb_map; a.weights = (float*)weights;
+  a.gx = (float*)gx; a.gse = (float*)gse; a.g_bg = (float*)g_bg;
+  a.raw = (float*)raw; a.graw = (float*)graw;
+  a.acts = acts; a.gzs = (float*)gzs; a.slots = (const int*)slots;
+  a.R = R; a.P = R * S; a.act_stride = act_stride; a.gz_stride = gz_stride;
+  a.S = S; a.PW = PW; a.L = L; a.skip = skip; a.H = H; a.B = B; a.C = C;
+  a.amb = amb; a.nf_xyz = nf_xyz; a.nf_amb = nf_amb; a.nf_dir = nf_dir;
+  a.gD = gD; a.gH = gH; a.gW = gW; a.n_act = n_act; a.bg_sup = bg_sup;
+  a.wg = wg; a.wg_bytes = wg_bytes;
+  a.wgb = wgb; a.wgb_bytes = wgb_bytes; a.bsum = (float*)bsum;
+  set_widths(a);
+  auto s = reinterpret_cast<cudaStream_t>(stream);
+  auto pr = (const int*)prods;
+  if (bf16)
+    return launch_tc(a, chunks, out_len, pr, (float*)part, (float*)out, (const int*)items,
+                     n_items, s);
+  return launch<float>(a, n_work, chunks, out_len, pr, (const int*)work, (float*)part,
+                       (float*)out, s);
 }

@@ -1,8 +1,7 @@
-// The deformation pair's backward over one tile of points: float32 K3's
-// tile (deform_pair_vjp.cu) and the pair backward that K2's pair= form runs
-// inside its backward launch (level_train.cu, JAX's SAHS_PAIR_FOLD), in
-// float32 and, on mma.sync, in bf16; bf16 K3 runs skip_bw.cuh's tile on
-// wgmma.
+// The deformation pair's backward over one tile of points, float32 K3's
+// tile (deform_pair_vjp.cu): pair_bwd_tile on PAIR_TP-point tiles with
+// mlp.cuh's SIMT products, the bit-exact oracle of the plain version. bf16
+// K3 runs skip_bw.cuh's tile on wgmma.
 //
 // One tile recomputes the shared positional encoding of its raw points and
 // both trunks (the forward of K1), writing each layer's input to a
@@ -14,18 +13,10 @@
 // gives the cotangent of the raw points (deform_pair_vjp.cu's note).
 //
 // The points come from a PointSrc (mlp.cuh): K3's (P, 3) array, or the
-// rays (o, d, z) of K3's rays= form and of K2's fold, rounded as K15. The
-// tile routines take the cotangent g apart from the other arguments, its
-// rows starting at point gbase: K3's (P, gw) array from 0, the fold's tile
-// in shared memory from the tile's first point.
-//
-// Two instantiations: pair_bwd_tile<float> on PAIR_TP-point tiles with
-// mlp.cuh's SIMT products (float32 K3 and the float32 fold),
-// pair_bwd_tc_tile on 64-point tiles on mma.sync (skip_tc.cuh's
-// skip_net_tc for each net; the bf16 fold's alone).
+// rays (o, d, z) of K3's rays= form, rounded as K15.
 #pragma once
 
-#include "skip_tc.cuh"
+#include "train.cuh"
 
 namespace sahs {
 
@@ -34,7 +25,7 @@ constexpr int PAIR_HMAX = 128;       // widest trunk of the float32 tile
 
 struct PairBwd {
   PointSrc src;          // the raw points, or the rays they lie on
-  const float* g;        // (P, gw) with gw = 3 + ho (K3's; the tiles take g apart)
+  const float* g;        // (P, gw) with gw = 3 + ho
   const float* g2;       // (P, gw) or null
   float* gx;             // (P, 3), or null: no cotangent of the points
   const void* w;         // forward blob (K1's), compute dtype
@@ -67,8 +58,7 @@ __host__ __device__ __forceinline__ size_t pair_bwd_smem(int n_freq, bool gx) {
 
 // The float32 tile `tile` of PAIR_TP points; all threads of the block.
 template <typename T>
-__device__ __forceinline__ void pair_bwd_tile(const PairBwd& a, const float* g,
-                                              long long gbase, unsigned char* smem_raw,
+__device__ __forceinline__ void pair_bwd_tile(const PairBwd& a, unsigned char* smem_raw,
                                               long long tile) {
   constexpr int TP = PAIR_TP;
   const int pe_dim = 3 + 6 * a.n_freq;
@@ -130,8 +120,8 @@ __device__ __forceinline__ void pair_bwd_tile(const PairBwd& a, const float* g,
       const long long p = base + t;
       float gv = 0.0f;
       if (j < ncol && p < a.P) {
-        gv = g[(p - gbase) * gw + col0 + j];
-        if (a.g2 != nullptr) gv = __fadd_rn(gv, a.g2[(p - gbase) * gw + col0 + j]);
+        gv = a.g[p * gw + col0 + j];
+        if (a.g2 != nullptr) gv = __fadd_rn(gv, a.g2[p * gw + col0 + j]);
       }
       const float yv = y[i];
       const float gz = head.act == ACT_TANH ? gv * (1.0f - yv * yv) : gv;
@@ -178,67 +168,12 @@ __device__ __forceinline__ void pair_bwd_tile(const PairBwd& a, const float* g,
       float gx[3] = {0.0f, 0.0f, 0.0f};
       pe_group_bwd(x, 3, a.n_freq, gpe, 0, tid, TP, gx);
       for (int c = 0; c < 3; ++c) {
-        float gv = g[(p - gbase) * gw + c];
-        if (a.g2 != nullptr) gv = __fadd_rn(gv, a.g2[(p - gbase) * gw + c]);
+        float gv = a.g[p * gw + c];
+        if (a.g2 != nullptr) gv = __fadd_rn(gv, a.g2[p * gw + c]);
         a.gx[p * 3 + c] = gx[c] + gv;
       }
     }
   }
-}
-
-// Shared memory of the tensor-core tile (skip_tc.cuh's SkipLayout).
-__host__ __device__ __forceinline__ SkipLayout pair_bwd_tc_layout(int n_freq) {
-  return SkipLayout(3 + 6 * n_freq);
-}
-
-// The bf16 tile `tile` of TC_TP points on mma.sync (the fold's; it asks for
-// no points' cotangent, a.gx is not read); all TC_THREADS threads of the
-// block.
-__device__ __forceinline__ void pair_bwd_tc_tile(const PairBwd& a, const float* g,
-                                                 long long gbase, unsigned char* smem_raw,
-                                                 long long tile) {
-  const int pe_dim = 3 + 6 * a.n_freq;
-  const SkipLayout ly(pe_dim);
-  bf16* pe = reinterpret_cast<bf16*>(smem_raw + ly.pe);
-  bf16* hA = reinterpret_cast<bf16*>(smem_raw + ly.ha);
-  bf16* hB = reinterpret_cast<bf16*>(smem_raw + ly.hb);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ly.ring);
-  const bf16* wblob = reinterpret_cast<const bf16*>(a.w);
-  const bf16* wT = reinterpret_cast<const bf16*>(a.wT);
-  const long long base = tile * TC_TP;
-  bf16* acts = reinterpret_cast<bf16*>(a.acts) + tile * a.act_stride;
-  float* gzs = a.gzs + tile * a.gz_stride;
-  const int* act_off = a.slots;
-  const int* gz_off = a.slots + a.n_act;
-
-  skip_pe_tile(a.src, base, a.P, a.n_freq, pe);
-  __syncthreads();
-  stash_rows(pe, acts + act_off[0], pe_dim);
-  const int gw = 3 + a.ho;
-  const SkipNet warp = {a.meta, 0, a.metaT, 0, a.n_warp, a.warp_skip, 1,
-                        g, a.g2, gw, 0, 3, gbase};
-  const SkipNet hyper = {a.meta, a.n_warp + 1, a.metaT, a.n_warp,
-                         a.n_hyper, a.hyper_skip, 1 + a.n_warp,
-                         g, a.g2, gw, 3, a.ho, gbase};
-  skip_net_tc(warp, wblob, a.b, wT, pe, hA, hB, ring, acts, act_off, gzs, gz_off, base, a.P);
-  skip_net_tc(hyper, wblob, a.b, wT, pe, hA, hB, ring, acts, act_off, gzs, gz_off, base, a.P);
-}
-
-// The pair's dW and db from the two stashes of `n_tiles` tiles (split-K,
-// a fixed order): stash_dw_kernel in bf16 (the fold's), dw_kernel in
-// float32.
-template <typename T>
-int pair_dw(const PairBwd& a, int n_tiles, const int* prods, const int* work,
-            int n_work, int chunks, float* part, float* out, int out_len,
-            cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2)
-    return launch_stash_dw(reinterpret_cast<const bf16*>(a.acts), a.gzs, a.act_stride,
-                           a.gz_stride, n_tiles, prods, work, n_work, chunks, part,
-                           out, out_len, stream);
-  else
-    return launch_dw<T>(reinterpret_cast<const T*>(a.acts), a.gzs, a.act_stride,
-                        a.gz_stride, n_tiles, PAIR_TP, prods, work, n_work, chunks,
-                        part, out, out_len, stream);
 }
 
 }  // namespace sahs

@@ -33,7 +33,7 @@
 // skip_wg_kernel, skip_wg.cuh's tile on wgmma with one net (the design is
 // there; the tile K1 runs with two), on the raw points or the given
 // encoding, the weights streamed as the stages of field_mlp.stage_blob.
-// The mma.sync kernel it replaces read 8.30-8.38 ms (warp net) and
+// The warp-level tensor-core kernel it replaces read 8.30-8.38 ms (warp net) and
 // 4.21-4.24 ms (hyper) at a frame's fine chunk on an H100 (PERF.md §6);
 // the tile's readings are in PERF.md §6 (tools/level_ab.py --skip-only).
 // K14 in float32 runs skip_vjp_kernel on 32-point tiles
@@ -41,8 +41,8 @@
 // skip_bwd_wg_kernel, the deformation nets' backward tile on wgmma with
 // one net (skip_bw.cuh, the tile K3 runs with two), and dW on
 // level_dw.cuh's level_dw_kernel, bias_dw_kernel and dw_reduce. The
-// mma.sync kernel it replaces (skip_vjp_tc_kernel and mma.cuh's
-// stash_dw_kernel) read 3.34 ms (warp net) and 1.75 ms (hyper) a call at a
+// warp-level tensor-core kernels it replaces (skip_vjp_tc_kernel and its
+// dW) read 3.34 ms (warp net) and 1.75 ms (hyper) a call at a
 // step's 262,144 fine points on an H100 (PERF.md section 6).
 #include "level_dw.cuh"
 #include "skip_bw.cuh"

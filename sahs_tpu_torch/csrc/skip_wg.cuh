@@ -11,8 +11,8 @@
 // given bf16 encoding. K1 stores [x + y_warp (round to nearest) | y_hyper]
 // and, with a grid, the warped point's corner row (mlp.cuh:cell_row); K13
 // stores y. Every product is a bf16 product with float32 sums, each k16
-// step summed from zero and added in float32 (PROMOTE 1, mma.cuh's
-// semantics), so a point's output depends on its own row alone, not on its
+// step summed from zero and added in float32 (PROMOTE 1, wgmma.cuh's
+// accumulation), so a point's output depends on its own row alone, not on its
 // neighbours or its place in a tile.
 //
 // Design (wgmma.cuh, as level_train.cu's fw::tile). Persistent blocks, one
@@ -44,8 +44,8 @@
 // 1.08 ms at a frame's fine chunk (4.19 M points) at the 989 TFLOP/s bf16
 // peak; K13's warp net 0.83 ms there, its hyper net 0.24. The weights (251
 // KB of stages for K1) are read from L2 once per 128 points. Measured on an
-// H100 (PERF.md §6, tools/level_ab.py, in turns with the mma.sync kernels
-// it replaced): K1 5.8-5.9 ms at the fine chunk (12.3), 181-183 TFLOP/s,
+// H100 (PERF.md §6, tools/level_ab.py, in turns with the warp-level
+// tensor-core kernels it replaced): K1 5.8-5.9 ms at the fine chunk (12.3), 181-183 TFLOP/s,
 // 18 % of the bound; K13 warp 4.1-4.3 (8.4), hyper 2.4-2.5 (4.4). ptxas:
 // 148 registers, no spill, a 32-byte stack frame (sinf's reduction of huge
 // angles). What holds it: each k16 step's float32 adds (summed across a

@@ -8,8 +8,8 @@
 // (level_train.cu: field_tc_kernel, K5/K7/K11, and fwd_tc_kernel, launch 1
 // of K2/K6/K8/K12) and backward (bwd_tc_kernel, launch 3), the deformation
 // nets' forward (skip_wg.cuh: K1 and K13) and backward (skip_bw.cuh: K3 and
-// K14), and their dW (level_dw.cuh). K2's pair= fold alone stays on
-// mma.sync (mma.cuh).
+// K14), and their dW (level_dw.cuh). No kernel of the port has another
+// path to the tensor cores.
 //
 // The layout. Every bf16 operand in shared memory is in the 128-byte
 // swizzle (CU_TENSOR_MAP_SWIZZLE_128B, descriptor layout type 1): rows of
@@ -355,12 +355,12 @@ __device__ __forceinline__ void tma_store_wait() {
 // warp frees it (lane 0 arrives on `empty`). ``product`` runs one chunk's
 // products, A from the warpgroup's tiles in shared memory.
 //
-// Accumulation (PROMOTE): the tensor core's sum truncates; mma.sync's tiles
-// (mma.cuh) sum each k16 step from zero there and add it to the running
-// sum in float32 round-to-nearest. PROMOTE s sums s k16 steps in the
-// tensor core, then adds them to the float32 sums (s = 1 is mma.cuh's
-// semantics); PROMOTE 0 carries the sum over the whole K in the tensor
-// core.
+// Accumulation (PROMOTE): the tensor core's sum truncates, and carried
+// over a whole K it leaves the sums further from the JAX package's float32
+// semantics (_mm) than their order alone would. PROMOTE s sums s k16 steps
+// in the tensor core from zero, then adds them to the float32 sums with
+// round-to-nearest (s = 1, every k16 step apart, is what the path's tiles
+// run); PROMOTE 0 carries the sum over the whole K in the tensor core.
 constexpr int KB = 64;             // k rows of a weight stage
 constexpr int NC = 128;            // output columns of a chunk, at most
 constexpr int SLOT = NC * 128;     // bytes of a ring slot

@@ -157,9 +157,9 @@ def _check_kernel_shapes(points, weights: PairWeights, what: str,
         raise ValueError(f"the {what} kernel takes a warp head of 3 outputs and a "
                          "hyper head of at most 8")
     widths = [p["w"].shape[1] for p in weights.warp_trunk + weights.hyper_trunk]
-    # bf16: the forward tile (K1) and K2's pair= fold (the mma.sync pair
-    # tile) take multiples of TC_K_STEP, K3's backward tile any of 8
-    step = TC_K_STEP if dtype == torch.bfloat16 and what != "K3" else 8
+    # bf16: the forward tile (K1) takes multiples of TC_K_STEP, the backward
+    # tile (K3, and K2's pair= form) any of 8
+    step = TC_K_STEP if dtype == torch.bfloat16 and what == "K1" else 8
     if max(widths) > 128 or any(w % step for w in widths):
         raise ValueError(f"the {what} kernel takes trunks at most 128 wide, in "
                          f"multiples of {step}, got {widths}")
@@ -379,6 +379,26 @@ def deform_pair_vjp(points: Optional[torch.Tensor], weights: PairWeights,
                                      need_gx, rays)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    out = _vjp_launch(points, weights, g, g2, compute_dtype, need_gx, rays)
+    deform_pair_vjp.launches += 1
+    return out
+
+
+deform_pair_vjp.launches = 0
+
+
+# K3's C entries' arguments after the points (or the rays): g, g2, gx, the
+# plan's blobs, the nets' shapes, the dtype's flag, the stashes, the dW's
+# and the wgmma launch's (bf16), the stream
+_VJP_SIGNATURE = ("ppp" + "ppp" + "ppp" + "iiiiiii" + "p" + "pp" + "i" * 6 + "pppp"
+                  + VJP_WG_SIGNATURE + "p")
+
+
+def _vjp_launch(points: Optional[torch.Tensor], weights: PairWeights, g: torch.Tensor,
+                g2, compute_dtype: str, need_gx: bool = False, rays: Optional[Rays] = None):
+    """One call of K3's kernels on CUDA tensors, not counted: what
+    ``deform_pair_vjp`` returns. K2's pair= form runs it on K2's gx."""
+    dev = _points_device(points, rays)
     dtype = torch_dtype(compute_dtype)
     _check_kernel_shapes(points, weights, "K3", dtype)
     if rays is not None:
@@ -412,24 +432,19 @@ def deform_pair_vjp(points: Optional[torch.Tensor], weights: PairWeights,
             plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
             p(plan.prods), p(plan.work), p(part), p(out), *wg_args,
             _build.stream_ptr(dev))
-    sig = ("ppp" + "ppp" + "ppp" + "iiiiiii" + "p" + "pp" + "i" * 6 + "pppp"
-           + VJP_WG_SIGNATURE + "p")
     if rays is None:
         points = points.contiguous()
-        fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp", "pl" + sig)
+        fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp",
+                             "pl" + _VJP_SIGNATURE)
         rc = fn(p(points), P, *rest)
     else:
         ro, rd, z = rays
         fn = _build.function("deform_pair_vjp", "sahs_deform_pair_vjp_rays",
-                             "pppli" + sig)
+                             "pppli" + _VJP_SIGNATURE)
         rc = fn(p(ro), p(rd), p(z), R, S, *rest)
     _build.check(rc, "deform_pair_vjp")
-    deform_pair_vjp.launches += 1
     grads = pair_grads_tree(weights, plan, out)
     return (gx, grads) if need_gx else grads
-
-
-deform_pair_vjp.launches = 0
 
 
 def pair_param_grads(warp, hyper, pair_g, cond: torch.Tensor):

@@ -347,7 +347,7 @@ class TrainPlan:
 
 DW_TILE = 64
 TP_F32 = 32    # points a tile of the float32 per-tile backward kernels and stash
-TP_BF16 = 64   # points a tile of the bf16 (tensor-core, csrc/mma.cuh) ones
+TP_BF16 = 64   # points a tile of the bf16 (tensor-core, csrc/wgmma.cuh) ones
 
 
 def tile_points(dtype: torch.dtype) -> int:
@@ -440,8 +440,7 @@ def dw_items_on(plan: TrainPlan, dev) -> torch.Tensor:
 
 def plan_buffers(plan: TrainPlan, n_tiles: int, dtype: torch.dtype, dev):
     """The stashes, the split-K partials and the dW output of one call of a
-    float32 backward (and of K2's pair= form): train.cuh's dw_kernel, or
-    mma.cuh's stash_dw_kernel over the float32 gz stash."""
+    float32 backward (train.cuh's dw_kernel)."""
     f32 = torch.float32
     chunks = dw_chunks(n_tiles)
     return (torch.empty(n_tiles * plan.act_stride, dtype=dtype, device=dev),

@@ -49,14 +49,13 @@ stash follows the tile).
 
 K2 also takes the pair= form (level_train.py:58-78, body :232-246; the JAX
 fused step under ``SAHS_PAIR_FOLD``): ``pair=(PairWeights, ro (R, 3))``.
-The backward launch then keeps each tile's gx (P, 3 + ambient) in float32
-in shared memory and runs the deformation pair's backward (K3's tile,
-``csrc/pair_bwd.cuh``) on the same points, rebuilt from the rays (ro, the
-level's directions, z) as K15 builds them; the pair's dW goes through its
-own stash into the split-K reduction, after the level's. gx is not
-written: the pair's gradient tree (``deform_pair_vjp``'s) comes back in
-its place. The plain version runs ``deform_pair_vjp_plain`` on the rays'
-points with K2's gx.
+One call then runs K2's launches, with gx (P, 3 + ambient) written to a
+float32 scratch, and then K3's rays= call (``deform_pair_vjp``'s, not
+counted) on the same points, rebuilt from the rays (ro, the level's
+directions, z) as K15 builds them, with that gx as the cotangent: its
+results are K2's and then K3's rays= form's on K2's gx, bit for bit. The
+pair's gradient tree comes back in gx's place. The plain version runs
+``deform_pair_vjp_plain`` on the rays' points with K2's gx.
 
 ``nerf_level_train``, ``nerf_level_vjp``, ``nerf_rayd_vjp`` and
 ``nerf_mlp_vjp`` launch the kernel for CUDA tensors and count the call in
@@ -82,8 +81,7 @@ from .nerf_level import (LevelWeights, _grid_args, check_device,
                          level_kernel_args, nerf_raw_plain, point_blob,
                          point_layers, prepare_level, wgmma_blob, widths_ok)
 from .nerf_mlp import ENC_EXTRA, ENC_PTS, nerf_mlp_plain, point_kernel_args
-from .deform_pair import (_check_kernel_shapes, deform_pair_vjp_plain,
-                          pair_grads_tree, pair_train_plan)
+from .deform_pair import _check_kernel_shapes, _vjp_launch, deform_pair_vjp_plain
 
 
 # ---------------------------------------------------------------------------
@@ -418,11 +416,6 @@ _MODES = {"loss": 0, "vjp": 1, "raw": 2, "pts": 3}
 _SIGNATURE = ("p" * 11 + "pp" + "pi" + "i" + "ppp" + "ppp" + "p" * 5 + "pp"
               + "pp" + "p" + "l" + "i" * 15 + "i" * 6 + "f" + "pppp" + "pl"
               + "plppi" + "p")
-# sahs_level_train_pair: K2's arguments without g_rgb, g_w, extra, gextra,
-# enc, mode and gx, then ro and the pair's plan
-_PAIR_SIGNATURE = ("p" * 10 + "p" * 6 + "p" * 6 + "p" * 3 + "l" + "i" * 21 + "f"
-                   + "p" * 4 + "p" * 7 + "i" * 6 + "p" * 3 + "i" * 6 + "p" * 4
-                   + "pl" + "p")
 
 
 def backward_order(descs_t, n_trunk: int, skip: int):
@@ -483,16 +476,15 @@ def _forward_stages(weights: LevelWeights, plan: TrainPlan, dtype: torch.dtype):
 
 
 def _call_buffers(weights: LevelWeights, plan: TrainPlan, n_tiles: int,
-                  dtype: torch.dtype, dev, fold: bool = False):
+                  dtype: torch.dtype, dev):
     """(acts, gzs, bsum, chunks, part, out, the backward's arguments: its
     stages, their bytes, bsum, the dW's items and their count) of one call:
-    in bf16 (but K2's pair= form, whose fold keeps the mma.sync tile) the
-    wgmma backward's, else the float32 stash and the plan's work list (bsum
-    None). The caller holds every tensor until the launches are queued: a
-    buffer freed before them would be handed to the next allocation while
-    the kernels write it."""
+    in bf16 the wgmma backward's, else the float32 stash and the plan's work
+    list (bsum None). The caller holds every tensor until the launches are
+    queued: a buffer freed before them would be handed to the next
+    allocation while the kernels write it."""
     p = _build.ptr
-    if dtype != torch.bfloat16 or fold:
+    if dtype != torch.bfloat16:
         acts, gzs, chunks, part, out = plan_buffers(plan, n_tiles, dtype, dev)
         return acts, gzs, None, chunks, part, out, (None, 0, None, None, 0)
     acts, gzs, bsum, chunks, part, out = stash_buffers(plan, n_tiles, dev)
@@ -542,9 +534,7 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
             raise ValueError(f"{what}'s pair= form takes the loss mode, packed points "
                              f"3 + {ho} wide and ro ({R}, 3), got {mode}, {PW}, "
                              f"{tuple(ro.shape)}")
-        pplan = pair_train_plan(pw, dtype)
-        check_device(what, pts.device, ro, pplan.fwd[0])
-        ro = ro.to(torch.float32).contiguous()
+        check_device(what, pts.device, ro)
     f32 = torch.float32
     dev = pts.device
     c = lambda t: None if t is None else t.to(f32).contiguous()
@@ -555,12 +545,12 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
     e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
     composite = mode != "raw"
     rgb_map, w_out, g_bg = (e(R, 16), e(R, S), e(R, 16)) if composite else (None,) * 3
-    gx, gse = (e(P, PW) if pair is None else None), (e(P, C) if C else None)
+    gx, gse = e(P, PW), (e(P, C) if C else None)
     raw = e(P, 16) if composite else None
     if composite:
         graw = e(P, 16)
     acts, gzs, bsum, chunks, part, out, bwd = _call_buffers(weights, plan, n_tiles, dtype,
-                                                            dev, fold=pair is not None)
+                                                            dev)
     p = _build.ptr
     n_trunk, _, _, _, amb, nf_xyz, nf_amb, nf_dir, gD, gH, gW = ints
     blobs = (*[p(t) for t in plan.fwd], *[p(t) for t in plan.bwd])
@@ -571,28 +561,17 @@ def _launch(mode: str, what: str, pts, dirs, table, rows, weights,
              plan.gz_stride, plan.work.numel() // 3, chunks, plan.out_len,
              float(bg_sup if bg is not None else 0.0), p(plan.prods),
              p(plan.work), p(part), p(out))
-    if pair is None:
-        fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
-        rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
-                p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, p(se), 0,
-                _MODES[mode], *blobs, p(rgb_map), p(w_out), p(gx), p(gse), p(g_bg),
-                p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes, *wg, *bwd,
-                _build.stream_ptr(dev))
-    else:
-        pacts, pgzs, pchunks, ppart, pout = plan_buffers(pplan, n_tiles, dtype, dev)
-        fn = _build.function("level_train", "sahs_level_train_pair", _PAIR_SIGNATURE)
-        rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg), p(noise), p(tgt),
-                p(lw), p(se), *blobs, p(rgb_map), p(w_out), p(gse), p(g_bg), p(raw),
-                p(graw), p(acts), p(gzs), p(plan.slots), *sizes,
-                p(ro), *[p(t) for t in pplan.fwd], *[p(t) for t in pplan.bwd],
-                len(pw.warp_trunk), len(pw.hyper_trunk), pw.warp_skip,
-                pw.hyper_skip, pw.pe_groups[0][2], ho, p(pplan.slots), p(pacts),
-                p(pgzs), pplan.n_act, pplan.act_stride, pplan.gz_stride,
-                pplan.work.numel() // 3, pchunks, pplan.out_len, p(pplan.prods),
-                p(pplan.work), p(ppart), p(pout), *wg, _build.stream_ptr(dev))
+    fn = _build.function("level_train", "sahs_level_train", _SIGNATURE)
+    rc = fn(p(pts), p(rows), p(table), p(dirs), p(z), p(bg),
+            p(noise), p(tgt), p(lw), p(g_rgb), p(g_w), None, None, p(se), 0,
+            _MODES[mode], *blobs, p(rgb_map), p(w_out), p(gx), p(gse), p(g_bg),
+            p(raw), p(graw), p(acts), p(gzs), p(plan.slots), *sizes, *wg, *bwd,
+            _build.stream_ptr(dev))
     _build.check(rc, what)
     if pair is not None:
-        gx = pair_grads_tree(pw, pplan, pout)
+        # K3's rays= call on this gx (P * PW * 4 bytes, a scratch here)
+        gx = _vjp_launch(None, pw, gx, None, compute_dtype,
+                         rays=(ro.to(f32), dirs, z))
     return (rgb_map, w_out, gx, gse, g_bg,
             _grads_tree(weights, plan.unpack(out)), acts)
 

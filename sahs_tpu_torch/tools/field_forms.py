@@ -5,8 +5,8 @@
 
 Candidates: 0 (the sum carried in the tensor core over a layer's whole K),
 4 and 2 (that many k16 steps, 64 or 32 k, summed there before each float32
-add, round to nearest), 1 (each k16 step apart, the sums of mma.cuh's
-tiles). For each, one JSON line with the raw field (K7 through
+add, round to nearest), 1 (each k16 step apart, what the path's tiles
+run). For each, one JSON line with the raw field (K7 through
 ``nerf_level.nerf_field_tc(..., promote=)``) on the card tests' seeded
 coarse level (``level_exact.coarse_level("seeded", ...)``) with the grid
 and without it, at 96 rays x 128 samples (the card tests' size, two draws)

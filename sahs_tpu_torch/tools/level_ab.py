@@ -12,6 +12,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --dg-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --bwd-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --deform-only [--k3-bits FILE]
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --pair-only
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -77,7 +78,10 @@ in their other forms (``_deform_times``; with ``--k3-bits FILE`` K3's
 activation stash, bf16 K1's and K13's outputs and float32 K3's and K14's
 results are saved to FILE, or held bit for bit against the ones another
 tree saved there, the stash slot by slot), then the traced fused,
-fallback-1, per-point and warp-only steps, ``--steps-only`` the
+fallback-1, per-point and warp-only steps, ``--pair-only`` K2's pair=
+form (``_fold_times``: per call, by launch, beside K2 then K3's rays=
+form on K2's gx, its library calls and its bound) and the traced fused
+step in its default and fold variants, ``--steps-only`` the
 steps alone, ``--bwd-only`` the level backward: K2, K6 and K8 at a step's
 fine and coarse level and K12 at the per-point step's 393,216 points per
 call (``_kernel_times``) and by launch (device ms, torch.profiler,
@@ -268,6 +272,109 @@ def _deform_times(dev, reps: int = 3, by_launch: bool = False,
             we = k13.prepare_skip(net, cond, None, act)
             out[f"K14 {name} fine, pre-encoded"] = {"ms": best(
                 lambda: k13.skip_mlp_vjp(pe, we, gs, True, "bfloat16"))}
+    return out
+
+
+def _level_macs(level) -> int:
+    """Multiply-adds a point of a NeRF level's forward (K5's products)."""
+    mats = ([p["w"] for p in level.trunk] + [level.feat["w"], level.alpha["w"],
+            level.dir0_feat, level.dir0_se] + [p["w"] for p in level.dir_rest]
+            + [level.rgb["w"]] + [p["w"] for p in level.seg] + [level.seg_out["w"]])
+    return sum(m.numel() for m in mats)
+
+
+def _fold_times(dev, reps: int = 3) -> dict:
+    """K2's pair= form in bf16 at a step's fine level (2048 rays x 128 =
+    262,144 points) on the flagship's seeded coarse level and deformation
+    pair: ms per call (CUDA events, the minimum over 3 rounds of the mean
+    of 3 calls) and by launch (device ms, torch.profiler), beside the same
+    function as two calls (K2, then K3's rays= form on K2's gx); its
+    library time, K2's chain (the level's module under bf16 autocast, the
+    compositing and the loss, autograd to its parameters, the encoding and
+    the sampled embedding) plus K3's rays= chain (the pair's modules under
+    bf16 autocast on the rays' points, autograd with K2's gx as the
+    cotangent), each timed apart; and its bound: K2's operations (forward,
+    backward chain, dW: 3 x the level's forward) and K3's (the same without
+    the products back to the encoding) at 989 TFLOP/s, against each input
+    read once and each output written once at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry, interp_corners, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import deform_pair as k1
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
+    from sahs_tpu_torch.ops.kernels.nerf_level import composite_plain
+    from sahs_tpu_torch.ops.kernels.points import build_pts_plain
+    from sahs_tpu_torch.train.fused import _level_loss
+    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel
+
+    spec = nerface.ModelSpec.from_config(Config())
+    model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+    rng = np.random.RandomState(2)
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    driving, pose = g(rng.randn(76) * 0.5), g(rng.randn(36) * 0.5)
+    nerf = model.coarse
+    ncond = torch.cat([driving, pose]) if nerf.spec.include_driving else pose
+    warp_g, pts_g, dir_g = nerface.build_pe_groups(spec)
+    level = k5.prepare_level(nerf, ncond, pts_g, dir_g)
+    pair = k1.prepare_pair(model.warp, model.hyper, torch.cat([driving, pose]), warp_g)
+    table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+    grid, R, S = (32, 32, 32), 2048, 128
+    P = R * S
+    pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)), rng.uniform(-1, 1, (P, 2))], 1))
+    dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+    ro = g(rng.randn(R, 3) * 0.05 + [0, 0, 1.2])
+    z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+    bg, noise = g(rng.rand(R, 15)), g(rng.randn(R, S) * 0.5)
+    tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+    lw = g(np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+    rows = _cell_geometry(pts, grid)[0]
+    a = (pts, dirs, table, rows, z, bg, noise, tgt, lw, level, "bfloat16", grid, 0.5)
+    best = lambda fn: cuda_ms(fn, reps, runs=3)
+    fold = lambda: k2.nerf_level_train(*a, pair=(pair, ro))
+    two = lambda: k1.deform_pair_vjp(None, pair, k2.nerf_level_train(*a)[2], None,
+                                     "bfloat16", rays=(ro, dirs, z))
+    gx = k2.nerf_level_train(*a)[2]
+
+    def k2_library():
+        x = kernel_pe(pts, level.pts_groups).requires_grad_()
+        dpe = kernel_pe(dirs, level.dir_groups).repeat_interleave(S, dim=0)
+        _, fs, ok = _cell_geometry(pts, grid)
+        se = interp_corners(table[rows.reshape(-1).long()], fs, ok).requires_grad_()
+        params = [x, se] + list(nerf.parameters())
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            raw = nerf(x, dpe, driving=driving, pose=pose, spatial_embedding=se)
+        rgb, _ = composite_plain(raw.float().reshape(R, S, 16), z, dirs, bg, noise)
+        return torch.autograd.grad(_level_loss(rgb, tgt, lw), params)
+
+    def k3_library():
+        pe = kernel_pe(build_pts_plain(ro, dirs, z), warp_g)
+        nets = (model.warp, model.hyper)
+        params = [p for n in nets for p in n.parameters()]
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            o = torch.cat([n(pe, driving, pose) for n in nets], dim=-1)
+        return torch.autograd.grad((o.float() * gx).sum(), params)
+
+    k3_macs = (_vjp_macs(pair.warp_trunk, pair.warp_out, pair.warp_skip)
+               + _vjp_macs(pair.hyper_trunk, pair.hyper_out, pair.hyper_skip))
+    flops = 2 * (3 * _level_macs(level) + k3_macs) * P
+    plans = (k2.level_train_plan(level, torch.bfloat16), k1.pair_train_plan(pair, torch.bfloat16))
+    C = level.dir0_se.shape[0]
+    nbytes = (4 * (P * 5 + P + R * (3 + 3 + 2 * S + 15 + 15 + 2)) + 2 * table.numel()
+              + 4 * (R * (16 + S + 15) + P * C) + sum(6 * pl.out_len for pl in plans))
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    out = {"ms": best(fold), "two_calls_ms": best(two),
+           "launch_ms": device_ms_by_kernel(fold, 5, counter=k2.nerf_level_train),
+           "two_calls_launch_ms": device_ms_by_kernel(two, 5, counter=k1.deform_pair_vjp),
+           "library_k2_ms": best(k2_library), "library_k3_rays_ms": best(k3_library),
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gx_scratch_bytes": P * 5 * 4}
+    out["library_ms"] = out["library_k2_ms"] + out["library_k3_rays_ms"]
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     return out
 
 
@@ -923,17 +1030,21 @@ def _trace_step():
     return _checkout_module("train/trace_step.py")
 
 
-def _step_traces(paths=("fused", "fallback", "pointwise"), n_steps: int = 3) -> dict:
+def _step_traces(paths=("fused", "fallback", "pointwise"), n_steps: int = 3,
+                 variants=("default",)) -> dict:
     """The traced steps of ``paths`` (this checkout's ``trace_train_step``
-    on the tree's code): step ms (CUDA events), kernel ms, idle share and
-    each kernel's ms a step."""
+    on the tree's code), each in the fused step's ``variants`` (named
+    ``path variant`` past the default): step ms (CUDA events), kernel ms,
+    idle share and each kernel's ms a step."""
     steps = _trace_step()
     out = {}
-    for name in paths:
-        res = steps.trace_train_step(n_steps, name)
-        out[name] = {"step_ms": res["step_ms"], "kernel_ms": res["kernel_ms"],
-                     "idle_share": res["idle_share"],
-                     "kernels": {k["name"]: k["ms_per_step"] for k in res["kernels"]}}
+    for path in paths:
+        for v in variants:
+            name = path if v == "default" else f"{path} {v}"
+            res = steps.trace_train_step(n_steps, path, v)
+            out[name] = {"step_ms": res["step_ms"], "kernel_ms": res["kernel_ms"],
+                         "idle_share": res["idle_share"],
+                         "kernels": {k["name"]: k["ms_per_step"] for k in res["kernels"]}}
     return out
 
 
@@ -978,6 +1089,9 @@ def main(argv=None) -> int:
                     help="time the deformation nets' backwards (K3, K14) per call, by "
                          "launch and in their other forms, and trace the fused, "
                          "fallback, per-point and warp-only steps")
+    ap.add_argument("--pair-only", action="store_true",
+                    help="time K2's pair= form per call and by launch beside K2 then "
+                         "K3's rays= form, and trace the fused step's default and fold")
     ap.add_argument("--k3-bits", default=None,
                     help="with --deform-only: save K3's activation stash (and K1's, "
                          "K13's and float32 K3's and K14's results) to this file, or "
@@ -1010,6 +1124,9 @@ def main(argv=None) -> int:
     elif args.deform_only:
         res.update(deform_nets=_deform_times(dev, by_launch=True, k3_bits=args.k3_bits),
                    traces=_step_traces(("fused", "fallback", "pointwise", "warp_only")))
+    elif args.pair_only:
+        res.update(pair_form=_fold_times(dev),
+                   traces=_step_traces(("fused",), variants=("default", "fold")))
     elif args.skip_only:
         res.update(skip_net=_skip_times(dev), pair=_pair_times(dev))
     elif args.serve_only:

@@ -57,9 +57,9 @@ where the coarse points' backward runs, and so the order of sums:
     Under ``_UNION`` only the coarse level takes it: the new points go
     through the positional K1, and the union's K3 through K15's points.
   - ``SAHS_PAIR_FOLD`` (``_PAIR_FOLD``, ignored under ``_UNION``): K2's
-    pair= form runs the pair's backward inside each level's backward
-    launch on that level's own gx, held in float32 in shared memory; the
-    two levels' pair gradients are summed and no K3 runs; with a grid K4
+    pair= form runs K2's launches with the level's gx written to a float32
+    scratch, then K3's rays= launches on that gx (no K3 call of the step's
+    own); the two levels' pair gradients are summed; with a grid K4
     runs once per level, as under the split (fused.py:252-256, :266-277,
     :416-423). Exact as the split is: the same per-level backwards.
 """

@@ -1,6 +1,6 @@
 """Where a flagship Stage-I train step spends its device time.
 
-    python -m sahs_tpu_torch.train.trace_step [--steps 3] [--path fused]
+    python -m sahs_tpu_torch.train.trace_step [--steps 3] [--path fused] [--variant fold]
 
 Builds the flagship ``Config()`` train step (seeded weights, a synthetic
 512x512 audio frame held on the device) on the CUDA device, runs 2 warm-up
@@ -18,12 +18,19 @@ K10 the only kernel of the port), ``warp_only`` (models.hyper.use_ambient
 off: the fallback with the warp net alone on K13 and K14, then K5, K6, K9)
 or ``ambient_only`` (models.warp.use_warp off: the hyper net alone on K13
 and K14).
+``--variant`` picks the fused step's structural variant (``VARIANTS``):
+``default``, ``split`` (SAHS_BWD_SPLIT), ``union`` (SAHS_FUSED_UNION),
+``rays`` (SAHS_PAIR_RAYS), ``fold`` (SAHS_PAIR_FOLD), ``rays_fold`` and
+``rays_union``, the pairs that ``chip_smoke.py``'s phase 20 runs. It sets
+``train/fused.py``'s flags (all others off) for the traced steps alone
+and restores them after. Without it the step runs under the flags the
+environment set (SAHS_PAIR_FOLD=1 and the like), and the printed label
+names that variant.
 K2, K3, K6 and K8 show as the launches of their one call each (K2 and K6
 in bfloat16: fwd_tc_kernel, the forward tile on wgmma, then
 composite_kernel, bwd_tc_kernel, the backward tile on wgmma, and its dW,
 level_dw_kernel, bias_dw_kernel, dw_reduce (csrc/level_dw.cuh); K2's
-pair= form bwd_tc_fold_kernel and stash_dw_kernel on mma.sync in place of
-the backward tile and its dW; in
+pair= form those, then K3's launches (pair_bwd_wg_kernel and its dW); in
 float32 fwd_kernel, composite_kernel, bwd_kernel, dw_kernel, dw_reduce;
 K8 the same without composite_kernel; K3: pair_bwd_wg_kernel (the
 deformation nets' backward tile on wgmma), level_dw_kernel,
@@ -47,9 +54,10 @@ port's kernels whose launch it is (``OWNERS``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import re
 import sys
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 def short_name(kernel: str) -> str:
@@ -70,12 +78,10 @@ OWNERS = {
     "fwd_tc_kernel": "K2, K6, K8, K12 forward", "fwd_kernel": "K2, K6, K8, K12 forward",
     "composite_kernel": "K2, K6 compositing and its backward",
     "bwd_tc_kernel": "K2, K6, K8, K12 backward", "bwd_kernel": "K2, K6, K8, K12 backward",
-    "bwd_tc_fold_kernel": "K2's pair= form backward",
     "level_dw_kernel": "dW of K2, K6, K8, K12, K3, K14",
     "bias_dw_kernel": "db of K2, K6, K8, K12, K3, K14",
-    "stash_dw_kernel": "dW of K2's pair= form", "dw_kernel": "dW (float32)",
-    "dw_reduce": "dW's split-K sum",
-    "pair_bwd_wg_kernel": "K3", "pair_vjp_kernel": "K3",
+    "dw_kernel": "dW (float32)", "dw_reduce": "dW's split-K sum",
+    "pair_bwd_wg_kernel": "K3, K2's pair= form", "pair_vjp_kernel": "K3, K2's pair= form",
     "skip_wg_kernel": "K13", "skip_mlp_kernel": "K13",
     "skip_bwd_wg_kernel": "K14", "skip_vjp_kernel": "K14",
     "build_pts_kernel": "K15",
@@ -101,6 +107,40 @@ PATHS = {"fused": ({}, {}, {}), "fallback": ({"fused_grads": False}, {}, {}),
          "plain": ({"use_pallas": False}, {}, {}),
          "warp_only": ({}, {}, {("hyper", "use_ambient"): False}),
          "ambient_only": ({}, {}, {("warp", "use_warp"): False})}
+
+
+# variant -> the flags of train/fused.py it sets, the others off (the
+# environment variables SAHS_BWD_SPLIT, SAHS_FUSED_UNION, SAHS_PAIR_RAYS and
+# SAHS_PAIR_FOLD set them at import)
+FLAGS = ("_BWD_SPLIT", "_UNION", "_PAIR_RAYS", "_PAIR_FOLD")
+VARIANTS = {"default": (), "split": ("_BWD_SPLIT",), "union": ("_UNION",),
+            "rays": ("_PAIR_RAYS",), "fold": ("_PAIR_FOLD",),
+            "rays_fold": ("_PAIR_RAYS", "_PAIR_FOLD"),
+            "rays_union": ("_PAIR_RAYS", "_UNION")}
+
+
+def current_variant() -> str:
+    """The name in VARIANTS of train/fused.py's flags as they stand (the
+    flags joined by "+" where no variant has them)."""
+    from . import fused
+    on = {f for f in FLAGS if getattr(fused, f)}
+    return next((n for n, v in VARIANTS.items() if set(v) == on), "+".join(sorted(on)))
+
+
+@contextlib.contextmanager
+def variant(name: str):
+    """Inside: train/fused.py's flags as the fused step's variant ``name``
+    (VARIANTS) sets them; on the way out, what they were before."""
+    from . import fused
+    on = VARIANTS[name]
+    saved = {f: getattr(fused, f) for f in FLAGS}
+    for f in FLAGS:
+        setattr(fused, f, f in on)
+    try:
+        yield
+    finally:
+        for f, v in saved.items():
+            setattr(fused, f, v)
 
 
 def build_step(path: str, dev):
@@ -133,26 +173,30 @@ def build_step(path: str, dev):
     return step, state, batch, torch.Generator(device=dev).manual_seed(0)
 
 
-def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
-    """Trace ``steps`` flagship train steps of ``path`` (PATHS). Returns
-    {"step_ms", "kernels":
-    [{"name", "launches_per_step", "ms_per_step", "share"}], "kernel_ms",
-    "idle_share"}, kernels in decreasing time."""
+def trace_train_step(steps: int = 3, path: str = "fused",
+                     variant_name: Optional[str] = None) -> Dict:
+    """Trace ``steps`` flagship train steps of ``path`` (PATHS) in the fused
+    step's variant ``variant_name`` (VARIANTS; None: the flags as they
+    stand). Returns {"step_ms", "kernels": [{"name", "launches_per_step",
+    "ms_per_step", "share"}], "kernel_ms", "idle_share", "variant"},
+    kernels in decreasing time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..utils.device import cuda_ms
 
-    step, state, batch, gen = build_step(path, torch.device("cuda"))
-    for _ in range(2):
-        state, _ = step(state, batch, generator=gen)
-    held = [state]
+    with variant(variant_name) if variant_name else contextlib.nullcontext():
+        name = current_variant()
+        step, state, batch, gen = build_step(path, torch.device("cuda"))
+        for _ in range(2):
+            state, _ = step(state, batch, generator=gen)
+        held = [state]
 
-    def one_step():
-        held[0], _ = step(held[0], batch, generator=gen)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step_ms = cuda_ms(one_step, steps, warmup=0)
+        def one_step():
+            held[0], _ = step(held[0], batch, generator=gen)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step_ms = cuda_ms(one_step, steps, warmup=0)
     totals: Dict[str, List[float]] = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -165,20 +209,22 @@ def trace_train_step(steps: int = 3, path: str = "fused") -> Dict:
                for n, (c, ms) in sorted(totals.items(), key=lambda kv: -kv[1][1])]
     kernel_ms = sum(k["ms_per_step"] for k in kernels)
     return {"step_ms": step_ms, "kernels": kernels, "kernel_ms": kernel_ms,
-            "idle_share": max(0.0, 1.0 - kernel_ms / step_ms)}
+            "idle_share": max(0.0, 1.0 - kernel_ms / step_ms), "variant": name}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--path", choices=sorted(PATHS), default="fused")
+    ap.add_argument("--variant", choices=sorted(VARIANTS), default=None,
+                    help="the fused step's variant (default: as the environment sets it)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    res = trace_train_step(args.steps, args.path)
-    print(f"{args.path} step {res['step_ms']:.2f} ms (CUDA events), kernels "
+    res = trace_train_step(args.steps, args.path, args.variant)
+    print(f"{args.path} step ({res['variant']}) {res['step_ms']:.2f} ms (CUDA events), kernels "
           f"{res['kernel_ms']:.2f} ms, idle share {res['idle_share']:.3f}")
     for k in res["kernels"]:
         print(f"{k['ms_per_step']:10.3f} ms {k['launches_per_step']:6.1f} x "

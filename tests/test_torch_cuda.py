@@ -3761,13 +3761,11 @@ def test_level_train_pair_form_matches_plain(card, rng, compute_dtype):
     exact sums, within PLAIN_MULTIPLE of the plain version's distance: the
     pair's dW takes K2's gx, whose kink points sit off exact sums in either
     side's bf16 run, so its leaves are held by that rule alone), and bit
-    for bit K2 then K3's rays= form on K2's gx: in float32 every output
-    (the same f32 gx, the same tiles, the same split-K order); in bf16 the
-    forward's outputs and g_bg (launches 1 and 2), since there the fold
-    keeps the mma.sync backward tile and dW beside the pair's while K2 runs
-    the wgmma tile and level_dw.cuh's dW, each held to exact sums above.
-    Planted fault: the pair's hyper head bias gradient dropped must miss
-    the gate."""
+    for bit K2 then K3's rays= form on K2's gx in either dtype: rgb, the
+    weights, g_bg, gse, every level dW leaf and every pair dW leaf (the
+    same launches: K2's with gx to a scratch, then K3's on the rays'
+    points). Planted fault: the pair's hyper head bias gradient dropped
+    must miss the gate."""
     dev, model, pair, level = card
     args, ro = _pair_form_case(dev, model, rng, level, 96, 64, compute_dtype)
     before = k2.nerf_level_train.launches
@@ -3801,11 +3799,9 @@ def test_level_train_pair_form_matches_plain(card, rng, compute_dtype):
     pg_d = k1.deform_pair_vjp(None, pair, gx_d, None, compute_dtype,
                               rays=(ro, args[1], args[4]))
     torch.cuda.synchronize()
-    for a, b in ((rgb_k, rgb_d), (w_k, w_d), (gbg_k, gbg_d)):
+    for a, b in ((rgb_k, rgb_d), (w_k, w_d), (gbg_k, gbg_d), (gse_k, gse_d)):
         assert torch.equal(a, b)
-    if compute_dtype == "float32":
-        assert torch.equal(gse_k, gse_d)
-        assert _trees_equal(g_k, g_d) and _trees_equal(pg_k, pg_d)
+    assert _trees_equal(g_k, g_d) and _trees_equal(pg_k, pg_d)
 
 
 @pytest.mark.cuda

@@ -2,9 +2,8 @@
 level (``csrc/level_train.cu``: K2, K6, K8, K12), of the deformation pair
 (``csrc/deform_pair_vjp.cu``: K3) and of one deformation net, the warp
 field or the hyper sheet (``csrc/skip_mlp.cu``: K14), each built at the
-tile size of its compute dtype (64 points in bf16, the tensor-core kernels
-of ``csrc/mma.cuh`` and ``csrc/skip_tc.cuh``; 32 in float32, the SIMT
-kernels), on the CPU:
+tile size of its compute dtype (64 points in bf16, the tensor-core tiles
+on ``csrc/wgmma.cuh``; 32 in float32, the SIMT kernels), on the CPU:
 
   (a) the activation and gz slots tile each stash block without overlap;
   (b) each slot starts where the tensor-core loads want it: a stash row is
@@ -199,34 +198,37 @@ def _cu_const(path, name):
 
 
 def test_tile_sizes_match_the_cuda_sources():
-    """bf16: the 64-point tile of mma.cuh and wgmma.cuh, which K2/K6/K8/K12
-    (level_train.cu), K3 and K14 (skip_bw.cuh) take; float32: each SIMT
-    kernel's own tile (K3's in pair_bwd.cuh, which K2's pair= form runs on
-    the level's tile: level_train.cu asserts the two equal)."""
-    assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
+    """bf16: the 64-point tile of wgmma.cuh (a warpgroup's product rows),
+    which K2/K6/K8/K12 (level_train.cu's TC_TP), K3 and K14 (skip_bw.cuh)
+    take; float32: each SIMT kernel's own tile (K3's in pair_bwd.cuh)."""
+    assert k2.tile_points(torch.bfloat16) == _cu_const("level_train.cu", "TC_TP") == 64
+    assert "static_assert(TC_TP == wg::ROWS" in _cu_text("level_train.cu")
     assert k2.tile_points(torch.float32) == _cu_const("level_train.cu", "TP") == 32
     assert k2.tile_points(torch.float32) == _cu_const("pair_bwd.cuh", "PAIR_TP") == 32
     assert k2.tile_points(torch.float32) == _cu_const("skip_mlp.cu", "TP_BWD") == 32
-    assert "static_assert(TP == sahs::PAIR_TP" in _cu_text("level_train.cu")
     # float32 K3 keeps pair_bwd.cuh's SIMT tile; bf16 K3 and K14 run the
     # deformation nets' backward tile on wgmma (skip_bw.cuh) and the dW of
-    # level_dw.cuh; skip_tc.cuh's mma.sync routine is K2's pair= fold's alone
-    for src, inc in (("deform_pair_vjp.cu", "pair_bwd.cuh"), ("pair_bwd.cuh", "skip_tc.cuh"),
+    # level_dw.cuh; K2's pair= form calls K3 after the level's backward, so
+    # level_train.cu builds no pair tile of its own
+    for src, inc in (("deform_pair_vjp.cu", "pair_bwd.cuh"), ("pair_bwd.cuh", "train.cuh"),
                      ("deform_pair_vjp.cu", "skip_bw.cuh"), ("skip_mlp.cu", "skip_bw.cuh"),
-                     ("deform_pair_vjp.cu", "level_dw.cuh"), ("skip_mlp.cu", "level_dw.cuh")):
+                     ("deform_pair_vjp.cu", "level_dw.cuh"), ("skip_mlp.cu", "level_dw.cuh"),
+                     ("level_train.cu", "level_dw.cuh"), ("level_train.cu", "wgmma.cuh")):
         with open(os.path.join(CSRC, src)) as fp:
             assert f'#include "{inc}"' in fp.read()
-    assert '#include "skip_tc.cuh"' not in _cu_text("skip_mlp.cu")
+    for inc in ("pair_bwd.cuh", "skip_bw.cuh"):
+        assert f'#include "{inc}"' not in _cu_text("level_train.cu")
     for src, gone in (("deform_pair_vjp.cu", "pair_vjp_tc_kernel"),
                       ("skip_mlp.cu", "skip_vjp_tc_kernel")):
         assert f"{gone}<<<" not in _cu_text(src) and "launch_stash_dw(" not in _cu_text(src)
     assert "constexpr int TP = wg::ROWS;" in _cu_text("skip_bw.cuh")
-    # the width step the K1 and K13 wrappers (the forward tile) and K2's
-    # pair= form (the fold's mma.sync pair tile) check in bf16
-    assert k13.TC_K_STEP == _cu_const("skip_tc.cuh", "SKIP_KS")
+    # the width step the K1 and K13 wrappers check in bf16: the forward
+    # tile's (sk::takes)
+    assert k13.TC_K_STEP == 32
+    assert "(d.n % 32 || d.n > HMAX" in _cu_text("skip_wg.cuh")
     # bf16 K13 and K1: the deformation nets' tile on wgmma (skip_wg.cuh),
     # 64-point tiles (a warpgroup's product rows), launched from the blob's
-    # layer table with one net (K13) or two (K1); no mma.sync forward is left
+    # layer table with one net (K13) or two (K1); no other forward is left
     assert _cu_const("wgmma.cuh", "ROWS") == k2.tile_points(torch.bfloat16)
     assert "constexpr int TP = wg::ROWS;" in _cu_text("skip_wg.cuh")
     for src, fn, nets in (("skip_mlp.cu", "skip_wg_kernel", "1, n_layers, 0"),
@@ -330,7 +332,7 @@ def test_field_kernel_layout_matches_the_cuda_source(models, kind):
     shared memory (a ring of at least two weight stages, each warpgroup's
     A and hidden tiles) fits a block at the flagship's widths, warp-only
     and without the grid."""
-    assert k2.tile_points(torch.bfloat16) == _cu_const("mma.cuh", "TC_TP") == 64
+    assert k2.tile_points(torch.bfloat16) == _cu_const("level_train.cu", "TC_TP") == 64
     assert _cu_const("wgmma.cuh", "ROWS") == 64
     assert _cu_const("level_train.cu", "WG") == 2
     src = _cu_text("level_train.cu")
@@ -786,7 +788,7 @@ def _backward_layout(L, H, B, kx, n_din, n_act):
     c = lambda n: _ns_const("level_train.cu", "bw", n)
     kb, nc = _cu_const("wgmma.cuh", "KB"), _cu_const("wgmma.cuh", "NC")
     wgs, ring_max, smem_max = c("WG"), c("RING_MAX"), c("SMEM_MAX")
-    ldf = _cu_const("mma.cuh", "TC_TP") + 4
+    ldf = _cu_const("level_train.cu", "TC_TP") + 4
     src = _ns_text("level_train.cu", "bw")
     assert "f = (2 * r01 + r2) * wg::BLOCK;" in src
     assert ("per_wg = (f + nf * TC_LDF * 4 + (2 * 4 * NC + 4 * TC_TP) * 4 + 1023) / 1024 * 1024;"
@@ -794,7 +796,7 @@ def _backward_layout(L, H, B, kx, n_din, n_act):
     assert "const int params = (2 * a.H + 4 * (a.n_act + a.L + 12) + 15) / 16 * 16;" in src
     assert "const int fixed = WG * per_wg + params + 16 * RING_MAX + 1024;" in src
     assert "bytes = bar + 16 * RING_MAX + 1024;" in src
-    assert "constexpr int TC_LDF = TC_TP + 4;" in _cu_text("mma.cuh")
+    assert "constexpr int TC_LDF = TC_TP + 4;" in _cu_text("level_train.cu")
     cd = lambda n, d: -(-n // d)
     p8 = lambda n: -(-n // 8) * 8
     hb, bb = cd(H, kb), cd(B, kb)
