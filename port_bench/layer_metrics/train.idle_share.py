@@ -1,0 +1,7 @@
+"""The share of the traced train steps in which no operation ran on the card."""
+
+
+def read(summary, work):
+    if summary["window_s"] <= 0 or summary["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - summary["busy_s"] / summary["window_s"])
