@@ -1686,6 +1686,15 @@ def grid_launch_ms(fn, counter) -> dict:
     return device_ms_by_kernel(fn, launches=20, counter=counter)
 
 
+def windows_note() -> str:
+    """The profiler windows opened so far in this process
+    (``utils/device.profiler_windows``), printed beside each reading of
+    ``device_ms_by_kernel``: a step of more than one between two readings
+    is a window that recorded nothing and was run again."""
+    from sahs_tpu_torch.utils.device import profiler_windows
+    return f" [profiler windows so far: {profiler_windows()}]"
+
+
 def level_train_macs(lw) -> int:
     """Multiply-adds a point of K2: forward, backward chain, dW."""
     return 3 * k5_macs(lw)
@@ -2428,7 +2437,7 @@ def phase12_skip_paths(dev, ds, near, far, time_path, time_frame, report,
             "tflops_achieved": flops / (ms / 1e3) / 1e12, "launch_ms": by}
         print(f"  K14 {name} on the wgmma tile at a step's fine level: {ms:.2f} ms "
               f"({vs_mma_sync(f'K14 {name}', ms)}); by launch (device ms): "
-              f"{json.dumps(by)}", flush=True)
+              f"{json.dumps(by)}{windows_note()}", flush=True)
     ro, rd, z = k15_args
     P_z = z.numel()
     b_ms, b_by = bound(2 * 3 * P_z, (P_z + 6 * ro.shape[0] + 3 * P_z) * 4,
@@ -5000,7 +5009,7 @@ def phase20_variants(dev, report, kernels) -> str:
     print("phase 20 ms a step, bf16 (default, variant, variant, default; 2 warm-up, "
           "10 timed) " + json.dumps(times), flush=True)
     print("phase 20 device ms a step by CUDA kernel (bf16, >= 0.05 ms) "
-          + json.dumps(device), flush=True)
+          + json.dumps(device) + windows_note(), flush=True)
     out["launches"] = launches
     out["seconds"] = time.time() - t0
     report["variants"] = out
@@ -5300,7 +5309,7 @@ def main(argv) -> int:
     kernels[1]["launch_ms"] = device_ms_by_kernel(f_k5, launches=reps,
                                                      counter=k5.nerf_level_forward)
     print(f"nerf_level's launches at the fine chunk (device ms, torch.profiler): "
-          f"{json.dumps(kernels[1]['launch_ms'])}", flush=True)
+          f"{json.dumps(kernels[1]['launch_ms'])}{windows_note()}", flush=True)
     msg = (forward_tile_readings(report) or deform_tile_readings(report)
            or backward_tile_readings(report) or deform_backward_readings(report))
     if msg:
@@ -5566,7 +5575,7 @@ def main(argv) -> int:
         print(f"{key}'s launches (device ms, torch.profiler): {json.dumps(by)}; launch 1 "
               f"(fwd_tc_kernel, wgmma) {l1:.2f} ms at {P_l} points, "
               f"{fl1 / (l1 / 1e3) / 1e12:.1f} TFLOP/s, {100 * b1 / l1:.2f} % of its bound "
-              f"{b1:.3f} ms", flush=True)
+              f"{b1:.3f} ms{windows_note()}", flush=True)
         # launch 3 (the backward tile) and the dW, each beside its bound:
         # launch 3 the transposed products (the forward's multiply-adds but
         # the heads' and the PE's, taken as the forward's), the dW the
@@ -5596,14 +5605,14 @@ def main(argv) -> int:
     print(f"deform_pair_vjp's launches (device ms, torch.profiler): {json.dumps(by)}; the "
           f"tile (pair_bwd_wg_kernel, wgmma) {k3_tile:.2f} ms "
           f"({vs_mma_sync('K3 tile', k3_tile)}), its dW {k3_dw:.2f} ms "
-          f"({vs_mma_sync('K3 dW', k3_dw)})", flush=True)
+          f"({vs_mma_sync('K3 dW', k3_dw)}){windows_note()}", flush=True)
     l1_step = sum(train_kernels[k]["launch_ms"].get("fwd_tc_kernel", 0.0)
                   for k in ("level_train", "level_train_coarse"))
     print(f"launch 1 of K2 a fused step (both levels): {l1_step:.2f} ms "
           f"({vs_mma_sync('fwd_tc_kernel a fused step', l1_step)})", flush=True)
     train_kernels["grid_dg"]["launch_ms"] = grid_launch_ms(lambda: k4.grid_dg(*inp["k4"]), k4.grid_dg)
     print(f"grid_dg's launches at the step's shapes (device ms, torch.profiler): "
-          f"{json.dumps(train_kernels['grid_dg']['launch_ms'])}", flush=True)
+          f"{json.dumps(train_kernels['grid_dg']['launch_ms'])}{windows_note()}", flush=True)
     report["train_kernels"] = train_kernels
     tk = train_kernels
     kernel_step_ms = (tk["level_train"]["ms"] + tk["level_train_coarse"]["ms"]
@@ -5937,7 +5946,8 @@ def main(argv) -> int:
     fb_kernels["grid_dg_coords"]["launch_ms"] = grid_launch_ms(
         lambda: k4.grid_dg_coords(*fb_inp["k9"]), k4.grid_dg_coords)
     print(f"grid_dg_coords' launches at the fine level (device ms, torch.profiler): "
-          f"{json.dumps(fb_kernels['grid_dg_coords']['launch_ms'])}", flush=True)
+          f"{json.dumps(fb_kernels['grid_dg_coords']['launch_ms'])}{windows_note()}",
+          flush=True)
     report["fallback_kernels"] = fb_kernels
     path_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)
                                 + r.get("launches", {}).get(k, 0)) for r in paths.values())
@@ -6135,8 +6145,8 @@ def main(argv) -> int:
     pw_kernels["grid_bwd_fused"]["launch_ms"] = grid_launch_ms(
         lambda: k4.grid_bwd_fused(*pw_inp["k10"]), k4.grid_bwd_fused)
     print(f"grid_bwd_fused's launches at the per-point step's fine level (device ms, "
-          f"torch.profiler): {json.dumps(pw_kernels['grid_bwd_fused']['launch_ms'])}",
-          flush=True)
+          f"torch.profiler): {json.dumps(pw_kernels['grid_bwd_fused']['launch_ms'])}"
+          f"{windows_note()}", flush=True)
     report["pointwise_kernels"] = pw_kernels
     del packed_f, extra_f
     pw_launches = {k: sum(int(r.get("launches_per_step", {}).get(k, 0) * r.get("steps", 0)

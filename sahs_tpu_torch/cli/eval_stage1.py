@@ -20,10 +20,18 @@ evaluation.py:232-242):
 every rank renders its block of each frame's rays (``evaluate_dataset``
 takes the run's group) and only rank 0 writes files. NCCL on CUDA, gloo
 with ``--device cpu``.
+
+Rank 0 ends with one line ``[PROGRAM] {...}``: the process's phase
+aggregates and counters (utils/profiling.snapshot). ``kernels.built``
+is absent (0) when every kernel library was already built (a count
+names a slow start); ``fold.built`` and ``fold.reused`` are the folded weights a run
+built and reused (``serve.frame``'s count gives them a frame);
+``serve.chunks`` the chunks rendered.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -34,6 +42,7 @@ from ..evaluation import evaluate_dataset
 from ..models.nerface import ModelSpec, NeRFaceModel
 from ..parallel import mesh
 from ..utils import checkpoint as ckpt_lib
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.weights import params_from_jax
 from .train_stage1 import build_dataset
@@ -107,7 +116,7 @@ def _evaluate(args, group: mesh.RayGroup):
 
     if group.rank == 0:
         os.makedirs(args.savedir, exist_ok=True)
-    return evaluate_dataset(cfg, spec, model, val_data, args.savedir,
+    result = evaluate_dataset(cfg, spec, model, val_data, args.savedir,
                             background=background,
                             save_disparity=args.save_disparity_image,
                             save_error=args.save_error_image,
@@ -118,6 +127,9 @@ def _evaluate(args, group: mesh.RayGroup):
                             latent_codes=latent_codes,
                             latent_index_map=index_map,
                             frontalize=args.frontalize or None, device=dev)
+    if group.rank == 0:
+        print("[PROGRAM] " + json.dumps(profiling.snapshot(), sort_keys=True), flush=True)
+    return result
 
 
 if __name__ == "__main__":

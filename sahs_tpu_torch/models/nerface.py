@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -23,6 +24,7 @@ from ..config import Config
 from ..ops.encoding import encoded_dim, get_embedding_function
 from ..ops.grid import grid_sample_3d
 from ..ops.rays import pose_to_euler_trans
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import fields
 from .fields import (AudioNet, HyperSheet, HyperSpec, NeRFMLP, NeRFSpec,
@@ -101,18 +103,19 @@ class NeRFaceModel(nn.Module):
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
-        self.spec = spec
-        self.warp = WarpField(spec.warp) if spec.use_warp else None
-        self.hyper = HyperSheet(spec.hyper) if spec.use_ambient else None
-        self.coarse = NeRFMLP(spec.coarse)
-        self.fine = NeRFMLP(spec.fine) if spec.fine is not None else None
-        self.spatial_embeddings = (
-            nn.Parameter(torch.empty(fields.SPATIAL_EMBEDDING_DIM,
-                                     fields.SPATIAL_GRID_RES,
-                                     fields.SPATIAL_GRID_RES,
-                                     fields.SPATIAL_GRID_RES))
-            if spec.use_spatial_embeddings else None)
-        self.audnet = AudioNet() if spec.is_audio else None
+        with profiling.phase("setup.model"):
+            self.spec = spec
+            self.warp = WarpField(spec.warp) if spec.use_warp else None
+            self.hyper = HyperSheet(spec.hyper) if spec.use_ambient else None
+            self.coarse = NeRFMLP(spec.coarse)
+            self.fine = NeRFMLP(spec.fine) if spec.fine is not None else None
+            self.spatial_embeddings = (
+                nn.Parameter(torch.empty(fields.SPATIAL_EMBEDDING_DIM,
+                                         fields.SPATIAL_GRID_RES,
+                                         fields.SPATIAL_GRID_RES,
+                                         fields.SPATIAL_GRID_RES))
+                if spec.use_spatial_embeddings else None)
+            self.audnet = AudioNet() if spec.is_audio else None
 
     @classmethod
     def init(cls, spec: ModelSpec, seed: int = 0,
@@ -230,11 +233,14 @@ class RenderFns(NamedTuple):
     back half on a front half, K7 (K8 in the backward), or for a sample
     count the level kernels do not take the per-point branch: the grid
     sample, then K11 (K12 and K10 in the backward) (None on the plain
-    path)."""
+    path);
+    folded: the FoldedCache the evaluators fold their weights into (None
+    on the plain path)."""
     field_fn: Optional[Callable]
     level_fn: Optional[Callable]
     front_fn: Optional[Callable] = None
     nerf_fn: Optional[Callable] = None
+    folded: Optional["FoldedCache"] = None
 
 
 # The sample counts the level kernels (K5-K8) take on the JAX package's
@@ -252,17 +258,25 @@ def level_kernel_compatible(samples: int) -> bool:
 class FoldedCache:
     """Per-frame folded weights and tables, each rebuilt once one of its
     source parameters has changed in place: an optimizer step bumps a
-    parameter's version counter, so a cached blob never outlives it."""
+    parameter's version counter, so a cached blob never outlives it. A
+    build runs in the span ``serve.fold``, counts ``fold.built`` and adds
+    its host seconds to ``seconds``; a hit counts ``fold.reused``."""
 
     def __init__(self):
         self._items = {}
+        self.seconds = 0.0
 
     def get(self, key, sources, build):
         version = tuple(p._version for p in sources)
         hit = self._items.get(key)
         if hit is None or hit[0] != version:
-            with torch.no_grad():
+            profiling.count("fold.built")
+            t0 = time.perf_counter()
+            with torch.no_grad(), profiling.span("serve.fold"):
                 hit = self._items[key] = (version, build())
+            self.seconds += time.perf_counter() - t0
+        else:
+            profiling.count("fold.reused")
         return hit[1]
 
 
@@ -422,7 +436,7 @@ def make_render_fns(model: NeRFaceModel, driving_or_audio: torch.Tensor,
     def field_fn(level, pts_flat, dirs_ray, samples):
         return nerf_fn(level, front_half(pts_flat, samples), dirs_ray, samples)
 
-    return RenderFns(field_fn, level_fn, front_half, nerf_fn)
+    return RenderFns(field_fn, level_fn, front_half, nerf_fn, folded)
 
 
 def make_field_fn(model: NeRFaceModel, driving_or_audio: torch.Tensor,

@@ -5,7 +5,11 @@ Each ``csrc/<name>.cu`` is compiled on its own by nvcc into
 interface) and loaded with ctypes; every pointer and the stream cross as
 ``c_void_p``. The hash covers the sources and flags, so an edited kernel is
 rebuilt and an unchanged one is reused. ``build_all`` starts one nvcc per
-source, all at once.
+source, all at once, in the phase ``setup.kernels``; each nvcc run counts
+``kernels.built`` and each library loaded ``kernels.loaded``
+(utils/profiling). ``function`` is the one route to the C entry points:
+each call it returns runs in the span ``launch.<symbol>``, around the
+ctypes call alone.
 
 Fast-math flags stay off: the kernels' positional encoding needs the
 accurate float32 sine at angles up to 2^9 |x|.
@@ -17,7 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ...utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,7 +35,7 @@ KERNELS = ("deform_pair", "nerf_level", "level_train", "deform_pair_vjp",
            "exp_pair2")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_FUNCS: Dict[Tuple[str, str], object] = {}
+_FUNCS: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -66,6 +72,7 @@ def _start(name: str) -> Optional[subprocess.Popen]:
     log = open(os.path.join(BUILD_DIR, name + ".log"), "w")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    profiling.count("kernels.built")
     proc.sahs_name, proc.sahs_tmp, proc.sahs_target, proc.sahs_log = (
         name, tmp, target, log)
     return proc
@@ -83,15 +90,16 @@ def _finish(proc: subprocess.Popen) -> None:
 
 def build_all() -> None:
     """Build every kernel library, one nvcc per source, in parallel."""
-    procs = [p for p in (_start(n) for n in KERNELS) if p is not None]
-    try:
-        for p in procs:
-            _finish(p)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    with profiling.phase("setup.kernels"):
+        procs = [p for p in (_start(n) for n in KERNELS) if p is not None]
+        try:
+            for p in procs:
+                _finish(p)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
 
 
 def build_log(name: str) -> str:
@@ -111,24 +119,36 @@ def load(name: str) -> ctypes.CDLL:
         if proc is not None:
             _finish(proc)
         lib = ctypes.CDLL(_target(name))
+        profiling.count("kernels.loaded")
         _LIBS[name] = lib
     return lib
 
 
-def function(name: str, symbol: str, argtypes: str):
+def function(name: str, symbol: str, argtypes: str) -> Callable[..., int]:
     """C function ``symbol`` of kernel library ``name``, resolved and typed
     once and then kept. ``argtypes`` spells the signature, one letter per
     argument: p pointer (and stream), i int, l long long, f float. The
-    result is the launch's cudaError_t."""
-    fn = _FUNCS.get((name, symbol))
-    if fn is None:
+    result is the launch's cudaError_t. Each call runs in the span
+    ``launch.<symbol>``, which holds the ctypes call alone: the kernels it
+    launches are owned by that span in a trace. The typed C function is
+    the callable's ``fn``."""
+    call = _FUNCS.get((name, symbol))
+    if call is None:
         fn = getattr(load(name), symbol)
         kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
                  "l": ctypes.c_longlong, "f": ctypes.c_float}
         fn.argtypes = [kinds[c] for c in argtypes]
         fn.restype = ctypes.c_int
-        _FUNCS[(name, symbol)] = fn
-    return fn
+        call = _FUNCS[(name, symbol)] = _launch_span(fn, "launch." + symbol)
+    return call
+
+
+def _launch_span(fn, span_name: str) -> Callable[..., int]:
+    def call(*args):
+        with profiling.span(span_name):
+            return fn(*args)
+    call.fn = fn
+    return call
 
 
 def check(rc: int, what: str) -> None:

@@ -16,6 +16,16 @@ explicit ``torch.Generator``; tests can inject them instead.
 the fields and the compositing carry gradients into the model, the driving
 input, the latent code and the background prior, while z and the
 importance samples stay detached (the JAX package's stop_gradient).
+
+Spans (utils/profiling): a frame runs in the phase ``serve.frame``, its
+conditioning (``make_render_fns``) in the phase ``serve.cond``, each chunk
+in ``serve.chunk`` (counted by ``serve.chunks``) and the final
+concatenation in ``serve.gather``; the frame's folds (``serve.fold``
+spans, lazily inside its first chunk) add their host seconds to the
+aggregate ``serve.fold`` once a frame; inside a chunk, ``serve.z``,
+``serve.importance``, ``serve.merge`` (the sort and the merge of the fine
+z) and ``serve.reduce`` (depth, acc and disp after K5) mark the pipeline's
+own ops between the kernels' ``launch.*`` spans.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from ..models import nerface
 from ..models.nerface import NeRFaceModel
 from ..ops.rendering import RenderOutputs, volume_render_radiance_field
 from ..ops.sampling import coarse_z_vals, merge_z_vals, sample_pdf
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,12 +191,13 @@ def _render_rays(model, settings, ray_origins, ray_directions, near, far,
             # oracle's
             rgb_map, weights = level_fn(level, points(z_vals), ray_directions,
                                         S, z_vals, background_prior, noise)
-            rgb = rgb_map[:, :15]
-            depth = torch.sum(weights * z_vals, dim=-1)
-            acc = torch.sum(weights, dim=-1)
-            disp = 1.0 / torch.clamp(depth / acc, min=1e-10)
-            if settings.white_background:
-                rgb = rgb + (1.0 - acc[..., None])
+            with profiling.span("serve.reduce"):
+                rgb = rgb_map[:, :15]
+                depth = torch.sum(weights * z_vals, dim=-1)
+                acc = torch.sum(weights, dim=-1)
+                disp = 1.0 / torch.clamp(depth / acc, min=1e-10)
+                if settings.white_background:
+                    rgb = rgb + (1.0 - acc[..., None])
             return RenderOutputs(rgb, disp, acc, weights, depth)
         if raw is None:
             raw = fns.field_fn(level, points(z_vals), ray_directions, S)
@@ -200,7 +212,7 @@ def _render_rays(model, settings, ray_origins, ray_directions, near, far,
             white_background=settings.white_background,
             background_prior=background_prior, noise=noise)
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("serve.z"):
         z_coarse = coarse_z_vals(nearv, farv, settings.num_coarse,
                                  lindisp=settings.lindisp,
                                  perturb=settings.perturb,
@@ -217,7 +229,7 @@ def _render_rays(model, settings, ray_origins, ray_directions, near, far,
     if settings.num_fine <= 0 or model.fine is None:
         return RayRenderResult(coarse.rgb, coarse.disp, coarse.acc,
                                None, None, None, coarse.weights, None)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("serve.importance"):
         z_mid = 0.5 * (z_coarse[..., 1:] + z_coarse[..., :-1])
         z_samples = sample_pdf(z_mid, coarse.weights[..., 1:-1].detach(),
                                settings.num_fine, det=(not settings.perturb),
@@ -232,13 +244,15 @@ def _render_rays(model, settings, ray_origins, ray_directions, near, far,
                       dim=1).reshape(num_rays * S, -1)
             for c, n in zip(fh_coarse, fh_new))
         raw_f = fns.nerf_fn("fine", fh_fine, ray_directions, S)
-        z_fine, perm = torch.sort(torch.cat([z_coarse, z_samples], dim=-1),
-                                  dim=-1, stable=True)
-        raw_sorted = permute_samples(raw_f.reshape(num_rays, S, -1), perm)
+        with profiling.span("serve.merge"):
+            z_fine, perm = torch.sort(torch.cat([z_coarse, z_samples], dim=-1),
+                                      dim=-1, stable=True)
+            raw_sorted = permute_samples(raw_f.reshape(num_rays, S, -1), perm)
         fine = run_level("fine", z_fine, draws.noise_fine, raw=raw_sorted)
     else:
-        fine = run_level("fine", merge_z_vals(z_coarse, z_samples),
-                         draws.noise_fine)
+        with profiling.span("serve.merge"):
+            z_fine = merge_z_vals(z_coarse, z_samples)
+        fine = run_level("fine", z_fine, draws.noise_fine)
     return RayRenderResult(coarse.rgb, coarse.disp, coarse.acc,
                            fine.rgb, fine.disp, fine.acc,
                            fine.weights, fine.depth)
@@ -269,28 +283,34 @@ def render_rays_chunked(model: NeRFaceModel, settings: RenderSettings,
     R = ray_origins.shape[0]
     outs = []
     with torch.no_grad():
-        fns = nerface.make_render_fns(
-            model, driving_or_audio, pose, latent_code=latent_code,
-            use_pallas=settings.use_pallas,
-            compute_dtype=settings.compute_dtype)
+        with profiling.phase("serve.cond"):
+            fns = nerface.make_render_fns(
+                model, driving_or_audio, pose, latent_code=latent_code,
+                use_pallas=settings.use_pallas,
+                compute_dtype=settings.compute_dtype)
         for start in range(0, R, chunksize):
             sl = slice(start, min(start + chunksize, R))
             bg = background_prior[sl] if background_prior is not None else None
-            if ray_group is None:
-                outs.append(render_rays(model, settings, ray_origins[sl],
-                                        ray_directions[sl], near, far,
-                                        driving_or_audio, pose,
-                                        generator=generator,
-                                        background_prior=bg,
-                                        latent_code=latent_code, fns=fns))
-            else:
-                outs.append(_render_chunk_sharded(
-                    model, settings, ray_origins[sl], ray_directions[sl], near,
-                    far, driving_or_audio, pose, generator, bg, latent_code,
-                    fns, ray_group))
-    return RayRenderResult(*[
-        None if parts[0] is None else torch.cat(parts, dim=0)
-        for parts in zip(*outs)])
+            profiling.count("serve.chunks")
+            with profiling.span("serve.chunk"):
+                if ray_group is None:
+                    outs.append(render_rays(model, settings, ray_origins[sl],
+                                            ray_directions[sl], near, far,
+                                            driving_or_audio, pose,
+                                            generator=generator,
+                                            background_prior=bg,
+                                            latent_code=latent_code, fns=fns))
+                else:
+                    outs.append(_render_chunk_sharded(
+                        model, settings, ray_origins[sl], ray_directions[sl], near,
+                        far, driving_or_audio, pose, generator, bg, latent_code,
+                        fns, ray_group))
+        if fns.folded is not None:
+            profiling.add("serve.fold", fns.folded.seconds)
+    with profiling.span("serve.gather"):
+        return RayRenderResult(*[
+            None if parts[0] is None else torch.cat(parts, dim=0)
+            for parts in zip(*outs)])
 
 
 def full_draws(settings: RenderSettings, n: int, fine: bool, generator, device,
@@ -364,15 +384,17 @@ def render_image(model: NeRFaceModel, settings: RenderSettings, H: int, W: int,
     train_utils.py:303-319). background: (H, W, 15) or None. ``ray_group``:
     each rank renders its block of every chunk (render_rays_chunked)."""
     from ..ops.rays import get_ray_bundle, ndc_rays
-    ro, rd = get_ray_bundle(H, W, intrinsics, pose)
-    if settings.use_ndc:
-        ro, rd = ndc_rays(H, W, intrinsics, 1.0, ro, rd)
-    bg = background.reshape(-1, background.shape[-1]) if background is not None else None
-    res = render_rays_chunked(model, settings, ro.reshape(-1, 3),
-                              rd.reshape(-1, 3), near, far, driving_or_audio,
-                              pose, generator=generator, background_prior=bg,
-                              latent_code=latent_code, chunksize=chunksize,
-                              ray_group=ray_group)
+    with profiling.phase("serve.frame"):
+        ro, rd = get_ray_bundle(H, W, intrinsics, pose)
+        if settings.use_ndc:
+            ro, rd = ndc_rays(H, W, intrinsics, 1.0, ro, rd)
+        bg = (background.reshape(-1, background.shape[-1])
+              if background is not None else None)
+        res = render_rays_chunked(model, settings, ro.reshape(-1, 3),
+                                  rd.reshape(-1, 3), near, far, driving_or_audio,
+                                  pose, generator=generator, background_prior=bg,
+                                  latent_code=latent_code, chunksize=chunksize,
+                                  ray_group=ray_group)
 
     def img(x):
         if x is None:

@@ -189,7 +189,7 @@ def _deform_times(dev, reps: int = 3, by_launch: bool = False,
     from sahs_tpu_torch.ops.kernels import deform_pair as k1
     from sahs_tpu_torch.ops.kernels import skip_mlp as k13
     from sahs_tpu_torch.ops.kernels.field_mlp import kernel_pe
-    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel
+    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel, profiler_windows
 
     spec = nerface.ModelSpec.from_config(Config())
     model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
@@ -220,6 +220,7 @@ def _deform_times(dev, reps: int = 3, by_launch: bool = False,
                "bound_ms": bound, "bound_share": bound / ms}
         if by_launch:
             out["launch_ms"] = device_ms_by_kernel(fn, 5, counter=counter)
+            out["profiler_windows"] = profiler_windows()
         return out
 
     out = {}
@@ -310,7 +311,7 @@ def _fold_times(dev, reps: int = 3) -> dict:
     from sahs_tpu_torch.ops.kernels.nerf_level import composite_plain
     from sahs_tpu_torch.ops.kernels.points import build_pts_plain
     from sahs_tpu_torch.train.fused import _level_loss
-    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel
+    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel, profiler_windows
 
     spec = nerface.ModelSpec.from_config(Config())
     model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
@@ -374,6 +375,7 @@ def _fold_times(dev, reps: int = 3) -> dict:
            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes, "gx_scratch_bytes": P * 5 * 4}
     out["library_ms"] = out["library_k2_ms"] + out["library_k3_rays_ms"]
+    out["profiler_windows"] = profiler_windows()
     out["bound_share"] = out["bound_ms"] / out["ms"]
     return out
 
@@ -509,7 +511,7 @@ def _launch1_times(dev, launches: int = 5) -> dict:
     from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
     from sahs_tpu_torch.ops.kernels import level_train as k2
     from sahs_tpu_torch.ops.kernels import nerf_level as k5
-    from sahs_tpu_torch.utils.device import device_ms_by_kernel
+    from sahs_tpu_torch.utils.device import device_ms_by_kernel, profiler_windows
 
     spec = nerface.ModelSpec.from_config(Config())
     model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
@@ -549,6 +551,7 @@ def _launch1_times(dev, launches: int = 5) -> dict:
     out["K12 fine"] = device_ms_by_kernel(lambda: k2.nerf_mlp_vjp(pts, extra, gg, level,
                                                                   "bfloat16"),
                                           launches, counter=k2.nerf_mlp_vjp)
+    out["profiler_windows"] = profiler_windows()
     return out
 
 
@@ -878,7 +881,7 @@ def _grid_times(dev, reps: int = 20) -> dict:
     from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
     from sahs_tpu_torch.ops.kernels import grid_bwd as k4
     from sahs_tpu_torch.ops.rays import get_rays_at
-    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel
+    from sahs_tpu_torch.utils.device import cuda_ms, device_ms_by_kernel, profiler_windows
 
     rng = np.random.RandomState(2)
     g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
@@ -897,8 +900,9 @@ def _grid_times(dev, reps: int = 20) -> dict:
         return torch.cat([xyz, g(rng.uniform(-1, 1, (R * S, 2)))], 1)
 
     def reading(fn, counter=None, reps=reps):
-        return {"ms": cuda_ms(fn, reps, runs=3),
-                "launch_ms": device_ms_by_kernel(fn, launches=reps, counter=counter)}
+        by = device_ms_by_kernel(fn, launches=reps, counter=counter)
+        return {"ms": cuda_ms(fn, reps, runs=3), "launch_ms": by,
+                "profiler_windows": profiler_windows()}
 
     out = {}
     R = 2048
@@ -1042,9 +1046,11 @@ def _step_traces(paths=("fused", "fallback", "pointwise"), n_steps: int = 3,
         for v in variants:
             name = path if v == "default" else f"{path} {v}"
             res = steps.trace_train_step(n_steps, path, v)
+            kernels = {}
+            for k in res["kernels"]:     # a kernel may have a row for each launching span
+                kernels[k["name"]] = kernels.get(k["name"], 0.0) + k["ms_per_step"]
             out[name] = {"step_ms": res["step_ms"], "kernel_ms": res["kernel_ms"],
-                         "idle_share": res["idle_share"],
-                         "kernels": {k["name"]: k["ms_per_step"] for k in res["kernels"]}}
+                         "idle_share": res["idle_share"], "kernels": kernels}
     return out
 
 

@@ -83,6 +83,7 @@ from ..ops.kernels.level_train import level_train_apply
 from ..ops.kernels.nerf_level import level_param_grads
 from ..ops.kernels.points import build_pts
 from ..ops.sampling import coarse_z_vals, sample_pdf
+from ..utils import profiling
 
 
 # The JAX package's structural switches (fused.py:128-175), read at import
@@ -260,11 +261,12 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
             injected = torch.randn(shape, generator=generator, device=dev)
         return injected * fcfg.noise_std
 
-    nearv = torch.full((R,), fcfg.near, device=dev)
-    farv = torch.full((R,), fcfg.far, device=dev)
-    z_c = coarse_z_vals(nearv, farv, Sc, lindisp=fcfg.lindisp,
-                        perturb=fcfg.perturb, generator=generator,
-                        t_rand=draws.t_rand)
+    with profiling.span("fused.z"):
+        nearv = torch.full((R,), fcfg.near, device=dev)
+        farv = torch.full((R,), fcfg.far, device=dev)
+        z_c = coarse_z_vals(nearv, farv, Sc, lindisp=fcfg.lindisp,
+                            perturb=fcfg.perturb, generator=generator,
+                            t_rand=draws.t_rand)
     pts_c, rays_c = pair_points(z_c)
     packed_c, rows_c = pair_forward(pts_c, rays_c, Sc, dims)
     cond_c, parts_c = nerf_cond(spec.coarse)
@@ -274,9 +276,10 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         noise_for(z_c.shape, draws.noise_coarse), tgt, lw, pts_pe, dir_pe,
         cdt, dims, 0.0, pair=fold)
 
-    z_mid = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
-    z_new = sample_pdf(z_mid, w_c[..., 1:-1], Sn, det=not fcfg.perturb,
-                       generator=generator, u=draws.u)
+    with profiling.span("fused.z"):
+        z_mid = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
+        z_new = sample_pdf(z_mid, w_c[..., 1:-1], Sn, det=not fcfg.perturb,
+                           generator=generator, u=draws.u)
     bg_sup = (fcfg.bg_sup_weight / (fcfg.num_rays or R)
               if (fcfg.bg_sup_weight > 0 and bg is not None) else 0.0)
     z_cat = torch.cat([z_c, z_new], dim=-1)
@@ -284,17 +287,19 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         # the union [coarse | new] of each ray, permuted into z order
         pts_n = points(z_new)
         packed_n, _ = pair_forward(pts_n, None, Sn, None)
-        perm = torch.argsort(z_cat, dim=-1, stable=True)
-        z_f = torch.gather(z_cat, 1, perm)
-        packed_u = torch.cat([packed_c.reshape(R, Sc, -1),
-                              packed_n.reshape(R, Sn, -1)], dim=1)
-        packed_f = torch.gather(packed_u, 1, perm[..., None].expand(
-            -1, -1, packed_u.shape[-1])).reshape(R * Sf, -1)
-        rows_f = (None if dims is None else
-                  _cell_geometry(packed_f[:, :3], dims)[0].to(torch.int32)
-                  .reshape(R, Sf))
+        with profiling.span("fused.sort"):
+            perm = torch.argsort(z_cat, dim=-1, stable=True)
+            z_f = torch.gather(z_cat, 1, perm)
+            packed_u = torch.cat([packed_c.reshape(R, Sc, -1),
+                                  packed_n.reshape(R, Sn, -1)], dim=1)
+            packed_f = torch.gather(packed_u, 1, perm[..., None].expand(
+                -1, -1, packed_u.shape[-1])).reshape(R * Sf, -1)
+            rows_f = (None if dims is None else
+                      _cell_geometry(packed_f[:, :3], dims)[0].to(torch.int32)
+                      .reshape(R, Sf))
     else:
-        z_f = torch.sort(z_cat, dim=-1, stable=True).values
+        with profiling.span("fused.sort"):
+            z_f = torch.sort(z_cat, dim=-1, stable=True).values
         pts_f, rays_f = pair_points(z_f)
         packed_f, rows_f = pair_forward(pts_f, rays_f, Sf, dims)
     cond_f, parts_f = nerf_cond(spec.fine)
@@ -326,13 +331,15 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
         # coarse cotangents into their sorted-fine slots: slot(j) = j +
         # #{z_new < z_c[j]}, ties coarse-first as the stable sort puts them;
         # one term per sum, so the scatter is exact
-        pos_c = (torch.arange(Sc, device=dev)[None, :]
-                 + torch.sum(z_new[:, None, :] < z_c[:, :, None], dim=-1))
-        slot = (torch.arange(R, device=dev)[:, None] * Sf + pos_c).reshape(-1)
-        gx_add = torch.zeros_like(gx_f).index_add_(0, slot, gx_c)
+        with profiling.span("fused.scatter"):
+            pos_c = (torch.arange(Sc, device=dev)[None, :]
+                     + torch.sum(z_new[:, None, :] < z_c[:, :, None], dim=-1))
+            slot = (torch.arange(R, device=dev)[:, None] * Sf + pos_c).reshape(-1)
+            gx_add = torch.zeros_like(gx_f).index_add_(0, slot, gx_c)
         pair_g = pair_vjp(pts_f, rays_f, gx_f, gx_add)
         if grid is not None:
-            gse_add = torch.zeros_like(gse_f).index_add_(0, slot, gse_c)
+            with profiling.span("fused.scatter"):
+                gse_add = torch.zeros_like(gse_f).index_add_(0, slot, gse_c)
             dG = grid_dg(packed_f, rows_f, gse_f, gse_add, grid.shape)
     else:
         # per level: the fold's trees from K2, or K3 on each level's points
@@ -342,16 +349,17 @@ def fused_forward(model: NeRFaceModel, fcfg: FusedCfg, driving, pose_enc,
             dG = (grid_dg(packed_c, rows_c, gse_c, None, grid.shape)
                   + grid_dg(packed_f, rows_f, gse_f, None, grid.shape))
 
-    grads, dcond = pair_param_grads(model.warp, model.hyper, pair_g, cond_pair)
-    d_driving = _cond_parts(dcond, pair_parts, torch.zeros_like(driving))
-    level_param_grads(grads, model.coarse, grads_c)
-    level_param_grads(grads, model.fine, grads_f)
-    d_driving = _cond_parts(dcond_c, parts_c, d_driving)
-    d_driving = _cond_parts(dcond_f, parts_f, d_driving)
-    d_latent = None
-    if latent is not None:
-        d_latent = _cond_parts(dcond_c, parts_c, torch.zeros_like(latent), "latent")
-        d_latent = _cond_parts(dcond_f, parts_f, d_latent, "latent")
+    with profiling.span("fused.unfold"):
+        grads, dcond = pair_param_grads(model.warp, model.hyper, pair_g, cond_pair)
+        d_driving = _cond_parts(dcond, pair_parts, torch.zeros_like(driving))
+        level_param_grads(grads, model.coarse, grads_c)
+        level_param_grads(grads, model.fine, grads_f)
+        d_driving = _cond_parts(dcond_c, parts_c, d_driving)
+        d_driving = _cond_parts(dcond_f, parts_f, d_driving)
+        d_latent = None
+        if latent is not None:
+            d_latent = _cond_parts(dcond_c, parts_c, torch.zeros_like(latent), "latent")
+            d_latent = _cond_parts(dcond_f, parts_f, d_latent, "latent")
     if grid is not None:
         grads[model.spatial_embeddings] = dG
 

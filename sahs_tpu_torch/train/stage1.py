@@ -55,6 +55,7 @@ from ..ops.rays import get_rays_at, ndc_rays
 from ..ops.sampling import (bbox_ray_probs, gather_rays, semantic_ray_probs,
                             weighted_ray_indices)
 from ..render.pipeline import Draws, RenderSettings, full_draws, render_rays
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.seg import NUM_CLASSES
 from .fused import (FusedCfg, TrainDraws, ray_loss_weights, stage1_fused,
@@ -201,47 +202,58 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
     from ``generator`` unless given in ``draws``. ``ray_group``
     (parallel/mesh.RayGroup): this rank renders its block of the rays
     (module note). Returns (state, metrics); the model's ``.grad`` fields
-    hold the step's gradients afterwards (summed over the ranks)."""
+    hold the step's gradients afterwards (summed over the ranks). The
+    step runs in the phase ``train.step``, its parts in the spans
+    ``train.pick``, ``train.draws``, ``train.forward``, ``train.losses``,
+    ``train.backward``, ``train.reduce``, ``train.adam`` and
+    ``train.sample_prob``."""
+    with profiling.phase("train.step"):
+        return _train_step(state, batch, spec, ts, generator, draws, ray_group)
+
+
+def _train_step(state, batch, spec, ts, generator, draws, ray_group):
     model = state.model
     dev = next(model.parameters()).device
     b = _as_batch(batch, dev)
     H, W = b["image"].shape[:2]
     mask_img = b["mask"].to(torch.float32)
-    if ts.dynamic_sampling:
-        probs = semantic_ray_probs(state.sample_prob, mask_img)
-    elif "bbox" in b:
-        probs = bbox_ray_probs(b["bbox"], H, W)
-    else:
-        probs = torch.full((H, W), 1.0 / (H * W), device=dev)
-    idx = weighted_ray_indices(probs.reshape(-1), ts.num_random_rays,
-                               generator=generator, gumbel=draws.gumbel)
-    bg_img = b.get("background")
-    if ts.train_background and state.background is not None:
-        bg_img = state.background
-    use_bg = (ts.fixed_background or ts.train_background) and bg_img is not None
-    ro, rd = get_rays_at(idx, H, W, b["intrinsics"], b["pose"])
-    if ts.render.use_ndc:
-        ro, rd = ndc_rays(H, W, b["intrinsics"], 1.0, ro, rd)
-    target_s, mask_s = gather_rays(idx, b["image"], mask_img)
-    bg_r = gather_rays(idx, bg_img)[0] if use_bg else None
+    with profiling.span("train.pick"):
+        if ts.dynamic_sampling:
+            probs = semantic_ray_probs(state.sample_prob, mask_img)
+        elif "bbox" in b:
+            probs = bbox_ray_probs(b["bbox"], H, W)
+        else:
+            probs = torch.full((H, W), 1.0 / (H * W), device=dev)
+        idx = weighted_ray_indices(probs.reshape(-1), ts.num_random_rays,
+                                   generator=generator, gumbel=draws.gumbel)
+        bg_img = b.get("background")
+        if ts.train_background and state.background is not None:
+            bg_img = state.background
+        use_bg = (ts.fixed_background or ts.train_background) and bg_img is not None
+        ro, rd = get_rays_at(idx, H, W, b["intrinsics"], b["pose"])
+        if ts.render.use_ndc:
+            ro, rd = ndc_rays(H, W, b["intrinsics"], 1.0, ro, rd)
+        target_s, mask_s = gather_rays(idx, b["image"], mask_img)
+        bg_r = gather_rays(idx, bg_img)[0] if use_bg else None
     cw = class_weights(ts, dev)
     fused = ts.fused_grads and stage1_fused_eligible(spec, ts.render)
-    # every draw of the step up front, in the order and at the shapes the
-    # render takes them, so that a rank's block of them is the single step's
-    d = full_draws(ts.render, idx.shape[0], fused or model.fine is not None,
-                   generator, dev, Draws(draws.t_rand, draws.u,
-                                         draws.noise_coarse, draws.noise_fine))
-    draws = TrainDraws(None, d.t_rand, d.u, d.noise_coarse, d.noise_fine)
-    sharded = ray_group is not None and ray_group.world > 1
-    lw, norm = _batch_normalisers(ts, mask_s, fused, sharded)
-    rays = None if norm is None else norm[0]
-    if sharded:
-        sl = _ray_block(ray_group, idx.shape[0])
-        ro, rd, target_s, mask_s = ro[sl], rd[sl], target_s[sl], mask_s[sl]
-        bg_r = None if bg_r is None else bg_r[sl]
-        lw = None if lw is None else lw[sl]
-        draws = TrainDraws(None, *(None if d is None else d[sl]
-                                   for d in draws[1:]))
+    with profiling.span("train.draws"):
+        # every draw of the step up front, in the order and at the shapes the
+        # render takes them, so that a rank's block of them is the single step's
+        d = full_draws(ts.render, idx.shape[0], fused or model.fine is not None,
+                       generator, dev, Draws(draws.t_rand, draws.u,
+                                             draws.noise_coarse, draws.noise_fine))
+        draws = TrainDraws(None, d.t_rand, d.u, d.noise_coarse, d.noise_fine)
+        sharded = ray_group is not None and ray_group.world > 1
+        lw, norm = _batch_normalisers(ts, mask_s, fused, sharded)
+        rays = None if norm is None else norm[0]
+        if sharded:
+            sl = _ray_block(ray_group, idx.shape[0])
+            ro, rd, target_s, mask_s = ro[sl], rd[sl], target_s[sl], mask_s[sl]
+            bg_r = None if bg_r is None else bg_r[sl]
+            lw = None if lw is None else lw[sl]
+            draws = TrainDraws(None, *(None if d is None else d[sl]
+                                       for d in draws[1:]))
 
     state.optimizer.zero_grad(set_to_none=True)
     latent = None
@@ -249,45 +261,49 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
             and state.latent_codes is not None):
         latent = state.latent_codes[b["frame_idx"].long()]
     sup = ts.supervised_train_background and bg_r is not None
-    if fused:
-        driving = compute_driving(model, b["driving"])
-        pose_enc = encode_pose(b["pose"])
-        tgt15 = torch.cat([target_s[..., :3], mask_s], dim=-1)
-        fcfg = FusedCfg(num_coarse=ts.render.num_coarse,
-                        num_fine=ts.render.num_fine, near=ts.near, far=ts.far,
-                        perturb=ts.render.perturb,
-                        noise_std=ts.render.radiance_field_noise_std,
-                        lindisp=ts.render.lindisp,
-                        compute_dtype=ts.render.compute_dtype,
-                        bg_sup_weight=ts.background_loss_weight if sup else 0.0,
-                        num_rays=rays)
-        loss, rgb_c, rgb_f, weights = stage1_fused(
-            model, fcfg, driving, pose_enc, ro, rd, tgt15, lw, bg_r, generator,
-            draws, latent)
-    else:
-        # the autograd fallback (stage1.py:256-294)
-        res = render_rays(model, ts.render, ro, rd, ts.near, ts.far,
-                          b["driving"], b["pose"], generator=generator,
-                          background_prior=bg_r, latent_code=latent,
-                          draws=Draws(draws.t_rand, draws.u, draws.noise_coarse,
-                                      draws.noise_fine),
-                          differentiable=True)
-        rgb_c, rgb_f, weights = res.rgb_coarse, res.rgb_fine, res.weights
-        loss = _stage1_losses(ts, rgb_c, mask_s, target_s, cw, norm)[0]
-        if rgb_f is not None:
-            loss = loss + _stage1_losses(ts, rgb_f, mask_s, target_s, cw, norm)[0]
-        if sup:
-            loss = loss + _bg_loss(ts, bg_r, target_s, weights, rays)
-    # the regularisers count once over the ranks
-    once = ray_group is None or ray_group.rank == 0
-    if ts.regularize_latent_codes and latent is not None and once:
-        loss = loss + 10.0 * ts.latent_reg_weight * torch.linalg.norm(latent)
-    if ts.regularize_spatial_embedding and ts.use_spatial_embeddings and once:
-        loss = loss + 10.0 * ts.spatial_reg_weight * torch.linalg.norm(
-            model.spatial_embeddings)
-    loss.backward()
+    with profiling.span("train.forward"):
+        if fused:
+            driving = compute_driving(model, b["driving"])
+            pose_enc = encode_pose(b["pose"])
+            tgt15 = torch.cat([target_s[..., :3], mask_s], dim=-1)
+            fcfg = FusedCfg(num_coarse=ts.render.num_coarse,
+                            num_fine=ts.render.num_fine, near=ts.near, far=ts.far,
+                            perturb=ts.render.perturb,
+                            noise_std=ts.render.radiance_field_noise_std,
+                            lindisp=ts.render.lindisp,
+                            compute_dtype=ts.render.compute_dtype,
+                            bg_sup_weight=ts.background_loss_weight if sup else 0.0,
+                            num_rays=rays)
+            loss, rgb_c, rgb_f, weights = stage1_fused(
+                model, fcfg, driving, pose_enc, ro, rd, tgt15, lw, bg_r, generator,
+                draws, latent)
+        else:
+            # the autograd fallback (stage1.py:256-294)
+            res = render_rays(model, ts.render, ro, rd, ts.near, ts.far,
+                              b["driving"], b["pose"], generator=generator,
+                              background_prior=bg_r, latent_code=latent,
+                              draws=Draws(draws.t_rand, draws.u, draws.noise_coarse,
+                                          draws.noise_fine),
+                              differentiable=True)
+            rgb_c, rgb_f, weights = res.rgb_coarse, res.rgb_fine, res.weights
+    with profiling.span("train.losses"):
+        if not fused:
+            loss = _stage1_losses(ts, rgb_c, mask_s, target_s, cw, norm)[0]
+            if rgb_f is not None:
+                loss = loss + _stage1_losses(ts, rgb_f, mask_s, target_s, cw, norm)[0]
+            if sup:
+                loss = loss + _bg_loss(ts, bg_r, target_s, weights, rays)
+        # the regularisers count once over the ranks
+        once = ray_group is None or ray_group.rank == 0
+        if ts.regularize_latent_codes and latent is not None and once:
+            loss = loss + 10.0 * ts.latent_reg_weight * torch.linalg.norm(latent)
+        if ts.regularize_spatial_embedding and ts.use_spatial_embeddings and once:
+            loss = loss + 10.0 * ts.spatial_reg_weight * torch.linalg.norm(
+                model.spatial_embeddings)
+    with profiling.span("train.backward"):
+        loss.backward()
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("train.reduce"):
         _, c_l2, c_ce, c_ml2w, c_mcew = _stage1_losses(ts, rgb_c.detach(),
                                                        mask_s, target_s, cw, norm)
         f_l2, f_ce, prob_num = c_l2, c_ce, c_ml2w + c_mcew
@@ -305,9 +321,10 @@ def train_step(state: TrainState, batch: Dict[str, Any], spec: ModelSpec,
     if state.lr_fn is not None:
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr_fn(state.step)
-    state.optimizer.step()
+    with profiling.span("train.adam"):
+        state.optimizer.step()
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("train.sample_prob"):
         prob_num = sums.pop("prob_num")
         if ts.dynamic_sampling:
             state.sample_prob = prob_num / torch.sum(prob_num)

@@ -4,10 +4,17 @@
 
 Builds the flagship ``Config()`` train step (seeded weights, a synthetic
 512x512 audio frame held on the device) on the CUDA device, runs 2 warm-up
-steps, then traces ``--steps`` steps with ``torch.profiler`` and prints
-every CUDA kernel's device ms and launches per step and its share of the
-step (CUDA events), then the step's idle share: the part of the step in
-which no kernel ran.
+steps, then traces ``--steps`` steps with ``torch.profiler`` on the device
+alone (the host at its untraced pace) for the step's time (CUDA events),
+its kernel time and its idle share (the part of the step in which no
+kernel ran), and ``--steps`` more on the host and the device for the
+program's spans (utils/profiling.span_table). It prints every CUDA
+kernel's device ms and launches per step and its share of the step, one
+row for each span that launched it, then each program span's host ms,
+self ms and device ms a step, then the process's phase aggregates and
+counters (utils/profiling.snapshot: ``train.step``'s calls, total, first
+and longest seconds; ``kernels.built``, absent (0) when every kernel
+library was already built, and ``kernels.loaded``).
 ``--path`` picks the step: ``fused`` (the default, K1-K4), ``fallback``
 (fused_grads off: the autograd fallback, K1, K5, K6, K9, K3), ``reuse``
 (the fallback with fuse_composite off: K1, K7, K8, K9, K3), ``pointwise``
@@ -49,12 +56,18 @@ dg_dcoords_kernel); K13 as skip_wg_kernel (bfloat16, the same tile) or
 skip_mlp_kernel (float32); K14 as skip_bwd_wg_kernel (the backward tile),
 level_dw_kernel, bias_dw_kernel, dw_reduce (bfloat16) or skip_vjp_kernel,
 dw_kernel, dw_reduce (float32). Each line names the
-port's kernels whose launch it is (``OWNERS``).
+span that launched it: a C entry point's ``launch.<symbol>``
+(ops/kernels/_build.function), so that ``level_dw_kernel`` shows once
+under K2's ``launch.sahs_level_train`` and once under K3's
+``launch.sahs_deform_pair_vjp``, or the pipeline's span around a PyTorch
+op; a launch under no span is named by ``OWNERS``, the port's kernels
+whose launch it is.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import re
 import sys
 from typing import Dict, List, Optional
@@ -177,14 +190,20 @@ def trace_train_step(steps: int = 3, path: str = "fused",
                      variant_name: Optional[str] = None) -> Dict:
     """Trace ``steps`` flagship train steps of ``path`` (PATHS) in the fused
     step's variant ``variant_name`` (VARIANTS; None: the flags as they
-    stand). Returns {"step_ms", "kernels": [{"name", "launches_per_step",
-    "ms_per_step", "share"}], "kernel_ms", "idle_share", "variant"},
-    kernels in decreasing time."""
+    stand) on the device alone, then ``steps`` more on the host and the
+    device. Returns {"step_ms", "kernels": [{"name", "owner",
+    "launches_per_step", "ms_per_step", "share"}] (one row for each
+    kernel and span that launched it, from the second trace), "kernel_ms",
+    "idle_share", "variant", "spans": span_table's rows a step,
+    "program": utils/profiling.snapshot() after the traces}, kernels in
+    decreasing time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..utils.device import cuda_ms
+    from ..utils.profiling import (OUTSIDE, UNSEEN, launches_by_span, snapshot,
+                                   span_table)
 
     with variant(variant_name) if variant_name else contextlib.nullcontext():
         name = current_variant()
@@ -197,19 +216,26 @@ def trace_train_step(steps: int = 3, path: str = "fused",
             held[0], _ = step(held[0], batch, generator=gen)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step_ms = cuda_ms(one_step, steps, warmup=0)
-    totals: Dict[str, List[float]] = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = totals.setdefault(short_name(e.key), [0.0, 0.0])
-        t[0] += e.count / steps
-        t[1] += e.self_device_time_total / 1e3 / steps
-    kernels = [{"name": n, "owner": owner(n), "launches_per_step": c,
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as host:
+            for _ in range(steps):
+                one_step()
+            torch.cuda.synchronize()
+    kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    events = host.events()
+    totals: Dict[tuple, List[float]] = {}
+    for (span, kernel), (c, ms) in launches_by_span(events, steps).items():
+        n = short_name(kernel)
+        by = (owner(n) or span) if span in (OUTSIDE, UNSEEN) else span
+        t = totals.setdefault((n, by), [0.0, 0.0])
+        t[0] += c
+        t[1] += ms
+    kernels = [{"name": n, "owner": by, "launches_per_step": c,
                 "ms_per_step": ms, "share": ms / step_ms}
-               for n, (c, ms) in sorted(totals.items(), key=lambda kv: -kv[1][1])]
-    kernel_ms = sum(k["ms_per_step"] for k in kernels)
+               for (n, by), (c, ms) in sorted(totals.items(), key=lambda kv: -kv[1][1])]
     return {"step_ms": step_ms, "kernels": kernels, "kernel_ms": kernel_ms,
-            "idle_share": max(0.0, 1.0 - kernel_ms / step_ms), "variant": name}
+            "idle_share": max(0.0, 1.0 - kernel_ms / step_ms), "variant": name,
+            "spans": span_table(events, steps), "program": snapshot()}
 
 
 def main(argv=None) -> int:
@@ -230,6 +256,11 @@ def main(argv=None) -> int:
         print(f"{k['ms_per_step']:10.3f} ms {k['launches_per_step']:6.1f} x "
               f"{100 * k['share']:6.2f} %  {k['name']}"
               + (f"  [{k['owner']}]" if k["owner"] else ""))
+    print("spans a step (host and device traced): count, host ms, self ms, device ms")
+    for n, r in sorted(res["spans"].items(), key=lambda kv: -kv[1]["host_ms"]):
+        print(f"{r['count']:6.1f} {r['host_ms']:10.3f} {r['self_ms']:10.3f} "
+              f"{r['device_ms']:10.3f}  {n}")
+    print("program phases and counters " + json.dumps(res["program"], sort_keys=True))
     return 0
 
 

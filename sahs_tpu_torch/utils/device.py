@@ -9,6 +9,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from . import profiling
+
 # profiler windows that ``device_ms_by_kernel`` runs before it gives up
 _PROFILER_WINDOWS = 3
 
@@ -68,7 +70,8 @@ def device_ms_by_kernel(fn: Callable[[], object], launches: int = 200,
     windows of the same run had recorded; cause unknown). Such a window is
     run again, up to ``_PROFILER_WINDOWS`` in all, only when ``counter``
     moved in it: the kernel launched and the profiler missed it. Without a
-    counter, or when it did not move, an empty window raises."""
+    counter, or when it did not move, an empty window raises. Each window
+    counts ``profiler.windows`` (``profiler_windows``)."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -77,6 +80,7 @@ def device_ms_by_kernel(fn: Callable[[], object], launches: int = 200,
     torch.cuda.synchronize()
     for _ in range(_PROFILER_WINDOWS):
         before = None if counter is None else counter.launches
+        profiling.count("profiler.windows")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
                 fn()
@@ -94,6 +98,13 @@ def device_ms_by_kernel(fn: Callable[[], object], launches: int = 200,
                                "launch is known to have been missed")
     raise RuntimeError(f"torch.profiler recorded no device time in {_PROFILER_WINDOWS} "
                        "windows of launches")
+
+
+def profiler_windows() -> int:
+    """The profiler windows ``device_ms_by_kernel`` has opened in this
+    process: a report prints it beside each reading, so that a reading
+    that took more than one window shows."""
+    return profiling.snapshot()["counters"].get("profiler.windows", 0)
 
 
 @contextlib.contextmanager

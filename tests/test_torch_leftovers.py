@@ -9,8 +9,8 @@
   (d) models/nerface.py: apply_field against JAX's, and make_field_fn's
       kernel path (the plain versions on the CPU) and plain path against
       apply_field, for both model kinds;
-  (e) utils/profiling.py: Throughput on the same clock readings as JAX's,
-      a trace file of a step, and a capture through the profiler server;
+  (e) utils/profiling.py: a trace file of a step, and a capture through
+      the profiler server;
   (f) native/: the parse-map codec bit for bit against the JAX package's
       numpy path and its native path, and read_parse_map through it;
   (g) a Stage-I checkpoint written by JAX under SAHS_OPT_FLATTEN=1 (one
@@ -44,7 +44,6 @@ from sahs_tpu.models import nerface as jn
 from sahs_tpu.ops import rays as jrays
 from sahs_tpu.train import stage1 as jstage1
 from sahs_tpu.utils import checkpoint as jck
-from sahs_tpu.utils import profiling as jprof
 from sahs_tpu.utils import seg as jseg
 
 from sahs_tpu_torch import native as tnative
@@ -241,33 +240,20 @@ def test_apply_field_and_field_fn_match_jax(kind):
 # (e) profiling
 # ---------------------------------------------------------------------------
 
-def test_throughput_matches_jax(monkeypatch):
-    times = np.cumsum([0.0, 0.5, 0.25, 1.0, 0.125, 0.5, 2.0]).tolist()
-    for mod in (tprof, jprof):
-        it = iter(times)
-        monkeypatch.setattr(mod.time, "time", lambda it=it: next(it))
-        t = mod.Throughput(window=4)
-        got = []
-        for units in (100, 200, 300, 50, 25, 400, 800):
-            t.tick(units)
-            got.append(t.per_second())
-        if mod is tprof:
-            mine = got
-    assert mine == got and mine[0] is None
-
-
 def test_trace_and_profiler_server(tmp_path):
-    """trace() writes one Chrome trace naming the ops run inside; a capture
-    asked of the profiler server while the process computes writes another
-    into the directory asked for; a bad request gets an error, and the
-    server goes on."""
+    """trace() writes one Chrome trace naming the ops run inside and the
+    program's spans around them; a capture asked of the profiler server
+    while the process computes writes another into the directory asked
+    for; a bad request gets an error, and the server goes on."""
     a, b = torch.randn(64, 64), torch.randn(64, 64)
     with tprof.trace(str(tmp_path / "t")) as prof:
-        torch.mm(a, b)
+        with tprof.span("serve.chunk"):
+            torch.mm(a, b)
     assert os.path.dirname(prof.trace_path) == str(tmp_path / "t")
     with open(prof.trace_path) as fp:
         events = json.load(fp)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    assert any(e.get("name") == "serve.chunk" for e in events)
     server = tprof.start_profiler_server(0)
     stop = threading.Event()
 

@@ -690,7 +690,8 @@ def test_composite_forward_smem_covers_every_tiling_count():
 def test_kernel_functions_are_resolved_once(monkeypatch):
     """``_build.function`` keeps one typed C function per (library,
     symbol): a second lookup returns the same object without loading the
-    library again, and its argument types are set once. A stub library
+    library again, and its argument types are set once (on the callable's
+    ``fn``, the C function it calls in its launch span). A stub library
     stands in for nvcc's."""
     import ctypes
     from sahs_tpu_torch.ops.kernels import _build
@@ -728,14 +729,14 @@ def test_kernel_functions_are_resolved_once(monkeypatch):
     monkeypatch.setattr(_build, "_FUNCS", {})
     a = _build.function("stub", "sahs_a", "ppli")
     assert _build.function("stub", "sahs_a", "ppli") is a
-    assert loads == ["stub"] and a.sets == 1
-    assert a.argtypes == [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_int]
-    assert a.restype is ctypes.c_int
+    assert loads == ["stub"] and a.fn.sets == 1
+    assert a.fn.argtypes == [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_int]
+    assert a.fn.restype is ctypes.c_int
     b = _build.function("stub", "sahs_b", "f")
     c = _build.function("other", "sahs_a", "p")
     assert b is not a and c is not a and loads == ["stub", "stub", "other"]
-    assert (b.argtypes, c.argtypes) == ([ctypes.c_float], [ctypes.c_void_p])
+    assert (b.fn.argtypes, c.fn.argtypes) == ([ctypes.c_float], [ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------------------
