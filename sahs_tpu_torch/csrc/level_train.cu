@@ -779,10 +779,11 @@ __host__ __device__ __forceinline__ int imax(int x, int y) { return x > y ? x : 
 // warp) and the arrivals are predicated, so ptxas keeps the wgmma
 // pipelined (a divergent role branch serialises them: ptxas's C7520).
 //
-// Accumulation (PROMOTE, wgmma.cuh's product): FIELD_PROMOTE is the one
+// Accumulation (PROMOTE, fw::field_product): FIELD_PROMOTE is the one
 // the kernels run (PERF.md §6 has each candidate's distance from exact
-// sums and time). The ring, its stages and the products are wgmma.cuh's,
-// shared with the deformation nets' tile (skip_wg.cuh).
+// sums and time). The ring and its stages are wgmma.cuh's, shared with the
+// deformation nets' tile (skip_wg.cuh); the products the kernels run are
+// fw::field_product's, the candidates' wgmma.cuh's product.
 //
 // Bound on the H100: ~0.74 M multiply-adds a point against ~30 (K7) to
 // ~224 (K11) bytes, so operations: K5 at a frame's fine chunk (4.19 M
@@ -802,7 +803,6 @@ using wg::NC;                                         // output columns of a chu
 using wg::SLOT;                                       // bytes of a ring slot
 using wg::ASrc;
 using wg::Ring;
-using wg::product;
 using wg::sts32;
 constexpr int RING_MAX = 6;
 constexpr int SMEM_MAX = 232448;                     // a block's dynamic shared memory
@@ -900,6 +900,157 @@ struct Layout {
     bytes = bar + 16 * RING_MAX + 1024;
   }
 };
+
+// d = A1 W1 (+ A2 W2) over one chunk of N outputs, one ring stage a 64-k
+// block; called by the whole warpgroup. PROMOTE 1, what the kernels run,
+// gives wgmma.cuh's product<N, 1>'s sums bit for bit: the same products
+// (m64n64k16 pieces, or the head's width), each k16 step summed in the
+// tensor core from zero and added to the float32 sums with round to
+// nearest in k order. Only what waits on what differs. A chunk of 128
+// outputs runs each k16 step as two 64-column halves into two
+// accumulators in turn, one half in flight while the other's adds run,
+// across the chunk's stages too (product<N, 1> drains both halves at the
+// end of every stage); a chunk of 64 outputs does the same with whole
+// steps. Every path reaches a stage loop's head with the same products in
+// flight (the first stage peeled), so ptxas keeps the wgmma pipelined (a
+// head reached with other groups in flight on other paths serialises
+// them, C7514). A head (8 or 16 outputs) issues a stage's four k16 steps
+// into four accumulators, waits once and adds them in order (product<N, 1>
+// waits for each step before the next). Holding more live values (a chunk
+// of 128 as full-width steps, two in flight; three or four halves in
+// flight) needs ~190 registers a thread: ptxas spills them, also in a
+// 384-thread block whose consumers take 232 registers (setmaxnreg), and
+// the tile reads 1.7-5x slower (PERF.md §6, PR 27). The candidates
+// (PROMOTE 0, 2, 4; tools/field_forms.py) run product.
+template <int N, int PROMOTE>
+__device__ __forceinline__ void field_product(float (&d)[N / 2], const ASrc& s1, const ASrc& s2,
+                                              Ring& rg, int lane) {
+  if constexpr (PROMOTE != 1) {
+    wg::product<N, PROMOTE>(d, s1, s2, rg, lane);
+    return;
+  }
+  constexpr int R = N / 2;
+#pragma unroll
+  for (int e = 0; e < R; ++e) d[e] = 0.0f;
+  auto add = [&](float (&p)[R]) {
+    wg::fence_operand(p);
+#pragma unroll
+    for (int e = 0; e < R; ++e) d[e] = __fadd_rn(d[e], p[e]);
+  };
+  const int nb = s1.nb + s2.nb;
+  if constexpr (N <= 16) {
+    float p[4][R];
+    for (int b = 0; b < nb; ++b) {
+      const uint32_t ab = b < s1.nb ? wg::a_block(s1, b) : wg::a_block(s2, b - s1.nb);
+      wg::mbar_wait(&rg.full[rg.stage], rg.phase);
+      const uint32_t wb = wg::smem_u32(rg.slots + rg.stage * SLOT);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wg::fence_operand(p[j]);
+      wg::fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wg::mma<N, 0>(p[j], wg::k_desc(ab, j), wg::k_desc(wb, j), 0);
+      wg::commit();
+      wg::wait<0>();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) add(p[j]);
+      wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
+      rg.next();
+    }
+  } else if constexpr (N == NC) {
+    constexpr int H = R / 2, NH = N / 2;   // a half: N / 2 columns
+    float pa[H], pb[H];
+    uint32_t ab, wb;
+    auto stage = [&](int b) {
+      ab = b < s1.nb ? wg::a_block(s1, b) : wg::a_block(s2, b - s1.nb);
+      wg::mbar_wait(&rg.full[rg.stage], rg.phase);
+      wb = wg::smem_u32(rg.slots + rg.stage * SLOT);
+    };
+    auto issue = [&](float (&p)[H], int j, int half) {
+      wg::fence_operand(p);
+      wg::fence();
+      wg::mma<NH, 0>(p, wg::k_desc(ab, j), wg::k_desc(wb + half * NH * 128, j), 0);
+      wg::commit();
+    };
+    auto addh = [&](float (&p)[H], int off) {
+      wg::fence_operand(p);
+#pragma unroll
+      for (int e = 0; e < H; ++e) d[off + e] = __fadd_rn(d[off + e], p[e]);
+    };
+    // k16 steps 1-3 of a stage whose step 0's halves A and B are in flight
+    // (wait<1>: every half but the newest is done); ends with step 3's
+    // halves in flight
+    auto steps = [&]() {
+#pragma unroll
+      for (int j = 1; j < 4; ++j) {
+        wg::wait<1>(); addh(pa, 0); issue(pa, j, 0);
+        wg::wait<1>(); addh(pb, H); issue(pb, j, 1);
+      }
+    };
+    stage(0);
+    issue(pa, 0, 0);
+    issue(pb, 0, 1);
+    for (int b = 0; b + 1 < nb; ++b) {
+      steps();
+      const int done = rg.stage;
+      rg.next();
+      stage(b + 1);
+      wg::wait<1>(); addh(pa, 0); issue(pa, 0, 0);
+      wg::wait<1>(); addh(pb, H);
+      wg::mbar_arrive(&rg.empty[done], lane == 0);
+      issue(pb, 0, 1);
+    }
+    steps();
+    wg::wait<1>(); addh(pa, 0);
+    wg::wait<0>(); addh(pb, H);
+    wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
+    rg.next();
+  } else {
+    static_assert(N == KB, "a chunk is 64 or 128 outputs");
+    float p0[R], p1[R];
+    uint32_t ab, wb;
+    auto stage = [&](int b) {  // the stage of 64-k block b, once its weights are in
+      ab = b < s1.nb ? wg::a_block(s1, b) : wg::a_block(s2, b - s1.nb);
+      wg::mbar_wait(&rg.full[rg.stage], rg.phase);
+      wb = wg::smem_u32(rg.slots + rg.stage * SLOT);
+    };
+    auto issue = [&](float (&p)[R], int j) {
+      wg::fence_operand(p);
+      wg::fence();
+      wg::mma<N, 0>(p, wg::k_desc(ab, j), wg::k_desc(wb, j), 0);
+      wg::commit();
+    };
+    // k16 steps 1-3 of a stage whose step 0 is in flight in p0; ends with
+    // step 3 in flight in p1 (wait<1>: every step but the newest is done)
+    auto steps = [&]() {
+      issue(p1, 1);
+      wg::wait<1>();
+      add(p0);
+      issue(p0, 2);
+      wg::wait<1>();
+      add(p1);
+      issue(p1, 3);
+      wg::wait<1>();
+      add(p0);
+    };
+    stage(0);
+    issue(p0, 0);
+    for (int b = 0; b + 1 < nb; ++b) {
+      steps();
+      const int done = rg.stage;
+      rg.next();
+      stage(b + 1);
+      issue(p0, 0);
+      wg::wait<1>();
+      add(p1);
+      wg::mbar_arrive(&rg.empty[done], lane == 0);
+    }
+    steps();
+    wg::wait<0>();
+    add(p1);
+    wg::mbar_arrive(&rg.empty[rg.stage], lane == 0);
+    rg.next();
+  }
+}
 
 __device__ __forceinline__ void put(unsigned char* X, int t, int col, float v) {
   *reinterpret_cast<bf16*>(X + wg::sw128(wg::ROWS, t, col)) = __float2bfloat16_rn(v);
@@ -1222,11 +1373,11 @@ __device__ __forceinline__ void tile(const Args& a, unsigned char* smem) {
       const ASrc s1 = src(p.s1, p.k1), s2 = src(p.s2, p.k2);
       if (p.out == OUT_SEG) {
         float d[8];
-        product<16, PROMOTE>(d, s1, s2, rg, lane);
+        field_product<16, PROMOTE>(d, s1, s2, rg, lane);
         if (a.raw != nullptr) store_raw<16>(d, p.out, bias, a.raw, pbase, a.P, t);
       } else if (is_head(p.out)) {
         float d[4];
-        product<8, PROMOTE>(d, s1, s2, rg, lane);
+        field_product<8, PROMOTE>(d, s1, s2, rg, lane);
         if (a.raw != nullptr) store_raw<8>(d, p.out, bias, a.raw, pbase, a.P, t);
       } else {
         bf16* st = acts != nullptr ? acts + slots_s[p.slot] : nullptr;
@@ -1238,14 +1389,14 @@ __device__ __forceinline__ void tile(const Args& a, unsigned char* smem) {
           uint32_t h[NC / 4];
           if (chunk_cols(p, c) == NC) {
             float d[NC / 2];
-            product<NC, PROMOTE>(d, s1, s2, rg, lane);
+            field_product<NC, PROMOTE>(d, s1, s2, rg, lane);
             pack_chunk_as<NC>(d, h, c * NC, p.n, bias, p.leaky, st, t);
             if (in_place) wg::bar_sync(bar, wg::THREADS);
             put_chunk<NC>(h, dst, t);
           } else {
             uint32_t(&hk)[KB / 4] = reinterpret_cast<uint32_t(&)[KB / 4]>(h);
             float d[KB / 2];
-            product<KB, PROMOTE>(d, s1, s2, rg, lane);
+            field_product<KB, PROMOTE>(d, s1, s2, rg, lane);
             pack_chunk_as<KB>(d, hk, c * NC, p.n, bias, p.leaky, st, t);
             if (in_place) wg::bar_sync(bar, wg::THREADS);
             put_chunk<KB>(hk, dst, t);
@@ -1292,20 +1443,23 @@ __global__ void __launch_bounds__(fw::THREADS, 1) fwd_tc_kernel(const __grid_con
 // RAW, nerf_mlp.cu). Weights: the stages of nerf_level.wgmma_blob, laid out
 // from the forward blob that K8 and K12 read (nerf_level.point_blob), so a
 // forward and its backward read the same bytes. Design, bound and
-// accumulation: fw above. ptxas: fwd_tc_kernel 150 registers,
-// field_tc_kernel<1> 157 (of the 168 that 288 threads allow), no spill, a
-// 32-byte stack frame (sinf's reduction of huge angles), no C7520 (the
-// carried candidate <0> 168, 4 B spilled), 227,632 B of dynamic shared
-// memory at the flagship's
-// widths (a 4-stage ring). Measured on an H100 (PERF.md §6,
-// tools/level_ab.py in turns with the warp-level tensor-core tile it
-// replaced): K5 at a frame's fine
-// chunk 24.4 ms (70.3), K7 at a step's fine level 1.64 (4.65), K11 at the
-// per-point frame's chunk 34.6 (103.8), ~250-270 TFLOP/s, 25-27 % of the
-// bound; launch 1 of K2 2.36 ms at a step's fine level (6.13). What holds
-// it: each k16 step's float32 adds (every 4 steps read 18.7 ms) and, in an
-// earlier build with a heavier epilogue, cutting the epilogue out read
-// 7.5 ms and the front half (PE, corner gather) 4 ms less.
+// accumulation: fw above. ptxas: fwd_tc_kernel 155 registers,
+// field_tc_kernel<1> 154 (of the 168 that 288 threads allow), no spill, a
+// 32-byte stack frame (sinf's reduction of huge angles), no C7520 or C7514
+// (the carried candidate <0> 168, 4 B spilled), 227,632 B of dynamic
+// shared memory at the flagship's widths (a 4-stage ring). Measured on an
+// H100 (PERF.md §6, tools/level_ab.py in turns with the parent's
+// wgmma.cuh products): K5 at a frame's fine chunk 22.7 ms (23.9), K7 at a
+// step's fine level 1.55 (1.60), K11 at the per-point frame's chunk 32.4
+// (34.0), ~250-290 TFLOP/s, 25-29 % of the bound; launch 1 of K2 2.29 ms at
+// a step's fine level (2.34). What holds it: each k16 step's float32 adds
+// (the field alone: 22.3 ms every step, 15.9 carried over K, 18.6 every 4
+// steps) and, in an earlier build with a heavier epilogue, cutting the
+// epilogue out read 7.5 ms and the front half (PE, corner gather) 4 ms
+// less. A 384-thread block whose producer warpgroup gives its registers to
+// the consumers (setmaxnreg 40 / 232) did not help: every product form
+// that needed the registers spilled, and the two-halves form read ~2 %
+// slower in it than in this block.
 template <int PROMOTE>
 __global__ void __launch_bounds__(fw::THREADS, 1) field_tc_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(1024) unsigned char fw_smem[];

@@ -13,6 +13,7 @@ the frames that run them, for one tree of the port, on the card:
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --bwd-only
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --deform-only [--k3-bits FILE]
     python sahs_tpu_torch/tools/level_ab.py --tree <root> --pair-only
+    python sahs_tpu_torch/tools/level_ab.py --tree <root> --k5-bits FILE
 
 imports ``sahs_tpu_torch`` from ``--tree`` (default: the checkout this file
 is in), so that two versions are compared in one call by running it once
@@ -81,7 +82,12 @@ tree saved there, the stash slot by slot), then the traced fused,
 fallback-1, per-point and warp-only steps, ``--pair-only`` K2's pair=
 form (``_fold_times``: per call, by launch, beside K2 then K3's rays=
 form on K2's gx, its library calls and its bound) and the traced fused
-step in its default and fold variants, ``--steps-only`` the
+step in its default and fold variants, ``--k5-bits FILE`` the forward
+tile's outputs (``_k5_bits``: K5's raw field and composited outputs at a
+frame's chunks on the flagship's and the ablation's level, K7's and K11's
+raw field, K2's launch 1 with its stash and the call's outputs) saved to
+FILE, or held bit for bit against the ones another tree saved there,
+alone or before another mode's readings, ``--steps-only`` the
 steps alone, ``--bwd-only`` the level backward: K2, K6 and K8 at a step's
 fine and coarse level and K12 at the per-point step's 393,216 points per
 call (``_kernel_times``) and by launch (device ms, torch.profiler,
@@ -382,21 +388,9 @@ def _fold_times(dev, reps: int = 3) -> dict:
 
 def _k3_stash(fn, n: int):
     """The activation stash of one call of ``fn`` (a bf16 K3): the bf16
-    tensor of ``n`` elements it allocates, caught at ``torch.empty`` (each
-    tree's wrapper allocates it there, and returns no stash)."""
+    tensor of ``n`` elements it allocates (``_caught_empty``)."""
     import torch
-    made, empty = [], torch.empty
-
-    def catch(*args, **kw):
-        t = empty(*args, **kw)
-        made.append(t)
-        return t
-    torch.empty = catch
-    try:
-        fn()
-    finally:
-        torch.empty = empty
-    torch.cuda.synchronize()
+    _, made = _caught_empty(fn)
     return next(t for t in made if t.dtype == torch.bfloat16 and t.numel() == n)
 
 
@@ -420,6 +414,155 @@ def _held_bits(named: dict, slots, block: int, path: str) -> dict:
     return {"equal": {k: bool(torch.equal(v, ref[k])) for k, v in got.items()},
             "elements": stash.numel(), "differing_by_slot": by_slot,
             "first_differing_slot": next((i for i, n in enumerate(by_slot) if n), None)}
+
+
+def _digest(t) -> list:
+    """A tensor's bits as three integers: its element count, the sum of its
+    elements read as integers, and that sum weighted by a pseudo-random
+    int64 of each position (products and sums wrap modulo 2^64, so the
+    order of the sums does not matter)."""
+    import torch
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    x = t.detach().contiguous().view(ints[t.dtype]).reshape(-1).to(torch.int64)
+    w = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
+    w = w * 6364136223846793005 + 1442695040888963407
+    return [x.numel(), int(x.sum()), int((x * w).sum())]
+
+
+def _caught_empty(fn):
+    """``fn()``'s result and every tensor it allocated through
+    ``torch.empty``, in order (each tree's wrapper allocates its raw field
+    and stash there and returns neither)."""
+    import torch
+    made, empty = [], torch.empty
+
+    def catch(*args, **kw):
+        t = empty(*args, **kw)
+        made.append(t)
+        return t
+    torch.empty = catch
+    try:
+        out = fn()
+    finally:
+        torch.empty = empty
+    torch.cuda.synchronize()
+    return out, made
+
+
+def _flat(prefix: str, tree) -> dict:
+    """The tensors of a nested dict or list, named by their path."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(f"{prefix} {key}", tree[key]).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, x in enumerate(tree) for k, v in _flat(f"{prefix} {i}", x).items()}
+    return {} if tree is None else {prefix: tree}
+
+
+def _k5_bits(dev, path: str) -> dict:
+    """The forward tile's outputs (level_train.cu fw::tile) on seeded
+    inputs, saved to ``path`` when it does not exist, and otherwise held
+    bit for bit against the ones another tree saved there: K5's raw field
+    (``field_tc_kernel``, into the scratch of ``nerf_level._nerf_level_tc``)
+    and composited outputs at a frame's fine (32,768 rays x 128) and coarse
+    (x 64) chunk, on the flagship's seeded coarse level and on the ablation
+    config's (4 x 256, 15 PE frequencies, a 76-d code, the points
+    themselves); K7's raw at a step's fine level (2048 x 128) and K11's at
+    the per-point step's 2048 x 192, on the flagship's; and a K2 call at a
+    step's fine level (``fwd_tc_kernel``'s raw field and activation stash,
+    then every output and gradient of the call). The stash (1.8 GB) is held
+    slot by slot through ``_digest``, everything else element for element.
+    Returns whether each is equal and, where not, the elements that
+    differ."""
+    import numpy as np
+    import torch
+
+    from sahs_tpu_torch.config import Config, load_config
+    from sahs_tpu_torch.models import nerface
+    from sahs_tpu_torch.ops.grid import _cell_geometry, pack_corner_table
+    from sahs_tpu_torch.ops.kernels import level_train as k2
+    from sahs_tpu_torch.ops.kernels import nerf_level as k5
+    from sahs_tpu_torch.ops.kernels import nerf_mlp as k11
+
+    g = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    grid = (32, 32, 32)
+    ablation = load_config(os.path.join(_HERE, "configs", "expression",
+                                        "person_1_ablation.yml"))
+    named, digests = {}, {}
+    for cname, cfg, PW, n_cond in (("flagship", Config(), 5, 36),
+                                   ("ablation", ablation, 3, 76)):
+        spec = nerface.ModelSpec.from_config(cfg)
+        model = nerface.NeRFaceModel.init(spec, seed=0, device=dev)
+        rng = np.random.RandomState(27)
+        _, pts_g, dir_g = nerface.build_pe_groups(spec)
+        level = k5.prepare_level(model.coarse, g(rng.randn(n_cond) * 0.5), pts_g, dir_g)
+        table = pack_corner_table(model.spatial_embeddings.detach(), dtype=torch.bfloat16)
+        R = 32768
+        dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+        bg = g(rng.rand(R, 15))
+        for S, chunk in ((128, "fine"), (64, "coarse")):
+            P = R * S
+            pts = g(np.concatenate([rng.uniform(-0.6, 0.6, (P, 3)),
+                                    rng.uniform(-1, 1, (P, PW - 3))], 1))
+            rows = _cell_geometry(pts, grid)[0]
+            z = g(np.sort(rng.uniform(0.48, 1.08, (R, S)), axis=-1))
+            ints = k5.level_kernel_args(pts, dirs, table, rows, level, "bfloat16", grid,
+                                        "K5")[4]
+            rows_i, table_c = k5._grid_args(rows, table)
+            raw = torch.empty((P, 16), dtype=torch.float32, device=dev)
+            rgb, w = k5._nerf_level_tc(pts, dirs, table_c, rows_i, z, bg, None, level, R, S,
+                                       ints, raw)
+            named.update({f"K5 {cname} {chunk} raw": raw, f"K5 {cname} {chunk} rgb_map": rgb,
+                          f"K5 {cname} {chunk} weights": w})
+            del pts, rows, z, rows_i, raw
+            torch.cuda.empty_cache()
+        if cname == "ablation":
+            continue
+        R = 2048
+        rng = np.random.RandomState(28)
+        P = R * 128
+        pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                rng.uniform(-1, 1, (P, 2))], 1))
+        dirs = g(rng.randn(R, 3) * 0.1 + [0, 0, -1])
+        rows = _cell_geometry(pts, grid)[0]
+        named["K7 fine raw"] = k5.nerf_rayd_forward(pts, dirs, table, rows, level,
+                                                    "bfloat16", grid)
+        z = g(np.sort(rng.uniform(0.48, 1.08, (R, 128)), axis=-1))
+        bg, noise = g(rng.rand(R, 15)), g(rng.randn(R, 128) * 0.5)
+        tgt = g(np.concatenate([rng.rand(R, 3), np.eye(12)[rng.randint(0, 12, R)]], 1))
+        lw = g(np.stack([np.full(R, 1.0 / R), np.full(R, 0.02 / R)], 1))
+        out, made = _caught_empty(lambda: k2._launch(
+            "loss", "nerf_level_train", pts, dirs, table, rows, level, "bfloat16", grid,
+            z=z, bg=bg, noise=noise, tgt=tgt, lw=lw, bg_sup=0.5))
+        *outs, acts = out
+        named["K2 launch 1 raw"] = next(t for t in made if t.dtype == torch.float32
+                                        and tuple(t.shape) == (P, 16))
+        named.update(_flat("K2", {"rgb_map": outs[0], "weights": outs[1], "gx": outs[2],
+                                  "gse": outs[3], "g_bg": outs[4], "grads": outs[5]}))
+        plan = k2.level_train_plan(level, torch.bfloat16)
+        blocks = acts.reshape(-1, plan.act_stride)
+        offs = plan.slots[:plan.n_act].tolist() + [plan.act_stride]
+        for i, (a, b) in enumerate(zip(offs, offs[1:])):
+            digests[f"K2 launch 1 stash slot {i}"] = _digest(blocks[:, a:b])
+        del out, made, outs, acts, blocks
+        P = R * 192
+        pts = g(np.concatenate([rng.uniform(-1.05, 1.05, (P, 3)),
+                                rng.uniform(-1, 1, (P, 2))], 1))
+        extra = g(np.concatenate([rng.randn(P, 3) * 0.1 + [0, 0, -1],
+                                  rng.randn(P, level.dir0_se.shape[0]) * 0.3], 1))
+        named["K11 step raw"] = k11.nerf_mlp_forward_fused(pts, extra, level, "bfloat16")
+        del pts, extra
+    torch.cuda.synchronize()
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    got = {k: v.detach().contiguous().view(ints[v.dtype]).cpu() for k, v in named.items()}
+    if not os.path.exists(path):
+        torch.save({"tensors": got, "digests": digests}, path)
+        return {"saved": path, "tensors": len(got), "digests": len(digests)}
+    ref = torch.load(path)
+    equal = {k: bool(torch.equal(v, ref["tensors"][k])) for k, v in got.items()}
+    equal.update({k: v == ref["digests"][k] for k, v in digests.items()})
+    return {"all_equal": all(equal.values()), "equal": equal,
+            "differing": {k: int((v != ref["tensors"][k]).sum()) for k, v in got.items()
+                          if not equal[k]}}
 
 
 def _field_times(dev, reps: int = 3) -> dict:
@@ -1102,6 +1245,11 @@ def main(argv=None) -> int:
                     help="with --deform-only: save K3's activation stash (and K1's, "
                          "K13's and float32 K3's and K14's results) to this file, or "
                          "hold them bit for bit against the ones saved there")
+    ap.add_argument("--k5-bits", default=None,
+                    help="save the forward tile's outputs (K5's raw field at a frame's "
+                         "chunks for the flagship and the ablation, K7's, K11's, K2's "
+                         "launch 1 and its stash) to this file, or hold them bit for bit "
+                         "against the ones saved there; alone, or before another mode")
     ap.add_argument("--k1-bits", default=None,
                     help="with --serve-only: save K1's fine-chunk output to this file, "
                          "or hold it against the one saved there")
@@ -1116,6 +1264,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     res = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(sahs_tpu_torch.__file__))),
            "card": f"{torch.cuda.get_device_name(dev)} | {card_line()}"}
+    if args.k5_bits:
+        res["K5 bits"] = _k5_bits(dev, args.k5_bits)
+        if not any(v for k, v in vars(args).items() if k.endswith("_only")):
+            print(json.dumps(res), flush=True)
+            return 0
     if args.grid_only:
         res["grid"] = _grid_times(dev)
     elif args.chains_only:

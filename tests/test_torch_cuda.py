@@ -46,6 +46,7 @@ grid_bwd or grid_backward or order_free"`` (the grid backward), ``-k
 forms, K3's points' cotangent and the level kernels on a per-point se).
 """
 import dataclasses
+import re
 import zlib
 
 import numpy as np
@@ -2721,17 +2722,27 @@ def test_tensor_core_forward_tile_repeats_bit_for_bit(card, grid_free, no_ambien
     assert _same_bits(first, second)
 
 
-def _ring_stage_fault(level):
+# the product whose first weight stage a ring-stage fault leaves out: a
+# 128-wide chunk's (trunk[4]), or a head's (alpha: 8 outputs over the
+# trunk's 256 k; the seg head: 16 outputs over the branch's 128), which
+# issue their k16 steps in other orders (level_train.cu fw::field_product)
+RING_STAGES = {"trunk[4]": lambda L: 4, "alpha head": lambda L: L + 1,
+               "seg head": lambda L: L + 11}
+
+
+def _ring_stage_fault(level, stage: str = "trunk[4]"):
     """A copy of ``level`` whose weight stages (``nerf_level.wgmma_blob``,
-    which the wgmma tile streams) leave out trunk[4]'s first stage: its
-    first 64 k of its first 128 outputs."""
+    which the wgmma tile streams) leave out the first stage of ``stage``'s
+    product (RING_STAGES): its first 64 k of its first 128 outputs, or of
+    a head's 8 or 16."""
     faulty = dataclasses.replace(level, _blobs={})
     w, _, meta = k5.point_blob(faulty, torch.bfloat16)
     stages = k5.wgmma_blob(faulty, w).clone()
+    q_fault = RING_STAGES[stage](len(level.trunk))
     at = 0
     for q, _, _, _, _, rows, _ in k5.wgmma_stages(meta.reshape(-1, 7).tolist(),
                                                     len(level.trunk)):
-        if q == 4:
+        if q == q_fault:
             break
         at += rows * 64
     assert float(stages[at:at + rows * 64].float().abs().max()) > 0
@@ -2741,19 +2752,21 @@ def _ring_stage_fault(level):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(RING_STAGES))
 @pytest.mark.parametrize("kernel", ["K5", "K7", "K11"])
 def test_tensor_core_field_fault_ring_stage_misses_gates(card, grid_free, no_ambient,
-                                                        rng, kernel):
-    """One ring stage of trunk[4] left out of the weights the wgmma tile
-    streams: K5's composited outputs and K7's and K11's raw field must miss
-    the exact-sum rule that the faultless launch keeps."""
+                                                        rng, kernel, stage):
+    """One ring stage left out of the weights the wgmma tile streams
+    (trunk[4]'s first, or a head's first: RING_STAGES): K5's composited
+    outputs and K7's and K11's raw field must miss the exact-sum rule that
+    the faultless launch keeps."""
     if kernel == "K5":
         args = _tc_level_case(card, grid_free, rng, True, 64)
         out_p = k5.nerf_level_plain(*args)
         out_x = level_exact.exact_plain(k5.nerf_level_plain, *args)
         ok, d = _level_exact(k5.nerf_level_forward(*args), out_p, out_x)
         assert ok, d
-        faulty = args[:7] + (_ring_stage_fault(args[7]),) + args[8:]
+        faulty = args[:7] + (_ring_stage_fault(args[7], stage),) + args[8:]
         ok, d = _level_exact(k5.nerf_level_forward(*faulty), out_p, out_x)
         assert not ok, d
         return
@@ -2763,11 +2776,49 @@ def test_tensor_core_field_fault_ring_stage_misses_gates(card, grid_free, no_amb
     raw_x = _plain_ref(fp, *args, out_k=fk(*args))
     li = 4 if kernel == "K7" else 2      # the folded level among the arguments
     faulty = list(args)
-    faulty[li] = _ring_stage_fault(args[li])
+    faulty[li] = _ring_stage_fault(args[li], stage)
     raw_f = fk(*faulty)
     torch.cuda.synchronize()
     ok, d = _field_exact(raw_f, raw_p, raw_x)
     assert not ok, d
+
+
+# ptxas's report of a kernel in _build's log: the lines from its "entry
+# function" line to the next kernel's
+def _ptxas_blocks(log: str) -> dict:
+    blocks, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            blocks[name] = []
+        elif name is not None:
+            blocks[name].append(line)
+    return blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["field_tc_kernelILi1E", "fwd_tc_kernel"])
+def test_forward_tile_builds_without_spills_or_serialised_wgmma(card, kernel):
+    """ptxas's report of the forward tile's kernels that the path runs
+    (level_train.cu: field_tc_kernel<1> for K5's field, K7 and K11;
+    fwd_tc_kernel for launch 1 of K2/K6/K8/K12), read from _build's log of
+    level_train: no byte spilled (stores or loads) and no wgmma serialised
+    (C7520, or C7514: a loop head reached with other groups in flight on
+    other paths). A form of fw::field_product that holds more live values
+    spills within 168 registers a thread, and a spill or a serialised
+    wgmma each cost the tile more than its pipelining gains."""
+    from sahs_tpu_torch.ops.kernels import _build
+    _build.load("level_train")
+    log = _build.build_log("level_train")
+    assert "entry function" in log, "no ptxas report in the build log"
+    (name, block), = [(n, b) for n, b in _ptxas_blocks(log).items() if kernel in n]
+    spills = [int(n) for line in block for n in re.findall(r"(\d+) bytes spill", line)]
+    assert spills and not any(spills), block
+    flagged = [line for line in log.splitlines()
+               if re.search(r"C7520|C7514|serializ", line)
+               and (name in line or "'" not in line)]
+    assert not flagged, flagged
 
 
 # ---------------------------------------------------------------------------
